@@ -7,33 +7,46 @@ or without the rest of the repository beside it. Phases (any failure is
 fatal):
 
 1. Card: name and power limit from nvidia-smi.
-2. Build: compiles the three kernels from production_stack_tpu_torch/csrc.
-3. Kernels: K1 kv_write, K2 ragged_paged_attention and K3
-   paged_decode_attention, each against its plain PyTorch version on the
-   card at the llama-3-8b serving shapes (bf16, within one bf16 rounding
-   step of each output: rtol 2^-7, atol 1e-5) and at a tiny-llama
-   geometry (float32, D = 32, atol = rtol = 1e-5), with every
-   unwritten pool slot holding NaN. Times each kernel (CUDA events, median
-   of repeats) beside its plain version, K1 also beside ``index_copy_``,
-   and computes each kernel's bound from this run's inputs.
-4. Slice: the port's HTTP server on the card serves llama-3-8b (random
-   weights from a seed, bf16, default scheduler) to 16 requests; every
-   response must be 200 with the asked-for token count, and all three
-   kernels must have launched during this phase. Then the same engine is
-   traced (torch.profiler) over two prefill steps and 16 decode steps at
-   64 rows: device busy time, idle share and device time by kernel class.
+2. Build: compiles the four kernels from production_stack_tpu_torch/csrc,
+   one nvcc per source, all at once.
+3. Kernels: K1 kv_write, K2 ragged_paged_attention, K3
+   paged_decode_attention and K4 paged_prefill_attention, each against its
+   plain PyTorch version on the card at the llama-3-8b serving shapes
+   (bf16, within one bf16 rounding step of each output: rtol 2^-7, atol
+   1e-5) and at a tiny-llama geometry (float32, D = 32, atol = rtol =
+   1e-5), with every unwritten pool slot holding NaN; K2, K3 and K4 also at
+   head dims 96 and 256 (G = 2, soft cap 50, bf16 and float32). Times each
+   kernel (CUDA events, median of repeats) beside its plain version and one
+   PyTorch call that computes the same function (K1: ``index_copy_``; K2,
+   K3, K4: ``scaled_dot_product_attention`` on the context gathered
+   beforehand, the gather not timed), computes each kernel's bound from
+   this run's inputs, and sweeps K2's and K4's query tile.
+4. Slices, each through the port's HTTP server on the card serving
+   llama-3-8b (random weights from a seed, bf16, default scheduler) to the
+   same 16 requests; every response must be 200 with the asked-for token
+   count. First the ragged path: K1, K2 and K3 must launch in it, K4 not;
+   the engine is then traced (torch.profiler) over two full prefill steps
+   and 16 decode steps at 64 rows (device busy time, idle share, device
+   time by kernel class) and released. Then the bucketed path
+   (``--attention-impl bucketed``): K1, K3 and K4 must launch in it, K2
+   not; then two full bucketed prefill steps (4 chunks of 512 tokens) are
+   traced the same way.
 5. Kernel path against plain path: tiny-llama (float32) greedy tokens from
-   the engine on the card equal those of the engine on the CPU, up to any
-   printed argmax near-tie (CPU top-2 logprob gap under 1e-4).
+   the engine on the card equal those of the engine on the CPU, on the
+   ragged and on the bucketed path, up to any printed argmax near-tie (CPU
+   top-2 logprob gap under 1e-4).
 
-The line before the card line carries the kernels' JSON record; the last
-line is ``{"ok": true, "device": {...}}``.
+The line before the card line carries the kernels' JSON record, whose
+``launches`` sum each kernel's launches over the two slices (each slice's
+own counts are in ``launches_by_path``); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
 
 import collections
 import concurrent.futures
+import gc
 import json
 import pathlib
 import statistics
@@ -63,7 +76,10 @@ SRC = {
            "production_stack_tpu/ops/ragged_paged_attention_pallas.py:51"),
     "K3": ("production_stack_tpu_torch/csrc/paged_decode_attention.cu",
            "production_stack_tpu/ops/paged_attention_pallas.py:53"),
+    "K4": ("production_stack_tpu_torch/csrc/paged_prefill_attention.cu",
+           "production_stack_tpu/ops/paged_attention_pallas.py:277"),
 }
+SDPA_NOTE = "SDPA on pre-gathered K/V, gather not counted"
 
 
 def log(*a) -> None:
@@ -170,6 +186,131 @@ def decode_work(ctx_lens, H, KH, D, itemsize, bs):
     return nbytes, 4 * H * D * sum(live)
 
 
+def make_prefill_batch(rng, chunks, S, M, bs, KH2, D, dtype, torch, L=2,
+                       layer=1):
+    """A pool whose every unwritten slot is NaN, plus a batch of
+    ``chunks`` = [(q_start, chunk_len) or None for an inactive row] padded
+    to the bucket S: chunks own distinct random blocks, the tables are
+    0-padded past live blocks (block 0 belongs to a chunk), and each active
+    chunk's positions below its context hold random values (those of the
+    chunk itself as K1 writes them just before K4 runs)."""
+    import numpy as np
+
+    P = len(chunks)
+    ctxs = [sum(c) if c else 0 for c in chunks]
+    N = sum(-(-c // bs) for c in ctxs) + 8
+    perm = rng.permutation(N).astype(np.int32)
+    perm = np.concatenate([[0], perm[perm != 0]])  # block 0 is live
+    tables = np.zeros((P, M), np.int32)
+    q_starts = np.full(P, -1, np.int32)  # as the engine passes inactive rows
+    written = []
+    nxt = 0
+    for p, c in enumerate(chunks):
+        if c is None:
+            continue
+        nb = -(-ctxs[p] // bs)
+        tables[p, :nb] = perm[nxt:nxt + nb]
+        nxt += nb
+        q_starts[p] = c[0]
+        pos = np.arange(ctxs[p])
+        written.append(tables[p, pos // bs].astype(np.int64) * bs + pos % bs)
+    pool = torch.full((L, N, bs, KH2, D), float("nan"), dtype=dtype,
+                      device="cuda")
+    flat = pool[layer].view(N * bs, KH2, D)
+    idx = torch.as_tensor(np.concatenate(written), device="cuda")
+    flat[idx] = torch.randn((len(idx), KH2, D), dtype=dtype, device="cuda")
+    dev = {k: torch.as_tensor(v, device="cuda") for k, v in
+           (("tables", tables), ("q_starts", q_starts),
+            ("ctx", np.asarray(ctxs, np.int32)))}
+    return pool, dev
+
+
+def prefill_work(chunks, S, H, KH, D, itemsize, bs):
+    """(bytes, FLOPs) K4 needs: the q rows of active chunks (the padding
+    rows of an active chunk attend its whole context, so their queries are
+    read too; an inactive chunk outputs 0 whatever q holds), all output
+    rows, each active chunk's context K and V and live block-table entries
+    once, the chunk starts and contexts; 4 H D FLOPs per (row, visible
+    position) pair, where row s of a chunk sees min(q_start + s + 1, ctx)
+    positions."""
+    P = len(chunks)
+    nbytes = P * S * H * D * itemsize + 2 * P * 4
+    flops = 0
+    for c in chunks:
+        if c is None:
+            continue
+        q0, n = c
+        ctx = q0 + n
+        vis = n * q0 + n * (n + 1) // 2 + (S - n) * ctx
+        flops += 4 * H * D * vis
+        nbytes += (S * H * D * itemsize + ctx * 2 * KH * D * itemsize
+                   + -(-ctx // bs) * 4)
+    return nbytes, flops
+
+
+def sdpa_yardstick(torch, pool, layer, entries, H, KH):
+    """One ``scaled_dot_product_attention`` call that computes what a paged
+    kernel computes on these inputs, for its ``library_ms``: each entry's
+    context gathered contiguously beforehand (not timed), GQA heads
+    expanded, queries padded to the longest entry and the causal offset as
+    a boolean mask. ``entries`` = [(q (n, H, D), positions (n,), ctx,
+    table row)], one per span, sequence or active chunk. Returns the call
+    and a function giving entry b's (n, H, D) rows of its output."""
+    import torch.nn.functional as F
+    from production_stack_tpu_torch.ops.paged_attention import split_kv
+
+    _, _, bs, KH2, D = pool.shape
+    G = H // KH
+    B = len(entries)
+    Lq = max(e[0].shape[0] for e in entries)
+    Lk = max(e[2] for e in entries)
+    dev, dt = pool.device, pool.dtype
+    Q = torch.zeros((B, H, Lq, D), dtype=dt, device=dev)
+    K = torch.zeros((B, H, Lk, D), dtype=dt, device=dev)
+    V = torch.zeros_like(K)
+    mask = torch.zeros((B, 1, Lq, Lk), dtype=torch.bool, device=dev)
+    for b, (q, qpos, ctx, row) in enumerate(entries):
+        nb = -(-ctx // bs)
+        k, v = split_kv(pool[layer][row[:nb].long()].reshape(
+            nb * bs, KH2, D)[:ctx])
+        K[b, :, :ctx] = k.repeat_interleave(G, dim=1).transpose(0, 1)
+        V[b, :, :ctx] = v.repeat_interleave(G, dim=1).transpose(0, 1)
+        Q[b, :, :q.shape[0]] = q.transpose(0, 1)
+        mask[b, 0, :q.shape[0], :ctx] = (
+            torch.arange(ctx, device=dev)[None, :] <= qpos[:, None])
+
+    def call():
+        return F.scaled_dot_product_attention(Q, K, V, attn_mask=mask)
+
+    def rows(out, b):
+        return out[b, :, :entries[b][0].shape[0]].transpose(0, 1)
+
+    return call, rows
+
+
+def time_sdpa(torch, name, pool, layer, entries, H, KH, want_rows,
+              reps=10) -> float:
+    """Time the SDPA yardstick, and log how far its output lies from the
+    plain version's on the same rows (a check that it computes the same
+    function; its bf16 rounding differs from the kernels')."""
+    call, rows = sdpa_yardstick(torch, pool, layer, entries, H, KH)
+    out = call()
+    err = max(float((rows(out, b).float() - w.float()).abs().max())
+              for b, w in enumerate(want_rows))
+    ms = time_ms(torch, call, reps)
+    log(f"[kernels] {name} library call ({SDPA_NOTE}): {ms:.4f} ms, max abs "
+        f"err against the plain version {err:.3e}")
+    del out
+    return ms
+
+
+def walk_smem_bytes(D: int, R: int) -> int:
+    """Dynamic shared memory of one CTA of K2, K3 or K4 with R rows at head
+    dim D (``smem_bytes`` in csrc/paged_attention_common.cuh)."""
+    floats = R * D * 2 + 32 * (D + 1) + 32 * D + R * 33 + R * 3
+    return floats * 4 + R * 4
+
+
 def check_close(name, got, want, tol, torch) -> float:
     """Max abs error of ``got`` against ``want``, failing past ``tol`` =
     (atol, rtol); logs the worst element against its own limit."""
@@ -192,6 +333,130 @@ def check_close(name, got, want, tol, torch) -> float:
         f"{float(share.max()):.3f} of its limit; output rms "
         f"{float(want_f.pow(2).mean().sqrt()):.4e}")
     return float(err.max())
+
+
+def prefill_check(torch, rng, name, H, KH, D, dtype, tol, soft_cap=0.0):
+    """K4 against its plain version on a small batch at (H, KH, D): a fresh
+    chunk, a continuation at q_start 37, a chunk 13 tokens short of the
+    bucket S = 40 (which no tile height divides: the edge tile is masked)
+    and an inactive row. Returns the max abs error."""
+    from production_stack_tpu_torch.ops import paged_prefill_attention as k4
+
+    chunks, S = [(0, 40), (37, 40), (0, 27), None], 40
+    pool, dev = make_prefill_batch(rng, chunks, S, 8, 16, 2 * KH, D, dtype,
+                                   torch)
+    q = torch.randn((len(chunks), S, H, D), dtype=dtype, device="cuda")
+    args = (q, pool, dev["tables"], dev["q_starts"], dev["ctx"], 1)
+    got = k4.paged_prefill_attention(*args, soft_cap=soft_cap)
+    err = check_close(name, got, k4.paged_prefill_attention_plain(
+        *args, soft_cap=soft_cap), tol, torch)
+    if not (got[3] == 0).all():
+        raise AssertionError(f"{name}: the inactive chunk is not exactly 0")
+    return err
+
+
+def head_dim_phase(torch, rng) -> None:
+    """K2, K3 and K4 at head dims 96 (phi3-mini-class) and 256 (the Gemma
+    classes) with gemma2-9b-class's G = 2 (H = 16, KH = 8) and attention
+    soft cap 50, in bf16 and in float32, against their plain versions. At
+    D = 256 a K2 CTA needs more than the 48 KiB of shared memory a launch
+    gets without opting in."""
+    from production_stack_tpu_torch.ops import paged_decode_attention as k3
+    from production_stack_tpu_torch.ops import ragged_paged_attention as k2
+
+    H, KH, cap = 16, 8, 50.0
+    spans = [(0, 40, 100), (1, 1, 17), (3, 1, 1), (4, 90, 90), (6, 1, 200)]
+    T, S, M, bs = 256, 8, 16, 16
+    for D in (96, 256):
+        for dtype, tol in ((torch.bfloat16, BF16_TOL),
+                           (torch.float32, F32_TOL)):
+            tag = f"D={D}, {str(dtype).replace('torch.', '')}"
+            pool, dev, _ = make_stream(rng, spans, T, S, M, bs, 2 * KH, D,
+                                       dtype, torch)
+            q = torch.randn((T, H, D), dtype=dtype, device="cuda")
+            args = (q, pool, dev["tables"], dev["cu"], dev["ctx"], 1)
+            errs = [check_close(
+                f"K2 ({tag})", k2.ragged_paged_attention(*args, soft_cap=cap),
+                k2.ragged_paged_attention_plain(*args, soft_cap=cap), tol,
+                torch)]
+            dq = torch.randn((S, H, D), dtype=dtype, device="cuda")
+            dargs = (dq, pool, dev["tables"], dev["ctx"], 1)
+            errs.append(check_close(
+                f"K3 ({tag})", k3.paged_decode_attention(*dargs, soft_cap=cap),
+                k3.paged_decode_attention_plain(*dargs, soft_cap=cap), tol,
+                torch))
+            errs.append(prefill_check(torch, rng, f"K4 ({tag})", H, KH, D,
+                                      dtype, tol, soft_cap=cap))
+            log(f"[kernels] head dim {tag}, H={H}, KH={KH}, soft_cap {cap}: "
+                f"K2 / K3 / K4 max abs err "
+                f"{' / '.join(f'{e:.3e}' for e in errs)}")
+            del pool
+    R = k2.Q_TILE * H // KH
+    log(f"[kernels] K2 at D=256, R={R}: {walk_smem_bytes(256, R)} bytes of "
+        f"shared memory a CTA (opt-in above {48 * 1024})")
+
+
+def prefill_kernel_phase(torch, np, card, rng, cfg, M) -> dict:
+    """K4 at the llama-3-8b shapes of a bucketed prefill step, against its
+    plain version, timed beside it and beside SDPA, with its bound; then
+    its q_tile sweep on a full bucket of 4 fresh 512-token chunks and on
+    one fresh 2048-token chunk."""
+    from production_stack_tpu_torch.ops import paged_prefill_attention as k4
+
+    H, KH, D, bs, layer = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 16, 1
+    # a fresh chunk, a continuation of a 700-token context, a chunk shorter
+    # than the bucket (212 padding rows) and an inactive row
+    chunks, S = [(0, 512), (700, 512), (0, 300), None], 512
+    pool, dev = make_prefill_batch(rng, chunks, S, M, bs, 2 * KH, D,
+                                   torch.bfloat16, torch, layer=layer)
+    q = torch.randn((len(chunks), S, H, D), dtype=torch.bfloat16,
+                    device="cuda")
+    args = (q, pool, dev["tables"], dev["q_starts"], dev["ctx"], layer)
+    got = k4.paged_prefill_attention(*args)
+    want = k4.paged_prefill_attention_plain(*args)
+    torch.cuda.synchronize()
+    err = check_close("K4 paged_prefill_attention", got, want, BF16_TOL,
+                      torch)
+    if not (got[3] == 0).all():
+        raise AssertionError("K4: the inactive chunk is not exactly 0")
+    ms = time_ms(torch, lambda: k4.paged_prefill_attention(*args), 10)
+    plain_ms = time_ms(torch, lambda: k4.paged_prefill_attention_plain(*args),
+                       3, warmup=1)
+    nbytes, flops = prefill_work(chunks, S, H, KH, D, 2, bs)
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+    active = [p for p, c in enumerate(chunks) if c]
+    entries = [(q[p], dev["q_starts"][p] + torch.arange(S, device="cuda"),
+                sum(chunks[p]), dev["tables"][p]) for p in active]
+    lib_ms = time_sdpa(torch, "K4", pool, layer, entries, H, KH,
+                       [want[p] for p in active])
+    del entries, pool, got, want
+
+    for label, s_chunks, s_S in (("4 x 512 fresh", [(0, 512)] * 4, 512),
+                                 ("1 x 2048 fresh", [(0, 2048)], 2048)):
+        spool, sdev = make_prefill_batch(rng, s_chunks, s_S, M, bs, 2 * KH,
+                                         D, torch.bfloat16, torch,
+                                         layer=layer)
+        sq = torch.randn((len(s_chunks), s_S, H, D), dtype=torch.bfloat16,
+                         device="cuda")
+        sargs = (sq, spool, sdev["tables"], sdev["q_starts"], sdev["ctx"],
+                 layer)
+        swant = k4.paged_prefill_attention_plain(*sargs)
+        times = {}
+        for qt in (2, 4, 8, 16, 32):
+            check_close(f"K4 {label}, q_tile={qt}", k4.paged_prefill_attention(
+                *sargs, q_tile=qt), swant, BF16_TOL, torch)
+            times[qt] = time_ms(torch, lambda: k4.paged_prefill_attention(
+                *sargs, q_tile=qt), 10)
+        s_bytes, s_flops = prefill_work(s_chunks, s_S, H, KH, D, 2, bs)
+        sb_ms, sb_by = bound(s_bytes, s_flops, BF16_FLOPS)
+        log(f"[kernels] K4 ms by q_tile (default {k4.Q_TILE}) on {label}: "
+            f"{json.dumps(times)}; bound {sb_ms:.4f} ms by {sb_by} ({card})")
+        del spool, sq, swant
+    return {"name": "K4 paged_prefill_attention", "key": "K4",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "shape": f"P=4, S={S}, M={M}: fresh 512, 512 after 700, 300 of "
+                     "512, inactive"}
 
 
 def kernel_phase(torch, np, card: str) -> list[dict]:
@@ -289,9 +554,19 @@ def kernel_phase(torch, np, card: str) -> list[dict]:
                        3, warmup=1)
     nbytes, flops = ragged_work(spans, H, KH, D, 2, S, bs, T)
     b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+    cu = dev["cu"].tolist()
+    entries, want_rows = [], []
+    for slot, q_len, ctx in spans:
+        if q_len:
+            c0 = cu[slot]
+            qpos = ctx - q_len + torch.arange(q_len, device="cuda")
+            entries.append((q[c0:c0 + q_len], qpos, ctx, dev["tables"][slot]))
+            want_rows.append(want[c0:c0 + q_len])
+    lib_ms = time_sdpa(torch, "K2", pool, layer, entries, H, KH, want_rows)
+    del entries, want_rows
     results.append({"name": "K2 ragged_paged_attention", "key": "K2",
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                     "shape": f"T={T}, S={S}, M={M}, {live} live tokens"})
 
     # K3: one query per slot, contexts up to 2k, empty slots at ctx 0
@@ -314,11 +589,19 @@ def kernel_phase(torch, np, card: str) -> list[dict]:
     ctx_sum = int(ddev["ctx"].sum())
     nbytes, flops = decode_work(ddev["ctx"].tolist(), H, KH, D, 2, bs)
     b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+    entries = [(dq[b:b + 1], torch.full((1,), c - 1, device="cuda"), c,
+                ddev["tables"][b])
+               for b, c in enumerate(ddev["ctx"].tolist()) if c > 0]
+    want_rows = [want[b:b + 1]
+                 for b, c in enumerate(ddev["ctx"].tolist()) if c > 0]
+    lib_ms = time_sdpa(torch, "K3", dpool, layer, entries, H, KH, want_rows)
+    del entries, want_rows
     results.append({"name": "K3 paged_decode_attention", "key": "K3",
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                     "shape": f"B={S}, M={M}, {ctx_sum} context tokens"})
     del dpool
+    results.append(prefill_kernel_phase(torch, np, card, rng, cfg, M))
 
     # float32 at D = 32 (tiny-llama geometry: H=4, KH=2)
     tH, tKH, tD, tT, tS, tM = 4, 2, 32, 256, 8, 32
@@ -345,9 +628,13 @@ def kernel_phase(torch, np, card: str) -> list[dict]:
     d32 = (dq32, tpool, tdev["tables"], dctx, 0)
     e3 = check_close("K3 (f32, D=32)", k3.paged_decode_attention(*d32),
                      k3.paged_decode_attention_plain(*d32), F32_TOL, torch)
+    e4 = prefill_check(torch, rng, "K4 (f32, D=32)", tH, tKH, tD,
+                       torch.float32, F32_TOL)
     log(f"[kernels] float32 D=32: K1 bit-identical, K2 max err {e2:.2e} "
-        f"(soft_cap {e2c:.2e}), K3 max err {e3:.2e} (atol, rtol = {F32_TOL})")
+        f"(soft_cap {e2c:.2e}), K3 max err {e3:.2e}, K4 max err {e4:.2e} "
+        f"(atol, rtol = {F32_TOL})")
     del tpool, tref
+    head_dim_phase(torch, rng)
     # the split of the fused slab the kernels assume: K at [0, KH), V after
     k_, v_ = split_kv(torch.arange(4 * 3, device="cuda").view(1, 4, 3))
     if k_.flatten().tolist() != list(range(6)):
@@ -390,17 +677,29 @@ def _request(url: str, body: dict, stream: bool):
         return status, n_out, time.perf_counter() - t0
 
 
-def slice_phase(torch, np, counters, card: str) -> dict:
-    from production_stack_tpu_torch.engine.config import EngineConfig
-    from production_stack_tpu_torch.engine.server import EngineServer
+def slice_phase(torch, np, counters, card: str, impl: str,
+                expected: set) -> dict:
+    """The 16 requests through the port's HTTP server on llama-3-8b with
+    ``--attention-impl impl``; the kernels in ``expected`` must launch in
+    this phase and the others not. Releases the engine and its pool before
+    it returns the phase's launch counts."""
+    from production_stack_tpu_torch.engine.server import (
+        EngineServer,
+        build_parser,
+        config_from_args,
+    )
 
-    cfg = EngineConfig.for_model("llama-3-8b", seed=0)
+    cfg = config_from_args(build_parser().parse_args(
+        ["--model", "llama-3-8b", "--seed", "0", "--attention-impl", impl]))
     t0 = time.perf_counter()
     server = EngineServer(cfg, device="cuda")
     port = server.start("127.0.0.1", 0)
     eng = server.engine
-    log(f"[slice] llama-3-8b up in {time.perf_counter() - t0:.1f} s: "
-        f"{eng.runner.num_blocks} KV blocks, T="
+    if eng.attention_impl != impl:
+        raise AssertionError(f"[slice] asked for {impl}, the engine runs "
+                             f"{eng.attention_impl}")
+    log(f"[slice] {impl}: llama-3-8b up in {time.perf_counter() - t0:.1f} "
+        f"s: {eng.runner.num_blocks} KV blocks, T="
         f"{cfg.scheduler.max_num_batched_tokens}, S="
         f"{cfg.scheduler.max_num_seqs}, device memory "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
@@ -449,8 +748,10 @@ def slice_phase(torch, np, counters, card: str) -> dict:
             raise AssertionError(f"[slice] bad response: status {status}, "
                                  f"{n_out} tokens")
     for key, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"[slice] kernel {key} never launched")
+        if (n > 0) != (key in expected):
+            raise AssertionError(
+                f"[slice] {impl}: kernel {key} launched {n} times; this "
+                f"path must launch {sorted(expected)} and no other")
     ttft = [ft - arr for arr, ft, _, _ in stamps]
     out_tok = sum(r[1] for r in results)
     summary = {
@@ -459,20 +760,32 @@ def slice_phase(torch, np, counters, card: str) -> dict:
         "ttft_median_s": statistics.median(ttft),
         "e2e_median_s": statistics.median(r[2] for r in results),
         "ragged_steps": stats["ragged_dispatches_total"],
+        "prefill_steps": stats["prefill_dispatches_total"],
+        "prefill_bucket_utilization": stats["prefill_bucket_utilization"],
         "decode_steps": stats["decode_dispatches_total"],
         "launches": launches,
     }
-    log(f"[slice] {card}: {json.dumps(summary)}")
-    profile_phase(torch, np, eng, card)
+    log(f"[slice] {impl} ({card}): {json.dumps(summary)}")
+    if impl == "ragged":
+        profile_phase(torch, np, eng, card)
+    else:
+        profile_bucketed(torch, np, eng, card)
+    # the next engine sizes its pool to 0.9 of the free memory
     del server, eng
+    gc.collect()
     torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 2**30
+    log(f"[slice] {impl} engine released: {left:.2f} GiB still allocated")
+    if left > 1.0:
+        raise AssertionError(f"[slice] {impl}: the engine's memory was not "
+                             "released")
     return launches
 
 
 def _category(name: str) -> str:
     for key, cat in (("kv_write_kernel", "K1"), ("ragged_kernel", "K2"),
-                     ("decode_kernel", "K3"), ("Memcpy", "copy"),
-                     ("Memset", "copy")):
+                     ("decode_kernel", "K3"), ("prefill_kernel", "K4"),
+                     ("Memcpy", "copy"), ("Memset", "copy")):
         if key in name:
             return cat
     low = name.lower()
@@ -508,60 +821,78 @@ def _profiled(torch, run):
     return wall, (busy / 1e3 if spans else None), cats, len(spans)
 
 
+def _add_requests(eng, rng, tag, n, length, max_tokens) -> None:
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    sp = SamplingParams(temperature=0.0, max_tokens=max_tokens,
+                        ignore_eos=True)
+    for i in range(n):
+        eng.add_request(f"{tag}{i}", sampling=sp, prompt_token_ids=(
+            rng.integers(0, 256, length).tolist()))
+
+
+def _report(card, label, n, wall, busy, cats, kernels) -> None:
+    rec = {"steps": n, "wall_ms_per_step": wall / n}
+    if busy is None:
+        rec["device"] = "not measured (the trace held no device events)"
+    else:
+        rec.update({
+            "device_kernels_per_step": kernels / n,
+            "device_busy_ms_per_step": busy / n,
+            "device_idle_share": 1.0 - busy / wall,
+            "device_ms_per_step": {c: v / n for c, v in
+                                   sorted(cats.items())}})
+    log(f"[profile] {label} ({card}): {json.dumps(rec)}")
+
+
+def _prefill_window(torch, eng, rng, counter: str):
+    """Two full prefill steps of 4 prompts of 512 tokens each (one
+    dispatch each, then the step that resolves it), traced; ``counter``
+    is the engine's count of such dispatches."""
+    def prefill_twice():
+        for tag in ("pa", "pb"):
+            _add_requests(eng, rng, tag, 4, 512, 1)
+            while eng.has_unfinished():
+                eng.step()
+
+    n0 = getattr(eng, counter)
+    prof = _profiled(torch, prefill_twice)
+    if getattr(eng, counter) - n0 != 2:
+        raise AssertionError("[profile] the prefill window is not 2 steps")
+    return prof
+
+
+def profile_bucketed(torch, np, eng, card: str) -> None:
+    """Where a bucketed prefill step's time goes, on the llama-3-8b engine
+    that just served: two full steps of P = 4 chunks in the 512 bucket."""
+    prof = _prefill_window(torch, eng, np.random.default_rng(3),
+                           "prefill_dispatches")
+    _report(card, "bucketed, 4 x 512 prefill tokens", 2, *prof)
+
+
 def profile_phase(torch, np, eng, card: str) -> None:
     """Where an engine step's time goes, on the llama-3-8b engine that just
     served (its HTTP front end stopped): a window of two full prefill
     ragged steps (4 prompts of 512 tokens each) and a window of 16
     decode-only steps at 64 rows (contexts of about 130-170 tokens), each
     traced, and the next 16 decode steps timed untraced."""
-    from production_stack_tpu_torch.engine.sampling import SamplingParams
-
     rng = np.random.default_rng(3)
-
-    def add(tag, n, length, max_tokens):
-        sp = SamplingParams(temperature=0.0, max_tokens=max_tokens,
-                            ignore_eos=True)
-        for i in range(n):
-            eng.add_request(f"{tag}{i}", sampling=sp, prompt_token_ids=(
-                rng.integers(0, 256, length).tolist()))
 
     def steps(k):
         for _ in range(k):
             eng.step()
 
-    def report(label, n, wall, busy, cats, kernels):
-        rec = {"steps": n, "wall_ms_per_step": wall / n}
-        if busy is None:
-            rec["device"] = "not measured (the trace held no device events)"
-        else:
-            rec.update({
-                "device_kernels_per_step": kernels / n,
-                "device_busy_ms_per_step": busy / n,
-                "device_idle_share": 1.0 - busy / wall,
-                "device_ms_per_step": {c: v / n for c, v in
-                                       sorted(cats.items())}})
-        log(f"[profile] {label} ({card}): {json.dumps(rec)}")
+    prof = _prefill_window(torch, eng, rng, "ragged_dispatches")
+    _report(card, "ragged, 2048 prefill tokens", 2, *prof)
 
-    def prefill_twice():
-        for tag in ("pa", "pb"):  # one full step each, then its resolve
-            add(tag, 4, 512, 1)
-            while eng.has_unfinished():
-                eng.step()
-
-    r0 = eng.ragged_dispatches
-    prof = _profiled(torch, prefill_twice)
-    if eng.ragged_dispatches - r0 != 2:
-        raise AssertionError("[profile] the prefill window is not 2 steps")
-    report("ragged, 2048 prefill tokens", 2, *prof)
-
-    add("dc", 64, 128, 48)
+    _add_requests(eng, rng, "dc", 64, 128, 48)
     d0 = eng.decode_dispatches
     while eng.decode_dispatches == d0:  # prefill all 64, then one decode
         eng.step()
     prof = _profiled(torch, lambda: steps(16))
     if eng.decode_dispatches - d0 != 17:
         raise AssertionError("[profile] the decode window ran ragged steps")
-    report("decode, 64 rows", 16, *prof)
+    _report(card, "decode, 64 rows", 16, *prof)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     steps(16)
@@ -574,7 +905,7 @@ def profile_phase(torch, np, eng, card: str) -> None:
 
 # -- phase 5: the kernel path against the plain path --------------------------
 
-def parity_phase(torch, np) -> None:
+def parity_phase(torch, np, impl: str) -> None:
     from production_stack_tpu_torch.engine.config import (
         CacheConfig,
         EngineConfig,
@@ -588,7 +919,8 @@ def parity_phase(torch, np) -> None:
     torch.backends.cudnn.allow_tf32 = False
     cfg = EngineConfig.for_model(
         "tiny-llama", cache=CacheConfig(block_size=16, num_blocks=256),
-        scheduler=SchedulerConfig(max_num_seqs=8, max_num_batched_tokens=64))
+        scheduler=SchedulerConfig(max_num_seqs=8, max_num_batched_tokens=64),
+        attention_impl=impl)
     params = init_random(cfg.model, seed=0, device="cpu")
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, 259, n).tolist()
@@ -627,8 +959,8 @@ def parity_phase(torch, np) -> None:
         else:
             if len(cpu_t[i]) != len(gpu_t[i]):
                 raise AssertionError(f"[parity] request {i}: lengths differ")
-    log(f"[parity] tiny-llama float32: {compared} greedy tokens identical "
-        f"between the kernel path (card) and the plain path (cpu)")
+    log(f"[parity] tiny-llama float32, {impl}: {compared} greedy tokens "
+        f"identical between the kernel path (card) and the plain path (cpu)")
 
 
 def main() -> int:
@@ -647,6 +979,7 @@ def main() -> int:
     from production_stack_tpu_torch.ops import _build
     from production_stack_tpu_torch.ops import kv_write as k1
     from production_stack_tpu_torch.ops import paged_decode_attention as k3
+    from production_stack_tpu_torch.ops import paged_prefill_attention as k4
     from production_stack_tpu_torch.ops import ragged_paged_attention as k2
 
     t_start = time.perf_counter()
@@ -662,19 +995,28 @@ def main() -> int:
     log(f"[build] kernels built in {build_s:.1f} s")
 
     results = kernel_phase(torch, np, card)
-    counters = [k1.LAUNCHES, k2.LAUNCHES, k3.LAUNCHES]
-    launches = slice_phase(torch, np, counters, card)
-    parity_phase(torch, np)
+    counters = [k1.LAUNCHES, k2.LAUNCHES, k3.LAUNCHES, k4.LAUNCHES]
+    by_path = {
+        "ragged": slice_phase(torch, np, counters, card, "ragged",
+                              {"K1", "K2", "K3"}),
+        "bucketed": slice_phase(torch, np, counters, card, "bucketed",
+                                {"K1", "K3", "K4"}),
+    }
+    for impl in by_path:
+        parity_phase(torch, np, impl)
 
     kernels = []
     for r in results:
         source, replaces = SRC[r["key"]]
         kernels.append({
             "name": r["name"], "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[r["key"]],
+            "replaces": replaces,
+            "launches": sum(n[r["key"]] for n in by_path.values()),
+            "launches_by_path": {p: n[r["key"]] for p, n in by_path.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "library_call": SDPA_NOTE if r["key"] != "K1" else "index_copy_",
         })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

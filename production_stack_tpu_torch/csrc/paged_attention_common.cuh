@@ -1,6 +1,7 @@
-// Device code shared by the ragged (K2) and decode (K3) paged-attention
-// kernels: shared-memory layout, query staging and the walk over one
-// sequence's paged context with an online softmax in float32.
+// Device code shared by the ragged (K2), decode (K3) and prefill (K4)
+// paged-attention kernels: shared-memory layout, query staging, the walk
+// over one sequence's paged context with an online softmax in float32, and
+// the head dims each kernel is instantiated for.
 //
 // A CTA owns R query rows that all read the same KV head `kh`. Each row
 // carries its own absolute query position (qpos, -1 = not attending in the
@@ -22,9 +23,29 @@
 
 #include <math.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace pstt {
+
+// Calls f(std::integral_constant<int, D>{}) for the head dims the kernels
+// are built for, every head dim of the package's model presets (the list
+// is ops/_build.py HEAD_DIMS; the wrappers refuse any other). Each is a
+// whole number of 16-byte vectors in float32 and in bf16, as the staging
+// loads need.
+template <typename F>
+inline int with_head_dim(int head_dim, F&& f) {
+  switch (head_dim) {
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 48: return f(std::integral_constant<int, 48>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 96: return f(std::integral_constant<int, 96>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 256: return f(std::integral_constant<int, 256>{});
+    default: return kUnsupported;
+  }
+}
 
 constexpr int kThreads = 128;  // 4 warps per CTA
 constexpr int kTileK = 32;     // context positions staged per step (1/lane)

@@ -125,22 +125,12 @@ int dispatch_d(int head_dim, const void* q, const void* pool, void* out,
                const int* tcount, int T_tokens, int H, int KH, int N, int bs,
                int M, int layer, int q_tile, int num_tiles, float scale,
                float soft_cap, cudaStream_t s) {
-  switch (head_dim) {
-    case 32:
-      return launch<T, 32>(q, pool, out, bt, cu, cl, tfirst, tcount, T_tokens,
-                           H, KH, N, bs, M, layer, q_tile, num_tiles, scale,
-                           soft_cap, s);
-    case 64:
-      return launch<T, 64>(q, pool, out, bt, cu, cl, tfirst, tcount, T_tokens,
-                           H, KH, N, bs, M, layer, q_tile, num_tiles, scale,
-                           soft_cap, s);
-    case 128:
-      return launch<T, 128>(q, pool, out, bt, cu, cl, tfirst, tcount, T_tokens,
-                            H, KH, N, bs, M, layer, q_tile, num_tiles, scale,
-                            soft_cap, s);
-    default:
-      return kUnsupported;
-  }
+  return with_head_dim(head_dim, [&](auto d) {
+    return launch<T, decltype(d)::value>(q, pool, out, bt, cu, cl, tfirst,
+                                         tcount, T_tokens, H, KH, N, bs, M,
+                                         layer, q_tile, num_tiles, scale,
+                                         soft_cap, s);
+  });
 }
 
 }  // namespace pstt

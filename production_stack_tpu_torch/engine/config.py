@@ -215,15 +215,30 @@ class SchedulerConfig:
     max_num_seqs: int = 64  # decode slots
     max_num_batched_tokens: int = 2048  # token budget per step
     max_queue_len: int = 4096
+    # bucketed path: prefill token lengths are padded up to one of these
+    prefill_buckets: tuple[int, ...] = (128, 256, 512, 1024, 2048, 4096, 8192)
     # decode iterations run per decode dispatch (vLLM's num-scheduler-steps);
     # stop conditions are checked every multi_step tokens
     multi_step: int = 1
+    # bucketed path: prefill chunks batched into one dispatch (padded to a
+    # power of two no larger than this)
+    prefill_batch: int = 4
 
     @property
     def decode_horizon(self) -> int:
         """Tokens of block capacity a decode dispatch may consume past
         ``num_computed_tokens``."""
         return max(self.multi_step, 1)
+
+    def bucket_for(self, n: int, max_model_len: Optional[int] = None) -> int:
+        """The padded token length a chunk of n tokens runs at on the
+        bucketed path: the one source of bucket rounding (the scheduler's
+        truncation and the engine's padding must agree)."""
+        for b in self.prefill_buckets:
+            if b >= n:
+                return b if max_model_len is None else min(b, max_model_len)
+        top = max(self.prefill_buckets)
+        return top if max_model_len is None else min(top, max_model_len)
 
 
 @dataclasses.dataclass
@@ -232,8 +247,11 @@ class EngineConfig:
     cache: CacheConfig = dataclasses.field(default_factory=CacheConfig)
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
     # "ragged" packs prefill chunks and decode rows into one token stream
-    # per step; "auto" resolves to it. "bucketed" (padded prefill buckets
-    # plus the paged prefill kernel) is not ported yet.
+    # per step (K1 + K2). "bucketed" runs prefill chunks padded to
+    # power-of-two buckets, up to prefill_batch of them a step (K1 + K4),
+    # and decode in steps of their own. "auto" resolves to "ragged" on
+    # both devices; the reference's "auto" picks "bucketed" wherever its
+    # Pallas kernels do not apply, the CPU included.
     attention_impl: str = "auto"  # "auto" | "ragged" | "bucketed"
     seed: int = 0
 

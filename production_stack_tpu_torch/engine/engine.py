@@ -1,16 +1,20 @@
 """LLMEngine: the synchronous engine core (scheduler + model runner).
 
-Ports the ragged path of production_stack_tpu/engine/engine.py. ``step()``
-runs one scheduler decision on the device and returns per-request
-increments; the server (engine/server.py) drives it from its engine
-thread, and tests drive it directly.
+Ports the ragged and the bucketed path of
+production_stack_tpu/engine/engine.py. ``step()`` runs one scheduler
+decision on the device and returns per-request increments; the server
+(engine/server.py) drives it from its engine thread, and tests drive it
+directly.
 
-A step with a prefill chunk packs every decode row and the FCFS prefill
-chunks into one token stream (``_run_ragged``). Its results are fetched at
-the start of the next step, as in the reference, so the host builds the
-next step while the card computes this one. A step with only decode rows
-runs ``_run_decode`` and resolves at once. Speculation, grammar, LoRA, KV
-tiers and transfer, and the perf accountant are not ported yet.
+On the ragged path a step with a prefill chunk packs every decode row and
+the FCFS prefill chunks into one token stream (``_run_ragged``). On the
+bucketed path a step with prefill chunks runs only those, padded to one
+bucket (``_run_prefill``). Either dispatch's results are fetched at the
+start of a later step, as in the reference, so the host builds the next
+step while the card computes this one. A step with only decode rows runs
+``_run_decode`` and resolves at once. Speculation, grammar, LoRA, ring
+prefill, KV tiers and transfer, and the perf accountant are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -67,23 +71,26 @@ class LLMEngine:
             max_model_len=config.model.max_model_len,
         )
         sched = config.scheduler
-        if sched.max_num_batched_tokens < sched.max_num_seqs:
-            raise ValueError(
-                "ragged attention needs max_num_batched_tokens "
-                f"({sched.max_num_batched_tokens}) >= max_num_seqs "
-                f"({sched.max_num_seqs}): every decode row claims one "
-                "stream token per step"
-            )
-        T = sched.max_num_batched_tokens
+        self.attention_impl = self.runner.attention_impl
         B = sched.max_num_seqs
         M = self.runner.max_blocks_per_seq
         # persistent host arrays, rewritten in place each step
-        self._r_tokens = np.zeros(T, np.int32)
-        self._r_positions = np.full(T, -1, np.int32)
-        self._r_slot_mapping = np.full(T, -1, np.int32)
-        self._r_cu = np.zeros(B + 1, np.int32)
-        self._r_last_idx = np.zeros(B, np.int32)
-        self._r_sample_mask = np.zeros(B, np.float32)
+        if self.attention_impl == "ragged":
+            if sched.max_num_batched_tokens < sched.max_num_seqs:
+                raise ValueError(
+                    "ragged attention needs max_num_batched_tokens "
+                    f"({sched.max_num_batched_tokens}) >= max_num_seqs "
+                    f"({sched.max_num_seqs}): every decode row claims one "
+                    "stream token per step"
+                )
+            self.scheduler.unified = True
+            T = sched.max_num_batched_tokens
+            self._r_tokens = np.zeros(T, np.int32)
+            self._r_positions = np.full(T, -1, np.int32)
+            self._r_slot_mapping = np.full(T, -1, np.int32)
+            self._r_cu = np.zeros(B + 1, np.int32)
+            self._r_last_idx = np.zeros(B, np.int32)
+            self._r_sample_mask = np.zeros(B, np.float32)
         self._tokens = np.zeros(B, np.int32)
         self._positions = np.zeros(B, np.int32)
         self._block_tables = np.zeros((B, M), np.int32)
@@ -100,13 +107,17 @@ class LLMEngine:
         self._ctrl_vals = np.zeros((B, MAX_TOKEN_CONTROLS), np.float32)
         self._ctrl_mode = np.zeros(B, np.int32)
         self._count_reset_slots: list[Sequence] = []
-        # the ragged dispatch whose results land at the next step
+        # the ragged or prefill dispatch whose results land at a later step
         self._pending_ragged: Optional[dict] = None
+        self._pending_prefill: Optional[tuple] = None
         self.total_prompt_tokens = 0
         self.total_output_tokens = 0
         self.aborted_seqs = 0
         self.ragged_dispatches = 0
         self.ragged_live_tokens = 0
+        self.prefill_dispatches = 0
+        self.prefill_live_tokens = 0
+        self.prefill_padded_tokens = 0
         self.decode_dispatches = 0
 
     # -- request intake ------------------------------------------------------
@@ -158,13 +169,19 @@ class LLMEngine:
     def step(self) -> list[RequestOutput]:
         out = self.scheduler.schedule()
         if out.is_empty:
-            return self._resolve_pending_ragged()
+            outputs = self._resolve_pending_ragged()
+            outputs.extend(self._resolve_pending_prefill())
+            return outputs
         if out.prefills:
-            return self._run_ragged(out)
-        # decode consumes the last sampled token: the pending ragged
-        # results land first, and may finish sequences the scheduler put
-        # in this step's decode batch
+            if self.attention_impl == "ragged":
+                return self._run_ragged(out)
+            # decode steps resolve at once, so no decode token is pending
+            return self._run_prefill(out.prefills)
+        # decode consumes the last sampled token: the pending ragged or
+        # prefill results land first, and may finish sequences the
+        # scheduler put in this step's decode batch
         outputs = self._resolve_pending_ragged()
+        outputs.extend(self._resolve_pending_prefill())
         decodes = [s for s in out.decodes
                    if s.status is SequenceStatus.RUNNING]
         if decodes:
@@ -338,6 +355,113 @@ class LLMEngine:
                                 if seq.sampling.logprobs is not None else None)
         return self._postprocess(live, token_lists, lp_lists)
 
+    # -- bucketed prefill step -----------------------------------------------
+    def _bucket(self, n: int) -> int:
+        return self.config.scheduler.bucket_for(n,
+                                                self.config.model.max_model_len)
+
+    def _run_prefill(self, prefills: list) -> list[RequestOutput]:
+        """ONE dispatch for up to ``prefill_batch`` chunks, each padded to
+        the bucket of the longest. The batch is padded to a power of two
+        (inactive rows skip attention but pay the projections and the MLP,
+        so P stays as small as the chunks allow), capped at
+        ``prefill_batch``; padded rows carry context 0."""
+        bs = self.config.cache.block_size
+        P = 1 << (len(prefills) - 1).bit_length()
+        P = min(P, self.config.scheduler.prefill_batch)
+        M = self.runner.max_blocks_per_seq
+        bucket = self._bucket(max(sp.chunk_len for sp in prefills))
+
+        tokens = np.zeros((P, bucket), np.int32)
+        positions = np.full((P, bucket), -1, np.int32)
+        slot_mapping = np.full((P, bucket), -1, np.int32)
+        tables = np.zeros((P, M), np.int32)
+        context_lens = np.zeros(P, np.int32)  # 0 = inactive row
+        last_idx = np.zeros(P, np.int32)
+        temps = np.zeros(P, np.float32)
+        top_ps = np.ones(P, np.float32)
+        top_ks = np.full(P, -1, np.int32)
+        seeds = np.zeros(P, np.uint32)
+        for i, sp in enumerate(prefills):
+            seq = sp.seq
+            n, start = sp.chunk_len, sp.chunk_start
+            tokens[i, :n] = seq.token_ids[start : start + n]
+            positions[i, :n] = np.arange(start, start + n)
+            slot_mapping[i, :n] = slot_mapping_for(seq.block_ids, start, n, bs)
+            tables[i, : len(seq.block_ids)] = seq.block_ids
+            context_lens[i] = start + n
+            last_idx[i] = n - 1
+            s = seq.sampling
+            temps[i] = s.temperature
+            top_ps[i] = s.top_p
+            top_ks[i] = s.top_k
+            seeds[i] = s.seed or 0
+
+        greedy_only = all(sp.seq.sampling.temperature <= 0.0
+                          for sp in prefills)
+        ctrl = None
+        if any(sp.seq.token_ctrl is not None for sp in prefills):
+            c_ids = np.full((P, MAX_TOKEN_CONTROLS), -1, np.int32)
+            c_vals = np.zeros((P, MAX_TOKEN_CONTROLS), np.float32)
+            c_mode = np.zeros(P, np.int32)
+            for i, sp in enumerate(prefills):
+                if sp.seq.token_ctrl is not None:
+                    c_ids[i], c_vals[i], c_mode[i] = sp.seq.token_ctrl
+            ctrl = (c_ids, c_vals, c_mode)
+        result = self.runner.prefill(
+            tokens, positions, tables, context_lens, slot_mapping.reshape(-1),
+            last_idx, temps, top_ps, top_ks, seeds, greedy_only=greedy_only,
+            ctrl=ctrl,
+        )
+        self.prefill_dispatches += 1
+        self.prefill_live_tokens += sum(sp.chunk_len for sp in prefills)
+        self.prefill_padded_tokens += P * bucket
+
+        # scheduler-visible state advances now; the sampled tokens are
+        # fetched one step later, so this dispatch's device time overlaps
+        # the host's next-step work
+        resolve_list = []
+        for i, sp in enumerate(prefills):
+            seq = sp.seq
+            seq.num_computed_tokens = sp.chunk_start + sp.chunk_len
+            if not seq.prefill_done:
+                continue  # more chunks to go
+            seq.status = SequenceStatus.RUNNING
+            s = seq.sampling
+            if s.presence_penalty or s.frequency_penalty:
+                # fresh prompt: the prefill-sampled token must count;
+                # recompute: restore the full output history
+                self._count_reset_slots.append(seq)
+            if seq.output_token_ids:
+                # preemption-recompute: the newest token is still the
+                # pending decode input, nothing was sampled for it
+                continue
+            resolve_list.append((i, seq))
+        outputs = self._resolve_pending_prefill()
+        self._pending_prefill = (resolve_list, result)
+        return outputs
+
+    def _resolve_pending_prefill(self) -> list[RequestOutput]:
+        """Fetch and post-process the previous prefill dispatch, if any."""
+        if self._pending_prefill is None:
+            return []
+        resolve_list, result = self._pending_prefill
+        self._pending_prefill = None
+        sampled, *lp = (x.cpu().numpy() for x in result)
+        live, token_lists, lp_lists = [], [], []
+        for i, seq in resolve_list:
+            if seq.status.is_finished:
+                continue  # aborted while the dispatch was in flight
+            token = int(sampled[i])
+            seq.first_token_time = time.monotonic()
+            seq.output_token_ids.append(token)
+            self.total_output_tokens += 1
+            live.append(seq)
+            token_lists.append([token])
+            lp_lists.append([_lp_row(lp, i)]
+                            if seq.sampling.logprobs is not None else None)
+        return self._postprocess(live, token_lists, lp_lists)
+
     # -- decode-only step ----------------------------------------------------
     def _run_decode(self, decodes: list[Sequence]) -> list[RequestOutput]:
         bs = self.config.cache.block_size
@@ -465,6 +589,11 @@ class LLMEngine:
                 self.ragged_live_tokens
                 / max(1, self.ragged_dispatches
                       * self.config.scheduler.max_num_batched_tokens)
+            ),
+            "prefill_dispatches_total": self.prefill_dispatches,
+            "prefill_live_tokens_total": self.prefill_live_tokens,
+            "prefill_bucket_utilization": (
+                self.prefill_live_tokens / max(1, self.prefill_padded_tokens)
             ),
             "decode_dispatches_total": self.decode_dispatches,
         }

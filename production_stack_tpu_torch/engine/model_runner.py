@@ -1,7 +1,8 @@
-"""Device steps over the paged cache: the ragged unified step and the
-decode step.
+"""Device steps over the paged cache: the ragged unified step, the
+bucketed prefill step and the decode step.
 
-Ports the ragged path of production_stack_tpu/engine/model_runner.py:
+Ports the ragged and the bucketed path of
+production_stack_tpu/engine/model_runner.py:
 
 - ``ragged_step`` (``_ragged_step``): ONE forward over a packed token
   stream ``tokens (T,)`` that covers prefill chunks AND decode rows, with
@@ -9,15 +10,19 @@ Ports the ragged path of production_stack_tpu/engine/model_runner.py:
   token budget (``max_num_batched_tokens``) and ``S`` is ``max_num_seqs``,
   as in the reference, so every step has the same shapes. Each slot samples
   at its span's last token (``last_idx``).
+- ``prefill`` (``_prefill_step``): one forward over ``P`` prefill chunks
+  padded to one bucket, ``tokens (P, S)``; inactive rows carry context 0.
+  Each chunk samples its first token at ``last_idx``.
 - ``decode_multi`` (``_decode_multi_step``): ``multi_step`` fused
   decode+sample iterations over the fixed ``(S,)`` decode batch, as a
   Python loop.
 
 Attention goes through the kernel wrappers (``ops/kv_write.py``,
-``ops/ragged_paged_attention.py``, ``ops/paged_decode_attention.py``):
-their plain versions for CPU tensors, the CUDA kernels for CUDA tensors.
-The pool is updated in place. The bucketed prefill path, LoRA, grammar,
-speculative verify and CUDA-graph capture are not ported yet.
+``ops/ragged_paged_attention.py``, ``ops/paged_prefill_attention.py``,
+``ops/paged_decode_attention.py``): their plain versions for CPU tensors,
+the CUDA kernels for CUDA tensors. The pool is updated in place. LoRA,
+grammar, ring prefill, speculative verify and CUDA-graph capture are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -41,6 +46,9 @@ from production_stack_tpu_torch.ops.kv_write import kv_write
 from production_stack_tpu_torch.ops.paged_attention import combine_kv
 from production_stack_tpu_torch.ops.paged_decode_attention import (
     paged_decode_attention,
+)
+from production_stack_tpu_torch.ops.paged_prefill_attention import (
+    paged_prefill_attention,
 )
 from production_stack_tpu_torch.ops.ragged_paged_attention import (
     ragged_paged_attention,
@@ -72,17 +80,12 @@ class ModelRunner:
                 "window (exactness gate, see ModelConfig.sliding_window)"
             )
         impl = config.attention_impl or "auto"
-        if impl == "bucketed":
-            raise NotImplementedError(
-                "attention_impl='bucketed' (padded prefill buckets and the "
-                "paged prefill kernel K4) is not ported yet; see ROADMAP.md, "
-                "Queue 1, item 1, 'K4 and the bucketed path'"
-            )
-        if impl not in ("auto", "ragged"):
+        if impl not in ("auto", "ragged", "bucketed"):
             raise ValueError(
                 f"attention_impl must be auto|ragged|bucketed, got {impl!r}"
             )
-        self.attention_impl = "ragged"
+        # auto is ragged on both devices (see EngineConfig.attention_impl)
+        self.attention_impl = "ragged" if impl == "auto" else impl
         self.model = get_model(self.cfg)
         if self.device.type == "cuda":
             # compile every kernel now, not on the first request
@@ -104,15 +107,27 @@ class ModelRunner:
 
     # -- sizing ------------------------------------------------------------
     def _transient_bytes(self) -> int:
-        """Activation memory a ragged step needs beside the pool: hidden
-        states and MLP intermediates of the T-token stream, and the (S, V)
-        float32 logits with their sampling temporaries."""
+        """Activation memory a step needs beside the pool: hidden states
+        and MLP intermediates of the step's tokens, and the float32 logits
+        with their sampling temporaries. A ragged step has T tokens and
+        (S, V) logits. A bucketed prefill step has up to prefill_batch
+        chunks padded to the bucket of the largest chunk the scheduler
+        issues (as the reference's _prefill_temp_bytes sizes it), and its
+        decode steps have (S, V) logits."""
         sched = self.config.scheduler
-        T = sched.max_num_batched_tokens
         c = self.cfg
-        hidden = T * c.hidden_size * 4
-        mlp = T * c.intermediate_size * 2
-        logits = sched.max_num_seqs * c.vocab_size * 4
+        rows = sched.max_num_seqs
+        if self.attention_impl == "ragged":
+            tokens = sched.max_num_batched_tokens
+        else:
+            Pb = max(sched.prefill_batch, 1)
+            chunk = min(sched.max_num_batched_tokens, c.max_model_len,
+                        max(sched.prefill_buckets))
+            tokens = Pb * sched.bucket_for(chunk)
+            rows = max(rows, Pb)
+        hidden = tokens * c.hidden_size * 4
+        mlp = tokens * c.intermediate_size * 2
+        logits = rows * c.vocab_size * 4
         return int(8 * hidden + 4 * mlp + 4 * logits)
 
     def _resolve_num_blocks(self, explicit: Optional[int]) -> int:
@@ -140,6 +155,20 @@ class ModelRunner:
             q.contiguous(), kv, meta["block_tables"], meta["cu_q_lens"],
             meta["context_lens"], layer, soft_cap=self.cfg.attn_logit_softcap,
             tiles=meta["tiles"],
+        )
+        return out, kv
+
+    def _attend_prefill(self, q, k, v, kv, layer, meta):
+        """q (P, S, H, D), k/v (P, S, KH, D): the chunks' K+V written over
+        the flattened (P*S) tokens (slot -1 on padding), then each chunk
+        attends its context; inactive rows carry context 0."""
+        P, S, KH, D = k.shape
+        newkv = combine_kv(k.reshape(P * S, KH, D),
+                           v.reshape(P * S, KH, D)).to(kv.dtype).contiguous()
+        kv_write(kv, newkv, meta["slot_mapping"], layer)
+        out = paged_prefill_attention(
+            q.contiguous(), kv, meta["block_tables"], meta["q_starts"],
+            meta["context_lens"], layer, soft_cap=self.cfg.attn_logit_softcap,
         )
         return out, kv
 
@@ -246,6 +275,39 @@ class ModelRunner:
                 (rows, sampled.long()),
                 self._dev(sample_mask).to(torch.int32), accumulate=True)
         # logprobs report the raw model distribution
+        return (sampled, *compute_logprobs(logits, sampled))
+
+    @torch.inference_mode()
+    def prefill(self, tokens, positions, block_tables, context_lens,
+                slot_mapping, last_idx, temps, top_ps, top_ks, seeds,
+                greedy_only: bool = False, ctrl=None):
+        """A batch of prefill chunks padded to one bucket, with each chunk's
+        first token sampled in the same step.
+
+        tokens/positions (P, S) with position -1 on padding (a whole row of
+        -1 on an inactive chunk); block_tables (P, M); context_lens (P,),
+        0 = inactive; slot_mapping (P*S,) flat KV slots (-1 = skip);
+        last_idx (P,) index of each chunk's last token. No penalties apply:
+        the first token has no output history. Logprobs of the raw logits
+        ride every step. Returns device tensors (sampled (P,), tok_lp (P,),
+        top_ids (P, N), top_lps (P, N))."""
+        meta = {
+            "block_tables": self._dev(block_tables),
+            "context_lens": self._dev(context_lens),
+            "slot_mapping": self._dev(slot_mapping),
+            # each chunk's first position (-1 on an inactive chunk)
+            "q_starts": self._dev(positions[:, 0]),
+        }
+        hidden = self._forward(self._attend_prefill, self._dev(tokens),
+                               self._dev(positions), meta)  # (P, S, E)
+        P = hidden.shape[0]
+        last = hidden[torch.arange(P, device=self.device),
+                      self._dev(last_idx, torch.int64)]  # (P, E)
+        logits = self.model.logits_from_hidden(self.cfg, self.params, last)
+        samp = self._sampling_inputs(temps, top_ps, top_ks, seeds,
+                                     np.zeros(P, np.int32))
+        sampled = self._process_logits(logits, samp, greedy_only, None, None,
+                                       ctrl)
         return (sampled, *compute_logprobs(logits, sampled))
 
     @torch.inference_mode()

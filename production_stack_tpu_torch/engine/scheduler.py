@@ -1,11 +1,21 @@
-"""Continuous-batching scheduler: the unified token-budget policy.
+"""Continuous-batching scheduler: the unified and the bucketed policy.
 
-Ports ``Scheduler._schedule_unified`` and FCFS admission from
-production_stack_tpu/engine/scheduler.py. Every step collects all
-decodable sequences (one stream token each), then FCFS prefill chunks fill
-whatever budget decode left; ``max_num_batched_tokens`` is the only shape
-knob. When the pool runs dry a decode row preempts the youngest running
-sequence (vLLM-style recompute). Speculative grants, ring prefill, the
+Ports FCFS admission and the two policies of ``Scheduler.schedule`` from
+production_stack_tpu/engine/scheduler.py, which share admission, blocks
+and preemption:
+
+- **Unified** (``unified = True``, set by the engine on the ragged path,
+  ``_schedule_unified``): every step collects all decodable sequences (one
+  stream token each), then FCFS prefill chunks fill whatever budget decode
+  left; ``max_num_batched_tokens`` is the only shape knob.
+- **Bucketed** (prefill priority): up to ``prefill_batch`` FCFS chunks a
+  step, each at most the remaining prompt, the budget left and the largest
+  bucket; chunks after the first are cut to the first chunk's bucket (the
+  rest follows in a later step). Sequences decode only in a step that
+  scheduled no chunk.
+
+When the pool runs dry a decode row preempts the youngest running sequence
+(vLLM-style recompute). Speculative grants, ring prefill, the
 tier-prefetch hooks and per-tenant fair share come in later slices.
 
 The scheduler is host-side control plane: it decides and never touches
@@ -58,6 +68,8 @@ class Scheduler:
         self.waiting: collections.deque[Sequence] = collections.deque()
         self.seqs: dict[str, Sequence] = {}  # admitted, not finished
         self.free_slots = list(range(sched.max_num_seqs - 1, -1, -1))
+        # the engine sets this on the ragged path; False = bucketed policy
+        self.unified = False
 
     # -- queue management ---------------------------------------------------
     def add(self, seq: Sequence) -> None:
@@ -154,10 +166,42 @@ class Scheduler:
 
     # -- the per-step decision ----------------------------------------------
     def schedule(self) -> SchedulerOutput:
-        """Decode rows claim one stream token each, then FCFS prefill
-        chunks fill the rest of the token budget."""
         out = SchedulerOutput()
         self._try_admit()
+        if self.unified:
+            return self._schedule_unified(out)
+        # prefill priority: batch up to prefill_batch chunks per dispatch;
+        # the first (FCFS) chunk picks the shape bucket, later chunks are
+        # cut to it (they continue next step: chunked prefill)
+        budget = self.config.max_num_batched_tokens
+        bucket_cap = max(self.config.prefill_buckets)
+        for seq in sorted(self.seqs.values(), key=lambda s: s.arrival_time):
+            if seq.status is not SequenceStatus.PREFILLING:
+                continue
+            if seq.prefill_done:
+                # a preempted sequence whose context fully prefix-matched
+                # on re-admission: nothing to compute
+                seq.status = SequenceStatus.RUNNING
+                continue
+            if len(out.prefills) >= self.config.prefill_batch or budget <= 0:
+                break
+            remaining = seq.prefill_target - seq.num_computed_tokens
+            chunk = min(remaining, budget, bucket_cap)
+            if out.prefills:
+                first_bucket = self.config.bucket_for(
+                    out.prefills[0].chunk_len)
+                chunk = min(chunk, first_bucket)
+            out.prefills.append(
+                ScheduledPrefill(seq, seq.num_computed_tokens, chunk))
+            budget -= chunk
+        if out.prefills:
+            return out
+        out.decodes = self._grow_decodes(out)
+        return out
+
+    def _schedule_unified(self, out: SchedulerOutput) -> SchedulerOutput:
+        """Decode rows claim one stream token each, then FCFS prefill
+        chunks fill the rest of the token budget."""
         out.decodes = self._grow_decodes(out)
         budget = self.config.max_num_batched_tokens - len(out.decodes)
         for seq in sorted(self.seqs.values(), key=lambda s: s.arrival_time):

@@ -12,7 +12,8 @@ shape, so the same router can front either engine. ``/metrics`` and
 ``/debug/*`` are not ported yet.
 
 Run: ``python -m production_stack_tpu_torch.engine.server --model
-llama-3-8b --port 18077`` (``--device cpu`` for the plain path).
+llama-3-8b --port 18077`` (``--device cpu`` for the plain path,
+``--attention-impl bucketed`` for the bucketed prefill path).
 """
 
 from __future__ import annotations
@@ -583,7 +584,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cuda (the default; raises without a card) or cpu")
     p.add_argument("--max-model-len", type=int, default=None)
     p.add_argument("--max-num-seqs", type=int, default=None)
+    p.add_argument("--prefill-batch", type=int, default=None,
+                   help="prefill chunks batched per dispatch (bucketed)")
     p.add_argument("--max-num-batched-tokens", type=int, default=None)
+    p.add_argument("--prefill-buckets", default=None,
+                   help="comma-separated token buckets, e.g. 128,512,2048 "
+                        "(bucketed)")
+    p.add_argument("--attention-impl", default=None,
+                   choices=["auto", "ragged", "bucketed"],
+                   help="attention dispatch shape: 'ragged' packs prefill "
+                        "chunks and decode rows into one token-budget "
+                        "stream per step (K2), 'bucketed' runs prefill "
+                        "chunks padded to --prefill-buckets, up to "
+                        "--prefill-batch a step (K4), and decode in steps "
+                        "of their own; 'auto' is ragged")
     p.add_argument("--num-scheduler-steps", type=int, default=None,
                    help="decode iterations per decode dispatch")
     p.add_argument("--block-size", type=int, default=None)
@@ -612,6 +626,13 @@ def config_from_args(args) -> EngineConfig:
         sched.max_num_batched_tokens = args.max_num_batched_tokens
     if args.num_scheduler_steps is not None:
         sched.multi_step = args.num_scheduler_steps
+    if args.prefill_batch:
+        sched.prefill_batch = args.prefill_batch
+    if args.prefill_buckets:
+        sched.prefill_buckets = tuple(
+            int(x) for x in args.prefill_buckets.split(","))
+    if args.attention_impl:
+        overrides["attention_impl"] = args.attention_impl
     return EngineConfig.for_model(args.model, cache=cache, scheduler=sched,
                                   seed=args.seed, **overrides)
 

@@ -26,7 +26,11 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("kv_write", "ragged_paged_attention", "paged_decode_attention")
+SOURCES = ("kv_write", "ragged_paged_attention", "paged_decode_attention",
+           "paged_prefill_attention")
+# head dims the attention kernels are instantiated for (with_head_dim in
+# csrc/paged_attention_common.cuh): every head dim of MODEL_PRESETS
+HEAD_DIMS = (32, 48, 64, 96, 128, 256)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
@@ -163,6 +167,16 @@ def dtype_code(t) -> int:
             f"kernels take float32 or bfloat16 tensors, got {t.dtype}"
         )
     return DTYPE_CODES[name]
+
+
+def require_head_dim(what: str, head_dim: int) -> None:
+    """Refuse a head dim the attention kernels have no instantiation for,
+    before anything is launched."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(
+            f"{what}: head_dim {head_dim} has no kernel instantiation "
+            f"(built for {HEAD_DIMS}, csrc/paged_attention_common.cuh)"
+        )
 
 
 def require_cuda(what: str, *tensors) -> None:

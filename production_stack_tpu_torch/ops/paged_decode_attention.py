@@ -73,6 +73,7 @@ def paged_decode_attention(
         return paged_decode_attention_plain(
             q, pool, block_tables, context_lens, layer, soft_cap)
     what = "paged_decode_attention"
+    _build.require_head_dim(what, q.shape[-1])
     _build.require_cuda(what, q, pool, block_tables, context_lens)
     _build.require_int32(what, block_tables, context_lens)
     B, H, D = q.shape

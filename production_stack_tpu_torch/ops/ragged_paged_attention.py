@@ -120,6 +120,7 @@ def ragged_paged_attention(
         return ragged_paged_attention_plain(
             q, pool, block_tables, cu_q_lens, context_lens, layer, soft_cap)
     what = "ragged_paged_attention"
+    _build.require_head_dim(what, q.shape[-1])
     _build.require_cuda(what, q, pool, block_tables, cu_q_lens, context_lens)
     _build.require_int32(what, block_tables, cu_q_lens, context_lens)
     T, H, D = q.shape

@@ -18,11 +18,14 @@ import torch
 
 from production_stack_tpu_torch.ops import kv_write as k1
 from production_stack_tpu_torch.ops import paged_decode_attention as k3
+from production_stack_tpu_torch.ops import paged_prefill_attention as k4
 from production_stack_tpu_torch.ops import ragged_paged_attention as k2
 
 pytestmark = pytest.mark.cuda
 
 BS = 16
+F32_TOL = (1e-5, 1e-5)
+BF16_TOL = (1e-5, 2.0 ** -7)
 
 
 @pytest.fixture
@@ -58,6 +61,83 @@ def _case(dtype, H=8, KH=2, D=128, S=6, M=8):
     T = int(cu[-1]) + 7
     q = torch.randn((T, H, D), generator=g).to(dtype)
     return pool, tables, cu, ctx, q
+
+
+def _prefill_case(dtype, H=8, KH=2, D=128, S=40, M=8):
+    """A NaN-poisoned pool and a batch of four chunks padded to S: a fresh
+    chunk, a continuation at q_start 37, a chunk 13 tokens short of the
+    bucket (padding rows) and an inactive row (ctx 0, q_start -1)."""
+    g = torch.Generator().manual_seed(1)
+    chunks = [(0, S), (37, S), (0, S - 13), None]
+    P, N = len(chunks), 64
+    pool = torch.full((2, N, BS, 2 * KH, D), float("nan"), dtype=dtype)
+    tables = torch.zeros((P, M), dtype=torch.int32)
+    q_starts = torch.full((P,), -1, dtype=torch.int32)
+    ctx = torch.zeros(P, dtype=torch.int32)
+    nxt = 0
+    for p, chunk in enumerate(chunks):
+        if chunk is None:
+            continue
+        q_starts[p], ctx[p] = chunk[0], sum(chunk)
+        nb = -(-int(ctx[p]) // BS)
+        tables[p, :nb] = torch.arange(nxt, nxt + nb)
+        nxt += nb
+        for pos in range(int(ctx[p])):
+            pool[1, tables[p, pos // BS], pos % BS] = torch.randn(
+                (2 * KH, D), generator=g).to(dtype)
+    q = torch.randn((P, S, H, D), generator=g).to(dtype)
+    return pool, tables, q_starts, ctx, q
+
+
+def _check_prefill(cuda, dtype, tol, soft_cap=0.0, **geometry):
+    atol, rtol = tol
+    case = [x.to(cuda) for x in _prefill_case(dtype, **geometry)]
+    pool, tables, q_starts, ctx, q = case
+    n = k4.LAUNCHES.n
+    got = k4.paged_prefill_attention(q, pool, tables, q_starts, ctx, 1,
+                                     soft_cap=soft_cap)
+    assert k4.LAUNCHES.n == n + 1
+    want = k4.paged_prefill_attention_plain(q, pool, tables, q_starts, ctx, 1,
+                                            soft_cap=soft_cap)
+    assert torch.isfinite(got.float()).all()  # padding rows included
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    assert (got[ctx == 0] == 0).all()
+    for q_tile in (2, 16, 32):  # the output does not depend on the tile
+        other = k4.paged_prefill_attention(q, pool, tables, q_starts, ctx, 1,
+                                           soft_cap=soft_cap, q_tile=q_tile)
+        torch.testing.assert_close(other.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+def test_prefill_kernel_matches_plain(cuda, dtype, tol):
+    _check_prefill(cuda, dtype, tol, D=32 if dtype == torch.float32 else 128)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("D", [48, 96, 256])
+def test_every_preset_head_dim(cuda, D, dtype, tol):
+    """K2, K3 and K4 at the head dims of tiny-gemma (48), phi3-mini-class
+    (96) and the Gemma classes (256), at G = 2 with Gemma-2's soft cap."""
+    atol, rtol = tol
+    pool, tables, cu, ctx, q = (x.to(cuda) for x in _case(dtype, H=4, KH=2,
+                                                          D=D))
+    got = k2.ragged_paged_attention(q, pool, tables, cu, ctx, 1,
+                                    soft_cap=50.0)
+    want = k2.ragged_paged_attention_plain(q, pool, tables, cu, ctx, 1,
+                                           soft_cap=50.0)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    dq = q[: tables.shape[0]].contiguous()
+    got = k3.paged_decode_attention(dq, pool, tables, ctx, 1, soft_cap=50.0)
+    want = k3.paged_decode_attention_plain(dq, pool, tables, ctx, 1,
+                                           soft_cap=50.0)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    _check_prefill(cuda, dtype, tol, soft_cap=50.0, H=4, KH=2, D=D)
 
 
 @pytest.mark.parametrize("dtype,D,tol", [(torch.float32, 32, (1e-5, 1e-5)),
@@ -118,6 +198,18 @@ def test_wrappers_refuse_bad_input(cuda):
                                   ctx_d, 1)
 
 
+def test_wrappers_refuse_uninstantiated_head_dim(cuda):
+    pool, tables, cu, ctx, q = (x.to(cuda) for x in _case(torch.float32,
+                                                          D=80))
+    with pytest.raises(ValueError, match="head_dim 80"):
+        k2.ragged_paged_attention(q, pool, tables, cu, ctx, 1)
+    with pytest.raises(ValueError, match="head_dim 80"):
+        k3.paged_decode_attention(q[:6].contiguous(), pool, tables, ctx, 1)
+    with pytest.raises(ValueError, match="head_dim 80"):
+        k4.paged_prefill_attention(q[None, :8].contiguous(), pool,
+                                   tables[:1], ctx[:1], ctx[:1], 1)
+
+
 def test_engine_kernel_path_matches_plain_path(cuda):
     from production_stack_tpu_torch.engine.config import (
         CacheConfig,
@@ -143,4 +235,37 @@ def test_engine_kernel_path_matches_plain_path(cuda):
     gpu = LLMEngine(cfg, params=on_card, device=cuda).generate(prompts, sp)
     after = (k1.LAUNCHES.n, k2.LAUNCHES.n, k3.LAUNCHES.n)
     assert all(a > b for a, b in zip(after, before))
+    assert gpu == cpu
+
+
+def test_bucketed_engine_kernel_path_matches_plain_path(cuda):
+    """The bucketed path on the card runs K1, K4 and K3, never K2, and gives
+    the CPU plain path's greedy tokens."""
+    from production_stack_tpu_torch.engine.config import (
+        CacheConfig,
+        EngineConfig,
+        SchedulerConfig,
+    )
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+    from production_stack_tpu_torch.engine.weights import init_random
+
+    cfg = EngineConfig.for_model(
+        "tiny-llama", cache=CacheConfig(block_size=16, num_blocks=128),
+        scheduler=SchedulerConfig(max_num_seqs=4, max_num_batched_tokens=32,
+                                  prefill_buckets=(8, 16, 32)),
+        attention_impl="bucketed")
+    params = init_random(cfg.model, seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 259, n).tolist() for n in (3, 40, 9)]
+    sp = SamplingParams(temperature=0.0, max_tokens=10, ignore_eos=True)
+    cpu = LLMEngine(cfg, params=params, device="cpu").generate(prompts, sp)
+    on_card = {k: (v.to(cuda) if not isinstance(v, dict)
+                   else {n: w.to(cuda) for n, w in v.items()})
+               for k, v in params.items()}
+    counters = (k1.LAUNCHES, k2.LAUNCHES, k3.LAUNCHES, k4.LAUNCHES)
+    before = [c.n for c in counters]
+    gpu = LLMEngine(cfg, params=on_card, device=cuda).generate(prompts, sp)
+    d1, d2, d3, d4 = (c.n - b for c, b in zip(counters, before))
+    assert d1 > 0 and d3 > 0 and d4 > 0 and d2 == 0
     assert gpu == cpu

@@ -210,14 +210,15 @@ def test_cuda_without_card_raises():
 
 @pytest.mark.parametrize("impl", ["auto", "ragged", "bucketed"])
 def test_attention_impl_resolution(impl):
-    """"auto" resolves to the ragged path; "bucketed" (K4) is refused with
-    a pointer to the ROADMAP item that brings it."""
+    """"auto" resolves to the ragged path, on the CPU too (where the
+    reference's "auto" picks bucketed); "ragged" and "bucketed" (K4) are
+    taken as asked for, and anything else is refused."""
     from production_stack_tpu_torch.engine.model_runner import ModelRunner
 
     cfg = tcfg.EngineConfig.for_model("tiny-llama", attention_impl=impl,
                                       cache=tcfg.CacheConfig(num_blocks=8))
-    if impl == "bucketed":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ModelRunner(cfg, device="cpu")
-    else:
-        assert ModelRunner(cfg, device="cpu").attention_impl == "ragged"
+    want = "ragged" if impl == "auto" else impl
+    assert ModelRunner(cfg, device="cpu").attention_impl == want
+    cfg.attention_impl = "paged"
+    with pytest.raises(ValueError, match="auto|ragged|bucketed"):
+        ModelRunner(cfg, device="cpu")
