@@ -1,4 +1,5 @@
-// Device code shared by the ragged (K2), decode (K3) and prefill (K4)
+// Device code shared by the ragged (K2), decode (K3) and float32 prefill
+// (K4; bf16 K4 runs on the tensor cores, mma_attention.cuh)
 // paged-attention kernels: shared-memory layout, query staging, the walk
 // over one sequence's paged context with an online softmax in float32, and
 // the head dims each kernel is instantiated for.

@@ -12,11 +12,18 @@ sits at position ``q_starts[p] + s`` and sees the context positions below
 the Pallas kernel (the XLA reference ``paged_attention`` leaves garbage
 there instead). An inactive chunk (``ctx_totals[p] == 0``; the engine
 passes ``q_starts[p] == -1``) outputs exact zeros.
+
+The kernel sees a chunk's queries for one KV head as ``S * G`` rows, row r
+= (token r // G, head kh * G + r % G), and a CTA owns ``rows`` consecutive
+rows of them. bf16 runs on the tensor cores and stages ``positions``
+context positions a step; float32 keeps the CUDA-core walk, which stages
+32. ``launch_geometry`` is that arithmetic in Python.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -24,16 +31,72 @@ from production_stack_tpu_torch.ops import _build
 from production_stack_tpu_torch.ops.paged_attention import split_kv
 
 LAUNCHES = _build.LaunchCounter("K4 paged_prefill_attention")
-# tokens of one chunk per CTA (rows per CTA = Q_TILE * H / KH). The TPU
-# kernel's 128-token tile does not fit a CTA's shared memory here, and
-# short tiles win: more CTAs fit an SM, and the walk is bound by latency.
-# chip_smoke.py's q_tile sweep, PERF.md
-Q_TILE = 4
+SMEM_LIMIT = 232448  # shared memory a CTA may have on Hopper (227 KB)
+PAD = 8  # bf16 after each staged row (mma::kPad, csrc/mma_attention.cuh)
+WALK_POSITIONS = 32  # the float32 walk's step (kTileK)
+# bf16 (rows, positions) tiles built for each head dim (with_tile in
+# csrc/paged_prefill_attention.cu): the sweep's grid at D = 128, 64 rows
+# at 32 and 64 positions at every head dim
+TILES = {d: ((64, 32), (64, 64)) for d in _build.HEAD_DIMS}
+TILES[128] = ((64, 32), (64, 64), (64, 128), (128, 32), (128, 64),
+              (128, 128))
+# bf16 default, from chip_smoke.py's tile sweep at D = 128 (PERF.md): 128
+# rows (8 warps) at 128 positions ran fastest on both batches; of the
+# 64-row tiles, 32 positions beat 64, so the head dims built only with 64
+# rows take 32 (at D = 256 the float32 accumulator alone holds 128
+# registers a lane, which a 32-position score tile leaves room beside)
+DEFAULT_TILE = {d: (64, 32) for d in _build.HEAD_DIMS}
+DEFAULT_TILE[128] = (128, 128)
+# float32: R = 4 G rows, the CUDA-core walk's measured best (its q_tile
+# sweep on the card, PERF.md), which keeps its shared memory in bounds at
+# every preset
+WALK_TOKENS = 4
 _PLAIN_CHUNK = 256  # query rows per score block in the plain version
 
-_argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
+_argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p]
+
+
+def launch_geometry(P: int, S: int, H: int, KH: int, D: int,
+                    dtype: torch.dtype,
+                    tile: Optional[tuple[int, int]] = None) -> dict:
+    """The launch K4 makes for ``q (P, S, H, D)`` with KH KV heads: the
+    tile (rows a CTA, positions a stage), threads a CTA, grid (x, KH, P),
+    dynamic shared memory in bytes, and each CTA's (first row, row count)
+    along x over the chunk's S * G rows. Raises for a tile that is not
+    built or does not fit."""
+    G = H // KH
+    if dtype == torch.bfloat16:
+        rows, positions = tile or DEFAULT_TILE[D]
+        if (rows, positions) not in TILES.get(D, ()):
+            raise ValueError(
+                f"paged_prefill_attention: tile {(rows, positions)} is not "
+                f"built for head_dim {D} (built: {TILES.get(D, ())})")
+        threads = rows * 2  # one warp per 16 rows
+        smem = (rows + 4 * positions) * (D + PAD) * 2
+    else:
+        rows, positions = tile or (WALK_TOKENS * G, WALK_POSITIONS)
+        if rows <= 0 or positions != WALK_POSITIONS:
+            raise ValueError(
+                f"paged_prefill_attention: the float32 walk takes a positive "
+                f"row count and {WALK_POSITIONS} positions, got "
+                f"{(rows, positions)}")
+        threads = 128
+        # smem_bytes in csrc/paged_attention_common.cuh: q and acc, K
+        # (padded) and V steps, scores, and m, l, alpha, qpos per row
+        smem = (rows * D * 2 + positions * (D + 1) + positions * D
+                + rows * (positions + 1) + rows * 3) * 4 + rows * 4
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"paged_prefill_attention: tile {(rows, positions)} needs {smem} "
+            f"bytes of shared memory at D={D}, above {SMEM_LIMIT}")
+    n = S * G
+    blocks = -(-n // rows)
+    return {"rows": rows, "positions": positions, "threads": threads,
+            "grid": (blocks, KH, P), "smem_bytes": smem,
+            "row_spans": [(b * rows, min(rows, n - b * rows))
+                          for b in range(blocks)]}
 
 
 def paged_prefill_attention_plain(
@@ -80,11 +143,12 @@ def paged_prefill_attention_plain(
 def paged_prefill_attention(
     q: torch.Tensor, pool: torch.Tensor, block_tables: torch.Tensor,
     q_starts: torch.Tensor, ctx_totals: torch.Tensor, layer: int,
-    soft_cap: float = 0.0, q_tile: int = Q_TILE,
+    soft_cap: float = 0.0, tile: Optional[tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Prefill attention of ``q (P, S, H, D)`` against layer ``layer`` of
     ``pool (L, N, bs, 2KH, D)``. CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    tensors launch the kernel, with ``tile`` = (rows a CTA, positions a
+    stage), by default ``DEFAULT_TILE`` (bf16) or 4 G rows (float32)."""
     if q.device.type == "cpu":
         return paged_prefill_attention_plain(
             q, pool, block_tables, q_starts, ctx_totals, layer, soft_cap)
@@ -106,8 +170,8 @@ def paged_prefill_attention(
         raise TypeError(f"{what}: q {q.dtype} != pool {pool.dtype}")
     if not 0 <= layer < L:
         raise ValueError(f"{what}: layer {layer} out of range [0, {L})")
-    if q_tile <= 0:
-        raise ValueError(f"{what}: q_tile must be positive, got {q_tile}")
+    code = _build.dtype_code(q)
+    geo = launch_geometry(P, S, H, KH, D, q.dtype, tile)
     _build.require_aligned(what, q, pool)
     M = block_tables.shape[1]
     out = torch.empty_like(q)
@@ -115,8 +179,8 @@ def paged_prefill_attention(
     rc = fn(_build.ptr(q), _build.ptr(pool), _build.ptr(out),
             _build.ptr(block_tables), _build.ptr(q_starts),
             _build.ptr(ctx_totals), P, S, H, KH, N, bs, M, int(layer),
-            q_tile, D ** -0.5, float(soft_cap), _build.dtype_code(q), D,
-            _build.stream_of(q))
+            geo["rows"], geo["positions"], D ** -0.5, float(soft_cap), code,
+            D, _build.stream_of(q))
     _build.check("paged_prefill_attention", rc, what)
     LAUNCHES.n += 1
     return out

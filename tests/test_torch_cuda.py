@@ -6,10 +6,14 @@ suite's conftest, which imports JAX:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Each kernel is held against its plain version on the same card inputs:
-float32 within 1e-5 (sums in another order); bf16 within one bf16
+float32 within 1e-5 (sums in another order); bf16 K1-K3 within one bf16
 rounding step of each output (rtol 2^-7, atol 1e-5), since both versions
-accumulate in float32 and round once. ``chip_smoke.py`` does the same at
-the llama-3-8b serving shapes.
+accumulate in float32 and round once. bf16 K4 runs on the tensor cores and
+rounds P to bf16 before P V, which moves an output by up to 2^-8 of the
+softmax-weighted mean of |V|: it is held to ``|got - plain| <= atol +
+rtol |plain| + 2^-8 plain(|V|)``, where plain(|V|) is the plain version on
+the same inputs with V replaced by its absolute value. ``chip_smoke.py``
+does the same at the llama-3-8b serving shapes.
 """
 
 import numpy as np
@@ -63,12 +67,13 @@ def _case(dtype, H=8, KH=2, D=128, S=6, M=8):
     return pool, tables, cu, ctx, q
 
 
-def _prefill_case(dtype, H=8, KH=2, D=128, S=40, M=8):
-    """A NaN-poisoned pool and a batch of four chunks padded to S: a fresh
-    chunk, a continuation at q_start 37, a chunk 13 tokens short of the
-    bucket (padding rows) and an inactive row (ctx 0, q_start -1)."""
+def _prefill_case(dtype, H=8, KH=2, D=128, S=40, M=8, chunks=None):
+    """A NaN-poisoned pool and a batch of chunks padded to S, by default
+    four: a fresh chunk, a continuation at q_start 37, a chunk 13 tokens
+    short of the bucket (padding rows) and an inactive row (ctx 0, q_start
+    -1)."""
     g = torch.Generator().manual_seed(1)
-    chunks = [(0, S), (37, S), (0, S - 13), None]
+    chunks = chunks or [(0, S), (37, S), (0, S - 13), None]
     P, N = len(chunks), 64
     pool = torch.full((2, N, BS, 2 * KH, D), float("nan"), dtype=dtype)
     tables = torch.zeros((P, M), dtype=torch.int32)
@@ -89,25 +94,68 @@ def _prefill_case(dtype, H=8, KH=2, D=128, S=40, M=8):
     return pool, tables, q_starts, ctx, q
 
 
-def _check_prefill(cuda, dtype, tol, soft_cap=0.0, **geometry):
+def _assert_prefill_close(got, want, tol, args, soft_cap):
+    """float32: within ``tol``; bf16: within ``tol`` plus 2^-8 of the plain
+    version run with |V| (P is rounded to bf16 before P V)."""
     atol, rtol = tol
+    got_f, want_f = got.float(), want.float()
+    assert torch.isfinite(got_f).all()  # padding rows included
+    limit = atol + rtol * want_f.abs()
+    if got.dtype == torch.bfloat16:
+        q, pool, *rest = args
+        KH = pool.shape[3] // 2
+        abs_v = pool.clone()
+        abs_v[:, :, :, KH:] = abs_v[:, :, :, KH:].abs()
+        mean_abs_v = k4.paged_prefill_attention_plain(q, abs_v, *rest,
+                                                      soft_cap=soft_cap)
+        limit = limit + 2.0 ** -8 * mean_abs_v.float()
+    err = (got_f - want_f).abs()
+    assert (err <= limit).all(), (
+        f"{int((err > limit).sum())} elements off; worst "
+        f"{float((err / limit).max()):.3f} of its limit")
+
+
+def _tiles(dtype, G, D):
+    """Every tile a test runs besides the default: each bf16 tile built for
+    D, and the float32 walk at 2, 16 and 32 tokens a CTA and at 7 rows
+    (rows that cross token boundaries)."""
+    if dtype == torch.bfloat16:
+        return [t for t in k4.TILES[D] if t != k4.DEFAULT_TILE[D]]
+    return [(r, k4.WALK_POSITIONS) for r in (2 * G, 16 * G, 32 * G, 7)]
+
+
+def _check_prefill(cuda, dtype, tol, soft_cap=0.0, **geometry):
     case = [x.to(cuda) for x in _prefill_case(dtype, **geometry)]
     pool, tables, q_starts, ctx, q = case
+    args = (q, pool, tables, q_starts, ctx, 1)
     n = k4.LAUNCHES.n
-    got = k4.paged_prefill_attention(q, pool, tables, q_starts, ctx, 1,
-                                     soft_cap=soft_cap)
+    got = k4.paged_prefill_attention(*args, soft_cap=soft_cap)
     assert k4.LAUNCHES.n == n + 1
-    want = k4.paged_prefill_attention_plain(q, pool, tables, q_starts, ctx, 1,
-                                            soft_cap=soft_cap)
-    assert torch.isfinite(got.float()).all()  # padding rows included
-    torch.testing.assert_close(got.float(), want.float(), atol=atol,
-                               rtol=rtol)
+    want = k4.paged_prefill_attention_plain(*args, soft_cap=soft_cap)
+    _assert_prefill_close(got, want, tol, args, soft_cap)
     assert (got[ctx == 0] == 0).all()
-    for q_tile in (2, 16, 32):  # the output does not depend on the tile
-        other = k4.paged_prefill_attention(q, pool, tables, q_starts, ctx, 1,
-                                           soft_cap=soft_cap, q_tile=q_tile)
-        torch.testing.assert_close(other.float(), want.float(), atol=atol,
-                                   rtol=rtol)
+    G = q.shape[2] // (pool.shape[3] // 2)
+    for tile in _tiles(dtype, G, q.shape[3]):  # the output is the same
+        other = k4.paged_prefill_attention(*args, soft_cap=soft_cap,
+                                           tile=tile)
+        _assert_prefill_close(other, want, tol, args, soft_cap)
+        assert (other[ctx == 0] == 0).all()
+
+
+@pytest.mark.parametrize("soft_cap", [0.0, 50.0])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 7, 8])
+@pytest.mark.parametrize("D", [32, 48, 64, 96, 128, 256])
+def test_tensor_core_prefill_matches_plain(cuda, D, G, soft_cap):
+    """bf16 K4 (the tensor-core kernel) at every built head dim and tile,
+    at the GQA groups of the presets, on a bucket of 40 that no tile's rows
+    divide (S * G rows): a fresh chunk, a continuation at q_start 37, a
+    chunk 13 tokens short of the bucket (padding rows), an inactive row, a
+    continuation at q_start 150 reaching across several staged tiles, and
+    a one-token chunk; unwritten blocks hold NaN."""
+    S = 40
+    chunks = [(0, S), (37, S), (0, S - 13), None, (150, 25), (0, 1)]
+    _check_prefill(cuda, torch.bfloat16, BF16_TOL, soft_cap=soft_cap,
+                   H=2 * G, KH=2, D=D, S=S, M=16, chunks=chunks)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
