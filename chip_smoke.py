@@ -14,38 +14,44 @@ fatal):
    plain PyTorch version on the card at the llama-3-8b serving shapes and
    at a tiny-llama geometry (float32, D = 32, atol = rtol = 1e-5), with
    every unwritten pool slot holding NaN; K2, K3 and K4 also at head dims
-   96 and 256 (G = 2, soft cap 50, bf16 and float32). bf16 K1-K3 agree
-   within one bf16 rounding step of each output (rtol 2^-7, atol 1e-5);
-   bf16 K4 runs on the tensor cores and rounds P to bf16 before P V, so it
-   also gets 2^-8 of plain(|V|), the plain version's output with V
-   replaced by |V| (``K4_P_ROUNDING``). Times each kernel and each library
-   call as the device's time alone (after warm-up, one pair of CUDA events
-   around the replay of a CUDA graph of many back-to-back launches, over
-   the count; K1 also issued from Python and per call, wrapper included)
-   beside its plain version and one PyTorch call that
+   96 and 256 (G = 2, soft cap 50, bf16 and float32). bf16 K1 is bit for
+   bit. bf16 K2, K3 and K4 run on the tensor cores: they agree within one
+   bf16 rounding step of each output (rtol 2^-7, atol 1e-5) plus 2^-8 of
+   plain(|V|), the plain version's output with V replaced by |V|, since
+   they round P to bf16 before P V (``P_ROUNDING``). Times each kernel and
+   each library call as the device's time alone (after warm-up, one pair
+   of CUDA events around the replay of a CUDA graph of many back-to-back
+   launches, over the count; K1 also issued from Python and per call,
+   wrapper included) beside its plain version and one PyTorch call that
    computes the same function (K1: ``index_copy_``; K2, K3, K4:
    ``scaled_dot_product_attention`` on the context gathered beforehand,
-   the gather not timed), computes each kernel's bound from this run's
-   inputs, and sweeps K2's query tile and K4's tile (rows a CTA x
-   positions a stage).
+   the gather not timed; for K2 and K3 also
+   ``torch.nn.attention.varlen.varlen_attn`` on the same gathered
+   contexts, where the card's PyTorch has it), and computes each kernel's
+   bound from this run's inputs. K2 runs on the mixed stream and on a
+   prefill-only stream of 4 fresh 512-token spans (beside K4 on the same
+   work), K3 at B = 64 (contexts up to 2k) and at B = 4, ctx 8192. Sweeps
+   K2's row tile (rows a CTA x positions a stage) and the split span of
+   its one-token spans, K3's split span, and K4's tile.
 4. Slices, each through the port's HTTP server on the card serving
    llama-3-8b (random weights from a seed, bf16, default scheduler) to the
    same 16 requests; every response must be 200 with the asked-for token
    count. First the ragged path: K1, K2 and K3 must launch in it, K4 not;
    the engine is then traced (torch.profiler) over two full prefill steps
    and 16 decode steps at 64 rows (device busy time, idle share, device
-   time by kernel class) and released. Then the bucketed path
-   (``--attention-impl bucketed``): K1, K3 and K4 must launch in it, K2
-   not; then two full bucketed prefill steps (4 chunks of 512 tokens) are
-   traced the same way.
+   time by kernel class and per wrapper call) and released. Then the
+   bucketed path (``--attention-impl bucketed``): K1, K3 and K4 must
+   launch in it, K2 not; then two full bucketed prefill steps (4 chunks of
+   512 tokens) are traced the same way.
 5. Kernel path against plain path: tiny-llama (float32) greedy tokens from
    the engine on the card equal those of the engine on the CPU, on the
    ragged and on the bucketed path, up to any printed argmax near-tie (CPU
-   top-2 logprob gap under 1e-4). Then bf16 tiny-llama on the bucketed
-   path, served twice on the card in this process: through K4, and with
-   this script putting ``paged_prefill_attention_plain`` in the model
-   runner's place of the wrapper for that run only; greedy tokens equal
-   up to printed near-ties and logprobs within ``BF16_LOGPROB_BAND``.
+   top-2 logprob gap under 1e-4). Then bf16 tiny-llama served twice on the
+   card in this process on each path: through the kernels (K2 and K3 on
+   the ragged path, K4 on the bucketed path), and with this script putting
+   their plain versions in the model runner's place of the wrappers for
+   that run only; greedy tokens equal up to printed near-ties and
+   logprobs within ``BF16_LOGPROB_BAND``.
 
 The line before the card line carries the kernels' JSON record, whose
 ``launches`` sum each kernel's launches over the two slices (each slice's
@@ -73,18 +79,17 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 # Kernel and plain version both accumulate in float32 and round once to
 # bf16, so an output may differ by one bf16 step, at most 2^-7 of its
-# magnitude; atol covers float32 sums in another order near zero. Every
-# reading so far (PERF.md) was exactly one step: 2^-8 on K2 outputs in
-# [0.5, 1), 2^-11 on K3 outputs in [1/16, 1/8).
+# magnitude; atol covers float32 sums in another order near zero.
 BF16_TOL = (1e-5, 2.0 ** -7)  # (atol, rtol)
 F32_TOL = (1e-5, 1e-5)  # float32 sums in another order
-# bf16 K4 rounds P to bf16 (relative error up to 2^-8) before P V, while
-# its denominator sums P unrounded: an output may move by up to 2^-8 of
-# the softmax-weighted mean of |V| on top of BF16_TOL
-K4_P_ROUNDING = 2.0 ** -8
+# bf16 K2, K3 and K4 round P to bf16 (relative error up to 2^-8) before
+# P V, while their denominators sum P unrounded: an output may move by up
+# to 2^-8 of the softmax-weighted mean of |V| on top of BF16_TOL
+P_ROUNDING = 2.0 ** -8
 TIE_GAP = 1e-4
-# bf16 tiny-llama through K4 against the same engine through K4's plain
-# version: the two differ by K4's rounding (above), which bf16 hidden
+# bf16 tiny-llama through the tensor-core kernels against the same engine
+# through their plain versions: the two differ by P's rounding (above),
+# which bf16 hidden
 # states and logits carry forward; a bf16 logit of magnitude ~4 is only
 # resolved to ~2^-6, so logprobs may differ by a few hundredths, and a
 # greedy flip is accepted only where the top-2 gap is within that band
@@ -101,6 +106,12 @@ SRC = {
            "production_stack_tpu/ops/paged_attention_pallas.py:277"),
 }
 SDPA_NOTE = "SDPA on pre-gathered K/V, gather not counted"
+# further numbers a kernel's record carries where it has them, and those of
+# each further shape it was measured at ("also")
+EXTRA_KEYS = ("varlen_ms", "varlen_max_abs_err", "varlen_note",
+              "ms_by_tile", "ms_by_split_span")
+ALSO_KEYS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms", "k4_same_work_ms") + EXTRA_KEYS
 
 
 def log(*a) -> None:
@@ -366,11 +377,70 @@ def time_sdpa(torch, name, pool, layer, entries, H, KH, want_rows,
     return ms
 
 
-def walk_smem_bytes(D: int, R: int) -> int:
-    """Dynamic shared memory of one CTA of K2, K3 or K4 with R rows at head
-    dim D (``smem_bytes`` in csrc/paged_attention_common.cuh)."""
-    floats = R * D * 2 + 32 * (D + 1) + 32 * D + R * 33 + R * 3
-    return floats * 4 + R * 4
+def time_varlen(torch, name, pool, layer, entries, H, KH, want_rows,
+                reps=10):
+    """``torch.nn.attention.varlen.varlen_attn`` as a second yardstick for
+    K2 and K3: the entries' contexts gathered contiguously beforehand (not
+    timed), packed with their query rows, causal from the bottom right (a
+    query row at position ctx - n + i sees the first ctx - n + i + 1 keys),
+    GQA by its own option where it has one. Returns (ms, max abs err
+    against the plain version), or (None, why) where the card's PyTorch
+    lacks the call or a causal option, or the call fails."""
+    import inspect
+
+    from production_stack_tpu_torch.ops.paged_attention import split_kv
+
+    try:
+        from torch.nn.attention.varlen import varlen_attn
+    except ImportError as e:
+        return None, f"no varlen_attn in torch {torch.__version__} ({e})"
+    params = inspect.signature(varlen_attn).parameters
+    kw = {}
+    if "window_size" in params:
+        kw["window_size"] = (-1, 0)
+    elif "is_causal" in params:
+        kw["is_causal"] = True
+    else:
+        return None, "varlen_attn has no causal option"
+    gqa = "enable_gqa" in params
+    if gqa:
+        kw["enable_gqa"] = True
+    _, _, bs, KH2, D = pool.shape
+    G = H // KH
+    qs, ks, vs, cu_q, cu_k = [], [], [], [0], [0]
+    for q, _, ctx, row in entries:
+        nb = -(-ctx // bs)
+        k, v = split_kv(pool[layer][row[:nb].long()].reshape(
+            nb * bs, KH2, D)[:ctx])
+        if not gqa:
+            k, v = (x.repeat_interleave(G, dim=1) for x in (k, v))
+        qs.append(q)
+        ks.append(k)
+        vs.append(v)
+        cu_q.append(cu_q[-1] + q.shape[0])
+        cu_k.append(cu_k[-1] + ctx)
+    Q = torch.cat(qs).contiguous()
+    K = torch.cat(ks).contiguous()
+    V = torch.cat(vs).contiguous()
+    cq = torch.tensor(cu_q, dtype=torch.int32, device=pool.device)
+    ck = torch.tensor(cu_k, dtype=torch.int32, device=pool.device)
+    max_q = max(e[0].shape[0] for e in entries)
+    max_k = max(e[2] for e in entries)
+
+    def call():
+        return varlen_attn(Q, K, V, cq, ck, max_q, max_k, **kw)
+
+    try:
+        out = call()
+        err = max(float((out[cu_q[b]:cu_q[b + 1]].float() - w.float())
+                        .abs().max()) for b, w in enumerate(want_rows))
+        ms = time_ms(torch, call, reps)
+    except Exception as e:  # a yardstick only: record why it did not run
+        return None, f"varlen_attn failed: {type(e).__name__}: {e}"[:300]
+    log(f"[kernels] {name} library call (varlen_attn, {kw}, on pre-gathered "
+        f"K/V, gather not counted): {ms:.4f} ms, max abs err against the "
+        f"plain version {err:.3e}")
+    return ms, err
 
 
 def check_close(name, got, want, tol, torch, extra=None) -> float:
@@ -402,21 +472,27 @@ def check_close(name, got, want, tol, torch, extra=None) -> float:
     return float(err.max())
 
 
-def check_k4(name, got, want, args, torch, soft_cap=0.0) -> float:
-    """K4's output against its plain version ``want`` on ``args``: float32
-    within F32_TOL; bf16 within BF16_TOL plus K4_P_ROUNDING of plain(|V|),
-    the plain version run on the same inputs with V replaced by |V|."""
-    from production_stack_tpu_torch.ops import paged_prefill_attention as k4
-
-    if got.dtype == torch.float32:
-        return check_close(name, got, want, F32_TOL, torch)
+def p_allowance(plain, args, torch, soft_cap=0.0):
+    """P_ROUNDING of plain(|V|): the plain version ``plain`` on ``args``
+    (q, pool, ...) with every V of the pool replaced by |V|."""
     q, pool, *rest = args
     KH = pool.shape[3] // 2
     abs_v = pool.clone()
     abs_v[:, :, :, KH:] = abs_v[:, :, :, KH:].abs()
-    extra = K4_P_ROUNDING * k4.paged_prefill_attention_plain(
-        q, abs_v, *rest, soft_cap=soft_cap).float()
+    extra = P_ROUNDING * plain(q, abs_v, *rest, soft_cap=soft_cap).float()
     del abs_v
+    return extra
+
+
+def check_kernel(name, got, want, plain, args, torch, soft_cap=0.0,
+                 extra=None) -> float:
+    """A K2, K3 or K4 output against its plain version ``want`` on
+    ``args``: float32 within F32_TOL; bf16 within BF16_TOL plus
+    ``p_allowance`` (computed here unless given)."""
+    if got.dtype == torch.float32:
+        return check_close(name, got, want, F32_TOL, torch)
+    if extra is None:
+        extra = p_allowance(plain, args, torch, soft_cap)
     return check_close(name, got, want, BF16_TOL, torch, extra=extra)
 
 
@@ -433,8 +509,9 @@ def prefill_check(torch, rng, name, H, KH, D, dtype, soft_cap=0.0):
     q = torch.randn((len(chunks), S, H, D), dtype=dtype, device="cuda")
     args = (q, pool, dev["tables"], dev["q_starts"], dev["ctx"], 1)
     got = k4.paged_prefill_attention(*args, soft_cap=soft_cap)
-    err = check_k4(name, got, k4.paged_prefill_attention_plain(
-        *args, soft_cap=soft_cap), args, torch, soft_cap=soft_cap)
+    err = check_kernel(name, got, k4.paged_prefill_attention_plain(
+        *args, soft_cap=soft_cap), k4.paged_prefill_attention_plain, args,
+        torch, soft_cap)
     if not (got[3] == 0).all():
         raise AssertionError(f"{name}: the inactive chunk is not exactly 0")
     return err
@@ -444,41 +521,43 @@ def head_dim_phase(torch, rng) -> None:
     """K2, K3 and K4 at head dims 96 (phi3-mini-class) and 256 (the Gemma
     classes) with gemma2-9b-class's G = 2 (H = 16, KH = 8) and attention
     soft cap 50, in bf16 and in float32, against their plain versions. At
-    D = 256 a K2 CTA needs more than the 48 KiB of shared memory a launch
-    gets without opting in."""
+    D = 256 every bf16 CTA needs more than the 48 KiB of shared memory a
+    launch gets without opting in."""
     from production_stack_tpu_torch.ops import paged_decode_attention as k3
+    from production_stack_tpu_torch.ops import paged_prefill_attention as k4
     from production_stack_tpu_torch.ops import ragged_paged_attention as k2
 
     H, KH, cap = 16, 8, 50.0
     spans = [(0, 40, 100), (1, 1, 17), (3, 1, 1), (4, 90, 90), (6, 1, 200)]
     T, S, M, bs = 256, 8, 16, 16
     for D in (96, 256):
-        for dtype, tol in ((torch.bfloat16, BF16_TOL),
-                           (torch.float32, F32_TOL)):
+        for dtype in (torch.bfloat16, torch.float32):
             tag = f"D={D}, {str(dtype).replace('torch.', '')}"
             pool, dev, _ = make_stream(rng, spans, T, S, M, bs, 2 * KH, D,
                                        dtype, torch)
             q = torch.randn((T, H, D), dtype=dtype, device="cuda")
             args = (q, pool, dev["tables"], dev["cu"], dev["ctx"], 1)
-            errs = [check_close(
+            errs = [check_kernel(
                 f"K2 ({tag})", k2.ragged_paged_attention(*args, soft_cap=cap),
-                k2.ragged_paged_attention_plain(*args, soft_cap=cap), tol,
-                torch)]
+                k2.ragged_paged_attention_plain(*args, soft_cap=cap),
+                k2.ragged_paged_attention_plain, args, torch, cap)]
             dq = torch.randn((S, H, D), dtype=dtype, device="cuda")
             dargs = (dq, pool, dev["tables"], dev["ctx"], 1)
-            errs.append(check_close(
+            errs.append(check_kernel(
                 f"K3 ({tag})", k3.paged_decode_attention(*dargs, soft_cap=cap),
-                k3.paged_decode_attention_plain(*dargs, soft_cap=cap), tol,
-                torch))
+                k3.paged_decode_attention_plain(*dargs, soft_cap=cap),
+                k3.paged_decode_attention_plain, dargs, torch, cap))
             errs.append(prefill_check(torch, rng, f"K4 ({tag})", H, KH, D,
                                       dtype, soft_cap=cap))
             log(f"[kernels] head dim {tag}, H={H}, KH={KH}, soft_cap {cap}: "
                 f"K2 / K3 / K4 max abs err "
                 f"{' / '.join(f'{e:.3e}' for e in errs)}")
             del pool
-    R = k2.Q_TILE * H // KH
-    log(f"[kernels] K2 at D=256, R={R}: {walk_smem_bytes(256, R)} bytes of "
-        f"shared memory a CTA (opt-in above {48 * 1024})")
+    tile = k4.launch_geometry(1, 1, H, KH, 256, torch.bfloat16)
+    log(f"[kernels] bf16 at D=256: a row tile {tile['rows']} x "
+        f"{tile['positions']} takes {tile['smem_bytes']} bytes of shared "
+        f"memory, the split decode walk {k3.decode_geometry(256)['smem_bytes']}"
+        f" (opt-in above {48 * 1024})")
 
 
 def prefill_kernel_phase(torch, np, card, rng, cfg, M) -> dict:
@@ -501,7 +580,8 @@ def prefill_kernel_phase(torch, np, card, rng, cfg, M) -> dict:
     got = k4.paged_prefill_attention(*args)
     want = k4.paged_prefill_attention_plain(*args)
     torch.cuda.synchronize()
-    err = check_k4("K4 paged_prefill_attention", got, want, args, torch)
+    err = check_kernel("K4 paged_prefill_attention", got, want,
+                       k4.paged_prefill_attention_plain, args, torch)
     if not (got[3] == 0).all():
         raise AssertionError("K4: the inactive chunk is not exactly 0")
     ms = time_ms(torch, lambda: k4.paged_prefill_attention(*args), 50)
@@ -530,12 +610,13 @@ def prefill_kernel_phase(torch, np, card, rng, cfg, M) -> dict:
         sargs = (sq, spool, sdev["tables"], sdev["q_starts"], sdev["ctx"],
                  layer)
         swant = k4.paged_prefill_attention_plain(*sargs)
+        sextra = p_allowance(k4.paged_prefill_attention_plain, sargs, torch)
         s_bytes, s_flops = prefill_work(s_chunks, s_S, H, KH, D, 2, bs)
         sb_ms, sb_by = bound(s_bytes, s_flops, BF16_FLOPS)
         times = {}
         for tile in k4.TILES[D]:
-            check_k4(f"K4 {label}, tile {tile}", k4.paged_prefill_attention(
-                *sargs, tile=tile), swant, sargs, torch)
+            check_close(f"K4 {label}, tile {tile}", k4.paged_prefill_attention(
+                *sargs, tile=tile), swant, BF16_TOL, torch, extra=sextra)
             times[f"{tile[0]}x{tile[1]}"] = time_ms(
                 torch, lambda: k4.paged_prefill_attention(*sargs, tile=tile),
                 20)
@@ -544,13 +625,194 @@ def prefill_kernel_phase(torch, np, card, rng, cfg, M) -> dict:
             f"{k4.DEFAULT_TILE[D]}) on {label}: {json.dumps(times)}; best "
             f"{best} at {s_flops / times[best] / 1e9:.1f} TFLOP/s; bound "
             f"{sb_ms:.4f} ms by {sb_by} ({card})")
-        del spool, sq, swant
+        del spool, sq, swant, sextra
     return {"name": "K4 paged_prefill_attention", "key": "K4",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             "tflops": flops / ms / 1e9,
             "shape": f"P=4, S={S}, M={M}: fresh 512, 512 after 700, 300 of "
                      f"512, inactive; tile {k4.DEFAULT_TILE[D]}"}
+
+
+# split spans swept for K2's one-token spans and for K3 (multiples of the
+# split walk's stage); each kernel's own plan is timed beside them
+SPAN_SWEEP = (256, 512, 1024, 2048)
+
+
+def yardsticks(torch, name, pool, layer, entries, H, KH, want_rows) -> dict:
+    """The library calls of a K2 or K3 shape: SDPA (padded) and varlen_attn
+    (packed), both on contexts gathered beforehand."""
+    lib_ms = time_sdpa(torch, name, pool, layer, entries, H, KH, want_rows)
+    varlen_ms, note = time_varlen(torch, name, pool, layer, entries, H, KH,
+                                  want_rows)
+    if varlen_ms is None:
+        log(f"[kernels] {name}: no varlen_attn yardstick: {note}")
+        return {"library_ms": lib_ms, "varlen_ms": None, "varlen_note": note}
+    return {"library_ms": lib_ms, "varlen_ms": varlen_ms,
+            "varlen_max_abs_err": note}
+
+
+def ragged_measure(torch, card, label, pool, dev, spans, q, layer, H, KH, D,
+                   S, bs, T) -> dict:
+    """bf16 K2 on one stream against its plain version (tail rows exactly
+    0), its row-tile sweep and, where the stream has one-token spans, their
+    split-span sweep (each setting checked first), then its time by the
+    default work map beside its plain version, bound and library calls. The
+    work maps are made once, as the model runner makes one a step, so the
+    times are the kernels' alone."""
+    from production_stack_tpu_torch.ops import paged_prefill_attention as k4
+    from production_stack_tpu_torch.ops import ragged_paged_attention as k2
+
+    plain = k2.ragged_paged_attention_plain
+    args = (q, pool, dev["tables"], dev["cu"], dev["ctx"], layer)
+    host = (dev["cu"].cpu().numpy(), dev["ctx"].cpu().numpy())
+
+    def wmap(**kw):
+        return k2.ragged_work_map(*host, T, H, KH, D, torch.bfloat16, "cuda",
+                                  **kw)
+
+    def timed(work):
+        return time_ms(torch, lambda: k2.ragged_paged_attention(
+            *args, tiles=work), 10)
+
+    work = wmap()
+    got = k2.ragged_paged_attention(*args, tiles=work)
+    want = plain(*args)
+    extra = p_allowance(plain, args, torch)
+    err = check_close(f"K2 {label}", got, want, BF16_TOL, torch, extra=extra)
+    live = int(dev["cu"][-1])
+    if not (got[live:] == 0).all():
+        raise AssertionError(f"K2 {label}: tail padding rows are not 0")
+    log(f"[kernels] K2 {label}: {live} live tokens of T={T}; work map "
+        f"{work.n_tiles} row tiles of {work.tile}, {work.n_decode} one-token "
+        f"spans in {work.plan[0]} splits of {work.plan[1]}")
+    by_tile = {}
+    for tile in k4.TILES[D]:
+        w = wmap(tile=tile)
+        check_close(f"K2 {label}, tile {tile}", k2.ragged_paged_attention(
+            *args, tiles=w), want, BF16_TOL, torch, extra=extra)
+        by_tile[f"{tile[0]}x{tile[1]}"] = timed(w)
+    log(f"[kernels] K2 {label} ms by row tile (rows x positions; default "
+        f"{work.tile}): {json.dumps(by_tile)} ({card})")
+    by_span = {}
+    if work.n_decode:
+        for span in SPAN_SWEEP:
+            w = wmap(split_span=span)
+            check_close(f"K2 {label}, split span {span}",
+                        k2.ragged_paged_attention(*args, tiles=w), want,
+                        BF16_TOL, torch, extra=extra)
+            by_span[span] = timed(w)
+        log(f"[kernels] K2 {label} ms by split span of its one-token spans "
+            f"(default {work.plan[1]}): {json.dumps(by_span)} ({card})")
+    ms = timed(work)
+    plain_ms = time_ms(torch, lambda: plain(*args), 3, warmup=1,
+                       graph=False)
+    nbytes, flops = ragged_work(spans, H, KH, D, 2, S, bs, T)
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+    cu = dev["cu"].tolist()
+    entries, want_rows = [], []
+    for slot, q_len, ctx in spans:
+        if q_len:
+            c0 = cu[slot]
+            qpos = ctx - q_len + torch.arange(q_len, device="cuda")
+            entries.append((q[c0:c0 + q_len], qpos, ctx, dev["tables"][slot]))
+            want_rows.append(want[c0:c0 + q_len])
+    lib = yardsticks(torch, f"K2 {label}", pool, layer, entries, H, KH,
+                     want_rows)
+    log(f"[kernels] K2 {label} ({card}): {ms:.4f} ms, "
+        f"{b_ms / ms:.3f} of its {b_ms:.4f} ms bound ({b_by}); plain "
+        f"{plain_ms:.3f} ms; SDPA {lib['library_ms']:.4f} ms, varlen_attn "
+        f"{lib['varlen_ms']}")
+    return {"name": "K2 ragged_paged_attention", "key": "K2",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, **lib,
+            "ms_by_tile": by_tile, "ms_by_split_span": by_span,
+            "shape": f"{label}: T={T}, S={S}, {live} live tokens, "
+                     f"{work.n_decode} one-token spans"}
+
+
+def ragged_prefill_only(torch, card, rng, H, KH, D, S, M, bs, T,
+                        layer) -> dict:
+    """K2 on a prefill-only stream of 4 fresh 512-token spans (a ragged
+    prefill step's work at llama-3-8b), and K4 on the same 4 x 512 fresh
+    chunks at its default tile, for the two walks side by side."""
+    from production_stack_tpu_torch.ops import paged_prefill_attention as k4
+
+    spans = [(s, 512, 512) for s in range(4)]
+    pool, dev, spans = make_stream(rng, spans, T, S, M, bs, 2 * KH, D,
+                                   torch.bfloat16, torch, layer=layer)
+    q = torch.randn((T, H, D), dtype=torch.bfloat16, device="cuda")
+    rec = ragged_measure(torch, card, "4 x 512 prefill-only", pool, dev,
+                         spans, q, layer, H, KH, D, S, bs, T)
+    del pool
+    kpool, kdev = make_prefill_batch(rng, [(0, 512)] * 4, 512, M, bs, 2 * KH,
+                                     D, torch.bfloat16, torch, layer=layer)
+    kargs = (q.view(4, 512, H, D), kpool, kdev["tables"], kdev["q_starts"],
+             kdev["ctx"], layer)
+    rec["k4_same_work_ms"] = time_ms(
+        torch, lambda: k4.paged_prefill_attention(*kargs), 20)
+    log(f"[kernels] K4 on the same 4 x 512 fresh chunks: "
+        f"{rec['k4_same_work_ms']:.4f} ms (K2 {rec['ms']:.4f} ms) ({card})")
+    del kpool
+    return rec
+
+
+def decode_measure(torch, card, label, rng, lens, H, KH, D, M, bs,
+                   layer) -> dict:
+    """bf16 K3 on one query per slot with context ``lens`` (0 = an empty
+    slot, which must output exactly 0) against its plain version, its
+    split-span sweep (each span checked first), then its time by its own
+    split plan beside its plain version, bound and library calls."""
+    from production_stack_tpu_torch.ops import paged_decode_attention as k3
+
+    B = len(lens)
+    plain = k3.paged_decode_attention_plain
+    spans = [(b, 1, c) for b, c in enumerate(lens) if c > 0]
+    pool, dev, _ = make_stream(rng, spans, B, B, M, bs, 2 * KH, D,
+                               torch.bfloat16, torch, layer=layer)
+    q = torch.randn((B, H, D), dtype=torch.bfloat16, device="cuda")
+    args = (q, pool, dev["tables"], dev["ctx"], layer)
+    plan = k3.split_plan(max(lens), len(spans), KH)
+
+    def timed(p):
+        return time_ms(torch, lambda: k3.paged_decode_attention(
+            *args, plan=p), 20)
+
+    got = k3.paged_decode_attention(*args, plan=plan)
+    want = plain(*args)
+    extra = p_allowance(plain, args, torch)
+    err = check_close(f"K3 {label}", got, want, BF16_TOL, torch, extra=extra)
+    if not (got[dev["ctx"] == 0] == 0).all():
+        raise AssertionError(f"K3 {label}: a slot with context 0 did not "
+                             "output 0")
+    by_span = {}
+    for span in SPAN_SWEEP + ((4096, 8192) if max(lens) > 4096 else ()):
+        p = k3.split_plan(max(lens), len(spans), KH, span)
+        check_close(f"K3 {label}, split span {span}",
+                    k3.paged_decode_attention(*args, plan=p), want, BF16_TOL,
+                    torch, extra=extra)
+        by_span[span] = timed(p)
+    log(f"[kernels] K3 {label} ms by split span (default plan {plan}): "
+        f"{json.dumps(by_span)} ({card})")
+    ms = timed(plan)
+    plain_ms = time_ms(torch, lambda: plain(*args), 5, warmup=1, graph=False)
+    nbytes, flops = decode_work(lens, H, KH, D, 2, bs)
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+    entries = [(q[b:b + 1], torch.full((1,), c - 1, device="cuda"), c,
+                dev["tables"][b]) for b, c in enumerate(lens) if c > 0]
+    want_rows = [want[b:b + 1] for b, c in enumerate(lens) if c > 0]
+    lib = yardsticks(torch, f"K3 {label}", pool, layer, entries, H, KH,
+                     want_rows)
+    log(f"[kernels] K3 {label} ({card}): {ms:.4f} ms, {b_ms / ms:.3f} of "
+        f"its {b_ms:.4f} ms bound ({b_by}); plain {plain_ms:.3f} ms; SDPA "
+        f"{lib['library_ms']:.4f} ms, varlen_attn {lib['varlen_ms']}")
+    del pool
+    return {"name": "K3 paged_decode_attention", "key": "K3",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, **lib,
+            "ms_by_split_span": by_span,
+            "shape": f"{label}: M={M}, {sum(lens)} context tokens, split "
+                     f"plan {plan}"}
 
 
 def kernel_phase(torch, np, card: str) -> list[dict]:
@@ -639,83 +901,26 @@ def kernel_phase(torch, np, card: str) -> list[dict]:
         f"ms, index_copy_ {d_lib:.5f} ms; one call with its synchronise "
         f"{d_call:.4f} ms ({card})")
 
-    # K2 against its plain version (the span-by-span gather); the pool's
-    # span tokens were just written by K1, the rest of each context earlier
+    # K2 on the mixed stream, whose span tokens K1 just wrote; then on a
+    # prefill-only stream beside K4 on the same work
     q = torch.randn((T, H, D), dtype=torch.bfloat16, device="cuda")
-    args = (q, pool, dev["tables"], dev["cu"], dev["ctx"], layer)
-    got = k2.ragged_paged_attention(*args)
-    want = k2.ragged_paged_attention_plain(*args)
-    torch.cuda.synchronize()
-    err = check_close("K2 ragged_paged_attention", got, want, BF16_TOL, torch)
-    if not (got[live:] == 0).all():
-        raise AssertionError("K2: tail padding rows are not exactly 0")
-    # the tile height trades K/V reuse in a prefill tile against the
-    # contexts a tile of decode rows walks one after another. The tile map
-    # is made once, as the model runner makes it once a step, so the times
-    # are the kernel's alone
-    sweep = {}
-    for qt in (2, 4, 8, 16):
-        tiles = k2.stream_tiles(dev["cu"], T, qt)
-        check_close(f"K2 q_tile={qt}", k2.ragged_paged_attention(
-            *args, q_tile=qt, tiles=tiles), want, BF16_TOL, torch)
-        sweep[qt] = time_ms(torch, lambda: k2.ragged_paged_attention(
-            *args, q_tile=qt, tiles=tiles), 10)
-    log(f"[kernels] K2 ms by q_tile (default {k2.Q_TILE}): "
-        f"{json.dumps(sweep)} ({card})")
-    tiles = k2.stream_tiles(dev["cu"], T)
-    ms = time_ms(torch, lambda: k2.ragged_paged_attention(
-        *args, tiles=tiles), 10)
-    plain_ms = time_ms(torch, lambda: k2.ragged_paged_attention_plain(*args),
-                       3, warmup=1, graph=False)
-    nbytes, flops = ragged_work(spans, H, KH, D, 2, S, bs, T)
-    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
-    cu = dev["cu"].tolist()
-    entries, want_rows = [], []
-    for slot, q_len, ctx in spans:
-        if q_len:
-            c0 = cu[slot]
-            qpos = ctx - q_len + torch.arange(q_len, device="cuda")
-            entries.append((q[c0:c0 + q_len], qpos, ctx, dev["tables"][slot]))
-            want_rows.append(want[c0:c0 + q_len])
-    lib_ms = time_sdpa(torch, "K2", pool, layer, entries, H, KH, want_rows)
-    del entries, want_rows
-    results.append({"name": "K2 ragged_paged_attention", "key": "K2",
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                    "shape": f"T={T}, S={S}, M={M}, {live} live tokens"})
+    k2_mixed = ragged_measure(torch, card, "mixed stream", pool, dev, spans,
+                              q, layer, H, KH, D, S, bs, T)
+    del pool, q
+    k2_mixed["also"] = [ragged_prefill_only(torch, card, rng, H, KH, D, S,
+                                            M, bs, T, layer)]
+    results.append(k2_mixed)
 
-    # K3: one query per slot, contexts up to 2k, empty slots at ctx 0
-    d_spans = [(s, 1, int(rng.integers(1, 2049)))
-               for s in range(S) if s % 9]
-    dpool, ddev, _ = make_stream(rng, d_spans, S, S, M, bs, 2 * KH, D,
-                                 torch.bfloat16, torch, layer=layer)
-    del pool
-    dq = torch.randn((S, H, D), dtype=torch.bfloat16, device="cuda")
-    dargs = (dq, dpool, ddev["tables"], ddev["ctx"], layer)
-    got = k3.paged_decode_attention(*dargs)
-    want = k3.paged_decode_attention_plain(*dargs)
-    torch.cuda.synchronize()
-    err = check_close("K3 paged_decode_attention", got, want, BF16_TOL, torch)
-    if not (got[ddev["ctx"] == 0] == 0).all():
-        raise AssertionError("K3: a slot with context 0 did not output 0")
-    ms = time_ms(torch, lambda: k3.paged_decode_attention(*dargs), 20)
-    plain_ms = time_ms(torch, lambda: k3.paged_decode_attention_plain(*dargs),
-                       5, warmup=1, graph=False)
-    ctx_sum = int(ddev["ctx"].sum())
-    nbytes, flops = decode_work(ddev["ctx"].tolist(), H, KH, D, 2, bs)
-    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
-    entries = [(dq[b:b + 1], torch.full((1,), c - 1, device="cuda"), c,
-                ddev["tables"][b])
-               for b, c in enumerate(ddev["ctx"].tolist()) if c > 0]
-    want_rows = [want[b:b + 1]
-                 for b, c in enumerate(ddev["ctx"].tolist()) if c > 0]
-    lib_ms = time_sdpa(torch, "K3", dpool, layer, entries, H, KH, want_rows)
-    del entries, want_rows
-    results.append({"name": "K3 paged_decode_attention", "key": "K3",
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                    "shape": f"B={S}, M={M}, {ctx_sum} context tokens"})
-    del dpool
+    # K3: one query per slot, contexts up to 2k, empty slots at ctx 0; then
+    # long contexts at small batch
+    lens = [0 if b % 9 == 0 else int(rng.integers(1, 2049))
+            for b in range(S)]
+    k3_batch = decode_measure(torch, card, f"B={S}", rng, lens, H, KH, D, M,
+                              bs, layer)
+    k3_batch["also"] = [decode_measure(torch, card, "B=4, ctx 8192", rng,
+                                       [8192, 8192, 8000, 8192], H, KH, D,
+                                       M, bs, layer)]
+    results.append(k3_batch)
     results.append(prefill_kernel_phase(torch, np, card, rng, cfg, M))
 
     # float32 at D = 32 (tiny-llama geometry: H=4, KH=2)
@@ -898,8 +1103,10 @@ def slice_phase(torch, np, counters, card: str, impl: str,
 
 
 def _category(name: str) -> str:
-    for key, cat in (("kv_write_kernel", "K1"), ("ragged_kernel", "K2"),
-                     ("decode_kernel", "K3"), ("prefill_mma_kernel", "K4"),
+    # K2's kernels all start ragged_ (ragged_decode_kernel before K3's
+    # decode_); K3's start decode_, K4's prefill_mma or prefill_walk
+    for key, cat in (("kv_write_kernel", "K1"), ("ragged_", "K2"),
+                     ("decode_", "K3"), ("prefill_mma_kernel", "K4"),
                      ("prefill_walk_kernel", "K4"),
                      ("Memcpy", "copy"), ("Memset", "copy")):
         if key in name:
@@ -913,29 +1120,38 @@ def _category(name: str) -> str:
 def _profiled(torch, run):
     """``run()`` under torch.profiler, tracing the card only. Returns
     (wall ms, device busy ms, {category: device ms}, device events,
-    {category: events}); busy is the union of the kernel and copy
-    intervals, None when the trace holds none."""
+    {kernel: wrapper calls}); busy is the union of the kernel and copy
+    intervals, None when the trace holds none. A wrapper call of K2 or K3
+    may launch two or three kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from production_stack_tpu_torch.ops import kv_write as k1
+    from production_stack_tpu_torch.ops import paged_decode_attention as k3
+    from production_stack_tpu_torch.ops import paged_prefill_attention as k4
+    from production_stack_tpu_torch.ops import ragged_paged_attention as k2
+
+    counters = {"K1": k1.LAUNCHES, "K2": k2.LAUNCHES, "K3": k3.LAUNCHES,
+                "K4": k4.LAUNCHES}
+    before = {k: c.n for k, c in counters.items()}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    spans, cats, counts = [], collections.Counter(), collections.Counter()
+    calls = {k: c.n - before[k] for k, c in counters.items()}
+    spans, cats = [], collections.Counter()
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             spans.append((e.time_range.start, e.time_range.end))
             cats[_category(e.name)] += e.time_range.elapsed_us() / 1e3
-            counts[_category(e.name)] += 1
     busy, end = 0.0, float("-inf")
     for s, t in sorted(spans):
         if t > end:
             busy += t - max(s, end)
             end = t
-    return wall, (busy / 1e3 if spans else None), cats, len(spans), counts
+    return wall, (busy / 1e3 if spans else None), cats, len(spans), calls
 
 
 def _add_requests(eng, rng, tag, n, length, max_tokens) -> None:
@@ -948,7 +1164,7 @@ def _add_requests(eng, rng, tag, n, length, max_tokens) -> None:
             rng.integers(0, 256, length).tolist()))
 
 
-def _report(card, label, n, wall, busy, cats, kernels, counts) -> None:
+def _report(card, label, n, wall, busy, cats, kernels, calls) -> None:
     rec = {"steps": n, "wall_ms_per_step": wall / n}
     if busy is None:
         rec["device"] = "not measured (the trace held no device events)"
@@ -959,11 +1175,11 @@ def _report(card, label, n, wall, busy, cats, kernels, counts) -> None:
             "device_idle_share": 1.0 - busy / wall,
             "device_ms_per_step": {c: v / n for c, v in
                                    sorted(cats.items())},
-            # a hand kernel's device time per launch inside the step, its
-            # inputs as the step leaves them in the caches
-            "device_us_per_launch": {c: cats[c] * 1e3 / counts[c]
+            # a hand kernel's device time per wrapper call inside the
+            # step, its inputs as the step leaves them in the caches
+            "device_us_per_launch": {c: cats[c] * 1e3 / calls[c]
                                      for c in ("K1", "K2", "K3", "K4")
-                                     if counts[c]}})
+                                     if calls[c]}})
     log(f"[profile] {label} ({card}): {json.dumps(rec)}")
 
 
@@ -1111,52 +1327,72 @@ def parity_phase(torch, np, impl: str) -> None:
         f"identical between the kernel path (card) and the plain path (cpu)")
 
 
-def bf16_prefill_phase(torch, np) -> None:
-    """bf16 tiny-llama on the bucketed path, served twice on the card in
-    this process with the same weights and prompts: through K4 (the
-    tensor-core kernel), then with K4's plain version in the model
-    runner's place of the wrapper, put there by this script for that run
-    only. K4 must launch in the first run and not in the second."""
+def bf16_phase(torch, np, impl: str) -> None:
+    """bf16 tiny-llama on path ``impl``, served twice on the card in this
+    process with the same weights and prompts: through the tensor-core
+    kernels (K2 and K3 on the ragged path, K4 on the bucketed one), then
+    with their plain versions in the model runner's place of the wrappers,
+    put there by this script for that run only. The kernels must launch in
+    the first run and not in the second."""
     from production_stack_tpu_torch.engine import model_runner
     from production_stack_tpu_torch.engine.engine import LLMEngine
     from production_stack_tpu_torch.engine.sampling import SamplingParams
     from production_stack_tpu_torch.engine.weights import init_random
+    from production_stack_tpu_torch.ops import paged_decode_attention as k3
     from production_stack_tpu_torch.ops import paged_prefill_attention as k4
+    from production_stack_tpu_torch.ops import ragged_paged_attention as k2
 
-    cfg = _parity_engine("bucketed", "bfloat16")
+    # the runner's name of each wrapper: its counter and plain version,
+    # which takes no work map or split plan
+    swapped = {
+        "ragged": {
+            "ragged_paged_attention": (k2.LAUNCHES, lambda *a, tiles=None,
+                                       **kw: k2.ragged_paged_attention_plain(
+                                           *a, **kw)),
+            "paged_decode_attention": (k3.LAUNCHES, lambda *a, plan=None,
+                                       **kw: k3.paged_decode_attention_plain(
+                                           *a, **kw))},
+        "bucketed": {
+            "paged_prefill_attention": (k4.LAUNCHES,
+                                        k4.paged_prefill_attention_plain)},
+    }[impl]
+    cfg = _parity_engine(impl, "bfloat16")
     params = init_random(cfg.model, seed=0, device="cuda")
     rng = np.random.default_rng(4)
     prompts = [rng.integers(0, 259, n).tolist() for n in PARITY_LENGTHS]
     sp = SamplingParams(temperature=0.0, max_tokens=24, ignore_eos=True,
                         logprobs=2)
-    wrapper = model_runner.paged_prefill_attention
+    wrappers = {n: getattr(model_runner, n) for n in swapped}
     runs, launches = {}, {}
-    for name in ("K4", "plain"):
-        k4.LAUNCHES.n = 0
-        if name == "plain":
-            model_runner.paged_prefill_attention = (
-                k4.paged_prefill_attention_plain)
+    for run in ("kernels", "plain"):
+        for counter, _ in swapped.values():
+            counter.n = 0
+        if run == "plain":
+            for n, (_, plain) in swapped.items():
+                setattr(model_runner, n, plain)
         try:
-            runs[name] = _greedy_tokens(
+            runs[run] = _greedy_tokens(
                 LLMEngine(cfg, params=params, device="cuda"), prompts, sp)
         finally:
-            model_runner.paged_prefill_attention = wrapper
-        launches[name] = k4.LAUNCHES.n
-    if launches["K4"] == 0 or launches["plain"] != 0:
-        raise AssertionError(f"[parity] bf16 bucketed: K4 launches {launches}"
-                             "; expected some through K4 and none through "
-                             "the plain version")
-    compared, worst = _compare_greedy("bf16 bucketed, K4 against plain",
-                                      runs["plain"], runs["K4"],
+            for n, w in wrappers.items():
+                setattr(model_runner, n, w)
+        launches[run] = {c.name.split()[0]: c.n for c, _ in swapped.values()}
+    if (not all(launches["kernels"].values())
+            or any(launches["plain"].values())):
+        raise AssertionError(f"[parity] bf16 {impl}: launches {launches}; "
+                             "expected some through each kernel and none "
+                             "through the plain versions")
+    compared, worst = _compare_greedy(f"bf16 {impl}, kernels against plain",
+                                      runs["plain"], runs["kernels"],
                                       BF16_LOGPROB_BAND)
     if worst > BF16_LOGPROB_BAND:
         raise AssertionError(
-            f"[parity] bf16 bucketed: logprobs differ by {worst:.3e}, past "
+            f"[parity] bf16 {impl}: logprobs differ by {worst:.3e}, past "
             f"the band {BF16_LOGPROB_BAND}")
-    log(f"[parity] tiny-llama bf16, bucketed: {compared} greedy tokens "
-        f"identical through K4 and through its plain version ({launches['K4']}"
-        f" K4 launches); largest logprob difference {worst:.3e} (band "
-        f"{BF16_LOGPROB_BAND})")
+    log(f"[parity] tiny-llama bf16, {impl}: {compared} greedy tokens "
+        f"identical through the kernels and through their plain versions "
+        f"(launches {launches['kernels']}); largest logprob difference "
+        f"{worst:.3e} (band {BF16_LOGPROB_BAND})")
 
 
 def main() -> int:
@@ -1200,7 +1436,7 @@ def main() -> int:
     }
     for impl in by_path:
         parity_phase(torch, np, impl)
-    bf16_prefill_phase(torch, np)
+        bf16_phase(torch, np, impl)
 
     kernels = []
     for r in results:
@@ -1216,7 +1452,11 @@ def main() -> int:
             "library_call": SDPA_NOTE if r["key"] != "K1" else "index_copy_",
             "timing": "device: one CUDA event pair around the replay of a "
                       "CUDA graph of many launches",
+            "shape": r["shape"],
             **({"achieved_tflops": r["tflops"]} if "tflops" in r else {}),
+            **{k: r[k] for k in EXTRA_KEYS if k in r},
+            **({"also": [{k: a[k] for k in ALSO_KEYS if k in a}
+                         for a in r["also"]]} if "also" in r else {}),
         })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,9 @@
-// Device code shared by the ragged (K2), decode (K3) and float32 prefill
-// (K4; bf16 K4 runs on the tensor cores, mma_attention.cuh)
-// paged-attention kernels: shared-memory layout, query staging, the walk
-// over one sequence's paged context with an online softmax in float32, and
-// the head dims each kernel is instantiated for.
+// The CUDA-core walk of the float32 paged-attention kernels (K2, K3 and K4
+// at the tiny presets): shared-memory layout, query staging, the walk over
+// one sequence's paged context with an online softmax in float32. Only the
+// float32 paths use the walk now; the bf16 kernels run on the tensor cores
+// (mma_attention.cuh, split_decode.cuh). Every kernel also takes from here
+// the head dims it is instantiated for (with_head_dim) and allow_smem.
 //
 // A CTA owns R query rows that all read the same KV head `kh`. Each row
 // carries its own absolute query position (qpos, -1 = not attending in the

@@ -46,13 +46,14 @@ from production_stack_tpu_torch.ops.kv_write import kv_write
 from production_stack_tpu_torch.ops.paged_attention import combine_kv
 from production_stack_tpu_torch.ops.paged_decode_attention import (
     paged_decode_attention,
+    split_plan,
 )
 from production_stack_tpu_torch.ops.paged_prefill_attention import (
     paged_prefill_attention,
 )
 from production_stack_tpu_torch.ops.ragged_paged_attention import (
     ragged_paged_attention,
-    stream_tiles,
+    ragged_work_map,
 )
 
 
@@ -178,7 +179,7 @@ class ModelRunner:
         kv_write(kv, newkv, meta["slot_mapping"], layer)
         out = paged_decode_attention(
             q.contiguous(), kv, meta["block_tables"], meta["context_lens"],
-            layer, soft_cap=self.cfg.attn_logit_softcap,
+            layer, soft_cap=self.cfg.attn_logit_softcap, plan=meta["plan"],
         )
         return out, kv
 
@@ -250,14 +251,17 @@ class ModelRunner:
         sample is consumed this step (it gates the penalty-count update).
         Returns device tensors (sampled (S,), tok_lp (S,), top_ids (S, N),
         top_lps (S, N)); the caller fetches them when it needs them."""
-        cu = self._dev(cu_q_lens)
+        c = self.cfg
         meta = {
             "block_tables": self._dev(block_tables),
             "context_lens": self._dev(context_lens),
-            "cu_q_lens": cu,
+            "cu_q_lens": self._dev(cu_q_lens),
             "slot_mapping": self._dev(slot_mapping),
-            # the kernel's tile map, once a step rather than once a layer
-            "tiles": stream_tiles(cu, len(tokens)),
+            # the kernel's work map, made on the host from the step's span
+            # lengths and uploaded once a step rather than once a layer
+            "tiles": ragged_work_map(
+                cu_q_lens, context_lens, len(tokens), c.num_heads,
+                c.num_kv_heads, c.head_dim, self.kv.dtype, self.device),
         }
         hidden = self._forward(self._attend_ragged, self._dev(tokens),
                                self._dev(positions), meta)
@@ -334,10 +338,16 @@ class ModelRunner:
             self._ensure_counts()
         S = tok.shape[0]
         rows = torch.arange(S, device=self.device)
+        # K3's split plan, fixed for the step from the host's context
+        # lengths: contexts grow on the device by one an iteration, and
+        # each of K3's CTAs reads its own from ``ctx``
+        lens = np.asarray(context_lens)
+        plan = split_plan(int(lens.max(initial=0)) + K,
+                          int(np.count_nonzero(lens)), self.cfg.num_kv_heads)
         outs = []
         for _ in range(K):
             meta = {"block_tables": bt, "context_lens": ctx,
-                    "slot_mapping": slots}
+                    "slot_mapping": slots, "plan": plan}
             hidden = self._forward(self._attend_decode, tok, pos, meta)
             logits = self.model.logits_from_hidden(self.cfg, self.params,
                                                    hidden)

@@ -7,11 +7,20 @@ plain PyTorch version.
 
 ``q (B, H, D)`` row b attends the first ``context_lens[b]`` tokens of its
 paged context; a slot with context 0 outputs 0.
+
+bf16 runs the split-KV walk of ``csrc/split_decode.cuh``: a CTA owns one
+(sequence, KV head, split), a split covers ``span`` consecutive positions
+of the context, and with more than one split a second launch merges the
+splits' float32 partials (scratch allocated here). ``split_plan`` fixes
+(n_splits, span) from host context lengths; the model runner calls it once
+a step, and each CTA reads its own length from ``context_lens`` on the
+device. float32 keeps the CUDA-core walk and takes no plan.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -19,10 +28,63 @@ from production_stack_tpu_torch.ops import _build
 from production_stack_tpu_torch.ops.paged_attention import split_kv
 
 LAUNCHES = _build.LaunchCounter("K3 paged_decode_attention")
+# the split-KV walk (decode::Tile, csrc/split_decode.cuh): one m16 tile of
+# the G query heads of a KV head, 16 positions a warp, four warps (two at
+# D = 256), three stages
+MAX_GROUP = 16
+STAGES = 3
+# a split's span is a whole number of every head dim's stage (64 or 32
+# positions)
+SPAN_GRANULE = 64
+MIN_SPAN = 256  # shortest split: below it the merge's share grows
+# a wave of the walk: two CTAs fit an SM at D = 128 (106 KB of shared
+# memory each), and an H100 has 132 SMs
+TARGET_CTAS = 2 * 132
+# longest split once the unsplit CTAs already fill a wave: contexts of
+# different lengths then finish together (chip_smoke.py's split-span
+# sweeps, PERF.md)
+BALANCE_SPAN = 512
 
-_argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+_argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p]
+
+
+def decode_geometry(D: int) -> dict:
+    """The bf16 walk's CTA at head dim D: threads, positions a stage,
+    stages, and dynamic shared memory in bytes (16 query rows and the K and
+    V stages, rows padded by 16 bytes)."""
+    warps = 4 if D <= 128 else 2
+    positions = 16 * warps
+    stride = D + 8
+    return {"threads": 32 * warps, "positions": positions, "stages": STAGES,
+            "smem_bytes": (16 * stride + 2 * STAGES * positions * stride) * 2}
+
+
+def split_plan(max_ctx: int, n_items: int, num_kv_heads: int,
+               span: Optional[int] = None) -> tuple[int, int]:
+    """(n_splits, span) for ``n_items`` query tokens whose contexts reach at
+    most ``max_ctx`` positions: split i covers positions [i * span, (i + 1)
+    * span), so every context up to n_splits * span is covered once. By
+    default, when the unsplit (item, KV head) CTAs fill less than a wave
+    (TARGET_CTAS), the longest context is cut into as many splits as keep
+    the CTAs within one wave; when they fill a wave or more, no split is
+    longer than BALANCE_SPAN. The span is at least MIN_SPAN, a multiple of
+    SPAN_GRANULE. Pure host arithmetic: a caller fixes it once a step, from
+    host context lengths."""
+    if span is None:
+        rows = max(n_items * num_kv_heads, 1)
+        top = -(-max(max_ctx, 1) // SPAN_GRANULE) * SPAN_GRANULE
+        if rows < TARGET_CTAS:  # split up to one wave
+            per = -(-max(max_ctx, 1) // (TARGET_CTAS // rows))
+            span = -(-per // SPAN_GRANULE) * SPAN_GRANULE
+        else:  # a wave already: even out long and short contexts
+            span = min(top, BALANCE_SPAN)
+        span = max(MIN_SPAN, span)
+    if span <= 0 or span % SPAN_GRANULE:
+        raise ValueError(f"paged_decode_attention: split span {span} is not "
+                         f"a positive multiple of {SPAN_GRANULE}")
+    return max(1, -(-max_ctx // span)), span
 
 
 def paged_decode_attention_plain(
@@ -65,10 +127,14 @@ def paged_decode_attention_plain(
 def paged_decode_attention(
     q: torch.Tensor, pool: torch.Tensor, block_tables: torch.Tensor,
     context_lens: torch.Tensor, layer: int, soft_cap: float = 0.0,
+    plan: Optional[tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Decode attention of ``q (B, H, D)`` against layer ``layer`` of
     ``pool (L, N, bs, 2KH, D)``. CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    tensors launch the kernel. ``plan`` is bf16's ``split_plan`` (n_splits,
+    span); when not given it is made here from a host copy of
+    ``context_lens``, a synchronisation that the model runner avoids by
+    passing the plan it fixed for the step."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, pool, block_tables, context_lens, layer, soft_cap)
@@ -90,13 +156,30 @@ def paged_decode_attention(
     if not 0 <= layer < L:
         raise ValueError(f"{what}: layer {layer} out of range [0, {L})")
     _build.require_aligned(what, q, pool)
+    code = _build.dtype_code(q)
     M = block_tables.shape[1]
+    n_splits, span, part = 1, 0, None
+    if q.dtype == torch.bfloat16:
+        if H // KH > MAX_GROUP:
+            raise ValueError(f"{what}: {H // KH} query heads a KV head; the "
+                             f"split walk takes at most {MAX_GROUP}")
+        if plan is None:
+            lens = context_lens.cpu()
+            plan = split_plan(int(lens.max()) if B else 0,
+                              int((lens > 0).sum()), KH)
+        n_splits, span = plan
+        if n_splits <= 0 or span <= 0 or span % SPAN_GRANULE:
+            raise ValueError(f"{what}: bad split plan {plan}")
+        if n_splits > 1:  # m and l, then acc, of each (row, head, split)
+            part = torch.empty(B * H * n_splits * (D + 2),
+                               dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     fn = _build.launcher("paged_decode_attention", _argtypes)
     rc = fn(_build.ptr(q), _build.ptr(pool), _build.ptr(out),
+            None if part is None else _build.ptr(part),
             _build.ptr(block_tables), _build.ptr(context_lens),
-            B, H, KH, N, bs, M, int(layer), D ** -0.5, float(soft_cap),
-            _build.dtype_code(q), D, _build.stream_of(q))
+            B, H, KH, N, bs, M, int(layer), n_splits, span, D ** -0.5,
+            float(soft_cap), code, D, _build.stream_of(q))
     _build.check("paged_decode_attention", rc, what)
     LAUNCHES.n += 1
     return out

@@ -10,27 +10,108 @@ The stream ``q (T, H, D)`` concatenates every slot's span: span s is
 ``context_lens[s]`` tokens (the span included) in pages
 ``block_tables[s]``, and token j of a span of ``q_len`` tokens sits at
 position ``ctx - q_len + j``. Rows that belong to no span output exactly 0.
+
+The kernel works from a work map, ``ragged_work_map``, built once a step
+from host copies of the span offsets and context lengths. bf16: spans of
+two or more tokens are cut into row tiles of (rows, positions) (the tiles
+of K4, ``paged_prefill_attention.TILES``) that run K4's tensor-core walk;
+one-token spans are decode items that run K3's split-KV walk with a
+``split_plan``; the tail past the last span is cut into tiles that write
+zeros. float32 keeps the CUDA-core walk over tiles of ``Q_TILE`` stream
+tokens, mapped by ``tile_metadata``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from production_stack_tpu_torch.ops import _build
+from production_stack_tpu_torch.ops import paged_prefill_attention as k4
 from production_stack_tpu_torch.ops.paged_attention import split_kv
+from production_stack_tpu_torch.ops.paged_decode_attention import (
+    MAX_GROUP,
+    split_plan,
+)
 
 LAUNCHES = _build.LaunchCounter("K2 ragged_paged_attention")
-# stream tokens per CTA (rows per CTA = Q_TILE * H / KH). A tile of decode
-# rows walks its Q_TILE contexts one after another, so short tiles win on
-# a mixed stream: chip_smoke.py's q_tile sweep, PERF.md
+# float32: stream tokens per CTA of the CUDA-core walk (rows per CTA =
+# Q_TILE * H / KH). A tile of decode rows walks its Q_TILE contexts one
+# after another, so short tiles won on a mixed stream (the walk's q_tile
+# sweep, PERF.md)
 Q_TILE = 4
 _PLAIN_CHUNK = 256  # query rows per score block in the plain version
 
-_argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
+_argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 14 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p]
+
+
+class RaggedWorkMap(NamedTuple):
+    """A step's work map for one stream shape (``T`` tokens, ``G`` query
+    heads a KV head, ``dtype``). ``work`` (int32, on the kernel's device)
+    holds bf16's ``n_tiles`` (span, first row) pairs, span -1 for a tile of
+    the tail, then its ``n_decode`` one-token spans' slots, walked with
+    ``plan`` = (n_splits, span); float32's ``n_tiles`` (first span, span
+    count) pairs of ``tile_metadata``. ``tile`` is bf16's (rows,
+    positions), float32's (Q_TILE tokens, 32 positions)."""
+    T: int
+    G: int
+    dtype: torch.dtype
+    tile: tuple[int, int]
+    n_tiles: int
+    n_decode: int
+    plan: tuple[int, int]
+    work: torch.Tensor
+
+
+def ragged_work_map(cu_q_lens, context_lens, T: int, num_heads: int,
+                    num_kv_heads: int, head_dim: int, dtype: torch.dtype,
+                    device="cuda", tile: Optional[tuple[int, int]] = None,
+                    split_span: Optional[int] = None) -> RaggedWorkMap:
+    """The work map of a stream of ``T`` tokens from HOST span offsets
+    ``cu_q_lens (S+1,)`` and context lengths ``(S,)`` (numpy or lists),
+    uploaded to ``device`` in one copy. bf16 takes ``tile`` (rows,
+    positions; default ``k4.DEFAULT_TILE``) and ``split_span`` (default
+    ``split_plan``'s). The grid's size depends on the span lengths, so
+    the map is made on the host, where the runner has them."""
+    cu = np.asarray(cu_q_lens, np.int64).reshape(-1)
+    ctx = np.asarray(context_lens, np.int64).reshape(-1)
+    if cu.shape != (ctx.shape[0] + 1,) or cu[-1] > T:
+        raise ValueError(f"ragged_work_map: {cu.shape[0]} span offsets "
+                         f"reaching {cu[-1]} do not fit {ctx.shape[0]} "
+                         f"slots and {T} tokens")
+    G = num_heads // num_kv_heads
+    if dtype != torch.bfloat16:
+        n = -(-T // Q_TILE)
+        first, count = tile_metadata(torch.from_numpy(cu.astype(np.int32)),
+                                     n, Q_TILE)
+        work = torch.stack([first, count], 1).reshape(-1)
+        return RaggedWorkMap(T, G, dtype, (Q_TILE, k4.WALK_POSITIONS), n, 0,
+                             (1, 0), work.to(device))
+    rows, positions = tile or k4.DEFAULT_TILE[head_dim]
+    if (rows, positions) not in k4.TILES.get(head_dim, ()):
+        raise ValueError(f"ragged_work_map: tile {(rows, positions)} is not "
+                         f"built for head_dim {head_dim} (built: "
+                         f"{k4.TILES.get(head_dim, ())})")
+    q_lens = np.diff(cu)
+    spans = np.flatnonzero(q_lens >= 2)
+    per = -(-q_lens[spans] * G // rows)  # tiles a span
+    first = np.cumsum(per) - per
+    tile_rows = (np.arange(per.sum()) - np.repeat(first, per)) * rows
+    n_tail = -(-(T - cu[-1]) * G // rows)
+    tiles = np.stack([
+        np.concatenate([np.repeat(spans, per), np.full(n_tail, -1)]),
+        np.concatenate([tile_rows, np.arange(n_tail) * rows])], 1)
+    decode = np.flatnonzero(q_lens == 1)
+    plan = split_plan(int(ctx[decode].max()) if decode.size else 0,
+                      decode.size, num_kv_heads, split_span)
+    work = np.concatenate([tiles.reshape(-1), decode]).astype(np.int32)
+    return RaggedWorkMap(T, G, dtype, (rows, positions), len(tiles),
+                         decode.size, plan, torch.from_numpy(work).to(device))
 
 
 def tile_metadata(cu_q_lens: torch.Tensor, num_tiles: int,
@@ -54,14 +135,6 @@ def tile_metadata(cu_q_lens: torch.Tensor, num_tiles: int,
     cnt = torch.where(g_last >= starts, last - first + 1,
                       torch.zeros_like(first))
     return first.to(torch.int32), cnt.to(torch.int32)
-
-
-def stream_tiles(cu_q_lens: torch.Tensor, T: int,
-                 q_tile: int = Q_TILE) -> tuple[torch.Tensor, torch.Tensor]:
-    """``tile_metadata`` for a stream of ``T`` tokens cut into ``q_tile``
-    token tiles. The spans do not change within a step, so a step computes
-    this once and passes it to every layer's call."""
-    return tile_metadata(cu_q_lens, -(-T // q_tile), q_tile)
 
 
 def ragged_paged_attention_plain(
@@ -109,13 +182,14 @@ def ragged_paged_attention_plain(
 def ragged_paged_attention(
     q: torch.Tensor, pool: torch.Tensor, block_tables: torch.Tensor,
     cu_q_lens: torch.Tensor, context_lens: torch.Tensor, layer: int,
-    soft_cap: float = 0.0, q_tile: int = Q_TILE,
-    tiles: tuple[torch.Tensor, torch.Tensor] | None = None,
+    soft_cap: float = 0.0, tiles: Optional[RaggedWorkMap] = None,
 ) -> torch.Tensor:
     """Attention of the packed stream ``q (T, H, D)`` against layer
     ``layer`` of ``pool (L, N, bs, 2KH, D)``. CPU tensors take the plain
     version; CUDA tensors launch the kernel. ``tiles`` is the step's
-    ``stream_tiles(cu_q_lens, T, q_tile)``, computed here when not given."""
+    ``ragged_work_map``; when not given it is made here from host copies of
+    ``cu_q_lens`` and ``context_lens``, a synchronisation that the model
+    runner avoids by passing the map it made for the step."""
     if q.device.type == "cpu":
         return ragged_paged_attention_plain(
             q, pool, block_tables, cu_q_lens, context_lens, layer, soft_cap)
@@ -137,22 +211,35 @@ def ragged_paged_attention(
         raise TypeError(f"{what}: q {q.dtype} != pool {pool.dtype}")
     if not 0 <= layer < L:
         raise ValueError(f"{what}: layer {layer} out of range [0, {L})")
+    if q.dtype == torch.bfloat16 and H // KH > MAX_GROUP:
+        raise ValueError(f"{what}: {H // KH} query heads a KV head; the "
+                         f"split walk takes at most {MAX_GROUP}")
     _build.require_aligned(what, q, pool)
-    num_tiles = -(-T // q_tile)
-    first, count = (tiles if tiles is not None
-                    else stream_tiles(cu_q_lens, T, q_tile))
-    _build.require_cuda(what, q, first, count)
-    _build.require_int32(what, first, count)
-    if first.shape != (num_tiles,) or count.shape != (num_tiles,):
-        raise ValueError(f"{what}: the tile map does not cut {T} tokens "
-                         f"into tiles of {q_tile}")
+    code = _build.dtype_code(q)
+    if tiles is None:
+        tiles = ragged_work_map(cu_q_lens.cpu().numpy(),
+                                context_lens.cpu().numpy(), T, H, KH, D,
+                                q.dtype, q.device)
+    if (tiles.T, tiles.G, tiles.dtype) != (T, H // KH, q.dtype):
+        raise ValueError(f"{what}: the work map was made for {tiles.T} "
+                         f"tokens, G {tiles.G}, {tiles.dtype}; the stream "
+                         f"has {T}, G {H // KH}, {q.dtype}")
+    _build.require_cuda(what, q, tiles.work)
+    _build.require_int32(what, tiles.work)
+    n_splits, span = tiles.plan
+    part = None
+    if tiles.n_decode and n_splits > 1:  # m and l, then acc, of each split
+        part = torch.empty(tiles.n_decode * H * n_splits * (D + 2),
+                           dtype=torch.float32, device=q.device)
+    rows, positions = tiles.tile
     out = torch.empty_like(q)
     fn = _build.launcher("ragged_paged_attention", _argtypes)
     rc = fn(_build.ptr(q), _build.ptr(pool), _build.ptr(out),
+            None if part is None else _build.ptr(part),
             _build.ptr(block_tables), _build.ptr(cu_q_lens),
-            _build.ptr(context_lens), _build.ptr(first), _build.ptr(count),
-            T, H, KH, N, bs, M, int(layer), q_tile, num_tiles,
-            D ** -0.5, float(soft_cap), _build.dtype_code(q), D,
+            _build.ptr(context_lens), _build.ptr(tiles.work), T, S, H, KH,
+            N, bs, M, int(layer), tiles.n_tiles, tiles.n_decode, n_splits,
+            span, rows, positions, D ** -0.5, float(soft_cap), code, D,
             _build.stream_of(q))
     _build.check("ragged_paged_attention", rc, what)
     LAUNCHES.n += 1

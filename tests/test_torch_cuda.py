@@ -6,14 +6,14 @@ suite's conftest, which imports JAX:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Each kernel is held against its plain version on the same card inputs:
-float32 within 1e-5 (sums in another order); bf16 K1-K3 within one bf16
-rounding step of each output (rtol 2^-7, atol 1e-5), since both versions
-accumulate in float32 and round once. bf16 K4 runs on the tensor cores and
-rounds P to bf16 before P V, which moves an output by up to 2^-8 of the
-softmax-weighted mean of |V|: it is held to ``|got - plain| <= atol +
-rtol |plain| + 2^-8 plain(|V|)``, where plain(|V|) is the plain version on
-the same inputs with V replaced by its absolute value. ``chip_smoke.py``
-does the same at the llama-3-8b serving shapes.
+float32 within 1e-5 (sums in another order); bf16 K1 bit for bit. bf16 K2,
+K3 and K4 run on the tensor cores: both versions accumulate in float32 and
+round the output once (one bf16 rounding step, rtol 2^-7, atol 1e-5), and
+the kernels also round P to bf16 before P V, which moves an output by up
+to 2^-8 of the softmax-weighted mean of |V|. They are held to ``|got -
+plain| <= atol + rtol |plain| + 2^-8 plain(|V|)``, where plain(|V|) is the
+plain version on the same inputs with V replaced by its absolute value.
+``chip_smoke.py`` does the same at the llama-3-8b serving shapes.
 """
 
 import numpy as np
@@ -94,9 +94,10 @@ def _prefill_case(dtype, H=8, KH=2, D=128, S=40, M=8, chunks=None):
     return pool, tables, q_starts, ctx, q
 
 
-def _assert_prefill_close(got, want, tol, args, soft_cap):
+def _assert_p_rounded_close(got, want, tol, plain, args, soft_cap):
     """float32: within ``tol``; bf16: within ``tol`` plus 2^-8 of the plain
-    version run with |V| (P is rounded to bf16 before P V)."""
+    version ``plain`` run on ``args`` with |V| (P is rounded to bf16 before
+    P V)."""
     atol, rtol = tol
     got_f, want_f = got.float(), want.float()
     assert torch.isfinite(got_f).all()  # padding rows included
@@ -106,13 +107,17 @@ def _assert_prefill_close(got, want, tol, args, soft_cap):
         KH = pool.shape[3] // 2
         abs_v = pool.clone()
         abs_v[:, :, :, KH:] = abs_v[:, :, :, KH:].abs()
-        mean_abs_v = k4.paged_prefill_attention_plain(q, abs_v, *rest,
-                                                      soft_cap=soft_cap)
+        mean_abs_v = plain(q, abs_v, *rest, soft_cap=soft_cap)
         limit = limit + 2.0 ** -8 * mean_abs_v.float()
     err = (got_f - want_f).abs()
     assert (err <= limit).all(), (
         f"{int((err > limit).sum())} elements off; worst "
         f"{float((err / limit).max()):.3f} of its limit")
+
+
+def _assert_prefill_close(got, want, tol, args, soft_cap):
+    _assert_p_rounded_close(got, want, tol, k4.paged_prefill_attention_plain,
+                            args, soft_cap)
 
 
 def _tiles(dtype, G, D):
@@ -170,21 +175,19 @@ def test_prefill_kernel_matches_plain(cuda, dtype, tol):
 def test_every_preset_head_dim(cuda, D, dtype, tol):
     """K2, K3 and K4 at the head dims of tiny-gemma (48), phi3-mini-class
     (96) and the Gemma classes (256), at G = 2 with Gemma-2's soft cap."""
-    atol, rtol = tol
     pool, tables, cu, ctx, q = (x.to(cuda) for x in _case(dtype, H=4, KH=2,
                                                           D=D))
-    got = k2.ragged_paged_attention(q, pool, tables, cu, ctx, 1,
-                                    soft_cap=50.0)
-    want = k2.ragged_paged_attention_plain(q, pool, tables, cu, ctx, 1,
-                                           soft_cap=50.0)
-    torch.testing.assert_close(got.float(), want.float(), atol=atol,
-                               rtol=rtol)
+    args = (q, pool, tables, cu, ctx, 1)
+    got = k2.ragged_paged_attention(*args, soft_cap=50.0)
+    want = k2.ragged_paged_attention_plain(*args, soft_cap=50.0)
+    _assert_p_rounded_close(got, want, tol, k2.ragged_paged_attention_plain,
+                            args, 50.0)
     dq = q[: tables.shape[0]].contiguous()
-    got = k3.paged_decode_attention(dq, pool, tables, ctx, 1, soft_cap=50.0)
-    want = k3.paged_decode_attention_plain(dq, pool, tables, ctx, 1,
-                                           soft_cap=50.0)
-    torch.testing.assert_close(got.float(), want.float(), atol=atol,
-                               rtol=rtol)
+    dargs = (dq, pool, tables, ctx, 1)
+    got = k3.paged_decode_attention(*dargs, soft_cap=50.0)
+    want = k3.paged_decode_attention_plain(*dargs, soft_cap=50.0)
+    _assert_p_rounded_close(got, want, tol, k3.paged_decode_attention_plain,
+                            dargs, 50.0)
     _check_prefill(cuda, dtype, tol, soft_cap=50.0, H=4, KH=2, D=D)
 
 
@@ -192,7 +195,6 @@ def test_every_preset_head_dim(cuda, D, dtype, tol):
                                          (torch.bfloat16, 128,
                                           (1e-5, 2.0 ** -7))])
 def test_kernels_match_plain(cuda, dtype, D, tol):
-    atol, rtol = tol
     pool, tables, cu, ctx, q = _case(dtype, D=D)
     dev = [x.to(cuda) for x in (pool, tables, cu, ctx, q)]
     pool_d, tables_d, cu_d, ctx_d, q_d = dev
@@ -209,19 +211,19 @@ def test_kernels_match_plain(cuda, dtype, D, tol):
     bits = torch.int32 if dtype == torch.float32 else torch.int16
     assert torch.equal(pool_d.view(bits), ref.view(bits))
 
-    got = k2.ragged_paged_attention(q_d, pool_d, tables_d, cu_d, ctx_d, 1)
-    want = k2.ragged_paged_attention_plain(q_d, pool_d, tables_d, cu_d,
-                                           ctx_d, 1)
-    torch.testing.assert_close(got.float(), want.float(), atol=atol,
-                               rtol=rtol)
-    assert torch.isfinite(got.float()).all()
+    args = (q_d, pool_d, tables_d, cu_d, ctx_d, 1)
+    got = k2.ragged_paged_attention(*args)
+    want = k2.ragged_paged_attention_plain(*args)
+    _assert_p_rounded_close(got, want, tol, k2.ragged_paged_attention_plain,
+                            args, 0.0)
     assert (got[int(cu[-1]):] == 0).all()
 
     dq = q_d[: tables.shape[0]].contiguous()
-    got = k3.paged_decode_attention(dq, pool_d, tables_d, ctx_d, 1)
-    want = k3.paged_decode_attention_plain(dq, pool_d, tables_d, ctx_d, 1)
-    torch.testing.assert_close(got.float(), want.float(), atol=atol,
-                               rtol=rtol)
+    dargs = (dq, pool_d, tables_d, ctx_d, 1)
+    got = k3.paged_decode_attention(*dargs)
+    want = k3.paged_decode_attention_plain(*dargs)
+    _assert_p_rounded_close(got, want, tol, k3.paged_decode_attention_plain,
+                            dargs, 0.0)
     assert (got[ctx_d == 0] == 0).all()
 
 
@@ -231,10 +233,11 @@ def test_wrappers_refuse_bad_input(cuda):
                                                           ctx))
     with pytest.raises(ValueError):  # a CPU tensor among CUDA ones
         k2.ragged_paged_attention(q.to(cuda), pool_d, tables, cu_d, ctx_d, 1)
-    with pytest.raises(ValueError):  # a tile map cut for another tile size
-        k2.ragged_paged_attention(q.to(cuda), pool_d, tables_d, cu_d, ctx_d,
-                                  1, tiles=k2.stream_tiles(cu_d, q.shape[0],
-                                                           8))
+    with pytest.raises(ValueError):  # a work map made for another stream
+        k2.ragged_paged_attention(
+            q.to(cuda), pool_d, tables_d, cu_d, ctx_d, 1,
+            tiles=k2.ragged_work_map(cu, ctx, q.shape[0] + 8, 8, 2, 32,
+                                     torch.float32, cuda))
     with pytest.raises(TypeError):  # int64 index tensors
         k3.paged_decode_attention(q[:6].to(cuda), pool_d, tables_d.long(),
                                   ctx_d, 1)
@@ -256,6 +259,107 @@ def test_wrappers_refuse_uninstantiated_head_dim(cuda):
     with pytest.raises(ValueError, match="head_dim 80"):
         k4.paged_prefill_attention(q[None, :8].contiguous(), pool,
                                    tables[:1], ctx[:1], ctx[:1], 1)
+
+
+def _stream(cuda, dtype, H, KH, D, spans, S, M, tail):
+    """A pool on the card whose every unwritten slot is NaN, and a packed
+    stream of ``spans`` = {slot: (q_len, ctx)} with ``tail`` rows of no
+    span after the last: slots own distinct blocks, tables are 0-padded past
+    their live blocks (block 0 belongs to a slot), and each slot's
+    positions below its context hold random values."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    N = sum(-(-c // BS) for _, c in spans.values()) + 4
+    pool = torch.full((2, N, BS, 2 * KH, D), float("nan"), dtype=dtype,
+                      device=cuda)
+    tables = torch.zeros((S, M), dtype=torch.int32)
+    ctx = torch.zeros(S, dtype=torch.int32)
+    cu = torch.zeros(S + 1, dtype=torch.int32)
+    written, nxt = [], 0
+    for s in range(S):
+        q_len, c = spans.get(s, (0, 0))
+        nb = -(-c // BS)
+        tables[s, :nb] = torch.arange(nxt, nxt + nb)
+        nxt += nb
+        ctx[s], cu[s + 1] = c, cu[s] + q_len
+        pos = torch.arange(c)
+        written.append(tables[s, pos // BS].long() * BS + pos % BS)
+    idx = torch.cat(written).to(cuda)
+    pool[1].view(N * BS, 2 * KH, D)[idx] = torch.randn(
+        (idx.numel(), 2 * KH, D), generator=g, device=cuda).to(dtype)
+    q = torch.randn((int(cu[-1]) + tail, H, D), generator=g,
+                    device=cuda).to(dtype)
+    return pool, tables.to(cuda), cu.to(cuda), ctx.to(cuda), q
+
+
+# slot: (q_len, ctx). A fresh chunk, one-token spans at contexts 700, 1
+# (a one-token prefill) and 300, continuations at q_start 113 and 350, a
+# two-token span at q_start 18; slots 2 and 8 empty
+RAGGED_SPANS = {0: (40, 40), 1: (1, 700), 3: (1, 1), 4: (37, 150),
+                5: (2, 20), 6: (1, 300), 7: (100, 450)}
+
+
+@pytest.mark.parametrize("soft_cap", [0.0, 50.0])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 7, 8])
+@pytest.mark.parametrize("D", [32, 48, 64, 96, 128, 256])
+def test_tensor_core_ragged_matches_plain(cuda, D, G, soft_cap):
+    """bf16 K2 at every built head dim, the presets' GQA groups, with and
+    without soft cap, on a stream of prefill spans, one-token spans, empty
+    slots and 9 rows of tail padding, NaN in every unwritten pool slot:
+    with the default work map, with the one-token spans cut into splits of
+    256 positions (merged), and at every other built tile. Tail rows are
+    exactly 0."""
+    H, KH = 2 * G, 2
+    pool, tables, cu, ctx, q = _stream(cuda, torch.bfloat16, H, KH, D,
+                                       RAGGED_SPANS, 9, 48, 9)
+    args = (q, pool, tables, cu, ctx, 1)
+    want = k2.ragged_paged_attention_plain(*args, soft_cap=soft_cap)
+    T = q.shape[0]
+    maps = [k2.ragged_work_map(cu.cpu(), ctx.cpu(), T, H, KH, D,
+                               torch.bfloat16, cuda, split_span=span)
+            for span in (None, 256)]
+    assert maps[1].plan[0] > 1
+    maps += [k2.ragged_work_map(cu.cpu(), ctx.cpu(), T, H, KH, D,
+                                torch.bfloat16, cuda, tile=tile)
+             for tile in k4.TILES[D] if tile != k4.DEFAULT_TILE[D]]
+    for work in maps:
+        n = k2.LAUNCHES.n
+        got = k2.ragged_paged_attention(*args, soft_cap=soft_cap, tiles=work)
+        assert k2.LAUNCHES.n == n + 1
+        _assert_p_rounded_close(got, want, BF16_TOL,
+                                k2.ragged_paged_attention_plain, args,
+                                soft_cap)
+        assert (got[int(cu[-1]):] == 0).all()
+
+
+@pytest.mark.parametrize("long", [False, True])
+@pytest.mark.parametrize("B", [1, 4, 64])
+def test_split_decode_matches_plain(cuda, B, long):
+    """bf16 K3 (the split-KV walk) at contexts up to 300 and up to 8192, at
+    batch 1, 4 and 64 (H 8, KH 2, D 128): by its own split plan, with
+    splits of 256 positions, and with a plan made for contexts 8 longer,
+    as a multi-step decode fixes it (splits wholly past a context). Slots
+    with context 0 output exactly 0."""
+    rng = np.random.default_rng(B)
+    top = 8192 if long else 300
+    lens = [top if b % 2 == 0 else int(rng.integers(1, top))
+            for b in range(B)]
+    for b in range(1, B, 9):
+        lens[b] = 0
+    H, KH, D = 8, 2, 128
+    pool, tables, _, ctx, q = _stream(cuda, torch.bfloat16, H, KH, D,
+                                      {b: (1, c) for b, c in enumerate(lens)},
+                                      B, -(-top // BS), 0)
+    args = (q, pool, tables, ctx, 1)
+    want = k3.paged_decode_attention_plain(*args)
+    live = sum(c > 0 for c in lens)
+    for plan in (None, k3.split_plan(top, live, KH, 256),
+                 k3.split_plan(top + 8, live, KH)):
+        n = k3.LAUNCHES.n
+        got = k3.paged_decode_attention(*args, plan=plan)
+        assert k3.LAUNCHES.n == n + 1
+        _assert_p_rounded_close(got, want, BF16_TOL,
+                                k3.paged_decode_attention_plain, args, 0.0)
+        assert (got[ctx == 0] == 0).all()
 
 
 def test_engine_kernel_path_matches_plain_path(cuda):

@@ -84,8 +84,9 @@ def test_geometry_refuses_unbuilt_or_oversized_tiles(tile, dtype):
 
 def test_python_tiles_match_the_cuda_source():
     """TILES, PAD and WALK_POSITIONS are read by the CUDA source too: the
-    tiles ``with_tile`` builds, mma::kPad and kTileK."""
-    src = (CSRC / "paged_prefill_attention.cu").read_text()
+    tiles ``with_tile`` builds (beside the row-tile walk that K4 and K2
+    share), mma::kPad and kTileK."""
+    src = (CSRC / "mma_attention.cuh").read_text()
     body = src[src.index("inline int with_tile"):]
     body = body[:body.index("return kUnsupported")]
     common, d128 = body.split("if constexpr (D == 128)")
