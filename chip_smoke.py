@@ -30,9 +30,11 @@ fatal):
    contexts, where the card's PyTorch has it), and computes each kernel's
    bound from this run's inputs. K2 runs on the mixed stream and on a
    prefill-only stream of 4 fresh 512-token spans (beside K4 on the same
-   work), K3 at B = 64 (contexts up to 2k) and at B = 4, ctx 8192. Sweeps
-   K2's row tile (rows a CTA x positions a stage) and the split span of
-   its one-token spans, K3's split span, and K4's tile.
+   work) and on a speculative verify stream (48 spans of 1 + 4 tokens and
+   16 one-token spans over contexts 130-2048), K3 at B = 64 (contexts up to
+   2k) and at B = 4, ctx 8192. Sweeps K2's row tile (rows a CTA x positions
+   a stage) and the split span of its one-token spans, K3's split span,
+   and K4's tile.
 4. Slices, each through the port's HTTP server on the card serving
    llama-3-8b (random weights from a seed, bf16, default scheduler) to the
    same 16 requests; every response must be 200 with the asked-for token
@@ -51,18 +53,34 @@ fatal):
    the ragged path, K4 on the bucketed path), and with this script putting
    their plain versions in the model runner's place of the wrappers for
    that run only; greedy tokens equal up to printed near-ties and
-   logprobs within ``BF16_LOGPROB_BAND``.
+   logprobs within ``BF16_LOGPROB_BAND``. Then float32 tiny-llama on the
+   ragged path with n-gram speculation, a LoRA adapter and grammars, card
+   against CPU, greedy-equal up to printed near-ties; and bf16 tiny-llama
+   with speculation on against off on the card, within the band.
+6. Request features: llama-3-8b at full width and depth through the HTTP
+   server on the ragged path with ``--speculative-ngram 4``: a random
+   rank-16 adapter on all seven targets of 32 layers, written here in
+   numpy, loaded with ``POST /v1/load_lora_adapter``; one wave of 18
+   requests mixing base, the adapter, ``guided_regex``, ``guided_json`` and
+   motif-loop prompts (every response 200, unguided ones with their token
+   count, guided ones matching; K1, K2 and K3 launch; some drafts
+   accepted). On that engine: the adapter's greedy tokens on a fixed prompt
+   differ from base's; 16 motif requests with speculation off and on in
+   turns (tok/s, acceptance, tokens a spec step); decode steps traced with
+   base, adapter and guided rows. Then the bucketed path with the adapter
+   and grammars (K1, K3 and K4 launch).
 
 The line before the card line carries the kernels' JSON record, whose
-``launches`` sum each kernel's launches over the two slices (each slice's
-own counts are in ``launches_by_path``); the last line is ``{"ok": true,
-"device": {...}}``.
+``launches`` sum each kernel's launches over every served path (each
+path's own counts are in ``launches_by_path``); the last line is ``{"ok":
+true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import collections
 import concurrent.futures
+import dataclasses
 import gc
 import json
 import pathlib
@@ -757,6 +775,26 @@ def ragged_prefill_only(torch, card, rng, H, KH, D, S, M, bs, T,
     return rec
 
 
+def ragged_verify_stream(torch, card, rng, H, KH, D, S, M, bs, T,
+                         layer) -> dict:
+    """K2 on the stream of a speculative decode step at llama-3-8b: 48
+    verify spans of 1 + 4 tokens (the row's token and 4 drafts) and 16
+    one-token spans, slots interleaved, over contexts 130-2048. Each span
+    ends at its context, so the causal mask falls inside its last five
+    positions; the verify spans take K2's row-tile walk (5 x G = 20 rows of
+    a 128-row tile), the one-token spans its split-KV walk, in one
+    launch."""
+    ctxs = rng.integers(130, 2049, S)
+    spans = [(s, 1 if s % 4 == 3 else 5, int(ctxs[s])) for s in range(S)]
+    pool, dev, spans = make_stream(rng, spans, T, S, M, bs, 2 * KH, D,
+                                   torch.bfloat16, torch, layer=layer)
+    q = torch.randn((T, H, D), dtype=torch.bfloat16, device="cuda")
+    rec = ragged_measure(torch, card, "verify stream, 48 x (1+4) and 16 x 1",
+                         pool, dev, spans, q, layer, H, KH, D, S, bs, T)
+    del pool
+    return rec
+
+
 def decode_measure(torch, card, label, rng, lens, H, KH, D, M, bs,
                    layer) -> dict:
     """bf16 K3 on one query per slot with context ``lens`` (0 = an empty
@@ -908,7 +946,9 @@ def kernel_phase(torch, np, card: str) -> list[dict]:
                               q, layer, H, KH, D, S, bs, T)
     del pool, q
     k2_mixed["also"] = [ragged_prefill_only(torch, card, rng, H, KH, D, S,
-                                            M, bs, T, layer)]
+                                            M, bs, T, layer),
+                        ragged_verify_stream(torch, card, rng, H, KH, D, S,
+                                             M, bs, T, layer)]
     results.append(k2_mixed)
 
     # K3: one query per slot, contexts up to 2k, empty slots at ctx 0; then
@@ -1243,13 +1283,16 @@ def profile_phase(torch, np, eng, card: str) -> None:
 
 # -- phase 5: the kernel path against the plain path --------------------------
 
-def _greedy_tokens(eng, prompts, sp):
-    """Serve ``prompts`` to the end; each request's tokens and, per token,
-    (its logprob, the top-2 gap)."""
+def _greedy_tokens(eng, prompts, sp, adapters=None):
+    """Serve ``prompts`` to the end, each with its SamplingParams (``sp``,
+    or one for all) and adapter slot; each request's tokens and, per token
+    where it asked for logprobs, (its logprob, the top-2 gap)."""
+    sps = sp if isinstance(sp, list) else [sp] * len(prompts)
     toks = {i: [] for i in range(len(prompts))}
     lps = {i: [] for i in range(len(prompts))}
     for i, pr in enumerate(prompts):
-        eng.add_request(str(i), prompt_token_ids=pr, sampling=sp)
+        eng.add_request(str(i), prompt_token_ids=pr, sampling=sps[i],
+                        adapter_slot=adapters[i] if adapters else 0)
     while eng.has_unfinished():
         for o in eng.step():
             toks[int(o.request_id)].extend(o.new_token_ids)
@@ -1262,7 +1305,7 @@ def _compare_greedy(tag, ref, other, tie_gap):
     """Compare two runs' greedy tokens request by request, stopping at a
     flip whose top-2 gap in ``ref`` is under ``tie_gap`` (logged) and
     failing at any other. Returns (tokens compared, the largest logprob
-    difference over them)."""
+    difference over them, where ``other`` has logprobs)."""
     (ref_t, ref_l), (oth_t, oth_l) = ref, other
     compared, worst = 0, 0.0
     for i in ref_t:
@@ -1275,7 +1318,8 @@ def _compare_greedy(tag, ref, other, tie_gap):
                 log(f"[parity] {tag}: near-tie at request {i} step {j}: "
                     f"top-2 gap {ref_l[i][j][1]:.2e}; compared up to it")
                 break
-            worst = max(worst, abs(ref_l[i][j][0] - oth_l[i][j][0]))
+            if oth_l[i]:
+                worst = max(worst, abs(ref_l[i][j][0] - oth_l[i][j][0]))
             compared += 1
         else:
             if len(ref_t[i]) != len(oth_t[i]):
@@ -1284,7 +1328,7 @@ def _compare_greedy(tag, ref, other, tie_gap):
     return compared, worst
 
 
-def _parity_engine(impl: str, dtype: str):
+def _parity_engine(impl: str, dtype: str, **sched):
     from production_stack_tpu_torch.engine.config import (
         CacheConfig,
         EngineConfig,
@@ -1294,7 +1338,8 @@ def _parity_engine(impl: str, dtype: str):
     return EngineConfig.for_model(
         "tiny-llama", dtype=dtype,
         cache=CacheConfig(block_size=16, num_blocks=256),
-        scheduler=SchedulerConfig(max_num_seqs=8, max_num_batched_tokens=64),
+        scheduler=SchedulerConfig(max_num_seqs=8, max_num_batched_tokens=64,
+                                  **sched),
         attention_impl=impl)
 
 
@@ -1395,6 +1440,410 @@ def bf16_phase(torch, np, impl: str) -> None:
         f"{worst:.3e} (band {BF16_LOGPROB_BAND})")
 
 
+# -- phases 5 and 6: guided decoding, multi-LoRA, n-gram speculation ----------
+
+LORA_NAMES = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+              "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+              "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+              "w_down": "mlp.down_proj"}
+# a finite JSON language: every output reaches the closing brace
+JSON_SCHEMA = {"type": "object", "properties": {
+    "sentiment": {"enum": ["pos", "neg"]}, "ok": {"type": "boolean"}}}
+REGEXES = (r"(yes|no)( indeed)?", r"[0-9]{3}-[0-9]{4}")
+
+
+def write_adapter(np, cfg, root: str, rank: int = 16, seed: int = 0) -> str:
+    """A random rank-``rank`` PEFT adapter on all seven targets of every
+    layer of ``cfg`` (float16, alpha = 2 rank), written with the port's
+    own safetensors writer: the card's machine has no ``safetensors``."""
+    import os
+
+    from production_stack_tpu_torch.engine.lora import (
+        target_shapes,
+        write_safetensors,
+    )
+
+    rng = np.random.default_rng(seed)
+    tensors = {}
+    for layer in range(cfg.num_layers):
+        for key, (n_in, out) in target_shapes(cfg).items():
+            n_out = int(np.prod(out))
+            base = f"base_model.model.model.layers.{layer}.{LORA_NAMES[key]}"
+            tensors[f"{base}.lora_A.weight"] = (rng.standard_normal(
+                (rank, n_in), np.float32) / np.sqrt(n_in)).astype(np.float16)
+            tensors[f"{base}.lora_B.weight"] = (rng.standard_normal(
+                (n_out, rank), np.float32) * 0.02).astype(np.float16)
+    write_safetensors(os.path.join(root, "adapter_model.safetensors"),
+                      tensors)
+    with open(os.path.join(root, "adapter_config.json"), "w") as f:
+        json.dump({"r": rank, "lora_alpha": 2 * rank}, f)
+    return root
+
+
+def features_parity_phase(torch, np) -> None:
+    """tiny-llama float32 on the ragged path with n-gram speculation (k =
+    4), a LoRA adapter and grammars, on the card and on the CPU with the
+    same weights and requests: greedy tokens equal up to printed near-ties
+    (the CPU's top-2 gap under TIE_GAP). Speculating rows carry no
+    logprobs, so the gaps come from a CPU run with speculation off and
+    logprobs on every row; that run's tokens must equal the CPU's with
+    speculation on, up to its own near-ties."""
+    import tempfile
+
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.lora import LoraManager
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+    from production_stack_tpu_torch.engine.weights import init_random
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    on = _parity_engine("ragged", "float32", spec_ngram_k=4, multi_step=2)
+    off = _parity_engine("ragged", "float32", multi_step=2)
+    params = init_random(on.model, seed=0, device="cpu")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 259, n).tolist() for n in PARITY_LENGTHS]
+    # every byte once: any byte the model emits recurs in the history, so
+    # the proposer drafts every step (on the base model and the adapter)
+    prompts += [rng.permutation(256).tolist() for _ in range(2)]
+    greedy = SamplingParams(temperature=0.0, max_tokens=24, ignore_eos=True)
+    lp = dataclasses.replace(greedy, logprobs=2)
+    guided = [SamplingParams(temperature=0.0, max_tokens=24, logprobs=2,
+                             guided_regex=REGEXES[0]),
+              SamplingParams(temperature=0.0, max_tokens=64, logprobs=2,
+                             guided_json=JSON_SCHEMA)]
+    # rows: plain with logprobs, adapter (speculating), two guided (one on
+    # the adapter), plain speculating, and the byte permutations
+    sps = [lp, greedy, guided[0], guided[1], greedy, lp, greedy, greedy,
+           greedy]
+    adapters = [0, 1, 0, 1, 0, 1, 0, 0, 1]
+    runs = {}
+    with tempfile.TemporaryDirectory() as root:
+        write_adapter(np, on.model, root, rank=8, seed=1)
+        for tag, cfg, device, plan in (
+                ("cpu, spec off", off, "cpu", [lp if s is greedy else s
+                                               for s in sps]),
+                ("cpu, spec on", on, "cpu", sps), ("card", on, "cuda", sps)):
+            p = {k: (v.to(device) if not isinstance(v, dict)
+                     else {n: w.to(device) for n, w in v.items()})
+                 for k, v in params.items()}
+            eng = LLMEngine(cfg, params=p, device=device)
+            LoraManager(eng).load("smoke", root)
+            runs[tag] = _greedy_tokens(eng, prompts, plan, adapters)
+            runs[tag + " drafted"] = (eng.spec_drafted, eng.spec_accepted)
+    if runs["card drafted"][0] == 0:
+        raise AssertionError("[parity] features: the card run drafted none")
+    ref_t, ref_l = runs["cpu, spec off"]
+    n_cpu, _ = _compare_greedy("features, cpu spec on against off",
+                               (ref_t, ref_l), runs["cpu, spec on"], TIE_GAP)
+    compared, worst = _compare_greedy(
+        "features, card against cpu", (runs["cpu, spec on"][0], ref_l),
+        runs["card"], TIE_GAP)
+    log(f"[parity] tiny-llama float32, ragged, spec k=4 + LoRA + grammars: "
+        f"{compared} greedy tokens identical between the kernel path (card) "
+        f"and the plain path (cpu) ({n_cpu} cpu spec on = off); drafted, "
+        f"accepted: card {runs['card drafted']}, cpu "
+        f"{runs['cpu, spec on drafted']}; largest logprob difference "
+        f"{worst:.3e} on the logprob rows")
+
+
+def spec_bf16_phase(torch, np) -> None:
+    """bf16 tiny-llama on the card, ragged path, speculation on against
+    off on motif-loop and random prompts: greedy tokens equal up to
+    near-ties within BF16_LOGPROB_BAND of the off run (a verifying row's
+    attention runs K2's row-tile walk, a decoding row's K3's split-KV walk:
+    two float32 summation orders)."""
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+    from production_stack_tpu_torch.engine.weights import init_random
+
+    cfg = _parity_engine("ragged", "bfloat16")
+    params = init_random(cfg.model, seed=0, device="cuda")
+    rng = np.random.default_rng(6)
+    prompts = [(rng.integers(0, 256, 4).tolist() * 6) for _ in range(4)]
+    prompts += [rng.integers(0, 259, n).tolist() for n in PARITY_LENGTHS[:4]]
+    sp = SamplingParams(temperature=0.0, max_tokens=32, ignore_eos=True)
+    off = _greedy_tokens(LLMEngine(cfg, params=params, device="cuda"),
+                         prompts, dataclasses.replace(sp, logprobs=2))
+    spec = LLMEngine(_parity_engine("ragged", "bfloat16", spec_ngram_k=4),
+                     params=params, device="cuda")
+    on = _greedy_tokens(spec, prompts, sp)
+    if spec.spec_drafted == 0:
+        raise AssertionError("[parity] bf16 spec: nothing was drafted")
+    compared, _ = _compare_greedy("bf16 ragged, spec on against off", off,
+                                  on, BF16_LOGPROB_BAND)
+    log(f"[parity] tiny-llama bf16, ragged: {compared} greedy tokens "
+        f"identical with speculation on and off (drafted "
+        f"{spec.spec_drafted}, accepted {spec.spec_accepted}; flips only "
+        f"within the band {BF16_LOGPROB_BAND})")
+
+
+def _post(base: str, path: str, body=None):
+    req = urllib.request.Request(
+        base + path, data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return r.status, json.loads(r.read()), time.perf_counter() - t0
+
+
+def _serve_features(torch, np, counters, card, impl, adapter, spec_k):
+    """llama-3-8b through the port's HTTP server on path ``impl`` (with
+    ``--speculative-ngram spec_k``): load ``adapter`` over HTTP, then one
+    wave of requests mixing base, the adapter, guided regex and guided
+    JSON (and, with speculation, motif-loop prompts), launch counts reset
+    just before the wave and read just after it. Every response must be
+    200; unguided ones have the asked-for token count, guided ones match
+    their pattern or schema. Returns (server, launches, summary); the HTTP
+    front end is stopped, the engine kept for the caller."""
+    import re
+
+    from production_stack_tpu_torch.engine.server import (
+        EngineServer,
+        build_parser,
+        config_from_args,
+    )
+
+    argv = ["--model", "llama-3-8b", "--seed", "0", "--attention-impl", impl]
+    if spec_k:
+        argv += ["--speculative-ngram", str(spec_k)]
+    cfg = config_from_args(build_parser().parse_args(argv))
+    server = EngineServer(cfg, device="cuda")
+    base = f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
+    status, out, _ = _post(base, "/v1/load_lora_adapter",
+                           {"lora_name": "smoke-adapter",
+                            "lora_path": adapter})
+    _, models, _ = _post(base, "/v1/models")
+    if status != 200 or "smoke-adapter" not in [m["id"] for m in
+                                                models["data"]]:
+        raise AssertionError(f"[features] {impl}: adapter not loaded: {out}")
+    rng = np.random.default_rng(7)
+    jobs = []  # (delay, path, body, max_tokens or None if guided, check)
+    for i in range(8):  # base and adapter rows, half of them sampled
+        samp = ({"temperature": 0.0} if i % 2 == 0
+                else {"temperature": 0.8, "top_p": 0.95, "seed": i})
+        body = {"model": "smoke-adapter" if i >= 4 else "llama-3-8b",
+                "max_tokens": 32, "ignore_eos": True, **samp,
+                "prompt": rng.integers(0, 256, int(rng.integers(64, 513)))
+                .tolist()}
+        jobs.append((0.05 * i, "/v1/completions", body, 32, None))
+    for i, pattern in enumerate(REGEXES * 2):
+        jobs.append((0.02 * i, "/v1/completions", {
+            "model": "smoke-adapter" if i % 2 else "llama-3-8b",
+            "prompt": "answer: ", "max_tokens": 32,
+            "temperature": 0.0 if i < 2 else 0.7, "seed": i,
+            "guided_regex": pattern}, None,
+            lambda text, p=pattern: re.fullmatch(p, text)))
+    for i in range(2):
+        jobs.append((0.03 * i, "/v1/completions", {
+            "model": "smoke-adapter" if i else "llama-3-8b",
+            "prompt": "json: ", "max_tokens": 96, "temperature": 0.5 * i,
+            "seed": i, "guided_json": JSON_SCHEMA}, None,
+            lambda text: json.loads(text)["sentiment"] in ("pos", "neg")))
+    if spec_k:
+        for i in range(4):  # motif loops for the n-gram proposer
+            motif = rng.integers(0, 256, 8).tolist()
+            jobs.append((0.01 * i, "/v1/completions", {
+                "prompt": motif * 8, "max_tokens": 64, "temperature": 0.0,
+                "ignore_eos": True}, 64, None))
+    for c in counters:
+        c.n = 0
+    t0 = time.perf_counter()
+
+    def run(job):
+        time.sleep(job[0])
+        return _post(base, job[1], job[2])
+
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
+        results = list(ex.map(run, jobs))
+    wall = time.perf_counter() - t0
+    launches = {c.name.split()[0]: c.n for c in counters}
+    server.shutdown()
+    out_tok = 0
+    for (_, _, body, want, check), (status, out, _) in zip(jobs, results):
+        n = out["usage"]["completion_tokens"]
+        text = out["choices"][0]["text"]
+        out_tok += n
+        if status != 200 or (want is not None and n != want):
+            raise AssertionError(f"[features] {impl}: status {status}, {n} "
+                                 f"tokens for {want}")
+        if check is not None and not check(text):
+            raise AssertionError(f"[features] {impl}: guided output "
+                                 f"{text!r} does not match")
+    summary = {"requests": len(jobs), "output_tokens": out_tok,
+               "wall_s": wall, "output_tok_per_s": out_tok / wall,
+               "launches": launches}
+    return server, launches, summary
+
+
+def _released(torch, tag: str) -> None:
+    """After the caller dropped its engine: its memory must be free."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 2**30
+    log(f"[features] {tag} engine released: {left:.2f} GiB still allocated")
+    if left > 1.0:
+        raise AssertionError(f"[features] {tag}: the engine's memory was not "
+                             "released")
+
+
+def _motif_window(torch, np, eng, seed: int, spec_on: bool) -> dict:
+    """16 greedy motif-loop requests (8 random bytes x 8, 64 new tokens
+    each) served to the end by the engine directly, speculation on or off;
+    the same ``seed`` gives the same requests."""
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    eng.scheduler.spec_grant_fn = eng._spec_grant_fn if spec_on else None
+    rng = np.random.default_rng(seed)
+    sp = SamplingParams(temperature=0.0, max_tokens=64, ignore_eos=True)
+    d0, a0 = eng.spec_drafted, eng.spec_accepted
+    s0, t0_ = eng.spec_steps, eng.spec_step_tokens
+    for i in range(16):
+        eng.add_request(f"m{seed}-{spec_on}-{i}", sampling=sp,
+                        prompt_token_ids=rng.integers(0, 256, 8).tolist() * 8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps, finished_at = 0, []
+    while eng.has_unfinished():
+        finished_at += [steps + 1 for o in eng.step() if o.finished]
+        steps += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    drafted, steps_v = eng.spec_drafted - d0, eng.spec_steps - s0
+    return {"output_tok_per_s": 16 * 64 / wall, "engine_steps": steps,
+            # a request's end is its own; the batch's is its slowest row's
+            "finish_step_median": statistics.median(finished_at),
+            "wall_ms_per_step": wall * 1e3 / steps,
+            "acceptance_rate": ((eng.spec_accepted - a0) / drafted
+                                if drafted else 0.0),
+            "tokens_per_spec_step": ((eng.spec_step_tokens - t0_) / steps_v
+                                     if steps_v else 0.0)}
+
+
+def _feature_profiles(torch, np, eng, card, slot: int) -> None:
+    """Steps at 64 rows (contexts ~130-170) traced four ways, in turns
+    (each way twice, the second pass in reverse order, since the host's
+    pace drifts): decode steps of base rows, of rows on the adapter and of
+    guided rows, whose cost a step over base's is the adapter's and the
+    grammar mask's; and steps of greedy motif-loop rows with speculation
+    on, which run as ragged verify steps."""
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    rng = np.random.default_rng(8)
+    base = SamplingParams(temperature=0.0, max_tokens=48, ignore_eos=True)
+    ways = (("base", base, 0, False), ("LoRA adapter", base, slot, False),
+            ("guided", dataclasses.replace(base, guided_regex="[a-z ]+"), 0,
+             False), ("speculating, motif rows", base, 0, True))
+    for label, sp, adapter, spec_on in ways + ways[::-1]:
+        eng.scheduler.spec_grant_fn = eng._spec_grant_fn if spec_on else None
+        for i in range(64):
+            prompt = (rng.integers(0, 256, 8).tolist() * 16 if spec_on
+                      else rng.integers(0, 256, 128).tolist())
+            eng.add_request(f"fp-{label}-{i}", sampling=sp,
+                            adapter_slot=adapter, prompt_token_ids=prompt)
+        # every prompt admitted, prefilled and its first token out, then
+        # one more step, so the window holds no prefill
+        while eng.scheduler.waiting or any(
+                not s.output_token_ids for s in eng.scheduler.seqs.values()):
+            eng.step()
+        eng.step()
+        r0, d0 = eng.ragged_dispatches, eng.decode_dispatches
+        s0, t0 = eng.spec_steps, eng.spec_step_tokens
+
+        def steps():
+            for _ in range(16):
+                eng.step()
+
+        prof = _profiled(torch, steps)
+        spec = ""
+        if spec_on:
+            spec = (f", {eng.ragged_dispatches - r0} ragged and "
+                    f"{eng.decode_dispatches - d0} decode steps, "
+                    f"{(eng.spec_step_tokens - t0) / max(eng.spec_steps - s0, 1):.3f}"
+                    f" tokens a verified span")
+        _report(card, f"64 rows, {label}{spec}", 16, *prof)
+        for rid in list(eng.scheduler.seqs):
+            eng.abort_request(rid)
+    eng.scheduler.spec_grant_fn = eng._spec_grant_fn
+
+
+def features_phase(torch, np, counters, card: str) -> dict:
+    """Phase 6: llama-3-8b at full width and depth through the HTTP server
+    with a random rank-16 adapter loaded over HTTP, guided regex and JSON
+    requests, and (ragged path) n-gram speculation, k = 4. Then, on the
+    same engine: the adapter's greedy tokens on a fixed prompt differ from
+    base's; spec on beside spec off on the same motif requests; decode
+    profiles with LoRA rows and with guided rows. Then the bucketed path
+    with a grammar and the adapter. Returns each path's launches."""
+    import tempfile
+
+    from production_stack_tpu_torch.engine.config import ModelConfig
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        adapter = write_adapter(np, ModelConfig.from_pretrained("llama-3-8b"),
+                                root)
+        log(f"[features] rank-16 adapter on 7 targets x 32 layers written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        server, launches["features-ragged"], summary = _serve_features(
+            torch, np, counters, card, "ragged", adapter, spec_k=4)
+        eng = server.engine
+        stats = eng.stats()
+        summary.update({k: stats[k] for k in (
+            "spec_decode_num_draft_tokens_total",
+            "spec_decode_num_accepted_tokens_total",
+            "spec_decode_acceptance_rate", "spec_decode_tokens_per_step",
+            "ragged_dispatches_total", "decode_dispatches_total")})
+        log(f"[features] ragged, spec k=4 ({card}): {json.dumps(summary)}")
+        if stats["spec_decode_acceptance_rate"] <= 0:
+            raise AssertionError("[features] no draft was accepted")
+        _expect(launches["features-ragged"], {"K1", "K2", "K3"}, "ragged")
+        slot = server.lora.slot_of("smoke-adapter")
+        sp = SamplingParams(temperature=0.0, max_tokens=32, ignore_eos=True)
+        prompt = np.random.default_rng(9).integers(0, 256, 200).tolist()
+        for rid, a in (("fixed-base", 0), ("fixed-adapter", slot)):
+            eng.add_request(rid, prompt_token_ids=prompt, sampling=sp,
+                            adapter_slot=a)
+        toks = {"fixed-base": [], "fixed-adapter": []}
+        while eng.has_unfinished():
+            for o in eng.step():
+                toks[o.request_id].extend(o.new_token_ids)
+        if toks["fixed-base"] == toks["fixed-adapter"]:
+            raise AssertionError("[features] the adapter's greedy output "
+                                 "equals base's")
+        log(f"[features] adapter against base on one prompt: "
+            f"{sum(a != b for a, b in zip(*toks.values()))} of 32 greedy "
+            f"tokens differ")
+        _motif_window(torch, np, eng, 10, spec_on=False)  # warm-up
+        window = {}
+        for turn, spec_on in enumerate((False, True, True, False)):
+            window.setdefault("on" if spec_on else "off", []).append(
+                _motif_window(torch, np, eng, 10, spec_on))
+        log(f"[features] 16 motif requests x 64 tokens, spec on beside off, "
+            f"in turns off/on/on/off ({card}): {json.dumps(window)}")
+        _feature_profiles(torch, np, eng, card, slot)
+        # the next engine sizes its pool to 0.9 of the free memory
+        del server, eng
+        _released(torch, "ragged")
+
+        server, launches["features-bucketed"], summary = _serve_features(
+            torch, np, counters, card, "bucketed", adapter, spec_k=0)
+        log(f"[features] bucketed ({card}): {json.dumps(summary)}")
+        _expect(launches["features-bucketed"], {"K1", "K3", "K4"},
+                "bucketed")
+        del server
+        _released(torch, "bucketed")
+    return launches
+
+
+def _expect(launches: dict, expected: set, tag: str) -> None:
+    for key, n in launches.items():
+        if (n > 0) != (key in expected):
+            raise AssertionError(
+                f"[features] {tag}: kernel {key} launched {n} times; this "
+                f"path must launch {sorted(expected)} and no other")
+
+
 def main() -> int:
     if not (ROOT / "production_stack_tpu_torch" / "__init__.py").exists():
         print("chip_smoke.py: the production_stack_tpu_torch package is not "
@@ -1434,9 +1883,12 @@ def main() -> int:
         "bucketed": slice_phase(torch, np, counters, card, "bucketed",
                                 {"K1", "K3", "K4"}),
     }
-    for impl in by_path:
+    for impl in list(by_path):
         parity_phase(torch, np, impl)
         bf16_phase(torch, np, impl)
+    features_parity_phase(torch, np)
+    spec_bf16_phase(torch, np)
+    by_path.update(features_phase(torch, np, counters, card))
 
     kernels = []
     for r in results:

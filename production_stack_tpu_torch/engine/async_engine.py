@@ -4,19 +4,21 @@ Ports production_stack_tpu/engine/async_engine.py to threads: one engine
 thread owns the device and steps the engine whenever it has work; HTTP
 handler threads admit requests and read their outputs from per-request
 ``queue.Queue`` streams. A ``threading.Condition`` guards the engine, so
-admission and abort happen between steps, never during one.
+admission and abort happen between steps, never during one. Control-plane
+work that touches device state (loading a LoRA adapter) runs on the engine
+thread itself, between steps (``run_on_engine``).
 """
 
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import logging
 import queue
 import threading
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 from production_stack_tpu_torch.engine.engine import LLMEngine
-from production_stack_tpu_torch.engine.sampling import SamplingParams
 from production_stack_tpu_torch.engine.sequence import RequestOutput
 
 _log = logging.getLogger(__name__)
@@ -54,6 +56,8 @@ class AsyncEngine:
         self._streams: dict[str, RequestStream] = {}
         self._running = False
         self._thread: Optional[threading.Thread] = None
+        # (fn, future) pairs the engine thread runs before its next step
+        self._calls: collections.deque = collections.deque()
         self.step_count = 0
         # (arrival, first_token, finish, output tokens) monotonic stamps of
         # recently finished requests: the time-to-first-token record
@@ -72,6 +76,9 @@ class AsyncEngine:
         with self._cv:
             self._running = False
             self._cv.notify_all()
+            while self._calls:
+                _, fut = self._calls.popleft()
+                fut.set_exception(RuntimeError("the engine was stopped"))
         if self._thread is not None:
             self._thread.join(timeout)
             if self._thread.is_alive():
@@ -81,10 +88,19 @@ class AsyncEngine:
     def _loop(self) -> None:
         while True:
             with self._cv:
-                while self._running and not self.engine.has_unfinished():
+                while (self._running and not self._calls
+                       and not self.engine.has_unfinished()):
                     self._cv.wait()
                 if not self._running:
                     return
+                while self._calls:
+                    fn, fut = self._calls.popleft()
+                    try:
+                        fut.set_result(fn(self.engine))
+                    except Exception as e:  # the caller gets the error
+                        fut.set_exception(e)
+                if not self.engine.has_unfinished():
+                    continue
                 try:
                     outputs = self.engine.step()
                 except Exception as e:  # the loop must outlive a bad step
@@ -110,18 +126,33 @@ class AsyncEngine:
             stream.put(err)
         self._streams.clear()
 
+    def run_on_engine(self, fn: Callable):
+        """Run ``fn(engine)`` on the engine thread between steps; return
+        its result, or raise its error, to the caller. Without a running
+        engine thread it runs here, under the engine's lock."""
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        with self._cv:
+            if not self._running:
+                return fn(self.engine)
+            self._calls.append((fn, fut))
+            self._cv.notify_all()
+        return fut.result()
+
     def admit_batch(
-        self, reqs: list[tuple[str, list[int], SamplingParams]]
+        self, reqs: list[tuple]
     ) -> list[RequestStream]:
-        """Admit every (request_id, prompt_token_ids, sampling) or none:
-        if one is refused, the ones already added are aborted and the
-        error is raised to the caller before it answers."""
+        """Admit every (request_id, prompt_token_ids, sampling[,
+        adapter_slot]) or none: if one is refused, the ones already added
+        are aborted and the error is raised to the caller before it
+        answers."""
         with self._cv:
             added: list[str] = []
             try:
-                for rid, prompt_ids, sampling in reqs:
+                for rid, prompt_ids, sampling, *rest in reqs:
                     self.engine.add_request(rid, prompt_token_ids=prompt_ids,
-                                            sampling=sampling)
+                                            sampling=sampling,
+                                            adapter_slot=(rest[0] if rest
+                                                          else 0))
                     added.append(rid)
             except Exception:
                 for rid in added:

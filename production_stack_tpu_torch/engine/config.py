@@ -223,11 +223,24 @@ class SchedulerConfig:
     # bucketed path: prefill chunks batched into one dispatch (padded to a
     # power of two no larger than this)
     prefill_batch: int = 4
+    # n-gram (prompt-lookup) speculative decoding: propose up to this many
+    # draft tokens a step from the sequence's own history and verify them
+    # inside the ragged step. 0 = off; ragged path only. Eligibility is per
+    # sequence (greedy rows with plain logits speculate, others in the same
+    # step decode normally) and an acceptance EWMA adapts the width
+    # (spec.SpecController)
+    spec_ngram_k: int = 0
+    # longest/shortest n-gram matched against the history (longest first)
+    spec_ngram_max: int = 3
+    spec_ngram_min: int = 1
+    # trailing history tokens the proposer searches
+    spec_window: int = 4096
 
     @property
     def decode_horizon(self) -> int:
         """Tokens of block capacity a decode dispatch may consume past
-        ``num_computed_tokens``."""
+        ``num_computed_tokens``. Speculative spans reserve their own
+        capacity per granted width (``Scheduler._grant_spec_drafts``)."""
         return max(self.multi_step, 1)
 
     def bucket_for(self, n: int, max_model_len: Optional[int] = None) -> int:
@@ -254,13 +267,24 @@ class EngineConfig:
     # Pallas kernels do not apply, the CPU included.
     attention_impl: str = "auto"  # "auto" | "ragged" | "bucketed"
     seed: int = 0
+    # multi-LoRA bank: slot 0 is the base model, adapters occupy 1..max-1
+    max_loras: int = 4
+    max_lora_rank: int = 16
+    # constrained-decoding grammar bank (engine/grammar.py): distinct
+    # concurrent grammars and the per-grammar DFA state budget. Device
+    # memory: max_grammars x max_grammar_states x vocab x 2 B (int16
+    # transition tables; 8 x 128 x 128256 x 2 B = 263 MB at llama-3-8b)
+    max_grammars: int = 8
+    max_grammar_states: int = 128
 
     @staticmethod
     def for_model(name: str, **kw) -> "EngineConfig":
         """The engine options among ``kw`` set the engine; every other key
         overrides a ModelConfig field, and an unknown key raises."""
         engine_kw = {k: kw.pop(k) for k in
-                     ("cache", "scheduler", "seed", "attention_impl")
+                     ("cache", "scheduler", "seed", "attention_impl",
+                      "max_loras", "max_lora_rank", "max_grammars",
+                      "max_grammar_states")
                      if k in kw}
         return EngineConfig(model=ModelConfig.from_pretrained(name, **kw),
                             **engine_kw)

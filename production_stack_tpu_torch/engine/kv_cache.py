@@ -9,7 +9,11 @@
   chain, a new request reuses cached prefix blocks and computes only the
   tail, and freed hashed blocks stay matchable on an LRU list until
   evicted. ``_chain_hash`` is bit-identical to the reference's, so both
-  engines give a prefix the same block identity.
+  engines give a prefix the same block identity. A chain starts at
+  ``HASH_SEED`` for the base model; a LoRA request's starts at its
+  adapter's root (``adapter_root``), so KV computed under one adapter
+  never serves another or the base model (the reference roots every chain
+  at the seed and shares such blocks).
 """
 
 from __future__ import annotations
@@ -46,11 +50,20 @@ def kv_cache_bytes_per_block(model: ModelConfig, cache: CacheConfig) -> int:
 # Host-side allocator with prefix caching
 # ---------------------------------------------------------------------------
 
-_HASH_SEED = 0x9E3779B97F4A7C15
+HASH_SEED = 0x9E3779B97F4A7C15
 
 
 def _chain_hash(prev: int, tokens: tuple[int, ...]) -> int:
     return hash((prev, tokens)) & 0x7FFFFFFFFFFFFFFF
+
+
+def adapter_root(slot: int, generation: int) -> int:
+    """The hash-chain root of a request on adapter bank slot ``slot``
+    loaded for the ``generation``-th time (a reload into the same slot is a
+    new adapter); slot 0, the base model, roots at ``HASH_SEED``."""
+    if slot == 0:
+        return HASH_SEED
+    return _chain_hash(HASH_SEED, ("lora", slot, generation))
 
 
 @dataclasses.dataclass
@@ -113,13 +126,15 @@ class PrefixCachingBlockAllocator:
     def usage(self) -> float:
         return 1.0 - self.num_free_blocks / max(self.num_blocks, 1)
 
-    def match_prefix(self, tokens: Sequence[int]) -> tuple[list[int], int]:
-        """Longest chain of cached full blocks for this token sequence.
-        Returns (block_ids, num_cached_tokens). Takes no references."""
+    def match_prefix(self, tokens: Sequence[int],
+                     root: int = HASH_SEED) -> tuple[list[int], int]:
+        """Longest chain of cached full blocks for this token sequence,
+        hashed from ``root``. Returns (block_ids, num_cached_tokens). Takes
+        no references."""
         if not self.enable_prefix_caching:
             return [], 0
         matched: list[int] = []
-        prev = _HASH_SEED
+        prev = root
         n_full = len(tokens) // self.block_size
         for i in range(n_full):
             chunk = tuple(tokens[i * self.block_size : (i + 1) * self.block_size])
@@ -131,14 +146,14 @@ class PrefixCachingBlockAllocator:
         return matched, len(matched) * self.block_size
 
     def allocate_sequence(
-        self, tokens: Sequence[int]
+        self, tokens: Sequence[int], root: int = HASH_SEED
     ) -> Optional[tuple[list[int], int]]:
         """Allocate blocks to cover ``tokens`` (a prompt), reusing cached
         prefix blocks. Returns (block_ids, num_cached_tokens) or None if out
         of blocks. At least one token is always left uncached so the
         forward pass emits a next-token logit."""
         needed_blocks = max((len(tokens) + self.block_size - 1) // self.block_size, 1)
-        matched, _ = self.match_prefix(tokens)
+        matched, _ = self.match_prefix(tokens, root)
         self.prefix_queries += len(tokens) // self.block_size
         # never treat the whole prompt as cached: recompute the last token
         max_matched = max((len(tokens) - 1) // self.block_size, 0)
@@ -165,13 +180,15 @@ class PrefixCachingBlockAllocator:
         return self._pop_free()
 
     def commit_full_blocks(
-        self, tokens: Sequence[int], block_ids: Sequence[int]
+        self, tokens: Sequence[int], block_ids: Sequence[int],
+        root: int = HASH_SEED,
     ) -> None:
-        """Register content hashes for every now-full block of a sequence so
-        future requests can prefix-match them."""
+        """Register content hashes (chained from ``root``) for every
+        now-full block of a sequence so future requests can prefix-match
+        them."""
         if not self.enable_prefix_caching:
             return
-        prev = _HASH_SEED
+        prev = root
         n_full = len(tokens) // self.block_size
         for i in range(min(n_full, len(block_ids))):
             chunk = tuple(tokens[i * self.block_size : (i + 1) * self.block_size])

@@ -6,10 +6,12 @@ production_stack_tpu/engine/model_runner.py:
 
 - ``ragged_step`` (``_ragged_step``): ONE forward over a packed token
   stream ``tokens (T,)`` that covers prefill chunks AND decode rows, with
-  per-slot spans ``cu_q_lens (S+1,)`` in slot order. ``T`` is always the
-  token budget (``max_num_batched_tokens``) and ``S`` is ``max_num_seqs``,
-  as in the reference, so every step has the same shapes. Each slot samples
-  at its span's last token (``last_idx``).
+  per-slot spans ``cu_q_lens (S+1,)`` in slot order; ``S`` is
+  ``max_num_seqs``. The engine packs ``T = max_num_batched_tokens`` tokens
+  as the reference does, whose compiled step keeps one shape; this eager
+  step runs only the live tokens, rounded up to ``STREAM_ROUND``, so a
+  step of a few decode rows or verify spans does not pay a full-budget
+  forward. Each slot samples at its span's last token (``last_idx``).
 - ``prefill`` (``_prefill_step``): one forward over ``P`` prefill chunks
   padded to one bucket, ``tokens (P, S)``; inactive rows carry context 0.
   Each chunk samples its first token at ``last_idx``.
@@ -20,9 +22,15 @@ production_stack_tpu/engine/model_runner.py:
 Attention goes through the kernel wrappers (``ops/kv_write.py``,
 ``ops/ragged_paged_attention.py``, ``ops/paged_prefill_attention.py``,
 ``ops/paged_decode_attention.py``): their plain versions for CPU tensors,
-the CUDA kernels for CUDA tensors. The pool is updated in place. LoRA,
-grammar, ring prefill, speculative verify and CUDA-graph capture are not
-ported yet.
+the CUDA kernels for CUDA tensors. The pool is updated in place.
+
+Every step takes per-token LoRA adapters (the multi-LoRA bank,
+``register_lora``) and per-row grammars (the grammar bank,
+``register_grammar``, applied by ``grammar_mask``); the ragged step also
+verifies speculative drafts (``verify_idx``). These three are plain
+PyTorch on tensors (gathers, ``torch.where``, matmuls), as in the
+reference, where they run outside any Pallas kernel. Ring prefill, KV
+block export/import and CUDA-graph capture are not ported yet.
 """
 
 from __future__ import annotations
@@ -34,12 +42,15 @@ import torch
 
 from production_stack_tpu_torch.engine import kv_cache as kvmod
 from production_stack_tpu_torch.engine.config import EngineConfig, resolve_device
+from production_stack_tpu_torch.engine.lora import bank_bytes
 from production_stack_tpu_torch.engine.sampling import (
+    NEG_INF,
     apply_token_controls,
     compute_logprobs,
     penalize_logits,
     sample_tokens,
 )
+from production_stack_tpu_torch.engine.tokenizer import get_tokenizer
 from production_stack_tpu_torch.engine.weights import init_random
 from production_stack_tpu_torch.models.registry import get_model
 from production_stack_tpu_torch.ops.kv_write import kv_write
@@ -55,6 +66,32 @@ from production_stack_tpu_torch.ops.ragged_paged_attention import (
     ragged_paged_attention,
     ragged_work_map,
 )
+
+
+# the ragged stream runs at its live length rounded up to this many tokens
+STREAM_ROUND = 64
+
+
+def grammar_mask(logits, bank, accept, g_ids, g_states, eos_id):
+    """Hard-constrain logits (B, V) to each row's FSM transitions.
+
+    Rows with g_id < 0 pass through. Returns the masked logits and each
+    row's transition row (B, V) int16, which the sampled token indexes for
+    the next state. EOS is allowed exactly in accepting states; a row with
+    no allowed token at all (which ``build_token_fsm`` prunes, unless the
+    tokenizer drifted from a cached FSM) may take EOS rather than let the
+    argmax emit token 0. Ports the reference's ``_grammar_mask``."""
+    gi = g_ids.clamp(min=0).long()
+    st = g_states.clamp(min=0).long()
+    row_t = bank[gi, st]
+    allowed = row_t >= 0
+    if eos_id is not None:
+        allowed[:, eos_id] |= accept[gi, st]
+        dead = ~allowed.any(dim=-1, keepdim=True)
+        is_eos = torch.arange(allowed.shape[-1], device=allowed.device) == eos_id
+        allowed = allowed | (dead & is_eos[None, :])
+    con = (g_ids >= 0)[:, None]
+    return torch.where(con & ~allowed, NEG_INF, logits), row_t
 
 
 class ModelRunner:
@@ -105,16 +142,33 @@ class ModelRunner:
         # per-slot output-token counts for presence/frequency penalties
         # ((S, V) int32, allocated on the first penalised batch)
         self.token_counts: Optional[torch.Tensor] = None
+        # grammar masking must know where EOS lives (allowed exactly in
+        # accepting FSM states)
+        self.eos_id = get_tokenizer(self.cfg.tokenizer).eos_id
+        # multi-LoRA bank: target -> (A (L, in, N, R), B (L, N, R, *out)) in
+        # the model dtype, allocated per target by the first adapter that
+        # has it; slot 0 stays zeros (the base model). A keeps the N slots
+        # inside, so one layer's A is a single (in, N * R) matrix.
+        self.lora_bank: Optional[dict] = None
+        # how many times each bank slot was written or cleared: a reload
+        # into a slot is a new adapter to the prefix cache
+        self.lora_generation = [0] * config.max_loras
+        # constrained-decoding grammar bank: (G, S, V) int16 token
+        # transition tables and (G, S) accept flags, allocated on the first
+        # guided request (engine/grammar.py)
+        self.grammar_bank: Optional[torch.Tensor] = None
+        self.grammar_accept: Optional[torch.Tensor] = None
 
     # -- sizing ------------------------------------------------------------
     def _transient_bytes(self) -> int:
-        """Activation memory a step needs beside the pool: hidden states
-        and MLP intermediates of the step's tokens, and the float32 logits
-        with their sampling temporaries. A ragged step has T tokens and
-        (S, V) logits. A bucketed prefill step has up to prefill_batch
-        chunks padded to the bucket of the largest chunk the scheduler
-        issues (as the reference's _prefill_temp_bytes sizes it), and its
-        decode steps have (S, V) logits."""
+        """Device memory a step needs beside the pool: hidden states and
+        MLP intermediates of the step's tokens, the float32 logits with
+        their sampling temporaries, and the grammar and LoRA banks at their
+        full size (each is allocated at its first use, after the pool). A
+        ragged step has T tokens and (S, V) logits. A bucketed prefill step
+        has up to prefill_batch chunks padded to the bucket of the largest
+        chunk the scheduler issues (as the reference's _prefill_temp_bytes
+        sizes it), and its decode steps have (S, V) logits."""
         sched = self.config.scheduler
         c = self.cfg
         rows = sched.max_num_seqs
@@ -129,7 +183,12 @@ class ModelRunner:
         hidden = tokens * c.hidden_size * 4
         mlp = tokens * c.intermediate_size * 2
         logits = rows * c.vocab_size * 4
-        return int(8 * hidden + 4 * mlp + 4 * logits)
+        cfg = self.config
+        grammar = cfg.max_grammars * cfg.max_grammar_states * (
+            c.vocab_size * 2 + 1)
+        lora = bank_bytes(c, cfg.max_loras, cfg.max_lora_rank,
+                          c.torch_dtype.itemsize)
+        return int(8 * hidden + 4 * mlp + 4 * logits + grammar + lora)
 
     def _resolve_num_blocks(self, explicit: Optional[int]) -> int:
         if explicit is not None:
@@ -183,13 +242,85 @@ class ModelRunner:
         )
         return out, kv
 
-    def _forward(self, attend_impl, tokens, positions, meta):
+    def _forward(self, attend_impl, tokens, positions, meta, lora=None):
         def attend(q, k, v, kv, layer):
             return attend_impl(q, k, v, kv, layer, meta)
 
         hidden, self.kv = self.model.forward_tokens(
-            self.cfg, self.params, tokens, positions, attend, self.kv)
+            self.cfg, self.params, tokens, positions, attend, self.kv, lora)
         return hidden
+
+    # -- constrained-decoding grammar bank ---------------------------------
+    def register_grammar(self, slot: int, fsm) -> None:
+        """Upload one TokenFsm's transition table into bank slot ``slot``
+        (padded to the configured state budget)."""
+        G = self.config.max_grammars
+        S = self.config.max_grammar_states
+        V = self.cfg.vocab_size
+        if fsm.n_states > S:
+            raise ValueError(
+                f"grammar needs {fsm.n_states} states > budget {S}"
+            )
+        if self.grammar_bank is None:
+            self.grammar_bank = torch.full((G, S, V), -1, dtype=torch.int16,
+                                           device=self.device)
+            self.grammar_accept = torch.zeros((G, S), dtype=torch.bool,
+                                              device=self.device)
+        table = np.full((S, V), -1, np.int16)
+        table[: fsm.n_states] = fsm.trans.astype(np.int16)
+        acc = np.zeros(S, bool)
+        acc[: fsm.n_states] = fsm.accept
+        self.grammar_bank[slot] = self._dev(table)
+        self.grammar_accept[slot] = self._dev(acc)
+
+    # -- multi-LoRA bank ---------------------------------------------------
+    def register_lora(self, slot: int, bank_np: dict) -> None:
+        """Write an adapter's stacked (A (L, in, R), B (L, R, *out)) pairs
+        (engine/lora.py ``load_adapter_raw``, float32 with the scaling
+        folded into B) into bank slot ``slot``, cast to the model dtype as
+        the reference casts them."""
+        N = self.config.max_loras
+        dt = self.cfg.torch_dtype
+        if self.lora_bank is None:
+            self.lora_bank = {}
+        for key, (A_st, B_st) in bank_np.items():
+            if key not in self.lora_bank:
+                L, E, R = A_st.shape
+                self.lora_bank[key] = (
+                    torch.zeros((L, E, N, R), dtype=dt, device=self.device),
+                    torch.zeros((L, N, *B_st.shape[1:]), dtype=dt,
+                                device=self.device),
+                )
+            A_dev, B_dev = self.lora_bank[key]
+            A_dev[:, :, slot] = self._dev(A_st, dt)
+            B_dev[:, slot] = self._dev(B_st, dt)
+        self.lora_generation[slot] += 1
+
+    def unregister_lora(self, slot: int) -> None:
+        if self.lora_bank is None:
+            return
+        for A_dev, B_dev in self.lora_bank.values():
+            A_dev[:, :, slot] = 0
+            B_dev[:, slot] = 0
+        self.lora_generation[slot] += 1
+
+    def _lora(self, adapter_ids) -> Optional[dict]:
+        """The forward's ``lora`` argument for adapter ids of any shape
+        (one a token, or one a row of a step whose rows broadcast over
+        their tokens), or None without adapters."""
+        if adapter_ids is None or self.lora_bank is None:
+            return None
+        onehot = torch.nn.functional.one_hot(
+            self._dev(adapter_ids, torch.int64), self.config.max_loras)
+        return {"onehot": onehot.to(self.cfg.torch_dtype),
+                "bank": self.lora_bank}
+
+    def _grammar(self, g_ids, g_states) -> Optional[list]:
+        """[g_ids, g_states] on the device for ``_process_logits``, or None
+        when the step has no guided row."""
+        if g_ids is None or self.grammar_bank is None:
+            return None
+        return [self._dev(g_ids, torch.int64), self._dev(g_states, torch.int64)]
 
     # -- host -> device ----------------------------------------------------
     def _dev(self, x, dtype=None) -> torch.Tensor:
@@ -221,8 +352,10 @@ class ModelRunner:
         self.token_counts[slot] = self._dev(row)
 
     def _process_logits(self, logits, samp, greedy_only, presence, frequency,
-                        ctrl):
-        """Penalties, token controls, then sampling; returns sampled (S,)."""
+                        ctrl, grammar=None):
+        """Penalties, token controls, the grammar mask, then sampling.
+        Returns (sampled (S,), each row's grammar transition row (S, V) or
+        None without ``grammar``)."""
         if presence is not None:
             logits = penalize_logits(logits, self.token_counts,
                                      self._dev(presence, torch.float32),
@@ -231,9 +364,14 @@ class ModelRunner:
             logits = apply_token_controls(
                 logits, self._dev(ctrl[0]), self._dev(ctrl[1]),
                 self._dev(ctrl[2]))
+        row_t = None
+        if grammar is not None:
+            logits, row_t = grammar_mask(logits, self.grammar_bank,
+                                         self.grammar_accept, *grammar,
+                                         self.eos_id)
         if greedy_only:
-            return torch.argmax(logits, dim=-1).to(torch.int32)
-        return sample_tokens(logits, *samp)
+            return torch.argmax(logits, dim=-1).to(torch.int32), row_t
+        return sample_tokens(logits, *samp), row_t
 
     # -- public steps (host numpy in, device tensors out) ------------------
     @torch.inference_mode()
@@ -241,7 +379,8 @@ class ModelRunner:
                     cu_q_lens, slot_mapping, last_idx, sample_mask,
                     temps, top_ps, top_ks, seeds, steps,
                     greedy_only: bool = False, presence=None, frequency=None,
-                    ctrl=None):
+                    ctrl=None, adapter_ids=None, g_ids=None, g_states=None,
+                    verify_idx=None):
         """One forward over the packed mixed prefill+decode stream.
 
         tokens/positions (T,) with position -1 on tail padding;
@@ -249,9 +388,29 @@ class ModelRunner:
         slot_mapping (T,) flat KV slots (-1 = skip); last_idx (S,) stream
         index of each slot's last token; sample_mask (S,) 1 where the
         sample is consumed this step (it gates the penalty-count update).
-        Returns device tensors (sampled (S,), tok_lp (S,), top_ids (S, N),
-        top_lps (S, N)); the caller fetches them when it needs them."""
+        adapter_ids (T,) selects each token's adapter, so spans of
+        different slots carry different adapters; g_ids / g_states (S,)
+        each slot's grammar slot (-1 = none) and FSM state.
+
+        ``verify_idx`` (S, k) holds the stream indices of each slot's draft
+        tokens (0 for rows with fewer or none), and the result gains, right
+        after ``sampled``, the greedy argmax of the raw logits there, (S,
+        k): the model's own token after each draft. The LM head runs one
+        column at a time, so no (S, k, V) cube exists. Raw logits are right
+        because only rows without penalties, controls, grammar or logprobs
+        speculate, and their sampling is the argmax of the same logits.
+
+        Returns device tensors (sampled (S,)[, verify (S, k)], tok_lp (S,),
+        top_ids (S, N), top_lps (S, N)); the caller fetches them when it
+        needs them."""
         c = self.cfg
+        # the tail past the live tokens is padding: cut it to STREAM_ROUND
+        n = min(len(tokens), -(-int(cu_q_lens[-1]) // STREAM_ROUND)
+                * STREAM_ROUND)
+        tokens, positions, slot_mapping = (tokens[:n], positions[:n],
+                                           slot_mapping[:n])
+        if adapter_ids is not None:
+            adapter_ids = adapter_ids[:n]
         meta = {
             "block_tables": self._dev(block_tables),
             "context_lens": self._dev(context_lens),
@@ -264,14 +423,16 @@ class ModelRunner:
                 c.num_kv_heads, c.head_dim, self.kv.dtype, self.device),
         }
         hidden = self._forward(self._attend_ragged, self._dev(tokens),
-                               self._dev(positions), meta)
+                               self._dev(positions), meta,
+                               self._lora(adapter_ids))
         last = hidden[self._dev(last_idx, torch.int64)]  # (S, E)
         logits = self.model.logits_from_hidden(self.cfg, self.params, last)
         samp = self._sampling_inputs(temps, top_ps, top_ks, seeds, steps)
         if presence is not None:
             self._ensure_counts()
-        sampled = self._process_logits(logits, samp, greedy_only, presence,
-                                       frequency, ctrl)
+        sampled, _ = self._process_logits(logits, samp, greedy_only, presence,
+                                          frequency, ctrl,
+                                          self._grammar(g_ids, g_states))
         if presence is not None:
             S = sampled.shape[0]
             rows = torch.arange(S, device=self.device)
@@ -279,22 +440,34 @@ class ModelRunner:
                 (rows, sampled.long()),
                 self._dev(sample_mask).to(torch.int32), accumulate=True)
         # logprobs report the raw model distribution
-        return (sampled, *compute_logprobs(logits, sampled))
+        lp = compute_logprobs(logits, sampled)
+        if verify_idx is None:
+            return (sampled, *lp)
+        vidx = self._dev(verify_idx, torch.int64)
+        verify = torch.stack([
+            torch.argmax(self.model.logits_from_hidden(
+                self.cfg, self.params, hidden[vidx[:, j]]), dim=-1)
+            for j in range(vidx.shape[1])], dim=1).to(torch.int32)
+        return (sampled, verify, *lp)
 
     @torch.inference_mode()
     def prefill(self, tokens, positions, block_tables, context_lens,
                 slot_mapping, last_idx, temps, top_ps, top_ks, seeds,
-                greedy_only: bool = False, ctrl=None):
+                greedy_only: bool = False, ctrl=None, adapter_ids=None,
+                g_ids=None):
         """A batch of prefill chunks padded to one bucket, with each chunk's
         first token sampled in the same step.
 
         tokens/positions (P, S) with position -1 on padding (a whole row of
         -1 on an inactive chunk); block_tables (P, M); context_lens (P,),
         0 = inactive; slot_mapping (P*S,) flat KV slots (-1 = skip);
-        last_idx (P,) index of each chunk's last token. No penalties apply:
-        the first token has no output history. Logprobs of the raw logits
-        ride every step. Returns device tensors (sampled (P,), tok_lp (P,),
-        top_ids (P, N), top_lps (P, N))."""
+        last_idx (P,) index of each chunk's last token; adapter_ids (P,)
+        each chunk's adapter; g_ids (P,) the grammar of each chunk that
+        completes its prompt (-1 = none), which constrains the first token
+        at FSM state 0. No penalties apply: the first token has no output
+        history. Logprobs of the raw logits ride every step. Returns device
+        tensors (sampled (P,), tok_lp (P,), top_ids (P, N), top_lps (P,
+        N))."""
         meta = {
             "block_tables": self._dev(block_tables),
             "context_lens": self._dev(context_lens),
@@ -302,29 +475,39 @@ class ModelRunner:
             # each chunk's first position (-1 on an inactive chunk)
             "q_starts": self._dev(positions[:, 0]),
         }
-        hidden = self._forward(self._attend_prefill, self._dev(tokens),
-                               self._dev(positions), meta)  # (P, S, E)
+        # one adapter a chunk, broadcast over the chunk's tokens
+        hidden = self._forward(
+            self._attend_prefill, self._dev(tokens), self._dev(positions),
+            meta, self._lora(None if adapter_ids is None
+                             else np.asarray(adapter_ids)[:, None]))
         P = hidden.shape[0]
         last = hidden[torch.arange(P, device=self.device),
                       self._dev(last_idx, torch.int64)]  # (P, E)
         logits = self.model.logits_from_hidden(self.cfg, self.params, last)
         samp = self._sampling_inputs(temps, top_ps, top_ks, seeds,
                                      np.zeros(P, np.int32))
-        sampled = self._process_logits(logits, samp, greedy_only, None, None,
-                                       ctrl)
+        grammar = (None if g_ids is None
+                   else self._grammar(g_ids, np.zeros(P, np.int32)))
+        sampled, _ = self._process_logits(logits, samp, greedy_only, None,
+                                          None, ctrl, grammar)
         return (sampled, *compute_logprobs(logits, sampled))
 
     @torch.inference_mode()
     def decode_multi(self, tokens, positions, block_tables, context_lens,
                      slot_mapping, temps, top_ps, top_ks, seeds, steps,
                      greedy_only: bool = False, presence=None, frequency=None,
-                     ctrl=None, want_logprobs: bool = False):
+                     ctrl=None, want_logprobs: bool = False,
+                     adapter_ids=None, g_ids=None, g_states=None):
         """``multi_step`` fused decode+sample iterations over the (S,)
         decode batch. The token sampled at iteration i feeds iteration
         i + 1 on the device; positions, context lengths and slots advance
         there too (the scheduler allocated ``multi_step`` tokens of block
-        capacity). Returns host arrays: sampled (K, S), plus (tok_lp (K, S),
-        ids (K, S, N), lps (K, S, N)) with ``want_logprobs``."""
+        capacity), and so does each guided row's FSM state, from the
+        transition row its token was sampled from. adapter_ids (S,) each
+        row's adapter; g_ids / g_states (S,) each row's grammar slot (-1 =
+        none) and FSM state at the first iteration. Returns host arrays:
+        sampled (K, S), plus (tok_lp (K, S), ids (K, S, N), lps (K, S, N))
+        with ``want_logprobs``."""
         bs = self.config.cache.block_size
         K = max(self.config.scheduler.multi_step, 1)
         bt = self._dev(block_tables)
@@ -336,6 +519,8 @@ class ModelRunner:
         samp = list(self._sampling_inputs(temps, top_ps, top_ks, seeds, steps))
         if presence is not None:
             self._ensure_counts()
+        lora = self._lora(adapter_ids)
+        grammar = self._grammar(g_ids, g_states)
         S = tok.shape[0]
         rows = torch.arange(S, device=self.device)
         # K3's split plan, fixed for the step from the host's context
@@ -348,15 +533,20 @@ class ModelRunner:
         for _ in range(K):
             meta = {"block_tables": bt, "context_lens": ctx,
                     "slot_mapping": slots, "plan": plan}
-            hidden = self._forward(self._attend_decode, tok, pos, meta)
+            hidden = self._forward(self._attend_decode, tok, pos, meta, lora)
             logits = self.model.logits_from_hidden(self.cfg, self.params,
                                                    hidden)
-            sampled = self._process_logits(logits, samp, greedy_only,
-                                           presence, frequency, ctrl)
+            sampled, row_t = self._process_logits(
+                logits, samp, greedy_only, presence, frequency, ctrl, grammar)
             step_out = [sampled]
             if want_logprobs:
                 step_out += compute_logprobs(logits, sampled)
             outs.append(step_out)
+            if grammar is not None:
+                g_ids_dev, g_state = grammar
+                nxt = row_t.gather(1, sampled.long()[:, None])[:, 0].long()
+                grammar[1] = torch.where((g_ids_dev >= 0) & active, nxt,
+                                         g_state)
             new_pos = torch.where(active, pos + 1, pos)
             ctx = torch.where(active, ctx + 1, ctx)
             block = bt[rows, torch.clamp(new_pos, min=0) // bs]

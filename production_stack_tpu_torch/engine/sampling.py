@@ -44,6 +44,10 @@ class SamplingParams:
     # token id -> additive bias, and an optional whitelist of ids
     logit_bias: Optional[dict] = None
     allowed_token_ids: Sequence[int] = ()
+    # constrained decoding (vLLM guided_regex / guided_json): the engine
+    # compiles these to a token FSM kept on the device (engine/grammar.py)
+    guided_regex: Optional[str] = None
+    guided_json: Optional[dict] = None
 
     def clamped(self, max_model_len: int, prompt_len: int) -> "SamplingParams":
         limit = max(max_model_len - prompt_len, 1)

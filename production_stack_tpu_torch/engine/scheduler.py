@@ -15,7 +15,9 @@ and preemption:
   scheduled no chunk.
 
 When the pool runs dry a decode row preempts the youngest running sequence
-(vLLM-style recompute). Speculative grants, ring prefill, the
+(vLLM-style recompute). With speculation on (the ragged path), each
+eligible decode row is also granted draft tokens against the same budget
+(``_grant_spec_drafts``). The brownout's grant shedding, ring prefill, the
 tier-prefetch hooks and per-tenant fair share come in later slices.
 
 The scheduler is host-side control plane: it decides and never touches
@@ -70,6 +72,11 @@ class Scheduler:
         self.free_slots = list(range(sched.max_num_seqs - 1, -1, -1))
         # the engine sets this on the ragged path; False = bucketed policy
         self.unified = False
+        # set by the engine when speculative decoding is on: the draft width
+        # to reserve for a decode row (0 = ineligible or cold; see
+        # spec.SpecController). The row is charged 1 + grant stream tokens
+        # and gets KV blocks for the whole span.
+        self.spec_grant_fn = None
 
     # -- queue management ---------------------------------------------------
     def add(self, seq: Sequence) -> None:
@@ -130,10 +137,11 @@ class Scheduler:
         """Mark finished. Full blocks stay content-addressed in the
         allocator so a later request with the same prefix hits them. Only
         positions < num_computed_tokens hold valid KV (the final sampled
-        token was never fed back), so only those are committed."""
+        token was never fed back, and rejected drafts leave garbage in the
+        slots past the accepted prefix), so only those are committed."""
         n_valid = min(len(seq.token_ids), seq.num_computed_tokens)
         self.allocator.commit_full_blocks(seq.token_ids[:n_valid],
-                                          seq.block_ids)
+                                          seq.block_ids, seq.prefix_root)
         self._release(seq)
         try:
             self.waiting.remove(seq)  # a preempted seq can finish too
@@ -151,7 +159,8 @@ class Scheduler:
     def _try_admit(self) -> None:
         while self.waiting and self.free_slots:
             seq = self.waiting[0]
-            got = self.allocator.allocate_sequence(seq.token_ids)
+            got = self.allocator.allocate_sequence(seq.token_ids,
+                                                   seq.prefix_root)
             if got is None:
                 break
             self.waiting.popleft()
@@ -200,10 +209,13 @@ class Scheduler:
         return out
 
     def _schedule_unified(self, out: SchedulerOutput) -> SchedulerOutput:
-        """Decode rows claim one stream token each, then FCFS prefill
-        chunks fill the rest of the token budget."""
+        """Decode rows claim one stream token each (plus their draft
+        grants, with speculation on), then FCFS prefill chunks fill the
+        rest of the token budget."""
         out.decodes = self._grow_decodes(out)
         budget = self.config.max_num_batched_tokens - len(out.decodes)
+        if self.spec_grant_fn is not None:
+            budget = self._grant_spec_drafts(out, budget)
         for seq in sorted(self.seqs.values(), key=lambda s: s.arrival_time):
             if seq.status is not SequenceStatus.PREFILLING:
                 continue
@@ -219,6 +231,38 @@ class Scheduler:
                 ScheduledPrefill(seq, seq.num_computed_tokens, chunk))
             budget -= chunk
         return out
+
+    def _grant_spec_drafts(self, out: SchedulerOutput, budget: int) -> int:
+        """Reserve stream budget and KV blocks for speculative drafts.
+
+        FCFS over the decode rows: each row asks ``spec_grant_fn`` for its
+        adaptive width, clamped to the budget left, and has blocks appended
+        so positions ``num_computed .. num_computed + grant`` all have KV
+        slots. Drafts are optional work and never preempt: when the pool is
+        dry the grant shrinks to what the current table holds. The grant
+        lands on ``seq.spec_grant`` for the engine to propose against at
+        pack time. Returns the budget left."""
+        bs = self.cache_config.block_size
+        for seq in sorted(out.decodes, key=lambda s: s.arrival_time):
+            seq.spec_grant = 0
+            if budget <= 0:
+                continue
+            k = min(self.spec_grant_fn(seq), budget,
+                    self.max_model_len - 1 - seq.num_computed_tokens)
+            if k <= 0:
+                continue
+            target = seq.num_computed_tokens + 1 + k
+            while len(seq.block_ids) * bs < target:
+                bid = self.allocator.append_block()
+                if bid is None:
+                    break
+                seq.block_ids.append(bid)
+            k = min(k, len(seq.block_ids) * bs - seq.num_computed_tokens - 1)
+            if k <= 0:
+                continue
+            seq.spec_grant = k
+            budget -= k
+        return budget
 
     def _grow_decodes(self, out: SchedulerOutput) -> list[Sequence]:
         """Collect every decodable sequence, growing block tables first so

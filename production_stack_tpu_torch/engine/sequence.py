@@ -1,8 +1,7 @@
 """Per-request sequence state (host side, control plane).
 
-Ports production_stack_tpu/engine/sequence.py without the tiering,
-grammar, LoRA, speculation and tenancy fields, which come with their
-slices.
+Ports production_stack_tpu/engine/sequence.py with its LoRA, grammar and
+speculation fields; the tiering and tenancy fields come with their slices.
 """
 
 from __future__ import annotations
@@ -12,6 +11,7 @@ import enum
 import time
 from typing import Optional
 
+from production_stack_tpu_torch.engine.kv_cache import HASH_SEED
 from production_stack_tpu_torch.engine.sampling import SamplingParams
 
 
@@ -39,8 +39,18 @@ class Sequence:
     prompt_token_ids: list[int]
     sampling: SamplingParams
     arrival_time: float = dataclasses.field(default_factory=time.monotonic)
+    adapter_slot: int = 0  # multi-LoRA bank slot; 0 = base model
+    # the root of the prefix cache's block-hash chain: kv_cache.HASH_SEED
+    # for the base model, the adapter's own root for a LoRA request
+    prefix_root: int = HASH_SEED
     # compacted token controls (sampling.make_token_controls) or None
     token_ctrl: Optional[tuple] = None
+    # constrained decoding: grammar-bank slot (-1 = unconstrained), the
+    # current FSM state (generation starts at 0; the host's mirror of the
+    # device-side advance), and the host TokenFsm (prefill-token advance)
+    grammar_slot: int = -1
+    fsm_state: int = 0
+    fsm: Optional[object] = None
 
     output_token_ids: list[int] = dataclasses.field(default_factory=list)
     status: SequenceStatus = SequenceStatus.WAITING
@@ -51,6 +61,14 @@ class Sequence:
     admit_time: Optional[float] = None  # waiting -> scheduled (queue exit)
     first_token_time: Optional[float] = None
     finish_time: Optional[float] = None
+
+    # speculative decoding (engine/spec.py): acceptance EWMA and cold-probe
+    # counter driving the adaptive draft width, the stream-token grant the
+    # scheduler charged this step, and the drafts proposed at pack time
+    spec_ewma: float = 1.0
+    spec_cold_steps: int = 0
+    spec_grant: int = 0
+    spec_drafts: list[int] = dataclasses.field(default_factory=list)
 
     @property
     def token_ids(self) -> list[int]:

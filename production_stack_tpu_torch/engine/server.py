@@ -6,14 +6,21 @@ machines this package targets need not have ``aiohttp``. Each request is
 handled on its own thread; the engine steps on the AsyncEngine's thread.
 
 Routes: ``POST /v1/completions`` and ``POST /v1/chat/completions`` (JSON,
-or SSE ending in ``data: [DONE]`` with ``"stream": true``), ``GET
-/v1/models`` and ``GET /health``. Response bodies have the JAX server's
-shape, so the same router can front either engine. ``/metrics`` and
-``/debug/*`` are not ported yet.
+or SSE ending in ``data: [DONE]`` with ``"stream": true``; ``guided_regex``
+or ``guided_json`` constrain the output, and ``model`` may name a loaded
+LoRA adapter), ``POST /v1/load_lora_adapter`` and ``POST
+/v1/unload_lora_adapter`` (``{"lora_name", "lora_path"}``, the reference
+LoraAdapter operator's calls), ``GET /v1/models`` (the model and each
+adapter) and ``GET /health``. Response bodies have the JAX server's shape,
+so the same router can front either engine. ``guided_choice`` and
+``echo`` (which need prompt scoring), ``/metrics`` and ``/debug/*`` are
+not ported yet.
 
 Run: ``python -m production_stack_tpu_torch.engine.server --model
 llama-3-8b --port 18077`` (``--device cpu`` for the plain path,
-``--attention-impl bucketed`` for the bucketed prefill path).
+``--attention-impl bucketed`` for the bucketed prefill path,
+``--speculative-ngram 4`` for n-gram speculative decoding on the ragged
+path).
 """
 
 from __future__ import annotations
@@ -36,7 +43,12 @@ from production_stack_tpu_torch.engine.config import (
     EngineConfig,
     SchedulerConfig,
 )
-from production_stack_tpu_torch.engine.engine import LLMEngine
+from production_stack_tpu_torch.engine.engine import GrammarBankFull, LLMEngine
+from production_stack_tpu_torch.engine.grammar import (
+    compile_regex,
+    schema_to_regex,
+)
+from production_stack_tpu_torch.engine.lora import LoraManager
 from production_stack_tpu_torch.engine.sampling import (
     MAX_LOGPROBS,
     SamplingParams,
@@ -188,6 +200,7 @@ class EngineServer:
         self.engine = engine if engine is not None else LLMEngine(
             config, device=device)
         self.async_engine = AsyncEngine(self.engine)
+        self.lora = LoraManager(self.engine)
         self.model_name = served_model_name or config.model.name
         self.start_time = time.time()
         self._httpd: Optional[ThreadingHTTPServer] = None
@@ -225,7 +238,7 @@ class EngineServer:
 
     # -- routes --------------------------------------------------------------
     def models(self) -> dict:
-        return {"object": "list", "data": [{
+        cards = [{
             "id": self.model_name,
             "object": "model",
             "created": int(self.start_time),
@@ -235,7 +248,61 @@ class EngineServer:
             "max_model_len": self.config.model.max_model_len,
             "capabilities": list(ENGINE_CAPABILITIES),
             "role": "unified",
-        }]}
+        }]
+        for name in self.lora.list_adapters():
+            cards.append({
+                "id": name,
+                "object": "model",
+                "created": int(self.start_time),
+                "owned_by": "production-stack-tpu",
+                "root": self.model_name,
+                "parent": self.model_name,
+            })
+        return {"object": "list", "data": cards}
+
+    def load_lora(self, body: dict) -> tuple[int, dict]:
+        name, path = body.get("lora_name"), body.get("lora_path")
+        if not name or not path:
+            return 400, _error("lora_name and lora_path required")
+        try:
+            self.async_engine.run_on_engine(
+                lambda eng: self.lora.load(name, path))
+        except Exception as e:  # a bad adapter is the caller's error
+            return 400, _error(str(e))
+        return 200, {"status": "loaded", "lora_name": name}
+
+    def unload_lora(self, body: dict) -> tuple[int, dict]:
+        name = body.get("lora_name")
+        if not self.async_engine.run_on_engine(
+                lambda eng: self.lora.unload(name)):
+            return 404, _error(f"adapter {name!r} not loaded", "not_found")
+        return 200, {"status": "unloaded", "lora_name": name}
+
+    def guided_sampling(self, body: dict,
+                        sampling: SamplingParams) -> SamplingParams:
+        """``sampling`` with the request's grammar, validated now (a 400
+        before admission, not a failure mid-stream)."""
+        g_re = body.get("guided_regex")
+        g_js = body.get("guided_json")
+        if g_re is None and g_js is None:
+            return sampling
+        if g_re is not None and g_js is not None:
+            raise BadRequest("guided_regex and guided_json are mutually "
+                             "exclusive")
+        if body.get("guided_choice") is not None:
+            raise BadRequest("guided_choice cannot combine with other "
+                             "guidance")
+        if g_re is not None and not isinstance(g_re, str):
+            raise BadRequest("guided_regex must be a string")
+        try:
+            pat = g_re if g_re is not None else schema_to_regex(g_js)
+            compile_regex(pat, max_states=self.config.max_grammar_states)
+        except (ValueError, IndexError, KeyError, TypeError) as e:
+            # RegexError is a ValueError; the other types keep any parser
+            # edge case a 400
+            raise BadRequest(f"invalid guided grammar: {e}") from None
+        return dataclasses.replace(sampling, guided_regex=g_re,
+                                   guided_json=g_js)
 
     def render_chat(self, messages: list[dict]) -> str:
         tk = self.engine.tokenizer
@@ -282,8 +349,8 @@ class EngineServer:
             make_token_controls(sampling, self.config.model.vocab_size)
         except (TypeError, ValueError) as e:
             raise BadRequest(f"invalid sampling parameter: {e}") from None
-        for key in ("guided_regex", "guided_json", "guided_choice", "echo",
-                    "kv_transfer_params"):
+        sampling = self.guided_sampling(body, sampling)
+        for key in ("guided_choice", "echo", "kv_transfer_params"):
             if body.get(key):
                 raise BadRequest(f"{key!r} is not supported by this engine")
         if sampling.n < 1 or sampling.n * len(prompts) > MAX_CHOICES:
@@ -296,6 +363,7 @@ class EngineServer:
             if len(ids) > self.config.model.max_model_len - 1:
                 raise BadRequest("prompt too long")
         rid = f"{'chatcmpl' if chat else 'cmpl'}-{uuid.uuid4().hex}"
+        adapter_slot = self.lora.slot_of(body.get("model", self.model_name))
         n = sampling.n
         nchoices = len(prompt_ids_list) * n
         reqs, rids = [], []
@@ -308,11 +376,11 @@ class EngineServer:
                     # seeded n > 1 still yields distinct choices
                     choice_sampling = dataclasses.replace(
                         sampling, seed=(sampling.seed + idx) & 0xFFFFFFFF)
-                reqs.append((crid, ids, choice_sampling))
+                reqs.append((crid, ids, choice_sampling, adapter_slot))
                 rids.append(crid)
         try:
             streams = self.async_engine.admit_batch(reqs)
-        except SchedulerQueueFull:
+        except (SchedulerQueueFull, GrammarBankFull):
             raise
         except ValueError as e:
             raise BadRequest(str(e)) from None
@@ -505,8 +573,10 @@ class EngineServer:
                     self._send_json(_error("not found", "not_found"), 404)
 
             def do_POST(self):  # noqa: N802 (http.server API)
+                lora_routes = {"/v1/load_lora_adapter": server.load_lora,
+                               "/v1/unload_lora_adapter": server.unload_lora}
                 if self.path not in ("/v1/completions",
-                                     "/v1/chat/completions"):
+                                     "/v1/chat/completions", *lora_routes):
                     self._send_json(_error("not found", "not_found"), 404)
                     return
                 chat = self.path == "/v1/chat/completions"
@@ -518,6 +588,10 @@ class EngineServer:
                 except ValueError:
                     self._send_json(_error("invalid JSON body"), 400)
                     return
+                if self.path in lora_routes:
+                    status, payload = lora_routes[self.path](body)
+                    self._send_json(payload, status)
+                    return
                 try:
                     streams, rids, rid, sampling, n_prompt = server.admit(
                         body, chat)
@@ -527,6 +601,12 @@ class EngineServer:
                 except SchedulerQueueFull as e:
                     self._send_json(_error(str(e), "rate_limit_error"), 429,
                                     {"Retry-After": "1"})
+                    return
+                except GrammarBankFull:
+                    self._send_json(_error(
+                        "all guided-decoding grammar slots are in use; retry "
+                        "when in-flight guided requests finish",
+                        "rate_limit_error"), 429, {"Retry-After": "1"})
                     return
                 model = body.get("model", server.model_name)
                 xrid = self.headers.get("x-request-id") or rid
@@ -605,6 +685,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--served-model-name", default=None)
+    p.add_argument("--speculative-ngram", type=int, default=0,
+                   help="n-gram (prompt-lookup) speculative decoding: "
+                        "propose up to this many draft tokens a step from "
+                        "the sequence's own history and verify them inside "
+                        "the ragged step (vLLM --speculative-config ngram). "
+                        "Per sequence: greedy rows speculate, sampled or "
+                        "penalised rows in the same step decode normally; "
+                        "an acceptance EWMA adapts the width. 0 = off; "
+                        "ragged path only")
+    p.add_argument("--speculative-ngram-max", type=int, default=3,
+                   help="longest tail n-gram matched against the history")
+    p.add_argument("--speculative-ngram-min", type=int, default=1,
+                   help="shortest tail n-gram matched against the history "
+                        "(the proposer tries max..min, longest first)")
+    p.add_argument("--speculative-window", type=int, default=4096,
+                   help="trailing history tokens the n-gram proposer "
+                        "searches for a recurrence")
     return p
 
 
@@ -633,6 +730,11 @@ def config_from_args(args) -> EngineConfig:
             int(x) for x in args.prefill_buckets.split(","))
     if args.attention_impl:
         overrides["attention_impl"] = args.attention_impl
+    if args.speculative_ngram:
+        sched.spec_ngram_k = args.speculative_ngram
+        sched.spec_ngram_max = args.speculative_ngram_max
+        sched.spec_ngram_min = args.speculative_ngram_min
+        sched.spec_window = args.speculative_window
     return EngineConfig.for_model(args.model, cache=cache, scheduler=sched,
                                   seed=args.seed, **overrides)
 

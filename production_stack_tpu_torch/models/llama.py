@@ -12,12 +12,14 @@ step and the tests' dense forward.
 
 The dense knobs ride along: ``qkv_bias`` (Qwen2), ``qk_norm`` (Qwen3),
 ``post_norms``, ``query_scale``, ``embed_scale``, both softcaps and GeGLU
-(Gemma). Quantization, LoRA and the MoE block are not ported yet.
+(Gemma). Multi-LoRA adds a per-token low-rank delta on the seven
+projections (``_lora_delta``). Quantization and the MoE block are not
+ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -63,12 +65,39 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(E, H * D)).unflatten(-1, (H, D))
 
 
-def _mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
+def _lora_delta(x: torch.Tensor, onehot: torch.Tensor, A: torch.Tensor,
+                B: torch.Tensor) -> torch.Tensor:
+    """Per-token LoRA delta from a bank of N adapters.
+
+    x (..., T, in); onehot (..., T, N) (or (..., 1, N), broadcast over T)
+    selects each token's adapter; A (in, N, R); B (N, R, *out). The sum is
+    the reference's (models/llama.py ``_lora_delta``), but it never forms
+    every adapter's (T, N, out) output before selecting: ``xa = x @ A`` is
+    (T, N, R), the unselected adapters' ranks are zeroed by the one-hot,
+    and one product with B contracts (N, R). A token of adapter 0 (the
+    bank's zero slot) gets exactly 0."""
+    E, N, R = A.shape
+    xa = (x @ A.reshape(E, N * R)).unflatten(-1, (N, R))
+    xa = (xa * onehot[..., None]).flatten(-2)
+    return (xa @ B.reshape(N * R, -1)).unflatten(-1, B.shape[2:])
+
+
+def _mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor, lb=None,
+         onehot=None) -> torch.Tensor:
     gate = x @ lp["w_gate"]
     up = x @ lp["w_up"]
+    if lb is not None:
+        if "w_gate" in lb:
+            gate = gate + _lora_delta(x, onehot, *lb["w_gate"])
+        if "w_up" in lb:
+            up = up + _lora_delta(x, onehot, *lb["w_up"])
     # Gemma is GeGLU (tanh-approximated gelu on the gate); Llama is SwiGLU
     act = F.silu(gate) if cfg.act == "silu" else F.gelu(gate, approximate="tanh")
-    return (act * up) @ lp["w_down"]
+    hidden2 = act * up
+    out = hidden2 @ lp["w_down"]
+    if lb is not None and "w_down" in lb:
+        out = out + _lora_delta(hidden2, onehot, *lb["w_down"])
+    return out
 
 
 def embed_tokens(cfg: ModelConfig, params: dict,
@@ -87,24 +116,37 @@ def forward_hidden(
     positions: torch.Tensor,
     attend: AttendFn,
     kv_pool: Any = None,
+    lora: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, Any]:
     """Run the decoder stack from embedded activations.
 
     x: (..., T, E); positions: (..., T). ``attend`` receives q, k, v of
     shape (..., T, heads, D), the KV pool and the layer index, and returns
-    the attention output and the (updated) pool.
+    the attention output and the (updated) pool. ``lora`` is None or
+    ``{"onehot": (..., T, N), "bank": {target: (A (L, in, N, R), B (L, N,
+    R, *out))}}`` (engine/model_runner.py ``register_lora``).
     Returns (hidden (..., T, E), kv_pool)."""
     layers = params["layers"]
+    onehot = None if lora is None else lora["onehot"]
     eps, off = cfg.rms_norm_eps, cfg.norm_offset
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
                            cfg.rope_scaling)
     h = x
     for i in range(cfg.num_layers):
         lp = {name: w[i] for name, w in layers.items()}
+        lb = (None if lora is None
+              else {t: (A[i], B[i]) for t, (A, B) in lora["bank"].items()})
         normed = rms_norm(h, lp["attn_norm"], eps, off)
         q = _heads(normed, lp["wq"])
         k = _heads(normed, lp["wk"])
         v = _heads(normed, lp["wv"])
+        if lb is not None:
+            if "wq" in lb:
+                q = q + _lora_delta(normed, onehot, *lb["wq"])
+            if "wk" in lb:
+                k = k + _lora_delta(normed, onehot, *lb["wk"])
+            if "wv" in lb:
+                v = v + _lora_delta(normed, onehot, *lb["wv"])
         if cfg.qkv_bias:
             q = q + lp["bq"]
             k = k + lp["bk"]
@@ -120,11 +162,15 @@ def forward_hidden(
         q = rotate(q, cos, sin)
         k = rotate(k, cos, sin)
         attn, kv_pool = attend(q, k, v, kv_pool, i)
-        o = attn.flatten(-2) @ lp["wo"].flatten(0, 1)
+        flat = attn.flatten(-2)  # (..., T, H*D)
+        o = flat @ lp["wo"].flatten(0, 1)
+        if lb is not None and "wo" in lb:
+            o = o + _lora_delta(flat, onehot, *lb["wo"])
         if cfg.post_norms:
             o = rms_norm(o, lp["post_attn_norm"], eps, off)
         h = h + o
-        mlp_out = _mlp(cfg, lp, rms_norm(h, lp["mlp_norm"], eps, off))
+        mlp_out = _mlp(cfg, lp, rms_norm(h, lp["mlp_norm"], eps, off), lb,
+                       onehot)
         if cfg.post_norms:
             mlp_out = rms_norm(mlp_out, lp["post_mlp_norm"], eps, off)
         h = h + mlp_out
@@ -138,10 +184,11 @@ def forward_tokens(
     positions: torch.Tensor,
     attend: AttendFn,
     kv_pool: Any = None,
+    lora: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, Any]:
     """Embed tokens, then run the decoder stack (see forward_hidden)."""
     x = embed_tokens(cfg, params, tokens)
-    return forward_hidden(cfg, params, x, positions, attend, kv_pool)
+    return forward_hidden(cfg, params, x, positions, attend, kv_pool, lora)
 
 
 def logits_from_hidden(cfg: ModelConfig, params: dict,

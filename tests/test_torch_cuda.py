@@ -421,3 +421,99 @@ def test_bucketed_engine_kernel_path_matches_plain_path(cuda):
     d1, d2, d3, d4 = (c.n - b for c, b in zip(counters, before))
     assert d1 > 0 and d3 > 0 and d4 > 0 and d2 == 0
     assert gpu == cpu
+
+
+# slot: (q_len, ctx). Verify spans of 1 + 4 tokens over contexts 130-537
+# (the causal edge inside the last five positions), one-token spans at
+# contexts 779-938, and an empty slot between them
+VERIFY_SPANS = {**{s: (5, 130 + 37 * s) for s in range(12)},
+                **{s: (1, 90 + 53 * s) for s in range(13, 17)}}
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+def test_ragged_verify_stream_matches_plain(cuda, dtype, tol, D):
+    """K2 on a speculative-verify-shaped stream (spans of 1 + drafts each
+    ending at its context, mixed with one-token spans in one launch) against
+    its plain version; tail rows exactly 0."""
+    H, KH = 8, 2
+    pool, tables, cu, ctx, q = _stream(cuda, dtype, H, KH, D, VERIFY_SPANS,
+                                       17, 64, 6)
+    args = (q, pool, tables, cu, ctx, 1)
+    want = k2.ragged_paged_attention_plain(*args)
+    work = k2.ragged_work_map(cu.cpu(), ctx.cpu(), q.shape[0], H, KH, D,
+                              dtype, cuda)
+    n = k2.LAUNCHES.n
+    got = k2.ragged_paged_attention(*args, tiles=work)
+    assert k2.LAUNCHES.n == n + 1
+    _assert_p_rounded_close(got, want, tol, k2.ragged_paged_attention_plain,
+                            args, 0.0)
+    assert (got[int(cu[-1]):] == 0).all()
+
+
+def test_engine_features_kernel_path_matches_plain_path(cuda, tmp_path):
+    """float32 tiny-llama on the ragged path with n-gram speculation, a
+    LoRA adapter and grammars: the card's greedy tokens are the CPU plain
+    path's, and K1, K2 and K3 launch (K2 with verify spans)."""
+    from production_stack_tpu_torch.engine import lora
+    from production_stack_tpu_torch.engine.config import (
+        CacheConfig,
+        EngineConfig,
+        SchedulerConfig,
+    )
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+    from production_stack_tpu_torch.engine.weights import init_random
+
+    cfg = EngineConfig.for_model(
+        "tiny-llama", cache=CacheConfig(block_size=16, num_blocks=128),
+        scheduler=SchedulerConfig(max_num_seqs=8, max_num_batched_tokens=64,
+                                  multi_step=2, spec_ngram_k=4))
+    m = cfg.model
+    rng = np.random.default_rng(0)
+    dims = {"q_proj": (m.hidden_size, m.num_heads * m.head_dim),
+            "v_proj": (m.hidden_size, m.num_kv_heads * m.head_dim),
+            "down_proj": (m.intermediate_size, m.hidden_size)}
+    tensors = {}
+    for layer in range(m.num_layers):
+        for mod, (i, o) in dims.items():
+            base = f"model.layers.{layer}.{'mlp' if 'down' in mod else 'self_attn'}.{mod}"
+            tensors[f"{base}.lora_A.weight"] = rng.standard_normal(
+                (8, i)).astype(np.float32) * 0.3
+            tensors[f"{base}.lora_B.weight"] = rng.standard_normal(
+                (o, 8)).astype(np.float32) * 0.3
+    lora.write_safetensors(str(tmp_path / "adapter_model.safetensors"),
+                           tensors)
+    params = init_random(m, seed=0)
+    semi = [1, 2, 3, 4, 1, 2, 5, 6, 1, 2]
+    greedy = SamplingParams(temperature=0.0, max_tokens=16, ignore_eos=True)
+    reqs = [("semi", semi, greedy, 0), ("lora", semi[::-1] * 2, greedy, 1),
+            ("re", [5, 6, 7], SamplingParams(
+                temperature=0.0, max_tokens=16,
+                guided_regex=r"(yes|no)( indeed)?")),
+            ("re-lora", [9, 9], SamplingParams(
+                temperature=0.0, max_tokens=16, guided_regex=r"[a-f]{3,9}"), 1),
+            ("plain", rng.integers(0, 259, 40).tolist(), greedy, 0)]
+
+    def run(device):
+        p = {k: (v.to(device) if not isinstance(v, dict)
+                 else {n: w.to(device) for n, w in v.items()})
+             for k, v in params.items()}
+        eng = LLMEngine(cfg, params=p, device=device)
+        lora.LoraManager(eng).load("a", str(tmp_path))
+        for rid, prompt, sp, *slot in reqs:
+            eng.add_request(rid, prompt_token_ids=prompt, sampling=sp,
+                            adapter_slot=slot[0] if slot else 0)
+        toks = {r[0]: [] for r in reqs}
+        while eng.has_unfinished():
+            for o in eng.step():
+                toks[o.request_id].extend(o.new_token_ids)
+        return toks, eng.spec_drafted
+
+    cpu, cpu_drafted = run("cpu")
+    counters = (k1.LAUNCHES, k2.LAUNCHES, k3.LAUNCHES)
+    before = [c.n for c in counters]
+    gpu, gpu_drafted = run(cuda)
+    assert all(c.n > b for c, b in zip(counters, before))
+    assert gpu == cpu and gpu_drafted == cpu_drafted > 0
