@@ -69,6 +69,25 @@ fatal):
    turns (tok/s, acceptance, tokens a spec step); decode steps traced with
    base, adapter and guided rows. Then the bucketed path with the adapter
    and grammars (K1, K3 and K4 launch).
+7. The surface the router and the fleet read: llama-3-8b (bf16, ragged)
+   through the server's command-line defaults, so the launch warmup runs:
+   ``/ready`` answers 503 ``warming``, then 200, and
+   ``vllm:engine_warming`` goes 1 -> 0 (warmup seconds and compile events
+   printed). A mixed wave of 16 requests (64-1024 tokens, greedy and
+   sampled, logprobs, one guided, one prompt sent twice): then
+   ``vllm:unexpected_recompiles`` reads 0, the ``/metrics`` token counters
+   (parsed here) equal the wave's usage sums, and prefix-cache hits are
+   > 0. ``/kv/lookup`` matches the repeated prompt's full blocks and none
+   of a fresh one. A prefill window (16 x 1024 tokens, one out) and a
+   64-row x 64-token decode window, each alone in the accountant's 60 s
+   window: ``/debug/perf``'s MFU and HBM-bandwidth utilization in (0,
+   1.05], beside the client's token rate and ``/metrics``' latency under
+   load. ``/debug/profile`` during a wave returns a trace naming K2's and
+   K3's kernels; ``/debug/canary`` one record per probe; ``POST /drain``
+   with a 256-token stream in flight: ``/ready`` 503 ``draining``, a new
+   completion 503 with ``Retry-After``, the stream ends whole. Then
+   float32 tiny-llama's canary records, card against CPU, under
+   ``canary_golden.compare`` at tolerance 1e-4.
 
 The line before the card line carries the kernels' JSON record, whose
 ``launches`` sum each kernel's launches over every served path (each
@@ -84,10 +103,13 @@ import dataclasses
 import gc
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
 import urllib.request
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -1836,6 +1858,471 @@ def features_phase(torch, np, counters, card: str) -> dict:
     return launches
 
 
+# -- phase 7: the surface the router and the fleet read -----------------------
+
+_SAMPLE = re.compile(r'^([A-Za-z_:][A-Za-z0-9_:]*)(?:\{(.*)\})? (\S+)$')
+_LABEL = re.compile(r'([A-Za-z_][A-Za-z0-9_]*)="((?:[^"\\]|\\.)*)"')
+
+
+def parse_exposition(text: str) -> dict:
+    """A Prometheus text exposition's samples: (name, sorted label items)
+    -> value. Enough of the format for the engine's /metrics (no
+    timestamps)."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = _SAMPLE.match(line)
+        if m is None:
+            raise AssertionError(f"[surface] unparsed /metrics line {line!r}")
+        name, raw, value = m.groups()
+        labels = tuple(sorted(
+            (k, v.encode().decode("unicode_escape"))
+            for k, v in _LABEL.findall(raw or "")))
+        out[(name, labels)] = float(value)
+    return out
+
+
+def _http(base: str, path: str, body=None):
+    """(status, headers, bytes) of a GET, or a POST of ``body``; an error
+    status is returned, not raised."""
+    req = urllib.request.Request(
+        base + path, data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _scrape(base: str, model: str) -> dict:
+    """/metrics as name -> value, for the samples labelled by the model
+    alone."""
+    status, headers, body = _http(base, "/metrics")
+    if status != 200 or not headers["Content-Type"].startswith(
+            "text/plain; version=0.0.4"):
+        raise AssertionError(f"[surface] /metrics: {status} {headers}")
+    return {name: v for (name, labels), v in
+            parse_exposition(body.decode()).items()
+            if labels == (("model_name", model),)}
+
+
+def _wait_ready(base: str, timeout: float) -> list:
+    """Poll /ready until 200; returns the statuses seen before it."""
+    seen, t_end = [], time.monotonic() + timeout
+    while time.monotonic() < t_end:
+        status, _, body = _http(base, "/ready")
+        if status == 200:
+            return seen
+        seen.append(json.loads(body)["status"])
+        time.sleep(0.2)
+    raise AssertionError(f"[surface] /ready never turned 200: {seen[-3:]}")
+
+
+class _SseStream(threading.Thread):
+    """A streamed completion read on its own thread: ``tokens`` is its
+    usage count once ``done``."""
+
+    def __init__(self, base, body):
+        super().__init__(daemon=True)
+        self.base, self.body = base, dict(body, stream=True,
+                                          stream_options={
+                                              "include_usage": True})
+        self.tokens, self.done = None, False
+
+    def run(self):
+        req = urllib.request.Request(
+            self.base + "/v1/completions",
+            data=json.dumps(self.body).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            for raw in r:
+                line = raw.decode().strip()
+                if not line.startswith("data: "):
+                    continue
+                if line == "data: [DONE]":
+                    self.done = True
+                    return
+                ev = json.loads(line[len("data: "):])
+                if ev.get("usage"):
+                    self.tokens = ev["usage"]["completion_tokens"]
+
+
+def _surface_wave(base: str, model: str, rng) -> tuple:
+    """The mixed wave: 16 requests, prompts of 64-1024 byte tokens, greedy
+    and sampled, some with logprobs, one guided, and one prompt sent a
+    second time once its first copy finished. Returns (the results'
+    usage, the repeated prompt)."""
+    import re as re_
+
+    repeated = rng.integers(0, 256, 700).tolist()
+    first_done = threading.Event()
+    jobs = []
+    for i in range(13):
+        n = int(rng.integers(64, 1025))
+        body = {"model": model, "prompt": rng.integers(0, 256, n).tolist(),
+                "max_tokens": 32, "ignore_eos": True,
+                **({"temperature": 0.0} if i % 2 == 0 else
+                   {"temperature": 0.8, "top_p": 0.95, "seed": i})}
+        if i % 3 == 0:
+            body["logprobs"] = 2
+        jobs.append((0.05 * i, None, body))
+    jobs.append((0.0, None, {"model": model, "prompt": "answer: ",
+                             "max_tokens": 32, "temperature": 0.0,
+                             "guided_regex": "[a-z ]{4,30}"}))
+    jobs.append((0.0, "first", {"model": model, "prompt": repeated,
+                                "max_tokens": 16, "temperature": 0.0,
+                                "ignore_eos": True}))
+    jobs.append((0.0, "again", {"model": model, "prompt": repeated,
+                                "max_tokens": 16, "temperature": 0.0,
+                                "ignore_eos": True}))
+
+    def run(job):
+        delay, tag, body = job
+        if tag == "again":
+            if not first_done.wait(600):
+                raise AssertionError("[surface] the first copy never ended")
+        time.sleep(delay)
+        status, _, raw = _http(base, "/v1/completions", body)
+        if tag == "first":
+            first_done.set()
+        if status != 200:
+            raise AssertionError(f"[surface] wave: {status} {raw[:200]}")
+        out = json.loads(raw)
+        if "guided_regex" in body and not re_.fullmatch(
+                body["guided_regex"], out["choices"][0]["text"]):
+            raise AssertionError("[surface] guided output does not match")
+        if body.get("logprobs") and len(
+                out["choices"][0]["logprobs"]["token_logprobs"]) != 32:
+            raise AssertionError("[surface] missing logprobs")
+        return tag, out["usage"]
+
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
+        results = list(ex.map(run, jobs))
+    if len(results) != 16:
+        raise AssertionError("[surface] the wave is not 16 requests")
+    return results, repeated
+
+
+def _decode_window(base: str, model: str, rng) -> dict:
+    """64 rows x 64 tokens, all admitted at once, /metrics scraped in a
+    loop while they run; /debug/perf read as the last row finishes."""
+    jobs = [{"model": model, "prompt": rng.integers(0, 256, 32).tolist(),
+             "max_tokens": 64, "temperature": 0.0, "ignore_eos": True}
+            for _ in range(64)]
+    scrape_ms, stop = [], threading.Event()
+
+    def scraper():
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            if _http(base, "/metrics")[0] != 200:
+                raise AssertionError("[surface] /metrics failed under load")
+            scrape_ms.append((time.perf_counter() - t0) * 1e3)
+            time.sleep(0.05)
+
+    scrape = threading.Thread(target=scraper, daemon=True)
+    t0 = time.perf_counter()
+    scrape.start()
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
+        outs = list(ex.map(lambda b: _http(base, "/v1/completions", b),
+                           jobs))
+    wall = time.perf_counter() - t0
+    perf = json.loads(_http(base, "/debug/perf")[2])
+    stop.set()
+    scrape.join(30)
+    tokens = 0
+    for status, _, raw in outs:
+        if status != 200:
+            raise AssertionError(f"[surface] window: {status}")
+        tokens += json.loads(raw)["usage"]["completion_tokens"]
+    if tokens != 64 * 64:
+        raise AssertionError(f"[surface] window: {tokens} tokens")
+    return {"perf": perf, "wall_s": wall, "client_tok_per_s": tokens / wall,
+            "scrape_ms": scrape_ms}
+
+
+def _surface_prefill_window(base: str, model: str, rng) -> dict:
+    """16 fresh 1024-token prompts, one token out each: prefill steps of
+    the whole 2048-token budget, read through /debug/perf as the last
+    request finishes."""
+    jobs = [{"model": model, "prompt": rng.integers(0, 256, 1024).tolist(),
+             "max_tokens": 1, "temperature": 0.0, "ignore_eos": True}
+            for _ in range(16)]
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
+        outs = list(ex.map(lambda b: _http(base, "/v1/completions", b),
+                           jobs))
+    wall = time.perf_counter() - t0
+    perf = json.loads(_http(base, "/debug/perf")[2])
+    if any(status != 200 for status, _, _ in outs):
+        raise AssertionError("[surface] prefill window: a request failed")
+    return {"perf": perf, "wall_s": wall,
+            "client_prompt_tok_per_s": 16 * 1024 / wall}
+
+
+def _profile_during_wave(base: str, model: str, rng) -> dict:
+    """POST /debug/profile while waves of prefills and decodes run back to
+    back for the whole capture (the profiler takes a moment to start
+    tracing the card): the trace must name K2's and K3's kernels. Returns
+    kernel time by class."""
+    import io
+    import tarfile
+
+    def wave():
+        jobs = [{"model": model,
+                 "prompt": rng.integers(0, 256, 256).tolist(),
+                 "max_tokens": 16, "temperature": 0.0, "ignore_eos": True}
+                for _ in range(8)]
+        with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
+            return [r[0] for r in ex.map(
+                lambda b: _http(base, "/v1/completions", b), jobs)]
+
+    statuses = []
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        prof = ex.submit(_http, base, "/debug/profile", {"duration_ms": 4000})
+        while not prof.done():
+            statuses += wave()
+        status, headers, body = prof.result()
+    if status != 200 or headers["Content-Type"] != "application/gzip":
+        raise AssertionError(f"[surface] /debug/profile: {status} "
+                             f"{body[:200]}")
+    if any(s != 200 for s in statuses):
+        raise AssertionError("[surface] a request failed while profiling")
+    with tarfile.open(fileobj=io.BytesIO(body), mode="r:gz") as tar:
+        trace = json.loads(tar.extractfile("trace/trace.json").read())
+    by_cat = collections.Counter()
+    for ev in trace.get("traceEvents", []):
+        if ev.get("cat") == "kernel":
+            by_cat[_category(ev.get("name", ""))] += ev.get("dur", 0) / 1e3
+    if by_cat["K2"] <= 0 or by_cat["K3"] <= 0:
+        raise AssertionError(f"[surface] the trace names no K2 or no K3 "
+                             f"kernel: {dict(by_cat)}")
+    return {k: round(v, 3) for k, v in by_cat.items()}
+
+
+def _drain(base: str, model: str, server) -> dict:
+    """A 256-token stream in flight; POST /drain: /ready 503 draining, a
+    new completion 503 with Retry-After, the stream finishes whole."""
+    stream = _SseStream(base, {"model": model, "prompt": "drain " * 20,
+                               "max_tokens": 256, "temperature": 0.0,
+                               "ignore_eos": True})
+    stream.start()
+    # random weights mostly emit ids past the byte range, which decode to
+    # no text, so the stream may send no event before its last: wait for
+    # the engine to run it instead
+    t_end = time.monotonic() + 120
+    while _scrape(base, model)["vllm:num_requests_running"] < 1:
+        if time.monotonic() > t_end or stream.done:
+            raise AssertionError("[surface] the stream never started")
+        time.sleep(0.02)
+    status, _, body = _http(base, "/drain", {})
+    if stream.done or json.loads(body)["inflight"] != 1:
+        raise AssertionError(f"[surface] the stream was not in flight at "
+                             f"the drain: {body}")
+    ready, _, ready_body = _http(base, "/ready")
+    late, headers, _ = _http(base, "/v1/completions",
+                             {"model": model, "prompt": "late",
+                              "max_tokens": 4})
+    stream.join(300)
+    if (status != 200 or ready != 503
+            or json.loads(ready_body)["status"] != "draining"):
+        raise AssertionError(f"[surface] drain: {status} {body}, /ready "
+                             f"{ready} {ready_body}")
+    if late != 503 or "Retry-After" not in headers:
+        raise AssertionError(f"[surface] a completion while draining got "
+                             f"{late} {headers}")
+    if not (stream.done and stream.tokens == 256):
+        raise AssertionError(f"[surface] the drained stream ended with "
+                             f"{stream.tokens} tokens")
+    if not server.wait_drained(60):
+        raise AssertionError("[surface] the drain never finished")
+    m = _scrape(base, model)
+    if (m["vllm:drain_state"] != 1.0
+            or m["vllm:drain_rejected_requests_total"] < 1):
+        raise AssertionError(f"[surface] drain metrics: {m}")
+    return {"stream_tokens": stream.tokens,
+            "drain_rejected": m["vllm:drain_rejected_requests_total"],
+            "drain_aborted": m["vllm:drain_aborted_seqs_total"]}
+
+
+def _canary_card_against_cpu(torch) -> int:
+    """float32 tiny-llama's /debug/canary records on the card against the
+    same weights' on the CPU (the plain path), under canary_golden.compare
+    at tolerance 1e-4. Returns the tokens compared."""
+    from production_stack_tpu_torch.canary_golden import GoldenRecord, compare
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.server import EngineServer
+    from production_stack_tpu_torch.engine.weights import init_random
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _parity_engine("ragged", "float32")
+    params = init_random(cfg.model, seed=0, device="cpu")
+    records = {}
+    for device in ("cpu", "cuda"):
+        p = {k: (v.to(device) if not isinstance(v, dict)
+                 else {n: w.to(device) for n, w in v.items()})
+             for k, v in params.items()}
+        server = EngineServer(cfg, engine=LLMEngine(cfg, params=p,
+                                                    device=device))
+        base = f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
+        try:
+            status, _, body = _http(base, "/debug/canary?tolerance=1e-4")
+        finally:
+            server.shutdown()
+        out = json.loads(body)
+        if status != 200 or out["errors"]:
+            raise AssertionError(f"[surface] canary on {device}: {out}")
+        records[device] = [GoldenRecord.from_dict(r) for r in out["records"]]
+    compared = 0
+    for want, got in zip(records["cpu"], records["cuda"]):
+        verdict = compare(want, got.tokens, got.fingerprint)
+        if not verdict.ok:
+            raise AssertionError(f"[surface] canary {got.probe}: card "
+                                 f"against cpu: {verdict}")
+        compared += len(got.tokens)
+    return compared
+
+
+def _utilizations(perf: dict, tag: str) -> tuple:
+    mfu = perf["model_flops_utilization"]
+    hbm = perf["hbm_bandwidth_utilization"]
+    if not (0 < mfu <= 1.05 and 0 < hbm <= 1.05):
+        raise AssertionError(f"[surface] {tag}: utilizations out of (0, "
+                             f"1.05]: MFU {mfu}, HBM {hbm}")
+    return mfu, hbm
+
+
+def _compile_events(runner) -> list:
+    """Every compile event's (seconds, kind, bucket), beside the
+    accountant's own tail of 64: each step's tracker also reports here.
+    (A helper, so that no local of the caller keeps the runner alive.)"""
+    events = []
+    for attr in ("ragged_step", "prefill", "decode_multi"):
+        tracker = getattr(runner, attr)
+        tracker.observer = (lambda kind, bucket, s, note=tracker.observer:
+                            (events.append((s, kind, bucket)),
+                             note(kind, bucket, s)))
+    return events
+
+
+def surface_phase(torch, np, counters, card: str) -> dict:
+    """Phase 7: llama-3-8b (bf16, ragged) through the server's command-line
+    defaults, warmup on: /ready warming -> ready, the mixed wave and its
+    /metrics, /kv/lookup, a prefill window and a steady 64-row decode
+    window, each read through /debug/perf, /metrics under load,
+    /debug/profile during a wave, /debug/canary, the drain. Then canary
+    records card = CPU on float32 tiny-llama. Returns the phase's
+    launches."""
+    from production_stack_tpu_torch.engine.server import (
+        build_parser,
+        server_from_args,
+    )
+
+    model = "llama-3-8b"
+    args = build_parser().parse_args(["--model", model, "--seed", "0"])
+    server = server_from_args(args)
+    eng = server.engine
+    events = _compile_events(eng.runner)
+    for c in counters:
+        c.n = 0
+    base = f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
+    try:
+        warming = _scrape(base, model)["vllm:engine_warming"]
+        seen = _wait_ready(base, 900)
+        m = _scrape(base, model)
+        if (not seen or seen[0] != "warming" or warming != 1.0
+                or m["vllm:engine_warming"] != 0.0):
+            raise AssertionError(f"[surface] /ready never warmed: {seen[:2]}"
+                                 f", engine_warming {warming} -> "
+                                 f"{m['vllm:engine_warming']}")
+        slow = max(events)
+        log(f"[surface] warmup ({card}): "
+            f"{m['vllm:engine_warmup_seconds']:.1f} s, {len(events)} "
+            f"compile events, {sum(s for s, _, _ in events):.1f} s of first "
+            f"calls, slowest {slow[1]}:{slow[2]} {slow[0]:.2f} s; /ready "
+            f"polls while warming: {len(seen)}")
+        rng = np.random.default_rng(11)
+        m0 = m
+        results, repeated = _surface_wave(base, model, rng)
+        m = _scrape(base, model)
+        usage = [u for _, u in results]
+        sums = {"prompt": sum(u["prompt_tokens"] for u in usage),
+                "completion": sum(u["completion_tokens"] for u in usage)}
+        got = {"prompt": m["vllm:prompt_tokens_total"]
+               - m0["vllm:prompt_tokens_total"],
+               "completion": m["vllm:generation_tokens_total"]
+               - m0["vllm:generation_tokens_total"]}
+        cached = dict(results)["again"]["prompt_tokens_details"][
+            "cached_tokens"]
+        if m["vllm:unexpected_recompiles_total"] != 0:
+            raise AssertionError(
+                "[surface] unexpected recompiles after warmup: "
+                f"{json.loads(_http(base, '/debug/perf')[2])['compile']}")
+        if got != sums or m["vllm:gpu_prefix_cache_hits_total"] <= 0:
+            raise AssertionError(f"[surface] /metrics {got} against the "
+                                 f"wave's usage {sums}; prefix hits "
+                                 f"{m['vllm:gpu_prefix_cache_hits_total']}")
+        log(f"[surface] mixed wave of 16: /metrics token counters = usage "
+            f"sums {sums}; unexpected recompiles 0; prefix-cache hits "
+            f"{m['vllm:gpu_prefix_cache_hits_total']:.0f}; the repeated "
+            f"prompt had {cached} cached tokens")
+        bs = eng.config.cache.block_size
+        hit = json.loads(_http(base, "/kv/lookup", {"tokens": repeated})[2])
+        fresh = json.loads(_http(base, "/kv/lookup", {
+            "tokens": rng.integers(0, 256, 300).tolist()})[2])
+        if (hit["matched_tokens"] != len(repeated) // bs * bs
+                or fresh["matched_tokens"] != 0):
+            raise AssertionError(f"[surface] /kv/lookup: {hit}, {fresh}")
+        log(f"[surface] /kv/lookup: repeated prompt {hit}, fresh {fresh}")
+        # the accountant's 60 s window holds only a window's dispatches
+        # once the earlier ones are older than that
+        time.sleep(61)
+        w = _surface_prefill_window(base, model, rng)
+        perf = w["perf"]
+        _utilizations(perf, "prefill window")
+        log(f"[surface] 16 x 1024 prompt tokens, one out ({card}): "
+            f"/debug/perf MFU {perf['model_flops_utilization']:.4f}, HBM "
+            f"bandwidth {perf['hbm_bandwidth_utilization']:.4f}, prefill "
+            f"{perf['tokens_per_second']['prefill']:.1f} tok/s; cost model "
+            f"measured/predicted {perf['costmodel']['drift_ratio']}; client "
+            f"{w['client_prompt_tok_per_s']:.1f} prompt tok/s over "
+            f"{w['wall_s']:.2f} s")
+        time.sleep(61)
+        w = _decode_window(base, model, rng)
+        perf = w["perf"]
+        mfu, hbm = _utilizations(perf, "decode window")
+        log(f"[surface] 64 rows x 64 tokens ({card}): /debug/perf MFU "
+            f"{mfu:.4f}, HBM bandwidth {hbm:.4f}, decode "
+            f"{perf['tokens_per_second']['decode']:.1f} tok/s (prefill "
+            f"{perf['tokens_per_second']['prefill']:.1f}); cost model "
+            f"measured/predicted {perf['costmodel']['drift_ratio']}; client "
+            f"{w['client_tok_per_s']:.1f} tok/s over {w['wall_s']:.2f} s; "
+            f"device memory {perf['hbm_bytes']}; /metrics under load: "
+            f"median {statistics.median(w['scrape_ms']):.2f} ms, max "
+            f"{max(w['scrape_ms']):.2f} ms over {len(w['scrape_ms'])} "
+            f"scrapes")
+        by_cat = _profile_during_wave(base, model, rng)
+        log(f"[surface] /debug/profile during a wave: kernel ms by class "
+            f"{json.dumps(by_cat)}")
+        status, _, body = _http(base, "/debug/canary")
+        out = json.loads(body)
+        if status != 200 or out["errors"] or len(out["records"]) != 2:
+            raise AssertionError(f"[surface] /debug/canary: {out}")
+        drain = _drain(base, model, server)
+        log(f"[surface] drain: {json.dumps(drain)}")
+    finally:
+        launches = {c.name.split()[0]: c.n for c in counters}
+        server.shutdown()
+    _expect(launches, {"K1", "K2", "K3"}, "surface")
+    del server, eng
+    _released(torch, "surface")
+    n = _canary_card_against_cpu(torch)
+    log(f"[surface] /debug/canary float32 tiny-llama: card = cpu on {n} "
+        f"greedy tokens (compare, tolerance 1e-4)")
+    return launches
+
+
 def _expect(launches: dict, expected: set, tag: str) -> None:
     for key, n in launches.items():
         if (n > 0) != (key in expected):
@@ -1889,6 +2376,7 @@ def main() -> int:
     features_parity_phase(torch, np)
     spec_bf16_phase(torch, np)
     by_path.update(features_phase(torch, np, counters, card))
+    by_path["surface-ragged"] = surface_phase(torch, np, counters, card)
 
     kernels = []
     for r in results:

@@ -4,18 +4,29 @@ Ports production_stack_tpu/engine/async_engine.py to threads: one engine
 thread owns the device and steps the engine whenever it has work; HTTP
 handler threads admit requests and read their outputs from per-request
 ``queue.Queue`` streams. A ``threading.Condition`` guards the engine, so
-admission and abort happen between steps, never during one. Control-plane
+admission and abort happen between steps, never during one. The lock is
+handed over fairly: the engine thread waits between steps while another
+thread is waiting to enter (``_entry``), or a busy engine would re-take it
+at once, step after step, and starve admission and abort. Control-plane
 work that touches device state (loading a LoRA adapter) runs on the engine
 thread itself, between steps (``run_on_engine``).
+
+Two hooks feed the server's histograms from the engine thread:
+``step_observer(seconds)`` after each step (the scheduler-step duration)
+and ``finish_observer(output)`` with each finished request's output, whose
+arrival, admission, first-token and finish stamps the latency histograms
+read.
 """
 
 from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import logging
 import queue
 import threading
+import time
 from typing import Callable, Iterator, Optional
 
 from production_stack_tpu_torch.engine.engine import LLMEngine
@@ -53,18 +64,44 @@ class AsyncEngine:
     def __init__(self, engine: LLMEngine):
         self.engine = engine
         self._cv = threading.Condition()
+        # threads other than the engine's waiting to take self._cv
+        self._entering = 0
+        self._entering_lock = threading.Lock()
         self._streams: dict[str, RequestStream] = {}
         self._running = False
         self._thread: Optional[threading.Thread] = None
         # (fn, future) pairs the engine thread runs before its next step
         self._calls: collections.deque = collections.deque()
         self.step_count = 0
+        # sleep mode is not ported: the engine never pauses, but the
+        # watchdog (engine/lifecycle.py) reads the flag as the reference's
+        self.paused = False
+        # called on the engine thread with each step's wall seconds, and
+        # with each finished request's RequestOutput
+        self.step_observer: Optional[Callable[[float], None]] = None
+        self.finish_observer: Optional[Callable[[RequestOutput], None]] = None
         # (arrival, first_token, finish, output tokens) monotonic stamps of
         # recently finished requests: the time-to-first-token record
         self.finished: collections.deque = collections.deque(maxlen=4096)
 
+    @contextlib.contextmanager
+    def _entry(self):
+        """Take the engine lock from a thread other than the engine's; the
+        engine thread lets it in before its next step."""
+        with self._entering_lock:
+            self._entering += 1
+        try:
+            self._cv.acquire()
+        finally:
+            with self._entering_lock:
+                self._entering -= 1
+        try:
+            yield
+        finally:
+            self._cv.release()
+
     def start(self) -> None:
-        with self._cv:
+        with self._entry():
             if self._running:
                 return
             self._running = True
@@ -73,7 +110,7 @@ class AsyncEngine:
         self._thread.start()
 
     def stop(self, timeout: float = 10.0) -> None:
-        with self._cv:
+        with self._entry():
             self._running = False
             self._cv.notify_all()
             while self._calls:
@@ -87,6 +124,8 @@ class AsyncEngine:
 
     def _loop(self) -> None:
         while True:
+            while self._entering:  # a caller waits to get between steps
+                time.sleep(0.0001)
             with self._cv:
                 while (self._running and not self._calls
                        and not self.engine.has_unfinished()):
@@ -101,6 +140,7 @@ class AsyncEngine:
                         fut.set_exception(e)
                 if not self.engine.has_unfinished():
                     continue
+                t_step = time.monotonic()
                 try:
                     outputs = self.engine.step()
                 except Exception as e:  # the loop must outlive a bad step
@@ -108,17 +148,28 @@ class AsyncEngine:
                     self._fail_all(EngineStepError(f"engine step failed: {e}"))
                     continue
                 self.step_count += 1
+                self._observe(self.step_observer, time.monotonic() - t_step)
                 for out in outputs:
                     if out.finished:
                         self.finished.append(
                             (out.arrival_time, out.first_token_time,
                              out.finish_time, out.num_output_tokens))
+                        self._observe(self.finish_observer, out)
                     stream = self._streams.get(out.request_id)
                     if stream is None:
                         continue
                     stream.put(out)
                     if out.finished:
                         del self._streams[out.request_id]
+
+    @staticmethod
+    def _observe(hook, arg) -> None:
+        if hook is None:
+            return
+        try:
+            hook(arg)
+        except Exception:  # an observer never stops the engine
+            _log.debug("engine observer hook failed", exc_info=True)
 
     def _fail_all(self, err: Exception) -> None:
         for rid, stream in list(self._streams.items()):
@@ -131,7 +182,7 @@ class AsyncEngine:
         its result, or raise its error, to the caller. Without a running
         engine thread it runs here, under the engine's lock."""
         fut: concurrent.futures.Future = concurrent.futures.Future()
-        with self._cv:
+        with self._entry():
             if not self._running:
                 return fn(self.engine)
             self._calls.append((fn, fut))
@@ -145,7 +196,7 @@ class AsyncEngine:
         adapter_slot]) or none: if one is refused, the ones already added
         are aborted and the error is raised to the caller before it
         answers."""
-        with self._cv:
+        with self._entry():
             added: list[str] = []
             try:
                 for rid, prompt_ids, sampling, *rest in reqs:
@@ -167,6 +218,13 @@ class AsyncEngine:
             return streams
 
     def abort(self, request_id: str) -> None:
-        with self._cv:
-            self._streams.pop(request_id, None)
-            self.engine.abort_request(request_id)
+        """Abort a request between steps. A consumer still reading its
+        stream gets a last, finished output (reason ``abort``) rather than
+        waiting forever."""
+        with self._entry():
+            stream = self._streams.pop(request_id, None)
+            if self.engine.abort_request(request_id) and stream is not None:
+                stream.put(RequestOutput(
+                    request_id=request_id, new_token_ids=[], finished=True,
+                    finish_reason="abort", num_prompt_tokens=0,
+                    num_output_tokens=0))

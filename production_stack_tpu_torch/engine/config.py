@@ -7,8 +7,9 @@ name and each preset here equals the reference preset on those fields.
 The reference's MoE, Whisper, quantization and checkpoint-path options,
 and the presets that need them, come with the slices that implement them
 (ROADMAP.md); until then asking for one raises. One card has no device
-mesh, so ``MeshConfig`` and ``PerfConfig`` have no counterpart, and
-``jax_dtype`` becomes ``torch_dtype``.
+mesh, so ``MeshConfig`` has no counterpart; ``PerfConfig``'s zero peaks
+mean the H100's rather than the v5e's; and ``jax_dtype`` becomes
+``torch_dtype``.
 """
 
 from __future__ import annotations
@@ -254,6 +255,35 @@ class SchedulerConfig:
         return top if max_model_len is None else min(top, max_model_len)
 
 
+# NVIDIA H100 SXM data-sheet peaks, not measurements: dense bf16 tensor-core
+# FLOP/s, HBM3 bytes/s, and NVLink 4 bytes/s per direction (900 GB/s in
+# total over both directions)
+H100_PEAK_TFLOPS = 989.0
+H100_PEAK_HBM_GBPS = 3350.0
+H100_PEAK_NVLINK_GBPS = 450.0
+
+
+@dataclasses.dataclass
+class PerfConfig:
+    """Goodput accounting (engine/perf_accounting.py): live MFU / HBM
+    bandwidth estimates plus compile-event tracking."""
+    enabled: bool = True
+    # sliding window the utilization gauges are computed over, seconds
+    window: float = 60.0
+    # 0 = the H100 SXM data-sheet peaks above; set explicitly on another
+    # card (an H100 PCIe, or a card held below its power limit)
+    peak_tflops: float = 0.0
+    peak_hbm_gbps: float = 0.0
+    peak_ici_gbps: float = 0.0
+    # how often the device memory counters are read for the HBM gauges
+    hbm_poll_interval: float = 5.0
+    # cost-model drift band: sustained excursion of the windowed
+    # measured/predicted dispatch-seconds ratio beyond this factor of its
+    # post-warmup baseline (either direction) opens a drift episode. <=1
+    # disables detection (the vllm:costmodel_* gauges export regardless)
+    costmodel_drift_band: float = 0.0
+
+
 @dataclasses.dataclass
 class EngineConfig:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
@@ -276,6 +306,7 @@ class EngineConfig:
     # transition tables; 8 x 128 x 128256 x 2 B = 263 MB at llama-3-8b)
     max_grammars: int = 8
     max_grammar_states: int = 128
+    perf: PerfConfig = dataclasses.field(default_factory=PerfConfig)
 
     @staticmethod
     def for_model(name: str, **kw) -> "EngineConfig":
@@ -284,7 +315,7 @@ class EngineConfig:
         engine_kw = {k: kw.pop(k) for k in
                      ("cache", "scheduler", "seed", "attention_impl",
                       "max_loras", "max_lora_rank", "max_grammars",
-                      "max_grammar_states")
+                      "max_grammar_states", "perf")
                      if k in kw}
         return EngineConfig(model=ModelConfig.from_pretrained(name, **kw),
                             **engine_kw)

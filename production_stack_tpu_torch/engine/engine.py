@@ -19,9 +19,15 @@ verified in the same dispatch, which resolves at once.
 Requests may carry a LoRA adapter (``adapter_slot``, a slot of the
 runner's bank) and a grammar (``guided_regex`` / ``guided_json``, compiled
 here to a token FSM, cached by pattern, in a refcounted slot of the
-runner's grammar bank), on both paths. Ring prefill, KV tiers and
-transfer, the brownout's speculation shedding and the perf accountant are
-not ported yet.
+runner's grammar bank), on both paths.
+
+The perf accountant (engine/perf_accounting.py) costs every dispatch at
+the reference's points and wraps the runner's three step programs in its
+compile tracker; ``warmup()`` runs every signature the serving traffic can
+reach, then marks the accountant steady. ``stats()`` reads host counters
+only, so a scrape never waits on the card. Ring prefill, KV tiers and
+transfer, the brownout's speculation shedding and the tenant plane are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from production_stack_tpu_torch.engine.kv_cache import (
     slot_mapping_for,
 )
 from production_stack_tpu_torch.engine.model_runner import ModelRunner
+from production_stack_tpu_torch.engine.perf_accounting import PerfAccountant
 from production_stack_tpu_torch.engine.sampling import (
     MAX_LOGPROBS,
     MAX_TOKEN_CONTROLS,
@@ -181,6 +188,11 @@ class LLMEngine:
         self.prefill_live_tokens = 0
         self.prefill_padded_tokens = 0
         self.decode_dispatches = 0
+        # goodput accounting + compile tracking (engine/perf_accounting.py)
+        self.perf: Optional[PerfAccountant] = None
+        if config.perf.enabled:
+            self.perf = PerfAccountant.from_runner(config, self.runner)
+            self.runner.install_compile_observer(self.perf.on_compile)
 
     # -- request intake ------------------------------------------------------
     def add_request(
@@ -310,6 +322,11 @@ class LLMEngine:
 
     def has_unfinished(self) -> bool:
         return self.scheduler.has_work()
+
+    def live_request_ids(self) -> list[str]:
+        """Request ids with scheduler state (waiting or running); aborting
+        each one releases its KV blocks."""
+        return self.scheduler.live_request_ids()
 
     # -- the step ------------------------------------------------------------
     def step(self) -> list[RequestOutput]:
@@ -451,6 +468,9 @@ class LLMEngine:
         cu = 0
         seqs_in_step: list[Sequence] = []
         spec_rows: list[tuple[int, Sequence, list[int]]] = []
+        # the accountant's live counts: prefill tokens, post-chunk contexts
+        # and rows; decode contexts; draft tokens and post-span contexts
+        p_tokens = p_ctx = p_rows = d_ctx = sp_tokens = sp_ctx = 0
         for slot in range(B):
             ent = rows.get(slot)
             if ent is None:
@@ -480,6 +500,9 @@ class LLMEngine:
                     self._r_verify_idx[slot, : len(drafts)] = np.arange(
                         cu, cu + len(drafts))
                     spec_rows.append((slot, seq, list(drafts)))
+                    sp_tokens += len(drafts)
+                    sp_ctx += pos + n
+                d_ctx += pos + 1
             else:
                 sp = obj
                 seq = sp.seq
@@ -499,6 +522,9 @@ class LLMEngine:
                 if completing and seq.grammar_slot >= 0:
                     self._g_ids[slot] = seq.grammar_slot
                     self._g_states[slot] = 0
+                p_tokens += n
+                p_ctx += start + n
+                p_rows += 1
             self._r_adapter_ids[cu : cu + n] = seq.adapter_slot
             cu += n
             nb = len(seq.block_ids)
@@ -521,6 +547,7 @@ class LLMEngine:
         use_controls = any(s.token_ctrl is not None for s in seqs_in_step)
         use_lora = any(s.adapter_slot for s in seqs_in_step)
         use_grammar = bool((self._g_ids >= 0).any())
+        t_dispatch = time.monotonic()
         result = self.runner.ragged_step(
             self._r_tokens, self._r_positions, self._block_tables,
             self._context_lens, self._r_cu, self._r_slot_mapping,
@@ -537,6 +564,13 @@ class LLMEngine:
             g_states=self._g_states if use_grammar else None,
             verify_idx=self._r_verify_idx if spec_rows else None,
         )
+        if self.perf is not None:
+            # verify spans are prefill-shaped work with zero goodput;
+            # accepted drafts land as decode goodput at resolve time
+            self.perf.record_ragged(p_tokens, p_ctx, p_rows, len(decodes),
+                                    d_ctx, spec_tokens=sp_tokens,
+                                    spec_ctx=sp_ctx, spec_rows=len(spec_rows),
+                                    seconds=time.monotonic() - t_dispatch)
         self.ragged_dispatches += 1
         self.ragged_live_tokens += cu
 
@@ -621,6 +655,10 @@ class LLMEngine:
                 if self._check_stop(seq, t) is not None:
                     break
             self.spec_step_tokens += len(new_toks)
+            if self.perf is not None and len(new_toks) > 1:
+                # the guaranteed token was counted as decode goodput at
+                # dispatch; accepted drafts land here
+                self.perf.record_spec_accepted(len(new_toks) - 1)
             live.append(seq)
             token_lists.append(new_toks)
             lp_lists.append(None)  # spec rows never ask for logprobs
@@ -703,12 +741,17 @@ class LLMEngine:
                 if sp.seq.token_ctrl is not None:
                     c_ids[i], c_vals[i], c_mode[i] = sp.seq.token_ctrl
             ctrl = (c_ids, c_vals, c_mode)
+        t_dispatch = time.monotonic()
         result = self.runner.prefill(
             tokens, positions, tables, context_lens, slot_mapping.reshape(-1),
             last_idx, temps, top_ps, top_ks, seeds, greedy_only=greedy_only,
             ctrl=ctrl, adapter_ids=adapter_ids if use_lora else None,
             g_ids=g_ids if use_grammar else None,
         )
+        if self.perf is not None:
+            self.perf.record_prefill(
+                sum(sp.chunk_len for sp in prefills), int(context_lens.sum()),
+                len(prefills), seconds=time.monotonic() - t_dispatch)
         self.prefill_dispatches += 1
         self.prefill_live_tokens += sum(sp.chunk_len for sp in prefills)
         self.prefill_padded_tokens += P * bucket
@@ -797,6 +840,7 @@ class LLMEngine:
         )
         self._reset_count_rows(use_penalties)
         use_controls = any(s.token_ctrl is not None for s in decodes)
+        t_dispatch = time.monotonic()
         result = self.runner.decode_multi(
             self._tokens, self._positions, self._block_tables,
             self._context_lens, self._slot_mapping,
@@ -811,6 +855,11 @@ class LLMEngine:
             g_ids=self._g_ids if use_grammar else None,
             g_states=self._g_states if use_grammar else None,
         )
+        if self.perf is not None:
+            self.perf.record_decode(
+                len(decodes), max(self.config.scheduler.multi_step, 1),
+                int(self._context_lens.sum()),
+                seconds=time.monotonic() - t_dispatch)
         self.decode_dispatches += 1
         sampled, lp = (result[0], result[1:]) if use_logprobs else (result, None)
         live, token_lists, lp_lists = [], [], []
@@ -857,6 +906,7 @@ class LLMEngine:
                 num_output_tokens=len(seq.output_token_ids),
                 num_cached_tokens=seq.num_cached_tokens,
                 arrival_time=seq.arrival_time if done else None,
+                admit_time=seq.admit_time if done else None,
                 first_token_time=seq.first_token_time if done else None,
                 finish_time=seq.finish_time if done else None,
                 new_logprobs=lps,
@@ -876,10 +926,13 @@ class LLMEngine:
             return SequenceStatus.FINISHED_LENGTH
         return None
 
-    # -- metrics ---------------------------------------------------------------
+    # -- metrics (the /metrics contract) -------------------------------------
     def stats(self) -> dict:
+        """Host counters for the exposition, with the reference's keys
+        (the host KV tier and P->D splicing are not ported: their keys read
+        0), plus ``perf``, the accountant's fields."""
         alloc = self.scheduler.allocator
-        return {
+        out = {
             "num_requests_running": self.scheduler.num_running,
             "num_requests_waiting": self.scheduler.num_waiting,
             "gpu_cache_usage_perc": alloc.usage,
@@ -887,7 +940,11 @@ class LLMEngine:
             "gpu_prefix_cache_queries_total": alloc.prefix_queries,
             "prompt_tokens_total": self.total_prompt_tokens,
             "generation_tokens_total": self.total_output_tokens,
+            "cpu_cache_usage_perc": 0.0,
+            "cpu_prefix_cache_hits_total": 0,
+            "cpu_prefix_cache_queries_total": 0,
             "aborted_seqs_total": self.aborted_seqs,
+            "spliced_seqs_total": 0,
             "batch_occupancy": (self.scheduler.num_running
                                 / max(1, self.config.scheduler.max_num_seqs)),
             "kv_blocks_total": self.runner.num_blocks,
@@ -919,6 +976,107 @@ class LLMEngine:
                 if self.spec_steps else 0.0
             ),
         }
+        if self.perf is not None:
+            out["perf"] = self.perf.stats_fields()
+        return out
+
+    # -- warmup --------------------------------------------------------------
+    def warmup(self) -> None:
+        """Run every step signature the serving traffic can reach once,
+        so no live request pays a first call, then mark the accountant
+        steady: a later new signature is an unexpected recompile."""
+        # the admission bound is client back-pressure; warmup's internal
+        # bursts must not trip it
+        sched_cfg = self.config.scheduler
+        bound, sched_cfg.max_queue_len = sched_cfg.max_queue_len, 0
+        try:
+            self._warmup_impl()
+            if self.perf is not None:
+                self.perf.mark_steady()
+        finally:
+            sched_cfg.max_queue_len = bound
+
+    def _warmup_impl(self) -> None:
+        """The port's signature set (``ModelRunner.install_compile_observer``
+        keys): on the ragged path every stream length the step can run
+        (``ModelRunner.ragged_lengths``), greedy and sampled, plain and
+        guided; on the bucketed path the reference's bucket x row-class
+        walk, greedy and sampled; on both, every decode variant (greedy or
+        sampled, logprobs, grammar) and a guided prefill; with speculation
+        on, one motif run that verifies drafts."""
+        rng = np.random.default_rng(0)
+        sched = self.config.scheduler
+        vocab = self.config.model.vocab_size
+        K = max(sched.multi_step, 1)
+        # the longest prompt that still leaves room for one decode step
+        cap = max(self.config.model.max_model_len - K - 2, 1)
+        regex = "[ -~]*"
+
+        def run(prompts, temperature, **kw):
+            sp = SamplingParams(temperature=temperature, max_tokens=K + 1,
+                                ignore_eos=True, **kw)
+            for i, p in enumerate(prompts):
+                self.add_request(f"warmup-{time.monotonic_ns()}-{i}",
+                                 prompt_token_ids=p, sampling=sp)
+            while self.has_unfinished():
+                self.step()
+
+        def prompts(total: int, n: int = 1) -> list:
+            """``n`` random prompts of ``total`` tokens together, none
+            longer than ``cap``."""
+            n = max(n, -(-total // cap))
+            sizes = [total // n + (i < total % n) for i in range(n)]
+            return [rng.integers(1, vocab, m).tolist() for m in sizes]
+
+        if self.attention_impl == "ragged":
+            for n in self.runner.ragged_lengths():
+                for temp in (0.0, 0.7):
+                    for g in (None, regex):
+                        run(prompts(n), temp, guided_regex=g)
+        else:
+            buckets = [b for b in sched.prefill_buckets
+                       if b <= self.config.model.max_model_len]
+            for b in buckets:
+                n = max(min(b, sched.max_num_batched_tokens, cap), 1)
+                if self._bucket(n) != b:
+                    continue  # the budget cuts chunks below this bucket
+                for temp in (0.0, 0.7):
+                    run(prompts(n), temp)
+            # every reachable (pow-2 rows, bucket) prefill variant: rows
+            # pad to the next power of two of the chunk count (capped at
+            # prefill_batch), and a bucket-b step carries at most
+            # budget // (b / 2 + 1) + 1 chunks
+            budget = sched.max_num_batched_tokens
+            row_classes = sorted({
+                min(1 << i, sched.prefill_batch)
+                for i in range(
+                    1, max((sched.prefill_batch - 1).bit_length(), 0) + 1)
+            })
+            for b in buckets:
+                lo = b // 2 + 1 if b > buckets[0] else 1
+                max_rows = min(sched.prefill_batch, budget // lo + 1)
+                for p in row_classes:
+                    if p > max_rows:
+                        break
+                    for temp in (0.0, 0.7):  # fresh prompts: no prefix hit
+                        run(prompts(p * min(lo + 1, b), p), temp)
+            for temp in (0.0, 0.7):  # guided first tokens
+                run(prompts(8), temp, guided_regex=regex)
+        # every decode variant (decode_multi's static flags)
+        for temp in (0.0, 0.7):
+            for lp in (None, 5):
+                for g in (None, regex):
+                    run(prompts(8), temp, logprobs=lp, guided_regex=g)
+        if self._spec is not None:
+            # a draft-carrying span (propose, pack, verify, accept) runs
+            # end to end before live traffic does
+            motif = rng.integers(1, vocab, 8).tolist()
+            sp = SamplingParams(temperature=0.0, max_tokens=8,
+                                ignore_eos=True)
+            self.add_request(f"warmup-spec-{time.monotonic_ns()}",
+                             prompt_token_ids=motif * 4, sampling=sp)
+            while self.has_unfinished():
+                self.step()
 
     # -- convenience for tests / offline use ---------------------------------
     def generate(

@@ -31,6 +31,11 @@ verifies speculative drafts (``verify_idx``). These three are plain
 PyTorch on tensors (gathers, ``torch.where``, matmuls), as in the
 reference, where they run outside any Pallas kernel. Ring prefill, KV
 block export/import and CUDA-graph capture are not ported yet.
+
+``install_compile_observer`` wraps the three steps in the perf
+accountant's ``CompileTracker``, keyed on what the card runs: the ragged
+step on its stream length (``stream_length``) and its static flags, not on
+the budget-wide arrays it is handed.
 """
 
 from __future__ import annotations
@@ -70,6 +75,12 @@ from production_stack_tpu_torch.ops.ragged_paged_attention import (
 
 # the ragged stream runs at its live length rounded up to this many tokens
 STREAM_ROUND = 64
+
+
+def stream_length(budget: int, live: int) -> int:
+    """The tokens a ragged step's forward runs: its ``live`` tokens rounded
+    up to ``STREAM_ROUND``, at most the ``budget``-wide stream."""
+    return min(budget, -(-live // STREAM_ROUND) * STREAM_ROUND)
 
 
 def grammar_mask(logits, bank, accept, g_ids, g_states, eos_id):
@@ -158,6 +169,54 @@ class ModelRunner:
         # guided request (engine/grammar.py)
         self.grammar_bank: Optional[torch.Tensor] = None
         self.grammar_accept: Optional[torch.Tensor] = None
+
+    # -- compile tracking ----------------------------------------------------
+    def ragged_lengths(self) -> list[int]:
+        """Every stream length ``ragged_step`` can run."""
+        T = self.config.scheduler.max_num_batched_tokens
+        return sorted({stream_length(T, live)
+                       for live in range(STREAM_ROUND, T + STREAM_ROUND,
+                                         STREAM_ROUND)})
+
+    def install_compile_observer(self, observer) -> None:
+        """Wrap ``ragged_step``, ``prefill`` and ``decode_multi`` in
+        ``CompileTracker``s reporting to ``observer(kind, bucket,
+        seconds)``. A signature is a program's shape on the card and its
+        static flags: greedy, LoRA, grammar, and verify (ragged) or
+        logprobs (decode). Penalties and token controls, elementwise work
+        on the (S, V) logits, are not keyed."""
+        from production_stack_tpu_torch.engine.perf_accounting import (
+            CompileTracker,
+        )
+
+        def flags(kw) -> tuple:
+            return (bool(kw.get("greedy_only", False)),
+                    kw.get("adapter_ids") is not None,
+                    kw.get("g_ids") is not None)
+
+        def ragged_n(tokens, *args, **kw) -> int:
+            return stream_length(len(tokens), int(args[3][-1]))
+
+        programs = {
+            "ragged": ("ragged_step",
+                       lambda *a, **kw: (ragged_n(*a), *flags(kw),
+                                         kw.get("verify_idx") is not None),
+                       lambda *a, **kw: str(ragged_n(*a))),
+            "prefill": ("prefill",
+                        lambda *a, **kw: (tuple(a[0].shape), *flags(kw)),
+                        lambda *a, **kw: "x".join(map(str, a[0].shape))),
+            "decode_multi": ("decode_multi",
+                             lambda *a, **kw: (
+                                 len(a[0]), *flags(kw),
+                                 bool(kw.get("want_logprobs", False))),
+                             lambda *a, **kw: str(len(a[0]))),
+        }
+        for kind, (attr, key, bucket) in programs.items():
+            fn = getattr(self, attr)
+            if isinstance(fn, CompileTracker):
+                continue
+            setattr(self, attr, CompileTracker(kind, fn, observer, key=key,
+                                               bucket=bucket))
 
     # -- sizing ------------------------------------------------------------
     def _transient_bytes(self) -> int:
@@ -405,8 +464,7 @@ class ModelRunner:
         needs them."""
         c = self.cfg
         # the tail past the live tokens is padding: cut it to STREAM_ROUND
-        n = min(len(tokens), -(-int(cu_q_lens[-1]) // STREAM_ROUND)
-                * STREAM_ROUND)
+        n = stream_length(len(tokens), int(cu_q_lens[-1]))
         tokens, positions, slot_mapping = (tokens[:n], positions[:n],
                                            slot_mapping[:n])
         if adapter_ids is not None:

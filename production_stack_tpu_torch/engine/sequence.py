@@ -114,6 +114,7 @@ class RequestOutput:
     num_cached_tokens: int = 0
     # monotonic stamps, set on finish
     arrival_time: Optional[float] = None
+    admit_time: Optional[float] = None
     first_token_time: Optional[float] = None
     finish_time: Optional[float] = None
     # aligned with new_token_ids when the request asked for logprobs: each

@@ -5,42 +5,66 @@ onto the standard library (``http.server.ThreadingHTTPServer``), since the
 machines this package targets need not have ``aiohttp``. Each request is
 handled on its own thread; the engine steps on the AsyncEngine's thread.
 
-Routes: ``POST /v1/completions`` and ``POST /v1/chat/completions`` (JSON,
-or SSE ending in ``data: [DONE]`` with ``"stream": true``; ``guided_regex``
-or ``guided_json`` constrain the output, and ``model`` may name a loaded
-LoRA adapter), ``POST /v1/load_lora_adapter`` and ``POST
+Generation: ``POST /v1/completions`` and ``POST /v1/chat/completions``
+(JSON, or SSE ending in ``data: [DONE]`` with ``"stream": true``;
+``guided_regex`` or ``guided_json`` constrain the output, and ``model`` may
+name a loaded LoRA adapter), ``POST /v1/load_lora_adapter`` and ``POST
 /v1/unload_lora_adapter`` (``{"lora_name", "lora_path"}``, the reference
 LoraAdapter operator's calls), ``GET /v1/models`` (the model and each
-adapter) and ``GET /health``. Response bodies have the JAX server's shape,
-so the same router can front either engine. ``guided_choice`` and
-``echo`` (which need prompt scoring), ``/metrics`` and ``/debug/*`` are
-not ported yet.
+adapter).
+
+What the router and the fleet read: ``GET /health``; ``GET /ready`` (503
+``warming`` while the launch warmup runs, ``draining``, ``stalled`` when
+the step watchdog sees no progress); ``POST /drain`` (new ``/v1/*`` POSTs
+get 503 + ``Retry-After``, in-flight streams finish under
+``--drain-deadline``, stragglers are then aborted; SIGTERM drains, then
+exits); ``GET /metrics`` (the reference's ``vllm:*`` families, written by
+hand: engine/metrics.py); ``POST /kv/lookup``; ``POST /tokenize`` and
+``/detokenize``; ``GET /debug/perf`` (the perf accountant); ``GET
+/debug/canary`` (golden records of the pinned probes); ``POST
+/debug/profile`` (a ``torch.profiler`` Chrome trace as tar.gz). These
+handlers read host state only: none waits on the card or on a step.
+
+Response bodies have the JAX server's shape, so the same router can front
+either engine. ``guided_choice`` and ``echo`` (which need prompt scoring),
+the tenant plane, the perf ledger, ``/debug/memory`` and the other
+``/debug/*`` routes are not ported yet.
 
 Run: ``python -m production_stack_tpu_torch.engine.server --model
 llama-3-8b --port 18077`` (``--device cpu`` for the plain path,
 ``--attention-impl bucketed`` for the bucketed prefill path,
 ``--speculative-ngram 4`` for n-gram speculative decoding on the ragged
-path).
+path, ``--skip-warmup`` to serve at once).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import io
 import json
 import logging
+import os
 import signal
+import tarfile
+import tempfile
 import threading
 import time
+import urllib.parse
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 from production_stack_tpu_torch import __version__
+from production_stack_tpu_torch.canary_golden import (
+    DEFAULT_PROBES,
+    record_from_response,
+)
 from production_stack_tpu_torch.engine.async_engine import AsyncEngine
 from production_stack_tpu_torch.engine.config import (
     CacheConfig,
     EngineConfig,
+    PerfConfig,
     SchedulerConfig,
 )
 from production_stack_tpu_torch.engine.engine import GrammarBankFull, LLMEngine
@@ -48,7 +72,9 @@ from production_stack_tpu_torch.engine.grammar import (
     compile_regex,
     schema_to_regex,
 )
+from production_stack_tpu_torch.engine.lifecycle import StepWatchdog
 from production_stack_tpu_torch.engine.lora import LoraManager
+from production_stack_tpu_torch.engine.metrics import CONTENT_TYPE, ServerMetrics
 from production_stack_tpu_torch.engine.sampling import (
     MAX_LOGPROBS,
     SamplingParams,
@@ -191,11 +217,31 @@ def _error(message: str, kind: str = "invalid_request_error") -> dict:
     return {"error": {"message": message, "type": kind}}
 
 
+class _HTTPServer(ThreadingHTTPServer):
+    # socketserver's default backlog of 5 resets connections when a burst
+    # (a router fanning out a wave, a client opening one connection per
+    # row) arrives faster than the accept loop runs
+    request_queue_size = 1024
+    daemon_threads = True
+
+
 class EngineServer:
-    """The engine, its thread and the HTTP front end."""
+    """The engine, its thread and the HTTP front end.
+
+    Lifecycle, as the reference's: WARMING (``warmup_on_start``: the
+    engine runs its warmup on the engine thread while ``/ready`` answers
+    503) -> SERVING -> DRAINING (``POST /drain`` or SIGTERM: ``/ready``
+    503, new generation requests 503 + ``Retry-After``, in-flight requests
+    finish under ``drain_deadline``, stragglers are then aborted). A step
+    watchdog (``watchdog_stall_seconds`` > 0) turns ``/ready`` to 503
+    while no step completes with work queued."""
 
     def __init__(self, config: EngineConfig, engine: Optional[LLMEngine] = None,
-                 device="cuda", served_model_name: Optional[str] = None):
+                 device="cuda", served_model_name: Optional[str] = None,
+                 warmup_on_start: bool = False,
+                 overload_retry_after: float = 1.0,
+                 drain_deadline: float = 30.0,
+                 watchdog_stall_seconds: float = 0.0):
         self.config = config
         self.engine = engine if engine is not None else LLMEngine(
             config, device=device)
@@ -203,17 +249,123 @@ class EngineServer:
         self.lora = LoraManager(self.engine)
         self.model_name = served_model_name or config.model.name
         self.start_time = time.time()
-        self._httpd: Optional[ThreadingHTTPServer] = None
+        self._httpd: Optional[_HTTPServer] = None
         self._serve_thread: Optional[threading.Thread] = None
+        self.metrics = ServerMetrics(self.engine, self.model_name)
+        self.async_engine.step_observer = self.metrics.observe_step
+        self.async_engine.finish_observer = self._observe_finished
+        # the Retry-After seconds of a 503 while draining and of a 429
+        self.overload_retry_after = overload_retry_after
+        self.warmup_on_start = warmup_on_start
+        self.warming = False
+        self.warmup_seconds = 0.0
+        self._warmup_t0: Optional[float] = None
+        self.drain_deadline = drain_deadline
+        self.draining = False
+        self.drain_reason: Optional[str] = None
+        self._drain_t0: Optional[float] = None
+        self._drain_done = threading.Event()
+        self._drain_rejected = 0
+        self._drain_aborted = 0
+        # generation requests past the drain gate and not yet answered
+        self._inflight = 0
+        self._inflight_lock = threading.Lock()
+        self._profiling = threading.Lock()
+        self.watchdog = StepWatchdog(self.async_engine,
+                                     watchdog_stall_seconds)
+        self.metrics.register_lifecycle(self._lifecycle_snapshot)
+
+    def _observe_finished(self, out) -> None:
+        """Engine thread: a finished request's stamps into the latency
+        histograms."""
+        if out.arrival_time is None or out.finish_time is None:
+            return  # an abort delivered to a waiting stream carries none
+        self.metrics.observe_request(out.arrival_time, out.first_token_time,
+                                     out.finish_time, out.num_output_tokens)
+        self.metrics.observe_stages(out)
 
     # -- lifecycle -----------------------------------------------------------
     def bind(self, host: str = "127.0.0.1", port: int = 0) -> int:
-        """Start the engine thread and bind the HTTP socket; returns the
-        bound port (a free one for port 0)."""
+        """Start the engine thread (and the warmup, when asked for) and
+        bind the HTTP socket; returns the bound port (a free one for port
+        0). ``/ready`` answers 503 ``warming`` from here until the warmup
+        ends."""
         self.async_engine.start()
-        self._httpd = ThreadingHTTPServer((host, port), self._handler_class())
-        self._httpd.daemon_threads = True
+        self.watchdog.start()
+        if self.warmup_on_start:
+            self.warming = True
+            self._warmup_t0 = time.monotonic()
+            threading.Thread(target=self._run_warmup, daemon=True,
+                             name="warmup").start()
+        self._httpd = _HTTPServer((host, port), self._handler_class())
         return self._httpd.server_address[1]
+
+    def _run_warmup(self) -> None:
+        assert self._warmup_t0 is not None
+        try:
+            self.async_engine.run_on_engine(lambda eng: eng.warmup())
+        except Exception:
+            _log.exception("engine warmup failed")
+        finally:
+            self.warmup_seconds = time.monotonic() - self._warmup_t0
+            self.warming = False
+        _log.info("engine warmup (all shape variants) done in %.1fs",
+                  self.warmup_seconds)
+
+    def begin_drain(self, reason: str) -> bool:
+        """Flip SERVING -> DRAINING (idempotent; False when already
+        draining) and start the drain watcher."""
+        if self.draining:
+            return False
+        self.draining = True
+        self.drain_reason = reason
+        self._drain_t0 = time.monotonic()
+        _log.warning("drain started (%s): %d in-flight request(s), "
+                     "deadline %.1fs", reason, self._inflight,
+                     self.drain_deadline)
+        threading.Thread(target=self._drain_watch, daemon=True,
+                         name="drain").start()
+        return True
+
+    def _drain_watch(self) -> None:
+        """Let in-flight work finish under the drain deadline, then abort
+        the stragglers (their KV blocks are freed)."""
+        assert self._drain_t0 is not None
+        deadline = self._drain_t0 + self.drain_deadline
+        try:
+            while time.monotonic() < deadline:
+                if not self._inflight and not self.engine.has_unfinished():
+                    _log.warning("drain complete in %.2fs: no in-flight "
+                                 "work", time.monotonic() - self._drain_t0)
+                    return
+                time.sleep(0.05)
+            rids = self.engine.live_request_ids()
+            for rid in rids:
+                self.async_engine.abort(rid)
+            self._drain_aborted += len(rids)
+            if rids:
+                _log.warning("drain deadline (%.1fs) expired: aborted %d "
+                             "straggler sequence(s)", self.drain_deadline,
+                             len(rids))
+        finally:
+            self._drain_done.set()
+
+    def wait_drained(self, timeout: Optional[float] = None) -> bool:
+        """Block until a started drain has finished or aborted its
+        in-flight work."""
+        return self._drain_done.wait(timeout)
+
+    def _lifecycle_snapshot(self) -> dict:
+        """Scrape-time source of the drain / watchdog / warmup families."""
+        return {
+            "draining": self.draining,
+            "drain_rejected_total": self._drain_rejected,
+            "drain_aborted_total": self._drain_aborted,
+            "watchdog_stalled": self.watchdog.stalled,
+            "watchdog_stalls_total": self.watchdog.stalls_total,
+            "warming": self.warming,
+            "warmup_seconds": self.warmup_seconds,
+        }
 
     def start(self, host: str = "127.0.0.1", port: int = 0) -> int:
         """Serve on a background thread; returns the bound port."""
@@ -226,6 +378,12 @@ class EngineServer:
     def serve_forever(self) -> None:
         self._httpd.serve_forever()
 
+    def stop_serving(self) -> None:
+        """End ``serve_forever`` (from any thread but the one running
+        it)."""
+        if self._httpd is not None:
+            self._httpd.shutdown()
+
     def shutdown(self) -> None:
         if self._httpd is not None:
             if self._serve_thread is not None:
@@ -234,6 +392,7 @@ class EngineServer:
                 self._serve_thread = None
             self._httpd.server_close()
             self._httpd = None
+        self.watchdog.stop()
         self.async_engine.stop()
 
     # -- routes --------------------------------------------------------------
@@ -259,6 +418,164 @@ class EngineServer:
                 "parent": self.model_name,
             })
         return {"object": "list", "data": cards}
+
+    def ready(self) -> tuple[int, dict]:
+        """Readiness, distinct from /health liveness: 503 while DRAINING,
+        while the launch warmup runs, and while the step watchdog sees a
+        wedged engine."""
+        if self.draining:
+            remaining = 0.0
+            if self._drain_t0 is not None:
+                remaining = max(0.0, self._drain_t0 + self.drain_deadline
+                                - time.monotonic())
+            return 503, {"status": "draining", "reason": self.drain_reason,
+                         "inflight": self._inflight,
+                         "deadline_remaining": round(remaining, 3)}
+        if self.warming:
+            elapsed = 0.0
+            if self._warmup_t0 is not None:
+                elapsed = time.monotonic() - self._warmup_t0
+            return 503, {"status": "warming",
+                         "warming_for": round(elapsed, 3)}
+        if self.watchdog.stalled:
+            return 503, {"status": "stalled",
+                         "stalled_for": round(self.watchdog.progress_age(),
+                                              3)}
+        return 200, {"status": "ready"}
+
+    def drain(self, body: dict) -> tuple[int, dict]:
+        """Begin draining (idempotent). A preStop hook POSTs here so new
+        work stops before SIGTERM; the SIGTERM path owns process exit."""
+        started = self.begin_drain("api")
+        return 200, {"status": "draining", "already_draining": not started,
+                     "deadline": self.drain_deadline,
+                     "inflight": self._inflight}
+
+    def tokenize(self, body: dict) -> tuple[int, dict]:
+        text = body.get("prompt") or body.get("text") or ""
+        ids = self.engine.tokenizer.encode(
+            text, add_bos=bool(body.get("add_special_tokens", True)))
+        return 200, {"tokens": ids, "count": len(ids),
+                     "max_model_len": self.config.model.max_model_len}
+
+    def detokenize(self, body: dict) -> tuple[int, dict]:
+        return 200, {"prompt": self.engine.tokenizer.decode(
+            body.get("tokens") or [])}
+
+    def kv_lookup(self, body: dict) -> tuple[int, dict]:
+        """KV-aware routing: how many tokens of this prompt would hit the
+        prefix cache now, from the allocator's content-hash table.
+
+        The walk starts at the base model's chain root (``HASH_SEED``):
+        the router sends only ``{"prompt"}`` (or ``{"tokens"}``), never an
+        adapter. This port roots each LoRA adapter's chain at its own
+        ``kv_cache.adapter_root``, so blocks computed under an adapter are
+        invisible here, by design: they could never serve a base-model
+        request. The host-tier field of the reference is not ported."""
+        if "tokens" in body:
+            ids = list(body["tokens"])
+        else:
+            ids = self.engine.tokenizer.encode(body.get("prompt") or "")
+        _, matched = self.engine.scheduler.allocator.match_prefix(ids)
+        return 200, {"matched_tokens": matched, "total_tokens": len(ids)}
+
+    def debug_perf(self) -> tuple[int, dict]:
+        """The perf accountant's snapshot (engine/perf_accounting.py):
+        windowed MFU and HBM-bandwidth utilization, phase throughput,
+        device memory, the compile-event log and the cost model, with the
+        speculative-decoding picture."""
+        perf = self.engine.perf
+        if perf is None:
+            return 200, {"enabled": False}
+        snap = perf.snapshot()
+        eng = self.engine
+        drafted, steps = eng.spec_drafted, eng.spec_steps
+        snap["speculative"] = {
+            "enabled": eng._spec is not None,
+            "draft_tokens": drafted,
+            "accepted_tokens": eng.spec_accepted,
+            "acceptance_rate": eng.spec_accepted / drafted if drafted
+            else 0.0,
+            "tokens_per_step": eng.spec_step_tokens / steps if steps
+            else 0.0,
+        }
+        return 200, snap
+
+    def debug_canary(self, query: dict) -> tuple[int, dict]:
+        """Golden records of the pinned probes (canary_golden.py): each
+        probe goes through the normal admission, greedy with logprobs on,
+        and its response becomes a record. ``?tolerance=`` stamps the
+        records' L-infinity band."""
+        try:
+            tolerance = float(query.get("tolerance", ["0.0"])[0])
+        except ValueError:
+            return 400, _error("tolerance must be a float")
+        tk = self.engine.tokenizer
+        records, errors = [], []
+        for probe in DEFAULT_PROBES:
+            rid = f"canary-{probe.id}-{uuid.uuid4().hex[:8]}"
+            sampling = SamplingParams(max_tokens=probe.max_tokens,
+                                      temperature=0.0, logprobs=probe.top_k)
+            try:
+                stream, = self.async_engine.admit_batch(
+                    [(rid, tk.encode(probe.prompt), sampling,
+                      self.lora.slot_of(self.model_name))])
+                token_ids: list[int] = []
+                lps: list = []
+                for out in stream:
+                    token_ids.extend(out.new_token_ids)
+                    lps.extend(out.new_logprobs or ())
+            except Exception as e:  # a sick engine still answers
+                errors.append({"probe": probe.id, "error": str(e)})
+                continue
+            payload = {"choices": [{
+                "text": tk.decode(token_ids),
+                "logprobs": _fmt_completion_logprobs(
+                    tk, token_ids, lps, probe.top_k),
+            }]}
+            try:
+                rec = record_from_response(
+                    self.model_name, probe, payload, tolerance=tolerance,
+                    source=f"engine:{self.model_name}", created=time.time())
+            except ValueError as e:
+                errors.append({"probe": probe.id, "error": str(e)})
+                continue
+            records.append(rec.to_dict())
+        return 200, {"model": self.model_name, "records": records,
+                     "errors": errors}
+
+    def profile(self, body: dict):
+        """A ``torch.profiler`` trace of ``duration_ms`` of serving (CUDA
+        activity included on the card), as a tar.gz of its Chrome trace;
+        409 while another capture runs. The profiler is stopped on every
+        exit path. Returns (status, JSON) or (200, tar.gz bytes)."""
+        import torch
+
+        duration_ms = min(int(body.get("duration_ms") or 2000), 60_000)
+        if not self._profiling.acquire(blocking=False):
+            return 409, _error("a profile capture is already running",
+                               "conflict")
+        try:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.engine.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=activities)
+            prof.start()
+            try:
+                time.sleep(duration_ms / 1000.0)
+            finally:
+                prof.stop()
+            with tempfile.TemporaryDirectory(prefix="torchprof-") as tmp:
+                prof.export_chrome_trace(os.path.join(tmp, "trace.json"))
+                buf = io.BytesIO()
+                with tarfile.open(fileobj=buf, mode="w:gz") as tar:
+                    tar.add(tmp, arcname="trace")
+            return 200, buf.getvalue()
+        except Exception as e:
+            return 500, _error(f"profile capture failed: {e}",
+                               "server_error")
+        finally:
+            self._profiling.release()
 
     def load_lora(self, body: dict) -> tuple[int, dict]:
         name, path = body.get("lora_name"), body.get("lora_path")
@@ -562,36 +879,86 @@ class EngineServer:
                                  + b"\r\n")
                 self.wfile.flush()
 
+            def _send_bytes(self, data: bytes, content_type: str,
+                            status: int = 200) -> None:
+                self.send_response(status)
+                self.send_header("Content-Type", content_type)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
             def do_GET(self):  # noqa: N802 (http.server API)
-                if self.path == "/health":
+                url = urllib.parse.urlsplit(self.path)
+                if url.path == "/health":
                     self._send_json({"status": "healthy"})
-                elif self.path == "/v1/models":
+                elif url.path == "/ready":
+                    status, payload = server.ready()
+                    self._send_json(payload, status)
+                elif url.path == "/v1/models":
                     self._send_json(server.models())
-                elif self.path == "/version":
+                elif url.path == "/version":
                     self._send_json({"version": __version__})
+                elif url.path == "/metrics":
+                    self._send_bytes(server.metrics.generate(), CONTENT_TYPE)
+                elif url.path == "/debug/perf":
+                    status, payload = server.debug_perf()
+                    self._send_json(payload, status)
+                elif url.path == "/debug/canary":
+                    status, payload = server.debug_canary(
+                        urllib.parse.parse_qs(url.query))
+                    self._send_json(payload, status)
                 else:
                     self._send_json(_error("not found", "not_found"), 404)
 
             def do_POST(self):  # noqa: N802 (http.server API)
-                lora_routes = {"/v1/load_lora_adapter": server.load_lora,
-                               "/v1/unload_lora_adapter": server.unload_lora}
-                if self.path not in ("/v1/completions",
-                                     "/v1/chat/completions", *lora_routes):
+                routes = {"/v1/load_lora_adapter": server.load_lora,
+                          "/v1/unload_lora_adapter": server.unload_lora,
+                          "/drain": server.drain,
+                          "/tokenize": server.tokenize,
+                          "/detokenize": server.detokenize,
+                          "/kv/lookup": server.kv_lookup,
+                          "/debug/profile": server.profile}
+                path = urllib.parse.urlsplit(self.path).path
+                generate = path in ("/v1/completions", "/v1/chat/completions")
+                if not generate and path not in routes:
                     self._send_json(_error("not found", "not_found"), 404)
                     return
-                chat = self.path == "/v1/chat/completions"
                 length = int(self.headers.get("Content-Length") or 0)
+                raw = self.rfile.read(length)
+                if server.draining and path.startswith("/v1/"):
+                    # live streams keep running; infra routes stay up
+                    server._drain_rejected += 1
+                    self._send_json(
+                        _error("engine is draining; no new requests are "
+                               "admitted", "service_unavailable_error"), 503,
+                        {"Retry-After": f"{server.overload_retry_after:g}"})
+                    return
                 try:
-                    body = json.loads(self.rfile.read(length) or b"null")
+                    body = json.loads(raw or (b"{}" if path in routes
+                                              else b"null"))
                     if not isinstance(body, dict):
                         raise ValueError("body must be a JSON object")
                 except ValueError:
                     self._send_json(_error("invalid JSON body"), 400)
                     return
-                if self.path in lora_routes:
-                    status, payload = lora_routes[self.path](body)
-                    self._send_json(payload, status)
+                if not generate:
+                    status, payload = routes[path](body)
+                    if isinstance(payload, bytes):
+                        self._send_bytes(payload, "application/gzip", status)
+                    else:
+                        self._send_json(payload, status)
                     return
+                with server._inflight_lock:
+                    server._inflight += 1
+                try:
+                    self._generate(body, path == "/v1/chat/completions")
+                finally:
+                    with server._inflight_lock:
+                        server._inflight -= 1
+
+            def _generate(self, body: dict, chat: bool) -> None:
+                retry_after = {"Retry-After":
+                               f"{server.overload_retry_after:g}"}
                 try:
                     streams, rids, rid, sampling, n_prompt = server.admit(
                         body, chat)
@@ -600,13 +967,13 @@ class EngineServer:
                     return
                 except SchedulerQueueFull as e:
                     self._send_json(_error(str(e), "rate_limit_error"), 429,
-                                    {"Retry-After": "1"})
+                                    retry_after)
                     return
                 except GrammarBankFull:
                     self._send_json(_error(
                         "all guided-decoding grammar slots are in use; retry "
                         "when in-flight guided requests finish",
-                        "rate_limit_error"), 429, {"Retry-After": "1"})
+                        "rate_limit_error"), 429, retry_after)
                     return
                 model = body.get("model", server.model_name)
                 xrid = self.headers.get("x-request-id") or rid
@@ -702,6 +1069,42 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--speculative-window", type=int, default=4096,
                    help="trailing history tokens the n-gram proposer "
                         "searches for a recurrence")
+    p.add_argument("--skip-warmup", action="store_true",
+                   help="serve at once, without first running every step "
+                        "signature (GET /ready answers 503 \"warming\" "
+                        "while the warmup runs)")
+    p.add_argument("--overload-retry-after", type=float, default=1.0,
+                   help="Retry-After seconds advertised on overload 429s "
+                        "and on the 503s of a draining engine")
+    p.add_argument("--drain-deadline", type=float, default=30.0,
+                   help="graceful-drain budget (seconds): on SIGTERM or "
+                        "POST /drain, in-flight sequences get this long "
+                        "to finish before stragglers are aborted (KV "
+                        "blocks freed) and the process exits; readiness "
+                        "(GET /ready) answers 503 for the whole window "
+                        "while /health stays truthful")
+    p.add_argument("--watchdog-stall-seconds", type=float, default=0.0,
+                   help="stuck-step watchdog: flip readiness (GET /ready) "
+                        "to 503 when no scheduler step completes for this "
+                        "many seconds while work is queued. 0 = disabled")
+    p.add_argument("--no-perf-accounting", dest="perf_accounting",
+                   action="store_false", default=True,
+                   help="disable live goodput accounting (MFU / HBM "
+                        "bandwidth gauges, compile-event tracking, "
+                        "GET /debug/perf — engine/perf_accounting.py)")
+    p.add_argument("--perf-window", type=float, default=60.0,
+                   help="sliding window (seconds) the utilization gauges "
+                        "are computed over")
+    p.add_argument("--perf-peak-tflops", type=float, default=0.0,
+                   help="the card's peak TFLOP/s for MFU; 0 = the H100 SXM "
+                        "data sheet's dense bf16 (989)")
+    p.add_argument("--perf-peak-hbm-gbps", type=float, default=0.0,
+                   help="the card's peak HBM GB/s; 0 = the H100 SXM data "
+                        "sheet's (3350)")
+    p.add_argument("--perf-peak-ici-gbps", type=float, default=0.0,
+                   help="per-card interconnect GB/s for the collective "
+                        "roofline; 0 = the H100 SXM data sheet's NVLink, "
+                        "per direction (450)")
     return p
 
 
@@ -735,24 +1138,52 @@ def config_from_args(args) -> EngineConfig:
         sched.spec_ngram_max = args.speculative_ngram_max
         sched.spec_ngram_min = args.speculative_ngram_min
         sched.spec_window = args.speculative_window
+    perf = PerfConfig(enabled=args.perf_accounting)
+    if args.perf_window:
+        perf.window = args.perf_window
+    if args.perf_peak_tflops:
+        perf.peak_tflops = args.perf_peak_tflops
+    if args.perf_peak_hbm_gbps:
+        perf.peak_hbm_gbps = args.perf_peak_hbm_gbps
+    if args.perf_peak_ici_gbps:
+        perf.peak_ici_gbps = args.perf_peak_ici_gbps
     return EngineConfig.for_model(args.model, cache=cache, scheduler=sched,
-                                  seed=args.seed, **overrides)
+                                  seed=args.seed, perf=perf, **overrides)
+
+
+def server_from_args(args) -> EngineServer:
+    """The server ``main`` runs for parsed command-line ``args``, not yet
+    bound: the warmup starts at ``bind`` unless ``--skip-warmup``."""
+    return EngineServer(config_from_args(args), device=args.device,
+                        served_model_name=args.served_model_name,
+                        warmup_on_start=not args.skip_warmup,
+                        overload_retry_after=args.overload_retry_after,
+                        drain_deadline=args.drain_deadline,
+                        watchdog_stall_seconds=args.watchdog_stall_seconds)
 
 
 def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s %(message)s")
     args = build_parser().parse_args(argv)
-    config = config_from_args(args)
-    server = EngineServer(config, device=args.device,
-                          served_model_name=args.served_model_name)
+    server = server_from_args(args)
     port = server.bind(args.host, args.port)
     _log.info("serving %s on %s:%d (device %s, %d KV blocks)",
               server.model_name, args.host, port, server.engine.device,
               server.engine.runner.num_blocks)
 
+    def _exit_when_drained():
+        server.wait_drained()
+        time.sleep(0.1)  # a beat for handlers to deliver their last bytes
+        server.stop_serving()
+
     def _term(signum, frame):
-        raise KeyboardInterrupt
+        # SIGTERM drains: in-flight requests finish under --drain-deadline
+        # (a drain already started by POST /drain is joined), then the
+        # server stops and the process exits 0
+        server.begin_drain("sigterm")
+        threading.Thread(target=_exit_when_drained, daemon=True,
+                         name="exit-when-drained").start()
 
     signal.signal(signal.SIGTERM, _term)
     try:

@@ -5,7 +5,10 @@ point); the test's own process cannot check this, because this suite's
 conftest imports JAX for every test. A static scan of every file in the
 package checks the same for modules the server does not load. Note that
 ``production_stack_tpu_torch`` starts with ``production_stack_tpu``: the
-checks compare whole dotted names.
+checks compare whole dotted names. The modules of the surface the router
+reads (metrics, perf accounting, lifecycle, canary goldens) also load
+neither ``prometheus_client`` nor ``aiohttp``, which the card's machine
+lacks.
 """
 
 import ast
@@ -65,3 +68,44 @@ def _imports(path: pathlib.Path):
 def test_static_imports(path):
     bad = [m for m in _imports(path) if forbidden(m)]
     assert bad == [], f"{path.name} imports {bad}"
+
+
+SURFACE = ("production_stack_tpu_torch.engine.metrics",
+           "production_stack_tpu_torch.engine.perf_accounting",
+           "production_stack_tpu_torch.engine.lifecycle",
+           "production_stack_tpu_torch.canary_golden",
+           "production_stack_tpu_torch.engine.server")
+LIBRARIES = ("prometheus_client", "aiohttp")
+
+
+def test_surface_modules_load_no_jax_nor_http_libraries():
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {SURFACE!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(SURFACE) <= set(mods)
+    bad = [m for m in mods if forbidden(m) or any(
+        m == lib or m.startswith(lib + ".") for lib in LIBRARIES)]
+    assert bad == []
+
+
+@pytest.mark.parametrize("module", SURFACE)
+def test_surface_static_imports(module):
+    path = ROOT / (module.replace(".", "/") + ".py")
+    bad = [m for m in _imports(path) if forbidden(m) or any(
+        m == lib or m.startswith(lib + ".") for lib in LIBRARIES)]
+    assert bad == [], f"{path.name} imports {bad}"
+
+
+def test_chip_smoke_defines_each_name_once():
+    """A later definition would shadow an earlier phase's helper of the
+    same name: chip_smoke.py defines each top-level name once."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = [n.name for n in tree.body
+             if isinstance(n, (ast.FunctionDef, ast.ClassDef))]
+    assert sorted({n for n in names if names.count(n) > 1}) == []

@@ -2,11 +2,14 @@
 
 The port's server (tiny-llama, ``device="cpu"``) listens on a free port
 from a background thread; the router of the JAX package runs as an
-aiohttp test server in front of it, as in tests/test_router_e2e.py.
+aiohttp test server in front of it, as in tests/test_router_e2e.py. The
+router's stats scraper reads the port's /metrics, and its discovery reads
+the port's /ready (draining after ``POST /drain``).
 """
 
 import asyncio
 import json
+import time
 import urllib.request
 
 import pytest
@@ -104,3 +107,88 @@ def test_models_and_completion_through_router(engine_url):
             await client.close()
 
     asyncio.run(main())
+
+
+def test_router_scraper_reads_port_stats(engine_url):
+    """The router's EngineStatsScraper reads the port's /metrics into
+    non-empty EngineStats (prefix-cache queries of the requests above and
+    of this test's own)."""
+    for _ in range(2):
+        status, _ = _post(f"{engine_url}/v1/completions", {
+            "prompt": "scraped twice, the second time from the cache",
+            "max_tokens": 2, "temperature": 0})
+        assert status == 200
+
+    async def main():
+        from aiohttp.test_utils import TestClient, TestServer
+
+        from production_stack_tpu.router.stats import (
+            get_engine_stats_scraper,
+        )
+
+        args = build_parser().parse_args([
+            "--service-discovery", "static",
+            "--static-backends", engine_url,
+            "--static-models", "tiny-llama",
+        ])
+        client = TestClient(TestServer(RouterApp(args).build_app()))
+        await client.start_server()
+        try:
+            scraper = get_engine_stats_scraper()
+            await scraper.scrape_once()
+            stats = scraper.get_engine_stats()[engine_url]
+            assert stats.gpu_prefix_cache_queries_total > 0
+            assert stats.gpu_prefix_cache_hits_total > 0
+            assert 0 < stats.gpu_prefix_cache_hit_rate <= 1
+            assert 0 <= stats.gpu_cache_usage_perc < 1
+        finally:
+            await client.close()
+
+    asyncio.run(main())
+
+
+def test_discovery_sees_a_draining_port():
+    """After ``POST /drain`` the router's discovery (health checks on)
+    classifies the port's engine as draining, from its /ready."""
+    cfg = EngineConfig.for_model(
+        "tiny-llama",
+        cache=CacheConfig(block_size=4, num_blocks=256),
+        scheduler=SchedulerConfig(max_num_seqs=4, max_num_batched_tokens=64),
+    )
+    server = EngineServer(cfg, device="cpu")
+    url = f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
+
+    async def main():
+        from aiohttp.test_utils import TestClient, TestServer
+
+        from production_stack_tpu.router.service_discovery import (
+            get_service_discovery,
+        )
+
+        args = build_parser().parse_args([
+            "--service-discovery", "static",
+            "--static-backends", url,
+            "--static-models", "tiny-llama",
+            "--static-backend-health-checks",
+            "--health-check-interval", "0.1",
+        ])
+        client = TestClient(TestServer(RouterApp(args).build_app()))
+        await client.start_server()
+        try:
+            disc = get_service_discovery()
+            await asyncio.sleep(0.3)
+            assert url not in disc.draining_urls
+            status, _ = _post(f"{url}/drain", {})
+            assert status == 200
+            deadline = time.monotonic() + 5.0
+            while (time.monotonic() < deadline
+                   and url not in disc.draining_urls):
+                await asyncio.sleep(0.05)
+            assert url in disc.draining_urls
+        finally:
+            await client.close()
+
+    try:
+        asyncio.run(main())
+    finally:
+        server.shutdown()
