@@ -56,7 +56,12 @@ fatal):
    logprobs within ``BF16_LOGPROB_BAND``. Then float32 tiny-llama on the
    ragged path with n-gram speculation, a LoRA adapter and grammars, card
    against CPU, greedy-equal up to printed near-ties; and bf16 tiny-llama
-   with speculation on against off on the card, within the band.
+   with speculation on against off on the card, within the band. Then,
+   card against CPU: float32 tiny-mixtral on the ragged and the bucketed
+   path; float32 tiny-llama with ``quant="int8"`` on the ragged path at T
+   = 512 (ragged steps W8A16, decode steps W8A8; both routes must run on
+   the card; greedy flips accepted within ``INT8_TIE_GAP``); a tiny-llama
+   HF checkpoint written here in numpy and served with ``--model <dir>``.
 6. Request features: llama-3-8b at full width and depth through the HTTP
    server on the ragged path with ``--speculative-ngram 4``: a random
    rank-16 adapter on all seven targets of 32 layers, written here in
@@ -88,10 +93,26 @@ fatal):
    completion 503 with ``Retry-After``, the stream ends whole. Then
    float32 tiny-llama's canary records, card against CPU, under
    ``canary_golden.compare`` at tolerance 1e-4.
+8. MoE in int8 (``moe-int8``): mixtral-8x7b at full width and depth,
+   bf16 activations with ``--quantization int8`` (46.7 GB of int8
+   weights made from seed 0 on the card, quantized a layer's expert at a
+   time), through the HTTP server on the ragged path, launch warmup
+   skipped. The 16 requests of phase 4: every response 200 with its 32
+   tokens, K1, K2 and K3 launched and K4 not. Prints the weight bytes
+   (int8, scales, the rest), the KV blocks, output tok/s and median TTFT;
+   ``/debug/perf`` after a prefill window (8 x 1024 tokens) alone in a
+   10 s accountant window, MFU in (0, 1.05]; a torch.profiler window of
+   one 2048-token ragged step and one of 16 decode steps at 64 rows
+   (device busy and idle share, device time by class: attention kernels,
+   int8 GEMM, activation quantization, W8A16 dequantization, MoE dispatch
+   and combine, bf16 GEMM), each also timed untraced. Then llama-3-8b at
+   full width, bf16 against the same weights in int8 on one 256-token
+   prompt: last-token logit cosine > 0.99 through W8A8 and W8A16.
 
 The line before the card line carries the kernels' JSON record, whose
 ``launches`` sum each kernel's launches over every served path (each
-path's own counts are in ``launches_by_path``); the last line is ``{"ok":
+path's own counts are in ``launches_by_path``, ``moe-int8`` among them);
+the last line is ``{"ok":
 true, "device": {...}}``.
 """
 
@@ -1059,6 +1080,48 @@ def _request(url: str, body: dict, stream: bool):
         return status, n_out, time.perf_counter() - t0
 
 
+def _slice_wave(np, base: str, model: str, counters):
+    """The 16 requests of a slice (two waves, prompts of 64-1024 tokens, 32
+    out, half greedy, some streamed, some chat) against the server at
+    ``base``, with every kernel counter set to 0 just before. Returns
+    (per request (status, tokens, seconds), wall seconds, launches)."""
+    rng = np.random.default_rng(1)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz     ", np.uint8)
+    jobs = []
+    for i in range(16):
+        n = int(rng.integers(64, 1025))
+        greedy = i % 2 == 0
+        samp = ({"temperature": 0.0} if greedy
+                else {"temperature": 0.8, "top_p": 0.95, "seed": i})
+        body = {"model": model, "max_tokens": 32, "ignore_eos": True, **samp}
+        stream = i % 4 in (1, 2)
+        if stream:
+            body["stream"] = True
+            body["stream_options"] = {"include_usage": True}
+        if i % 3 == 0:  # chat: text of n - 40 chars plus the template
+            text = bytes(rng.choice(letters, n - 40)).decode()
+            body["messages"] = [{"role": "user", "content": text}]
+            path = "/v1/chat/completions"
+        else:  # completions: n byte tokens
+            body["prompt"] = rng.integers(0, 256, n).tolist()
+            path = "/v1/completions"
+        jobs.append((i * 0.05 if i < 8 else 1.0 + i * 0.05, path, body,
+                     stream))
+    for c in counters:
+        c.n = 0
+    t0 = time.perf_counter()
+
+    def run(job):
+        delay, path, body, stream = job
+        time.sleep(delay)
+        return _request(base + path, body, stream)
+
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        results = list(pool.map(run, jobs))
+    wall = time.perf_counter() - t0
+    return results, wall, {c.name.split()[0]: c.n for c in counters}
+
+
 def slice_phase(torch, np, counters, card: str, impl: str,
                 expected: set) -> dict:
     """The 16 requests through the port's HTTP server on llama-3-8b with
@@ -1085,43 +1148,8 @@ def slice_phase(torch, np, counters, card: str, impl: str,
         f"{cfg.scheduler.max_num_batched_tokens}, S="
         f"{cfg.scheduler.max_num_seqs}, device memory "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
-    rng = np.random.default_rng(1)
-    base = f"http://127.0.0.1:{port}"
-    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz     ", np.uint8)
-    jobs = []
-    for i in range(16):
-        n = int(rng.integers(64, 1025))
-        greedy = i % 2 == 0
-        samp = ({"temperature": 0.0} if greedy
-                else {"temperature": 0.8, "top_p": 0.95, "seed": i})
-        body = {"model": cfg.model.name, "max_tokens": 32,
-                "ignore_eos": True, **samp}
-        stream = i % 4 in (1, 2)
-        if stream:
-            body["stream"] = True
-            body["stream_options"] = {"include_usage": True}
-        if i % 3 == 0:  # chat: text of n - 40 chars plus the template
-            text = bytes(rng.choice(letters, n - 40)).decode()
-            body["messages"] = [{"role": "user", "content": text}]
-            path = "/v1/chat/completions"
-        else:  # completions: n byte tokens
-            body["prompt"] = rng.integers(0, 256, n).tolist()
-            path = "/v1/completions"
-        jobs.append((i * 0.05 if i < 8 else 1.0 + i * 0.05, path, body,
-                     stream))
-    for c in counters:
-        c.n = 0
-    t0 = time.perf_counter()
-
-    def run(job):
-        delay, path, body, stream = job
-        time.sleep(delay)
-        return _request(base + path, body, stream)
-
-    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-        results = list(pool.map(run, jobs))
-    wall = time.perf_counter() - t0
-    launches = {c.name.split()[0]: c.n for c in counters}
+    results, wall, launches = _slice_wave(
+        np, f"http://127.0.0.1:{port}", cfg.model.name, counters)
     stamps = list(server.async_engine.finished)
     stats = eng.stats()
     server.shutdown()
@@ -1179,15 +1207,31 @@ def _category(name: str) -> str:
     return "other"
 
 
-def _profiled(torch, run):
+# the port's int8 and MoE profiler ranges (``quant.profile_range``), by
+# the device-time class each stands for
+MOE_RANGES = {"quant.int8_gemm": "int8 GEMM",
+              "quant.activations": "activation quantization",
+              "quant.dequantize": "W8A16 dequantization",
+              "moe.dispatch": "MoE dispatch and combine",
+              "moe.combine": "MoE dispatch and combine"}
+
+
+def _profiled(torch, run, ranges=None):
     """``run()`` under torch.profiler, tracing the card only. Returns
     (wall ms, device busy ms, {category: device ms}, device events,
     {kernel: wrapper calls}); busy is the union of the kernel and copy
     intervals, None when the trace holds none. A wrapper call of K2 or K3
-    may launch two or three kernels."""
+    may launch two or three kernels. With ``ranges`` (``MOE_RANGES``) the
+    host is traced too, the port's profiler ranges are on, and a kernel
+    that a range's span on the card's timeline holds takes the range's
+    class instead of its name's; the GEMMs left are the model dtype's
+    ("bf16 GEMM"). A range's own span is not a kernel."""
+    import bisect
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from production_stack_tpu_torch.engine import quant
     from production_stack_tpu_torch.ops import kv_write as k1
     from production_stack_tpu_torch.ops import paged_decode_attention as k3
     from production_stack_tpu_torch.ops import paged_prefill_attention as k4
@@ -1196,24 +1240,44 @@ def _profiled(torch, run):
     counters = {"K1": k1.LAUNCHES, "K2": k2.LAUNCHES, "K3": k3.LAUNCHES,
                 "K4": k4.LAUNCHES}
     before = {k: c.n for k, c in counters.items()}
+    activities = [ProfilerActivity.CUDA]
+    if ranges:
+        activities.append(ProfilerActivity.CPU)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+    quant.PROFILE_RANGES = bool(ranges)
+    try:
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        quant.PROFILE_RANGES = False
     calls = {k: c.n - before[k] for k, c in counters.items()}
-    spans, cats = [], collections.Counter()
+    spans, kernels = [], []
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            spans.append((e.time_range.start, e.time_range.end))
-            cats[_category(e.name)] += e.time_range.elapsed_us() / 1e3
+            iv = (e.time_range.start, e.time_range.end)
+            if ranges and e.name in ranges:
+                spans.append((*iv, ranges[e.name]))
+            else:
+                kernels.append((*iv, e.name))
+    spans.sort()
+    starts = [sp[0] for sp in spans]
+    cats = collections.Counter()
+    for a, b, name in kernels:
+        i = bisect.bisect_right(starts, a) - 1
+        cls = (spans[i][2] if i >= 0 and b <= spans[i][1]
+               else _category(name))
+        if ranges and cls == "matmul":
+            cls = "bf16 GEMM"
+        cats[cls] += (b - a) / 1e3
     busy, end = 0.0, float("-inf")
-    for s, t in sorted(spans):
-        if t > end:
-            busy += t - max(s, end)
-            end = t
-    return wall, (busy / 1e3 if spans else None), cats, len(spans), calls
+    for a, b, _ in sorted(kernels):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return wall, (busy / 1e3 if kernels else None), cats, len(kernels), calls
 
 
 def _add_requests(eng, rng, tag, n, length, max_tokens) -> None:
@@ -1371,7 +1435,10 @@ PARITY_LENGTHS = (5, 17, 150, 33, 64, 2, 90)
 def parity_phase(torch, np, impl: str) -> None:
     from production_stack_tpu_torch.engine.engine import LLMEngine
     from production_stack_tpu_torch.engine.sampling import SamplingParams
-    from production_stack_tpu_torch.engine.weights import init_random
+    from production_stack_tpu_torch.engine.weights import (
+        init_random,
+        to_device,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1383,11 +1450,8 @@ def parity_phase(torch, np, impl: str) -> None:
                         logprobs=2)
     runs = {}
     for device in ("cpu", "cuda"):
-        p = {k: (v.to(device) if not isinstance(v, dict)
-                 else {n: w.to(device) for n, w in v.items()})
-             for k, v in params.items()}
-        runs[device] = _greedy_tokens(LLMEngine(cfg, params=p, device=device),
-                                      prompts, sp)
+        runs[device] = _greedy_tokens(LLMEngine(
+            cfg, params=to_device(params, device), device=device), prompts, sp)
     compared, _ = _compare_greedy(f"{impl}, card against cpu", runs["cpu"],
                                   runs["cuda"], TIE_GAP)
     log(f"[parity] tiny-llama float32, {impl}: {compared} greedy tokens "
@@ -1515,7 +1579,10 @@ def features_parity_phase(torch, np) -> None:
     from production_stack_tpu_torch.engine.engine import LLMEngine
     from production_stack_tpu_torch.engine.lora import LoraManager
     from production_stack_tpu_torch.engine.sampling import SamplingParams
-    from production_stack_tpu_torch.engine.weights import init_random
+    from production_stack_tpu_torch.engine.weights import (
+        init_random,
+        to_device,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     on = _parity_engine("ragged", "float32", spec_ngram_k=4, multi_step=2)
@@ -1544,10 +1611,8 @@ def features_parity_phase(torch, np) -> None:
                 ("cpu, spec off", off, "cpu", [lp if s is greedy else s
                                                for s in sps]),
                 ("cpu, spec on", on, "cpu", sps), ("card", on, "cuda", sps)):
-            p = {k: (v.to(device) if not isinstance(v, dict)
-                     else {n: w.to(device) for n, w in v.items()})
-                 for k, v in params.items()}
-            eng = LLMEngine(cfg, params=p, device=device)
+            eng = LLMEngine(cfg, params=to_device(params, device),
+                            device=device)
             LoraManager(eng).load("smoke", root)
             runs[tag] = _greedy_tokens(eng, prompts, plan, adapters)
             runs[tag + " drafted"] = (eng.spec_drafted, eng.spec_accepted)
@@ -2153,18 +2218,18 @@ def _canary_card_against_cpu(torch) -> int:
     from production_stack_tpu_torch.canary_golden import GoldenRecord, compare
     from production_stack_tpu_torch.engine.engine import LLMEngine
     from production_stack_tpu_torch.engine.server import EngineServer
-    from production_stack_tpu_torch.engine.weights import init_random
+    from production_stack_tpu_torch.engine.weights import (
+        init_random,
+        to_device,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = _parity_engine("ragged", "float32")
     params = init_random(cfg.model, seed=0, device="cpu")
     records = {}
     for device in ("cpu", "cuda"):
-        p = {k: (v.to(device) if not isinstance(v, dict)
-                 else {n: w.to(device) for n, w in v.items()})
-             for k, v in params.items()}
-        server = EngineServer(cfg, engine=LLMEngine(cfg, params=p,
-                                                    device=device))
+        server = EngineServer(cfg, engine=LLMEngine(
+            cfg, params=to_device(params, device), device=device))
         base = f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
         try:
             status, _, body = _http(base, "/debug/canary?tolerance=1e-4")
@@ -2323,6 +2388,369 @@ def surface_phase(torch, np, counters, card: str) -> dict:
     return launches
 
 
+# -- phases 5 and 8: Mixtral's MoE block, int8, local checkpoints -------------
+
+# An int8 activation whose value over its scale lies within float noise of
+# a rounding boundary rounds either way on the card and on the CPU, which
+# moves its token's products by one int8 step: about 1e-2 of a logit on
+# tiny-llama (the CPU tests against the JAX engine saw logprobs move by up
+# to 0.03). An int8 greedy flip is accepted where the CPU run's top-2 gap
+# is within this band.
+INT8_TIE_GAP = 0.05
+# the accountant's window in phase 8: the prefill window is read alone in
+# it after a pause this long, not after phase 7's 61 s
+MOE_PERF_WINDOW = 10.0
+
+
+def write_hf_checkpoint(np, cfg, root: str, seed: int = 0) -> str:
+    """A HF-layout checkpoint of ``cfg``'s geometry written in numpy: a
+    config.json and every tensor the port's key map reads, float32, split
+    over two ``*.safetensors`` shards (``lora.write_safetensors``)."""
+    from production_stack_tpu_torch.engine.lora import write_safetensors
+    from production_stack_tpu_torch.engine.weights import _hf_key_map
+
+    E, F, H, KH, D, V = (cfg.hidden_size, cfg.intermediate_size,
+                         cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                         cfg.vocab_size)
+    shapes = {"q_proj": (H * D, E), "k_proj": (KH * D, E),
+              "v_proj": (KH * D, E), "o_proj": (E, H * D),
+              "gate_proj": (F, E), "up_proj": (F, E), "down_proj": (E, F)}
+    rng = np.random.default_rng(seed)
+    shards = [{}, {}]
+
+    def put(shard, name, shape, scale):
+        shards[shard][name] = (rng.standard_normal(shape) * scale).astype(
+            np.float32)
+
+    put(0, "model.embed_tokens.weight", (V, E), E ** -0.5)
+    put(1, "model.norm.weight", (E,), 0.1)
+    put(1, "lm_head.weight", (V, E), E ** -0.5)
+    for i in range(cfg.num_layers):
+        for name in _hf_key_map(cfg, i):
+            shape = shapes.get(name.split(".")[-2], (E,))
+            put(i * 2 // cfg.num_layers, name, shape,
+                0.1 if len(shape) == 1 else shape[1] ** -0.5)
+    for n, tensors in enumerate(shards):
+        write_safetensors(f"{root}/model-{n + 1:05d}-of-00002.safetensors",
+                          tensors)
+    with open(f"{root}/config.json", "w") as f:
+        json.dump({"architectures": ["LlamaForCausalLM"], "hidden_size": E,
+                   "intermediate_size": F, "num_hidden_layers": cfg.num_layers,
+                   "num_attention_heads": H, "num_key_value_heads": KH,
+                   "head_dim": D, "vocab_size": V,
+                   "max_position_embeddings": cfg.max_model_len,
+                   "rms_norm_eps": cfg.rms_norm_eps,
+                   "rope_theta": cfg.rope_theta}, f)
+    return root
+
+
+def moe_int8_parity_phase(torch, np) -> None:
+    """Phase 5's MoE, int8 and checkpoint checks, each on the card against
+    the CPU with the same weights and prompts: tiny-mixtral float32 on the
+    ragged path and on the bucketed path (where the MoE block runs between
+    K4's launches); tiny-llama with ``quant="int8"`` (float32) on the
+    ragged path at T = 512, so ragged steps take W8A16 and decode steps
+    W8A8, and both routes must run on the card; and a tiny-llama HF
+    checkpoint written here in numpy, served with ``--model <dir>``.
+    Greedy tokens equal up to printed near-ties: TIE_GAP in float32,
+    INT8_TIE_GAP with int8."""
+    import tempfile
+
+    from production_stack_tpu_torch.engine import quant
+    from production_stack_tpu_torch.engine.config import (
+        CacheConfig,
+        EngineConfig,
+        ModelConfig,
+        SchedulerConfig,
+    )
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+    from production_stack_tpu_torch.engine.server import (
+        build_parser,
+        config_from_args,
+    )
+    from production_stack_tpu_torch.engine.weights import (
+        init_random,
+        to_device,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 259, n).tolist() for n in PARITY_LENGTHS]
+    sp = SamplingParams(temperature=0.0, max_tokens=24, ignore_eos=True,
+                        logprobs=2)
+
+    def engine_cfg(model, impl, T=64, **model_kw):
+        return EngineConfig.for_model(
+            model, cache=CacheConfig(block_size=16, num_blocks=256),
+            scheduler=SchedulerConfig(max_num_seqs=8,
+                                      max_num_batched_tokens=T),
+            attention_impl=impl, **model_kw)
+
+    def card_against_cpu(tag, cfg, params, gap):
+        runs = {}
+        for device in ("cpu", "cuda"):
+            p = None if params is None else to_device(params, device)
+            runs[device] = _greedy_tokens(
+                LLMEngine(cfg, params=p, device=device), prompts, sp)
+        compared, worst = _compare_greedy(tag + ", card against cpu",
+                                          runs["cpu"], runs["cuda"], gap)
+        log(f"[parity] {tag}: {compared} greedy tokens identical between "
+            f"the card and the cpu; largest logprob difference {worst:.3e}")
+
+    for impl in ("ragged", "bucketed"):
+        cfg = engine_cfg("tiny-mixtral", impl)
+        card_against_cpu(f"tiny-mixtral float32, {impl}", cfg,
+                         init_random(cfg.model, seed=0, device="cpu"),
+                         TIE_GAP)
+
+    cfg = engine_cfg("tiny-llama", "ragged", T=512, quant="int8")
+    routes = collections.Counter()
+    wrapped = {name: getattr(quant, name)
+               for name in ("int8_mm", "dequantize_tile")}
+
+    def counting(name):
+        def call(*a, **kw):
+            if a[0].is_cuda:
+                routes[name] += 1
+            return wrapped[name](*a, **kw)
+        return call
+
+    for name in wrapped:
+        setattr(quant, name, counting(name))
+    try:
+        card_against_cpu("tiny-llama int8, ragged, T = 512", cfg,
+                         init_random(cfg.model, seed=0, device="cpu"),
+                         INT8_TIE_GAP)
+    finally:
+        for name, fn in wrapped.items():
+            setattr(quant, name, fn)
+    if not (routes["int8_mm"] and routes["dequantize_tile"]):
+        raise AssertionError(f"[parity] int8: routes on the card {routes}; "
+                             "both W8A8 (int8_mm) and W8A16 must run")
+    log(f"[parity] int8 routes on the card: {dict(routes)} calls")
+
+    with tempfile.TemporaryDirectory() as root:
+        write_hf_checkpoint(np, ModelConfig.from_pretrained("tiny-llama"),
+                            root)
+        cfg = config_from_args(build_parser().parse_args(
+            ["--model", root, "--dtype", "float32", "--max-num-seqs", "8",
+             "--max-num-batched-tokens", "64", "--num-blocks", "256"]))
+        if cfg.model.weights_path != root:
+            raise AssertionError("[parity] --model <dir> did not set the "
+                                 "checkpoint path")
+        card_against_cpu("tiny-llama checkpoint, --model <dir>", cfg, None,
+                         TIE_GAP)
+
+
+def _moe_profile(torch, np, eng, card: str) -> None:
+    """One ragged step of 2048 prefill tokens (2 prompts of 1024, one
+    dispatch and the step that resolves it) and 16 decode steps at 64
+    rows, traced on the Mixtral engine that just served."""
+    rng = np.random.default_rng(9)
+    r0 = eng.ragged_dispatches
+
+    def prefill():
+        _add_requests(eng, rng, "mp", 2, 1024, 1)
+        while eng.has_unfinished():
+            eng.step()
+
+    prof = _profiled(torch, prefill, MOE_RANGES)
+    if eng.ragged_dispatches - r0 != 1:
+        raise AssertionError("[moe-int8] the prefill window is not one "
+                             "ragged step")
+    _report(card, "mixtral int8, ragged, 2048 prefill tokens (traced: host "
+            "tracing slows the wall clock)", 1, *prof)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill()
+    torch.cuda.synchronize()
+    log(f"[moe-int8] ragged, 2048 prefill tokens, untraced ({card}): "
+        f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+    _add_requests(eng, rng, "md", 64, 128, 48)
+    d0 = eng.decode_dispatches
+    while eng.decode_dispatches == d0:  # prefill all 64, then one decode
+        eng.step()
+
+    def decode():
+        for _ in range(16):
+            eng.step()
+
+    prof = _profiled(torch, decode, MOE_RANGES)
+    if eng.decode_dispatches - d0 != 17:
+        raise AssertionError("[moe-int8] the decode window ran ragged steps")
+    _report(card, "mixtral int8, decode, 64 rows (traced)", 16, *prof)
+    # the host's tracing slows a step: the next 16 untraced
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode()
+    torch.cuda.synchronize()
+    log(f"[moe-int8] decode, 64 rows, untraced ({card}): "
+        f"{(time.perf_counter() - t0) * 1e3 / 16:.3f} ms a step")
+    for rid in list(eng.scheduler.seqs):
+        eng.abort_request(rid)
+
+
+def _last_logits(torch, cfg, params, tokens, ref_tokens=None):
+    """float32 logits at the last of ``tokens`` (one sequence) through the
+    port's model on the card, attention through K1 and K2."""
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.ops.kv_write import kv_write
+    from production_stack_tpu_torch.ops.paged_attention import combine_kv
+    from production_stack_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention,
+    )
+
+    S, bs, dev = len(tokens), 16, "cuda"
+    M = -(-S // bs)
+    pool = torch.zeros((cfg.num_layers, M, bs, 2 * cfg.num_kv_heads,
+                        cfg.head_dim), dtype=cfg.torch_dtype, device=dev)
+    tables = torch.zeros((1, (M + 7) // 8 * 8), dtype=torch.int32,
+                         device=dev)
+    tables[0, :M] = torch.arange(M, dtype=torch.int32, device=dev)
+    cu = torch.tensor([0, S], dtype=torch.int32, device=dev)
+    ctx = torch.tensor([S], dtype=torch.int32, device=dev)
+    slots = torch.arange(S, dtype=torch.int32, device=dev)
+
+    def attend(q, k, v, pool, layer):
+        kv_write(pool, combine_kv(k, v).to(pool.dtype).contiguous(), slots,
+                 layer)
+        return ragged_paged_attention(q.contiguous(), pool, tables, cu, ctx,
+                                      layer), pool
+
+    with torch.inference_mode():
+        hidden, _ = llama.forward_tokens(
+            cfg, params, torch.tensor(tokens, device=dev),
+            torch.arange(S, device=dev), attend, pool, ref_tokens=ref_tokens)
+        return llama.logits_from_hidden(cfg, params, hidden[-1:])[0]
+
+
+def int8_cosine_check(torch, np) -> dict:
+    """llama-3-8b at full width, bf16 against the same weights quantized
+    to int8, on one 256-token prompt: the last token's logits must have
+    cosine > 0.99 (the reference's tests/test_quant.py bound), through
+    W8A8 (256 rows) and through W8A16 (the products told they run 2048
+    tokens, as a ragged step's do)."""
+    import dataclasses as dc
+
+    from production_stack_tpu_torch.engine.config import ModelConfig
+    from production_stack_tpu_torch.engine.quant import quantize_params
+    from production_stack_tpu_torch.engine.weights import init_random
+
+    cfg = ModelConfig.from_pretrained("llama-3-8b")
+    prompt = np.random.default_rng(11).integers(0, 256, 256).tolist()
+    params = init_random(cfg, seed=0, device="cuda")
+    want = _last_logits(torch, cfg, params, prompt).float()
+    qcfg = dc.replace(cfg, quant="int8")
+    qparams = quantize_params(qcfg, params)
+    del params
+    cos = {}
+    for route, ref in (("w8a8", None), ("w8a16", 2048)):
+        got = _last_logits(torch, qcfg, qparams, prompt, ref).float()
+        cos[route] = float(torch.nn.functional.cosine_similarity(
+            want, got, dim=0))
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    if min(cos.values()) <= 0.99:
+        raise AssertionError(f"[moe-int8] llama-3-8b int8 against bf16: "
+                             f"last-token logit cosine {cos} <= 0.99")
+    log(f"[moe-int8] llama-3-8b int8 against bf16, 256-token prompt: "
+        f"last-token logit cosine {json.dumps(cos)} (> 0.99)")
+    return cos
+
+
+def moe_int8_phase(torch, np, counters, card: str) -> dict:
+    """Phase 8: mixtral-8x7b at full width and depth in int8 (bf16
+    activations, ``--quantization int8``, random weights from seed 0 made
+    on the card) through the HTTP server on the ragged path, without the
+    launch warmup. The 16 requests of a slice: every response 200 with 32
+    tokens, K1, K2 and K3 launched and K4 not. Weight bytes, KV blocks,
+    output tok/s and median TTFT printed; /debug/perf read after a prefill
+    window alone in the accountant's window (MFU in (0, 1.05]); a profile
+    of one 2048-token ragged step and 16 decode steps at 64 rows. Then
+    llama-3-8b int8 against bf16 (``int8_cosine_check``). Returns the
+    wave's launches."""
+    from production_stack_tpu_torch.engine import quant
+    from production_stack_tpu_torch.engine.server import (
+        EngineServer,
+        build_parser,
+        config_from_args,
+    )
+
+    model = "mixtral-8x7b"
+    cfg = config_from_args(build_parser().parse_args(
+        ["--model", model, "--quantization", "int8", "--seed", "0",
+         "--perf-window", str(MOE_PERF_WINDOW)]))
+    t0 = time.perf_counter()
+    server = EngineServer(cfg, device="cuda")  # no launch warmup
+    base = f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
+    eng = server.engine
+    params = eng.runner.params
+    leaves = [params["embed"], params["lm_head"], *params["layers"].values()]
+    q_bytes = sum(w["q"].numel() for w in leaves if quant.is_quantized(w))
+    s_bytes = sum(4 * w["s"].numel() for w in leaves if quant.is_quantized(w))
+    rest = sum(w.numel() * w.element_size() for w in leaves
+               if not quant.is_quantized(w)) + 2 * params["final_norm"].numel()
+    log(f"[moe-int8] {model} int8 up in {time.perf_counter() - t0:.1f} s "
+        f"({card}; launch warmup skipped): weights {q_bytes} B int8 + "
+        f"{s_bytes} B float32 scales + {rest} B bf16 (norms, router); "
+        f"{eng.runner.num_blocks} KV blocks of {cfg.cache.block_size} "
+        f"tokens; device memory {torch.cuda.memory_allocated() / 2**30:.1f}"
+        f" GiB allocated")
+    try:
+        results, wall, launches = _slice_wave(np, base, model, counters)
+        stamps = list(server.async_engine.finished)
+        for status, n_out, _ in results:
+            if status != 200 or n_out != 32:
+                raise AssertionError(f"[moe-int8] bad response: status "
+                                     f"{status}, {n_out} tokens")
+        _expect(launches, {"K1", "K2", "K3"}, "moe-int8")
+        out_tok = sum(r[1] for r in results)
+        stats = eng.stats()
+        log(f"[moe-int8] wave ({card}): " + json.dumps({
+            "requests": len(results), "output_tokens": out_tok,
+            "wall_s": wall, "output_tok_per_s": out_tok / wall,
+            "ttft_median_s": statistics.median(
+                ft - arr for arr, ft, _, _ in stamps),
+            "e2e_median_s": statistics.median(r[2] for r in results),
+            "ragged_steps": stats["ragged_dispatches_total"],
+            "decode_steps": stats["decode_dispatches_total"],
+            "launches": launches}))
+        # the wave's dispatches leave the accountant's window first
+        time.sleep(MOE_PERF_WINDOW + 0.5)
+        rng = np.random.default_rng(10)
+        bodies = [{"model": model, "prompt": rng.integers(0, 256, 1024)
+                   .tolist(), "max_tokens": 1, "temperature": 0.0}
+                  for _ in range(8)]
+        t1 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(bodies)) as pool:
+            done = list(pool.map(lambda b: _post(base, "/v1/completions", b),
+                                 bodies))
+        window = time.perf_counter() - t1
+        status, perf, _ = _post(base, "/debug/perf")
+        mfu = perf["model_flops_utilization"]
+        if (any(d[0] != 200 for d in done) or status != 200
+                or not 0.0 < mfu <= 1.05):
+            raise AssertionError(f"[moe-int8] prefill window: statuses "
+                                 f"{[d[0] for d in done]}, /debug/perf "
+                                 f"{status}, MFU {mfu}")
+        log(f"[moe-int8] prefill window, 8 x 1024 tokens in {window:.2f} s "
+            f"({card}): /debug/perf MFU {mfu:.4f}, HBM "
+            f"{perf['hbm_bandwidth_utilization']:.4f}, prefill tok/s "
+            f"{perf['tokens_per_second']['prefill']:.1f}; parameters "
+            f"{perf['model']['param_count']}, active a token "
+            f"{perf['model']['active_param_count']}, bytes "
+            f"{perf['model']['param_bytes']}")
+    finally:
+        server.shutdown()
+    _moe_profile(torch, np, eng, card)
+    del server, eng, params, leaves
+    _released(torch, "moe-int8")
+    int8_cosine_check(torch, np)
+    return launches
+
+
 def _expect(launches: dict, expected: set, tag: str) -> None:
     for key, n in launches.items():
         if (n > 0) != (key in expected):
@@ -2375,8 +2803,10 @@ def main() -> int:
         bf16_phase(torch, np, impl)
     features_parity_phase(torch, np)
     spec_bf16_phase(torch, np)
+    moe_int8_parity_phase(torch, np)
     by_path.update(features_phase(torch, np, counters, card))
     by_path["surface-ragged"] = surface_phase(torch, np, counters, card)
+    by_path["moe-int8"] = moe_int8_phase(torch, np, counters, card)
 
     kernels = []
     for r in results:

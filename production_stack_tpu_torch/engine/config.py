@@ -1,28 +1,30 @@
 """Engine configuration: model architecture, paged-KV cache geometry and
 scheduler limits.
 
-Mirrors ``production_stack_tpu/engine/config.py`` for the dense
-architectures this package serves: each field here has the reference's
-name and each preset here equals the reference preset on those fields.
-The reference's MoE, Whisper, quantization and checkpoint-path options,
-and the presets that need them, come with the slices that implement them
-(ROADMAP.md); until then asking for one raises. One card has no device
-mesh, so ``MeshConfig`` has no counterpart; ``PerfConfig``'s zero peaks
-mean the H100's rather than the v5e's; and ``jax_dtype`` becomes
-``torch_dtype``.
+Mirrors ``production_stack_tpu/engine/config.py`` for the architectures
+this package serves (the Llama family, Mixtral's MoE, int8 quantization
+and local HF checkpoints): each field here has the reference's name and
+each preset here equals the reference preset on those fields. Whisper's
+fields and presets are not ported (ROADMAP.md); asking for one raises.
+One card has no device mesh, so ``MeshConfig`` has no counterpart;
+``PerfConfig``'s zero peaks mean the H100's rather than the v5e's; and
+``jax_dtype`` becomes ``torch_dtype``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Any, Optional
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str = "tiny-llama"
-    # "llama" | "gemma" | "gemma2" | "phi3"; Mistral and Qwen run as "llama"
-    # (their deltas are knobs: sliding_window, qkv_bias, qk_norm).
+    # "llama" | "mixtral" | "gemma" | "gemma2" | "phi3"; Mistral and Qwen
+    # run as "llama" (their deltas are knobs: sliding_window, qkv_bias,
+    # qk_norm); "phi3" differs only in its fused HF weight layout
     architecture: str = "llama"
     vocab_size: int = 32000
     hidden_size: int = 2048
@@ -37,6 +39,9 @@ class ModelConfig:
     max_model_len: int = 4096
     tie_word_embeddings: bool = False
     dtype: str = "bfloat16"
+    # MoE (mixtral)
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
     # Qwen2-family: biases on the QKV projections
     qkv_bias: bool = False
     # Qwen3-family: per-head RMSNorm on q and k (over head_dim, pre-rope)
@@ -53,6 +58,12 @@ class ModelConfig:
     # the window: max_model_len must be <= sliding_window (checked when the
     # model runner starts), where local and global attention coincide.
     sliding_window: int = 0
+    # weight/activation quantization: None (model dtype) or "int8"
+    # (per-channel int8 weights; W8A8 below engine/quant.py's token
+    # threshold, W8A16 at or above it)
+    quant: Optional[str] = None
+    # where to load weights from (safetensors dir); None -> random init
+    weights_path: Optional[str] = None
     tokenizer: Optional[str] = None  # HF tokenizer path; None -> byte tokenizer
 
     @property
@@ -67,21 +78,121 @@ class ModelConfig:
         return self.num_heads // self.num_kv_heads
 
     @staticmethod
-    def from_pretrained(preset: str, **overrides) -> "ModelConfig":
-        """Resolve a preset name. Local checkpoint directories are not
-        loaded yet (the weights loader comes in a later slice)."""
-        if preset not in MODEL_PRESETS:
+    def from_hf_config(cfg: dict[str, Any], name: str = "") -> "ModelConfig":
+        """Build from a HuggingFace config.json dict (LlamaForCausalLM /
+        MixtralForCausalLM style keys), with the reference's refusals."""
+        arch = "llama"
+        archs = cfg.get("architectures") or []
+        if any("Whisper" in a for a in archs):
             raise ValueError(
-                f"unknown model preset {preset!r}; known: {sorted(MODEL_PRESETS)}"
-                " (loading a local checkpoint is not supported yet)"
+                f"{archs}: Whisper is not ported yet (ROADMAP.md)")
+        if any("Mixtral" in a for a in archs) or "num_local_experts" in cfg:
+            arch = "mixtral"
+        elif any("Phi3" in a for a in archs):
+            # only the standard Phi-3 maps onto the fused-Llama layout
+            if not all(a == "Phi3ForCausalLM" for a in archs if "Phi3" in a):
+                raise ValueError(
+                    f"unsupported Phi-3 variant {archs}; supported: "
+                    "Phi3ForCausalLM"
+                )
+            # LongRoPE extension factors are not implemented
+            if cfg.get("rope_scaling"):
+                raise ValueError(
+                    "Phi-3 LongRoPE rope_scaling is not supported; use a "
+                    "checkpoint without rope_scaling (e.g. the 4k variants)"
+                )
+            arch = "phi3"
+        elif any("Gemma2" in a for a in archs):
+            arch = "gemma2"
+        elif any(a.startswith("Gemma") and "Gemma2" not in a for a in archs):
+            # only Gemma 1 maps onto the gemma knobs; Gemma-3 adds QK-norm
+            # and per-layer rope/window layouts
+            if not all(a.startswith(("GemmaModel", "GemmaFor"))
+                       for a in archs if "Gemma" in a):
+                raise ValueError(
+                    f"unsupported Gemma variant {archs}; supported: "
+                    "GemmaForCausalLM (gemma), Gemma2ForCausalLM (gemma2)"
+                )
+            arch = "gemma"
+        qkv_bias = any("Qwen2" in a for a in archs) or bool(
+            cfg.get("attention_bias", False)
+        )
+        if any("Qwen3Moe" in a for a in archs):
+            # Qwen3-MoE's mlp.experts.N.* layout is not Mixtral's
+            raise ValueError(
+                f"unsupported Qwen3 variant {archs}; supported: "
+                "Qwen3ForCausalLM (dense)"
+            )
+        qk_norm = any("Qwen3" in a for a in archs)
+        hidden = cfg["hidden_size"]
+        heads = cfg["num_attention_heads"]
+        gemma = arch in ("gemma", "gemma2")
+        hf_act = cfg.get("hidden_activation") or cfg.get("hidden_act") or "silu"
+        qpas = cfg.get("query_pre_attn_scalar", 0)
+        # Qwen2/3 checkpoints carry a sliding_window value but disable it
+        window = int(cfg.get("sliding_window") or 0)
+        if not cfg.get("use_sliding_window", True):
+            window = 0
+        max_len = cfg.get("max_position_embeddings", 4096)
+        if window:
+            # exact-serving gate (see ModelConfig.sliding_window)
+            max_len = min(max_len, window)
+        return ModelConfig(
+            qkv_bias=qkv_bias,
+            qk_norm=qk_norm,
+            name=name or cfg.get("_name_or_path", "hf-model"),
+            architecture=arch,
+            vocab_size=cfg["vocab_size"],
+            hidden_size=hidden,
+            intermediate_size=cfg["intermediate_size"],
+            num_layers=cfg["num_hidden_layers"],
+            num_heads=heads,
+            num_kv_heads=cfg.get("num_key_value_heads", heads),
+            # some checkpoints write an explicit null here
+            head_dim=cfg.get("head_dim") or hidden // heads,
+            rope_theta=cfg.get("rope_theta", 10000.0),
+            rms_norm_eps=cfg.get("rms_norm_eps", 1e-5),
+            max_model_len=max_len,
+            tie_word_embeddings=cfg.get("tie_word_embeddings", gemma),
+            num_experts=cfg.get("num_local_experts", 0),
+            num_experts_per_tok=cfg.get("num_experts_per_tok", 2),
+            act="gelu_tanh" if "gelu" in hf_act else "silu",
+            norm_offset=1.0 if gemma else 0.0,
+            embed_scale=gemma,
+            attn_logit_softcap=float(
+                cfg.get("attn_logit_softcapping") or 0.0),
+            final_logit_softcap=float(
+                cfg.get("final_logit_softcapping") or 0.0),
+            post_norms=arch == "gemma2",
+            query_scale=(qpas ** -0.5) if qpas else 0.0,
+            sliding_window=window,
+        )
+
+    @staticmethod
+    def from_pretrained(path_or_preset: str, **overrides) -> "ModelConfig":
+        """Resolve a preset name or a local HF model directory (its
+        ``config.json``; the directory becomes ``weights_path`` and
+        ``tokenizer``). An option ModelConfig does not have raises."""
+        if path_or_preset in MODEL_PRESETS:
+            base = MODEL_PRESETS[path_or_preset]
+        elif os.path.isfile(os.path.join(path_or_preset, "config.json")):
+            with open(os.path.join(path_or_preset, "config.json")) as f:
+                base = ModelConfig.from_hf_config(json.load(f),
+                                                  name=path_or_preset)
+            base = dataclasses.replace(base, weights_path=path_or_preset,
+                                       tokenizer=path_or_preset)
+        else:
+            raise ValueError(
+                f"unknown model preset {path_or_preset!r}, and no local "
+                f"checkpoint directory with a config.json there; known "
+                f"presets: {sorted(MODEL_PRESETS)}"
             )
         unknown = sorted(set(overrides) - set(ModelConfig.__dataclass_fields__))
         if unknown:
             raise ValueError(
-                f"ModelConfig has no option {unknown}: quantization, MoE, "
-                "Whisper and checkpoint loading are not ported yet (ROADMAP.md)"
+                f"ModelConfig has no option {unknown}: Whisper is not "
+                "ported yet (ROADMAP.md)"
             )
-        base = MODEL_PRESETS[preset]
         return dataclasses.replace(base, **overrides) if overrides else base
 
 
@@ -92,7 +203,12 @@ MODEL_PRESETS: dict[str, ModelConfig] = {
         num_layers=2, num_heads=4, num_kv_heads=2, head_dim=32, max_model_len=512,
         dtype="float32",
     ),
-    # real shapes (weights random-initialised)
+    "tiny-mixtral": ModelConfig(
+        name="tiny-mixtral", architecture="mixtral", vocab_size=512, hidden_size=128,
+        intermediate_size=256, num_layers=2, num_heads=4, num_kv_heads=2, head_dim=32,
+        max_model_len=512, num_experts=4, num_experts_per_tok=2, dtype="float32",
+    ),
+    # real shapes (weights random-initialised unless weights_path given)
     "llama-3-8b": ModelConfig(
         name="llama-3-8b", vocab_size=128256, hidden_size=4096, intermediate_size=14336,
         num_layers=32, num_heads=32, num_kv_heads=8, head_dim=128,
@@ -192,6 +308,14 @@ MODEL_PRESETS: dict[str, ModelConfig] = {
         intermediate_size=12288, num_layers=36, num_heads=32, num_kv_heads=8,
         head_dim=128, rope_theta=1000000.0, max_model_len=32768,
         qk_norm=True, rms_norm_eps=1e-6,
+    ),
+    "mixtral-8x7b": ModelConfig(
+        # fits one 80 GB card in int8 only (--quantization int8): 46.7 G
+        # parameters are 93 GB in bf16
+        name="mixtral-8x7b", architecture="mixtral", vocab_size=32000, hidden_size=4096,
+        intermediate_size=14336, num_layers=32, num_heads=32, num_kv_heads=8,
+        head_dim=128, rope_theta=1000000.0, max_model_len=32768, num_experts=8,
+        num_experts_per_tok=2,
     ),
     "opt-125m-class": ModelConfig(
         name="opt-125m-class", vocab_size=50272, hidden_size=768, intermediate_size=3072,
@@ -311,7 +435,9 @@ class EngineConfig:
     @staticmethod
     def for_model(name: str, **kw) -> "EngineConfig":
         """The engine options among ``kw`` set the engine; every other key
-        overrides a ModelConfig field, and an unknown key raises."""
+        (``quant`` among them) overrides a ModelConfig field, and an
+        unknown key raises. ``name`` is a preset or a local checkpoint
+        directory."""
         engine_kw = {k: kw.pop(k) for k in
                      ("cache", "scheduler", "seed", "attention_impl",
                       "max_loras", "max_lora_rank", "max_grammars",

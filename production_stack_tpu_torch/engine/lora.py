@@ -43,34 +43,46 @@ _KEY_RE = re.compile(r"layers\.(\d+)\.(?:self_attn|mlp)\.(\w+)\.lora_(A|B)\.weig
 _SAFETENSORS_DTYPES = {"F32": "<f4", "F16": "<f2", "BF16": "<u2"}
 
 
-def read_safetensors(path: str) -> dict[str, np.ndarray]:
-    """Every tensor of a ``.safetensors`` file as a numpy array.
+class SafetensorsFile:
+    """One ``.safetensors`` file, read a tensor at a time.
 
     The format: an 8-byte little-endian header length, a JSON header
     mapping each name to its dtype, shape and byte range, then the raw
     little-endian tensors. F32 and F16 keep their dtype; BF16 (which numpy
     lacks) comes back as float32, its 16 bits shifted into the top of a
-    float32, which is exact. The file is memory-mapped, so a tensor is read
-    when it is copied out, one at a time."""
-    with open(path, "rb") as f:
-        n = int.from_bytes(f.read(8), "little")
-        header = json.loads(f.read(n))
-    data = np.memmap(path, dtype=np.uint8, mode="r", offset=8 + n)
-    out = {}
-    for name, meta in header.items():
-        if name == "__metadata__":
-            continue
+    float32, which is exact. The data is memory-mapped, so ``get`` reads
+    only the tensor it is asked for."""
+
+    def __init__(self, path: str):
+        self.path = path
+        with open(path, "rb") as f:
+            n = int.from_bytes(f.read(8), "little")
+            header = json.loads(f.read(n))
+        header.pop("__metadata__", None)
+        self.header = header
+        self._data = np.memmap(path, dtype=np.uint8, mode="r", offset=8 + n)
+
+    def keys(self) -> list[str]:
+        return list(self.header)
+
+    def get(self, name: str) -> np.ndarray:
+        meta = self.header[name]
         kind = _SAFETENSORS_DTYPES.get(meta["dtype"])
         if kind is None:
-            raise ValueError(f"{path}: tensor {name!r} has dtype "
+            raise ValueError(f"{self.path}: tensor {name!r} has dtype "
                              f"{meta['dtype']}; only F32, F16 and BF16 load")
         lo, hi = meta["data_offsets"]
-        arr = np.frombuffer(data[lo:hi], dtype=kind)
+        arr = np.frombuffer(self._data[lo:hi], dtype=kind)
         if meta["dtype"] == "BF16":
             arr = (arr.astype(np.uint32) << 16).view(np.float32)
-        out[name] = arr.reshape(meta["shape"]).copy()
-    del data
-    return out
+        return arr.reshape(meta["shape"]).copy()
+
+
+def read_safetensors(path: str) -> dict[str, np.ndarray]:
+    """Every tensor of a ``.safetensors`` file as a numpy array
+    (``SafetensorsFile``), read one at a time."""
+    f = SafetensorsFile(path)
+    return {name: f.get(name) for name in f.keys()}
 
 
 def write_safetensors(path: str, tensors: dict[str, np.ndarray]) -> None:

@@ -32,6 +32,13 @@ PyTorch on tensors (gathers, ``torch.where``, matmuls), as in the
 reference, where they run outside any Pallas kernel. Ring prefill, KV
 block export/import and CUDA-graph capture are not ported yet.
 
+Parameters come from ``weights.init_or_load`` (random from the seed, or
+a local checkpoint) or the caller, and pass through
+``quant.maybe_quantize`` as in the reference. Each step hands the model
+the token count of the reference's same step (``ref_tokens``: the
+budget-wide T on the ragged path), which picks the int8 route and sets
+Mixtral's MoE capacity (models/llama.py).
+
 ``install_compile_observer`` wraps the three steps in the perf
 accountant's ``CompileTracker``, keyed on what the card runs: the ragged
 step on its stream length (``stream_length``) and its static flags, not on
@@ -56,7 +63,11 @@ from production_stack_tpu_torch.engine.sampling import (
     sample_tokens,
 )
 from production_stack_tpu_torch.engine.tokenizer import get_tokenizer
-from production_stack_tpu_torch.engine.weights import init_random
+from production_stack_tpu_torch.engine.quant import (
+    DEQUANT_TILE_ELEMS,
+    maybe_quantize,
+)
+from production_stack_tpu_torch.engine.weights import init_or_load
 from production_stack_tpu_torch.models.registry import get_model
 from production_stack_tpu_torch.ops.kv_write import kv_write
 from production_stack_tpu_torch.ops.paged_attention import combine_kv
@@ -141,8 +152,11 @@ class ModelRunner:
             from production_stack_tpu_torch.ops import _build
 
             _build.build_all()
-        self.params = (params if params is not None
-                       else init_random(self.cfg, config.seed, self.device))
+        # every way params are made goes through maybe_quantize, as in the
+        # reference: a caller's bf16 dict is quantized here under cfg.quant
+        self.params = maybe_quantize(
+            self.cfg, params if params is not None
+            else init_or_load(self.cfg, config.seed, self.device))
         mbs = -(-self.cfg.max_model_len // config.cache.block_size)
         # table width padded to a multiple of 8, as the reference pads it
         # for its kernels' DMA windows (tables are 0-padded past live blocks)
@@ -227,7 +241,11 @@ class ModelRunner:
         ragged step has T tokens and (S, V) logits. A bucketed prefill step
         has up to prefill_batch chunks padded to the bucket of the largest
         chunk the scheduler issues (as the reference's _prefill_temp_bytes
-        sizes it), and its decode steps have (S, V) logits."""
+        sizes it), and its decode steps have (S, V) logits. An int8 model
+        adds a float32 copy of the activations, the int32 accumulators and
+        one dequantized weight tile; a MoE model its capacity buffers: up
+        to 2 T k / X rows an expert (at most T), in and out, with their
+        gate and up products."""
         sched = self.config.scheduler
         c = self.cfg
         rows = sched.max_num_seqs
@@ -247,7 +265,23 @@ class ModelRunner:
             c.vocab_size * 2 + 1)
         lora = bank_bytes(c, cfg.max_loras, cfg.max_lora_rank,
                           c.torch_dtype.itemsize)
-        return int(8 * hidden + 4 * mlp + 4 * logits + grammar + lora)
+        extra = 0
+        if c.quant:
+            wide = max(c.intermediate_size, c.hidden_size)
+            # float32 activations, int8 copies, int32 accumulators; the
+            # dequantized W8A16 tile
+            extra += (tokens * wide * (4 + 1 + 4)
+                      + DEQUANT_TILE_ELEMS * c.torch_dtype.itemsize)
+        if c.architecture == "mixtral" and c.num_experts > 0:
+            k, X = c.num_experts_per_tok, c.num_experts
+            slots = X * min(max(int(2.0 * tokens * k / X), k), tokens)
+            # dispatched rows in and out (E), gate, up and their product
+            # (F), in the model dtype, and the gathered (T, k, E) float32
+            extra += (slots * (2 * c.hidden_size + 3 * c.intermediate_size)
+                      * c.torch_dtype.itemsize
+                      + tokens * k * c.hidden_size * 4)
+        return int(8 * hidden + 4 * mlp + 4 * logits + grammar + lora
+                   + extra)
 
     def _resolve_num_blocks(self, explicit: Optional[int]) -> int:
         if explicit is not None:
@@ -301,12 +335,17 @@ class ModelRunner:
         )
         return out, kv
 
-    def _forward(self, attend_impl, tokens, positions, meta, lora=None):
+    def _forward(self, attend_impl, tokens, positions, meta, lora=None,
+                 ref_tokens=None):
+        """The decoder stack over ``tokens``; ``ref_tokens`` is the token
+        count of the reference's same step (models/llama.py), None where
+        it runs the same rows as this one."""
         def attend(q, k, v, kv, layer):
             return attend_impl(q, k, v, kv, layer, meta)
 
         hidden, self.kv = self.model.forward_tokens(
-            self.cfg, self.params, tokens, positions, attend, self.kv, lora)
+            self.cfg, self.params, tokens, positions, attend, self.kv, lora,
+            ref_tokens)
         return hidden
 
     # -- constrained-decoding grammar bank ---------------------------------
@@ -463,6 +502,9 @@ class ModelRunner:
         top_ids (S, N), top_lps (S, N)); the caller fetches them when it
         needs them."""
         c = self.cfg
+        # the reference runs the whole budget-wide stream: its token count
+        # picks the int8 route and the MoE capacity here too
+        ref_tokens = len(tokens)
         # the tail past the live tokens is padding: cut it to STREAM_ROUND
         n = stream_length(len(tokens), int(cu_q_lens[-1]))
         tokens, positions, slot_mapping = (tokens[:n], positions[:n],
@@ -482,7 +524,7 @@ class ModelRunner:
         }
         hidden = self._forward(self._attend_ragged, self._dev(tokens),
                                self._dev(positions), meta,
-                               self._lora(adapter_ids))
+                               self._lora(adapter_ids), ref_tokens)
         last = hidden[self._dev(last_idx, torch.int64)]  # (S, E)
         logits = self.model.logits_from_hidden(self.cfg, self.params, last)
         samp = self._sampling_inputs(temps, top_ps, top_ks, seeds, steps)

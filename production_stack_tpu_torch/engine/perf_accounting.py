@@ -21,6 +21,11 @@ A copy of production_stack_tpu/engine/perf_accounting.py for one card:
   on the shapes of its host arguments.
 
 Token counts are LIVE tokens, not padded: padding waste shows as lost MFU.
+FLOPs count a token's ACTIVE parameters (``active_param_count``): on a
+MoE model every parameter outside the expert stacks plus k/X of them,
+where the reference counts every expert for every token; on a dense model
+the two counts are equal. Bytes count each leaf at its own element size,
+int8 weights and their float32 scales included.
 The reference's tenant attribution plane is not ported yet; the
 ``record_*`` calls keep its ``tenants=`` argument and ignore it.
 """
@@ -65,6 +70,36 @@ def _tensors(tree):
             yield from _tensors(v)
     elif hasattr(tree, "numel"):
         yield tree
+
+
+def param_counts(params: dict, model_cfg) -> Tuple[int, int, int]:
+    """(parameters, active parameters a token, bytes) of a parameter dict.
+    A quantized leaf ``{"q", "s"}`` counts q's elements as parameters and
+    both tensors' bytes. A token visits k of X experts, so the expert
+    stacks count k/X of their parameters among the active ones."""
+    experts = set()
+    if (getattr(model_cfg, "architecture", "") == "mixtral"
+            and getattr(model_cfg, "num_experts", 0) > 0):
+        experts = {"w_gate", "w_up", "w_down"}
+    share = (model_cfg.num_experts_per_tok / model_cfg.num_experts
+             if experts else 1.0)
+    count = active = nbytes = 0
+
+    def add(name: str, leaf) -> None:
+        nonlocal count, active, nbytes
+        n = int((leaf["q"] if isinstance(leaf, dict) else leaf).numel())
+        count += n
+        active += n * share if name in experts else n
+        nbytes += sum(int(t.numel()) * t.element_size()
+                      for t in _tensors(leaf))
+
+    for name, leaf in params.items():
+        if name == "layers":
+            for lname, lleaf in leaf.items():
+                add(lname, lleaf)
+        else:
+            add(name, leaf)
+    return count, int(round(active)), nbytes
 
 
 class CompileTracker:
@@ -136,7 +171,8 @@ class PerfAccountant:
     def __init__(self, model_cfg, *, param_count: int, param_bytes: int,
                  window: float = 60.0, peak_tflops: float = 0.0,
                  peak_hbm_gbps: float = 0.0, hbm_poll_interval: float = 5.0,
-                 peak_ici_gbps: float = 0.0, device=None):
+                 peak_ici_gbps: float = 0.0, device=None,
+                 active_param_count: Optional[int] = None):
         self.window = max(window, 1.0)
         # one card, no tensor parallelism, until the port runs across
         # cards; the arithmetic below keeps the reference's terms for both
@@ -152,6 +188,10 @@ class PerfAccountant:
         # ceiling stays per card
         self.peak_ici = (peak_ici_gbps or H100_PEAK_NVLINK_GBPS) * 1e9
         self.param_count = max(int(param_count), 1)
+        # the parameters a token's FLOPs count (module docstring)
+        self.active_param_count = max(int(
+            param_count if active_param_count is None
+            else active_param_count), 1)
         self.param_bytes = max(int(param_bytes), 1)
         self.hbm_poll_interval = hbm_poll_interval
         # the card whose memory counters feed the HBM gauges; None or a
@@ -215,15 +255,17 @@ class PerfAccountant:
 
     @classmethod
     def from_runner(cls, config, runner) -> "PerfAccountant":
-        """The accountant of ``runner``'s model: parameters and bytes
-        counted over its parameter tensors (the LoRA bank, the grammar
-        bank and the KV pool are not parameters), one card."""
+        """The accountant of ``runner``'s model: parameters, active
+        parameters and bytes counted over its parameter tensors
+        (``param_counts``; the LoRA bank, the grammar bank and the KV pool
+        are not parameters), one card."""
         params = getattr(runner, "params", None)
-        tensors = list(_tensors(params)) if params is not None else []
-        param_count = sum(int(t.numel()) for t in tensors)
-        param_bytes = sum(int(t.numel()) * t.element_size() for t in tensors)
+        param_count = active = param_bytes = 0
+        if params:
+            param_count, active, param_bytes = param_counts(params,
+                                                            config.model)
         if not param_count:
-            param_count = estimate_param_count(config.model)
+            param_count = active = estimate_param_count(config.model)
             param_bytes = param_count * _dtype_bytes(config.model.dtype)
         perf = config.perf
         acct = cls(config.model, param_count=param_count,
@@ -232,7 +274,8 @@ class PerfAccountant:
                    peak_hbm_gbps=perf.peak_hbm_gbps,
                    hbm_poll_interval=perf.hbm_poll_interval,
                    peak_ici_gbps=perf.peak_ici_gbps,
-                   device=getattr(runner, "device", None))
+                   device=getattr(runner, "device", None),
+                   active_param_count=active)
         acct.costmodel_drift_band = perf.costmodel_drift_band
         return acct
 
@@ -275,7 +318,7 @@ class PerfAccountant:
         ``rows`` chunks whose post-chunk context lengths sum to
         ``ctx_tokens``. ``seconds`` is the dispatch's wall time."""
         ctx_mean = ctx_tokens / max(rows, 1)
-        flops = (2.0 * self.param_count * live_tokens
+        flops = (2.0 * self.active_param_count * live_tokens
                  + self._attn_per_tok_ctx * live_tokens * ctx_mean)
         hbm = (self.param_bytes
                + (live_tokens + ctx_tokens) * self._kv_bytes_per_tok)
@@ -295,7 +338,7 @@ class PerfAccountant:
         ``live_seqs`` sequences with ``ctx_tokens`` total context. Decode
         re-reads the weights every step."""
         tokens = live_seqs * steps
-        flops = (2.0 * self.param_count * tokens
+        flops = (2.0 * self.active_param_count * tokens
                  + self._attn_per_tok_ctx * ctx_tokens * steps)
         hbm = steps * (self.param_bytes
                        + (ctx_tokens + live_seqs) * self._kv_bytes_per_tok)
@@ -333,13 +376,13 @@ class PerfAccountant:
         predicted: List[Tuple[str, float]] = []
         if prefill_tokens > 0 or spec_tokens > 0:
             ctx_mean = prefill_ctx / max(prefill_rows, 1)
-            flops = (2.0 * self.param_count * prefill_tokens
+            flops = (2.0 * self.active_param_count * prefill_tokens
                      + self._attn_per_tok_ctx * prefill_tokens * ctx_mean)
             hbm = (self.param_bytes
                    + (prefill_tokens + prefill_ctx) * self._kv_bytes_per_tok)
             if spec_tokens > 0:
                 spec_ctx_mean = spec_ctx / max(spec_rows, 1)
-                flops += (2.0 * self.param_count * spec_tokens
+                flops += (2.0 * self.active_param_count * spec_tokens
                           + self._attn_per_tok_ctx * spec_tokens
                           * spec_ctx_mean)
                 hbm += ((spec_tokens + spec_ctx) * self._kv_bytes_per_tok)
@@ -350,7 +393,7 @@ class PerfAccountant:
             predicted.append(
                 ("prefill", self._predicted_seconds(flops, hbm, ar + ag)))
         if decode_seqs > 0:
-            flops = (2.0 * self.param_count * decode_seqs
+            flops = (2.0 * self.active_param_count * decode_seqs
                      + self._attn_per_tok_ctx * decode_ctx)
             hbm = (decode_ctx + decode_seqs) * self._kv_bytes_per_tok
             if prefill_tokens <= 0 and spec_tokens <= 0:
@@ -584,6 +627,7 @@ class PerfAccountant:
                           "hbm_bytes_per_s": self.peak_hbm,
                           "ici_bytes_per_s": self.peak_ici},
                 "model": {"param_count": self.param_count,
+                          "active_param_count": self.active_param_count,
                           "param_bytes": self.param_bytes},
                 "model_flops_utilization": rates["mfu"],
                 "hbm_bandwidth_utilization": rates["hbm_bw_util"],

@@ -1024,7 +1024,9 @@ class EngineServer:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--model", default="tiny-llama",
-                   help="model preset name (engine/config.py MODEL_PRESETS)")
+                   help="model preset name (engine/config.py MODEL_PRESETS) "
+                        "or a local HF checkpoint directory (config.json "
+                        "and *.safetensors)")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--device", default="cuda",
@@ -1050,6 +1052,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--block-size", type=int, default=None)
     p.add_argument("--num-blocks", type=int, default=None)
     p.add_argument("--dtype", default=None)
+    p.add_argument("--quantization", default=None, choices=["int8"],
+                   help="int8: per-channel int8 weights, quantized when "
+                        "they are made or loaded; products below 512 "
+                        "tokens run W8A8 (cuBLAS int8 GEMM), larger ones "
+                        "W8A16 (PSTPU_QUANT_A16_THRESHOLD)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--served-model-name", default=None)
     p.add_argument("--speculative-ngram", type=int, default=0,
@@ -1114,6 +1121,8 @@ def config_from_args(args) -> EngineConfig:
         overrides["max_model_len"] = args.max_model_len
     if args.dtype is not None:
         overrides["dtype"] = args.dtype
+    if args.quantization:
+        overrides["quant"] = args.quantization
     cache = CacheConfig()
     if args.block_size is not None:
         cache.block_size = args.block_size

@@ -1,34 +1,93 @@
-"""Model parameters: seeded random init on the device, and conversion of
-the JAX package's parameters.
+"""Model parameters: seeded random init on the device, local HF
+safetensors checkpoints, and conversion of the JAX package's parameters.
 
-Random init allocates and fills every tensor on the target device with a
-seeded ``torch.Generator``: filling 8B parameters on the host and copying
-them over would take tens of seconds. Values follow the reference's scheme
-(normal / sqrt(fan_in), norms at an effective scale of 1) but not its
-random stream. Loading safetensors checkpoints comes in a later slice.
+Random init allocates every tensor on the target device and fills it
+with a seeded ``torch.Generator``, one slice at a time (a layer; a layer's
+expert): filling 8B parameters on the host and copying them over would
+take tens of seconds. Values follow the reference's scheme (normal /
+sqrt(fan_in), norms at an effective scale of 1) but not its random
+stream. With ``cfg.quant`` each slice is made in the model dtype and
+quantized into a preallocated int8 stack, so the model never exists in
+bf16 whole (mixtral-8x7b is 93 GB in bf16, 47 GB in int8), and the int8
+model is exactly the quantization of the bf16 one of the same seed.
+
+Checkpoints load through the reference's HF key map and conversions
+(``_hf_key_map``, ``_convert``: the Llama and Mixtral families, Qwen2/3
+biases and norms, Gemma-2's norms, Phi-3's fused layouts), read by this
+package's own safetensors reader (``lora.SafetensorsFile``). Tensors go
+to the device one at a time, into preallocated stacks, quantized on load
+when ``cfg.quant`` is set; the reference stacks every layer on the host
+first. Orbax checkpoints are not ported.
 """
 
 from __future__ import annotations
 
+import glob
+import itertools
+import os
+
 import numpy as np
 import torch
 
+from production_stack_tpu_torch.engine import quant
 from production_stack_tpu_torch.engine.config import ModelConfig
+from production_stack_tpu_torch.engine.lora import SafetensorsFile
 from production_stack_tpu_torch.models.registry import get_model
 
 # fan-in of each weight: the number of inputs one output sums over
 _FAN_IN = {
     "wq": "E", "wk": "E", "wv": "E", "wo": "HD", "bq": "E", "bk": "E",
     "bv": "E", "w_gate": "E", "w_up": "E", "w_down": "F", "embed": "E",
-    "lm_head": "E",
+    "lm_head": "E", "router": "E",
 }
 _NORMS = ("attn_norm", "mlp_norm", "q_norm", "k_norm", "post_attn_norm",
           "post_mlp_norm", "final_norm")
 
 
+def _quant_axes(cfg: ModelConfig) -> dict:
+    """Leaf name -> contracted axes of each leaf ``cfg.quant`` quantizes
+    (none without it), in the stacked layout."""
+    if not cfg.quant:
+        return {}
+    if cfg.quant != "int8":
+        raise ValueError(f"unsupported quantization mode: {cfg.quant!r}")
+    return {**quant.contract_axes(cfg), **quant.TOP_CONTRACT}
+
+
+class _Leaf:
+    """A parameter under construction on the device: a stack in the model
+    dtype, or the int8 and scale stacks of a quantized one, filled a
+    slice at a time."""
+
+    def __init__(self, shape: tuple, dtype, device, axes=None):
+        self.axes = axes
+        self.value = (torch.empty(shape, dtype=dtype, device=device)
+                      if axes is None
+                      else quant.empty_quantized(shape, axes, device))
+
+    def put(self, idx: tuple, t: torch.Tensor) -> None:
+        """Write slice ``idx`` (leading indices) from ``t`` in the model
+        dtype, quantizing it over the leaf's contracted axes."""
+        if self.axes is None:
+            self.value[idx] = t
+        else:
+            quant.put_quantized(self.value, idx, t, self.axes)
+
+
+def _slices(name: str, shape: tuple, layer: bool) -> list:
+    """The slices a leaf is made in: each layer, and each layer's expert
+    for an expert stack (rank 4 below the layer axis: (L, X, E, F))."""
+    if not layer:
+        return [()]
+    lead = shape[:2] if name in ("w_gate", "w_up", "w_down") and len(
+        shape) == 4 else shape[:1]
+    return list(itertools.product(*(range(d) for d in lead)))
+
+
 def init_random(cfg: ModelConfig, seed: int = 0,
                 device: torch.device | str = "cpu") -> dict:
-    """Random parameters, made on ``device`` from ``seed``."""
+    """Random parameters, made on ``device`` from ``seed``, quantized
+    slice by slice when ``cfg.quant`` is set."""
     shapes = get_model(cfg).param_shapes(cfg)
     dt = cfg.torch_dtype
     gen = torch.Generator(device=device)
@@ -37,28 +96,52 @@ def init_random(cfg: ModelConfig, seed: int = 0,
            "F": cfg.intermediate_size}
     # Gemma stores zero-centred norm weights (the forward adds norm_offset)
     norm_one = 1.0 - cfg.norm_offset
+    axes = _quant_axes(cfg)
 
-    def make(name: str, shape: tuple) -> torch.Tensor:
+    def make(name: str, shape: tuple, layer: bool):
         if name in _NORMS:
             return torch.full(shape, norm_one, dtype=dt, device=device)
-        t = torch.empty(shape, dtype=dt, device=device)
-        return t.normal_(0.0, fan[_FAN_IN[name]] ** -0.5, generator=gen)
+        leaf = _Leaf(shape, dt, device, axes.get(name))
+        std = fan[_FAN_IN[name]] ** -0.5
+        for idx in _slices(name, shape, layer):
+            t = torch.empty(shape[len(idx):], dtype=dt, device=device)
+            leaf.put(idx, t.normal_(0.0, std, generator=gen))
+        return leaf.value
 
-    params = {name: make(name, shape)
+    params = {name: make(name, shape, False)
               for name, shape in shapes.items() if name != "layers"}
-    params["layers"] = {name: make(name, shape)
+    params["layers"] = {name: make(name, shape, True)
                         for name, shape in shapes["layers"].items()}
     return params
+
+
+def to_device(params: dict, device) -> dict:
+    """A parameter dict (quantized leaves included) moved to ``device``."""
+    return {k: (to_device(v, device) if isinstance(v, dict)
+                else v.to(device)) for k, v in params.items()}
 
 
 def params_from_jax(np_tree: dict, cfg: ModelConfig,
                     device: torch.device | str = "cpu") -> dict:
     """The JAX package's parameter tree, as numpy arrays, to this
     package's parameter dict (same names and shapes), so both compute the
-    same function."""
+    same function. Quantized leaves ``{"q": int8, "s": float32}`` keep
+    their dtypes."""
     shapes = get_model(cfg).param_shapes(cfg)
 
-    def conv(name: str, x, shape: tuple) -> torch.Tensor:
+    def conv(name: str, x, shape: tuple):
+        if isinstance(x, dict):
+            q = np.asarray(x["q"])
+            s = np.asarray(x["s"], np.float32)
+            if q.dtype != np.int8 or q.shape != tuple(shape):
+                raise ValueError(f"{name}: quantized {q.dtype} {q.shape} "
+                                 f"!= int8 {shape}")
+            # laid out as quantize_array lays q out: contracted axes fastest
+            axes = tuple(i for i, d in enumerate(s.shape)
+                         if d == 1 and shape[i] != 1)
+            out = quant.empty_q(shape, axes, device)
+            out.copy_(torch.from_numpy(q.copy()))
+            return {"q": out, "s": torch.from_numpy(s.copy()).to(device)}
         a = np.asarray(x, dtype=np.float32)
         if a.shape != tuple(shape):
             raise ValueError(f"{name}: shape {a.shape} != expected {shape}")
@@ -69,4 +152,159 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig,
               for name, shape in shapes.items() if name != "layers"}
     params["layers"] = {name: conv(name, np_tree["layers"][name], shape)
                         for name, shape in shapes["layers"].items()}
+    return params
+
+
+def init_or_load(cfg: ModelConfig, seed: int = 0,
+                 device: torch.device | str = "cpu") -> dict:
+    """``cfg.weights_path``'s safetensors checkpoint, or random
+    parameters from ``seed`` without one."""
+    if not cfg.weights_path:
+        return init_random(cfg, seed, device)
+    path = cfg.weights_path
+    if path.startswith("gs://") or os.path.isfile(
+            os.path.join(path, "_CHECKPOINT_METADATA")):
+        raise ValueError(f"{path}: Orbax checkpoints are not ported yet "
+                         "(ROADMAP.md); convert to safetensors")
+    if not glob.glob(os.path.join(path, "*.safetensors")):
+        raise ValueError(f"{path}: no *.safetensors files to load")
+    return load_safetensors(cfg, device)
+
+
+# --- HF checkpoint mapping (a copy of the reference's) ----------------------
+
+def _hf_key_map(cfg: ModelConfig, i: int) -> dict:
+    """HF tensor name -> (our layer param name, reshape rule) for layer i.
+    A value may also be a LIST of (name, rule) pairs when one HF tensor
+    feeds several of our params (Phi-3's fused projections)."""
+    m = {
+        f"model.layers.{i}.input_layernorm.weight": ("attn_norm", "copy"),
+        f"model.layers.{i}.self_attn.q_proj.weight": ("wq", "proj_q"),
+        f"model.layers.{i}.self_attn.k_proj.weight": ("wk", "proj_kv"),
+        f"model.layers.{i}.self_attn.v_proj.weight": ("wv", "proj_kv"),
+        f"model.layers.{i}.self_attn.o_proj.weight": ("wo", "proj_o"),
+        f"model.layers.{i}.post_attention_layernorm.weight": ("mlp_norm", "copy"),
+    }
+    if cfg.architecture == "phi3":
+        # fused layouts: qkv_proj rows are [q | k | v], gate_up_proj rows
+        # are [gate | up]
+        for key in (f"model.layers.{i}.self_attn.q_proj.weight",
+                    f"model.layers.{i}.self_attn.k_proj.weight",
+                    f"model.layers.{i}.self_attn.v_proj.weight"):
+            del m[key]
+        m[f"model.layers.{i}.self_attn.qkv_proj.weight"] = [
+            ("wq", "fused_q"), ("wk", "fused_k"), ("wv", "fused_v"),
+        ]
+        m[f"model.layers.{i}.mlp.gate_up_proj.weight"] = [
+            ("w_gate", "fused_gate"), ("w_up", "fused_up"),
+        ]
+        m[f"model.layers.{i}.mlp.down_proj.weight"] = ("w_down", "t")
+    if cfg.qk_norm:  # Qwen3
+        m[f"model.layers.{i}.self_attn.q_norm.weight"] = ("q_norm", "copy")
+        m[f"model.layers.{i}.self_attn.k_norm.weight"] = ("k_norm", "copy")
+    if cfg.post_norms:
+        # Gemma-2 block: HF "post_attention_layernorm" is the norm on the
+        # attention output (our post_attn_norm); the pre-MLP norm is
+        # "pre_feedforward_layernorm" and the MLP output norm
+        # "post_feedforward_layernorm"
+        m[f"model.layers.{i}.post_attention_layernorm.weight"] = (
+            "post_attn_norm", "copy")
+        m[f"model.layers.{i}.pre_feedforward_layernorm.weight"] = (
+            "mlp_norm", "copy")
+        m[f"model.layers.{i}.post_feedforward_layernorm.weight"] = (
+            "post_mlp_norm", "copy")
+    if cfg.qkv_bias:  # Qwen2 family
+        m[f"model.layers.{i}.self_attn.q_proj.bias"] = ("bq", "bias_q")
+        m[f"model.layers.{i}.self_attn.k_proj.bias"] = ("bk", "bias_kv")
+        m[f"model.layers.{i}.self_attn.v_proj.bias"] = ("bv", "bias_kv")
+    if cfg.architecture == "mixtral" and cfg.num_experts > 0:
+        m[f"model.layers.{i}.block_sparse_moe.gate.weight"] = ("router", "t")
+        for x in range(cfg.num_experts):
+            m[f"model.layers.{i}.block_sparse_moe.experts.{x}.w1.weight"] = (f"w_gate.{x}", "t")
+            m[f"model.layers.{i}.block_sparse_moe.experts.{x}.w3.weight"] = (f"w_up.{x}", "t")
+            m[f"model.layers.{i}.block_sparse_moe.experts.{x}.w2.weight"] = (f"w_down.{x}", "t")
+    elif cfg.architecture != "phi3":  # phi3's MLP keys are set above
+        m[f"model.layers.{i}.mlp.gate_proj.weight"] = ("w_gate", "t")
+        m[f"model.layers.{i}.mlp.up_proj.weight"] = ("w_up", "t")
+        m[f"model.layers.{i}.mlp.down_proj.weight"] = ("w_down", "t")
+    return m
+
+
+def _convert(name_rule: str, w: np.ndarray, cfg: ModelConfig) -> np.ndarray:
+    H, KH, D, E = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.hidden_size
+    if name_rule == "copy":
+        return w
+    if name_rule == "t":  # HF linear stores (out, in); we use (in, out)
+        return w.T
+    if name_rule == "proj_q":  # (H*D, E) -> (E, H, D)
+        return w.reshape(H, D, E).transpose(2, 0, 1)
+    if name_rule == "proj_kv":  # (KH*D, E) -> (E, KH, D)
+        return w.reshape(KH, D, E).transpose(2, 0, 1)
+    if name_rule == "proj_o":  # (E, H*D) -> (H, D, E)
+        return w.reshape(E, H, D).transpose(1, 2, 0)
+    if name_rule == "bias_q":  # (H*D,) -> (H, D)
+        return w.reshape(H, D)
+    if name_rule == "bias_kv":  # (KH*D,) -> (KH, D)
+        return w.reshape(KH, D)
+    # Phi-3 fused layouts: qkv_proj rows [q | k | v], gate_up [gate | up]
+    if name_rule == "fused_q":
+        return _convert("proj_q", w[: H * D], cfg)
+    if name_rule == "fused_k":
+        return _convert("proj_kv", w[H * D : H * D + KH * D], cfg)
+    if name_rule == "fused_v":
+        return _convert("proj_kv", w[H * D + KH * D :], cfg)
+    if name_rule == "fused_gate":
+        return w[: w.shape[0] // 2].T
+    if name_rule == "fused_up":
+        return w[w.shape[0] // 2 :].T
+    raise ValueError(name_rule)
+
+
+def load_safetensors(cfg: ModelConfig,
+                     device: torch.device | str = "cpu") -> dict:
+    """``cfg.weights_path``'s ``*.safetensors`` files to this package's
+    parameter dict on ``device``: each tensor is read, converted, moved to
+    the device and (with ``cfg.quant``) quantized on its own, into stacks
+    allocated up front. A tensor the model needs and the checkpoint lacks
+    raises ``KeyError`` naming it."""
+    files = [SafetensorsFile(f) for f in sorted(
+        glob.glob(os.path.join(cfg.weights_path, "*.safetensors")))]
+    index = {name: f for f in files for name in f.keys()}
+
+    def get(name: str) -> np.ndarray:
+        if name not in index:
+            raise KeyError(f"{cfg.weights_path}: the checkpoint has no "
+                           f"tensor {name!r}")
+        return index[name].get(name)
+
+    shapes = get_model(cfg).param_shapes(cfg)
+    dt = cfg.torch_dtype
+    axes = _quant_axes(cfg)
+
+    def dev(arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(
+            device=device, dtype=dt)
+
+    def whole(name: str, arr: np.ndarray):
+        leaf = _Leaf(shapes[name], dt, device, axes.get(name))
+        leaf.put((), dev(arr))
+        return leaf.value
+
+    params = {"embed": whole("embed", get("model.embed_tokens.weight")),
+              "final_norm": dev(get("model.norm.weight"))}
+    if not cfg.tie_word_embeddings:
+        head = ("lm_head.weight" if "lm_head.weight" in index
+                else "model.embed_tokens.weight")
+        params["lm_head"] = whole("lm_head", get(head).T)
+    layers = {name: _Leaf(shape, dt, device, axes.get(name))
+              for name, shape in shapes["layers"].items()}
+    for i in range(cfg.num_layers):
+        for hf_name, targets in _hf_key_map(cfg, i).items():
+            src = get(hf_name)
+            for ours, rule in (targets if isinstance(targets, list)
+                               else [targets]):
+                base, _, expert = ours.partition(".")
+                idx = (i, int(expert)) if expert else (i,)
+                layers[base].put(idx, dev(_convert(rule, src, cfg)))
+    params["layers"] = {name: leaf.value for name, leaf in layers.items()}
     return params

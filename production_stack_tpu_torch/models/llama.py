@@ -1,4 +1,5 @@
-"""Llama-family decoder (dense path) as plain functions on tensors.
+"""Llama-family decoder, Mixtral's MoE block included, as plain functions
+on tensors.
 
 Parameters are a dict with the reference's names and shapes
 (``param_specs`` in production_stack_tpu/models/llama.py): the decoder
@@ -13,8 +14,25 @@ step and the tests' dense forward.
 The dense knobs ride along: ``qkv_bias`` (Qwen2), ``qk_norm`` (Qwen3),
 ``post_norms``, ``query_scale``, ``embed_scale``, both softcaps and GeGLU
 (Gemma). Multi-LoRA adds a per-token low-rank delta on the seven
-projections (``_lora_delta``). Quantization and the MoE block are not
-ported yet.
+projections (``_lora_delta``). Every projection and the LM head go
+through ``engine/quant.quant_matmul``, so an int8 parameter dict
+(``quantize_params``) runs the reference's W8A8 / W8A16 arithmetic, and
+``architecture == "mixtral"`` replaces the MLP with the capacity-based
+top-k MoE block (``_moe_mlp``).
+
+**Token counts.** The reference runs each step as one compiled program
+of a fixed shape, and two of its choices depend on that shape: whether a
+quantized product runs W8A8 or W8A16 (its token count against
+``quant._a16_threshold()``), and the MoE capacity ``C = max(int(2 T k /
+X), k)``. Its ragged stream is always ``max_num_batched_tokens`` wide,
+while this engine runs only the live tokens rounded up to 64. So the
+forward takes ``ref_tokens``, the rows the reference's same call sees
+(ragged: the budget-wide T; bucketed prefill: P * S; decode: S), and
+every product and the capacity follow it. The MoE buffer needs only
+``min(C, T)`` rows an expert (an expert gets at most one slot a token),
+and the reference's extra pad rows come after the live rows in dispatch
+order, so they never displace one: the result is the reference's, without
+its padding.
 """
 
 from __future__ import annotations
@@ -24,6 +42,7 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from production_stack_tpu_torch.engine import quant
 from production_stack_tpu_torch.engine.config import ModelConfig
 from production_stack_tpu_torch.ops.norms import rms_norm
 from production_stack_tpu_torch.ops.rope import rope_tables, rotate
@@ -32,8 +51,8 @@ AttendFn = Callable[..., Tuple[torch.Tensor, Any]]
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
-    """Shapes of the parameter dict, mirroring the reference's param_specs
-    (dense architectures)."""
+    """Shapes of the parameter dict, mirroring the reference's
+    param_specs."""
     E, H, KH, D, F_, L, V = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
                              cfg.head_dim, cfg.intermediate_size,
                              cfg.num_layers, cfg.vocab_size)
@@ -51,18 +70,21 @@ def param_shapes(cfg: ModelConfig) -> dict:
         layer.update({"q_norm": (L, D), "k_norm": (L, D)})
     if cfg.post_norms:
         layer.update({"post_attn_norm": (L, E), "post_mlp_norm": (L, E)})
-    layer.update({"w_gate": (L, E, F_), "w_up": (L, E, F_),
-                  "w_down": (L, F_, E)})
+    if is_moe(cfg):
+        X = cfg.num_experts
+        layer.update({"router": (L, E, X), "w_gate": (L, X, E, F_),
+                      "w_up": (L, X, E, F_), "w_down": (L, X, F_, E)})
+    else:
+        layer.update({"w_gate": (L, E, F_), "w_up": (L, E, F_),
+                      "w_down": (L, F_, E)})
     shapes = {"embed": (V, E), "layers": layer, "final_norm": (E,)}
     if not cfg.tie_word_embeddings:
         shapes["lm_head"] = (E, V)
     return shapes
 
 
-def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (..., T, E) @ w (E, H, D) -> (..., T, H, D)."""
-    E, H, D = w.shape
-    return (x @ w.reshape(E, H * D)).unflatten(-1, (H, D))
+def is_moe(cfg: ModelConfig) -> bool:
+    return cfg.architecture == "mixtral" and cfg.num_experts > 0
 
 
 def _lora_delta(x: torch.Tensor, onehot: torch.Tensor, A: torch.Tensor,
@@ -83,9 +105,13 @@ def _lora_delta(x: torch.Tensor, onehot: torch.Tensor, A: torch.Tensor,
 
 
 def _mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor, lb=None,
-         onehot=None) -> torch.Tensor:
-    gate = x @ lp["w_gate"]
-    up = x @ lp["w_up"]
+         onehot=None, tokens: Optional[int] = None) -> torch.Tensor:
+    if is_moe(cfg):
+        # LoRA MLP targets are ignored on a MoE model, as in the reference
+        return _moe_mlp(cfg, lp, x, tokens)
+    x8 = quant.shared_rows(x, lp["w_gate"], tokens=tokens)
+    gate = quant.quant_matmul(x, lp["w_gate"], tokens=tokens, x8=x8)
+    up = quant.quant_matmul(x, lp["w_up"], tokens=tokens, x8=x8)
     if lb is not None:
         if "w_gate" in lb:
             gate = gate + _lora_delta(x, onehot, *lb["w_gate"])
@@ -94,19 +120,107 @@ def _mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor, lb=None,
     # Gemma is GeGLU (tanh-approximated gelu on the gate); Llama is SwiGLU
     act = F.silu(gate) if cfg.act == "silu" else F.gelu(gate, approximate="tanh")
     hidden2 = act * up
-    out = hidden2 @ lp["w_down"]
+    out = quant.quant_matmul(hidden2, lp["w_down"], tokens=tokens)
     if lb is not None and "w_down" in lb:
         out = out + _lora_delta(hidden2, onehot, *lb["w_down"])
     return out
 
 
+def top_k_lower_first(logits: torch.Tensor, k: int):
+    """Top-k along the last dim keeping the lower index on a tie, as
+    ``lax.top_k`` does: a stable descending sort."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _moe_mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor,
+             tokens: Optional[int] = None) -> torch.Tensor:
+    """Mixtral's sparse MoE block: the reference's capacity-based top-k
+    dispatch (models/llama.py ``_moe_mlp``) without its (T, X, C) one-hot
+    products.
+
+    Router logits in the model dtype, then float32; top-k (ties to the
+    lower expert), softmax over the chosen k. ``tokens`` is the reference's
+    T (module docstring), which sets the capacity ``C = max(int(2 T k /
+    X), k)`` and the int8 route. A slot's position is its rank among its
+    expert's slots in token-major, choice-minor order, and slots at ``pos
+    >= C`` are dropped. Rows are scattered by index into an ``(X * C_buf +
+    1, E)`` buffer (the last row takes the dropped slots), ``C_buf = min(C,
+    T_here)``; the experts run one batched product over X; each token sums
+    its kept slots' outputs times their weights rounded to the model
+    dtype. Shapes are static and nothing syncs with the host. On the W8A8
+    route each token is quantized once, before the scatter."""
+    shape = x.shape
+    E = shape[-1]
+    dt = x.dtype
+    xt = x.reshape(-1, E)
+    T = xt.shape[0]
+    T_ref = T if tokens is None else tokens
+    X, k = cfg.num_experts, cfg.num_experts_per_tok
+    w8a8 = quant.is_quantized(lp["w_gate"]) and not quant.a16(T_ref)
+    with quant.profile_range("moe.dispatch"):
+        logits = (xt @ lp["router"]).float()
+        top_vals, top_idx = top_k_lower_first(logits, k)  # (T, k)
+        weights = torch.softmax(top_vals, dim=-1)
+        capacity = max(int(2.0 * T_ref * k / X), k)
+        c_buf = min(capacity, T)
+        choice = top_idx.reshape(-1)  # (T * k,) token-major, choice-minor
+        # (X, T * k) one-hot: the running count along the last dim is a
+        # row scan, far faster on the card than a scan down 8 columns
+        onehot = (choice[None, :] == torch.arange(
+            X, device=x.device)[:, None]).to(torch.int32)
+        pos = (torch.cumsum(onehot, 1) - onehot).gather(
+            0, choice[None, :])[0]
+        sink = X * c_buf
+        dest = torch.where(pos < capacity, choice * c_buf + pos,
+                           torch.full_like(pos, sink))
+        src = torch.arange(T, device=x.device).repeat_interleave(k)
+
+    def dispatch(rows: torch.Tensor) -> torch.Tensor:
+        with quant.profile_range("moe.dispatch"):
+            buf = rows.new_zeros((sink + 1,) + rows.shape[1:])
+            buf[dest] = rows[src]
+            return buf[:sink].unflatten(0, (X, c_buf))
+
+    def experts(h: torch.Tensor, w) -> torch.Tensor:
+        """h (X, C_buf, in) in the model dtype through one stack."""
+        if not w8a8:
+            return quant.expert_matmul(h, w, dt)
+        hq, hs = quant.quantize_rows(h.flatten(0, 1))
+        return quant.expert_matmul(hq.view(h.shape), w, dt,
+                                   sx=hs.view(h.shape[:2]))
+
+    if w8a8:
+        xq, sx = quant.quantize_rows(xt)
+        xb, sxb = dispatch(xq), dispatch(sx)
+        gate = quant.expert_matmul(xb, lp["w_gate"], dt, sx=sxb)
+        up = quant.expert_matmul(xb, lp["w_up"], dt, sx=sxb)
+    else:
+        xb = dispatch(xt)
+        gate = quant.expert_matmul(xb, lp["w_gate"], dt)
+        up = quant.expert_matmul(xb, lp["w_up"], dt)
+    down = experts(F.silu(gate) * up, lp["w_down"])  # (X, C_buf, E)
+    with quant.profile_range("moe.combine"):
+        rows = torch.cat([down.flatten(0, 1), down.new_zeros(1, E)])[dest]
+        comb = weights.to(dt).float()[..., None]  # rounded to the model dtype
+        out = (rows.view(T, k, E).float() * comb).sum(1).to(dt)
+    return out.reshape(shape)
+
+
 def embed_tokens(cfg: ModelConfig, params: dict,
                  tokens: torch.Tensor) -> torch.Tensor:
     """Token embedding, including Gemma's sqrt(E) scale."""
-    x = params["embed"][tokens.long()].to(cfg.torch_dtype)
+    x = quant.embed_lookup(params["embed"], tokens, cfg.torch_dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=cfg.torch_dtype)
     return x
+
+
+def _layer(w: Any, i: int) -> Any:
+    """Layer ``i`` of a stacked weight, quantized or not."""
+    if quant.is_quantized(w):
+        return {"q": w["q"][i], "s": w["s"][i]}
+    return w[i]
 
 
 def forward_hidden(
@@ -117,6 +231,7 @@ def forward_hidden(
     attend: AttendFn,
     kv_pool: Any = None,
     lora: Optional[dict] = None,
+    ref_tokens: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Any]:
     """Run the decoder stack from embedded activations.
 
@@ -125,6 +240,8 @@ def forward_hidden(
     the attention output and the (updated) pool. ``lora`` is None or
     ``{"onehot": (..., T, N), "bank": {target: (A (L, in, N, R), B (L, N,
     R, *out))}}`` (engine/model_runner.py ``register_lora``).
+    ``ref_tokens`` is the token count of the reference's same call (module
+    docstring); None means the rows of ``x``.
     Returns (hidden (..., T, E), kv_pool)."""
     layers = params["layers"]
     onehot = None if lora is None else lora["onehot"]
@@ -133,13 +250,15 @@ def forward_hidden(
                            cfg.rope_scaling)
     h = x
     for i in range(cfg.num_layers):
-        lp = {name: w[i] for name, w in layers.items()}
+        lp = {name: _layer(w, i) for name, w in layers.items()}
         lb = (None if lora is None
               else {t: (A[i], B[i]) for t, (A, B) in lora["bank"].items()})
         normed = rms_norm(h, lp["attn_norm"], eps, off)
-        q = _heads(normed, lp["wq"])
-        k = _heads(normed, lp["wk"])
-        v = _heads(normed, lp["wv"])
+        # q, k and v quantize their shared input once
+        x8 = quant.shared_rows(normed, lp["wq"], tokens=ref_tokens)
+        q = quant.quant_matmul(normed, lp["wq"], tokens=ref_tokens, x8=x8)
+        k = quant.quant_matmul(normed, lp["wk"], tokens=ref_tokens, x8=x8)
+        v = quant.quant_matmul(normed, lp["wv"], tokens=ref_tokens, x8=x8)
         if lb is not None:
             if "wq" in lb:
                 q = q + _lora_delta(normed, onehot, *lb["wq"])
@@ -162,15 +281,14 @@ def forward_hidden(
         q = rotate(q, cos, sin)
         k = rotate(k, cos, sin)
         attn, kv_pool = attend(q, k, v, kv_pool, i)
-        flat = attn.flatten(-2)  # (..., T, H*D)
-        o = flat @ lp["wo"].flatten(0, 1)
+        o = quant.quant_matmul(attn, lp["wo"], 2, tokens=ref_tokens)
         if lb is not None and "wo" in lb:
-            o = o + _lora_delta(flat, onehot, *lb["wo"])
+            o = o + _lora_delta(attn.flatten(-2), onehot, *lb["wo"])
         if cfg.post_norms:
             o = rms_norm(o, lp["post_attn_norm"], eps, off)
         h = h + o
         mlp_out = _mlp(cfg, lp, rms_norm(h, lp["mlp_norm"], eps, off), lb,
-                       onehot)
+                       onehot, ref_tokens)
         if cfg.post_norms:
             mlp_out = rms_norm(mlp_out, lp["post_mlp_norm"], eps, off)
         h = h + mlp_out
@@ -185,10 +303,12 @@ def forward_tokens(
     attend: AttendFn,
     kv_pool: Any = None,
     lora: Optional[dict] = None,
+    ref_tokens: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Any]:
     """Embed tokens, then run the decoder stack (see forward_hidden)."""
     x = embed_tokens(cfg, params, tokens)
-    return forward_hidden(cfg, params, x, positions, attend, kv_pool, lora)
+    return forward_hidden(cfg, params, x, positions, attend, kv_pool, lora,
+                          ref_tokens)
 
 
 def logits_from_hidden(cfg: ModelConfig, params: dict,
@@ -196,9 +316,11 @@ def logits_from_hidden(cfg: ModelConfig, params: dict,
     """Final norm and LM head; float32 logits (..., T, V)."""
     hidden = rms_norm(hidden, params["final_norm"], cfg.rms_norm_eps,
                       cfg.norm_offset)
-    head = (params["embed"].t() if cfg.tie_word_embeddings
+    head = (quant.head_from_embed(params["embed"]) if cfg.tie_word_embeddings
             else params["lm_head"])
-    logits = (hidden @ head.to(cfg.torch_dtype)).float()
+    if not quant.is_quantized(head):
+        head = head.to(cfg.torch_dtype)
+    logits = quant.quant_matmul(hidden, head, out_dtype=torch.float32)
     if cfg.final_logit_softcap:  # Gemma-2
         cap = cfg.final_logit_softcap
         logits = cap * torch.tanh(logits / cap)

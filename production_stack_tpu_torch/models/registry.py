@@ -2,9 +2,9 @@
 
 Every module exposes ``param_shapes(cfg)``, ``forward_tokens(cfg, params,
 tokens, positions, attend, kv_pool)`` and ``logits_from_hidden(cfg,
-params, hidden)``. Gemma, Gemma-2 and Phi-3 run the Llama stack (their
-deltas are ModelConfig knobs); Mixtral's MoE block and Whisper are not
-ported yet.
+params, hidden)``. Mixtral, Gemma, Gemma-2 and Phi-3 run the Llama stack
+(their deltas are ModelConfig knobs; Mixtral's MoE block is
+``llama._moe_mlp``); Whisper is not ported yet.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from production_stack_tpu_torch.models import llama
 
 _REGISTRY: dict[str, ModuleType] = {
     "llama": llama,
+    "mixtral": llama,
     "gemma": llama,
     "gemma2": llama,
     "phi3": llama,

@@ -8,7 +8,9 @@ package checks the same for modules the server does not load. Note that
 checks compare whole dotted names. The modules of the surface the router
 reads (metrics, perf accounting, lifecycle, canary goldens) also load
 neither ``prometheus_client`` nor ``aiohttp``, which the card's machine
-lacks.
+lacks. The model-side modules (quantization, the weights loader, the
+model with its MoE block) load neither JAX nor the ``safetensors``
+package, which the card's machine also lacks.
 """
 
 import ast
@@ -109,3 +111,33 @@ def test_chip_smoke_defines_each_name_once():
     names = [n.name for n in tree.body
              if isinstance(n, (ast.FunctionDef, ast.ClassDef))]
     assert sorted({n for n in names if names.count(n) > 1}) == []
+
+
+MODEL_SIDE = ("production_stack_tpu_torch.engine.quant",
+              "production_stack_tpu_torch.engine.weights",
+              "production_stack_tpu_torch.engine.lora",
+              "production_stack_tpu_torch.models.llama",
+              "production_stack_tpu_torch.models.registry")
+
+
+def test_model_side_modules_load_no_jax_nor_safetensors():
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {MODEL_SIDE!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(MODEL_SIDE) <= set(mods)
+    assert [m for m in mods if forbidden(m) or m == "safetensors"
+            or m.startswith("safetensors.")] == []
+
+
+@pytest.mark.parametrize("module", MODEL_SIDE)
+def test_model_side_static_imports(module):
+    path = ROOT / (module.replace(".", "/") + ".py")
+    bad = [m for m in _imports(path) if forbidden(m)
+           or m.split(".")[0] == "safetensors"]
+    assert bad == [], f"{path.name} imports {bad}"

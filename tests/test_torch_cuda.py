@@ -517,3 +517,68 @@ def test_engine_features_kernel_path_matches_plain_path(cuda, tmp_path):
     gpu, gpu_drafted = run(cuda)
     assert all(c.n > b for c, b in zip(counters, before))
     assert gpu == cpu and gpu_drafted == cpu_drafted > 0
+
+
+# -- int8 and the MoE block on the card ---------------------------------------
+
+@pytest.mark.parametrize("rows", [1, 5, 16, 17, 40, 64])
+def test_int8_mm_on_card_matches_cpu(cuda, rows):
+    """cuBLAS's int8 GEMM through ``int8_mm``: any row count (padded to
+    what the weight's layout takes), both weight layouts, the CPU's int32
+    result bit for bit; K or N off a multiple of 8 raises."""
+    from production_stack_tpu_torch.engine import quant
+
+    g = torch.Generator().manual_seed(rows)
+    x = torch.randint(-127, 128, (rows, 64), dtype=torch.int8, generator=g)
+    w = torch.randint(-127, 128, (64, 40), dtype=torch.int8, generator=g)
+    want = torch._int_mm(x, w)
+    for layout in (w, w.t().contiguous().t()):
+        got = quant.int8_mm(x.to(cuda), layout.to(cuda))
+        assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        quant.int8_mm(x[:, :60].to(cuda), w[:60].to(cuda))
+
+
+@pytest.mark.parametrize("tokens", [None, 4096])
+def test_quant_matmul_on_card_matches_cpu(cuda, tokens):
+    """A quantized product, W8A8 (the rows' own count) and W8A16 (told
+    4096 tokens), float32 on the card against the CPU."""
+    from production_stack_tpu_torch.engine import quant
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(24, 128, generator=g)
+    w = quant.quantize_array(torch.randn(128, 4, 32, generator=g), (0,))
+    want = quant.quant_matmul(x, w, tokens=tokens)
+    got = quant.quant_matmul(x.to(cuda), {k: v.to(cuda) for k, v in
+                                          w.items()}, tokens=tokens)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("rows,ref_tokens", [(40, 64), (600, 1024)])
+def test_moe_block_on_card_matches_cpu(cuda, quantized, rows, ref_tokens):
+    """tiny-mixtral's MoE block at X = 8 with a router biased toward
+    expert 0, so slots are dropped: float32, plain and int8 (W8A8 at 64
+    reference tokens, W8A16 at 1024), the card against the CPU."""
+    import dataclasses
+
+    from production_stack_tpu_torch.engine import quant
+    from production_stack_tpu_torch.engine.config import ModelConfig
+    from production_stack_tpu_torch.engine.weights import init_random
+    from production_stack_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(ModelConfig.from_pretrained("tiny-mixtral"),
+                              num_experts=8, num_layers=1,
+                              quant="int8" if quantized else None)
+    lp = {k: llama._layer(v, 0)
+          for k, v in init_random(cfg, seed=1)["layers"].items()}
+    lp["router"][0, 0] += 20.0
+    x = torch.randn(rows, cfg.hidden_size,
+                    generator=torch.Generator().manual_seed(2))
+    x[:, 0] = x[:, 0].abs() + 1.0
+    want = llama._moe_mlp(cfg, lp, x, ref_tokens)
+    on_card = {k: ({n: t.to(cuda) for n, t in v.items()}
+                   if quant.is_quantized(v) else v.to(cuda))
+               for k, v in lp.items()}
+    got = llama._moe_mlp(cfg, on_card, x.to(cuda), ref_tokens)
+    torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=1e-5)

@@ -171,15 +171,13 @@ def test_allocator_matches_reference():
 
 def test_presets_match_reference():
     """Every preset carries the reference's values, field for field; the
-    reference presets left out are exactly those of the MoE and Whisper
-    architectures, which the port does not serve yet."""
+    reference presets left out are exactly those of the Whisper
+    architecture, which the port does not serve yet."""
     left_out = set(jcfg.MODEL_PRESETS) - set(tcfg.MODEL_PRESETS)
     assert set(tcfg.MODEL_PRESETS) <= set(jcfg.MODEL_PRESETS)
     assert {jcfg.MODEL_PRESETS[n].architecture for n in left_out} == {
-        "mixtral", "whisper"}
-    for name, ref in jcfg.MODEL_PRESETS.items():
-        if name not in left_out:
-            assert ref.num_experts == 0 and ref.quant is None, name
+        "whisper"}
+    assert {"tiny-mixtral", "mixtral-8x7b"} <= set(tcfg.MODEL_PRESETS)
     for name, mine in tcfg.MODEL_PRESETS.items():
         ref = jcfg.MODEL_PRESETS[name]
         for f in tcfg.ModelConfig.__dataclass_fields__:
@@ -190,11 +188,14 @@ def test_presets_match_reference():
     assert tcfg.CacheConfig().block_size == jcfg.CacheConfig().block_size
 
 
-@pytest.mark.parametrize("option", [{"quant": "int8"},
-                                    {"weights_path": "/nonexistent"},
-                                    {"num_experts": 8}])
+@pytest.mark.parametrize("option", [{"encoder_layers": 2},
+                                    {"num_mel_bins": 80},
+                                    {"sot_id": 1}])
 def test_unported_options_raise(option):
-    """An option the port cannot honour raises; it is never ignored."""
+    """An option the port cannot honour (Whisper's) raises; it is never
+    ignored. Quantization, MoE and checkpoint paths are ported
+    (tests/test_torch_quant.py, test_torch_moe.py,
+    test_torch_checkpoint.py)."""
     with pytest.raises(ValueError, match="not ported"):
         tcfg.ModelConfig.from_pretrained("tiny-llama", **option)
     with pytest.raises(ValueError, match="not ported"):

@@ -227,3 +227,51 @@ def test_no_unexpected_compile_after_warmup(weights, impl):
         e for e in eng.perf.snapshot()["compile"]["recent"]
         if e["unexpected"]]
     assert sum(perf["compile_counts"].values()) == warm_events
+
+
+def test_moe_and_int8_counts():
+    """On a MoE model FLOPs count a token's active parameters: everything
+    outside the expert stacks plus k/X of them (the reference counts every
+    expert, ROADMAP Queue 3). Bytes count each leaf at its element size,
+    int8 weights with their float32 scales. A dense model's active count
+    is its parameter count."""
+    import dataclasses
+
+    from production_stack_tpu_torch.engine.quant import quantize_params
+    from production_stack_tpu_torch.engine.weights import init_random
+
+    cfg = tcfg.ModelConfig.from_pretrained("tiny-mixtral")
+    params = init_random(cfg)
+    count, active, nbytes = tperf.param_counts(params, cfg)
+    lay = params["layers"]
+    expert = sum(lay[n].numel() for n in ("w_gate", "w_up", "w_down"))
+    total = sum(t.numel() for t in tperf._tensors(params))
+    assert count == total and nbytes == 4 * total
+    assert active == total - expert + expert * 2 // 4
+    qcfg = dataclasses.replace(cfg, quant="int8")
+    qp = quantize_params(qcfg, params)
+    qcount, qactive, qbytes = tperf.param_counts(qp, qcfg)
+    assert (qcount, qactive) == (count, active)
+    scales = sum(v["s"].numel() for v in [qp["embed"], qp["lm_head"]]
+                 + [lay_q for lay_q in qp["layers"].values()
+                    if isinstance(lay_q, dict)])
+    quantized = sum(v["q"].numel() for v in [qp["embed"], qp["lm_head"]]
+                    + [lay_q for lay_q in qp["layers"].values()
+                       if isinstance(lay_q, dict)])
+    assert qbytes == quantized + 4 * scales + 4 * (total - quantized)
+    dense = tcfg.ModelConfig.from_pretrained("tiny-llama")
+    c, a, _ = tperf.param_counts(init_random(dense), dense)
+    assert c == a
+
+    class Runner:
+        pass
+
+    runner = Runner()
+    runner.params = params
+    acct = tperf.PerfAccountant.from_runner(
+        tcfg.EngineConfig(model=cfg), runner)
+    assert acct.param_count == count and acct.active_param_count == active
+    acct.record_prefill(100, 100, 1, ts=T0)
+    flops = acct.snapshot()["totals"]["flops"]
+    assert flops == pytest.approx(2.0 * active * 100
+                                  + acct._attn_per_tok_ctx * 100 * 100)
