@@ -108,10 +108,33 @@ fatal):
    and combine, bf16 GEMM), each also timed untraced. Then llama-3-8b at
    full width, bf16 against the same weights in int8 on one 256-token
    prompt: last-token logit cosine > 0.99 through W8A8 and W8A16.
+9. The KV plane (``kv-plane``): llama-3-8b, bf16, full width and depth,
+   through the HTTP server; this script plays the router's two hops.
+   A ``--role prefill`` and a ``--role decode`` server (4096 blocks, 8 GiB
+   each) in this process; 16 greedy requests (512-2048 tokens, 64 out,
+   64 printable byte tokens allowed, so text is tokens) served unified on
+   the prefill server, twice (the repeat's largest logprob deviation sets
+   the band: BF16_LOGPROB_BAND or twice that deviation, if larger); then
+   pulled (the producer answers ``remote_block_ids``, the consumer pulls
+   ``/kv/export`` as a stream: ``cached_tokens`` = the full blocks, 16
+   imports); then pushed and spliced (``spliced_seqs_total`` +16); every
+   run's tokens equal the unified run's up to a near-tie, logprobs within
+   the band. One more push of a fresh 2048-token prompt: the blocks that
+   landed equal the producer's bit for bit; its GB/s over loopback and
+   the device time of a 128-block gather and scatter are printed. Then
+   the host tier (a 1088-block pool, 4 GiB of host tier: wave A of 16 x
+   1024 tokens, wave B, which evicts A from the pool, A again: CPU hits
+   and prefetched blocks >= 90% of A's 1008 usable blocks, A's tokens as
+   before) and the remote tier (this package's ``kv_server`` in a thread;
+   one engine serves A, a fresh one serves A again from the remote tier:
+   >= 90% remote hits, A's tokens as before); median TTFT of A cold, warm
+   from the host and warm from the remote tier, and the prefetch
+   histograms. K1, K2 and K3 launch, K4 not.
 
 The line before the card line carries the kernels' JSON record, whose
 ``launches`` sum each kernel's launches over every served path (each
-path's own counts are in ``launches_by_path``, ``moe-int8`` among them);
+path's own counts are in ``launches_by_path``, ``moe-int8`` and
+``kv-plane`` among them);
 the last line is ``{"ok":
 true, "device": {...}}``.
 """
@@ -2751,6 +2774,346 @@ def moe_int8_phase(torch, np, counters, card: str) -> dict:
     return launches
 
 
+# phase 9: greedy requests restricted to 64 printable byte tokens, so the
+# byte tokenizer's text is one character a token and two runs' texts are
+# equal exactly when their tokens are. Logprobs report the raw
+# distribution (its top-2 need not be allowed tokens), so a flip is a
+# near-tie when each run's logprob of its own token at that step is within
+# the band of the other's. The band is BF16_LOGPROB_BAND or, if larger,
+# twice the largest deviation of the prefill engine's own repeat of the
+# unified wave (its full blocks prefix-cached, each tail recomputed: what
+# a pull or a tier does): 32 random bf16 layers carry a recomputed token's
+# rounding into later logprobs further than tiny-llama's 2 layers, and the
+# plane is held to the engine's own noise, not below it
+KV_ALLOWED = list(range(48, 112))
+KV_MODEL = "llama-3-8b"
+KV_PROMPTS = (512, 2048)  # P->D prompt lengths; the first is the longest
+KV_PD_BLOCKS = 4096  # each P/D pool: 8 GiB at llama-3-8b
+KV_WAVE = 1024  # tier-wave prompt length
+KV_HOST_BYTES = 4 << 30
+
+
+def _kv_body(prompt, max_tokens: int, **extra) -> dict:
+    return {"model": KV_MODEL, "prompt": prompt, "max_tokens": max_tokens,
+            "temperature": 0.0, "ignore_eos": True, "logprobs": 1,
+            "allowed_token_ids": KV_ALLOWED, **extra}
+
+
+def _kv_post(base: str, body: dict) -> dict:
+    status, out, _ = _post(base, "/v1/completions", body)
+    if status != 200:
+        raise AssertionError(f"[kv-plane] {base}: HTTP {status}")
+    return out
+
+
+def _kv_run(out: dict) -> tuple:
+    """(text, token logprobs) of a completion."""
+    c = out["choices"][0]
+    return c["text"], list(c["logprobs"]["token_logprobs"])
+
+
+def _kv_dev(ref: tuple, got: tuple) -> tuple:
+    """(tokens equal before the first flip, the largest logprob deviation
+    over them, the flip's two logprobs or None)."""
+    (rt, rl), (gt, gl) = ref, got
+    if len(gt) != len(rt):
+        raise AssertionError(f"[kv-plane] {len(gt)} tokens, want {len(rt)}")
+    n = next((j for j, (a, b) in enumerate(zip(rt, gt)) if a != b), len(rt))
+    worst = max((abs(x - y) for x, y in zip(rl[:n], gl[:n])), default=0.0)
+    return n, worst, ((rl[n], gl[n]) if n < len(rt) else None)
+
+
+def _kv_same(tag: str, ref: tuple, got: tuple, band: float) -> tuple:
+    """``got``'s tokens equal ``ref``'s up to a near-tie, logprobs within
+    ``band`` up to there; (tokens compared, the largest deviation)."""
+    n, worst, flip = _kv_dev(ref, got)
+    if flip is not None:
+        if abs(flip[0] - flip[1]) >= band:
+            raise AssertionError(f"[kv-plane] {tag}: step {n}: tokens "
+                                 f"differ (logprobs {flip[0]:.4f}, "
+                                 f"{flip[1]:.4f}; band {band:.4f})")
+        log(f"[kv-plane] {tag}: near-tie at step {n} (logprobs "
+            f"{flip[0]:.4f}, {flip[1]:.4f}); compared up to it")
+    if worst > band:
+        raise AssertionError(f"[kv-plane] {tag}: logprobs differ by {worst} "
+                             f"(band {band:.4f})")
+    return n, worst
+
+
+def _kv_server(cfg_args: list):
+    from production_stack_tpu_torch.engine.server import (
+        EngineServer,
+        build_parser,
+        config_from_args,
+    )
+
+    cfg = config_from_args(build_parser().parse_args(
+        ["--model", KV_MODEL, "--seed", "0", *cfg_args]))
+    server = EngineServer(cfg, device="cuda")  # no launch warmup
+    return server, f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
+
+
+def _kv_wave(base: str, prompts: list, max_tokens: int,
+             server) -> tuple:
+    """Serve ``prompts`` at once; (runs, median TTFT from the engine's
+    stamps, wall seconds)."""
+    n0 = len(server.async_engine.finished)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(prompts)) as pool:
+        outs = list(pool.map(
+            lambda p: _kv_post(base, _kv_body(p, max_tokens)), prompts))
+    wall = time.perf_counter() - t0
+    stamps = list(server.async_engine.finished)[n0:]
+    ttft = statistics.median(ft - arr for arr, ft, _, _ in stamps)
+    return [_kv_run(o) for o in outs], ttft, wall
+
+
+def _kv_pd(torch, np, card: str) -> float:
+    """Phase 9, parts 1 and 2: a prefill and a decode server of
+    llama-3-8b (pools of 4096 blocks, 8 GiB each) in this process; this
+    script plays the router's two hops."""
+    from production_stack_tpu_torch.engine.kv_transfer import nbytes_of
+
+    P, p_url = _kv_server(["--role", "prefill", "--num-blocks",
+                           str(KV_PD_BLOCKS)])
+    D, d_url = _kv_server(["--role", "decode", "--num-blocks",
+                           str(KV_PD_BLOCKS)])
+    bs = P.config.cache.block_size
+    lo, hi = KV_PROMPTS
+    try:
+        rng = np.random.default_rng(9)
+        lens = [hi] + [int(x) for x in rng.integers(lo, hi + 1, 15)]
+        prompts = [rng.integers(0, 256, n).tolist() for n in lens]
+        # the reference: the prefill server's own unified serve
+        unified, _, _ = _kv_wave(p_url, prompts, 64, P)
+        repeat, _, _ = _kv_wave(p_url, prompts, 64, P)
+        noise = max(_kv_dev(u, r)[1] for u, r in zip(unified, repeat))
+        band = max(BF16_LOGPROB_BAND, 2 * noise)
+        log(f"[kv-plane] the prefill engine's own repeat of the wave "
+            f"deviates by up to {noise:.4f} in logprob ({card}): band "
+            f"{band:.4f}")
+
+        # pull (the router's buffered flow): the producer answers with its
+        # block ids, the consumer pulls /kv/export as a stream
+        def pull(prompt):
+            pre = _kv_post(p_url, _kv_body(prompt, 1, kv_transfer_params={
+                "do_remote_decode": True}))
+            kv = dict(pre["kv_transfer_params"], remote_host=p_url)
+            return _kv_post(d_url, _kv_body(prompt, 64,
+                                            kv_transfer_params=kv))
+
+        imports0 = D.metrics.transfer_totals.get("import", {}).get("count", 0)
+        with concurrent.futures.ThreadPoolExecutor(16) as pool:
+            pulled = list(pool.map(pull, prompts))
+        imports = D.metrics.transfer_totals["import"]["count"] - imports0
+        for i, (prompt, out) in enumerate(zip(prompts, pulled)):
+            want = (len(prompt) - 1) // bs * bs
+            got = out["usage"]["prompt_tokens_details"]["cached_tokens"]
+            if got != want:
+                raise AssertionError(f"[kv-plane] pull {i}: cached_tokens "
+                                     f"{got}, the import lands {want}")
+            _kv_same(f"pull {i}", unified[i], _kv_run(out), band)
+        if imports != 16:
+            raise AssertionError(f"[kv-plane] pull: {imports} imports, want 16")
+
+        # push and splice (the streamed flow): the prefill hop pushes its
+        # blocks to the decode engine, the continuation splices them
+        def push(i):
+            tid = f"xfer-{i}-{time.monotonic_ns()}"
+            pre = _kv_post(p_url, _kv_body(prompts[i], 1, kv_transfer_params={
+                "do_remote_decode": True, "push_url": d_url,
+                "transfer_id": tid}))
+            kv = pre["kv_transfer_params"]
+            if not kv.get("pushed"):
+                raise AssertionError(f"[kv-plane] push {i} failed")
+            first = _kv_run(pre)
+            cont = prompts[i] + [ord(first[0])]
+            dec = _kv_post(d_url, _kv_body(cont, 63, kv_transfer_params={
+                "do_remote_prefill": True, "transfer_id": tid,
+                "remote_block_ids": kv["remote_block_ids"],
+                "remote_host": p_url}))
+            rest = _kv_run(dec)
+            return (first[0] + rest[0], first[1] + rest[1]), \
+                kv["remote_block_ids"]
+
+        spliced0 = D.engine.spliced_seqs
+        with concurrent.futures.ThreadPoolExecutor(16) as pool:
+            pushed = list(pool.map(push, range(16)))
+        spliced = D.engine.spliced_seqs - spliced0
+        if spliced != 16:
+            raise AssertionError(f"[kv-plane] push: {spliced} splices, "
+                                 "want 16 (a re-prefill is a failure)")
+        same = [_kv_same(f"push {i}", unified[i], run, band)
+                for i, (run, _) in enumerate(pushed)]
+        compared = sum(n for n, _ in same)
+        log(f"[kv-plane] P->D ({card}): 16 pulls imported (cached_tokens = "
+            f"the full blocks), 16 pushes spliced, {compared} tokens equal "
+            f"to unified up to near-ties, logprobs within "
+            f"{max(w for _, w in same):.4f}")
+
+        # one push alone: a fresh 2048-token prompt, 128 blocks, 256 MiB at
+        # llama-3-8b;
+        # the blocks it landed on the decode engine, read before the decode
+        # hop attaches them, are bit-identical to the producer's
+        before = dict(P.metrics.transfer_totals["push"])
+        tid = f"xfer-alone-{time.monotonic_ns()}"
+        prompt = rng.integers(0, 256, hi).tolist()
+        n_blocks = hi // bs  # the prompt's full blocks
+        pre = _kv_post(p_url, _kv_body(prompt, 1, kv_transfer_params={
+            "do_remote_decode": True, "push_url": d_url, "transfer_id": tid}))
+        after = P.metrics.transfer_totals["push"]
+        nbytes = after["bytes"] - before["bytes"]
+        secs = after["seconds"] - before["seconds"]
+        # the producer's whole table goes: with the block its first decode
+        # step would have written (allocated before the prefill resolved)
+        src = pre["kv_transfer_params"]["remote_block_ids"]
+        want = nbytes_of(P._kv_shape(len(src)), P.config.model.dtype)
+        if not pre["kv_transfer_params"].get("pushed") or nbytes != want:
+            raise AssertionError(f"[kv-plane] lone push: {nbytes} B, want "
+                                 f"{want}")
+        with D._kv_lock:
+            dst = list(D._kv_transfers[tid]["blocks"])
+        a = P.async_engine.run_on_engine(
+            lambda e: e.export_kv(src[:n_blocks]))
+        b = D.async_engine.run_on_engine(
+            lambda e: e.export_kv(dst[:n_blocks]))
+        if len(dst) != len(src) or not torch.equal(a.view(torch.int16),
+                                                   b.view(torch.int16)):
+            raise AssertionError("[kv-plane] lone push: the decode engine's "
+                                 "blocks differ from the producer's")
+        spliced0 = D.engine.spliced_seqs
+        _kv_post(d_url, _kv_body(prompt + [ord(_kv_run(pre)[0][0])], 1,
+                                  kv_transfer_params={"transfer_id": tid}))
+        if D.engine.spliced_seqs != spliced0 + 1:
+            raise AssertionError("[kv-plane] lone push was not spliced")
+        # the gather and the scatter alone, as device time (128 blocks)
+        runner = D.engine.runner
+        idx = torch.arange(0, 2 * n_blocks, 2, device=runner.device)
+        gathered = runner.kv.index_select(1, idx)
+        gather_ms = time_ms(torch, lambda: runner.kv.index_select(1, idx),
+                            20, graph=False)
+        scatter_ms = time_ms(torch, lambda: runner.kv.index_copy_(
+            1, idx, gathered), 20, graph=False)
+        bound = 2 * want / HBM_BYTES_PER_S * 1e3
+        log(f"[kv-plane] push of a {hi}-token prompt ({card}): {len(src)} "
+            f"blocks, the prompt's {n_blocks} bit-identical on both engines; "
+            f"{nbytes} B in "
+            f"{secs:.4f} s = {nbytes / secs / 1e9:.3f} GB/s over loopback "
+            f"(both servers in this process); device time of the export "
+            f"gather {gather_ms:.4f} ms and the import scatter "
+            f"{scatter_ms:.4f} ms for {n_blocks} blocks (bound {bound:.4f} ms: "
+            f"{want} B read and written at 3.35 TB/s); transfer totals P "
+            f"{json.dumps(P.metrics.transfer_totals)}, D "
+            f"{json.dumps(D.metrics.transfer_totals)}")
+        del gathered, idx, runner
+    finally:
+        P.shutdown()
+        D.shutdown()
+    del P, D
+    _released(torch, "kv-plane P/D")
+    return band
+
+
+def _kv_tiers(torch, np, card: str, band: float) -> None:
+    """Phase 9, parts 3 and 4: the host tier (A, then B, which evicts A
+    from the pool, then A again) and the remote tier (A on one engine,
+    then on a fresh one)."""
+    from production_stack_tpu_torch.kv_server import KVServer
+
+    bs = 16
+    rng = np.random.default_rng(19)
+    wave_a = [rng.integers(0, 256, KV_WAVE).tolist() for _ in range(16)]
+    wave_b = [rng.integers(0, 256, KV_WAVE).tolist() for _ in range(16)]
+    usable = 16 * ((KV_WAVE - 1) // bs)  # the blocks a tier can give A
+    # a wave of 16 holds 16 x (KV_WAVE + 16) / bs blocks (1040 at 1024
+    # tokens); with 48 more, wave B evicts every chain of A from the pool
+    # (1088 blocks) and A's return is the host tier's to serve
+    pool = 16 * (KV_WAVE + 16) // bs + 48
+    server, base = _kv_server(["--num-blocks", str(pool),
+                               "--kv-host-cache-bytes", str(KV_HOST_BYTES)])
+    eng = server.engine
+    try:
+        first, ttft_cold, _ = _kv_wave(base, wave_a, 16, server)
+        _kv_wave(base, wave_b, 16, server)
+        hits0, blocks0 = eng.host_kv.hits, eng.prefetch_blocks
+        again, ttft_host, _ = _kv_wave(base, wave_a, 16, server)
+        hits = eng.host_kv.hits - hits0
+        committed = eng.prefetch_blocks - blocks0
+        if hits < 0.9 * usable or committed < 0.9 * usable:
+            raise AssertionError(f"[kv-plane] host tier: {hits} CPU hits, "
+                                 f"{committed} blocks committed of {usable}")
+        for i in range(16):
+            _kv_same(f"host tier {i}", first[i], again[i], band)
+        host_stats = eng.tier_stats()
+    finally:
+        server.shutdown()
+    del server, eng
+    _released(torch, "kv-plane host tier")
+
+    store = KVServer()
+    url = f"http://127.0.0.1:{store.start('127.0.0.1', 0)}"
+    try:
+        server, base = _kv_server(["--remote-kv-url", url])
+        try:
+            _kv_wave(base, wave_a, 16, server)
+            t_end = time.monotonic() + 120
+            while server.engine.remote_kv._pending_puts:
+                if time.monotonic() > t_end:
+                    raise AssertionError("[kv-plane] remote puts never "
+                                         "drained")
+                time.sleep(0.05)
+        finally:
+            server.shutdown()
+        del server
+        _released(torch, "kv-plane remote writer")
+        puts = store.puts
+        server, base = _kv_server(["--remote-kv-url", url])
+        eng = server.engine
+        try:
+            fresh, ttft_remote, _ = _kv_wave(base, wave_a, 16, server)
+            hits = eng.remote_kv.hits
+            if hits < 0.9 * usable or eng.prefetch_blocks < 0.9 * usable:
+                raise AssertionError(f"[kv-plane] remote tier: {hits} hits, "
+                                     f"{eng.prefetch_blocks} blocks "
+                                     f"committed of {usable}")
+            for i in range(16):
+                _kv_same(f"remote tier {i}", first[i], fresh[i], band)
+            remote_stats = eng.tier_stats()
+        finally:
+            server.shutdown()
+        del server, eng
+        _released(torch, "kv-plane remote reader")
+    finally:
+        store.shutdown()
+    log(f"[kv-plane] tiers ({card}): " + json.dumps({
+        "wave_a": f"16 x {KV_WAVE} tokens, 16 out", "pool_blocks": pool,
+        "usable_blocks": usable,
+        "ttft_median_s": {"cold": ttft_cold, "warm_host": ttft_host,
+                          "warm_remote": ttft_remote},
+        "host": {"cpu_hits": host_stats["tiers"]["host"]["hits"],
+                 "prefetch": host_stats["prefetch"],
+                 "bytes": host_stats["bytes"]},
+        "remote": {"puts": puts, "hits": remote_stats["tiers"]["remote"],
+                   "prefetch": remote_stats["prefetch"],
+                   "bytes": remote_stats["bytes"]}}))
+
+
+def kv_plane_phase(torch, np, counters, card: str) -> dict:
+    """Phase 9 (``kv-plane``): llama-3-8b bf16 at full width and depth,
+    random weights from seed 0. P->D: a prefill and a decode server, 16
+    requests (512-2048 tokens, 64 out) pulled, then pushed and spliced;
+    then the host and the remote tier. Returns the phase's launches (K1,
+    K2 and K3 must launch, K4 not)."""
+    for c in counters:
+        c.n = 0
+    band = _kv_pd(torch, np, card)
+    _kv_tiers(torch, np, card, band)
+    launches = {c.name.split()[0]: c.n for c in counters}
+    _expect(launches, {"K1", "K2", "K3"}, "kv-plane")
+    log(f"[kv-plane] launches: {json.dumps(launches)}")
+    return launches
+
+
 def _expect(launches: dict, expected: set, tag: str) -> None:
     for key, n in launches.items():
         if (n > 0) != (key in expected):
@@ -2807,6 +3170,7 @@ def main() -> int:
     by_path.update(features_phase(torch, np, counters, card))
     by_path["surface-ragged"] = surface_phase(torch, np, counters, card)
     by_path["moe-int8"] = moe_int8_phase(torch, np, counters, card)
+    by_path["kv-plane"] = kv_plane_phase(torch, np, counters, card)
 
     kernels = []
     for r in results:

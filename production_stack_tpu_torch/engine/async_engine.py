@@ -8,8 +8,10 @@ admission and abort happen between steps, never during one. The lock is
 handed over fairly: the engine thread waits between steps while another
 thread is waiting to enter (``_entry``), or a busy engine would re-take it
 at once, step after step, and starve admission and abort. Control-plane
-work that touches device state (loading a LoRA adapter) runs on the engine
-thread itself, between steps (``run_on_engine``).
+work that touches device state (loading a LoRA adapter, a KV transfer's
+gathers and scatters) runs on the engine thread itself, between steps
+(``run_on_engine``); ``attach_spliced`` enters a pushed P->D transfer as a
+decode row.
 
 Two hooks feed the server's histograms from the engine thread:
 ``step_observer(seconds)`` after each step (the scheduler-step duration)
@@ -193,17 +195,17 @@ class AsyncEngine:
         self, reqs: list[tuple]
     ) -> list[RequestStream]:
         """Admit every (request_id, prompt_token_ids, sampling[,
-        adapter_slot]) or none: if one is refused, the ones already added
-        are aborted and the error is raised to the caller before it
-        answers."""
+        adapter_slot[, pin_on_finish]]) or none: if one is refused, the
+        ones already added are aborted and the error is raised to the
+        caller before it answers."""
         with self._entry():
             added: list[str] = []
             try:
                 for rid, prompt_ids, sampling, *rest in reqs:
-                    self.engine.add_request(rid, prompt_token_ids=prompt_ids,
-                                            sampling=sampling,
-                                            adapter_slot=(rest[0] if rest
-                                                          else 0))
+                    self.engine.add_request(
+                        rid, prompt_token_ids=prompt_ids, sampling=sampling,
+                        adapter_slot=rest[0] if rest else 0,
+                        pin_on_finish=len(rest) > 1 and bool(rest[1]))
                     added.append(rid)
             except Exception:
                 for rid in added:
@@ -216,6 +218,22 @@ class AsyncEngine:
                 streams.append(stream)
             self._cv.notify_all()
             return streams
+
+    def attach_spliced(self, request_id: str, prompt_token_ids: list[int],
+                       first_token: int, sampling, blocks: list[int],
+                       adapter_slot: int = 0) -> RequestStream:
+        """Splice a landed P->D transfer in as a decode row
+        (``LLMEngine.splice_request``) and return its stream. On failure
+        (no decode slot, bad lengths) nothing is registered, the error is
+        raised and the caller still owns ``blocks``."""
+        with self._entry():
+            self.engine.splice_request(request_id, prompt_token_ids,
+                                       first_token, sampling, blocks,
+                                       adapter_slot=adapter_slot)
+            stream = RequestStream(request_id)
+            self._streams[request_id] = stream
+            self._cv.notify_all()
+            return stream
 
     def abort(self, request_id: str) -> None:
         """Abort a request between steps. A consumer still reading its

@@ -326,13 +326,22 @@ MODEL_PRESETS: dict[str, ModelConfig] = {
 
 @dataclasses.dataclass
 class CacheConfig:
-    """Paged KV cache geometry (device pool only; host/remote tiers come in
-    a later slice)."""
+    """Paged KV cache geometry (the device pool) and the host and remote
+    tiers behind it (engine/kv_offload.py)."""
 
     block_size: int = 16  # tokens per block
     num_blocks: int = -1  # -1 -> size from free device memory
     hbm_utilization: float = 0.9
     enable_prefix_caching: bool = True
+    # host-DRAM tier, as a block count (converted to bytes at engine init)
+    host_offload_blocks: int = 0
+    # host tier capacity in bytes (--kv-host-cache-bytes); when set it
+    # overrides host_offload_blocks
+    kv_host_cache_bytes: int = 0
+    # the shared remote tier (a kv_server URL)
+    remote_kv_url: Optional[str] = None
+    # threads of the tier-prefetch pipeline (host and remote lookups)
+    kv_prefetch_workers: int = 2
 
 
 @dataclasses.dataclass
@@ -431,6 +440,18 @@ class EngineConfig:
     max_grammars: int = 8
     max_grammar_states: int = 128
     perf: PerfConfig = dataclasses.field(default_factory=PerfConfig)
+    # disaggregated serving: "prefill" engines run requests to their first
+    # token and push the paged KV to a decode engine; "decode" engines take
+    # POST /kv/recv transfers and splice the sequence in decode-ready;
+    # "unified" runs both phases (the default)
+    role: str = "unified"
+    # P->D transfer (engine/kv_transfer.py): layers a frame (0 = half the
+    # stack), gathers in flight ahead of the send, retries a push, and the
+    # seconds an unattached /kv/recv transfer may hold pool blocks
+    kv_transfer_group_layers: int = 0
+    kv_transfer_window: int = 2
+    kv_transfer_retries: int = 3
+    kv_transfer_ttl: float = 120.0
 
     @staticmethod
     def for_model(name: str, **kw) -> "EngineConfig":
@@ -441,7 +462,9 @@ class EngineConfig:
         engine_kw = {k: kw.pop(k) for k in
                      ("cache", "scheduler", "seed", "attention_impl",
                       "max_loras", "max_lora_rank", "max_grammars",
-                      "max_grammar_states", "perf")
+                      "max_grammar_states", "perf", "role",
+                      "kv_transfer_group_layers", "kv_transfer_window",
+                      "kv_transfer_retries", "kv_transfer_ttl")
                      if k in kw}
         return EngineConfig(model=ModelConfig.from_pretrained(name, **kw),
                             **engine_kw)

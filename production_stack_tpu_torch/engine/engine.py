@@ -25,9 +25,16 @@ The perf accountant (engine/perf_accounting.py) costs every dispatch at
 the reference's points and wraps the runner's three step programs in its
 compile tracker; ``warmup()`` runs every signature the serving traffic can
 reach, then marks the accountant steady. ``stats()`` reads host counters
-only, so a scrape never waits on the card. Ring prefill, KV tiers and
-transfer, the brownout's speculation shedding and the tenant plane are not
-ported yet.
+only, so a scrape never waits on the card.
+
+The KV plane (engine/kv_offload.py, engine/kv_transfer.py): with a host
+or remote tier, an admitted sequence whose chain misses the pool parks in
+``PREFETCHING`` while the tiers are searched, and a later step commits the
+fetched slabs into its blocks; blocks the pool evicts are demoted to the
+host, and finished sequences are offloaded. ``export_kv``, the
+``*_kv_import`` calls and ``splice_request`` move blocks between engines
+for P->D disaggregation. Ring prefill, the brownout's speculation shedding
+and the tenant plane are not ported yet.
 """
 
 from __future__ import annotations
@@ -40,12 +47,20 @@ import time
 from typing import Optional, Sequence as Seq
 
 import numpy as np
+import torch
 
 from production_stack_tpu_torch.engine import grammar as G
 from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.kv_cache import (
-    adapter_root,
+    HASH_SEED,
+    kv_cache_bytes_per_block,
     slot_mapping_for,
+)
+from production_stack_tpu_torch.engine.kv_offload import (
+    KVPrefetcher,
+    chain_hashes,
+    maybe_make_remote,
+    maybe_make_store,
 )
 from production_stack_tpu_torch.engine.model_runner import ModelRunner
 from production_stack_tpu_torch.engine.perf_accounting import PerfAccountant
@@ -93,6 +108,10 @@ def _lp_row(lp: tuple, i: int):
 
 
 class LLMEngine:
+    # vllm:kv_prefetch_seconds bucket edges (+Inf implied), the reference's
+    _PREFETCH_BUCKETS = (0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+                         1.0, 2.5, 5.0)
+
     def __init__(
         self,
         config: EngineConfig,
@@ -188,6 +207,34 @@ class LLMEngine:
         self.prefill_live_tokens = 0
         self.prefill_padded_tokens = 0
         self.decode_dispatches = 0
+        self.spliced_seqs = 0  # pushed P->D transfers entered decode-ready
+        # the tiers: admission starts a prefetch (the sequence parks in
+        # PREFETCHING), pool evictions demote to the host, host evictions
+        # to the remote tier. Bytes are counted from the pool's side: "in"
+        # is a promotion into it, "out" a demotion or offload
+        self.host_kv = maybe_make_store(
+            config.cache, bytes_per_block=kv_cache_bytes_per_block(
+                config.model, config.cache))
+        self.remote_kv = maybe_make_remote(config.cache)
+        self._prefetcher: Optional[KVPrefetcher] = None
+        # (block id, chain hash) of pool blocks evicted during this step's
+        # decisions, copied to the host in one batch before the step's
+        # dispatch reuses them (_flush_demotions)
+        self._demote_queue: list[tuple[int, int]] = []
+        self.hbm_demotions = 0
+        self.prefetch_blocks = 0
+        self.prefetch_count = 0
+        self.prefetch_seconds_sum = 0.0
+        self.prefetch_stall_seconds = 0.0
+        self.prefetch_hist = [0] * (len(self._PREFETCH_BUCKETS) + 1)
+        self.tier_bytes = {("host", "in"): 0, ("host", "out"): 0,
+                           ("remote", "in"): 0, ("remote", "out"): 0}
+        if self.host_kv is not None or self.remote_kv is not None:
+            self._prefetcher = KVPrefetcher(
+                self.host_kv, self.remote_kv, config.cache.block_size,
+                config.cache.kv_prefetch_workers)
+            self.scheduler.admission_hook = self._start_tier_prefetch
+        self._wire_tier_hooks()
         # goodput accounting + compile tracking (engine/perf_accounting.py)
         self.perf: Optional[PerfAccountant] = None
         if config.perf.enabled:
@@ -202,7 +249,11 @@ class LLMEngine:
         prompt_token_ids: Optional[Seq[int]] = None,
         sampling: Optional[SamplingParams] = None,
         adapter_slot: int = 0,
+        pin_on_finish: bool = False,
     ) -> Sequence:
+        """Queue a request. ``pin_on_finish``: a P->D producer's blocks
+        keep a reference after it finishes (``Sequence.pin_on_finish``);
+        the caller frees them after its push."""
         if prompt_token_ids is None:
             if prompt is None:
                 raise ValueError("prompt or prompt_token_ids required")
@@ -229,9 +280,8 @@ class LLMEngine:
                 sampling, seed=int.from_bytes(os.urandom(4), "little"))
         seq = Sequence(request_id, list(prompt_token_ids), sampling,
                        adapter_slot=adapter_slot,
-                       prefix_root=adapter_root(
-                           adapter_slot,
-                           self.runner.lora_generation[adapter_slot]),
+                       prefix_root=self.runner.lora_roots[adapter_slot],
+                       pin_on_finish=pin_on_finish,
                        token_ctrl=make_token_controls(
                            sampling, self.config.model.vocab_size))
         if sampling.guided_regex is not None or sampling.guided_json is not None:
@@ -330,10 +380,23 @@ class LLMEngine:
 
     # -- the step ------------------------------------------------------------
     def step(self) -> list[RequestOutput]:
+        # finished tier fetches land first, so their sequences are
+        # schedulable in this step's decision
+        self._poll_prefetches()
         out = self.scheduler.schedule()
+        # blocks evicted by this decision are copied down before this
+        # step's dispatch writes into them
+        self._flush_demotions()
         if out.is_empty:
             outputs = self._resolve_pending_ragged()
             outputs.extend(self._resolve_pending_prefill())
+            if (not outputs and self._prefetcher is not None
+                    and self._prefetcher.jobs):
+                # nothing else runnable while fetches are in flight: a
+                # bounded wait, counted as prefetch time not overlapped
+                t0 = time.monotonic()
+                self._prefetcher.wait_any(0.002)
+                self.prefetch_stall_seconds += time.monotonic() - t0
             return outputs
         if out.prefills:
             if self.attention_impl == "ragged":
@@ -893,6 +956,10 @@ class LLMEngine:
         for seq, toks, lps in zip(seqs, token_lists, lp_lists):
             status = self._check_stop(seq, toks[-1]) if toks else None
             if status is not None:
+                if self.host_kv is not None or self.remote_kv is not None:
+                    self._host_offload_finished(seq)
+                if seq.pin_on_finish:
+                    self.scheduler.allocator.pin_blocks(seq.block_ids)
                 self.scheduler.finish(seq, status)
                 self._release_grammar(seq)
                 seq.finish_time = time.monotonic()
@@ -905,6 +972,7 @@ class LLMEngine:
                 num_prompt_tokens=seq.num_prompt_tokens,
                 num_output_tokens=len(seq.output_token_ids),
                 num_cached_tokens=seq.num_cached_tokens,
+                block_ids=seq.released_block_ids if done else None,
                 arrival_time=seq.arrival_time if done else None,
                 admit_time=seq.admit_time if done else None,
                 first_token_time=seq.first_token_time if done else None,
@@ -912,6 +980,226 @@ class LLMEngine:
                 new_logprobs=lps,
             ))
         return outputs
+
+    # -- the tiers (device pool <-> host <-> remote; engine/kv_offload.py) ---
+    def _wire_tier_hooks(self) -> None:
+        """Point the allocator's eviction at host demotion and the host
+        store's eviction at remote demotion."""
+        if self.host_kv is not None:
+            self.scheduler.allocator.evict_hook = self._demote_evicted_block
+            if self.remote_kv is not None:
+                self.host_kv.demote_hook = self._demote_to_remote
+
+    def _demote_evicted_block(self, block_id: int, chain_hash: int) -> None:
+        """Allocator evict hook: queue the block's slab for the host tier.
+        It runs inside a scheduling decision (or ``take_free_blocks``),
+        while the block's KV is intact; ``_flush_demotions`` copies the
+        queue down in one batch right after that decision, before anything
+        is enqueued that could write the block, so stream order keeps the
+        copy ahead of the block's next writer (K1 of the step)."""
+        if chain_hash in self.host_kv:
+            return  # already resident (offloaded at finish)
+        self._demote_queue.append((block_id, chain_hash))
+
+    def _flush_demotions(self) -> None:
+        if not self._demote_queue:
+            return
+        queue, self._demote_queue = self._demote_queue, []
+        slabs = self.runner.export_slabs([bid for bid, _ in queue])
+        for (_, chain_hash), slab in zip(queue, slabs):
+            if self.host_kv.put(chain_hash, slab):
+                self.hbm_demotions += 1
+                self.tier_bytes[("host", "out")] += slab.nbytes
+
+    def _demote_to_remote(self, chain_hash: int, slab) -> None:
+        """Host-store demote hook: the evicted slab moves on to the remote
+        tier (a bounded fire-and-forget put)."""
+        self.remote_kv.put_slab(chain_hash, slab)
+        self.tier_bytes[("remote", "out")] += slab.nbytes
+
+    def _start_tier_prefetch(self, seq: Sequence) -> None:
+        """Admission hook: start the tier lookup and park the sequence in
+        PREFETCHING until it lands; a cold tier delays only this
+        sequence's prefill."""
+        if self._prefetcher.submit(seq) is not None:
+            seq.status = SequenceStatus.PREFETCHING
+
+    def _poll_prefetches(self) -> None:
+        if self._prefetcher is None:
+            return
+        for job in self._prefetcher.pop_done():
+            self._commit_prefetch(job)
+
+    def _commit_prefetch(self, job) -> None:
+        """Land one finished lookup: import the fetched slabs into the
+        blocks the sequence took at admission and release it to
+        PREFILLING. A sequence aborted in flight gave its blocks back (they
+        may be another's now), so slabs are imported only while it still
+        owns the blocks it held at submit."""
+        try:
+            slabs, host_n, remote_n = job.future.result()
+        except Exception:  # the lookup died: a clean miss
+            slabs, host_n, remote_n = [], 0, 0
+        self._observe_prefetch(time.monotonic() - job.submit_time)
+        seq = self.scheduler.seqs.get(job.request_id)
+        if (seq is None or seq.status is not SequenceStatus.PREFETCHING
+                or tuple(seq.block_ids[:len(job.block_snapshot)])
+                != job.block_snapshot):
+            self._prefetcher.dropped += 1
+            if seq is not None and seq.status is SequenceStatus.PREFETCHING:
+                seq.status = SequenceStatus.PREFILLING
+            return
+        seq.status = SequenceStatus.PREFILLING
+        n = len(slabs)
+        if not n:
+            return  # a tier miss: the prefill computes the blocks
+        bs = self.config.cache.block_size
+        start = job.start_block
+        self.runner.import_slabs(seq.block_ids[start:start + n], slabs)
+        seq.num_computed_tokens += n * bs
+        seq.num_cached_tokens += n * bs
+        self.scheduler.allocator.commit_full_blocks(
+            seq.token_ids[:seq.num_computed_tokens],
+            seq.block_ids[:start + n], seq.prefix_root)
+        self._prefetcher.committed += 1
+        self.prefetch_blocks += n
+        if host_n:
+            self.tier_bytes[("host", "in")] += sum(
+                s.nbytes for s in slabs[:host_n])
+        if remote_n:
+            self.tier_bytes[("remote", "in")] += sum(
+                s.nbytes for s in slabs[host_n:])
+
+    def _observe_prefetch(self, seconds: float) -> None:
+        self.prefetch_count += 1
+        self.prefetch_seconds_sum += seconds
+        for i, edge in enumerate(self._PREFETCH_BUCKETS):
+            if seconds <= edge:
+                self.prefetch_hist[i] += 1
+                return
+        self.prefetch_hist[-1] += 1  # +Inf
+
+    def _host_offload_finished(self, seq: Sequence) -> None:
+        """Copy a finishing sequence's full blocks to the tiers, keyed by
+        its own chain."""
+        bs = self.config.cache.block_size
+        # only positions below num_computed hold valid KV (Scheduler.finish)
+        n_valid = min(len(seq.token_ids), seq.num_computed_tokens)
+        n_full = min(n_valid // bs, len(seq.block_ids))
+        if n_full <= 0:
+            return
+        slabs = self.runner.export_slabs(seq.block_ids[:n_full])
+        tokens = seq.token_ids[:n_full * bs]
+        if self.host_kv is not None:
+            added = self.host_kv.put_sequence(tokens, slabs, seq.prefix_root)
+            if added:
+                self.tier_bytes[("host", "out")] += added * slabs[0].nbytes
+        if self.remote_kv is not None:
+            for h, slab in zip(chain_hashes(tokens, bs, seq.prefix_root),
+                               slabs):
+                self.remote_kv.put_slab(h, slab)
+                self.tier_bytes[("remote", "out")] += slab.nbytes
+
+    # -- KV export / import (P->D disaggregation) ----------------------------
+    def export_kv(self, block_ids: list[int]) -> torch.Tensor:
+        return self.runner.export_blocks(block_ids)
+
+    def import_kv(self, prompt_token_ids: list[int], data,
+                  root: int = HASH_SEED) -> int:
+        """Write transferred blocks (L, n, bs, 2KH, D) into the pool and
+        register their chain hashes, so admission prefix-hits them;
+        returns the tokens now cached (the whole-transfer form of the
+        begin / range / finish calls)."""
+        got = self.begin_kv_import(prompt_token_ids, int(data.shape[1]))
+        if got is None:
+            return 0
+        local, n_full = got
+        self.runner.import_blocks(local, data[:, :n_full])
+        return self.finish_kv_import(prompt_token_ids, local, root)
+
+    def begin_kv_import(self, prompt_token_ids: list[int],
+                        n_remote_blocks: int):
+        """Take pool blocks for an incoming pulled transfer of full blocks
+        (never the block of the prompt's last token, which admission
+        recomputes). (local block ids, n_full), or None when the pool is
+        full."""
+        bs = self.config.cache.block_size
+        n_full = min(n_remote_blocks, (len(prompt_token_ids) - 1) // bs)
+        if n_full <= 0:
+            return None
+        local = self.scheduler.allocator.take_free_blocks(n_full)
+        self._flush_demotions()  # before the import writes those blocks
+        if local is None:
+            return None
+        return local, n_full
+
+    def import_kv_range(self, local_blocks: list[int], layer_lo: int,
+                        data) -> None:
+        self.runner.import_blocks_range(local_blocks, layer_lo, data)
+
+    def finish_kv_import(self, prompt_token_ids: list[int],
+                         local_blocks: list[int],
+                         root: int = HASH_SEED) -> int:
+        """Commit pulled blocks as prefix-cache content on the chain from
+        ``root`` (the request's adapter root, HASH_SEED for the base
+        model) and release them to the cache."""
+        bs = self.config.cache.block_size
+        alloc = self.scheduler.allocator
+        alloc.commit_full_blocks(prompt_token_ids[:len(local_blocks) * bs],
+                                 local_blocks, root)
+        alloc.free_blocks(local_blocks)  # refcount 0: cached, matchable
+        return len(local_blocks) * bs
+
+    def abort_kv_import(self, local_blocks: list[int]) -> None:
+        self.scheduler.allocator.free_blocks(local_blocks)
+
+    def begin_kv_receive(self, n_blocks: int) -> Optional[list[int]]:
+        """Take ``n_blocks`` pool blocks for a pushed transfer: the
+        producer's whole block list, the last partial block included (they
+        become a live sequence's table, not cache content). None when the
+        pool cannot give them."""
+        if n_blocks <= 0:
+            return None
+        blocks = self.scheduler.allocator.take_free_blocks(n_blocks)
+        self._flush_demotions()  # before the transfer writes those blocks
+        return blocks
+
+    def splice_request(self, request_id: str, prompt_token_ids: list[int],
+                       first_token: int, sampling: SamplingParams,
+                       blocks: list[int], adapter_slot: int = 0) -> Sequence:
+        """Turn a landed P->D transfer into a decode row: the prompt is
+        computed and the prefill's first token is already the first
+        output, so the next step decodes it; no re-prefill.
+        ``sampling.max_tokens`` counts the whole completion, the first
+        token included. On failure the caller still owns ``blocks``; on
+        success the finish and abort paths release them."""
+        if len(blocks) * self.config.cache.block_size < len(prompt_token_ids):
+            raise ValueError("spliced blocks do not cover the prompt")
+        if not 0 <= adapter_slot < self.config.max_loras:
+            raise ValueError(f"adapter_slot must be in [0, "
+                             f"{self.config.max_loras})")
+        sampling = sampling.clamped(self.config.model.max_model_len,
+                                    len(prompt_token_ids))
+        if sampling.seed is None:
+            sampling = dataclasses.replace(
+                sampling, seed=int.from_bytes(os.urandom(4), "little"))
+        seq = Sequence(request_id, list(prompt_token_ids), sampling,
+                       adapter_slot=adapter_slot,
+                       prefix_root=self.runner.lora_roots[adapter_slot],
+                       token_ctrl=make_token_controls(
+                           sampling, self.config.model.vocab_size))
+        seq.output_token_ids = [int(first_token)]
+        seq.num_computed_tokens = len(prompt_token_ids)
+        seq.num_cached_tokens = len(prompt_token_ids)
+        seq.block_ids = list(blocks)
+        self.scheduler.splice(seq)
+        if sampling.presence_penalty or sampling.frequency_penalty:
+            # the first token counts toward the penalties, as if this
+            # engine had sampled it
+            self._count_reset_slots.append(seq)
+        self.total_prompt_tokens += len(prompt_token_ids)
+        self.spliced_seqs += 1
+        return seq
 
     def _check_stop(self, seq: Sequence, token: int) -> Optional[SequenceStatus]:
         s = seq.sampling
@@ -928,9 +1216,9 @@ class LLMEngine:
 
     # -- metrics (the /metrics contract) -------------------------------------
     def stats(self) -> dict:
-        """Host counters for the exposition, with the reference's keys
-        (the host KV tier and P->D splicing are not ported: their keys read
-        0), plus ``perf``, the accountant's fields."""
+        """Host counters for the exposition, with the reference's keys,
+        the tiers' snapshot (``kv_tier``) when a tier is on, and ``perf``,
+        the accountant's fields."""
         alloc = self.scheduler.allocator
         out = {
             "num_requests_running": self.scheduler.num_running,
@@ -944,7 +1232,7 @@ class LLMEngine:
             "cpu_prefix_cache_hits_total": 0,
             "cpu_prefix_cache_queries_total": 0,
             "aborted_seqs_total": self.aborted_seqs,
-            "spliced_seqs_total": 0,
+            "spliced_seqs_total": self.spliced_seqs,
             "batch_occupancy": (self.scheduler.num_running
                                 / max(1, self.config.scheduler.max_num_seqs)),
             "kv_blocks_total": self.runner.num_blocks,
@@ -976,9 +1264,68 @@ class LLMEngine:
                 if self.spec_steps else 0.0
             ),
         }
+        if self.host_kv is not None:
+            out["cpu_cache_usage_perc"] = self.host_kv.usage
+            out["cpu_prefix_cache_hits_total"] = self.host_kv.hits
+            out["cpu_prefix_cache_queries_total"] = self.host_kv.queries
+        if self.host_kv is not None or self.remote_kv is not None:
+            out["kv_tier"] = self.tier_stats()
         if self.perf is not None:
             out["perf"] = self.perf.stats_fields()
         return out
+
+    def tier_stats(self) -> dict:
+        """The tiers' snapshot: hit, query, demotion and eviction counters
+        a tier, bytes moved a tier and direction, and the prefetch
+        pipeline's latency histogram (``vllm:kv_tier_*``,
+        ``vllm:kv_prefetch_*``)."""
+        alloc = self.scheduler.allocator
+        tiers: dict = {"hbm": {"hits": alloc.prefix_hits,
+                               "queries": alloc.prefix_queries,
+                               "demotions": self.hbm_demotions,
+                               "evictions": alloc.evictions,
+                               "usage": alloc.usage}}
+        if self.host_kv is not None:
+            tiers["host"] = {"hits": self.host_kv.hits,
+                             "queries": self.host_kv.queries,
+                             "demotions": self.host_kv.demotions,
+                             "evictions": self.host_kv.evictions,
+                             "usage": self.host_kv.usage,
+                             "bytes_used": self.host_kv.used_bytes,
+                             "bytes_capacity": self.host_kv.capacity_bytes}
+        if self.remote_kv is not None:
+            tiers["remote"] = {"hits": self.remote_kv.hits,
+                               "queries": self.remote_kv.queries}
+        prefetch = None
+        if self._prefetcher is not None:
+            total = self.prefetch_seconds_sum
+            prefetch = {
+                "submitted": self._prefetcher.submitted,
+                "committed": self._prefetcher.committed,
+                "dropped": self._prefetcher.dropped,
+                "in_flight": len(self._prefetcher.jobs),
+                "blocks": self.prefetch_blocks,
+                "count": self.prefetch_count,
+                "seconds_sum": total,
+                "stall_seconds": self.prefetch_stall_seconds,
+                # share of prefetch wall time that overlapped engine work
+                "overlap_fraction": (
+                    max(0.0, 1.0 - self.prefetch_stall_seconds / total)
+                    if total > 0 else 1.0),
+                "hist_buckets": list(self._PREFETCH_BUCKETS),
+                "hist_counts": list(self.prefetch_hist),
+            }
+        return {"tiers": tiers,
+                "bytes": {f"{t}_{d}": v
+                          for (t, d), v in sorted(self.tier_bytes.items())},
+                "prefetch": prefetch}
+
+    def shutdown_tiers(self) -> None:
+        """Stop the tier threads (prefetch and remote IO)."""
+        if self._prefetcher is not None:
+            self._prefetcher.shutdown()
+        if self.remote_kv is not None:
+            self.remote_kv.shutdown()
 
     # -- warmup --------------------------------------------------------------
     def warmup(self) -> None:

@@ -11,15 +11,21 @@
   evicted. ``_chain_hash`` is bit-identical to the reference's, so both
   engines give a prefix the same block identity. A chain starts at
   ``HASH_SEED`` for the base model; a LoRA request's starts at its
-  adapter's root (``adapter_root``), so KV computed under one adapter
-  never serves another or the base model (the reference roots every chain
-  at the seed and shares such blocks).
+  adapter's root (``adapter_root``, a digest of the adapter's weights, so
+  every process and every engine gives one adapter one root), so KV
+  computed under one adapter never serves another or the base model, in
+  the pool or in the host and remote tiers (the reference roots every
+  chain at the seed and shares such blocks).
+- When the allocator evicts a cached block it first calls ``evict_hook``
+  with the block's id and content hash, while the block's KV is intact:
+  the engine demotes it to the host tier there.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 from typing import Optional, Sequence
 
 import numpy as np
@@ -57,13 +63,20 @@ def _chain_hash(prev: int, tokens: tuple[int, ...]) -> int:
     return hash((prev, tokens)) & 0x7FFFFFFFFFFFFFFF
 
 
-def adapter_root(slot: int, generation: int) -> int:
-    """The hash-chain root of a request on adapter bank slot ``slot``
-    loaded for the ``generation``-th time (a reload into the same slot is a
-    new adapter); slot 0, the base model, roots at ``HASH_SEED``."""
-    if slot == 0:
-        return HASH_SEED
-    return _chain_hash(HASH_SEED, ("lora", slot, generation))
+def adapter_root(bank: dict) -> int:
+    """The hash-chain root of requests on the adapter whose stacked
+    ``{target: (A, B)}`` arrays are ``bank`` (``lora.load_adapter_raw``):
+    a SHA-256 of the targets' names, dtypes, shapes and bytes, so it is the
+    same in every process and on every engine that loads the same weights,
+    and never ``HASH_SEED``. The base model roots at ``HASH_SEED``."""
+    h = hashlib.sha256()
+    for key in sorted(bank):
+        for arr in bank[key]:
+            a = np.ascontiguousarray(arr)
+            h.update(f"{key}:{a.dtype.str}:{a.shape};".encode())
+            h.update(a.tobytes())
+    root = int.from_bytes(h.digest()[:8], "little") & 0x7FFFFFFFFFFFFFFF
+    return root if root != HASH_SEED else root ^ 1
 
 
 @dataclasses.dataclass
@@ -88,6 +101,10 @@ class PrefixCachingBlockAllocator:
         self.prefix_queries = 0
         self.prefix_hits = 0
         self.evictions = 0
+        # called with (block_id, content_hash) before an evicted block
+        # returns to the free list, while its KV is intact; it must not
+        # allocate from this pool
+        self.evict_hook = None
 
     # -- internals ---------------------------------------------------------
     def _evict_one(self) -> bool:
@@ -96,6 +113,8 @@ class PrefixCachingBlockAllocator:
         bid, _ = self.lru.popitem(last=False)
         blk = self.blocks[bid]
         if blk.content_hash is not None:
+            if self.evict_hook is not None:
+                self.evict_hook(bid, blk.content_hash)
             self.hash_to_block.pop(blk.content_hash, None)
             blk.content_hash = None
         self.free_ids.append(bid)
@@ -178,6 +197,34 @@ class PrefixCachingBlockAllocator:
     def append_block(self) -> Optional[int]:
         """One more block for a growing (decoding) sequence."""
         return self._pop_free()
+
+    def take_free_blocks(self, n: int) -> Optional[list[int]]:
+        """``n`` fresh blocks (refcount 1) for a KV import; None if the
+        pool cannot give them."""
+        if n > self.num_free_blocks:
+            return None
+        out = []
+        for _ in range(n):
+            bid = self._pop_free()
+            if bid is None:  # cannot happen after the check above
+                self.free_blocks(out)
+                return None
+            out.append(bid)
+        return out
+
+    def pin_blocks(self, block_ids: Sequence[int]) -> None:
+        """Take a reference on live or cached blocks (for a streamed
+        export), so eviction and reallocation cannot tear them mid-use;
+        release with ``free_blocks``. A block on the free list holds
+        nothing to pin: it raises ValueError and pins none. (The
+        reference's ``pin_blocks`` leaves such a block on the free list
+        with a reference, so it can be handed out twice.)"""
+        for bid in block_ids:
+            blk = self.blocks[bid]
+            if blk.ref_count == 0 and bid not in self.lru:
+                raise ValueError(f"block {bid} is free: nothing to pin")
+        for bid in block_ids:
+            self._take_cached(bid)
 
     def commit_full_blocks(
         self, tokens: Sequence[int], block_ids: Sequence[int],

@@ -2,11 +2,12 @@
 
 Ports the exposition of production_stack_tpu/engine/metrics.py that the
 router scrapes (``router/stats.py``) for the families whose state this
-package has: ``EngineStatsCollector`` up to its tenant block (the perf
-families included), ``LifecycleCollector``, and ``ServerMetrics``'
-latency histograms with the same bucket edges. Names, types, label names
-and values are the reference's. The tenant, KV-tier, diagnostics, overload
-and KV-transfer families are not ported yet: their subsystems are not.
+package has: ``EngineStatsCollector`` without its tenant block (the perf
+and KV-tier families included), ``LifecycleCollector``, and
+``ServerMetrics``' latency and KV-transfer histograms with the same bucket
+edges. Names, types, label names and values are the reference's. The
+tenant, diagnostics and overload families are not ported yet: their
+subsystems are not.
 
 The card's machine has no ``prometheus_client``, so this module writes the
 text exposition format (version 0.0.4) itself, as the reference's
@@ -111,7 +112,7 @@ def engine_families(s: dict, model_name: str) -> list[Family]:
     counter("vllm:gpu_prefix_cache_hits", "Prefix cache block hits", hits)
     counter("vllm:gpu_prefix_cache_queries", "Prefix cache block queries",
             queries)
-    # host-DRAM KV tier: not ported, so these read 0
+    # the host-DRAM KV tier (0 without one)
     gauge("vllm:cpu_cache_usage_perc",
           "Host-DRAM KV offload tier usage (1 = 100%)",
           s.get("cpu_cache_usage_perc", 0.0))
@@ -163,6 +164,9 @@ def engine_families(s: dict, model_name: str) -> list[Family]:
           "Cumulative live-token fill of the budget-wide ragged stream "
           "(live tokens / dispatches x max_num_batched_tokens)",
           s.get("ragged_stream_utilization", 0.0))
+    kv_tier = s.get("kv_tier")
+    if kv_tier:
+        out += tier_families(kv_tier, model_name)
     perf = s.get("perf")
     if not perf:
         return out
@@ -245,6 +249,48 @@ def engine_families(s: dict, model_name: str) -> list[Family]:
     return out
 
 
+def tier_families(kv_tier: dict, model_name: str) -> list[Family]:
+    """The reference's tiered-KV families from ``LLMEngine.tier_stats()``:
+    hit ratio a tier, bytes a tier and direction, and the prefetch
+    pipeline's latency histogram and overlap share."""
+    ratio = Family("vllm:kv_tier_hit_ratio", "gauge",
+                   "Cumulative prefix-block hit ratio per KV tier (hbm = "
+                   "on-device pool, host = DRAM store, remote = shared "
+                   "kv_server)", ["model_name", "tier"])
+    for tier, t in sorted(kv_tier["tiers"].items()):
+        q = t.get("queries", 0)
+        ratio.add([model_name, tier], t.get("hits", 0) / q if q else 0.0)
+    nbytes = Family("vllm:kv_tier_bytes", "counter",
+                    "KV slab bytes moved per tier and direction (from the "
+                    "HBM pool's perspective: in = promotion/prefetch import, "
+                    "out = demotion/offload export)",
+                    ["model_name", "tier", "direction"])
+    for key, n in sorted(kv_tier["bytes"].items()):
+        tier, direction = key.rsplit("_", 1)
+        nbytes.add([model_name, tier, direction], n)
+    out = [ratio, nbytes]
+    pf = kv_tier.get("prefetch")
+    if pf:
+        hist = Family("vllm:kv_prefetch_seconds", "histogram",
+                      "Warm-tier prefix fetch latency (admission → staged "
+                      "slabs ready to commit); overlapped with serving, "
+                      "never blocking the loop", ["model_name"])
+        acc = 0
+        for edge, n in zip(list(pf["hist_buckets"]) + [math.inf],
+                           pf["hist_counts"]):
+            acc += n
+            hist.add([model_name], acc, "_bucket", {"le": format_value(edge)})
+        hist.add([model_name], acc, "_count")
+        hist.add([model_name], pf["seconds_sum"], "_sum")
+        out.append(hist)
+        out.append(Family(
+            "vllm:kv_prefetch_overlap_fraction", "gauge",
+            "Share of prefetch wall time overlapped with useful engine work "
+            "(1.0 = the serving loop never waited on a tier fetch)",
+            ["model_name"]).add([model_name], pf.get("overlap_fraction", 1.0)))
+    return out
+
+
 def lifecycle_families(s: dict, model_name: str) -> list[Family]:
     """The reference's ``LifecycleCollector`` families (drain, watchdog,
     warmup), from the server's lifecycle snapshot."""
@@ -294,6 +340,8 @@ BUCKETS_ITL = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.075, 0.1, 0.15,
                0.2, 0.3, 0.4, 0.5, 0.75, 1.0, 2.5)
 BUCKETS_STEP = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
                 0.5, 1.0, 2.5, 5.0)
+BUCKETS_TRANSFER = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
+                    10.0, 30.0, 60.0, 120.0)
 
 
 class Histogram:
@@ -318,18 +366,23 @@ class Histogram:
 
     def family(self, model_name: str) -> Family:
         fam = Family(self.name, "histogram", self.doc, ["model_name"])
+        self.add_samples(fam, [model_name])
+        return fam
+
+    def add_samples(self, fam: Family, label_values) -> None:
+        """This histogram's cumulative samples into ``fam`` under
+        ``label_values`` (none before the first observation)."""
         with self._lock:
             counts, total = list(self._counts), self._sum
         if not sum(counts):
-            return fam
+            return
         acc = 0
         for edge, n in zip(self.buckets + (math.inf,), counts):
             acc += n
-            fam.add([model_name], acc, "_bucket",
+            fam.add(label_values, acc, "_bucket",
                     {"le": format_value(edge)})
-        fam.add([model_name], total, "_sum")
-        fam.add([model_name], acc, "_count")
-        return fam
+        fam.add(label_values, total, "_sum")
+        fam.add(label_values, acc, "_count")
 
 
 class ServerMetrics:
@@ -370,14 +423,63 @@ class ServerMetrics:
         self.histograms = (self.ttft, self.tpot, self.e2e, self.queue_time,
                            self.prefill_time, self.decode_time, self.itl,
                            self.step_duration)
+        # P->D KV transfers by direction (push: a prefill engine streaming
+        # out; recv: a decode engine landing a push; export: a served
+        # /kv/export; import: a pulled one): bytes, one transfer's wall
+        # seconds, and a {bytes, seconds, count} mirror for /debug/perf
+        self._transfer_lock = threading.Lock()
+        self._transfer_hists: dict[str, Histogram] = {}
+        self.transfer_totals: dict = {}
 
     def register_lifecycle(self, source: Callable[[], dict]) -> None:
         """Attach the drain/watchdog/warmup snapshot source."""
         self._lifecycle = source
 
+    def observe_transfer(self, direction: str, nbytes: int,
+                         seconds: float) -> None:
+        with self._transfer_lock:
+            hist = self._transfer_hists.get(direction)
+            if hist is None:
+                hist = self._transfer_hists[direction] = Histogram(
+                    "vllm:kv_transfer_seconds", "", BUCKETS_TRANSFER)
+            t = self.transfer_totals.setdefault(
+                direction, {"bytes": 0, "seconds": 0.0, "count": 0})
+            t["bytes"] += nbytes
+            t["seconds"] += seconds
+            t["count"] += 1
+        hist.observe(seconds)
+
+    def transfer_snapshot(self) -> dict:
+        """A copy of ``transfer_totals`` (direction -> bytes, seconds,
+        count), safe to serialize while transfers go on."""
+        with self._transfer_lock:
+            return {d: dict(t) for d, t in self.transfer_totals.items()}
+
+    def transfer_families(self) -> list[Family]:
+        """``vllm:kv_transfer_bytes`` and ``vllm:kv_transfer_seconds``,
+        labelled by direction; none before the first transfer."""
+        totals = self.transfer_snapshot()
+        with self._transfer_lock:
+            hists = dict(self._transfer_hists)
+        if not totals:
+            return []
+        nbytes = Family("vllm:kv_transfer_bytes", "counter",
+                        "KV bytes moved between engines for disaggregated "
+                        "serving, by direction (push/recv/export/import)",
+                        ["model_name", "direction"])
+        secs = Family("vllm:kv_transfer_seconds", "histogram",
+                      "Wall time of one KV transfer leg (gather + wire + "
+                      "scatter, overlapped), by direction",
+                      ["model_name", "direction"])
+        for d in sorted(totals):
+            nbytes.add([self.model_name, d], totals[d]["bytes"])
+            hists[d].add_samples(secs, [self.model_name, d])
+        return [nbytes, secs]
+
     def families(self) -> list[Family]:
         fams = engine_families(self.engine.stats(), self.model_name)
         fams += [h.family(self.model_name) for h in self.histograms]
+        fams += self.transfer_families()
         if self._lifecycle is not None:
             fams += lifecycle_families(self._lifecycle(), self.model_name)
         return fams

@@ -175,9 +175,10 @@ class ModelRunner:
         # has it; slot 0 stays zeros (the base model). A keeps the N slots
         # inside, so one layer's A is a single (in, N * R) matrix.
         self.lora_bank: Optional[dict] = None
-        # how many times each bank slot was written or cleared: a reload
-        # into a slot is a new adapter to the prefix cache
-        self.lora_generation = [0] * config.max_loras
+        # each bank slot's prefix-cache chain root: a digest of the loaded
+        # adapter's weights (kv_cache.adapter_root), HASH_SEED while the
+        # slot is empty (its zero delta computes the base model's KV)
+        self.lora_roots = [kvmod.HASH_SEED] * config.max_loras
         # constrained-decoding grammar bank: (G, S, V) int16 token
         # transition tables and (G, S) accept flags, allocated on the first
         # guided request (engine/grammar.py)
@@ -392,15 +393,15 @@ class ModelRunner:
             A_dev, B_dev = self.lora_bank[key]
             A_dev[:, :, slot] = self._dev(A_st, dt)
             B_dev[:, slot] = self._dev(B_st, dt)
-        self.lora_generation[slot] += 1
+        self.lora_roots[slot] = kvmod.adapter_root(bank_np)
 
     def unregister_lora(self, slot: int) -> None:
+        self.lora_roots[slot] = kvmod.HASH_SEED
         if self.lora_bank is None:
             return
         for A_dev, B_dev in self.lora_bank.values():
             A_dev[:, :, slot] = 0
             B_dev[:, slot] = 0
-        self.lora_generation[slot] += 1
 
     def _lora(self, adapter_ids) -> Optional[dict]:
         """The forward's ``lora`` argument for adapter ids of any shape
@@ -419,6 +420,81 @@ class ModelRunner:
         if g_ids is None or self.grammar_bank is None:
             return None
         return [self._dev(g_ids, torch.int64), self._dev(g_states, torch.int64)]
+
+    # -- KV block export / import (P->D transfer, tier movement) -----------
+    def _block_index(self, block_ids) -> torch.Tensor:
+        return torch.as_tensor(list(block_ids), dtype=torch.int64,
+                               device=self.device)
+
+    def _to_host(self, data: torch.Tensor) -> torch.Tensor:
+        """One copy of a gathered device tensor into pinned host memory
+        (on the CPU the gather already made a fresh tensor)."""
+        if data.device.type == "cpu":
+            return data
+        out = torch.empty(data.shape, dtype=data.dtype, pin_memory=True)
+        out.copy_(data)
+        return out
+
+    def export_blocks(self, block_ids) -> torch.Tensor:
+        """Blocks out of the pool: ``index_select`` on the block axis on
+        the device, then one copy to the host; (L, n, bs, 2KH, D)."""
+        return self.export_blocks_range(block_ids, 0, self.cfg.num_layers)
+
+    def export_blocks_range(self, block_ids, layer_lo: int,
+                            n_layers: int) -> torch.Tensor:
+        """One layer group of the blocks, the unit of the streamed
+        transfer (engine/kv_transfer.py); (n_layers, n, bs, 2KH, D)."""
+        grp = self.kv[layer_lo:layer_lo + n_layers]
+        return self._to_host(grp.index_select(1,
+                                              self._block_index(block_ids)))
+
+    def export_slabs(self, block_ids) -> list[torch.Tensor]:
+        """Each block's (L, bs, 2KH, D) slab in host memory of its own, for
+        the tiers (a tier holds and frees them one by one, so none may keep
+        a shared buffer alive): one gather, made block-major on the device,
+        then a copy a slab into pinned memory, all enqueued before one
+        wait. Pinned slabs go back up at the link's rate
+        (``import_slabs``)."""
+        idx = self._block_index(block_ids)
+        data = self.kv.index_select(1, idx).transpose(0, 1).contiguous()
+        if data.device.type == "cpu":
+            return [s.clone() for s in data]
+        slabs = [torch.empty(data.shape[1:], dtype=data.dtype,
+                             pin_memory=True) for _ in range(len(data))]
+        for slab, src in zip(slabs, data):
+            slab.copy_(src, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return slabs
+
+    def import_slabs(self, block_ids, slabs) -> None:
+        """Slabs (L, bs, 2KH, D) into the pool, one a block: each copied up
+        on its own (asynchronously from pinned memory) into a block-major
+        buffer, then one ``index_copy_``; no host-side stack."""
+        idx = self._block_index(block_ids)
+        if self.device.type == "cpu":
+            self.kv.index_copy_(1, idx, torch.stack(slabs, dim=1).to(
+                self.kv.dtype))
+            return
+        dev = torch.empty((len(slabs), *self.kv.shape[:1],
+                           *self.kv.shape[2:]), dtype=self.kv.dtype,
+                          device=self.device)
+        for dst, slab in zip(dev, slabs):
+            dst.copy_(slab, non_blocking=True)
+        self.kv.index_copy_(1, idx, dev.transpose(0, 1))
+
+    def import_blocks(self, block_ids, data) -> None:
+        """Blocks into the pool: one host-to-device copy of ``data`` (L, n,
+        bs, 2KH, D), then ``index_copy_`` on the block axis."""
+        self.import_blocks_range(block_ids, 0, data)
+
+    def import_blocks_range(self, block_ids, layer_lo: int, data) -> None:
+        """One layer group (n_layers, n, bs, 2KH, D) into the pool."""
+        if not isinstance(data, torch.Tensor):
+            data = torch.from_numpy(np.ascontiguousarray(data))
+        dev = data.to(self.device, dtype=self.kv.dtype)
+        n_layers = int(dev.shape[0])
+        self.kv[layer_lo:layer_lo + n_layers].index_copy_(
+            1, self._block_index(block_ids), dev)
 
     # -- host -> device ----------------------------------------------------
     def _dev(self, x, dtype=None) -> torch.Tensor:

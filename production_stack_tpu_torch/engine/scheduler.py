@@ -17,8 +17,12 @@ and preemption:
 When the pool runs dry a decode row preempts the youngest running sequence
 (vLLM-style recompute). With speculation on (the ragged path), each
 eligible decode row is also granted draft tokens against the same budget
-(``_grant_spec_drafts``). The brownout's grant shedding, ring prefill, the
-tier-prefetch hooks and per-tenant fair share come in later slices.
+(``_grant_spec_drafts``). The engine's ``admission_hook`` may park an
+admitted sequence in ``PREFETCHING`` while a tier fetch runs: it holds its
+slot and blocks and takes no token budget (both policies schedule only
+``PREFILLING`` and ``RUNNING`` sequences). ``splice`` enters a sequence
+prefilled on another engine as a decode row. The brownout's grant
+shedding, ring prefill and per-tenant fair share come in later slices.
 
 The scheduler is host-side control plane: it decides and never touches
 device tensors.
@@ -77,6 +81,10 @@ class Scheduler:
         # spec.SpecController). The row is charged 1 + grant stream tokens
         # and gets KV blocks for the whole span.
         self.spec_grant_fn = None
+        # called with each sequence right after admission, before its first
+        # chunk; the tiered engine starts a prefix fetch there and may park
+        # the sequence in PREFETCHING
+        self.admission_hook = None
 
     # -- queue management ---------------------------------------------------
     def add(self, seq: Sequence) -> None:
@@ -108,6 +116,12 @@ class Scheduler:
         return len(self.seqs)
 
     @property
+    def num_prefetching(self) -> int:
+        """Admitted sequences parked on an in-flight tier fetch."""
+        return sum(1 for s in self.seqs.values()
+                   if s.status is SequenceStatus.PREFETCHING)
+
+    @property
     def num_free_blocks(self) -> int:
         return self.allocator.num_free_blocks
 
@@ -126,6 +140,7 @@ class Scheduler:
     def _release(self, seq: Sequence) -> None:
         """Return a sequence's blocks and slot to the pools."""
         if seq.block_ids:
+            seq.released_block_ids = list(seq.block_ids)
             self.allocator.free_blocks(seq.block_ids)
             seq.block_ids = []
         if seq.slot >= 0:
@@ -172,6 +187,22 @@ class Scheduler:
             if seq.admit_time is None:  # the first wait is the one users see
                 seq.admit_time = time.monotonic()
             self.seqs[seq.request_id] = seq
+            if self.admission_hook is not None:
+                self.admission_hook(seq)
+
+    def splice(self, seq: Sequence) -> None:
+        """Enter a sequence prefilled on another engine (a P->D transfer)
+        as a decode row: its blocks hold the prompt's KV, its first token
+        is in ``output_token_ids`` and ``num_computed_tokens`` covers the
+        prompt, so the next step decodes it; no pass through the waiting
+        queue. Raises ``SchedulerQueueFull`` when no slot is free."""
+        if not self.free_slots:
+            raise SchedulerQueueFull("no decode slot free for spliced seq")
+        seq.slot = self.free_slots.pop()
+        seq.status = SequenceStatus.RUNNING
+        if seq.admit_time is None:
+            seq.admit_time = time.monotonic()
+        self.seqs[seq.request_id] = seq
 
     # -- the per-step decision ----------------------------------------------
     def schedule(self) -> SchedulerOutput:

@@ -1,7 +1,8 @@
 """Per-request sequence state (host side, control plane).
 
-Ports production_stack_tpu/engine/sequence.py with its LoRA, grammar and
-speculation fields; the tiering and tenancy fields come with their slices.
+Ports production_stack_tpu/engine/sequence.py with its LoRA, grammar,
+speculation and KV-plane fields (the ``PREFETCHING`` state, the blocks a
+finished sequence released); the tenancy fields come with their slice.
 """
 
 from __future__ import annotations
@@ -18,6 +19,11 @@ from production_stack_tpu_torch.engine.sampling import SamplingParams
 class SequenceStatus(enum.Enum):
     WAITING = "waiting"
     PREFILLING = "prefilling"
+    # admitted with its blocks, but a host or remote tier prefix fetch is
+    # still in flight: neither prefill nor decode touches the sequence until
+    # the engine commits or drops the fetched blocks and flips it to
+    # PREFILLING
+    PREFETCHING = "prefetching"
     RUNNING = "running"  # decoding
     PREEMPTED = "preempted"
     FINISHED_STOPPED = "stop"
@@ -55,6 +61,13 @@ class Sequence:
     output_token_ids: list[int] = dataclasses.field(default_factory=list)
     status: SequenceStatus = SequenceStatus.WAITING
     block_ids: list[int] = dataclasses.field(default_factory=list)
+    # the blocks the sequence held when the scheduler released it (the
+    # producer's remote_block_ids of a P->D transfer)
+    released_block_ids: list[int] = dataclasses.field(default_factory=list)
+    # a P->D producer: take a reference on the blocks at finish, before the
+    # scheduler frees them, so the push that follows reads them intact; the
+    # server frees them after the push
+    pin_on_finish: bool = False
     num_computed_tokens: int = 0  # tokens whose KV sits in the pool
     num_cached_tokens: int = 0  # prefix-cache hits at admission
     slot: int = -1  # batch slot index, -1 = none
@@ -112,6 +125,9 @@ class RequestOutput:
     num_prompt_tokens: int
     num_output_tokens: int
     num_cached_tokens: int = 0
+    # on finish: the blocks the sequence held (pinned for a push when it
+    # asked for ``pin_on_finish``)
+    block_ids: Optional[list[int]] = None
     # monotonic stamps, set on finish
     arrival_time: Optional[float] = None
     admit_time: Optional[float] = None

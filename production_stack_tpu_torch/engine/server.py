@@ -19,11 +19,26 @@ the step watchdog sees no progress); ``POST /drain`` (new ``/v1/*`` POSTs
 get 503 + ``Retry-After``, in-flight streams finish under
 ``--drain-deadline``, stragglers are then aborted; SIGTERM drains, then
 exits); ``GET /metrics`` (the reference's ``vllm:*`` families, written by
-hand: engine/metrics.py); ``POST /kv/lookup``; ``POST /tokenize`` and
-``/detokenize``; ``GET /debug/perf`` (the perf accountant); ``GET
-/debug/canary`` (golden records of the pinned probes); ``POST
-/debug/profile`` (a ``torch.profiler`` Chrome trace as tar.gz). These
-handlers read host state only: none waits on the card or on a step.
+hand: engine/metrics.py); ``POST /kv/lookup`` (with the host tier's
+``matched_tokens_host``); ``POST /tokenize`` and ``/detokenize``; ``GET
+/debug/perf`` (the perf accountant, the ``kv_transfer`` and ``kv_tier``
+blocks); ``GET /debug/canary`` (golden records of the pinned probes);
+``POST /debug/profile`` (a ``torch.profiler`` Chrome trace as tar.gz).
+These handlers read host state only: none waits on the card or on a step.
+
+The KV plane (``--role prefill|decode``; engine/kv_transfer.py frames, the
+reference's wire format): ``POST /kv/export`` returns blocks' KV, whole or,
+with ``"stream": true``, as chunked layer-group frames; ``POST /kv/recv``
+lands a pushed transfer (a chunked body this module decodes itself) into
+free pool blocks. A completion's ``kv_transfer_params`` drives both of the
+router's flows: with ``do_remote_decode`` the prefill hop answers with
+``remote_block_ids`` and, given ``push_url`` and ``transfer_id``, first
+pushes its blocks to that decode engine; the decode hop splices a landed
+push by its ``transfer_id`` (no re-prefill) or pulls ``remote_block_ids``
+from ``remote_host`` into its prefix cache before admission, and falls back
+to a plain prefill when neither is there. ``--kv-host-cache-bytes`` and
+``--remote-kv-url`` put the host and remote tiers behind the pool
+(engine/kv_offload.py).
 
 Response bodies have the JAX server's shape, so the same router can front
 either engine. ``guided_choice`` and ``echo`` (which need prompt scoring),
@@ -41,6 +56,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import http.client
 import io
 import json
 import logging
@@ -71,6 +87,16 @@ from production_stack_tpu_torch.engine.engine import GrammarBankFull, LLMEngine
 from production_stack_tpu_torch.engine.grammar import (
     compile_regex,
     schema_to_regex,
+)
+from production_stack_tpu_torch.engine.kv_transfer import (
+    FrameDigestError,
+    consume_frames,
+    default_group,
+    nbytes_of,
+    produce_frames,
+    push_kv,
+    read_frame,
+    tensor_bytes,
 )
 from production_stack_tpu_torch.engine.lifecycle import StepWatchdog
 from production_stack_tpu_torch.engine.lora import LoraManager
@@ -217,6 +243,81 @@ def _error(message: str, kind: str = "invalid_request_error") -> dict:
     return {"error": {"message": message, "type": kind}}
 
 
+class _ChunkedReader:
+    """``readinto`` over an HTTP/1.1 chunked request body (the stdlib
+    handler does not decode one): a pushed KV transfer arrives so."""
+
+    def __init__(self, rfile):
+        self.rfile = rfile
+        self.left = 0  # bytes left in the current chunk
+        self.done = False
+
+    def readinto(self, buf) -> int:
+        if self.done:
+            return 0
+        if self.left == 0:
+            line = self.rfile.readline(1024)
+            if not line:
+                raise EOFError("connection closed inside a chunked body")
+            self.left = int(line.split(b";")[0].strip() or b"0", 16)
+            if self.left == 0:
+                while self.rfile.readline(1024) not in (b"\r\n", b"\n",
+                                                        b""):
+                    pass  # trailers
+                self.done = True
+                return 0
+        n = self.rfile.readinto(memoryview(buf)[:min(len(buf), self.left)])
+        if not n:
+            raise EOFError("connection closed inside a chunked body")
+        self.left -= n
+        if self.left == 0:
+            self.rfile.readline(1024)  # the chunk's CRLF
+        return n
+
+    def drain(self) -> None:
+        """Read to the end of the body, so an early answer reaches a
+        sender that is still writing."""
+        scratch = bytearray(1 << 20)
+        while self.readinto(scratch):
+            pass
+
+
+class _LengthReader:
+    """``readinto`` over a Content-Length request body."""
+
+    def __init__(self, rfile, length: int):
+        self.rfile = rfile
+        self.left = length
+
+    def readinto(self, buf) -> int:
+        if self.left <= 0:
+            return 0
+        n = self.rfile.readinto(memoryview(buf)[:min(len(buf), self.left)])
+        self.left -= n or 0
+        return n
+
+    def drain(self) -> None:
+        scratch = bytearray(1 << 20)
+        while self.readinto(scratch):
+            pass
+
+
+@dataclasses.dataclass
+class _Admission:
+    """An admitted generation request: its choices' streams, and what its
+    ``kv_transfer_params`` asked of the KV plane."""
+
+    streams: list
+    rids: list
+    rid: str
+    sampling: SamplingParams
+    n_prompt: int
+    prompt_ids: list
+    produce_kv: bool = False  # answer with remote_block_ids
+    push: Optional[dict] = None  # push_url + transfer_id: blocks pinned
+    imported_tokens: int = 0  # tokens a pull landed before admission
+
+
 class _HTTPServer(ThreadingHTTPServer):
     # socketserver's default backlog of 5 resets connections when a burst
     # (a router fanning out a wave, a client opening one connection per
@@ -274,6 +375,10 @@ class EngineServer:
         self.watchdog = StepWatchdog(self.async_engine,
                                      watchdog_stall_seconds)
         self.metrics.register_lifecycle(self._lifecycle_snapshot)
+        # pushed transfers landing or landed on this (decode) engine, by
+        # transfer id: {blocks, layers_done, meta, created, ready}
+        self._kv_transfers: dict[str, dict] = {}
+        self._kv_lock = threading.Lock()
 
     def _observe_finished(self, out) -> None:
         """Engine thread: a finished request's stamps into the latency
@@ -394,6 +499,7 @@ class EngineServer:
             self._httpd = None
         self.watchdog.stop()
         self.async_engine.stop()
+        self.engine.shutdown_tiers()
 
     # -- routes --------------------------------------------------------------
     def models(self) -> dict:
@@ -406,7 +512,7 @@ class EngineServer:
             "parent": None,
             "max_model_len": self.config.model.max_model_len,
             "capabilities": list(ENGINE_CAPABILITIES),
-            "role": "unified",
+            "role": self.config.role,
         }]
         for name in self.lora.list_adapters():
             cards.append({
@@ -464,20 +570,29 @@ class EngineServer:
 
     def kv_lookup(self, body: dict) -> tuple[int, dict]:
         """KV-aware routing: how many tokens of this prompt would hit the
-        prefix cache now, from the allocator's content-hash table.
+        prefix cache now, from the allocator's content-hash table, and,
+        with a host tier, how many more it could continue the match with
+        (``matched_tokens_host``; a router weights those below a pool hit
+        and far above a prefill).
 
         The walk starts at the base model's chain root (``HASH_SEED``):
         the router sends only ``{"prompt"}`` (or ``{"tokens"}``), never an
         adapter. This port roots each LoRA adapter's chain at its own
         ``kv_cache.adapter_root``, so blocks computed under an adapter are
         invisible here, by design: they could never serve a base-model
-        request. The host-tier field of the reference is not ported."""
+        request."""
         if "tokens" in body:
             ids = list(body["tokens"])
         else:
             ids = self.engine.tokenizer.encode(body.get("prompt") or "")
         _, matched = self.engine.scheduler.allocator.match_prefix(ids)
-        return 200, {"matched_tokens": matched, "total_tokens": len(ids)}
+        out = {"matched_tokens": matched, "total_tokens": len(ids)}
+        host_kv = self.engine.host_kv
+        if host_kv is not None:
+            bs = self.config.cache.block_size
+            out["matched_tokens_host"] = bs * host_kv.probe_extension(
+                ids, matched // bs)
+        return 200, out
 
     def debug_perf(self) -> tuple[int, dict]:
         """The perf accountant's snapshot (engine/perf_accounting.py):
@@ -485,9 +600,20 @@ class EngineServer:
         device memory, the compile-event log and the cost model, with the
         speculative-decoding picture."""
         perf = self.engine.perf
+        with self._kv_lock:
+            pending = len(self._kv_transfers)
+        kv_block = {"role": self.config.role,
+                    "pending_transfers": pending,
+                    "transfers": self.metrics.transfer_snapshot()}
+        tier_block = None
+        if self.engine.host_kv is not None or self.engine.remote_kv is not None:
+            tier_block = self.engine.tier_stats()
         if perf is None:
-            return 200, {"enabled": False}
+            return 200, {"enabled": False, "kv_transfer": kv_block,
+                         "kv_tier": tier_block}
         snap = perf.snapshot()
+        snap["kv_transfer"] = kv_block
+        snap["kv_tier"] = tier_block
         eng = self.engine
         drafted, steps = eng.spec_drafted, eng.spec_steps
         snap["speculative"] = {
@@ -654,9 +780,11 @@ class EngineServer:
         raise BadRequest("invalid 'prompt': expected string, token list, or "
                          "batch thereof")
 
-    def admit(self, body: dict, chat: bool):
-        """Validate a generation request and admit its choices. Returns
-        (streams, rids, rid, sampling, n_prompt)."""
+    def admit(self, body: dict, chat: bool) -> _Admission:
+        """Validate a generation request, run what its
+        ``kv_transfer_params`` ask for before admission (splice a landed
+        push, or pull blocks into the prefix cache) and admit its
+        choices."""
         prompts = self.prompts_of(body, chat)
         try:
             sampling = _sampling_from_body(body)
@@ -667,7 +795,7 @@ class EngineServer:
         except (TypeError, ValueError) as e:
             raise BadRequest(f"invalid sampling parameter: {e}") from None
         sampling = self.guided_sampling(body, sampling)
-        for key in ("guided_choice", "echo", "kv_transfer_params"):
+        for key in ("guided_choice", "echo"):
             if body.get(key):
                 raise BadRequest(f"{key!r} is not supported by this engine")
         if sampling.n < 1 or sampling.n * len(prompts) > MAX_CHOICES:
@@ -683,6 +811,29 @@ class EngineServer:
         adapter_slot = self.lora.slot_of(body.get("model", self.model_name))
         n = sampling.n
         nchoices = len(prompt_ids_list) * n
+        kv = body.get("kv_transfer_params") or {}
+        if kv and (nchoices != 1 or not isinstance(kv, dict)):
+            raise BadRequest("kv_transfer_params requires n=1 and a single "
+                             "prompt")
+        imported = 0
+        if kv.get("transfer_id") and not kv.get("do_remote_decode"):
+            # the decode hop of a pushed transfer: splice it in; when it is
+            # not attachable, the pull or a plain prefill serves the body
+            spliced = self._try_attach_spliced(kv["transfer_id"], sampling,
+                                               rid, adapter_slot)
+            if spliced is not None:
+                stream, n_prompt = spliced
+                return _Admission([stream], [rid], rid, sampling, n_prompt,
+                                  prompt_ids_list[0])
+        if kv.get("remote_block_ids"):
+            imported = self._maybe_import_kv(kv, prompt_ids_list[0],
+                                             adapter_slot)
+        produce_kv = bool(kv.get("do_remote_decode"))
+        push = None
+        if (produce_kv and kv.get("push_url") and kv.get("transfer_id")
+                and not body.get("stream")):
+            push = {"push_url": kv["push_url"],
+                    "transfer_id": str(kv["transfer_id"])}
         reqs, rids = [], []
         for pi, ids in enumerate(prompt_ids_list):
             for j in range(n):
@@ -693,7 +844,8 @@ class EngineServer:
                     # seeded n > 1 still yields distinct choices
                     choice_sampling = dataclasses.replace(
                         sampling, seed=(sampling.seed + idx) & 0xFFFFFFFF)
-                reqs.append((crid, ids, choice_sampling, adapter_slot))
+                reqs.append((crid, ids, choice_sampling, adapter_slot,
+                             push is not None))
                 rids.append(crid)
         try:
             streams = self.async_engine.admit_batch(reqs)
@@ -702,35 +854,58 @@ class EngineServer:
         except ValueError as e:
             raise BadRequest(str(e)) from None
         n_prompt = sum(len(p) for p in prompt_ids_list)
-        return streams, rids, rid, sampling, n_prompt
+        return _Admission(streams, rids, rid, sampling, n_prompt,
+                          prompt_ids_list[0], produce_kv, push, imported)
 
     def collect(self, stream, sampling) -> tuple:
         """Drain one choice: (text, n_kept, finish_reason, cached, ids,
-        lps)."""
+        lps, the blocks it held at finish or None)."""
         tk = self.engine.tokenizer
         token_ids: list[int] = []
         lps: list = []
         finish_reason = None
         cached = 0
+        blocks = None
         for out in stream:
             token_ids.extend(out.new_token_ids)
             if out.new_logprobs:
                 lps.extend(out.new_logprobs)
             cached = out.num_cached_tokens
+            if out.block_ids is not None:
+                blocks = out.block_ids
             finish_reason = out.finish_reason or finish_reason
             stopped = _check_stop_str(tk.decode(token_ids), sampling)
             if stopped is not None:
                 self.async_engine.abort(stream.request_id)
                 n_kept = _tokens_covering(tk, token_ids, len(stopped))
                 return (stopped, n_kept, "stop", cached, token_ids[:n_kept],
-                        lps[:n_kept])
+                        lps[:n_kept], blocks)
         return (tk.decode(token_ids), len(token_ids), finish_reason, cached,
-                token_ids, lps)
+                token_ids, lps, blocks)
 
-    def full_response(self, streams, rid, model, chat, sampling,
-                      n_prompt) -> dict:
+    def full_response(self, adm: _Admission, model, chat) -> dict:
         tk = self.engine.tokenizer
-        results = [self.collect(s, sampling) for s in streams]
+        sampling = adm.sampling
+        results = []
+        try:
+            for s in adm.streams:
+                results.append(self.collect(s, sampling))
+        finally:
+            blocks = results[0][6] if results else None
+            if adm.push is not None and blocks is None:
+                adm.push = None  # never finished: nothing was pinned
+        if adm.push is not None:
+            # the producer of a pushed P->D transfer: its blocks were
+            # pinned at finish; stream them to the decode engine, then
+            # let them go (the pull fields below stay the fallback)
+            ids = results[0][4]
+            try:
+                pushed = bool(ids) and self._push_kv_blocks(
+                    adm.push["push_url"], adm.push["transfer_id"], blocks,
+                    adm.prompt_ids, ids[0])
+            finally:
+                self.async_engine.run_on_engine(
+                    lambda eng: eng.scheduler.allocator.free_blocks(blocks))
         n = max(1, int(sampling.n))
         cached = sum(
             max((r[3] for r in results[pi * n:(pi + 1) * n]), default=0)
@@ -739,7 +914,8 @@ class EngineServer:
         n_completion = sum(r[1] for r in results)
         want_lp = sampling.logprobs is not None
         choices = []
-        for idx, (text, _n, finish_reason, _c, ids, lps) in enumerate(results):
+        for idx, (text, _n, finish_reason, _c, ids, lps, _b) in enumerate(
+                results):
             if chat:
                 choice = {"index": idx,
                           "message": {"role": "assistant", "content": text},
@@ -754,19 +930,310 @@ class EngineServer:
                               tk, ids, lps, sampling.logprobs)
                               if want_lp else None)}
             choices.append(choice)
-        return {
-            "id": rid,
+        payload = {
+            "id": adm.rid,
             "object": "chat.completion" if chat else "text_completion",
             "created": int(time.time()),
             "model": model,
             "choices": choices,
             "usage": {
-                "prompt_tokens": n_prompt,
+                "prompt_tokens": adm.n_prompt,
                 "completion_tokens": n_completion,
-                "total_tokens": n_prompt + n_completion,
+                "total_tokens": adm.n_prompt + n_completion,
                 "prompt_tokens_details": {"cached_tokens": cached},
             },
         }
+        final_blocks = results[0][6] if results else None
+        if adm.produce_kv and final_blocks:
+            # the producer's block handles (the router fills remote_host)
+            payload["kv_transfer_params"] = {
+                "do_remote_prefill": True,
+                "remote_engine_id": self.model_name,
+                "remote_block_ids": final_blocks,
+                "remote_host": None,
+                "remote_port": None,
+            }
+            if adm.push is not None:
+                payload["kv_transfer_params"]["transfer_id"] = \
+                    adm.push["transfer_id"]
+                payload["kv_transfer_params"]["pushed"] = pushed
+        return payload
+
+    # -- the KV plane (P->D disaggregation; engine/kv_transfer.py) ----------
+    def _kv_shape(self, n_blocks: int) -> tuple:
+        m = self.config.model
+        return (m.num_layers, n_blocks, self.config.cache.block_size,
+                2 * m.num_kv_heads, m.head_dim)
+
+    def kv_export(self, body: dict, handler) -> None:
+        """``POST /kv/export {"blocks", "stream"}``: the blocks' KV (L, n,
+        bs, 2KH, D), whole, or as chunked layer-group frames whose gathers
+        overlap the send. A streamed export pins the blocks for its length:
+        serving steps run between its gathers."""
+        num_blocks = self.engine.runner.num_blocks
+        blocks = body.get("blocks")
+        if (not isinstance(blocks, list) or not blocks
+                or not all(isinstance(b, int) and 0 <= b < num_blocks
+                           for b in blocks)):
+            handler._send_json(_error("invalid block ids"), 400)
+            return
+        dtype = self.config.model.dtype
+        if not body.get("stream"):
+            data = self.async_engine.run_on_engine(
+                lambda eng: eng.export_kv(blocks))
+            raw = tensor_bytes(data)
+            handler.send_response(200)
+            handler.send_header("Content-Type", "application/octet-stream")
+            handler.send_header("Content-Length", str(len(raw)))
+            handler.send_header("X-KV-Shape", ",".join(map(str, data.shape)))
+            handler.send_header("X-KV-Dtype", dtype)
+            handler.end_headers()
+            handler.wfile.write(raw)
+            return
+        L = self.config.model.num_layers
+        try:
+            group = max(1, min(int(body.get("group_layers")
+                                   or default_group(L)), L))
+        except (TypeError, ValueError):
+            handler._send_json(_error("group_layers must be an integer"),
+                               400)
+            return
+        try:
+            self.async_engine.run_on_engine(
+                lambda eng: eng.scheduler.allocator.pin_blocks(blocks))
+        except ValueError as e:  # a free block: nothing cached to export
+            handler._send_json(_error(str(e), "conflict"), 409)
+            return
+        t0 = time.monotonic()
+        try:
+            handler.send_response(200)
+            handler.send_header("Content-Type", "application/octet-stream")
+            handler.send_header("Transfer-Encoding", "chunked")
+            handler.send_header("X-KV-Shape",
+                                ",".join(map(str, self._kv_shape(len(blocks)))))
+            handler.send_header("X-KV-Dtype", dtype)
+            handler.send_header("X-KV-Group-Layers", str(group))
+            handler.end_headers()
+            for fr in produce_frames(self.async_engine.run_on_engine, blocks,
+                                     L, group, self.config.kv_transfer_window):
+                handler._write_chunk(fr)
+            handler.wfile.write(b"0\r\n\r\n")
+            handler.wfile.flush()
+        except (BrokenPipeError, ConnectionResetError):
+            handler.close_connection = True
+            return
+        finally:
+            self.async_engine.run_on_engine(
+                lambda eng: eng.scheduler.allocator.free_blocks(blocks))
+        self.metrics.observe_transfer(
+            "export", nbytes_of(self._kv_shape(len(blocks)), dtype),
+            time.monotonic() - t0)
+
+    def _maybe_import_kv(self, kv: dict, prompt_ids: list[int],
+                         adapter_slot: int) -> int:
+        """The decode hop's pull: stream the producer's full blocks from
+        ``remote_host``'s ``/kv/export`` into pool blocks and commit them
+        as prefix-cache content on the request's chain, so admission
+        computes only the prompt's tail. Best-effort: on a failure the
+        blocks go back and the prefill computes everything. Returns the
+        tokens landed."""
+        host, blocks = kv.get("remote_host"), kv.get("remote_block_ids")
+        if not host or not blocks:
+            return 0
+        root = self.engine.runner.lora_roots[adapter_slot]
+        local = None
+        try:
+            got = self.async_engine.run_on_engine(
+                lambda eng: eng.begin_kv_import(list(prompt_ids),
+                                                len(blocks)))
+            if got is None:
+                return 0
+            local, n_full = got
+            t0 = time.monotonic()
+            u = urllib.parse.urlsplit(host)
+            conn = http.client.HTTPConnection(u.hostname, u.port or 80,
+                                              timeout=120)
+            try:
+                conn.request("POST", "/kv/export", json.dumps(
+                    {"blocks": [int(b) for b in blocks[:n_full]],
+                     "stream": True}),
+                    {"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                if resp.status != 200:
+                    raise RuntimeError(f"export HTTP {resp.status}")
+                shape = tuple(int(x) for x in
+                              resp.headers["X-KV-Shape"].split(","))
+                dtype = resp.headers["X-KV-Dtype"]
+                if shape[2:] != self._kv_shape(0)[2:] or shape[0] != \
+                        self.config.model.num_layers:
+                    raise ValueError(f"KV shape {shape} does not fit this "
+                                     "engine's pool")
+                consume_frames(resp, self.async_engine.run_on_engine, local,
+                               shape, dtype,
+                               int(resp.headers["X-KV-Group-Layers"]))
+                resp.read()  # the chunked body's end
+            finally:
+                conn.close()
+            cached = self.async_engine.run_on_engine(
+                lambda eng: eng.finish_kv_import(list(prompt_ids), local,
+                                                 root))
+            local = None  # committed
+            self.metrics.observe_transfer("import", nbytes_of(shape, dtype),
+                                          time.monotonic() - t0)
+            return cached
+        except Exception as e:  # best-effort: the prefill recomputes
+            _log.warning("kv import from %s failed: %s", host, e)
+            if local is not None:
+                self.async_engine.run_on_engine(
+                    lambda eng: eng.abort_kv_import(local))
+            return 0
+
+    def _sweep_kv_transfers(self) -> None:
+        """Free the blocks of pushed transfers whose decode hop never came
+        within ``kv_transfer_ttl`` (a router that died between the push
+        and the continuation): a leaked transfer never pins pages for
+        good. Runs on every /kv/recv and attach."""
+        now = time.monotonic()
+        expired = []
+        with self._kv_lock:
+            for tid, st in list(self._kv_transfers.items()):
+                if now - st["created"] > self.config.kv_transfer_ttl:
+                    expired.append((tid, self._kv_transfers.pop(tid)))
+        for tid, st in expired:
+            _log.warning("kv transfer %s expired unattached; freeing %d "
+                         "blocks", tid, len(st["blocks"]))
+            self.async_engine.run_on_engine(
+                lambda eng, b=st["blocks"]:
+                eng.scheduler.allocator.free_blocks(b))
+
+    def kv_recv(self, headers, body) -> tuple[int, dict]:
+        """``POST /kv/recv``: land a pushed transfer (a JSON meta prologue
+        frame, then CRC-tailed layer-group frames) in free pool blocks. The
+        decode hop attaches them by ``transfer_id``. A bad CRC or a dropped
+        connection answers 409 ``{"resume_layer": n}``: the producer
+        resends only the groups that did not land. 503 when the pool
+        cannot hold the transfer."""
+        self._sweep_kv_transfers()
+        tid = headers.get("X-KV-Transfer-Id") or ""
+        try:
+            shape = tuple(int(x) for x in headers["X-KV-Shape"].split(","))
+            dtype = headers["X-KV-Dtype"]
+            group = max(1, int(headers["X-KV-Group-Layers"]))
+            start_layer = int(headers.get("X-KV-Start-Layer") or 0)
+            nbytes_of(shape, dtype)
+        except (KeyError, ValueError, AttributeError):
+            return 400, _error("missing or invalid X-KV-* headers")
+        if not tid or len(shape) != 5:
+            return 400, _error("X-KV-Transfer-Id and a 5-dim X-KV-Shape are "
+                               "required")
+        want = self._kv_shape(shape[1])
+        if shape[0] != want[0] or shape[2:] != want[2:]:
+            return 400, _error(f"KV shape {shape} does not fit this "
+                               f"engine's pool {want}")
+        with self._kv_lock:
+            state = self._kv_transfers.get(tid)
+        resume_at = state["layers_done"] if state else 0
+        try:
+            payload = read_frame(body)
+            if payload is None:
+                raise ValueError("no meta frame")
+            meta = json.loads(bytes(payload))
+        except (FrameDigestError, EOFError, ValueError):
+            return 409, {"resume_layer": resume_at}
+        if state is None:
+            if start_layer != 0:
+                # a resume of a transfer this engine never saw (or swept)
+                return 409, {"resume_layer": 0}
+            blocks = self.async_engine.run_on_engine(
+                lambda eng: eng.begin_kv_receive(int(shape[1])))
+            if blocks is None:
+                return 503, _error("KV pool cannot hold the transfer right "
+                                   "now", "service_unavailable_error")
+            state = {"blocks": blocks, "layers_done": 0, "meta": meta,
+                     "created": time.monotonic(), "ready": False}
+            with self._kv_lock:
+                self._kv_transfers[tid] = state
+        elif start_layer != state["layers_done"]:
+            # the producer's progress disagrees with ours: re-anchor it
+            return 409, {"resume_layer": state["layers_done"]}
+
+        def on_group(lo: int, n: int) -> None:
+            state["layers_done"] = lo + n
+
+        t0 = time.monotonic()
+        try:
+            landed = consume_frames(body, self.async_engine.run_on_engine,
+                                    state["blocks"], shape, dtype, group,
+                                    start_layer=start_layer,
+                                    on_group=on_group)
+        except (FrameDigestError, EOFError, ValueError, OSError):
+            # the groups that landed stay for the retry (the TTL sweep
+            # reclaims them if none comes)
+            return 409, {"resume_layer": state["layers_done"]}
+        state["ready"] = True
+        self.metrics.observe_transfer(
+            "recv", landed * nbytes_of(shape[1:], dtype),
+            time.monotonic() - t0)
+        return 200, {"ok": True, "transfer_id": tid, "layers": shape[0]}
+
+    def _push_kv_blocks(self, push_url: str, transfer_id: str, blocks: list,
+                        prompt_ids: list, first_token: int) -> bool:
+        """The producer's side of the pushed flow: stream the finished
+        prefill's blocks (pinned at its finish) to the decode engine's
+        /kv/recv. Best-effort: on a failure the decode hop pulls or
+        prefills."""
+        cfg = self.config
+        shape = self._kv_shape(len(blocks))
+        meta = {"transfer_id": transfer_id,
+                "prompt_token_ids": [int(t) for t in prompt_ids],
+                "first_token": int(first_token)}
+        t0 = time.monotonic()
+        try:
+            push_kv(push_url, self.async_engine.run_on_engine, blocks, shape,
+                    cfg.model.dtype, meta,
+                    group=cfg.kv_transfer_group_layers or None,
+                    window=cfg.kv_transfer_window,
+                    retries=cfg.kv_transfer_retries,
+                    timeout=cfg.kv_transfer_ttl)
+        except Exception as e:
+            _log.warning("kv push %s -> %s failed: %s", transfer_id,
+                         push_url, e)
+            return False
+        self.metrics.observe_transfer("push",
+                                      nbytes_of(shape, cfg.model.dtype),
+                                      time.monotonic() - t0)
+        return True
+
+    def _try_attach_spliced(self, tid: str, sampling: SamplingParams,
+                            rid: str, adapter_slot: int):
+        """Attach a landed push as a decode row; (stream, prompt tokens)
+        or None when it is not attachable (unknown, still landing, swept,
+        a guided request, no decode slot). The continuation's
+        ``max_tokens`` excludes the first token the router already relayed,
+        but the spliced sequence holds that token as its first output and
+        the length stop counts it, so it runs with max_tokens + 1."""
+        self._sweep_kv_transfers()
+        if sampling.guided_regex is not None or sampling.guided_json is not None:
+            return None  # grammar state is built by a normal admission
+        with self._kv_lock:
+            state = self._kv_transfers.get(tid)
+            if state is None or not state["ready"]:
+                return None
+            del self._kv_transfers[tid]  # claimed: the sweep cannot free it
+        meta = state["meta"]
+        try:
+            stream = self.async_engine.attach_spliced(
+                rid, meta["prompt_token_ids"], meta["first_token"],
+                dataclasses.replace(sampling,
+                                    max_tokens=sampling.max_tokens + 1),
+                state["blocks"], adapter_slot=adapter_slot)
+        except (SchedulerQueueFull, ValueError, KeyError) as e:
+            _log.warning("kv transfer %s attach failed (%s); prefilling",
+                         tid, e)
+            with self._kv_lock:
+                self._kv_transfers[tid] = state
+            return None
+        return stream, len(meta["prompt_token_ids"]) + 1
 
     def stream_events(self, streams, rid, model, chat, sampling, n_prompt,
                       include_usage: bool):
@@ -875,8 +1342,10 @@ class EngineServer:
                 self.wfile.write(data)
 
             def _write_chunk(self, data: bytes) -> None:
-                self.wfile.write(f"{len(data):x}\r\n".encode() + data
-                                 + b"\r\n")
+                # three writes: a KV frame is too large to copy into one
+                self.wfile.write(f"{len(data):x}\r\n".encode())
+                self.wfile.write(data)
+                self.wfile.write(b"\r\n")
                 self.wfile.flush()
 
             def _send_bytes(self, data: bytes, content_type: str,
@@ -919,8 +1388,12 @@ class EngineServer:
                           "/kv/lookup": server.kv_lookup,
                           "/debug/profile": server.profile}
                 path = urllib.parse.urlsplit(self.path).path
+                if path == "/kv/recv":
+                    self._kv_recv()
+                    return
                 generate = path in ("/v1/completions", "/v1/chat/completions")
-                if not generate and path not in routes:
+                if (not generate and path not in routes
+                        and path != "/kv/export"):
                     self._send_json(_error("not found", "not_found"), 404)
                     return
                 length = int(self.headers.get("Content-Length") or 0)
@@ -941,6 +1414,9 @@ class EngineServer:
                 except ValueError:
                     self._send_json(_error("invalid JSON body"), 400)
                     return
+                if path == "/kv/export":
+                    server.kv_export(body, self)
+                    return
                 if not generate:
                     status, payload = routes[path](body)
                     if isinstance(payload, bytes):
@@ -956,12 +1432,29 @@ class EngineServer:
                     with server._inflight_lock:
                         server._inflight -= 1
 
+            def _kv_recv(self) -> None:
+                if "chunked" in (self.headers.get("Transfer-Encoding")
+                                 or "").lower():
+                    body = _ChunkedReader(self.rfile)
+                else:
+                    body = _LengthReader(
+                        self.rfile, int(self.headers.get("Content-Length")
+                                        or 0))
+                status, payload = server.kv_recv(self.headers, body)
+                # read the body to its end (a landed stream's last chunk;
+                # a refused body's rest, so the answer reaches a sender
+                # still writing it) before answering on this connection
+                try:
+                    body.drain()
+                except (EOFError, OSError, ValueError):
+                    self.close_connection = True
+                self._send_json(payload, status)
+
             def _generate(self, body: dict, chat: bool) -> None:
                 retry_after = {"Retry-After":
                                f"{server.overload_retry_after:g}"}
                 try:
-                    streams, rids, rid, sampling, n_prompt = server.admit(
-                        body, chat)
+                    adm = server.admit(body, chat)
                 except BadRequest as e:
                     self._send_json(_error(str(e)), 400)
                     return
@@ -976,21 +1469,20 @@ class EngineServer:
                         "rate_limit_error"), 429, retry_after)
                     return
                 model = body.get("model", server.model_name)
-                xrid = self.headers.get("x-request-id") or rid
+                xrid = self.headers.get("x-request-id") or adm.rid
                 try:
                     if body.get("stream"):
                         so = body.get("stream_options")
                         so = so if isinstance(so, dict) else {}
-                        self._stream(streams, rid, model, chat, sampling,
-                                     n_prompt, bool(so.get("include_usage")),
-                                     xrid)
+                        self._stream(adm.streams, adm.rid, model, chat,
+                                     adm.sampling, adm.n_prompt,
+                                     bool(so.get("include_usage")), xrid)
                     else:
-                        payload = server.full_response(
-                            streams, rid, model, chat, sampling, n_prompt)
+                        payload = server.full_response(adm, model, chat)
                         self._send_json(payload,
                                         headers={"X-Request-Id": xrid})
                 finally:
-                    for r in rids:  # a no-op for finished requests
+                    for r in adm.rids:  # a no-op for finished requests
                         server.async_engine.abort(r)
 
             def _stream(self, streams, rid, model, chat, sampling, n_prompt,
@@ -1112,6 +1604,38 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-card interconnect GB/s for the collective "
                         "roofline; 0 = the H100 SXM data sheet's NVLink, "
                         "per direction (450)")
+    p.add_argument("--host-offload-blocks", type=int, default=0,
+                   help="host-DRAM KV tier capacity in blocks (0 = off; "
+                        "prefer --kv-host-cache-bytes)")
+    p.add_argument("--kv-host-cache-bytes", type=int, default=0,
+                   help="host-DRAM KV tier capacity in bytes (overrides "
+                        "--host-offload-blocks when both are set)")
+    p.add_argument("--kv-prefetch-workers", type=int, default=0,
+                   help="threads of the tier prefix-prefetch pipeline "
+                        "(0 = the config default, 2)")
+    p.add_argument("--remote-kv-url", default=None,
+                   help="shared remote KV server URL "
+                        "(python -m production_stack_tpu_torch.kv_server)")
+    p.add_argument("--role", default="unified",
+                   choices=["unified", "prefill", "decode"],
+                   help="role in a disaggregated deployment: 'prefill' "
+                        "runs prompts to their first token and pushes the "
+                        "KV to a decode engine (POST {decode}/kv/recv), "
+                        "'decode' takes pushed transfers and splices them "
+                        "in decode-ready, 'unified' (default) does both. "
+                        "Advisory for routing: every role serves the whole "
+                        "OpenAI surface")
+    p.add_argument("--kv-transfer-group-layers", type=int, default=0,
+                   help="layers a KV-transfer frame; 0 = half the stack")
+    p.add_argument("--kv-transfer-window", type=int, default=2,
+                   help="producer-side layer-group gathers in flight ahead "
+                        "of the frame being sent")
+    p.add_argument("--kv-transfer-retries", type=int, default=3,
+                   help="attempts a push; a digest mismatch resumes from "
+                        "the first layer group that did not land")
+    p.add_argument("--kv-transfer-ttl", type=float, default=120.0,
+                   help="seconds a received, unattached transfer may hold "
+                        "KV blocks before the sweep frees them")
     return p
 
 
@@ -1123,7 +1647,11 @@ def config_from_args(args) -> EngineConfig:
         overrides["dtype"] = args.dtype
     if args.quantization:
         overrides["quant"] = args.quantization
-    cache = CacheConfig()
+    cache = CacheConfig(host_offload_blocks=args.host_offload_blocks,
+                        kv_host_cache_bytes=args.kv_host_cache_bytes,
+                        remote_kv_url=args.remote_kv_url or None)
+    if args.kv_prefetch_workers:
+        cache.kv_prefetch_workers = args.kv_prefetch_workers
     if args.block_size is not None:
         cache.block_size = args.block_size
     if args.num_blocks is not None:
@@ -1156,8 +1684,13 @@ def config_from_args(args) -> EngineConfig:
         perf.peak_hbm_gbps = args.perf_peak_hbm_gbps
     if args.perf_peak_ici_gbps:
         perf.peak_ici_gbps = args.perf_peak_ici_gbps
-    return EngineConfig.for_model(args.model, cache=cache, scheduler=sched,
-                                  seed=args.seed, perf=perf, **overrides)
+    return EngineConfig.for_model(
+        args.model, cache=cache, scheduler=sched, seed=args.seed, perf=perf,
+        role=args.role,
+        kv_transfer_group_layers=args.kv_transfer_group_layers,
+        kv_transfer_window=args.kv_transfer_window,
+        kv_transfer_retries=args.kv_transfer_retries,
+        kv_transfer_ttl=args.kv_transfer_ttl, **overrides)
 
 
 def server_from_args(args) -> EngineServer:

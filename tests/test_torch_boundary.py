@@ -10,7 +10,10 @@ reads (metrics, perf accounting, lifecycle, canary goldens) also load
 neither ``prometheus_client`` nor ``aiohttp``, which the card's machine
 lacks. The model-side modules (quantization, the weights loader, the
 model with its MoE block) load neither JAX nor the ``safetensors``
-package, which the card's machine also lacks.
+package, which the card's machine also lacks. The KV plane (the transfer
+frames, the host and remote tiers, the remote KV server, and the engine
+and server that drive them) loads none of JAX, ``aiohttp``, ``requests``
+or ``prometheus_client``.
 """
 
 import ast
@@ -141,3 +144,44 @@ def test_model_side_static_imports(module):
     bad = [m for m in _imports(path) if forbidden(m)
            or m.split(".")[0] == "safetensors"]
     assert bad == [], f"{path.name} imports {bad}"
+
+
+KV_PLANE = ("production_stack_tpu_torch.engine.kv_transfer",
+            "production_stack_tpu_torch.engine.kv_offload",
+            "production_stack_tpu_torch.kv_server",
+            "production_stack_tpu_torch.engine.engine",
+            "production_stack_tpu_torch.engine.server")
+KV_LIBRARIES = ("aiohttp", "requests", "prometheus_client")
+
+
+def _kv_bad(name: str) -> bool:
+    return forbidden(name) or any(name == lib or name.startswith(lib + ".")
+                                  for lib in KV_LIBRARIES)
+
+
+def test_kv_plane_loads_no_jax_nor_http_libraries():
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {KV_PLANE!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(KV_PLANE) <= set(mods)
+    assert [m for m in mods if _kv_bad(m)] == []
+
+
+@pytest.mark.parametrize("module", KV_PLANE)
+def test_kv_plane_static_imports(module):
+    path = ROOT / (module.replace(".", "/") + ".py")
+    bad = [m for m in _imports(path) if _kv_bad(m)]
+    assert bad == [], f"{path.name} imports {bad}"
+
+
+def test_kv_bad_matches_whole_names_only():
+    assert _kv_bad("requests") and _kv_bad("requests.adapters")
+    assert _kv_bad("aiohttp.web") and _kv_bad("production_stack_tpu.kv_server")
+    assert not _kv_bad("requests_toolbelt_like") and not _kv_bad(
+        "production_stack_tpu_torch.kv_server")

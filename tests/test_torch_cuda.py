@@ -582,3 +582,45 @@ def test_moe_block_on_card_matches_cpu(cuda, quantized, rows, ref_tokens):
                for k, v in lp.items()}
     got = llama._moe_mlp(cfg, on_card, x.to(cuda), ref_tokens)
     torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=1e-5)
+
+
+def test_kv_export_import_round_trip_is_bitwise(cuda):
+    """The KV plane's gathers and scatters on the card, bf16: blocks in a
+    non-contiguous order leave the pool (whole, as one layer group, and as
+    per-block slabs) and land in other blocks bit for bit, through the
+    wire's raw 2-byte words too."""
+    from production_stack_tpu_torch.engine import kv_transfer as tkt
+    from production_stack_tpu_torch.engine.config import (
+        CacheConfig,
+        EngineConfig,
+    )
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+
+    cfg = EngineConfig.for_model("tiny-llama", dtype="bfloat16",
+                                 cache=CacheConfig(num_blocks=64))
+    runner = LLMEngine(cfg, device="cuda").runner
+    g = torch.Generator(device="cuda").manual_seed(0)
+    runner.kv.copy_(torch.randn(runner.kv.shape, generator=g, device="cuda")
+                    .to(torch.bfloat16))
+    src, dst = [41, 3, 17, 8, 60], [5, 50, 9, 33, 2]
+    data = runner.export_blocks(src)
+    assert data.device.type == "cpu" and data.is_pinned()
+    want = runner.kv[:, src].cpu()
+    assert torch.equal(data.view(torch.int16), want.view(torch.int16))
+    wire = tkt.tensor_from_bytes(bytearray(tkt.tensor_bytes(data)),
+                                 "bfloat16", data.shape)
+    runner.import_blocks(dst, wire)
+    assert torch.equal(runner.kv[:, dst].view(torch.int16),
+                       runner.kv[:, src].view(torch.int16))
+    part = runner.export_blocks_range(src[::-1], 1, 1)
+    assert torch.equal(part.view(torch.int16),
+                       want[1:2].flip(1).view(torch.int16))
+    before = runner.kv.clone()
+    runner.import_blocks_range([7, 6], 1, part[:, :2])
+    assert torch.equal(runner.kv[1, [7, 6]].view(torch.int16),
+                       part[0, :2].cuda().view(torch.int16))
+    assert torch.equal(runner.kv[0].view(torch.int16),
+                       before[0].view(torch.int16))
+    slabs = runner.export_slabs(src)
+    assert all(torch.equal(s.view(torch.int16), want[:, i].view(torch.int16))
+               for i, s in enumerate(slabs))

@@ -8,10 +8,15 @@ end, a repeated prompt among them. Both expositions are parsed with
 
 - every port family is a JAX family of the same type and label names;
 - the JAX families the port lacks are exactly ``NOT_PORTED`` (subsystems
-  later slices bring: the tenant plane, KV transfer, the brownout and
-  fair share, diagnostics), so a later slice shrinks the list;
+  later slices bring: the tenant plane, the brownout and fair share,
+  diagnostics), so a later slice shrinks the list;
 - the engine-state samples are equal, as are the histograms' bucket edges
-  after the same observations;
+  and counts after the same observations (the KV-transfer families by
+  direction among them);
+- with a host KV tier on both engines, after the same A/B/A waves, the
+  tier families (hit ratio by tier, bytes by tier and direction, the
+  prefetch histogram's edges and count) and the CPU cache samples are
+  equal;
 - the router's ``EngineStats.from_scrape`` reads both texts alike.
 """
 
@@ -38,8 +43,8 @@ torch.set_num_threads(2)
 MODEL = "tiny-llama"
 NOT_PORTED = {
     "vllm:tenant_tokens", "vllm:tenant_chip_seconds", "vllm:tenant_kv_blocks",
-    "vllm:tenant_queue_time_seconds", "vllm:kv_transfer_bytes",
-    "vllm:kv_transfer_seconds", "vllm:brownout_stage", "vllm:brownout_sheds",
+    "vllm:tenant_queue_time_seconds", "vllm:brownout_stage",
+    "vllm:brownout_sheds",
     "vllm:fair_share_deficit", "vllm:diagnostic_bundles",
     "vllm:diagnostic_bundles_dropped", "vllm:diagnostic_capture_seconds",
 }
@@ -84,6 +89,14 @@ def _observe(metrics):
         metrics.observe_request(1.0, 1.0 + d, 2.5 + d, 3 + i)
         metrics.observe_stages(_finished(1.0 + d))
     metrics.observe_request(1.0, None, 1.2, 0)
+    # KV transfers, each direction first seen in sorted order (the port
+    # writes directions sorted, prometheus_client in first-seen order)
+    for direction, nbytes, secs in (("export", 4096, 0.004),
+                                    ("push", 1 << 20, 0.02),
+                                    ("recv", 1 << 20, 0.03),
+                                    ("push", 3 << 20, 0.3),
+                                    ("export", 1 << 26, 7.5)):
+        metrics.observe_transfer(direction, nbytes, secs)
 
 
 @pytest.fixture(scope="module")
@@ -165,7 +178,7 @@ def test_histograms_match(texts):
     jax_text, port_text = texts
     jf, tf = _families(jax_text), _families(port_text)
     hists = [n for n, f in tf.items() if f.type == "histogram"]
-    assert len(hists) == 8
+    assert len(hists) == 9
     for name in hists:
         def edges(f):
             return [float(s.labels["le"]) for s in f.samples
@@ -182,7 +195,14 @@ def test_histograms_match(texts):
                   if s.name == name + "_bucket"]
         assert counts == [s.value for s in jf[name].samples
                           if s.name == name + "_bucket"], name
-        assert counts == sorted(counts)  # cumulative
+        by_series: dict = {}
+        for smp in tf[name].samples:
+            if smp.name == name + "_bucket":
+                key = tuple(sorted((k, v) for k, v in smp.labels.items()
+                                   if k != "le"))
+                by_series.setdefault(key, []).append(smp.value)
+        for c in by_series.values():
+            assert c == sorted(c)  # cumulative within each series
         assert series(tf[name]) == pytest.approx(series(jf[name]),
                                                  rel=1e-12), name
 
@@ -215,3 +235,60 @@ def test_exposition_escapes_and_parses():
     assert sample.labels == {"model_name": 'm"1', "kind": "a\\b\nc"}
     assert sample.value == 2.0
     assert CONTENT_TYPE.startswith("text/plain; version=0.0.4")
+
+
+def test_kv_transfer_samples_equal(texts):
+    js, ts = _samples(texts[0]), _samples(texts[1])
+    for d, nbytes in (("export", 4096 + (1 << 26)), ("push", 4 << 20),
+                      ("recv", 1 << 20)):
+        key = ("vllm:kv_transfer_bytes_total",
+               (("direction", d), ("model_name", MODEL)))
+        assert ts[key] == js[key] == nbytes
+        key = ("vllm:kv_transfer_seconds_count",
+               (("direction", d), ("model_name", MODEL)))
+        assert ts[key] == js[key]
+
+
+@pytest.fixture(scope="module")
+def tier_texts():
+    """Both engines with a host tier, through the same A/B/A waves."""
+    import numpy as np
+
+    weights = tiny_weights()
+    jconf, tconf = engine_configs("ragged", num_blocks=40, max_num_seqs=4,
+                                  max_num_batched_tokens=64)
+    for c in (jconf.cache, tconf.cache):
+        c.kv_host_cache_bytes = 10 ** 7
+    jeng, teng = jax_engine(weights, jconf), port_engine(weights, tconf)
+    rng = np.random.default_rng(7)
+    a = [("a", rng.integers(1, 500, 30).tolist(), GREEDY)]
+    b = [(f"b{i}", rng.integers(1, 500, 30).tolist(), GREEDY)
+         for i in range(4)]
+    for reqs in (a, b, [("a2", a[0][1], GREEDY)]):
+        assert drain(jeng, reqs)[0] == drain(teng, reqs)[0]
+    assert teng.host_kv.hits > 0
+    out = JaxMetrics(jeng, MODEL).generate().decode(), \
+        ServerMetrics(teng, MODEL).generate().decode()
+    jeng._prefetcher.shutdown()
+    teng.shutdown_tiers()
+    return out
+
+
+def test_tier_families_equal(tier_texts):
+    jax_text, port_text = tier_texts
+    jf, tf = _families(jax_text), _families(port_text)
+    for name in ("vllm:kv_tier_hit_ratio", "vllm:kv_tier_bytes",
+                 "vllm:kv_prefetch_seconds",
+                 "vllm:kv_prefetch_overlap_fraction"):
+        assert name in tf and tf[name].type == jf[name].type, name
+        assert _label_names(tf[name]) == _label_names(jf[name]), name
+    js, ts = _samples(jax_text), _samples(port_text)
+    for key, value in js.items():
+        name = key[0]
+        if name.startswith(("vllm:kv_tier_", "vllm:cpu_")) or name in (
+                "vllm:kv_prefetch_seconds_count",):
+            assert ts[key] == pytest.approx(value, rel=1e-12), key
+    edges = [k for k in js if k[0] == "vllm:kv_prefetch_seconds_bucket"]
+    assert edges and all(k in ts for k in edges)
+    assert ts[("vllm:cpu_prefix_cache_hits_total",
+               (("model_name", MODEL),))] > 0
