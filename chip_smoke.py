@@ -131,10 +131,34 @@ fatal):
    from the host and warm from the remote tier, and the prefetch
    histograms. K1, K2 and K3 launch, K4 not.
 
+10. The scoring surface (``scoring-surface``): llama-3-8b bf16 at full
+   width and depth, random weights from seed 0, default scheduler, pool
+   at 0.9, through the HTTP server. (a) 4 greedy completions (256-1024
+   byte tokens, 32 out, logprobs 1), one at a time, then each prompt and
+   completion echoed with ``max_tokens: 0``: every echo entry at a
+   completion position within ``SCORE_BAND`` (0.05) of the generation's
+   logprob, the echo's top-1 (read in process) the generated token up to
+   a near-tie within the band; a 2048-token echo with logprobs. (b) 64
+   ``guided_choice`` strings over a 1024-token prompt: the answer is the
+   argmax of ``choice_logprobs`` read in process; (a)'s completions
+   scored as choices equal their echo sums within 0.05 a token. (c)
+   ``/v1/embeddings`` at 16, 2048 and 8191 tokens: 4096 finite floats,
+   bit-identical on repeat and through ``/pooling``; ``/v1/score`` of a
+   text against itself >= 0.999; ``/v1/rerank``'s order is the score
+   order. Each scoring call's wall time and device memory above its
+   pre-call allocation are printed, and that peak must stay within
+   ``ModelRunner.score_bytes()``, the reserve's share for it. (d) one
+   greedy message through ``/v1/chat/completions``, ``/v1/messages`` and
+   ``/v1/responses``, JSON and SSE: one text, events in the reference's
+   order. (e) ``/sleep`` with a stream in flight answers 409; level 1
+   frees >= 0.95 of the pool's bytes (``mem_get_info``), level 2 the pool
+   and the weights; after each ``/wake_up`` (a)'s first request gives its
+   tokens. K1, K2 and K3 launch, K4 not.
+
 The line before the card line carries the kernels' JSON record, whose
 ``launches`` sum each kernel's launches over every served path (each
-path's own counts are in ``launches_by_path``, ``moe-int8`` and
-``kv-plane`` among them);
+path's own counts are in ``launches_by_path``, ``moe-int8``, ``kv-plane``
+and ``scoring-surface`` among them);
 the last line is ``{"ok":
 true, "device": {...}}``.
 """
@@ -154,6 +178,7 @@ import sys
 import threading
 import time
 import urllib.error
+import urllib.parse
 import urllib.request
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -3114,6 +3139,395 @@ def kv_plane_phase(torch, np, counters, card: str) -> dict:
     return launches
 
 
+# -- phase 10: the scoring surface --------------------------------------------
+
+# echo entries against the generation's own logprobs, and a near-tie of
+# the echo's top-1 against the generated token: a bf16 band, as phase 5's
+SCORE_BAND = BF16_LOGPROB_BAND
+SCORE_CHOICES = 64
+
+
+def _sse_events(base: str, path: str, body: dict) -> list:
+    """(event name or None, data) of an SSE response, in order."""
+    status, _, raw = _http(base, path, body)
+    if status != 200:
+        raise AssertionError(f"[scoring] {path} stream: {status} {raw[:200]}")
+    out = []
+    for block in raw.decode().strip().split("\n\n"):
+        name, data = None, None
+        for line in block.splitlines():
+            if line.startswith("event: "):
+                name = line[len("event: "):]
+            elif line.startswith("data: "):
+                d = line[len("data: "):]
+                data = d if d == "[DONE]" else json.loads(d)
+        out.append((name, data))
+    return out
+
+
+class _RecordedIds:
+    """The token ids the server's ``collect`` drains, by request id, while
+    in a ``with`` block: the HTTP answer carries text only, and random
+    llama-3-8b's ids above 255 decode to nothing."""
+
+    def __init__(self, server):
+        self.server = server
+        self.ids: dict = {}
+
+    def __enter__(self):
+        collect = self.collect = self.server.collect
+
+        def recording(stream, sampling):
+            out = collect(stream, sampling)
+            self.ids[stream.request_id] = list(out[4])
+            return out
+
+        self.server.collect = recording
+        return self.ids
+
+    def __exit__(self, *exc):
+        self.server.collect = self.collect
+
+
+def _scored_call(torch, base: str, path: str, body: dict, tag: str,
+                 calls: list, limit: int) -> dict:
+    """One scoring request over HTTP with its wall time and the device
+    memory it allocated above what was allocated before it (the peak
+    counter reset first); the peak must stay inside the runner's reserve
+    for the scoring path (``limit``)."""
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    status, _, raw = _http(base, path, body)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base_bytes
+    if status != 200:
+        raise AssertionError(f"[scoring] {tag}: {status} {raw[:300]}")
+    if peak > limit:
+        raise AssertionError(f"[scoring] {tag}: peak {peak} B above the "
+                             f"reserve's scoring share {limit} B")
+    calls.append({"call": tag, "wall_s": wall, "peak_bytes": peak})
+    return json.loads(raw)
+
+
+def _score_echo(torch, np, base, server, calls, limit) -> tuple:
+    """(a): 4 greedy completions (prompts of 256-1024 byte tokens, 32
+    out, logprobs 1) one at a time, then each prompt plus its completion
+    echoed with max_tokens 0 and logprobs 1. The same 4 completions served
+    at once measure the generation path's own deviation under another
+    batch (phase 9's rule: the band is SCORE_BAND or twice that, if
+    larger). Returns ([(prompt, completion ids, generation logprobs, echo
+    logprobs)], band)."""
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(0, 256, n).tolist() for n in (256, 512, 768,
+                                                          1024)]
+    with _RecordedIds(server) as ids_of:
+        def generate(prompt):
+            status, out, _ = _post(base, "/v1/completions", {
+                "prompt": prompt, "max_tokens": 32, "temperature": 0,
+                "ignore_eos": True, "logprobs": 1})
+            comp = ids_of[out["id"]]
+            gen = out["choices"][0]["logprobs"]["token_logprobs"]
+            if status != 200 or len(comp) != 32 or len(gen) != 32:
+                raise AssertionError(f"[scoring] generation: {status}")
+            return comp, gen
+
+        alone = [generate(p) for p in prompts]
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            batched = list(pool.map(generate, prompts))
+    runs = []
+    for prompt, (comp, gen) in zip(prompts, alone):
+        n = len(prompt)
+        echo = _scored_call(torch, base, "/v1/completions", {
+            "prompt": prompt + comp, "echo": True, "max_tokens": 0,
+            "logprobs": 1}, f"echo {n + 32} tokens", calls, limit)
+        lps = echo["choices"][0]["logprobs"]["token_logprobs"]
+        if lps[0] is not None or len(lps) != n + 32:
+            raise AssertionError(f"[scoring] echo {n}: {len(lps)} entries")
+        runs.append((prompt, comp, gen, lps[n:]))
+    noise = max(_kv_dev(a, b)[1] for a, b in zip(alone, batched))
+    band = max(SCORE_BAND, 2 * noise)
+    devs = sorted((abs(a - b) for _, _, gen, lps in runs
+                   for a, b in zip(gen, lps)), reverse=True)
+    log(f"[scoring] echo against generation: largest deviations "
+        f"{[round(d, 4) for d in devs[:6]]}, median {devs[64]:.4f}; the "
+        f"generation's own deviation batched 4 at once {noise:.4f}: band "
+        f"{band:.4f}")
+    if devs[0] > band:
+        raise AssertionError(f"[scoring] echo against generation: "
+                             f"{devs[0]:.4f} > {band:.4f}")
+    # the echo's top-1 at each completion position, read in process
+    ties = 0
+    for prompt, comp, _, _ in runs:
+        entries = server.async_engine.run_on_engine(
+            lambda e, ids=prompt + comp: e.prompt_logprobs(ids))
+        for j, tok in enumerate(comp):
+            lp, top = entries[len(prompt) - 1 + j]
+            if top[0][0] != tok:
+                if top[0][1] - lp > band:
+                    raise AssertionError(
+                        f"[scoring] echo top-1 {top[0]} is not the "
+                        f"generated {tok} ({lp:.4f})")
+                ties += 1
+    _scored_call(torch, base, "/v1/completions", {
+        "prompt": rng.integers(0, 256, 2048).tolist(), "echo": True,
+        "max_tokens": 0, "logprobs": 1}, "echo 2048 tokens, logprobs",
+        calls, limit)
+    log(f"[scoring] echo: top-1 = the generated token at {128 - ties} of "
+        f"128 positions, near-ties within the band at {ties}")
+    return runs, band
+
+
+def _score_choice(torch, np, base, server, calls, limit, runs,
+                  band: float) -> None:
+    """(b): 64 choices over a 1024-token prompt; the answer is the argmax
+    of the engine's choice_logprobs read in process; the greedy completion
+    of (a) scored as a choice equals the sum of its echo entries."""
+    tk = server.engine.tokenizer
+    rng = np.random.default_rng(11)
+    prompt = rng.integers(0, 256, 1024).tolist()
+    choices = [f"option {i} of {SCORE_CHOICES}" for i in range(SCORE_CHOICES)]
+    out = _scored_call(torch, base, "/v1/completions", {
+        "prompt": prompt, "guided_choice": choices, "temperature": 0},
+        f"guided_choice {SCORE_CHOICES} x 1024 tokens", calls, limit)
+    text = out["choices"][0]["text"]
+    logps = server.async_engine.run_on_engine(lambda e: e.choice_logprobs(
+        prompt, [tk.encode(c, add_bos=False) for c in choices]))
+    if text != choices[int(np.argmax(logps))]:
+        raise AssertionError(f"[scoring] guided_choice {text!r} is not the "
+                             "argmax of choice_logprobs")
+    worst = 0.0
+    for p, comp, _, lps in runs:
+        got = server.async_engine.run_on_engine(
+            lambda e, p=p, c=comp: e.choice_logprobs(p, [c]))[0]
+        worst = max(worst, abs(got - sum(lps)) / len(comp))
+    if worst > band:
+        raise AssertionError(f"[scoring] completion as a choice: {worst:.4f}"
+                             f" a token from its echo sum")
+    log(f"[scoring] guided_choice: {text!r} = argmax of {SCORE_CHOICES} "
+        f"scores; (a)'s completions as choices within {worst:.5f} a token "
+        "of their echo sums")
+
+
+def _score_embed(torch, np, base, calls, limit, hidden: int) -> None:
+    """(c): embeddings at 16, 2048 and 8191 tokens, bit-identical on
+    repeat and equal to /pooling's; score against itself; rerank's order
+    is the score order."""
+    rng = np.random.default_rng(12)
+    vecs = {}
+    for n in (16, 2048, 8191):
+        ids = rng.integers(0, 256, n).tolist()
+        a, b = (_scored_call(torch, base, "/v1/embeddings", {"input": ids},
+                             f"embedding {n} tokens{tag}", calls, limit)
+                for tag in ("", " (repeat)"))
+        v = a["data"][0]["embedding"]
+        if (len(v) != hidden or not all(np.isfinite(v))
+                or v != b["data"][0]["embedding"]):
+            raise AssertionError(f"[scoring] embedding {n}: not {hidden} "
+                                 "finite floats equal on repeat")
+        pooled = _scored_call(torch, base, "/pooling", {"input": ids},
+                              f"pooling {n} tokens", calls, limit)
+        if pooled["data"][0]["data"] != v:
+            raise AssertionError(f"[scoring] /pooling {n} differs")
+        vecs[n] = v
+    docs = ["the cat sat on the mat", "stock prices fell", "a cat on a mat",
+            "rain in spain"]
+    score = _scored_call(torch, base, "/v1/score", {
+        "text_1": docs[0], "text_2": docs}, "score 1 x 4", calls, limit)
+    scores = [d["score"] for d in score["data"]]
+    if scores[0] < 0.999:
+        raise AssertionError(f"[scoring] self score {scores[0]}")
+    rr = _scored_call(torch, base, "/v1/rerank", {
+        "query": docs[0], "documents": docs}, "rerank 4", calls, limit)
+    order = [r["index"] for r in rr["results"]]
+    if order != sorted(range(4), key=lambda i: -scores[i]):
+        raise AssertionError(f"[scoring] rerank order {order}, scores "
+                             f"{scores}")
+    log(f"[scoring] embeddings 16/2048/8191 tokens: {hidden} finite floats, "
+        f"bit-identical on repeat and through /pooling; self score "
+        f"{scores[0]:.6f}; rerank order {order} = score order")
+
+
+def _score_apis(base: str) -> None:
+    """(d): one greedy message through chat, Messages and Responses gives
+    one text; each stream concatenates to its JSON text, its events in the
+    reference's order. A first request puts the prompt's blocks in the
+    prefix cache, so every later one computes the same tail. Printable
+    byte tokens only, so the text is the tokens."""
+    text = "list the planets of the solar system in order " * 4
+    msgs = [{"role": "user", "content": text}]
+    greedy = {"temperature": 0, "ignore_eos": True,
+              "allowed_token_ids": KV_ALLOWED}
+    _post(base, "/v1/chat/completions", {"messages": msgs, "max_tokens": 32,
+                                         **greedy})
+    _, chat, _ = _post(base, "/v1/chat/completions", {
+        "messages": msgs, "max_tokens": 32, **greedy})
+    want = chat["choices"][0]["message"]["content"]
+    _, msg, _ = _post(base, "/v1/messages", {"messages": msgs,
+                                             "max_tokens": 32, **greedy})
+    _, resp, _ = _post(base, "/v1/responses", {
+        "input": msgs, "max_output_tokens": 32, **greedy})
+    texts = {"messages": msg["content"][0]["text"],
+             "responses": resp["output"][0]["content"][0]["text"]}
+    ev = _sse_events(base, "/v1/messages", {"messages": msgs,
+                                            "max_tokens": 32, "stream": True,
+                                            **greedy})
+    names = [n for n, _ in ev]
+    deltas = [n for n in names if n == "content_block_delta"]
+    if names != (["message_start", "content_block_start"] + deltas
+                 + ["content_block_stop", "message_delta", "message_stop"]):
+        raise AssertionError(f"[scoring] messages events {names}")
+    texts["messages stream"] = "".join(
+        d["delta"]["text"] for n, d in ev if n == "content_block_delta")
+    ev = _sse_events(base, "/v1/responses", {
+        "input": msgs, "max_output_tokens": 32, "stream": True, **greedy})
+    names = [n for n, _ in ev]
+    deltas = [n for n in names if n == "response.output_text.delta"]
+    if (names != ["response.created", "response.output_item.added"]
+            + deltas + ["response.output_text.done", "response.completed"]
+            or [d["sequence_number"] for _, d in ev] != list(
+                range(len(ev)))):
+        raise AssertionError(f"[scoring] responses events {names}")
+    texts["responses stream"] = "".join(
+        d["delta"] for n, d in ev if n == "response.output_text.delta")
+    ev = _sse_events(base, "/v1/chat/completions", {
+        "messages": msgs, "max_tokens": 32, "stream": True, **greedy})
+    texts["chat stream"] = "".join(
+        d["choices"][0]["delta"].get("content", "") for _, d in ev[:-1]
+        if d["choices"])
+    bad = {k: v for k, v in texts.items() if v != want}
+    if bad:
+        raise AssertionError(f"[scoring] chat text {want!r}, others {bad}")
+    if len(want) != 32:
+        raise AssertionError(f"[scoring] chat text {want!r}: not 32 chars")
+    log(f"[scoring] chat, messages and responses (JSON and SSE) give one "
+        f"greedy text, {want!r}; events in the reference's order")
+
+
+def _score_sleep(torch, base, server, eng, runs) -> dict:
+    """(e): a sleep with a stream in flight answers 409; level 1 frees the
+    pool, level 2 the weights too; after each wake (a)'s first request
+    gives the same tokens."""
+    import http.client
+
+    prompt, comp = runs[0][0], runs[0][1]
+
+    def again(ids_of) -> list:
+        _, out, _ = _post(base, "/v1/completions", {
+            "prompt": prompt, "max_tokens": 32, "temperature": 0,
+            "ignore_eos": True, "logprobs": 1})
+        return ids_of[out["id"]]
+
+    u = urllib.parse.urlsplit(base)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=600)
+    # printable tokens only: each step streams text, so the first chunk
+    # arrives while the request is in flight
+    conn.request("POST", "/v1/completions", json.dumps({
+        "prompt": prompt, "max_tokens": 256, "temperature": 0,
+        "ignore_eos": True, "stream": True,
+        "allowed_token_ids": KV_ALLOWED}),
+        {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    first = resp.read(6)
+    status, _, body = _http(base, "/sleep", {})
+    rest = resp.read()
+    conn.close()
+    if first != b"data: " or status != 409 or not rest.rstrip().endswith(
+            b"data: [DONE]"):
+        raise AssertionError(f"[scoring] sleep with a stream in flight: "
+                             f"{status} {body[:200]}")
+    pool = eng.runner.kv.numel() * eng.runner.kv.element_size()
+    weights = sum(t.numel() * t.element_size()
+                  for t in _leaves(eng.runner.params))
+    out = {"pool_bytes": pool, "weight_bytes": weights}
+    with _RecordedIds(server) as ids_of:
+        for level, need in ((1, 0.95 * pool), (2, pool + weights)):
+            torch.cuda.synchronize()
+            free0 = torch.cuda.mem_get_info()[0]
+            t0 = time.perf_counter()
+            status, _, body = _http(base, f"/sleep?level={level}", {})
+            t_sleep = time.perf_counter() - t0
+            freed = torch.cuda.mem_get_info()[0] - free0
+            held = {"allocated": torch.cuda.memory_allocated(),
+                    "reserved": torch.cuda.memory_reserved()}
+            _, _, asleep = _http(base, "/is_sleeping")
+            if (status != 200 or freed < need
+                    or json.loads(asleep) != {"is_sleeping": True}):
+                segs = [(sg["total_size"], [b["size"] for b in sg["blocks"]
+                                            if b["state"] == "active_allocated"])
+                        for sg in torch.cuda.memory_snapshot()]
+                raise AssertionError(
+                    f"[scoring] sleep level {level}: {status}, {freed} B "
+                    f"freed of {need}; asleep {held}; segments "
+                    f"{sorted(segs, reverse=True)[:12]}")
+            t0 = time.perf_counter()
+            status, _, _ = _http(base, "/wake_up", {})
+            t_wake = time.perf_counter() - t0
+            toks = again(ids_of)
+            if status != 200 or toks != comp:
+                raise AssertionError(f"[scoring] after the level-{level} "
+                                     f"wake the tokens differ")
+            out[f"level{level}"] = {"freed_bytes": freed, "sleep_s": t_sleep,
+                                    "wake_s": t_wake, "asleep": held}
+    log(f"[scoring] sleep: a stream in flight -> 409; " + json.dumps(out)
+        + "; (a)'s first request gives its tokens after each wake")
+    return out
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def scoring_phase(torch, np, counters, card: str) -> dict:
+    """Phase 10 (``scoring-surface``): llama-3-8b bf16 at full width and
+    depth, random weights from seed 0, default scheduler, pool at 0.9.
+    (a) echo against generation, (b) a 64-choice guided_choice, (c)
+    embeddings, pooling, score and rerank, (d) chat, Messages and
+    Responses, (e) sleep at levels 1 and 2. Returns the phase's launches
+    (K1, K2 and K3 launch, K4 not)."""
+    from production_stack_tpu_torch.engine.server import (
+        EngineServer,
+        build_parser,
+        config_from_args,
+    )
+
+    cfg = config_from_args(build_parser().parse_args(
+        ["--model", "llama-3-8b", "--seed", "0"]))
+    t0 = time.perf_counter()
+    server = EngineServer(cfg, device="cuda")
+    base = f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
+    eng = server.engine
+    limit = eng.runner.score_bytes()
+    log(f"[scoring] llama-3-8b up in {time.perf_counter() - t0:.1f} s: "
+        f"{eng.runner.num_blocks} KV blocks; reserve beside the pool "
+        f"{eng.runner._transient_bytes()} B, of which the scoring path's "
+        f"peak bound {limit} B")
+    calls: list = []
+    t_phase = time.perf_counter()
+    try:
+        for c in counters:
+            c.n = 0
+        runs, band = _score_echo(torch, np, base, server, calls, limit)
+        _score_choice(torch, np, base, server, calls, limit, runs, band)
+        _score_embed(torch, np, base, calls, limit, cfg.model.hidden_size)
+        _score_apis(base)
+        sleep = _score_sleep(torch, base, server, eng, runs)
+        launches = {c.name.split()[0]: c.n for c in counters}
+    finally:
+        server.shutdown()
+    del server, eng
+    _released(torch, "scoring-surface")
+    _expect(launches, {"K1", "K2", "K3"}, "scoring-surface")
+    log(f"[scoring] ({card}) in {time.perf_counter() - t_phase:.1f} s: "
+        + json.dumps({"calls": calls, "sleep": sleep, "launches": launches}))
+    return launches
+
+
 def _expect(launches: dict, expected: set, tag: str) -> None:
     for key, n in launches.items():
         if (n > 0) != (key in expected):
@@ -3171,6 +3585,7 @@ def main() -> int:
     by_path["surface-ragged"] = surface_phase(torch, np, counters, card)
     by_path["moe-int8"] = moe_int8_phase(torch, np, counters, card)
     by_path["kv-plane"] = kv_plane_phase(torch, np, counters, card)
+    by_path["scoring-surface"] = scoring_phase(torch, np, counters, card)
 
     kernels = []
     for r in results:

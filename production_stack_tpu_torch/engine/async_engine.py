@@ -18,6 +18,10 @@ Two hooks feed the server's histograms from the engine thread:
 and ``finish_observer(output)`` with each finished request's output, whose
 arrival, admission, first-token and finish stamps the latency histograms
 read.
+
+Sleep mode (``sleep``, ``wake_up``, ``is_sleeping``): while ``paused`` the
+engine thread runs control-plane calls but no step, so a request admitted
+while asleep waits for ``wake_up``, as in the reference.
 """
 
 from __future__ import annotations
@@ -75,8 +79,8 @@ class AsyncEngine:
         # (fn, future) pairs the engine thread runs before its next step
         self._calls: collections.deque = collections.deque()
         self.step_count = 0
-        # sleep mode is not ported: the engine never pauses, but the
-        # watchdog (engine/lifecycle.py) reads the flag as the reference's
+        # sleep mode: no step runs while set; the watchdog
+        # (engine/lifecycle.py) counts a paused engine as progressing
         self.paused = False
         # called on the engine thread with each step's wall seconds, and
         # with each finished request's RequestOutput
@@ -130,7 +134,8 @@ class AsyncEngine:
                 time.sleep(0.0001)
             with self._cv:
                 while (self._running and not self._calls
-                       and not self.engine.has_unfinished()):
+                       and (self.paused
+                            or not self.engine.has_unfinished())):
                     self._cv.wait()
                 if not self._running:
                     return
@@ -140,7 +145,7 @@ class AsyncEngine:
                         fut.set_result(fn(self.engine))
                     except Exception as e:  # the caller gets the error
                         fut.set_exception(e)
-                if not self.engine.has_unfinished():
+                if self.paused or not self.engine.has_unfinished():
                     continue
                 t_step = time.monotonic()
                 try:
@@ -234,6 +239,32 @@ class AsyncEngine:
             self._streams[request_id] = stream
             self._cv.notify_all()
             return stream
+
+    # -- sleep mode ----------------------------------------------------------
+    def sleep(self, level: int = 1) -> None:
+        """Stop stepping, then drop the pool (and at level 2 the weights)
+        on the engine thread. With unfinished requests the engine refuses:
+        stepping resumes and the RuntimeError is raised (the reference's
+        server un-pauses the same way)."""
+        self.paused = True
+        try:
+            self.run_on_engine(lambda eng: eng.sleep_mode(level))
+        except RuntimeError:
+            self._resume()
+            raise
+
+    def wake_up(self) -> None:
+        self.run_on_engine(lambda eng: eng.wake_mode())
+        self._resume()
+
+    def _resume(self) -> None:
+        with self._entry():
+            self.paused = False
+            self._cv.notify_all()
+
+    @property
+    def is_sleeping(self) -> bool:
+        return self.paused
 
     def abort(self, request_id: str) -> None:
         """Abort a request between steps. A consumer still reading its

@@ -33,8 +33,13 @@ or remote tier, an admitted sequence whose chain misses the pool parks in
 fetched slabs into its blocks; blocks the pool evicts are demoted to the
 host, and finished sequences are offloaded. ``export_kv``, the
 ``*_kv_import`` calls and ``splice_request`` move blocks between engines
-for P->D disaggregation. Ring prefill, the brownout's speculation shedding
-and the tenant plane are not ported yet.
+for P->D disaggregation.
+
+The dense scoring surface (``embed``, ``choice_logprobs``,
+``prompt_logprobs``) pads each call to a size class and runs the runner's
+dense forward; sleep mode (``sleep_mode``, ``wake_mode``) drops the pool,
+and at level 2 the weights, and makes them again. Ring prefill, the
+brownout's speculation shedding and the tenant plane are not ported yet.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ from production_stack_tpu_torch.engine import grammar as G
 from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.kv_cache import (
     HASH_SEED,
+    PrefixCachingBlockAllocator,
     kv_cache_bytes_per_block,
     slot_mapping_for,
 )
@@ -235,6 +241,7 @@ class LLMEngine:
                 config.cache.kv_prefetch_workers)
             self.scheduler.admission_hook = self._start_tier_prefetch
         self._wire_tier_hooks()
+        self.sleep_level = 0  # 0 awake; 1 pool dropped; 2 weights too
         # goodput accounting + compile tracking (engine/perf_accounting.py)
         self.perf: Optional[PerfAccountant] = None
         if config.perf.enabled:
@@ -1326,6 +1333,80 @@ class LLMEngine:
             self._prefetcher.shutdown()
         if self.remote_kv is not None:
             self.remote_kv.shutdown()
+
+    # -- sleep mode ----------------------------------------------------------
+    def sleep_mode(self, level: int = 1) -> None:
+        """Level 1 drops the KV pool (the largest allocation) and keeps the
+        weights; level 2 drops the weights too. The prefix cache goes with
+        the pool: the allocator is rebuilt, its evictions still demote to
+        the host tier. LoRA and grammar banks stay. Refused while requests
+        are unfinished."""
+        if self.has_unfinished():
+            raise RuntimeError("cannot sleep with unfinished requests")
+        self.runner.drop_kv()
+        self.scheduler.allocator = PrefixCachingBlockAllocator(
+            self.runner.num_blocks, self.config.cache.block_size,
+            self.config.cache.enable_prefix_caching)
+        self._wire_tier_hooks()
+        if level >= 2:
+            self.runner.drop_params()
+        self.sleep_level = level
+
+    def wake_mode(self) -> None:
+        self.runner.restore_params()
+        self.runner.restore_kv()
+        self.sleep_level = 0
+
+    # -- dense scoring (embeddings, guided_choice, echo logprobs) ------------
+    def _score_length(self, n: int) -> int:
+        """The padded length of a dense scoring forward over ``n`` tokens:
+        its prefill bucket, or the next power of two where the bucket
+        clamps below ``n``."""
+        S = self._bucket(n)
+        return S if S >= n else 1 << (n - 1).bit_length()
+
+    def embed(self, prompt_token_ids: list[int]) -> np.ndarray:
+        """Mean-pooled final hidden state, the /v1/embeddings encoder (a
+        causal LM's pooled hidden). Pads past the top bucket to the next
+        power of two, as ``choice_logprobs`` does: the reference's
+        ``embed`` pads to the clamped bucket and fails on a longer
+        prompt."""
+        n = len(prompt_token_ids)
+        S = self._score_length(n)
+        tokens = np.zeros((1, S), np.int32)
+        tokens[0, :n] = prompt_token_ids
+        mask = np.zeros((1, S), np.int32)
+        mask[0, :n] = 1
+        return self.runner.pooled_embed(tokens, mask)[0]
+
+    def choice_logprobs(self, prompt_token_ids: list[int],
+                        choices_ids: list[list[int]]) -> list[float]:
+        """log P(choice | prompt) of each choice, teacher-forced: the
+        guided_choice primitive. Choices pad to a power of two and the
+        length to ``_score_length``, the reference's size classes."""
+        n = len(choices_ids)
+        N = 1 << (n - 1).bit_length() if n else 1
+        p = len(prompt_token_ids)
+        S = self._score_length(p + max(len(c) for c in choices_ids))
+        tokens = np.zeros((N, S), np.int32)
+        cont = np.zeros((N, S), bool)
+        for i, c in enumerate(choices_ids):
+            tokens[i, :p + len(c)] = list(prompt_token_ids) + list(c)
+            cont[i, p:p + len(c)] = True
+        return self.runner.sequence_logprobs(tokens, cont)[:n].tolist()
+
+    def prompt_logprobs(self, prompt_token_ids: list[int]) -> list:
+        """Logprob entries of ``prompt_token_ids[1:]``, teacher-forced (token
+        0 has no prediction): the completions ``echo`` + ``logprobs``
+        surface, in generation's (lp, [(id, lp), ...]) shape. Pads to a
+        power of two."""
+        n = len(prompt_token_ids)
+        if n < 2:
+            return []
+        tokens = np.zeros((1, 1 << (n - 1).bit_length()), np.int32)
+        tokens[0, :n] = prompt_token_ids
+        lp = self.runner.prompt_logprobs(tokens)
+        return [_lp_row(lp, p) for p in range(n - 1)]
 
     # -- warmup --------------------------------------------------------------
     def warmup(self) -> None:

@@ -32,6 +32,16 @@ PyTorch on tensors (gathers, ``torch.where``, matmuls), as in the
 reference, where they run outside any Pallas kernel. Ring prefill, KV
 block export/import and CUDA-graph capture are not ported yet.
 
+The dense scoring path (``pooled_embed``, ``sequence_logprobs``,
+``prompt_logprobs``) runs whole sequences through the model with no pool,
+attending with ``ops/attention.dense_causal_attention`` (plain PyTorch, as
+the reference's is XLA). Its transients are bounded: rows go in groups of
+at most ``score_tokens()`` tokens, queries in blocks whose float32 scores
+fit ``ATTN_SCORE_BYTES``, the MLP in chunks of the step's token budget,
+and the LM head in chunks of ``LOGIT_CHUNK`` rows; ``_transient_bytes``
+reserves the larger of a step's and this path's peak. ``drop_kv`` /
+``drop_params`` and their ``restore_*`` are sleep mode's.
+
 Parameters come from ``weights.init_or_load`` (random from the seed, or
 a local checkpoint) or the caller, and pass through
 ``quant.maybe_quantize`` as in the reference. Each step hands the model
@@ -69,6 +79,7 @@ from production_stack_tpu_torch.engine.quant import (
 )
 from production_stack_tpu_torch.engine.weights import init_or_load
 from production_stack_tpu_torch.models.registry import get_model
+from production_stack_tpu_torch.ops.attention import dense_causal_attention
 from production_stack_tpu_torch.ops.kv_write import kv_write
 from production_stack_tpu_torch.ops.paged_attention import combine_kv
 from production_stack_tpu_torch.ops.paged_decode_attention import (
@@ -86,6 +97,11 @@ from production_stack_tpu_torch.ops.ragged_paged_attention import (
 
 # the ragged stream runs at its live length rounded up to this many tokens
 STREAM_ROUND = 64
+# the dense scoring path: the float32 score buffer of one query block, and
+# the rows the LM head unembeds at once (the reference's prompt_logprobs
+# chunk)
+ATTN_SCORE_BYTES = 256 << 20
+LOGIT_CHUNK = 128
 
 
 def stream_length(budget: int, live: int) -> int:
@@ -234,6 +250,41 @@ class ModelRunner:
                                                bucket=bucket))
 
     # -- sizing ------------------------------------------------------------
+    def score_tokens(self) -> int:
+        """The most tokens one dense scoring forward runs: the power of two
+        at or above ``max_model_len``, which every admitted scoring shape
+        fits (row groups never exceed it)."""
+        return 1 << (self.cfg.max_model_len - 1).bit_length()
+
+    def score_bytes(self) -> int:
+        """Device memory the dense scoring path needs beside the weights,
+        at its largest forward (``score_tokens()`` rows): per row the
+        residual, the normed input, q, k, v and the attention output in
+        the model dtype, float32 RoPE and RMSNorm temporaries, and k and v
+        in float32; one query block's scores; the MLP's chunk of
+        ``max_num_batched_tokens`` rows (a MoE model's capacity buffer at
+        one slot a token an expert); ``LOGIT_CHUNK`` rows of float32
+        logits with their log-softmax; an int8 model's float32 and int8
+        activation copies."""
+        c = self.cfg
+        S = self.score_tokens()
+        T = min(self.config.scheduler.max_num_batched_tokens, S)
+        b = c.torch_dtype.itemsize
+        E, F = c.hidden_size, c.intermediate_size
+        rows = S * (8 * E * b + 4 * E * 4 + 2 * c.num_kv_heads
+                    * c.head_dim * 4)
+        if c.architecture == "mixtral" and c.num_experts > 0:
+            k, X = c.num_experts_per_tok, c.num_experts
+            mlp = (X * T * (2 * E + 3 * F) * b + T * k * E * 4)
+        else:
+            mlp = 4 * T * F * b
+        logits = 3 * LOGIT_CHUNK * c.vocab_size * 4
+        extra = 0
+        if c.quant:
+            extra = S * E * (4 + 1 + 4) + T * F * (4 + 1 + 4) + (
+                DEQUANT_TILE_ELEMS * b)
+        return int(rows + 2 * ATTN_SCORE_BYTES + mlp + logits + extra)
+
     def _transient_bytes(self) -> int:
         """Device memory a step needs beside the pool: hidden states and
         MLP intermediates of the step's tokens, the float32 logits with
@@ -246,7 +297,9 @@ class ModelRunner:
         adds a float32 copy of the activations, the int32 accumulators and
         one dequantized weight tile; a MoE model its capacity buffers: up
         to 2 T k / X rows an expert (at most T), in and out, with their
-        gate and up products."""
+        gate and up products. The dense scoring path (``score_bytes``)
+        runs between steps, so the reserve takes the larger of the two,
+        plus the banks."""
         sched = self.config.scheduler
         c = self.cfg
         rows = sched.max_num_seqs
@@ -281,8 +334,9 @@ class ModelRunner:
             extra += (slots * (2 * c.hidden_size + 3 * c.intermediate_size)
                       * c.torch_dtype.itemsize
                       + tokens * k * c.hidden_size * 4)
-        return int(8 * hidden + 4 * mlp + 4 * logits + grammar + lora
-                   + extra)
+        step = 8 * hidden + 4 * mlp + 4 * logits + extra
+        # the dense scoring path runs between steps, never inside one
+        return int(max(step, self.score_bytes()) + grammar + lora)
 
     def _resolve_num_blocks(self, explicit: Optional[int]) -> int:
         if explicit is not None:
@@ -420,6 +474,154 @@ class ModelRunner:
         if g_ids is None or self.grammar_bank is None:
             return None
         return [self._dev(g_ids, torch.int64), self._dev(g_states, torch.int64)]
+
+    # -- the dense scoring path (no pool) -----------------------------------
+    def _score_groups(self, N: int, S: int):
+        """(row group, query block) of a dense forward over (N, S): rows in
+        groups of at most ``score_tokens()`` tokens, queries in blocks whose
+        float32 scores fit ``ATTN_SCORE_BYTES``."""
+        g = max(1, min(N, self.score_tokens() // S))
+        blk = max(1, ATTN_SCORE_BYTES // (g * self.cfg.num_heads * S * 4))
+        return g, blk
+
+    def _dense_hidden(self, tokens: torch.Tensor, q_block: int,
+                      ref_tokens: int) -> torch.Tensor:
+        """Final hidden states (g, S, E) of a dense causal forward over
+        ``tokens (g, S)`` at positions 0..S-1; ``ref_tokens`` is the token
+        count of the reference's whole call (models/llama.py)."""
+        cfg = self.cfg
+
+        def attend(q, k, v, kv, layer):
+            return dense_causal_attention(
+                q, k, v, soft_cap=cfg.attn_logit_softcap,
+                q_block=q_block), kv
+
+        positions = torch.arange(tokens.shape[1], device=self.device
+                                 ).expand(tokens.shape)
+        hidden, _ = self.model.forward_tokens(
+            cfg, self.params, tokens, positions, attend, None,
+            ref_tokens=ref_tokens,
+            mlp_rows=self.config.scheduler.max_num_batched_tokens)
+        return hidden
+
+    @torch.inference_mode()
+    def pooled_embed(self, tokens: np.ndarray,
+                     mask: np.ndarray) -> np.ndarray:
+        """Mean of the final hidden states over ``mask``'s positions, a
+        dense causal forward a row group at a time. tokens, mask (N, S);
+        returns (N, E) float32."""
+        N, S = tokens.shape
+        g, blk = self._score_groups(N, S)
+        out = []
+        for r0 in range(0, N, g):
+            hidden = self._dense_hidden(self._dev(tokens[r0:r0 + g]), blk,
+                                        N * S)
+            m = self._dev(mask[r0:r0 + g], torch.float32)[:, :, None]
+            pooled = (hidden.float() * m).sum(dim=1)
+            out.append(pooled / m.sum(dim=1).clamp(min=1.0))
+        return torch.cat(out).cpu().numpy()
+
+    @torch.inference_mode()
+    def sequence_logprobs(self, tokens: np.ndarray,
+                          cont_mask: np.ndarray) -> np.ndarray:
+        """Sum of log P(token_j | tokens_<j) over the positions
+        ``cont_mask`` sets, teacher-forced in a dense causal pass: the
+        score of a continuation given its prompt. tokens (N, S) 0-padded,
+        cont_mask (N, S) bool marking the continuation tokens (each
+        predicted at the position before it). Returns (N,) float32.
+
+        The (N, S, V) logits of the reference never exist: rows run in
+        groups, and the LM head unembeds only the predicting positions,
+        ``LOGIT_CHUNK`` rows at a time. A row with no continuation scores
+        0, as its masked sum does in the reference."""
+        N, S = tokens.shape
+        ref = N * S
+        out = np.zeros(N, np.float32)
+        live = np.flatnonzero(cont_mask[:, 1:].any(axis=1))
+        g, blk = self._score_groups(len(live), S)
+        for r0 in range(0, len(live), g):
+            rows = live[r0:r0 + g]
+            hidden = self._dense_hidden(self._dev(tokens[rows]), blk, ref)
+            r, j = np.nonzero(cont_mask[rows, 1:])  # logits at j predict j+1
+            tgt = self._dev(tokens[rows][r, j + 1], torch.int64)
+            ridx, jidx = self._dev(r, torch.int64), self._dev(j, torch.int64)
+            # each term at its (row, position), then one sum a row: the
+            # same order on every run (no atomic adds)
+            picked = torch.zeros((len(rows), S - 1), dtype=torch.float32,
+                                 device=self.device)
+            for c0 in range(0, len(r), LOGIT_CHUNK):
+                sl = slice(c0, c0 + LOGIT_CHUNK)
+                logits = self.model.logits_from_hidden(
+                    self.cfg, self.params, hidden[ridx[sl], jidx[sl]], ref)
+                picked[ridx[sl], jidx[sl]] = torch.log_softmax(
+                    logits, dim=-1).gather(1, tgt[sl, None])[:, 0]
+            out[rows] = picked.sum(dim=1).cpu().numpy()
+        return out
+
+    @torch.inference_mode()
+    def prompt_logprobs(self, tokens: np.ndarray):
+        """Per-position next-token logprobs of a prompt, teacher-forced in
+        one dense causal pass. tokens (1, S) 0-padded; returns (tok_lps
+        (S-1,), top_ids (S-1, N), top_lps (S-1, N)), row p holding
+        position p's prediction of token p+1 from the raw model
+        distribution (as generation logprobs); rows at or past the live
+        length are the caller's to slice off. The LM head runs
+        ``LOGIT_CHUNK`` positions at a time, as the reference's."""
+        S = tokens.shape[1]
+        _, blk = self._score_groups(1, S)
+        tok = self._dev(tokens)
+        hidden = self._dense_hidden(tok, blk, S)[0, :-1]
+        targets = tok[0, 1:].long()
+        parts = []
+        for c0 in range(0, S - 1, LOGIT_CHUNK):
+            logits = self.model.logits_from_hidden(
+                self.cfg, self.params, hidden[c0:c0 + LOGIT_CHUNK])
+            parts.append(compute_logprobs(logits,
+                                          targets[c0:c0 + LOGIT_CHUNK]))
+        return tuple(torch.cat(col).cpu().numpy() for col in zip(*parts))
+
+    # -- sleep mode ----------------------------------------------------------
+    def _release_memory(self) -> None:
+        """Hand freed device memory back to the card (``mem_get_info``
+        and other processes see it), not only to PyTorch's cache. cuBLAS
+        keeps a workspace a handle in PyTorch's allocator, carved from
+        whatever segment was free at the first product: one left in a
+        segment the weights share would keep the whole segment, so the
+        workspaces go too (cuBLAS makes them again at the next product)."""
+        if self.device.type == "cuda":
+            clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+            if clear is not None:
+                clear()
+            torch.cuda.empty_cache()
+
+    def drop_kv(self) -> None:
+        self.kv = None
+        self._release_memory()
+
+    def restore_kv(self) -> None:
+        if self.kv is None:
+            self.kv = kvmod.init_kv_cache(self.cfg, self.config.cache,
+                                          self.num_blocks, self.device)
+
+    def drop_params(self) -> None:
+        self.params = None
+        self._release_memory()
+
+    def restore_params(self) -> None:
+        """The weights again, as at start: seeded on the device or loaded
+        from ``weights_path``, quantized under ``cfg.quant``."""
+        if self.params is None:
+            self.params = maybe_quantize(
+                self.cfg, init_or_load(self.cfg, self.config.seed,
+                                       self.device))
+
+    @property
+    def params_alive(self) -> bool:
+        return self.params is not None
+
+    @property
+    def kv_alive(self) -> bool:
+        return self.kv is not None
 
     # -- KV block export / import (P->D transfer, tier movement) -----------
     def _block_index(self, block_ids) -> torch.Tensor:

@@ -40,10 +40,21 @@ to a plain prefill when neither is there. ``--kv-host-cache-bytes`` and
 ``--remote-kv-url`` put the host and remote tiers behind the pool
 (engine/kv_offload.py).
 
+Scoring, on the dense path (engine/engine.py ``embed``,
+``choice_logprobs``, ``prompt_logprobs``): completions ``echo`` (the prompt
+prepended, with its teacher-forced logprobs under ``logprobs``; with
+``max_tokens: 0`` the prompt alone), ``guided_choice`` (one of the given
+strings, scored whole: the argmax at temperature 0, else sampled from
+softmax(logP / T)), ``POST /v1/embeddings`` and ``/pooling`` (mean-pooled
+final hidden states), ``POST /v1/score`` and ``/v1/rerank`` (also
+``/rerank``: cosine of pooled states). ``POST /v1/messages`` (Anthropic)
+and ``/v1/responses`` (OpenAI), JSON or SSE with the reference's events.
+Sleep mode: ``POST /sleep?level=1|2`` (409 with requests in flight),
+``POST /wake_up``, ``GET /is_sleeping``.
+
 Response bodies have the JAX server's shape, so the same router can front
-either engine. ``guided_choice`` and ``echo`` (which need prompt scoring),
-the tenant plane, the perf ledger, ``/debug/memory`` and the other
-``/debug/*`` routes are not ported yet.
+either engine. The tenant plane, the perf ledger, ``/debug/memory`` and
+the other ``/debug/*`` routes are not ported yet.
 
 Run: ``python -m production_stack_tpu_torch.engine.server --model
 llama-3-8b --port 18077`` (``--device cpu`` for the plain path,
@@ -111,7 +122,15 @@ from production_stack_tpu_torch.engine.scheduler import SchedulerQueueFull
 _log = logging.getLogger(__name__)
 
 MAX_CHOICES = 128  # OpenAI caps n at 128; batched prompts share the cap
-ENGINE_CAPABILITIES = ("chat", "completions")
+# echo + logprobs scores the prompt with a dense teacher-forced pass
+MAX_ECHO_SCORE_TOKENS = 2048
+MAX_GUIDED_CHOICES = 64
+# the endpoint families this engine serves, on its /v1/models card: the
+# router sends a path only to engines that advertise its capability
+ENGINE_CAPABILITIES = (
+    "chat", "completions", "responses", "messages", "embeddings",
+    "score", "rerank", "pooling", "tokenize",
+)
 
 
 class BadRequest(ValueError):
@@ -239,8 +258,18 @@ def _check_stop_str(text: str, sampling: SamplingParams) -> Optional[str]:
     return None if cut is None else text[:cut]
 
 
-def _error(message: str, kind: str = "invalid_request_error") -> dict:
+def _error(message: str, kind: Optional[str] = "invalid_request_error"
+           ) -> dict:
+    """An error body; ``kind`` None leaves out ``type``, as the
+    reference's scoring, messages and sleep routes do."""
+    if kind is None:
+        return {"error": {"message": message}}
     return {"error": {"message": message, "type": kind}}
+
+
+def _sse_event(name: str, payload: dict) -> bytes:
+    """One named server-sent event (the messages and responses streams)."""
+    return f"event: {name}\ndata: {json.dumps(payload)}\n\n".encode()
 
 
 class _ChunkedReader:
@@ -316,6 +345,9 @@ class _Admission:
     produce_kv: bool = False  # answer with remote_block_ids
     push: Optional[dict] = None  # push_url + transfer_id: blocks pinned
     imported_tokens: int = 0  # tokens a pull landed before admission
+    # echo: each prompt's ids, and its logprob entries under ``logprobs``
+    echo_ids: Optional[list] = None
+    echo_lps: Optional[list] = None
 
 
 class _HTTPServer(ThreadingHTTPServer):
@@ -780,11 +812,9 @@ class EngineServer:
         raise BadRequest("invalid 'prompt': expected string, token list, or "
                          "batch thereof")
 
-    def admit(self, body: dict, chat: bool) -> _Admission:
-        """Validate a generation request, run what its
-        ``kv_transfer_params`` ask for before admission (splice a landed
-        push, or pull blocks into the prefix cache) and admit its
-        choices."""
+    def validate(self, body: dict, chat: bool) -> tuple:
+        """A generation request's (sampling, prompt ids of each prompt,
+        request id), or BadRequest."""
         prompts = self.prompts_of(body, chat)
         try:
             sampling = _sampling_from_body(body)
@@ -795,9 +825,6 @@ class EngineServer:
         except (TypeError, ValueError) as e:
             raise BadRequest(f"invalid sampling parameter: {e}") from None
         sampling = self.guided_sampling(body, sampling)
-        for key in ("guided_choice", "echo"):
-            if body.get(key):
-                raise BadRequest(f"{key!r} is not supported by this engine")
         if sampling.n < 1 or sampling.n * len(prompts) > MAX_CHOICES:
             raise BadRequest(
                 f"n x prompt batch size must be in [1, {MAX_CHOICES}]")
@@ -808,6 +835,139 @@ class EngineServer:
             if len(ids) > self.config.model.max_model_len - 1:
                 raise BadRequest("prompt too long")
         rid = f"{'chatcmpl' if chat else 'cmpl'}-{uuid.uuid4().hex}"
+        return sampling, prompt_ids_list, rid
+
+    def scored(self, body: dict, chat: bool, sampling: SamplingParams,
+               prompt_ids_list: list, rid: str):
+        """The responses a dense scoring pass answers alone: echo with
+        ``max_tokens: 0`` and ``guided_choice``. Returns ("json",
+        payload), ("sse", chunks) or None when the request generates.
+        Raises BadRequest for echo's and guided_choice's refusals."""
+        model = body.get("model", self.model_name)
+        stream = bool(body.get("stream", False))
+        if body.get("echo") and not chat:
+            if stream:
+                raise BadRequest("echo is not supported with stream=true")
+            if body.get("guided_choice") is not None:
+                raise BadRequest("echo cannot be combined with guided_choice")
+            if (sampling.logprobs is not None
+                    and any(len(p) > MAX_ECHO_SCORE_TOKENS
+                            for p in prompt_ids_list)):
+                raise BadRequest(f"echo with logprobs is limited to "
+                                 f"{MAX_ECHO_SCORE_TOKENS}-token prompts")
+            if body.get("max_tokens") == 0:
+                return "json", self.echo_score_response(
+                    prompt_ids_list, sampling, rid, model)
+        guided = body.get("guided_choice")
+        if guided is not None:
+            return self.guided_choice_response(
+                guided, prompt_ids_list, sampling, rid, model, chat, stream)
+        return None
+
+    def _prompt_logprobs(self, prompt_ids: list) -> list:
+        return self.async_engine.run_on_engine(
+            lambda eng: eng.prompt_logprobs(prompt_ids))
+
+    def echo_score_response(self, prompt_ids_list: list,
+                            sampling: SamplingParams, rid: str,
+                            model) -> dict:
+        """Completions ``echo`` with ``max_tokens: 0``: the prompt itself,
+        with its teacher-forced logprobs when asked (OpenAI's scoring mode:
+        perplexity or classification without generating). With n > 1 the
+        deterministic choice repeats, in the generation path's prompt x n
+        layout."""
+        tk = self.engine.tokenizer
+        n = max(1, int(sampling.n))
+        choices = []
+        for pi, pids in enumerate(prompt_ids_list):
+            lp_obj = None
+            if sampling.logprobs is not None:
+                lp_obj = _fmt_completion_logprobs(
+                    tk, list(pids),
+                    [(None, [])] + self._prompt_logprobs(pids),
+                    sampling.logprobs)
+            for j in range(n):
+                choices.append({"index": pi * n + j,
+                                "text": tk.decode(list(pids)),
+                                "finish_reason": "length",
+                                "logprobs": lp_obj})
+        n_prompt = sum(len(p) for p in prompt_ids_list)
+        return {"id": rid, "object": "text_completion",
+                "created": int(time.time()), "model": model,
+                "choices": choices,
+                "usage": {"prompt_tokens": n_prompt, "completion_tokens": 0,
+                          "total_tokens": n_prompt}}
+
+    def guided_choice_response(self, guided, prompt_ids_list: list,
+                               sampling: SamplingParams, rid: str, model,
+                               chat: bool, stream: bool):
+        """vLLM's ``guided_choice``, scored whole: log P(choice | prompt)
+        of every choice in one teacher-forced pass; temperature 0 takes
+        the argmax, otherwise the choice is drawn from softmax(logP / T)
+        with ``numpy.random.default_rng(seed)``. Returns ("json", payload)
+        or ("sse", chunks)."""
+        import numpy as np
+
+        if (not isinstance(guided, list) or not guided
+                or not all(isinstance(c, str) and c for c in guided)
+                or len(guided) > MAX_GUIDED_CHOICES):
+            raise BadRequest(f"guided_choice must be 1..{MAX_GUIDED_CHOICES}"
+                             " non-empty strings")
+        if len(prompt_ids_list) != 1 or sampling.n != 1:
+            raise BadRequest("guided_choice requires a single prompt and n=1")
+        tk = self.engine.tokenizer
+        prompt_ids = prompt_ids_list[0]
+        # a choice is scored mid-sequence: no BOS
+        choice_ids = [tk.encode(c, add_bos=False) for c in guided]
+        if any(not c for c in choice_ids):
+            raise BadRequest("guided_choice entry tokenizes to nothing")
+        if (len(prompt_ids) + max(len(c) for c in choice_ids)
+                > self.config.model.max_model_len):
+            raise BadRequest("prompt + longest choice exceeds max_model_len")
+        logps = self.async_engine.run_on_engine(
+            lambda eng: eng.choice_logprobs(prompt_ids, choice_ids))
+        if sampling.temperature <= 0.0:
+            idx = int(np.argmax(logps))
+        else:
+            z = np.asarray(logps, np.float64) / sampling.temperature
+            p = np.exp(z - z.max())
+            p /= p.sum()
+            idx = int(np.random.default_rng(sampling.seed).choice(len(p),
+                                                                  p=p))
+        text = guided[idx]
+        usage = {"prompt_tokens": len(prompt_ids),
+                 "completion_tokens": len(choice_ids[idx]),
+                 "total_tokens": len(prompt_ids) + len(choice_ids[idx])}
+        created = int(time.time())
+        if chat:
+            choice = {"index": 0,
+                      "message": {"role": "assistant", "content": text},
+                      "finish_reason": "stop", "logprobs": None}
+        else:
+            choice = {"index": 0, "text": text, "finish_reason": "stop",
+                      "logprobs": None}
+        if not stream:
+            return "json", {
+                "id": rid, "object": ("chat.completion" if chat
+                                      else "text_completion"),
+                "created": created, "model": model, "choices": [choice],
+                "usage": usage}
+        if chat:
+            parts = [{"delta": {"role": "assistant", "content": text},
+                      "index": 0, "finish_reason": None},
+                     {"delta": {}, "index": 0, "finish_reason": "stop"}]
+        else:
+            parts = [{"text": text, "index": 0, "finish_reason": None},
+                     {"text": "", "index": 0, "finish_reason": "stop"}]
+        obj = "chat.completion.chunk" if chat else "text_completion"
+        return "sse", [{"id": rid, "object": obj, "created": created,
+                        "model": model, "choices": [c]} for c in parts]
+
+    def admit(self, body: dict, chat: bool, sampling: SamplingParams,
+              prompt_ids_list: list, rid: str) -> _Admission:
+        """Run what a validated request's ``kv_transfer_params`` ask for
+        before admission (splice a landed push, or pull blocks into the
+        prefix cache), admit its choices, and score an echoed prompt."""
         adapter_slot = self.lora.slot_of(body.get("model", self.model_name))
         n = sampling.n
         nchoices = len(prompt_ids_list) * n
@@ -854,8 +1014,14 @@ class EngineServer:
         except ValueError as e:
             raise BadRequest(str(e)) from None
         n_prompt = sum(len(p) for p in prompt_ids_list)
-        return _Admission(streams, rids, rid, sampling, n_prompt,
-                          prompt_ids_list[0], produce_kv, push, imported)
+        adm = _Admission(streams, rids, rid, sampling, n_prompt,
+                         prompt_ids_list[0], produce_kv, push, imported)
+        if body.get("echo") and not chat:
+            adm.echo_ids = prompt_ids_list
+            adm.echo_lps = [self._prompt_logprobs(p)
+                            if sampling.logprobs is not None else None
+                            for p in prompt_ids_list]
+        return adm
 
     def collect(self, stream, sampling) -> tuple:
         """Drain one choice: (text, n_kept, finish_reason, cached, ids,
@@ -924,6 +1090,15 @@ class EngineServer:
                     choice["logprobs"] = _fmt_chat_logprobs(
                         tk, ids, lps, sampling.logprobs)
             else:
+                if adm.echo_ids is not None:
+                    # the prompt first, with its teacher-forced entries
+                    # (token 0 has no prediction)
+                    p_ids = adm.echo_ids[idx // n]
+                    text = tk.decode(p_ids) + text
+                    if want_lp:
+                        ids = list(p_ids) + list(ids)
+                        lps = ([(None, [])] + adm.echo_lps[idx // n]
+                               + list(lps))
                 choice = {"index": idx, "text": text,
                           "finish_reason": finish_reason or "stop",
                           "logprobs": (_fmt_completion_logprobs(
@@ -958,6 +1133,416 @@ class EngineServer:
                     adm.push["transfer_id"]
                 payload["kv_transfer_params"]["pushed"] = pushed
         return payload
+
+    # -- the dense scoring routes ------------------------------------------
+    def _encode_ids(self, text) -> list[int]:
+        """The scoring routes' encoder input: a string is tokenized, a list
+        of ints taken as ids; cut to max_model_len - 1."""
+        tk = self.engine.tokenizer
+        ids = tk.encode(text) if isinstance(text, str) else list(text)
+        return ids[: self.config.model.max_model_len - 1]
+
+    def _embed(self, ids: list[int]):
+        return self.async_engine.run_on_engine(lambda eng: eng.embed(ids))
+
+    def _pair_scores(self, query, documents) -> tuple[list, int]:
+        """Cosine similarity of pooled hidden states, the /v1/embeddings
+        encoder's, of ``query`` against each document; (scores, tokens)."""
+        import numpy as np
+
+        total = 0
+
+        def unit(text):
+            nonlocal total
+            ids = self._encode_ids(text)
+            total += len(ids)
+            v = np.asarray(self._embed(ids), np.float32)
+            return v / max(float(np.linalg.norm(v)), 1e-9)
+
+        q = unit(query)
+        return [float(q @ unit(d)) for d in documents], total
+
+    def score(self, body: dict) -> tuple[int, dict]:
+        """vLLM's /v1/score: text_1 against each text_2 (one query), or
+        pairwise (lists of equal length)."""
+        t1, t2 = body.get("text_1"), body.get("text_2")
+        if t1 is None or t2 is None:
+            return 400, _error("'text_1' and 'text_2' are required", None)
+        queries = t1 if isinstance(t1, list) else [t1]
+        docs = t2 if isinstance(t2, list) else [t2]
+        if not all(isinstance(x, str) for x in queries + docs):
+            return 400, _error("text_1/text_2 must be strings or lists of "
+                               "strings", None)
+        if len(queries) == 1:
+            scores, total = self._pair_scores(queries[0], docs)
+        elif len(queries) == len(docs):
+            scores, total = [], 0
+            for q, d in zip(queries, docs):
+                s, t = self._pair_scores(q, [d])
+                scores.append(s[0])
+                total += t
+        else:
+            return 400, _error("text_1 list must have length 1 or match "
+                               "text_2", None)
+        return 200, {
+            "id": f"score-{uuid.uuid4().hex[:16]}", "object": "list",
+            "model": body.get("model", self.model_name),
+            "data": [{"object": "score", "index": i, "score": s}
+                     for i, s in enumerate(scores)],
+            "usage": {"total_tokens": total}}
+
+    def rerank(self, body: dict) -> tuple[int, dict]:
+        """Jina/Cohere rerank: documents (strings or {"text"} objects)
+        ordered by their score against the query, ``top_n`` of them."""
+        query, documents = body.get("query"), body.get("documents")
+        if not query or not isinstance(documents, list) or not documents:
+            return 400, _error("'query' and a non-empty 'documents' list are "
+                               "required", None)
+        texts = [d.get("text") if isinstance(d, dict) else d
+                 for d in documents]
+        if not all(isinstance(t, str) for t in texts):
+            return 400, _error("documents must be strings or objects with "
+                               "a 'text' field", None)
+        try:
+            top_n = int(body.get("top_n") or len(texts))
+        except (TypeError, ValueError):
+            return 400, _error("'top_n' must be an integer", None)
+        if top_n < 1:
+            return 400, _error("'top_n' must be >= 1", None)
+        scores, total = self._pair_scores(query, texts)
+        order = sorted(range(len(texts)), key=lambda i: -scores[i])
+        keep = body.get("return_documents", True)
+        return 200, {
+            "id": f"rerank-{uuid.uuid4().hex[:16]}",
+            "model": body.get("model", self.model_name),
+            "results": [{"index": i, "relevance_score": scores[i],
+                         **({"document": {"text": texts[i]}} if keep
+                            else {})}
+                        for i in order[:top_n]],
+            "usage": {"total_tokens": total}}
+
+    def _embed_batch(self, body: dict, item_of) -> tuple[int, dict]:
+        """/v1/embeddings and /pooling: ``input`` as str | [str, ...] |
+        [int, ...] | [[int, ...], ...], each prompt mean-pooled, each item
+        ``item_of(index, vector)``."""
+        inputs = body.get("input")
+        if inputs is None:
+            return 400, _error("'input' is required", None)
+        if isinstance(inputs, str):
+            inputs = [inputs]
+        elif (isinstance(inputs, list) and inputs
+              and isinstance(inputs[0], int)):
+            inputs = [inputs]  # one pre-tokenized prompt
+        if not isinstance(inputs, list) or not all(
+                isinstance(t, str) or (isinstance(t, list) and all(
+                    isinstance(x, int) for x in t)) for t in inputs):
+            return 400, _error("invalid 'input': expected string, token "
+                               "list, or a list thereof")
+        data, total = [], 0
+        for i, text in enumerate(inputs):
+            ids = self._encode_ids(text)
+            total += len(ids)
+            data.append(item_of(i, self._embed(ids)))
+        return 200, {"object": "list",
+                     "model": body.get("model", self.model_name),
+                     "data": data,
+                     "usage": {"prompt_tokens": total,
+                               "total_tokens": total}}
+
+    def embeddings(self, body: dict) -> tuple[int, dict]:
+        return self._embed_batch(body, lambda i, vec: {
+            "object": "embedding", "index": i,
+            "embedding": [float(x) for x in vec]})
+
+    def pooling(self, body: dict) -> tuple[int, dict]:
+        """vLLM's /pooling: the /v1/embeddings vectors under ``data``."""
+        return self._embed_batch(body, lambda i, vec: {
+            "object": "pooling", "index": i,
+            "data": [float(x) for x in vec]})
+
+    # -- the Messages and Responses APIs ------------------------------------
+    def _admit_one(self, rid: str, prompt_ids: list, sampling, model):
+        try:
+            stream, = self.async_engine.admit_batch(
+                [(rid, prompt_ids, sampling, self.lora.slot_of(model))])
+        except ValueError as e:
+            raise BadRequest(str(e)) from None
+        return stream
+
+    def messages(self, body: dict):
+        """Anthropic's Messages API over the chat path: ``system``,
+        ``messages`` (text blocks joined), ``stop_sequences``. Returns
+        (status, JSON body) or (200, SSE bytes generator) with the
+        reference's events: message_start, content_block_start,
+        content_block_delta..., content_block_stop, message_delta,
+        message_stop. The stream holds no text back for stop strings, as
+        the reference's does not."""
+        msgs = body.get("messages")
+        if not msgs:
+            return 400, _error("'messages' is required", None)
+        chat = []
+        if body.get("system"):
+            chat.append({"role": "system", "content": body["system"]})
+        for m in msgs:
+            content = m.get("content")
+            if isinstance(content, list):
+                content = "".join(b.get("text", "") for b in content
+                                  if b.get("type") == "text")
+            chat.append({"role": m.get("role", "user"), "content": content})
+        prompt_ids = self.engine.tokenizer.encode(self.render_chat(chat))
+        if body.get("stop_sequences"):
+            body = dict(body, stop=body["stop_sequences"])
+        try:
+            sampling = _sampling_from_body(body)
+            make_token_controls(sampling, self.config.model.vocab_size)
+        except (TypeError, ValueError) as e:
+            return 400, _error(f"invalid sampling parameter: {e}", None)
+        rid = f"msg_{uuid.uuid4().hex[:24]}"
+        if len(prompt_ids) > self.config.model.max_model_len - 1:
+            return 400, _error("prompt too long", None)
+        model = body.get("model", self.model_name)
+        stream = self._admit_one(rid, prompt_ids, sampling,
+                                 body.get("model", ""))
+        if body.get("stream"):
+            return 200, self._message_events(stream, rid, model, prompt_ids,
+                                             sampling)
+        tk = self.engine.tokenizer
+        token_ids: list[int] = []
+        finish, text = "end_turn", ""
+        try:
+            for out in stream:
+                token_ids.extend(out.new_token_ids)
+                text = tk.decode(token_ids)
+                stopped = _check_stop_str(text, sampling)
+                if stopped is not None:
+                    text, finish = stopped, "stop_sequence"
+                    break
+                if out.finished:
+                    finish = ("max_tokens" if out.finish_reason == "length"
+                              else "end_turn")
+        finally:
+            self.async_engine.abort(rid)  # a no-op once finished
+        return 200, {
+            "id": rid, "type": "message", "role": "assistant",
+            "model": model, "content": [{"type": "text", "text": text}],
+            "stop_reason": finish,
+            "usage": {"input_tokens": len(prompt_ids),
+                      "output_tokens": len(token_ids)}}
+
+    def _message_events(self, stream, rid, model, prompt_ids, sampling):
+        tk = self.engine.tokenizer
+        try:
+            yield _sse_event("message_start", {
+                "type": "message_start",
+                "message": {"id": rid, "type": "message",
+                            "role": "assistant", "model": model,
+                            "content": [],
+                            "usage": {"input_tokens": len(prompt_ids)}}})
+            yield _sse_event("content_block_start", {
+                "type": "content_block_start", "index": 0,
+                "content_block": {"type": "text", "text": ""}})
+            token_ids: list[int] = []
+            sent = n_out = 0
+            finish = "end_turn"
+            for out in stream:
+                token_ids.extend(out.new_token_ids)
+                n_out = out.num_output_tokens
+                text = tk.decode(token_ids)
+                stopped = _check_stop_str(text, sampling)
+                if stopped is not None:
+                    text, finish = stopped, "stop_sequence"
+                if len(text) > sent:
+                    yield _sse_event("content_block_delta", {
+                        "type": "content_block_delta", "index": 0,
+                        "delta": {"type": "text_delta",
+                                  "text": text[sent:]}})
+                    sent = len(text)
+                if stopped is not None:
+                    break
+                if out.finished:
+                    finish = ("max_tokens" if out.finish_reason == "length"
+                              else "end_turn")
+            yield _sse_event("content_block_stop",
+                             {"type": "content_block_stop", "index": 0})
+            yield _sse_event("message_delta", {
+                "type": "message_delta", "delta": {"stop_reason": finish},
+                "usage": {"output_tokens": n_out}})
+            yield _sse_event("message_stop", {"type": "message_stop"})
+        finally:
+            self.async_engine.abort(rid)
+
+    @staticmethod
+    def _responses_chat(raw, instructions) -> tuple:
+        """(the chat of a Responses ``input``: a string, or message items
+        whose text parts are joined; None) or (None, the 400 body)."""
+        chat = []
+        if instructions:
+            chat.append({"role": "system", "content": instructions})
+        if isinstance(raw, str):
+            chat.append({"role": "user", "content": raw})
+            return chat, None
+        if not isinstance(raw, list):
+            return None, _error("'input' must be a string or list", None)
+        for item in raw:
+            if not isinstance(item, dict):
+                return None, _error("input items must be objects", None)
+            if item.get("type") not in (None, "message"):
+                return None, _error(
+                    f"unsupported input item type {item.get('type')!r}: "
+                    "this engine serves the text modality only")
+            content = item.get("content")
+            if isinstance(content, list):
+                if not all(isinstance(b, dict) for b in content):
+                    return None, _error("content parts must be objects")
+                content = "".join(
+                    b.get("text", "") for b in content
+                    if b.get("type") in ("input_text", "output_text",
+                                         "text"))
+            chat.append({"role": item.get("role", "user"),
+                         "content": content or ""})
+        return chat, None
+
+    def responses(self, body: dict):
+        """OpenAI's Responses API, text only: ``input`` (a string or
+        message items) and ``instructions``, ``max_output_tokens``. Returns
+        (status, JSON body) or (200, SSE bytes generator) with the
+        reference's events: response.created, response.output_item.added,
+        response.output_text.delta..., response.output_text.done,
+        response.completed. The stream holds back enough trailing text that
+        no stop string's prefix is sent, and usage counts only the tokens
+        the kept text covers."""
+        raw = body.get("input")
+        if raw is None:
+            return 400, _error("'input' is required", None)
+        chat, err = self._responses_chat(raw, body.get("instructions"))
+        if err is not None:
+            return 400, err
+        prompt_ids = self.engine.tokenizer.encode(self.render_chat(chat))
+        if len(prompt_ids) > self.config.model.max_model_len - 1:
+            return 400, _error("input too long", None)
+        if body.get("max_output_tokens") is not None:
+            body = dict(body, max_tokens=body["max_output_tokens"])
+        try:
+            sampling = _sampling_from_body(body)
+            make_token_controls(sampling, self.config.model.vocab_size)
+        except (TypeError, ValueError) as e:
+            return 400, _error(f"invalid sampling parameter: {e}")
+        rid = f"resp_{uuid.uuid4().hex[:24]}"
+        msg_id = f"msg_{uuid.uuid4().hex[:24]}"
+        created = int(time.time())
+        model = body.get("model", self.model_name)
+        stream = self._admit_one(rid, prompt_ids, sampling,
+                                 body.get("model", ""))
+
+        def response_obj(status, text, n_out, incomplete=None):
+            return {
+                "id": rid, "object": "response", "created_at": created,
+                "status": status, "model": model, "error": None,
+                "incomplete_details": incomplete,
+                "instructions": body.get("instructions"),
+                "max_output_tokens": body.get("max_output_tokens"),
+                "output": [{
+                    "type": "message", "id": msg_id, "status": status,
+                    "role": "assistant",
+                    "content": [{"type": "output_text", "text": text,
+                                 "annotations": []}]}],
+                "temperature": sampling.temperature,
+                "top_p": sampling.top_p,
+                "usage": {"input_tokens": len(prompt_ids),
+                          "output_tokens": n_out,
+                          "total_tokens": len(prompt_ids) + n_out}}
+
+        if body.get("stream"):
+            return 200, self._response_events(stream, rid, msg_id, sampling,
+                                              response_obj)
+        tk = self.engine.tokenizer
+        token_ids: list[int] = []
+        text, incomplete, n_out = "", None, 0
+        try:
+            for out in stream:
+                token_ids.extend(out.new_token_ids)
+                text = tk.decode(token_ids)
+                stopped = _check_stop_str(text, sampling)
+                if stopped is not None:
+                    text = stopped
+                    n_out = _tokens_covering(tk, token_ids, len(stopped))
+                    break
+                n_out = len(token_ids)
+                if out.finished and out.finish_reason == "length":
+                    incomplete = {"reason": "max_output_tokens"}
+        finally:
+            self.async_engine.abort(rid)
+        return 200, response_obj("incomplete" if incomplete else "completed",
+                                 text, n_out, incomplete)
+
+    def _response_events(self, stream, rid, msg_id, sampling, response_obj):
+        tk = self.engine.tokenizer
+        seq = 0
+
+        def ev(name, payload):
+            nonlocal seq
+            payload = dict(payload, type=name, sequence_number=seq)
+            seq += 1
+            return _sse_event(name, payload)
+
+        try:
+            yield ev("response.created",
+                     {"response": response_obj("in_progress", "", 0)})
+            yield ev("response.output_item.added", {
+                "output_index": 0,
+                "item": {"type": "message", "id": msg_id,
+                         "status": "in_progress", "role": "assistant",
+                         "content": []}})
+            # a stop string can span steps: never send a prefix of one
+            holdback = max((len(s) for s in sampling.stop), default=1) - 1
+            token_ids: list[int] = []
+            sent = n_out = 0
+            text, incomplete, hit_stop = "", None, False
+            for out in stream:
+                token_ids.extend(out.new_token_ids)
+                text = tk.decode(token_ids)
+                stopped = _check_stop_str(text, sampling)
+                if stopped is not None:
+                    text = stopped
+                    n_out = _tokens_covering(tk, token_ids, len(stopped))
+                    hit_stop = True
+                else:
+                    n_out = len(token_ids)
+                done = out.finished or hit_stop
+                limit = (len(text) if done or not holdback
+                         else max(sent, len(text) - holdback))
+                if limit > sent:
+                    yield ev("response.output_text.delta", {
+                        "item_id": msg_id, "output_index": 0,
+                        "content_index": 0, "delta": text[sent:limit]})
+                    sent = limit
+                if hit_stop:
+                    break
+                if out.finished and out.finish_reason == "length":
+                    incomplete = {"reason": "max_output_tokens"}
+            yield ev("response.output_text.done", {
+                "item_id": msg_id, "output_index": 0, "content_index": 0,
+                "text": text})
+            yield ev("response.completed", {"response": response_obj(
+                "incomplete" if incomplete else "completed", text, n_out,
+                incomplete)})
+        finally:
+            self.async_engine.abort(rid)
+
+    # -- sleep mode ----------------------------------------------------------
+    def sleep(self, query: dict) -> tuple[int, dict]:
+        """``POST /sleep?level=``: 1 drops the KV pool, 2 the weights too;
+        409 while requests are in flight."""
+        level = int(query.get("level", ["1"])[0])
+        try:
+            self.async_engine.sleep(level)
+        except RuntimeError as e:
+            return 409, _error(str(e), None)
+        return 200, {"status": "sleeping", "level": level}
+
+    def wake_up(self, body: dict) -> tuple[int, dict]:
+        self.async_engine.wake_up()
+        return 200, {"status": "awake"}
 
     # -- the KV plane (P->D disaggregation; engine/kv_transfer.py) ----------
     def _kv_shape(self, n_blocks: int) -> tuple:
@@ -1376,29 +1961,46 @@ class EngineServer:
                     status, payload = server.debug_canary(
                         urllib.parse.parse_qs(url.query))
                     self._send_json(payload, status)
+                elif url.path == "/is_sleeping":
+                    self._send_json(
+                        {"is_sleeping": server.async_engine.is_sleeping})
                 else:
                     self._send_json(_error("not found", "not_found"), 404)
 
             def do_POST(self):  # noqa: N802 (http.server API)
+                url = urllib.parse.urlsplit(self.path)
                 routes = {"/v1/load_lora_adapter": server.load_lora,
                           "/v1/unload_lora_adapter": server.unload_lora,
                           "/drain": server.drain,
                           "/tokenize": server.tokenize,
                           "/detokenize": server.detokenize,
                           "/kv/lookup": server.kv_lookup,
-                          "/debug/profile": server.profile}
-                path = urllib.parse.urlsplit(self.path).path
+                          "/debug/profile": server.profile,
+                          "/v1/embeddings": server.embeddings,
+                          "/pooling": server.pooling,
+                          "/v1/score": server.score,
+                          "/v1/rerank": server.rerank,
+                          "/rerank": server.rerank,
+                          "/sleep": lambda body: server.sleep(
+                              urllib.parse.parse_qs(url.query)),
+                          "/wake_up": server.wake_up}
+                # generation: admitted, counted in flight while draining
+                generate = {"/v1/completions": None,
+                            "/v1/chat/completions": None,
+                            "/v1/messages": server.messages,
+                            "/v1/responses": server.responses}
+                path = url.path
                 if path == "/kv/recv":
                     self._kv_recv()
                     return
-                generate = path in ("/v1/completions", "/v1/chat/completions")
-                if (not generate and path not in routes
+                if (path not in generate and path not in routes
                         and path != "/kv/export"):
                     self._send_json(_error("not found", "not_found"), 404)
                     return
                 length = int(self.headers.get("Content-Length") or 0)
                 raw = self.rfile.read(length)
-                if server.draining and path.startswith("/v1/"):
+                if server.draining and (path.startswith("/v1/") or path in (
+                        "/pooling", "/rerank")):
                     # live streams keep running; infra routes stay up
                     server._drain_rejected += 1
                     self._send_json(
@@ -1417,8 +2019,13 @@ class EngineServer:
                 if path == "/kv/export":
                     server.kv_export(body, self)
                     return
-                if not generate:
-                    status, payload = routes[path](body)
+                if path not in generate:
+                    try:
+                        status, payload = routes[path](body)
+                    except Exception as e:  # aiohttp's answer to a fault
+                        _log.exception("POST %s failed", path)
+                        self._send_json(_error(str(e), "server_error"), 500)
+                        return
                     if isinstance(payload, bytes):
                         self._send_bytes(payload, "application/gzip", status)
                     else:
@@ -1427,7 +2034,10 @@ class EngineServer:
                 with server._inflight_lock:
                     server._inflight += 1
                 try:
-                    self._generate(body, path == "/v1/chat/completions")
+                    if generate[path] is None:
+                        self._generate(body, path == "/v1/chat/completions")
+                    else:
+                        self._api(generate[path], body)
                 finally:
                     with server._inflight_lock:
                         server._inflight -= 1
@@ -1450,11 +2060,55 @@ class EngineServer:
                     self.close_connection = True
                 self._send_json(payload, status)
 
+            def _api(self, route, body: dict) -> None:
+                """The Messages or Responses API: a JSON body, or an SSE
+                stream of named events."""
+                try:
+                    status, payload = route(body)
+                except BadRequest as e:
+                    self._send_json(_error(str(e)), 400)
+                    return
+                except SchedulerQueueFull as e:
+                    self._send_json(
+                        _error(str(e), "rate_limit_error"), 429,
+                        {"Retry-After": f"{server.overload_retry_after:g}"})
+                    return
+                except Exception as e:  # aiohttp's answer to a fault
+                    _log.exception("POST %s failed", self.path)
+                    self._send_json(_error(str(e), "server_error"), 500)
+                    return
+                if isinstance(payload, dict):
+                    self._send_json(payload, status)
+                    return
+                self._begin_sse({})
+                try:
+                    for event in payload:
+                        self._write_chunk(event)
+                except (BrokenPipeError, ConnectionResetError):
+                    self.close_connection = True
+                    return
+                finally:
+                    payload.close()  # its abort runs on every exit
+                self.wfile.write(b"0\r\n\r\n")
+                self.wfile.flush()
+
+            def _begin_sse(self, headers: dict) -> None:
+                self.send_response(200)
+                self.send_header("Content-Type", "text/event-stream")
+                self.send_header("Cache-Control", "no-cache")
+                self.send_header("Transfer-Encoding", "chunked")
+                for k, v in headers.items():
+                    self.send_header(k, v)
+                self.end_headers()
+
             def _generate(self, body: dict, chat: bool) -> None:
                 retry_after = {"Retry-After":
                                f"{server.overload_retry_after:g}"}
                 try:
-                    adm = server.admit(body, chat)
+                    request = server.validate(body, chat)
+                    direct = server.scored(body, chat, *request)
+                    if direct is None:
+                        adm = server.admit(body, chat, *request)
                 except BadRequest as e:
                     self._send_json(_error(str(e)), 400)
                     return
@@ -1467,6 +2121,9 @@ class EngineServer:
                         "all guided-decoding grammar slots are in use; retry "
                         "when in-flight guided requests finish",
                         "rate_limit_error"), 429, retry_after)
+                    return
+                if direct is not None:
+                    self._scored(direct, request[2])
                     return
                 model = body.get("model", server.model_name)
                 xrid = self.headers.get("x-request-id") or adm.rid
@@ -1485,14 +2142,27 @@ class EngineServer:
                     for r in adm.rids:  # a no-op for finished requests
                         server.async_engine.abort(r)
 
+            def _scored(self, direct: tuple, rid: str) -> None:
+                """A response the scoring pass answered alone (echo with
+                max_tokens 0, guided_choice), as JSON or SSE."""
+                kind, payload = direct
+                if kind == "json":
+                    self._send_json(payload, headers={"X-Request-Id": rid})
+                    return
+                self._begin_sse({"X-Request-Id": rid})
+                try:
+                    for chunk in payload:
+                        self._write_chunk(
+                            f"data: {json.dumps(chunk)}\n\n".encode())
+                    self._write_chunk(b"data: [DONE]\n\n")
+                    self.wfile.write(b"0\r\n\r\n")
+                    self.wfile.flush()
+                except (BrokenPipeError, ConnectionResetError):
+                    self.close_connection = True
+
             def _stream(self, streams, rid, model, chat, sampling, n_prompt,
                         include_usage, xrid) -> None:
-                self.send_response(200)
-                self.send_header("Content-Type", "text/event-stream")
-                self.send_header("Cache-Control", "no-cache")
-                self.send_header("Transfer-Encoding", "chunked")
-                self.send_header("X-Request-Id", xrid)
-                self.end_headers()
+                self._begin_sse({"X-Request-Id": xrid})
                 try:
                     for payload in server.stream_events(
                             streams, rid, model, chat, sampling, n_prompt,

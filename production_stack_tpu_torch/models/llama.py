@@ -126,6 +126,22 @@ def _mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor, lb=None,
     return out
 
 
+def _mlp_chunked(cfg: ModelConfig, lp: dict, x: torch.Tensor,
+                 tokens: Optional[int], rows: int) -> torch.Tensor:
+    """The MLP of ``x (..., T, E)`` a chunk of ``rows`` rows at a time.
+    A dense MLP is row by row, so this is ``_mlp``'s value. A MoE block
+    takes its capacity from ``tokens``, the reference's whole call, and
+    ranks slots within the chunk: it drops a slot only where the
+    reference's call drops one too."""
+    flat = x.reshape(-1, x.shape[-1])
+    if flat.shape[0] <= rows:
+        return _mlp(cfg, lp, x, tokens=tokens)
+    out = torch.empty_like(flat)
+    for r0 in range(0, flat.shape[0], rows):
+        out[r0:r0 + rows] = _mlp(cfg, lp, flat[r0:r0 + rows], tokens=tokens)
+    return out.view(x.shape)
+
+
 def top_k_lower_first(logits: torch.Tensor, k: int):
     """Top-k along the last dim keeping the lower index on a tie, as
     ``lax.top_k`` does: a stable descending sort."""
@@ -232,6 +248,7 @@ def forward_hidden(
     kv_pool: Any = None,
     lora: Optional[dict] = None,
     ref_tokens: Optional[int] = None,
+    mlp_rows: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Any]:
     """Run the decoder stack from embedded activations.
 
@@ -241,7 +258,9 @@ def forward_hidden(
     ``{"onehot": (..., T, N), "bank": {target: (A (L, in, N, R), B (L, N,
     R, *out))}}`` (engine/model_runner.py ``register_lora``).
     ``ref_tokens`` is the token count of the reference's same call (module
-    docstring); None means the rows of ``x``.
+    docstring); None means the rows of ``x``. ``mlp_rows`` runs the MLP
+    over chunks of that many rows without LoRA (the dense scoring
+    forward's memory bound; None: all rows at once).
     Returns (hidden (..., T, E), kv_pool)."""
     layers = params["layers"]
     onehot = None if lora is None else lora["onehot"]
@@ -287,8 +306,11 @@ def forward_hidden(
         if cfg.post_norms:
             o = rms_norm(o, lp["post_attn_norm"], eps, off)
         h = h + o
-        mlp_out = _mlp(cfg, lp, rms_norm(h, lp["mlp_norm"], eps, off), lb,
-                       onehot, ref_tokens)
+        mlp_in = rms_norm(h, lp["mlp_norm"], eps, off)
+        if mlp_rows is None or lb is not None:
+            mlp_out = _mlp(cfg, lp, mlp_in, lb, onehot, ref_tokens)
+        else:
+            mlp_out = _mlp_chunked(cfg, lp, mlp_in, ref_tokens, mlp_rows)
         if cfg.post_norms:
             mlp_out = rms_norm(mlp_out, lp["post_mlp_norm"], eps, off)
         h = h + mlp_out
@@ -304,23 +326,28 @@ def forward_tokens(
     kv_pool: Any = None,
     lora: Optional[dict] = None,
     ref_tokens: Optional[int] = None,
+    mlp_rows: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Any]:
     """Embed tokens, then run the decoder stack (see forward_hidden)."""
     x = embed_tokens(cfg, params, tokens)
     return forward_hidden(cfg, params, x, positions, attend, kv_pool, lora,
-                          ref_tokens)
+                          ref_tokens, mlp_rows)
 
 
 def logits_from_hidden(cfg: ModelConfig, params: dict,
-                       hidden: torch.Tensor) -> torch.Tensor:
-    """Final norm and LM head; float32 logits (..., T, V)."""
+                       hidden: torch.Tensor,
+                       tokens: Optional[int] = None) -> torch.Tensor:
+    """Final norm and LM head; float32 logits (..., T, V). ``tokens`` is
+    the reference's row count for the head's int8 route (None: the rows
+    of ``hidden``)."""
     hidden = rms_norm(hidden, params["final_norm"], cfg.rms_norm_eps,
                       cfg.norm_offset)
     head = (quant.head_from_embed(params["embed"]) if cfg.tie_word_embeddings
             else params["lm_head"])
     if not quant.is_quantized(head):
         head = head.to(cfg.torch_dtype)
-    logits = quant.quant_matmul(hidden, head, out_dtype=torch.float32)
+    logits = quant.quant_matmul(hidden, head, out_dtype=torch.float32,
+                                tokens=tokens)
     if cfg.final_logit_softcap:  # Gemma-2
         cap = cfg.final_logit_softcap
         logits = cap * torch.tanh(logits / cap)

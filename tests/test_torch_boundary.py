@@ -13,7 +13,9 @@ model with its MoE block) load neither JAX nor the ``safetensors``
 package, which the card's machine also lacks. The KV plane (the transfer
 frames, the host and remote tiers, the remote KV server, and the engine
 and server that drive them) loads none of JAX, ``aiohttp``, ``requests``
-or ``prometheus_client``.
+or ``prometheus_client``. The dense scoring path (the attention op, the
+runner and the engine that pad and run it) loads neither JAX nor the JAX
+package's attention module it ports.
 """
 
 import ast
@@ -185,3 +187,29 @@ def test_kv_bad_matches_whole_names_only():
     assert _kv_bad("aiohttp.web") and _kv_bad("production_stack_tpu.kv_server")
     assert not _kv_bad("requests_toolbelt_like") and not _kv_bad(
         "production_stack_tpu_torch.kv_server")
+
+
+SCORING = ("production_stack_tpu_torch.ops.attention",
+           "production_stack_tpu_torch.engine.model_runner",
+           "production_stack_tpu_torch.engine.engine")
+
+
+def test_scoring_path_loads_no_jax():
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {SCORING!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(SCORING) <= set(mods)
+    assert [m for m in mods if forbidden(m)] == []
+
+
+@pytest.mark.parametrize("module", SCORING)
+def test_scoring_static_imports(module):
+    path = ROOT / (module.replace(".", "/") + ".py")
+    bad = [m for m in _imports(path) if forbidden(m)]
+    assert bad == [], f"{path.name} imports {bad}"

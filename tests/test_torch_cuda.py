@@ -624,3 +624,59 @@ def test_kv_export_import_round_trip_is_bitwise(cuda):
     slabs = runner.export_slabs(src)
     assert all(torch.equal(s.view(torch.int16), want[:, i].view(torch.int16))
                for i, s in enumerate(slabs))
+
+
+@pytest.mark.parametrize("soft_cap", [0.0, 30.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_attention_on_card_matches_cpu(cuda, dtype, soft_cap):
+    """The scoring path's dense attention (plain PyTorch on either
+    device): on the card against its CPU run on the same inputs, and query
+    blocks of 7 against one block of all 96 queries on the card. float32
+    within 1e-5; bf16 within one bf16 step of the output (both round once
+    from float32)."""
+    from production_stack_tpu_torch.ops.attention import (
+        dense_causal_attention,
+    )
+
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 96, 8, 64, generator=g).to(dtype)
+    k = torch.randn(2, 96, 2, 64, generator=g).to(dtype)
+    v = torch.randn(2, 96, 2, 64, generator=g).to(dtype)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    want = dense_causal_attention(q, k, v, soft_cap=soft_cap)
+    whole = dense_causal_attention(q.cuda(), k.cuda(), v.cuda(),
+                                   soft_cap=soft_cap)
+    blocked = dense_causal_attention(q.cuda(), k.cuda(), v.cuda(),
+                                     soft_cap=soft_cap, q_block=7)
+    assert blocked.dtype == dtype and blocked.device.type == "cuda"
+    for got in (whole, blocked):
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   atol=tol[0], rtol=tol[1])
+    torch.testing.assert_close(blocked.float(), whole.float(), atol=tol[0],
+                               rtol=tol[1])
+
+
+def test_scoring_engine_on_card_matches_cpu(cuda):
+    """float32 tiny-llama's embed, choice_logprobs and prompt_logprobs on
+    the card equal the CPU engine's on the same weights within 1e-4."""
+    from production_stack_tpu_torch.engine.config import (
+        CacheConfig,
+        EngineConfig,
+    )
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.weights import to_device
+
+    cfg = EngineConfig.for_model("tiny-llama", cache=CacheConfig(
+        num_blocks=64))
+    cpu = LLMEngine(cfg, device="cpu")
+    card = LLMEngine(cfg, params=to_device(cpu.runner.params, "cuda"),
+                     device="cuda")
+    ids = list(range(3, 140))
+    np.testing.assert_allclose(card.embed(ids), cpu.embed(ids), atol=1e-4,
+                               rtol=1e-4)
+    choices = [[10, 11], [12], [13, 14, 15]]
+    np.testing.assert_allclose(card.choice_logprobs(ids, choices),
+                               cpu.choice_logprobs(ids, choices), atol=1e-4)
+    a, b = card.prompt_logprobs(ids), cpu.prompt_logprobs(ids)
+    np.testing.assert_allclose([x[0] for x in a], [x[0] for x in b],
+                               atol=1e-4)

@@ -11,9 +11,11 @@ package's, on the CPU.
   its schema; a pattern with nothing after a full match finishes by stop
   at its accepting state; the unguided row equals its solo run.
 - The server (``device="cpu"``) takes both fields and answers 400 to an
-  invalid grammar, to both fields at once and to ``guided_choice`` or
-  ``echo``, and 429 when the grammar bank is full (a cached grammar still
-  passes).
+  invalid grammar, to both fields at once, to ``guided_choice`` beside a
+  grammar and to the reference's own ``echo`` and ``guided_choice``
+  refusals (echo streamed or beside ``guided_choice``, ``guided_choice``
+  with n = 2 or 65 choices), and 429 when the grammar bank is full (a
+  cached grammar still passes).
 """
 
 import dataclasses
@@ -134,7 +136,10 @@ def test_server_guided_fields_400_and_429(weights):
         for bad in ({"guided_regex": "(unclosed"},
                     {"guided_regex": "a", "guided_json": SCHEMA},
                     {"guided_regex": "a", "guided_choice": ["b"]},
-                    {"guided_choice": ["b"]}, {"echo": True},
+                    {"echo": True, "stream": True},
+                    {"echo": True, "guided_choice": ["b"]},
+                    {"guided_choice": ["b", "c"], "n": 2},
+                    {"guided_choice": [f"c{i}" for i in range(65)]},
                     {"guided_json": {"type": "object", "properties": {}}},
                     {"guided_regex": 5}):
             status, out = http_json(f"{url}/v1/completions",

@@ -4,7 +4,11 @@ The port's server (tiny-llama, ``device="cpu"``) listens on a free port
 from a background thread; the router of the JAX package runs as an
 aiohttp test server in front of it, as in tests/test_router_e2e.py. The
 router's stats scraper reads the port's /metrics, and its discovery reads
-the port's /ready (draining after ``POST /drain``).
+the port's /ready (draining after ``POST /drain``). With the router reading
+the port's model card, ``/v1/embeddings``, ``/v1/rerank``,
+``/v1/messages`` and ``/v1/responses`` reach the port and answer as it
+does directly, and ``/sleep``, ``/is_sleeping`` and ``/wake_up`` with
+``?url=`` reach it too.
 """
 
 import asyncio
@@ -192,3 +196,72 @@ def test_discovery_sees_a_draining_port():
         asyncio.run(main())
     finally:
         server.shutdown()
+
+
+def _stable(obj):
+    """A response body without its random ids and clock stamps."""
+    if isinstance(obj, dict):
+        return {k: _stable(v) for k, v in obj.items()
+                if k not in ("id", "created", "created_at")}
+    if isinstance(obj, list):
+        return [_stable(v) for v in obj]
+    return obj
+
+
+def test_scoring_messages_responses_and_sleep_through_router(engine_url):
+    requests = [
+        ("/v1/embeddings", {"model": "tiny-llama", "input": ["a", "bc"]}),
+        ("/v1/rerank", {"model": "tiny-llama", "query": "a cat",
+                        "documents": ["a dog", "a cat", "stocks"]}),
+        ("/v1/messages", {"model": "tiny-llama", "max_tokens": 5,
+                          "temperature": 0, "ignore_eos": True,
+                          "messages": [{"role": "user", "content": "hi"}]}),
+        ("/v1/responses", {"model": "tiny-llama", "input": "hi",
+                           "max_output_tokens": 5, "temperature": 0,
+                           "ignore_eos": True}),
+    ]
+    direct = [json.loads(_post(f"{engine_url}{p}", b)[1])
+              for p, b in requests]
+
+    async def main():
+        from aiohttp.test_utils import TestClient, TestServer
+
+        from production_stack_tpu.router.service_discovery import (
+            get_service_discovery,
+        )
+
+        args = build_parser().parse_args([
+            "--service-discovery", "static",
+            "--static-backends", engine_url,
+            "--static-models", "tiny-llama",
+            "--static-query-models",
+            "--health-check-interval", "0.1",
+        ])
+        client = TestClient(TestServer(RouterApp(args).build_app()))
+        await client.start_server()
+        try:
+            disc = get_service_discovery()
+            deadline = time.monotonic() + 10.0
+            while (time.monotonic() < deadline
+                   and disc.get_endpoint_info()[0].capabilities is None):
+                await asyncio.sleep(0.05)
+            caps = disc.get_endpoint_info()[0].capabilities
+            assert {"embeddings", "rerank", "messages", "responses"} <= caps
+            for (path, body), want in zip(requests, direct):
+                r = await client.post(path, json=body)
+                assert r.status == 200, (path, await r.text())
+                assert _stable(await r.json()) == _stable(want), path
+            q = {"url": engine_url}
+            r = await client.post("/sleep", params=q)
+            assert (await r.json()) == {
+                engine_url: {"status": "sleeping", "level": 1}}
+            r = await client.get("/is_sleeping", params=q)
+            assert (await r.json()) == {engine_url: {"is_sleeping": True}}
+            r = await client.post("/wake_up", params=q)
+            assert (await r.json()) == {engine_url: {"status": "awake"}}
+            r = await client.get("/is_sleeping", params=q)
+            assert (await r.json()) == {engine_url: {"is_sleeping": False}}
+        finally:
+            await client.close()
+
+    asyncio.run(main())
