@@ -154,11 +154,34 @@ fatal):
    frees >= 0.95 of the pool's bytes (``mem_get_info``), level 2 the pool
    and the weights; after each ``/wake_up`` (a)'s first request gives its
    tokens. K1, K2 and K3 launch, K4 not.
+11. Whisper (``whisper``): (a) float32 tiny-whisper, the same weights on
+   the card and on the CPU: a 440 Hz tone at 8 kHz, noise at 44.1 kHz
+   stereo and silence, each transcribed with language detection,
+   translated, in timestamp mode and with a prompt; tokens equal up to
+   printed near-ties (``TIE_GAP``), the language equal, no_speech_prob and
+   logprobs within 1e-4. (b) whisper-large-v3-class at full width and
+   depth (32 + 32 layers, E 1280, 128 mels, vocab 51866), seed-0 weights
+   in float32 and cast to bf16: SOT-position logit cosine > 0.99, the
+   encoder output's relative error printed. (c) whisper-large-v3-class in
+   bf16 served over HTTP with ``--max-num-seqs 4``: 8 concurrent requests
+   (5, 12 and 30 s clips at 16 and 44.1 kHz, every response format,
+   transcribe and translate, ``max_tokens`` 64) all 200, verbose_json's
+   segment tokens at most 64 and start <= end, srt and vtt cues ordered;
+   one SSE stream read to ``[DONE]``; one left after its headers: the
+   aborted counter goes up by 1, all 4 admission slots are free, and a
+   burst of 4 completes; a bad language answers 400 before any device
+   work, ``/v1/completions`` 404, ``/v1/models`` carries the
+   capabilities. (d) on that runner: encode + cross K/V device time of a
+   30 s clip (CUDA events; traced: kernels and device time by class)
+   beside its FLOP bound; a traced 32-token decode chunk (wall and device
+   time a token, kernels a token, idle share) beside its byte bound; the
+   device memory an admitted request holds, and none left once it is
+   closed. K1-K4 launch 0 times: Whisper reaches none of them.
 
 The line before the card line carries the kernels' JSON record, whose
 ``launches`` sum each kernel's launches over every served path (each
-path's own counts are in ``launches_by_path``, ``moe-int8``, ``kv-plane``
-and ``scoring-surface`` among them);
+path's own counts are in ``launches_by_path``, ``moe-int8``, ``kv-plane``,
+``scoring-surface`` and ``whisper`` among them);
 the last line is ``{"ok":
 true, "device": {...}}``.
 """
@@ -172,6 +195,7 @@ import gc
 import json
 import pathlib
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -3528,6 +3552,488 @@ def scoring_phase(torch, np, counters, card: str) -> dict:
     return launches
 
 
+# -- phase 11: Whisper ------------------------------------------------------
+
+WHISPER_CLIPS = ((5.0, 16000), (12.0, 44100), (30.0, 16000), (5.0, 44100),
+                 (12.0, 16000), (30.0, 44100), (5.0, 16000), (12.0, 44100))
+WHISPER_FORMATS = ("json", "text", "verbose_json", "srt", "vtt",
+                   "verbose_json", "srt", "json")
+# "HH:MM:SS,mmm --> HH:MM:SS,mmm" (srt) or with "." (vtt)
+_CUE = re.compile(r"^(\d\d):(\d\d):(\d\d)[,.](\d{3}) --> "
+                  r"(\d\d):(\d\d):(\d\d)[,.](\d{3})$", re.M)
+
+
+def _wav(np, seconds: float, rate: int, kind: str = "tone",
+         channels: int = 1, seed: int = 0) -> bytes:
+    """16-bit PCM WAV bytes from a seed: a 440 Hz tone with a little
+    noise, noise, or silence."""
+    import io
+    import wave
+
+    n = int(rate * seconds)
+    rng = np.random.default_rng(seed)
+    if kind == "tone":
+        x = 0.5 * np.sin(2 * np.pi * 440.0 * np.arange(n) / rate) + \
+            0.05 * rng.standard_normal(n)
+    elif kind == "noise":
+        x = rng.uniform(-0.5, 0.5, n)
+    else:
+        x = np.zeros(n)
+    frames = np.repeat((np.clip(x, -1, 1) * 20000).astype(np.int16)[:, None],
+                       channels, axis=1)
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(channels)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(frames.tobytes())
+    return buf.getvalue()
+
+
+def _form(wav: bytes, **fields) -> tuple:
+    """(multipart body, content type) with a ``file`` part and ``fields``."""
+    b = "chipSmokeBoundary"
+    out = b"".join(
+        f'--{b}\r\nContent-Disposition: form-data; name="{k}"\r\n\r\n'
+        f"{v}\r\n".encode() for k, v in fields.items())
+    out += (f'--{b}\r\nContent-Disposition: form-data; name="file"; '
+            f'filename="clip.wav"\r\nContent-Type: audio/wav\r\n\r\n'
+            ).encode() + wav + f"\r\n--{b}--\r\n".encode()
+    return out, f"multipart/form-data; boundary={b}"
+
+
+def _post_form(port: int, path: str, body: bytes, ctype: str):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", path, body=body,
+                     headers={"Content-Type": ctype})
+        r = conn.getresponse()
+        return r.status, r.getheader("Content-Type") or "", r.read()
+    finally:
+        conn.close()
+
+
+def _whisper_gap(torch, cpu, feats, kw, prefix) -> float:
+    """The CPU run's top-2 logprob gap of the suppressed logits after
+    ``prefix``: how near a tie the step where two runs part was."""
+    from production_stack_tpu_torch.models import whisper as W
+
+    cfg = cpu.cfg
+    ck, cv = cpu._encode(feats)
+    lang = kw.get("language") or cpu._language_of(cpu._sot_logits(ck, cv))
+    ts = kw.get("timestamps", False)
+    toks = cpu._forced_tokens(lang, kw.get("task", "transcribe"),
+                              kw.get("prompt"), timestamps=ts) + prefix
+    logits, _ = W.decode_tokens(cfg, cpu.params, torch.tensor([toks]), [0],
+                                W.init_self_kv(cfg, 1, cfg.max_model_len),
+                                ck, cv, [len(toks)])
+    run = 0
+    for t in prefix:
+        run = run + 1 if t > cfg.notimestamps_id else 0
+    lp = torch.log_softmax(cpu._suppress(
+        logits[0, -1], sum(t < cfg.eot_id for t in prefix), ts,
+        max([t for t in prefix if t > cfg.notimestamps_id], default=0),
+        run), -1)
+    top = lp.topk(2).values
+    return float(top[0] - top[1])
+
+
+def _whisper_card_vs_cpu(torch, np) -> dict:
+    """(a) float32 tiny-whisper, the same weights on the card and on the
+    CPU: three clips, each transcribed with language detection,
+    translated, in timestamp mode and with a prompt. Tokens equal up to
+    printed near-ties, the language equal, no_speech_prob within 1e-4."""
+    from production_stack_tpu_torch.engine import audio
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.weights import to_device
+    from production_stack_tpu_torch.engine.whisper_runner import (
+        WhisperRunner,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = EngineConfig.for_model("tiny-whisper")
+    cpu = WhisperRunner(cfg, device="cpu")
+    card = WhisperRunner(cfg, device="cuda",
+                         params=to_device(cpu.params, "cuda"))
+    clips = {"tone-8k": _wav(np, 0.5, 8000, seed=1),
+             "noise-44.1k-stereo": _wav(np, 0.7, 44100, "noise", 2, seed=2),
+             "silence-16k": _wav(np, 0.3, 16000, "silence")}
+    modes = {"detect": {}, "translate": dict(language="en",
+                                             task="translate"),
+             "timestamps": dict(language="en", timestamps=True),
+             "prompt": dict(language="en", prompt="a conditioning prompt")}
+    tokens, ties, worst_nsp, worst_lp = 0, [], 0.0, 0.0
+    for clip, wav in clips.items():
+        feats = audio.wav_to_features(wav, cfg.model.num_mel_bins,
+                                      cpu.chunk_frames)[0]
+        for mode, kw in modes.items():
+            want_info, got_info = {}, {}
+            want = cpu.transcribe(feats, info=want_info, **kw)
+            got = card.transcribe(feats, info=got_info, **kw)
+            n = len(want)
+            for i, (a, b) in enumerate(zip(want, got)):
+                if a != b:
+                    gap = _whisper_gap(torch, cpu, feats, kw, want[:i])
+                    ties.append({"clip": clip, "mode": mode, "step": i,
+                                 "cpu": a, "card": b, "gap": gap})
+                    if gap >= TIE_GAP:
+                        raise AssertionError(
+                            f"[whisper] (a) {clip} {mode}: card and CPU "
+                            f"part at step {i} ({a} vs {b}), gap {gap}")
+                    n = i
+                    break
+            else:
+                if got != want:
+                    raise AssertionError(f"[whisper] (a) {clip} {mode}: "
+                                         f"{len(got)} tokens vs {len(want)}")
+            if got_info["language"] != want_info["language"]:
+                raise AssertionError(f"[whisper] (a) {clip}: language "
+                                     f"{got_info['language']} vs "
+                                     f"{want_info['language']}")
+            nsp = abs(got_info["no_speech_prob"]
+                      - want_info["no_speech_prob"])
+            lp = max((abs(x - y) for x, y in zip(
+                got_info["logprobs"][:n], want_info["logprobs"][:n])),
+                default=0.0)
+            if nsp > 1e-4 or lp > 1e-4:
+                raise AssertionError(f"[whisper] (a) {clip} {mode}: "
+                                     f"no_speech_prob off by {nsp}, "
+                                     f"logprob by {lp}")
+            tokens += n
+            worst_nsp, worst_lp = max(worst_nsp, nsp), max(worst_lp, lp)
+    out = {"runs": len(clips) * len(modes), "tokens_compared": tokens,
+           "near_ties": ties, "max_no_speech_prob_diff": worst_nsp,
+           "max_logprob_diff": worst_lp}
+    log(f"[whisper] (a) float32 tiny-whisper, card = CPU: {json.dumps(out)}")
+    return out
+
+
+def _whisper_bf16_vs_f32(torch, np) -> dict:
+    """(b) whisper-large-v3-class, seed-0 weights made in float32 on the
+    card and cast to bf16: the SOT-position logits' cosine (> 0.99) and
+    the encoder output's relative error, on one 12 s clip."""
+    import dataclasses
+
+    from production_stack_tpu_torch.engine import audio
+    from production_stack_tpu_torch.engine.config import ModelConfig
+    from production_stack_tpu_torch.engine.weights import init_random
+    from production_stack_tpu_torch.models import whisper as W
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = ModelConfig.from_pretrained("whisper-large-v3-class",
+                                        dtype="float32")
+    cfg16 = dataclasses.replace(cfg32, dtype="bfloat16")
+    p32 = init_random(cfg32, seed=0, device="cuda")
+
+    def cast(tree):
+        return {k: cast(v) if isinstance(v, dict) else v.bfloat16()
+                for k, v in tree.items()}
+
+    p16 = cast(p32)
+    feats = audio.wav_to_features(_wav(np, 12.0, 16000, seed=5), 128,
+                                  3000)[0]
+    mel = torch.as_tensor(feats, device="cuda")[None]
+    outs = {}
+    for name, cfg, params in (("f32", cfg32, p32), ("bf16", cfg16, p16)):
+        with torch.no_grad():
+            enc = W.encode(cfg, params, mel)
+            ck, cv = W.cross_kv(cfg, params, enc)
+            toks = torch.tensor([[cfg.sot_id]], device="cuda")
+            logits, _ = W.decode_tokens(
+                cfg, params, toks, [0],
+                W.init_self_kv(cfg, 1, cfg.max_model_len, "cuda"), ck, cv,
+                [1])
+        outs[name] = (enc.float(), logits[0, 0].float())
+        del ck, cv
+    (e32, l32), (e16, l16) = outs["f32"], outs["bf16"]
+    cos = float(torch.nn.functional.cosine_similarity(l32, l16, dim=0))
+    rel = float((e16 - e32).norm() / e32.norm())
+    out = {"sot_logit_cosine": cos, "encoder_rel_err": rel,
+           "argmax_equal": int(l32.argmax()) == int(l16.argmax())}
+    del p32, p16, outs, e32, e16
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[whisper] (b) whisper-large-v3-class bf16 vs float32: "
+        f"{json.dumps(out)}")
+    if not cos > 0.99 or not np.isfinite(rel):
+        raise AssertionError(f"[whisper] (b) bf16 against float32: {out}")
+    return out
+
+
+def _whisper_numbers(torch, np, runner, card: str) -> dict:
+    """(d) on the served runner: encode + cross K/V device time a clip
+    (CUDA events) beside its FLOP bound; a traced 32-token decode chunk
+    (wall and device time a token, kernels a token, idle share) beside
+    its byte bound; device memory an admitted request holds."""
+    from production_stack_tpu_torch.engine import audio
+    from production_stack_tpu_torch.engine import whisper_runner as WR
+
+    cfg = runner.cfg
+    E, F, H, D, L = (cfg.hidden_size, cfg.intermediate_size, cfg.num_heads,
+                     cfg.head_dim, cfg.num_layers)
+    S, T = cfg.n_audio_ctx, 2 * cfg.n_audio_ctx
+    feats = audio.wav_to_features(_wav(np, 30.0, 16000, seed=6),
+                                  cfg.num_mel_bins, runner.chunk_frames)[0]
+    with torch.no_grad():
+        enc_ms = []
+        for _ in range(6):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            ck, cv = runner._encode(feats)
+            end.record()
+            end.synchronize()
+            enc_ms.append(start.elapsed_time(end))
+        enc_ms = statistics.median(enc_ms[1:])
+        enc_wall, enc_busy, enc_cats, enc_kernels, _ = _profiled(
+            torch, lambda: runner._encode(feats))
+        # FLOPs: two convs, the encoder layers (projections, MLP,
+        # attention), every decoder layer's cross K and V
+        enc_flops = (2 * T * 3 * cfg.num_mel_bins * E + 2 * S * 3 * E * E
+                     + cfg.encoder_layers * (8 * S * E * E + 4 * S * E * F
+                                             + 4 * H * S * S * D)
+                     + L * 4 * S * E * E)
+        enc_bound, enc_by = bound(
+            2 * (cfg.encoder_layers * (4 * E * E + 2 * E * F)
+                 + L * 2 * E * E) + 2 * 2 * L * S * E, enc_flops, BF16_FLOPS)
+        forced = runner._forced_tokens("en", "transcribe", None)
+        P = runner._bucket(len(forced))
+        kv, last = runner._dec_prefill(ck, cv, forced + [0] * (P - len(forced)),
+                                       len(forced))
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        st = WR._Decode(kv=kv, logits=last, cur=len(forced), gen=gen)
+        runner._chunk(st, ck, cv, cfg.max_model_len, 0.0, False)  # warm
+        n = WR.DECODE_CHUNK
+        t0 = time.perf_counter()
+        toks, _, _ = runner._chunk(st, ck, cv, st.cur + n + 1, 0.0, False)
+        torch.cuda.synchronize()
+        untraced = (time.perf_counter() - t0) * 1e3 / len(toks)
+        box = {}
+        wall, busy, cats, kernels, _ = _profiled(torch, lambda: box.update(
+            toks=runner._chunk(st, ck, cv, st.cur + n + 1, 0.0, False)[0]))
+        n_tok = len(box["toks"])
+    # bytes a token must read: the decoder's weights the step touches
+    # (self attention, cross Q and O, MLP, the tied head), the cross K/V
+    # and the self K/V up to the context
+    params = L * (6 * E * E + 2 * E * F) + cfg.vocab_size * E
+    dec_bytes = 2 * params + 2 * 2 * L * S * E + 2 * 2 * L * st.cur * E
+    # a product per weight, and attention over the cross and self keys
+    dec_flops = 2 * params + 4 * L * H * D * (S + st.cur)
+    dec_bound, dec_by = bound(dec_bytes, dec_flops, BF16_FLOPS)
+    del ck, cv, kv, last, st
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    stream = runner.transcribe_stream(feats, language="en", max_tokens=40)
+    next(stream)
+    held = torch.cuda.memory_allocated() - base
+    stream.close()
+    gc.collect()
+    left = torch.cuda.memory_allocated() - base
+    want = 2 * 2 * L * S * E + 2 * 2 * L * cfg.max_model_len * E
+    out = {
+        "encode_cross_kv_ms": enc_ms, "encode_bound_ms": enc_bound,
+        "encode_bound_by": enc_by, "encode_tflop": enc_flops / 1e12,
+        "encode_share_of_bound": enc_bound / enc_ms,
+        "encode_traced": {
+            "wall_ms": enc_wall, "kernels": enc_kernels,
+            "device_busy_ms": (enc_busy if enc_busy is not None
+                               else "not measured"),
+            "device_ms_by_class": dict(sorted(enc_cats.items()))},
+        "decode_tokens": n_tok,
+        "decode_wall_ms_per_token_untraced": untraced,
+        "decode_wall_ms_per_token_traced": wall / n_tok,
+        "decode_device_ms_per_token": (busy / n_tok if busy is not None
+                                       else "not measured"),
+        "decode_idle_share": (1.0 - busy / wall if busy is not None
+                              else "not measured"),
+        "decode_kernels_per_token": kernels / n_tok,
+        "decode_device_ms_by_class_per_token": {
+            c: v / n_tok for c, v in sorted(cats.items())},
+        "decode_bound_ms_per_token": dec_bound, "decode_bound_by": dec_by,
+        "decode_bytes_per_token": dec_bytes,
+        "request_bytes_held": held, "request_bytes_expected": want,
+        "request_bytes_left_after_close": left,
+    }
+    log(f"[whisper] (d) numbers ({card}): {json.dumps(out)}")
+    if left > 16 * 2**20:
+        raise AssertionError(f"[whisper] (d) a closed request left {left} "
+                             "bytes on the card")
+    if held < want:
+        raise AssertionError(f"[whisper] (d) an admitted request holds "
+                             f"{held} bytes, under its K/V's {want}")
+    return out
+
+
+def _whisper_http(torch, np, server, port: int) -> dict:
+    """(c) the served whisper-large-v3-class over HTTP: a wave of 8
+    concurrent requests (every format, transcribe and translate, 5-30 s
+    clips at 16 and 44.1 kHz, max_tokens 64); one SSE stream read to
+    [DONE]; one left after its headers (an abort, its slot back, then a
+    burst of 4); the 400 and 404 and the model card."""
+    clips = [(_wav(np, s, r, seed=10 + i), s)
+             for i, (s, r) in enumerate(WHISPER_CLIPS)]
+
+    def one(i):
+        wav, _ = clips[i]
+        fields = dict(model="whisper-large-v3-class", max_tokens="64",
+                      response_format=WHISPER_FORMATS[i])
+        if i % 3:
+            fields["language"] = "en"
+        path = ("/v1/audio/translations" if i % 2
+                else "/v1/audio/transcriptions")
+        t0 = time.perf_counter()
+        status, ctype, body = _post_form(port, path, *_form(wav, **fields))
+        return i, status, ctype, body, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        wave = list(pool.map(one, range(8)))
+    wave_s = time.perf_counter() - t0
+    tokens = []
+    for i, status, ctype, body, _ in wave:
+        fmt = WHISPER_FORMATS[i]
+        if status != 200:
+            raise AssertionError(f"[whisper] (c) request {i} ({fmt}): "
+                                 f"{status} {body[:300]!r}")
+        text = body.decode()
+        if fmt == "verbose_json":
+            out = json.loads(text)
+            n = sum(len(s["tokens"]) for s in out["segments"])
+            if n > 64 or any(s["start"] > s["end"]
+                             for s in out["segments"]):
+                raise AssertionError(f"[whisper] (c) verbose_json {i}: "
+                                     f"{n} tokens, {out['segments'][:3]}")
+            if abs(out["duration"] - clips[i][1]) > 0.01:
+                raise AssertionError(f"[whisper] (c) duration {out}")
+            tokens.append(n)
+        elif fmt in ("srt", "vtt"):
+            if fmt == "vtt" and not text.startswith("WEBVTT\n\n"):
+                raise AssertionError(f"[whisper] (c) vtt {i}: {text[:80]!r}")
+            for c in _CUE.findall(text):
+                a = int(c[0]) * 3600 + int(c[1]) * 60 + int(c[2]) \
+                    + int(c[3]) / 1e3
+                b = int(c[4]) * 3600 + int(c[5]) * 60 + int(c[6]) \
+                    + int(c[7]) / 1e3
+                if a > b:
+                    raise AssertionError(f"[whisper] (c) {fmt} cue {c}")
+        elif fmt == "json" and "text" not in json.loads(text):
+            raise AssertionError(f"[whisper] (c) json {i}: {text[:200]!r}")
+    lat = sorted(w[4] for w in wave)
+    # one SSE stream to the end
+    body, ctype = _form(clips[0][0], language="en", stream="true",
+                        max_tokens="64")
+    status, _, sse = _post_form(port, "/v1/audio/transcriptions", body,
+                                ctype)
+    events = [ln for ln in sse.decode().split("\n")
+              if ln.startswith("data: ")]
+    if status != 200 or events[-1] != "data: [DONE]":
+        raise AssertionError(f"[whisper] (c) SSE: {status} {events[-3:]}")
+    # one SSE stream left after its headers: an abort, its slot back
+    scraped = parse_exposition(_http(f"http://127.0.0.1:{port}",
+                                     "/metrics")[2].decode())
+    key = ("pstpu_transcription_aborted_requests_total",
+           (("endpoint", "audio.transcribe"),))
+    aborted0 = scraped.get(key, 0.0)
+    body, ctype = _form(clips[2][0], language="en", stream="true")
+    sock = socket.create_connection(("127.0.0.1", port), timeout=60)
+    sock.sendall((f"POST /v1/audio/transcriptions HTTP/1.1\r\nHost: x\r\n"
+                  f"Content-Type: {ctype}\r\nContent-Length: {len(body)}"
+                  "\r\n\r\n").encode() + body)
+    head = b""
+    while b"\r\n\r\n" not in head:
+        head += sock.recv(4096)
+    sock.close()
+    t_end = time.monotonic() + 120
+    aborted = aborted0
+    while aborted == aborted0 and time.monotonic() < t_end:
+        time.sleep(0.1)
+        aborted = parse_exposition(_http(
+            f"http://127.0.0.1:{port}", "/metrics")[2].decode()).get(
+                key, 0.0)
+    if aborted != aborted0 + 1 or not head.startswith(b"HTTP/1.1 200"):
+        raise AssertionError(f"[whisper] (c) abort: {head[:40]!r}, "
+                             f"aborted {aborted0} -> {aborted}")
+    slots = [server.runner.admit.acquire(blocking=False) for _ in range(4)]
+    for s in slots:
+        if s:
+            server.runner.admit.release()
+    if not all(slots):
+        raise AssertionError(f"[whisper] (c) slots after the abort: {slots}")
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        burst = list(pool.map(one, (0, 2, 4, 6)))
+    if any(b[1] != 200 for b in burst):
+        raise AssertionError(f"[whisper] (c) burst: {[b[1] for b in burst]}")
+    # refusals before any device work, and the router's surface
+    encodes = []
+    encode = server.runner._encode
+    server.runner._encode = lambda f: encodes.append(1) or encode(f)
+    try:
+        status, _, bad = _post_form(port, "/v1/audio/transcriptions",
+                                    *_form(clips[0][0], language="klingon",
+                                           stream="true"))
+    finally:
+        server.runner._encode = encode
+    if status != 400 or encodes:
+        raise AssertionError(f"[whisper] (c) bad language: {status} "
+                             f"{bad[:200]!r}, {len(encodes)} encodes")
+    status, _, _ = _http(f"http://127.0.0.1:{port}", "/v1/completions",
+                         {"prompt": "hi", "max_tokens": 2})
+    card = json.loads(_http(f"http://127.0.0.1:{port}",
+                            "/v1/models")[2])["data"][0]
+    if status != 404 or card["capabilities"] != ["audio.transcriptions",
+                                                 "audio.translations"]:
+        raise AssertionError(f"[whisper] (c) surface: {status} {card}")
+    out = {"wave_requests": 8, "wave_s": wave_s, "clips_per_s": 8 / wave_s,
+           "latency_median_s": statistics.median(lat),
+           "latency_max_s": lat[-1], "verbose_json_tokens": tokens,
+           "sse_events": len(events), "aborted": aborted - aborted0,
+           "burst_latency_s": [b[4] for b in burst]}
+    log(f"[whisper] (c) HTTP: {json.dumps(out)}")
+    return out
+
+
+def whisper_phase(torch, np, counters, card: str) -> dict:
+    """Phase 11 (``whisper``): (a) float32 tiny-whisper card = CPU; (b)
+    whisper-large-v3-class bf16 against float32; (c) whisper-large-v3-class
+    in bf16 served over HTTP with ``--max-num-seqs 4``; (d) its numbers.
+    Returns the launches of the served path: K1-K4 all 0 (Whisper reaches
+    none of them)."""
+    from production_stack_tpu_torch.engine.server import (
+        build_parser,
+        server_from_args,
+    )
+
+    t_phase = time.perf_counter()
+    _whisper_card_vs_cpu(torch, np)
+    _whisper_bf16_vs_f32(torch, np)
+    t0 = time.perf_counter()
+    server = server_from_args(build_parser().parse_args(
+        ["--model", "whisper-large-v3-class", "--max-num-seqs", "4",
+         "--seed", "0"]))
+    port = server.start("127.0.0.1", 0)
+    log(f"[whisper] whisper-large-v3-class up in "
+        f"{time.perf_counter() - t0:.1f} s: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    try:
+        for c in counters:
+            c.n = 0
+        _whisper_http(torch, np, server, port)
+        launches = {c.name.split()[0]: c.n for c in counters}
+        _whisper_numbers(torch, np, server.runner, card)
+    finally:
+        server.shutdown()
+    del server
+    _released(torch, "whisper")
+    _expect(launches, set(), "whisper")
+    log(f"[whisper] ({card}) in {time.perf_counter() - t_phase:.1f} s: "
+        + json.dumps({"launches": launches}))
+    return launches
+
 def _expect(launches: dict, expected: set, tag: str) -> None:
     for key, n in launches.items():
         if (n > 0) != (key in expected):
@@ -3586,6 +4092,7 @@ def main() -> int:
     by_path["moe-int8"] = moe_int8_phase(torch, np, counters, card)
     by_path["kv-plane"] = kv_plane_phase(torch, np, counters, card)
     by_path["scoring-surface"] = scoring_phase(torch, np, counters, card)
+    by_path["whisper"] = whisper_phase(torch, np, counters, card)
 
     kernels = []
     for r in results:

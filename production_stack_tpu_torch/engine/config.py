@@ -1,12 +1,11 @@
 """Engine configuration: model architecture, paged-KV cache geometry and
 scheduler limits.
 
-Mirrors ``production_stack_tpu/engine/config.py`` for the architectures
-this package serves (the Llama family, Mixtral's MoE, int8 quantization
-and local HF checkpoints): each field here has the reference's name and
-each preset here equals the reference preset on those fields. Whisper's
-fields and presets are not ported (ROADMAP.md); asking for one raises.
-One card has no device mesh, so ``MeshConfig`` has no counterpart;
+Mirrors ``production_stack_tpu/engine/config.py`` for every architecture
+it serves (the Llama family, Mixtral's MoE, Whisper, int8 quantization and
+local HF checkpoints): each field here has the reference's name and each
+preset here equals the reference preset field for field; an option
+ModelConfig does not have raises. One card has no device mesh, so ``MeshConfig`` has no counterpart;
 ``PerfConfig``'s zero peaks mean the H100's rather than the v5e's; and
 ``jax_dtype`` becomes ``torch_dtype``.
 """
@@ -58,6 +57,23 @@ class ModelConfig:
     # the window: max_model_len must be <= sliding_window (checked when the
     # model runner starts), where local and global attention coincide.
     sliding_window: int = 0
+    # Whisper family (architecture == "whisper": encoder-decoder audio
+    # transcription, models/whisper.py). num_heads doubles as both
+    # encoder and decoder head count (equal in every Whisper size);
+    # num_layers is the DECODER depth; max_model_len is the decoder's
+    # max_target_positions (448). Special-token ids follow the
+    # multilingual vocab layout (derived in from_hf_config).
+    num_mel_bins: int = 80
+    encoder_layers: int = 0  # 0 on non-whisper architectures
+    n_audio_ctx: int = 1500  # encoder positions; input frames = 2x this
+    sot_id: int = 0          # <|startoftranscript|>
+    eot_id: int = 0          # <|endoftext|>, also the lowest special id
+    lang_base_id: int = 0    # first language token (<|en|>)
+    n_langs: int = 0
+    translate_id: int = 0
+    transcribe_id: int = 0
+    sot_prev_id: int = 0     # <|startofprev|> (prompt conditioning)
+    notimestamps_id: int = 0
     # weight/activation quantization: None (model dtype) or "int8"
     # (per-channel int8 weights; W8A8 below engine/quant.py's token
     # threshold, W8A16 at or above it)
@@ -84,8 +100,7 @@ class ModelConfig:
         arch = "llama"
         archs = cfg.get("architectures") or []
         if any("Whisper" in a for a in archs):
-            raise ValueError(
-                f"{archs}: Whisper is not ported yet (ROADMAP.md)")
+            return ModelConfig._whisper_from_hf(cfg, name)
         if any("Mixtral" in a for a in archs) or "num_local_experts" in cfg:
             arch = "mixtral"
         elif any("Phi3" in a for a in archs):
@@ -169,6 +184,56 @@ class ModelConfig:
         )
 
     @staticmethod
+    def _whisper_from_hf(cfg: dict, name: str = "") -> "ModelConfig":
+        """WhisperForConditionalGeneration config.json -> ModelConfig.
+
+        Multilingual vocabularies only (51865 = v1/v2 with 99 language
+        tokens, 51866 = large-v3 with 100): the English-only `.en`
+        checkpoints lay their special tokens out differently and a
+        multilingual model transcribes English anyway. Special-token
+        ids are derived from the fixed vocab layout: text tokens, then
+        <|endoftext|>, <|startoftranscript|>, the languages,
+        <|translate|>, <|transcribe|>, <|startoflm|>, <|startofprev|>,
+        <|nospeech|>, <|notimestamps|>, timestamps."""
+        vocab = cfg["vocab_size"]
+        if vocab < 51865:
+            raise ValueError(
+                f"unsupported Whisper vocabulary size {vocab}: only the "
+                "multilingual checkpoints (51865/51866) are supported; "
+                "use e.g. openai/whisper-small instead of whisper-small.en"
+            )
+        n_langs = vocab - 51766  # 51865 -> 99, 51866 -> 100
+        eot = int(cfg.get("eos_token_id") or 50257)
+        sot = int(cfg.get("decoder_start_token_id") or 50258)
+        lang_base = sot + 1
+        translate = lang_base + n_langs
+        transcribe = translate + 1
+        sot_prev = transcribe + 2  # <|startoflm|> sits between
+        notimestamps = sot_prev + 2  # <|nospeech|> sits between
+        heads = cfg["decoder_attention_heads"]
+        hidden = cfg["d_model"]
+        return ModelConfig(
+            name=name or cfg.get("_name_or_path", "whisper"),
+            architecture="whisper",
+            vocab_size=vocab,
+            hidden_size=hidden,
+            intermediate_size=cfg.get("decoder_ffn_dim", hidden * 4),
+            num_layers=cfg["decoder_layers"],
+            encoder_layers=cfg["encoder_layers"],
+            num_heads=heads,
+            num_kv_heads=heads,
+            head_dim=hidden // heads,
+            max_model_len=cfg.get("max_target_positions", 448),
+            n_audio_ctx=cfg.get("max_source_positions", 1500),
+            num_mel_bins=cfg.get("num_mel_bins", 80),
+            tie_word_embeddings=True,
+            sot_id=sot, eot_id=eot, lang_base_id=lang_base,
+            n_langs=n_langs, translate_id=translate,
+            transcribe_id=transcribe, sot_prev_id=sot_prev,
+            notimestamps_id=notimestamps,
+        )
+
+    @staticmethod
     def from_pretrained(path_or_preset: str, **overrides) -> "ModelConfig":
         """Resolve a preset name or a local HF model directory (its
         ``config.json``; the directory becomes ``weights_path`` and
@@ -189,10 +254,7 @@ class ModelConfig:
             )
         unknown = sorted(set(overrides) - set(ModelConfig.__dataclass_fields__))
         if unknown:
-            raise ValueError(
-                f"ModelConfig has no option {unknown}: Whisper is not "
-                "ported yet (ROADMAP.md)"
-            )
+            raise ValueError(f"ModelConfig has no option {unknown}")
         return dataclasses.replace(base, **overrides) if overrides else base
 
 
@@ -316,6 +378,43 @@ MODEL_PRESETS: dict[str, ModelConfig] = {
         intermediate_size=14336, num_layers=32, num_heads=32, num_kv_heads=8,
         head_dim=128, rope_theta=1000000.0, max_model_len=32768, num_experts=8,
         num_experts_per_tok=2,
+    ),
+    "tiny-whisper": ModelConfig(
+        # CPU-testable Whisper: 1 s audio window (n_audio_ctx 50 -> 100
+        # input frames), byte-ish vocab with the multilingual special-
+        # token ORDER preserved above eot (the suppression rule "mask
+        # ids > eot except eot" must hold exactly as in the real vocab)
+        name="tiny-whisper", architecture="whisper", vocab_size=416,
+        hidden_size=64, intermediate_size=128, num_layers=2,
+        encoder_layers=2, num_heads=4, num_kv_heads=4, head_dim=16,
+        num_mel_bins=20, n_audio_ctx=50, max_model_len=32,
+        dtype="float32", tie_word_embeddings=True,
+        eot_id=400, sot_id=401, lang_base_id=402, n_langs=4,
+        translate_id=406, transcribe_id=407, sot_prev_id=409,
+        notimestamps_id=411,
+    ),
+    "whisper-small-class": ModelConfig(
+        # openai/whisper-small geometry (multilingual v2 vocab)
+        name="whisper-small-class", architecture="whisper",
+        vocab_size=51865, hidden_size=768, intermediate_size=3072,
+        num_layers=12, encoder_layers=12, num_heads=12, num_kv_heads=12,
+        head_dim=64, num_mel_bins=80, n_audio_ctx=1500, max_model_len=448,
+        tie_word_embeddings=True,
+        eot_id=50257, sot_id=50258, lang_base_id=50259, n_langs=99,
+        translate_id=50358, transcribe_id=50359, sot_prev_id=50361,
+        notimestamps_id=50363,
+    ),
+    "whisper-large-v3-class": ModelConfig(
+        # openai/whisper-large-v3 geometry (128 mels, 100 languages);
+        # 1.55 G parameters, 3.1 GB in bf16
+        name="whisper-large-v3-class", architecture="whisper",
+        vocab_size=51866, hidden_size=1280, intermediate_size=5120,
+        num_layers=32, encoder_layers=32, num_heads=20, num_kv_heads=20,
+        head_dim=64, num_mel_bins=128, n_audio_ctx=1500, max_model_len=448,
+        tie_word_embeddings=True,
+        eot_id=50257, sot_id=50258, lang_base_id=50259, n_langs=100,
+        translate_id=50359, transcribe_id=50360, sot_prev_id=50362,
+        notimestamps_id=50364,
     ),
     "opt-125m-class": ModelConfig(
         name="opt-125m-class", vocab_size=50272, hidden_size=768, intermediate_size=3072,

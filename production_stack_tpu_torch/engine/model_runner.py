@@ -162,6 +162,11 @@ class ModelRunner:
             )
         # auto is ragged on both devices (see EngineConfig.attention_impl)
         self.attention_impl = "ragged" if impl == "auto" else impl
+        if self.cfg.architecture == "whisper":
+            raise ValueError(
+                f"{self.cfg.name} is an encoder-decoder Whisper model: it "
+                "runs on engine/whisper_runner.WhisperRunner, not the paged "
+                "text engine")
         self.model = get_model(self.cfg)
         if self.device.type == "cuda":
             # compile every kernel now, not on the first request

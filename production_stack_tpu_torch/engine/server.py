@@ -2363,10 +2363,20 @@ def config_from_args(args) -> EngineConfig:
         kv_transfer_ttl=args.kv_transfer_ttl, **overrides)
 
 
-def server_from_args(args) -> EngineServer:
+def server_from_args(args):
     """The server ``main`` runs for parsed command-line ``args``, not yet
-    bound: the warmup starts at ``bind`` unless ``--skip-warmup``."""
-    return EngineServer(config_from_args(args), device=args.device,
+    bound: the warmup starts at ``bind`` unless ``--skip-warmup``. A
+    Whisper model gets its own runner and server
+    (engine/whisper_server.py); the paged text engine never starts."""
+    config = config_from_args(args)
+    if config.model.architecture == "whisper":
+        from production_stack_tpu_torch.engine.whisper_server import (
+            WhisperServer,
+        )
+
+        return WhisperServer(config, device=args.device,
+                             served_model_name=args.served_model_name)
+    return EngineServer(config, device=args.device,
                         served_model_name=args.served_model_name,
                         warmup_on_start=not args.skip_warmup,
                         overload_retry_after=args.overload_retry_after,
@@ -2380,6 +2390,17 @@ def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     server = server_from_args(args)
     port = server.bind(args.host, args.port)
+    if server.config.model.architecture == "whisper":
+        _log.info("serving %s (whisper) on %s:%d (device %s)",
+                  server.model_name, args.host, port, server.runner.device)
+        # SIGTERM stops serving; in-flight transcriptions end with it
+        signal.signal(signal.SIGTERM, lambda signum, frame: threading.Thread(
+            target=server.stop_serving, daemon=True).start())
+        try:
+            server.serve_forever()
+        finally:
+            server.shutdown()
+        return
     _log.info("serving %s on %s:%d (device %s, %d KV blocks)",
               server.model_name, args.host, port, server.engine.device,
               server.engine.runner.num_blocks)

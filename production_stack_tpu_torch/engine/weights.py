@@ -11,13 +11,20 @@ quantized into a preallocated int8 stack, so the model never exists in
 bf16 whole (mixtral-8x7b is 93 GB in bf16, 47 GB in int8), and the int8
 model is exactly the quantization of the bf16 one of the same seed.
 
-Checkpoints load through the reference's HF key map and conversions
+Checkpoints load through the reference's HF key maps and conversions
 (``_hf_key_map``, ``_convert``: the Llama and Mixtral families, Qwen2/3
-biases and norms, Gemma-2's norms, Phi-3's fused layouts), read by this
+biases and norms, Gemma-2's norms, Phi-3's fused layouts;
+``_whisper_block_map`` for WhisperForConditionalGeneration), read by this
 package's own safetensors reader (``lora.SafetensorsFile``). Tensors go
 to the device one at a time, into preallocated stacks, quantized on load
 when ``cfg.quant`` is set; the reference stacks every layer on the host
 first. Orbax checkpoints are not ported.
+
+Whisper's parameters are a nested ``enc`` / ``dec`` tree
+(``models/whisper.param_shapes``), made by ``whisper.init_params``; its
+conv weights are ``(out, in, k)``, so the reference's ``(k, in, out)``
+are transposed on conversion and an HF checkpoint's are taken as they
+are.
 """
 
 from __future__ import annotations
@@ -42,6 +49,8 @@ _FAN_IN = {
 }
 _NORMS = ("attn_norm", "mlp_norm", "q_norm", "k_norm", "post_attn_norm",
           "post_mlp_norm", "final_norm")
+# Whisper's convs: (k, in, out) in the reference, (out, in, k) here
+_CONV_WEIGHTS = ("conv1_w", "conv2_w")
 
 
 def _quant_axes(cfg: ModelConfig) -> dict:
@@ -88,6 +97,8 @@ def init_random(cfg: ModelConfig, seed: int = 0,
                 device: torch.device | str = "cpu") -> dict:
     """Random parameters, made on ``device`` from ``seed``, quantized
     slice by slice when ``cfg.quant`` is set."""
+    if cfg.architecture == "whisper":
+        return get_model(cfg).init_params(cfg, seed, device)
     shapes = get_model(cfg).param_shapes(cfg)
     dt = cfg.torch_dtype
     gen = torch.Generator(device=device)
@@ -126,8 +137,8 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig,
     """The JAX package's parameter tree, as numpy arrays, to this
     package's parameter dict (same names and shapes), so both compute the
     same function. Quantized leaves ``{"q": int8, "s": float32}`` keep
-    their dtypes."""
-    shapes = get_model(cfg).param_shapes(cfg)
+    their dtypes; Whisper's conv weights are transposed to ``(out, in,
+    k)``."""
 
     def conv(name: str, x, shape: tuple):
         if isinstance(x, dict):
@@ -143,16 +154,19 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig,
             out.copy_(torch.from_numpy(q.copy()))
             return {"q": out, "s": torch.from_numpy(s.copy()).to(device)}
         a = np.asarray(x, dtype=np.float32)
+        if name in _CONV_WEIGHTS:
+            a = a.transpose(2, 1, 0)
         if a.shape != tuple(shape):
             raise ValueError(f"{name}: shape {a.shape} != expected {shape}")
         return torch.from_numpy(a.copy()).to(device=device,
                                               dtype=cfg.torch_dtype)
 
-    params = {name: conv(name, np_tree[name], shape)
-              for name, shape in shapes.items() if name != "layers"}
-    params["layers"] = {name: conv(name, np_tree["layers"][name], shape)
-                        for name, shape in shapes["layers"].items()}
-    return params
+    def walk(tree: dict, shapes: dict) -> dict:
+        return {name: walk(tree[name], shape) if isinstance(shape, dict)
+                else conv(name, tree[name], shape)
+                for name, shape in shapes.items()}
+
+    return walk(np_tree, get_model(cfg).param_shapes(cfg))
 
 
 def init_or_load(cfg: ModelConfig, seed: int = 0,
@@ -279,11 +293,14 @@ def load_safetensors(cfg: ModelConfig,
 
     shapes = get_model(cfg).param_shapes(cfg)
     dt = cfg.torch_dtype
-    axes = _quant_axes(cfg)
 
     def dev(arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(
             device=device, dtype=dt)
+
+    if cfg.architecture == "whisper":
+        return _load_whisper(cfg, shapes, get, dev, device)
+    axes = _quant_axes(cfg)
 
     def whole(name: str, arr: np.ndarray):
         leaf = _Leaf(shapes[name], dt, device, axes.get(name))
@@ -308,3 +325,86 @@ def load_safetensors(cfg: ModelConfig,
                 layers[base].put(idx, dev(_convert(rule, src, cfg)))
     params["layers"] = {name: leaf.value for name, leaf in layers.items()}
     return params
+
+
+def _whisper_block_map(prefix: str, i: int, cross: bool) -> dict:
+    """HF Whisper layer tensor names -> (ours, rule) for one block.
+    ``prefix`` is ``model.encoder.layers`` / ``model.decoder.layers``."""
+    b = f"{prefix}.{i}"
+    m = {
+        f"{b}.self_attn_layer_norm.weight": ("attn_norm_w", "copy"),
+        f"{b}.self_attn_layer_norm.bias": ("attn_norm_b", "copy"),
+        f"{b}.self_attn.q_proj.weight": ("wq", "proj_q"),
+        f"{b}.self_attn.q_proj.bias": ("bq", "bias_q"),
+        f"{b}.self_attn.k_proj.weight": ("wk", "proj_q"),  # H == KH
+        f"{b}.self_attn.v_proj.weight": ("wv", "proj_q"),
+        f"{b}.self_attn.v_proj.bias": ("bv", "bias_q"),
+        f"{b}.self_attn.out_proj.weight": ("wo", "proj_o"),
+        f"{b}.self_attn.out_proj.bias": ("bo", "copy"),
+        f"{b}.final_layer_norm.weight": ("mlp_norm_w", "copy"),
+        f"{b}.final_layer_norm.bias": ("mlp_norm_b", "copy"),
+        f"{b}.fc1.weight": ("fc1", "t"),
+        f"{b}.fc1.bias": ("fc1_b", "copy"),
+        f"{b}.fc2.weight": ("fc2", "t"),
+        f"{b}.fc2.bias": ("fc2_b", "copy"),
+    }
+    if cross:
+        m.update({
+            f"{b}.encoder_attn_layer_norm.weight": ("cross_norm_w", "copy"),
+            f"{b}.encoder_attn_layer_norm.bias": ("cross_norm_b", "copy"),
+            f"{b}.encoder_attn.q_proj.weight": ("cwq", "proj_q"),
+            f"{b}.encoder_attn.q_proj.bias": ("cbq", "bias_q"),
+            f"{b}.encoder_attn.k_proj.weight": ("cwk", "proj_q"),
+            f"{b}.encoder_attn.v_proj.weight": ("cwv", "proj_q"),
+            f"{b}.encoder_attn.v_proj.bias": ("cbv", "bias_q"),
+            f"{b}.encoder_attn.out_proj.weight": ("cwo", "proj_o"),
+            f"{b}.encoder_attn.out_proj.bias": ("cbo", "copy"),
+        })
+    return m
+
+
+def _load_whisper(cfg: ModelConfig, shapes: dict, get, dev, device) -> dict:
+    """WhisperForConditionalGeneration safetensors to the nested tree, a
+    tensor at a time into stacks allocated on the device. The encoder's
+    sinusoidal ``embed_positions`` and the tied ``proj_out`` are not
+    loaded (computed and tied in models/whisper.py); HF's conv weights are
+    ``(out, in, k)`` already."""
+
+    def stack(prefix: str, n: int, cross: bool, block: dict) -> dict:
+        out = {name: torch.empty(shape, dtype=cfg.torch_dtype, device=device)
+               for name, shape in block.items()}
+        for i in range(n):
+            for hf_name, (ours, rule) in _whisper_block_map(
+                    prefix, i, cross).items():
+                out[ours][i] = dev(_convert(rule, get(hf_name), cfg))
+        return out
+
+    def top(tree: dict, ours: str, hf_name: str) -> torch.Tensor:
+        arr = get(hf_name)
+        if arr.shape != tuple(tree[ours]):
+            raise ValueError(f"{cfg.weights_path}: {hf_name} has shape "
+                             f"{arr.shape}, the model needs {tree[ours]}")
+        return dev(arr)
+
+    enc, dec = shapes["enc"], shapes["dec"]
+    e, d = "model.encoder", "model.decoder"
+    return {
+        "enc": {
+            "conv1_w": top(enc, "conv1_w", f"{e}.conv1.weight"),
+            "conv1_b": top(enc, "conv1_b", f"{e}.conv1.bias"),
+            "conv2_w": top(enc, "conv2_w", f"{e}.conv2.weight"),
+            "conv2_b": top(enc, "conv2_b", f"{e}.conv2.bias"),
+            "layers": stack(f"{e}.layers", cfg.encoder_layers, False,
+                            enc["layers"]),
+            "final_norm_w": top(enc, "final_norm_w", f"{e}.layer_norm.weight"),
+            "final_norm_b": top(enc, "final_norm_b", f"{e}.layer_norm.bias"),
+        },
+        "dec": {
+            "embed": top(dec, "embed", f"{d}.embed_tokens.weight"),
+            "pos": top(dec, "pos", f"{d}.embed_positions.weight"),
+            "layers": stack(f"{d}.layers", cfg.num_layers, True,
+                            dec["layers"]),
+            "final_norm_w": top(dec, "final_norm_w", f"{d}.layer_norm.weight"),
+            "final_norm_b": top(dec, "final_norm_b", f"{d}.layer_norm.bias"),
+        },
+    }

@@ -1,10 +1,12 @@
 """Model registry: architecture name -> model module.
 
-Every module exposes ``param_shapes(cfg)``, ``forward_tokens(cfg, params,
-tokens, positions, attend, kv_pool)`` and ``logits_from_hidden(cfg,
-params, hidden)``. Mixtral, Gemma, Gemma-2 and Phi-3 run the Llama stack
-(their deltas are ModelConfig knobs; Mixtral's MoE block is
-``llama._moe_mlp``); Whisper is not ported yet.
+Every module exposes ``param_shapes(cfg)``. The decoder-only stack
+(``llama``) also exposes ``forward_tokens(cfg, params, tokens, positions,
+attend, kv_pool)`` and ``logits_from_hidden(cfg, params, hidden)``;
+Mixtral, Gemma, Gemma-2 and Phi-3 run it (their deltas are ModelConfig
+knobs; Mixtral's MoE block is ``llama._moe_mlp``). Whisper's
+encoder-decoder (``whisper``: ``init_params``, ``encode``, ``cross_kv``,
+``decode_tokens``) is driven by ``engine/whisper_runner.py``.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from __future__ import annotations
 from types import ModuleType
 
 from production_stack_tpu_torch.engine.config import ModelConfig
-from production_stack_tpu_torch.models import llama
+from production_stack_tpu_torch.models import llama, whisper
 
 _REGISTRY: dict[str, ModuleType] = {
     "llama": llama,
@@ -20,6 +22,7 @@ _REGISTRY: dict[str, ModuleType] = {
     "gemma": llama,
     "gemma2": llama,
     "phi3": llama,
+    "whisper": whisper,
 }
 
 
@@ -28,6 +31,6 @@ def get_model(cfg: ModelConfig) -> ModuleType:
         return _REGISTRY[cfg.architecture]
     except KeyError:
         raise ValueError(
-            f"architecture {cfg.architecture!r} is not ported yet; "
+            f"unknown architecture {cfg.architecture!r}; "
             f"known: {sorted(_REGISTRY)}"
         ) from None

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def rms_norm(
@@ -21,3 +22,12 @@ def rms_norm(
     if offset:  # a launch saved on the Llama path
         w = w + offset
     return (normed * w).to(x.dtype)
+
+
+def layer_norm(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """LayerNorm in float32, cast back to the input dtype (Whisper)."""
+    return F.layer_norm(x.float(), x.shape[-1:], weight.float(), bias.float(),
+                        eps).to(x.dtype)

@@ -15,7 +15,9 @@ frames, the host and remote tiers, the remote KV server, and the engine
 and server that drive them) loads none of JAX, ``aiohttp``, ``requests``
 or ``prometheus_client``. The dense scoring path (the attention op, the
 runner and the engine that pad and run it) loads neither JAX nor the JAX
-package's attention module it ports.
+package's attention module it ports. The Whisper path (the model, the audio
+front end, the runner and its stdlib server) loads none of JAX, the JAX
+package, ``aiohttp``, ``prometheus_client`` or ``safetensors``.
 """
 
 import ast
@@ -212,4 +214,37 @@ def test_scoring_path_loads_no_jax():
 def test_scoring_static_imports(module):
     path = ROOT / (module.replace(".", "/") + ".py")
     bad = [m for m in _imports(path) if forbidden(m)]
+    assert bad == [], f"{path.name} imports {bad}"
+
+
+WHISPER = ("production_stack_tpu_torch.models.whisper",
+           "production_stack_tpu_torch.engine.audio",
+           "production_stack_tpu_torch.engine.whisper_runner",
+           "production_stack_tpu_torch.engine.whisper_server")
+
+
+def _whisper_bad(name: str) -> bool:
+    return forbidden(name) or any(
+        name == lib or name.startswith(lib + ".")
+        for lib in LIBRARIES + ("safetensors",))
+
+
+def test_whisper_path_loads_no_jax_nor_http_libraries():
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {WHISPER!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(WHISPER) <= set(mods)
+    assert [m for m in mods if _whisper_bad(m)] == []
+
+
+@pytest.mark.parametrize("module", WHISPER)
+def test_whisper_static_imports(module):
+    path = ROOT / (module.replace(".", "/") + ".py")
+    bad = [m for m in _imports(path) if _whisper_bad(m)]
     assert bad == [], f"{path.name} imports {bad}"

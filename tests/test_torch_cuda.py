@@ -680,3 +680,64 @@ def test_scoring_engine_on_card_matches_cpu(cuda):
     a, b = card.prompt_logprobs(ids), cpu.prompt_logprobs(ids)
     np.testing.assert_allclose([x[0] for x in a], [x[0] for x in b],
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("wav", ["tone-8k", "noise-44k-stereo",
+                                 "silence-16k"])
+def test_whisper_on_card_matches_cpu(cuda, wav):
+    """float32 tiny-whisper on the card against the CPU runner on the same
+    weights: greedy tokens equal up to a near-tie (the CPU run's top-2
+    logprob gap under TIE_GAP), the detected language equal,
+    ``no_speech_prob`` and token logprobs within 1e-4, for transcription
+    with detection, translation, timestamp mode and a prompt. cuDNN's
+    TF32 convolutions are off for the comparison."""
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.weights import to_device
+    from production_stack_tpu_torch.engine.whisper_runner import (
+        WhisperRunner,
+    )
+    from _torch_whisper import TIE_GAP, features, top2_gap
+
+    cfg = EngineConfig.for_model("tiny-whisper")
+    cpu = WhisperRunner(cfg, device="cpu")
+    card = WhisperRunner(cfg, device="cuda",
+                         params=to_device(cpu.params, "cuda"))
+    feats = features(cpu, wav)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for kw in (dict(), dict(language="en", task="translate"),
+                   dict(language="en", timestamps=True),
+                   dict(language="en", prompt="a prompt")):
+            want_info, got_info = {}, {}
+            want = cpu.transcribe(feats, info=want_info, **kw)
+            got = card.transcribe(feats, info=got_info, **kw)
+            n = len(want)
+            for i, (a, b) in enumerate(zip(want, got)):
+                if a != b:
+                    assert top2_gap(cpu, feats, kw, want[:i]) < TIE_GAP
+                    n = i
+                    break
+            else:
+                assert got == want
+            assert got_info["language"] == want_info["language"]
+            assert abs(got_info["no_speech_prob"]
+                       - want_info["no_speech_prob"]) <= 1e-4
+            np.testing.assert_allclose(got_info["logprobs"][:n],
+                                       want_info["logprobs"][:n], atol=1e-4)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def test_whisper_server_refuses_cuda_without_a_card(cuda, monkeypatch):
+    """``--device cuda`` (the default) raises when the card is not there,
+    rather than serving on the CPU."""
+    from production_stack_tpu_torch.engine.server import (
+        build_parser,
+        server_from_args,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        server_from_args(build_parser().parse_args(
+            ["--model", "tiny-whisper"]))

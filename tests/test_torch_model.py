@@ -110,10 +110,17 @@ def test_init_random_is_seeded_and_scaled():
 
 
 def test_registry_refuses_unported_architectures():
-    """Whisper is the one architecture of the reference not ported;
-    Mixtral runs the Llama stack with its MoE block."""
-    with pytest.raises(ValueError, match="unknown model preset"):
-        tcfg.ModelConfig.from_pretrained("tiny-whisper")
-    with pytest.raises(ValueError, match="not ported"):
-        get_model(tcfg.ModelConfig(architecture="whisper"))
+    """The registry serves every architecture of the reference: Whisper
+    runs its encoder-decoder module, Mixtral the Llama stack with its MoE
+    block. An architecture neither package has is refused."""
+    from production_stack_tpu.models.registry import _REGISTRY as ref
+    from production_stack_tpu_torch.models import whisper
+
+    cfg = tcfg.ModelConfig.from_pretrained("tiny-whisper")
+    assert get_model(cfg) is whisper
     assert get_model(tcfg.ModelConfig(architecture="mixtral")) is llama
+    for arch in ref:
+        assert get_model(tcfg.ModelConfig(architecture=arch)).__name__ \
+            .rsplit(".", 1)[1] == ref[arch].__name__.rsplit(".", 1)[1]
+    with pytest.raises(ValueError, match="unknown architecture"):
+        get_model(tcfg.ModelConfig(architecture="mamba"))

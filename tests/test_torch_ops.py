@@ -170,14 +170,13 @@ def test_allocator_matches_reference():
 
 
 def test_presets_match_reference():
-    """Every preset carries the reference's values, field for field; the
-    reference presets left out are exactly those of the Whisper
-    architecture, which the port does not serve yet."""
-    left_out = set(jcfg.MODEL_PRESETS) - set(tcfg.MODEL_PRESETS)
-    assert set(tcfg.MODEL_PRESETS) <= set(jcfg.MODEL_PRESETS)
-    assert {jcfg.MODEL_PRESETS[n].architecture for n in left_out} == {
-        "whisper"}
-    assert {"tiny-mixtral", "mixtral-8x7b"} <= set(tcfg.MODEL_PRESETS)
+    """Every preset carries the reference's values, field for field, and
+    no reference preset is left out (Whisper's three included)."""
+    assert set(tcfg.MODEL_PRESETS) == set(jcfg.MODEL_PRESETS)
+    assert {"tiny-mixtral", "mixtral-8x7b", "tiny-whisper",
+            "whisper-large-v3-class"} <= set(tcfg.MODEL_PRESETS)
+    assert set(tcfg.ModelConfig.__dataclass_fields__) == set(
+        jcfg.ModelConfig.__dataclass_fields__)
     for name, mine in tcfg.MODEL_PRESETS.items():
         ref = jcfg.MODEL_PRESETS[name]
         for f in tcfg.ModelConfig.__dataclass_fields__:
@@ -192,14 +191,21 @@ def test_presets_match_reference():
                                     {"num_mel_bins": 80},
                                     {"sot_id": 1}])
 def test_unported_options_raise(option):
-    """An option the port cannot honour (Whisper's) raises; it is never
-    ignored. Quantization, MoE and checkpoint paths are ported
-    (tests/test_torch_quant.py, test_torch_moe.py,
-    test_torch_checkpoint.py)."""
-    with pytest.raises(ValueError, match="not ported"):
-        tcfg.ModelConfig.from_pretrained("tiny-llama", **option)
-    with pytest.raises(ValueError, match="not ported"):
-        tcfg.EngineConfig.for_model("tiny-llama", **option)
+    """Whisper's options are honoured on a Whisper preset, as the
+    reference's ``from_pretrained`` honours them; an option ModelConfig
+    does not have raises, and is never ignored."""
+    mine = tcfg.ModelConfig.from_pretrained("tiny-whisper", **option)
+    ref = jcfg.ModelConfig.from_pretrained("tiny-whisper", **option)
+    for f in tcfg.ModelConfig.__dataclass_fields__:
+        assert getattr(mine, f) == getattr(ref, f), f
+    (name, value), = option.items()
+    assert getattr(mine, name) == value
+    assert tcfg.EngineConfig.for_model("tiny-whisper", **option).model == mine
+    unknown = {name + "_x": value}
+    with pytest.raises(ValueError, match="has no option"):
+        tcfg.ModelConfig.from_pretrained("tiny-whisper", **unknown)
+    with pytest.raises(ValueError, match="has no option"):
+        tcfg.EngineConfig.for_model("tiny-llama", **unknown)
 
 
 def test_cuda_without_card_raises():

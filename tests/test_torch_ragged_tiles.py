@@ -6,7 +6,8 @@ more tokens are cut into row tiles of (token, g) rows that never cross a
 span, one-token spans are decode items of the split-KV walk, and the tail
 past the last span is cut into tiles that write zeros. ``split_plan``
 (ops/paged_decode_attention.py) fixes the split-KV walk's (n_splits,
-span) once a step. These tests hold, at every preset:
+span) once a step. These tests hold, at every preset the paged engine
+serves:
 
 - the work map covers every (token, g) row of the stream exactly once;
 - the split plan covers [0, ctx) of every sequence exactly once, for every
@@ -49,6 +50,9 @@ from production_stack_tpu_torch.ops.paged_attention import split_kv
 torch.set_num_threads(2)
 
 CSRC = Path(_build.CSRC)
+# the presets whose attention runs the paged kernels (Whisper's run none)
+PAGED_PRESETS = sorted(n for n, c in MODEL_PRESETS.items()
+                       if c.architecture != "whisper")
 LOG2E = 1.4426950408889634
 
 
@@ -80,7 +84,7 @@ def _decode(work_map):
 
 
 @pytest.mark.parametrize("seed", range(3))
-@pytest.mark.parametrize("preset", sorted(MODEL_PRESETS))
+@pytest.mark.parametrize("preset", PAGED_PRESETS)
 def test_work_map_covers_every_row_once(preset, seed):
     cfg = MODEL_PRESETS[preset]
     H, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -274,7 +278,7 @@ def test_split_kv_matches_plain_and_reference(lens, plan, soft_cap):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("preset", sorted(MODEL_PRESETS))
+@pytest.mark.parametrize("preset", PAGED_PRESETS)
 def test_default_tiles_fit_shared_memory(preset):
     """bf16 K2's row tile (K4's geometry) and the split-KV walk of K2 and K3
     at every preset's head geometry: within 227 KB a CTA, one m16 tile of
