@@ -177,11 +177,39 @@ fatal):
    time a token, kernels a token, idle share) beside its byte bound; the
    device memory an admitted request holds, and none left once it is
    closed. K1-K4 launch 0 times: Whisper reaches none of them.
+12. Resilience, overload and tenants (``overload``): llama-3-8b bf16 at
+   full width and depth, seed 0, the ragged path, through
+   ``server_from_args``. Server 1 (``--max-queue-len 4 --max-num-seqs 8
+   --fault-injection ""``): (a) an expired ``x-request-deadline`` answers
+   504 ``timeout_error`` and launches no kernel, a malformed one 200, one
+   0.5 s out on a 2000-token request 504 (streamed: data events, the
+   in-band error, ``[DONE]``) with ``vllm:aborted_seqs_total`` +1 and
+   ``vllm:kv_blocks_free`` back (the time from the deadline to the answer
+   printed); (b) 32 concurrent requests: 429s with ``Retry-After`` >= the
+   floor, some above it, the rest 200; (c) ``/debug/faults``:
+   ``error_rate=1`` answers 500 ``fault_injection`` while ``/health`` and
+   ``/metrics`` answer, ``stall_ms=300`` delays the first byte >= 300 ms,
+   ``off=1`` restores 200; then, the queue bound lifted in process, (d) a
+   wave of ``heavy`` (24 x 1024 tokens) and ``light`` (4 x 128), 32 out:
+   ``/debug/tenants`` lists both, the tenants' token deltas sum per phase
+   to the accountant's and the prompt tokens, their chip-seconds to the
+   attributed dispatch seconds within 1e-6; (e) the wave again with fair
+   share on (light's and heavy's median TTFT both ways), and one tenant's
+   greedy batch gives the same tokens with fair share on and off. Server
+   2 (``--speculative-ngram 4 --brownout`` at a 0.25 s interval, queue
+   high 0.05, up 1, calm 2, clamp 16, ``--max-queue-len 64``, weights
+   heavy 1, light 4): (f) a heavy flood beside 4 light requests takes
+   ``/debug/overload`` to stage 3 (timeline printed); then a new heavy
+   request gets 429, a light one 200 and a light one asking 200 tokens at
+   most 16; the spec and tenant sheds count; the stage returns to 0. (g)
+   On that engine, its front end stopped: a 64-row decode step's untraced
+   wall with tenant metering off and on, in turns. K1, K2 and K3 launch,
+   K4 not.
 
 The line before the card line carries the kernels' JSON record, whose
 ``launches`` sum each kernel's launches over every served path (each
 path's own counts are in ``launches_by_path``, ``moe-int8``, ``kv-plane``,
-``scoring-surface`` and ``whisper`` among them);
+``scoring-surface``, ``whisper`` and ``overload`` among them);
 the last line is ``{"ok":
 true, "device": {...}}``.
 """
@@ -4034,6 +4062,537 @@ def whisper_phase(torch, np, counters, card: str) -> dict:
         + json.dumps({"launches": launches}))
     return launches
 
+# -- phase 12: resilience, overload and tenants ------------------------------
+
+OV_FLOOR = 1.0  # --overload-retry-after's default: the Retry-After floor
+
+
+def _ov_call(base: str, path: str, body=None, headers=None,
+             timeout: float = 600):
+    """(status, headers, bytes, seconds to the response headers, seconds
+    to the end) of a GET, or a POST of ``body``; an error status is
+    returned, not raised."""
+    req = urllib.request.Request(
+        base + path, data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            t_head = time.perf_counter() - t0
+            data = r.read()
+            return r.status, dict(r.headers), data, t_head, \
+                time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        t_head = time.perf_counter() - t0
+        return e.code, dict(e.headers), e.read(), t_head, \
+            time.perf_counter() - t0
+
+
+def _ov_stream(base: str, body: dict, headers=None) -> tuple:
+    """A streamed completion: (status, events, seconds to the first data
+    event); ``events`` are the parsed data payloads, "[DONE]" last."""
+    req = urllib.request.Request(
+        base + "/v1/completions", data=json.dumps(
+            dict(body, stream=True)).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    t0 = time.perf_counter()
+    events, first = [], None
+    with urllib.request.urlopen(req, timeout=600) as r:
+        for raw in r:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            if first is None:
+                first = time.perf_counter() - t0
+            data = line[len("data: "):]
+            events.append(data if data == "[DONE]" else json.loads(data))
+            if data == "[DONE]":
+                break
+        return r.status, events, first
+
+
+def _ov_metrics(base: str) -> dict:
+    status, headers, body, _, _ = _ov_call(base, "/metrics")
+    if status != 200:
+        raise AssertionError(f"[overload] /metrics answered {status}")
+    return parse_exposition(body.decode())
+
+
+def _ov_sample(samples: dict, name: str, **labels) -> float:
+    for (n, lbl), v in samples.items():
+        if n == name and all(dict(lbl).get(k) == v2
+                             for k, v2 in labels.items()):
+            return v
+    return 0.0
+
+
+def _ov_json(base: str, path: str, body=None) -> dict:
+    status, _, data, _, _ = _ov_call(base, path, body)
+    if status != 200:
+        raise AssertionError(f"[overload] {path} answered {status}: "
+                             f"{data[:200]!r}")
+    return json.loads(data)
+
+
+def _ov_deadlines(base: str, counters) -> dict:
+    """(a) An expired x-request-deadline: 504 before admission, no kernel
+    launched for it; a malformed one: 200; one 0.5 s out on a 2000-token
+    request, plain and streamed: 504 (in-band error then [DONE] when
+    streamed), one abort counted, the free blocks back."""
+    model = "llama-3-8b"
+    out = {}
+    before = [c.n for c in counters]
+    status, _, data, _, _ = _ov_call(base, "/v1/completions", {
+        "model": model, "prompt": list(range(10, 74)), "max_tokens": 4},
+        {"x-request-deadline": f"{time.time() - 1:.3f}"})
+    err = json.loads(data)
+    if status != 504 or err["error"]["type"] != "timeout_error":
+        raise AssertionError(f"[overload] expired deadline: {status} {err}")
+    if [c.n for c in counters] != before:
+        raise AssertionError("[overload] an expired request launched "
+                             "kernels")
+    status, _, data, _, _ = _ov_call(base, "/v1/completions", {
+        "model": model, "prompt": list(range(10, 74)), "max_tokens": 4,
+        "temperature": 0.0, "ignore_eos": True},
+        {"x-request-deadline": "soon-ish"})
+    if status != 200 or json.loads(data)["usage"]["completion_tokens"] != 4:
+        raise AssertionError(f"[overload] malformed deadline: {status}")
+    body = {"model": model, "prompt": list(range(20, 84)),
+            "max_tokens": 2000, "temperature": 0.0, "ignore_eos": True,
+            "allowed_token_ids": KV_ALLOWED}
+    for stream in (False, True):
+        m0 = _ov_metrics(base)
+        aborted0 = _ov_sample(m0, "vllm:aborted_seqs_total")
+        free0 = _ov_sample(m0, "vllm:kv_blocks_free")
+        deadline = time.time() + 0.5
+        hdr = {"x-request-deadline": f"{deadline:.6f}"}
+        if stream:
+            status, events, _ = _ov_stream(base, body, hdr)
+            answered = time.time()
+            chunks = [e for e in events[:-2] if "choices" in e]
+            if (status != 200 or events[-1] != "[DONE]"
+                    or events[-2].get("error", {}).get("type")
+                    != "timeout_error" or not chunks):
+                raise AssertionError(f"[overload] streamed deadline: "
+                                     f"{status} {events[-3:]}")
+            n_chunks = len(chunks)
+        else:
+            status, _, data, _, _ = _ov_call(base, "/v1/completions", body,
+                                             hdr)
+            answered = time.time()
+            if status != 504 or json.loads(data)["error"]["type"] != \
+                    "timeout_error":
+                raise AssertionError(f"[overload] mid-generation deadline: "
+                                     f"{status} {data[:200]!r}")
+            n_chunks = None
+        m1 = _ov_metrics(base)
+        aborted = _ov_sample(m1, "vllm:aborted_seqs_total") - aborted0
+        free = _ov_sample(m1, "vllm:kv_blocks_free")
+        if aborted != 1 or free != free0:
+            raise AssertionError(
+                f"[overload] deadline abort (stream={stream}): aborted "
+                f"+{aborted}, free blocks {free0} -> {free}")
+        out["stream" if stream else "plain"] = {
+            "answer_after_deadline_s": answered - deadline,
+            "aborted_delta": aborted, "kv_blocks_free": free,
+            **({"data_events": n_chunks} if stream else {})}
+    return out
+
+
+def _ov_queue_bound(np, base: str) -> dict:
+    """(b) 32 concurrent ignore_eos requests (256 tokens out) against
+    --max-queue-len 4 --max-num-seqs 8: 12 at once fill the slots and the
+    queue, 20 more follow 0.13 s apart while the queue stays full. Some
+    answers are 429 with Retry-After >= the floor, the rest 200; once the
+    queue has drained, some 429 advertised more than the floor (the
+    queue's depth over its measured drain rate)."""
+    rng = np.random.default_rng(21)
+    bodies = [{"model": "llama-3-8b", "prompt": rng.integers(
+        0, 256, 128).tolist(), "max_tokens": 256, "ignore_eos": True,
+        "temperature": 0.0} for _ in range(32)]
+
+    def one(i):
+        time.sleep(0.13 * max(i - 11, 0))
+        return _ov_call(base, "/v1/completions", bodies[i])
+
+    with concurrent.futures.ThreadPoolExecutor(32) as pool:
+        res = list(pool.map(one, range(32)))
+    codes = collections.Counter(r[0] for r in res)
+    if set(codes) != {200, 429}:
+        raise AssertionError(f"[overload] queue bound: statuses {codes}")
+    retry = sorted(float(r[1]["Retry-After"]) for r in res if r[0] == 429)
+    if min(retry) < OV_FLOOR or max(retry) <= OV_FLOOR:
+        raise AssertionError(f"[overload] Retry-After {retry}: each must be "
+                             f">= {OV_FLOOR} and some above it")
+    for r in res:
+        if r[0] == 200 and json.loads(r[2])["usage"][
+                "completion_tokens"] != 256:
+            raise AssertionError("[overload] an admitted request came back "
+                                 "short")
+    return {"statuses": dict(codes), "retry_after_s": retry}
+
+
+def _ov_faults(base: str) -> dict:
+    """(c) /debug/faults on a server armed by --fault-injection "":
+    error_rate=1 makes completions 500 fault_injection while /health and
+    /metrics answer 200; stall_ms=300 delays the first byte by >= 300 ms;
+    off=1 brings 200 back."""
+    body = {"model": "llama-3-8b", "prompt": list(range(30, 62)),
+            "max_tokens": 2, "temperature": 0.0, "ignore_eos": True}
+    if not _ov_json(base, "/debug/faults?error_rate=1", {})["active"]:
+        raise AssertionError("[overload] faults did not arm")
+    status, _, data, _, _ = _ov_call(base, "/v1/completions", body)
+    if status != 500 or json.loads(data)["error"]["type"] != \
+            "fault_injection":
+        raise AssertionError(f"[overload] error_rate=1: {status} {data!r}")
+    for path in ("/health", "/metrics"):
+        if _ov_call(base, path)[0] != 200:
+            raise AssertionError(f"[overload] {path} faulted")
+    _ov_json(base, "/debug/faults?stall_ms=300", {})
+    status, _, _, ttfb, _ = _ov_call(base, "/v1/completions", body)
+    if status != 200 or ttfb < 0.3:
+        raise AssertionError(f"[overload] stall_ms=300: {status}, first "
+                             f"byte after {ttfb:.3f} s")
+    if _ov_json(base, "/debug/faults?off=1", {}) != {"active": False}:
+        raise AssertionError("[overload] faults did not clear")
+    status, _, _, ttfb_off, _ = _ov_call(base, "/v1/completions", body)
+    if status != 200:
+        raise AssertionError(f"[overload] after off=1: {status}")
+    return {"stalled_first_byte_s": ttfb, "first_byte_after_off_s": ttfb_off}
+
+
+def _ov_tenant_rows(base: str) -> dict:
+    samples = _ov_metrics(base)
+    rows = collections.defaultdict(dict)
+    for (name, lbl), v in samples.items():
+        lbl = dict(lbl)
+        if name == "vllm:tenant_tokens_total":
+            rows[lbl["tenant"]][lbl["phase"]] = v
+        elif name == "vllm:tenant_chip_seconds_total":
+            rows[lbl["tenant"]]["chip_seconds"] = v
+    perf = _ov_json(base, "/debug/perf")
+    return {"rows": dict(rows), "totals": perf["totals"],
+            "dispatch_s": _ov_json(base, "/debug/tenants")[
+                "dispatch_seconds_total"],
+            "prompt": _ov_sample(samples, "vllm:prompt_tokens_total"),
+            "generation": _ov_sample(samples,
+                                     "vllm:generation_tokens_total")}
+
+
+def _ov_wave(np, base: str, seed: int) -> dict:
+    """The two-tenant wave: heavy sends 24 requests of 1024 prompt tokens,
+    light 4 of 128, each 32 tokens out, all at once, streamed so the first
+    data event marks the first token (printable tokens only). Returns the
+    TTFT of each tenant's requests and the cached prompt tokens."""
+    rng = np.random.default_rng(seed)
+    jobs = [("heavy", 1024)] * 24 + [("light", 128)] * 4
+    prompts = [rng.integers(0, 256, n).tolist() for _, n in jobs]
+    order = rng.permutation(len(jobs))
+
+    def one(i):
+        tenant, n = jobs[i]
+        body = {"model": "llama-3-8b", "prompt": prompts[i],
+                "max_tokens": 32, "temperature": 0.0, "ignore_eos": True,
+                "allowed_token_ids": KV_ALLOWED,
+                "stream_options": {"include_usage": True}}
+        status, events, first = _ov_stream(base, body,
+                                           {"x-tenant-id": tenant})
+        usage = next(e["usage"] for e in events if isinstance(e, dict)
+                     and e.get("usage"))
+        if status != 200 or usage["completion_tokens"] != 32:
+            raise AssertionError(f"[overload] wave {tenant}: {status} "
+                                 f"{usage}")
+        return tenant, first
+
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        res = list(pool.map(one, order))
+    ttft = collections.defaultdict(list)
+    for tenant, first in res:
+        ttft[tenant].append(first)
+    return {t: statistics.median(v) for t, v in ttft.items()}
+
+
+def _ov_tenants(np, base: str) -> dict:
+    """(d) The two-tenant wave: /debug/tenants lists both; per phase the
+    tenants' token deltas sum to the accountant's totals (prefill plus
+    nothing cached is the prompt delta), and their chip-seconds deltas to
+    the attributed dispatch seconds within 1e-6 relative."""
+    before = _ov_tenant_rows(base)
+    t0 = time.perf_counter()
+    ttft = _ov_wave(np, base, 31)
+    wall = time.perf_counter() - t0
+    after = _ov_tenant_rows(base)
+    doc = _ov_json(base, "/debug/tenants")
+    if not {"heavy", "light"} <= set(doc["tenants"]):
+        raise AssertionError(f"[overload] /debug/tenants: {doc['tenants']}")
+
+    def delta(t, key):
+        return after["rows"].get(t, {}).get(key, 0.0) - \
+            before["rows"].get(t, {}).get(key, 0.0)
+
+    tenants = set(after["rows"])
+    out = {"wave_s": wall, "ttft_median_s": ttft}
+    for phase in ("prefill", "decode"):
+        got = sum(delta(t, phase) for t in tenants)
+        want = (after["totals"][f"{phase}_tokens"]
+                - before["totals"][f"{phase}_tokens"])
+        if got != want:
+            raise AssertionError(f"[overload] {phase}: tenants {got}, "
+                                 f"accountant {want}")
+        out[f"{phase}_tokens"] = {t: delta(t, phase) for t in
+                                  ("heavy", "light")}
+    prompt = after["prompt"] - before["prompt"]
+    if sum(delta(t, "prefill") for t in tenants) != prompt:
+        raise AssertionError(f"[overload] prefill tokens "
+                             f"{out['prefill_tokens']} against {prompt} "
+                             "prompt tokens")
+    # each request's first token is a prefill sample; the rest decode
+    out["generation_tokens"] = after["generation"] - before["generation"]
+    chip = sum(delta(t, "chip_seconds") for t in tenants)
+    attributed = after["dispatch_s"] - before["dispatch_s"]
+    if abs(chip - attributed) > 1e-6 * attributed or attributed <= 0:
+        raise AssertionError(f"[overload] chip-seconds {chip} against "
+                             f"{attributed} attributed")
+    out["chip_seconds"] = {t: delta(t, "chip_seconds")
+                           for t in ("heavy", "light")}
+    out["attributed_dispatch_s"] = attributed
+    return out
+
+
+def _ov_greedy_batch(base: str, prompts: list) -> list:
+    """One tenant's greedy batch, admitted at once in prompt order; each
+    choice's text (printable tokens only: a token is a character)."""
+    status, _, data, _, _ = _ov_call(base, "/v1/completions", {
+        "model": "llama-3-8b", "prompt": prompts, "max_tokens": 16,
+        "temperature": 0.0, "ignore_eos": True,
+        "allowed_token_ids": KV_ALLOWED}, {"x-tenant-id": "solo"})
+    if status != 200:
+        raise AssertionError(f"[overload] greedy batch: {status}")
+    choices = sorted(json.loads(data)["choices"], key=lambda c: c["index"])
+    texts = [c["text"] for c in choices]
+    if any(len(t) != 16 for t in texts):
+        raise AssertionError(f"[overload] greedy batch texts {texts}")
+    return texts
+
+
+def _ov_fair_share(np, server, base: str, first: dict) -> dict:
+    """(e) The wave again with --fair-share's switch on (light's median
+    TTFT printed beside the FCFS run's); then one tenant's greedy batch
+    gives the same tokens with fair share on and off (a first run fills
+    the prefix cache, so both compared runs hit it alike)."""
+    def fair(on):
+        server.async_engine.run_on_engine(
+            lambda eng: setattr(eng.scheduler.config, "fair_share", on))
+
+    fair(True)
+    ttft_on = _ov_wave(np, base, 32)
+    snap = _ov_json(base, "/debug/overload")["fair_share"]
+    rng = np.random.default_rng(33)
+    prompts = [rng.integers(0, 256, 256).tolist() for _ in range(8)]
+    fair(False)
+    _ov_greedy_batch(base, prompts)
+    off = _ov_greedy_batch(base, prompts)
+    fair(True)
+    on = _ov_greedy_batch(base, prompts)
+    fair(False)
+    if on != off:
+        raise AssertionError("[overload] one tenant: fair share changed "
+                             "the greedy tokens")
+    return {"light_ttft_median_s": {"fcfs": first["light"],
+                                    "fair_share": ttft_on["light"]},
+            "heavy_ttft_median_s": {"fcfs": first["heavy"],
+                                    "fair_share": ttft_on["heavy"]},
+            "admit_pass_after": snap["admit_pass"],
+            "one_tenant_tokens_equal": True}
+
+
+def _ov_brownout(np, base: str) -> dict:
+    """(f) Flood the brownout server from ``heavy`` (4 long ``light``
+    requests in flight too): /debug/overload reaches stage 3; at once a
+    new heavy request gets 429, a light one 200 and a light one asking 200
+    tokens at most 16 (admission applies the stage); the spec sheds count;
+    after the flood the stage returns to 0. Returns the timeline of
+    stages (seconds from the flood's start, stage)."""
+    rng = np.random.default_rng(41)
+    timeline, stop = [], threading.Event()
+
+    def req(tenant, n, max_tokens):
+        return _ov_call(base, "/v1/completions", {
+            "model": "llama-3-8b", "prompt": prompts.pop(), "max_tokens":
+            max_tokens, "temperature": 0.0, "ignore_eos": True},
+            {"x-tenant-id": tenant})
+
+    prompts = [rng.integers(0, 256, 512).tolist() for _ in range(100)]
+    t0 = time.perf_counter()
+
+    def watch():
+        last = None
+        while not stop.is_set():
+            stage = _ov_json(base, "/debug/overload")["brownout"]["stage"]
+            if stage != last:
+                timeline.append((round(time.perf_counter() - t0, 3), stage))
+                last = stage
+            time.sleep(0.05)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    pool = concurrent.futures.ThreadPoolExecutor(100)
+    try:
+        lights = [pool.submit(req, "light", 256, 192) for _ in range(4)]
+        time.sleep(0.2)
+        flood = [pool.submit(req, "heavy", 512, 48) for _ in range(90)]
+        # stage 3, and its shed set applied on the engine thread
+        t_end = time.monotonic() + 60
+        while True:
+            snap = _ov_json(base, "/debug/overload")
+            shed = snap["shed_tenants"]
+            if snap["brownout"]["stage"] == 3 and shed:
+                break
+            if time.monotonic() > t_end:
+                raise AssertionError(f"[overload] stage 3 never reached: "
+                                     f"{timeline}")
+            time.sleep(0.02)
+        heavy = req("heavy", 64, 8)
+        clamp = pool.submit(req, "light", 64, 200)
+        light = pool.submit(req, "light", 64, 8)
+        status, _, data, _, _ = clamp.result()
+        clamped = (json.loads(data)["usage"]["completion_tokens"]
+                   if status == 200 else None)
+        if status != 200 or clamped > 16:
+            raise AssertionError(f"[overload] stage-2 clamp: {status}, "
+                                 f"{clamped} tokens")
+        if heavy[0] != 429 or light.result()[0] != 200 or shed != ["heavy"]:
+            raise AssertionError(
+                f"[overload] stage 3: heavy {heavy[0]}, light "
+                f"{light.result()[0]}, shed set {shed}")
+        flood_codes = collections.Counter(f.result()[0] for f in flood)
+        light_codes = collections.Counter(f.result()[0] for f in lights)
+        t_end = time.monotonic() + 60
+        while timeline[-1][1] != 0:
+            if time.monotonic() > t_end:
+                raise AssertionError(f"[overload] the stage did not return "
+                                     f"to 0: {timeline}")
+            time.sleep(0.05)
+    finally:
+        stop.set()
+        watcher.join(10)
+        pool.shutdown(wait=True)
+    snap = _ov_json(base, "/debug/overload")
+    sheds = {dict(lbl)["reason"]: v for (n, lbl), v in
+             _ov_metrics(base).items() if n == "vllm:brownout_sheds_total"}
+    if sheds.get("spec", 0) <= 0 or sheds.get("tenant", 0) <= 0:
+        raise AssertionError(f"[overload] sheds {sheds}")
+    return {"timeline_s_stage": timeline, "shed_tenants_at_3": shed,
+            "clamped_tokens": clamped,
+            "heavy_retry_after_s": float(heavy[1]["Retry-After"]),
+            "flood_statuses": dict(flood_codes),
+            "light_statuses": dict(light_codes),
+            "sheds": sheds, "transitions": snap["brownout"]["transitions"]}
+
+
+def _ov_metering_cost(torch, np, eng) -> dict:
+    """(g) A 64-row decode step's untraced wall with tenant metering off
+    and on, in turns (off, on, on, off, twice; 32 steps a turn), on the
+    brownout server's engine with its HTTP front end stopped (sampled
+    rows: no drafts, so every step is a plain decode step). The host's
+    pace moves between turns, so each mode's median is printed beside
+    every turn."""
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    rng = np.random.default_rng(51)
+    sp = SamplingParams(temperature=0.8, top_p=0.95, max_tokens=64,
+                        ignore_eos=True)
+    walls = collections.defaultdict(list)
+    for turn, on in enumerate((False, True, True, False) * 2):
+        eng.perf.tenant_metering = on
+        for i in range(64):
+            eng.add_request(f"mc{turn}-{i}", sampling=sp, tenant=f"t{i % 4}",
+                            prompt_token_ids=rng.integers(
+                                0, 256, 128).tolist())
+        d0 = eng.decode_dispatches
+        while eng.decode_dispatches == d0:  # prefill all 64, one decode
+            eng.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(32):
+            eng.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / 32
+        if eng.decode_dispatches - d0 != 33:
+            raise AssertionError("[overload] the metering window ran "
+                                 "ragged steps")
+        walls["on" if on else "off"].append(ms)
+        for rid in list(eng.scheduler.seqs):
+            eng.abort_request(rid)
+    eng.perf.tenant_metering = True
+    return {"decode_64_rows_ms_a_step": dict(walls),
+            "order": "off, on, on, off, off, on, on, off",
+            "median_ms": {k: statistics.median(v) for k, v in walls.items()}}
+
+
+def overload_phase(torch, np, counters, card: str) -> dict:
+    """Phase 12 (``overload``): llama-3-8b, bf16, seed 0, the ragged path,
+    through ``server_from_args``. Server 1 (``--max-queue-len 4
+    --max-num-seqs 8 --fault-injection ""``): (a) deadlines, (b) the queue
+    bound, (c) faults, then, with the queue bound lifted in process, (d)
+    the two-tenant wave and (e) fair share off and on. Server 2
+    (``--speculative-ngram 4 --brownout ...``): (f) the brownout flood,
+    then (g) the metering host cost on its engine. K1-K3 launch, K4 not.
+    Returns the phase's launches."""
+    from production_stack_tpu_torch.engine.server import (
+        build_parser,
+        server_from_args,
+    )
+
+    t_phase = time.perf_counter()
+    out = {}
+    for c in counters:
+        c.n = 0
+    t0 = time.perf_counter()
+    server = server_from_args(build_parser().parse_args(
+        ["--model", "llama-3-8b", "--seed", "0", "--skip-warmup",
+         "--max-queue-len", "4", "--max-num-seqs", "8",
+         "--fault-injection", ""]))
+    base = f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
+    log(f"[overload] server 1 up in {time.perf_counter() - t0:.1f} s: "
+        f"{server.engine.runner.num_blocks} KV blocks")
+    try:
+        out["a_deadlines"] = _ov_deadlines(base, counters)
+        out["b_queue_bound"] = _ov_queue_bound(np, base)
+        out["c_faults"] = _ov_faults(base)
+        server.async_engine.run_on_engine(lambda eng: setattr(
+            eng.scheduler.config, "max_queue_len", 4096))
+        out["d_tenants"] = _ov_tenants(np, base)
+        out["e_fair_share"] = _ov_fair_share(
+            np, server, base, out["d_tenants"]["ttft_median_s"])
+    finally:
+        server.shutdown()
+    del server
+    _released(torch, "overload server 1")
+    t0 = time.perf_counter()
+    server = server_from_args(build_parser().parse_args(
+        ["--model", "llama-3-8b", "--seed", "0", "--skip-warmup",
+         "--speculative-ngram", "4", "--brownout",
+         "--brownout-interval", "0.25", "--brownout-queue-high", "0.05",
+         "--brownout-up-evals", "1", "--brownout-calm-evals", "2",
+         "--brownout-max-tokens-clamp", "16", "--max-queue-len", "64",
+         "--tenant-weights", '{"heavy":1,"light":4}']))
+    base = f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
+    log(f"[overload] server 2 up in {time.perf_counter() - t0:.1f} s")
+    try:
+        out["f_brownout"] = _ov_brownout(np, base)
+    finally:
+        server.shutdown()
+    out["g_metering"] = _ov_metering_cost(torch, np, server.engine)
+    launches = {c.name.split()[0]: c.n for c in counters}
+    del server
+    _released(torch, "overload server 2")
+    _expect(launches, {"K1", "K2", "K3"}, "overload")
+    log(f"[overload] ({card}) in {time.perf_counter() - t_phase:.1f} s: "
+        + json.dumps({**out, "launches": launches}))
+    return launches
+
+
 def _expect(launches: dict, expected: set, tag: str) -> None:
     for key, n in launches.items():
         if (n > 0) != (key in expected):
@@ -4093,6 +4652,7 @@ def main() -> int:
     by_path["kv-plane"] = kv_plane_phase(torch, np, counters, card)
     by_path["scoring-surface"] = scoring_phase(torch, np, counters, card)
     by_path["whisper"] = whisper_phase(torch, np, counters, card)
+    by_path["overload"] = overload_phase(torch, np, counters, card)
 
     kernels = []
     for r in results:

@@ -22,6 +22,14 @@ read.
 Sleep mode (``sleep``, ``wake_up``, ``is_sleeping``): while ``paused`` the
 engine thread runs control-plane calls but no step, so a request admitted
 while asleep waits for ``wake_up``, as in the reference.
+
+A request carries its tenant into the engine (the sixth field of an
+``admit_batch`` tuple, ``attach_spliced``'s ``tenant``). A stream given a
+``deadline`` (epoch seconds, the router's ``x-request-deadline``) raises
+``DeadlineExceeded`` from its iterator once the deadline passes with no
+output waiting: the reference's ``asyncio.wait_for`` as a timed wait on
+the stream's queue. The caller then aborts the request (``abort``), which
+frees its KV blocks.
 """
 
 from __future__ import annotations
@@ -46,19 +54,35 @@ class EngineStepError(RuntimeError):
     the request was in flight."""
 
 
-class RequestStream:
-    """Outputs of one request, in order, until the finished one."""
+class DeadlineExceeded(Exception):
+    """A request's deadline passed before it finished (or, raised by the
+    server, before it was admitted)."""
 
-    def __init__(self, request_id: str):
+
+class RequestStream:
+    """Outputs of one request, in order, until the finished one. With a
+    ``deadline`` (epoch seconds) the iterator raises DeadlineExceeded
+    once it passes with no output waiting."""
+
+    def __init__(self, request_id: str, deadline: Optional[float] = None):
         self.request_id = request_id
+        self.deadline = deadline
         self._q: queue.Queue = queue.Queue()
 
     def put(self, item) -> None:
         self._q.put(item)
 
+    def _get(self):
+        if self.deadline is None:
+            return self._q.get()
+        try:
+            return self._q.get(timeout=max(self.deadline - time.time(), 0.0))
+        except queue.Empty:
+            raise DeadlineExceeded("request deadline exceeded") from None
+
     def __iter__(self) -> Iterator[RequestOutput]:
         while True:
-            item = self._q.get()
+            item = self._get()
             if isinstance(item, BaseException):
                 raise item
             yield item
@@ -200,9 +224,9 @@ class AsyncEngine:
         self, reqs: list[tuple]
     ) -> list[RequestStream]:
         """Admit every (request_id, prompt_token_ids, sampling[,
-        adapter_slot[, pin_on_finish]]) or none: if one is refused, the
-        ones already added are aborted and the error is raised to the
-        caller before it answers."""
+        adapter_slot[, pin_on_finish[, tenant]]]) or none: if one is
+        refused, the ones already added are aborted and the error is raised
+        to the caller before it answers."""
         with self._entry():
             added: list[str] = []
             try:
@@ -210,7 +234,8 @@ class AsyncEngine:
                     self.engine.add_request(
                         rid, prompt_token_ids=prompt_ids, sampling=sampling,
                         adapter_slot=rest[0] if rest else 0,
-                        pin_on_finish=len(rest) > 1 and bool(rest[1]))
+                        pin_on_finish=len(rest) > 1 and bool(rest[1]),
+                        tenant=rest[2] if len(rest) > 2 else "anonymous")
                     added.append(rid)
             except Exception:
                 for rid in added:
@@ -226,7 +251,8 @@ class AsyncEngine:
 
     def attach_spliced(self, request_id: str, prompt_token_ids: list[int],
                        first_token: int, sampling, blocks: list[int],
-                       adapter_slot: int = 0) -> RequestStream:
+                       adapter_slot: int = 0,
+                       tenant: str = "anonymous") -> RequestStream:
         """Splice a landed P->D transfer in as a decode row
         (``LLMEngine.splice_request``) and return its stream. On failure
         (no decode slot, bad lengths) nothing is registered, the error is
@@ -234,7 +260,8 @@ class AsyncEngine:
         with self._entry():
             self.engine.splice_request(request_id, prompt_token_ids,
                                        first_token, sampling, blocks,
-                                       adapter_slot=adapter_slot)
+                                       adapter_slot=adapter_slot,
+                                       tenant=tenant)
             stream = RequestStream(request_id)
             self._streams[request_id] = stream
             self._cv.notify_all()

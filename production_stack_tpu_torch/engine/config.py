@@ -468,6 +468,22 @@ class SchedulerConfig:
     spec_ngram_min: int = 1
     # trailing history tokens the proposer searches
     spec_window: int = 4096
+    # per-tenant fair share: with it on and at least two tenants present,
+    # the unified prefill budget is split deficit-round-robin by tenant
+    # weight and the waiting queue dequeues weighted-fair instead of FIFO.
+    # Off by default; with one tenant both reduce to the FCFS schedule
+    # exactly. Host-side ordering only, never a new step signature
+    fair_share: bool = False
+    # tenant -> relative weight (unlisted tenants weigh 1.0); shared with
+    # the stage-3 brownout over-weight shed set
+    tenant_weights: dict = dataclasses.field(default_factory=dict)
+
+    def tenant_weight(self, tenant: str) -> float:
+        try:
+            w = float(self.tenant_weights.get(tenant, 1.0))
+        except (TypeError, ValueError):
+            return 1.0
+        return w if w > 0 else 1.0
 
     @property
     def decode_horizon(self) -> int:
@@ -551,6 +567,18 @@ class EngineConfig:
     kv_transfer_window: int = 2
     kv_transfer_retries: int = 3
     kv_transfer_ttl: float = 120.0
+    # the tenant attribution plane (tenancy.py): per-tenant token and
+    # chip-second metering in the perf accountant, plus the per-request
+    # usage ledger. Observe-only: turning it off changes no scheduling
+    # decision and no fleet-total metric
+    tenant_metering: bool = True
+    # tenants every per-tenant export keeps by name; the rest fold into
+    # tenant="other"
+    tenant_top_k: int = 8
+    # the usage ledger: rotating JSONL of per-request usage records; an
+    # empty path turns the ledger off (the metering gauges stay)
+    tenant_ledger_path: str = ""
+    tenant_ledger_max_bytes: int = 16 << 20
 
     @staticmethod
     def for_model(name: str, **kw) -> "EngineConfig":
@@ -563,7 +591,9 @@ class EngineConfig:
                       "max_loras", "max_lora_rank", "max_grammars",
                       "max_grammar_states", "perf", "role",
                       "kv_transfer_group_layers", "kv_transfer_window",
-                      "kv_transfer_retries", "kv_transfer_ttl")
+                      "kv_transfer_retries", "kv_transfer_ttl",
+                      "tenant_metering", "tenant_top_k",
+                      "tenant_ledger_path", "tenant_ledger_max_bytes")
                      if k in kw}
         return EngineConfig(model=ModelConfig.from_pretrained(name, **kw),
                             **engine_kw)

@@ -38,8 +38,15 @@ for P->D disaggregation.
 The dense scoring surface (``embed``, ``choice_logprobs``,
 ``prompt_logprobs``) pads each call to a size class and runs the runner's
 dense forward; sleep mode (``sleep_mode``, ``wake_mode``) drops the pool,
-and at level 2 the weights, and makes them again. Ring prefill, the
-brownout's speculation shedding and the tenant plane are not ported yet.
+and at level 2 the weights, and makes them again.
+
+The tenant plane (tenancy.py): every request carries its ``tenant``; each
+dispatch bills its rows' tokens and wall seconds to their tenants through
+the perf accountant (``_tenant_map``) and to each sequence
+(``_attribute_seq_seconds``, the usage ledger's chip-seconds), and
+``tenant_stats()`` exports the folded table. The brownout's stage 2 sets
+``prefetch_paused``: an admitted sequence then starts no tier prefetch and
+prefills cold. Ring prefill is not ported (one card).
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ import numpy as np
 import torch
 
 from production_stack_tpu_torch.engine import grammar as G
+from production_stack_tpu_torch.tenancy import split_shares
 from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.kv_cache import (
     HASH_SEED,
@@ -228,6 +236,10 @@ class LLMEngine:
         # dispatch reuses them (_flush_demotions)
         self._demote_queue: list[tuple[int, int]] = []
         self.hbm_demotions = 0
+        # brownout stage 2+ (engine/overload.py): start no new tier
+        # prefetch; an admitted sequence prefills cold instead
+        self.prefetch_paused = False
+        self.prefetch_shed_count = 0
         self.prefetch_blocks = 0
         self.prefetch_count = 0
         self.prefetch_seconds_sum = 0.0
@@ -257,10 +269,12 @@ class LLMEngine:
         sampling: Optional[SamplingParams] = None,
         adapter_slot: int = 0,
         pin_on_finish: bool = False,
+        tenant: str = "anonymous",
     ) -> Sequence:
         """Queue a request. ``pin_on_finish``: a P->D producer's blocks
         keep a reference after it finishes (``Sequence.pin_on_finish``);
-        the caller frees them after its push."""
+        the caller frees them after its push. ``tenant``: the identity the
+        attribution plane and fair share read."""
         if prompt_token_ids is None:
             if prompt is None:
                 raise ValueError("prompt or prompt_token_ids required")
@@ -287,6 +301,7 @@ class LLMEngine:
                 sampling, seed=int.from_bytes(os.urandom(4), "little"))
         seq = Sequence(request_id, list(prompt_token_ids), sampling,
                        adapter_slot=adapter_slot,
+                       tenant=tenant or "anonymous",
                        prefix_root=self.runner.lora_roots[adapter_slot],
                        pin_on_finish=pin_on_finish,
                        token_ctrl=make_token_controls(
@@ -541,6 +556,10 @@ class LLMEngine:
         # the accountant's live counts: prefill tokens, post-chunk contexts
         # and rows; decode contexts; draft tokens and post-span contexts
         p_tokens = p_ctx = p_rows = d_ctx = sp_tokens = sp_ctx = 0
+        # (seq, phase, goodput, live) a packed row: the tenant shares of
+        # this dispatch (drafts carry live weight but no goodput; they
+        # become goodput only if accepted, via record_spec_accepted)
+        t_entries: list[tuple] = []
         for slot in range(B):
             ent = rows.get(slot)
             if ent is None:
@@ -573,6 +592,7 @@ class LLMEngine:
                     sp_tokens += len(drafts)
                     sp_ctx += pos + n
                 d_ctx += pos + 1
+                t_entries.append((seq, "decode", 1, n))
             else:
                 sp = obj
                 seq = sp.seq
@@ -595,6 +615,7 @@ class LLMEngine:
                 p_tokens += n
                 p_ctx += start + n
                 p_rows += 1
+                t_entries.append((seq, "prefill", n, n))
             self._r_adapter_ids[cu : cu + n] = seq.adapter_slot
             cu += n
             nb = len(seq.block_ids)
@@ -637,10 +658,13 @@ class LLMEngine:
         if self.perf is not None:
             # verify spans are prefill-shaped work with zero goodput;
             # accepted drafts land as decode goodput at resolve time
+            dispatch_s = time.monotonic() - t_dispatch
             self.perf.record_ragged(p_tokens, p_ctx, p_rows, len(decodes),
                                     d_ctx, spec_tokens=sp_tokens,
                                     spec_ctx=sp_ctx, spec_rows=len(spec_rows),
-                                    seconds=time.monotonic() - t_dispatch)
+                                    seconds=dispatch_s,
+                                    tenants=self._tenant_map(t_entries))
+            self._attribute_seq_seconds(dispatch_s, t_entries)
         self.ragged_dispatches += 1
         self.ragged_live_tokens += cu
 
@@ -674,6 +698,7 @@ class LLMEngine:
             "decode_rows": decode_rows,
             "spec_rows": spec_rows,
             "result": result,
+            "tenant_entries": t_entries,
         }
         if spec_rows:
             # acceptance decides how far each spec row advanced, and the
@@ -695,7 +720,18 @@ class LLMEngine:
             return []
         pending = self._pending_ragged
         self._pending_ragged = None
+        t_fetch = time.monotonic()
         fetched = [x.cpu().numpy() for x in pending["result"]]
+        if self.perf is not None:
+            # the blocking result fetch is dispatch wall time too, billed
+            # by the same live-token shares
+            entries = pending["tenant_entries"]
+            fetch_s = time.monotonic() - t_fetch
+            tmap = self._tenant_map(entries)
+            if tmap:
+                self.perf.attribute_seconds(
+                    {t: rec["live"] for t, rec in tmap.items()}, fetch_s)
+            self._attribute_seq_seconds(fetch_s, entries)
         sampled = fetched[0]
         if pending["spec_rows"]:
             verify, lp = fetched[1], fetched[2:]
@@ -728,7 +764,8 @@ class LLMEngine:
             if self.perf is not None and len(new_toks) > 1:
                 # the guaranteed token was counted as decode goodput at
                 # dispatch; accepted drafts land here
-                self.perf.record_spec_accepted(len(new_toks) - 1)
+                self.perf.record_spec_accepted(len(new_toks) - 1,
+                                               tenant=seq.tenant)
             live.append(seq)
             token_lists.append(new_toks)
             lp_lists.append(None)  # spec rows never ask for logprobs
@@ -819,9 +856,14 @@ class LLMEngine:
             g_ids=g_ids if use_grammar else None,
         )
         if self.perf is not None:
+            dispatch_s = time.monotonic() - t_dispatch
+            entries = [(sp.seq, "prefill", sp.chunk_len, sp.chunk_len)
+                       for sp in prefills]
             self.perf.record_prefill(
                 sum(sp.chunk_len for sp in prefills), int(context_lens.sum()),
-                len(prefills), seconds=time.monotonic() - t_dispatch)
+                len(prefills), seconds=dispatch_s,
+                tenants=self._tenant_map(entries))
+            self._attribute_seq_seconds(dispatch_s, entries)
         self.prefill_dispatches += 1
         self.prefill_live_tokens += sum(sp.chunk_len for sp in prefills)
         self.prefill_padded_tokens += P * bucket
@@ -926,10 +968,13 @@ class LLMEngine:
             g_states=self._g_states if use_grammar else None,
         )
         if self.perf is not None:
+            dispatch_s = time.monotonic() - t_dispatch
+            K = max(self.config.scheduler.multi_step, 1)
+            entries = [(seq, "decode", K, K) for seq in decodes]
             self.perf.record_decode(
-                len(decodes), max(self.config.scheduler.multi_step, 1),
-                int(self._context_lens.sum()),
-                seconds=time.monotonic() - t_dispatch)
+                len(decodes), K, int(self._context_lens.sum()),
+                seconds=dispatch_s, tenants=self._tenant_map(entries))
+            self._attribute_seq_seconds(dispatch_s, entries)
         self.decode_dispatches += 1
         sampled, lp = (result[0], result[1:]) if use_logprobs else (result, None)
         live, token_lists, lp_lists = [], [], []
@@ -957,6 +1002,35 @@ class LLMEngine:
             lp_lists.append(new_lps)
         return self._postprocess(live, token_lists, lp_lists)
 
+    # -- tenant attribution (observe-only; tenancy.py) ------------------------
+    def _tenant_map(self, entries) -> Optional[dict]:
+        """Per-tenant token shares of one dispatch, from ``(seq, phase,
+        goodput_tokens, live_tokens)`` rows: goodput feeds the per-tenant
+        phase counters, live tokens weight the chip-second split. None
+        when metering is off (the record_* calls then attribute
+        nothing)."""
+        if self.perf is None or not self.perf.tenant_metering:
+            return None
+        tmap: dict = {}
+        for seq, phase, goodput, live in entries:
+            rec = tmap.setdefault(
+                seq.tenant, {"prefill": 0, "decode": 0, "live": 0})
+            rec[phase] += goodput
+            rec["live"] += live
+        return tmap
+
+    def _attribute_seq_seconds(self, seconds: float, entries) -> None:
+        """Split one dispatch's wall time over its sequences by the same
+        live-token weights as the tenant split; a sequence's sum lands in
+        its usage-ledger record at finish."""
+        if (self.perf is None or not self.perf.tenant_metering
+                or seconds <= 0 or not entries):
+            return
+        shares = split_shares(
+            seconds, {seq.request_id: live for seq, _, _, live in entries})
+        for seq, _, _, _ in entries:
+            seq.chip_seconds += shares.get(seq.request_id, 0.0)
+
     def _postprocess(self, seqs: list[Sequence], token_lists: list[list[int]],
                      lp_lists: list) -> list[RequestOutput]:
         outputs = []
@@ -970,6 +1044,9 @@ class LLMEngine:
                 self.scheduler.finish(seq, status)
                 self._release_grammar(seq)
                 seq.finish_time = time.monotonic()
+                if self.perf is not None and seq.admit_time is not None:
+                    self.perf.note_request(
+                        seq.tenant, seq.admit_time - seq.arrival_time)
             done = status is not None
             outputs.append(RequestOutput(
                 request_id=seq.request_id,
@@ -979,6 +1056,8 @@ class LLMEngine:
                 num_prompt_tokens=seq.num_prompt_tokens,
                 num_output_tokens=len(seq.output_token_ids),
                 num_cached_tokens=seq.num_cached_tokens,
+                tenant=seq.tenant,
+                chip_seconds=seq.chip_seconds,
                 block_ids=seq.released_block_ids if done else None,
                 arrival_time=seq.arrival_time if done else None,
                 admit_time=seq.admit_time if done else None,
@@ -1027,7 +1106,11 @@ class LLMEngine:
     def _start_tier_prefetch(self, seq: Sequence) -> None:
         """Admission hook: start the tier lookup and park the sequence in
         PREFETCHING until it lands; a cold tier delays only this
-        sequence's prefill."""
+        sequence's prefill. Under brownout stage 2+ (``prefetch_paused``)
+        no fetch starts and the sequence prefills cold."""
+        if self.prefetch_paused:
+            self.prefetch_shed_count += 1
+            return
         if self._prefetcher.submit(seq) is not None:
             seq.status = SequenceStatus.PREFETCHING
 
@@ -1173,7 +1256,8 @@ class LLMEngine:
 
     def splice_request(self, request_id: str, prompt_token_ids: list[int],
                        first_token: int, sampling: SamplingParams,
-                       blocks: list[int], adapter_slot: int = 0) -> Sequence:
+                       blocks: list[int], adapter_slot: int = 0,
+                       tenant: str = "anonymous") -> Sequence:
         """Turn a landed P->D transfer into a decode row: the prompt is
         computed and the prefill's first token is already the first
         output, so the next step decodes it; no re-prefill.
@@ -1192,6 +1276,7 @@ class LLMEngine:
                 sampling, seed=int.from_bytes(os.urandom(4), "little"))
         seq = Sequence(request_id, list(prompt_token_ids), sampling,
                        adapter_slot=adapter_slot,
+                       tenant=tenant or "anonymous",
                        prefix_root=self.runner.lora_roots[adapter_slot],
                        token_ctrl=make_token_controls(
                            sampling, self.config.model.vocab_size))
@@ -1224,8 +1309,8 @@ class LLMEngine:
     # -- metrics (the /metrics contract) -------------------------------------
     def stats(self) -> dict:
         """Host counters for the exposition, with the reference's keys,
-        the tiers' snapshot (``kv_tier``) when a tier is on, and ``perf``,
-        the accountant's fields."""
+        the tiers' snapshot (``kv_tier``) when a tier is on, ``perf``, the
+        accountant's fields, and ``tenants``, the folded tenant table."""
         alloc = self.scheduler.allocator
         out = {
             "num_requests_running": self.scheduler.num_running,
@@ -1279,7 +1364,20 @@ class LLMEngine:
             out["kv_tier"] = self.tier_stats()
         if self.perf is not None:
             out["perf"] = self.perf.stats_fields()
+            out["tenants"] = self.tenant_stats()
         return out
+
+    def tenant_stats(self) -> dict:
+        """The attribution snapshot (tokens by phase, chip-seconds, live
+        KV blocks, request and queue-time sums), folded to the top K: the
+        source of the ``vllm:tenant_*`` families and ``/debug/tenants``.
+        Empty-shaped when perf accounting is off."""
+        if self.perf is None:
+            return {"enabled": False, "tenants": {}}
+        kv: dict[str, int] = {}
+        for seq in list(self.scheduler.seqs.values()):
+            kv[seq.tenant] = kv.get(seq.tenant, 0) + len(seq.block_ids)
+        return self.perf.tenant_fields(kv_blocks=kv)
 
     def tier_stats(self) -> dict:
         """The tiers' snapshot: hit, query, demotion and eviction counters
@@ -1513,17 +1611,20 @@ class LLMEngine:
         sampling: Optional[SamplingParams] = None,
         max_steps: int = 100_000,
         adapter_slot: int = 0,
+        tenant: str = "anonymous",
     ) -> dict[str, list[int]]:
         seqs = {}
         for i, p in enumerate(prompts):
             rid = f"offline-{i}"
             if isinstance(p, str):
                 seqs[rid] = self.add_request(rid, prompt=p, sampling=sampling,
-                                             adapter_slot=adapter_slot)
+                                             adapter_slot=adapter_slot,
+                                             tenant=tenant)
             else:
                 seqs[rid] = self.add_request(rid, prompt_token_ids=p,
                                              sampling=sampling,
-                                             adapter_slot=adapter_slot)
+                                             adapter_slot=adapter_slot,
+                                             tenant=tenant)
         for _ in range(max_steps):
             if not self.has_unfinished():
                 break

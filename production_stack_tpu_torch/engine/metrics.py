@@ -2,12 +2,13 @@
 
 Ports the exposition of production_stack_tpu/engine/metrics.py that the
 router scrapes (``router/stats.py``) for the families whose state this
-package has: ``EngineStatsCollector`` without its tenant block (the perf
-and KV-tier families included), ``LifecycleCollector``, and
-``ServerMetrics``' latency and KV-transfer histograms with the same bucket
-edges. Names, types, label names and values are the reference's. The
-tenant, diagnostics and overload families are not ported yet: their
-subsystems are not.
+package has: ``EngineStatsCollector`` (the perf, KV-tier and tenant
+families included; the tenant rows folded to ``tenant_top_k`` +
+``other``), ``LifecycleCollector``, ``OverloadCollector`` (the brownout
+and fair-share families) and ``ServerMetrics``' latency and KV-transfer
+histograms with the same bucket edges. Names, types, label names and
+values are the reference's. The diagnostics families are not ported yet:
+their subsystem is not.
 
 The card's machine has no ``prometheus_client``, so this module writes the
 text exposition format (version 0.0.4) itself, as the reference's
@@ -27,6 +28,8 @@ from __future__ import annotations
 import math
 import threading
 from typing import Callable, Optional
+
+from production_stack_tpu_torch.tenancy import fold_records
 
 CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
@@ -84,8 +87,8 @@ class Family:
 
 
 def engine_families(s: dict, model_name: str) -> list[Family]:
-    """The families of the reference's ``EngineStatsCollector.collect``
-    up to its tenant block, from one ``LLMEngine.stats()`` snapshot."""
+    """The families of the reference's ``EngineStatsCollector.collect``,
+    from one ``LLMEngine.stats()`` snapshot."""
     lv = [model_name]
     out: list[Family] = []
 
@@ -246,7 +249,72 @@ def engine_families(s: dict, model_name: str) -> list[Family]:
                 "Sustained cost-model drift episodes (windowed ratio left "
                 "the configured band relative to its baseline; one count "
                 "per excursion)", cm.get("episodes", 0))
+    tn = s.get("tenants")
+    if tn and tn.get("enabled") and tn.get("tenants"):
+        out += tenant_families(tn, model_name)
     return out
+
+
+def tenant_families(tn: dict, model_name: str) -> list[Family]:
+    """The reference's tenant block from ``LLMEngine.tenant_stats()``: its
+    rows folded again to ``top_k`` + ``other`` (idempotent on a folded
+    table), so the label set stays bounded."""
+    folded = fold_records(tn["tenants"], k=tn.get("top_k", 8),
+                          weight_key="chip_seconds")
+    tok = Family("vllm:tenant_tokens", "counter",
+                 "Live tokens attributed per tenant and phase (prefill "
+                 "chunk tokens / decode goodput incl. accepted drafts); "
+                 "sums to the vllm:tokens_per_second totals",
+                 ["model_name", "tenant", "phase"])
+    chip = Family("vllm:tenant_chip_seconds", "counter",
+                  "Chip-seconds attributed per tenant: each dispatch's wall "
+                  "time split by the tenant's live-token share of the packed "
+                  "stream (conserves: per-tenant sum == total dispatch "
+                  "seconds)", ["model_name", "tenant"])
+    kvb = Family("vllm:tenant_kv_blocks", "gauge",
+                 "KV blocks currently held by each tenant's live sequences",
+                 ["model_name", "tenant"])
+    queue = Family("vllm:tenant_queue_time_seconds", "summary",
+                   "Queue wait (arrival to scheduler admission) per tenant "
+                   "over finished requests", ["model_name", "tenant"])
+    for tenant, row in sorted(folded.items()):
+        tok.add([model_name, tenant, "prefill"], row.get("prefill_tokens", 0))
+        tok.add([model_name, tenant, "decode"], row.get("decode_tokens", 0))
+        chip.add([model_name, tenant], row.get("chip_seconds", 0.0))
+        kvb.add([model_name, tenant], row.get("kv_blocks", 0))
+        queue.add([model_name, tenant], row.get("requests", 0), "_count")
+        queue.add([model_name, tenant], row.get("queue_seconds_sum", 0.0),
+                  "_sum")
+    return [tok, chip, kvb, queue]
+
+
+def overload_families(s: dict, model_name: str) -> list[Family]:
+    """The reference's ``OverloadCollector`` families from the server's
+    overload snapshot: the brownout stage, its sheds by reason and the
+    fair-share deficits by tenant (bounded upstream: a deficit exists only
+    for a tenant with pending work)."""
+    b = s.get("brownout") or {}
+    stage = Family("vllm:brownout_stage", "gauge",
+                   "Current staged-degradation level (0 healthy; 1 "
+                   "spec-decode grants shed; 2 + max_tokens clamped, KV "
+                   "prefetch paused; 3 + over-weight tenants' new "
+                   "admissions shed)", ["model_name", "tier"])
+    stage.add([model_name, "engine"], float(b.get("stage", 0)))
+    sheds = Family("vllm:brownout_sheds", "counter",
+                   "Work shed by the brownout ladder, by reason (spec grants "
+                   "suppressed, max_tokens clamps, prefetches skipped, "
+                   "tenant admissions refused)",
+                   ["model_name", "reason", "tier"])
+    for reason, count in sorted((b.get("sheds") or {}).items()):
+        sheds.add([model_name, reason, "engine"], count)
+    deficit = Family("vllm:fair_share_deficit", "gauge",
+                     "Carried deficit-round-robin credit per tenant, in "
+                     "stream tokens (positive = the tenant is owed budget "
+                     "next dispatch)", ["model_name", "tenant"])
+    fair = s.get("fair_share") or {}
+    for tenant, value in sorted((fair.get("deficits") or {}).items()):
+        deficit.add([model_name, tenant], value)
+    return [stage, sheds, deficit]
 
 
 def tier_families(kv_tier: dict, model_name: str) -> list[Family]:
@@ -394,6 +462,7 @@ class ServerMetrics:
         self.engine = engine
         self.model_name = model_name
         self._lifecycle: Optional[Callable[[], dict]] = None
+        self._overload: Optional[Callable[[], dict]] = None
         self.ttft = Histogram("vllm:time_to_first_token_seconds",
                               "Time to first token", BUCKETS_TTFT)
         self.tpot = Histogram("vllm:time_per_output_token_seconds",
@@ -434,6 +503,10 @@ class ServerMetrics:
     def register_lifecycle(self, source: Callable[[], dict]) -> None:
         """Attach the drain/watchdog/warmup snapshot source."""
         self._lifecycle = source
+
+    def register_overload(self, source: Callable[[], dict]) -> None:
+        """Attach the brownout/fair-share snapshot source."""
+        self._overload = source
 
     def observe_transfer(self, direction: str, nbytes: int,
                          seconds: float) -> None:
@@ -482,6 +555,8 @@ class ServerMetrics:
         fams += self.transfer_families()
         if self._lifecycle is not None:
             fams += lifecycle_families(self._lifecycle(), self.model_name)
+        if self._overload is not None:
+            fams += overload_families(self._overload(), self.model_name)
         return fams
 
     def generate(self) -> bytes:

@@ -26,8 +26,16 @@ MoE model every parameter outside the expert stacks plus k/X of them,
 where the reference counts every expert for every token; on a dense model
 the two counts are equal. Bytes count each leaf at its own element size,
 int8 weights and their float32 scales included.
-The reference's tenant attribution plane is not ported yet; the
-``record_*`` calls keep its ``tenants=`` argument and ignore it.
+
+The tenant attribution plane is the reference's: each ``record_*`` call's
+``tenants`` (per-tenant ``{"prefill", "decode", "live"}`` token shares of
+the dispatch) bills prefill and decode tokens to their tenants and splits
+the dispatch's wall ``seconds`` by live-token share with exact
+conservation (``tenancy.split_shares``), so per-tenant chip-seconds sum to
+the attributed dispatch seconds. The table is bounded: past
+``_tenant_cap`` rows the smallest fold into ``"other"``, rows idle past
+``tenant_idle_expiry`` fold there too, and every export folds again to
+``tenant_top_k`` (``tenant_fields``).
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from production_stack_tpu_torch.engine.config import (
     H100_PEAK_NVLINK_GBPS,
     H100_PEAK_TFLOPS,
 )
+from production_stack_tpu_torch.tenancy import OTHER, fold_records, split_shares
 
 _EVENT_TAIL = 64  # compile events kept verbatim for /debug/perf
 
@@ -172,7 +181,8 @@ class PerfAccountant:
                  window: float = 60.0, peak_tflops: float = 0.0,
                  peak_hbm_gbps: float = 0.0, hbm_poll_interval: float = 5.0,
                  peak_ici_gbps: float = 0.0, device=None,
-                 active_param_count: Optional[int] = None):
+                 active_param_count: Optional[int] = None,
+                 tenant_metering: bool = True, tenant_top_k: int = 8):
         self.window = max(window, 1.0)
         # one card, no tensor parallelism, until the port runs across
         # cards; the arithmetic below keeps the reference's terms for both
@@ -252,6 +262,21 @@ class PerfAccountant:
         }
         self._drift_baseline: Dict[str, float] = {}
         self._drift_out: Dict[str, bool] = {}
+        # -- tenant attribution plane (tenancy.py) --------------------------
+        # Per-tenant cumulative counters fed by the record_* calls that
+        # bill the window. Observe-only: turning it off changes nothing
+        # outside self._tenants / self._tenant_seconds. Bounded: past
+        # _tenant_cap the smallest records fold into "other" (sums kept),
+        # and every export folds again to tenant_top_k.
+        self.tenant_metering = bool(tenant_metering)
+        self.tenant_top_k = max(int(tenant_top_k), 1)
+        self._tenant_cap = max(4 * self.tenant_top_k, 64)
+        self._tenants: Dict[str, Dict[str, float]] = {}
+        self._tenant_seconds = 0.0  # total attributed dispatch seconds
+        # last activity per tenant: rows idle past tenant_idle_expiry fold
+        # into "other" (6 h, the router tracker's bin horizon)
+        self.tenant_idle_expiry = 21600.0
+        self._tenant_seen: Dict[str, float] = {}
 
     @classmethod
     def from_runner(cls, config, runner) -> "PerfAccountant":
@@ -275,7 +300,9 @@ class PerfAccountant:
                    hbm_poll_interval=perf.hbm_poll_interval,
                    peak_ici_gbps=perf.peak_ici_gbps,
                    device=getattr(runner, "device", None),
-                   active_param_count=active)
+                   active_param_count=active,
+                   tenant_metering=config.tenant_metering,
+                   tenant_top_k=config.tenant_top_k)
         acct.costmodel_drift_band = perf.costmodel_drift_band
         return acct
 
@@ -316,7 +343,9 @@ class PerfAccountant:
                        tenants: Optional[dict] = None) -> None:
         """One prefill dispatch: ``live_tokens`` real prompt tokens over
         ``rows`` chunks whose post-chunk context lengths sum to
-        ``ctx_tokens``. ``seconds`` is the dispatch's wall time."""
+        ``ctx_tokens``. ``seconds`` is the dispatch's wall time and
+        ``tenants`` its per-tenant token shares (the attribution plane's
+        only inputs)."""
         ctx_mean = ctx_tokens / max(rows, 1)
         flops = (2.0 * self.active_param_count * live_tokens
                  + self._attn_per_tok_ctx * live_tokens * ctx_mean)
@@ -329,6 +358,7 @@ class PerfAccountant:
         self._note_costmodel(
             ts, [("prefill", self._predicted_seconds(flops, hbm, ar + ag))],
             seconds)
+        self.attribute_tenants(seconds, tenants)
 
     def record_decode(self, live_seqs: int, steps: int, ctx_tokens: int,
                       ts: Optional[float] = None, *,
@@ -349,6 +379,7 @@ class PerfAccountant:
         self._note_costmodel(
             ts, [("decode", self._predicted_seconds(flops, hbm, ar + ag))],
             seconds)
+        self.attribute_tenants(seconds, tenants)
 
     def record_ragged(self, prefill_tokens: int, prefill_ctx: int,
                       prefill_rows: int, decode_seqs: int, decode_ctx: int,
@@ -370,9 +401,11 @@ class PerfAccountant:
         are prefill-shaped work costed into the prefill event with zero
         goodput tokens: accepted drafts land as decode goodput through
         ``record_spec_accepted``. ``seconds`` is the fused dispatch's wall
-        time, split over the two events by predicted share."""
+        time, split over the two events by predicted share, and over the
+        tenants by their live-token share of the stream."""
         if prefill_tokens <= 0 and decode_seqs <= 0 and spec_tokens <= 0:
             return
+        self.attribute_tenants(seconds, tenants)
         predicted: List[Tuple[str, float]] = []
         if prefill_tokens > 0 or spec_tokens > 0:
             ctx_mean = prefill_ctx / max(prefill_rows, 1)
@@ -419,6 +452,8 @@ class PerfAccountant:
             self._events.append((now, "decode", 0.0, 0.0, tokens, 0.0))
             self._totals["decode_tokens"] += tokens
             self._trim(now)
+        if tenant is not None:
+            self.attribute_tenants(0.0, {tenant: {"decode": tokens}})
 
     # -- cost-model drift detection ------------------------------------------
     def _predicted_seconds(self, flops: float, hbm: float,
@@ -510,6 +545,128 @@ class PerfAccountant:
             "out_of_band": sorted(p for p, o in self._drift_out.items()
                                   if o),
             "episodes": self._costmodel["episodes"],
+        }
+
+    # -- tenant attribution --------------------------------------------------
+    def attribute_tenants(self, seconds: float,
+                          tenants: Optional[dict]) -> None:
+        """Bill one dispatch to its tenants: per-tenant prefill/decode
+        goodput tokens accumulate directly, and the dispatch's wall
+        ``seconds`` split by each tenant's ``live`` token share
+        (tenancy.split_shares — parts sum to ``seconds`` bit-exactly, the
+        conservation invariant). No-op when metering is off or the
+        dispatch carried no tenant map (bucketed warmup probes)."""
+        if not self.tenant_metering or not tenants:
+            return
+        live = {t: rec.get("live", 0) for t, rec in tenants.items()
+                if rec.get("live", 0) > 0}
+        shares = split_shares(seconds, live) if seconds > 0 else {}
+        now = time.monotonic()
+        with self._lock:
+            for t, rec in tenants.items():
+                row = self._tenant_row(t)
+                row["prefill_tokens"] += int(rec.get("prefill", 0))
+                row["decode_tokens"] += int(rec.get("decode", 0))
+                row["chip_seconds"] += shares.get(t, 0.0)
+                self._tenant_seen[t] = now
+            self._tenant_seconds += sum(shares.values())
+            self._bound_tenants(now)
+
+    def _tenant_row(self, tenant: str) -> dict:
+        return self._tenants.setdefault(
+            tenant, {"prefill_tokens": 0, "decode_tokens": 0,
+                     "chip_seconds": 0.0, "requests": 0,
+                     "queue_seconds_sum": 0.0})
+
+    def _bound_tenants(self, now: Optional[float] = None) -> None:
+        self.expire_idle_tenants(now, _locked=True)
+        if len(self._tenants) > self._tenant_cap:
+            # bound the *internal* table too, not just the export: fold
+            # the smallest records into "other" (sums conserved)
+            self._tenants = fold_records(
+                self._tenants, k=self._tenant_cap // 2,
+                weight_key="chip_seconds")
+            self._tenant_seen = {t: ts for t, ts in
+                                 self._tenant_seen.items()
+                                 if t in self._tenants}
+
+    def expire_idle_tenants(self, now: Optional[float] = None,
+                            _locked: bool = False) -> int:
+        """Fold tenants idle past ``tenant_idle_expiry`` (6h, the router
+        tracker's bin horizon) into the ``"other"`` row. Cumulative sums
+        conserve — only the identity is forgotten — and the cap slots
+        recycle under identity churn instead of pinning every tenant
+        ever seen for the life of the process. Returns the number
+        expired."""
+        now = now if now is not None else time.monotonic()
+        if not _locked:
+            with self._lock:
+                return self.expire_idle_tenants(now, _locked=True)
+        cutoff = now - self.tenant_idle_expiry
+        stale = [t for t, ts in self._tenant_seen.items()
+                 if ts < cutoff and t != OTHER]
+        for t in stale:
+            row = self._tenants.pop(t, None)
+            self._tenant_seen.pop(t, None)
+            if row:
+                other = self._tenant_row(OTHER)
+                for k, v in row.items():
+                    other[k] = other.get(k, 0) + v
+        return len(stale)
+
+    def note_request(self, tenant: str, queue_seconds: float) -> None:
+        """One finished request: per-tenant request count and queue-time
+        (arrival → admission) accumulation — the source of
+        ``vllm:tenant_queue_time_seconds``."""
+        if not self.tenant_metering:
+            return
+        now = time.monotonic()
+        with self._lock:
+            row = self._tenant_row(tenant)
+            row["requests"] += 1
+            row["queue_seconds_sum"] += max(float(queue_seconds), 0.0)
+            self._tenant_seen[tenant] = now
+            self._bound_tenants(now)
+
+    def attribute_seconds(self, tenant_live: dict,
+                          seconds: float) -> None:
+        """Attribute extra wall seconds (the deferred result fetch of a
+        dispatch already billed) by the same live-token shares — keeps
+        the conservation invariant across the dispatch/resolve split."""
+        if seconds <= 0 or not tenant_live:
+            return
+        self.attribute_tenants(
+            seconds, {t: {"live": n} for t, n in tenant_live.items()})
+
+    def tenant_fields(self, kv_blocks: Optional[dict] = None) -> dict:
+        """Bounded per-tenant export for ``stats()['tenants']`` and
+        ``/debug/tenants``: cumulative records folded to the top-K by
+        chip-seconds with the remainder under ``tenant="other"``
+        (tenancy.fold_records — every field's fleet total survives the
+        fold). ``kv_blocks`` is the engine's live per-tenant block count
+        from the scheduler, merged here so one fold governs every
+        export."""
+        with self._lock:
+            records = {t: dict(r) for t, r in self._tenants.items()}
+            seconds_total = self._tenant_seconds
+        for t, blocks in (kv_blocks or {}).items():
+            rec = records.get(t)
+            if rec is None:
+                rec = records[t] = {
+                    "prefill_tokens": 0, "decode_tokens": 0,
+                    "chip_seconds": 0.0, "requests": 0,
+                    "queue_seconds_sum": 0.0}
+            rec["kv_blocks"] = int(blocks)
+        folded = fold_records(records, k=self.tenant_top_k,
+                              weight_key="chip_seconds")
+        for row in folded.values():
+            row.setdefault("kv_blocks", 0)
+        return {
+            "enabled": self.tenant_metering,
+            "top_k": self.tenant_top_k,
+            "tracked": len(records),
+            "dispatch_seconds_total": seconds_total,
+            "tenants": {t: folded[t] for t in sorted(folded)},
         }
 
     def _record(self, ts, phase, flops, hbm_bytes, tokens,

@@ -21,8 +21,17 @@ eligible decode row is also granted draft tokens against the same budget
 admitted sequence in ``PREFETCHING`` while a tier fetch runs: it holds its
 slot and blocks and takes no token budget (both policies schedule only
 ``PREFILLING`` and ``RUNNING`` sequences). ``splice`` enters a sequence
-prefilled on another engine as a decode row. The brownout's grant
-shedding, ring prefill and per-tenant fair share come in later slices.
+prefilled on another engine as a decode row.
+
+The overload and tenant planes are the reference's: under brownout stage
+1 (``spec_shed``) every draft grant is zero; with ``fair_share`` on and at
+least two tenants waiting, admission dequeues by stride scheduling
+(``_next_waiting``: the tenant with the lowest virtual pass goes next, its
+pass advancing 1/weight an admission) and the unified prefill budget is
+split deficit-round-robin by tenant weight (``_fair_prefill``). With one
+tenant, or with fairness off, the schedule is the FCFS one exactly.
+``retry_after_hint`` derives a 429's Retry-After from the queue's depth
+over its recent drain rate. Ring prefill is not ported (one card).
 
 The scheduler is host-side control plane: it decides and never touches
 device tensors.
@@ -85,6 +94,20 @@ class Scheduler:
         # chunk; the tiered engine starts a prefix fetch there and may park
         # the sequence in PREFETCHING
         self.admission_hook = None
+        # brownout stage 1 (engine/overload.py): drafts are optional work,
+        # so under sustained pressure grants go to zero first
+        self.spec_shed = False
+        self.spec_shed_count = 0  # decode rows whose grant was suppressed
+        # -- per-tenant fair share (config.fair_share) -----------------------
+        # carried DRR credit per tenant, in stream tokens (capped at one
+        # full budget)
+        self._deficits: dict[str, float] = {}
+        # stride-scheduling virtual pass per tenant for the weighted-fair
+        # admission dequeue (lowest pass admits next; +1/weight an admit)
+        self._admit_pass: dict[str, float] = {}
+        # recent queue-exit stamps: the drain rate behind retry_after_hint
+        self._admit_stamps: collections.deque[float] = collections.deque(
+            maxlen=256)
 
     # -- queue management ---------------------------------------------------
     def add(self, seq: Sequence) -> None:
@@ -171,14 +194,101 @@ class Scheduler:
         victim.num_cached_tokens = 0
         self.waiting.appendleft(victim)
 
+    def _next_waiting(self) -> Sequence:
+        """The sequence the admission loop should try next.
+
+        FIFO head, unless fair-share is on AND at least two tenants are
+        waiting: then stride scheduling picks the per-tenant FCFS head
+        whose tenant has the lowest virtual pass (pass advances by
+        1/weight per admission), so a flooding tenant's backlog queues
+        behind everyone else instead of monopolising the queue head. A
+        tenant first seen mid-flight joins at the current pass floor —
+        immediately competitive, never owed retroactive credit. With one
+        tenant (or fairness off) this IS the FIFO head, bit-identically.
+        """
+        if not self.config.fair_share:
+            return self.waiting[0]
+        heads: dict[str, Sequence] = {}
+        for s in self.waiting:  # deque order = FCFS within each tenant
+            if s.tenant not in heads:
+                heads[s.tenant] = s
+        if len(heads) < 2:
+            return self.waiting[0]
+        floor = min(self._admit_pass.get(t, 0.0) for t in heads)
+        pick = min(heads, key=lambda t: (
+            max(self._admit_pass.get(t, floor), floor), t))
+        return heads[pick]
+
+    def _note_admitted(self, seq: Sequence) -> None:
+        """Post-admission bookkeeping: drain-rate stamp + stride pass."""
+        self._admit_stamps.append(time.monotonic())
+        if not self.config.fair_share:
+            return
+        t = seq.tenant
+        floor = min((self._admit_pass.get(s.tenant, 0.0)
+                     for s in self.waiting), default=0.0)
+        p = max(self._admit_pass.get(t, floor), floor)
+        self._admit_pass[t] = p + 1.0 / self.config.tenant_weight(t)
+        if len(self._admit_pass) > 512:  # bound churn: keep live tenants
+            live = ({s.tenant for s in self.waiting}
+                    | {s.tenant for s in self.seqs.values()})
+            self._admit_pass = {k: v for k, v in self._admit_pass.items()
+                                if k in live}
+
+    def admission_drain_rate(self, now: Optional[float] = None) -> float:
+        """Recent queue-exit rate in admissions/sec (0.0 = unknown)."""
+        if len(self._admit_stamps) < 2:
+            return 0.0
+        now = time.monotonic() if now is None else now
+        span = now - self._admit_stamps[0]
+        if span <= 0:
+            return 0.0
+        return len(self._admit_stamps) / span
+
+    def retry_after_hint(self, floor: float = 1.0,
+                         ceiling: float = 60.0,
+                         now: Optional[float] = None) -> float:
+        """Seconds until the waiting queue plausibly has room: current
+        depth over the measured drain rate, clamped to [floor, ceiling].
+        Falls back to ``floor`` (the configured constant) before any
+        drain history exists — the 429 Retry-After header derives from
+        THIS, so the router's breaker/backoff paces clients
+        proportionally to real congestion, not a fixed guess."""
+        rate = self.admission_drain_rate(now)
+        if rate <= 0.0:
+            return floor
+        return min(max(len(self.waiting) / rate, floor), ceiling)
+
+    def tenant_loads(self) -> dict[str, float]:
+        """Waiting + admitted sequence count per tenant — the load view
+        the stage-3 brownout shed set is computed from."""
+        loads: dict[str, float] = {}
+        for s in list(self.waiting):
+            loads[s.tenant] = loads.get(s.tenant, 0.0) + 1.0
+        for s in self.seqs.values():
+            loads[s.tenant] = loads.get(s.tenant, 0.0) + 1.0
+        return loads
+
+    def fair_share_snapshot(self) -> dict:
+        """Carried DRR deficits + stride passes, for the
+        ``vllm:fair_share_deficit{tenant}`` gauge (folded at export)."""
+        return {
+            "enabled": bool(self.config.fair_share),
+            "deficits": dict(self._deficits),
+            "admit_pass": dict(self._admit_pass),
+        }
+
     def _try_admit(self) -> None:
         while self.waiting and self.free_slots:
-            seq = self.waiting[0]
+            seq = self._next_waiting()
             got = self.allocator.allocate_sequence(seq.token_ids,
                                                    seq.prefix_root)
             if got is None:
                 break
-            self.waiting.popleft()
+            if seq is self.waiting[0]:
+                self.waiting.popleft()
+            else:
+                self.waiting.remove(seq)
             seq.block_ids, cached = got
             seq.num_cached_tokens = cached
             seq.num_computed_tokens = cached
@@ -187,6 +297,7 @@ class Scheduler:
             if seq.admit_time is None:  # the first wait is the one users see
                 seq.admit_time = time.monotonic()
             self.seqs[seq.request_id] = seq
+            self._note_admitted(seq)
             if self.admission_hook is not None:
                 self.admission_hook(seq)
 
@@ -242,12 +353,21 @@ class Scheduler:
     def _schedule_unified(self, out: SchedulerOutput) -> SchedulerOutput:
         """Decode rows claim one stream token each (plus their draft
         grants, with speculation on), then FCFS prefill chunks fill the
-        rest of the token budget."""
+        rest of the token budget; with fair share on and two tenants or
+        more with pending prefill, ``_fair_prefill`` splits that rest."""
         out.decodes = self._grow_decodes(out)
         budget = self.config.max_num_batched_tokens - len(out.decodes)
         if self.spec_grant_fn is not None:
             budget = self._grant_spec_drafts(out, budget)
-        for seq in sorted(self.seqs.values(), key=lambda s: s.arrival_time):
+        ordered = sorted(self.seqs.values(), key=lambda s: s.arrival_time)
+        if self.config.fair_share:
+            pending_tenants = {s.tenant for s in ordered
+                               if s.status is SequenceStatus.PREFILLING
+                               and not s.prefill_done}
+            if len(pending_tenants) >= 2:
+                return self._fair_prefill(out, ordered, budget)
+            # one tenant: the FCFS loop below, bit-identical by construction
+        for seq in ordered:
             if seq.status is not SequenceStatus.PREFILLING:
                 continue
             if seq.prefill_done:
@@ -263,6 +383,86 @@ class Scheduler:
             budget -= chunk
         return out
 
+    def _fair_prefill(self, out: SchedulerOutput,
+                      ordered: list[Sequence], budget: int) -> SchedulerOutput:
+        """Deficit-round-robin split of the prefill budget across tenants.
+        Each dispatch credits every tenant with pending prefill work a
+        quantum of ``budget * weight/sum(weights)`` tokens
+        on top of its carried deficit, serves quanta largest-deficit
+        first, then redistributes whatever the light tenants couldn't use
+        to tenants still pending — so the budget is always fully consumed
+        when work exists (fairness never costs throughput, it only
+        re-orders who prefills first). Chunks pack in global FCFS order
+        bounded by each tenant's allocation, keeping intra-tenant order
+        and the ragged dispatch shape identical to the FCFS path."""
+        queues: dict[str, list[Sequence]] = {}
+        for seq in ordered:
+            if seq.status is not SequenceStatus.PREFILLING:
+                continue
+            if seq.prefill_done:
+                seq.status = SequenceStatus.RUNNING
+                continue
+            queues.setdefault(seq.tenant, []).append(seq)
+        # a tenant with no pending work banks no credit while idle —
+        # idle time is not a claim on future capacity
+        for t in list(self._deficits):
+            if t not in queues:
+                del self._deficits[t]
+        if budget <= 0 or not queues:
+            return out
+        weight = self.config.tenant_weight
+        work = {t: sum(s.prefill_target - s.num_computed_tokens for s in q)
+                for t, q in queues.items()}
+        wsum = sum(weight(t) for t in queues)
+        for t in queues:
+            self._deficits[t] = (self._deficits.get(t, 0.0)
+                                 + budget * weight(t) / wsum)
+        alloc = dict.fromkeys(queues, 0)
+        left = budget
+        # serve the fair quanta, largest carried deficit first (carries can
+        # oversubscribe the budget; the longest-shorted tenant goes first)
+        for t in sorted(queues, key=lambda t: (-self._deficits[t], t)):
+            take = min(int(self._deficits[t]), work[t], left)
+            if take > 0:
+                alloc[t] = take
+                self._deficits[t] -= take
+                left -= take
+        # unused share redistributes: quanta the light tenants couldn't
+        # fill go to tenants still pending, weight-proportionally
+        while left > 0:
+            act = sorted(t for t in queues if work[t] - alloc[t] > 0)
+            if not act:
+                break
+            rsum = sum(weight(t) for t in act)
+            gave = 0
+            for t in act:
+                take = min(int(left * weight(t) / rsum),
+                           work[t] - alloc[t], left - gave)
+                alloc[t] += take
+                gave += take
+            if gave == 0:  # all shares rounded below one token
+                alloc[act[0]] += 1
+                gave = 1
+            left -= gave
+        # carried credit is capped at one full dispatch budget: a backlog
+        # may be owed, but never more than one dispatch's worth
+        cap = float(self.config.max_num_batched_tokens)
+        for t in self._deficits:
+            self._deficits[t] = min(self._deficits[t], cap)
+        for seq in ordered:
+            if (seq.status is not SequenceStatus.PREFILLING
+                    or seq.prefill_done):
+                continue
+            quota = alloc.get(seq.tenant, 0)
+            if quota <= 0:
+                continue
+            chunk = min(seq.prefill_target - seq.num_computed_tokens, quota)
+            out.prefills.append(
+                ScheduledPrefill(seq, seq.num_computed_tokens, chunk)
+            )
+            alloc[seq.tenant] = quota - chunk
+        return out
+
     def _grant_spec_drafts(self, out: SchedulerOutput, budget: int) -> int:
         """Reserve stream budget and KV blocks for speculative drafts.
 
@@ -272,7 +472,15 @@ class Scheduler:
         slots. Drafts are optional work and never preempt: when the pool is
         dry the grant shrinks to what the current table holds. The grant
         lands on ``seq.spec_grant`` for the engine to propose against at
-        pack time. Returns the budget left."""
+        pack time. Returns the budget left.
+
+        Under brownout stage 1+ (``spec_shed``) every grant is zero: rows
+        still decode their one real token."""
+        if self.spec_shed:
+            for seq in out.decodes:
+                seq.spec_grant = 0
+            self.spec_shed_count += len(out.decodes)
+            return budget
         bs = self.cache_config.block_size
         for seq in sorted(out.decodes, key=lambda s: s.arrival_time):
             seq.spec_grant = 0

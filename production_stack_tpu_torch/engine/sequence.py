@@ -1,8 +1,9 @@
 """Per-request sequence state (host side, control plane).
 
 Ports production_stack_tpu/engine/sequence.py with its LoRA, grammar,
-speculation and KV-plane fields (the ``PREFETCHING`` state, the blocks a
-finished sequence released); the tenancy fields come with their slice.
+speculation, KV-plane (the ``PREFETCHING`` state, the blocks a finished
+sequence released) and tenancy fields (the tenant, the chip-seconds
+attributed to the sequence).
 """
 
 from __future__ import annotations
@@ -46,6 +47,14 @@ class Sequence:
     sampling: SamplingParams
     arrival_time: float = dataclasses.field(default_factory=time.monotonic)
     adapter_slot: int = 0  # multi-LoRA bank slot; 0 = base model
+    # tenant identity resolved at admission (tenancy.resolve_tenant):
+    # host-side metadata, read by the fair-share ordering and the
+    # attribution plane, never by a device step
+    tenant: str = "anonymous"
+    # chip-seconds attributed to this sequence so far: its live-token
+    # share of every dispatch's wall time (tenancy.split_shares) — feeds
+    # the usage ledger
+    chip_seconds: float = 0.0
     # the root of the prefix cache's block-hash chain: kv_cache.HASH_SEED
     # for the base model, the adapter's own root for a LoRA request
     prefix_root: int = HASH_SEED
@@ -125,6 +134,8 @@ class RequestOutput:
     num_prompt_tokens: int
     num_output_tokens: int
     num_cached_tokens: int = 0
+    tenant: str = "anonymous"  # attribution identity
+    chip_seconds: float = 0.0  # attributed dispatch wall time (on finish)
     # on finish: the blocks the sequence held (pinned for a push when it
     # asked for ``pin_on_finish``)
     block_ids: Optional[list[int]] = None

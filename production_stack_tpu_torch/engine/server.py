@@ -52,9 +52,36 @@ and ``/v1/responses`` (OpenAI), JSON or SSE with the reference's events.
 Sleep mode: ``POST /sleep?level=1|2`` (409 with requests in flight),
 ``POST /wake_up``, ``GET /is_sleeping``.
 
+Resilience, overload and tenants, as the reference's:
+
+- ``x-request-deadline`` (epoch seconds, set by the router) on completions
+  and chat: an expired one answers 504 ``timeout_error`` before the
+  scheduler is touched; one that expires mid-generation aborts every
+  choice (their KV blocks are freed, ``vllm:aborted_seqs_total`` counts
+  them) and answers 504, or ends a stream with an in-band error before
+  ``[DONE]``. A malformed header means no deadline.
+- Overload 429s carry a ``Retry-After`` from the scheduler's queue depth
+  over its drain rate, ``--overload-retry-after`` the floor;
+  ``--max-queue-len`` bounds the waiting queue.
+- ``--fault-injection SPEC`` (``""`` arms it with no fault) faults ``POST
+  /v1/*`` (testing/faults.py) and adds ``POST /debug/faults?...`` to flip
+  faults on a live engine; unarmed, that route is 404.
+- The tenant (tenancy.resolve_tenant: ``x-tenant-id``, the body's
+  ``user``, a hash of the API key, else ``anonymous``) rides each
+  completion into the engine: ``--fair-share`` and ``--tenant-weights``
+  order admission and prefill by it, the ``vllm:tenant_*`` families and
+  ``GET /debug/tenants`` meter it, ``--tenant-ledger-path`` writes a usage
+  record per finished request.
+- ``--brownout``: a thread evaluates queue depth, device memory and the
+  watchdog every ``--brownout-interval`` seconds (engine/overload.py);
+  stage 1 sheds draft grants, stage 2 clamps ``max_tokens`` and pauses
+  tier prefetch, stage 3 answers 429 to new requests of over-weight
+  tenants (a pushed P->D continuation always passes). ``GET
+  /debug/overload`` shows it.
+
 Response bodies have the JAX server's shape, so the same router can front
-either engine. The tenant plane, the perf ledger, ``/debug/memory`` and
-the other ``/debug/*`` routes are not ported yet.
+either engine. The perf ledger, ``/debug/memory`` and the other
+``/debug/*`` routes are not ported yet.
 
 Run: ``python -m production_stack_tpu_torch.engine.server --model
 llama-3-8b --port 18077`` (``--device cpu`` for the plain path,
@@ -73,6 +100,7 @@ import json
 import logging
 import os
 import signal
+import socket
 import tarfile
 import tempfile
 import threading
@@ -87,7 +115,10 @@ from production_stack_tpu_torch.canary_golden import (
     DEFAULT_PROBES,
     record_from_response,
 )
-from production_stack_tpu_torch.engine.async_engine import AsyncEngine
+from production_stack_tpu_torch.engine.async_engine import (
+    AsyncEngine,
+    DeadlineExceeded,
+)
 from production_stack_tpu_torch.engine.config import (
     CacheConfig,
     EngineConfig,
@@ -112,12 +143,24 @@ from production_stack_tpu_torch.engine.kv_transfer import (
 from production_stack_tpu_torch.engine.lifecycle import StepWatchdog
 from production_stack_tpu_torch.engine.lora import LoraManager
 from production_stack_tpu_torch.engine.metrics import CONTENT_TYPE, ServerMetrics
+from production_stack_tpu_torch.engine.overload import (
+    SHED_MAX_TOKENS,
+    SHED_PREFETCH,
+    SHED_SPEC,
+    SHED_TENANT,
+    BrownoutConfig,
+    BrownoutController,
+    PressureSignals,
+    overweight_tenants,
+)
 from production_stack_tpu_torch.engine.sampling import (
     MAX_LOGPROBS,
     SamplingParams,
     make_token_controls,
 )
 from production_stack_tpu_torch.engine.scheduler import SchedulerQueueFull
+from production_stack_tpu_torch.tenancy import UsageLedger, resolve_tenant
+from production_stack_tpu_torch.testing import faults
 
 _log = logging.getLogger(__name__)
 
@@ -135,6 +178,20 @@ ENGINE_CAPABILITIES = (
 
 class BadRequest(ValueError):
     """A request the server answers with 400."""
+
+
+def _parse_deadline(headers) -> Optional[float]:
+    """The absolute epoch-seconds deadline of the router's
+    ``x-request-deadline`` header; None when absent or malformed (a
+    malformed deadline degrades to no deadline, never to a 400: only the
+    router sets this header)."""
+    hdr = headers.get("x-request-deadline")
+    if not hdr:
+        return None
+    try:
+        return float(hdr)
+    except ValueError:
+        return None
 
 
 def _parse_logit_bias(raw) -> Optional[dict]:
@@ -374,7 +431,9 @@ class EngineServer:
                  warmup_on_start: bool = False,
                  overload_retry_after: float = 1.0,
                  drain_deadline: float = 30.0,
-                 watchdog_stall_seconds: float = 0.0):
+                 watchdog_stall_seconds: float = 0.0,
+                 fault_injection: Optional[str] = None,
+                 brownout: Optional[BrownoutController] = None):
         self.config = config
         self.engine = engine if engine is not None else LLMEngine(
             config, device=device)
@@ -387,8 +446,37 @@ class EngineServer:
         self.metrics = ServerMetrics(self.engine, self.model_name)
         self.async_engine.step_observer = self.metrics.observe_step
         self.async_engine.finish_observer = self._observe_finished
-        # the Retry-After seconds of a 503 while draining and of a 429
+        # the Retry-After seconds of a 503 while draining, and the floor of
+        # a 429's (scheduler.retry_after_hint scales it with the queue)
         self.overload_retry_after = overload_retry_after
+        # set by shutdown(): ends the brownout thread and releases requests
+        # an injected fault holds
+        self._stop = threading.Event()
+        # fault injection is opt-in: unarmed (None) the server has no
+        # injectable surface at all, "" arms /debug/faults with no fault
+        self._faults_armed = fault_injection is not None
+        self.faults = faults.FaultState(
+            faults.FaultSpec.parse(fault_injection) if fault_injection
+            else None)
+        if self.faults.spec is not None:
+            _log.warning("FAULT INJECTION ACTIVE: %s", self.faults.spec)
+        # staged brownout (engine/overload.py): None = off (the default)
+        self.brownout = brownout
+        self._brownout_thread: Optional[threading.Thread] = None
+        # stage-3 shed set, recomputed each evaluation from the
+        # scheduler's per-tenant load; admission checks membership
+        self._brownout_shed: frozenset = frozenset()
+        self._shed_counts_seen = {SHED_SPEC: 0, SHED_PREFETCH: 0}
+        self._shed_lock = threading.Lock()
+        # the usage ledger: a JSONL record per finished request, when
+        # metering is on and a path is set; request id -> (model, client
+        # request id) of the requests it will record
+        self.usage_ledger = None
+        if config.tenant_metering and config.tenant_ledger_path:
+            self.usage_ledger = UsageLedger(
+                config.tenant_ledger_path,
+                max_bytes=config.tenant_ledger_max_bytes)
+        self._ledger_meta: dict[str, tuple] = {}
         self.warmup_on_start = warmup_on_start
         self.warming = False
         self.warmup_seconds = 0.0
@@ -407,6 +495,7 @@ class EngineServer:
         self.watchdog = StepWatchdog(self.async_engine,
                                      watchdog_stall_seconds)
         self.metrics.register_lifecycle(self._lifecycle_snapshot)
+        self.metrics.register_overload(self._overload_snapshot)
         # pushed transfers landing or landed on this (decode) engine, by
         # transfer id: {blocks, layers_done, meta, created, ready}
         self._kv_transfers: dict[str, dict] = {}
@@ -414,12 +503,40 @@ class EngineServer:
 
     def _observe_finished(self, out) -> None:
         """Engine thread: a finished request's stamps into the latency
-        histograms."""
+        histograms, and its usage record into the ledger."""
         if out.arrival_time is None or out.finish_time is None:
             return  # an abort delivered to a waiting stream carries none
         self.metrics.observe_request(out.arrival_time, out.first_token_time,
                                      out.finish_time, out.num_output_tokens)
         self.metrics.observe_stages(out)
+        if self.usage_ledger is not None:
+            self._ledger_record(out)
+
+    def _ledger_record(self, out) -> None:
+        model, client_rid = self._ledger_meta.pop(
+            out.request_id, (self.model_name, None))
+        stamps = {}
+        if out.admit_time is not None and out.arrival_time is not None:
+            stamps["queue_s"] = round(out.admit_time - out.arrival_time, 6)
+        if out.first_token_time is not None and out.admit_time is not None:
+            stamps["prefill_s"] = round(
+                out.first_token_time - out.admit_time, 6)
+        if out.finish_time is not None and out.first_token_time is not None:
+            stamps["decode_s"] = round(
+                out.finish_time - out.first_token_time, 6)
+        self.usage_ledger.append({
+            "ts": time.time(),
+            "tenant": out.tenant,
+            "model": model,
+            "request_id": out.request_id,
+            "client_request_id": client_rid,
+            "prompt_tokens": out.num_prompt_tokens,
+            "output_tokens": out.num_output_tokens,
+            "cached_tokens": out.num_cached_tokens,
+            "chip_seconds": round(out.chip_seconds, 9),
+            "finish_reason": out.finish_reason,
+            **stamps,
+        })
 
     # -- lifecycle -----------------------------------------------------------
     def bind(self, host: str = "127.0.0.1", port: int = 0) -> int:
@@ -429,6 +546,10 @@ class EngineServer:
         ends."""
         self.async_engine.start()
         self.watchdog.start()
+        if self.brownout is not None and self.brownout.config.enabled:
+            self._brownout_thread = threading.Thread(
+                target=self._brownout_loop, daemon=True, name="brownout")
+            self._brownout_thread.start()
         if self.warmup_on_start:
             self.warming = True
             self._warmup_t0 = time.monotonic()
@@ -522,6 +643,10 @@ class EngineServer:
             self._httpd.shutdown()
 
     def shutdown(self) -> None:
+        self._stop.set()
+        if self._brownout_thread is not None:
+            self._brownout_thread.join(10)
+            self._brownout_thread = None
         if self._httpd is not None:
             if self._serve_thread is not None:
                 self._httpd.shutdown()
@@ -532,6 +657,127 @@ class EngineServer:
         self.watchdog.stop()
         self.async_engine.stop()
         self.engine.shutdown_tiers()
+
+    # -- overload (engine/overload.py) ---------------------------------------
+    def retry_after(self) -> str:
+        """A 429's Retry-After: the scheduler's queue depth over its drain
+        rate, with ``overload_retry_after`` as the floor."""
+        hint = self.engine.scheduler.retry_after_hint(
+            floor=self.overload_retry_after)
+        return f"{hint:g}"
+
+    def _record_shed(self, reason: str, n: int = 1) -> None:
+        with self._shed_lock:
+            self.brownout.record_shed(reason, n)
+
+    def _brownout_loop(self) -> None:
+        """Evaluate the pressure every ``interval`` seconds: read the
+        signals on the engine thread (the scheduler and the accountant are
+        its state), step the controller, then apply the stage's actions on
+        the engine thread. It never calls into the runner, skips its turn
+        while the engine sleeps, and ends on shutdown()."""
+        ctl = self.brownout
+        while not self._stop.wait(ctl.config.interval):
+            if self.async_engine.is_sleeping:
+                continue
+            try:
+                sig = self.async_engine.run_on_engine(self._pressure_signals)
+                prev = ctl.stage
+                ctl.evaluate(sig, time.monotonic())
+                if ctl.stage != prev:
+                    _log.warning("brownout stage %d -> %d (%s)", prev,
+                                 ctl.stage,
+                                 ",".join(ctl.last_reasons) or "recovered")
+                self.async_engine.run_on_engine(self._apply_brownout)
+            except Exception:
+                if self._stop.is_set():
+                    return
+                _log.exception("brownout evaluation failed")
+
+    def _pressure_signals(self, eng) -> PressureSignals:
+        """One evaluation's signals (engine thread): the waiting queue's
+        fill of ``max_queue_len``, device memory in use, the watchdog."""
+        sched = eng.scheduler
+        qcap = max(1, int(sched.config.max_queue_len or 0))
+        hbm_frac = 0.0
+        if eng.perf is not None:
+            hbm = eng.perf._hbm
+            if hbm.get("total"):
+                hbm_frac = hbm.get("used", 0) / hbm["total"]
+        return PressureSignals(queue_fraction=len(sched.waiting) / qcap,
+                               hbm_fraction=hbm_frac,
+                               watchdog_stalled=self.watchdog.stalled)
+
+    def _apply_brownout(self, eng) -> None:
+        """Push the stage's actions onto engine state (engine thread) and
+        fold the engine's shed tallies into the controller's counts."""
+        ctl = self.brownout
+        sched = eng.scheduler
+        sched.spec_shed = ctl.shed_spec
+        eng.prefetch_paused = ctl.pause_prefetch
+        for reason, total in ((SHED_SPEC, sched.spec_shed_count),
+                              (SHED_PREFETCH, eng.prefetch_shed_count)):
+            delta = total - self._shed_counts_seen[reason]
+            if delta > 0:
+                self._record_shed(reason, delta)
+                self._shed_counts_seen[reason] = total
+        if ctl.shed_overweight:
+            self._brownout_shed = frozenset(overweight_tenants(
+                sched.tenant_loads(), sched.config.tenant_weights))
+        elif self._brownout_shed:
+            self._brownout_shed = frozenset()
+
+    def _overload_snapshot(self) -> dict:
+        """The source of the vllm:brownout_* / vllm:fair_share_deficit
+        families and of /debug/overload."""
+        ctl = self.brownout
+        with self._shed_lock:
+            brownout = (ctl.snapshot() if ctl is not None
+                        else {"enabled": False, "stage": 0, "sheds": {}})
+        return {
+            "brownout": brownout,
+            "shed_tenants": sorted(self._brownout_shed),
+            "fair_share": self.engine.scheduler.fair_share_snapshot(),
+        }
+
+    def debug_overload(self) -> tuple[int, dict]:
+        return 200, self._overload_snapshot()
+
+    def debug_tenants(self) -> tuple[int, dict]:
+        """The attribution snapshot folded to the top K (+ "other"), with
+        the ledger's health: what /debug/fleet and stacktop read."""
+        block = dict(self.engine.tenant_stats())
+        block["model"] = self.model_name
+        if self.usage_ledger is not None:
+            block["ledger"] = self.usage_ledger.stats()
+        return 200, block
+
+    def debug_faults(self, query: list) -> tuple[int, dict]:
+        """Flip fault injection on a live engine: the query's pairs are a
+        --fault-injection spec (``?error_rate=0.5&seed=7``); ``?off=1``
+        clears. /debug/* is outside the faulted /v1/* surface."""
+        try:
+            q = dict(query)
+            off = q.get("off")
+            if off is not None:
+                if off.lower() not in ("1", "true"):
+                    raise ValueError("off must be 1 or true")
+                self.faults.set(None)
+            else:
+                self.faults.set(faults.FaultSpec.parse(
+                    ",".join(f"{k}={v}" for k, v in query)))
+        except (TypeError, ValueError) as e:
+            return 400, {"error": {"message": str(e)}}
+        spec = self.faults.spec
+        body = {"active": spec is not None}
+        if spec is not None:
+            body.update(error_rate=spec.error_rate,
+                        latency_ms=spec.latency_ms,
+                        drop_rate=spec.drop_rate, stall_ms=spec.stall_ms,
+                        stream_abort_rate=spec.stream_abort_rate,
+                        stream_abort_after_ms=spec.stream_abort_after_ms,
+                        hang_after_ms=spec.hang_after_ms)
+        return 200, body
 
     # -- routes --------------------------------------------------------------
     def models(self) -> dict:
@@ -642,7 +888,8 @@ class EngineServer:
             tier_block = self.engine.tier_stats()
         if perf is None:
             return 200, {"enabled": False, "kv_transfer": kv_block,
-                         "kv_tier": tier_block}
+                         "kv_tier": tier_block,
+                         "tenants": self.engine.tenant_stats()}
         snap = perf.snapshot()
         snap["kv_transfer"] = kv_block
         snap["kv_tier"] = tier_block
@@ -657,6 +904,7 @@ class EngineServer:
             "tokens_per_step": eng.spec_step_tokens / steps if steps
             else 0.0,
         }
+        snap["tenants"] = eng.tenant_stats()
         return 200, snap
 
     def debug_canary(self, query: dict) -> tuple[int, dict]:
@@ -812,9 +1060,12 @@ class EngineServer:
         raise BadRequest("invalid 'prompt': expected string, token list, or "
                          "batch thereof")
 
-    def validate(self, body: dict, chat: bool) -> tuple:
+    def validate(self, body: dict, chat: bool,
+                 deadline: Optional[float] = None) -> tuple:
         """A generation request's (sampling, prompt ids of each prompt,
-        request id), or BadRequest."""
+        request id), or BadRequest; DeadlineExceeded when ``deadline`` has
+        passed (the reference's order: after the sampling checks, before
+        the prompt-length one)."""
         prompts = self.prompts_of(body, chat)
         try:
             sampling = _sampling_from_body(body)
@@ -831,6 +1082,10 @@ class EngineServer:
         tk = self.engine.tokenizer
         prompt_ids_list = [tk.encode(p) if isinstance(p, str) else list(p)
                            for p in prompts]
+        if deadline is not None and deadline <= time.time():
+            # expired before admission: refused without touching the
+            # scheduler, the cheapest shed there is
+            raise DeadlineExceeded("x-request-deadline already expired")
         for ids in prompt_ids_list:
             if len(ids) > self.config.model.max_model_len - 1:
                 raise BadRequest("prompt too long")
@@ -964,10 +1219,14 @@ class EngineServer:
                         "model": model, "choices": [c]} for c in parts]
 
     def admit(self, body: dict, chat: bool, sampling: SamplingParams,
-              prompt_ids_list: list, rid: str) -> _Admission:
+              prompt_ids_list: list, rid: str, tenant: str = "anonymous",
+              deadline: Optional[float] = None) -> _Admission:
         """Run what a validated request's ``kv_transfer_params`` ask for
         before admission (splice a landed push, or pull blocks into the
-        prefix cache), admit its choices, and score an echoed prompt."""
+        prefix cache), apply the brownout's stage (3: 429 for an
+        over-weight tenant's new request, SchedulerQueueFull; 2: clamp
+        ``max_tokens``), admit its choices for ``tenant`` with their
+        ``deadline``, and score an echoed prompt."""
         adapter_slot = self.lora.slot_of(body.get("model", self.model_name))
         n = sampling.n
         nchoices = len(prompt_ids_list) * n
@@ -980,9 +1239,10 @@ class EngineServer:
             # the decode hop of a pushed transfer: splice it in; when it is
             # not attachable, the pull or a plain prefill serves the body
             spliced = self._try_attach_spliced(kv["transfer_id"], sampling,
-                                               rid, adapter_slot)
+                                               rid, adapter_slot, tenant)
             if spliced is not None:
                 stream, n_prompt = spliced
+                stream.deadline = deadline
                 return _Admission([stream], [rid], rid, sampling, n_prompt,
                                   prompt_ids_list[0])
         if kv.get("remote_block_ids"):
@@ -994,6 +1254,23 @@ class EngineServer:
                 and not body.get("stream")):
             push = {"push_url": kv["push_url"],
                     "transfer_id": str(kv["transfer_id"])}
+        ctl = self.brownout
+        if ctl is not None and ctl.stage > 0:
+            # stage 3: refuse new work of over-weight tenants. A pushed P->D
+            # continuation is not new work (its prefill already ran), so it
+            # always passes
+            if (ctl.shed_overweight and tenant in self._brownout_shed
+                    and not kv.get("transfer_id")):
+                self._record_shed(SHED_TENANT)
+                raise SchedulerQueueFull(
+                    f"brownout stage {ctl.stage}: tenant {tenant!r} is over "
+                    "its fair share; new admissions are shed until pressure "
+                    "recedes")
+            # stage 2: bound tail work by clamping max_tokens
+            clamp = ctl.max_tokens_clamp
+            if clamp and sampling.max_tokens > clamp:
+                self._record_shed(SHED_MAX_TOKENS)
+                sampling = dataclasses.replace(sampling, max_tokens=clamp)
         reqs, rids = [], []
         for pi, ids in enumerate(prompt_ids_list):
             for j in range(n):
@@ -1005,7 +1282,7 @@ class EngineServer:
                     choice_sampling = dataclasses.replace(
                         sampling, seed=(sampling.seed + idx) & 0xFFFFFFFF)
                 reqs.append((crid, ids, choice_sampling, adapter_slot,
-                             push is not None))
+                             push is not None, tenant))
                 rids.append(crid)
         try:
             streams = self.async_engine.admit_batch(reqs)
@@ -1013,6 +1290,8 @@ class EngineServer:
             raise
         except ValueError as e:
             raise BadRequest(str(e)) from None
+        for stream in streams:
+            stream.deadline = deadline
         n_prompt = sum(len(p) for p in prompt_ids_list)
         adm = _Admission(streams, rids, rid, sampling, n_prompt,
                          prompt_ids_list[0], produce_kv, push, imported)
@@ -1790,7 +2069,8 @@ class EngineServer:
         return True
 
     def _try_attach_spliced(self, tid: str, sampling: SamplingParams,
-                            rid: str, adapter_slot: int):
+                            rid: str, adapter_slot: int,
+                            tenant: str = "anonymous"):
         """Attach a landed push as a decode row; (stream, prompt tokens)
         or None when it is not attachable (unknown, still landing, swept,
         a guided request, no decode slot). The continuation's
@@ -1811,7 +2091,7 @@ class EngineServer:
                 rid, meta["prompt_token_ids"], meta["first_token"],
                 dataclasses.replace(sampling,
                                     max_tokens=sampling.max_tokens + 1),
-                state["blocks"], adapter_slot=adapter_slot)
+                state["blocks"], adapter_slot=adapter_slot, tenant=tenant)
         except (SchedulerQueueFull, ValueError, KeyError) as e:
             _log.warning("kv transfer %s attach failed (%s); prefilling",
                          tid, e)
@@ -1824,13 +2104,12 @@ class EngineServer:
                       include_usage: bool):
         """SSE payloads (dicts) of a streamed response, choice by choice,
         ending with the optional usage chunk. The caller writes ``data:
-        [DONE]`` after them."""
-        tk = self.engine.tokenizer
+        [DONE]`` after them. When the streams' deadline passes, every
+        choice is aborted (its KV blocks freed) and an in-band
+        ``timeout_error`` takes the place of the rest: the stream already
+        committed to 200."""
         obj = "chat.completion.chunk" if chat else "text_completion"
         created = int(time.time())
-        want_lp = sampling.logprobs is not None
-        # a stop string can span chunks: hold back enough trailing chars
-        holdback = max((len(s) for s in sampling.stop), default=1) - 1
         if chat:
             for idx in range(len(streams)):
                 yield {"id": rid, "object": obj, "created": created,
@@ -1838,7 +2117,31 @@ class EngineServer:
                        "choices": [{"index": idx,
                                     "delta": {"role": "assistant"},
                                     "finish_reason": None}]}
-        n_out = 0
+        kept: list[int] = []
+        try:
+            yield from self._stream_choices(streams, rid, model, chat,
+                                            sampling, created, kept)
+        except DeadlineExceeded as e:
+            for stream in streams:
+                self.async_engine.abort(stream.request_id)
+            yield _error(str(e), "timeout_error")
+        n_out = sum(kept)
+        if include_usage:
+            yield {"id": rid, "object": obj, "created": created,
+                   "model": model, "choices": [],
+                   "usage": {"prompt_tokens": n_prompt,
+                             "completion_tokens": n_out,
+                             "total_tokens": n_prompt + n_out}}
+
+    def _stream_choices(self, streams, rid, model, chat, sampling, created,
+                        kept: list):
+        """The content chunks of each choice in turn; appends each
+        finished choice's kept token count to ``kept``."""
+        tk = self.engine.tokenizer
+        obj = "chat.completion.chunk" if chat else "text_completion"
+        want_lp = sampling.logprobs is not None
+        # a stop string can span chunks: hold back enough trailing chars
+        holdback = max((len(s) for s in sampling.stop), default=1) - 1
         for idx, stream in enumerate(streams):
             token_ids: list[int] = []
             all_lps: list = []
@@ -1897,13 +2200,7 @@ class EngineServer:
                            "model": model, "choices": [choice]}
                 if finish_reason is not None:
                     break
-            n_out += n_kept
-        if include_usage:
-            yield {"id": rid, "object": obj, "created": created,
-                   "model": model, "choices": [],
-                   "usage": {"prompt_tokens": n_prompt,
-                             "completion_tokens": n_out,
-                             "total_tokens": n_prompt + n_out}}
+            kept.append(n_kept)
 
     def _handler_class(self):
         server = self
@@ -1961,6 +2258,12 @@ class EngineServer:
                     status, payload = server.debug_canary(
                         urllib.parse.parse_qs(url.query))
                     self._send_json(payload, status)
+                elif url.path == "/debug/overload":
+                    status, payload = server.debug_overload()
+                    self._send_json(payload, status)
+                elif url.path == "/debug/tenants":
+                    status, payload = server.debug_tenants()
+                    self._send_json(payload, status)
                 elif url.path == "/is_sleeping":
                     self._send_json(
                         {"is_sleeping": server.async_engine.is_sleeping})
@@ -1984,6 +2287,10 @@ class EngineServer:
                           "/sleep": lambda body: server.sleep(
                               urllib.parse.parse_qs(url.query)),
                           "/wake_up": server.wake_up}
+                if server._faults_armed:
+                    routes["/debug/faults"] = lambda body: \
+                        server.debug_faults(urllib.parse.parse_qsl(
+                            url.query, keep_blank_values=True))
                 # generation: admitted, counted in flight while draining
                 generate = {"/v1/completions": None,
                             "/v1/chat/completions": None,
@@ -1993,12 +2300,42 @@ class EngineServer:
                 if path == "/kv/recv":
                     self._kv_recv()
                     return
+                length = int(self.headers.get("Content-Length") or 0)
+                raw = self.rfile.read(length)
+                # fault injection before the drain gate, as the reference's
+                # middleware order: drills can fault the drain surface too
+                verdict, abort_timer = faults.inject_faults(
+                    server.faults, "POST", path, self.connection,
+                    server._stop)
+                if verdict == faults.ERROR:
+                    self._send_json(faults.ERROR_BODY, 500)
+                    return
+                if verdict == faults.DROP:
+                    self._drop()
+                    return
+                try:
+                    self._route_post(path, raw, routes, generate)
+                except (BrokenPipeError, ConnectionResetError):
+                    if abort_timer is None:
+                        raise
+                    self.close_connection = True  # an injected abort
+                finally:
+                    if abort_timer is not None:
+                        abort_timer.cancel()
+
+            def _drop(self) -> None:
+                """Close the connection before any response byte."""
+                self.close_connection = True
+                try:
+                    self.connection.shutdown(socket.SHUT_RDWR)
+                except OSError:
+                    pass
+
+            def _route_post(self, path, raw, routes, generate) -> None:
                 if (path not in generate and path not in routes
                         and path != "/kv/export"):
                     self._send_json(_error("not found", "not_found"), 404)
                     return
-                length = int(self.headers.get("Content-Length") or 0)
-                raw = self.rfile.read(length)
                 if server.draining and (path.startswith("/v1/") or path in (
                         "/pooling", "/rerank")):
                     # live streams keep running; infra routes stay up
@@ -2071,7 +2408,7 @@ class EngineServer:
                 except SchedulerQueueFull as e:
                     self._send_json(
                         _error(str(e), "rate_limit_error"), 429,
-                        {"Retry-After": f"{server.overload_retry_after:g}"})
+                        {"Retry-After": server.retry_after()})
                     return
                 except Exception as e:  # aiohttp's answer to a fault
                     _log.exception("POST %s failed", self.path)
@@ -2084,13 +2421,12 @@ class EngineServer:
                 try:
                     for event in payload:
                         self._write_chunk(event)
+                    self.wfile.write(b"0\r\n\r\n")
+                    self.wfile.flush()
                 except (BrokenPipeError, ConnectionResetError):
                     self.close_connection = True
-                    return
                 finally:
                     payload.close()  # its abort runs on every exit
-                self.wfile.write(b"0\r\n\r\n")
-                self.wfile.flush()
 
             def _begin_sse(self, headers: dict) -> None:
                 self.send_response(200)
@@ -2102,31 +2438,41 @@ class EngineServer:
                 self.end_headers()
 
             def _generate(self, body: dict, chat: bool) -> None:
-                retry_after = {"Retry-After":
-                               f"{server.overload_retry_after:g}"}
+                # the tenant, resolved once: x-tenant-id > the body's user >
+                # a hash of the API key > anonymous
+                tenant = resolve_tenant(self.headers, body)
+                deadline = _parse_deadline(self.headers)
                 try:
-                    request = server.validate(body, chat)
+                    request = server.validate(body, chat, deadline)
                     direct = server.scored(body, chat, *request)
                     if direct is None:
-                        adm = server.admit(body, chat, *request)
+                        adm = server.admit(body, chat, *request,
+                                           tenant=tenant, deadline=deadline)
                 except BadRequest as e:
                     self._send_json(_error(str(e)), 400)
                     return
+                except DeadlineExceeded as e:
+                    self._send_json(_error(str(e), "timeout_error"), 504)
+                    return
                 except SchedulerQueueFull as e:
                     self._send_json(_error(str(e), "rate_limit_error"), 429,
-                                    retry_after)
+                                    {"Retry-After": server.retry_after()})
                     return
                 except GrammarBankFull:
                     self._send_json(_error(
                         "all guided-decoding grammar slots are in use; retry "
                         "when in-flight guided requests finish",
-                        "rate_limit_error"), 429, retry_after)
+                        "rate_limit_error"), 429,
+                        {"Retry-After": server.retry_after()})
                     return
                 if direct is not None:
                     self._scored(direct, request[2])
                     return
                 model = body.get("model", server.model_name)
                 xrid = self.headers.get("x-request-id") or adm.rid
+                if server.usage_ledger is not None:
+                    for r in adm.rids:
+                        server._ledger_meta[r] = (model, xrid)
                 try:
                     if body.get("stream"):
                         so = body.get("stream_options")
@@ -2135,12 +2481,22 @@ class EngineServer:
                                      adm.sampling, adm.n_prompt,
                                      bool(so.get("include_usage")), xrid)
                     else:
-                        payload = server.full_response(adm, model, chat)
+                        try:
+                            payload = server.full_response(adm, model, chat)
+                        except DeadlineExceeded as e:
+                            # expired mid-generation: the sequences leave
+                            # the scheduler and free their KV blocks first
+                            for r in adm.rids:
+                                server.async_engine.abort(r)
+                            self._send_json(_error(str(e), "timeout_error"),
+                                            504)
+                            return
                         self._send_json(payload,
                                         headers={"X-Request-Id": xrid})
                 finally:
                     for r in adm.rids:  # a no-op for finished requests
                         server.async_engine.abort(r)
+                        server._ledger_meta.pop(r, None)
 
             def _scored(self, direct: tuple, rid: str) -> None:
                 """A response the scoring pass answered alone (echo with
@@ -2164,21 +2520,21 @@ class EngineServer:
                         include_usage, xrid) -> None:
                 self._begin_sse({"X-Request-Id": xrid})
                 try:
-                    for payload in server.stream_events(
-                            streams, rid, model, chat, sampling, n_prompt,
-                            include_usage):
-                        self._write_chunk(
-                            f"data: {json.dumps(payload)}\n\n".encode())
+                    try:
+                        for payload in server.stream_events(
+                                streams, rid, model, chat, sampling,
+                                n_prompt, include_usage):
+                            self._write_chunk(
+                                f"data: {json.dumps(payload)}\n\n".encode())
+                    except RuntimeError as e:  # an engine step failed
+                        err = json.dumps(_error(str(e), "server_error"))
+                        self._write_chunk(f"data: {err}\n\n".encode())
+                    self._write_chunk(b"data: [DONE]\n\n")
+                    self.wfile.write(b"0\r\n\r\n")
+                    self.wfile.flush()
                 except (BrokenPipeError, ConnectionResetError):
+                    # the client left, perhaps right after [DONE]
                     self.close_connection = True
-                    return
-                except RuntimeError as e:  # an engine step failed
-                    self._write_chunk(
-                        f"data: {json.dumps(_error(str(e), 'server_error'))}"
-                        "\n\n".encode())
-                self._write_chunk(b"data: [DONE]\n\n")
-                self.wfile.write(b"0\r\n\r\n")
-                self.wfile.flush()
 
         return Handler
 
@@ -2242,9 +2598,55 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serve at once, without first running every step "
                         "signature (GET /ready answers 503 \"warming\" "
                         "while the warmup runs)")
+    p.add_argument("--fault-injection", default=None,
+                   help="inject faults on the OpenAI surface for "
+                        "resilience drills, e.g. error_rate=0.3,"
+                        "latency_ms=100,stall_ms=500,stream_abort_rate=0.1 "
+                        "(testing/faults.py); \"\" arms POST /debug/faults "
+                        "with no fault. Without it the env FAULT_INJECTION "
+                        "is read; the flag wins when both are set")
+    p.add_argument("--max-queue-len", type=int, default=None,
+                   help="waiting-queue bound; admissions past it get 429 "
+                        "+ Retry-After so the router fails over instead "
+                        "of piling onto an overloaded engine (0 = "
+                        "unbounded)")
     p.add_argument("--overload-retry-after", type=float, default=1.0,
-                   help="Retry-After seconds advertised on overload 429s "
-                        "and on the 503s of a draining engine")
+                   help="floor for the Retry-After seconds advertised on "
+                        "overload 429s (the actual value scales with queue "
+                        "depth over the recent admission drain rate), and "
+                        "the Retry-After of a draining engine's 503s")
+    p.add_argument("--fair-share", action="store_true",
+                   help="per-tenant deficit-round-robin scheduling: split "
+                        "the prefill token budget across tenants with "
+                        "pending work by weight and a weighted-fair "
+                        "admission dequeue, so one flooding tenant queues "
+                        "behind everyone else instead of starving them. "
+                        "With a single active tenant the schedule is "
+                        "bit-identical to FCFS")
+    p.add_argument("--tenant-weights", default=None,
+                   help="JSON object tenant -> relative weight for "
+                        "--fair-share and stage-3 brownout shedding, e.g. "
+                        "'{\"team-a\": 3, \"team-b\": 1}'; unlisted "
+                        "tenants weigh 1.0")
+    p.add_argument("--brownout", action="store_true",
+                   help="staged brownout degradation under sustained "
+                        "pressure (queue depth, device memory, watchdog "
+                        "stall): stage 1 sheds speculative-decode grants, "
+                        "stage 2 clamps max_tokens and pauses KV "
+                        "prefetch, stage 3 sheds over-weight tenants' new "
+                        "admissions; recovery needs sustained calm")
+    p.add_argument("--brownout-interval", type=float, default=2.0,
+                   help="seconds between brownout pressure evaluations")
+    p.add_argument("--brownout-queue-high", type=float, default=0.5,
+                   help="waiting/max-queue-len fraction treated as hot")
+    p.add_argument("--brownout-hbm-high", type=float, default=0.92,
+                   help="device memory used/total fraction treated as hot")
+    p.add_argument("--brownout-up-evals", type=int, default=2,
+                   help="consecutive hot evaluations per stage up")
+    p.add_argument("--brownout-calm-evals", type=int, default=3,
+                   help="consecutive calm evaluations per stage down")
+    p.add_argument("--brownout-max-tokens-clamp", type=int, default=256,
+                   help="stage-2 per-request max_tokens ceiling")
     p.add_argument("--drain-deadline", type=float, default=30.0,
                    help="graceful-drain budget (seconds): on SIGTERM or "
                         "POST /drain, in-flight sequences get this long "
@@ -2264,6 +2666,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--perf-window", type=float, default=60.0,
                    help="sliding window (seconds) the utilization gauges "
                         "are computed over")
+    p.add_argument("--no-tenant-metering", dest="tenant_metering",
+                   action="store_false", default=True,
+                   help="disable per-tenant token/chip-second attribution "
+                        "(vllm:tenant_* series, GET /debug/tenants, usage "
+                        "ledger — tenancy.py). Observe-only either way: "
+                        "total metrics are the same with metering on or "
+                        "off")
+    p.add_argument("--tenant-top-k", type=int, default=8,
+                   help="tenants exported individually per metric; the "
+                        "remainder folds into tenant=\"other\" (bounded "
+                        "label cardinality)")
+    p.add_argument("--tenant-ledger-path", default="",
+                   help="rotating JSONL usage-ledger path (one record per "
+                        "finished request: tenant, model, tokens by phase, "
+                        "chip-seconds, stage stamps); empty = ledger off")
+    p.add_argument("--tenant-ledger-max-bytes", type=int, default=16 << 20,
+                   help="ledger rotation threshold in bytes")
     p.add_argument("--perf-peak-tflops", type=float, default=0.0,
                    help="the card's peak TFLOP/s for MFU; 0 = the H100 SXM "
                         "data sheet's dense bf16 (989)")
@@ -2345,6 +2764,18 @@ def config_from_args(args) -> EngineConfig:
         sched.spec_ngram_max = args.speculative_ngram_max
         sched.spec_ngram_min = args.speculative_ngram_min
         sched.spec_window = args.speculative_window
+    if args.max_queue_len is not None:
+        sched.max_queue_len = args.max_queue_len
+    sched.fair_share = args.fair_share
+    if args.tenant_weights:
+        try:
+            weights = json.loads(args.tenant_weights)
+        except ValueError as e:
+            raise SystemExit(f"--tenant-weights is not valid JSON: {e}")
+        if not isinstance(weights, dict):
+            raise SystemExit("--tenant-weights must be a JSON object "
+                             "(tenant -> weight)")
+        sched.tenant_weights = weights
     perf = PerfConfig(enabled=args.perf_accounting)
     if args.perf_window:
         perf.window = args.perf_window
@@ -2360,7 +2791,28 @@ def config_from_args(args) -> EngineConfig:
         kv_transfer_group_layers=args.kv_transfer_group_layers,
         kv_transfer_window=args.kv_transfer_window,
         kv_transfer_retries=args.kv_transfer_retries,
-        kv_transfer_ttl=args.kv_transfer_ttl, **overrides)
+        kv_transfer_ttl=args.kv_transfer_ttl,
+        tenant_metering=args.tenant_metering,
+        tenant_top_k=args.tenant_top_k or 8,
+        tenant_ledger_path=args.tenant_ledger_path or "",
+        tenant_ledger_max_bytes=args.tenant_ledger_max_bytes or (16 << 20),
+        **overrides)
+
+
+def brownout_from_args(args) -> Optional[BrownoutController]:
+    """The staged-brownout controller of the command line's flags (None
+    when ``--brownout`` is off, the default)."""
+    if not args.brownout:
+        return None
+    return BrownoutController(BrownoutConfig(
+        enabled=True,
+        interval=args.brownout_interval,
+        queue_high=args.brownout_queue_high,
+        hbm_high=args.brownout_hbm_high,
+        up_evals=args.brownout_up_evals,
+        calm_evals=args.brownout_calm_evals,
+        max_tokens_clamp=args.brownout_max_tokens_clamp,
+    ))
 
 
 def server_from_args(args):
@@ -2376,12 +2828,17 @@ def server_from_args(args):
 
         return WhisperServer(config, device=args.device,
                              served_model_name=args.served_model_name)
+    fault_spec = args.fault_injection
+    if fault_spec is None:
+        fault_spec = os.environ.get("FAULT_INJECTION")
     return EngineServer(config, device=args.device,
                         served_model_name=args.served_model_name,
                         warmup_on_start=not args.skip_warmup,
                         overload_retry_after=args.overload_retry_after,
                         drain_deadline=args.drain_deadline,
-                        watchdog_stall_seconds=args.watchdog_stall_seconds)
+                        watchdog_stall_seconds=args.watchdog_stall_seconds,
+                        fault_injection=fault_spec,
+                        brownout=brownout_from_args(args))
 
 
 def main(argv=None) -> None:

@@ -73,20 +73,20 @@ def port_engine(weights, tconf):
 
 def drain(eng, reqs, stagger_at=()):
     """Submit requests ``(rid, prompt ids, port SamplingParams[,
-    adapter_slot])``, all at once or, with ``stagger_at``, the first at
-    once and each next one after the named step; step to the end. The JAX
-    engine gets the same SamplingParams fields. Returns (tokens, logprob
-    entries, finish reasons), each by request id."""
+    adapter_slot[, tenant]])``, all at once or, with ``stagger_at``, the
+    first at once and each next one after the named step; step to the end.
+    The JAX engine gets the same SamplingParams fields. Returns (tokens,
+    logprob entries, finish reasons), each by request id."""
     jax_side = isinstance(eng, JaxEngine)
     toks = {r[0]: [] for r in reqs}
     lps = {r[0]: [] for r in reqs}
     reasons = {}
 
-    def add(rid, prompt, sp, adapter=0):
+    def add(rid, prompt, sp, adapter=0, tenant="anonymous"):
         if jax_side:
             sp = JaxSP(**dataclasses.asdict(sp))
         eng.add_request(rid, prompt_token_ids=list(prompt), sampling=sp,
-                        adapter_slot=adapter)
+                        adapter_slot=adapter, tenant=tenant)
 
     queue = list(reqs)
     for r in (queue[:1] if stagger_at else queue):

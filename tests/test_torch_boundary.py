@@ -17,7 +17,12 @@ or ``prometheus_client``. The dense scoring path (the attention op, the
 runner and the engine that pad and run it) loads neither JAX nor the JAX
 package's attention module it ports. The Whisper path (the model, the audio
 front end, the runner and its stdlib server) loads none of JAX, the JAX
-package, ``aiohttp``, ``prometheus_client`` or ``safetensors``.
+package, ``aiohttp``, ``prometheus_client`` or ``safetensors``. The
+resilience, overload and tenant planes (``tenancy.py``,
+``engine/overload.py``, ``testing/faults.py``, whose reference modules load
+without JAX and, for the faults, with ``aiohttp``) load none of JAX, the
+JAX package or ``aiohttp``: ``production_stack_tpu_torch.testing`` is the
+port's own, ``production_stack_tpu.testing`` is forbidden.
 """
 
 import ast
@@ -247,4 +252,46 @@ def test_whisper_path_loads_no_jax_nor_http_libraries():
 def test_whisper_static_imports(module):
     path = ROOT / (module.replace(".", "/") + ".py")
     bad = [m for m in _imports(path) if _whisper_bad(m)]
+    assert bad == [], f"{path.name} imports {bad}"
+
+
+RESILIENCE = ("production_stack_tpu_torch.tenancy",
+              "production_stack_tpu_torch.engine.overload",
+              "production_stack_tpu_torch.testing",
+              "production_stack_tpu_torch.testing.faults")
+
+
+def _resilience_bad(name: str) -> bool:
+    return forbidden(name) or name == "aiohttp" or name.startswith(
+        "aiohttp.")
+
+
+def test_resilience_prefix_trap():
+    assert _resilience_bad("production_stack_tpu.testing")
+    assert _resilience_bad("production_stack_tpu.testing.faults")
+    assert _resilience_bad("production_stack_tpu.tenancy")
+    assert _resilience_bad("aiohttp.web")
+    assert not _resilience_bad("production_stack_tpu_torch.testing")
+    assert not _resilience_bad("production_stack_tpu_torch.testing.faults")
+    assert not _resilience_bad("production_stack_tpu_torch.tenancy")
+
+
+def test_resilience_modules_load_no_jax_nor_aiohttp():
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {RESILIENCE!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(RESILIENCE) <= set(mods)
+    assert [m for m in mods if _resilience_bad(m)] == []
+
+
+@pytest.mark.parametrize("module", RESILIENCE[:2] + RESILIENCE[3:])
+def test_resilience_static_imports(module):
+    path = ROOT / (module.replace(".", "/") + ".py")
+    bad = [m for m in _imports(path) if _resilience_bad(m)]
     assert bad == [], f"{path.name} imports {bad}"

@@ -2,14 +2,13 @@
 package's ``prometheus_client`` one, on the CPU.
 
 The JAX engine and the port's engine, on the same tiny-llama weights and
-the ragged path with n-gram speculation, serve the same requests to the
-end, a repeated prompt among them. Both expositions are parsed with
-``prometheus_client.parser``:
+the ragged path with n-gram speculation, serve the same requests of two
+tenants to the end, a repeated prompt among them. Both expositions are
+parsed with ``prometheus_client.parser``:
 
 - every port family is a JAX family of the same type and label names;
-- the JAX families the port lacks are exactly ``NOT_PORTED`` (subsystems
-  later slices bring: the tenant plane, the brownout and fair share,
-  diagnostics), so a later slice shrinks the list;
+- the JAX families the port lacks are exactly ``NOT_PORTED`` (the
+  diagnostics subsystem, which a later slice brings);
 - the engine-state samples are equal, as are the histograms' bucket edges
   and counts after the same observations (the KV-transfer families by
   direction among them);
@@ -17,7 +16,11 @@ end, a repeated prompt among them. Both expositions are parsed with
   tier families (hit ratio by tier, bytes by tier and direction, the
   prefetch histogram's edges and count) and the CPU cache samples are
   equal;
-- the router's ``EngineStats.from_scrape`` reads both texts alike.
+- the router's ``EngineStats.from_scrape`` reads both texts alike;
+- the tenant families (tokens by tenant and phase, KV blocks, the queue
+  summary's counts) are equal, and the port's chip-seconds by tenant sum
+  to its attributed dispatch seconds; the overload families carry the same
+  snapshot alike.
 """
 
 import types
@@ -42,11 +45,8 @@ torch.set_num_threads(2)
 
 MODEL = "tiny-llama"
 NOT_PORTED = {
-    "vllm:tenant_tokens", "vllm:tenant_chip_seconds", "vllm:tenant_kv_blocks",
-    "vllm:tenant_queue_time_seconds", "vllm:brownout_stage",
-    "vllm:brownout_sheds",
-    "vllm:fair_share_deficit", "vllm:diagnostic_bundles",
-    "vllm:diagnostic_bundles_dropped", "vllm:diagnostic_capture_seconds",
+    "vllm:diagnostic_bundles", "vllm:diagnostic_bundles_dropped",
+    "vllm:diagnostic_capture_seconds",
 }
 # samples of engine state both engines must give alike
 STATE = (
@@ -69,10 +69,18 @@ LIFECYCLE = {"draining": True, "drain_rejected_total": 3,
              "warmup_seconds": 12.5}
 GREEDY = SamplingParams(temperature=0.0, max_tokens=12, ignore_eos=True)
 MOTIF = [31, 32, 33, 34]
-FIRST = [("long", list(range(1, 50)), GREEDY), ("loop", MOTIF * 4, GREEDY),
-         ("short", [7, 8, 9, 10, 11, 12, 13], GREEDY)]
+# two tenants, the second sending one request
+FIRST = [("long", list(range(1, 50)), GREEDY, 0, "team-a"),
+         ("loop", MOTIF * 4, GREEDY, 0, "team-a"),
+         ("short", [7, 8, 9, 10, 11, 12, 13], GREEDY, 0, "team-b")]
 # the long prompt again: its full blocks hit the prefix cache
-AGAIN = [("again", list(range(1, 50)), GREEDY)]
+AGAIN = [("again", list(range(1, 50)), GREEDY, 0, "team-a")]
+OVERLOAD = {"brownout": {"enabled": True, "stage": 2,
+                         "sheds": {"spec": 3, "tenant": 1}},
+            "shed_tenants": [],
+            "fair_share": {"enabled": True,
+                           "deficits": {"team-a": 1.5, "team-b": 0.25},
+                           "admit_pass": {}}}
 
 
 def _finished(arrival=1.0):
@@ -111,15 +119,17 @@ def texts():
     assert teng.spec_accepted > 0 and teng.scheduler.allocator.prefix_hits
     jm = JaxMetrics(jeng, MODEL)
     jm.register_lifecycle(lambda: dict(LIFECYCLE))
-    jm.register_overload(lambda: {})
+    jm.register_overload(lambda: OVERLOAD)
     jm.register_diagnostics(lambda: {
         "bundles_total": {}, "dropped_total": {},
         "capture_seconds_count": 0, "capture_seconds_sum": 0.0})
     tm = ServerMetrics(teng, MODEL)
     tm.register_lifecycle(lambda: dict(LIFECYCLE))
+    tm.register_overload(lambda: OVERLOAD)
     for m in (jm, tm):
         _observe(m)
-    return jm.generate().decode(), tm.generate().decode()
+    return (jm.generate().decode(), tm.generate().decode(),
+            dict(teng.tenant_stats(), totals=teng.perf.snapshot()["totals"]))
 
 
 def _families(text):
@@ -136,7 +146,7 @@ def _samples(text):
 
 
 def test_every_port_family_is_a_reference_family(texts):
-    jax_text, port_text = texts
+    jax_text, port_text, _ = texts
     jf, tf = _families(jax_text), _families(port_text)
     assert all(name.startswith("vllm:") for name in tf)
     for name, fam in tf.items():
@@ -153,7 +163,7 @@ def test_every_port_family_is_a_reference_family(texts):
 
 
 def test_engine_state_samples_equal(texts):
-    jax_text, port_text = texts
+    jax_text, port_text, _ = texts
     js, ts = _samples(jax_text), _samples(port_text)
     labels = (("model_name", MODEL),)
     for name in STATE:
@@ -175,7 +185,7 @@ def test_engine_state_samples_equal(texts):
 
 
 def test_histograms_match(texts):
-    jax_text, port_text = texts
+    jax_text, port_text, _ = texts
     jf, tf = _families(jax_text), _families(port_text)
     hists = [n for n, f in tf.items() if f.type == "histogram"]
     assert len(hists) == 9
@@ -208,7 +218,7 @@ def test_histograms_match(texts):
 
 
 def test_engine_stats_from_scrape_equal(texts):
-    jax_text, port_text = texts
+    jax_text, port_text, _ = texts
     want = EngineStats.from_scrape(jax_text)
     got = EngineStats.from_scrape(port_text)
     assert got == want
@@ -292,3 +302,31 @@ def test_tier_families_equal(tier_texts):
     assert edges and all(k in ts for k in edges)
     assert ts[("vllm:cpu_prefix_cache_hits_total",
                (("model_name", MODEL),))] > 0
+
+
+def test_tenant_and_overload_samples_equal(texts):
+    jax_text, port_text, stats = texts
+    js, ts = _samples(jax_text), _samples(port_text)
+
+    def of(samples, prefix):
+        return {k: v for k, v in samples.items() if k[0].startswith(prefix)}
+
+    for prefix in ("vllm:tenant_tokens_total", "vllm:tenant_kv_blocks",
+                   "vllm:tenant_queue_time_seconds_count",
+                   "vllm:brownout_stage", "vllm:brownout_sheds_total",
+                   "vllm:fair_share_deficit"):
+        assert of(ts, prefix) == of(js, prefix), prefix
+        assert of(ts, prefix), prefix
+    tok = of(ts, "vllm:tenant_tokens_total")
+    for phase in ("prefill", "decode"):
+        # the tenants' tokens of a phase sum to the accountant's goodput
+        # total of that phase (accepted drafts included in decode)
+        part = sum(v for (_, lbl), v in tok.items()
+                   if dict(lbl)["phase"] == phase)
+        assert part == stats["totals"][f"{phase}_tokens"] > 0, phase
+    tenants = {dict(lbl)["tenant"] for (_, lbl) in tok}
+    assert tenants == {"team-a", "team-b"}
+    chip = of(ts, "vllm:tenant_chip_seconds_total")
+    assert sum(chip.values()) == pytest.approx(
+        stats["dispatch_seconds_total"], rel=1e-9)
+    assert set(of(js, "vllm:tenant_chip_seconds_total")) == set(chip)
