@@ -205,11 +205,41 @@ fatal):
    On that engine, its front end stopped: a 64-row decode step's untraced
    wall with tenant metering off and on, in turns. K1, K2 and K3 launch,
    K4 not.
+13. The observability plane (``observability``): llama-3-8b bf16 at full
+   width and depth, seed 0, the ragged path, through ``server_from_args``
+   with ``--flight-recorder-size 64 --perf-ledger-interval 1
+   --diagnostics-cooldown 0 --diagnostics-profile-seconds 0.5
+   --costmodel-drift-band 3`` (ledger and bundles in a temporary
+   directory). (a) 16 requests, each with its own x-request-id, streamed
+   and not, n = 2 on one: ``/debug/requests`` holds 16 records newest
+   first, each with received <= admitted <= first_token <= last_token <=
+   finished, tokens equal to its usage (the prompt once a choice) and
+   outcome ``completed``; an expired deadline gives ``deadline_exceeded``
+   and 504, a client that resets its stream ``client_disconnect``; the
+   recorder's host cost a request (the server's own merge, on a table of
+   its own) printed. (b) ``/debug/memory`` with nothing served: the
+   pickle loads, its segments sum to ``memory_reserved()`` and its
+   allocated blocks to ``memory_allocated()`` within 1%; bytes and ms
+   printed. (c) allocated / total at rest and at a wave's peak printed; no
+   ``hbm_pressure`` bundle at the default threshold. (d) ``POST
+   /debug/diagnostics/capture`` with an incident while requests arrive
+   (every 0.1 s, until 0.1 s into its trace): 200, the bundle holds every
+   collector's file, ``memory.pickle``
+   and a trace whose kernel events name K1, K2 and K3, with no error;
+   16-request waves without and with a capture, in turns, printed. (e) a
+   recompile after ``mark_steady`` and the HBM threshold lowered below the
+   measured share each leave one bundle, counted by
+   ``vllm:diagnostic_bundles_total``. (f) ``POST /drain``: the ledger holds
+   interval records and one drain record, stamped with this card and
+   platform ``gpu``, whose generation tokens equal ``/metrics``'. K1, K2
+   and K3 launch, K4 not. Then no bundle in the default archive, where
+   every other phase's servers keep theirs, is an ``hbm_pressure`` one.
 
 The line before the card line carries the kernels' JSON record, whose
 ``launches`` sum each kernel's launches over every served path (each
 path's own counts are in ``launches_by_path``, ``moe-int8``, ``kv-plane``,
-``scoring-surface``, ``whisper`` and ``overload`` among them);
+``scoring-surface``, ``whisper``, ``overload`` and ``observability``
+among them);
 the last line is ``{"ok":
 true, "device": {...}}``.
 """
@@ -4593,6 +4623,673 @@ def overload_phase(torch, np, counters, card: str) -> dict:
     return launches
 
 
+# -- phase 13: the observability plane ----------------------------------------
+
+OBS_MODEL = "llama-3-8b"
+OBS_DEFAULT_HBM = 0.92  # --diagnostics-hbm-threshold's default
+# every file a forced capture's bundle holds on the card
+OBS_FILES = {"manifest.json", "perf.json", "lifecycle.json",
+             "flight_recorder.json", "scheduler.json", "compile_events.json",
+             "memory.pickle", "trace/trace.json"}
+
+
+def _obs_body(rng) -> dict:
+    """A greedy completion of 256-1024 byte tokens, 32 out."""
+    return {"model": OBS_MODEL, "max_tokens": 32, "temperature": 0.0,
+            "ignore_eos": True, "prompt": rng.integers(0, 256, int(
+                rng.integers(256, 1025))).tolist()}
+
+
+def _obs_bodies(np, rng, n: int, tag: str) -> list:
+    """``n`` of ``_obs_body``, each with its own x-request-id; every third
+    streamed (usage included), the first asking n = 2."""
+    jobs = []
+    for i in range(n):
+        body = _obs_body(rng)
+        if i == 0:
+            body["n"] = 2
+        if i % 3 == 1:
+            body.update(stream=True, stream_options={"include_usage": True})
+        jobs.append((f"{tag}-{i:02d}", body))
+    return jobs
+
+
+def _obs_send(base: str, xrid: str, body: dict, headers=None) -> tuple:
+    """(status, usage or None, headers) of one completion sent with its
+    x-request-id; a stream is read to [DONE] for its usage chunk."""
+    hdrs = {"x-request-id": xrid, **(headers or {})}
+    if body.get("stream"):
+        status, events, _ = _ov_stream(base, body, hdrs)
+        usage = [e["usage"] for e in events
+                 if isinstance(e, dict) and e.get("usage")]
+        return status, usage[-1] if usage else None, {}
+    status, rh, raw, _, _ = _ov_call(base, "/v1/completions", body, hdrs)
+    return status, (json.loads(raw).get("usage") if status == 200
+                    else None), rh
+
+
+def _obs_wave(base: str, jobs: list) -> tuple:
+    """Send ``jobs`` at once; (wall seconds, {xrid: (status, usage)})."""
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
+        out = dict(zip((x for x, _ in jobs), ex.map(
+            lambda j: _obs_send(base, *j)[:2], jobs)))
+    wall = time.perf_counter() - t0
+    bad = {x: s for x, (s, _) in out.items() if s != 200}
+    if bad:
+        raise AssertionError(f"[observability] wave statuses {bad}")
+    return wall, out
+
+
+def _obs_records(base: str, **query) -> list:
+    q = "&".join(f"{k}={v}" for k, v in query.items())
+    return _ov_json(base, "/debug/requests" + (f"?{q}" if q else ""))[
+        "requests"]
+
+
+def _obs_flight(np, base: str, server) -> dict:
+    """(a) 16 requests with their own x-request-ids: 16 records, newest
+    first, each whole and ordered, tokens = usage (the prompt counted once
+    a choice), completed; an expired deadline and a client that leaves a
+    stream. The recorder's host cost a request, measured in process."""
+    jobs = _obs_bodies(np, np.random.default_rng(13), 16, "obs-a")
+    _, answers = _obs_wave(base, jobs)
+    recs = _obs_records(base)
+    if len(recs) != 16 or {r["client_request_id"] for r in recs} != set(
+            answers):
+        raise AssertionError(f"[observability] /debug/requests holds "
+                             f"{len(recs)} records")
+    finished = [r["timeline"]["finished"] for r in recs]
+    if finished != sorted(finished, reverse=True):
+        raise AssertionError("[observability] records not newest first")
+    order = ("received", "admitted", "first_token", "last_token", "finished")
+    bodies = dict(jobs)
+    for rec in recs:
+        xrid = rec["client_request_id"]
+        tl = rec["timeline"]
+        stamps = [tl.get(k) for k in order]
+        usage = answers[xrid][1]
+        n = bodies[xrid].get("n", 1)
+        if (None in stamps or stamps != sorted(stamps)
+                or rec["outcome"] != "completed" or rec["status"] != 200
+                or rec["num_output_tokens"] != usage["completion_tokens"]
+                or rec["num_prompt_tokens"] != usage["prompt_tokens"] * n):
+            raise AssertionError(f"[observability] record {xrid}: {rec} "
+                                 f"against usage {usage}")
+    status, _, rh = _obs_send(base, "obs-a-expired", {
+        "model": OBS_MODEL, "prompt": "late", "max_tokens": 4},
+        {"x-request-deadline": f"{time.time() - 1:.3f}"})
+    leaver = _obs_leave(base)
+    expired = {r["client_request_id"]: r for r in _obs_records(
+        base, limit=4)}
+    if (status != 504 or rh.get("X-Request-Id") != "obs-a-expired"
+            or expired["obs-a-expired"]["outcome"] != "deadline_exceeded"
+            or expired["obs-a-expired"]["status"] != 504):
+        raise AssertionError(f"[observability] expired deadline: {status} "
+                             f"{expired.get('obs-a-expired')}")
+    if leaver["outcome"] != "client_disconnect":
+        raise AssertionError(f"[observability] a client that left: "
+                             f"{leaver}")
+    cost = _obs_recorder_cost(server)
+    log(f"[observability] (a) 16 records newest first, whole and ordered, "
+        f"tokens = usage; expired deadline 504 deadline_exceeded; a client "
+        f"that left mid-stream client_disconnect after "
+        f"{leaver['num_output_tokens']} finished tokens; recorder host cost "
+        f"a request: median {cost['median_us']:.2f} us (p90 "
+        f"{cost['p90_us']:.2f} us)")
+    return {"records": len(recs), "recorder_us": cost}
+
+
+def _obs_leave(base: str) -> dict:
+    """A streamed 1024-token request whose client reads its first chunk
+    and resets the connection; returns its record once finished."""
+    host, port = base[len("http://"):].split(":")
+    # printable tokens only, so text (and chunks) flow from the start
+    body = json.dumps({"model": OBS_MODEL, "prompt": "leave " * 50,
+                       "max_tokens": 1024, "ignore_eos": True,
+                       "temperature": 0.0, "stream": True,
+                       "allowed_token_ids": KV_ALLOWED}).encode()
+    sock = socket.create_connection((host, int(port)), timeout=120)
+    sock.sendall(b"POST /v1/completions HTTP/1.1\r\nHost: x\r\n"
+                 b"Content-Type: application/json\r\n"
+                 b"x-request-id: obs-a-leaver\r\n"
+                 + f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+    if b"200" not in sock.recv(4096):
+        raise AssertionError("[observability] the leaving stream got no 200")
+    sock.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                    b"\x01\x00\x00\x00\x00\x00\x00\x00")
+    sock.close()
+    t_end = time.monotonic() + 120
+    while time.monotonic() < t_end:
+        recs = {r["client_request_id"]: r for r in _obs_records(base,
+                                                                limit=4)}
+        if "obs-a-leaver" in recs:
+            return recs["obs-a-leaver"]
+        time.sleep(0.05)
+    raise AssertionError("[observability] no record of the client that left")
+
+
+def _obs_recorder_cost(server) -> dict:
+    """The recorder's host work for one two-choice request, through the
+    server's own code (begin, register, ``_merge_flight`` of each choice,
+    unregister, finish) on a recorder and table of its own, so the live
+    ring is untouched: median and p90 microseconds over 2000 requests."""
+    import types
+
+    from production_stack_tpu_torch.flight_recorder import FlightRecorder
+
+    fr = FlightRecorder(64)
+    table = types.SimpleNamespace(_flights={}, _flight_lock=threading.Lock())
+    merge = type(server)._merge_flight
+    outs = [types.SimpleNamespace(
+        request_id=f"x-{i}", admit_time=1.1, first_token_time=1.2 + i,
+        finish_time=1.9 + i, num_prompt_tokens=512, num_output_tokens=32)
+        for i in range(2)]
+    times = []
+    for _ in range(2000):
+        t0 = time.perf_counter()
+        rec = fr.begin(request_id="x", client_request_id="obs",
+                       endpoint="/v1/completions", model=OBS_MODEL,
+                       tenant="anonymous", streaming=False, trace_id=None,
+                       outcome=None, status=None, num_prompt_tokens=0,
+                       num_output_tokens=0)
+        with table._flight_lock:
+            table._flights["x"] = rec
+        for out in outs:
+            merge(table, out)
+        with table._flight_lock:
+            table._flights.pop("x")
+        rec["outcome"], rec["status"] = "completed", 200
+        fr.finish(rec)
+        times.append((time.perf_counter() - t0) * 1e6)
+    if rec["num_output_tokens"] != 64:
+        raise AssertionError("[observability] the merge missed a choice")
+    times.sort()
+    return {"median_us": statistics.median(times),
+            "p90_us": times[int(0.9 * len(times))]}
+
+
+def _obs_memory(torch, base: str) -> dict:
+    """(b) /debug/memory with nothing served: the pickle loads; its
+    segments' total_size sums to memory_reserved() and its allocated
+    blocks to memory_allocated(), each within 1%."""
+    import pickle
+
+    t0 = time.perf_counter()
+    status, headers, data, _, _ = _ov_call(base, "/debug/memory")
+    ms = (time.perf_counter() - t0) * 1e3
+    if (status != 200 or headers.get("Content-Type")
+            != "application/octet-stream"
+            or "memory.pickle" not in headers.get("Content-Disposition", "")):
+        raise AssertionError(f"[observability] /debug/memory: {status} "
+                             f"{headers} {data[:200]!r}")
+    snap = pickle.loads(data)
+    dev = torch.cuda.current_device()
+    segs = [s for s in snap["segments"] if s.get("device", dev) == dev]
+    reserved = sum(s["total_size"] for s in segs)
+    allocated = sum(b["size"] for s in segs for b in s["blocks"]
+                    if b["state"] == "active_allocated")
+    want_r, want_a = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+    if (abs(reserved - want_r) > 0.01 * want_r
+            or abs(allocated - want_a) > 0.01 * want_a):
+        raise AssertionError(f"[observability] snapshot {reserved} reserved "
+                             f"/ {allocated} allocated against torch's "
+                             f"{want_r} / {want_a}")
+    log(f"[observability] (b) /debug/memory: {len(data)} bytes in "
+        f"{ms:.1f} ms, {len(segs)} segments; reserved {reserved} = "
+        f"memory_reserved() {want_r}, allocated {allocated} = "
+        f"memory_allocated() {want_a}")
+    return {"bytes": len(data), "ms": ms, "segments": len(segs)}
+
+
+def _obs_bundles(base: str) -> list:
+    return _ov_json(base, "/debug/diagnostics")["bundles"]
+
+
+def _obs_tar(base: str, bundle_id: str) -> dict:
+    """A bundle's tar.gz: {path inside the bundle: bytes}."""
+    import io
+    import tarfile
+
+    status, headers, data, _, _ = _ov_call(
+        base, f"/debug/diagnostics/{bundle_id}")
+    if status != 200 or headers.get("Content-Type") != "application/gzip":
+        raise AssertionError(f"[observability] bundle {bundle_id}: {status}")
+    out = {}
+    with tarfile.open(fileobj=io.BytesIO(data), mode="r:gz") as tar:
+        for m in tar.getmembers():
+            if m.isfile():
+                out[m.name[len(bundle_id) + 1:]] = tar.extractfile(m).read()
+    return out
+
+
+def _obs_capture(np, torch, base: str) -> dict:
+    """(c) no hbm_pressure bundle after the wave at the default threshold,
+    the allocated share at rest and at the wave's peak; (d) a forced
+    capture while requests arrive and decode: 200, every file, no
+    error, a trace
+    naming K1, K2 and K3; then waves without and with a capture in turns."""
+    total = torch.cuda.mem_get_info()[1]
+    rest = torch.cuda.memory_allocated() / total
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(17)
+    _obs_wave(base, _obs_bodies(np, rng, 16, "obs-c"))
+    peak = torch.cuda.max_memory_allocated() / total
+    time.sleep(1.5)  # a ledger interval: the accountant polls the card
+    hbm = [b for b in _obs_bundles(base) if b["trigger"] == "hbm_pressure"]
+    if hbm:
+        raise AssertionError(f"[observability] hbm_pressure bundles at the "
+                             f"default threshold: {hbm}")
+    log(f"[observability] (c) allocated / total at rest {rest:.4f}, at the "
+        f"wave's peak {peak:.4f}; threshold {OBS_DEFAULT_HBM}: no "
+        f"hbm_pressure bundle")
+    # a request arrives every 0.1 s until 0.1 s into the capture's trace,
+    # then the ones in flight decode: the trace holds ragged steps with
+    # prefill (K2), then decode-only steps (K3). The profiler's first start
+    # in a process takes seconds, so the trace's start is watched for.
+    stop, sent = threading.Event(), []
+
+    def feed():
+        i = 0
+        with concurrent.futures.ThreadPoolExecutor(32) as fx:
+            while not stop.is_set():
+                sent.append(fx.submit(_obs_send, base, f"obs-d-{i:03d}",
+                                      _obs_body(rng)))
+                i += 1
+                stop.wait(0.1)
+
+    feeder = threading.Thread(target=feed, daemon=True)
+    feeder.start()
+    time.sleep(0.3)
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        cap = ex.submit(_ov_call, base, "/debug/diagnostics/capture",
+                        {"trigger": "manual", "incident": "inc-chip-smoke"})
+        t_end = time.monotonic() + 60
+        while not (torch.autograd.profiler._is_profiler_enabled
+                   or cap.done() or time.monotonic() > t_end):
+            time.sleep(0.005)
+        time.sleep(0.1)
+        stop.set()
+        status, _, raw, _, _ = cap.result()
+    feeder.join(600)
+    statuses = [f.result()[0] for f in sent]
+    body = json.loads(raw)
+    if status != 200 or not body.get("captured") or set(statuses) != {200}:
+        raise AssertionError(f"[observability] capture: {status} {body}; "
+                             f"wave statuses {set(statuses)}")
+    files = _obs_tar(base, body["bundle"])
+    manifest = json.loads(files["manifest.json"])
+    if (set(files) != OBS_FILES or manifest["errors"] != {}
+            or manifest["detail"].get("incident") != "inc-chip-smoke"):
+        raise AssertionError(f"[observability] bundle files {sorted(files)}"
+                             f", manifest {manifest}")
+    trace = json.loads(files["trace/trace.json"])
+    kernels = collections.Counter(
+        _category(ev.get("name", "")) for ev in trace.get("traceEvents", [])
+        if ev.get("cat") == "kernel")
+    if not all(kernels[k] > 0 for k in ("K1", "K2", "K3")):
+        raise AssertionError(f"[observability] the bundle's trace names "
+                             f"{dict(kernels)}")
+    walls = {"without": [], "with": []}
+    for turn in ("without", "with", "without", "with"):
+        jobs = _obs_bodies(np, rng, 16, f"obs-d-{turn}")
+        with concurrent.futures.ThreadPoolExecutor(1) as ex:
+            cap = (ex.submit(_ov_call, base, "/debug/diagnostics/capture",
+                             {"trigger": "manual"})
+                   if turn == "with" else None)
+            walls[turn].append(_obs_wave(base, jobs)[0])
+            if cap is not None and cap.result()[0] != 200:
+                raise AssertionError("[observability] a timed capture "
+                                     "failed")
+    log(f"[observability] (d) forced capture during a wave: 200 in "
+        f"{manifest['capture_seconds']:.3f} s, {len(files)} files "
+        f"({len(files['memory.pickle'])} B memory.pickle, "
+        f"{len(files['trace/trace.json'])} B trace), no errors; trace "
+        f"kernels by class {dict(kernels)}; 16-request wave wall without / "
+        f"with a capture, in turns: {[round(w, 3) for w in walls['without']]}"
+        f" / {[round(w, 3) for w in walls['with']]} s (not judged)")
+    return {"alloc_share_rest": rest, "alloc_share_peak": peak,
+            "capture_s": manifest["capture_seconds"],
+            "wave_s": walls, "trace_kernels": dict(kernels)}
+
+
+def _obs_wait_bundle(base: str, trigger: str, t_end: float) -> dict:
+    while time.monotonic() < t_end:
+        rows = [b for b in _obs_bundles(base) if b["trigger"] == trigger]
+        if rows:
+            return rows[0]
+        time.sleep(0.1)
+    raise AssertionError(f"[observability] no {trigger} bundle")
+
+
+def _obs_triggers(base: str, server, share: float) -> dict:
+    """(e) a recompile after steady and the HBM threshold lowered below
+    the measured share each leave one bundle with their trigger; the
+    vllm:diagnostic_* families count them."""
+    perf = server.engine.perf
+    t_end = time.monotonic() + 120
+    perf.mark_steady()
+    perf.on_compile("ragged", "chip-smoke-drill", 0.01)
+    row = _obs_wait_bundle(base, "unexpected_recompile", t_end)
+    if row["detail"].get("bucket") != "chip-smoke-drill":
+        raise AssertionError(f"[observability] recompile bundle {row}")
+    perf.hbm_threshold = share * 0.9
+    perf._hbm_ts = 0.0  # poll now, not at the next interval
+    perf.poll_hbm()
+    perf.hbm_threshold = OBS_DEFAULT_HBM
+    row = _obs_wait_bundle(base, "hbm_pressure", t_end)
+    if not row["detail"]["fraction"] >= row["detail"]["threshold"]:
+        raise AssertionError(f"[observability] hbm bundle {row}")
+    idx = _ov_json(base, "/debug/diagnostics")
+    samples = _ov_metrics(base)
+    counted = {}
+    for trig in ("unexpected_recompile", "hbm_pressure", "manual"):
+        counted[trig] = _ov_sample(samples, "vllm:diagnostic_bundles_total",
+                                   trigger=trig)
+        if counted[trig] != idx["bundles_total"].get(trig, 0):
+            raise AssertionError(f"[observability] /metrics counts {trig} "
+                                 f"{counted[trig]}, the index "
+                                 f"{idx['bundles_total']}")
+    if counted["unexpected_recompile"] != 1 or counted["hbm_pressure"] != 1:
+        raise AssertionError(f"[observability] triggered bundles {counted}")
+    n = _ov_sample(samples, "vllm:diagnostic_capture_seconds_count")
+    log(f"[observability] (e) unexpected_recompile and hbm_pressure (at "
+        f"threshold {share * 0.9:.4f}) left one bundle each; "
+        f"vllm:diagnostic_bundles_total {counted}, capture seconds count "
+        f"{n:.0f}, sum "
+        f"{_ov_sample(samples, 'vllm:diagnostic_capture_seconds_sum'):.3f}")
+    return counted
+
+
+def _obs_ledger(torch, base: str, server, path: str) -> dict:
+    """(f) POST /drain: the ledger then holds interval and drain records,
+    read back through the port's read_records, stamped with this card and
+    platform gpu; the drain record's generation tokens equal /metrics'."""
+    from production_stack_tpu_torch.perf_ledger import read_records
+
+    if _ov_call(base, "/drain", {})[0] != 200 or not server.wait_drained(60):
+        raise AssertionError("[observability] the drain did not finish")
+    tokens = _ov_sample(_ov_metrics(base), "vllm:generation_tokens_total")
+    recs, skipped = read_records(path)
+    reasons = collections.Counter(r["reason"] for r in recs)
+    drain = [r for r in recs if r["reason"] == "drain"]
+    fp = drain[-1]["fingerprint"] if drain else {}
+    if (skipped or reasons["interval"] < 1 or len(drain) != 1
+            or fp.get("chip") != torch.cuda.get_device_name(0)
+            or fp.get("platform") != "gpu" or fp.get("framework") != "torch"
+            or drain[0]["marks"]["generation_tokens_total"] != tokens):
+        raise AssertionError(f"[observability] ledger {dict(reasons)}, "
+                             f"{skipped} skipped, fingerprint {fp}, drain "
+                             f"marks {drain[0]['marks'] if drain else None} "
+                             f"against /metrics {tokens}")
+    log(f"[observability] (f) ledger: {dict(reasons)} records, fingerprint "
+        f"{drain[0]['fingerprint_id']} (chip {fp['chip']}, torch "
+        f"{fp['torch_version']}); drain marks generation_tokens_total "
+        f"{tokens:.0f} = /metrics, decode_tps "
+        f"{drain[0]['marks'].get('decode_tps')}")
+    return {"records": dict(reasons), "fingerprint_id":
+            drain[0]["fingerprint_id"]}
+
+
+DRILL_CAPTURES = 20
+# the drill's request rate: 4 a second x 32 tokens, under what llama-3-8b
+# serves on the ragged path (~180 tokens/s at 16 in flight), so a queue
+# builds only while a capture holds the server
+DRILL_EVERY = 0.25
+DRILL_SERVER = ["--model", OBS_MODEL, "--seed", "0", "--skip-warmup",
+                "--diagnostics-cooldown", "0", "--diagnostics-max-bundles", "4"]
+
+
+def capture_drill_child(argv: list) -> int:
+    """``chip_smoke.py --capture-drill DIR [server flags]``: the capture
+    drill's server, in a fresh process that never started a profiler, as
+    a production server's: DRILL_SERVER's flags (diagnostics at their
+    defaults but the cooldown), bundles under DIR, then ``argv``'s. Prints
+    one JSON line (port, seconds up, the profiler's warm-up) and serves
+    until its standard input closes; a line ``profile-seconds S`` there
+    sets the bundles' trace length."""
+    import logging
+
+    sys.path.insert(0, str(ROOT))
+    from production_stack_tpu_torch.engine.server import (
+        build_parser,
+        server_from_args,
+    )
+
+    logging.basicConfig(level=logging.WARNING)
+    logging.getLogger("production_stack_tpu_torch.engine.server").setLevel(
+        logging.INFO)
+    t0 = time.perf_counter()
+    server = server_from_args(build_parser().parse_args(
+        DRILL_SERVER + ["--diagnostics-dir", argv[0]] + argv[1:]))
+    port = server.start("127.0.0.1", 0)
+    print(json.dumps({"port": port, "server_up_s": time.perf_counter() - t0,
+                      "profiler_warmup_s": server.profiler_warmup_seconds}),
+          flush=True)
+    try:
+        for line in sys.stdin:  # "profile-seconds S": set, then answer ok
+            server.diagnostics.config.profile_seconds = float(line.split()[1])
+            print("ok", flush=True)
+    finally:
+        server.shutdown()
+    return 0
+
+
+class _Feed:
+    """A streamed greedy request (``_obs_body``) every DRILL_EVERY seconds
+    from entry to exit, its 32-token answer timed end to end on this
+    process's clock: a stall of the server's process shows here, where
+    the server's own stamps, taken under its GIL, would not show it. (The
+    first streamed event is no TTFT here: random weights' tokens seldom
+    decode to text, so most answers' first event is their last.)"""
+
+    def __init__(self, base: str, rng):
+        self.base, self.rng = base, rng
+        self.stop, self.sent = threading.Event(), []
+
+    def _one(self, body: dict) -> tuple:
+        t0 = time.perf_counter()
+        status = _ov_stream(self.base, body)[0]
+        return status, time.perf_counter() - t0
+
+    def _run(self) -> None:
+        with concurrent.futures.ThreadPoolExecutor(32) as fx:
+            while not self.stop.is_set():
+                self.sent.append(fx.submit(self._one, _obs_body(self.rng)))
+                self.stop.wait(DRILL_EVERY)
+
+    def __enter__(self):
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stop.set()
+        self.thread.join(600)
+
+    def stats(self) -> dict:
+        """Requests, every one 200; their median and longest end to
+        end."""
+        got = [f.result() for f in self.sent]
+        if {s for s, _ in got} != {200}:
+            raise AssertionError(f"[drill] statuses "
+                                 f"{collections.Counter(s for s, _ in got)}")
+        e2e = [e for _, e in got]
+        return {"requests": len(got), "e2e_median_s": statistics.median(e2e),
+                "e2e_max_s": max(e2e)}
+
+
+def _obs_capture_drill(np, card: str, extra=()) -> dict:
+    """(g) The capture drill: a server in a fresh process
+    (capture_drill_child), driven from this one. Under a request every
+    DRILL_EVERY seconds: 4 s alone, the process's first capture, 4 s
+    alone, a later capture (2 s traces, the default), each window's
+    answers timed end to end; then DRILL_CAPTURES captures of 0.5 s
+    traces in a row, each 200 with every file, a trace and no error. The
+    server must then exit 0, which an abort would not. Prints whether
+    kineto reported its thread-affinity error."""
+    import select
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-drill-")
+    t0 = time.perf_counter()
+    with open(f"{tmp}/server.log", "w+") as err:
+        proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--capture-drill",
+             f"{tmp}/diag", *extra], cwd=ROOT, text=True,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err)
+        try:
+            if not select.select([proc.stdout], [], [], 300)[0]:
+                raise AssertionError("[drill] the server did not start")
+            out = json.loads(proc.stdout.readline() or "null")
+            if out is None:
+                raise AssertionError("[drill] the server exited at start")
+            base = f"http://127.0.0.1:{out['port']}"
+            rng = np.random.default_rng(23)
+
+            def capture() -> dict:
+                status, _, raw, _, _ = _ov_call(
+                    base, "/debug/diagnostics/capture", {"trigger": "manual"})
+                if status != 200:
+                    raise AssertionError(f"[drill] capture: {status} "
+                                         f"{raw[:200]!r}")
+                bundle = json.loads(raw)["bundle"]
+                with open(f"{tmp}/diag/{bundle}/manifest.json") as f:
+                    m = json.load(f)
+                if m["errors"] != {} or "trace/" not in m["files"]:
+                    raise AssertionError(f"[drill] bundle {bundle}: {m}")
+                return {"capture_s": m["capture_seconds"]}
+
+            _obs_wave(base, _obs_bodies(np, rng, 4, "drill-prime"))
+            windows = {}
+            for tag in ("alone-1", "first-capture", "alone-2",
+                        "later-capture"):
+                with _Feed(base, rng) as feed:
+                    time.sleep(0.5)
+                    held = capture() if tag.endswith("capture") else {}
+                    time.sleep(0.5 if held else 4.0)
+                windows[tag] = {**feed.stats(), **held}
+            out["windows"] = windows
+            proc.stdin.write("profile-seconds 0.5\n")
+            proc.stdin.flush()
+            if proc.stdout.readline().strip() != "ok":
+                raise AssertionError("[drill] the server did not answer")
+            with _Feed(base, rng) as feed:
+                captures = [capture() for _ in range(DRILL_CAPTURES)]
+            out["captures"] = {"n": len(captures), **feed.stats(),
+                               "capture_s": [c["capture_s"]
+                                             for c in captures]}
+        finally:
+            proc.stdin.close()
+            rc = proc.wait(120)
+        err.seek(0)
+        log_text = err.read()
+    if rc != 0:
+        raise AssertionError(f"[drill] the server exited {rc}: "
+                             f"{log_text[-3000:]}")
+    holds = [tuple(map(float, m)) for m in re.findall(
+        r"engine held ([0-9.]+) s to start and ([0-9.]+) s to stop",
+        log_text)]
+    out["kineto_thread_error"] = (
+        "External init callback must run in same thread" in log_text)
+    out["process_s"] = time.perf_counter() - t0
+    if len(holds) != 2 + DRILL_CAPTURES:
+        raise AssertionError(f"[drill] {len(holds)} traces logged")
+    for tag, (start, stop) in zip(("first-capture", "later-capture"),
+                                  holds):
+        windows[tag].update(start_s=start, stop_s=stop)
+    out["captures"].update(start_s=[h[0] for h in holds[2:]],
+                           stop_s=[h[1] for h in holds[2:]])
+
+    def window(tag: str) -> str:
+        w = out["windows"][tag]
+        held = (f", capture {w['capture_s']:.3f} s, engine held "
+                f"{w['start_s']:.3f} s to start and {w['stop_s']:.3f} s to "
+                f"stop" if "stop_s" in w else "")
+        return (f"{tag} {w['e2e_median_s']:.3f} / {w['e2e_max_s']:.3f} s "
+                f"({w['requests']} requests{held})")
+
+    log(f"[observability] (g) capture drill, a server in a fresh process "
+        f"({card}): exit 0 in {out['process_s']:.1f} s; profiler warm-up "
+        f"at bind {out['profiler_warmup_s']:.3f} s (server up in "
+        f"{out['server_up_s']:.1f} s); client median / longest end to end "
+        f"of a 32-token answer, one sent every {DRILL_EVERY} s, 2 s traces: "
+        + "; ".join(map(window, out["windows"])) + f". "
+        f"{out['captures']['n']} captures of 0.5 s in a row, every one 200 "
+        f"with its trace and no error: " + json.dumps(out["captures"])
+        + f"; kineto's thread-affinity error printed: "
+        f"{out['kineto_thread_error']}")
+    return out
+def observability_phase(torch, np, counters, card: str) -> dict:
+    """Phase 13 (``observability``): llama-3-8b, bf16, seed 0, the ragged
+    path, through ``server_from_args`` with the flight recorder at 64,
+    the perf ledger every second, diagnostics with no cooldown and 0.5 s
+    traces, and the drift band at 3: (a) flight records, (b)
+    /debug/memory, (c) no false HBM alarm, (d) a forced capture, (e)
+    triggered bundles, (f) the ledger. K1-K3 launch, K4 not. Returns the
+    phase's launches."""
+    import tempfile
+
+    from production_stack_tpu_torch.engine.server import (
+        build_parser,
+        server_from_args,
+    )
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-obs-")
+    ledger = f"{tmp}/perf.jsonl"
+    for c in counters:
+        c.n = 0
+    t0 = time.perf_counter()
+    server = server_from_args(build_parser().parse_args(
+        ["--model", OBS_MODEL, "--seed", "0", "--skip-warmup",
+         "--flight-recorder-size", "64",
+         "--perf-ledger-path", ledger, "--perf-ledger-interval", "1",
+         "--diagnostics-dir", f"{tmp}/diag", "--diagnostics-cooldown", "0",
+         "--diagnostics-profile-seconds", "0.5",
+         "--costmodel-drift-band", "3"]))
+    base = f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
+    log(f"[observability] server up in {time.perf_counter() - t0:.1f} s: "
+        f"{server.engine.runner.num_blocks} KV blocks")
+    out = {}
+    try:
+        out["a_flight"] = _obs_flight(np, base, server)
+        out["b_memory"] = _obs_memory(torch, base)
+        out["cd_capture"] = _obs_capture(np, torch, base)
+        out["e_triggers"] = _obs_triggers(
+            base, server, out["cd_capture"]["alloc_share_rest"])
+        out["f_ledger"] = _obs_ledger(torch, base, server, ledger)
+    finally:
+        server.shutdown()
+    launches = {c.name.split()[0]: c.n for c in counters}
+    del server
+    _released(torch, "observability")
+    _expect(launches, {"K1", "K2", "K3"}, "observability")
+    out["g_drill"] = _obs_capture_drill(np, card)
+    log(f"[observability] ({card}) in {time.perf_counter() - t_phase:.1f} "
+        "s: " + json.dumps({**out, "launches": launches}))
+    return launches
+
+
+def _no_hbm_alarm_left() -> int:
+    """Every server of this run but phase 13's keeps its bundles in the
+    default archive (a per-process directory under the system tmpdir):
+    none may hold an hbm_pressure bundle. Returns the bundles there."""
+    import os
+    import tempfile
+
+    root = pathlib.Path(tempfile.gettempdir()) / \
+        f"pstpu-diagnostics-{os.getpid()}"
+    names = sorted(p.name for p in root.iterdir()) if root.is_dir() else []
+    hbm = [n for n in names if n.endswith("-hbm_pressure")]
+    if hbm:
+        raise AssertionError(f"[observability] served paths left "
+                             f"hbm_pressure bundles: {hbm}")
+    log(f"[observability] default archive: {len(names)} bundle(s) "
+        f"{names[:8]}, no hbm_pressure")
+    return len(names)
+
+
 def _expect(launches: dict, expected: set, tag: str) -> None:
     for key, n in launches.items():
         if (n > 0) != (key in expected):
@@ -4653,6 +5350,9 @@ def main() -> int:
     by_path["scoring-surface"] = scoring_phase(torch, np, counters, card)
     by_path["whisper"] = whisper_phase(torch, np, counters, card)
     by_path["overload"] = overload_phase(torch, np, counters, card)
+    by_path["observability"] = observability_phase(torch, np, counters,
+                                                   card)
+    _no_hbm_alarm_left()
 
     kernels = []
     for r in results:
@@ -4684,4 +5384,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(capture_drill_child(sys.argv[2:])
+             if sys.argv[1:2] == ["--capture-drill"] else main())

@@ -115,16 +115,21 @@ class AsyncEngine:
         self.finished: collections.deque = collections.deque(maxlen=4096)
 
     @contextlib.contextmanager
-    def _entry(self):
+    def _entry(self, timeout: Optional[float] = None):
         """Take the engine lock from a thread other than the engine's; the
-        engine thread lets it in before its next step."""
+        engine thread lets it in before its next step. With a
+        ``timeout``, raises TimeoutError when a step holds the lock past
+        it."""
         with self._entering_lock:
             self._entering += 1
         try:
-            self._cv.acquire()
+            held = self._cv.acquire(timeout=-1 if timeout is None
+                                    else timeout)
         finally:
             with self._entering_lock:
                 self._entering -= 1
+        if not held:
+            raise TimeoutError(f"a step held the engine past {timeout} s")
         try:
             yield
         finally:
@@ -208,12 +213,14 @@ class AsyncEngine:
             stream.put(err)
         self._streams.clear()
 
-    def run_on_engine(self, fn: Callable):
+    def run_on_engine(self, fn: Callable, timeout: Optional[float] = None):
         """Run ``fn(engine)`` on the engine thread between steps; return
         its result, or raise its error, to the caller. Without a running
-        engine thread it runs here, under the engine's lock."""
+        engine thread it runs here, under the engine's lock. With a
+        ``timeout``, raises TimeoutError, and ``fn`` never runs, when a
+        step holds the engine past it."""
         fut: concurrent.futures.Future = concurrent.futures.Future()
-        with self._entry():
+        with self._entry(timeout):
             if not self._running:
                 return fn(self.engine)
             self._calls.append((fn, fut))

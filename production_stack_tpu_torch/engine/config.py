@@ -579,6 +579,12 @@ class EngineConfig:
     # empty path turns the ledger off (the metering gauges stay)
     tenant_ledger_path: str = ""
     tenant_ledger_max_bytes: int = 16 << 20
+    # the durable perf ledger (perf_ledger.py): rotating JSONL of
+    # fingerprint-stamped accountant snapshots journaled every
+    # perf_ledger_interval seconds and once on drain; empty path = off
+    perf_ledger_path: str = ""
+    perf_ledger_max_bytes: int = 16 << 20
+    perf_ledger_interval: float = 60.0
 
     @staticmethod
     def for_model(name: str, **kw) -> "EngineConfig":
@@ -593,7 +599,9 @@ class EngineConfig:
                       "kv_transfer_group_layers", "kv_transfer_window",
                       "kv_transfer_retries", "kv_transfer_ttl",
                       "tenant_metering", "tenant_top_k",
-                      "tenant_ledger_path", "tenant_ledger_max_bytes")
+                      "tenant_ledger_path", "tenant_ledger_max_bytes",
+                      "perf_ledger_path", "perf_ledger_max_bytes",
+                      "perf_ledger_interval")
                      if k in kw}
         return EngineConfig(model=ModelConfig.from_pretrained(name, **kw),
                             **engine_kw)

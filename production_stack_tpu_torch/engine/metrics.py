@@ -5,10 +5,10 @@ router scrapes (``router/stats.py``) for the families whose state this
 package has: ``EngineStatsCollector`` (the perf, KV-tier and tenant
 families included; the tenant rows folded to ``tenant_top_k`` +
 ``other``), ``LifecycleCollector``, ``OverloadCollector`` (the brownout
-and fair-share families) and ``ServerMetrics``' latency and KV-transfer
-histograms with the same bucket edges. Names, types, label names and
-values are the reference's. The diagnostics families are not ported yet:
-their subsystem is not.
+and fair-share families), ``DiagnosticsCollector`` (the diagnostic-bundle
+families) and ``ServerMetrics``' latency and KV-transfer histograms with
+the same bucket edges. Names, types, label names and values are the
+reference's.
 
 The card's machine has no ``prometheus_client``, so this module writes the
 text exposition format (version 0.0.4) itself, as the reference's
@@ -396,6 +396,31 @@ def lifecycle_families(s: dict, model_name: str) -> list[Family]:
     ]
 
 
+def diagnostics_families(s: dict, model_name: str) -> list[Family]:
+    """The reference's ``DiagnosticsCollector`` families, from
+    ``DiagnosticsManager.stats()``: bundles captured and capture requests
+    dropped, by trigger, and the capture seconds' summary."""
+    bundles = Family("vllm:diagnostic_bundles", "counter",
+                     "Diagnostic bundles captured on an anomaly trigger "
+                     "(GET /debug/diagnostics indexes them)",
+                     ["model_name", "trigger", "tier"])
+    for trigger, count in sorted(s["bundles_total"].items()):
+        bundles.add([model_name, trigger, "engine"], count)
+    dropped = Family("vllm:diagnostic_bundles_dropped", "counter",
+                     "Capture requests skipped by the cooldown or the "
+                     "single-flight gate (evidence already being captured)",
+                     ["model_name", "trigger", "tier"])
+    for trigger, count in sorted(s["dropped_total"].items()):
+        dropped.add([model_name, trigger, "engine"], count)
+    seconds = Family("vllm:diagnostic_capture_seconds", "summary",
+                     "Wall time spent capturing diagnostic bundles (off the "
+                     "serving path: capture runs on its own thread)",
+                     ["model_name", "tier"])
+    seconds.add([model_name, "engine"], s["capture_seconds_count"], "_count")
+    seconds.add([model_name, "engine"], s["capture_seconds_sum"], "_sum")
+    return [bundles, dropped, seconds]
+
+
 BUCKETS_TTFT = (
     0.001, 0.005, 0.01, 0.02, 0.04, 0.06, 0.08, 0.1, 0.25, 0.5, 0.75,
     1.0, 2.5, 5.0, 7.5, 10.0,
@@ -463,6 +488,7 @@ class ServerMetrics:
         self.model_name = model_name
         self._lifecycle: Optional[Callable[[], dict]] = None
         self._overload: Optional[Callable[[], dict]] = None
+        self._diagnostics: Optional[Callable[[], dict]] = None
         self.ttft = Histogram("vllm:time_to_first_token_seconds",
                               "Time to first token", BUCKETS_TTFT)
         self.tpot = Histogram("vllm:time_per_output_token_seconds",
@@ -507,6 +533,11 @@ class ServerMetrics:
     def register_overload(self, source: Callable[[], dict]) -> None:
         """Attach the brownout/fair-share snapshot source."""
         self._overload = source
+
+    def register_diagnostics(self, source: Callable[[], dict]) -> None:
+        """Attach the anomaly-capture stats source
+        (``DiagnosticsManager.stats``)."""
+        self._diagnostics = source
 
     def observe_transfer(self, direction: str, nbytes: int,
                          seconds: float) -> None:
@@ -557,6 +588,9 @@ class ServerMetrics:
             fams += lifecycle_families(self._lifecycle(), self.model_name)
         if self._overload is not None:
             fams += overload_families(self._overload(), self.model_name)
+        if self._diagnostics is not None:
+            fams += diagnostics_families(self._diagnostics(),
+                                         self.model_name)
         return fams
 
     def generate(self) -> bytes:

@@ -239,6 +239,14 @@ class PerfAccountant:
         # device memory occupancy (polled at most every hbm_poll_interval)
         self._hbm = {"used": 0, "total": 0, "peak": 0}
         self._hbm_ts = 0.0
+        # anomaly subscription (engine/diagnostics.py): called OUTSIDE
+        # self._lock with (trigger_name, detail_dict) when a bug signal
+        # fires here — an unexpected recompile, device memory past
+        # hbm_threshold, a cost-model drift episode. The subscriber must
+        # return fast (DiagnosticsManager.trigger spawns its capture
+        # thread and returns).
+        self.anomaly_hook: Optional[Callable[[str, dict], None]] = None
+        self.hbm_threshold = 0.0  # fraction of device memory; 0 = off
         # -- cost-model drift plane ---------------------------------------
         # Every dispatch the window already costs gets a PREDICTED wall
         # time from the same roofline arithmetic — max of FLOP-time,
@@ -321,6 +329,8 @@ class PerfAccountant:
                 "unexpected": unexpected, "ts": time.time(),
             }
             self._compile_events.append(event)
+        if unexpected and self.anomaly_hook is not None:
+            self.anomaly_hook("unexpected_recompile", dict(event))
 
     def mark_steady(self) -> None:
         """Warmup ran every serving variant: from here on a fresh
@@ -470,12 +480,14 @@ class PerfAccountant:
         drift window and judge the band. Measured wall time is split
         across the dispatch's phase events by predicted share; events with
         no wall time still accumulate the predicted counter but never
-        enter the ratio window."""
+        enter the ratio window. Fires ``anomaly_hook("costmodel_drift",
+        ...)`` OUTSIDE the lock, one call per phase episode edge."""
         if not predicted:
             return
         now = ts if ts is not None else time.monotonic()
         measured = max(float(seconds), 0.0)
         total_pred = sum(p for _, p in predicted)
+        alerts: List[dict] = []
         with self._lock:
             for phase, pred in predicted:
                 if pred <= 0:
@@ -487,7 +499,10 @@ class PerfAccountant:
                     self._drift_events.append((now, phase, pred, share))
             self._trim_drift(now)
             if measured > 0:
-                self._evaluate_drift_locked(now)
+                alerts = self._evaluate_drift_locked(now)
+        if self.anomaly_hook is not None:
+            for detail in alerts:
+                self.anomaly_hook("costmodel_drift", detail)
 
     def _trim_drift(self, now: float) -> None:
         while (self._drift_events
@@ -507,16 +522,18 @@ class PerfAccountant:
                   else 0.0 for phase in pred}
         return ratios, counts
 
-    def _evaluate_drift_locked(self, now: float) -> None:
+    def _evaluate_drift_locked(self, now: float) -> List[dict]:
         """Judge each phase's windowed ratio against its frozen baseline
-        (under ``self._lock``). Detection needs band > 1, warmup done, and
+        (under ``self._lock``); returns the anomaly details to fire after
+        release. Detection needs band > 1, warmup done, and
         ``costmodel_min_events`` windowed dispatches in the phase. The
         first qualifying window FREEZES the phase's baseline; an episode
-        opens (and counts) when ratio/baseline leaves [1/band, band] and
-        closes when it returns."""
+        opens (and counts, with one anomaly) when ratio/baseline leaves
+        [1/band, band] and closes when it returns."""
         band = self.costmodel_drift_band
         if band <= 1.0 or not self._steady:
-            return
+            return []
+        alerts: List[dict] = []
         ratios, counts = self._drift_ratios_locked()
         for phase, ratio in ratios.items():
             if counts[phase] < self.costmodel_min_events or ratio <= 0:
@@ -529,7 +546,17 @@ class PerfAccountant:
             out = relative > band or relative < 1.0 / band
             if out and not self._drift_out.get(phase, False):
                 self._costmodel["episodes"] += 1
+                alerts.append({
+                    "phase": phase,
+                    "ratio": round(ratio, 6),
+                    "baseline": round(baseline, 6),
+                    "relative": round(relative, 4),
+                    "band": band,
+                    "window_events": counts[phase],
+                    "ts": time.time(),
+                })
             self._drift_out[phase] = out
+        return alerts
 
     def _costmodel_fields_locked(self) -> dict:
         ratios, counts = self._drift_ratios_locked()
@@ -694,7 +721,8 @@ class PerfAccountant:
         """Read the card's allocator counters (bytes allocated now and at
         peak) and its total memory, at most every ``hbm_poll_interval``.
         Host-side queries only: nothing waits on the card. Without a card
-        the gauges stay 0."""
+        the gauges stay 0. Fires ``anomaly_hook("hbm_pressure", ...)``
+        when allocated / total reaches ``hbm_threshold``."""
         now = now if now is not None else time.monotonic()
         if now - self._hbm_ts < self.hbm_poll_interval and self._hbm_ts:
             return
@@ -712,6 +740,13 @@ class PerfAccountant:
             self._hbm["used"] = used
             self._hbm["total"] = total
             self._hbm["peak"] = max(self._hbm["peak"], peak)
+        if (self.anomaly_hook is not None and self.hbm_threshold > 0
+                and total > 0 and used / total >= self.hbm_threshold):
+            self.anomaly_hook("hbm_pressure", {
+                "used_bytes": used, "total_bytes": total,
+                "fraction": round(used / total, 4),
+                "threshold": self.hbm_threshold,
+            })
 
     # -- reductions ----------------------------------------------------------
     def _window_rates(self, now: float) -> dict:

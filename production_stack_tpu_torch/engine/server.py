@@ -79,9 +79,41 @@ Resilience, overload and tenants, as the reference's:
   tenants (a pushed P->D continuation always passes). ``GET
   /debug/overload`` shows it.
 
+Observability, as the reference's:
+
+- The flight recorder (flight_recorder.py; ``--flight-recorder-size``):
+  each completion and chat request leaves a timeline (received, admitted,
+  first token, last token, finished), its token counts summed over its
+  choices, its status and its outcome (``completed``, ``rejected``,
+  ``deadline_exceeded``, ``client_disconnect``), keyed by its request id
+  with the propagated ``x-request-id``, which buffered and error answers
+  echo. ``GET /debug/requests?limit=N`` serves them, newest first; one log
+  line a request.
+- W3C tracing (engine/tracing.py; ``--otel-endpoint``,
+  ``--otel-service-name``, ``--otel-secure``): a request's SERVER span
+  joins the router's trace through ``traceparent``; a no-op without
+  OpenTelemetry.
+- Anomaly diagnostics (engine/diagnostics.py; ``--no-diagnostics``,
+  ``--diagnostics-*``): an unexpected recompile, a watchdog stall, a
+  drain-deadline abort, device memory past ``--diagnostics-hbm-threshold``
+  and a cost-model drift episode (``--costmodel-drift-band``) each capture
+  a bundle (perf, lifecycle, flight recorder, scheduler and compile-event
+  snapshots, the memory snapshot on the card, a short ``torch.profiler``
+  trace). ``GET /debug/diagnostics`` indexes them, ``GET
+  /debug/diagnostics/{id}`` downloads one as tar.gz, ``POST
+  /debug/diagnostics/capture`` (the router's incident fan-out) captures one
+  now; the ``vllm:diagnostic_*`` families count them.
+- ``GET /debug/memory``: ``torch.cuda.memory._snapshot()`` pickled (the
+  reference answers jax's pprof); 500 on a CPU engine.
+- The durable perf ledger (perf_ledger.py; ``--perf-ledger-path``,
+  ``--perf-ledger-max-bytes``, ``--perf-ledger-interval``): a thread
+  journals the accountant's marks every interval and once at drain, in the
+  reference's record schema; ``/debug/perf`` shows its health.
+- ``--config file.yaml`` (yaml_args.py) sets flags from a file; explicit
+  flags win.
+
 Response bodies have the JAX server's shape, so the same router can front
-either engine. The perf ledger, ``/debug/memory`` and the other
-``/debug/*`` routes are not ported yet.
+either engine.
 
 Run: ``python -m production_stack_tpu_torch.engine.server --model
 llama-3-8b --port 18077`` (``--device cpu`` for the plain path,
@@ -108,9 +140,9 @@ import time
 import urllib.parse
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional
+from typing import Callable, Optional
 
-from production_stack_tpu_torch import __version__
+from production_stack_tpu_torch import __version__, perf_ledger
 from production_stack_tpu_torch.canary_golden import (
     DEFAULT_PROBES,
     record_from_response,
@@ -119,11 +151,16 @@ from production_stack_tpu_torch.engine.async_engine import (
     AsyncEngine,
     DeadlineExceeded,
 )
+from production_stack_tpu_torch.engine import tracing as etracing
 from production_stack_tpu_torch.engine.config import (
     CacheConfig,
     EngineConfig,
     PerfConfig,
     SchedulerConfig,
+)
+from production_stack_tpu_torch.engine.diagnostics import (
+    DiagnosticsConfig,
+    DiagnosticsManager,
 )
 from production_stack_tpu_torch.engine.engine import GrammarBankFull, LLMEngine
 from production_stack_tpu_torch.engine.grammar import (
@@ -159,8 +196,10 @@ from production_stack_tpu_torch.engine.sampling import (
     make_token_controls,
 )
 from production_stack_tpu_torch.engine.scheduler import SchedulerQueueFull
+from production_stack_tpu_torch.flight_recorder import FlightRecorder
 from production_stack_tpu_torch.tenancy import UsageLedger, resolve_tenant
 from production_stack_tpu_torch.testing import faults
+from production_stack_tpu_torch.yaml_args import parse_with_yaml_config
 
 _log = logging.getLogger(__name__)
 
@@ -168,6 +207,11 @@ MAX_CHOICES = 128  # OpenAI caps n at 128; batched prompts share the cap
 # echo + logprobs scores the prompt with a dense teacher-forced pass
 MAX_ECHO_SCORE_TOKENS = 2048
 MAX_GUIDED_CHOICES = 64
+# how long a diagnostic capture waits for a step to end before it skips
+# what needs the engine between steps (the memory snapshot, a trace's
+# start) and records why in the bundle: a wedged step is what a watchdog
+# stall bundle is captured for
+ENGINE_WAIT_SECONDS = 5.0
 # the endpoint families this engine serves, on its /v1/models card: the
 # router sends a path only to engines that advertise its capability
 ENGINE_CAPABILITIES = (
@@ -433,7 +477,12 @@ class EngineServer:
                  drain_deadline: float = 30.0,
                  watchdog_stall_seconds: float = 0.0,
                  fault_injection: Optional[str] = None,
-                 brownout: Optional[BrownoutController] = None):
+                 brownout: Optional[BrownoutController] = None,
+                 otel_endpoint: Optional[str] = None,
+                 otel_service_name: str = "tpu-engine",
+                 otel_secure: bool = False,
+                 flight_recorder_size: int = 256,
+                 diagnostics: Optional[DiagnosticsConfig] = None):
         self.config = config
         self.engine = engine if engine is not None else LLMEngine(
             config, device=device)
@@ -446,6 +495,14 @@ class EngineServer:
         self.metrics = ServerMetrics(self.engine, self.model_name)
         self.async_engine.step_observer = self.metrics.observe_step
         self.async_engine.finish_observer = self._observe_finished
+        etracing.initialize_tracing(otel_endpoint, otel_service_name,
+                                    otel_secure)
+        # per-request timelines (GET /debug/requests): a request's open
+        # record, by its request id, until its handler finishes it; the
+        # engine thread merges each choice's stamps in under the lock
+        self.flight_recorder = FlightRecorder(flight_recorder_size)
+        self._flights: dict[str, dict] = {}
+        self._flight_lock = threading.Lock()
         # the Retry-After seconds of a 503 while draining, and the floor of
         # a 429's (scheduler.retry_after_hint scales it with the queue)
         self.overload_retry_after = overload_retry_after
@@ -477,6 +534,17 @@ class EngineServer:
                 config.tenant_ledger_path,
                 max_bytes=config.tenant_ledger_max_bytes)
         self._ledger_meta: dict[str, tuple] = {}
+        # the durable perf ledger (perf_ledger.py): fingerprint-stamped
+        # accountant snapshots journaled every perf_ledger_interval seconds
+        # by a thread of its own and once at begin_drain; off unless a path
+        # is set and the accountant exists. Read-only over stats().
+        self.perf_ledger = None
+        self._perf_fp: Optional[dict] = None
+        self._perf_ledger_thread: Optional[threading.Thread] = None
+        if config.perf_ledger_path and self.engine.perf is not None:
+            self.perf_ledger = perf_ledger.PerfLedger(
+                config.perf_ledger_path,
+                max_bytes=config.perf_ledger_max_bytes)
         self.warmup_on_start = warmup_on_start
         self.warming = False
         self.warmup_seconds = 0.0
@@ -492,6 +560,10 @@ class EngineServer:
         self._inflight = 0
         self._inflight_lock = threading.Lock()
         self._profiling = threading.Lock()
+        # seconds of the last trace's engine-held start and stop, its
+        # sleep and export; of the profiler's warm-up at bind
+        self.last_trace: dict = {}
+        self.profiler_warmup_seconds: Optional[float] = None
         self.watchdog = StepWatchdog(self.async_engine,
                                      watchdog_stall_seconds)
         self.metrics.register_lifecycle(self._lifecycle_snapshot)
@@ -500,17 +572,101 @@ class EngineServer:
         # transfer id: {blocks, layers_done, meta, created, ready}
         self._kv_transfers: dict[str, dict] = {}
         self._kv_lock = threading.Lock()
+        # anomaly-triggered diagnostic bundles (engine/diagnostics.py): an
+        # unexpected recompile, a watchdog stall, a drain-deadline abort,
+        # device-memory pressure and a cost-model drift episode each
+        # capture the evidence into GET /debug/diagnostics, on the
+        # manager's own thread; the signal's thread only pays for
+        # trigger(). The memory snapshot exists only on the card.
+        collectors = {
+            "perf.json": self._collect_perf,
+            "lifecycle.json": self._lifecycle_snapshot,
+            "flight_recorder.json": self._collect_flight_recorder,
+            "scheduler.json": self._collect_scheduler,
+            "compile_events.json": self._collect_compile_tail,
+        }
+        if self.engine.device.type == "cuda":
+            collectors["memory.pickle"] = self._collect_device_memory
+        self.diagnostics = DiagnosticsManager(
+            diagnostics if diagnostics is not None else DiagnosticsConfig(),
+            tier="engine", collectors=collectors,
+            profile_fn=self._diag_profile)
+        if self.diagnostics.config.enabled:
+            perf = self.engine.perf
+            if perf is not None:
+                perf.anomaly_hook = self.diagnostics.trigger
+                perf.hbm_threshold = self.diagnostics.config.hbm_threshold
+            self.watchdog.on_stall = (
+                lambda d: self.diagnostics.trigger("watchdog_stall", d))
+            # recovery is a fact worth indexing, not a second bundle: the
+            # stall's capture already holds the evidence
+            self.watchdog.on_recover = (
+                lambda d: self.diagnostics.note("watchdog_recovered", d))
+            self.metrics.register_diagnostics(self.diagnostics.stats)
 
     def _observe_finished(self, out) -> None:
-        """Engine thread: a finished request's stamps into the latency
-        histograms, and its usage record into the ledger."""
+        """Engine thread: a finished choice's stamps into the latency
+        histograms and its request's flight record, and its usage record
+        into the ledger. The async engine calls this before it delivers
+        the output, so a record is whole when its handler finishes it."""
         if out.arrival_time is None or out.finish_time is None:
             return  # an abort delivered to a waiting stream carries none
         self.metrics.observe_request(out.arrival_time, out.first_token_time,
                                      out.finish_time, out.num_output_tokens)
         self.metrics.observe_stages(out)
+        self._merge_flight(out)
         if self.usage_ledger is not None:
             self._ledger_record(out)
+
+    def _merge_flight(self, out) -> None:
+        """Merge a finished choice's lifecycle stamps into its request's
+        open flight record (min across choices for admission and first
+        token, max for the last token) and add its token counts. A choice
+        of an n > 1 or batched request is ``<request id>-<index>``."""
+        rid = out.request_id
+        with self._flight_lock:
+            rec = self._flights.get(rid)
+            if rec is None:
+                rec = self._flights.get(rid.rpartition("-")[0])
+            if rec is None:
+                return
+            tl = rec["timeline"]
+            for key, val, pick in (("admitted", out.admit_time, min),
+                                   ("first_token", out.first_token_time, min),
+                                   ("last_token", out.finish_time, max)):
+                if val is not None:
+                    tl[key] = val if key not in tl else pick(tl[key], val)
+            rec["num_prompt_tokens"] += out.num_prompt_tokens
+            rec["num_output_tokens"] += out.num_output_tokens
+
+    def set_flight_outcome(self, rid: str, outcome: str) -> None:
+        """Name the outcome of request ``rid``'s open flight record, where
+        its status alone would not (a stream that committed 200)."""
+        with self._flight_lock:
+            rec = self._flights.get(rid)
+            if rec is not None and rec.get("outcome") is None:
+                rec["outcome"] = outcome
+
+    @staticmethod
+    def _finalize_span(span, rec: dict, status: int) -> None:
+        """Stamp the stage durations (from the lifecycle stamps merged
+        into the flight record) onto the engine's SERVER span."""
+        if span is None:
+            return
+        tl = rec["timeline"]
+        span.set_attribute("http.status_code", status)
+        if "admitted" in tl:
+            span.set_attribute("stage.queue_s", tl["admitted"] - tl["received"])
+            span.add_event("admitted")
+        if "first_token" in tl and "admitted" in tl:
+            span.set_attribute("stage.prefill_s",
+                               tl["first_token"] - tl["admitted"])
+            span.add_event("first_token")
+        if "last_token" in tl and "first_token" in tl:
+            span.set_attribute("stage.decode_s",
+                               tl["last_token"] - tl["first_token"])
+        span.set_attribute("tokens.prompt", rec["num_prompt_tokens"])
+        span.set_attribute("tokens.output", rec["num_output_tokens"])
 
     def _ledger_record(self, out) -> None:
         model, client_rid = self._ledger_meta.pop(
@@ -544,8 +700,16 @@ class EngineServer:
         bind the HTTP socket; returns the bound port (a free one for port
         0). ``/ready`` answers 503 ``warming`` from here until the warmup
         ends."""
+        if (self.diagnostics.config.enabled
+                and self.diagnostics.config.profile_seconds > 0):
+            self._warm_profiler()
         self.async_engine.start()
         self.watchdog.start()
+        if self.perf_ledger is not None:
+            self._perf_ledger_thread = threading.Thread(
+                target=self._perf_ledger_loop, daemon=True,
+                name="perf-ledger")
+            self._perf_ledger_thread.start()
         if self.brownout is not None and self.brownout.config.enabled:
             self._brownout_thread = threading.Thread(
                 target=self._brownout_loop, daemon=True, name="brownout")
@@ -578,6 +742,12 @@ class EngineServer:
         self.draining = True
         self.drain_reason = reason
         self._drain_t0 = time.monotonic()
+        try:
+            # a last journal entry while the window still holds the run's
+            # steady state
+            self._journal_perf("drain")
+        except Exception:
+            _log.exception("perf ledger drain journal failed")
         _log.warning("drain started (%s): %d in-flight request(s), "
                      "deadline %.1fs", reason, self._inflight,
                      self.drain_deadline)
@@ -605,6 +775,11 @@ class EngineServer:
                 _log.warning("drain deadline (%.1fs) expired: aborted %d "
                              "straggler sequence(s)", self.drain_deadline,
                              len(rids))
+                self.diagnostics.trigger("drain_deadline_abort", {
+                    "aborted": len(rids),
+                    "deadline_seconds": self.drain_deadline,
+                    "reason": self.drain_reason,
+                })
         finally:
             self._drain_done.set()
 
@@ -644,9 +819,10 @@ class EngineServer:
 
     def shutdown(self) -> None:
         self._stop.set()
-        if self._brownout_thread is not None:
-            self._brownout_thread.join(10)
-            self._brownout_thread = None
+        for thread in (self._brownout_thread, self._perf_ledger_thread):
+            if thread is not None:
+                thread.join(10)
+        self._brownout_thread = self._perf_ledger_thread = None
         if self._httpd is not None:
             if self._serve_thread is not None:
                 self._httpd.shutdown()
@@ -655,8 +831,58 @@ class EngineServer:
             self._httpd.server_close()
             self._httpd = None
         self.watchdog.stop()
-        self.async_engine.stop()
+        # a trace in flight started on the engine thread and must stop there
+        with self._profiling:
+            self.async_engine.stop()
         self.engine.shutdown_tiers()
+
+    # -- the durable perf ledger (perf_ledger.py) ------------------------------
+    def _perf_ledger_loop(self) -> None:
+        """Journal the accountant's windowed marks every
+        ``perf_ledger_interval`` seconds (at least 0.5) until shutdown.
+        Read-only over ``engine.stats()``, as a scrape is: the serving path
+        never waits on ledger IO, and IO errors are counted, never
+        raised."""
+        interval = max(float(self.config.perf_ledger_interval), 0.5)
+        while not self._stop.wait(interval):
+            try:
+                self._journal_perf("interval")
+            except Exception:
+                _log.exception("perf ledger journal failed")
+
+    def _perf_fingerprint(self) -> dict:
+        """The config cohort stamp of every ledger record (computed once).
+        The port leaves ``jax_version`` empty and names its framework and
+        torch's version in the extra fields, so its cohorts never mix with
+        the JAX engine's."""
+        if self._perf_fp is not None:
+            return self._perf_fp
+        import torch
+
+        cfg = self.config
+        dev = self.engine.device
+        chip = ""
+        if dev.type == "cuda":
+            chip = torch.cuda.get_device_name(dev)
+        perf = self.engine.perf
+        self._perf_fp = perf_ledger.fingerprint(
+            model=cfg.model.name, role=cfg.role,
+            tensor_parallel=getattr(perf, "tp", 1),
+            attention_impl=self.engine.attention_impl,
+            dtype=cfg.model.dtype, quantization=cfg.model.quant or "",
+            speculative=bool(cfg.scheduler.spec_ngram_k),
+            n_chips=getattr(perf, "n_chips", 1),
+            platform="gpu" if dev.type == "cuda" else "cpu", chip=chip,
+            extra={"framework": "torch",
+                   "torch_version": str(torch.__version__)})
+        return self._perf_fp
+
+    def _journal_perf(self, reason: str) -> bool:
+        if self.perf_ledger is None:
+            return False
+        marks = perf_ledger.marks_from_engine_stats(self.engine.stats())
+        return self.perf_ledger.append_engine_snapshot(
+            time.time(), self._perf_fingerprint(), marks, reason=reason)
 
     # -- overload (engine/overload.py) ---------------------------------------
     def retry_after(self) -> str:
@@ -905,6 +1131,10 @@ class EngineServer:
             else 0.0,
         }
         snap["tenants"] = eng.tenant_stats()
+        snap["perf_ledger"] = (
+            {"enabled": True, **self.perf_ledger.stats(),
+             "interval": self.config.perf_ledger_interval}
+            if self.perf_ledger is not None else {"enabled": False})
         return 200, snap
 
     def debug_canary(self, query: dict) -> tuple[int, dict]:
@@ -955,22 +1185,12 @@ class EngineServer:
         activity included on the card), as a tar.gz of its Chrome trace;
         409 while another capture runs. The profiler is stopped on every
         exit path. Returns (status, JSON) or (200, tar.gz bytes)."""
-        import torch
-
         duration_ms = min(int(body.get("duration_ms") or 2000), 60_000)
         if not self._profiling.acquire(blocking=False):
             return 409, _error("a profile capture is already running",
                                "conflict")
         try:
-            activities = [torch.profiler.ProfilerActivity.CPU]
-            if self.engine.device.type == "cuda":
-                activities.append(torch.profiler.ProfilerActivity.CUDA)
-            prof = torch.profiler.profile(activities=activities)
-            prof.start()
-            try:
-                time.sleep(duration_ms / 1000.0)
-            finally:
-                prof.stop()
+            prof = self._profile_for(duration_ms / 1000.0)
             with tempfile.TemporaryDirectory(prefix="torchprof-") as tmp:
                 prof.export_chrome_trace(os.path.join(tmp, "trace.json"))
                 buf = io.BytesIO()
@@ -982,6 +1202,189 @@ class EngineServer:
                                "server_error")
         finally:
             self._profiling.release()
+
+    def debug_requests(self, query: dict) -> tuple[int, dict]:
+        """The flight recorder: recent per-request timelines, newest
+        first, so a slow request can be dissected after the fact without a
+        tracing backend. ``?limit=N`` bounds the answer."""
+        try:
+            limit = int(query["limit"][0]) if "limit" in query else None
+        except ValueError:
+            limit = None
+        return 200, {"recorder": self.flight_recorder.stats(),
+                     "requests": self.flight_recorder.snapshot(limit)}
+
+    def memory_profile(self):
+        """What holds device memory now: ``torch.cuda.memory._snapshot()``
+        pickled (PyTorch's ``torch.cuda._memory_viz`` reads it), where the
+        reference returns jax's pprof. Allocation history is not recorded:
+        that would tax every allocation of the serving path, so the
+        snapshot holds the segments and blocks without stack traces. A CPU
+        engine answers 500: an empty snapshot would hide the device.
+        Returns (status, JSON) or (200, bytes)."""
+        if self.engine.device.type != "cuda":
+            return 500, {"error": {"message":
+                                   "memory profile failed: the engine runs "
+                                   "on the CPU, which has no device memory "
+                                   "snapshot"}}
+        try:
+            return 200, self._collect_device_memory()
+        except Exception as e:
+            return 500, {"error": {"message": f"memory profile failed: {e}"}}
+
+    # -- anomaly diagnostics (engine/diagnostics.py) --------------------------
+    def _collect_perf(self) -> dict:
+        perf = self.engine.perf
+        return perf.snapshot() if perf is not None else {"enabled": False}
+
+    def _collect_flight_recorder(self) -> dict:
+        return {"recorder": self.flight_recorder.stats(),
+                "requests": self.flight_recorder.snapshot()}
+
+    def _collect_scheduler(self) -> dict:
+        stats = self.engine.stats()
+        perf = stats.get("perf")
+        if isinstance(perf, dict):
+            # stats_fields() keys compile_counts by (kind, bucket) tuples
+            # for the exposition; JSON needs the "kind:bucket" form
+            counts = perf.get("compile_counts")
+            if isinstance(counts, dict):
+                perf = dict(perf)
+                perf["compile_counts"] = {
+                    f"{k}:{b}": n for (k, b), n in sorted(counts.items())}
+                stats["perf"] = perf
+        return stats
+
+    def _collect_compile_tail(self) -> list:
+        perf = self.engine.perf
+        if perf is None:
+            return []
+        return perf.snapshot()["compile"]["recent"]
+
+    def _collect_device_memory(self) -> bytes:
+        import pickle
+
+        import torch
+
+        snap = self.async_engine.run_on_engine(
+            lambda eng: torch.cuda.memory._snapshot(eng.device),
+            timeout=ENGINE_WAIT_SECONDS)
+        return pickle.dumps(snap)
+
+    def _profiler(self):
+        import torch
+
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.engine.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        return torch.profiler.profile(activities=activities)
+
+    def _warm_profiler(self) -> None:
+        """Pay the process's first ``torch.profiler`` start (seconds) at
+        server start, before the engine thread runs, and not inside the
+        first bundle's trace, whose start holds the engine between steps.
+        Runs on the thread that starts the server, which in ``main`` is
+        the thread that imported torch."""
+        import torch
+
+        if torch.autograd.profiler._is_profiler_enabled:
+            return
+        t0 = time.monotonic()
+        try:
+            prof = self._profiler()
+            prof.start()
+            prof.stop()
+        except Exception:  # a broken profiler shows in each bundle's errors
+            _log.exception("torch.profiler warm-up failed")
+            return
+        self.profiler_warmup_seconds = time.monotonic() - t0
+        _log.info("torch.profiler warmed up in %.3f s",
+                  self.profiler_warmup_seconds)
+
+    def _profile_for(self, seconds: float):
+        """A stopped ``torch.profiler`` session of ``seconds`` of serving:
+        CPU activity, and the card's with it. The profiler starts and
+        stops on the engine thread between two steps, so its state never
+        changes under a kernel launch and the engine thread's ops are the
+        ones traced. TimeoutError, and no trace, when a step holds the
+        engine ``ENGINE_WAIT_SECONDS``; once started, the stop waits for
+        the step in flight. ``self.last_trace`` keeps the seconds the
+        engine was held for the start and the stop."""
+        prof = self._profiler()
+        t0 = time.monotonic()
+        self.async_engine.run_on_engine(lambda eng: prof.start(),
+                                        timeout=ENGINE_WAIT_SECONDS)
+        t1 = time.monotonic()
+        try:
+            time.sleep(seconds)
+        finally:
+            t2 = time.monotonic()
+            self.async_engine.run_on_engine(lambda eng: prof.stop())
+            self.last_trace = {"start_s": t1 - t0, "traced_s": t2 - t1,
+                               "stop_s": time.monotonic() - t2}
+        return prof
+
+    def _diag_profile(self, trace_dir: str) -> bool:
+        """A short ``torch.profiler`` trace (CPU and, on the card, CUDA
+        activity) for a bundle, written as ``trace_dir/trace.json``. Runs
+        on the capture thread; shares ``/debug/profile``'s lock, and
+        returns False (the bundle records the skip) while that capture
+        runs or any other profiler is enabled in this process: torch's
+        profiler cannot run twice at once."""
+        import torch
+
+        if not self._profiling.acquire(blocking=False):
+            return False
+        try:
+            if torch.autograd.profiler._is_profiler_enabled:
+                return False
+            prof = self._profile_for(
+                min(self.diagnostics.config.profile_seconds, 10.0))
+            t0 = time.monotonic()
+            os.makedirs(trace_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+            self.last_trace["export_s"] = time.monotonic() - t0
+            _log.info("bundle trace: engine held %.3f s to start and %.3f "
+                      "s to stop; %.3f s traced, %.3f s exported",
+                      self.last_trace["start_s"], self.last_trace["stop_s"],
+                      self.last_trace["traced_s"],
+                      self.last_trace["export_s"])
+            return True
+        finally:
+            self._profiling.release()
+
+    def diagnostics_index(self) -> tuple[int, dict]:
+        """The bundle archive's index: what was captured, why, how big,
+        and the anomaly event tail (captures the cooldown or the
+        single-flight gate skipped among them)."""
+        return 200, self.diagnostics.index()
+
+    def diagnostics_bundle(self, bundle_id: str):
+        """One bundle as tar.gz, or 404 in the reference's error shape.
+        Returns (status, JSON) or (200, bytes)."""
+        data = self.diagnostics.tar_bundle(bundle_id)
+        if data is None:
+            return 404, {"error": {"message":
+                                   f"no diagnostic bundle {bundle_id!r}"}}
+        return 200, data
+
+    def diagnostics_capture(self, body: dict) -> tuple[int, dict]:
+        """A correlated capture: the router's incident fan-out POSTs
+        ``{"trigger", "incident", "detail"}`` here so the fleet's bundles
+        share an incident id. Answers once the bundle is on disk; 400 when
+        diagnostics are off, 409 while another capture runs."""
+        if not self.diagnostics.config.enabled:
+            return 400, {"captured": False, "reason": "diagnostics disabled"}
+        trigger = str(body.get("trigger") or "manual")
+        detail = dict(body.get("detail") or {})
+        if body.get("incident"):
+            detail["incident"] = body["incident"]
+        bundle_id = self.diagnostics.trigger(trigger, detail, force=True,
+                                             sync=True)
+        if bundle_id is None:
+            return 409, {"captured": False,
+                         "reason": "a capture is in flight"}
+        return 200, {"captured": True, "bundle": bundle_id}
 
     def load_lora(self, body: dict) -> tuple[int, dict]:
         name, path = body.get("lora_name"), body.get("lora_path")
@@ -1060,10 +1463,10 @@ class EngineServer:
         raise BadRequest("invalid 'prompt': expected string, token list, or "
                          "batch thereof")
 
-    def validate(self, body: dict, chat: bool,
-                 deadline: Optional[float] = None) -> tuple:
+    def validate(self, body: dict, chat: bool, deadline: Optional[float],
+                 rid: str) -> tuple:
         """A generation request's (sampling, prompt ids of each prompt,
-        request id), or BadRequest; DeadlineExceeded when ``deadline`` has
+        ``rid``), or BadRequest; DeadlineExceeded when ``deadline`` has
         passed (the reference's order: after the sampling checks, before
         the prompt-length one)."""
         prompts = self.prompts_of(body, chat)
@@ -1089,7 +1492,6 @@ class EngineServer:
         for ids in prompt_ids_list:
             if len(ids) > self.config.model.max_model_len - 1:
                 raise BadRequest("prompt too long")
-        rid = f"{'chatcmpl' if chat else 'cmpl'}-{uuid.uuid4().hex}"
         return sampling, prompt_ids_list, rid
 
     def scored(self, body: dict, chat: bool, sampling: SamplingParams,
@@ -2124,6 +2526,8 @@ class EngineServer:
         except DeadlineExceeded as e:
             for stream in streams:
                 self.async_engine.abort(stream.request_id)
+            # a 200 stream that timed out in-band
+            self.set_flight_outcome(rid, "deadline_exceeded")
             yield _error(str(e), "timeout_error")
         n_out = sum(kept)
         if include_usage:
@@ -2209,19 +2613,44 @@ class EngineServer:
             protocol_version = "HTTP/1.1"
             server_version = f"production-stack-tpu-torch/{__version__}"
 
+            # a generation request's status on the wire, the x-request-id
+            # its JSON answers echo, and the call that finishes its flight
+            # record (the shell sets them; one handler serves a
+            # connection's requests in turn)
+            sent_status: Optional[int] = None
+            echo_rid: Optional[str] = None
+            flight_finish: Optional[Callable[[], None]] = None
+
             def log_message(self, fmt, *args):  # route to logging
                 _log.debug("%s " + fmt, self.address_string(), *args)
+
+            def send_response(self, code, message=None):
+                self.sent_status = code
+                super().send_response(code, message)
 
             def _send_json(self, payload: dict, status: int = 200,
                            headers: Optional[dict] = None) -> None:
                 data = json.dumps(payload).encode()
+                headers = dict(headers or {})
+                if self.echo_rid is not None and not any(
+                        k.lower() == "x-request-id" for k in headers):
+                    headers["X-Request-Id"] = self.echo_rid
                 self.send_response(status)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(data)))
-                for k, v in (headers or {}).items():
+                for k, v in headers.items():
                     self.send_header(k, v)
                 self.end_headers()
+                self._finish_flight()
                 self.wfile.write(data)
+
+            def _finish_flight(self) -> None:
+                """Finish the request's flight record, once, before the
+                answer's last bytes go out: a client that reads the answer
+                and then /debug/requests finds the record there."""
+                finish, self.flight_finish = self.flight_finish, None
+                if finish is not None:
+                    finish()
 
             def _write_chunk(self, data: bytes) -> None:
                 # three writes: a KV frame is too large to copy into one
@@ -2231,12 +2660,25 @@ class EngineServer:
                 self.wfile.flush()
 
             def _send_bytes(self, data: bytes, content_type: str,
-                            status: int = 200) -> None:
+                            status: int = 200,
+                            filename: Optional[str] = None) -> None:
                 self.send_response(status)
                 self.send_header("Content-Type", content_type)
                 self.send_header("Content-Length", str(len(data)))
+                if filename is not None:
+                    self.send_header("Content-Disposition",
+                                     f'attachment; filename="{filename}"')
                 self.end_headers()
                 self.wfile.write(data)
+
+            def _send_result(self, result, content_type: str,
+                             filename: str) -> None:
+                """A (status, JSON) or (status, bytes) route result."""
+                status, payload = result
+                if isinstance(payload, bytes):
+                    self._send_bytes(payload, content_type, status, filename)
+                else:
+                    self._send_json(payload, status)
 
             def do_GET(self):  # noqa: N802 (http.server API)
                 url = urllib.parse.urlsplit(self.path)
@@ -2264,6 +2706,23 @@ class EngineServer:
                 elif url.path == "/debug/tenants":
                     status, payload = server.debug_tenants()
                     self._send_json(payload, status)
+                elif url.path == "/debug/requests":
+                    status, payload = server.debug_requests(
+                        urllib.parse.parse_qs(url.query))
+                    self._send_json(payload, status)
+                elif url.path == "/debug/memory":
+                    self._send_result(server.memory_profile(),
+                                      "application/octet-stream",
+                                      "memory.pickle")
+                elif url.path == "/debug/diagnostics":
+                    status, payload = server.diagnostics_index()
+                    self._send_json(payload, status)
+                elif url.path.startswith("/debug/diagnostics/"):
+                    bundle_id = urllib.parse.unquote(
+                        url.path[len("/debug/diagnostics/"):])
+                    self._send_result(server.diagnostics_bundle(bundle_id),
+                                      "application/gzip",
+                                      f"{bundle_id}.tar.gz")
                 elif url.path == "/is_sleeping":
                     self._send_json(
                         {"is_sleeping": server.async_engine.is_sleeping})
@@ -2279,6 +2738,8 @@ class EngineServer:
                           "/detokenize": server.detokenize,
                           "/kv/lookup": server.kv_lookup,
                           "/debug/profile": server.profile,
+                          "/debug/diagnostics/capture":
+                              server.diagnostics_capture,
                           "/v1/embeddings": server.embeddings,
                           "/pooling": server.pooling,
                           "/v1/score": server.score,
@@ -2372,7 +2833,7 @@ class EngineServer:
                     server._inflight += 1
                 try:
                     if generate[path] is None:
-                        self._generate(body, path == "/v1/chat/completions")
+                        self._generate(body, path)
                     else:
                         self._api(generate[path], body)
                 finally:
@@ -2437,13 +2898,86 @@ class EngineServer:
                     self.send_header(k, v)
                 self.end_headers()
 
-            def _generate(self, body: dict, chat: bool) -> None:
+            def _generate(self, body: dict, path: str) -> None:
+                """The observability shell around a completion or chat
+                request: joins the router's trace through the propagated
+                W3C traceparent (a child SERVER span with the queue,
+                prefill and decode stage times), opens a flight record
+                keyed by the request id with the propagated x-request-id,
+                finishes it once with its outcome and status, and logs one
+                line a request."""
+                chat = path == "/v1/chat/completions"
+                try:
+                    # the reference answers these before its record opens
+                    server.prompts_of(body, chat)
+                except BadRequest as e:
+                    self._send_json(_error(str(e)), 400)
+                    return
+                rid = f"{'chatcmpl' if chat else 'cmpl'}-{uuid.uuid4().hex}"
+                client_rid = self.headers.get("x-request-id") or rid
+                model = str(body.get("model", server.model_name))
+                inbound = etracing.extract_context(self.headers)
+                span_cm = etracing.request_span(
+                    f"engine {path}", context=inbound, kind="server",
+                    attributes={"request.id": rid,
+                                "client.request.id": client_rid,
+                                "http.target": path, "model": model})
                 # the tenant, resolved once: x-tenant-id > the body's user >
                 # a hash of the API key > anonymous
                 tenant = resolve_tenant(self.headers, body)
+                rec = server.flight_recorder.begin(
+                    request_id=rid, client_request_id=client_rid,
+                    endpoint=path, model=model, tenant=tenant,
+                    streaming=bool(body.get("stream", False)),
+                    trace_id=None, outcome=None, status=None,
+                    num_prompt_tokens=0, num_output_tokens=0)
+                with server._flight_lock:
+                    server._flights[rid] = rec
+                self.sent_status = None
+                self.echo_rid = client_rid
+
+                def finish() -> None:
+                    status = self.sent_status or 500
+                    with server._flight_lock:
+                        server._flights.pop(rid, None)
+                        if rec.get("outcome") is None:
+                            rec["outcome"] = (
+                                "completed" if status < 400
+                                else "deadline_exceeded" if status == 504
+                                else "rejected")
+                    rec["status"] = status
+                    server.flight_recorder.finish(rec)
+                    tl = rec["timeline"]
+                    _log.info(
+                        "request %s x-request-id=%s status=%s outcome=%s "
+                        "prompt_tokens=%d output_tokens=%d e2e=%.3fs",
+                        rid, client_rid, status, rec["outcome"],
+                        rec["num_prompt_tokens"], rec["num_output_tokens"],
+                        tl["finished"] - tl["received"])
+
+                self.flight_finish = finish
+                try:
+                    with span_cm as span:
+                        rec["trace_id"] = (etracing.trace_id_hex()
+                                           or etracing.trace_id_hex(inbound))
+                        try:
+                            self._generate_inner(body, chat, rid, tenant,
+                                                 client_rid)
+                        finally:
+                            server._finalize_span(
+                                span, rec, self.sent_status or 500)
+                except (BrokenPipeError, ConnectionResetError):
+                    server.set_flight_outcome(rid, "client_disconnect")
+                    raise
+                finally:
+                    self.echo_rid = None
+                    self._finish_flight()
+
+            def _generate_inner(self, body: dict, chat: bool, rid: str,
+                                tenant: str, xrid: str) -> None:
                 deadline = _parse_deadline(self.headers)
                 try:
-                    request = server.validate(body, chat, deadline)
+                    request = server.validate(body, chat, deadline, rid)
                     direct = server.scored(body, chat, *request)
                     if direct is None:
                         adm = server.admit(body, chat, *request,
@@ -2469,7 +3003,6 @@ class EngineServer:
                     self._scored(direct, request[2])
                     return
                 model = body.get("model", server.model_name)
-                xrid = self.headers.get("x-request-id") or adm.rid
                 if server.usage_ledger is not None:
                     for r in adm.rids:
                         server._ledger_meta[r] = (model, xrid)
@@ -2510,6 +3043,7 @@ class EngineServer:
                     for chunk in payload:
                         self._write_chunk(
                             f"data: {json.dumps(chunk)}\n\n".encode())
+                    self._finish_flight()
                     self._write_chunk(b"data: [DONE]\n\n")
                     self.wfile.write(b"0\r\n\r\n")
                     self.wfile.flush()
@@ -2519,6 +3053,7 @@ class EngineServer:
             def _stream(self, streams, rid, model, chat, sampling, n_prompt,
                         include_usage, xrid) -> None:
                 self._begin_sse({"X-Request-Id": xrid})
+                done = False
                 try:
                     try:
                         for payload in server.stream_events(
@@ -2529,12 +3064,16 @@ class EngineServer:
                     except RuntimeError as e:  # an engine step failed
                         err = json.dumps(_error(str(e), "server_error"))
                         self._write_chunk(f"data: {err}\n\n".encode())
+                    done = True
+                    self._finish_flight()
                     self._write_chunk(b"data: [DONE]\n\n")
                     self.wfile.write(b"0\r\n\r\n")
                     self.wfile.flush()
                 except (BrokenPipeError, ConnectionResetError):
                     # the client left, perhaps right after [DONE]
                     self.close_connection = True
+                    if not done:
+                        server.set_flight_outcome(rid, "client_disconnect")
 
         return Handler
 
@@ -2658,6 +3197,43 @@ def build_parser() -> argparse.ArgumentParser:
                    help="stuck-step watchdog: flip readiness (GET /ready) "
                         "to 503 when no scheduler step completes for this "
                         "many seconds while work is queued. 0 = disabled")
+    p.add_argument("--no-diagnostics", dest="diagnostics",
+                   action="store_false", default=True,
+                   help="disable anomaly-triggered diagnostic bundles "
+                        "(engine/diagnostics.py: an unexpected recompile, "
+                        "a watchdog stall, a drain-deadline abort, device-"
+                        "memory pressure and a cost-model drift episode "
+                        "each capture evidence to GET /debug/diagnostics)")
+    p.add_argument("--diagnostics-dir", default="",
+                   help="bundle archive directory (default: a per-pid "
+                        "directory under the system tmpdir)")
+    p.add_argument("--diagnostics-max-bundles", type=int, default=16,
+                   help="bundle count retention cap; oldest evicted first")
+    p.add_argument("--diagnostics-max-bytes", type=int,
+                   default=256 * 1024 * 1024,
+                   help="bundle archive size cap in bytes")
+    p.add_argument("--diagnostics-cooldown", type=float, default=60.0,
+                   help="minimum seconds between captures of the SAME "
+                        "trigger (a recompile storm produces one bundle, "
+                        "not a bundle a recompile)")
+    p.add_argument("--diagnostics-profile-seconds", type=float, default=2.0,
+                   help="torch.profiler trace length captured into each "
+                        "bundle (capped at 10; 0 disables the trace: the "
+                        "JSON snapshots are still captured)")
+    p.add_argument("--diagnostics-hbm-threshold", type=float, default=0.92,
+                   help="device memory allocated/total fraction that fires "
+                        "the hbm_pressure capture trigger")
+    p.add_argument("--otel-endpoint", default=None,
+                   help="OTLP gRPC endpoint; engine spans JOIN the "
+                        "router's trace through the propagated traceparent "
+                        "(needs opentelemetry-sdk; propagation only "
+                        "without it, a no-op without opentelemetry-api)")
+    p.add_argument("--otel-service-name", default="tpu-engine")
+    p.add_argument("--otel-secure", action="store_true",
+                   help="use TLS for the OTLP exporter connection")
+    p.add_argument("--flight-recorder-size", type=int, default=256,
+                   help="per-request timelines kept in the /debug/requests "
+                        "ring buffer")
     p.add_argument("--no-perf-accounting", dest="perf_accounting",
                    action="store_false", default=True,
                    help="disable live goodput accounting (MFU / HBM "
@@ -2693,6 +3269,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-card interconnect GB/s for the collective "
                         "roofline; 0 = the H100 SXM data sheet's NVLink, "
                         "per direction (450)")
+    p.add_argument("--perf-ledger-path", default="",
+                   help="rotating JSONL perf-ledger path (fingerprint-"
+                        "stamped accountant snapshots journaled every "
+                        "--perf-ledger-interval seconds and on drain: "
+                        "perf_ledger.py); empty = ledger off")
+    p.add_argument("--perf-ledger-max-bytes", type=int, default=16 << 20,
+                   help="perf-ledger rotation threshold in bytes")
+    p.add_argument("--perf-ledger-interval", type=float, default=60.0,
+                   help="seconds between periodic perf-ledger journal "
+                        "entries")
+    p.add_argument("--costmodel-drift-band", type=float, default=0.0,
+                   help="cost-model drift band: sustained excursion of "
+                        "the windowed measured/predicted dispatch-seconds "
+                        "ratio beyond this factor of its post-warmup "
+                        "baseline fires the costmodel_drift anomaly (a "
+                        "diagnostics bundle). <=1 (default 0) = detection "
+                        "off; the vllm:costmodel_* gauges export "
+                        "regardless")
     p.add_argument("--host-offload-blocks", type=int, default=0,
                    help="host-DRAM KV tier capacity in blocks (0 = off; "
                         "prefer --kv-host-cache-bytes)")
@@ -2725,6 +3319,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kv-transfer-ttl", type=float, default=120.0,
                    help="seconds a received, unattached transfer may hold "
                         "KV blocks before the sweep frees them")
+    p.add_argument("--config", default=None,
+                   help="YAML file of flag values (keys = flag names); "
+                        "explicit flags win (yaml_args.py; needs PyYAML "
+                        "only when given)")
     return p
 
 
@@ -2785,6 +3383,7 @@ def config_from_args(args) -> EngineConfig:
         perf.peak_hbm_gbps = args.perf_peak_hbm_gbps
     if args.perf_peak_ici_gbps:
         perf.peak_ici_gbps = args.perf_peak_ici_gbps
+    perf.costmodel_drift_band = args.costmodel_drift_band or 0.0
     return EngineConfig.for_model(
         args.model, cache=cache, scheduler=sched, seed=args.seed, perf=perf,
         role=args.role,
@@ -2796,6 +3395,9 @@ def config_from_args(args) -> EngineConfig:
         tenant_top_k=args.tenant_top_k or 8,
         tenant_ledger_path=args.tenant_ledger_path or "",
         tenant_ledger_max_bytes=args.tenant_ledger_max_bytes or (16 << 20),
+        perf_ledger_path=args.perf_ledger_path or "",
+        perf_ledger_max_bytes=args.perf_ledger_max_bytes or (16 << 20),
+        perf_ledger_interval=args.perf_ledger_interval or 60.0,
         **overrides)
 
 
@@ -2813,6 +3415,18 @@ def brownout_from_args(args) -> Optional[BrownoutController]:
         calm_evals=args.brownout_calm_evals,
         max_tokens_clamp=args.brownout_max_tokens_clamp,
     ))
+
+
+def diagnostics_config_from_args(args) -> DiagnosticsConfig:
+    return DiagnosticsConfig(
+        enabled=args.diagnostics,
+        dir=args.diagnostics_dir,
+        max_bundles=args.diagnostics_max_bundles,
+        max_bytes=args.diagnostics_max_bytes,
+        cooldown=args.diagnostics_cooldown,
+        profile_seconds=args.diagnostics_profile_seconds,
+        hbm_threshold=args.diagnostics_hbm_threshold,
+    )
 
 
 def server_from_args(args):
@@ -2838,13 +3452,18 @@ def server_from_args(args):
                         drain_deadline=args.drain_deadline,
                         watchdog_stall_seconds=args.watchdog_stall_seconds,
                         fault_injection=fault_spec,
-                        brownout=brownout_from_args(args))
+                        brownout=brownout_from_args(args),
+                        otel_endpoint=args.otel_endpoint,
+                        otel_service_name=args.otel_service_name,
+                        otel_secure=args.otel_secure,
+                        flight_recorder_size=args.flight_recorder_size,
+                        diagnostics=diagnostics_config_from_args(args))
 
 
 def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s %(message)s")
-    args = build_parser().parse_args(argv)
+    args = parse_with_yaml_config(build_parser(), argv)
     server = server_from_args(args)
     port = server.bind(args.host, args.port)
     if server.config.model.architecture == "whisper":

@@ -7,8 +7,8 @@ tenants to the end, a repeated prompt among them. Both expositions are
 parsed with ``prometheus_client.parser``:
 
 - every port family is a JAX family of the same type and label names;
-- the JAX families the port lacks are exactly ``NOT_PORTED`` (the
-  diagnostics subsystem, which a later slice brings);
+- the JAX families the port lacks are exactly ``NOT_PORTED``, which is
+  empty: the port writes every family;
 - the engine-state samples are equal, as are the histograms' bucket edges
   and counts after the same observations (the KV-transfer families by
   direction among them);
@@ -20,7 +20,8 @@ parsed with ``prometheus_client.parser``:
 - the tenant families (tokens by tenant and phase, KV blocks, the queue
   summary's counts) are equal, and the port's chip-seconds by tenant sum
   to its attributed dispatch seconds; the overload families carry the same
-  snapshot alike.
+  snapshot alike, as do the diagnostics families the same
+  ``DiagnosticsManager.stats()`` snapshot.
 """
 
 import types
@@ -44,10 +45,7 @@ from production_stack_tpu_torch.engine.sampling import SamplingParams
 torch.set_num_threads(2)
 
 MODEL = "tiny-llama"
-NOT_PORTED = {
-    "vllm:diagnostic_bundles", "vllm:diagnostic_bundles_dropped",
-    "vllm:diagnostic_capture_seconds",
-}
+NOT_PORTED: set = set()
 # samples of engine state both engines must give alike
 STATE = (
     "vllm:num_requests_running", "vllm:num_requests_waiting",
@@ -75,6 +73,9 @@ FIRST = [("long", list(range(1, 50)), GREEDY, 0, "team-a"),
          ("short", [7, 8, 9, 10, 11, 12, 13], GREEDY, 0, "team-b")]
 # the long prompt again: its full blocks hit the prefix cache
 AGAIN = [("again", list(range(1, 50)), GREEDY, 0, "team-a")]
+DIAGNOSTICS = {"bundles_total": {"unexpected_recompile": 2, "manual": 1},
+               "dropped_total": {"hbm_pressure": 4},
+               "capture_seconds_count": 3, "capture_seconds_sum": 1.75}
 OVERLOAD = {"brownout": {"enabled": True, "stage": 2,
                          "sheds": {"spec": 3, "tenant": 1}},
             "shed_tenants": [],
@@ -120,12 +121,11 @@ def texts():
     jm = JaxMetrics(jeng, MODEL)
     jm.register_lifecycle(lambda: dict(LIFECYCLE))
     jm.register_overload(lambda: OVERLOAD)
-    jm.register_diagnostics(lambda: {
-        "bundles_total": {}, "dropped_total": {},
-        "capture_seconds_count": 0, "capture_seconds_sum": 0.0})
+    jm.register_diagnostics(lambda: DIAGNOSTICS)
     tm = ServerMetrics(teng, MODEL)
     tm.register_lifecycle(lambda: dict(LIFECYCLE))
     tm.register_overload(lambda: OVERLOAD)
+    tm.register_diagnostics(lambda: DIAGNOSTICS)
     for m in (jm, tm):
         _observe(m)
     return (jm.generate().decode(), tm.generate().decode(),
@@ -314,7 +314,9 @@ def test_tenant_and_overload_samples_equal(texts):
     for prefix in ("vllm:tenant_tokens_total", "vllm:tenant_kv_blocks",
                    "vllm:tenant_queue_time_seconds_count",
                    "vllm:brownout_stage", "vllm:brownout_sheds_total",
-                   "vllm:fair_share_deficit"):
+                   "vllm:fair_share_deficit", "vllm:diagnostic_bundles_total",
+                   "vllm:diagnostic_bundles_dropped_total",
+                   "vllm:diagnostic_capture_seconds"):
         assert of(ts, prefix) == of(js, prefix), prefix
         assert of(ts, prefix), prefix
     tok = of(ts, "vllm:tenant_tokens_total")
