@@ -234,12 +234,39 @@ fatal):
    platform ``gpu``, whose generation tokens equal ``/metrics``'. K1, K2
    and K3 launch, K4 not. Then no bundle in the default archive, where
    every other phase's servers keep theirs, is an ``hbm_pressure`` one.
+14. The decode step as CUDA graphs (``decode-graphs``): llama-3-8b bf16
+   at full width and depth, seed 0, default scheduler, prefix cache off
+   (a repeated run must prefill as the first did), one ``LLMEngine`` in
+   this process whose graphs and chain are toggled between windows. (c)
+   ``warm_decode_graphs``: every key without an adapter at every rung of
+   the plan ladder captured (count, seconds, the graph pool's bytes from
+   ``torch.cuda.memory_stats`` around the captures beside the runner's
+   reserve for it); allocated share under 0.92. (a) 64 requests x 48
+   tokens, greedy and seeded-sampled, contexts of 100-700 tokens (three
+   rungs): graphed = eager in tokens and logprobs bit for bit; chain on =
+   chain off in tokens, with max_tokens staggered so the decode rows
+   change membership, and some dispatches chained. (b) the decode step's
+   untraced wall, eager / graphed / graphed + chain in turns, three
+   rounds of 16 steps, at 64 and 4 rows and contexts ~130-180 and
+   ~2100-2260 (median and spread printed); one eager and one graphed
+   window of 16 steps at 64 rows traced (device busy, idle share, kernels
+   a step). (d) sleep levels 1 and 2, each then wake: the graphs are
+   dropped and captured again, 8 greedy requests' tokens equal before and
+   after. Then, the engine released, K3 at the ladder's plan against the
+   exact per-step plan on the same inputs (64 live rows at ~150 and ~2K,
+   4 live of 64 at 8192), each checked against the plain version first.
+   K1, K2 and K3 launch (K1 and K3 counted through the replays), K4 not.
+
+Phases 4-14 run with decode graphs on, the default; phase 5's bf16 run
+through the plain versions decodes eagerly (a plain version synchronises
+with the host, which a capture cannot hold).
 
 The line before the card line carries the kernels' JSON record, whose
 ``launches`` sum each kernel's launches over every served path (each
 path's own counts are in ``launches_by_path``, ``moe-int8``, ``kv-plane``,
-``scoring-surface``, ``whisper``, ``overload`` and ``observability``
-among them);
+``scoring-surface``, ``whisper``, ``overload``, ``observability`` and
+``decode-graphs`` among them; a graph replay adds the launches its
+capture recorded);
 the last line is ``{"ok":
 true, "device": {...}}``.
 """
@@ -1594,7 +1621,9 @@ def bf16_phase(torch, np, impl: str) -> None:
     kernels (K2 and K3 on the ragged path, K4 on the bucketed one), then
     with their plain versions in the model runner's place of the wrappers,
     put there by this script for that run only. The kernels must launch in
-    the first run and not in the second."""
+    the first run and not in the second. The plain versions synchronise
+    with the host, which a CUDA graph cannot capture, so the second run
+    decodes eagerly (``decode_graphs`` off)."""
     from production_stack_tpu_torch.engine import model_runner
     from production_stack_tpu_torch.engine.engine import LLMEngine
     from production_stack_tpu_torch.engine.sampling import SamplingParams
@@ -1628,12 +1657,16 @@ def bf16_phase(torch, np, impl: str) -> None:
     for run in ("kernels", "plain"):
         for counter, _ in swapped.values():
             counter.n = 0
+        run_cfg = cfg
         if run == "plain":
             for n, (_, plain) in swapped.items():
                 setattr(model_runner, n, plain)
+            run_cfg = dataclasses.replace(cfg, scheduler=dataclasses.replace(
+                cfg.scheduler, decode_graphs=False))
         try:
             runs[run] = _greedy_tokens(
-                LLMEngine(cfg, params=params, device="cuda"), prompts, sp)
+                LLMEngine(run_cfg, params=params, device="cuda"), prompts,
+                sp)
         finally:
             for n, w in wrappers.items():
                 setattr(model_runner, n, w)
@@ -2393,7 +2426,7 @@ def _compile_events(runner) -> list:
     accountant's own tail of 64: each step's tracker also reports here.
     (A helper, so that no local of the caller keeps the runner alive.)"""
     events = []
-    for attr in ("ragged_step", "prefill", "decode_multi"):
+    for attr in ("ragged_step", "prefill", "decode_program"):
         tracker = getattr(runner, attr)
         tracker.observer = (lambda kind, bucket, s, note=tracker.observer:
                             (events.append((s, kind, bucket)),
@@ -5271,6 +5304,368 @@ def observability_phase(torch, np, counters, card: str) -> dict:
     return launches
 
 
+# -- phase 14: the decode step as CUDA graphs ---------------------------------
+
+DG_MODES = ("eager", "graphed", "graphed+chain")
+DG_WINDOW = 16  # decode steps a timed or traced window
+DG_ROUNDS = 3
+
+
+def _dg_mode(eng, graphs, mode: str) -> None:
+    """One engine, three ways to run its decode step: eager (no graph
+    cache: the same body over the same static inputs), graphed, and
+    graphed with chained dispatches."""
+    eng.runner.graphs = None if mode == "eager" else graphs
+    eng.config.scheduler.chain_decode = mode == "graphed+chain"
+
+
+def _dg_serve(eng, reqs) -> dict:
+    """Serve ``reqs`` [(rid, prompt, SamplingParams)] to the end: each
+    request's tokens and logprob entries."""
+    out = {rid: ([], []) for rid, _, _ in reqs}
+    for rid, prompt, sp in reqs:
+        eng.add_request(rid, prompt_token_ids=prompt, sampling=sp)
+    while eng.has_unfinished():
+        for o in eng.step():
+            out[o.request_id][0].extend(o.new_token_ids)
+            out[o.request_id][1].extend(o.new_logprobs or ())
+    return out
+
+
+def _dg_capture(torch, eng, card: str) -> dict:
+    """(c) Every key without an adapter at every rung, captured as warmup
+    captures them: count, seconds, and the device memory the graphs hold
+    (the graph pool, read from torch.cuda.memory_stats around the captures,
+    the banks allocated before), against the runner's reserve for it."""
+    r = eng.runner
+    r._ensure_counts()
+    r._ensure_grammar_bank()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_stats()
+    n0, s0 = r.graphs.captures, r.graphs.capture_seconds
+    t0 = time.perf_counter()
+    keys = r.warm_decode_graphs()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = torch.cuda.memory_stats()
+    total = torch.cuda.mem_get_info()[1]
+    out = {
+        "keys": keys, "rungs": r.decode_rungs,
+        "captures": r.graphs.captures - n0,
+        "capture_s": r.graphs.capture_seconds - s0, "wall_s": wall,
+        "pool_reserved_bytes": after["reserved_bytes.all.current"]
+        - before["reserved_bytes.all.current"],
+        "allocated_delta_bytes": after["allocated_bytes.all.current"]
+        - before["allocated_bytes.all.current"],
+        "reserve_bytes": r.decode_graph_bytes(),
+        "allocated_share": after["allocated_bytes.all.current"] / total,
+        "reserved_share": after["reserved_bytes.all.current"] / total}
+    if len(r.graphs) != keys or out["captures"] != keys:
+        raise AssertionError(f"[decode-graphs] (c) {keys} keys, "
+                             f"{len(r.graphs)} graphs: {out}")
+    if out["allocated_share"] >= 0.92:
+        raise AssertionError(f"[decode-graphs] (c) allocated share "
+                             f"{out['allocated_share']:.4f} reaches the "
+                             "0.92 hbm_pressure threshold")
+    log(f"[decode-graphs] (c) capture ({card}): {json.dumps(out)}")
+    return out
+
+
+def _dg_identity(np, eng, graphs, card: str) -> dict:
+    """(a) 64 requests x 48 tokens, greedy and seeded-sampled, contexts of
+    100-700 tokens (rungs 256, 512 and 1024): graphed against eager, tokens
+    and logprobs bit for bit; then, graphed, chain on against chain off,
+    tokens equal, with max_tokens staggered 16-48 so the decode rows
+    change membership."""
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    rng = np.random.default_rng(14)
+    prompts = [rng.integers(0, 256, int(n)).tolist()
+               for n in rng.integers(100, 701, 64)]
+
+    def sp(i, **kw):
+        samp = ({"temperature": 0.0} if i % 2 == 0 else
+                {"temperature": 0.8, "top_p": 0.95, "seed": i})
+        return SamplingParams(ignore_eos=True, **samp, **kw)
+
+    runs = {}
+    for mode in ("eager", "graphed"):
+        _dg_mode(eng, graphs, mode)
+        runs[mode] = _dg_serve(eng, [
+            (f"{mode}{i}", p, sp(i, max_tokens=48, logprobs=1))
+            for i, p in enumerate(prompts)])
+    same = [a == b for a, b in zip(runs["eager"].values(),
+                                   runs["graphed"].values())]
+    if not all(same):
+        i = same.index(False)
+        raise AssertionError(f"[decode-graphs] (a) request {i}: graphed "
+                             "and eager differ")
+    chained = [0]
+    inner = eng.runner.decode_multi
+
+    def spy(*a, **kw):
+        chained[0] += kw.get("tokens_dev") is not None
+        return inner(*a, **kw)
+
+    toks = {}
+    for mode in ("graphed", "graphed+chain"):
+        _dg_mode(eng, graphs, mode)
+        eng.runner.decode_multi = spy
+        try:
+            toks[mode] = [t for t, _ in _dg_serve(eng, [
+                (f"{mode}{i}", p, sp(i, max_tokens=16 + 8 * (i % 5)))
+                for i, p in enumerate(prompts)]).values()]
+        finally:
+            del eng.runner.decode_multi
+    if toks["graphed"] != toks["graphed+chain"] or not chained[0]:
+        raise AssertionError(f"[decode-graphs] (a) chain on differs from "
+                             f"off ({chained[0]} chained dispatches)")
+    n_tok = sum(len(t) for t, _ in runs["eager"].values())
+    out = {"requests": 64, "tokens_compared": n_tok,
+           "logprobs_compared": n_tok, "chained_dispatches": chained[0],
+           "chain_tokens_compared": sum(len(t) for t in toks["graphed"]),
+           "graphs": len(graphs)}
+    log(f"[decode-graphs] (a) identity ({card}): graphed = eager in tokens "
+        f"and logprobs bit for bit, chain on = off in tokens: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def _dg_admit(np, eng, rng, tag, rows, length, max_tokens) -> None:
+    """``rows`` greedy requests of ``length`` tokens, stepped until they
+    are all in decode (one decode step run)."""
+    _add_requests(eng, rng, tag, rows, length, max_tokens)
+    d0 = eng.decode_dispatches
+    while eng.decode_dispatches == d0:
+        eng.step()
+
+
+def _dg_clear(eng) -> None:
+    for rid in list(eng.scheduler.seqs) + [s.request_id for s in
+                                           eng.scheduler.waiting]:
+        eng.abort_request(rid)
+    while eng.has_unfinished():
+        eng.step()
+    eng.step()  # lands a chain the aborts left
+
+
+def _dg_timing(torch, np, eng, graphs, card: str) -> dict:
+    """(b) The decode step's untraced wall, eager / graphed / graphed +
+    chain in turns, three rounds of 16 steps each (after one untimed
+    step that lands the previous mode's chain), at 64 and 4 rows and
+    contexts of ~130-180 tokens (fresh requests each round) and ~2.1K
+    (the same requests through the rounds: contexts 2100-2260, one plan
+    rung)."""
+    rng = np.random.default_rng(15)
+    out = {}
+    for rows, length in ((64, 128), (64, 2100), (4, 128), (4, 2100)):
+        fresh = length < 1024
+        budget = 1 + DG_ROUNDS * len(DG_MODES) * (DG_WINDOW + 1) + 8
+        times = {m: [] for m in DG_MODES}
+        for rnd in range(DG_ROUNDS):
+            if fresh or rnd == 0:
+                _dg_mode(eng, graphs, "graphed")
+                _dg_admit(np, eng, rng, f"t{rows}x{length}r{rnd}", rows,
+                          length, budget)
+            for mode in DG_MODES:
+                _dg_mode(eng, graphs, mode)
+                eng.step()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(DG_WINDOW):
+                    eng.step()
+                torch.cuda.synchronize()
+                times[mode].append((time.perf_counter() - t0) * 1e3
+                                   / DG_WINDOW)
+            if fresh:
+                _dg_clear(eng)
+        _dg_clear(eng)
+        label = f"{rows} rows, ctx ~{length}"
+        out[label] = {m: {"median_ms": statistics.median(v),
+                          "spread_ms": max(v) - min(v), "runs_ms": v}
+                      for m, v in times.items()}
+        log(f"[decode-graphs] (b) decode step, {label}, untraced "
+            f"({card}): {json.dumps(out[label])}")
+    _dg_mode(eng, graphs, "graphed")
+    return out
+
+
+def _dg_traces(torch, np, eng, graphs, card: str) -> dict:
+    """(b) One eager and one graphed window of 16 decode steps at 64 rows
+    (contexts ~130-180), traced: device busy, idle share, device kernels
+    a step, and graph replays a step."""
+    rng = np.random.default_rng(16)
+    out = {}
+    for mode in ("eager", "graphed"):
+        _dg_mode(eng, graphs, "graphed")
+        _dg_admit(np, eng, rng, f"tr{mode}", 64, 128, 48)
+        _dg_mode(eng, graphs, mode)
+        d0 = eng.decode_dispatches
+        wall, busy, cats, kernels, calls = _profiled(
+            torch, lambda: [eng.step() for _ in range(DG_WINDOW)])
+        if eng.decode_dispatches - d0 != DG_WINDOW:
+            raise AssertionError("[decode-graphs] a traced window ran "
+                                 "other steps")
+        _report(card, f"decode, 64 rows, {mode}", DG_WINDOW, wall, busy,
+                cats, kernels, calls)
+        out[mode] = {"wall_ms_per_step": wall / DG_WINDOW,
+                     "busy_ms_per_step": (None if busy is None
+                                          else busy / DG_WINDOW),
+                     "idle_share": (None if busy is None
+                                    else 1.0 - busy / wall),
+                     "kernels_per_step": kernels / DG_WINDOW,
+                     "graph_replays_per_step": (
+                         1 if mode == "graphed" else 0),
+                     "wrapper_launches": calls}
+        _dg_clear(eng)
+    _dg_mode(eng, graphs, "graphed")
+    log(f"[decode-graphs] (b) traced windows ({card}): {json.dumps(out)}")
+    return out
+
+
+def _dg_k3_ladder(torch, np, geo: dict, card: str) -> dict:
+    """(b) K3 at the plan ladder's plan (every slot of the 64-row batch, the
+    rung above the step's longest context) next to the exact per-step
+    ``split_plan`` (live rows, longest context + multi_step), on the same
+    inputs at the engine's batch of 64: all rows live at contexts 130-170
+    and 2000-2100, and 4 live rows at 8192 beside 60 empty ones. Both
+    plans are checked against the plain version first."""
+    from production_stack_tpu_torch.ops import paged_decode_attention as k3
+
+    H, KH, D, bs, M, S, K, rungs = (geo[k] for k in (
+        "H", "KH", "D", "bs", "M", "S", "K", "rungs"))
+    rng = np.random.default_rng(17)
+    out = {}
+    cases = (("64 live, ctx 130-170",
+              rng.integers(130, 171, S).tolist()),
+             ("64 live, ctx 2000-2100",
+              rng.integers(2000, 2101, S).tolist()),
+             ("4 live of 64, ctx 8192", [8192] * 4 + [0] * (S - 4)))
+    for label, lens in cases:
+        spans = [(b, 1, n) for b, n in enumerate(lens) if n > 0]
+        pool, dev, _ = make_stream(rng, spans, S, S, M, bs, 2 * KH, D,
+                                   torch.bfloat16, torch)
+        q = torch.randn((S, H, D), dtype=torch.bfloat16, device="cuda")
+        args = (q, pool, dev["tables"], dev["ctx"], 1)
+        rung = k3.ladder_rung(rungs, max(lens) + K - 1)
+        plans = {"ladder": k3.split_plan(rung, S, KH),
+                 "exact": k3.split_plan(max(lens) + K, len(spans), KH)}
+        want = k3.paged_decode_attention_plain(*args)
+        extra = p_allowance(k3.paged_decode_attention_plain, args, torch)
+        rec = {"rung": rung}
+        for name, plan in plans.items():
+            check_close(f"K3 {label}, {name} plan {plan}",
+                        k3.paged_decode_attention(*args, plan=plan), want,
+                        BF16_TOL, torch, extra=extra)
+            rec[name] = {"plan": list(plan), "ms": time_ms(
+                torch, lambda p=plan: k3.paged_decode_attention(
+                    *args, plan=p), 20)}
+        nbytes, flops = decode_work(lens, H, KH, D, 2, bs)
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, BF16_FLOPS)
+        rec["ladder_over_exact"] = rec["ladder"]["ms"] / rec["exact"]["ms"]
+        out[label] = rec
+        del pool
+    log(f"[decode-graphs] (b) K3 at the ladder's plan and the exact plan "
+        f"({card}): {json.dumps(out)}")
+    return out
+
+
+def _dg_sleep(torch, np, eng, graphs, card: str) -> dict:
+    """(d) Sleep levels 1 and 2, each then wake: the graphs are dropped
+    while asleep and captured again at wake, and 8 greedy requests give
+    the same tokens before and after (level 2 makes the seed-0 weights
+    again)."""
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    rng = np.random.default_rng(18)
+    sp = SamplingParams(temperature=0.0, max_tokens=32, ignore_eos=True)
+    prompts = [rng.integers(0, 256, int(n)).tolist()
+               for n in rng.integers(64, 600, 8)]
+
+    def wave(tag):
+        got = _dg_serve(eng, [(f"{tag}{i}", p, sp)
+                              for i, p in enumerate(prompts)])
+        return [t for t, _ in got.values()]
+
+    before = wave("before")
+    held = set(graphs.entries)
+    out = {"graphs": len(held)}
+    for level in (1, 2):
+        eng.sleep_mode(level)
+        if len(graphs) or set(eng.runner._held_keys) != held:
+            raise AssertionError(f"[decode-graphs] (d) level {level}: "
+                                 f"{len(graphs)} graphs held asleep")
+        asleep = torch.cuda.memory_allocated()
+        n0, s0 = graphs.captures, graphs.capture_seconds
+        t0 = time.perf_counter()
+        eng.wake_mode()
+        out[f"level{level}"] = {
+            "allocated_asleep_gib": asleep / 2**30,
+            "wake_s": time.perf_counter() - t0,
+            "recaptured": graphs.captures - n0,
+            "recapture_s": graphs.capture_seconds - s0}
+        if set(graphs.entries) != held:
+            raise AssertionError(f"[decode-graphs] (d) level {level}: wake "
+                                 "did not capture the held keys again")
+        n0 = graphs.captures
+        after = wave(f"after{level}-")
+        if after != before or graphs.captures != n0:
+            raise AssertionError(f"[decode-graphs] (d) level {level}: "
+                                 "tokens after wake differ, or live "
+                                 "traffic captured")
+    log(f"[decode-graphs] (d) sleep ({card}): graphs dropped and captured "
+        f"again, greedy tokens equal after wake: {json.dumps(out)}")
+    return out
+
+
+def decode_graphs_phase(torch, np, counters, card: str) -> dict:
+    """Phase 14: llama-3-8b bf16, seed 0, default scheduler, prefix cache
+    off, one engine in this process with its graphs toggled between windows: (c) capture,
+    (a) identity, (b) timing and traces, (d) sleep; then, the engine
+    released, K3 at the ladder's plan. Returns the phase's launches (K1,
+    K2 and K3; K1 and K3 through the replays)."""
+    from production_stack_tpu_torch.engine.config import (
+        CacheConfig,
+        EngineConfig,
+    )
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+
+    t_phase = time.perf_counter()
+    # no prefix cache: a run repeated for comparison must prefill as the
+    # first one did, not from its cached blocks
+    eng = LLMEngine(EngineConfig.for_model(
+        "llama-3-8b", seed=0,
+        cache=CacheConfig(enable_prefix_caching=False)), device="cuda")
+    graphs = eng.runner.graphs
+    if graphs is None:
+        raise AssertionError("[decode-graphs] the engine runs no graphs")
+    log(f"[decode-graphs] llama-3-8b up in "
+        f"{time.perf_counter() - t_phase:.1f} s: {eng.runner.num_blocks} "
+        f"KV blocks, rungs {eng.runner.decode_rungs}")
+    for ctr in counters:
+        ctr.n = 0
+    out = {"c_capture": _dg_capture(torch, eng, card)}
+    out["a_identity"] = _dg_identity(np, eng, graphs, card)
+    out["b_timing"] = _dg_timing(torch, np, eng, graphs, card)
+    out["b_traces"] = _dg_traces(torch, np, eng, graphs, card)
+    out["d_sleep"] = _dg_sleep(torch, np, eng, graphs, card)
+    launches = {ctr.name.split()[0]: ctr.n for ctr in counters}
+    _expect(launches, {"K1", "K2", "K3"}, "decode-graphs")
+    c, r = eng.config, eng.runner
+    geo = {"H": c.model.num_heads, "KH": c.model.num_kv_heads,
+           "D": c.model.head_dim, "bs": c.cache.block_size,
+           "M": r.max_blocks_per_seq, "S": c.scheduler.max_num_seqs,
+           "K": r.decode_steps, "rungs": r.decode_rungs}
+    del eng, graphs, c, r
+    _released(torch, "decode-graphs")
+    # the plain version's gathers need the memory the pool held
+    out["b_k3"] = _dg_k3_ladder(torch, np, geo, card)
+    log(f"[decode-graphs] ({card}) in {time.perf_counter() - t_phase:.1f} "
+        "s: " + json.dumps({"launches": launches}))
+    return launches
+
+
 def _no_hbm_alarm_left() -> int:
     """Every server of this run but phase 13's keeps its bundles in the
     default archive (a per-process directory under the system tmpdir):
@@ -5352,6 +5747,7 @@ def main() -> int:
     by_path["overload"] = overload_phase(torch, np, counters, card)
     by_path["observability"] = observability_phase(torch, np, counters,
                                                    card)
+    by_path["decode-graphs"] = decode_graphs_phase(torch, np, counters, card)
     _no_hbm_alarm_left()
 
     kernels = []

@@ -12,9 +12,14 @@ bucketed path a step with prefill chunks runs only those, padded to one
 bucket (``_run_prefill``). Either dispatch's results are fetched at the
 start of a later step, as in the reference, so the host builds the next
 step while the card computes this one. A step with only decode rows runs
-``_run_decode`` and resolves at once, unless n-gram speculation proposed
-drafts: then those rows ride ``_run_ragged`` as spans of 1 + drafts,
-verified in the same dispatch, which resolves at once.
+``_run_decode`` (on the card a CUDA graph replay, model_runner.py) and
+resolves at once, unless n-gram speculation proposed drafts: then those
+rows ride ``_run_ragged`` as spans of 1 + drafts, verified in the same
+dispatch, which resolves at once. With ``SchedulerConfig.chain_decode``
+consecutive decode dispatches over the same requests chain through their
+device-resident tokens and resolve one dispatch late, as the reference's
+(``_pending_decode``): a step with prefill work, an empty schedule or a
+change of the decode rows lands the chain first.
 
 Requests may carry a LoRA adapter (``adapter_slot``, a slot of the
 runner's bank) and a grammar (``guided_regex`` / ``guided_json``, compiled
@@ -192,6 +197,16 @@ class LLMEngine:
         # the ragged or prefill dispatch whose results land at a later step
         self._pending_ragged: Optional[dict] = None
         self._pending_prefill: Optional[tuple] = None
+        # chained decode (SchedulerConfig.chain_decode): consecutive decode
+        # dispatches over the same requests feed each other's last tokens
+        # on the device, and each one's (K, S) samples are fetched one
+        # dispatch later, so stop checks lag one dispatch too. A finished
+        # sequence's surplus tokens land only in its own uncommitted tail
+        # blocks (prefix hashes cover full blocks of host-side token_ids),
+        # and a dispatch issued after its blocks are released runs later
+        # on the same stream, so a deferred stop cannot corrupt a reused or
+        # cached block
+        self._pending_decode: Optional[dict] = None
         # n-gram speculative decoding (engine/spec.py): drafts ride the
         # ragged stream as spans of 1 + drafts, verified in the same step,
         # so speculation needs the ragged path. Eligibility is per sequence
@@ -412,6 +427,7 @@ class LLMEngine:
         if out.is_empty:
             outputs = self._resolve_pending_ragged()
             outputs.extend(self._resolve_pending_prefill())
+            outputs.extend(self._resolve_pending_decode())
             if (not outputs and self._prefetcher is not None
                     and self._prefetcher.jobs):
                 # nothing else runnable while fetches are in flight: a
@@ -423,13 +439,18 @@ class LLMEngine:
         if out.prefills:
             if self.attention_impl == "ragged":
                 return self._run_ragged(out)
-            # decode steps resolve at once, so no decode token is pending
-            return self._run_prefill(out.prefills)
+            # a chained decode's tokens land before the prefill phase
+            outputs = self._resolve_pending_decode()
+            outputs.extend(self._run_prefill(out.prefills))
+            return outputs
         # decode consumes the last sampled token: the pending ragged or
         # prefill results land first, and may finish sequences the
         # scheduler put in this step's decode batch
         outputs = self._resolve_pending_ragged()
         outputs.extend(self._resolve_pending_prefill())
+        if self._spec is not None:
+            # drafts come from complete token histories
+            outputs.extend(self._resolve_pending_decode())
         decodes = [s for s in out.decodes
                    if s.status is SequenceStatus.RUNNING]
         if decodes:
@@ -439,6 +460,8 @@ class LLMEngine:
                 outputs.extend(self._run_ragged(out, proposed=True))
             else:
                 outputs.extend(self._run_decode(decodes))
+        else:
+            outputs.extend(self._resolve_pending_decode())
         return outputs
 
     # -- speculative decoding (engine/spec.py) -------------------------------
@@ -515,6 +538,7 @@ class LLMEngine:
         ``proposed``: the caller already turned the grants into drafts."""
         bs = self.config.cache.block_size
         outputs = self._resolve_pending_ragged()
+        outputs.extend(self._resolve_pending_decode())
         decodes = [s for s in out.decodes
                    if s.status is SequenceStatus.RUNNING]
         prefills = [sp for sp in out.prefills
@@ -916,15 +940,44 @@ class LLMEngine:
 
     # -- decode-only step ----------------------------------------------------
     def _run_decode(self, decodes: list[Sequence]) -> list[RequestOutput]:
+        """One ``decode_multi`` dispatch over the decode rows. With
+        ``chain_decode`` and the runner's support, its samples stay on the
+        device: the next decode dispatch over the same requests takes its
+        input tokens from them, and they are fetched after that dispatch
+        is queued (``_pending_decode``). Rows with logprobs or a grammar
+        never chain (their results must reach the host each step), and a
+        change of membership resolves the chain first."""
         bs = self.config.cache.block_size
+        outputs: list[RequestOutput] = []
         use_logprobs = any(s.sampling.logprobs is not None for s in decodes)
+        use_grammar = any(s.grammar_slot >= 0 for s in decodes)
+        can_chain = (self.config.scheduler.chain_decode
+                     and self.runner.supports_chaining
+                     and not use_logprobs and not use_grammar)
+        pending = self._pending_decode
+        if pending is not None:
+            # identity by request id, not slot: a freed slot can be taken
+            # by another sequence within one step window
+            same = (can_chain
+                    and [s.request_id for s in decodes] == pending["rids"])
+            if not same:
+                # membership changed: land the in-flight tokens, then build
+                # from what they leave
+                outputs.extend(self._resolve_pending_decode())
+                decodes = [s for s in decodes
+                           if s.status is SequenceStatus.RUNNING]
+                if not decodes:
+                    return outputs
+                pending = None
+        chain = pending is not None
         self._context_lens[:] = 0
         self._slot_mapping[:] = -1
         self._g_ids[:] = -1
         for seq in decodes:
             i = seq.slot
             pos = seq.num_computed_tokens  # index of the incoming token
-            self._tokens[i] = seq.token_ids[pos]
+            if not chain:
+                self._tokens[i] = seq.token_ids[pos]
             self._positions[i] = pos
             n = len(seq.block_ids)
             self._block_tables[i, :n] = seq.block_ids
@@ -935,7 +988,8 @@ class LLMEngine:
                 self._ctrl_ids[i] = -1
                 self._ctrl_vals[i] = 0.0
                 self._ctrl_mode[i] = 0
-            # sample counter = tokens sampled so far
+            # sample counter = tokens sampled so far; under a chain the
+            # output list lags, so it comes from num_computed
             self._steps[i] = pos - seq.num_prompt_tokens + 1
             self._presence[i] = seq.sampling.presence_penalty
             self._frequency[i] = seq.sampling.frequency_penalty
@@ -945,13 +999,13 @@ class LLMEngine:
 
         greedy_only = all(s.sampling.temperature <= 0.0 for s in decodes)
         use_lora = any(s.adapter_slot for s in decodes)
-        use_grammar = any(s.grammar_slot >= 0 for s in decodes)
         use_penalties = any(
             s.sampling.presence_penalty or s.sampling.frequency_penalty
             for s in decodes
         )
         self._reset_count_rows(use_penalties)
         use_controls = any(s.token_ctrl is not None for s in decodes)
+        K = max(self.config.scheduler.multi_step, 1)
         t_dispatch = time.monotonic()
         result = self.runner.decode_multi(
             self._tokens, self._positions, self._block_tables,
@@ -966,27 +1020,80 @@ class LLMEngine:
             adapter_ids=self._adapter_ids if use_lora else None,
             g_ids=self._g_ids if use_grammar else None,
             g_states=self._g_states if use_grammar else None,
+            tokens_dev=pending["next_tok"] if chain else None,
+            fetch=not can_chain,
         )
         if self.perf is not None:
+            # a chained dispatch's seconds are the host's enqueue time, as
+            # the reference counts them
             dispatch_s = time.monotonic() - t_dispatch
-            K = max(self.config.scheduler.multi_step, 1)
             entries = [(seq, "decode", K, K) for seq in decodes]
             self.perf.record_decode(
                 len(decodes), K, int(self._context_lens.sum()),
                 seconds=dispatch_s, tenants=self._tenant_map(entries))
             self._attribute_seq_seconds(dispatch_s, entries)
         self.decode_dispatches += 1
-        sampled, lp = (result[0], result[1:]) if use_logprobs else (result, None)
+        if can_chain:
+            sampled, next_tok = result
+            # the scheduler's block growth reads num_computed now; the
+            # tokens are appended when the samples land
+            for seq in decodes:
+                seq.num_computed_tokens += K
+            self._pending_decode = {
+                "decodes": list(decodes),
+                "slots": [s.slot for s in decodes],
+                "rids": [s.request_id for s in decodes],
+                "sampled": sampled,
+                "next_tok": next_tok,
+            }
+            if chain:
+                # the previous dispatch's samples are read while this one
+                # runs
+                outputs.extend(self._finish_decode(pending))
+                if not any(s.status is SequenceStatus.RUNNING
+                           for s in decodes):
+                    # they finished every row: this dispatch is surplus
+                    self._resolve_pending_decode()
+            return outputs
+        pend = {"decodes": decodes, "slots": [s.slot for s in decodes]}
+        if use_logprobs:
+            pend["sampled"], pend["lp"] = result[0], result[1:]
+        else:
+            pend["sampled"] = result
+        outputs.extend(self._finish_decode(pend, fetched=True, advance=True))
+        return outputs
+
+    def _resolve_pending_decode(self) -> list[RequestOutput]:
+        """Land the chained decode dispatch still in flight, if any."""
+        if self._pending_decode is None:
+            return []
+        pending = self._pending_decode
+        self._pending_decode = None
+        return self._finish_decode(pending)
+
+    def _finish_decode(self, pending: dict, fetched: bool = False,
+                       advance: bool = False) -> list[RequestOutput]:
+        """Fetch (unless already on the host), append and stop-check one
+        decode dispatch's samples. ``advance`` moves num_computed a token
+        at a time (a dispatch that was not chained did not advance it).
+        A sequence that finished or was preempted while the dispatch was
+        in flight gets none of its tokens: an aborted one's blocks went
+        with the abort, and a preempted one computes them again from its
+        history, with the same sample counters."""
+        sampled = pending["sampled"]
+        if not fetched:
+            sampled = sampled.result()[0]
+        lp = pending.get("lp")  # (tok_lp (K, S), ids (K, S, N), lps ...)
         live, token_lists, lp_lists = [], [], []
-        for seq in decodes:
-            if seq.status.is_finished:
-                continue
-            slot = seq.slot
+        for seq, slot in zip(pending["decodes"], pending["slots"]):
+            if seq.status is not SequenceStatus.RUNNING:
+                continue  # aborted or preempted in flight: surplus dropped
             want_lp = lp is not None and seq.sampling.logprobs is not None
             new_toks, new_lps = [], [] if want_lp else None
             for k in range(sampled.shape[0]):
                 t = int(sampled[k, slot])
-                seq.num_computed_tokens += 1
+                if advance:
+                    seq.num_computed_tokens += 1
                 seq.output_token_ids.append(t)
                 # mirror the device-side FSM advance (kept tokens only)
                 self._advance_fsm(seq, t)
@@ -1437,10 +1544,13 @@ class LLMEngine:
         """Level 1 drops the KV pool (the largest allocation) and keeps the
         weights; level 2 drops the weights too. The prefix cache goes with
         the pool: the allocator is rebuilt, its evictions still demote to
-        the host tier. LoRA and grammar banks stay. Refused while requests
-        are unfinished."""
+        the host tier. LoRA and grammar banks stay. The decode graphs go
+        first, and ``wake_mode`` captures them again. Refused while
+        requests are unfinished."""
         if self.has_unfinished():
             raise RuntimeError("cannot sleep with unfinished requests")
+        # a chain whose requests were all aborted still holds a dispatch
+        self._resolve_pending_decode()
         self.runner.drop_kv()
         self.scheduler.allocator = PrefixCachingBlockAllocator(
             self.runner.num_blocks, self.config.cache.block_size,
@@ -1528,8 +1638,10 @@ class LLMEngine:
         (``ModelRunner.ragged_lengths``), greedy and sampled, plain and
         guided; on the bucketed path the reference's bucket x row-class
         walk, greedy and sampled; on both, every decode variant (greedy or
-        sampled, logprobs, grammar) and a guided prefill; with speculation
-        on, one motif run that verifies drafts."""
+        sampled, logprobs, grammar) and a guided prefill, then every decode
+        graph key without an adapter at every rung of K3's plan ladder
+        (``ModelRunner.warm_decode_graphs``); with speculation on, one
+        motif run that verifies drafts."""
         rng = np.random.default_rng(0)
         sched = self.config.scheduler
         vocab = self.config.model.vocab_size
@@ -1593,6 +1705,9 @@ class LLMEngine:
             for lp in (None, 5):
                 for g in (None, regex):
                     run(prompts(8), temp, logprobs=lp, guided_regex=g)
+        # every decode graph key at every plan rung (on the card a capture
+        # each, from a batch without live rows)
+        self.runner.warm_decode_graphs()
         if self._spec is not None:
             # a draft-carrying span (propose, pack, verify, accept) runs
             # end to end before live traffic does

@@ -16,8 +16,16 @@ production_stack_tpu/engine/model_runner.py:
   padded to one bucket, ``tokens (P, S)``; inactive rows carry context 0.
   Each chunk samples its first token at ``last_idx``.
 - ``decode_multi`` (``_decode_multi_step``): ``multi_step`` fused
-  decode+sample iterations over the fixed ``(S,)`` decode batch, as a
-  Python loop.
+  decode+sample iterations over the fixed ``(S,)`` decode batch. Its host
+  arrays go up in one copy into static device buffers
+  (``step_graphs.StaticInputs``), and one body (``_decode_body``) runs the
+  iterations over them: on a CUDA device, by default, as a CUDA graph
+  captured once a ``DecodeKey`` (the static flags, ``multi_step`` and K3's
+  plan rung: ``plan_ladder``) and replayed every step, the counterpart of
+  the reference's jitted ``_decode_multi``; eagerly on the CPU and with
+  ``SchedulerConfig.decode_graphs`` off, the same body over the same
+  buffers. ``fetch=False`` and ``tokens_dev`` chain dispatches through the
+  device-resident last tokens (the reference's ``chain_decode``).
 
 Attention goes through the kernel wrappers (``ops/kv_write.py``,
 ``ops/ragged_paged_attention.py``, ``ops/paged_prefill_attention.py``,
@@ -29,8 +37,8 @@ Every step takes per-token LoRA adapters (the multi-LoRA bank,
 ``register_grammar``, applied by ``grammar_mask``); the ragged step also
 verifies speculative drafts (``verify_idx``). These three are plain
 PyTorch on tensors (gathers, ``torch.where``, matmuls), as in the
-reference, where they run outside any Pallas kernel. Ring prefill, KV
-block export/import and CUDA-graph capture are not ported yet.
+reference, where they run outside any Pallas kernel. Ring prefill is not
+ported (one card); the ragged and bucketed prefill steps run eagerly.
 
 The dense scoring path (``pooled_embed``, ``sequence_logprobs``,
 ``prompt_logprobs``) runs whole sequences through the model with no pool,
@@ -49,15 +57,19 @@ the token count of the reference's same step (``ref_tokens``: the
 budget-wide T on the ragged path), which picks the int8 route and sets
 Mixtral's MoE capacity (models/llama.py).
 
-``install_compile_observer`` wraps the three steps in the perf
-accountant's ``CompileTracker``, keyed on what the card runs: the ragged
-step on its stream length (``stream_length``) and its static flags, not on
-the budget-wide arrays it is handed.
+``install_compile_observer`` wraps the ragged and prefill steps and the
+decode step's program lookup (``decode_program``, which captures a new
+key's graph) in the perf accountant's ``CompileTracker``, keyed on what the
+card runs: the ragged step on its stream length (``stream_length``) and its
+static flags, not on the budget-wide arrays it is handed; the decode step
+on its graph key. ``drop_kv`` and ``drop_params`` drop every graph first;
+the ``restore_*`` calls capture the held keys again.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import itertools
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -66,6 +78,8 @@ from production_stack_tpu_torch.engine import kv_cache as kvmod
 from production_stack_tpu_torch.engine.config import EngineConfig, resolve_device
 from production_stack_tpu_torch.engine.lora import bank_bytes
 from production_stack_tpu_torch.engine.sampling import (
+    MAX_LOGPROBS,
+    MAX_TOKEN_CONTROLS,
     NEG_INF,
     apply_token_controls,
     compute_logprobs,
@@ -77,13 +91,20 @@ from production_stack_tpu_torch.engine.quant import (
     DEQUANT_TILE_ELEMS,
     maybe_quantize,
 )
+from production_stack_tpu_torch.engine.step_graphs import (
+    DecodeGraphs,
+    Deferred,
+    StaticInputs,
+)
 from production_stack_tpu_torch.engine.weights import init_or_load
 from production_stack_tpu_torch.models.registry import get_model
 from production_stack_tpu_torch.ops.attention import dense_causal_attention
 from production_stack_tpu_torch.ops.kv_write import kv_write
 from production_stack_tpu_torch.ops.paged_attention import combine_kv
 from production_stack_tpu_torch.ops.paged_decode_attention import (
+    ladder_rung,
     paged_decode_attention,
+    plan_ladder,
     split_plan,
 )
 from production_stack_tpu_torch.ops.paged_prefill_attention import (
@@ -110,6 +131,43 @@ def stream_length(budget: int, live: int) -> int:
     return min(budget, -(-live // STREAM_ROUND) * STREAM_ROUND)
 
 
+class DecodeKey(NamedTuple):
+    """What a decode step's program depends on beyond its inputs' values:
+    the reference's static flags (greedy_only, use_penalties,
+    use_controls, want_logprobs, use_grammar), the LoRA bank's target keys
+    (None without adapters: a bank that gains a target needs a new graph,
+    or the old one would skip its delta), ``multi_step`` and K3's plan
+    rung. One CUDA graph a key."""
+    greedy: bool
+    penalties: bool
+    controls: bool
+    lora: Optional[tuple]
+    grammar: bool
+    logprobs: bool
+    steps: int
+    rung: int
+
+
+def decode_fields(S: int, M: int) -> list:
+    """The decode step's static inputs (``step_graphs.StaticInputs``), in
+    the types its eager uploads had."""
+    C = MAX_TOKEN_CONTROLS
+    return [("tokens", np.int32, (S,)), ("positions", np.int32, (S,)),
+            ("block_tables", np.int32, (S, M)),
+            ("context_lens", np.int32, (S,)),
+            ("slot_mapping", np.int32, (S,)), ("temps", np.float32, (S,)),
+            ("top_ps", np.float32, (S,)), ("top_ks", np.int64, (S,)),
+            ("seeds", np.int64, (S,)), ("steps", np.int64, (S,)),
+            ("presence", np.float32, (S,)), ("frequency", np.float32, (S,)),
+            ("ctrl_ids", np.int32, (S, C)), ("ctrl_vals", np.float32, (S, C)),
+            ("ctrl_mode", np.int32, (S,)), ("adapter_ids", np.int64, (S,)),
+            ("g_ids", np.int64, (S,)), ("g_states", np.int64, (S,))]
+
+
+# inactive rows: no KV slot, no grammar, no token control
+DECODE_EMPTY = {"slot_mapping": -1, "g_ids": -1, "ctrl_ids": -1}
+
+
 def grammar_mask(logits, bank, accept, g_ids, g_states, eos_id):
     """Hard-constrain logits (B, V) to each row's FSM transitions.
 
@@ -134,6 +192,10 @@ def grammar_mask(logits, bank, accept, g_ids, g_states, eos_id):
 
 class ModelRunner:
     """Owns params, the KV block pool and the step functions."""
+
+    # decode dispatches chain through device-resident tokens
+    # (``decode_multi``'s ``tokens_dev`` and ``fetch=False``)
+    supports_chaining = True
 
     def __init__(
         self,
@@ -205,6 +267,22 @@ class ModelRunner:
         # guided request (engine/grammar.py)
         self.grammar_bank: Optional[torch.Tensor] = None
         self.grammar_accept: Optional[torch.Tensor] = None
+        # the decode step: static inputs, K3's plan ladder, and the graph
+        # cache on a CUDA device with decode_graphs on (None: eager)
+        sched = config.scheduler
+        self.decode_steps = max(sched.multi_step, 1)
+        self.decode_inputs = StaticInputs(
+            decode_fields(sched.max_num_seqs, self.max_blocks_per_seq),
+            self.device, DECODE_EMPTY)
+        # a step's contexts reach at most max_model_len + multi_step - 1
+        self.decode_rungs = plan_ladder(self.cfg.max_model_len
+                                        + self.decode_steps - 1)
+        self.graphs: Optional[DecodeGraphs] = (
+            DecodeGraphs() if self.device.type == "cuda"
+            and sched.decode_graphs else None)
+        self._graphed_kv: Optional[torch.Tensor] = None
+        # keys whose graphs sleep dropped, captured again at wake
+        self._held_keys: list = []
 
     # -- compile tracking ----------------------------------------------------
     def ragged_lengths(self) -> list[int]:
@@ -215,12 +293,13 @@ class ModelRunner:
                                          STREAM_ROUND)})
 
     def install_compile_observer(self, observer) -> None:
-        """Wrap ``ragged_step``, ``prefill`` and ``decode_multi`` in
+        """Wrap ``ragged_step``, ``prefill`` and ``decode_program`` in
         ``CompileTracker``s reporting to ``observer(kind, bucket,
         seconds)``. A signature is a program's shape on the card and its
-        static flags: greedy, LoRA, grammar, and verify (ragged) or
-        logprobs (decode). Penalties and token controls, elementwise work
-        on the (S, V) logits, are not keyed."""
+        static flags: greedy, LoRA, grammar, and verify (ragged); a decode
+        step's is its graph key (``DecodeKey``), so on the card a new
+        signature is a capture and its seconds are the capture's (with the
+        eager warm-up run before it)."""
         from production_stack_tpu_torch.engine.perf_accounting import (
             CompileTracker,
         )
@@ -233,6 +312,7 @@ class ModelRunner:
         def ragged_n(tokens, *args, **kw) -> int:
             return stream_length(len(tokens), int(args[3][-1]))
 
+        S = self.config.scheduler.max_num_seqs
         programs = {
             "ragged": ("ragged_step",
                        lambda *a, **kw: (ragged_n(*a), *flags(kw),
@@ -241,11 +321,9 @@ class ModelRunner:
             "prefill": ("prefill",
                         lambda *a, **kw: (tuple(a[0].shape), *flags(kw)),
                         lambda *a, **kw: "x".join(map(str, a[0].shape))),
-            "decode_multi": ("decode_multi",
-                             lambda *a, **kw: (
-                                 len(a[0]), *flags(kw),
-                                 bool(kw.get("want_logprobs", False))),
-                             lambda *a, **kw: str(len(a[0]))),
+            "decode_multi": ("decode_program",
+                             lambda key, plan: key,
+                             lambda key, plan: f"{S}@{key.rung}"),
         }
         for kind, (attr, key, bucket) in programs.items():
             fn = getattr(self, attr)
@@ -290,40 +368,17 @@ class ModelRunner:
                 DEQUANT_TILE_ELEMS * b)
         return int(rows + 2 * ATTN_SCORE_BYTES + mlp + logits + extra)
 
-    def _transient_bytes(self) -> int:
-        """Device memory a step needs beside the pool: hidden states and
-        MLP intermediates of the step's tokens, the float32 logits with
-        their sampling temporaries, and the grammar and LoRA banks at their
-        full size (each is allocated at its first use, after the pool). A
-        ragged step has T tokens and (S, V) logits. A bucketed prefill step
-        has up to prefill_batch chunks padded to the bucket of the largest
-        chunk the scheduler issues (as the reference's _prefill_temp_bytes
-        sizes it), and its decode steps have (S, V) logits. An int8 model
-        adds a float32 copy of the activations, the int32 accumulators and
-        one dequantized weight tile; a MoE model its capacity buffers: up
-        to 2 T k / X rows an expert (at most T), in and out, with their
-        gate and up products. The dense scoring path (``score_bytes``)
-        runs between steps, so the reserve takes the larger of the two,
-        plus the banks."""
-        sched = self.config.scheduler
+    def _step_bytes(self, tokens: int, rows: int) -> int:
+        """Device memory one step of ``tokens`` tokens and ``rows`` sampled
+        rows needs beside the pool: hidden states and MLP intermediates,
+        the float32 logits with their sampling temporaries, an int8 model's
+        float32 activations, int32 accumulators and one dequantized weight
+        tile, a MoE model's capacity buffers (up to 2 T k / X rows an
+        expert, at most T, in and out, with their gate and up products)."""
         c = self.cfg
-        rows = sched.max_num_seqs
-        if self.attention_impl == "ragged":
-            tokens = sched.max_num_batched_tokens
-        else:
-            Pb = max(sched.prefill_batch, 1)
-            chunk = min(sched.max_num_batched_tokens, c.max_model_len,
-                        max(sched.prefill_buckets))
-            tokens = Pb * sched.bucket_for(chunk)
-            rows = max(rows, Pb)
         hidden = tokens * c.hidden_size * 4
         mlp = tokens * c.intermediate_size * 2
         logits = rows * c.vocab_size * 4
-        cfg = self.config
-        grammar = cfg.max_grammars * cfg.max_grammar_states * (
-            c.vocab_size * 2 + 1)
-        lora = bank_bytes(c, cfg.max_loras, cfg.max_lora_rank,
-                          c.torch_dtype.itemsize)
         extra = 0
         if c.quant:
             wide = max(c.intermediate_size, c.hidden_size)
@@ -339,9 +394,56 @@ class ModelRunner:
             extra += (slots * (2 * c.hidden_size + 3 * c.intermediate_size)
                       * c.torch_dtype.itemsize
                       + tokens * k * c.hidden_size * 4)
-        step = 8 * hidden + 4 * mlp + 4 * logits + extra
+        return 8 * hidden + 4 * mlp + 4 * logits + extra
+
+    def decode_graph_bytes(self) -> int:
+        """The decode graphs' shared memory pool: one decode step's
+        transients at ``max_num_seqs`` rows (graphs share the pool, and a
+        capture reuses what the step frees), with the (S, V) float32
+        copies the penalties, token controls and grammar make on top, the
+        grammar's int16 transition rows and masks, and every iteration's
+        outputs. Held for as long as the graphs are, beside the eager
+        steps' transients; 0 where the step runs eagerly. (237 MB measured
+        at llama-3-8b against 278 MB reserved, NVIDIA H100 80GB HBM3,
+        chip_smoke.py phase 14.)"""
+        sched = self.config.scheduler
+        if self.device.type != "cuda" or not sched.decode_graphs:
+            return 0
+        S = sched.max_num_seqs
+        flags = S * self.cfg.vocab_size * (3 * 4 + 2 + 1 + 1)
+        outs = max(sched.multi_step, 1) * S * (2 + 4 * MAX_LOGPROBS) * 4
+        return self._step_bytes(S, S) + flags + outs
+
+    def _transient_bytes(self) -> int:
+        """Device memory the steps need beside the pool: an eager step's
+        (``_step_bytes``), the decode graphs' pool (``decode_graph_bytes``)
+        and the grammar and LoRA banks at their full size (each is
+        allocated at its first use, after the pool). A ragged step has T
+        tokens and (S, V) logits. A bucketed prefill step has up to
+        prefill_batch chunks padded to the bucket of the largest chunk the
+        scheduler issues (as the reference's _prefill_temp_bytes sizes
+        it), and its decode steps have (S, V) logits. The dense scoring
+        path (``score_bytes``) runs between steps, so the reserve takes
+        the larger of the two."""
+        sched = self.config.scheduler
+        c = self.cfg
+        rows = sched.max_num_seqs
+        if self.attention_impl == "ragged":
+            tokens = sched.max_num_batched_tokens
+        else:
+            Pb = max(sched.prefill_batch, 1)
+            chunk = min(sched.max_num_batched_tokens, c.max_model_len,
+                        max(sched.prefill_buckets))
+            tokens = Pb * sched.bucket_for(chunk)
+            rows = max(rows, Pb)
+        cfg = self.config
+        grammar = cfg.max_grammars * cfg.max_grammar_states * (
+            c.vocab_size * 2 + 1)
+        lora = bank_bytes(c, cfg.max_loras, cfg.max_lora_rank,
+                          c.torch_dtype.itemsize)
         # the dense scoring path runs between steps, never inside one
-        return int(max(step, self.score_bytes()) + grammar + lora)
+        step = max(self._step_bytes(tokens, rows), self.score_bytes())
+        return int(step + self.decode_graph_bytes() + grammar + lora)
 
     def _resolve_num_blocks(self, explicit: Optional[int]) -> int:
         if explicit is not None:
@@ -412,24 +514,29 @@ class ModelRunner:
     def register_grammar(self, slot: int, fsm) -> None:
         """Upload one TokenFsm's transition table into bank slot ``slot``
         (padded to the configured state budget)."""
-        G = self.config.max_grammars
         S = self.config.max_grammar_states
         V = self.cfg.vocab_size
         if fsm.n_states > S:
             raise ValueError(
                 f"grammar needs {fsm.n_states} states > budget {S}"
             )
-        if self.grammar_bank is None:
-            self.grammar_bank = torch.full((G, S, V), -1, dtype=torch.int16,
-                                           device=self.device)
-            self.grammar_accept = torch.zeros((G, S), dtype=torch.bool,
-                                              device=self.device)
+        self._ensure_grammar_bank()
         table = np.full((S, V), -1, np.int16)
         table[: fsm.n_states] = fsm.trans.astype(np.int16)
         acc = np.zeros(S, bool)
         acc[: fsm.n_states] = fsm.accept
         self.grammar_bank[slot] = self._dev(table)
         self.grammar_accept[slot] = self._dev(acc)
+
+    def _ensure_grammar_bank(self) -> None:
+        if self.grammar_bank is None:
+            G = self.config.max_grammars
+            S = self.config.max_grammar_states
+            self.grammar_bank = torch.full((G, S, self.cfg.vocab_size), -1,
+                                           dtype=torch.int16,
+                                           device=self.device)
+            self.grammar_accept = torch.zeros((G, S), dtype=torch.bool,
+                                              device=self.device)
 
     # -- multi-LoRA bank ---------------------------------------------------
     def register_lora(self, slot: int, bank_np: dict) -> None:
@@ -468,8 +575,11 @@ class ModelRunner:
         their tokens), or None without adapters."""
         if adapter_ids is None or self.lora_bank is None:
             return None
-        onehot = torch.nn.functional.one_hot(
-            self._dev(adapter_ids, torch.int64), self.config.max_loras)
+        return self._lora_of(self._dev(adapter_ids, torch.int64))
+
+    def _lora_of(self, ids: torch.Tensor) -> dict:
+        """The ``lora`` argument for int64 adapter ids on the device."""
+        onehot = torch.nn.functional.one_hot(ids, self.config.max_loras)
         return {"onehot": onehot.to(self.cfg.torch_dtype),
                 "bank": self.lora_bank}
 
@@ -592,7 +702,9 @@ class ModelRunner:
         keeps a workspace a handle in PyTorch's allocator, carved from
         whatever segment was free at the first product: one left in a
         segment the weights share would keep the whole segment, so the
-        workspaces go too (cuBLAS makes them again at the next product)."""
+        workspaces go too (cuBLAS makes them again at the next product). A
+        captured product would replay into a freed workspace, so the
+        decode graphs go before this runs (``_drop_graphs``)."""
         if self.device.type == "cuda":
             clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
             if clear is not None:
@@ -600,6 +712,7 @@ class ModelRunner:
             torch.cuda.empty_cache()
 
     def drop_kv(self) -> None:
+        self._drop_graphs()
         self.kv = None
         self._release_memory()
 
@@ -607,8 +720,10 @@ class ModelRunner:
         if self.kv is None:
             self.kv = kvmod.init_kv_cache(self.cfg, self.config.cache,
                                           self.num_blocks, self.device)
+        self._recapture()
 
     def drop_params(self) -> None:
+        self._drop_graphs()
         self.params = None
         self._release_memory()
 
@@ -619,6 +734,7 @@ class ModelRunner:
             self.params = maybe_quantize(
                 self.cfg, init_or_load(self.cfg, self.config.seed,
                                        self.device))
+        self._recapture()
 
     @property
     def params_alive(self) -> bool:
@@ -732,19 +848,26 @@ class ModelRunner:
                 row[t] += 1
         self.token_counts[slot] = self._dev(row)
 
-    def _process_logits(self, logits, samp, greedy_only, presence, frequency,
-                        ctrl, grammar=None):
-        """Penalties, token controls, the grammar mask, then sampling.
-        Returns (sampled (S,), each row's grammar transition row (S, V) or
-        None without ``grammar``)."""
-        if presence is not None:
-            logits = penalize_logits(logits, self.token_counts,
-                                     self._dev(presence, torch.float32),
-                                     self._dev(frequency, torch.float32))
+    def _penalties(self, presence, frequency) -> Optional[tuple]:
+        if presence is None:
+            return None
+        return (self._dev(presence, torch.float32),
+                self._dev(frequency, torch.float32))
+
+    def _ctrl(self, ctrl) -> Optional[tuple]:
+        return None if ctrl is None else tuple(self._dev(c) for c in ctrl)
+
+    def _process_logits(self, logits, samp, greedy_only, penalties, ctrl,
+                        grammar=None):
+        """Penalties, token controls, the grammar mask, then sampling, over
+        device tensors: ``penalties`` (presence, frequency) (S,) or None,
+        ``ctrl`` (ids, vals, mode) or None. Returns (sampled (S,), each
+        row's grammar transition row (S, V) or None without
+        ``grammar``)."""
+        if penalties is not None:
+            logits = penalize_logits(logits, self.token_counts, *penalties)
         if ctrl is not None:
-            logits = apply_token_controls(
-                logits, self._dev(ctrl[0]), self._dev(ctrl[1]),
-                self._dev(ctrl[2]))
+            logits = apply_token_controls(logits, *ctrl)
         row_t = None
         if grammar is not None:
             logits, row_t = grammar_mask(logits, self.grammar_bank,
@@ -813,8 +936,9 @@ class ModelRunner:
         samp = self._sampling_inputs(temps, top_ps, top_ks, seeds, steps)
         if presence is not None:
             self._ensure_counts()
-        sampled, _ = self._process_logits(logits, samp, greedy_only, presence,
-                                          frequency, ctrl,
+        sampled, _ = self._process_logits(logits, samp, greedy_only,
+                                          self._penalties(presence, frequency),
+                                          self._ctrl(ctrl),
                                           self._grammar(g_ids, g_states))
         if presence is not None:
             S = sampled.shape[0]
@@ -872,57 +996,127 @@ class ModelRunner:
         grammar = (None if g_ids is None
                    else self._grammar(g_ids, np.zeros(P, np.int32)))
         sampled, _ = self._process_logits(logits, samp, greedy_only, None,
-                                          None, ctrl, grammar)
+                                          self._ctrl(ctrl), grammar)
         return (sampled, *compute_logprobs(logits, sampled))
 
-    @torch.inference_mode()
-    def decode_multi(self, tokens, positions, block_tables, context_lens,
-                     slot_mapping, temps, top_ps, top_ks, seeds, steps,
-                     greedy_only: bool = False, presence=None, frequency=None,
-                     ctrl=None, want_logprobs: bool = False,
-                     adapter_ids=None, g_ids=None, g_states=None):
-        """``multi_step`` fused decode+sample iterations over the (S,)
-        decode batch. The token sampled at iteration i feeds iteration
-        i + 1 on the device; positions, context lengths and slots advance
-        there too (the scheduler allocated ``multi_step`` tokens of block
-        capacity), and so does each guided row's FSM state, from the
-        transition row its token was sampled from. adapter_ids (S,) each
-        row's adapter; g_ids / g_states (S,) each row's grammar slot (-1 =
-        none) and FSM state at the first iteration. Returns host arrays:
-        sampled (K, S), plus (tok_lp (K, S), ids (K, S, N), lps (K, S, N))
-        with ``want_logprobs``."""
-        bs = self.config.cache.block_size
-        K = max(self.config.scheduler.multi_step, 1)
-        bt = self._dev(block_tables)
-        ctx = self._dev(context_lens)
-        active = ctx > 0
-        tok = self._dev(tokens)
-        pos = self._dev(positions)
-        slots = self._dev(slot_mapping)
-        samp = list(self._sampling_inputs(temps, top_ps, top_ks, seeds, steps))
-        if presence is not None:
+    # -- the decode step ----------------------------------------------------
+    def decode_key(self, context_lens, greedy_only: bool = False,
+                   penalties: bool = False, controls: bool = False,
+                   lora: bool = False, grammar: bool = False,
+                   logprobs: bool = False) -> DecodeKey:
+        """The graph key of a decode step: its flags and the plan ladder's
+        rung that holds its longest context at the last iteration."""
+        K = self.decode_steps
+        need = int(np.asarray(context_lens).max(initial=0)) + K - 1
+        return DecodeKey(
+            bool(greedy_only), bool(penalties), bool(controls),
+            tuple(sorted(self.lora_bank)) if lora else None, bool(grammar),
+            bool(logprobs), K, ladder_rung(self.decode_rungs, need))
+
+    def _plan(self, key: DecodeKey) -> tuple[int, int]:
+        """K3's split plan at the key's rung, for every slot of the batch:
+        a function of the rung alone, so one graph a rung."""
+        return split_plan(key.rung, self.config.scheduler.max_num_seqs,
+                          self.cfg.num_kv_heads)
+
+    def decode_program(self, key: DecodeKey, plan) -> Optional[object]:
+        """The graph of ``key``, captured at its first use; None where the
+        step runs eagerly (the CPU, or ``decode_graphs`` off). Wrapped by
+        the compile tracker: a new key is a compile event."""
+        if self.graphs is None:
+            return None
+        entry = self.graphs.entries.get(key)
+        return entry if entry is not None else self._capture(key, plan)
+
+    def _capture(self, key: DecodeKey, plan):
+        """Capture ``key``'s graph from a batch without live rows, so the
+        eager warm-up run before the capture writes no KV and counts no
+        token; the caller stages the step's inputs after it."""
+        if self.graphs.entries and self.kv is not self._graphed_kv:
+            raise RuntimeError("the KV pool moved under the decode graphs")
+        self._graphed_kv = self.kv
+        if key.penalties:
             self._ensure_counts()
-        lora = self._lora(adapter_ids)
-        grammar = self._grammar(g_ids, g_states)
+        if key.grammar:
+            self._ensure_grammar_bank()
+        self.decode_inputs.clear()
+        return self.graphs.capture(key, lambda: self._decode_body(key, plan))
+
+    def warm_decode_graphs(self) -> int:
+        """Every decode key serving can reach without an adapter: each
+        rung of the plan ladder x greedy or sampled x penalties x token
+        controls x grammar x logprobs, through ``decode_program`` (on the
+        card a capture each; eagerly a compile-tracker key each). Returns
+        the number of keys."""
+        keys = [DecodeKey(g, p, c, None, gr, lp, self.decode_steps, r)
+                for r in self.decode_rungs
+                for g, p, c, gr, lp in itertools.product((False, True),
+                                                         repeat=5)]
+        for key in keys:
+            self.decode_program(key, self._plan(key))
+        self._settle_captures()
+        return len(keys)
+
+    def _settle_captures(self) -> None:
+        """Return what the warm-up runs on the capture stream left in
+        PyTorch's cache to the card."""
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def _drop_graphs(self) -> None:
+        """Release every decode graph before the memory a graph reads
+        goes (the KV pool, the weights, cuBLAS's workspaces); keep the
+        keys for ``_recapture``."""
+        if self.graphs is not None and len(self.graphs):
+            self._held_keys += [k for k in self.graphs.drop_all()
+                                if k not in self._held_keys]
+        self._graphed_kv = None
+
+    def _recapture(self) -> None:
+        """At wake: capture again every key sleep dropped, once the pool
+        and the weights are back, so live traffic pays no capture."""
+        if self.graphs is None or self.kv is None or self.params is None:
+            return
+        keys, self._held_keys = self._held_keys, []
+        for key in keys:
+            self._capture(key, self._plan(key))
+        self._settle_captures()
+
+    def _decode_body(self, key: DecodeKey, plan) -> list:
+        """``key.steps`` decode+sample iterations over the static inputs
+        (``decode_inputs``): what a decode graph captures, and what the
+        eager step runs. Returns [sampled (K, S)(, tok_lp (K, S), ids (K,
+        S, N), lps (K, S, N)), next_tok (S,)], next_tok being each row's
+        token after the last iteration (the input of a chained
+        dispatch)."""
+        inp = self.decode_inputs.views
+        bs = self.config.cache.block_size
+        bt, ctx = inp["block_tables"], inp["context_lens"]
+        active = ctx > 0
+        tok, pos, slots = inp["tokens"], inp["positions"], inp["slot_mapping"]
+        samp = [inp["temps"], inp["top_ps"], inp["top_ks"], inp["seeds"],
+                inp["steps"]]
+        penalties = ((inp["presence"], inp["frequency"]) if key.penalties
+                     else None)
+        ctrl = ((inp["ctrl_ids"], inp["ctrl_vals"], inp["ctrl_mode"])
+                if key.controls else None)
+        lora = (self._lora_of(inp["adapter_ids"]) if key.lora is not None
+                else None)
+        grammar = [inp["g_ids"], inp["g_states"]] if key.grammar else None
         S = tok.shape[0]
         rows = torch.arange(S, device=self.device)
-        # K3's split plan, fixed for the step from the host's context
-        # lengths: contexts grow on the device by one an iteration, and
-        # each of K3's CTAs reads its own from ``ctx``
-        lens = np.asarray(context_lens)
-        plan = split_plan(int(lens.max(initial=0)) + K,
-                          int(np.count_nonzero(lens)), self.cfg.num_kv_heads)
+        kv = self.kv
         outs = []
-        for _ in range(K):
+        for _ in range(key.steps):
             meta = {"block_tables": bt, "context_lens": ctx,
                     "slot_mapping": slots, "plan": plan}
             hidden = self._forward(self._attend_decode, tok, pos, meta, lora)
             logits = self.model.logits_from_hidden(self.cfg, self.params,
                                                    hidden)
             sampled, row_t = self._process_logits(
-                logits, samp, greedy_only, presence, frequency, ctrl, grammar)
+                logits, samp, key.greedy, penalties, ctrl, grammar)
             step_out = [sampled]
-            if want_logprobs:
+            if key.logprobs:
                 step_out += compute_logprobs(logits, sampled)
             outs.append(step_out)
             if grammar is not None:
@@ -942,9 +1136,73 @@ class ModelRunner:
             pos = new_pos
             tok = torch.where(active, sampled, tok)
             samp[4] = samp[4] + 1
-            if presence is not None:
+            if penalties is not None:
                 self.token_counts.index_put_(
                     (rows, sampled.long()), active.to(torch.int32),
                     accumulate=True)
-        stacked = [torch.stack(col).cpu().numpy() for col in zip(*outs)]
-        return tuple(stacked) if want_logprobs else stacked[0]
+        if self.kv is not kv:
+            raise RuntimeError("the KV pool moved during a decode step")
+        return [torch.stack(col) for col in zip(*outs)] + [tok]
+
+    @torch.inference_mode()
+    def decode_multi(self, tokens, positions, block_tables, context_lens,
+                     slot_mapping, temps, top_ps, top_ks, seeds, steps,
+                     greedy_only: bool = False, presence=None, frequency=None,
+                     ctrl=None, want_logprobs: bool = False,
+                     adapter_ids=None, g_ids=None, g_states=None,
+                     tokens_dev=None, fetch: bool = True):
+        """``multi_step`` fused decode+sample iterations over the (S,)
+        decode batch. The token sampled at iteration i feeds iteration
+        i + 1 on the device; positions, context lengths and slots advance
+        there too (the scheduler allocated ``multi_step`` tokens of block
+        capacity), and so does each guided row's FSM state, from the
+        transition row its token was sampled from. adapter_ids (S,) each
+        row's adapter; g_ids / g_states (S,) each row's grammar slot (-1 =
+        none) and FSM state at the first iteration.
+
+        The host arrays go up in one copy into ``decode_inputs``; then the
+        key's graph replays, or the body runs eagerly. ``tokens_dev``
+        feeds the batch's input tokens from the previous dispatch's
+        device-resident ``next_tok`` instead of ``tokens``. Returns host
+        arrays: sampled (K, S), plus (tok_lp (K, S), ids (K, S, N), lps
+        (K, S, N)) with ``want_logprobs``; with ``fetch=False`` (no
+        logprobs) returns (a ``Deferred`` of sampled, next_tok (S,)), both
+        copies that no later step overwrites."""
+        key = self.decode_key(
+            context_lens, greedy_only, presence is not None,
+            ctrl is not None,
+            adapter_ids is not None and self.lora_bank is not None,
+            g_ids is not None and self.grammar_bank is not None,
+            want_logprobs)
+        plan = self._plan(key)
+        if key.penalties:
+            self._ensure_counts()
+        entry = self.decode_program(key, plan)
+        none = ctrl is None
+        self.decode_inputs.stage({
+            "tokens": tokens, "positions": positions,
+            "block_tables": block_tables, "context_lens": context_lens,
+            "slot_mapping": slot_mapping, "temps": temps, "top_ps": top_ps,
+            "top_ks": top_ks, "seeds": seeds, "steps": steps,
+            "presence": 0.0 if presence is None else presence,
+            "frequency": 0.0 if frequency is None else frequency,
+            "ctrl_ids": -1 if none else ctrl[0],
+            "ctrl_vals": 0.0 if none else ctrl[1],
+            "ctrl_mode": 0 if none else ctrl[2],
+            "adapter_ids": 0 if adapter_ids is None else adapter_ids,
+            "g_ids": -1 if g_ids is None else g_ids,
+            "g_states": 0 if g_states is None else g_states})
+        if tokens_dev is not None:
+            self.decode_inputs.views["tokens"].copy_(tokens_dev)
+        if entry is None:
+            outs = self._decode_body(key, plan)
+        else:
+            if self.kv is not self._graphed_kv:
+                raise RuntimeError("the KV pool moved under the decode "
+                                   "graphs")
+            entry.replay()
+            outs = entry.outputs
+        if not fetch:
+            return Deferred(outs[:1]), outs[-1].clone()
+        got = Deferred(outs[:-1]).result()
+        return tuple(got) if want_logprobs else got[0]

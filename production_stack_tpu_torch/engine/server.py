@@ -110,7 +110,9 @@ Observability, as the reference's:
   journals the accountant's marks every interval and once at drain, in the
   reference's record schema; ``/debug/perf`` shows its health.
 - ``--config file.yaml`` (yaml_args.py) sets flags from a file; explicit
-  flags win.
+  flags win. Two keys have no flag, as the reference's server has none:
+  ``chain_decode`` (default false) and ``decode_graphs`` (default true,
+  on a CUDA device).
 
 Response bodies have the JAX server's shape, so the same router can front
 either engine.
@@ -3323,6 +3325,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="YAML file of flag values (keys = flag names); "
                         "explicit flags win (yaml_args.py; needs PyYAML "
                         "only when given)")
+    # scheduler switches the reference's server has no flag for: only a
+    # --config file sets them (yaml_args.py, config-only keys)
+    p.set_defaults(chain_decode=False, decode_graphs=True)
     return p
 
 
@@ -3343,7 +3348,8 @@ def config_from_args(args) -> EngineConfig:
         cache.block_size = args.block_size
     if args.num_blocks is not None:
         cache.num_blocks = args.num_blocks
-    sched = SchedulerConfig()
+    sched = SchedulerConfig(chain_decode=args.chain_decode,
+                            decode_graphs=args.decode_graphs)
     if args.max_num_seqs is not None:
         sched.max_num_seqs = args.max_num_seqs
     if args.max_num_batched_tokens is not None:

@@ -44,11 +44,32 @@ _lock = threading.Lock()
 class LaunchCounter:
     """Launches of one kernel since the last reset. A wrapper adds one
     where it launches its kernel and nowhere else, so a run can show that
-    its main path went through the kernel."""
+    its main path went through the kernel. A wrapper called while a CUDA
+    graph is captured launches nothing: the graph cache
+    (engine/step_graphs.py) takes back what the capture added
+    (``launch_counts``, ``restore_counts``) and adds it at every replay."""
 
     def __init__(self, name: str):
         self.name = name
         self.n = 0
+        COUNTERS.append(self)
+
+
+# every kernel's counter, in the order the wrappers were imported
+COUNTERS: list[LaunchCounter] = []
+
+
+def launch_counts() -> dict[LaunchCounter, int]:
+    return {c: c.n for c in COUNTERS}
+
+
+def restore_counts(counts: dict[LaunchCounter, int]) -> dict:
+    """Set each counter back to ``counts``; returns what each had gained
+    since (the counters that gained nothing are left out)."""
+    gained = {c: c.n - n for c, n in counts.items() if c.n != n}
+    for c, n in counts.items():
+        c.n = n
+    return gained
 
 
 def _nvcc() -> str:

@@ -13,7 +13,9 @@ bf16 runs the split-KV walk of ``csrc/split_decode.cuh``: a CTA owns one
 of the context, and with more than one split a second launch merges the
 splits' float32 partials (scratch allocated here). ``split_plan`` fixes
 (n_splits, span) from host context lengths; the model runner calls it once
-a step, and each CTA reads its own length from ``context_lens`` on the
+a step, at the rung of ``plan_ladder`` that holds the step's longest
+context and for every slot of the batch, so a step's plan depends on its
+rung alone; each CTA reads its own length from ``context_lens`` on the
 device. float32 keeps the CUDA-core walk and takes no plan.
 """
 
@@ -44,6 +46,8 @@ TARGET_CTAS = 2 * 132
 # different lengths then finish together (chip_smoke.py's split-span
 # sweeps, PERF.md)
 BALANCE_SPAN = 512
+# the plan ladder's lowest rung (plan_ladder)
+LADDER_BASE = 256
 
 _argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
@@ -85,6 +89,30 @@ def split_plan(max_ctx: int, n_items: int, num_kv_heads: int,
         raise ValueError(f"paged_decode_attention: split span {span} is not "
                          f"a positive multiple of {SPAN_GRANULE}")
     return max(1, -(-max_ctx // span)), span
+
+
+def plan_ladder(top: int) -> list[int]:
+    """The rungs of the decode step's plan ladder for contexts up to
+    ``top`` positions: powers of two from LADDER_BASE below ``top``, then
+    ``top`` rounded up to SPAN_GRANULE. A decode step runs at the smallest
+    rung that holds its longest context, with one split plan a rung
+    (``split_plan(rung, ...)``), so a CUDA graph that bakes the plan into
+    K3's grid is captured once a rung and not once a plan."""
+    rungs = []
+    r = LADDER_BASE
+    while r < top:
+        rungs.append(r)
+        r *= 2
+    return rungs + [max(-(-top // SPAN_GRANULE) * SPAN_GRANULE, LADDER_BASE)]
+
+
+def ladder_rung(rungs: list[int], need: int) -> int:
+    """The smallest rung of ``rungs`` holding ``need`` positions."""
+    for r in rungs:
+        if r >= need:
+            return r
+    raise ValueError(f"paged_decode_attention: a context of {need} "
+                     f"positions is past the plan ladder's top {rungs[-1]}")
 
 
 def paged_decode_attention_plain(

@@ -1,5 +1,7 @@
 """YAML config files for argparse command lines: ``--config file.yaml``.
-A copy of production_stack_tpu/yaml_args.py.
+A copy of production_stack_tpu/yaml_args.py, plus config-only keys: a
+parser default set with ``set_defaults`` and no flag (the port's
+``chain_decode`` and ``decode_graphs``) takes a boolean from the file.
 
 File entries are rewritten into synthetic argv PREPENDED to the real one,
 so argparse's own type and choices validation applies to file values
@@ -39,9 +41,16 @@ def parse_with_yaml_config(parser: argparse.ArgumentParser,
     actions = {a.dest: a for a in parser._actions
                if a.dest not in ("config", "help")}
     synthetic: list[str] = []
+    only_file: dict = {}
     for key, value in loaded.items():
         dest = str(key).replace("-", "_")
         action = actions.get(dest)
+        if action is None and isinstance(parser.get_default(dest), bool):
+            if not isinstance(value, bool):
+                parser.error(f"--config {pre.config}: {key!r} expects a "
+                             "boolean")
+            only_file[dest] = value
+            continue
         if action is None:
             parser.error(f"--config {pre.config}: unknown option {key!r}")
         flag = action.option_strings[-1]
@@ -60,4 +69,7 @@ def parse_with_yaml_config(parser: argparse.ArgumentParser,
         else:
             synthetic += [flag, str(value)]
     # file values first, flags last: later occurrences win in argparse
-    return parser.parse_args(synthetic + argv)
+    args = parser.parse_args(synthetic + argv)
+    for dest, value in only_file.items():
+        setattr(args, dest, value)
+    return args

@@ -741,3 +741,115 @@ def test_whisper_server_refuses_cuda_without_a_card(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         server_from_args(build_parser().parse_args(
             ["--model", "tiny-whisper"]))
+
+
+# -- the decode step as CUDA graphs -------------------------------------------
+
+def _graph_config(impl="ragged", graphs=True, chain=False):
+    from production_stack_tpu_torch.engine.config import (
+        CacheConfig,
+        EngineConfig,
+        SchedulerConfig,
+    )
+
+    return EngineConfig.for_model(
+        "tiny-llama", dtype="bfloat16",
+        cache=CacheConfig(block_size=16, num_blocks=256),
+        scheduler=SchedulerConfig(max_num_seqs=8, max_num_batched_tokens=64,
+                                  prefill_buckets=(32, 64), multi_step=2,
+                                  decode_graphs=graphs, chain_decode=chain),
+        attention_impl=impl)
+
+
+def _graph_engine(cuda, impl="ragged", graphs=True, chain=False):
+    """bf16 tiny-llama with weights from seed 0, made on the card."""
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+
+    return LLMEngine(_graph_config(impl, graphs, chain), device=cuda)
+
+
+def _graph_wave(eng, lora=None, logprobs=2):
+    """Eight requests in two waves, the first of contexts under the plan
+    ladder's 256 rung and the second over it (prompts up to 300 tokens, 24
+    out): greedy, seeded sampling, penalties, a logit bias, a grammar and,
+    with ``lora``, an adapter. Returns each request's tokens and logprob
+    entries."""
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    rng = np.random.default_rng(7)
+    kinds = [dict(temperature=0.0), dict(temperature=0.8, seed=3, top_k=40),
+             dict(temperature=0.0, presence_penalty=0.4),
+             dict(temperature=0.7, seed=5, frequency_penalty=0.3),
+             dict(temperature=0.0, logit_bias={5: 3.0, 17: -2.0}),
+             dict(temperature=0.0, guided_regex="[a-z ]{8,40}"),
+             dict(temperature=0.9, seed=11), dict(temperature=0.0)]
+    out = {}
+    for wave in ((9, 140, 30, 33), (250, 5, 120, 280)):
+        for n in wave:
+            i = len(out)
+            kw = kinds[i]
+            eng.add_request(str(i), prompt_token_ids=rng.integers(
+                0, 259, n).tolist(), sampling=SamplingParams(
+                    max_tokens=24, ignore_eos="guided_regex" not in kw,
+                    logprobs=logprobs, **kw),
+                adapter_slot=1 if lora and i % 3 == 0 else 0)
+            out[str(i)] = ([], [])
+        while eng.has_unfinished():
+            for o in eng.step():
+                out[o.request_id][0].extend(o.new_token_ids)
+                out[o.request_id][1].extend(o.new_logprobs or ())
+    return out
+
+
+def _adapter(cfg, rank=8):
+    from production_stack_tpu_torch.engine.lora import target_shapes
+
+    rng = np.random.default_rng(3)
+    L = cfg.num_layers
+    return {t: (rng.normal(0, 0.1, (L, i, rank)).astype(np.float32),
+                rng.normal(0, 0.1, (L, rank, *o)).astype(np.float32))
+            for t, (i, o) in target_shapes(cfg).items()}
+
+
+@pytest.mark.parametrize("impl", ["ragged", "bucketed"])
+def test_decode_graphs_equal_eager_bit_for_bit(cuda, impl):
+    """bf16 tiny-llama on the card: the graphed decode step gives the eager
+    step's tokens and logprobs bit for bit over every flag variant and
+    two rungs, and K1 and K3 launch through the replays."""
+    runs = {}
+    for graphs in (False, True):
+        eng = _graph_engine(cuda, impl, graphs)
+        eng.runner.register_lora(1, _adapter(eng.config.model))
+        before = (k1.LAUNCHES.n, k3.LAUNCHES.n)
+        runs[graphs] = _graph_wave(eng, lora=True)
+        after = (k1.LAUNCHES.n, k3.LAUNCHES.n)
+        assert all(a > b for a, b in zip(after, before))
+        if graphs:
+            keys = set(eng.runner.graphs.entries)
+            assert {k.rung for k in keys} == {256, 512}
+            assert any(k.lora for k in keys) and any(k.grammar for k in keys)
+            assert eng.runner.graphs.captures == len(keys)
+        else:
+            assert eng.runner.graphs is None
+    assert runs[True] == runs[False]
+
+
+def test_no_capture_after_warmup_on_a_mixed_run(cuda):
+    eng = _graph_engine(cuda)
+    eng.warmup()
+    graphs = eng.runner.graphs
+    n = graphs.captures
+    assert len(graphs) == n == 32 * len(eng.runner.decode_rungs)
+    _graph_wave(eng, logprobs=None)
+    _graph_wave(eng)
+    assert graphs.captures == n
+    assert eng.perf.stats_fields()["unexpected_recompiles"] == 0
+
+
+def test_chained_graphs_equal_unchained(cuda):
+    runs = {}
+    for chain in (False, True):
+        eng = _graph_engine(cuda, chain=chain)
+        runs[chain] = _graph_wave(eng, logprobs=None)
+        assert eng._pending_decode is None
+    assert runs[True] == runs[False]

@@ -313,8 +313,8 @@ def test_decode_geometry_matches_the_cuda_source():
 def test_runner_makes_its_work_map_and_plan_once_a_step(monkeypatch,
                                                         multi_step):
     """ragged_step makes one work map a step, decode_multi one split plan a
-    step (for the step's contexts plus multi_step), whatever the layer
-    count."""
+    step (at the plan ladder's rung that holds the step's contexts plus
+    multi_step), whatever the layer count."""
     calls = {"map": 0, "plan": []}
     make_map, make_plan = model_runner.ragged_work_map, model_runner.split_plan
 
@@ -339,3 +339,4 @@ def test_runner_makes_its_work_map_and_plan_once_a_step(monkeypatch,
     assert calls["map"] == eng.ragged_dispatches > 0
     assert len(calls["plan"]) == eng.decode_dispatches > 0
     assert all(c > multi_step for c in calls["plan"])
+    assert set(calls["plan"]) <= set(eng.runner.decode_rungs)
