@@ -257,18 +257,41 @@ fatal):
    4 live of 64 at 8192), each checked against the plain version first.
    K1, K2 and K3 launch (K1 and K3 counted through the replays), K4 not.
 
+15. Tensor parallelism (``tp2``): llama-3-8b bf16 at full width and
+   depth, seed 0, prefix cache off, decode eager, 2048 KV blocks a rank,
+   at tensor-parallel size 2 with both ranks on this card over gloo
+   (NCCL refuses two ranks on one card). The tp 1 engine of each path
+   runs first and is released before the ranks start. (a) 16 greedy
+   prompts (64-1024 tokens, 32 out, logprobs 2) on the ragged path, then
+   the bucketed path: tokens equal tp 1's up to a near-tie, logprobs
+   within max(``BF16_LOGPROB_BAND``, twice tp 1's own repeat deviation);
+   the follower's token digest and call count equal rank 0's exactly, and
+   it launched the same kernels as many times. (b) K1-K4 at the shard's
+   shapes (H 16, KH 4, D 128), against their plain versions as in phase
+   3, with times, bounds and library calls (each kernel's record carries
+   them under ``also``). (c) The server in a fresh process
+   (``chip_smoke.py --tp-server PORT``, ``server.main`` with both ranks on
+   cuda:0 over gloo): 8 concurrent requests answer 200 with their 16
+   tokens; after SIGTERM, no rank's process is alive within 10 s. Then
+   ``--tensor-parallel-size 2`` on the command line (rank r on cuda:r)
+   exits non-zero naming the card count. (d) Printed, not judged: an
+   eager 64-row decode step and a 2048-token ragged step at tp 2 beside
+   tp 1, and the phase's seconds: two ranks share one card over gloo, so
+   none of these is a tensor-parallel speed. K1-K4 launch (K2 on the
+   ragged path, K4 on the bucketed one).
+
 Phases 4-14 run with decode graphs on, the default; phase 5's bf16 run
 through the plain versions decodes eagerly (a plain version synchronises
-with the host, which a capture cannot hold).
+with the host, which a capture cannot hold), and so does phase 15 (a
+gloo collective cannot be captured).
 
 The line before the card line carries the kernels' JSON record, whose
 ``launches`` sum each kernel's launches over every served path (each
 path's own counts are in ``launches_by_path``, ``moe-int8``, ``kv-plane``,
-``scoring-surface``, ``whisper``, ``overload``, ``observability`` and
-``decode-graphs`` among them; a graph replay adds the launches its
-capture recorded);
-the last line is ``{"ok":
-true, "device": {...}}``.
+``scoring-surface``, ``whisper``, ``overload``, ``observability``,
+``decode-graphs`` and ``tp2`` (rank 0's) among them; a graph replay adds
+the launches its capture recorded); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -5666,6 +5689,406 @@ def decode_graphs_phase(torch, np, counters, card: str) -> dict:
     return launches
 
 
+# -- phase 15: tensor parallelism, two ranks sharing one card -----------------
+
+TP_NOTE = "two ranks share one card over gloo: not a TP speed"
+TP_BLOCKS = 2048
+
+
+def _tp_engine(impl: str, tp: int):
+    """llama-3-8b bf16, seed 0, ``impl``, prefix cache off (a repeated run
+    must prefill as the first did), decode eager, ``TP_BLOCKS`` blocks a
+    rank; at tp 2 both ranks on cuda:0 over gloo."""
+    from production_stack_tpu_torch.engine.config import (
+        CacheConfig,
+        EngineConfig,
+        SchedulerConfig,
+    )
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.parallel.mesh import MeshConfig
+
+    cfg = EngineConfig.for_model(
+        "llama-3-8b", seed=0, attention_impl=impl,
+        cache=CacheConfig(enable_prefix_caching=False, num_blocks=TP_BLOCKS),
+        scheduler=SchedulerConfig(decode_graphs=False),
+        mesh=MeshConfig(tensor=tp))
+    return LLMEngine(cfg, device="cuda",
+                     rank_devices=["cuda:0"] * tp if tp > 1 else None,
+                     backend="gloo" if tp > 1 else None)
+
+
+def _tp_prompts(np) -> list:
+    rng = np.random.default_rng(15)
+    return [rng.integers(0, 32000, int(n)).tolist()
+            for n in rng.integers(64, 1025, 16)]
+
+
+def _tp_collective_clock(torch, ranks) -> list:
+    """Time rank 0's collectives: ``ranks``' all-reduce and all-gather
+    add their host wall (synchronised on both sides) to the returned
+    cell until ``del``eted from the instance."""
+    spent = [0.0]
+    for name in ("all_reduce", "all_gather_last"):
+        def timed(x, _fn=getattr(ranks, name)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = _fn(x)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            return y
+        setattr(ranks, name, timed)
+    return spent
+
+
+def _tp_steps(torch, np, eng, card: str, label: str) -> dict:
+    """(d) An eager decode step at 64 rows (~130-token contexts) and a
+    2048-token ragged step, host wall to a synchronise, three each; at tp
+    2 also the share of it rank 0 spends in collectives."""
+    rng = np.random.default_rng(16)
+    ranks = eng.runner.ranks
+    spent = [0.0] if ranks is None else _tp_collective_clock(torch, ranks)
+
+    def timed_step() -> tuple:
+        spent[0] = 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, spent[0] * 1e3
+
+    _dg_admit(np, eng, rng, f"{label}-d", 64, 128, 64)
+    decode = [timed_step() for _ in range(3)]
+    _dg_clear(eng)
+    ragged = []
+    for i in range(3):
+        _add_requests(eng, rng, f"{label}-r{i}-", 1, 2048, 1)
+        ragged.append(timed_step())
+        _dg_clear(eng)
+    if ranks is not None:
+        del ranks.all_reduce, ranks.all_gather_last
+    out = {"decode_64_ms": statistics.median(t for t, _ in decode),
+           "decode_64_collective_ms": statistics.median(c for _, c in decode),
+           "ragged_2048_ms": statistics.median(t for t, _ in ragged),
+           "ragged_2048_collective_ms": statistics.median(
+               c for _, c in ragged)}
+    log(f"[tp] (d) {label} ({card}; {TP_NOTE}): {json.dumps(out)}")
+    return out
+
+
+def _tp_kernels(torch, np, card: str) -> dict:
+    """(b) K1-K4 at a tp 2 shard of llama-3-8b (H 16, KH 4, D 128) against
+    their plain versions, NaN in every unwritten pool slot, with their
+    times, bounds and library calls; returns each kernel's record."""
+    from production_stack_tpu_torch.engine.config import ModelConfig
+    from production_stack_tpu_torch.ops import kv_write as k1
+
+    cfg = dataclasses.replace(ModelConfig.from_pretrained("llama-3-8b"),
+                              num_heads=16, num_kv_heads=4)
+    H, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    T, S, bs, layer = 2048, 64, 16, 1
+    M = (-(-cfg.max_model_len // bs) + 7) // 8 * 8
+    rng = np.random.default_rng(17)
+    spans = [(0, 512, 512), (3, 700, 1200), (7, 300, 300), (9, 1, 1)]
+    spans += [(s, 1, int(rng.integers(1, 2048))) for s in range(10, S)
+              if s % 5]
+    spans.sort()
+    pool, dev, spans = make_stream(rng, spans, T, S, M, bs, 2 * KH, D,
+                                   torch.bfloat16, torch, layer=layer)
+    live = int(dev["cu"][-1])
+    newkv = torch.randn((T, 2 * KH, D), dtype=torch.bfloat16, device="cuda")
+    ref_pool = pool.clone()
+    k1.kv_write(pool, newkv, dev["slots"], layer)
+    k1.kv_write_plain(ref_pool, newkv, dev["slots"], layer)
+    torch.cuda.synchronize()
+    if not torch.equal(pool.view(torch.int16), ref_pool.view(torch.int16)):
+        raise AssertionError("[tp] (b) K1 at the shard: pool differs")
+    keep = dev["slots"] >= 0
+    idx, src = dev["slots"][keep].long(), newkv[keep]
+    flat = ref_pool[layer].view(-1, 2 * KH, D)
+    b_ms, b_by = bound(2 * live * 2 * KH * D * 2 + T * 4, 0, BF16_FLOPS)
+    recs = {"K1": {
+        "shape": f"tp 2 shard: T={T}, {live} live slots, 2KH={2 * KH}",
+        "max_abs_err": 0.0, "bound_ms": b_ms, "bound_by": b_by,
+        "ms": time_ms(torch, lambda: k1.kv_write(pool, newkv, dev["slots"],
+                                                 layer), 200),
+        "plain_ms": time_ms(torch, lambda: k1.kv_write_plain(
+            ref_pool, newkv, dev["slots"], layer), 20, graph=False),
+        "library_ms": time_ms(torch, lambda: flat.index_copy_(0, idx, src),
+                              200)}}
+    del ref_pool
+    q = torch.randn((T, H, D), dtype=torch.bfloat16, device="cuda")
+    recs["K2"] = ragged_measure(torch, card, "tp 2 shard, mixed stream",
+                                pool, dev, spans, q, layer, H, KH, D, S, bs,
+                                T)
+    del pool, q
+    lens = [0 if b % 9 == 0 else int(rng.integers(1, 2049))
+            for b in range(S)]
+    recs["K3"] = decode_measure(torch, card, f"tp 2 shard, B={S}", rng, lens,
+                                H, KH, D, M, bs, layer)
+    recs["K4"] = prefill_kernel_phase(torch, np, card, rng, cfg, M)
+    recs["K4"]["shape"] = "tp 2 shard: " + recs["K4"]["shape"]
+    for key, r in recs.items():
+        log(f"[tp] (b) {key} at H {H}, KH {KH}, D {D} ({r['shape']}): "
+            f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}, plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']}, max abs err {r['max_abs_err']:.3e} ({card})")
+    torch.cuda.empty_cache()
+    return {k: {f: r[f] for f in ALSO_KEYS if f in r} for k, r in recs.items()}
+
+
+def tp_server_child(argv: list) -> int:
+    """``--tp-server PORT``: llama-3-8b at tensor-parallel size 2, both
+    ranks on cuda:0 over gloo, through the server's own entry point
+    (``server.main``: SIGTERM drains, then the process exits)."""
+    sys.path.insert(0, str(ROOT))
+    from production_stack_tpu_torch.engine import server
+
+    server.main(["--model", "llama-3-8b", "--host", "127.0.0.1", "--port",
+                 argv[0], "--tensor-parallel-size", "2", "--num-blocks",
+                 "1024", "--max-num-seqs", "16", "--skip-warmup"],
+                rank_devices=["cuda:0", "cuda:0"], backend="gloo")
+    return 0
+
+
+def _pid_alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] not in ("Z", "X")
+    except (FileNotFoundError, IndexError):
+        return False
+
+
+def _tp_server(np, card: str) -> dict:
+    """(c) The server in a fresh process at tp 2 on this card: 8
+    concurrent requests answer 200 with their tokens; after SIGTERM no
+    rank's process is alive within 10 s. Then ``--tensor-parallel-size 2``
+    from the command line, ranks on cuda:r, exits non-zero naming the
+    card count."""
+    import os
+    import signal
+    import tempfile
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    base = f"http://127.0.0.1:{port}"
+    logf = tempfile.TemporaryFile()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                             "--tp-server", str(port)], cwd=ROOT,
+                            stdout=logf, stderr=subprocess.STDOUT)
+
+    def server_log() -> str:
+        logf.seek(0)
+        return logf.read().decode(errors="replace")[-3000:]
+
+    pids = []
+    try:
+        while True:
+            try:
+                status, _, raw = _http(base, "/debug/perf")
+                break
+            except (urllib.error.URLError, ConnectionError):
+                if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                    raise AssertionError(f"[tp] (c) the server did not come "
+                                         f"up (exit {proc.poll()}):\n"
+                                         f"{server_log()}")
+                time.sleep(0.5)
+        up = time.perf_counter() - t0
+        ranks = json.loads(raw)["ranks"]
+        pids = [proc.pid] + ranks["pids"][1:]
+        if ranks["size"] != 2 or ranks["decode_graphs"]:
+            raise AssertionError(f"[tp] (c) ranks {ranks}")
+        rng = np.random.default_rng(18)
+        bodies = [{"model": "llama-3-8b", "max_tokens": 16,
+                   "temperature": 0.0, "ignore_eos": True,
+                   "prompt": rng.integers(0, 32000, int(n)).tolist()}
+                  for n in rng.integers(32, 513, 8)]
+        t1 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(8) as ex:
+            outs = list(ex.map(lambda b: _request(
+                base + "/v1/completions", b, False), bodies))
+        wave = time.perf_counter() - t1
+        for status, n_out, _ in outs:
+            if status != 200 or n_out != 16:
+                raise AssertionError(f"[tp] (c) {status}, {n_out} tokens")
+        t_stop = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(60)
+        while any(_pid_alive(p) for p in pids[1:]):
+            if time.perf_counter() - t_stop > 10:
+                raise AssertionError(f"[tp] (c) ranks {pids} alive 10 s "
+                                     "after the stop")
+            time.sleep(0.05)
+        gone = time.perf_counter() - t_stop
+        if rc != 0:
+            raise AssertionError(f"[tp] (c) the server exited {rc}:\n"
+                                 f"{server_log()}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+        for p in pids[1:]:
+            if _pid_alive(p):
+                os.kill(p, signal.SIGKILL)
+        logf.close()
+    cli = subprocess.run(
+        [sys.executable, "-m", "production_stack_tpu_torch.engine.server",
+         "--model", "llama-3-8b", "--tensor-parallel-size", "2",
+         "--port", "0"], cwd=ROOT, capture_output=True, text=True,
+        timeout=300)
+    n = _card_count()
+    if cli.returncode == 0 or f"has {n} CUDA card" not in cli.stderr:
+        raise AssertionError(f"[tp] (c) the CLI at tp 2 on {n} card(s): rc "
+                             f"{cli.returncode}, {cli.stderr[-400:]}")
+    out = {"up_s": up, "wave_s": wave, "requests": len(outs),
+           "ranks_gone_s": gone, "exit": rc,
+           "cli_refusal": cli.stderr.strip().splitlines()[-1]}
+    log(f"[tp] (c) server ({card}; {TP_NOTE}): {json.dumps(out)}")
+    return out
+
+
+def _card_count() -> int:
+    import torch
+
+    return torch.cuda.device_count()
+
+
+def _tp_dev(ref: tuple, got: tuple) -> tuple:
+    """Two ``_greedy_tokens`` runs request by request: (tokens equal
+    before each request's first flip, the largest logprob deviation over
+    them, the flips as (request, step))."""
+    (ref_t, ref_l), (got_t, got_l) = ref, got
+    compared, worst, flips = 0, 0.0, []
+    for i in ref_t:
+        if len(got_t[i]) != len(ref_t[i]):
+            raise AssertionError(f"[tp] request {i}: {len(got_t[i])} "
+                                 f"tokens, want {len(ref_t[i])}")
+        n = next((j for j, (a, b) in enumerate(zip(ref_t[i], got_t[i]))
+                  if a != b), len(ref_t[i]))
+        worst = max([worst] + [abs(ref_l[i][j][0] - got_l[i][j][0])
+                               for j in range(n)])
+        compared += n
+        if n < len(ref_t[i]):
+            flips.append((i, n))
+    return compared, worst, flips
+
+
+def _tp_same(tag: str, ref: tuple, got: tuple, band: float) -> tuple:
+    """``got``'s greedy tokens (``_greedy_tokens``' runs) equal ``ref``'s
+    request by request up to a near-tie, as phase 9 holds them: at a flip
+    the two runs' logprobs of their own tokens differ by less than
+    ``band`` (a bf16 logit in [8, 16) moves in steps of 0.0625, so the two
+    candidates can swap places), and before it every logprob is within
+    ``band``. Returns (tokens compared, the largest deviation)."""
+    (ref_t, ref_l), (got_t, got_l) = ref, got
+    compared, worst, flips = _tp_dev(ref, got)
+    for i, n in flips:
+        if abs(ref_l[i][n][0] - got_l[i][n][0]) >= band:
+            raise AssertionError(
+                f"[tp] {tag}: request {i} step {n}: {got_t[i][n]} != "
+                f"{ref_t[i][n]}, logprobs {ref_l[i][n][0]:.4f} and "
+                f"{got_l[i][n][0]:.4f} (band {band:.4f})")
+        log(f"[tp] {tag}: near-tie at request {i} step {n} (logprobs "
+            f"{ref_l[i][n][0]:.4f}, {got_l[i][n][0]:.4f}; top-2 gap "
+            f"{ref_l[i][n][1]:.4f}); compared up to it")
+    if worst >= band:
+        raise AssertionError(f"[tp] {tag}: logprobs differ by {worst} "
+                             f"(band {band:.4f})")
+    return compared, worst
+
+
+def _tp_reference(torch, np, impl: str, card: str, prompts, sp) -> dict:
+    """The tp 1 engine on ``impl``, twice: its own repeat deviation sets
+    (a)'s band; on the ragged path (d)'s step times too. Released after."""
+    eng = _tp_engine(impl, 1)
+    ref = _greedy_tokens(eng, prompts, sp)
+    # the engine's own deviation: the same requests 2 at a time, so every
+    # prefill step runs in other shapes on both paths (an identical repeat
+    # is bit for bit, and 4 at a time is the bucketed path's own batch)
+    again = [_greedy_tokens(eng, prompts[k:k + 2], sp)
+             for k in range(0, len(prompts), 2)]
+    _, rep, _ = _tp_dev(ref, tuple(
+        {k + i: run[c][i] for k, run in zip(range(0, len(prompts), 2), again)
+         for i in run[c]} for c in (0, 1)))
+    steps = (_tp_steps(torch, np, eng, card, f"tp1-{impl}")
+             if impl == "ragged" else None)
+    del eng
+    _released(torch, f"tp1 {impl}")
+    return {"run": ref, "repeat_dev": rep, "steps": steps,
+            "band": max(BF16_LOGPROB_BAND, 2 * rep)}
+
+
+def _tp_identity(torch, np, impl: str, card: str, prompts, sp,
+                 ref: dict) -> dict:
+    """(a) tp 2 on ``impl``: tokens equal tp 1's up to a near-tie,
+    logprobs within the band, every follower's token digest rank 0's; on
+    the ragged path (d)'s step times too."""
+    t0 = time.perf_counter()
+    eng = _tp_engine(impl, 2)
+    up = time.perf_counter() - t0
+    try:
+        got = _greedy_tokens(eng, prompts, sp)
+        steps = (_tp_steps(torch, np, eng, card, f"tp2-{impl}")
+                 if impl == "ragged" else None)
+        reports = eng.runner.follower_reports()
+        collective = eng.perf.stats_fields()["collective_bytes"]
+    finally:
+        eng.close()
+    del eng
+    _released(torch, f"tp2 {impl}")
+    band = ref["band"]
+    compared, worst = _tp_same(f"(a) tp2 {impl}", ref["run"], got, band)
+    if (len({(r["calls"], r["digest"]) for r in reports}) != 1
+            or any(r["diverged_at"] is not None for r in reports)):
+        raise AssertionError(f"[tp] (a) {impl}: the ranks sampled other "
+                             f"tokens: {reports}")
+    out = {"tokens_compared": compared, "max_logprob_dev": worst,
+           "band": band, "tp1_repeat_dev": ref["repeat_dev"],
+           "tp2_up_s": up, "calls": reports[0]["calls"],
+           "accountant_collective_bytes": collective,
+           "steps": {"tp1": ref["steps"], "tp2": steps},
+           "follower_launches": reports[1]["launches"]}
+    log(f"[tp] (a) {impl} ({card}): tp 2 = tp 1 up to near-ties, the "
+        f"follower = rank 0 exactly: {json.dumps(out)}")
+    return out
+
+
+def tp_phase(torch, np, counters, card: str) -> dict:
+    """Phase 15: llama-3-8b at tensor-parallel size 2, both ranks on this
+    card over gloo. The tp 1 references first (released), then (a)
+    identity and (d) step times at tp 2 on the ragged and the bucketed
+    path, (b) K1-K4 at the shard's shapes, (c) the server in a fresh
+    process and the CLI's refusal. Returns rank 0's launches at tp 2 and
+    the kernels' shard records."""
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    t_phase = time.perf_counter()
+    prompts = _tp_prompts(np)
+    sp = SamplingParams(temperature=0.0, max_tokens=32, ignore_eos=True,
+                        logprobs=2)
+    refs = {impl: _tp_reference(torch, np, impl, card, prompts, sp)
+            for impl in ("ragged", "bucketed")}
+    for ctr in counters:
+        ctr.n = 0
+    out = {impl: _tp_identity(torch, np, impl, card, prompts, sp, ref)
+           for impl, ref in refs.items()}
+    launches = {ctr.name.split()[0]: ctr.n for ctr in counters}
+    _expect(launches, {"K1", "K2", "K3", "K4"}, "tp2")
+    follower = {k: sum(run["follower_launches"].get(k, 0)
+                       for run in out.values()) for k in launches}
+    log(f"[tp] launches at tp 2 ({card}), rank 0: {json.dumps(launches)}; "
+        f"rank 1: {json.dumps(follower)}")
+    if follower != launches:
+        raise AssertionError("[tp] rank 1 launched other kernels than "
+                             "rank 0")
+    shard = _tp_kernels(torch, np, card)
+    out["c_server"] = _tp_server(np, card)
+    log(f"[tp] phase 15 ({card}) in {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "follower_launches": follower,
+            "shard": shard}
+
+
 def _no_hbm_alarm_left() -> int:
     """Every server of this run but phase 13's keeps its bundles in the
     default archive (a per-process directory under the system tmpdir):
@@ -5748,10 +6171,13 @@ def main() -> int:
     by_path["observability"] = observability_phase(torch, np, counters,
                                                    card)
     by_path["decode-graphs"] = decode_graphs_phase(torch, np, counters, card)
+    tp = tp_phase(torch, np, counters, card)
+    by_path["tp2"] = tp["launches"]
     _no_hbm_alarm_left()
 
     kernels = []
     for r in results:
+        r.setdefault("also", []).append(tp["shard"][r["key"]])
         source, replaces = SRC[r["key"]]
         kernels.append({
             "name": r["name"], "route": "cuda", "source": source,
@@ -5780,5 +6206,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(capture_drill_child(sys.argv[2:])
-             if sys.argv[1:2] == ["--capture-drill"] else main())
+    CHILDREN = {"--capture-drill": capture_drill_child,
+                "--tp-server": tp_server_child}
+    sys.exit(CHILDREN[sys.argv[1]](sys.argv[2:])
+             if sys.argv[1:2] and sys.argv[1] in CHILDREN else main())

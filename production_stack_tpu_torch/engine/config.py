@@ -5,8 +5,9 @@ Mirrors ``production_stack_tpu/engine/config.py`` for every architecture
 it serves (the Llama family, Mixtral's MoE, Whisper, int8 quantization and
 local HF checkpoints): each field here has the reference's name and each
 preset here equals the reference preset field for field; an option
-ModelConfig does not have raises. One card has no device mesh, so ``MeshConfig`` has no counterpart;
-``PerfConfig``'s zero peaks mean the H100's rather than the v5e's; and
+ModelConfig does not have raises. ``mesh`` is the port's own
+``MeshConfig`` (parallel/mesh.py), of which only the tensor axis can be
+above 1 so far; ``PerfConfig``'s zero peaks mean the H100's rather than the v5e's; and
 ``jax_dtype`` becomes ``torch_dtype``.
 """
 
@@ -16,6 +17,8 @@ import dataclasses
 import json
 import os
 from typing import Any, Optional
+
+from production_stack_tpu_torch.parallel.mesh import MeshConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -566,6 +569,10 @@ class EngineConfig:
     max_grammars: int = 8
     max_grammar_states: int = 128
     perf: PerfConfig = dataclasses.field(default_factory=PerfConfig)
+    # parallel sizes: tensor -1 (the default) resolves to every visible
+    # card on cuda and to 1 on the CPU (parallel/mesh.tensor_size); tensor
+    # parallelism starts one process a rank (engine/multihost.py)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     # disaggregated serving: "prefill" engines run requests to their first
     # token and push the paged KV to a decode engine; "decode" engines take
     # POST /kv/recv transfers and splice the sequence in decode-ready;
@@ -606,7 +613,7 @@ class EngineConfig:
         engine_kw = {k: kw.pop(k) for k in
                      ("cache", "scheduler", "seed", "attention_impl",
                       "max_loras", "max_lora_rank", "max_grammars",
-                      "max_grammar_states", "perf", "role",
+                      "max_grammar_states", "perf", "role", "mesh",
                       "kv_transfer_group_layers", "kv_transfer_window",
                       "kv_transfer_retries", "kv_transfer_ttl",
                       "tenant_metering", "tenant_top_k",

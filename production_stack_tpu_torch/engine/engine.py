@@ -51,7 +51,13 @@ the perf accountant (``_tenant_map``) and to each sequence
 (``_attribute_seq_seconds``, the usage ledger's chip-seconds), and
 ``tenant_stats()`` exports the folded table. The brownout's stage 2 sets
 ``prefetch_paused``: an admitted sequence then starts no tier prefetch and
-prefills cold. Ring prefill is not ported (one card).
+prefills cold. Ring prefill is not ported.
+
+Tensor parallelism (``config.mesh``, resolved by parallel/mesh.tensor_size):
+at a degree above 1 the engine is rank 0 of a group it starts
+(engine/multihost.start_ranks, one spawned process a follower rank) and
+its runner mirrors every device call to them. What the ranks do not
+carry yet raises at start (``multihost.refusal``); ``close`` stops them.
 """
 
 from __future__ import annotations
@@ -82,6 +88,11 @@ from production_stack_tpu_torch.engine.kv_offload import (
     maybe_make_store,
 )
 from production_stack_tpu_torch.engine.model_runner import ModelRunner
+from production_stack_tpu_torch.engine.multihost import (
+    MirroredRunner,
+    start_ranks,
+)
+from production_stack_tpu_torch.parallel.mesh import tensor_size
 from production_stack_tpu_torch.engine.perf_accounting import PerfAccountant
 from production_stack_tpu_torch.engine.sampling import (
     MAX_LOGPROBS,
@@ -137,10 +148,20 @@ class LLMEngine:
         params: Optional[dict] = None,
         num_blocks: Optional[int] = None,
         device="cuda",
+        rank_devices: Optional[list] = None,
+        backend: Optional[str] = None,
     ):
+        """``rank_devices`` and ``backend`` place the tensor-parallel
+        ranks (one device a rank; parallel/distributed.py's defaults:
+        ``cuda:r`` and ``nccl`` on cards, the CPU and ``gloo`` otherwise);
+        they are unused at tensor-parallel size 1."""
         self.config = config
         self.tokenizer = get_tokenizer(config.model.tokenizer)
-        self.runner = ModelRunner(config, params, num_blocks, device)
+        tp = tensor_size(config.mesh, device)
+        self.runner = (
+            ModelRunner(config, params, num_blocks, device) if tp == 1
+            else start_ranks(config, params, num_blocks, device, tp,
+                             rank_devices, backend))
         self.device = self.runner.device
         self.scheduler = Scheduler(
             config.scheduler, config.cache, self.runner.num_blocks,
@@ -1538,6 +1559,29 @@ class LLMEngine:
             self._prefetcher.shutdown()
         if self.remote_kv is not None:
             self.remote_kv.shutdown()
+
+    @property
+    def tensor_parallel_ranks(self) -> int:
+        """Ranks the engine's runner spans (1 without tensor
+        parallelism)."""
+        return self.runner.ranks.size if self.runner.ranks else 1
+
+    def rank_info(self) -> dict:
+        """The ranks: their count, process ids (this process first) and
+        devices; whether decode steps run as CUDA graphs."""
+        info = {"size": self.tensor_parallel_ranks, "pids": [os.getpid()],
+                "devices": [str(self.device)],
+                "decode_graphs": self.runner.graphs is not None}
+        if isinstance(self.runner, MirroredRunner):
+            info["pids"] += [p.pid for p in self.runner.procs]
+            info["devices"] = list(self.runner.ranks.devices)
+        return info
+
+    def close(self) -> None:
+        """Stop the tier threads and the tensor-parallel followers."""
+        self.shutdown_tiers()
+        if isinstance(self.runner, MirroredRunner):
+            self.runner.close()
 
     # -- sleep mode ----------------------------------------------------------
     def sleep_mode(self, level: int = 1) -> None:

@@ -57,6 +57,20 @@ the token count of the reference's same step (``ref_tokens``: the
 budget-wide T on the ragged path), which picks the int8 route and sets
 Mixtral's MoE capacity (models/llama.py).
 
+**Tensor parallelism.** With ``ranks`` (parallel/distributed.RankGroup)
+the runner holds rank's shard of the weights (``weights.init_or_load``
+or ``weights.shard_params`` with ``(rank, tp)``) and a KV pool of its own
+KV heads in the tp = 1 layout (``combine_kv``), and passes the group to
+the model, which runs the collectives (models/llama.py). Its geometry for
+the pool and the kernels is the shard's (``self.local``: its query and
+KV heads; where KV heads are replicated, the one its query heads read),
+so K1-K4 run at the local group size. The pool's block count is the
+least over the ranks (``_resolve_num_blocks``); ranks that share a card
+must be given it. Decode graphs stay off: a gloo collective cannot be
+captured, and capturing NCCL's is unchecked (ROADMAP). Every rank runs the
+same calls in the same order (engine/multihost.py) and samples from the
+same gathered logits, so their results agree.
+
 ``install_compile_observer`` wraps the ragged and prefill steps and the
 decode step's program lookup (``decode_program``, which captures a new
 key's graph) in the perf accountant's ``CompileTracker``, keyed on what the
@@ -68,7 +82,9 @@ the ``restore_*`` calls capture the held keys again.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
+import logging
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -96,7 +112,11 @@ from production_stack_tpu_torch.engine.step_graphs import (
     Deferred,
     StaticInputs,
 )
-from production_stack_tpu_torch.engine.weights import init_or_load
+from production_stack_tpu_torch.engine.weights import (
+    init_or_load,
+    shard_params,
+    to_device,
+)
 from production_stack_tpu_torch.models.registry import get_model
 from production_stack_tpu_torch.ops.attention import dense_causal_attention
 from production_stack_tpu_torch.ops.kv_write import kv_write
@@ -114,6 +134,10 @@ from production_stack_tpu_torch.ops.ragged_paged_attention import (
     ragged_paged_attention,
     ragged_work_map,
 )
+from production_stack_tpu_torch.parallel import shardings as ln
+from production_stack_tpu_torch.parallel.shardings import Shard
+
+_log = logging.getLogger(__name__)
 
 
 # the ragged stream runs at its live length rounded up to this many tokens
@@ -203,9 +227,22 @@ class ModelRunner:
         params: Optional[dict] = None,
         num_blocks: Optional[int] = None,
         device="cuda",
+        ranks=None,
     ):
         self.config = config
         self.cfg = config.model
+        # the tensor-parallel group (None on one device) and this rank's
+        # geometry: its query and KV heads
+        self.ranks = ranks
+        self.local = self.cfg
+        if ranks is not None:
+            device = ranks.device
+            ranks.shard = Shard.of(self.cfg, ranks.rank, ranks.size)
+            self.local = dataclasses.replace(
+                self.cfg,
+                num_heads=ranks.shard.local(ln.HEADS, self.cfg.num_heads),
+                num_kv_heads=ranks.shard.local(ln.KV_HEADS,
+                                               self.cfg.num_kv_heads))
         self.device = resolve_device(device)
         if (self.cfg.sliding_window
                 and self.cfg.max_model_len > self.cfg.sliding_window):
@@ -237,15 +274,20 @@ class ModelRunner:
             _build.build_all()
         # every way params are made goes through maybe_quantize, as in the
         # reference: a caller's bf16 dict is quantized here under cfg.quant
+        rank, tp = self.rank_of()
+        if params is not None and ranks is not None:
+            # every rank gets the whole dict (on the CPU) and keeps its cut
+            params = to_device(shard_params(params, self.cfg, rank, tp),
+                               self.device)
         self.params = maybe_quantize(
             self.cfg, params if params is not None
-            else init_or_load(self.cfg, config.seed, self.device))
+            else init_or_load(self.cfg, config.seed, self.device, rank, tp))
         mbs = -(-self.cfg.max_model_len // config.cache.block_size)
         # table width padded to a multiple of 8, as the reference pads it
         # for its kernels' DMA windows (tables are 0-padded past live blocks)
         self.max_blocks_per_seq = (mbs + 7) // 8 * 8
         self.num_blocks = self._resolve_num_blocks(num_blocks)
-        self.kv = kvmod.init_kv_cache(self.cfg, config.cache,
+        self.kv = kvmod.init_kv_cache(self.local, config.cache,
                                       self.num_blocks, self.device)
         # per-slot output-token counts for presence/frequency penalties
         # ((S, V) int32, allocated on the first penalised batch)
@@ -279,10 +321,38 @@ class ModelRunner:
                                         + self.decode_steps - 1)
         self.graphs: Optional[DecodeGraphs] = (
             DecodeGraphs() if self.device.type == "cuda"
-            and sched.decode_graphs else None)
+            and sched.decode_graphs and ranks is None else None)
+        if ranks is not None and self.device.type == "cuda":
+            _log.info("tensor parallel rank %d of %d: decode graphs off "
+                      "(collectives are not captured)", ranks.rank,
+                      ranks.size)
         self._graphed_kv: Optional[torch.Tensor] = None
         # keys whose graphs sleep dropped, captured again at wake
         self._held_keys: list = []
+
+    # -- tensor parallelism ---------------------------------------------------
+    def rank_of(self) -> tuple[int, int]:
+        """(rank, tensor-parallel size); (0, 1) on one device."""
+        return ((0, 1) if self.ranks is None
+                else (self.ranks.rank, self.ranks.size))
+
+    @property
+    def tensor_parallel(self) -> int:
+        """The degree the attention heads are sharded over (the
+        reference's accountant keys its collectives on it): the group's
+        size, 1 where the heads are replicated or there is no group."""
+        if self.ranks is None or ln.HEADS not in self.ranks.shard.sharded:
+            return 1
+        return self.ranks.size
+
+    @property
+    def cards(self) -> int:
+        """Distinct cards the ranks run on (two ranks may share one)."""
+        return 1 if self.ranks is None else self.ranks.cards
+
+    def _logits(self, hidden, tokens=None):
+        return self.model.logits_from_hidden(self.cfg, self.params, hidden,
+                                             tokens, self.ranks)
 
     # -- compile tracking ----------------------------------------------------
     def ragged_lengths(self) -> list[int]:
@@ -354,7 +424,7 @@ class ModelRunner:
         T = min(self.config.scheduler.max_num_batched_tokens, S)
         b = c.torch_dtype.itemsize
         E, F = c.hidden_size, c.intermediate_size
-        rows = S * (8 * E * b + 4 * E * 4 + 2 * c.num_kv_heads
+        rows = S * (8 * E * b + 4 * E * 4 + 2 * self.local.num_kv_heads
                     * c.head_dim * 4)
         if c.architecture == "mixtral" and c.num_experts > 0:
             k, X = c.num_experts_per_tok, c.num_experts
@@ -446,6 +516,14 @@ class ModelRunner:
         return int(step + self.decode_graph_bytes() + grammar + lora)
 
     def _resolve_num_blocks(self, explicit: Optional[int]) -> int:
+        """The pool's block count: the caller's, the config's, or sized
+        from free memory; under tensor parallelism the least over the
+        ranks, so that every rank's pool holds every block the scheduler
+        hands out."""
+        n = self._local_num_blocks(explicit)
+        return n if self.ranks is None else self.ranks.min_int(n)
+
+    def _local_num_blocks(self, explicit: Optional[int]) -> int:
         if explicit is not None:
             return explicit
         if self.config.cache.num_blocks > 0:
@@ -454,7 +532,14 @@ class ModelRunner:
             # no device memory to size from: room for every slot to hold a
             # full-length context
             return self.config.scheduler.max_num_seqs * self.max_blocks_per_seq
-        per_block = kvmod.kv_cache_bytes_per_block(self.cfg, self.config.cache)
+        if (self.ranks is not None
+                and len(set(self.ranks.devices)) < self.ranks.size):
+            # each would size its pool from the same free memory
+            raise ValueError(
+                "tensor-parallel ranks that share a card must be given "
+                "num_blocks")
+        per_block = kvmod.kv_cache_bytes_per_block(self.local,
+                                                   self.config.cache)
         free, _total = torch.cuda.mem_get_info(self.device)
         usable = (free * self.config.cache.hbm_utilization
                   - self._transient_bytes() - (1 << 30))
@@ -507,7 +592,7 @@ class ModelRunner:
 
         hidden, self.kv = self.model.forward_tokens(
             self.cfg, self.params, tokens, positions, attend, self.kv, lora,
-            ref_tokens)
+            ref_tokens, group=self.ranks)
         return hidden
 
     # -- constrained-decoding grammar bank ---------------------------------
@@ -544,6 +629,9 @@ class ModelRunner:
         (engine/lora.py ``load_adapter_raw``, float32 with the scaling
         folded into B) into bank slot ``slot``, cast to the model dtype as
         the reference casts them."""
+        if self.ranks is not None:
+            raise NotImplementedError(
+                "LoRA adapters under tensor parallelism are not ported yet")
         N = self.config.max_loras
         dt = self.cfg.torch_dtype
         if self.lora_bank is None:
@@ -596,7 +684,7 @@ class ModelRunner:
         groups of at most ``score_tokens()`` tokens, queries in blocks whose
         float32 scores fit ``ATTN_SCORE_BYTES``."""
         g = max(1, min(N, self.score_tokens() // S))
-        blk = max(1, ATTN_SCORE_BYTES // (g * self.cfg.num_heads * S * 4))
+        blk = max(1, ATTN_SCORE_BYTES // (g * self.local.num_heads * S * 4))
         return g, blk
 
     def _dense_hidden(self, tokens: torch.Tensor, q_block: int,
@@ -616,7 +704,8 @@ class ModelRunner:
         hidden, _ = self.model.forward_tokens(
             cfg, self.params, tokens, positions, attend, None,
             ref_tokens=ref_tokens,
-            mlp_rows=self.config.scheduler.max_num_batched_tokens)
+            mlp_rows=self.config.scheduler.max_num_batched_tokens,
+            group=self.ranks)
         return hidden
 
     @torch.inference_mode()
@@ -666,8 +755,7 @@ class ModelRunner:
                                  device=self.device)
             for c0 in range(0, len(r), LOGIT_CHUNK):
                 sl = slice(c0, c0 + LOGIT_CHUNK)
-                logits = self.model.logits_from_hidden(
-                    self.cfg, self.params, hidden[ridx[sl], jidx[sl]], ref)
+                logits = self._logits(hidden[ridx[sl], jidx[sl]], ref)
                 picked[ridx[sl], jidx[sl]] = torch.log_softmax(
                     logits, dim=-1).gather(1, tgt[sl, None])[:, 0]
             out[rows] = picked.sum(dim=1).cpu().numpy()
@@ -689,8 +777,7 @@ class ModelRunner:
         targets = tok[0, 1:].long()
         parts = []
         for c0 in range(0, S - 1, LOGIT_CHUNK):
-            logits = self.model.logits_from_hidden(
-                self.cfg, self.params, hidden[c0:c0 + LOGIT_CHUNK])
+            logits = self._logits(hidden[c0:c0 + LOGIT_CHUNK])
             parts.append(compute_logprobs(logits,
                                           targets[c0:c0 + LOGIT_CHUNK]))
         return tuple(torch.cat(col).cpu().numpy() for col in zip(*parts))
@@ -718,7 +805,7 @@ class ModelRunner:
 
     def restore_kv(self) -> None:
         if self.kv is None:
-            self.kv = kvmod.init_kv_cache(self.cfg, self.config.cache,
+            self.kv = kvmod.init_kv_cache(self.local, self.config.cache,
                                           self.num_blocks, self.device)
         self._recapture()
 
@@ -733,7 +820,7 @@ class ModelRunner:
         if self.params is None:
             self.params = maybe_quantize(
                 self.cfg, init_or_load(self.cfg, self.config.seed,
-                                       self.device))
+                                       self.device, *self.rank_of()))
         self._recapture()
 
     @property
@@ -925,14 +1012,15 @@ class ModelRunner:
             # the kernel's work map, made on the host from the step's span
             # lengths and uploaded once a step rather than once a layer
             "tiles": ragged_work_map(
-                cu_q_lens, context_lens, len(tokens), c.num_heads,
-                c.num_kv_heads, c.head_dim, self.kv.dtype, self.device),
+                cu_q_lens, context_lens, len(tokens), self.local.num_heads,
+                self.local.num_kv_heads, c.head_dim, self.kv.dtype,
+                self.device),
         }
         hidden = self._forward(self._attend_ragged, self._dev(tokens),
                                self._dev(positions), meta,
                                self._lora(adapter_ids), ref_tokens)
         last = hidden[self._dev(last_idx, torch.int64)]  # (S, E)
-        logits = self.model.logits_from_hidden(self.cfg, self.params, last)
+        logits = self._logits(last)
         samp = self._sampling_inputs(temps, top_ps, top_ks, seeds, steps)
         if presence is not None:
             self._ensure_counts()
@@ -952,8 +1040,7 @@ class ModelRunner:
             return (sampled, *lp)
         vidx = self._dev(verify_idx, torch.int64)
         verify = torch.stack([
-            torch.argmax(self.model.logits_from_hidden(
-                self.cfg, self.params, hidden[vidx[:, j]]), dim=-1)
+            torch.argmax(self._logits(hidden[vidx[:, j]]), dim=-1)
             for j in range(vidx.shape[1])], dim=1).to(torch.int32)
         return (sampled, verify, *lp)
 
@@ -990,7 +1077,7 @@ class ModelRunner:
         P = hidden.shape[0]
         last = hidden[torch.arange(P, device=self.device),
                       self._dev(last_idx, torch.int64)]  # (P, E)
-        logits = self.model.logits_from_hidden(self.cfg, self.params, last)
+        logits = self._logits(last)
         samp = self._sampling_inputs(temps, top_ps, top_ks, seeds,
                                      np.zeros(P, np.int32))
         grammar = (None if g_ids is None
@@ -1017,7 +1104,7 @@ class ModelRunner:
         """K3's split plan at the key's rung, for every slot of the batch:
         a function of the rung alone, so one graph a rung."""
         return split_plan(key.rung, self.config.scheduler.max_num_seqs,
-                          self.cfg.num_kv_heads)
+                          self.local.num_kv_heads)
 
     def decode_program(self, key: DecodeKey, plan) -> Optional[object]:
         """The graph of ``key``, captured at its first use; None where the
@@ -1111,8 +1198,7 @@ class ModelRunner:
             meta = {"block_tables": bt, "context_lens": ctx,
                     "slot_mapping": slots, "plan": plan}
             hidden = self._forward(self._attend_decode, tok, pos, meta, lora)
-            logits = self.model.logits_from_hidden(self.cfg, self.params,
-                                                   hidden)
+            logits = self._logits(hidden)
             sampled, row_t = self._process_logits(
                 logits, samp, key.greedy, penalties, ctrl, grammar)
             step_out = [sampled]

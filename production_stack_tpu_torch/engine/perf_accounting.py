@@ -8,10 +8,13 @@ A copy of production_stack_tpu/engine/perf_accounting.py for one card:
   ``_run_*`` paths), reduced to ``vllm:model_flops_utilization``,
   ``vllm:hbm_bandwidth_utilization`` and ``vllm:tokens_per_second{phase}``
   at scrape time, plus periodic device-memory snapshots from
-  ``torch.cuda.memory_stats``. The arithmetic is the reference's with one
-  card and no tensor parallelism (``n_chips = tp = 1``), so the collective
-  (NVLink) bytes are zero. The peaks default to the H100 SXM data sheet
-  (``config.H100_PEAK_*``).
+  ``torch.cuda.memory_stats``. The arithmetic is the reference's,
+  collectives included: ``from_runner`` takes the cards the ranks run on
+  (``n_chips``) and the degree the heads are sharded over
+  (``tensor_parallel``) from the runner, and each rank's all-reduce and
+  all-gather bytes follow the reference's formulas (zero at tp = 1). FLOPs
+  and weight bytes count the whole model, not a rank's shard. The peaks
+  default to the H100 SXM data sheet (``config.H100_PEAK_*``).
 * ``CompileTracker`` — wraps each of the runner's three step programs. A
   never-seen signature is the work a new CUDA graph capture would do, so
   the first call per signature counts as a compile event (its wall time
@@ -111,6 +114,20 @@ def param_counts(params: dict, model_cfg) -> Tuple[int, int, int]:
     return count, int(round(active)), nbytes
 
 
+def _meta_params(model_cfg) -> dict:
+    """The whole model's parameter dict as shapes only (meta tensors)."""
+    import torch
+
+    from production_stack_tpu_torch.models.registry import get_model
+
+    def walk(shapes: dict) -> dict:
+        return {k: walk(v) if isinstance(v, dict) else torch.empty(
+            v, dtype=model_cfg.torch_dtype, device="meta")
+            for k, v in shapes.items()}
+
+    return walk(get_model(model_cfg).param_shapes(model_cfg))
+
+
 class CompileTracker:
     """Wrap a step program and surface compile events.
 
@@ -182,12 +199,11 @@ class PerfAccountant:
                  peak_hbm_gbps: float = 0.0, hbm_poll_interval: float = 5.0,
                  peak_ici_gbps: float = 0.0, device=None,
                  active_param_count: Optional[int] = None,
-                 tenant_metering: bool = True, tenant_top_k: int = 8):
+                 tenant_metering: bool = True, tenant_top_k: int = 8,
+                 n_chips: int = 1, tensor_parallel: int = 1):
         self.window = max(window, 1.0)
-        # one card, no tensor parallelism, until the port runs across
-        # cards; the arithmetic below keeps the reference's terms for both
-        self.n_chips = 1
-        self.tp = 1
+        self.n_chips = max(int(n_chips), 1)
+        self.tp = max(int(tensor_parallel), 1)
         # FLOP and weight-stream costs below are GLOBAL (whole model), so
         # the matching ceilings are the cards' aggregate peaks
         self.peak_flops = ((peak_tflops or H100_PEAK_TFLOPS) * 1e12
@@ -291,8 +307,14 @@ class PerfAccountant:
         """The accountant of ``runner``'s model: parameters, active
         parameters and bytes counted over its parameter tensors
         (``param_counts``; the LoRA bank, the grammar bank and the KV pool
-        are not parameters), one card."""
+        are not parameters). Under tensor parallelism they are counted
+        over the whole model's shapes (a rank holds a shard), the cards
+        are those the ranks run on, and the collective degree is the
+        runner's ``tensor_parallel`` (1 where the heads are replicated, as
+        the reference keys it)."""
         params = getattr(runner, "params", None)
+        if getattr(runner, "ranks", None) is not None:
+            params = _meta_params(config.model)
         param_count = active = param_bytes = 0
         if params:
             param_count, active, param_bytes = param_counts(params,
@@ -310,7 +332,9 @@ class PerfAccountant:
                    device=getattr(runner, "device", None),
                    active_param_count=active,
                    tenant_metering=config.tenant_metering,
-                   tenant_top_k=config.tenant_top_k)
+                   tenant_top_k=config.tenant_top_k,
+                   n_chips=getattr(runner, "cards", 1),
+                   tensor_parallel=getattr(runner, "tensor_parallel", 1))
         acct.costmodel_drift_band = perf.costmodel_drift_band
         return acct
 

@@ -114,6 +114,20 @@ Observability, as the reference's:
   ``chain_decode`` (default false) and ``decode_graphs`` (default true,
   on a CUDA device).
 
+Tensor parallelism (``--tensor-parallel-size``, the reference's flag and
+default -1: every visible card on ``cuda``, 1 on the CPU): the server is
+rank 0 and starts one process a further rank (engine/multihost.py), each
+on ``cuda:r`` over NCCL, or on the CPU over gloo with ``--device cpu``.
+It serves completions, chat, messages, responses, scoring and sleep, on
+both attention paths, with the prefix cache, sampling, guided decoding
+and n-gram speculation. What the ranks do not carry yet exits at start
+(``--quantization``, MoE presets, Whisper, ``--role prefill|decode``,
+the host and remote KV tiers) or answers 501 naming tensor parallelism
+(``POST /v1/load_lora_adapter``, ``/kv/export``, ``/kv/recv``).
+``--data-parallel-size``, ``--pipeline-parallel-size`` and
+``--sequence-parallel-size`` parse to the reference's defaults; above 1
+each exits at start, not ported yet.
+
 Response bodies have the JAX server's shape, so the same router can front
 either engine.
 
@@ -182,6 +196,7 @@ from production_stack_tpu_torch.engine.kv_transfer import (
 from production_stack_tpu_torch.engine.lifecycle import StepWatchdog
 from production_stack_tpu_torch.engine.lora import LoraManager
 from production_stack_tpu_torch.engine.metrics import CONTENT_TYPE, ServerMetrics
+from production_stack_tpu_torch.engine.multihost import refusal as tp_refusal
 from production_stack_tpu_torch.engine.overload import (
     SHED_MAX_TOKENS,
     SHED_PREFETCH,
@@ -199,6 +214,8 @@ from production_stack_tpu_torch.engine.sampling import (
 )
 from production_stack_tpu_torch.engine.scheduler import SchedulerQueueFull
 from production_stack_tpu_torch.flight_recorder import FlightRecorder
+from production_stack_tpu_torch.parallel import distributed as pdist
+from production_stack_tpu_torch.parallel.mesh import MeshConfig, tensor_size
 from production_stack_tpu_torch.tenancy import UsageLedger, resolve_tenant
 from production_stack_tpu_torch.testing import faults
 from production_stack_tpu_torch.yaml_args import parse_with_yaml_config
@@ -370,6 +387,11 @@ def _error(message: str, kind: Optional[str] = "invalid_request_error"
     return {"error": {"message": message, "type": kind}}
 
 
+# routes whose work a rank cannot do alone yet: a whole KV block or a
+# whole adapter exists on no single rank
+TP_REFUSED_ROUTES = ("/v1/load_lora_adapter", "/kv/export", "/kv/recv")
+
+
 def _sse_event(name: str, payload: dict) -> bytes:
     """One named server-sent event (the messages and responses streams)."""
     return f"event: {name}\ndata: {json.dumps(payload)}\n\n".encode()
@@ -484,10 +506,13 @@ class EngineServer:
                  otel_service_name: str = "tpu-engine",
                  otel_secure: bool = False,
                  flight_recorder_size: int = 256,
-                 diagnostics: Optional[DiagnosticsConfig] = None):
+                 diagnostics: Optional[DiagnosticsConfig] = None,
+                 rank_devices: Optional[list] = None,
+                 backend: Optional[str] = None):
         self.config = config
         self.engine = engine if engine is not None else LLMEngine(
-            config, device=device)
+            config, device=device, rank_devices=rank_devices,
+            backend=backend)
         self.async_engine = AsyncEngine(self.engine)
         self.lora = LoraManager(self.engine)
         self.model_name = served_model_name or config.model.name
@@ -836,7 +861,7 @@ class EngineServer:
         # a trace in flight started on the engine thread and must stop there
         with self._profiling:
             self.async_engine.stop()
-        self.engine.shutdown_tiers()
+        self.engine.close()
 
     # -- the durable perf ledger (perf_ledger.py) ------------------------------
     def _perf_ledger_loop(self) -> None:
@@ -1133,6 +1158,9 @@ class EngineServer:
             else 0.0,
         }
         snap["tenants"] = eng.tenant_stats()
+        # the ranks the runner spans, and whether decode runs as graphs
+        # (off under tensor parallelism: collectives are not captured)
+        snap["ranks"] = eng.rank_info()
         snap["perf_ledger"] = (
             {"enabled": True, **self.perf_ledger.stats(),
              "interval": self.config.perf_ledger_interval}
@@ -2760,6 +2788,14 @@ class EngineServer:
                             "/v1/messages": server.messages,
                             "/v1/responses": server.responses}
                 path = url.path
+                n_ranks = server.engine.tensor_parallel_ranks
+                if n_ranks > 1 and path in TP_REFUSED_ROUTES:
+                    self.close_connection = True  # the body is not read
+                    self._send_json(_error(
+                        f"{path} is not served under tensor parallelism "
+                        f"yet (--tensor-parallel-size {n_ranks})",
+                        "not_implemented"), 501)
+                    return
                 if path == "/kv/recv":
                     self._kv_recv()
                     return
@@ -3110,6 +3146,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="decode iterations per decode dispatch")
     p.add_argument("--block-size", type=int, default=None)
     p.add_argument("--num-blocks", type=int, default=None)
+    p.add_argument("--tensor-parallel-size", type=int, default=-1,
+                   help="tensor-parallel ranks, one process each (-1: "
+                        "every visible card on cuda, 1 on the CPU); rank r "
+                        "runs on cuda:r over NCCL, or on the CPU over gloo")
+    p.add_argument("--data-parallel-size", type=int, default=1,
+                   help="not ported yet: above 1 exits at start")
+    p.add_argument("--pipeline-parallel-size", type=int, default=1,
+                   help="not ported yet: above 1 exits at start")
+    p.add_argument("--sequence-parallel-size", type=int, default=1,
+                   help="not ported yet: above 1 exits at start")
     p.add_argument("--dtype", default=None)
     p.add_argument("--quantization", default=None, choices=["int8"],
                    help="int8: per-channel int8 weights, quantized when "
@@ -3331,7 +3377,29 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _mesh_from_args(args) -> MeshConfig:
+    """The parallel sizes of the command line: tensor parallelism
+    resolved on the engine's device (parallel/mesh.tensor_size); every
+    other size above 1 exits, not ported yet."""
+    for flag, n, what in (
+            ("--data-parallel-size", args.data_parallel_size,
+             "data parallelism"),
+            ("--pipeline-parallel-size", args.pipeline_parallel_size,
+             "pipeline parallelism"),
+            ("--sequence-parallel-size", args.sequence_parallel_size,
+             "sequence parallelism (ring prefill)")):
+        if n > 1:
+            raise SystemExit(f"{flag} {n}: {what} is not ported to the "
+                             "PyTorch engine yet (tensor parallelism is)")
+    try:
+        return MeshConfig(tensor=tensor_size(
+            MeshConfig(tensor=args.tensor_parallel_size), args.device))
+    except ValueError as e:
+        raise SystemExit(f"--tensor-parallel-size: {e}")
+
+
 def config_from_args(args) -> EngineConfig:
+    mesh = _mesh_from_args(args)
     overrides = {}
     if args.max_model_len is not None:
         overrides["max_model_len"] = args.max_model_len
@@ -3390,7 +3458,7 @@ def config_from_args(args) -> EngineConfig:
     if args.perf_peak_ici_gbps:
         perf.peak_ici_gbps = args.perf_peak_ici_gbps
     perf.costmodel_drift_band = args.costmodel_drift_band or 0.0
-    return EngineConfig.for_model(
+    config = EngineConfig.for_model(
         args.model, cache=cache, scheduler=sched, seed=args.seed, perf=perf,
         role=args.role,
         kv_transfer_group_layers=args.kv_transfer_group_layers,
@@ -3404,7 +3472,13 @@ def config_from_args(args) -> EngineConfig:
         perf_ledger_path=args.perf_ledger_path or "",
         perf_ledger_max_bytes=args.perf_ledger_max_bytes or (16 << 20),
         perf_ledger_interval=args.perf_ledger_interval or 60.0,
-        **overrides)
+        mesh=mesh, **overrides)
+    if mesh.tensor > 1:
+        why = tp_refusal(config)
+        if why is not None:
+            raise SystemExit(f"{why} is not ported under tensor parallelism "
+                             f"yet (--tensor-parallel-size {mesh.tensor})")
+    return config
 
 
 def brownout_from_args(args) -> Optional[BrownoutController]:
@@ -3435,12 +3509,23 @@ def diagnostics_config_from_args(args) -> DiagnosticsConfig:
     )
 
 
-def server_from_args(args):
+def server_from_args(args, rank_devices: Optional[list] = None,
+                     backend: Optional[str] = None):
     """The server ``main`` runs for parsed command-line ``args``, not yet
     bound: the warmup starts at ``bind`` unless ``--skip-warmup``. A
     Whisper model gets its own runner and server
-    (engine/whisper_server.py); the paged text engine never starts."""
+    (engine/whisper_server.py); the paged text engine never starts. Under
+    tensor parallelism ``rank_devices`` and ``backend`` place the ranks
+    (default: rank r on ``cuda:r`` over NCCL, or the CPU over gloo); a
+    rank whose card does not exist exits before any rank starts."""
     config = config_from_args(args)
+    tp = config.mesh.tensor
+    if tp > 1:
+        try:
+            pdist.check_devices(rank_devices
+                                or pdist.rank_devices(args.device, tp))
+        except RuntimeError as e:
+            raise SystemExit(f"--tensor-parallel-size {tp}: {e}")
     if config.model.architecture == "whisper":
         from production_stack_tpu_torch.engine.whisper_server import (
             WhisperServer,
@@ -3463,14 +3548,18 @@ def server_from_args(args):
                         otel_service_name=args.otel_service_name,
                         otel_secure=args.otel_secure,
                         flight_recorder_size=args.flight_recorder_size,
-                        diagnostics=diagnostics_config_from_args(args))
+                        diagnostics=diagnostics_config_from_args(args),
+                        rank_devices=rank_devices, backend=backend)
 
 
-def main(argv=None) -> None:
+def main(argv=None, rank_devices: Optional[list] = None,
+         backend: Optional[str] = None) -> None:
+    """The command line's server (``rank_devices`` and ``backend``: see
+    ``server_from_args``)."""
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s %(message)s")
     args = parse_with_yaml_config(build_parser(), argv)
-    server = server_from_args(args)
+    server = server_from_args(args, rank_devices, backend)
     port = server.bind(args.host, args.port)
     if server.config.model.architecture == "whisper":
         _log.info("serving %s (whisper) on %s:%d (device %s)",

@@ -20,6 +20,14 @@ to the device one at a time, into preallocated stacks, quantized on load
 when ``cfg.quant`` is set; the reference stacks every layer on the host
 first. Orbax checkpoints are not ported.
 
+Under tensor parallelism each entry point takes ``(rank, tp)`` and
+returns rank's shard (parallel/shardings.Shard, driven by each leaf's
+logical axes, ``models/llama.param_specs``): every slice or tensor is
+made, converted or read whole, as at tp = 1, and only the rank's part of
+it is kept. So a rank's seeded shard is bit for bit the slice of the
+tp = 1 parameters, and its peak is one slice above its shard (one layer,
+or the embedding).
+
 Whisper's parameters are a nested ``enc`` / ``dec`` tree
 (``models/whisper.param_shapes``), made by ``whisper.init_params``; its
 conv weights are ``(out, in, k)``, so the reference's ``(k, in, out)``
@@ -40,6 +48,7 @@ from production_stack_tpu_torch.engine import quant
 from production_stack_tpu_torch.engine.config import ModelConfig
 from production_stack_tpu_torch.engine.lora import SafetensorsFile
 from production_stack_tpu_torch.models.registry import get_model
+from production_stack_tpu_torch.parallel.shardings import Shard
 
 # fan-in of each weight: the number of inputs one output sums over
 _FAN_IN = {
@@ -93,12 +102,31 @@ def _slices(name: str, shape: tuple, layer: bool) -> list:
     return list(itertools.product(*(range(d) for d in lead)))
 
 
+def _shard(cfg: ModelConfig, rank: int, tp: int):
+    """Rank's Shard and the model's logical axes (None, None at tp 1)."""
+    if tp == 1:
+        return None, None
+    if cfg.architecture == "whisper" or cfg.quant:
+        raise ValueError(f"{cfg.name}: Whisper and quantized weights have "
+                         "no tensor-parallel shards yet")
+    return Shard.of(cfg, rank, tp), get_model(cfg).param_specs(cfg)
+
+
+def _local_shape(shape: tuple, axes: tuple, shard) -> tuple:
+    if shard is None:
+        return tuple(shape)
+    return tuple(shard.local(a, n) for a, n in zip(axes, shape))
+
+
 def init_random(cfg: ModelConfig, seed: int = 0,
-                device: torch.device | str = "cpu") -> dict:
+                device: torch.device | str = "cpu", rank: int = 0,
+                tp: int = 1) -> dict:
     """Random parameters, made on ``device`` from ``seed``, quantized
-    slice by slice when ``cfg.quant`` is set."""
-    if cfg.architecture == "whisper":
+    slice by slice when ``cfg.quant`` is set; rank's shard of them at
+    ``tp`` > 1 (each slice made whole, as at tp 1, and cut)."""
+    if cfg.architecture == "whisper" and tp == 1:
         return get_model(cfg).init_params(cfg, seed, device)
+    shard, specs = _shard(cfg, rank, tp)
     shapes = get_model(cfg).param_shapes(cfg)
     dt = cfg.torch_dtype
     gen = torch.Generator(device=device)
@@ -109,19 +137,23 @@ def init_random(cfg: ModelConfig, seed: int = 0,
     norm_one = 1.0 - cfg.norm_offset
     axes = _quant_axes(cfg)
 
-    def make(name: str, shape: tuple, layer: bool):
+    def make(name: str, shape: tuple, layer: bool, spec=None):
+        local = _local_shape(shape, spec, shard)
         if name in _NORMS:
-            return torch.full(shape, norm_one, dtype=dt, device=device)
-        leaf = _Leaf(shape, dt, device, axes.get(name))
+            return torch.full(local, norm_one, dtype=dt, device=device)
+        leaf = _Leaf(local, dt, device, axes.get(name))
         std = fan[_FAN_IN[name]] ** -0.5
         for idx in _slices(name, shape, layer):
             t = torch.empty(shape[len(idx):], dtype=dt, device=device)
-            leaf.put(idx, t.normal_(0.0, std, generator=gen))
+            t.normal_(0.0, std, generator=gen)
+            leaf.put(idx, t if shard is None
+                     else shard.cut(t, spec[len(idx):]))
         return leaf.value
 
-    params = {name: make(name, shape, False)
+    lspecs = specs and specs["layers"]
+    params = {name: make(name, shape, False, specs and specs[name])
               for name, shape in shapes.items() if name != "layers"}
-    params["layers"] = {name: make(name, shape, True)
+    params["layers"] = {name: make(name, shape, True, lspecs and lspecs[name])
                         for name, shape in shapes["layers"].items()}
     return params
 
@@ -133,14 +165,16 @@ def to_device(params: dict, device) -> dict:
 
 
 def params_from_jax(np_tree: dict, cfg: ModelConfig,
-                    device: torch.device | str = "cpu") -> dict:
+                    device: torch.device | str = "cpu", rank: int = 0,
+                    tp: int = 1) -> dict:
     """The JAX package's parameter tree, as numpy arrays, to this
     package's parameter dict (same names and shapes), so both compute the
-    same function. Quantized leaves ``{"q": int8, "s": float32}`` keep
-    their dtypes; Whisper's conv weights are transposed to ``(out, in,
-    k)``."""
+    same function; rank's shard of it at ``tp`` > 1. Quantized leaves
+    ``{"q": int8, "s": float32}`` keep their dtypes; Whisper's conv
+    weights are transposed to ``(out, in, k)``."""
+    shard, specs = _shard(cfg, rank, tp)
 
-    def conv(name: str, x, shape: tuple):
+    def conv(name: str, x, shape: tuple, spec=None):
         if isinstance(x, dict):
             q = np.asarray(x["q"])
             s = np.asarray(x["s"], np.float32)
@@ -158,23 +192,27 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig,
             a = a.transpose(2, 1, 0)
         if a.shape != tuple(shape):
             raise ValueError(f"{name}: shape {a.shape} != expected {shape}")
+        if shard is not None:
+            a = shard.cut(a, spec)
         return torch.from_numpy(a.copy()).to(device=device,
                                               dtype=cfg.torch_dtype)
 
-    def walk(tree: dict, shapes: dict) -> dict:
-        return {name: walk(tree[name], shape) if isinstance(shape, dict)
-                else conv(name, tree[name], shape)
+    def walk(tree: dict, shapes: dict, spec: dict) -> dict:
+        return {name: walk(tree[name], shape, spec and spec[name])
+                if isinstance(shape, dict)
+                else conv(name, tree[name], shape, spec and spec[name])
                 for name, shape in shapes.items()}
 
-    return walk(np_tree, get_model(cfg).param_shapes(cfg))
+    return walk(np_tree, get_model(cfg).param_shapes(cfg), specs)
 
 
 def init_or_load(cfg: ModelConfig, seed: int = 0,
-                 device: torch.device | str = "cpu") -> dict:
+                 device: torch.device | str = "cpu", rank: int = 0,
+                 tp: int = 1) -> dict:
     """``cfg.weights_path``'s safetensors checkpoint, or random
-    parameters from ``seed`` without one."""
+    parameters from ``seed`` without one; rank's shard at ``tp`` > 1."""
     if not cfg.weights_path:
-        return init_random(cfg, seed, device)
+        return init_random(cfg, seed, device, rank, tp)
     path = cfg.weights_path
     if path.startswith("gs://") or os.path.isfile(
             os.path.join(path, "_CHECKPOINT_METADATA")):
@@ -182,7 +220,7 @@ def init_or_load(cfg: ModelConfig, seed: int = 0,
                          "(ROADMAP.md); convert to safetensors")
     if not glob.glob(os.path.join(path, "*.safetensors")):
         raise ValueError(f"{path}: no *.safetensors files to load")
-    return load_safetensors(cfg, device)
+    return load_safetensors(cfg, device, rank, tp)
 
 
 # --- HF checkpoint mapping (a copy of the reference's) ----------------------
@@ -275,12 +313,14 @@ def _convert(name_rule: str, w: np.ndarray, cfg: ModelConfig) -> np.ndarray:
 
 
 def load_safetensors(cfg: ModelConfig,
-                     device: torch.device | str = "cpu") -> dict:
+                     device: torch.device | str = "cpu", rank: int = 0,
+                     tp: int = 1) -> dict:
     """``cfg.weights_path``'s ``*.safetensors`` files to this package's
     parameter dict on ``device``: each tensor is read, converted, moved to
     the device and (with ``cfg.quant``) quantized on its own, into stacks
-    allocated up front. A tensor the model needs and the checkpoint lacks
-    raises ``KeyError`` naming it."""
+    allocated up front; at ``tp`` > 1 each converted tensor is cut to
+    rank's shard before it moves. A tensor the model needs and the
+    checkpoint lacks raises ``KeyError`` naming it."""
     files = [SafetensorsFile(f) for f in sorted(
         glob.glob(os.path.join(cfg.weights_path, "*.safetensors")))]
     index = {name: f for f in files for name in f.keys()}
@@ -293,18 +333,24 @@ def load_safetensors(cfg: ModelConfig,
 
     shapes = get_model(cfg).param_shapes(cfg)
     dt = cfg.torch_dtype
+    shard, specs = _shard(cfg, rank, tp)
 
     def dev(arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(
             device=device, dtype=dt)
+
+    def cut(arr: np.ndarray, spec) -> np.ndarray:
+        return arr if shard is None else shard.cut(arr, spec)
 
     if cfg.architecture == "whisper":
         return _load_whisper(cfg, shapes, get, dev, device)
     axes = _quant_axes(cfg)
 
     def whole(name: str, arr: np.ndarray):
-        leaf = _Leaf(shapes[name], dt, device, axes.get(name))
-        leaf.put((), dev(arr))
+        spec = specs and specs[name]
+        leaf = _Leaf(_local_shape(shapes[name], spec, shard), dt, device,
+                     axes.get(name))
+        leaf.put((), dev(cut(arr, spec)))
         return leaf.value
 
     params = {"embed": whole("embed", get("model.embed_tokens.weight")),
@@ -313,7 +359,9 @@ def load_safetensors(cfg: ModelConfig,
         head = ("lm_head.weight" if "lm_head.weight" in index
                 else "model.embed_tokens.weight")
         params["lm_head"] = whole("lm_head", get(head).T)
-    layers = {name: _Leaf(shape, dt, device, axes.get(name))
+    lspecs = specs and specs["layers"]
+    layers = {name: _Leaf(_local_shape(shape, lspecs and lspecs[name],
+                                       shard), dt, device, axes.get(name))
               for name, shape in shapes["layers"].items()}
     for i in range(cfg.num_layers):
         for hf_name, targets in _hf_key_map(cfg, i).items():
@@ -322,7 +370,9 @@ def load_safetensors(cfg: ModelConfig,
                                else [targets]):
                 base, _, expert = ours.partition(".")
                 idx = (i, int(expert)) if expert else (i,)
-                layers[base].put(idx, dev(_convert(rule, src, cfg)))
+                spec = lspecs and lspecs[base][len(idx):]
+                layers[base].put(idx, dev(cut(_convert(rule, src, cfg),
+                                              spec)))
     params["layers"] = {name: leaf.value for name, leaf in layers.items()}
     return params
 
@@ -408,3 +458,20 @@ def _load_whisper(cfg: ModelConfig, shapes: dict, get, dev, device) -> dict:
             "final_norm_b": top(dec, "final_norm_b", f"{d}.layer_norm.bias"),
         },
     }
+
+
+def shard_params(params: dict, cfg: ModelConfig, rank: int, tp: int) -> dict:
+    """Rank's shard of a whole parameter dict, as contiguous copies (the
+    whole dict can go once every rank has cut its own); the dict itself
+    at tp 1."""
+    shard, specs = _shard(cfg, rank, tp)
+    if shard is None:
+        return params
+
+    def walk(tree: dict, spec: dict) -> dict:
+        return {name: walk(v, spec[name]) if isinstance(v, dict)
+                else shard.cut(v, spec[name]).clone(
+                    memory_format=torch.contiguous_format)
+                for name, v in tree.items()}
+
+    return walk(params, specs)

@@ -33,6 +33,23 @@ every product and the capacity follow it. The MoE buffer needs only
 and the reference's extra pad rows come after the live rows in dispatch
 order, so they never displace one: the result is the reference's, without
 its padding.
+
+**Tensor parallelism.** With a ``group`` (parallel/distributed.RankGroup,
+whose ``shard`` says what this rank holds), the parameters are this
+rank's shard (``param_specs`` names each leaf's logical axes,
+parallel/shardings.py cuts them): attention runs at the rank's own query
+and KV heads, the MLP at its share of the intermediate axis, and the
+embedding and LM head at its share of the vocabulary. The partial sums of
+the two row-parallel products (``wo`` over heads, ``w_down`` over the
+intermediate axis) are accumulated and kept in float32 (``_partial``),
+all-reduced in float32 right after the product and rounded once to the
+model dtype, before any post-norm and the residual add, so that a bf16
+model rounds the sum where one device rounds its product. The embedding
+is vocab-parallel (each rank looks up the tokens its rows hold, zeros
+elsewhere, all-reduce); the logits' vocab shards are all-gathered in rank
+order. An axis the rules
+replicate needs no collective. Every rank then holds the same hidden
+states and the same full logits.
 """
 
 from __future__ import annotations
@@ -46,6 +63,7 @@ from production_stack_tpu_torch.engine import quant
 from production_stack_tpu_torch.engine.config import ModelConfig
 from production_stack_tpu_torch.ops.norms import rms_norm
 from production_stack_tpu_torch.ops.rope import rope_tables, rotate
+from production_stack_tpu_torch.parallel import shardings as ln
 
 AttendFn = Callable[..., Tuple[torch.Tensor, Any]]
 
@@ -83,6 +101,73 @@ def param_shapes(cfg: ModelConfig) -> dict:
     return shapes
 
 
+def param_specs(cfg: ModelConfig) -> dict:
+    """Logical axes of each leaf of ``param_shapes``, as the reference's
+    param_specs (parallel/shardings.py maps them to mesh axes)."""
+    layer = {
+        "attn_norm": (ln.LAYERS, ln.EMBED),
+        "wq": (ln.LAYERS, ln.EMBED, ln.HEADS, ln.HEAD_DIM),
+        "wk": (ln.LAYERS, ln.EMBED, ln.KV_HEADS, ln.HEAD_DIM),
+        "wv": (ln.LAYERS, ln.EMBED, ln.KV_HEADS, ln.HEAD_DIM),
+        "wo": (ln.LAYERS, ln.HEADS, ln.HEAD_DIM, ln.EMBED),
+        "mlp_norm": (ln.LAYERS, ln.EMBED),
+    }
+    if cfg.qkv_bias:
+        layer.update({"bq": (ln.LAYERS, ln.HEADS, ln.HEAD_DIM),
+                      "bk": (ln.LAYERS, ln.KV_HEADS, ln.HEAD_DIM),
+                      "bv": (ln.LAYERS, ln.KV_HEADS, ln.HEAD_DIM)})
+    if cfg.qk_norm:
+        layer.update({"q_norm": (ln.LAYERS, ln.HEAD_DIM),
+                      "k_norm": (ln.LAYERS, ln.HEAD_DIM)})
+    if cfg.post_norms:
+        layer.update({"post_attn_norm": (ln.LAYERS, ln.EMBED),
+                      "post_mlp_norm": (ln.LAYERS, ln.EMBED)})
+    if is_moe(cfg):
+        layer.update({
+            "router": (ln.LAYERS, ln.EMBED, ln.EXPERTS),
+            "w_gate": (ln.LAYERS, ln.EXPERTS, ln.EMBED, ln.MLP),
+            "w_up": (ln.LAYERS, ln.EXPERTS, ln.EMBED, ln.MLP),
+            "w_down": (ln.LAYERS, ln.EXPERTS, ln.MLP, ln.EMBED)})
+    else:
+        layer.update({"w_gate": (ln.LAYERS, ln.EMBED, ln.MLP),
+                      "w_up": (ln.LAYERS, ln.EMBED, ln.MLP),
+                      "w_down": (ln.LAYERS, ln.MLP, ln.EMBED)})
+    specs = {"embed": (ln.VOCAB, ln.EMBED), "layers": layer,
+             "final_norm": (ln.EMBED,)}
+    if not cfg.tie_word_embeddings:
+        specs["lm_head"] = (ln.EMBED, ln.VOCAB)
+    return specs
+
+
+def _sharded(group, axis: str) -> bool:
+    return group is not None and axis in group.shard.sharded
+
+
+def _partial(x: torch.Tensor, w: torch.Tensor,
+             n_contract: int = 1) -> torch.Tensor:
+    """A row-parallel product's partial on this rank, ``x (..., *c) @ w
+    (*c, *out)``, accumulated and returned in float32: the ranks' partials
+    are summed before the one rounding to the model dtype."""
+    lead = x.shape[:x.dim() - n_contract]
+    x2 = x.reshape(-1, *x.shape[x.dim() - n_contract:]).flatten(1)
+    w2 = w.reshape(x2.shape[1], -1)
+    if x2.dtype == torch.float32:
+        y = x2 @ w2
+    elif x2.is_cuda:
+        y = torch.mm(x2, w2, out_dtype=torch.float32)
+    else:
+        y = x2.float() @ w2.float()
+    return y.reshape(*lead, *w.shape[n_contract:])
+
+
+def _reduced(group, axis: str, x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x`` summed over the ranks, in ``dtype``, where its product
+    contracted an axis sharded over them; ``x`` itself otherwise."""
+    if not _sharded(group, axis):
+        return x
+    return group.all_reduce(x).to(dtype)
+
+
 def is_moe(cfg: ModelConfig) -> bool:
     return cfg.architecture == "mixtral" and cfg.num_experts > 0
 
@@ -105,7 +190,10 @@ def _lora_delta(x: torch.Tensor, onehot: torch.Tensor, A: torch.Tensor,
 
 
 def _mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor, lb=None,
-         onehot=None, tokens: Optional[int] = None) -> torch.Tensor:
+         onehot=None, tokens: Optional[int] = None,
+         partial: bool = False) -> torch.Tensor:
+    """The MLP block; ``partial``: this rank's float32 partial of a
+    down-projection sharded over the ranks (``_partial``)."""
     if is_moe(cfg):
         # LoRA MLP targets are ignored on a MoE model, as in the reference
         return _moe_mlp(cfg, lp, x, tokens)
@@ -120,14 +208,16 @@ def _mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor, lb=None,
     # Gemma is GeGLU (tanh-approximated gelu on the gate); Llama is SwiGLU
     act = F.silu(gate) if cfg.act == "silu" else F.gelu(gate, approximate="tanh")
     hidden2 = act * up
-    out = quant.quant_matmul(hidden2, lp["w_down"], tokens=tokens)
+    out = (_partial(hidden2, lp["w_down"]) if partial
+           else quant.quant_matmul(hidden2, lp["w_down"], tokens=tokens))
     if lb is not None and "w_down" in lb:
         out = out + _lora_delta(hidden2, onehot, *lb["w_down"])
     return out
 
 
 def _mlp_chunked(cfg: ModelConfig, lp: dict, x: torch.Tensor,
-                 tokens: Optional[int], rows: int) -> torch.Tensor:
+                 tokens: Optional[int], rows: int,
+                 partial: bool = False) -> torch.Tensor:
     """The MLP of ``x (..., T, E)`` a chunk of ``rows`` rows at a time.
     A dense MLP is row by row, so this is ``_mlp``'s value. A MoE block
     takes its capacity from ``tokens``, the reference's whole call, and
@@ -135,10 +225,11 @@ def _mlp_chunked(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     reference's call drops one too."""
     flat = x.reshape(-1, x.shape[-1])
     if flat.shape[0] <= rows:
-        return _mlp(cfg, lp, x, tokens=tokens)
-    out = torch.empty_like(flat)
+        return _mlp(cfg, lp, x, tokens=tokens, partial=partial)
+    out = torch.empty_like(flat, dtype=torch.float32 if partial else None)
     for r0 in range(0, flat.shape[0], rows):
-        out[r0:r0 + rows] = _mlp(cfg, lp, flat[r0:r0 + rows], tokens=tokens)
+        out[r0:r0 + rows] = _mlp(cfg, lp, flat[r0:r0 + rows], tokens=tokens,
+                                 partial=partial)
     return out.view(x.shape)
 
 
@@ -223,10 +314,20 @@ def _moe_mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     return out.reshape(shape)
 
 
-def embed_tokens(cfg: ModelConfig, params: dict,
-                 tokens: torch.Tensor) -> torch.Tensor:
-    """Token embedding, including Gemma's sqrt(E) scale."""
-    x = quant.embed_lookup(params["embed"], tokens, cfg.torch_dtype)
+def embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                 group=None) -> torch.Tensor:
+    """Token embedding, including Gemma's sqrt(E) scale; vocab-parallel
+    under a ``group`` whose shard splits the vocabulary."""
+    if not _sharded(group, ln.VOCAB):
+        x = quant.embed_lookup(params["embed"], tokens, cfg.torch_dtype)
+    else:
+        lo, hi = group.shard.cuts[ln.VOCAB]
+        mine = (tokens >= lo) & (tokens < hi)
+        x = quant.embed_lookup(params["embed"],
+                               torch.where(mine, tokens - lo, 0),
+                               cfg.torch_dtype)
+        # one rank holds each row: the sum adds only zeros to it
+        x = group.all_reduce(torch.where(mine[..., None], x, 0))
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=cfg.torch_dtype)
     return x
@@ -249,6 +350,7 @@ def forward_hidden(
     lora: Optional[dict] = None,
     ref_tokens: Optional[int] = None,
     mlp_rows: Optional[int] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, Any]:
     """Run the decoder stack from embedded activations.
 
@@ -260,7 +362,8 @@ def forward_hidden(
     ``ref_tokens`` is the token count of the reference's same call (module
     docstring); None means the rows of ``x``. ``mlp_rows`` runs the MLP
     over chunks of that many rows without LoRA (the dense scoring
-    forward's memory bound; None: all rows at once).
+    forward's memory bound; None: all rows at once). ``group``: this
+    rank's tensor-parallel group (module docstring), None on one device.
     Returns (hidden (..., T, E), kv_pool)."""
     layers = params["layers"]
     onehot = None if lora is None else lora["onehot"]
@@ -300,17 +403,22 @@ def forward_hidden(
         q = rotate(q, cos, sin)
         k = rotate(k, cos, sin)
         attn, kv_pool = attend(q, k, v, kv_pool, i)
-        o = quant.quant_matmul(attn, lp["wo"], 2, tokens=ref_tokens)
+        o = (_partial(attn, lp["wo"], 2) if _sharded(group, ln.HEADS)
+             else quant.quant_matmul(attn, lp["wo"], 2, tokens=ref_tokens))
         if lb is not None and "wo" in lb:
             o = o + _lora_delta(attn.flatten(-2), onehot, *lb["wo"])
+        o = _reduced(group, ln.HEADS, o, h.dtype)
         if cfg.post_norms:
             o = rms_norm(o, lp["post_attn_norm"], eps, off)
         h = h + o
         mlp_in = rms_norm(h, lp["mlp_norm"], eps, off)
         if mlp_rows is None or lb is not None:
-            mlp_out = _mlp(cfg, lp, mlp_in, lb, onehot, ref_tokens)
+            mlp_out = _mlp(cfg, lp, mlp_in, lb, onehot, ref_tokens,
+                           _sharded(group, ln.MLP))
         else:
-            mlp_out = _mlp_chunked(cfg, lp, mlp_in, ref_tokens, mlp_rows)
+            mlp_out = _mlp_chunked(cfg, lp, mlp_in, ref_tokens, mlp_rows,
+                                   _sharded(group, ln.MLP))
+        mlp_out = _reduced(group, ln.MLP, mlp_out, h.dtype)
         if cfg.post_norms:
             mlp_out = rms_norm(mlp_out, lp["post_mlp_norm"], eps, off)
         h = h + mlp_out
@@ -327,19 +435,22 @@ def forward_tokens(
     lora: Optional[dict] = None,
     ref_tokens: Optional[int] = None,
     mlp_rows: Optional[int] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, Any]:
     """Embed tokens, then run the decoder stack (see forward_hidden)."""
-    x = embed_tokens(cfg, params, tokens)
+    x = embed_tokens(cfg, params, tokens, group)
     return forward_hidden(cfg, params, x, positions, attend, kv_pool, lora,
-                          ref_tokens, mlp_rows)
+                          ref_tokens, mlp_rows, group)
 
 
 def logits_from_hidden(cfg: ModelConfig, params: dict,
                        hidden: torch.Tensor,
-                       tokens: Optional[int] = None) -> torch.Tensor:
+                       tokens: Optional[int] = None,
+                       group=None) -> torch.Tensor:
     """Final norm and LM head; float32 logits (..., T, V). ``tokens`` is
     the reference's row count for the head's int8 route (None: the rows
-    of ``hidden``)."""
+    of ``hidden``). Under a ``group`` that splits the vocabulary, each
+    rank's (..., T, V / tp) shard is gathered into the full logits."""
     hidden = rms_norm(hidden, params["final_norm"], cfg.rms_norm_eps,
                       cfg.norm_offset)
     head = (quant.head_from_embed(params["embed"]) if cfg.tie_word_embeddings
@@ -348,6 +459,8 @@ def logits_from_hidden(cfg: ModelConfig, params: dict,
         head = head.to(cfg.torch_dtype)
     logits = quant.quant_matmul(hidden, head, out_dtype=torch.float32,
                                 tokens=tokens)
+    if _sharded(group, ln.VOCAB):
+        logits = group.all_gather_last(logits)
     if cfg.final_logit_softcap:  # Gemma-2
         cap = cfg.final_logit_softcap
         logits = cap * torch.tanh(logits / cap)

@@ -1,0 +1,85 @@
+"""The engine's parallel sizes, as the reference's ``MeshConfig``
+(production_stack_tpu/parallel/mesh.py).
+
+The reference builds one named JAX mesh ("data", "stage", "seq",
+"tensor", "expert") over the chips of a slice. Here a mesh is a set of
+processes, one a rank, each driving one card (or the CPU), and only the
+``tensor`` axis can be above 1 so far: data parallelism, pipeline stages,
+ring prefill over ``seq`` and expert parallelism are later slices. -1 on
+an axis means "every device the others leave", as in the reference.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+AXIS_DATA = "data"
+AXIS_STAGE = "stage"
+AXIS_SEQ = "seq"
+AXIS_TENSOR = "tensor"
+AXIS_EXPERT = "expert"
+
+MESH_AXES = (AXIS_DATA, AXIS_STAGE, AXIS_SEQ, AXIS_TENSOR, AXIS_EXPERT)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Parallel sizes; -1 on one axis takes every remaining device."""
+
+    data: int = 1
+    stage: int = 1
+    seq: int = 1
+    tensor: int = -1
+    expert: int = 1
+
+    def resolved(self, n_devices: int) -> "MeshConfig":
+        """The reference's resolution: the -1 axis (at most one) takes
+        ``n_devices`` over the product of the fixed axes, and the sizes
+        must use every device."""
+        sizes = {f.name: getattr(self, f.name)
+                 for f in dataclasses.fields(self)}
+        unknown = [k for k, v in sizes.items() if v == -1]
+        if len(unknown) > 1:
+            raise ValueError(f"at most one mesh axis may be -1, got {unknown}")
+        if unknown:
+            known = math.prod(v for v in sizes.values() if v != -1)
+            if n_devices % known:
+                raise ValueError(
+                    f"{n_devices} devices not divisible by fixed axes "
+                    f"product {known}"
+                )
+            sizes[unknown[0]] = n_devices // known
+        if math.prod(sizes.values()) != n_devices:
+            raise ValueError(
+                f"mesh {sizes} does not use all {n_devices} devices"
+            )
+        return MeshConfig(**sizes)
+
+    @property
+    def shape(self) -> dict:
+        """Axis name -> size, as a JAX mesh's ``shape``."""
+        return {a: getattr(self, a) for a in MESH_AXES}
+
+
+def tensor_size(mesh: MeshConfig, device) -> int:
+    """The tensor-parallel degree an engine on ``device`` runs at. A fixed
+    size is taken as given. -1 resolves as ``MeshConfig.resolved`` does
+    over the devices a rank can have: every visible card on ``cuda``
+    (at least 1, so that a machine without one fails where the device is
+    asked for), one process on the CPU. Only the tensor axis is ported:
+    another axis above 1 raises."""
+    for axis in (AXIS_DATA, AXIS_STAGE, AXIS_SEQ, AXIS_EXPERT):
+        if getattr(mesh, axis) != 1:
+            raise ValueError(f"mesh axis {axis!r} = {getattr(mesh, axis)}: "
+                             "only tensor parallelism is ported")
+    if mesh.tensor != -1:
+        if mesh.tensor < 1:
+            raise ValueError(f"tensor-parallel size {mesh.tensor} < 1")
+        return mesh.tensor
+    n = 1
+    if str(device).startswith("cuda"):
+        import torch
+
+        n = max(torch.cuda.device_count(), 1)
+    return MeshConfig(tensor=-1).resolved(n).tensor

@@ -295,3 +295,44 @@ def test_resilience_static_imports(module):
     path = ROOT / (module.replace(".", "/") + ".py")
     bad = [m for m in _imports(path) if _resilience_bad(m)]
     assert bad == [], f"{path.name} imports {bad}"
+
+
+TENSOR_PARALLEL = ("production_stack_tpu_torch.parallel",
+                   "production_stack_tpu_torch.parallel.mesh",
+                   "production_stack_tpu_torch.parallel.shardings",
+                   "production_stack_tpu_torch.parallel.distributed",
+                   "production_stack_tpu_torch.engine.multihost")
+
+
+def test_tensor_parallel_prefix_trap():
+    """The reference's modules of the same names are forbidden, the
+    port's are not."""
+    for name in TENSOR_PARALLEL:
+        assert not forbidden(name)
+        assert forbidden(name.replace("production_stack_tpu_torch",
+                                      "production_stack_tpu"))
+
+
+def test_tensor_parallel_modules_load_no_jax():
+    """The rank plumbing (and a follower's entry point) loads neither JAX
+    nor the JAX package's parallel or multihost modules."""
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {TENSOR_PARALLEL!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(TENSOR_PARALLEL) <= set(mods)
+    assert [m for m in mods if forbidden(m)] == []
+
+
+@pytest.mark.parametrize("module", TENSOR_PARALLEL)
+def test_tensor_parallel_static_imports(module):
+    path = ROOT / (module.replace(".", "/") + ".py")
+    if path.with_suffix("").is_dir():
+        path = path.with_suffix("") / "__init__.py"
+    bad = [m for m in _imports(path) if forbidden(m)]
+    assert bad == [], f"{path.name} imports {bad}"

@@ -853,3 +853,62 @@ def test_chained_graphs_equal_unchained(cuda):
         runs[chain] = _graph_wave(eng, logprobs=None)
         assert eng._pending_decode is None
     assert runs[True] == runs[False]
+
+
+# -- tensor parallelism: ranks sharing this card over gloo --------------------
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tensor_parallel_ranks_on_one_card_match_cpu(cuda, tp):
+    """float32 tiny-llama at tensor-parallel size ``tp``, every rank on
+    this card over gloo (at tp 4 its two KV heads are replicated, so the
+    kernels run at a local group size of 1): greedy tokens equal the CPU's
+    at tp 1 on the ragged and the bucketed path, every rank's token digest
+    is rank 0's, and every rank launched K1 and K3, with K2 on the ragged
+    path and K4 on the bucketed one."""
+    from production_stack_tpu_torch.engine.config import (
+        CacheConfig,
+        EngineConfig,
+        SchedulerConfig,
+    )
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+    from production_stack_tpu_torch.engine.weights import init_random
+    from production_stack_tpu_torch.parallel.mesh import MeshConfig
+
+    params = init_random(EngineConfig.for_model("tiny-llama").model, seed=0)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 259, int(n)).tolist()
+               for n in rng.integers(3, 90, 8)]
+    sp = SamplingParams(temperature=0.0, max_tokens=16, ignore_eos=True)
+
+    def serve(eng):
+        for i, p in enumerate(prompts):
+            eng.add_request(str(i), prompt_token_ids=p, sampling=sp)
+        toks = {}
+        while eng.has_unfinished():
+            for o in eng.step():
+                toks.setdefault(o.request_id, []).extend(o.new_token_ids)
+        return toks
+
+    for impl, attn in (("ragged", "K2"), ("bucketed", "K4")):
+        def cfg(n):
+            return EngineConfig.for_model(
+                "tiny-llama", cache=CacheConfig(block_size=16,
+                                                num_blocks=128),
+                scheduler=SchedulerConfig(max_num_seqs=8,
+                                          max_num_batched_tokens=64),
+                attention_impl=impl, mesh=MeshConfig(tensor=n))
+
+        cpu = serve(LLMEngine(cfg(1), params=params, device="cpu"))
+        eng = LLMEngine(cfg(tp), params=params, device=cuda,
+                        rank_devices=["cuda:0"] * tp, backend="gloo")
+        try:
+            card = serve(eng)
+            reports = eng.runner.follower_reports()
+        finally:
+            eng.close()
+        assert card == cpu, impl
+        assert len({(r["calls"], r["digest"]) for r in reports}) == 1
+        for r in reports:
+            launched = {k for k, n in r["launches"].items() if n}
+            assert {"K1", "K3", attn} <= launched, (impl, r)

@@ -8,7 +8,12 @@ adapter root that keys LoRA blocks in every tier.
   prefetched blocks and move the same bytes, and serve the same tokens
   (the port's also equal a tier-less run). The JAX engine demotes an
   evicted block with one export each; the port copies a decision's
-  evictions down in one batch before the step's dispatch.
+  evictions down in one batch before the step's dispatch. Both engines
+  look their tiers up on a thread pool, and when a lookup lands decides
+  which step admits its sequence, and so which blocks the pool evicts:
+  the drill runs each engine's lookups at one fixed point instead, right
+  after the step that submitted them (``_settle``), so the counts compare
+  the same schedule on a loaded machine too.
 - ``adapter_root`` is a digest of the adapter's weights: the same in two
   interpreters with different ``PYTHONHASHSEED``s, never the base seed,
   and an adapter's blocks offloaded to the host tier never prefix-hit a
@@ -16,6 +21,7 @@ adapter root that keys LoRA blocks in every tier.
   chain and would serve them).
 """
 
+import concurrent.futures
 import json
 import os
 import pathlib
@@ -84,7 +90,48 @@ def _counts(eng) -> dict:
     }
 
 
+class _StepExecutor:
+    """A prefetcher's executor that runs each submitted lookup when told
+    (``run``), on the caller's thread."""
+
+    def __init__(self):
+        self.queue = []
+
+    def submit(self, fn, *args):
+        fut = concurrent.futures.Future()
+        self.queue.append((fut, fn, args))
+        return fut
+
+    def run(self) -> None:
+        queue, self.queue = self.queue, []
+        for fut, fn, args in queue:
+            try:
+                fut.set_result(fn(*args))
+            except Exception as e:  # the engine reads it as a miss
+                fut.set_exception(e)
+
+    def shutdown(self, wait: bool = True) -> None:
+        self.queue = []
+
+
+def _settle(eng):
+    """Run ``eng``'s tier lookups right after the step that submitted
+    them, so each lands at the next step's poll whatever the load."""
+    pf = eng._prefetcher
+    pf._io.shutdown(wait=True)
+    pf._io = ex = _StepExecutor()
+    step = eng.step
+
+    def settled_step():
+        out = step()
+        ex.run()
+        return out
+
+    eng.step = settled_step
+
+
 def _waves(eng):
+    _settle(eng)
     runs = []
     for tag, wave in (("a1", WAVE_A), ("b", WAVE_B), ("a2", WAVE_A)):
         runs.append(drain(eng, [(f"{tag}-{i}", p, GREEDY)

@@ -768,7 +768,13 @@ def test_router_joins_engine_records(port_url, tmp_path):
                 **GREEDY}, headers={"x-request-id": "obs-joined"})
             assert r.status == 200
             assert r.headers.get("x-request-id") == "obs-joined"
-            doc = await (await client.get("/debug/requests")).json()
+            # the router records a request once its handler has returned,
+            # which may be after the client has the answer
+            for _ in range(200):
+                doc = await (await client.get("/debug/requests")).json()
+                if doc["router"]["requests"]:
+                    break
+                await asyncio.sleep(0.05)
             return doc
         finally:
             await client.close()
@@ -818,3 +824,54 @@ def test_router_incident_fanout_captures_on_the_port(port_url, tmp_path):
         manifest = json.load(f)
     assert manifest["detail"]["incident"] == inc_id
     assert manifest["errors"] == {}
+
+
+CHART_TEMPLATES = ("deployment-engine.yaml",
+                   "statefulset-engine-multihost.yaml")
+# the init container's download flags, another program's
+NOT_ENGINE_FLAGS = {"--dest", "--uri"}
+
+
+def _engine_flags(template: str) -> list:
+    """Every flag the template's engine container can pass."""
+    text = (ROOT / "helm/templates" / template).read_text()
+    return sorted(set(re.findall(r'- "(--[a-z0-9-]+)"', text))
+                  - NOT_ENGINE_FLAGS)
+
+
+CHART_FLAGS = [(t, f) for t in CHART_TEMPLATES for f in _engine_flags(t)]
+
+
+def _sample(action) -> list:
+    """A value the chart could give ``action``'s flag."""
+    if action.nargs == 0:
+        return []
+    if action.choices:
+        return [str(list(action.choices)[-1])]
+    if action.type is int:
+        return ["2"]
+    if action.type is float:
+        return ["0.5"]
+    return ["sample"]
+
+
+def test_chart_flags_cover_the_parallel_sizes():
+    """The templates pass the parallel sizes the port once refused."""
+    flags = {f for _, f in CHART_FLAGS}
+    assert {"--tensor-parallel-size", "--data-parallel-size",
+            "--pipeline-parallel-size"} <= flags
+
+
+@pytest.mark.parametrize("template,flag", CHART_FLAGS)
+def test_chart_engine_flag_parses_like_the_reference(template, flag):
+    """Each flag an engine template passes parses in the port's parser
+    to the reference's dest, value and default."""
+    ref = jax_server_mod.build_parser()
+    port = port_server_mod.build_parser()
+    want = next(a for a in ref._actions if flag in a.option_strings)
+    got = next(a for a in port._actions if flag in a.option_strings)
+    argv = [flag] + _sample(want)
+    assert got.dest == want.dest
+    assert (getattr(port.parse_args(argv), got.dest)
+            == getattr(ref.parse_args(argv), want.dest))
+    assert port.get_default(got.dest) == ref.get_default(want.dest)

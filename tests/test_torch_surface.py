@@ -418,9 +418,10 @@ def test_profile_returns_gzip_and_refuses_overlap(weights):
 def test_debug_perf_keys_are_the_reference_s(weights):
     ref = jperf.PerfAccountant(JaxModelConfig.from_pretrained("tiny-llama"),
                                param_count=1, param_bytes=1).snapshot()
-    # the blocks the reference's route adds beside the snapshot
+    # the blocks the reference's route adds beside the snapshot, and the
+    # port's tensor-parallel ranks (the reference's mesh has no processes)
     ref_keys = set(ref) | {"speculative", "kv_transfer", "kv_tier",
-                           "tenants", "perf_ledger"}
+                           "tenants", "perf_ledger", "ranks"}
     server, url = _server(weights)
     try:
         assert http_json(f"{url}/v1/completions", {
