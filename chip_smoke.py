@@ -75,7 +75,8 @@ fatal):
    base, adapter and guided rows. Then the bucketed path with the adapter
    and grammars (K1, K3 and K4 launch).
 7. The surface the router and the fleet read: llama-3-8b (bf16, ragged)
-   through the server's command-line defaults, so the launch warmup runs:
+   through the server's command-line defaults but a 15 s accountant
+   window (``--perf-window 15``), so the launch warmup runs:
    ``/ready`` answers 503 ``warming``, then 200, and
    ``vllm:engine_warming`` goes 1 -> 0 (warmup seconds and compile events
    printed). A mixed wave of 16 requests (64-1024 tokens, greedy and
@@ -84,7 +85,7 @@ fatal):
    (parsed here) equal the wave's usage sums, and prefix-cache hits are
    > 0. ``/kv/lookup`` matches the repeated prompt's full blocks and none
    of a fresh one. A prefill window (16 x 1024 tokens, one out) and a
-   64-row x 64-token decode window, each alone in the accountant's 60 s
+   64-row x 64-token decode window, each alone in the accountant's 15 s
    window: ``/debug/perf``'s MFU and HBM-bandwidth utilization in (0,
    1.05], beside the client's token rate and ``/metrics``' latency under
    load. ``/debug/profile`` during a wave returns a trace naming K2's and
@@ -272,24 +273,63 @@ fatal):
    them under ``also``). (c) The server in a fresh process
    (``chip_smoke.py --tp-server PORT``, ``server.main`` with both ranks on
    cuda:0 over gloo): 8 concurrent requests answer 200 with their 16
-   tokens; after SIGTERM, no rank's process is alive within 10 s. Then
+   tokens; phase 16 (c)'s routes; after SIGTERM, no rank's process is
+   alive within 3 s. Then
    ``--tensor-parallel-size 2`` on the command line (rank r on cuda:r)
    exits non-zero naming the card count. (d) Printed, not judged: an
    eager 64-row decode step and a 2048-token ragged step at tp 2 beside
    tp 1, and the phase's seconds: two ranks share one card over gloo, so
    none of these is a tensor-parallel speed. K1-K4 launch (K2 on the
    ragged path, K4 on the bucketed one).
+16. The model's features at tensor-parallel size 2 (``tp2-features``),
+   both ranks on this card over gloo. (a) mixtral-8x7b in int8, phase 8's
+   configuration at full width and depth on the ragged path (a rank
+   holds every expert's half of F: 23.5 GB of weights), 2048 KV blocks a
+   rank, prefix cache off: 16 greedy prompts (64-256 tokens) x 32 tokens
+   against tp 1's answers, taken on phase 8's engine before its release
+   with its slots handed out as a fresh engine's (a ragged step packs
+   spans in slot order, and the tokens past an expert's capacity follow
+   it). There an identical repeat must be bit for bit, and the same 16
+   requests at once again with tp 2's row-parallel float sums made on the
+   one device (``_RankSums``: ``wo`` and the experts' ``w_down`` as two
+   float32 partials) give tp 1's own deviation at the same batch. tp 2's
+   first ragged step must equal that one-device step in every MoE block's
+   input and output bit for bit, its logprobs within two bf16 steps of
+   its largest logit (the vocab-cut head's own rounding); a decode step
+   from an empty context must equal tp 1's bit for bit; the step beside
+   plain tp 1's, layer by layer, is printed (``_FirstStepProbe``). The
+   wave's tokens equal tp 1's up to flips where tp 1's top-2 gap is under
+   max(``INT8_TIE_GAP``, twice the largest at the one-device repeat's
+   flips), logprobs within max(``INT8_LP_BAND``, twice its deviation);
+   the follower's digest and launches rank 0's; K1-K3 launch, K4 not; a
+   rank's weight bytes, KV blocks and engine-up seconds printed. (b)
+   llama-3-8b bf16 with a rank-16 adapter on all seven targets (written
+   here in numpy), on phase 15's tp 1 and tp 2 engines
+   after their own waves, ragged and bucketed: the adapter loaded (at tp
+   2 each rank receives its share), one wave of 8 prompts (64-256 tokens,
+   16 out), base and adapter rows, and prompt 0 again with the adapter;
+   tokens equal tp 1's up to a near-tie,
+   logprobs within max(0.05, twice tp 1's own deviation), the adapter
+   changes prompt 0's tokens at both, the follower = rank 0. (c) On
+   phase 15's server: ``/v1/load_lora_adapter``, a completion naming the
+   adapter and ``/v1/unload_lora_adapter`` answer 200; ``/kv/export`` and
+   ``/kv/recv`` 501. (d) Printed, not judged: (a)'s 64-row decode step
+   (contexts ~32-48) and 2048-token ragged step, twice each, their share
+   in collectives and the bytes each collective kind sent. Phase 16's
+   waves prefill in one or two steps: at tp 2 over gloo a step's
+   collectives take seconds.
 
 Phases 4-14 run with decode graphs on, the default; phase 5's bf16 run
 through the plain versions decodes eagerly (a plain version synchronises
-with the host, which a capture cannot hold), and so does phase 15 (a
-gloo collective cannot be captured).
+with the host, which a capture cannot hold), and so do phases 15 and 16
+(a gloo collective cannot be captured).
 
 The line before the card line carries the kernels' JSON record, whose
 ``launches`` sum each kernel's launches over every served path (each
 path's own counts are in ``launches_by_path``, ``moe-int8``, ``kv-plane``,
 ``scoring-surface``, ``whisper``, ``overload``, ``observability``,
-``decode-graphs`` and ``tp2`` (rank 0's) among them; a graph replay adds
+``decode-graphs``, ``tp2``, ``tp2-lora-ragged``, ``tp2-lora-bucketed``
+and ``tp2-moe-int8`` (rank 0's) among them; a graph replay adds
 the launches its capture recorded); the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -301,6 +341,7 @@ import concurrent.futures
 import dataclasses
 import gc
 import json
+import math
 import pathlib
 import re
 import socket
@@ -2457,6 +2498,12 @@ def _compile_events(runner) -> list:
     return events
 
 
+# phase 7's accountant window (``--perf-window``; the CLI's default is
+# 60 s): each utilization window is read alone in it after a pause this
+# long
+SURFACE_PERF_WINDOW = 15.0
+
+
 def surface_phase(torch, np, counters, card: str) -> dict:
     """Phase 7: llama-3-8b (bf16, ragged) through the server's command-line
     defaults, warmup on: /ready warming -> ready, the mixed wave and its
@@ -2471,7 +2518,9 @@ def surface_phase(torch, np, counters, card: str) -> dict:
     )
 
     model = "llama-3-8b"
-    args = build_parser().parse_args(["--model", model, "--seed", "0"])
+    args = build_parser().parse_args(["--model", model, "--seed", "0",
+                                      "--perf-window",
+                                      str(SURFACE_PERF_WINDOW)])
     server = server_from_args(args)
     eng = server.engine
     events = _compile_events(eng.runner)
@@ -2526,9 +2575,9 @@ def surface_phase(torch, np, counters, card: str) -> dict:
                 or fresh["matched_tokens"] != 0):
             raise AssertionError(f"[surface] /kv/lookup: {hit}, {fresh}")
         log(f"[surface] /kv/lookup: repeated prompt {hit}, fresh {fresh}")
-        # the accountant's 60 s window holds only a window's dispatches
-        # once the earlier ones are older than that
-        time.sleep(61)
+        # the accountant's window holds only a window's dispatches once
+        # the earlier ones are older than that
+        time.sleep(SURFACE_PERF_WINDOW + 1)
         w = _surface_prefill_window(base, model, rng)
         perf = w["perf"]
         _utilizations(perf, "prefill window")
@@ -2539,7 +2588,7 @@ def surface_phase(torch, np, counters, card: str) -> dict:
             f"measured/predicted {perf['costmodel']['drift_ratio']}; client "
             f"{w['client_prompt_tok_per_s']:.1f} prompt tok/s over "
             f"{w['wall_s']:.2f} s")
-        time.sleep(61)
+        time.sleep(SURFACE_PERF_WINDOW + 1)
         w = _decode_window(base, model, rng)
         perf = w["perf"]
         mfu, hbm = _utilizations(perf, "decode window")
@@ -2584,7 +2633,7 @@ def surface_phase(torch, np, counters, card: str) -> dict:
 # is within this band.
 INT8_TIE_GAP = 0.05
 # the accountant's window in phase 8: the prefill window is read alone in
-# it after a pause this long, not after phase 7's 61 s
+# it after a pause this long
 MOE_PERF_WINDOW = 10.0
 
 
@@ -2846,7 +2895,8 @@ def int8_cosine_check(torch, np) -> dict:
     return cos
 
 
-def moe_int8_phase(torch, np, counters, card: str) -> dict:
+def moe_int8_phase(torch, np, counters, card: str,
+                   tp_ref: dict | None = None) -> dict:
     """Phase 8: mixtral-8x7b at full width and depth in int8 (bf16
     activations, ``--quantization int8``, random weights from seed 0 made
     on the card) through the HTTP server on the ragged path, without the
@@ -2855,8 +2905,9 @@ def moe_int8_phase(torch, np, counters, card: str) -> dict:
     output tok/s and median TTFT printed; /debug/perf read after a prefill
     window alone in the accountant's window (MFU in (0, 1.05]); a profile
     of one 2048-token ragged step and 16 decode steps at 64 rows. Then
-    llama-3-8b int8 against bf16 (``int8_cosine_check``). Returns the
-    wave's launches."""
+    llama-3-8b int8 against bf16 (``int8_cosine_check``). A ``tp_ref``
+    dict is filled, before the engine is released, with phase 16 (a)'s tp
+    1 answers (``moe_tp_reference``). Returns the wave's launches."""
     from production_stack_tpu_torch.engine import quant
     from production_stack_tpu_torch.engine.server import (
         EngineServer,
@@ -2931,6 +2982,8 @@ def moe_int8_phase(torch, np, counters, card: str) -> dict:
     finally:
         server.shutdown()
     _moe_profile(torch, np, eng, card)
+    if tp_ref is not None:
+        tp_ref.update(moe_tp_reference(torch, np, eng))
     del server, eng, params, leaves
     _released(torch, "moe-int8")
     int8_cosine_check(torch, np)
@@ -5693,6 +5746,14 @@ def decode_graphs_phase(torch, np, counters, card: str) -> dict:
 
 TP_NOTE = "two ranks share one card over gloo: not a TP speed"
 TP_BLOCKS = 2048
+# phase 16 (c): the tp 2 server's ranks are gone this long after SIGTERM
+TP_GONE_S = 3.0
+# phase 16 (a): mixtral-8x7b's KV blocks a rank (1 MiB each at KH 4 a
+# rank); the 16 prompts need at most 16 x 67
+MOE_TP_BLOCKS = 2048
+# phase 16 (a)'s least band: the CPU tests' int8 band (test_torch_quant.py),
+# an activation on a rounding boundary rounding either way
+INT8_LP_BAND = 0.05
 
 
 def _tp_engine(impl: str, tp: int):
@@ -5723,12 +5784,17 @@ def _tp_prompts(np) -> list:
             for n in rng.integers(64, 1025, 16)]
 
 
+# RankGroup's device-group collectives
+TP_COLLECTIVES = ("all_reduce", "all_reduce_int32", "all_reduce_max",
+                  "all_gather_last")
+
+
 def _tp_collective_clock(torch, ranks) -> list:
-    """Time rank 0's collectives: ``ranks``' all-reduce and all-gather
-    add their host wall (synchronised on both sides) to the returned
-    cell until ``del``eted from the instance."""
+    """Time rank 0's collectives: each of ``ranks``' collectives adds its
+    host wall (synchronised on both sides) to the returned cell until
+    ``del``eted from the instance."""
     spent = [0.0]
-    for name in ("all_reduce", "all_gather_last"):
+    for name in TP_COLLECTIVES:
         def timed(x, _fn=getattr(ranks, name)):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -5740,37 +5806,48 @@ def _tp_collective_clock(torch, ranks) -> list:
     return spent
 
 
-def _tp_steps(torch, np, eng, card: str, label: str) -> dict:
-    """(d) An eager decode step at 64 rows (~130-token contexts) and a
-    2048-token ragged step, host wall to a synchronise, three each; at tp
-    2 also the share of it rank 0 spends in collectives."""
+def _tp_steps(torch, np, eng, card: str, label: str, length: int = 128,
+              reps: int = 3) -> dict:
+    """(d) An eager decode step at 64 rows (contexts of ``length`` + a few
+    tokens) and a 2048-token ragged step, host wall to a synchronise,
+    ``reps`` each; at tp 2 also the share of it rank 0 spends in
+    collectives and the bytes each kind of collective put on the wire
+    (``RankGroup.wire``)."""
     rng = np.random.default_rng(16)
     ranks = eng.runner.ranks
     spent = [0.0] if ranks is None else _tp_collective_clock(torch, ranks)
+    wire = {}
 
-    def timed_step() -> tuple:
+    def timed_step(kind: str) -> tuple:
         spent[0] = 0.0
+        sent = dict(ranks.wire) if ranks is not None else {}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         eng.step()
         torch.cuda.synchronize()
+        if ranks is not None:
+            wire[kind] = {op: n - sent.get(op, 0.0)
+                          for op, n in ranks.wire.items()
+                          if n != sent.get(op, 0.0)}
         return (time.perf_counter() - t0) * 1e3, spent[0] * 1e3
 
-    _dg_admit(np, eng, rng, f"{label}-d", 64, 128, 64)
-    decode = [timed_step() for _ in range(3)]
+    _dg_admit(np, eng, rng, f"{label}-d", 64, length, 64)
+    decode = [timed_step("decode_64") for _ in range(reps)]
     _dg_clear(eng)
     ragged = []
-    for i in range(3):
+    for i in range(reps):
         _add_requests(eng, rng, f"{label}-r{i}-", 1, 2048, 1)
-        ragged.append(timed_step())
+        ragged.append(timed_step("ragged_2048"))
         _dg_clear(eng)
     if ranks is not None:
-        del ranks.all_reduce, ranks.all_gather_last
+        for name in TP_COLLECTIVES:
+            delattr(ranks, name)
     out = {"decode_64_ms": statistics.median(t for t, _ in decode),
            "decode_64_collective_ms": statistics.median(c for _, c in decode),
            "ragged_2048_ms": statistics.median(t for t, _ in ragged),
            "ragged_2048_collective_ms": statistics.median(
-               c for _, c in ragged)}
+               c for _, c in ragged),
+           "wire_bytes_a_step": wire}
     log(f"[tp] (d) {label} ({card}; {TP_NOTE}): {json.dumps(out)}")
     return out
 
@@ -5858,12 +5935,39 @@ def _pid_alive(pid: int) -> bool:
         return False
 
 
-def _tp_server(np, card: str) -> dict:
+def _tpf_server_routes(base: str, adapter: str) -> dict:
+    """Phase 16 (c) on the tp 2 server: ``adapter`` loads over
+    ``/v1/load_lora_adapter`` (200), a completion naming it answers 200
+    with its 16 tokens, it unloads (200); ``/kv/export`` and ``/kv/recv``
+    answer 501 naming tensor parallelism."""
+    lora = {"lora_name": "tp-adapter", "lora_path": adapter}
+    t0 = time.perf_counter()
+    loaded = _http(base, "/v1/load_lora_adapter", lora)[0]
+    load_s = time.perf_counter() - t0
+    status, n_out, _ = _request(base + "/v1/completions", {
+        "model": "tp-adapter", "prompt": list(range(100, 164)),
+        "max_tokens": 16, "temperature": 0.0, "ignore_eos": True}, False)
+    unloaded = _http(base, "/v1/unload_lora_adapter", lora)[0]
+    kv = {}
+    for path in ("/kv/export", "/kv/recv"):
+        code, _, raw = _http(base, path, {"block_ids": [0]})
+        kv[path] = code
+        if code != 501 or b"tensor parallelism" not in raw:
+            raise AssertionError(f"[tp2-features] (c) {path}: {code} {raw!r}")
+    out = {"load": loaded, "load_s": load_s, "completion": status,
+           "completion_tokens": n_out, "unload": unloaded, "kv": kv}
+    if (loaded, status, n_out, unloaded) != (200, 200, 16, 200):
+        raise AssertionError(f"[tp2-features] (c) adapter routes: {out}")
+    return out
+
+
+def _tp_server(np, card: str, adapter: str) -> dict:
     """(c) The server in a fresh process at tp 2 on this card: 8
-    concurrent requests answer 200 with their tokens; after SIGTERM no
-    rank's process is alive within 10 s. Then ``--tensor-parallel-size 2``
-    from the command line, ranks on cuda:r, exits non-zero naming the
-    card count."""
+    concurrent requests answer 200 with their tokens; phase 16 (c)'s
+    adapter and KV routes (``_tpf_server_routes``); after SIGTERM no
+    rank's process is alive within ``TP_GONE_S``. Then
+    ``--tensor-parallel-size 2`` from the command line, ranks on cuda:r,
+    exits non-zero naming the card count."""
     import os
     import signal
     import tempfile
@@ -5912,15 +6016,21 @@ def _tp_server(np, card: str) -> dict:
         for status, n_out, _ in outs:
             if status != 200 or n_out != 16:
                 raise AssertionError(f"[tp] (c) {status}, {n_out} tokens")
+        routes = _tpf_server_routes(base, adapter)
+        log(f"[tp2-features] (c) the tp 2 server's routes ({card}): "
+            f"{json.dumps(routes)}")
         t_stop = time.perf_counter()
         proc.send_signal(signal.SIGTERM)
-        rc = proc.wait(60)
+        # the follower ranks, watched from the signal on (a follower's
+        # zombie, not yet reaped by the server, counts as gone)
         while any(_pid_alive(p) for p in pids[1:]):
-            if time.perf_counter() - t_stop > 10:
-                raise AssertionError(f"[tp] (c) ranks {pids} alive 10 s "
-                                     "after the stop")
-            time.sleep(0.05)
+            if time.perf_counter() - t_stop > TP_GONE_S:
+                raise AssertionError(f"[tp] (c) ranks {pids[1:]} alive "
+                                     f"{TP_GONE_S} s after the stop")
+            time.sleep(0.02)
         gone = time.perf_counter() - t_stop
+        rc = proc.wait(60)
+        exited = time.perf_counter() - t_stop
         if rc != 0:
             raise AssertionError(f"[tp] (c) the server exited {rc}:\n"
                                  f"{server_log()}")
@@ -5942,7 +6052,8 @@ def _tp_server(np, card: str) -> dict:
         raise AssertionError(f"[tp] (c) the CLI at tp 2 on {n} card(s): rc "
                              f"{cli.returncode}, {cli.stderr[-400:]}")
     out = {"up_s": up, "wave_s": wave, "requests": len(outs),
-           "ranks_gone_s": gone, "exit": rc,
+           "routes": routes, "ranks_gone_s": gone, "server_exit_s": exited,
+           "exit": rc,
            "cli_refusal": cli.stderr.strip().splitlines()[-1]}
     log(f"[tp] (c) server ({card}; {TP_NOTE}): {json.dumps(out)}")
     return out
@@ -5974,21 +6085,26 @@ def _tp_dev(ref: tuple, got: tuple) -> tuple:
     return compared, worst, flips
 
 
-def _tp_same(tag: str, ref: tuple, got: tuple, band: float) -> tuple:
+def _tp_same(tag: str, ref: tuple, got: tuple, band: float,
+             tie_gap: float | None = None) -> tuple:
     """``got``'s greedy tokens (``_greedy_tokens``' runs) equal ``ref``'s
     request by request up to a near-tie, as phase 9 holds them: at a flip
     the two runs' logprobs of their own tokens differ by less than
     ``band`` (a bf16 logit in [8, 16) moves in steps of 0.0625, so the two
-    candidates can swap places), and before it every logprob is within
-    ``band``. Returns (tokens compared, the largest deviation)."""
+    candidates can swap places), or, given a ``tie_gap``, ``ref``'s top-2
+    gap there is under it (``_compare_greedy``); before it every logprob
+    is within ``band``. Returns (tokens compared, the largest
+    deviation)."""
     (ref_t, ref_l), (got_t, got_l) = ref, got
     compared, worst, flips = _tp_dev(ref, got)
     for i, n in flips:
-        if abs(ref_l[i][n][0] - got_l[i][n][0]) >= band:
+        if (ref_l[i][n][1] >= tie_gap if tie_gap is not None
+                else abs(ref_l[i][n][0] - got_l[i][n][0]) >= band):
             raise AssertionError(
                 f"[tp] {tag}: request {i} step {n}: {got_t[i][n]} != "
                 f"{ref_t[i][n]}, logprobs {ref_l[i][n][0]:.4f} and "
-                f"{got_l[i][n][0]:.4f} (band {band:.4f})")
+                f"{got_l[i][n][0]:.4f}, top-2 gap {ref_l[i][n][1]:.4f} (band "
+                f"{band:.4f}, tie gap {tie_gap})")
         log(f"[tp] {tag}: near-tie at request {i} step {n} (logprobs "
             f"{ref_l[i][n][0]:.4f}, {got_l[i][n][0]:.4f}; top-2 gap "
             f"{ref_l[i][n][1]:.4f}); compared up to it")
@@ -5998,59 +6114,151 @@ def _tp_same(tag: str, ref: tuple, got: tuple, band: float) -> tuple:
     return compared, worst
 
 
-def _tp_reference(torch, np, impl: str, card: str, prompts, sp) -> dict:
+def _tp_repeat_dev(eng, prompts, sp, ref: tuple, slots=None) -> float:
+    """The engine's own deviation from ``ref``: the same requests 2 at a
+    time, so every prefill step runs in other shapes on both paths (an
+    identical repeat is bit for bit, and 4 at a time is the bucketed
+    path's own batch)."""
+    starts = range(0, len(prompts), 2)
+    again = [_greedy_tokens(eng, prompts[k:k + 2], sp,
+                            slots and slots[k:k + 2]) for k in starts]
+    _, rep, _ = _tp_dev(ref, tuple(
+        {k + i: run[c][i] for k, run in zip(starts, again) for i in run[c]}
+        for c in (0, 1)))
+    return rep
+
+
+def _tpf_prompts(np, n: int) -> list:
+    """Phase 16's ``n`` prompts of 64-256 tokens: at tp 2 over gloo a
+    prefill step pays seconds in collectives (phase 15 (d)), so its waves
+    prefill in one or two steps."""
+    rng = np.random.default_rng(16)
+    return [rng.integers(0, 32000, int(n)).tolist()
+            for n in rng.integers(64, 257, n)]
+
+
+def _tp_lora_wave(eng, lora: dict) -> tuple:
+    """Phase 16 (b) on an engine: the adapter loaded as the server's route
+    loads it (``LoraManager``: at tp 2 each rank gets its share), then one
+    wave of ``lora``'s prompts, base and adapter rows, every odd prompt
+    with the adapter and prompt 0 again with it. Returns (the run, the
+    prompts, their slots)."""
+    from production_stack_tpu_torch.engine.lora import LoraManager
+
+    manager = LoraManager(eng)
+    manager.load("tp-adapter", lora["adapter"])
+    prompts, sp = lora["prompts"], lora["sp"]
+    wave = list(prompts) + [prompts[0]]
+    slots = [i % 2 for i in range(len(prompts))] + [
+        manager.slot_of("tp-adapter")]
+    return _greedy_tokens(eng, wave, sp, slots), wave, slots
+
+
+def _tp_reference(torch, np, impl: str, card: str, prompts, sp,
+                  lora: dict) -> dict:
     """The tp 1 engine on ``impl``, twice: its own repeat deviation sets
-    (a)'s band; on the ragged path (d)'s step times too. Released after."""
+    (a)'s band; on the ragged path (d)'s step times too; then phase 16
+    (b)'s adapter wave (``_tp_lora_wave``) and its own repeat deviation.
+    Released after."""
     eng = _tp_engine(impl, 1)
     ref = _greedy_tokens(eng, prompts, sp)
-    # the engine's own deviation: the same requests 2 at a time, so every
-    # prefill step runs in other shapes on both paths (an identical repeat
-    # is bit for bit, and 4 at a time is the bucketed path's own batch)
-    again = [_greedy_tokens(eng, prompts[k:k + 2], sp)
-             for k in range(0, len(prompts), 2)]
-    _, rep, _ = _tp_dev(ref, tuple(
-        {k + i: run[c][i] for k, run in zip(range(0, len(prompts), 2), again)
-         for i in run[c]} for c in (0, 1)))
+    rep = _tp_repeat_dev(eng, prompts, sp, ref)
     steps = (_tp_steps(torch, np, eng, card, f"tp1-{impl}")
              if impl == "ragged" else None)
+    run, wave, slots = _tp_lora_wave(eng, lora)
+    lora_rep = _tp_repeat_dev(eng, wave, lora["sp"], run, slots)
     del eng
     _released(torch, f"tp1 {impl}")
     return {"run": ref, "repeat_dev": rep, "steps": steps,
-            "band": max(BF16_LOGPROB_BAND, 2 * rep)}
+            "band": max(BF16_LOGPROB_BAND, 2 * rep),
+            "lora": {"run": run, "repeat_dev": lora_rep,
+                     "band": max(BF16_LOGPROB_BAND, 2 * lora_rep)}}
+
+
+def _zero(counters) -> None:
+    for ctr in counters:
+        ctr.n = 0
+
+
+def _counts(counters) -> dict:
+    return {ctr.name.split()[0]: ctr.n for ctr in counters}
+
+
+def _tp_agree(tag: str, reports: list, launches: dict,
+              before: list | None = None) -> None:
+    """Every rank's token digest and call count rank 0's, and the
+    follower's kernel launches since ``before`` (its reports then; its
+    start without) rank 0's ``launches`` over the same calls."""
+    if (len({(r["calls"], r["digest"]) for r in reports}) != 1
+            or any(r["diverged_at"] is not None for r in reports)):
+        raise AssertionError(f"[tp] {tag}: the ranks sampled other tokens: "
+                             f"{reports}")
+    for r, rep in enumerate(reports[1:], start=1):
+        got = {k: n - (before[r]["launches"].get(k, 0) if before else 0)
+               for k, n in rep["launches"].items()}
+        if got != launches:
+            raise AssertionError(f"[tp] {tag}: rank {r} launched {got}, "
+                                 f"rank 0 {launches}")
 
 
 def _tp_identity(torch, np, impl: str, card: str, prompts, sp,
-                 ref: dict) -> dict:
+                 ref: dict, counters, lora: dict) -> dict:
     """(a) tp 2 on ``impl``: tokens equal tp 1's up to a near-tie,
-    logprobs within the band, every follower's token digest rank 0's; on
-    the ragged path (d)'s step times too."""
+    logprobs within the band, every follower's token digest and kernel
+    launches rank 0's; on the ragged path (d)'s step times too. Then
+    phase 16 (b) on the same ranks: the adapter wave against tp 1's.
+    Each wave's launches are counted from 0 just before it."""
+    _zero(counters)
     t0 = time.perf_counter()
     eng = _tp_engine(impl, 2)
     up = time.perf_counter() - t0
     try:
         got = _greedy_tokens(eng, prompts, sp)
+        launches = _counts(counters)
+        first = eng.runner.follower_reports()
         steps = (_tp_steps(torch, np, eng, card, f"tp2-{impl}")
                  if impl == "ragged" else None)
-        reports = eng.runner.follower_reports()
         collective = eng.perf.stats_fields()["collective_bytes"]
+        before = eng.runner.follower_reports()
+        _zero(counters)
+        t1 = time.perf_counter()
+        got_lora, _, _ = _tp_lora_wave(eng, lora)
+        lora_s = time.perf_counter() - t1
+        lora_launches = _counts(counters)
+        reports = eng.runner.follower_reports()
     finally:
         eng.close()
     del eng
     _released(torch, f"tp2 {impl}")
     band = ref["band"]
     compared, worst = _tp_same(f"(a) tp2 {impl}", ref["run"], got, band)
-    if (len({(r["calls"], r["digest"]) for r in reports}) != 1
-            or any(r["diverged_at"] is not None for r in reports)):
-        raise AssertionError(f"[tp] (a) {impl}: the ranks sampled other "
-                             f"tokens: {reports}")
+    _tp_agree(f"(a) {impl}", first, launches)
     out = {"tokens_compared": compared, "max_logprob_dev": worst,
            "band": band, "tp1_repeat_dev": ref["repeat_dev"],
-           "tp2_up_s": up, "calls": reports[0]["calls"],
+           "tp2_up_s": up, "calls": first[0]["calls"],
            "accountant_collective_bytes": collective,
            "steps": {"tp1": ref["steps"], "tp2": steps},
-           "follower_launches": reports[1]["launches"]}
+           "launches": launches}
     log(f"[tp] (a) {impl} ({card}): tp 2 = tp 1 up to near-ties, the "
         f"follower = rank 0 exactly: {json.dumps(out)}")
+    lref = ref["lora"]
+    n_lora, lworst = _tp_same(f"(b) tp2 {impl} with an adapter", lref["run"],
+                              got_lora, lref["band"])
+    _tp_agree(f"(b) {impl}", reports, lora_launches, before)
+    last = len(lora["prompts"])
+    for tag, run in (("tp 1", lref["run"]), ("tp 2", got_lora)):
+        if run[0][last] == run[0][0]:
+            raise AssertionError(f"[tp2-features] (b) {impl}: at {tag} the "
+                                 "adapter left prompt 0's tokens unchanged")
+    lrec = {"requests": last + 1, "adapter_rows": sum(
+        1 for i in range(last) if i % 2) + 1, "tokens_compared": n_lora,
+        "max_logprob_dev": lworst, "band": lref["band"],
+        "tp1_repeat_dev": lref["repeat_dev"], "wave_s": lora_s,
+        "calls": reports[0]["calls"], "launches": lora_launches}
+    log(f"[tp2-features] (b) llama-3-8b with a rank-16 adapter, {impl} "
+        f"({card}): tp 2 = tp 1 up to near-ties, the adapter changes prompt "
+        f"0 at both, the follower = rank 0: {json.dumps(lrec)}")
+    out["lora"] = lrec
     return out
 
 
@@ -6059,34 +6267,455 @@ def tp_phase(torch, np, counters, card: str) -> dict:
     card over gloo. The tp 1 references first (released), then (a)
     identity and (d) step times at tp 2 on the ragged and the bucketed
     path, (b) K1-K4 at the shard's shapes, (c) the server in a fresh
-    process and the CLI's refusal. Returns rank 0's launches at tp 2 and
-    the kernels' shard records."""
+    process and the CLI's refusal. Phase 16 (b) and (c) ride on these
+    engines and this server: a rank-16 adapter's wave after (a)'s on
+    each, the adapter and KV routes on the server. Returns rank 0's
+    launches at tp 2, those of each adapter wave, and the kernels' shard
+    records."""
+    import tempfile
+
+    from production_stack_tpu_torch.engine.config import ModelConfig
     from production_stack_tpu_torch.engine.sampling import SamplingParams
 
     t_phase = time.perf_counter()
     prompts = _tp_prompts(np)
     sp = SamplingParams(temperature=0.0, max_tokens=32, ignore_eos=True,
                         logprobs=2)
-    refs = {impl: _tp_reference(torch, np, impl, card, prompts, sp)
-            for impl in ("ragged", "bucketed")}
-    for ctr in counters:
-        ctr.n = 0
-    out = {impl: _tp_identity(torch, np, impl, card, prompts, sp, ref)
-           for impl, ref in refs.items()}
-    launches = {ctr.name.split()[0]: ctr.n for ctr in counters}
-    _expect(launches, {"K1", "K2", "K3", "K4"}, "tp2")
-    follower = {k: sum(run["follower_launches"].get(k, 0)
-                       for run in out.values()) for k in launches}
-    log(f"[tp] launches at tp 2 ({card}), rank 0: {json.dumps(launches)}; "
-        f"rank 1: {json.dumps(follower)}")
-    if follower != launches:
-        raise AssertionError("[tp] rank 1 launched other kernels than "
-                             "rank 0")
-    shard = _tp_kernels(torch, np, card)
-    out["c_server"] = _tp_server(np, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        lora = {"adapter": write_adapter(np, ModelConfig.from_pretrained(
+                    "llama-3-8b"), tmp, rank=16, seed=0),
+                "prompts": _tpf_prompts(np, 8),
+                "sp": SamplingParams(temperature=0.0, max_tokens=16,
+                                     ignore_eos=True, logprobs=2)}
+        refs = {impl: _tp_reference(torch, np, impl, card, prompts, sp, lora)
+                for impl in ("ragged", "bucketed")}
+        out = {impl: _tp_identity(torch, np, impl, card, prompts, sp, ref,
+                                  counters, lora)
+               for impl, ref in refs.items()}
+        launches = {k: sum(out[impl]["launches"][k] for impl in out)
+                    for k in out["ragged"]["launches"]}
+        _expect(launches, {"K1", "K2", "K3", "K4"}, "tp2")
+        lora_launches = {impl: out[impl]["lora"]["launches"] for impl in out}
+        _expect(lora_launches["ragged"], {"K1", "K2", "K3"},
+                "tp2-lora-ragged")
+        _expect(lora_launches["bucketed"], {"K1", "K3", "K4"},
+                "tp2-lora-bucketed")
+        log(f"[tp] launches at tp 2 ({card}), rank 0 = rank 1: "
+            f"{json.dumps(launches)}; with the adapter: "
+            f"{json.dumps(lora_launches)}")
+        shard = _tp_kernels(torch, np, card)
+        out["c_server"] = _tp_server(np, card, lora["adapter"])
     log(f"[tp] phase 15 ({card}) in {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": launches, "follower_launches": follower,
+    return {"launches": launches, "lora_launches": lora_launches,
             "shard": shard}
+
+
+class _FirstStepProbe:
+    """Records, in this process (tp 1's engine, or tp 2's rank 0), the
+    first ragged step an engine runs in its ``with``: each MoE block's
+    input rows, the router's top-k set, the gap between its k-th and
+    (k+1)-th logits and the block's output (summed over the ranks at tp
+    2), and the step's sampled logits; and the slots over capacity in
+    every block of the run's ragged steps. Rows are put in an order two
+    engines share whatever the order they packed their spans and the
+    slots they gave them: spans by their tokens, logits rows by their
+    span. Installed around ``_greedy_tokens``; the probe's arithmetic runs
+    after the block's own and changes nothing it computes."""
+
+    def __init__(self, torch, eng):
+        from production_stack_tpu_torch.models import llama
+
+        self.torch, self.eng, self.llama = torch, eng, llama
+        self.local = getattr(eng.runner, "_inner", eng.runner)
+        self.layers = eng.config.model.num_layers
+        self.moe, self.logits, self.armed = [], [], False
+        self.over_capacity, self.in_step = 0, False  # every ragged step's
+
+    def __enter__(self):
+        moe, step = self.llama._moe_mlp, self.eng.runner.ragged_step
+        logits = self.local._logits
+
+        def probe_moe(cfg, lp, x, tokens=None, group=None):
+            out = moe(cfg, lp, x, tokens, group)
+            if self.in_step:
+                row = self._moe_row(cfg, lp, x, tokens, out)
+                self.over_capacity += row["over_capacity"]
+                if self.armed and len(self.moe) < self.layers:
+                    self.moe.append(row)
+            return out
+
+        def probe_logits(*args, **kw):
+            out = logits(*args, **kw)
+            if self.armed and out.shape[0] == len(self.slots[0]):
+                self.logits.append(out[self.slots[1]].float().cpu())
+            return out
+
+        def probe_step(*args, **kw):
+            self.armed, self.in_step = not self.moe, True
+            if self.armed:
+                self._order(*args[:8])
+            try:
+                return step(*args, **kw)
+            finally:
+                self.armed = self.in_step = False
+
+        self._saved = (moe, step)
+        self.llama._moe_mlp = probe_moe
+        self.local._logits = probe_logits
+        self.eng.runner.ragged_step = probe_step
+        return self
+
+    def __exit__(self, *exc):
+        self.llama._moe_mlp, self.eng.runner.ragged_step = self._saved
+        del self.local._logits
+        self.eng = self.local = self._saved = None  # the engine is freed
+
+    def _order(self, tokens, _pos, _tables, _ctx, cu, _slot_map, last_idx,
+               mask) -> None:
+        cu = [int(c) for c in cu]
+        spans = sorted((bytes(tokens[a:b].tobytes()), a, b)
+                       for a, b in zip(cu[:-1], cu[1:]) if b > a)
+        owner = {r: key for key, a, b in spans for r in range(a, b)}
+        live = [i for i in range(len(mask)) if mask[i]]
+        self.rows = self.torch.tensor([r for _, a, b in spans
+                                       for r in range(a, b)])
+        self.slots = (mask, sorted(live, key=lambda i: owner[int(
+            last_idx[i])]))
+
+    def _moe_row(self, cfg, lp, x, tokens, out) -> dict:
+        torch = self.torch
+        xt = x.reshape(-1, x.shape[-1])
+        k, X = cfg.num_experts_per_tok, cfg.num_experts
+        vals, idx = torch.sort((xt @ lp["router"]).float(), dim=-1,
+                               descending=True, stable=True)
+        cap = max(int(2.0 * (xt.shape[0] if tokens is None else tokens)
+                      * k / X), k)
+        load = torch.bincount(idx[:, :k].reshape(-1), minlength=X)
+        row = {"over_capacity": int((load - cap).clamp(min=0).sum())}
+        if self.armed:
+            r = self.rows.to(xt.device)
+            choice = idx[:, :k].reshape(-1)
+            onehot = (choice[None, :] == torch.arange(
+                X, device=xt.device)[:, None]).to(torch.int32)
+            pos = (torch.cumsum(onehot, 1) - onehot).gather(
+                0, choice[None, :])[0]
+            row.update(dropped=(pos >= cap).view(-1, k).any(-1)[r].cpu())
+            row.update(x=xt[r].cpu(), top=idx[r, :k].sort(-1).values.cpu(),
+                       gap=(vals[r, k - 1] - vals[r, k]).cpu(),
+                       out=out.reshape(-1, out.shape[-1])[r].cpu())
+        return row
+
+
+def _probe_diff(torch, ref: _FirstStepProbe, got: _FirstStepProbe) -> dict:
+    """Where two engines' first ragged steps part (``_FirstStepProbe``),
+    layer by layer: the MoE block's input and output, their largest
+    difference and count of differing elements; the tokens routed to
+    another expert set and ``ref``'s largest router gap among them; the
+    slots over capacity in the step and in the whole wave. Then the step's
+    logprobs, beside one bf16 step of its largest logit (the LM head's
+    logits are rounded to bf16 before float32)."""
+    per = collections.defaultdict(list)
+    for a, b in zip(ref.moe, got.moe):
+        flip = (a["top"] != b["top"]).any(-1)
+        for key in ("x", "out"):
+            per[f"{key}_max_abs"].append(float(
+                (a[key].float() - b[key].float()).abs().max()))
+            per[f"{key}_differ"].append(int((a[key] != b[key]).sum()))
+        per["routed_otherwise"].append(int(flip.sum()))
+        per["over_capacity"].append([a["over_capacity"], b["over_capacity"]])
+        rows = (a["out"] != b["out"]).any(-1)
+        per["rows_out_differ"].append(int(rows.sum()))
+        per["of_them_dropping"].append(int((rows & (a["dropped"]
+                                                    | b["dropped"])).sum()))
+        per["their_max_gap"].append(float(a["gap"][flip].max())
+                                    if flip.any() else None)
+    la = torch.log_softmax(torch.cat(ref.logits), -1)
+    lb = torch.log_softmax(torch.cat(got.logits), -1)
+    top = float(torch.cat(ref.logits).abs().max())
+    first = lambda key: next((i for i, n in enumerate(per[key])  # noqa: E731
+                              if n), None)
+    return {"tokens": int(ref.moe[0]["x"].shape[0]),
+            "first_layer_x_differs": first("x_differ"),
+            "first_layer_routed_otherwise": first("routed_otherwise"),
+            "step_over_capacity": [sum(r["over_capacity"] for r in p.moe)
+                                   for p in (ref, got)],
+            "wave_over_capacity": [ref.over_capacity, got.over_capacity],
+            "logits_rows": int(la.shape[0]),
+            "logprob_max_abs": float((la - lb).abs().max()),
+            "logit_bf16_step": 2.0 ** (math.floor(math.log2(top)) - 7),
+            "argmax_equal": bool(torch.equal(la.argmax(-1), lb.argmax(-1))),
+            "by_layer": dict(per)}
+
+
+def _empty_context_decode(np, eng) -> tuple:
+    """One decode step on identical inputs at any tensor-parallel size:
+    every one of the engine's slots live, at position 0 (its context the
+    token's own K/V, written by K1 in the step), greedy, with logprobs;
+    seeded tokens, one free block a slot. Called with no request live.
+    Returns (top ids (S, N), their logprobs (S, N))."""
+    S = eng.config.scheduler.max_num_seqs
+    M = eng._block_tables.shape[1]
+    bs = eng.config.cache.block_size
+    blocks = np.arange(1, S + 1, dtype=np.int32)
+    tables = np.zeros((S, M), np.int32)
+    tables[:, 0] = blocks
+    _, _, ids, lps = eng.runner.decode_multi(
+        np.random.default_rng(17).integers(
+            0, eng.config.model.vocab_size, S).astype(np.int32),
+        np.zeros(S, np.int32), tables, np.ones(S, np.int32), blocks * bs,
+        np.zeros(S, np.float32), np.ones(S, np.float32),
+        np.full(S, -1, np.int32), np.zeros(S, np.uint32),
+        np.ones(S, np.int32), greedy_only=True, want_logprobs=True)
+    return ids[0], lps[0]
+
+
+class _RankSums:
+    """tp 1 computing a tp 2 rank pair's row-parallel sums on one device,
+    where they are float (the W8A16 route): ``wo`` and the experts'
+    ``w_down`` as two float32 partials over the halves of their contracted
+    axis, each half laid out as a rank's shard (``quant.empty_q``), added
+    and rounded once. W8A8 products are left alone: their int32 sum is
+    exact in any order."""
+
+    def __init__(self, torch, mlp: int):
+        from production_stack_tpu_torch.engine import quant
+        from production_stack_tpu_torch.models import llama
+
+        self.torch, self.quant, self.llama = torch, quant, llama
+        self.mlp = mlp  # F: the experts' down-projection contracts it
+
+    def _half(self, q, a: int, b: int, axes: tuple):
+        out = self.quant.empty_q((b - a,) + tuple(q.shape[1:]), axes,
+                                 q.device)
+        out.copy_(q[a:b])
+        return out
+
+    def _partial(self, x2, q, s2, axes):
+        """x2 (M, K) against q (K-first) and its scale, in two halves."""
+        quant, h = self.quant, x2.shape[1] // 2
+        parts = []
+        for a, b in ((0, h), (h, x2.shape[1])):
+            qh = self._half(q, a * q.shape[0] // x2.shape[1],
+                            b * q.shape[0] // x2.shape[1], axes)
+            parts.append(quant._w8a16(x2[:, a:b].contiguous(),
+                                      qh.reshape(b - a, -1), s2,
+                                      self.torch.float32))
+        return parts[0] + parts[1]
+
+    def __enter__(self):
+        quant, llama = self.quant, self.llama
+        row, experts = llama._row_parallel, quant.expert_matmul
+        self._saved = (row, experts)
+
+        def row_parallel(group, axis, x, w, n_contract=1, tokens=None,
+                         delta=None):
+            if (group is not None or not quant.is_quantized(w)
+                    or quant.w8a8(x, w, n_contract, tokens)):
+                return row(group, axis, x, w, n_contract, tokens, delta)
+            lead = x.shape[:x.dim() - n_contract]
+            y = self._partial(quant._rows(x, n_contract), w["q"],
+                              w["s"].reshape(1, -1), tuple(range(n_contract)))
+            y = y.reshape(*lead, *w["q"].shape[n_contract:]).to(x.dtype)
+            return y if delta is None else y + delta
+
+        def expert_matmul(xb, w, out_dtype, *, sx=None, group=None):
+            if (group is not None or sx is not None
+                    or not quant.is_quantized(w) or xb.shape[-1] != self.mlp):
+                return experts(xb, w, out_dtype, sx=sx, group=group)
+            return self.torch.stack([
+                self._partial(xb[e], w["q"][e], w["s"][e], (0,))
+                for e in range(xb.shape[0])]).to(out_dtype)
+
+        llama._row_parallel, quant.expert_matmul = row_parallel, expert_matmul
+        return self
+
+    def __exit__(self, *exc):
+        self.llama._row_parallel, self.quant.expert_matmul = self._saved
+
+
+def _perturbed_repeat(torch, eng, prompts, sp) -> tuple:
+    """tp 1's own same-batch repeat: the 16 requests again at once (the
+    same steps, so the same MoE capacity and dispatch), with only the
+    order of the float sums changed, as tp 2 changes it (``_RankSums``).
+    Returns the run and its first step's probe."""
+    _fresh_slots(eng)
+    with _RankSums(torch, eng.config.model.intermediate_size), \
+            _FirstStepProbe(torch, eng) as probe:
+        return _greedy_tokens(eng, prompts, sp), probe
+
+
+def _fresh_slots(eng) -> None:
+    """Give the next requests the slots a fresh engine gives them (0, 1,
+    ... in arrival order), with no request live: a ragged step packs its
+    spans in slot order, and where an expert's slots pass its capacity
+    the tokens dropped are the last in that order."""
+    free = eng.scheduler.free_slots
+    if len(free) != eng.config.scheduler.max_num_seqs:
+        raise AssertionError("[tp2-features] a request is still live")
+    free.sort(reverse=True)
+
+
+def _flip_gaps(ref: tuple, flips: list) -> float:
+    """The largest top-2 gap ``ref`` had at ``flips`` (0 with none)."""
+    return max([ref[1][i][n][1] for i, n in flips] + [0.0])
+
+
+def moe_tp_reference(torch, np, eng) -> dict:
+    """Phase 16 (a)'s tp 1 answers, from phase 8's mixtral-8x7b int8
+    engine before it is released, with the prefix cache off and the slots
+    handed out as the fresh tp 2 engine hands them (``_fresh_slots``): 16
+    greedy prompts (``_tpf_prompts``) x 32 tokens, their
+    first ragged step probed (``_FirstStepProbe``); the same requests at
+    once again with only the float sums' order changed
+    (``_perturbed_repeat``), whose deviation sets the band and whose
+    flips' top-2 gaps the tie gap; an identical repeat, which must be
+    bit for bit; then the empty-context decode step."""
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    prompts = _tpf_prompts(np, 16)
+    sp = SamplingParams(temperature=0.0, max_tokens=32, ignore_eos=True,
+                        logprobs=2)
+    alloc = eng.scheduler.allocator
+    alloc.enable_prefix_caching = False
+    try:
+        t0 = time.perf_counter()
+        _fresh_slots(eng)
+        with _FirstStepProbe(torch, eng) as probe:
+            run = _greedy_tokens(eng, prompts, sp)
+        wave = time.perf_counter() - t0
+        sums, sums_probe = _perturbed_repeat(torch, eng, prompts, sp)
+        _, rep, flips = _tp_dev(run, sums)
+        _fresh_slots(eng)
+        again = _greedy_tokens(eng, prompts, sp)
+        decode = _empty_context_decode(np, eng)
+    finally:
+        alloc.enable_prefix_caching = True
+    if again != run:
+        raise AssertionError("[tp2-features] (a) tp 1's identical repeat of "
+                             "the 16 requests is not bit for bit")
+    gap = _flip_gaps(run, flips)
+    log(f"[tp2-features] (a) tp 1 reference on phase 8's engine: 16 x 32 "
+        f"tokens in {wave:.2f} s; an identical repeat bit for bit; its own "
+        f"deviation at the same batch with the float sums reordered "
+        f"{rep:.4f}, {len(flips)} flip(s), top-2 gaps up to {gap:.4f}")
+    return {"prompts": prompts, "sp": sp, "run": run, "repeat_dev": rep,
+            "repeat_flips": len(flips), "repeat_flip_gap": gap,
+            "wave_s": wave, "band": max(INT8_LP_BAND, 2 * rep),
+            "tie_gap": max(INT8_TIE_GAP, 2 * gap), "probe": probe,
+            "sums": sums, "sums_probe": sums_probe, "decode": decode}
+
+
+def _moe_tp_engine(blocks: int):
+    """mixtral-8x7b int8 as phase 8 serves it (the CLI's scheduler, seed
+    0), at tensor-parallel size 2 with both ranks on cuda:0 over gloo,
+    ``blocks`` KV blocks a rank, prefix cache off, decode eager."""
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.server import (
+        build_parser,
+        config_from_args,
+    )
+
+    cfg = config_from_args(build_parser().parse_args(
+        ["--model", "mixtral-8x7b", "--quantization", "int8", "--seed", "0",
+         "--tensor-parallel-size", "2", "--num-blocks", str(blocks)]))
+    cfg = dataclasses.replace(
+        cfg, cache=dataclasses.replace(cfg.cache,
+                                       enable_prefix_caching=False),
+        scheduler=dataclasses.replace(cfg.scheduler, decode_graphs=False))
+    return LLMEngine(cfg, device="cuda", rank_devices=["cuda:0"] * 2,
+                     backend="gloo")
+
+
+def tp_features_phase(torch, np, counters, card: str, ref: dict) -> dict:
+    """Phase 16 (a) and (d): mixtral-8x7b int8 at tensor-parallel size 2,
+    both ranks on this card over gloo, against phase 8's tp 1 answers
+    (``moe_tp_reference``): the first ragged step that of tp 1 summing
+    as tp 2 sums, bit for bit but the head's rounding; a decode step from
+    an empty context tp 1's bit for bit; the wave's tokens equal up to
+    near-ties by tp 1's top-2 gap, logprobs within the band, the
+    follower's digest and launches rank 0's; K1-K3 launch, K4 not.
+    Prints a rank's weight bytes, its KV blocks and the engine-up
+    seconds, then (d) the
+    step times, their share in collectives and each collective kind's
+    bytes. Returns the wave's launches."""
+    from production_stack_tpu_torch.engine import quant
+
+    t_phase = time.perf_counter()
+    _zero(counters)
+    t0 = time.perf_counter()
+    eng = _moe_tp_engine(MOE_TP_BLOCKS)
+    up = time.perf_counter() - t0
+    params = eng.runner.params
+    leaves = [params["embed"], params["lm_head"], *params["layers"].values()]
+    q_bytes = sum(w["q"].numel() for w in leaves if quant.is_quantized(w))
+    s_bytes = sum(4 * w["s"].numel() for w in leaves if quant.is_quantized(w))
+    log(f"[tp2-features] (a) mixtral-8x7b int8 at tp 2 up in {up:.1f} s "
+        f"({card}; {TP_NOTE}): rank 0 holds {q_bytes} B int8 + {s_bytes} B "
+        f"float32 scales, {eng.runner.num_blocks} KV blocks of "
+        f"{eng.config.cache.block_size} tokens; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated in this "
+        f"process")
+    del params, leaves
+    try:
+        t1 = time.perf_counter()
+        _fresh_slots(eng)
+        with _FirstStepProbe(torch, eng) as probe:
+            got = _greedy_tokens(eng, ref["prompts"], ref["sp"])
+        wave = time.perf_counter() - t1
+        launches = _counts(counters)
+        reports = eng.runner.follower_reports()
+        decode = _empty_context_decode(np, eng)
+        steps = _tp_steps(torch, np, eng, card, "tp2-moe-int8", length=32,
+                          reps=2)
+        collective = eng.perf.stats_fields()["collective_bytes"]
+    finally:
+        eng.close()
+    del eng
+    _released(torch, "tp2 moe-int8")
+    _expect(launches, {"K1", "K2", "K3"}, "tp2-moe-int8")
+    log(f"[tp2-features] (a) the first ragged step, tp 2 against tp 1 on "
+        f"identical inputs ({card}; printed, not judged): "
+        f"{json.dumps(_probe_diff(torch, ref['probe'], probe))}")
+    sums = _probe_diff(torch, ref["sums_probe"], probe)
+    log(f"[tp2-features] (a) the first ragged step, tp 2 against tp 1 "
+        f"summing as tp 2 sums ({card}): {json.dumps(sums)}")
+    by = sums["by_layer"]
+    if (any(by["x_differ"]) or any(by["out_differ"])
+            or any(by["routed_otherwise"]) or not sums["argmax_equal"]
+            or sums["logprob_max_abs"] > 2 * sums["logit_bf16_step"]):
+        raise AssertionError("[tp2-features] (a) tp 2's first ragged step "
+                             "is not tp 1's with tp 2's sums: every MoE "
+                             "block's input and output must be bit for bit "
+                             "and the logprobs within two bf16 steps of the "
+                             "largest logit")
+    dec = {"rows": int(decode[0].shape[0]),
+           "top_ids_equal": bool(np.array_equal(decode[0], ref["decode"][0])),
+           "logprob_max_abs": float(np.abs(decode[1] - ref["decode"][1])
+                                    .max())}
+    log(f"[tp2-features] (a) a decode step from an empty context, tp 2 "
+        f"against tp 1 on identical inputs ({card}): {json.dumps(dec)}")
+    if not dec["top_ids_equal"] or dec["logprob_max_abs"] != 0.0:
+        raise AssertionError("[tp2-features] (a) tp 2's decode step from an "
+                             "empty context is not tp 1's bit for bit")
+    same, dev, flips = _tp_dev(ref["sums"], got)
+    log(f"[tp2-features] (a) the wave against tp 1 summing as tp 2 sums "
+        f"({card}; printed, not judged): {same} tokens before the first "
+        f"flip, deviation {dev}, {len(flips)} flip(s)")
+    compared, worst = _tp_same("(a) mixtral-8x7b int8 tp2", ref["run"], got,
+                               ref["band"], ref["tie_gap"])
+    _tp_agree("(a) moe-int8", reports, launches)
+    out = {"tokens_compared": compared, "max_logprob_dev": worst,
+           "band": ref["band"], "tie_gap": ref["tie_gap"],
+           "tp1_repeat_dev": ref["repeat_dev"],
+           "tp1_repeat_flips": ref["repeat_flips"],
+           "tp2_up_s": up, "tp2_wave_s": wave, "tp1_wave_s": ref["wave_s"],
+           "calls": reports[0]["calls"], "launches": launches,
+           "accountant_collective_bytes": collective}
+    log(f"[tp2-features] (a) ({card}): tp 2 = tp 1 up to near-ties, the "
+        f"follower = rank 0 exactly: {json.dumps(out)}")
+    log(f"[tp2-features] phase 16 (a) ({card}) in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "steps": steps}
 
 
 def _no_hbm_alarm_left() -> int:
@@ -6163,7 +6792,8 @@ def main() -> int:
     moe_int8_parity_phase(torch, np)
     by_path.update(features_phase(torch, np, counters, card))
     by_path["surface-ragged"] = surface_phase(torch, np, counters, card)
-    by_path["moe-int8"] = moe_int8_phase(torch, np, counters, card)
+    moe_ref: dict = {}
+    by_path["moe-int8"] = moe_int8_phase(torch, np, counters, card, moe_ref)
     by_path["kv-plane"] = kv_plane_phase(torch, np, counters, card)
     by_path["scoring-surface"] = scoring_phase(torch, np, counters, card)
     by_path["whisper"] = whisper_phase(torch, np, counters, card)
@@ -6173,6 +6803,10 @@ def main() -> int:
     by_path["decode-graphs"] = decode_graphs_phase(torch, np, counters, card)
     tp = tp_phase(torch, np, counters, card)
     by_path["tp2"] = tp["launches"]
+    for impl, n in tp["lora_launches"].items():
+        by_path[f"tp2-lora-{impl}"] = n
+    by_path["tp2-moe-int8"] = tp_features_phase(torch, np, counters, card,
+                                                moe_ref)["launches"]
     _no_hbm_alarm_left()
 
     kernels = []

@@ -5,10 +5,11 @@ LoraAdapter operator, which downloads adapters and POSTs
 Ports production_stack_tpu/engine/lora.py. Adapters load UNMERGED into a
 device bank (slot 0 = base model) and every token selects its adapter, so
 one step freely mixes base and any adapters (models/llama.py
-``_lora_delta``). The reference runs a tiny generation after the first
-load, to compile its LoRA programs before traffic arrives; this engine
-runs eager PyTorch and has no program to compile, so loading stops at
-writing the bank.
+``_lora_delta``); under tensor parallelism each rank holds its share of
+every adapter (``adapter_share``). The reference runs a tiny generation
+after the first load, to compile its LoRA programs before traffic
+arrives; this engine runs eager PyTorch and has no program to compile,
+so loading stops at writing the bank.
 
 Adapter format: an HF PEFT directory, ``adapter_config.json`` and
 ``adapter_model.safetensors`` with ``...layers.N.<module>.lora_A.weight``
@@ -117,6 +118,22 @@ def target_shapes(cfg: ModelConfig) -> dict:
     return {"wq": (E, (H, D)), "wk": (E, (KH, D)), "wv": (E, (KH, D)),
             "wo": (H * D, (E,)), "w_gate": (E, (F,)), "w_up": (E, (F,)),
             "w_down": (F, (E,))}
+
+
+def adapter_share(bank: dict, shard, cfg: ModelConfig) -> dict:
+    """A tensor-parallel rank's share of ``load_adapter_raw``'s bank, as
+    contiguous copies (parallel/shardings.py ``Shard.cut_lora``): A cut
+    along its input where the target's input is sharded (``wo``,
+    ``w_down``), B along its output where the target's output is (``wq``,
+    ``wk``, ``wv``, ``w_gate``, ``w_up``). A row-parallel target's delta
+    ``(x_r @ A_r) @ B`` is then this rank's share of ``(x @ A) @ B``."""
+    ins = {"wo": (cfg.num_heads, cfg.head_dim)}
+    out = {}
+    for target, (A, B) in bank.items():
+        a, b = shard.cut_lora(target, A, B,
+                              ins.get(target, (A.shape[1],)))
+        out[target] = (np.ascontiguousarray(a), np.ascontiguousarray(b))
+    return out
 
 
 def bank_bytes(cfg: ModelConfig, max_loras: int, max_rank: int,

@@ -197,14 +197,15 @@ def engine_families(s: dict, model_name: str) -> list[Family]:
           perf["hbm_bytes_peak"])
     gauge("vllm:ici_bandwidth_utilization",
           "Estimated per-card interconnect bandwidth utilization over the "
-          "window (collective bytes from the sharding degree + model "
-          "geometry vs the per-card link peak; 0 on one card)",
+          "window (the collective bytes the device group sent vs the "
+          "per-card link peak; 0 on one card)",
           perf.get("ici_bw_util", 0.0))
     coll = Family("vllm:collective_bytes", "counter",
-                  "Estimated per-card collective bytes on the interconnect "
-                  "by op (all_reduce: row-parallel matmul outputs; "
-                  "all_gather: vocab-sharded logits at consumed stream "
-                  "positions)", ["model_name", "op"])
+                  "Per-card collective bytes the device group sent, by op "
+                  "(all_reduce: float32 row-parallel partials and the "
+                  "embedding; all_reduce_int32: int8 products' partials; "
+                  "all_reduce_max: int8 activation scales; all_gather: "
+                  "vocab-sharded logits)", ["model_name", "op"])
     for op, n in sorted((perf.get("collective_bytes") or {}).items()):
         coll.add([model_name, op], n)
     out.append(coll)

@@ -276,9 +276,11 @@ class ModelRunner:
         # reference: a caller's bf16 dict is quantized here under cfg.quant
         rank, tp = self.rank_of()
         if params is not None and ranks is not None:
-            # every rank gets the whole dict (on the CPU) and keeps its cut
-            params = to_device(shard_params(params, self.cfg, rank, tp),
-                               self.device)
+            # every rank gets the whole dict (on the CPU) and keeps its
+            # cut, quantized whole first: a row-parallel weight's scale is
+            # the max over its whole contraction
+            params = to_device(shard_params(maybe_quantize(
+                self.cfg, params), self.cfg, rank, tp), self.device)
         self.params = maybe_quantize(
             self.cfg, params if params is not None
             else init_or_load(self.cfg, config.seed, self.device, rank, tp))
@@ -628,15 +630,21 @@ class ModelRunner:
         """Write an adapter's stacked (A (L, in, R), B (L, R, *out)) pairs
         (engine/lora.py ``load_adapter_raw``, float32 with the scaling
         folded into B) into bank slot ``slot``, cast to the model dtype as
-        the reference casts them."""
-        if self.ranks is not None:
-            raise NotImplementedError(
-                "LoRA adapters under tensor parallelism are not ported yet")
+        the reference casts them. One device only: under tensor
+        parallelism engine/multihost.py ``MirroredRunner.register_lora``
+        cuts each rank's share and calls ``put_lora`` on every rank."""
+        self.put_lora(slot, bank_np, kvmod.adapter_root(bank_np))
+
+    def put_lora(self, slot: int, share: dict, root: int) -> None:
+        """Write this rank's ``share`` of an adapter into bank slot
+        ``slot``, keyed in the prefix cache by ``root``, the whole
+        adapter's ``kv_cache.adapter_root``: every rank, and one device,
+        key its blocks the same."""
         N = self.config.max_loras
         dt = self.cfg.torch_dtype
         if self.lora_bank is None:
             self.lora_bank = {}
-        for key, (A_st, B_st) in bank_np.items():
+        for key, (A_st, B_st) in share.items():
             if key not in self.lora_bank:
                 L, E, R = A_st.shape
                 self.lora_bank[key] = (
@@ -647,7 +655,7 @@ class ModelRunner:
             A_dev, B_dev = self.lora_bank[key]
             A_dev[:, :, slot] = self._dev(A_st, dt)
             B_dev[:, slot] = self._dev(B_st, dt)
-        self.lora_roots[slot] = kvmod.adapter_root(bank_np)
+        self.lora_roots[slot] = root
 
     def unregister_lora(self, slot: int) -> None:
         self.lora_roots[slot] = kvmod.HASH_SEED

@@ -19,11 +19,15 @@ cross-host control port and its secret belong to the multi-host slice.
 
 The list starts from the reference's ``MIRRORED_METHODS`` and adds
 ``ragged_step`` (which the reference's list lacks) and the port's warmup
-(``warm_decode_graphs``). It leaves out ``prefill_ring`` (not ported),
-and the KV export/import and LoRA calls: under tensor parallelism the
-server refuses the routes that reach them (a rank holds only its KV heads
-and its weight shard, so neither a whole block nor a whole adapter exists
-on one rank yet).
+(``warm_decode_graphs``). It leaves out ``prefill_ring`` (not ported)
+and the KV export/import calls: under tensor parallelism the server
+refuses the routes that reach them (a rank holds only its KV heads, so
+no whole block exists on one rank yet). It leaves out ``register_lora``
+too, which ``MirroredRunner`` defines itself: the leader cuts every
+rank's share of the adapter (``lora.adapter_share``) and sends each
+follower only its own over the control group (``RankGroup.scatter``),
+with the whole adapter's prefix-cache root; the whole of a rank-16
+adapter on llama-3-8b is 168 MB in float32.
 
 Agreement is checked, not assumed: each rank folds the tokens every call
 sampled into a running digest, the leader sends its digest with each
@@ -56,7 +60,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from production_stack_tpu_torch.engine.kv_cache import adapter_root
+from production_stack_tpu_torch.engine.lora import adapter_share
 from production_stack_tpu_torch.parallel import distributed as pdist
+from production_stack_tpu_torch.parallel.shardings import Shard
 
 logger = logging.getLogger(__name__)
 
@@ -64,7 +71,7 @@ MIRRORED_METHODS = (
     "prefill", "ragged_step", "decode_multi", "set_count_row",
     "register_grammar", "drop_kv", "restore_kv", "drop_params",
     "restore_params", "pooled_embed", "sequence_logprobs", "prompt_logprobs",
-    "warm_decode_graphs",
+    "warm_decode_graphs", "unregister_lora",
 )
 # sentinel for a device-resident arg the follower reconstructs locally
 _CHAINED_NEXT_TOK = "__pstpu_chained_next_tok__"
@@ -174,6 +181,18 @@ class MirroredRunner:
             self.ranks.broadcast((self._seq, method, args, kwargs,
                                   self._digest.hex()))
 
+    def register_lora(self, slot: int, bank_np: dict) -> None:
+        """``ModelRunner.register_lora`` on every rank, each follower sent
+        only its share of the adapter (module docstring)."""
+        cfg, size = self._inner.cfg, self.ranks.size
+        root = adapter_root(bank_np)
+        shares = [adapter_share(bank_np, Shard.of(cfg, r, size), cfg)
+                  for r in range(size)]
+        with self._lock:
+            self._send("register_lora", (slot,), {"root": root})
+            self.ranks.scatter(shares)
+            self._inner.put_lora(slot, shares[0], root)
+
     def report(self) -> dict:
         """This rank's agreement state and kernel launch counts."""
         return {"rank": 0, "pid": os.getpid(), "calls": self._digest.calls,
@@ -274,6 +293,9 @@ def follower_loop(runner, ranks) -> None:
         if method == "_gather":
             ranks.gather(_host(getattr(runner, args[0])(*args[1:])))
             continue
+        if method == "register_lora":
+            runner.put_lora(args[0], ranks.scatter(), kwargs["root"])
+            continue
         try:
             replayer.replay(method, args, kwargs)
         except Exception:
@@ -313,6 +335,11 @@ def follower_main(rank: int, size: int, store_port: int, devices: list,
         follower_loop(runner, ranks)
     finally:
         ranks.close()
+    # the leader's _shutdown: nothing is left to flush but the log, and
+    # the leader's stop waits on this process, so skip the interpreter's
+    # teardown of torch and of the card's memory
+    logging.shutdown()
+    os._exit(0)
 
 
 def refusal(config) -> Optional[str]:
@@ -321,10 +348,6 @@ def refusal(config) -> Optional[str]:
     m, c = config.model, config.cache
     if m.architecture == "whisper":
         return "Whisper models"
-    if m.architecture == "mixtral" and m.num_experts > 0:
-        return f"MoE presets ({m.name})"
-    if m.quant:
-        return f"--quantization {m.quant}"
     if config.role != "unified":
         return f"--role {config.role}"
     if c.kv_host_cache_bytes or c.host_offload_blocks:

@@ -8,13 +8,19 @@ A copy of production_stack_tpu/engine/perf_accounting.py for one card:
   ``_run_*`` paths), reduced to ``vllm:model_flops_utilization``,
   ``vllm:hbm_bandwidth_utilization`` and ``vllm:tokens_per_second{phase}``
   at scrape time, plus periodic device-memory snapshots from
-  ``torch.cuda.memory_stats``. The arithmetic is the reference's,
-  collectives included: ``from_runner`` takes the cards the ranks run on
+  ``torch.cuda.memory_stats``. The arithmetic is the reference's, but
+  for the collectives: ``from_runner`` takes the cards the ranks run on
   (``n_chips``) and the degree the heads are sharded over
-  (``tensor_parallel``) from the runner, and each rank's all-reduce and
-  all-gather bytes follow the reference's formulas (zero at tp = 1). FLOPs
-  and weight bytes count the whole model, not a rank's shard. The peaks
-  default to the H100 SXM data sheet (``config.H100_PEAK_*``).
+  (``tensor_parallel``) from the runner, and the collective bytes are
+  those rank 0's device group counted as it sent them, by op
+  (parallel/distributed.py ``RankGroup.wire``: float32 all-reduces,
+  int32 all-reduces and float32 max all-reduces of the int8 route, the
+  logits' all-gather), each dispatch taking what was sent since the last
+  one. The reference's formulas count a bf16 all-reduce of the hidden
+  state twice a layer, half of what the port's float32 partials put on
+  the wire, and none of its embedding's all-reduce. Zero at tp = 1.
+  FLOPs and weight bytes count the whole model, not a rank's shard. The
+  peaks default to the H100 SXM data sheet (``config.H100_PEAK_*``).
 * ``CompileTracker`` — wraps each of the runner's three step programs. A
   never-seen signature is the work a new CUDA graph capture would do, so
   the first call per signature counts as a compile event (its wall time
@@ -228,17 +234,10 @@ class PerfAccountant:
                                   * cfg.head_dim)
         self._kv_bytes_per_tok = (2 * cfg.num_layers * cfg.num_kv_heads
                                   * cfg.head_dim * _dtype_bytes(cfg.dtype))
-        # collective cost model, zero at tp=1: each layer's two
-        # row-parallel matmuls (attention out-proj, MLP down-proj) end in
-        # an all-reduce of the (tokens, hidden) activation; a ring
-        # all-reduce moves 2(tp-1)/tp x payload per card. The vocab axis
-        # shards the logits, so every stream position whose logits are
-        # consumed pays an all-gather of (tp-1)/tp x vocab f32 per card.
-        ar_fac = 2.0 * (self.tp - 1) / self.tp
-        ag_fac = (self.tp - 1) / self.tp
-        self._ar_bytes_per_tok = (2 * cfg.num_layers * cfg.hidden_size
-                                  * _dtype_bytes(cfg.dtype) * ar_fac)
-        self._ag_bytes_per_row = cfg.vocab_size * 4 * ag_fac
+        # the device group's per-card wire bytes by op (RankGroup.wire),
+        # read at each dispatch; None on one device (no collectives)
+        self.wire: Optional[Dict[str, float]] = None
+        self._wire_seen: Dict[str, float] = {}
         self._lock = threading.Lock()
         # (ts, phase, flops, hbm_bytes, live_tokens, ici_bytes)
         self._events: deque = deque()
@@ -336,7 +335,20 @@ class PerfAccountant:
                    n_chips=getattr(runner, "cards", 1),
                    tensor_parallel=getattr(runner, "tensor_parallel", 1))
         acct.costmodel_drift_band = perf.costmodel_drift_band
+        ranks = getattr(runner, "ranks", None)
+        if ranks is not None:
+            acct.wire = ranks.wire
         return acct
+
+    def _take_wire(self) -> Dict[str, float]:
+        """The collective bytes sent since the last call, by op."""
+        if self.wire is None:
+            return {}
+        now = dict(self.wire)
+        sent = {op: n - self._wire_seen.get(op, 0.0)
+                for op, n in now.items()}
+        self._wire_seen = now
+        return {op: n for op, n in sent.items() if n}
 
     # -- compile events ------------------------------------------------------
     def on_compile(self, kind: str, bucket: str, seconds: float) -> None:
@@ -385,13 +397,11 @@ class PerfAccountant:
                  + self._attn_per_tok_ctx * live_tokens * ctx_mean)
         hbm = (self.param_bytes
                + (live_tokens + ctx_tokens) * self._kv_bytes_per_tok)
-        ar = live_tokens * self._ar_bytes_per_tok
-        ag = rows * self._ag_bytes_per_row
-        self._record(ts, "prefill", flops, hbm, live_tokens,
-                     ar_bytes=ar, ag_bytes=ag)
+        coll = self._take_wire()
+        self._record(ts, "prefill", flops, hbm, live_tokens, coll)
         self._note_costmodel(
-            ts, [("prefill", self._predicted_seconds(flops, hbm, ar + ag))],
-            seconds)
+            ts, [("prefill", self._predicted_seconds(
+                flops, hbm, sum(coll.values())))], seconds)
         self.attribute_tenants(seconds, tenants)
 
     def record_decode(self, live_seqs: int, steps: int, ctx_tokens: int,
@@ -406,13 +416,11 @@ class PerfAccountant:
                  + self._attn_per_tok_ctx * ctx_tokens * steps)
         hbm = steps * (self.param_bytes
                        + (ctx_tokens + live_seqs) * self._kv_bytes_per_tok)
-        ar = tokens * self._ar_bytes_per_tok
-        ag = tokens * self._ag_bytes_per_row
-        self._record(ts, "decode", flops, hbm, tokens,
-                     ar_bytes=ar, ag_bytes=ag)
+        coll = self._take_wire()
+        self._record(ts, "decode", flops, hbm, tokens, coll)
         self._note_costmodel(
-            ts, [("decode", self._predicted_seconds(flops, hbm, ar + ag))],
-            seconds)
+            ts, [("decode", self._predicted_seconds(
+                flops, hbm, sum(coll.values())))], seconds)
         self.attribute_tenants(seconds, tenants)
 
     def record_ragged(self, prefill_tokens: int, prefill_ctx: int,
@@ -436,11 +444,16 @@ class PerfAccountant:
         goodput tokens: accepted drafts land as decode goodput through
         ``record_spec_accepted``. ``seconds`` is the fused dispatch's wall
         time, split over the two events by predicted share, and over the
-        tenants by their live-token share of the stream."""
+        tenants by their live-token share of the stream. The dispatch's
+        collective bytes split over the two events by their share of the
+        stream's tokens."""
         if prefill_tokens <= 0 and decode_seqs <= 0 and spec_tokens <= 0:
             return
         self.attribute_tenants(seconds, tenants)
         predicted: List[Tuple[str, float]] = []
+        coll = self._take_wire()
+        pre = (prefill_tokens + spec_tokens) / (
+            prefill_tokens + spec_tokens + decode_seqs)
         if prefill_tokens > 0 or spec_tokens > 0:
             ctx_mean = prefill_ctx / max(prefill_rows, 1)
             flops = (2.0 * self.active_param_count * prefill_tokens
@@ -453,24 +466,20 @@ class PerfAccountant:
                           + self._attn_per_tok_ctx * spec_tokens
                           * spec_ctx_mean)
                 hbm += ((spec_tokens + spec_ctx) * self._kv_bytes_per_tok)
-            ar = (prefill_tokens + spec_tokens) * self._ar_bytes_per_tok
-            ag = (prefill_rows + spec_tokens) * self._ag_bytes_per_row
-            self._record(ts, "prefill", flops, hbm, prefill_tokens,
-                         ar_bytes=ar, ag_bytes=ag)
-            predicted.append(
-                ("prefill", self._predicted_seconds(flops, hbm, ar + ag)))
+            part = {op: n * pre for op, n in coll.items()}
+            self._record(ts, "prefill", flops, hbm, prefill_tokens, part)
+            predicted.append(("prefill", self._predicted_seconds(
+                flops, hbm, sum(part.values()))))
         if decode_seqs > 0:
             flops = (2.0 * self.active_param_count * decode_seqs
                      + self._attn_per_tok_ctx * decode_ctx)
             hbm = (decode_ctx + decode_seqs) * self._kv_bytes_per_tok
             if prefill_tokens <= 0 and spec_tokens <= 0:
                 hbm += self.param_bytes  # decode-only pays the weights
-            ar = decode_seqs * self._ar_bytes_per_tok
-            ag = decode_seqs * self._ag_bytes_per_row
-            self._record(ts, "decode", flops, hbm, decode_seqs,
-                         ar_bytes=ar, ag_bytes=ag)
-            predicted.append(
-                ("decode", self._predicted_seconds(flops, hbm, ar + ag)))
+            part = {op: n * (1.0 - pre) for op, n in coll.items()}
+            self._record(ts, "decode", flops, hbm, decode_seqs, part)
+            predicted.append(("decode", self._predicted_seconds(
+                flops, hbm, sum(part.values()))))
         self._note_costmodel(ts, predicted, seconds)
 
     def record_spec_accepted(self, tokens: int,
@@ -721,17 +730,19 @@ class PerfAccountant:
         }
 
     def _record(self, ts, phase, flops, hbm_bytes, tokens,
-                ar_bytes: float = 0.0, ag_bytes: float = 0.0) -> None:
+                coll: Optional[Dict[str, float]] = None) -> None:
+        """One window event; ``coll``: its collective bytes by op."""
         now = ts if ts is not None else time.monotonic()
-        ici = ar_bytes + ag_bytes
+        coll = coll or {}
+        ici = sum(coll.values())
         with self._lock:
             self._events.append((now, phase, flops, hbm_bytes, tokens, ici))
             self._totals[f"{phase}_tokens"] += tokens
             self._totals["flops"] += flops
             self._totals["hbm_bytes"] += hbm_bytes
             self._totals["ici_bytes"] += ici
-            self._collective["all_reduce"] += ar_bytes
-            self._collective["all_gather"] += ag_bytes
+            for op, n in coll.items():
+                self._collective[op] = self._collective.get(op, 0.0) + n
             self._totals["dispatches"] += 1
             self._trim(now)
 

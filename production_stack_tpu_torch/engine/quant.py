@@ -26,6 +26,16 @@ bank stay in the model dtype.
 Which route a product takes is decided by the token count the reference's
 same call sees (``tokens``), not by the rows this eager engine happens to
 run: see ``models/llama.py`` ``forward_hidden``.
+
+**Row-parallel products** (tensor parallelism: the contracted axes of x
+and w are this rank's cut of them, ``group`` the ranks' RankGroup) sum
+what the reference's GSPMD sums. On the W8A8 route each row's activation
+scale is the max over the ranks of each rank's absmax (an all-reduce
+max of one float32 a row), so every rank quantizes its slice of the row
+as one device quantizes the whole row; the int32 partials are summed
+over the ranks in int32, exactly, before the one rescale. On the W8A16
+route and for a plain weight the partial is accumulated in float32 and
+summed in float32 before the one rounding (``row_parallel_matmul``).
 """
 
 from __future__ import annotations
@@ -112,6 +122,14 @@ def empty_q(shape, contract_axes: Tuple[int, ...], device) -> torch.Tensor:
     return store.permute([order.index(i) for i in range(len(shape))])
 
 
+def scale_axes(w: dict) -> Tuple[int, ...]:
+    """The contracted axes of a quantized weight (torch or numpy): where
+    its scale keeps a size-1 dim and q does not."""
+    return tuple(i for i, (ns, nq) in enumerate(zip(w["s"].shape,
+                                                    w["q"].shape))
+                 if ns == 1 and nq != 1)
+
+
 def dequantize_array(w: dict) -> torch.Tensor:
     return w["q"].float() * w["s"]
 
@@ -122,13 +140,17 @@ def a16(tokens: int) -> bool:
     return bool(thresh) and tokens >= thresh
 
 
-def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_rows(x: torch.Tensor, group=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-token int8 of ``x (M, K)``: (xq (M, K) int8, sx (M,) float32),
     the reference's activation arithmetic (absmax / 127, floored at
-    ``_EPS``)."""
+    ``_EPS``). With a ``group`` whose ranks each hold a slice of K, the
+    absmax is the max over the ranks (module docstring)."""
     with profile_range("quant.activations"):
         xf = x.float()
         amax = torch.linalg.vector_norm(xf, ord=float("inf"), dim=-1)
+        if group is not None:
+            amax = group.all_reduce_max(amax)
         sx = amax.mul_(_INV127).clamp_(min=_EPS)
         xq = torch.div(xf, sx[:, None]).round_().clamp_(-127, 127).to(
             torch.int8)
@@ -176,18 +198,36 @@ def rescale(acc: torch.Tensor, sx: torch.Tensor, s: torch.Tensor,
 
 
 def _w8a8(x2: torch.Tensor, q2: torch.Tensor, s2: torch.Tensor,
-          out_dtype, x8=None) -> torch.Tensor:
+          out_dtype, x8=None, group=None) -> torch.Tensor:
     """x2 (M, K) in the model dtype, q2 (K, N) int8, s2 (1, N) float32;
-    ``x8`` is x2's ``quantize_rows`` when the caller has it already."""
-    xq, sx = quantize_rows(x2) if x8 is None else x8
-    return rescale(int8_mm(xq, q2), sx, s2, out_dtype)
+    ``x8`` is x2's ``quantize_rows`` when the caller has it already. With
+    a ``group``, K is cut over its ranks (module docstring)."""
+    xq, sx = quantize_rows(x2, group) if x8 is None else x8
+    acc = int8_mm(xq, q2)
+    if group is not None:
+        acc = group.all_reduce_int32(acc)
+    return rescale(acc, sx, s2, out_dtype)
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (2-d, or batched 3-d) accumulated and returned in
+    float32 whatever the inputs' dtype: a row-parallel partial, summed
+    over the ranks before its one rounding."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        fn = torch.mm if a.dim() == 2 else torch.bmm
+        return fn(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
 
 
 def _w8a16(x2: torch.Tensor, q2: torch.Tensor, s2: torch.Tensor,
            out_dtype, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x2 (M, K) @ dequantized (K, N), a column tile at a time, into
     ``out`` when given: each tile is q * s in float32, rounded once into
-    the activations' dtype."""
+    the activations' dtype. A float32 ``out_dtype`` under activations of
+    another dtype is a row-parallel partial, accumulated and kept in
+    float32."""
     K, N = q2.shape
     step = max(DEQUANT_TILE_ELEMS // K, _INT_MM_ALIGN)
     if out is None:
@@ -195,7 +235,9 @@ def _w8a16(x2: torch.Tensor, q2: torch.Tensor, s2: torch.Tensor,
     for j in range(0, N, step):
         wd = dequantize_tile(q2[:, j:j + step], s2[:, j:j + step], x2.dtype)
         dst = out[:, j:j + step]
-        if dst.is_contiguous() and dst.dtype == x2.dtype:
+        if dst.dtype == torch.float32 and x2.dtype != torch.float32:
+            dst.copy_(matmul_f32(x2, wd))
+        elif dst.is_contiguous() and dst.dtype == x2.dtype:
             torch.mm(x2, wd, out=dst)
         else:
             dst.copy_(x2 @ wd)
@@ -227,12 +269,26 @@ def shared_rows(x: torch.Tensor, w: Any, n_contract: int = 1,
     """``x``'s int8 rows for the W8A8 products that share ``x`` as input
     (q, k and v; gate and up), quantized once: ``quant_matmul``'s ``x8``.
     None where ``w`` is plain or the products run W8A16."""
+    if not w8a8(x, w, n_contract, tokens):
+        return None
+    return quantize_rows(_rows(x, n_contract))
+
+
+def _rows(x: torch.Tensor, n_contract: int) -> torch.Tensor:
+    """``x (..., *c)`` as (M, K)."""
+    return x.reshape(-1, *x.shape[x.dim() - n_contract:]).flatten(1)
+
+
+def w8a8(x: torch.Tensor, w: Any, n_contract: int = 1,
+         tokens: Optional[int] = None) -> bool:
+    """Whether ``quant_matmul(x, w, n_contract, tokens=tokens)`` runs the
+    int8 product."""
     if not is_quantized(w):
-        return None
-    x2 = x.reshape(-1, *x.shape[x.dim() - n_contract:]).flatten(1)
-    if a16(x2.shape[0] if tokens is None else tokens):
-        return None
-    return quantize_rows(x2)
+        return False
+    rows = 1
+    for d in x.shape[:x.dim() - n_contract]:
+        rows *= d
+    return not a16(rows if tokens is None else tokens)
 
 
 def quant_matmul(x: torch.Tensor, w: Any, n_contract: int = 1,
@@ -246,44 +302,80 @@ def quant_matmul(x: torch.Tensor, w: Any, n_contract: int = 1,
     product. A quantized ``w`` runs W8A8 below ``_a16_threshold()``
     tokens and W8A16 at or above it, where ``tokens`` is the row count
     the reference's call sees (default: the rows of ``x``); ``x8`` is
-    ``shared_rows(x, ...)`` where several products share ``x``."""
-    lead = x.shape[:x.dim() - n_contract]
-    x2 = x.reshape(-1, *x.shape[x.dim() - n_contract:]).flatten(1)
+    ``shared_rows(x, ...)`` where several products share ``x``. W8A16
+    rounds into ``x``'s dtype before ``out_dtype``, as the reference's
+    dequantized einsum does."""
     out_dtype = out_dtype if out_dtype is not None else x.dtype
+    lead = x.shape[:x.dim() - n_contract]
+    x2 = _rows(x, n_contract)
     w2, s2 = _weight_2d(w, n_contract)
     out_shape = (w["q"] if s2 is not None else w).shape[n_contract:]
     if s2 is None:
         y = (x2 @ w2).to(out_dtype)
-    elif a16(x2.shape[0] if tokens is None else tokens):
-        y = _w8a16(x2, w2, s2, out_dtype)
-    else:
+    elif w8a8(x, w, n_contract, tokens):
         y = _w8a8(x2, w2, s2, out_dtype, x8)
+    else:
+        y = _w8a16(x2, w2, s2, x2.dtype).to(out_dtype)
     return y.reshape(*lead, *out_shape)
 
 
+def row_parallel_matmul(x: torch.Tensor, w: Any, n_contract: int,
+                        tokens: Optional[int], group,
+                        delta: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """``quant_matmul(x, w, n_contract, tokens=tokens)`` plus a LoRA
+    ``delta``, in ``x``'s dtype, where the contracted axes of ``x`` and
+    ``w`` are cut over ``group``'s ranks and ``delta`` is this rank's
+    share: the sum over the ranks (module docstring). A float32 partial
+    carries the delta in its one all-reduce; the W8A8 route's exact int32
+    sum cannot carry a float, so there the delta is summed on its own, as
+    the reference's separate einsum is."""
+    lead = x.shape[:x.dim() - n_contract]
+    x2 = _rows(x, n_contract)
+    w2, s2 = _weight_2d(w, n_contract)
+    out_shape = (w["q"] if s2 is not None else w).shape[n_contract:]
+    if s2 is not None and w8a8(x, w, n_contract, tokens):
+        y = _w8a8(x2, w2, s2, x.dtype, group=group).reshape(*lead, *out_shape)
+        return y if delta is None else y + group.all_reduce(delta)
+    part = (matmul_f32(x2, w2) if s2 is None
+            else _w8a16(x2, w2, s2, torch.float32))
+    part = part.reshape(*lead, *out_shape)
+    if delta is not None:
+        part = part + delta
+    return group.all_reduce(part).to(x.dtype)
+
+
 def expert_matmul(xb: torch.Tensor, w: Any, out_dtype, *,
-                  sx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  sx: Optional[torch.Tensor] = None,
+                  group=None) -> torch.Tensor:
     """The batched MoE forms "xce,xef->xcf" and "xcf,xfe->xce": ``xb (X,
     C, K)`` against the expert stack ``w (X, K, N)``, one expert at a
     time. A plain stack is a batched product. A quantized stack runs
     W8A16 when ``xb`` is in the model dtype (one expert's tiles
     dequantized at a time), and W8A8 when ``xb`` is int8 with its per-row
     scales ``sx (X, C)`` (the rows were quantized once, before dispatch:
-    a copied row has its token's absmax)."""
-    if not is_quantized(w):
-        return torch.bmm(xb, w).to(out_dtype)
-    q, s = w["q"], w["s"]  # (X, K, N), (X, 1, N)
+    a copied row has its token's absmax). With a ``group``, K is cut over
+    its ranks and the products are summed over them before the rounding
+    to ``out_dtype``: in int32 on the W8A8 route (``sx`` must then be the
+    max over the ranks already), in float32 otherwise."""
     X, C = xb.shape[:2]
+    if not is_quantized(w):
+        if group is None:
+            return torch.bmm(xb, w).to(out_dtype)
+        return group.all_reduce(matmul_f32(xb, w)).to(out_dtype)
+    q, s = w["q"], w["s"]  # (X, K, N), (X, 1, N)
     if sx is None:
-        out = torch.empty(X, C, q.shape[-1], dtype=out_dtype,
-                          device=xb.device)
+        part = torch.float32 if group is not None else out_dtype
+        out = torch.empty(X, C, q.shape[-1], dtype=part, device=xb.device)
         for e in range(X):
-            _w8a16(xb[e], q[e], s[e], out_dtype, out=out[e])
-        return out
+            _w8a16(xb[e], q[e], s[e], part, out=out[e])
+        return out if group is None else group.all_reduce(out).to(out_dtype)
     # every expert's int32 product, then one rescale over the stack
     acc = torch.empty(X, C, q.shape[-1], dtype=torch.int32, device=xb.device)
     for e in range(X):
         int8_mm(xb[e], q[e], out=acc[e])
+    if group is not None:
+        acc = group.all_reduce_int32(acc)
     return rescale(acc, sx, s, out_dtype)
 
 
@@ -384,9 +476,12 @@ def empty_quantized(shape, axes: Tuple[int, ...], device) -> dict:
 
 
 def put_quantized(w: dict, idx: tuple, t: torch.Tensor,
-                  axes: Tuple[int, ...]) -> None:
+                  axes: Tuple[int, ...], cut=None) -> None:
     """Quantize ``t``, the slice ``idx`` (leading indices) of a weight
-    contracted over ``axes``, into ``w``."""
+    contracted over ``axes``, into ``w``; ``cut`` keeps a rank's part of
+    the quantized slice (parallel/shardings.py ``Shard.cut_leaf``)."""
     one = quantize_array(t, tuple(a - len(idx) for a in axes))
+    if cut is not None:
+        one = cut(one)
     w["q"][idx] = one["q"]
     w["s"][idx] = one["s"]

@@ -119,11 +119,13 @@ default -1: every visible card on ``cuda``, 1 on the CPU): the server is
 rank 0 and starts one process a further rank (engine/multihost.py), each
 on ``cuda:r`` over NCCL, or on the CPU over gloo with ``--device cpu``.
 It serves completions, chat, messages, responses, scoring and sleep, on
-both attention paths, with the prefix cache, sampling, guided decoding
-and n-gram speculation. What the ranks do not carry yet exits at start
-(``--quantization``, MoE presets, Whisper, ``--role prefill|decode``,
-the host and remote KV tiers) or answers 501 naming tensor parallelism
-(``POST /v1/load_lora_adapter``, ``/kv/export``, ``/kv/recv``).
+both attention paths, with the prefix cache, sampling, guided decoding,
+n-gram speculation, ``--quantization int8`` (W8A8 and W8A16), Mixtral's
+MoE presets and multi-LoRA (``/v1/load_lora_adapter``: each rank holds
+its share of every adapter). What the ranks do not carry yet exits at
+start (Whisper, ``--role prefill|decode``, the host and remote KV tiers)
+or answers 501 naming tensor parallelism (``/kv/export``,
+``/kv/recv``).
 ``--data-parallel-size``, ``--pipeline-parallel-size`` and
 ``--sequence-parallel-size`` parse to the reference's defaults; above 1
 each exits at start, not ported yet.
@@ -387,9 +389,9 @@ def _error(message: str, kind: Optional[str] = "invalid_request_error"
     return {"error": {"message": message, "type": kind}}
 
 
-# routes whose work a rank cannot do alone yet: a whole KV block or a
-# whole adapter exists on no single rank
-TP_REFUSED_ROUTES = ("/v1/load_lora_adapter", "/kv/export", "/kv/recv")
+# routes whose work a rank cannot do alone yet: a whole KV block exists
+# on no single rank
+TP_REFUSED_ROUTES = ("/kv/export", "/kv/recv")
 
 
 def _sse_event(name: str, payload: dict) -> bytes:

@@ -24,9 +24,12 @@ Under tensor parallelism each entry point takes ``(rank, tp)`` and
 returns rank's shard (parallel/shardings.Shard, driven by each leaf's
 logical axes, ``models/llama.param_specs``): every slice or tensor is
 made, converted or read whole, as at tp = 1, and only the rank's part of
-it is kept. So a rank's seeded shard is bit for bit the slice of the
-tp = 1 parameters, and its peak is one slice above its shard (one layer,
-or the embedding).
+it is kept. With ``cfg.quant`` the whole slice is quantized before the
+cut, so a row-parallel weight's scale is the max over its whole
+contraction, which no rank's part holds (``Shard.cut_leaf`` keeps the
+scale whole along it). So a rank's seeded shard, quantized or not, is
+bit for bit the slice of the tp = 1 parameters, and its peak is one
+slice above its shard (one layer, or the embedding).
 
 Whisper's parameters are a nested ``enc`` / ``dec`` tree
 (``models/whisper.param_shapes``), made by ``whisper.init_params``; its
@@ -83,13 +86,15 @@ class _Leaf:
                       if axes is None
                       else quant.empty_quantized(shape, axes, device))
 
-    def put(self, idx: tuple, t: torch.Tensor) -> None:
+    def put(self, idx: tuple, t: torch.Tensor, cut=None) -> None:
         """Write slice ``idx`` (leading indices) from ``t`` in the model
-        dtype, quantizing it over the leaf's contracted axes."""
+        dtype, quantizing it over the leaf's contracted axes; ``cut``
+        (``Shard.cut_leaf`` at the slice's axes) keeps a rank's part of
+        ``t``, after the quantization of the whole of it."""
         if self.axes is None:
-            self.value[idx] = t
+            self.value[idx] = t if cut is None else cut(t)
         else:
-            quant.put_quantized(self.value, idx, t, self.axes)
+            quant.put_quantized(self.value, idx, t, self.axes, cut)
 
 
 def _slices(name: str, shape: tuple, layer: bool) -> list:
@@ -106,10 +111,18 @@ def _shard(cfg: ModelConfig, rank: int, tp: int):
     """Rank's Shard and the model's logical axes (None, None at tp 1)."""
     if tp == 1:
         return None, None
-    if cfg.architecture == "whisper" or cfg.quant:
-        raise ValueError(f"{cfg.name}: Whisper and quantized weights have "
-                         "no tensor-parallel shards yet")
+    if cfg.architecture == "whisper":
+        raise ValueError(f"{cfg.name}: Whisper models have no "
+                         "tensor-parallel shards yet")
     return Shard.of(cfg, rank, tp), get_model(cfg).param_specs(cfg)
+
+
+def _cutter(shard, spec, skip: int = 0):
+    """The ``cut`` of ``_Leaf.put`` for a slice that drops the first
+    ``skip`` axes of ``spec``; None without a shard."""
+    if shard is None:
+        return None
+    return lambda x: shard.cut_leaf(x, spec[skip:])
 
 
 def _local_shape(shape: tuple, axes: tuple, shard) -> tuple:
@@ -146,8 +159,7 @@ def init_random(cfg: ModelConfig, seed: int = 0,
         for idx in _slices(name, shape, layer):
             t = torch.empty(shape[len(idx):], dtype=dt, device=device)
             t.normal_(0.0, std, generator=gen)
-            leaf.put(idx, t if shard is None
-                     else shard.cut(t, spec[len(idx):]))
+            leaf.put(idx, t, _cutter(shard, spec, len(idx)))
         return leaf.value
 
     lspecs = specs and specs["layers"]
@@ -170,7 +182,8 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig,
     """The JAX package's parameter tree, as numpy arrays, to this
     package's parameter dict (same names and shapes), so both compute the
     same function; rank's shard of it at ``tp`` > 1. Quantized leaves
-    ``{"q": int8, "s": float32}`` keep their dtypes; Whisper's conv
+    ``{"q": int8, "s": float32}`` (the JAX engine's int8 tree) keep their
+    dtypes and are cut as ``Shard.cut_leaf`` cuts them; Whisper's conv
     weights are transposed to ``(out, in, k)``."""
     shard, specs = _shard(cfg, rank, tp)
 
@@ -182,11 +195,13 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig,
                 raise ValueError(f"{name}: quantized {q.dtype} {q.shape} "
                                  f"!= int8 {shape}")
             # laid out as quantize_array lays q out: contracted axes fastest
-            axes = tuple(i for i, d in enumerate(s.shape)
-                         if d == 1 and shape[i] != 1)
-            out = quant.empty_q(shape, axes, device)
-            out.copy_(torch.from_numpy(q.copy()))
-            return {"q": out, "s": torch.from_numpy(s.copy()).to(device)}
+            axes = quant.scale_axes({"q": q, "s": s})
+            if shard is not None:
+                cut = shard.cut_leaf({"q": q, "s": s}, spec)
+                q, s = cut["q"], cut["s"]
+            out = quant.empty_q(q.shape, axes, device)
+            out.copy_(torch.from_numpy(np.array(q)))
+            return {"q": out, "s": torch.from_numpy(np.array(s)).to(device)}
         a = np.asarray(x, dtype=np.float32)
         if name in _CONV_WEIGHTS:
             a = a.transpose(2, 1, 0)
@@ -339,9 +354,6 @@ def load_safetensors(cfg: ModelConfig,
         return torch.from_numpy(np.ascontiguousarray(arr)).to(
             device=device, dtype=dt)
 
-    def cut(arr: np.ndarray, spec) -> np.ndarray:
-        return arr if shard is None else shard.cut(arr, spec)
-
     if cfg.architecture == "whisper":
         return _load_whisper(cfg, shapes, get, dev, device)
     axes = _quant_axes(cfg)
@@ -350,7 +362,7 @@ def load_safetensors(cfg: ModelConfig,
         spec = specs and specs[name]
         leaf = _Leaf(_local_shape(shapes[name], spec, shard), dt, device,
                      axes.get(name))
-        leaf.put((), dev(cut(arr, spec)))
+        leaf.put((), dev(arr), _cutter(shard, spec))
         return leaf.value
 
     params = {"embed": whole("embed", get("model.embed_tokens.weight")),
@@ -370,9 +382,9 @@ def load_safetensors(cfg: ModelConfig,
                                else [targets]):
                 base, _, expert = ours.partition(".")
                 idx = (i, int(expert)) if expert else (i,)
-                spec = lspecs and lspecs[base][len(idx):]
-                layers[base].put(idx, dev(cut(_convert(rule, src, cfg),
-                                              spec)))
+                layers[base].put(idx, dev(_convert(rule, src, cfg)),
+                                 _cutter(shard, lspecs and lspecs[base],
+                                         len(idx)))
     params["layers"] = {name: leaf.value for name, leaf in layers.items()}
     return params
 
@@ -461,17 +473,29 @@ def _load_whisper(cfg: ModelConfig, shapes: dict, get, dev, device) -> dict:
 
 
 def shard_params(params: dict, cfg: ModelConfig, rank: int, tp: int) -> dict:
-    """Rank's shard of a whole parameter dict, as contiguous copies (the
-    whole dict can go once every rank has cut its own); the dict itself
-    at tp 1."""
+    """Rank's shard of a whole parameter dict, as copies (the whole dict
+    can go once every rank has cut its own): contiguous, or an int8 q laid
+    out as ``quant.empty_q`` lays it out; the dict itself at tp 1. A
+    quantized dict is cut as it is (``Shard.cut_leaf``), so quantize the
+    whole dict first: a rank's part of a row-parallel weight lacks the
+    rest of its scale's max."""
     shard, specs = _shard(cfg, rank, tp)
     if shard is None:
         return params
 
+    def copy(v, spec):
+        if not quant.is_quantized(v):
+            return shard.cut(v, spec).clone(
+                memory_format=torch.contiguous_format)
+        cut = shard.cut_leaf(v, spec)
+        q = quant.empty_q(cut["q"].shape, quant.scale_axes(v), v["q"].device)
+        q.copy_(cut["q"])
+        return {"q": q, "s": cut["s"].clone(
+            memory_format=torch.contiguous_format)}
+
     def walk(tree: dict, spec: dict) -> dict:
-        return {name: walk(v, spec[name]) if isinstance(v, dict)
-                else shard.cut(v, spec[name]).clone(
-                    memory_format=torch.contiguous_format)
-                for name, v in tree.items()}
+        return {name: walk(v, spec[name])
+                if isinstance(v, dict) and not quant.is_quantized(v)
+                else copy(v, spec[name]) for name, v in tree.items()}
 
     return walk(params, specs)

@@ -39,17 +39,22 @@ whose ``shard`` says what this rank holds), the parameters are this
 rank's shard (``param_specs`` names each leaf's logical axes,
 parallel/shardings.py cuts them): attention runs at the rank's own query
 and KV heads, the MLP at its share of the intermediate axis, and the
-embedding and LM head at its share of the vocabulary. The partial sums of
-the two row-parallel products (``wo`` over heads, ``w_down`` over the
-intermediate axis) are accumulated and kept in float32 (``_partial``),
-all-reduced in float32 right after the product and rounded once to the
-model dtype, before any post-norm and the residual add, so that a bf16
-model rounds the sum where one device rounds its product. The embedding
-is vocab-parallel (each rank looks up the tokens its rows hold, zeros
-elsewhere, all-reduce); the logits' vocab shards are all-gathered in rank
-order. An axis the rules
-replicate needs no collective. Every rank then holds the same hidden
-states and the same full logits.
+embedding and LM head at its share of the vocabulary. The two
+row-parallel products (``wo`` over heads, ``w_down`` over the
+intermediate axis) are summed over the ranks right after the product
+(``_row_parallel``), before any post-norm and the residual add: a plain
+or W8A16 partial is accumulated and summed in float32 and rounded once
+to the model dtype, so that a bf16 model rounds the sum where one device
+rounds its product; the W8A8 route takes each row's activation scale as
+the max over the ranks and sums the int32 products exactly
+(engine/quant.py). A LoRA delta on ``wo`` or ``w_down`` is this rank's
+share of it, ``(x_r @ A_r) @ B``, and rides the product's float32
+all-reduce. Mixtral's expert stacks are cut along F (``_moe_mlp``). The
+embedding is vocab-parallel (each rank looks up the tokens its rows
+hold, zeros elsewhere, all-reduce); the logits' vocab shards are
+all-gathered in rank order. An axis the rules replicate needs no
+collective. Every rank then holds the same hidden states and the same
+full logits.
 """
 
 from __future__ import annotations
@@ -143,29 +148,18 @@ def _sharded(group, axis: str) -> bool:
     return group is not None and axis in group.shard.sharded
 
 
-def _partial(x: torch.Tensor, w: torch.Tensor,
-             n_contract: int = 1) -> torch.Tensor:
-    """A row-parallel product's partial on this rank, ``x (..., *c) @ w
-    (*c, *out)``, accumulated and returned in float32: the ranks' partials
-    are summed before the one rounding to the model dtype."""
-    lead = x.shape[:x.dim() - n_contract]
-    x2 = x.reshape(-1, *x.shape[x.dim() - n_contract:]).flatten(1)
-    w2 = w.reshape(x2.shape[1], -1)
-    if x2.dtype == torch.float32:
-        y = x2 @ w2
-    elif x2.is_cuda:
-        y = torch.mm(x2, w2, out_dtype=torch.float32)
-    else:
-        y = x2.float() @ w2.float()
-    return y.reshape(*lead, *w.shape[n_contract:])
-
-
-def _reduced(group, axis: str, x: torch.Tensor, dtype) -> torch.Tensor:
-    """``x`` summed over the ranks, in ``dtype``, where its product
-    contracted an axis sharded over them; ``x`` itself otherwise."""
-    if not _sharded(group, axis):
-        return x
-    return group.all_reduce(x).to(dtype)
+def _row_parallel(group, axis: str, x: torch.Tensor, w: Any,
+                  n_contract: int = 1, tokens: Optional[int] = None,
+                  delta: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x @ w`` plus a LoRA ``delta``, in ``x``'s dtype. Where ``axis``
+    (the contracted one) is sharded over the ranks, ``x`` and ``w`` hold
+    this rank's cut of it and ``delta`` this rank's share, and the sum is
+    taken over the ranks (engine/quant.py ``row_parallel_matmul``)."""
+    if _sharded(group, axis):
+        return quant.row_parallel_matmul(x, w, n_contract, tokens, group,
+                                         delta)
+    y = quant.quant_matmul(x, w, n_contract, tokens=tokens)
+    return y if delta is None else y + delta
 
 
 def is_moe(cfg: ModelConfig) -> bool:
@@ -191,12 +185,12 @@ def _lora_delta(x: torch.Tensor, onehot: torch.Tensor, A: torch.Tensor,
 
 def _mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor, lb=None,
          onehot=None, tokens: Optional[int] = None,
-         partial: bool = False) -> torch.Tensor:
-    """The MLP block; ``partial``: this rank's float32 partial of a
-    down-projection sharded over the ranks (``_partial``)."""
+         group=None) -> torch.Tensor:
+    """The MLP block; its down-projection summed over the ranks of a
+    ``group`` that shards the intermediate axis (``_row_parallel``)."""
     if is_moe(cfg):
         # LoRA MLP targets are ignored on a MoE model, as in the reference
-        return _moe_mlp(cfg, lp, x, tokens)
+        return _moe_mlp(cfg, lp, x, tokens, group)
     x8 = quant.shared_rows(x, lp["w_gate"], tokens=tokens)
     gate = quant.quant_matmul(x, lp["w_gate"], tokens=tokens, x8=x8)
     up = quant.quant_matmul(x, lp["w_up"], tokens=tokens, x8=x8)
@@ -208,16 +202,15 @@ def _mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor, lb=None,
     # Gemma is GeGLU (tanh-approximated gelu on the gate); Llama is SwiGLU
     act = F.silu(gate) if cfg.act == "silu" else F.gelu(gate, approximate="tanh")
     hidden2 = act * up
-    out = (_partial(hidden2, lp["w_down"]) if partial
-           else quant.quant_matmul(hidden2, lp["w_down"], tokens=tokens))
-    if lb is not None and "w_down" in lb:
-        out = out + _lora_delta(hidden2, onehot, *lb["w_down"])
-    return out
+    delta = (_lora_delta(hidden2, onehot, *lb["w_down"])
+             if lb is not None and "w_down" in lb else None)
+    return _row_parallel(group, ln.MLP, hidden2, lp["w_down"],
+                         tokens=tokens, delta=delta)
 
 
 def _mlp_chunked(cfg: ModelConfig, lp: dict, x: torch.Tensor,
                  tokens: Optional[int], rows: int,
-                 partial: bool = False) -> torch.Tensor:
+                 group=None) -> torch.Tensor:
     """The MLP of ``x (..., T, E)`` a chunk of ``rows`` rows at a time.
     A dense MLP is row by row, so this is ``_mlp``'s value. A MoE block
     takes its capacity from ``tokens``, the reference's whole call, and
@@ -225,11 +218,11 @@ def _mlp_chunked(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     reference's call drops one too."""
     flat = x.reshape(-1, x.shape[-1])
     if flat.shape[0] <= rows:
-        return _mlp(cfg, lp, x, tokens=tokens, partial=partial)
-    out = torch.empty_like(flat, dtype=torch.float32 if partial else None)
+        return _mlp(cfg, lp, x, tokens=tokens, group=group)
+    out = torch.empty_like(flat)
     for r0 in range(0, flat.shape[0], rows):
         out[r0:r0 + rows] = _mlp(cfg, lp, flat[r0:r0 + rows], tokens=tokens,
-                                 partial=partial)
+                                 group=group)
     return out.view(x.shape)
 
 
@@ -241,7 +234,7 @@ def top_k_lower_first(logits: torch.Tensor, k: int):
 
 
 def _moe_mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor,
-             tokens: Optional[int] = None) -> torch.Tensor:
+             tokens: Optional[int] = None, group=None) -> torch.Tensor:
     """Mixtral's sparse MoE block: the reference's capacity-based top-k
     dispatch (models/llama.py ``_moe_mlp``) without its (T, X, C) one-hot
     products.
@@ -256,7 +249,21 @@ def _moe_mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     T_here)``; the experts run one batched product over X; each token sums
     its kept slots' outputs times their weights rounded to the model
     dtype. Shapes are static and nothing syncs with the host. On the W8A8
-    route each token is quantized once, before the scatter."""
+    route each token is quantized once, before the scatter.
+
+    Under a ``group`` that shards the intermediate axis, each rank holds
+    every expert's F cut: routing, top-k and dispatch run on replicated
+    inputs with deterministic ops, so every rank keeps and drops the same
+    slots; gate and up are the rank's columns, and the down-projection's
+    ``(X, C_buf, E)`` partials are summed over the ranks right after the
+    product, before the combine (in int32 on the W8A8 route, its scale the
+    max over the ranks; in float32 and rounded once otherwise). Summing
+    after the combine would move a quarter of the bytes at k 2 of X 8
+    (``(T, E)`` against ``2 T k`` rows), but would round the expert rows
+    once less than one device does and could not keep the int32 sum
+    exact; summed before, the rows are rounded where one device rounds
+    them, and the reference's GSPMD likewise reduces the product that
+    contracts the cut F, ahead of its combine."""
     shape = x.shape
     E = shape[-1]
     dt = x.dtype
@@ -265,6 +272,7 @@ def _moe_mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     T_ref = T if tokens is None else tokens
     X, k = cfg.num_experts, cfg.num_experts_per_tok
     w8a8 = quant.is_quantized(lp["w_gate"]) and not quant.a16(T_ref)
+    down_group = group if _sharded(group, ln.MLP) else None
     with quant.profile_range("moe.dispatch"):
         logits = (xt @ lp["router"]).float()
         top_vals, top_idx = top_k_lower_first(logits, k)  # (T, k)
@@ -289,13 +297,14 @@ def _moe_mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor,
             buf[dest] = rows[src]
             return buf[:sink].unflatten(0, (X, c_buf))
 
-    def experts(h: torch.Tensor, w) -> torch.Tensor:
-        """h (X, C_buf, in) in the model dtype through one stack."""
+    def experts(h: torch.Tensor, w, group=None) -> torch.Tensor:
+        """h (X, C_buf, in) in the model dtype through one stack; with a
+        ``group``, ``in`` is cut over its ranks and the rows are summed."""
         if not w8a8:
-            return quant.expert_matmul(h, w, dt)
-        hq, hs = quant.quantize_rows(h.flatten(0, 1))
+            return quant.expert_matmul(h, w, dt, group=group)
+        hq, hs = quant.quantize_rows(h.flatten(0, 1), group)
         return quant.expert_matmul(hq.view(h.shape), w, dt,
-                                   sx=hs.view(h.shape[:2]))
+                                   sx=hs.view(h.shape[:2]), group=group)
 
     if w8a8:
         xq, sx = quant.quantize_rows(xt)
@@ -306,7 +315,8 @@ def _moe_mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor,
         xb = dispatch(xt)
         gate = quant.expert_matmul(xb, lp["w_gate"], dt)
         up = quant.expert_matmul(xb, lp["w_up"], dt)
-    down = experts(F.silu(gate) * up, lp["w_down"])  # (X, C_buf, E)
+    down = experts(F.silu(gate) * up, lp["w_down"],
+                   down_group)  # (X, C_buf, E)
     with quant.profile_range("moe.combine"):
         rows = torch.cat([down.flatten(0, 1), down.new_zeros(1, E)])[dest]
         comb = weights.to(dt).float()[..., None]  # rounded to the model dtype
@@ -403,22 +413,19 @@ def forward_hidden(
         q = rotate(q, cos, sin)
         k = rotate(k, cos, sin)
         attn, kv_pool = attend(q, k, v, kv_pool, i)
-        o = (_partial(attn, lp["wo"], 2) if _sharded(group, ln.HEADS)
-             else quant.quant_matmul(attn, lp["wo"], 2, tokens=ref_tokens))
-        if lb is not None and "wo" in lb:
-            o = o + _lora_delta(attn.flatten(-2), onehot, *lb["wo"])
-        o = _reduced(group, ln.HEADS, o, h.dtype)
+        delta = (_lora_delta(attn.flatten(-2), onehot, *lb["wo"])
+                 if lb is not None and "wo" in lb else None)
+        o = _row_parallel(group, ln.HEADS, attn, lp["wo"], 2, ref_tokens,
+                          delta)
         if cfg.post_norms:
             o = rms_norm(o, lp["post_attn_norm"], eps, off)
         h = h + o
         mlp_in = rms_norm(h, lp["mlp_norm"], eps, off)
         if mlp_rows is None or lb is not None:
-            mlp_out = _mlp(cfg, lp, mlp_in, lb, onehot, ref_tokens,
-                           _sharded(group, ln.MLP))
+            mlp_out = _mlp(cfg, lp, mlp_in, lb, onehot, ref_tokens, group)
         else:
             mlp_out = _mlp_chunked(cfg, lp, mlp_in, ref_tokens, mlp_rows,
-                                   _sharded(group, ln.MLP))
-        mlp_out = _reduced(group, ln.MLP, mlp_out, h.dtype)
+                                   group)
         if cfg.post_norms:
             mlp_out = rms_norm(mlp_out, lp["post_mlp_norm"], eps, off)
         h = h + mlp_out

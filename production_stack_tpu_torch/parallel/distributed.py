@@ -1,8 +1,10 @@
 """Rank start-up for tensor parallelism: one process a rank under
 torch.distributed, with two process groups.
 
-- The **device group** carries the model's collectives (the all-reduces
-  of the row-parallel products and of the vocab-parallel embedding, the
+- The **device group** carries the model's collectives (the float32
+  all-reduces of the row-parallel products and of the vocab-parallel
+  embedding; on an int8 model's W8A8 route the max of each row's
+  activation scale and the exact int32 sum of the int8 products; the
   all-gather of the vocab-sharded logits) on each rank's device: ``nccl``
   where each rank has a card of its own, ``gloo`` on the CPU. gloo also
   takes CUDA tensors, staging them through host memory, which lets two
@@ -117,11 +119,22 @@ class RankGroup:
     backend: str
     control: Any
     shard: Optional[Shard] = None
+    # per-card bytes the device group's collectives put on the wire, by
+    # op (``_count``); the perf accountant reads them on rank 0
+    wire: dict = dataclasses.field(default_factory=dict)
 
     @property
     def cards(self) -> int:
         """Distinct cards the ranks run on (ranks may share one)."""
         return len({d for d in self.devices if d != "cpu"}) or 1
+
+    def _count(self, op: str, payload: int) -> None:
+        """Add a collective's per-card wire bytes to ``wire[op]``: a ring
+        all-reduce sends 2 (n - 1) / n of its payload from each card, an
+        all-gather (n - 1) / n of the gathered result."""
+        n = self.size
+        fac = (n - 1) / n if op == "all_gather" else 2.0 * (n - 1) / n
+        self.wire[op] = self.wire.get(op, 0.0) + payload * fac
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of ``x`` over the ranks, in ``x``'s dtype. The sum is
@@ -133,7 +146,31 @@ class RankGroup:
         y = x if x.dtype == torch.float32 else x.float()
         y = y.contiguous()
         dist.all_reduce(y)
+        self._count("all_reduce", y.nbytes)
         return y if x.dtype == torch.float32 else y.to(x.dtype)
+
+    def all_reduce_int32(self, x: torch.Tensor) -> torch.Tensor:
+        """The exact sum of the int32 ``x`` over the ranks (the int8
+        products' partials), in place where ``x`` is contiguous. A float32
+        sum of partials past 2^24 would round where one device's int32
+        sum does not."""
+        if x.dtype != torch.int32:
+            raise TypeError(f"all_reduce_int32 of a {x.dtype} tensor")
+        x = x.contiguous()
+        dist.all_reduce(x)
+        self._count("all_reduce_int32", x.nbytes)
+        return x
+
+    def all_reduce_max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max of the float32 ``x`` over the ranks (each
+        row's activation absmax where the row is cut), in place where
+        ``x`` is contiguous."""
+        if x.dtype != torch.float32:
+            raise TypeError(f"all_reduce_max of a {x.dtype} tensor")
+        x = x.contiguous()
+        dist.all_reduce(x, op=dist.ReduceOp.MAX)
+        self._count("all_reduce_max", x.nbytes)
+        return x
 
     def all_gather_last(self, x: torch.Tensor) -> torch.Tensor:
         """The ranks' ``x`` side by side along the last dim, in rank
@@ -141,6 +178,7 @@ class RankGroup:
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(self.size)]
         dist.all_gather(parts, x)
+        self._count("all_gather", x.nbytes * self.size)
         return torch.cat(parts, dim=-1)
 
     def min_int(self, n: int) -> int:
@@ -154,6 +192,14 @@ class RankGroup:
         box = [obj]
         dist.broadcast_object_list(box, src=0, group=self.control)
         return box[0]
+
+    def scatter(self, objs: Optional[list] = None):
+        """Rank r's entry of rank 0's ``objs`` (over the control group):
+        each rank receives only its own."""
+        out = [None]
+        dist.scatter_object_list(out, objs if self.rank == 0 else None,
+                                 src=0, group=self.control)
+        return out[0]
 
     def gather(self, obj) -> Optional[list]:
         """Every rank's ``obj`` in rank order on rank 0; None elsewhere."""

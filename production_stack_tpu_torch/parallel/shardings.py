@@ -16,6 +16,22 @@ two KV heads at tp 4), a rank keeps only the KV heads its query heads
 read, so its KV pool and its attention kernels see the local group size.
 That needs tp to be a multiple of KH: each rank then reads exactly one KV
 head.
+
+Two kinds of leaf are cut here that GSPMD cuts with no rule of their
+own in the reference:
+
+- an int8 leaf ``{"q", "s"}`` (engine/quant.py): q is cut like its
+  weight, and its scale only along the weight's output axes (the scale
+  keeps the contracted axes as size-1 dims), so a row-parallel weight's
+  scale (``wo``, ``w_down``) is whole on every rank;
+- a LoRA adapter's stacked pairs ``A (L, in, R)``, ``B (L, R, *out)``
+  (``LORA_AXES``): A is cut along its input where the target's input is
+  sharded (``wo``, ``w_down``), B along its output where the target's
+  output is (``wq``, ``wk``, ``wv``, ``w_gate``, ``w_up``).
+
+The MoE expert stacks ``(X, E, F)`` and ``(X, F, E)`` are cut along F,
+experts whole: the reference's ``expert`` axis is 1 under its CLI, which
+has no flag for it.
 """
 
 from __future__ import annotations
@@ -23,6 +39,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Mapping, Optional, Tuple
 
+from production_stack_tpu_torch.engine.quant import scale_axes
 from production_stack_tpu_torch.parallel.mesh import (
     AXIS_DATA,
     AXIS_EXPERT,
@@ -45,6 +62,19 @@ LAYERS = "layers"
 EXPERTS = "experts"
 KV_BLOCKS = "kv_blocks"
 BLOCK = "block"
+
+
+# LoRA target -> logical axes of its input and of its output (the
+# adapted weight's contracted and output axes)
+LORA_AXES = {
+    "wq": ((EMBED,), (HEADS, HEAD_DIM)),
+    "wk": ((EMBED,), (KV_HEADS, HEAD_DIM)),
+    "wv": ((EMBED,), (KV_HEADS, HEAD_DIM)),
+    "wo": ((HEADS, HEAD_DIM), (EMBED,)),
+    "w_gate": ((EMBED,), (MLP,)),
+    "w_up": ((EMBED,), (MLP,)),
+    "w_down": ((MLP,), (EMBED,)),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,6 +178,28 @@ class Shard:
         index = tuple(slice(*self.cuts[a]) if a in self.cuts
                       else slice(None) for a in logical_axes)
         return x[index]
+
+    def cut_leaf(self, x, logical_axes: tuple):
+        """``cut`` for a plain leaf or an int8 one ``{"q", "s"}``: q as
+        the weight, s along the axes it keeps (a size-1 dim of s where q
+        has more is a contracted axis, whole on every rank)."""
+        if not isinstance(x, dict):
+            return self.cut(x, logical_axes)
+        contracted = scale_axes(x)
+        s_axes = tuple(None if i in contracted else a
+                       for i, a in enumerate(logical_axes))
+        return {"q": self.cut(x["q"], logical_axes),
+                "s": self.cut(x["s"], s_axes)}
+
+    def cut_lora(self, target: str, A, B, in_shape: tuple):
+        """Rank's share of one target's stacked LoRA pair ``A (L, in, R)``
+        and ``B (L, R, *out)``, ``in`` being ``in_shape`` flattened (the
+        attention output's (heads, head_dim) for ``wo``)."""
+        ins, outs = LORA_AXES[target]
+        L, _, R = A.shape
+        a = self.cut(A.reshape(L, *in_shape, R), (LAYERS, *ins, None))
+        return (a.reshape(L, -1, R),
+                self.cut(B, (LAYERS, None, *outs)))
 
     def local(self, axis: str, n: int) -> int:
         """The rank's extent of an axis of global size ``n``."""

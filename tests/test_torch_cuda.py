@@ -912,3 +912,85 @@ def test_tensor_parallel_ranks_on_one_card_match_cpu(cuda, tp):
         for r in reports:
             launched = {k for k, n in r["launches"].items() if n}
             assert {"K1", "K3", attn} <= launched, (impl, r)
+
+
+# the model's features at tp 2 on this card: the CPU's top-2 gap under
+# which a greedy flip is a near-tie (int8: an activation on a rounding
+# boundary rounds either way on the card and on the CPU)
+TP_FEATURE_GAPS = {"tiny-mixtral": 1e-4, "int8-w8a8": 0.05,
+                   "int8-w8a16": 0.05, "lora": 1e-4}
+
+
+@pytest.mark.parametrize("case", list(TP_FEATURE_GAPS))
+def test_tensor_parallel_features_on_one_card_match_cpu(cuda, case,
+                                                        monkeypatch):
+    """float32 at tensor-parallel size 2, both ranks on this card over
+    gloo, against the CPU at tp 1 on the ragged path: tiny-mixtral,
+    tiny-llama int8 on the W8A8 route and on the W8A16 one
+    (``PSTPU_QUANT_A16_THRESHOLD=1``, which the spawned ranks inherit),
+    tiny-llama with a rank-8 adapter on every other request (each rank
+    sent its share). Greedy tokens equal up to a near-tie
+    (``TP_FEATURE_GAPS``); every rank's token digest is rank 0's; K1-K3
+    launch on every rank."""
+    from production_stack_tpu_torch.engine.config import (
+        CacheConfig,
+        EngineConfig,
+        SchedulerConfig,
+    )
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+    from production_stack_tpu_torch.engine.weights import init_random
+    from production_stack_tpu_torch.parallel.mesh import MeshConfig
+
+    preset = "tiny-mixtral" if case == "tiny-mixtral" else "tiny-llama"
+    quant = "int8" if case.startswith("int8") else None
+    if case == "int8-w8a16":
+        monkeypatch.setenv("PSTPU_QUANT_A16_THRESHOLD", "1")
+    params = init_random(EngineConfig.for_model(preset).model, seed=0)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 259, int(n)).tolist()
+               for n in rng.integers(3, 90, 8)]
+    sp = SamplingParams(temperature=0.0, max_tokens=16, ignore_eos=True,
+                        logprobs=2)
+
+    def serve(eng):
+        if case == "lora":
+            eng.runner.register_lora(1, _adapter(eng.config.model))
+        for i, p in enumerate(prompts):
+            eng.add_request(str(i), prompt_token_ids=p, sampling=sp,
+                            adapter_slot=i % 2 if case == "lora" else 0)
+        out = {str(i): ([], []) for i in range(len(prompts))}
+        while eng.has_unfinished():
+            for o in eng.step():
+                out[o.request_id][0].extend(o.new_token_ids)
+                out[o.request_id][1].extend(o.new_logprobs or ())
+        return out
+
+    def cfg(n):
+        return EngineConfig.for_model(
+            preset, quant=quant,
+            cache=CacheConfig(block_size=16, num_blocks=128),
+            scheduler=SchedulerConfig(max_num_seqs=8,
+                                      max_num_batched_tokens=64),
+            mesh=MeshConfig(tensor=n))
+
+    cpu = serve(LLMEngine(cfg(1), params=params, device="cpu"))
+    eng = LLMEngine(cfg(2), params=params, device=cuda,
+                    rank_devices=["cuda:0"] * 2, backend="gloo")
+    try:
+        card = serve(eng)
+        reports = eng.runner.follower_reports()
+    finally:
+        eng.close()
+    for rid, (want, lps) in cpu.items():
+        got = card[rid][0]
+        assert len(got) == len(want), rid
+        for i, (a, b) in enumerate(zip(want, got)):
+            if a != b:
+                gap = lps[i][1][0][1] - lps[i][1][1][1]
+                assert gap < TP_FEATURE_GAPS[case], (case, rid, i, gap)
+                break
+    assert len({(r["calls"], r["digest"]) for r in reports}) == 1
+    for r in reports:
+        launched = {k for k, n in r["launches"].items() if n}
+        assert {"K1", "K2", "K3"} <= launched, (case, r)

@@ -17,11 +17,18 @@
   guided decoding, seeded sampling with penalties and chained decode at
   tp 2 equal tp 1. Every follower's token digest equals rank 0's.
 - The server with ``--device cpu --tensor-parallel-size 2``: completions,
-  a stream, chat, embeddings, sleep and wake; LoRA loading and the KV
-  routes answer 501; no rank survives the stop, nor a killed leader.
-- Refusals: what the ranks do not carry exits at start, and so do data,
-  pipeline and sequence parallel sizes above 1.
-- The accountant counts the reference's collective bytes.
+  a stream, chat, embeddings, sleep and wake; an adapter loads, serves a
+  completion and unloads (200), the KV routes answer 501; no rank
+  survives the stop, nor a killed leader.
+- Refusals: what the ranks do not carry exits at start (Whisper, the KV
+  roles and tiers), and so do data, pipeline and sequence parallel sizes
+  above 1; ``--quantization int8`` and MoE presets start.
+- The accountant counts the collective bytes the device group sent, by
+  op (float32 partials: twice the reference's bf16 formula), and they
+  equal rank 0's count after an engine run.
+
+The model's features under tensor parallelism (MoE, int8, LoRA) are
+``test_torch_tp_features.py``'s.
 
 Every test that starts ranks runs under ``rank_limit`` (``_torch_tp``):
 its rank processes are killed past its seconds and on its way out.
@@ -47,6 +54,7 @@ import torch
 
 from _torch_parity import assert_same, drain, engine_configs, tiny_weights
 from _torch_tp import alive, kill_pids, rank_limit, wait_gone
+from test_torch_lora import make_adapter_dir
 from production_stack_tpu.engine import config as jcfg
 from production_stack_tpu.engine import perf_accounting as jperf
 from production_stack_tpu.engine.engine import LLMEngine as JaxEngine
@@ -70,6 +78,7 @@ from production_stack_tpu_torch.engine.weights import (
     shard_params,
 )
 from production_stack_tpu_torch.models import llama as tllama
+from production_stack_tpu_torch.parallel import distributed as pdist
 from production_stack_tpu_torch.parallel import shardings as tshard
 from production_stack_tpu_torch.parallel.mesh import MeshConfig, tensor_size
 
@@ -236,7 +245,8 @@ def _run(tp: int, impl: str) -> dict:
             out["pools"] = eng.runner.gather("export_blocks", mine)
             out["reports"] = eng.runner.follower_reports()
             out["perf"] = (eng.perf.tp, eng.perf.n_chips,
-                           eng.perf.stats_fields()["collective_bytes"])
+                           eng.perf.stats_fields()["collective_bytes"],
+                           dict(eng.runner.ranks.wire))
             out["same_blocks"] = list(mine) == list(blocks)
         finally:
             eng.close()
@@ -271,10 +281,12 @@ def test_followers_sample_what_rank0_samples(tp, impl):
 
 @pytest.mark.parametrize("tp,impl", CASES, ids=IDS)
 def test_accountant_reads_the_tensor_parallel_degree(tp, impl):
-    deg, chips, coll = _run(tp, impl)["perf"]
+    deg, chips, coll, wire = _run(tp, impl)["perf"]
     # tiny-llama's heads divide 2 and 4; the ranks share the CPU
     assert (deg, chips) == (tp, 1)
     assert coll["all_reduce"] > 0 and coll["all_gather"] > 0
+    # every byte rank 0 sent was billed to a dispatch
+    assert coll == pytest.approx(wire)
 
 
 def test_kv_pools_side_by_side_are_the_shard_grouped_pool():
@@ -382,8 +394,10 @@ def test_a_follower_that_diverges_is_reported(caplog):
 # -- refusals -----------------------------------------------------------------
 
 @pytest.mark.parametrize("extra,named", [
-    (["--quantization", "int8"], "--quantization int8"),
-    (["--model", "tiny-mixtral"], "MoE"),
+    # carried since the model's features run sharded: they start
+    (["--quantization", "int8"], None),
+    (["--model", "tiny-mixtral"], None),
+    (["--model", "tiny-mixtral", "--quantization", "int8"], None),
     (["--model", "tiny-whisper"], "Whisper"),
     (["--role", "prefill"], "--role prefill"),
     (["--role", "decode"], "--role decode"),
@@ -395,6 +409,11 @@ def test_what_tp_does_not_carry_exits_at_start(extra, named):
     args = tserver.build_parser().parse_args(
         ["--model", "tiny-llama", "--device", "cpu",
          "--tensor-parallel-size", "2"] + extra)
+    if named is None:
+        conf = tserver.config_from_args(args)
+        assert conf.mesh == MeshConfig(tensor=2)
+        assert multihost.refusal(conf) is None
+        return
     with pytest.raises(SystemExit, match="tensor parallelism") as e:
         tserver.config_from_args(args)
     assert named in str(e.value)
@@ -456,7 +475,7 @@ def _http(base, path, body=None, method=None):
         return e.code, e.read()
 
 
-def test_server_serves_under_tp2_and_leaves_no_rank():
+def test_server_serves_under_tp2_and_leaves_no_rank(tmp_path):
     args = tserver.build_parser().parse_args(
         ["--model", "tiny-llama", "--device", "cpu", "--skip-warmup",
          "--num-blocks", "64", "--max-num-seqs", "4",
@@ -490,9 +509,16 @@ def test_server_serves_under_tp2_and_leaves_no_rank():
             assert _http(base, "/sleep?level=2", {})[0] == 200
             assert _http(base, "/wake_up", {})[0] == 200
             assert _http(base, "/v1/completions", body)[0] == 200
+            adapter = make_adapter_dir(str(tmp_path), ModelConfig.from_pretrained(
+                "tiny-llama"), seed=1)
+            lora = {"lora_name": "a", "lora_path": adapter}
+            assert _http(base, "/v1/load_lora_adapter", lora)[0] == 200
+            assert _http(base, "/v1/completions",
+                         {**body, "model": "a"})[0] == 200
+            assert _http(base, "/v1/unload_lora_adapter", lora)[0] == 200
+            assert tserver.TP_REFUSED_ROUTES == ("/kv/export", "/kv/recv")
             for path in tserver.TP_REFUSED_ROUTES:
-                status, raw = _http(base, path, {"lora_name": "a",
-                                                 "lora_path": "/x"})
+                status, raw = _http(base, path, lora)
                 assert status == 501, path
                 assert "tensor parallelism" in json.loads(raw)["error"][
                     "message"]
@@ -542,19 +568,72 @@ def test_a_killed_leader_leaves_no_rank():
 
 # -- the accountant -----------------------------------------------------------
 
-def test_collective_bytes_follow_the_reference_formulas():
-    """The same dispatches through both accountants at tp 4: the same
-    per-token all-reduce and per-row all-gather bytes and totals."""
+def _wire_group(monkeypatch, size: int) -> pdist.RankGroup:
+    """Rank 0 of a RankGroup of ``size`` whose collectives send nothing
+    (torch.distributed's calls stubbed): only its byte counts move."""
+    monkeypatch.setattr(pdist.dist, "all_reduce", lambda *a, **kw: None)
+    monkeypatch.setattr(pdist.dist, "all_gather", lambda *a, **kw: None)
+    return pdist.RankGroup(0, size, torch.device("cpu"), ("cpu",) * size,
+                           "gloo", None)
+
+
+def _decode_collectives(group, cfg, rows: int) -> None:
+    """The collectives of one plain decode step of ``rows`` tokens, as the
+    model sends them (models/llama.py): the embedding's all-reduce, two
+    float32 row-parallel partials a layer, the logits' all-gather."""
+    E, V = cfg.hidden_size, cfg.vocab_size // group.size
+    group.all_reduce(torch.zeros(rows, E, dtype=torch.bfloat16))
+    for _ in range(2 * cfg.num_layers):
+        group.all_reduce(torch.zeros(rows, E))
+    group.all_gather_last(torch.zeros(rows, V))
+
+
+def test_collective_bytes_follow_the_reference_formulas(monkeypatch):
+    """The same decode dispatches through both accountants at tp 4: the
+    port counts the bytes its device group sent, by op, not the
+    reference's formulas. Its row-parallel partials are float32 where the
+    formula counts bf16, and the embedding's all-reduce is counted too;
+    the logits' all-gather is the formula's."""
     name = "llama-3-8b"
     kw = dict(param_count=1000, param_bytes=2000, window=60.0, n_chips=4,
               tensor_parallel=4)
     ref = jperf.PerfAccountant(jcfg.ModelConfig.from_pretrained(name), **kw)
-    got = tperf.PerfAccountant(ModelConfig.from_pretrained(name), **kw)
-    assert got._ar_bytes_per_tok == pytest.approx(ref._ar_bytes_per_tok)
-    assert got._ag_bytes_per_row == pytest.approx(ref._ag_bytes_per_row)
-    for acc in (ref, got):
-        acc.record_decode(8, 1, 64, ts=100.0)
-        acc.record_decode(8, 1, 64, ts=130.0)
-    assert (got.stats_fields()["collective_bytes"]
-            == pytest.approx(ref.stats_fields()["collective_bytes"]))
+    cfg = ModelConfig.from_pretrained(name)
+    got = tperf.PerfAccountant(cfg, **kw)
+    group = _wire_group(monkeypatch, 4)
+    got.wire = group.wire
+    for ts in (100.0, 130.0):
+        _decode_collectives(group, cfg, 8)
+        got.record_decode(8, 1, 64, ts=ts)
+        ref.record_decode(8, 1, 64, ts=ts)
+    coll = got.stats_fields()["collective_bytes"]
+    want = ref.stats_fields()["collective_bytes"]
+    ring = 2.0 * 3 / 4
+    E, L = cfg.hidden_size, cfg.num_layers
+    assert coll["all_reduce"] == pytest.approx(
+        2 * 8 * (2 * L + 1) * E * 4 * ring)
+    assert coll["all_reduce"] == pytest.approx(
+        want["all_reduce"] * 2 * (2 * L + 1) / (2 * L))
+    assert coll["all_gather"] == pytest.approx(want["all_gather"])
+    assert coll == pytest.approx(group.wire)
     assert got.snapshot()["tensor_parallel"] == 4
+
+
+def test_int8_collectives_are_counted_by_op(monkeypatch):
+    """The W8A8 route's collectives have ops of their own: the max of one
+    float32 scale a row and the int32 partials' sum."""
+    group = _wire_group(monkeypatch, 2)
+    cfg = ModelConfig.from_pretrained("llama-3-8b")
+    acc = tperf.PerfAccountant(cfg, param_count=1000, param_bytes=2000,
+                               n_chips=1, tensor_parallel=2)
+    acc.wire = group.wire
+    rows, E = 64, cfg.hidden_size
+    group.all_reduce_max(torch.zeros(rows))
+    group.all_reduce_int32(torch.zeros(rows, E, dtype=torch.int32))
+    acc.record_ragged(0, 0, 0, rows, 64 * rows, ts=10.0)
+    coll = acc.stats_fields()["collective_bytes"]
+    assert coll == {"all_reduce": 0.0, "all_gather": 0.0,
+                    "all_reduce_max": rows * 4.0,
+                    "all_reduce_int32": rows * E * 4.0}
+    with pytest.raises(TypeError):
+        group.all_reduce_int32(torch.zeros(2))
