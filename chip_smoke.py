@@ -267,16 +267,19 @@ fatal):
    the bucketed path: tokens equal tp 1's up to a near-tie, logprobs
    within max(``BF16_LOGPROB_BAND``, twice tp 1's own repeat deviation);
    the follower's token digest and call count equal rank 0's exactly, and
-   it launched the same kernels as many times. (b) K1-K4 at the shard's
+   it launched the same kernels as many times; on the ragged engine,
+   phase 17 (d)'s 128-block export and import. (b) K1-K4 at the shard's
    shapes (H 16, KH 4, D 128), against their plain versions as in phase
    3, with times, bounds and library calls (each kernel's record carries
-   them under ``also``). (c) The server in a fresh process
-   (``chip_smoke.py --tp-server PORT``, ``server.main`` with both ranks on
-   cuda:0 over gloo): 8 concurrent requests answer 200 with their 16
-   tokens; phase 16 (c)'s routes; after SIGTERM, no rank's process is
-   alive within 3 s. Then
-   ``--tensor-parallel-size 2`` on the command line (rank r on cuda:r)
-   exits non-zero naming the card count. (d) Printed, not judged: an
+   them under ``also``), without phase 3's tile and span sweeps. (c) The
+   server in a fresh process (``chip_smoke.py --tp-server PORT``,
+   ``server.main`` with both ranks on cuda:0 over gloo), run after phase
+   16 (a) as phase 17's prefill server: 8 concurrent requests answer 200
+   with their 32 tokens (phase 17's reference wave); phase 16 (c)'s and
+   phase 17 (c)'s routes; after SIGTERM, no rank's process is alive
+   within 3 s. Beside its start, ``--tensor-parallel-size 2`` on the
+   command line (rank r on cuda:r) exits non-zero naming the card
+   count. (d) Printed, not judged: an
    eager 64-row decode step and a 2048-token ragged step at tp 2 beside
    tp 1, and the phase's seconds: two ranks share one card over gloo, so
    none of these is a tensor-parallel speed. K1-K4 launch (K2 on the
@@ -298,9 +301,11 @@ fatal):
    its largest logit (the vocab-cut head's own rounding); a decode step
    from an empty context must equal tp 1's bit for bit; the step beside
    plain tp 1's, layer by layer, is printed (``_FirstStepProbe``). The
-   wave's tokens equal tp 1's up to flips where tp 1's top-2 gap is under
+   whole wave, every token and every logprob, must equal the one-device
+   run with tp 2's sums bit for bit; beside plain tp 1 it is printed with
+   the band it stayed in before (flips where tp 1's top-2 gap is under
    max(``INT8_TIE_GAP``, twice the largest at the one-device repeat's
-   flips), logprobs within max(``INT8_LP_BAND``, twice its deviation);
+   flips), logprobs within max(``INT8_LP_BAND``, twice its deviation));
    the follower's digest and launches rank 0's; K1-K3 launch, K4 not; a
    rank's weight bytes, KV blocks and engine-up seconds printed. (b)
    llama-3-8b bf16 with a rank-16 adapter on all seven targets (written
@@ -311,25 +316,54 @@ fatal):
    tokens equal tp 1's up to a near-tie,
    logprobs within max(0.05, twice tp 1's own deviation), the adapter
    changes prompt 0's tokens at both, the follower = rank 0. (c) On
-   phase 15's server: ``/v1/load_lora_adapter``, a completion naming the
-   adapter and ``/v1/unload_lora_adapter`` answer 200; ``/kv/export`` and
-   ``/kv/recv`` 501. (d) Printed, not judged: (a)'s 64-row decode step
-   (contexts ~32-48) and 2048-token ragged step, twice each, their share
-   in collectives and the bytes each collective kind sent. Phase 16's
-   waves prefill in one or two steps: at tp 2 over gloo a step's
-   collectives take seconds.
+   phase 15 (c)'s server: ``/v1/load_lora_adapter``, a completion naming
+   the adapter and ``/v1/unload_lora_adapter`` answer 200. (d) Printed, not
+   judged: (a)'s 64-row decode step (contexts ~32-48) and 2048-token
+   ragged step, twice each, their share in collectives and the bytes
+   each collective kind sent. Phase 16's waves prefill in one or two
+   steps: at tp 2 over gloo a step's collectives take seconds.
+17. The KV plane at tensor-parallel size 2 (``tp2-kv-plane``), after
+   phase 16 (a): llama-3-8b bf16, a prefill server (``--role
+   prefill``, phase 15 (c)'s server) and a decode server (``--role
+   decode``, 536 KV blocks a rank, a 4 GiB host tier) each in a fresh
+   process (``--tp-server``, ``server.main``, both ranks of each on this
+   card over gloo), both with ``--remote-kv-url`` to a ``kv_server`` in
+   this process. The reference: 8 prompts (512-1024 tokens, 32 out)
+   served twice by the prefill server itself, as phase 9 takes it; the
+   band is max(``BF16_LOGPROB_BAND``, twice its own repeat deviation).
+   (a) The same 8 pulled, then pushed and spliced, as phase 9 judges
+   them: imports 8 with ``cached_tokens`` the full blocks, splices 8,
+   tokens equal the reference up to a near-tie, logprobs within the
+   band; a lone 2048-token push lands 128 full blocks equal, bit for
+   bit, to the producer's pool as its ranks hold it, joined (each
+   server's ``/kv/export``), and is spliced. (b) The host tier (wave A
+   of 4 x 1024 tokens, wave B of 8 evicting it from the pool, wave A
+   again) and the remote tier (wave C of 4 served by the prefill server,
+   which offloads it, then by the decode server): each wave back hits
+   at least 90% of its usable blocks, tokens equal as in (a). (c) On
+   the prefill server: ``/kv/export`` answers a real prompt's two blocks
+   (200, grouped in 2), which, streamed out and pushed into its own
+   ``/kv/recv`` (200), a continuation splices. (d) Printed, not judged,
+   beside phase 9's tp 1 figures: the lone push's GB/s, the wall of a
+   128-block export and import at tp 2 and the device time of rank 0's
+   own gather and scatter (phase 15 (a)'s engine), median TTFT cold, warm
+   from the host tier and warm from the remote tier. Rank 0's launches
+   of both servers, read over ``/debug/perf`` before and after (a) and
+   (b): K1-K3, not K4. Both servers leave on SIGTERM, their followers
+   within 3 s.
 
 Phases 4-14 run with decode graphs on, the default; phase 5's bf16 run
 through the plain versions decodes eagerly (a plain version synchronises
-with the host, which a capture cannot hold), and so do phases 15 and 16
+with the host, which a capture cannot hold), and so do phases 15-17
 (a gloo collective cannot be captured).
 
 The line before the card line carries the kernels' JSON record, whose
 ``launches`` sum each kernel's launches over every served path (each
 path's own counts are in ``launches_by_path``, ``moe-int8``, ``kv-plane``,
 ``scoring-surface``, ``whisper``, ``overload``, ``observability``,
-``decode-graphs``, ``tp2``, ``tp2-lora-ragged``, ``tp2-lora-bucketed``
-and ``tp2-moe-int8`` (rank 0's) among them; a graph replay adds
+``decode-graphs``, ``tp2``, ``tp2-lora-ragged``, ``tp2-lora-bucketed``,
+``tp2-moe-int8`` and ``tp2-kv-plane`` (rank 0's) among them; a graph
+replay adds
 the launches its capture recorded); the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -935,13 +969,13 @@ def yardsticks(torch, name, pool, layer, entries, H, KH, want_rows) -> dict:
 
 
 def ragged_measure(torch, card, label, pool, dev, spans, q, layer, H, KH, D,
-                   S, bs, T) -> dict:
+                   S, bs, T, sweep: bool = True) -> dict:
     """bf16 K2 on one stream against its plain version (tail rows exactly
-    0), its row-tile sweep and, where the stream has one-token spans, their
-    split-span sweep (each setting checked first), then its time by the
-    default work map beside its plain version, bound and library calls. The
-    work maps are made once, as the model runner makes one a step, so the
-    times are the kernels' alone."""
+    0), with ``sweep`` its row-tile sweep and, where the stream has
+    one-token spans, their split-span sweep (each setting checked first),
+    then its time by the default work map beside its plain version, bound
+    and library calls. The work maps are made once, as the model runner
+    makes one a step, so the times are the kernels' alone."""
     from production_stack_tpu_torch.ops import paged_prefill_attention as k4
     from production_stack_tpu_torch.ops import ragged_paged_attention as k2
 
@@ -969,15 +1003,16 @@ def ragged_measure(torch, card, label, pool, dev, spans, q, layer, H, KH, D,
         f"{work.n_tiles} row tiles of {work.tile}, {work.n_decode} one-token "
         f"spans in {work.plan[0]} splits of {work.plan[1]}")
     by_tile = {}
-    for tile in k4.TILES[D]:
+    for tile in k4.TILES[D] if sweep else ():
         w = wmap(tile=tile)
         check_close(f"K2 {label}, tile {tile}", k2.ragged_paged_attention(
             *args, tiles=w), want, BF16_TOL, torch, extra=extra)
         by_tile[f"{tile[0]}x{tile[1]}"] = timed(w)
-    log(f"[kernels] K2 {label} ms by row tile (rows x positions; default "
-        f"{work.tile}): {json.dumps(by_tile)} ({card})")
+    if by_tile:
+        log(f"[kernels] K2 {label} ms by row tile (rows x positions; "
+            f"default {work.tile}): {json.dumps(by_tile)} ({card})")
     by_span = {}
-    if work.n_decode:
+    if work.n_decode and sweep:
         for span in SPAN_SWEEP:
             w = wmap(split_span=span)
             check_close(f"K2 {label}, split span {span}",
@@ -1060,11 +1095,12 @@ def ragged_verify_stream(torch, card, rng, H, KH, D, S, M, bs, T,
 
 
 def decode_measure(torch, card, label, rng, lens, H, KH, D, M, bs,
-                   layer) -> dict:
+                   layer, sweep: bool = True) -> dict:
     """bf16 K3 on one query per slot with context ``lens`` (0 = an empty
-    slot, which must output exactly 0) against its plain version, its
-    split-span sweep (each span checked first), then its time by its own
-    split plan beside its plain version, bound and library calls."""
+    slot, which must output exactly 0) against its plain version, with
+    ``sweep`` its split-span sweep (each span checked first), then its
+    time by its own split plan beside its plain version, bound and library
+    calls."""
     from production_stack_tpu_torch.ops import paged_decode_attention as k3
 
     B = len(lens)
@@ -1088,14 +1124,16 @@ def decode_measure(torch, card, label, rng, lens, H, KH, D, M, bs,
         raise AssertionError(f"K3 {label}: a slot with context 0 did not "
                              "output 0")
     by_span = {}
-    for span in SPAN_SWEEP + ((4096, 8192) if max(lens) > 4096 else ()):
+    for span in (SPAN_SWEEP + ((4096, 8192) if max(lens) > 4096 else ())
+                 if sweep else ()):
         p = k3.split_plan(max(lens), len(spans), KH, span)
         check_close(f"K3 {label}, split span {span}",
                     k3.paged_decode_attention(*args, plan=p), want, BF16_TOL,
                     torch, extra=extra)
         by_span[span] = timed(p)
-    log(f"[kernels] K3 {label} ms by split span (default plan {plan}): "
-        f"{json.dumps(by_span)} ({card})")
+    if by_span:
+        log(f"[kernels] K3 {label} ms by split span (default plan {plan}): "
+            f"{json.dumps(by_span)} ({card})")
     ms = timed(plan)
     plain_ms = time_ms(torch, lambda: plain(*args), 5, warmup=1, graph=False)
     nbytes, flops = decode_work(lens, H, KH, D, 2, bs)
@@ -3227,10 +3265,11 @@ def _kv_pd(torch, np, card: str) -> float:
         D.shutdown()
     del P, D
     _released(torch, "kv-plane P/D")
-    return band
+    return band, {"push_gb_s": nbytes / secs / 1e9, "gather_ms": gather_ms,
+                  "scatter_ms": scatter_ms}
 
 
-def _kv_tiers(torch, np, card: str, band: float) -> None:
+def _kv_tiers(torch, np, card: str, band: float) -> dict:
     """Phase 9, parts 3 and 4: the host tier (A, then B, which evicts A
     from the pool, then A again) and the remote tier (A on one engine,
     then on a fresh one)."""
@@ -3312,6 +3351,8 @@ def _kv_tiers(torch, np, card: str, band: float) -> None:
         "remote": {"puts": puts, "hits": remote_stats["tiers"]["remote"],
                    "prefetch": remote_stats["prefetch"],
                    "bytes": remote_stats["bytes"]}}))
+    return {"ttft_cold_s": ttft_cold, "ttft_host_s": ttft_host,
+            "ttft_remote_s": ttft_remote}
 
 
 def kv_plane_phase(torch, np, counters, card: str) -> dict:
@@ -3319,15 +3360,16 @@ def kv_plane_phase(torch, np, counters, card: str) -> dict:
     random weights from seed 0. P->D: a prefill and a decode server, 16
     requests (512-2048 tokens, 64 out) pulled, then pushed and spliced;
     then the host and the remote tier. Returns the phase's launches (K1,
-    K2 and K3 must launch, K4 not)."""
+    K2 and K3 must launch, K4 not) and its figures that phase 17 prints
+    beside tp 2's."""
     for c in counters:
         c.n = 0
-    band = _kv_pd(torch, np, card)
-    _kv_tiers(torch, np, card, band)
+    band, figures = _kv_pd(torch, np, card)
+    figures.update(_kv_tiers(torch, np, card, band))
     launches = {c.name.split()[0]: c.n for c in counters}
     _expect(launches, {"K1", "K2", "K3"}, "kv-plane")
     log(f"[kv-plane] launches: {json.dumps(launches)}")
-    return launches
+    return {"launches": launches, "figures": figures}
 
 
 # -- phase 10: the scoring surface --------------------------------------------
@@ -5140,7 +5182,9 @@ def _obs_ledger(torch, base: str, server, path: str) -> dict:
             drain[0]["fingerprint_id"]}
 
 
-DRILL_CAPTURES = 20
+# 0.5 s captures in a row after the two 2 s ones (the drill watches for
+# an abort in a capture; phase 17 needed the seconds of sixteen more)
+DRILL_CAPTURES = 4
 # the drill's request rate: 4 a second x 32 tokens, under what llama-3-8b
 # serves on the ragged path (~180 tokens/s at 16 in flight), so a queue
 # builds only while a capture holds the server
@@ -5894,14 +5938,16 @@ def _tp_kernels(torch, np, card: str) -> dict:
                               200)}}
     del ref_pool
     q = torch.randn((T, H, D), dtype=torch.bfloat16, device="cuda")
+    # no tile or span sweeps at the shard (PERF.md keeps their earlier
+    # readings): phase 17 needs their seconds
     recs["K2"] = ragged_measure(torch, card, "tp 2 shard, mixed stream",
                                 pool, dev, spans, q, layer, H, KH, D, S, bs,
-                                T)
+                                T, sweep=False)
     del pool, q
     lens = [0 if b % 9 == 0 else int(rng.integers(1, 2049))
             for b in range(S)]
     recs["K3"] = decode_measure(torch, card, f"tp 2 shard, B={S}", rng, lens,
-                                H, KH, D, M, bs, layer)
+                                H, KH, D, M, bs, layer, sweep=False)
     recs["K4"] = prefill_kernel_phase(torch, np, card, rng, cfg, M)
     recs["K4"]["shape"] = "tp 2 shard: " + recs["K4"]["shape"]
     for key, r in recs.items():
@@ -5914,17 +5960,109 @@ def _tp_kernels(torch, np, card: str) -> dict:
 
 
 def tp_server_child(argv: list) -> int:
-    """``--tp-server PORT``: llama-3-8b at tensor-parallel size 2, both
-    ranks on cuda:0 over gloo, through the server's own entry point
-    (``server.main``: SIGTERM drains, then the process exits)."""
+    """``--tp-server PORT [FLAG ...]``: llama-3-8b at tensor-parallel size
+    2, both ranks on cuda:0 over gloo, through the server's own entry
+    point (``server.main``: SIGTERM drains, then the process exits); the
+    further flags pass through (``--role``, the tiers; a repeated flag's
+    last value wins)."""
     sys.path.insert(0, str(ROOT))
     from production_stack_tpu_torch.engine import server
 
     server.main(["--model", "llama-3-8b", "--host", "127.0.0.1", "--port",
                  argv[0], "--tensor-parallel-size", "2", "--num-blocks",
-                 "1024", "--max-num-seqs", "16", "--skip-warmup"],
+                 "1024", "--max-num-seqs", "16", "--skip-warmup",
+                 *argv[1:]],
                 rank_devices=["cuda:0", "cuda:0"], backend="gloo")
     return 0
+
+
+class _TpServer:
+    """A ``--tp-server`` child: started with ``extra`` flags (``start``),
+    waited for until its ``/debug/perf`` answers (``up``), and stopped by
+    SIGTERM (``stop``: its follower gone within ``TP_GONE_S``, then the
+    server's exit 0), its log kept in a temporary file."""
+
+    CHILD = (str(ROOT / "chip_smoke.py"), "--tp-server")
+
+    def __init__(self, extra=()):
+        import tempfile
+
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        self.base = f"http://127.0.0.1:{port}"
+        self.logf = tempfile.TemporaryFile()
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, *self.CHILD, str(port), *extra], cwd=ROOT,
+            stdout=self.logf,
+            stderr=subprocess.STDOUT)
+        self.pids = [self.proc.pid]
+        self.up_s = None
+
+    def log_tail(self) -> str:
+        self.logf.seek(0)
+        return self.logf.read().decode(errors="replace")[-3000:]
+
+    def up(self, tag: str, timeout: float = 300) -> dict:
+        """Wait for the server; returns its ``/debug/perf`` ranks."""
+        while True:
+            try:
+                status, _, raw = _http(self.base, "/debug/perf")
+                break
+            except (urllib.error.URLError, ConnectionError):
+                if (self.proc.poll() is not None
+                        or time.perf_counter() - self.t0 > timeout):
+                    raise AssertionError(
+                        f"[{tag}] the server did not come up (exit "
+                        f"{self.proc.poll()}):\n{self.log_tail()}")
+                time.sleep(0.5)
+        self.up_s = time.perf_counter() - self.t0
+        ranks = json.loads(raw)["ranks"]
+        self.pids = [self.proc.pid] + ranks["pids"][1:]
+        if ranks["size"] != 2 or ranks["decode_graphs"]:
+            raise AssertionError(f"[{tag}] ranks {ranks}")
+        return ranks
+
+    def launches(self) -> dict:
+        """Rank 0's kernel launches so far (``/debug/perf``)."""
+        return json.loads(_http(self.base, "/debug/perf")[2])["ranks"][
+            "launches"]
+
+    def stop(self, tag: str) -> dict:
+        """SIGTERM; (seconds until the followers were gone, until the
+        server exited)."""
+        import signal
+
+        t_stop = time.perf_counter()
+        self.proc.send_signal(signal.SIGTERM)
+        # the follower ranks, watched from the signal on (a follower's
+        # zombie, not yet reaped by the server, counts as gone)
+        while any(_pid_alive(p) for p in self.pids[1:]):
+            if time.perf_counter() - t_stop > TP_GONE_S:
+                raise AssertionError(f"[{tag}] ranks {self.pids[1:]} alive "
+                                     f"{TP_GONE_S} s after the stop")
+            time.sleep(0.02)
+        gone = time.perf_counter() - t_stop
+        rc = self.proc.wait(60)
+        exited = time.perf_counter() - t_stop
+        if rc != 0:
+            raise AssertionError(f"[{tag}] the server exited {rc}:\n"
+                                 f"{self.log_tail()}")
+        return {"ranks_gone_s": gone, "server_exit_s": exited, "exit": rc}
+
+    def kill(self) -> None:
+        """Whatever is left of it, killed (after a failure)."""
+        import os
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(30)
+        for p in self.pids[1:]:
+            if _pid_alive(p):
+                os.kill(p, signal.SIGKILL)
+        self.logf.close()
 
 
 def _pid_alive(pid: int) -> bool:
@@ -5938,8 +6076,10 @@ def _pid_alive(pid: int) -> bool:
 def _tpf_server_routes(base: str, adapter: str) -> dict:
     """Phase 16 (c) on the tp 2 server: ``adapter`` loads over
     ``/v1/load_lora_adapter`` (200), a completion naming it answers 200
-    with its 16 tokens, it unloads (200); ``/kv/export`` and ``/kv/recv``
-    answer 501 naming tensor parallelism."""
+    with its 16 tokens, it unloads (200). Phase 17 (c): ``/kv/export``
+    answers a real prompt's two blocks (200, their bytes, grouped in 2),
+    and those blocks, streamed out and pushed into the server's own
+    ``/kv/recv`` (200), are spliced by a continuation."""
     lora = {"lora_name": "tp-adapter", "lora_path": adapter}
     t0 = time.perf_counter()
     loaded = _http(base, "/v1/load_lora_adapter", lora)[0]
@@ -5948,115 +6088,129 @@ def _tpf_server_routes(base: str, adapter: str) -> dict:
         "model": "tp-adapter", "prompt": list(range(100, 164)),
         "max_tokens": 16, "temperature": 0.0, "ignore_eos": True}, False)
     unloaded = _http(base, "/v1/unload_lora_adapter", lora)[0]
-    kv = {}
-    for path in ("/kv/export", "/kv/recv"):
-        code, _, raw = _http(base, path, {"block_ids": [0]})
-        kv[path] = code
-        if code != 501 or b"tensor parallelism" not in raw:
-            raise AssertionError(f"[tp2-features] (c) {path}: {code} {raw!r}")
     out = {"load": loaded, "load_s": load_s, "completion": status,
-           "completion_tokens": n_out, "unload": unloaded, "kv": kv}
+           "completion_tokens": n_out, "unload": unloaded}
     if (loaded, status, n_out, unloaded) != (200, 200, 16, 200):
         raise AssertionError(f"[tp2-features] (c) adapter routes: {out}")
+    out["kv"] = _tpkv_routes(base)
     return out
 
 
-def _tp_server(np, card: str, adapter: str) -> dict:
-    """(c) The server in a fresh process at tp 2 on this card: 8
-    concurrent requests answer 200 with their tokens; phase 16 (c)'s
-    adapter and KV routes (``_tpf_server_routes``); after SIGTERM no
-    rank's process is alive within ``TP_GONE_S``. Then
-    ``--tensor-parallel-size 2`` from the command line, ranks on cuda:r,
-    exits non-zero naming the card count."""
-    import os
-    import signal
-    import tempfile
+def _kv_frames(base: str, blocks: list, group: int) -> tuple:
+    """``base``'s streamed ``/kv/export`` of ``blocks`` in ``group``-layer
+    frames: (its headers, the frames' payloads)."""
+    import http.client
+    import io
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    base = f"http://127.0.0.1:{port}"
-    logf = tempfile.TemporaryFile()
-    t0 = time.perf_counter()
-    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
-                             "--tp-server", str(port)], cwd=ROOT,
-                            stdout=logf, stderr=subprocess.STDOUT)
+    from production_stack_tpu_torch.engine import kv_transfer as kvt
 
-    def server_log() -> str:
-        logf.seek(0)
-        return logf.read().decode(errors="replace")[-3000:]
-
-    pids = []
+    u = urllib.parse.urlsplit(base)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=600)
     try:
-        while True:
-            try:
-                status, _, raw = _http(base, "/debug/perf")
-                break
-            except (urllib.error.URLError, ConnectionError):
-                if proc.poll() is not None or time.perf_counter() - t0 > 300:
-                    raise AssertionError(f"[tp] (c) the server did not come "
-                                         f"up (exit {proc.poll()}):\n"
-                                         f"{server_log()}")
-                time.sleep(0.5)
-        up = time.perf_counter() - t0
-        ranks = json.loads(raw)["ranks"]
-        pids = [proc.pid] + ranks["pids"][1:]
-        if ranks["size"] != 2 or ranks["decode_graphs"]:
-            raise AssertionError(f"[tp] (c) ranks {ranks}")
-        rng = np.random.default_rng(18)
-        bodies = [{"model": "llama-3-8b", "max_tokens": 16,
-                   "temperature": 0.0, "ignore_eos": True,
-                   "prompt": rng.integers(0, 32000, int(n)).tolist()}
-                  for n in rng.integers(32, 513, 8)]
-        t1 = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(8) as ex:
-            outs = list(ex.map(lambda b: _request(
-                base + "/v1/completions", b, False), bodies))
-        wave = time.perf_counter() - t1
-        for status, n_out, _ in outs:
-            if status != 200 or n_out != 16:
-                raise AssertionError(f"[tp] (c) {status}, {n_out} tokens")
-        routes = _tpf_server_routes(base, adapter)
-        log(f"[tp2-features] (c) the tp 2 server's routes ({card}): "
-            f"{json.dumps(routes)}")
-        t_stop = time.perf_counter()
-        proc.send_signal(signal.SIGTERM)
-        # the follower ranks, watched from the signal on (a follower's
-        # zombie, not yet reaped by the server, counts as gone)
-        while any(_pid_alive(p) for p in pids[1:]):
-            if time.perf_counter() - t_stop > TP_GONE_S:
-                raise AssertionError(f"[tp] (c) ranks {pids[1:]} alive "
-                                     f"{TP_GONE_S} s after the stop")
-            time.sleep(0.02)
-        gone = time.perf_counter() - t_stop
-        rc = proc.wait(60)
-        exited = time.perf_counter() - t_stop
-        if rc != 0:
-            raise AssertionError(f"[tp] (c) the server exited {rc}:\n"
-                                 f"{server_log()}")
+        conn.request("POST", "/kv/export", json.dumps(
+            {"blocks": blocks, "stream": True, "group_layers": group}),
+            {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise AssertionError(f"[tp2-kv-plane] streamed export: HTTP "
+                                 f"{resp.status}")
+        body = io.BytesIO(resp.read())
+        payloads = []
+        while (payload := kvt.read_frame(body)) is not None:
+            payloads.append(bytes(payload))
+        return dict(resp.headers), payloads
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait(30)
-        for p in pids[1:]:
-            if _pid_alive(p):
-                os.kill(p, signal.SIGKILL)
-        logf.close()
-    cli = subprocess.run(
+        conn.close()
+
+
+def _spliced(base: str) -> float:
+    return _scrape(base, KV_MODEL)["vllm:spliced_seqs_total"]
+
+
+def _tpkv_routes(base: str) -> dict:
+    """Phase 17 (c) on the tp 2 server (``_tpf_server_routes``)."""
+    from production_stack_tpu_torch.engine import kv_transfer as kvt
+
+    prompt = list(range(1000, 1040))  # two full blocks of 16
+    status, pre, _ = _post(base, "/v1/completions", {
+        "model": KV_MODEL, "prompt": prompt, "max_tokens": 1,
+        "temperature": 0.0, "ignore_eos": True,
+        "kv_transfer_params": {"do_remote_decode": True}})
+    ids = pre["kv_transfer_params"]["remote_block_ids"][:2]
+    code, headers, raw = _http(base, "/kv/export", {"blocks": ids})
+    shape = [int(x) for x in headers.get("X-KV-Shape", "0").split(",")]
+    want = kvt.nbytes_of(shape, headers.get("X-KV-Dtype", "bfloat16"))
+    if (code, len(raw), shape[1], headers.get(kvt.HEAD_GROUPS_HEADER)) != (
+            200, want, 2, "2"):
+        raise AssertionError(f"[tp2-kv-plane] (c) /kv/export: {code}, "
+                             f"{len(raw)} B of {want}, {headers}")
+    got, payloads = _kv_frames(base, ids, 16)
+    if b"".join(payloads) != raw:
+        raise AssertionError("[tp2-kv-plane] (c) the streamed export is "
+                             "not the whole one")
+    tid = f"own-{time.monotonic_ns()}"
+    meta = {"transfer_id": tid, "prompt_token_ids": prompt[:32],
+            "first_token": 50}
+    headers = {"X-KV-Transfer-Id": tid, "X-KV-Start-Layer": "0",
+               "X-KV-Group-Layers": "16",
+               **{k: got[k] for k in ("X-KV-Shape", "X-KV-Dtype",
+                                      kvt.HEAD_GROUPS_HEADER)}}
+    recv, text = kvt._post_chunked(
+        base, "/kv/recv", headers,
+        [kvt.frame(json.dumps(meta).encode()),
+         *map(kvt.frame, payloads), kvt.END_FRAME], 600)
+    spliced = _spliced(base)
+    status, _, _ = _post(base, "/v1/completions", {
+        "model": KV_MODEL, "prompt": prompt[:32] + [50],
+        "max_tokens": 2, "temperature": 0.0, "ignore_eos": True,
+        "kv_transfer_params": {"transfer_id": tid}})
+    out = {"export": code, "export_bytes": len(raw), "recv": recv,
+           "recv_answer": json.loads(text), "spliced": status,
+           "spliced_seqs": _spliced(base) - spliced}
+    if (recv, status, out["spliced_seqs"]) != (200, 200, 1):
+        raise AssertionError(f"[tp2-kv-plane] (c) /kv/recv: {out}")
+    return out
+
+
+def _tp_cli_refusal() -> subprocess.Popen:
+    """``--tensor-parallel-size 2`` from the command line, ranks on
+    cuda:r, started now to exit beside other work (``_tp_cli_refused``)."""
+    return subprocess.Popen(
         [sys.executable, "-m", "production_stack_tpu_torch.engine.server",
          "--model", "llama-3-8b", "--tensor-parallel-size", "2",
-         "--port", "0"], cwd=ROOT, capture_output=True, text=True,
-        timeout=300)
+         "--port", "0"], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def _tp_cli_refused(cli: subprocess.Popen) -> str:
+    """(c) The CLI at tp 2 exited non-zero naming the card count; its
+    last line."""
+    _, err = cli.communicate(timeout=300)
     n = _card_count()
-    if cli.returncode == 0 or f"has {n} CUDA card" not in cli.stderr:
+    if cli.returncode == 0 or f"has {n} CUDA card" not in err:
         raise AssertionError(f"[tp] (c) the CLI at tp 2 on {n} card(s): rc "
-                             f"{cli.returncode}, {cli.stderr[-400:]}")
-    out = {"up_s": up, "wave_s": wave, "requests": len(outs),
-           "routes": routes, "ranks_gone_s": gone, "server_exit_s": exited,
-           "exit": rc,
-           "cli_refusal": cli.stderr.strip().splitlines()[-1]}
-    log(f"[tp] (c) server ({card}; {TP_NOTE}): {json.dumps(out)}")
-    return out
+                             f"{cli.returncode}, {err[-400:]}")
+    return err.strip().splitlines()[-1]
+
+
+def _tp_server_checks(np, base: str, card: str) -> dict:
+    """Phase 15 (c) and phases 16 (c) and 17 (c) on a tp 2 server in a
+    fresh process (phase 17's prefill server): a rank-16 adapter, written
+    here, loads, serves and unloads; the KV routes answer
+    (``_tpf_server_routes``). Its 8 concurrent requests are phase 17's
+    reference wave (``_tpkv_reference``), each answered 200 with its
+    tokens."""
+    import tempfile
+
+    from production_stack_tpu_torch.engine.config import ModelConfig
+
+    with tempfile.TemporaryDirectory() as tmp:
+        adapter = write_adapter(np, ModelConfig.from_pretrained(KV_MODEL),
+                                tmp, rank=16, seed=0)
+        routes = _tpf_server_routes(base, adapter)
+    log(f"[tp2-features] (c) the tp 2 server's routes ({card}): "
+        f"{json.dumps(routes)}")
+    return routes
 
 
 def _card_count() -> int:
@@ -6219,6 +6373,7 @@ def _tp_identity(torch, np, impl: str, card: str, prompts, sp,
         steps = (_tp_steps(torch, np, eng, card, f"tp2-{impl}")
                  if impl == "ragged" else None)
         collective = eng.perf.stats_fields()["collective_bytes"]
+        moves = _tp_kv_moves(torch, eng, card) if impl == "ragged" else None
         before = eng.runner.follower_reports()
         _zero(counters)
         t1 = time.perf_counter()
@@ -6239,6 +6394,8 @@ def _tp_identity(torch, np, impl: str, card: str, prompts, sp,
            "accountant_collective_bytes": collective,
            "steps": {"tp1": ref["steps"], "tp2": steps},
            "launches": launches}
+    if moves is not None:
+        out["kv_moves"] = moves
     log(f"[tp] (a) {impl} ({card}): tp 2 = tp 1 up to near-ties, the "
         f"follower = rank 0 exactly: {json.dumps(out)}")
     lref = ref["lora"]
@@ -6266,12 +6423,12 @@ def tp_phase(torch, np, counters, card: str) -> dict:
     """Phase 15: llama-3-8b at tensor-parallel size 2, both ranks on this
     card over gloo. The tp 1 references first (released), then (a)
     identity and (d) step times at tp 2 on the ragged and the bucketed
-    path, (b) K1-K4 at the shard's shapes, (c) the server in a fresh
-    process and the CLI's refusal. Phase 16 (b) and (c) ride on these
-    engines and this server: a rank-16 adapter's wave after (a)'s on
-    each, the adapter and KV routes on the server. Returns rank 0's
-    launches at tp 2, those of each adapter wave, and the kernels' shard
-    records."""
+    path, (b) K1-K4 at the shard's shapes; (c), the server in a fresh
+    process, rides on phase 17's prefill server (``tp_kv_phase``). Phase
+    16 (b) rides on these engines: a rank-16 adapter's wave after (a)'s
+    on each. Returns rank 0's launches at tp 2, those of each adapter
+    wave, the kernels' shard records and phase 17 (d)'s 128-block
+    moves."""
     import tempfile
 
     from production_stack_tpu_torch.engine.config import ModelConfig
@@ -6304,10 +6461,10 @@ def tp_phase(torch, np, counters, card: str) -> dict:
             f"{json.dumps(launches)}; with the adapter: "
             f"{json.dumps(lora_launches)}")
         shard = _tp_kernels(torch, np, card)
-        out["c_server"] = _tp_server(np, card, lora["adapter"])
-    log(f"[tp] phase 15 ({card}) in {time.perf_counter() - t_phase:.1f} s")
+    log(f"[tp] phase 15 (a) and (b) ({card}) in "
+        f"{time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "lora_launches": lora_launches,
-            "shard": shard}
+            "shard": shard, "kv_moves": out["ragged"]["kv_moves"]}
 
 
 class _FirstStepProbe:
@@ -6631,9 +6788,10 @@ def tp_features_phase(torch, np, counters, card: str, ref: dict) -> dict:
     both ranks on this card over gloo, against phase 8's tp 1 answers
     (``moe_tp_reference``): the first ragged step that of tp 1 summing
     as tp 2 sums, bit for bit but the head's rounding; a decode step from
-    an empty context tp 1's bit for bit; the wave's tokens equal up to
-    near-ties by tp 1's top-2 gap, logprobs within the band, the
-    follower's digest and launches rank 0's; K1-K3 launch, K4 not.
+    an empty context tp 1's bit for bit; the whole wave, every token and
+    every logprob, that of tp 1 summing as tp 2 sums (the band against
+    plain tp 1 printed beside it); the follower's digest and launches
+    rank 0's; K1-K3 launch, K4 not.
     Prints a rank's weight bytes, its KV blocks and the engine-up
     seconds, then (d) the
     step times, their share in collectives and each collective kind's
@@ -6699,35 +6857,394 @@ def tp_features_phase(torch, np, counters, card: str, ref: dict) -> dict:
                              "empty context is not tp 1's bit for bit")
     same, dev, flips = _tp_dev(ref["sums"], got)
     log(f"[tp2-features] (a) the wave against tp 1 summing as tp 2 sums "
-        f"({card}; printed, not judged): {same} tokens before the first "
-        f"flip, deviation {dev}, {len(flips)} flip(s)")
-    compared, worst = _tp_same("(a) mixtral-8x7b int8 tp2", ref["run"], got,
-                               ref["band"], ref["tie_gap"])
+        f"({card}): {same} tokens before the first flip, deviation {dev}, "
+        f"{len(flips)} flip(s)")
+    if got != ref["sums"]:
+        raise AssertionError(
+            "[tp2-features] (a) tp 2's mixtral-8x7b int8 wave is not tp 1's "
+            "with tp 2's row-parallel sums bit for bit: every token and "
+            f"every logprob must be ({same} tokens before the first flip, "
+            f"logprobs up to {dev} apart, flips at {flips[:4]})")
+    compared, worst, plain_flips = _tp_dev(ref["run"], got)
+    log(f"[tp2-features] (a) the wave against plain tp 1 ({card}; printed, "
+        f"not judged): {compared} tokens before the first flips, deviation "
+        f"{worst} (band {ref['band']:.4f}), {len(plain_flips)} flip(s) at "
+        f"top-2 gaps up to {_flip_gaps(ref['run'], plain_flips):.4f} (tie "
+        f"gap {ref['tie_gap']:.4f})")
     _tp_agree("(a) moe-int8", reports, launches)
-    out = {"tokens_compared": compared, "max_logprob_dev": worst,
+    out = {"sums_bit_for_bit": True, "tokens": sum(map(len, got[0].values())),
+           "plain_tokens_compared": compared, "plain_max_logprob_dev": worst,
            "band": ref["band"], "tie_gap": ref["tie_gap"],
            "tp1_repeat_dev": ref["repeat_dev"],
            "tp1_repeat_flips": ref["repeat_flips"],
            "tp2_up_s": up, "tp2_wave_s": wave, "tp1_wave_s": ref["wave_s"],
            "calls": reports[0]["calls"], "launches": launches,
            "accountant_collective_bytes": collective}
-    log(f"[tp2-features] (a) ({card}): tp 2 = tp 1 up to near-ties, the "
-        f"follower = rank 0 exactly: {json.dumps(out)}")
+    log(f"[tp2-features] (a) ({card}): tp 2 = tp 1 with tp 2's sums bit for "
+        f"bit, the follower = rank 0 exactly: {json.dumps(out)}")
     log(f"[tp2-features] phase 16 (a) ({card}) in "
         f"{time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "steps": steps}
 
 
-def _no_hbm_alarm_left() -> int:
+# -- phase 17: the KV plane under tensor parallelism ---------------------------
+
+TPKV_N = 8  # (a)'s requests, and (b)'s wave B
+TPKV_LENS = (512, 1024)  # (a)'s prompt lengths; the first is the longest
+TPKV_OUT = 32
+TPKV_TIER_N = 4  # (b)'s waves A and C, each back from a tier
+TPKV_WAVE = 1024  # (b)'s prompt length
+TPKV_WAVE_OUT = 16
+TPKV_BS = 16
+# the decode server's blocks a rank: (a)'s 8 transfers, pinned at once,
+# hold at most 66 blocks each with their decode blocks; (b)'s wave B (8 x
+# 65 blocks) leaves at most 16 of wave A's in the pool, so wave A's
+# return is the host tier's
+TPKV_D_BLOCKS = TPKV_N * (TPKV_LENS[1] + TPKV_OUT + TPKV_BS) // TPKV_BS
+TPKV_LONE = 2048  # (d)'s lone push: 128 full blocks
+
+
+def _tpkv_prompts(np) -> list:
+    rng = np.random.default_rng(17)
+    lo, hi = TPKV_LENS
+    lens = [hi] + [int(x) for x in rng.integers(lo, hi + 1, TPKV_N - 1)]
+    return [rng.integers(0, 256, n).tolist() for n in lens]
+
+
+def _tpkv_wave(base: str, prompts: list, max_tokens: int) -> list:
+    """``prompts`` served at once, each answered 200 with its
+    ``max_tokens`` tokens; each one's (text, logprobs)."""
+    with concurrent.futures.ThreadPoolExecutor(len(prompts)) as pool:
+        outs = list(pool.map(
+            lambda p: _kv_post(base, _kv_body(p, max_tokens)), prompts))
+    if any(o["usage"]["completion_tokens"] != max_tokens for o in outs):
+        raise AssertionError(f"[tp2-kv-plane] a wave's answers: "
+                             f"{[o['usage'] for o in outs]}")
+    return [_kv_run(o) for o in outs]
+
+
+def _tpkv_ttft(base: str, n: int) -> float:
+    """The median TTFT of the server's last ``n`` requests, from its
+    flight records (its own clock: received to first token)."""
+    return statistics.median(
+        r["timeline"]["first_token"] - r["timeline"]["received"]
+        for r in _obs_records(base, limit=n))
+
+
+def _perf(base: str) -> dict:
+    return json.loads(_http(base, "/debug/perf")[2])
+
+
+def _tpkv_reference(np, base: str, card: str) -> dict:
+    """Phase 17's unified answers, on the tp 2 prefill server's own
+    serve, as phase 9 takes them: (a)'s prompts twice; the repeat's
+    deviation sets the band."""
+    prompts = _tpkv_prompts(np)
+    t0 = time.perf_counter()
+    runs = _tpkv_wave(base, prompts, TPKV_OUT)
+    wave_s = time.perf_counter() - t0
+    again = _tpkv_wave(base, prompts, TPKV_OUT)
+    noise = max(_kv_dev(u, r)[1] for u, r in zip(runs, again))
+    band = max(BF16_LOGPROB_BAND, 2 * noise)
+    log(f"[tp2-kv-plane] the tp 2 prefill server's unified answers ({card}): "
+        f"{TPKV_N} prompts of {TPKV_LENS[0]}-{TPKV_LENS[1]} tokens x "
+        f"{TPKV_OUT} in {wave_s:.2f} s; its own repeat deviates by up to "
+        f"{noise:.4f}: band {band:.4f}")
+    return {"prompts": prompts, "runs": runs, "noise": noise, "band": band,
+            "wave_s": wave_s}
+
+
+def _tpkv_pd(np, P, D, ref: dict, card: str) -> dict:
+    """(a) Pull, then push and splice, P -> D, judged as phase 9 judges
+    them against the unified server's answers; then (d)'s lone push of a
+    fresh ``TPKV_LONE``-token prompt, whose landed blocks (read before the
+    decode hop attaches them) equal the producer's, bit for bit."""
+    prompts, runs, band = ref["prompts"], ref["runs"], ref["band"]
+    bs = TPKV_BS
+
+    def pull(prompt):
+        pre = _kv_post(P.base, _kv_body(prompt, 1, kv_transfer_params={
+            "do_remote_decode": True}))
+        kv = dict(pre["kv_transfer_params"], remote_host=P.base)
+        return _kv_post(D.base, _kv_body(prompt, TPKV_OUT,
+                                         kv_transfer_params=kv))
+
+    def imports() -> int:
+        return _perf(D.base)["kv_transfer"]["transfers"].get(
+            "import", {}).get("count", 0)
+
+    t0, imports0 = time.perf_counter(), imports()
+    with concurrent.futures.ThreadPoolExecutor(TPKV_N) as pool:
+        pulled = list(pool.map(pull, prompts))
+    pull_s = time.perf_counter() - t0
+    n_imports = imports() - imports0
+    same = []
+    for i, (prompt, out) in enumerate(zip(prompts, pulled)):
+        want = (len(prompt) - 1) // bs * bs
+        got = out["usage"]["prompt_tokens_details"]["cached_tokens"]
+        if got != want:
+            raise AssertionError(f"[tp2-kv-plane] pull {i}: cached_tokens "
+                                 f"{got}, the import lands {want}")
+        same.append(_kv_same(f"tp2 pull {i}", runs[i], _kv_run(out), band))
+    if n_imports != TPKV_N:
+        raise AssertionError(f"[tp2-kv-plane] pull: {n_imports} imports, "
+                             f"want {TPKV_N}")
+
+    def push(i):
+        tid = f"tp2-xfer-{i}-{time.monotonic_ns()}"
+        pre = _kv_post(P.base, _kv_body(prompts[i], 1, kv_transfer_params={
+            "do_remote_decode": True, "push_url": D.base,
+            "transfer_id": tid}))
+        kv = pre["kv_transfer_params"]
+        if not kv.get("pushed"):
+            raise AssertionError(f"[tp2-kv-plane] push {i} failed")
+        first = _kv_run(pre)
+        dec = _kv_post(D.base, _kv_body(
+            prompts[i] + [ord(first[0])], TPKV_OUT - 1, kv_transfer_params={
+                "do_remote_prefill": True, "transfer_id": tid,
+                "remote_block_ids": kv["remote_block_ids"],
+                "remote_host": P.base}))
+        rest = _kv_run(dec)
+        return first[0] + rest[0], first[1] + rest[1]
+
+    t0, spliced0 = time.perf_counter(), _spliced(D.base)
+    with concurrent.futures.ThreadPoolExecutor(TPKV_N) as pool:
+        pushed = list(pool.map(push, range(TPKV_N)))
+    push_s = time.perf_counter() - t0
+    spliced = _spliced(D.base) - spliced0
+    if spliced != TPKV_N:
+        raise AssertionError(f"[tp2-kv-plane] push: {spliced} splices, "
+                             f"want {TPKV_N} (a re-prefill is a failure)")
+    same += [_kv_same(f"tp2 push {i}", runs[i], run, band)
+             for i, run in enumerate(pushed)]
+
+    # (d) the lone push
+    rng = np.random.default_rng(20)
+    prompt = rng.integers(0, 256, TPKV_LONE).tolist()
+    n_blocks = TPKV_LONE // bs
+    tid = f"tp2-lone-{time.monotonic_ns()}"
+    totals = _perf(P.base)["kv_transfer"]["transfers"]
+    before = totals.get("push", {"bytes": 0, "seconds": 0.0})
+    pre = _kv_post(P.base, _kv_body(prompt, 1, kv_transfer_params={
+        "do_remote_decode": True, "push_url": D.base, "transfer_id": tid}))
+    after = _perf(P.base)["kv_transfer"]["transfers"]["push"]
+    nbytes = after["bytes"] - before["bytes"]
+    secs = after["seconds"] - before["seconds"]
+    src = pre["kv_transfer_params"]["remote_block_ids"]
+    dst = _perf(D.base)["kv_transfer"]["pending_blocks"][tid]
+    mine = _http(P.base, "/kv/export", {"blocks": src[:n_blocks]})
+    theirs = _http(D.base, "/kv/export", {"blocks": dst[:n_blocks]})
+    if (not pre["kv_transfer_params"].get("pushed") or len(dst) != len(src)
+            or mine[0] != 200 or theirs[0] != 200 or mine[2] != theirs[2]):
+        raise AssertionError("[tp2-kv-plane] lone push: the decode "
+                             "server's blocks differ from the producer's")
+    spliced0 = _spliced(D.base)
+    _kv_post(D.base, _kv_body(prompt + [ord(_kv_run(pre)[0][0])], 1,
+                              kv_transfer_params={"transfer_id": tid}))
+    if _spliced(D.base) != spliced0 + 1:
+        raise AssertionError("[tp2-kv-plane] lone push was not spliced")
+    out = {"pulls": TPKV_N, "imports": n_imports, "pushes": TPKV_N,
+           "spliced": spliced, "tokens_compared": sum(n for n, _ in same),
+           "max_logprob_dev": max(w for _, w in same), "band": band,
+           "pull_wave_s": pull_s, "push_wave_s": push_s,
+           "lone_push": {"blocks": len(src), "bit_identical_blocks":
+                         n_blocks, "bytes": nbytes, "seconds": secs,
+                         "gb_s": nbytes / secs / 1e9}}
+    log(f"[tp2-kv-plane] (a) P -> D at tp 2 ({card}; {TP_NOTE}): "
+        f"{json.dumps(out)}")
+    return out
+
+
+def _tpkv_tiers(np, P, D, band: float, store, card: str) -> dict:
+    """(b) The host tier on D (wave A, wave B evicting it from the pool,
+    wave A again) and the remote tier (wave C served by P, which offloads
+    it at finish, then by D, whose pool and host tier never held it):
+    each wave back hits at least 90% of the usable blocks, its tokens
+    equal the first serve's as (a)'s are judged."""
+    from production_stack_tpu_torch.engine.kv_cache import HASH_SEED
+    from production_stack_tpu_torch.engine.kv_offload import chain_hashes
+
+    bs = TPKV_BS
+    rng = np.random.default_rng(19)
+    wave_a, wave_b, wave_c = (
+        [rng.integers(0, 256, TPKV_WAVE).tolist() for _ in range(n)]
+        for n in (TPKV_TIER_N, TPKV_N, TPKV_TIER_N))
+    usable = TPKV_TIER_N * ((TPKV_WAVE - 1) // bs)
+
+    def tier(name: str) -> tuple:
+        t = _perf(D.base)["kv_tier"]
+        return t["tiers"][name]["hits"], t["prefetch"]["blocks"]
+
+    first = _tpkv_wave(D.base, wave_a, TPKV_WAVE_OUT)
+    ttft_cold = _tpkv_ttft(D.base, TPKV_TIER_N)
+    _tpkv_wave(D.base, wave_b, TPKV_WAVE_OUT)
+    hits0, blocks0 = tier("host")
+    again = _tpkv_wave(D.base, wave_a, TPKV_WAVE_OUT)
+    ttft_host = _tpkv_ttft(D.base, TPKV_TIER_N)
+    hits1, blocks1 = tier("host")
+    host = {"hits": hits1 - hits0, "committed": blocks1 - blocks0}
+    if min(host.values()) < 0.9 * usable:
+        raise AssertionError(f"[tp2-kv-plane] host tier: {host} of "
+                             f"{usable} usable blocks")
+    same = [_kv_same(f"tp2 host tier {i}", first[i], again[i], band)
+            for i in range(TPKV_TIER_N)]
+
+    on_p = _tpkv_wave(P.base, wave_c, TPKV_WAVE_OUT)
+    keys = {str(h) for p in wave_c
+            for h in chain_hashes(p, bs, HASH_SEED)[:(TPKV_WAVE - 1) // bs]}
+    t_end = time.monotonic() + 120
+    while True:
+        with store._lock:
+            left = len(keys - store.blocks.keys())
+        if not left:
+            break
+        if time.monotonic() > t_end:
+            raise AssertionError(f"[tp2-kv-plane] remote tier: {left} of "
+                                 f"wave C's blocks never put")
+        time.sleep(0.05)
+    hits0, blocks0 = tier("remote")
+    warm = _tpkv_wave(D.base, wave_c, TPKV_WAVE_OUT)
+    ttft_remote = _tpkv_ttft(D.base, TPKV_TIER_N)
+    hits1, blocks1 = tier("remote")
+    remote = {"hits": hits1 - hits0, "committed": blocks1 - blocks0}
+    if min(remote.values()) < 0.9 * usable:
+        raise AssertionError(f"[tp2-kv-plane] remote tier: {remote} of "
+                             f"{usable} usable blocks")
+    same += [_kv_same(f"tp2 remote tier {i}", on_p[i], warm[i], band)
+             for i in range(TPKV_TIER_N)]
+    tiers = _perf(D.base)["kv_tier"]
+    out = {"waves": f"A and C {TPKV_TIER_N}, B {TPKV_N} x {TPKV_WAVE} "
+                    f"tokens, {TPKV_WAVE_OUT} out",
+           "pool_blocks": TPKV_D_BLOCKS, "usable_blocks": usable,
+           "host": host, "remote": remote,
+           "tokens_compared": sum(n for n, _ in same),
+           "max_logprob_dev": max(w for _, w in same),
+           "ttft_median_s": {"cold": ttft_cold, "warm_host": ttft_host,
+                             "warm_remote": ttft_remote},
+           "bytes": tiers["bytes"], "prefetch": {
+               k: tiers["prefetch"][k] for k in ("submitted", "committed",
+                                                 "dropped", "blocks")},
+           "remote_refused": tiers["tiers"]["remote"]["refused"]}
+    log(f"[tp2-kv-plane] (b) the tiers at tp 2 ({card}; {TP_NOTE}): "
+        f"{json.dumps(out)}")
+    return out
+
+
+def tp_kv_phase(np, card: str, tp1: dict, moves: dict) -> dict:
+    """Phase 17 (``tp2-kv-plane``): llama-3-8b bf16 at tensor-parallel
+    size 2, a prefill and a decode server each in a fresh process
+    (``--tp-server``, ``server.main``, both ranks of each on this card
+    over gloo) with ``--role`` passed through, and the remote tier's
+    store in this process. Phase 15 (c) runs on the prefill server
+    (``_tp_server_checks``; the CLI's refusal beside the servers' start),
+    whose unified answers are the reference (``_tpkv_reference``); then
+    (a) pull, then push and splice (``_tpkv_pd``), (b) the host and the
+    remote tier (``_tpkv_tiers``); (d) prints tp 2's rates beside phase
+    9's tp 1 figures (``tp1``) and phase 15's 128-block gather and
+    scatter at tp 2 (``moves``). Both servers leave on SIGTERM, their
+    followers within ``TP_GONE_S``. Returns rank 0's launches, summed
+    over both servers, each read before and after (a) and (b), and the
+    servers' pids."""
+    from production_stack_tpu_torch.kv_server import KVServer
+
+    t_phase = time.perf_counter()
+    store = KVServer()
+    url = f"http://127.0.0.1:{store.start('127.0.0.1', 0)}"
+    cli = _tp_cli_refusal()
+    servers = []
+    try:
+        P = _TpServer(["--role", "prefill", "--remote-kv-url", url])
+        servers.append(P)
+        D = _TpServer(["--role", "decode", "--num-blocks",
+                       str(TPKV_D_BLOCKS), "--kv-host-cache-bytes",
+                       str(KV_HOST_BYTES), "--remote-kv-url", url])
+        servers.append(D)
+        P.up("tp2-kv-plane")
+        D.up("tp2-kv-plane")
+        refused = _tp_cli_refused(cli)
+        routes = _tp_server_checks(np, P.base, card)
+        ref = _tpkv_reference(np, P.base, card)
+        before = [srv.launches() for srv in servers]
+        pd = _tpkv_pd(np, P, D, ref, card)
+        tiers = _tpkv_tiers(np, P, D, ref["band"], store, card)
+        after = [srv.launches() for srv in servers]
+        stops = {"prefill": P.stop("tp2-kv-plane"),
+                 "decode": D.stop("tp2-kv-plane")}
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait(30)
+        for srv in servers:
+            srv.kill()
+        store.shutdown()
+    log(f"[tp] (c) the prefill server ({card}; {TP_NOTE}): " + json.dumps({
+        "up_s": P.up_s, "reference_wave_s": ref["wave_s"],
+        "requests": TPKV_N, "routes": routes, **stops["prefill"],
+        "cli_refusal": refused}))
+    launches = {k: sum(a[k] - b[k] for a, b in zip(after, before))
+                for k in after[0]}
+    _expect(launches, {"K1", "K2", "K3"}, "tp2-kv-plane")
+    figures = {
+        "tp2": {"push_gb_s": pd["lone_push"]["gb_s"], **moves,
+                "ttft_cold_s": tiers["ttft_median_s"]["cold"],
+                "ttft_host_s": tiers["ttft_median_s"]["warm_host"],
+                "ttft_remote_s": tiers["ttft_median_s"]["warm_remote"]},
+        "tp1 (phase 9)": tp1}
+    log(f"[tp2-kv-plane] (d) ({card}; printed, not judged; {TP_NOTE}): "
+        f"{json.dumps(figures)}")
+    log(f"[tp2-kv-plane] servers up in {P.up_s:.1f} and {D.up_s:.1f} s; "
+        f"stops {json.dumps(stops)}; launches on rank 0 of both "
+        f"{json.dumps(launches)}; phase 17 ({card}) in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "pids": [srv.proc.pid for srv in servers]}
+
+
+def _tp_kv_moves(torch, eng, card: str) -> dict:
+    """(d) A 128-block export and import at tp 2 on phase 15 (a)'s ragged
+    engine: host wall of the whole (both ranks' gathers, rank 1's share
+    over gloo, the join, one copy to the host; the split, the share back
+    and both scatters), and the device time of rank 0's own gather and
+    scatter (its half of the heads) as CUDA events time them."""
+    runner, n = eng.runner, 128
+    inner, L = runner._inner, eng.config.model.num_layers
+    ids = list(range(0, 2 * n, 2))
+    walls = {"export": [], "import": []}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        data = runner.export_blocks(ids)
+        walls["export"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        runner.import_blocks(ids, data)
+        torch.cuda.synchronize()
+        walls["import"].append(time.perf_counter() - t0)
+    dev = inner.gather_blocks(ids, 0, L)
+    out = {"blocks": n, "bytes": data.nbytes,
+           "export_wall_ms": statistics.median(walls["export"]) * 1e3,
+           "import_wall_ms": statistics.median(walls["import"]) * 1e3,
+           "rank0_gather_ms": time_ms(torch, lambda: inner.gather_blocks(
+               ids, 0, L), 20, graph=False),
+           "rank0_scatter_ms": time_ms(torch, lambda: inner.scatter_blocks(
+               ids, 0, dev), 20, graph=False)}
+    del data, dev
+    log(f"[tp2-kv-plane] (d) 128 blocks out and back in at tp 2 ({card}; "
+        f"{TP_NOTE}): {json.dumps(out)}")
+    return out
+
+
+def _no_hbm_alarm_left(pids=()) -> int:
     """Every server of this run but phase 13's keeps its bundles in the
-    default archive (a per-process directory under the system tmpdir):
-    none may hold an hbm_pressure bundle. Returns the bundles there."""
+    default archive (a directory a process under the system tmpdir): this
+    process's and those of the servers that ran in the processes ``pids``
+    may hold no hbm_pressure bundle. Returns the bundles there."""
     import os
     import tempfile
 
-    root = pathlib.Path(tempfile.gettempdir()) / \
-        f"pstpu-diagnostics-{os.getpid()}"
-    names = sorted(p.name for p in root.iterdir()) if root.is_dir() else []
+    names = []
+    for pid in (os.getpid(), *pids):
+        root = pathlib.Path(tempfile.gettempdir()) / \
+            f"pstpu-diagnostics-{pid}"
+        if root.is_dir():
+            names += sorted(p.name for p in root.iterdir())
     hbm = [n for n in names if n.endswith("-hbm_pressure")]
     if hbm:
         raise AssertionError(f"[observability] served paths left "
@@ -6794,7 +7311,8 @@ def main() -> int:
     by_path["surface-ragged"] = surface_phase(torch, np, counters, card)
     moe_ref: dict = {}
     by_path["moe-int8"] = moe_int8_phase(torch, np, counters, card, moe_ref)
-    by_path["kv-plane"] = kv_plane_phase(torch, np, counters, card)
+    kv = kv_plane_phase(torch, np, counters, card)
+    by_path["kv-plane"] = kv["launches"]
     by_path["scoring-surface"] = scoring_phase(torch, np, counters, card)
     by_path["whisper"] = whisper_phase(torch, np, counters, card)
     by_path["overload"] = overload_phase(torch, np, counters, card)
@@ -6807,7 +7325,9 @@ def main() -> int:
         by_path[f"tp2-lora-{impl}"] = n
     by_path["tp2-moe-int8"] = tp_features_phase(torch, np, counters, card,
                                                 moe_ref)["launches"]
-    _no_hbm_alarm_left()
+    kv_tp = tp_kv_phase(np, card, kv["figures"], tp["kv_moves"])
+    by_path["tp2-kv-plane"] = kv_tp["launches"]
+    _no_hbm_alarm_left(kv_tp["pids"])
 
     kernels = []
     for r in results:

@@ -58,6 +58,8 @@ at a degree above 1 the engine is rank 0 of a group it starts
 (engine/multihost.start_ranks, one spawned process a follower rank) and
 its runner mirrors every device call to them. What the ranks do not
 carry yet raises at start (``multihost.refusal``); ``close`` stops them.
+The KV plane's calls and the tiers are rank 0's: its runner hands them
+whole blocks, every rank's heads joined, and scatters what they import.
 """
 
 from __future__ import annotations
@@ -89,6 +91,7 @@ from production_stack_tpu_torch.engine.kv_offload import (
 )
 from production_stack_tpu_torch.engine.model_runner import ModelRunner
 from production_stack_tpu_torch.engine.multihost import (
+    kernel_launches,
     MirroredRunner,
     start_ranks,
 )
@@ -265,7 +268,8 @@ class LLMEngine:
         self.host_kv = maybe_make_store(
             config.cache, bytes_per_block=kv_cache_bytes_per_block(
                 config.model, config.cache))
-        self.remote_kv = maybe_make_remote(config.cache)
+        self.remote_kv = maybe_make_remote(config.cache,
+                                           self.runner.kv_head_groups)
         self._prefetcher: Optional[KVPrefetcher] = None
         # (block id, chain hash) of pool blocks evicted during this step's
         # decisions, copied to the host in one batch before the step's
@@ -1528,7 +1532,8 @@ class LLMEngine:
                              "bytes_capacity": self.host_kv.capacity_bytes}
         if self.remote_kv is not None:
             tiers["remote"] = {"hits": self.remote_kv.hits,
-                               "queries": self.remote_kv.queries}
+                               "queries": self.remote_kv.queries,
+                               "refused": self.remote_kv.refused}
         prefetch = None
         if self._prefetcher is not None:
             total = self.prefetch_seconds_sum
@@ -1568,10 +1573,12 @@ class LLMEngine:
 
     def rank_info(self) -> dict:
         """The ranks: their count, process ids (this process first) and
-        devices; whether decode steps run as CUDA graphs."""
+        devices; whether decode steps run as CUDA graphs; this process's
+        kernel launches so far (rank 0's)."""
         info = {"size": self.tensor_parallel_ranks, "pids": [os.getpid()],
                 "devices": [str(self.device)],
-                "decode_graphs": self.runner.graphs is not None}
+                "decode_graphs": self.runner.graphs is not None,
+                "launches": kernel_launches()}
         if isinstance(self.runner, MirroredRunner):
             info["pids"] += [p.pid for p in self.runner.procs]
             info["devices"] = list(self.runner.ranks.devices)

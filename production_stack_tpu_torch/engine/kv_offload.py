@@ -23,6 +23,15 @@ reference keys every block by the base chain. The remote client speaks
 the reference's ``kv_server`` protocol on the standard library (the card's
 machine has no ``requests``), bf16 as raw 2-byte words tagged
 ``"bfloat16"``, so a JAX engine and this package's engine share one store.
+
+Under tensor parallelism the tiers live in rank 0's process and hold
+whole slabs, every rank's KV heads joined in the reference's pool layout
+at that tensor-parallel size (engine/multihost.py). That layout depends on
+the size, so each slab's ``X-KV-Meta`` names its KV head grouping
+(``head_groups``, kv_transfer.py); a slab of another grouping is a clean
+miss, counted in ``refused``, never imported as other heads (the
+reference's meta carries no grouping, and a missing one is read as the
+client's own).
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ import torch
 
 from production_stack_tpu_torch.engine.kv_cache import HASH_SEED, _chain_hash
 from production_stack_tpu_torch.engine.kv_transfer import (
+    HEAD_GROUPS_META,
     read_exactly,
     tensor_bytes,
     tensor_from_bytes,
@@ -207,12 +217,15 @@ class RemoteKVClient:
     _MAX_PENDING_PUTS = 1024
 
     def __init__(self, base_url: str, block_size: int,
-                 get_timeout: float = 2.0, io_threads: int = 4):
+                 get_timeout: float = 2.0, io_threads: int = 4,
+                 head_groups: int = 1):
         self.base_url = base_url.rstrip("/")
         self.block_size = block_size
         self.get_timeout = get_timeout
+        self.head_groups = head_groups
         self.hits = 0
         self.queries = 0
+        self.refused = 0  # fetched slabs of another KV head grouping
         u = urllib.parse.urlsplit(self.base_url)
         self._host, self._port = u.hostname, u.port or 80
         self._prefix = u.path.rstrip("/")
@@ -268,7 +281,8 @@ class RemoteKVClient:
                 return  # backlog: drop rather than grow without bound
             self._pending_puts += 1
         meta = json.dumps({"shape": list(slab.shape),
-                           "dtype": DTYPE_NAMES[slab.dtype]})
+                           "dtype": DTYPE_NAMES[slab.dtype],
+                           HEAD_GROUPS_META: self.head_groups})
         try:
             fut = self._io.submit(self._put_one, str(chain_hash),
                                   bytes(tensor_bytes(slab)), meta)
@@ -285,6 +299,11 @@ class RemoteKVClient:
             if status != 200:
                 return None
             meta = json.loads(headers.get("X-KV-Meta") or "{}")
+            if int(meta.get(HEAD_GROUPS_META,
+                            self.head_groups)) != self.head_groups:
+                with self._pending_lock:
+                    self.refused += 1
+                return None
             return tensor_from_bytes(body, meta.get("dtype", "float32"),
                                      meta["shape"])
         except Exception:  # a timeout or a bad entry: a miss
@@ -435,8 +454,10 @@ def maybe_make_store(cache_config,
     return None
 
 
-def maybe_make_remote(cache_config) -> Optional[RemoteKVClient]:
+def maybe_make_remote(cache_config,
+                      head_groups: int = 1) -> Optional[RemoteKVClient]:
     if cache_config.remote_kv_url:
         return RemoteKVClient(cache_config.remote_kv_url,
-                              cache_config.block_size)
+                              cache_config.block_size,
+                              head_groups=head_groups)
     return None

@@ -6,7 +6,8 @@ feed each other:
 
 - HTTP headers: ``X-KV-Shape`` (the full ``L,n,bs,2KH,D``), ``X-KV-Dtype``
   (``bfloat16``, ``float16`` or ``float32``), ``X-KV-Group-Layers``; a push
-  adds ``X-KV-Transfer-Id`` and ``X-KV-Start-Layer``;
+  adds ``X-KV-Transfer-Id`` and ``X-KV-Start-Layer``. This package adds
+  ``X-KV-Head-Groups`` (below);
 - a chunked body of frames ``[8-byte little-endian payload length]
   [payload][4-byte little-endian CRC32 of the payload]``, one a layer
   group in layer order; a zero length (``END_FRAME``, no CRC) ends it. A
@@ -18,6 +19,16 @@ the producer resumes from there (``start_layer``) and never resends an
 earlier group. A bfloat16 payload is the pool's raw 2-byte words, which
 this module maps to ``torch.bfloat16`` itself: numpy has no bfloat16
 without ``ml_dtypes``.
+
+The 2KH rows of a block are the reference's pool layout, grouped by
+shard: ``combine_kv(k, v, g)`` with g the tensor-parallel size where KV
+heads shard and 1 where they are replicated. So one model's bytes differ
+between engines of different tensor-parallel sizes at the same shape. The
+reference names no grouping and imports another engine's bytes as its
+own heads; a producer here names its grouping in ``X-KV-Head-Groups``
+(and a remote slab in its meta's ``head_groups``), and a consumer whose
+grouping differs refuses the bytes (``head_groups_of``). A missing header
+is read as the consumer's own, which is what a JAX producer sends.
 
 This package's server runs on threads, so the three functions that the
 reference writes for asyncio are written here for blocking IO:
@@ -50,6 +61,16 @@ DEFAULT_WINDOW = 2
 
 WIRE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
                "float32": torch.float32}
+
+# the KV head grouping of a transfer's bytes (module docstring)
+HEAD_GROUPS_HEADER = "X-KV-Head-Groups"
+HEAD_GROUPS_META = "head_groups"
+
+
+def head_groups_of(headers, own: int) -> int:
+    """The KV head grouping ``headers`` name; ``own`` when they name
+    none (a JAX producer)."""
+    return int(headers.get(HEAD_GROUPS_HEADER) or own)
 
 
 class FrameDigestError(ValueError):
@@ -262,14 +283,17 @@ def _post_chunked(url: str, path: str, headers: dict, chunks,
 def push_kv(url: str, run_on_engine: Callable, blocks: list[int],
             shape: tuple, dtype: str, meta: dict,
             group: Optional[int] = None, window: int = DEFAULT_WINDOW,
-            retries: int = 3, timeout: float = 120.0) -> dict:
+            retries: int = 3, timeout: float = 120.0,
+            head_groups: int = 1) -> dict:
     """Stream this engine's KV for ``blocks`` to ``POST {url}/kv/recv``.
 
-    ``meta`` rides as a JSON prologue frame. On a 409 ``{"resume_layer":
-    n}`` (a bad CRC or a dropped connection on the receiver) the push
-    resumes from layer n; a connection error retries from 0 (the receiver
-    re-anchors with a 409). After ``retries`` failed attempts it raises.
-    Returns the receiver's final JSON."""
+    ``meta`` rides as a JSON prologue frame, ``head_groups`` as
+    ``X-KV-Head-Groups``. On a 409 ``{"resume_layer": n}`` (a bad CRC or a
+    dropped connection on the receiver) the push resumes from layer n; a
+    connection error retries from 0 (the receiver re-anchors with a 409).
+    Any other answer but 200 (a receiver of another head grouping
+    refuses with 422) raises at once. After ``retries`` failed attempts it
+    raises. Returns the receiver's final JSON."""
     L = shape[0]
     group = group or default_group(L)
     meta_payload = json.dumps(meta).encode()
@@ -287,6 +311,7 @@ def push_kv(url: str, run_on_engine: Callable, blocks: list[int],
             "X-KV-Dtype": dtype,
             "X-KV-Group-Layers": str(group),
             "X-KV-Start-Layer": str(start),
+            HEAD_GROUPS_HEADER: str(head_groups),
         }
         try:
             status, text = _post_chunked(url, "/kv/recv", headers, body(),

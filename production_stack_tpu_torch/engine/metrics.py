@@ -526,6 +526,9 @@ class ServerMetrics:
         self._transfer_lock = threading.Lock()
         self._transfer_hists: dict[str, Histogram] = {}
         self.transfer_totals: dict = {}
+        # transfers refused for another KV head grouping, by leg (import:
+        # a pull; recv: a push), in /debug/perf's kv_transfer block
+        self.transfer_refused: dict = {}
 
     def register_lifecycle(self, source: Callable[[], dict]) -> None:
         """Attach the drain/watchdog/warmup snapshot source."""
@@ -553,6 +556,11 @@ class ServerMetrics:
             t["seconds"] += seconds
             t["count"] += 1
         hist.observe(seconds)
+
+    def refuse_transfer(self, direction: str) -> None:
+        with self._transfer_lock:
+            self.transfer_refused[direction] = (
+                self.transfer_refused.get(direction, 0) + 1)
 
     def transfer_snapshot(self) -> dict:
         """A copy of ``transfer_totals`` (direction -> bytes, seconds,

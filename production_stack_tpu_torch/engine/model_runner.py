@@ -69,7 +69,11 @@ least over the ranks (``_resolve_num_blocks``); ranks that share a card
 must be given it. Decode graphs stay off: a gloo collective cannot be
 captured, and capturing NCCL's is unchecked (ROADMAP). Every rank runs the
 same calls in the same order (engine/multihost.py) and samples from the
-same gathered logits, so their results agree.
+same gathered logits, so their results agree. A KV export or import
+gathers or scatters each rank's own heads on its device (``gather_*``,
+``scatter_*``); rank 0's ``MirroredRunner`` moves the shares and joins
+them into the whole blocks a transfer or a tier carries, grouped as the
+reference's pool is at this tp (``kv_head_groups``).
 
 ``install_compile_observer`` wraps the ragged and prefill steps and the
 decode step's program lookup (``decode_program``, which captures a new
@@ -351,6 +355,14 @@ class ModelRunner:
     def cards(self) -> int:
         """Distinct cards the ranks run on (two ranks may share one)."""
         return 1 if self.ranks is None else self.ranks.cards
+
+    @property
+    def kv_head_groups(self) -> int:
+        """The KV head grouping of this engine's whole blocks, the bytes
+        its transfers and tier slabs carry (``shardings.kv_head_groups``:
+        the reference's pool layout at this tensor-parallel size)."""
+        return (1 if self.ranks is None
+                else ln.kv_head_groups(self.cfg, self.ranks.size))
 
     def _logits(self, hidden, tokens=None):
         return self.model.logits_from_hidden(self.cfg, self.params, hidden,
@@ -840,11 +852,16 @@ class ModelRunner:
         return self.kv is not None
 
     # -- KV block export / import (P->D transfer, tier movement) -----------
+    # Under tensor parallelism each rank gathers and scatters its own KV
+    # heads with the device-side calls (``gather_*``, ``scatter_*``), and
+    # rank 0's ``MirroredRunner`` joins and splits the whole
+    # (engine/multihost.py); the ``export_*`` / ``import_*`` calls here are
+    # one device's, its whole pool.
     def _block_index(self, block_ids) -> torch.Tensor:
         return torch.as_tensor(list(block_ids), dtype=torch.int64,
                                device=self.device)
 
-    def _to_host(self, data: torch.Tensor) -> torch.Tensor:
+    def to_host(self, data: torch.Tensor) -> torch.Tensor:
         """One copy of a gathered device tensor into pinned host memory
         (on the CPU the gather already made a fresh tensor)."""
         if data.device.type == "cpu":
@@ -853,28 +870,38 @@ class ModelRunner:
         out.copy_(data)
         return out
 
-    def export_blocks(self, block_ids) -> torch.Tensor:
-        """Blocks out of the pool: ``index_select`` on the block axis on
-        the device, then one copy to the host; (L, n, bs, 2KH, D)."""
-        return self.export_blocks_range(block_ids, 0, self.cfg.num_layers)
-
-    def export_blocks_range(self, block_ids, layer_lo: int,
-                            n_layers: int) -> torch.Tensor:
-        """One layer group of the blocks, the unit of the streamed
-        transfer (engine/kv_transfer.py); (n_layers, n, bs, 2KH, D)."""
+    def gather_blocks(self, block_ids, layer_lo: int,
+                      n_layers: int) -> torch.Tensor:
+        """One layer group of the blocks on the device: ``index_select``
+        on the block axis; (n_layers, n, bs, 2KH, D)."""
         grp = self.kv[layer_lo:layer_lo + n_layers]
-        return self._to_host(grp.index_select(1,
-                                              self._block_index(block_ids)))
+        return grp.index_select(1, self._block_index(block_ids))
 
-    def export_slabs(self, block_ids) -> list[torch.Tensor]:
-        """Each block's (L, bs, 2KH, D) slab in host memory of its own, for
-        the tiers (a tier holds and frees them one by one, so none may keep
-        a shared buffer alive): one gather, made block-major on the device,
-        then a copy a slab into pinned memory, all enqueued before one
-        wait. Pinned slabs go back up at the link's rate
-        (``import_slabs``)."""
+    def gather_slabs(self, block_ids) -> torch.Tensor:
+        """The blocks block-major on the device: (n, L, bs, 2KH, D)."""
         idx = self._block_index(block_ids)
-        data = self.kv.index_select(1, idx).transpose(0, 1).contiguous()
+        return self.kv.index_select(1, idx).transpose(0, 1).contiguous()
+
+    def scatter_blocks(self, block_ids, layer_lo: int,
+                       dev: torch.Tensor) -> None:
+        """A layer group (n_layers, n, bs, 2KH, D) on the device into the
+        pool: ``index_copy_`` on the block axis."""
+        n_layers = int(dev.shape[0])
+        self.kv[layer_lo:layer_lo + n_layers].index_copy_(
+            1, self._block_index(block_ids), dev)
+
+    def scatter_slabs(self, block_ids, dev: torch.Tensor) -> None:
+        """Block-major slabs (n, L, bs, 2KH, D) on the device into the
+        pool."""
+        self.kv.index_copy_(1, self._block_index(block_ids),
+                            dev.transpose(0, 1))
+
+    def slabs_to_host(self, data: torch.Tensor) -> list[torch.Tensor]:
+        """Each block's (L, bs, 2KH, D) slab of block-major ``data`` in host
+        memory of its own, for the tiers (a tier holds and frees them one
+        by one, so none may keep a shared buffer alive): a copy a slab
+        into pinned memory, all enqueued before one wait. Pinned slabs go
+        back up at the link's rate (``slabs_to_device``)."""
         if data.device.type == "cpu":
             return [s.clone() for s in data]
         slabs = [torch.empty(data.shape[1:], dtype=data.dtype,
@@ -884,21 +911,47 @@ class ModelRunner:
         torch.cuda.current_stream(self.device).synchronize()
         return slabs
 
-    def import_slabs(self, block_ids, slabs) -> None:
-        """Slabs (L, bs, 2KH, D) into the pool, one a block: each copied up
-        on its own (asynchronously from pinned memory) into a block-major
-        buffer, then one ``index_copy_``; no host-side stack."""
-        idx = self._block_index(block_ids)
+    def slabs_to_device(self, slabs) -> torch.Tensor:
+        """Slabs (L, bs, 2KH, D) up into one block-major device buffer in
+        the pool's dtype, each copied on its own (asynchronously from
+        pinned memory); no host-side stack."""
         if self.device.type == "cpu":
-            self.kv.index_copy_(1, idx, torch.stack(slabs, dim=1).to(
-                self.kv.dtype))
-            return
-        dev = torch.empty((len(slabs), *self.kv.shape[:1],
-                           *self.kv.shape[2:]), dtype=self.kv.dtype,
+            return torch.stack(slabs).to(self.kv.dtype)
+        dev = torch.empty((len(slabs), *slabs[0].shape), dtype=self.kv.dtype,
                           device=self.device)
         for dst, slab in zip(dev, slabs):
             dst.copy_(slab, non_blocking=True)
-        self.kv.index_copy_(1, idx, dev.transpose(0, 1))
+        return dev
+
+    def blocks_to_device(self, data) -> torch.Tensor:
+        """A host layer group (n_layers, n, bs, 2KH, D) on the device in
+        the pool's dtype: one host-to-device copy."""
+        if not isinstance(data, torch.Tensor):
+            data = torch.from_numpy(np.ascontiguousarray(data))
+        return data.to(self.device, dtype=self.kv.dtype)
+
+    def export_blocks(self, block_ids) -> torch.Tensor:
+        """Blocks out of the pool: the gather on the device, then one copy
+        to the host; (L, n, bs, 2KH, D)."""
+        return self.export_blocks_range(block_ids, 0, self.cfg.num_layers)
+
+    def export_blocks_range(self, block_ids, layer_lo: int,
+                            n_layers: int) -> torch.Tensor:
+        """One layer group of the blocks, the unit of the streamed
+        transfer (engine/kv_transfer.py); (n_layers, n, bs, 2KH, D)."""
+        return self.to_host(self.gather_blocks(block_ids, layer_lo,
+                                               n_layers))
+
+    def export_slabs(self, block_ids) -> list[torch.Tensor]:
+        """Each block's (L, bs, 2KH, D) slab in host memory of its own:
+        one gather, made block-major on the device, then
+        ``slabs_to_host``."""
+        return self.slabs_to_host(self.gather_slabs(block_ids))
+
+    def import_slabs(self, block_ids, slabs) -> None:
+        """Slabs (L, bs, 2KH, D) into the pool, one a block: up into a
+        block-major buffer, then one ``index_copy_``."""
+        self.scatter_slabs(block_ids, self.slabs_to_device(slabs))
 
     def import_blocks(self, block_ids, data) -> None:
         """Blocks into the pool: one host-to-device copy of ``data`` (L, n,
@@ -907,12 +960,7 @@ class ModelRunner:
 
     def import_blocks_range(self, block_ids, layer_lo: int, data) -> None:
         """One layer group (n_layers, n, bs, 2KH, D) into the pool."""
-        if not isinstance(data, torch.Tensor):
-            data = torch.from_numpy(np.ascontiguousarray(data))
-        dev = data.to(self.device, dtype=self.kv.dtype)
-        n_layers = int(dev.shape[0])
-        self.kv[layer_lo:layer_lo + n_layers].index_copy_(
-            1, self._block_index(block_ids), dev)
+        self.scatter_blocks(block_ids, layer_lo, self.blocks_to_device(data))
 
     # -- host -> device ----------------------------------------------------
     def _dev(self, x, dtype=None) -> torch.Tensor:

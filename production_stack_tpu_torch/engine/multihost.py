@@ -20,14 +20,32 @@ cross-host control port and its secret belong to the multi-host slice.
 The list starts from the reference's ``MIRRORED_METHODS`` and adds
 ``ragged_step`` (which the reference's list lacks) and the port's warmup
 (``warm_decode_graphs``). It leaves out ``prefill_ring`` (not ported)
-and the KV export/import calls: under tensor parallelism the server
-refuses the routes that reach them (a rank holds only its KV heads, so
-no whole block exists on one rank yet). It leaves out ``register_lora``
-too, which ``MirroredRunner`` defines itself: the leader cuts every
-rank's share of the adapter (``lora.adapter_share``) and sends each
-follower only its own over the control group (``RankGroup.scatter``),
-with the whole adapter's prefix-cache root; the whole of a rank-16
-adapter on llama-3-8b is 168 MB in float32.
+and the calls ``MirroredRunner`` defines itself, which move data between
+the ranks besides the call:
+
+- ``register_lora``: the leader cuts every rank's share of the adapter
+  (``lora.adapter_share``) and sends each follower only its own over the
+  control group (``RankGroup.scatter``), with the whole adapter's
+  prefix-cache root; the whole of a rank-16 adapter on llama-3-8b is
+  168 MB in float32.
+- The KV plane's exports (``export_blocks``, ``export_blocks_range``,
+  ``export_slabs``) and imports (``import_blocks``,
+  ``import_blocks_range``, ``import_slabs``), the reference's mirrored
+  ``export_blocks*``/``import_blocks*``. A rank holds only its KV heads,
+  so a whole block exists on no rank: an export sends the call, gathers
+  rank 0's heads on its device, and gathers the followers' shares onto it
+  (``RankGroup.gather_kv``); the join (``shardings.join_kv_shares``) is
+  the reference's pool layout at this tp, the one its ``export_kv``
+  returns, and rank 0 copies it to the host once. An import checks the
+  whole's shape, cuts it on rank 0's device (``split_kv_share``), sends
+  the call and scatters the shares (``RankGroup.scatter_kv``), so each
+  follower receives only its own. The shares ride the device group: on
+  cards of their own under NCCL they cross NVLink, device to device, and
+  only rank 0 touches host memory; the control group would stage every
+  follower's share through its host and a TCP socket. Their bytes count
+  in ``RankGroup.wire`` under ops of their own (``KV_OPS``), which the
+  perf accountant never bills to a dispatch. A follower never holds host
+  slabs, so none stays pinned.
 
 Agreement is checked, not assumed: each rank folds the tokens every call
 sampled into a running digest, the leader sends its digest with each
@@ -36,10 +54,12 @@ keeps the call it first diverged at; ``MirroredRunner.follower_reports``
 gathers every rank's digest, call count, divergence and kernel launch
 counts, and ``MirroredRunner.gather`` every rank's answer to a read-only
 runner call (its KV blocks, say). Both run between runner calls, on the
-thread that makes them. Chained decode dispatches pass the previous dispatch's
-device-resident tokens (``tokens_dev``); those cannot be sent, so a
-sentinel goes instead and each follower uses its own copy from its replay
-of that dispatch, as in the reference.
+thread that makes them. The calls that move data besides the call fold
+nothing into the digest and count as no call, on any rank. Chained
+decode dispatches pass the previous dispatch's device-resident tokens
+(``tokens_dev``); those cannot be sent, so a sentinel goes instead and
+each follower uses its own copy from its replay of that dispatch, as in
+the reference.
 
 Followers are started with the ``spawn`` method, as daemons of the leader:
 they exit on the leader's ``_shutdown`` (``close``), are ended with the
@@ -63,7 +83,11 @@ import torch
 from production_stack_tpu_torch.engine.kv_cache import adapter_root
 from production_stack_tpu_torch.engine.lora import adapter_share
 from production_stack_tpu_torch.parallel import distributed as pdist
-from production_stack_tpu_torch.parallel.shardings import Shard
+from production_stack_tpu_torch.parallel.shardings import (
+    Shard,
+    join_kv_shares,
+    split_kv_share,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -73,10 +97,21 @@ MIRRORED_METHODS = (
     "restore_params", "pooled_embed", "sequence_logprobs", "prompt_logprobs",
     "warm_decode_graphs", "unregister_lora",
 )
+# the KV plane's calls: the runner's device-side gather or scatter each
+# rank runs on its own heads (engine/model_runner.py)
+KV_GATHERS = {"export_blocks_range": "gather_blocks",
+              "export_slabs": "gather_slabs"}
+KV_SCATTERS = {"import_blocks_range": "scatter_blocks",
+               "import_slabs": "scatter_slabs"}
 # sentinel for a device-resident arg the follower reconstructs locally
 _CHAINED_NEXT_TOK = "__pstpu_chained_next_tok__"
 # seconds a follower is given to leave after the leader's _shutdown
 JOIN_SECONDS = 10.0
+
+
+class RankLost(RuntimeError):
+    """A follower rank's process has exited: the ranks can serve no more
+    (never a best-effort miss)."""
 
 
 def sampled_tokens(method: str, result) -> Optional[np.ndarray]:
@@ -114,10 +149,17 @@ class _Digest:
 
 
 def _host(x):
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+    """A tensor as numpy (bf16 widened to float32, exactly: numpy has no
+    bfloat16)."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    x = x.cpu()
+    return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
 
 
-def _launches() -> dict:
+def kernel_launches() -> dict:
+    """This process's launches of each kernel so far (``_build.COUNTERS``:
+    a wrapper counts where it launches its kernel)."""
     from production_stack_tpu_torch.ops import _build
 
     return {c.name.split()[0]: c.n for c in _build.COUNTERS}
@@ -164,7 +206,7 @@ class MirroredRunner:
     def _check_alive(self) -> None:
         for r, p in enumerate(self.procs, start=1):
             if not p.is_alive():
-                raise RuntimeError(
+                raise RankLost(
                     f"tensor-parallel rank {r} (pid {p.pid}) exited with "
                     f"code {p.exitcode}")
 
@@ -193,11 +235,104 @@ class MirroredRunner:
             self.ranks.scatter(shares)
             self._inner.put_lora(slot, shares[0], root)
 
+    # -- the KV plane (module docstring) -----------------------------------
+    def _moved(self, fn):
+        """``fn()``, a transfer between the ranks; a follower that left
+        meanwhile is named, never hidden behind the group's error."""
+        try:
+            return fn()
+        except Exception:
+            self._check_alive()
+            raise
+
+    def _check_blocks(self, block_ids: list) -> None:
+        """Raise before a KV call is sent, not on every rank after it:
+        a follower whose replay raises leaves the group."""
+        n = self._inner.num_blocks
+        if not all(0 <= b < n for b in block_ids):
+            raise ValueError(f"KV block ids outside the pool's {n}")
+
+    def _export(self, method: str, args: tuple) -> torch.Tensor:
+        """The whole of a KV gather on rank 0's device."""
+        self._check_blocks(args[0])
+        with self._lock:
+            self._send(method, args, {})
+            mine = getattr(self._inner, KV_GATHERS[method])(*args)
+            shares = self._moved(lambda: self.ranks.gather_kv(mine))
+        return join_kv_shares(shares, self._inner.cfg, self.ranks.size)
+
+    def _import(self, method: str, args: tuple, whole: torch.Tensor,
+                want: tuple) -> None:
+        """Cut ``whole`` (on rank 0's device) into the ranks' shares and
+        scatter them; each rank writes its own. ``want`` is the whole's
+        shape this call needs, checked before anything is sent."""
+        self._check_blocks(args[0])
+        if tuple(whole.shape) != tuple(want):
+            raise ValueError(f"KV of shape {tuple(whole.shape)} where this "
+                             f"engine takes {tuple(want)}")
+        cfg, size = self._inner.cfg, self.ranks.size
+        shares = [split_kv_share(whole, cfg, r, size) for r in range(size)]
+        shape = tuple(shares[0].shape)
+        with self._lock:
+            self._send(method, args, {"shape": shape})
+            mine = self._moved(lambda: self.ranks.scatter_kv(
+                shares, shape, whole.dtype))
+            getattr(self._inner, KV_SCATTERS[method])(*args, mine)
+
+    def _kv_rows(self) -> tuple:
+        """A whole block's (bs, 2KH, D)."""
+        cfg = self._inner.cfg
+        return (self._inner.config.cache.block_size, 2 * cfg.num_kv_heads,
+                cfg.head_dim)
+
+    def export_blocks(self, block_ids) -> torch.Tensor:
+        """Whole blocks (L, n, bs, 2KH, D) on the host, every rank's heads
+        joined."""
+        return self.export_blocks_range(block_ids, 0,
+                                        self._inner.cfg.num_layers)
+
+    def export_blocks_range(self, block_ids, layer_lo: int,
+                            n_layers: int) -> torch.Tensor:
+        return self._inner.to_host(self._export(
+            "export_blocks_range", (list(block_ids), int(layer_lo),
+                                    int(n_layers))))
+
+    def export_slabs(self, block_ids) -> list[torch.Tensor]:
+        """Each whole block's (L, bs, 2KH, D) slab in pinned host memory
+        of its own (rank 0's; a follower's share never leaves its
+        device)."""
+        return self._inner.slabs_to_host(self._export(
+            "export_slabs", (list(block_ids),)))
+
+    def import_blocks(self, block_ids, data) -> None:
+        self.import_blocks_range(block_ids, 0, data)
+
+    def import_blocks_range(self, block_ids, layer_lo: int, data) -> None:
+        """Whole blocks' layer group (n_layers, n, bs, 2KH, D) into every
+        rank's pool."""
+        ids = list(block_ids)
+        n_layers = int(data.shape[0])
+        if not 0 <= layer_lo <= self._inner.cfg.num_layers - n_layers:
+            raise ValueError(f"layers [{layer_lo}, {layer_lo + n_layers}) "
+                             f"outside the pool's "
+                             f"{self._inner.cfg.num_layers}")
+        self._import("import_blocks_range", (ids, int(layer_lo)),
+                     self._inner.blocks_to_device(data),
+                     (n_layers, len(ids), *self._kv_rows()))
+
+    def import_slabs(self, block_ids, slabs) -> None:
+        """Whole blocks' (L, bs, 2KH, D) slabs into every rank's pool."""
+        ids = list(block_ids)
+        self._import("import_slabs", (ids,),
+                     self._inner.slabs_to_device(slabs),
+                     (len(ids), self._inner.cfg.num_layers,
+                      *self._kv_rows()))
+
     def report(self) -> dict:
         """This rank's agreement state and kernel launch counts."""
         return {"rank": 0, "pid": os.getpid(), "calls": self._digest.calls,
                 "digest": self._digest.hex(), "diverged_at": None,
-                "launches": _launches()}
+                "launches": kernel_launches()}
 
     def follower_reports(self) -> list[dict]:
         """Every rank's report (``report``), rank 0's first. A follower's
@@ -275,7 +410,23 @@ class FollowerReplayer:
     def report(self) -> dict:
         return {"rank": self.runner.ranks.rank, "pid": os.getpid(),
                 "calls": self.digest.calls, "digest": self.digest.hex(),
-                "diverged_at": self.diverged_at, "launches": _launches()}
+                "diverged_at": self.diverged_at,
+                "launches": kernel_launches()}
+
+
+def check_share(runner, method: str, args: tuple, shape: tuple) -> None:
+    """Raise unless ``shape`` is a share that ``method`` can write into
+    this follower's pool: whole slabs of its heads (``import_slabs``), or
+    a layer group of its heads inside the pool (``import_blocks_range``)."""
+    L, rows, n = runner.kv.shape[0], tuple(runner.kv.shape[2:]), len(args[0])
+    if method == "import_slabs":
+        ok = shape == (n, L, *rows)
+    else:
+        ok = shape[1:] == (n, *rows) and 0 <= args[1] <= L - shape[0]
+    if not ok:
+        raise RuntimeError(f"rank {runner.ranks.rank}: {method} sent a KV "
+                           f"share of shape {shape}; this rank's pool is "
+                           f"{tuple(runner.kv.shape)}")
 
 
 def follower_loop(runner, ranks) -> None:
@@ -295,6 +446,15 @@ def follower_loop(runner, ranks) -> None:
             continue
         if method == "register_lora":
             runner.put_lora(args[0], ranks.scatter(), kwargs["root"])
+            continue
+        if method in KV_GATHERS:
+            ranks.gather_kv(getattr(runner, KV_GATHERS[method])(*args))
+            continue
+        if method in KV_SCATTERS:
+            shape = tuple(kwargs["shape"])
+            check_share(runner, method, args, shape)
+            getattr(runner, KV_SCATTERS[method])(
+                *args, ranks.scatter_kv(None, shape, runner.kv.dtype))
             continue
         try:
             replayer.replay(method, args, kwargs)
@@ -345,15 +505,8 @@ def follower_main(rank: int, size: int, store_port: int, devices: list,
 def refusal(config) -> Optional[str]:
     """What tensor parallelism does not carry yet in ``config``, named as
     the flag that asks for it; None when it carries all of it."""
-    m, c = config.model, config.cache
-    if m.architecture == "whisper":
+    if config.model.architecture == "whisper":
         return "Whisper models"
-    if config.role != "unified":
-        return f"--role {config.role}"
-    if c.kv_host_cache_bytes or c.host_offload_blocks:
-        return "the host KV tier (--kv-host-cache-bytes/--host-offload-blocks)"
-    if c.remote_kv_url:
-        return "the remote KV tier (--remote-kv-url)"
     return None
 
 

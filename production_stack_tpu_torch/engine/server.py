@@ -121,11 +121,11 @@ on ``cuda:r`` over NCCL, or on the CPU over gloo with ``--device cpu``.
 It serves completions, chat, messages, responses, scoring and sleep, on
 both attention paths, with the prefix cache, sampling, guided decoding,
 n-gram speculation, ``--quantization int8`` (W8A8 and W8A16), Mixtral's
-MoE presets and multi-LoRA (``/v1/load_lora_adapter``: each rank holds
-its share of every adapter). What the ranks do not carry yet exits at
-start (Whisper, ``--role prefill|decode``, the host and remote KV tiers)
-or answers 501 naming tensor parallelism (``/kv/export``,
-``/kv/recv``).
+MoE presets, multi-LoRA (``/v1/load_lora_adapter``: each rank holds
+its share of every adapter) and the KV plane (``--role prefill|decode``,
+``/kv/export``, ``/kv/recv``, the host and remote tiers: whole blocks,
+every rank's heads joined on rank 0, grouped as the reference's pool is
+at that size and named in ``X-KV-Head-Groups``). Whisper exits at start.
 ``--data-parallel-size``, ``--pipeline-parallel-size`` and
 ``--sequence-parallel-size`` parse to the reference's defaults; above 1
 each exits at start, not ported yet.
@@ -186,9 +186,11 @@ from production_stack_tpu_torch.engine.grammar import (
     schema_to_regex,
 )
 from production_stack_tpu_torch.engine.kv_transfer import (
+    HEAD_GROUPS_HEADER,
     FrameDigestError,
     consume_frames,
     default_group,
+    head_groups_of,
     nbytes_of,
     produce_frames,
     push_kv,
@@ -198,6 +200,7 @@ from production_stack_tpu_torch.engine.kv_transfer import (
 from production_stack_tpu_torch.engine.lifecycle import StepWatchdog
 from production_stack_tpu_torch.engine.lora import LoraManager
 from production_stack_tpu_torch.engine.metrics import CONTENT_TYPE, ServerMetrics
+from production_stack_tpu_torch.engine.multihost import RankLost
 from production_stack_tpu_torch.engine.multihost import refusal as tp_refusal
 from production_stack_tpu_torch.engine.overload import (
     SHED_MAX_TOKENS,
@@ -387,11 +390,6 @@ def _error(message: str, kind: Optional[str] = "invalid_request_error"
     if kind is None:
         return {"error": {"message": message}}
     return {"error": {"message": message, "type": kind}}
-
-
-# routes whose work a rank cannot do alone yet: a whole KV block exists
-# on no single rank
-TP_REFUSED_ROUTES = ("/kv/export", "/kv/recv")
 
 
 def _sse_event(name: str, payload: dict) -> bytes:
@@ -1134,10 +1132,15 @@ class EngineServer:
         speculative-decoding picture."""
         perf = self.engine.perf
         with self._kv_lock:
-            pending = len(self._kv_transfers)
+            pending = {tid: list(st["blocks"])
+                       for tid, st in self._kv_transfers.items()}
         kv_block = {"role": self.config.role,
-                    "pending_transfers": pending,
-                    "transfers": self.metrics.transfer_snapshot()}
+                    "pending_transfers": len(pending),
+                    # each landed push's pool blocks, until it is attached
+                    "pending_blocks": pending,
+                    "transfers": self.metrics.transfer_snapshot(),
+                    "head_groups": self.engine.runner.kv_head_groups,
+                    "refused": dict(self.metrics.transfer_refused)}
         tier_block = None
         if self.engine.host_kv is not None or self.engine.remote_kv is not None:
             tier_block = self.engine.tier_stats()
@@ -2276,6 +2279,7 @@ class EngineServer:
             handler._send_json(_error("invalid block ids"), 400)
             return
         dtype = self.config.model.dtype
+        groups = self.engine.runner.kv_head_groups
         if not body.get("stream"):
             data = self.async_engine.run_on_engine(
                 lambda eng: eng.export_kv(blocks))
@@ -2285,6 +2289,7 @@ class EngineServer:
             handler.send_header("Content-Length", str(len(raw)))
             handler.send_header("X-KV-Shape", ",".join(map(str, data.shape)))
             handler.send_header("X-KV-Dtype", dtype)
+            handler.send_header(HEAD_GROUPS_HEADER, str(groups))
             handler.end_headers()
             handler.wfile.write(raw)
             return
@@ -2311,6 +2316,7 @@ class EngineServer:
                                 ",".join(map(str, self._kv_shape(len(blocks)))))
             handler.send_header("X-KV-Dtype", dtype)
             handler.send_header("X-KV-Group-Layers", str(group))
+            handler.send_header(HEAD_GROUPS_HEADER, str(groups))
             handler.end_headers()
             for fr in produce_frames(self.async_engine.run_on_engine, blocks,
                                      L, group, self.config.kv_transfer_window):
@@ -2333,8 +2339,10 @@ class EngineServer:
         ``remote_host``'s ``/kv/export`` into pool blocks and commit them
         as prefix-cache content on the request's chain, so admission
         computes only the prompt's tail. Best-effort: on a failure the
-        blocks go back and the prefill computes everything. Returns the
-        tokens landed."""
+        blocks go back and the prefill computes everything; so too when
+        the producer's KV head grouping is not this engine's (counted in
+        ``transfer_refused["import"]``). A tensor-parallel rank that left
+        is no such failure: it raises. Returns the tokens landed."""
         host, blocks = kv.get("remote_host"), kv.get("remote_block_ids")
         if not host or not blocks:
             return 0
@@ -2366,6 +2374,13 @@ class EngineServer:
                         self.config.model.num_layers:
                     raise ValueError(f"KV shape {shape} does not fit this "
                                      "engine's pool")
+                mine = self.engine.runner.kv_head_groups
+                theirs = head_groups_of(resp.headers, mine)
+                if theirs != mine:
+                    self.metrics.refuse_transfer("import")
+                    raise ValueError(f"KV grouped in {theirs} head groups; "
+                                     f"this engine's pool is grouped in "
+                                     f"{mine}")
                 consume_frames(resp, self.async_engine.run_on_engine, local,
                                shape, dtype,
                                int(resp.headers["X-KV-Group-Layers"]))
@@ -2379,6 +2394,8 @@ class EngineServer:
             self.metrics.observe_transfer("import", nbytes_of(shape, dtype),
                                           time.monotonic() - t0)
             return cached
+        except RankLost:
+            raise
         except Exception as e:  # best-effort: the prefill recomputes
             _log.warning("kv import from %s failed: %s", host, e)
             if local is not None:
@@ -2410,7 +2427,8 @@ class EngineServer:
         decode hop attaches them by ``transfer_id``. A bad CRC or a dropped
         connection answers 409 ``{"resume_layer": n}``: the producer
         resends only the groups that did not land. 503 when the pool
-        cannot hold the transfer."""
+        cannot hold the transfer; 422 when its KV head grouping
+        (``X-KV-Head-Groups``) is not this engine's."""
         self._sweep_kv_transfers()
         tid = headers.get("X-KV-Transfer-Id") or ""
         try:
@@ -2428,6 +2446,14 @@ class EngineServer:
         if shape[0] != want[0] or shape[2:] != want[2:]:
             return 400, _error(f"KV shape {shape} does not fit this "
                                f"engine's pool {want}")
+        mine = self.engine.runner.kv_head_groups
+        theirs = head_groups_of(headers, mine)
+        if theirs != mine:
+            # other heads in the same shape: never landed, never retried
+            self.metrics.refuse_transfer("recv")
+            return 422, _error(f"KV grouped in {theirs} head groups "
+                               f"({HEAD_GROUPS_HEADER}); this engine's pool "
+                               f"is grouped in {mine}")
         with self._kv_lock:
             state = self._kv_transfers.get(tid)
         resume_at = state["layers_done"] if state else 0
@@ -2492,7 +2518,10 @@ class EngineServer:
                     group=cfg.kv_transfer_group_layers or None,
                     window=cfg.kv_transfer_window,
                     retries=cfg.kv_transfer_retries,
-                    timeout=cfg.kv_transfer_ttl)
+                    timeout=cfg.kv_transfer_ttl,
+                    head_groups=self.engine.runner.kv_head_groups)
+        except RankLost:
+            raise
         except Exception as e:
             _log.warning("kv push %s -> %s failed: %s", transfer_id,
                          push_url, e)
@@ -2790,14 +2819,6 @@ class EngineServer:
                             "/v1/messages": server.messages,
                             "/v1/responses": server.responses}
                 path = url.path
-                n_ranks = server.engine.tensor_parallel_ranks
-                if n_ranks > 1 and path in TP_REFUSED_ROUTES:
-                    self.close_connection = True  # the body is not read
-                    self._send_json(_error(
-                        f"{path} is not served under tensor parallelism "
-                        f"yet (--tensor-parallel-size {n_ranks})",
-                        "not_implemented"), 501)
-                    return
                 if path == "/kv/recv":
                     self._kv_recv()
                     return

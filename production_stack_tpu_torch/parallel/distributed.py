@@ -46,6 +46,9 @@ DEVICE_TIMEOUT = datetime.timedelta(minutes=10)
 # follower's parent watch (engine/multihost.py), not by this timeout
 CONTROL_TIMEOUT = datetime.timedelta(days=365)
 STORE_TIMEOUT = datetime.timedelta(seconds=120)
+# ``RankGroup.wire``'s ops that move KV shares between the ranks (the KV
+# plane's exports and imports), not a step's collectives
+KV_OPS = ("kv_gather", "kv_scatter")
 
 
 def rank_devices(device, size: int) -> list[str]:
@@ -180,6 +183,39 @@ class RankGroup:
         dist.all_gather(parts, x)
         self._count("all_gather", x.nbytes * self.size)
         return torch.cat(parts, dim=-1)
+
+    def gather_kv(self, share: torch.Tensor) -> Optional[list]:
+        """Every rank's KV share on rank 0, in rank order, over the device
+        group; None elsewhere. The shares have one shape on every rank;
+        they travel as their raw bytes (any dtype, exactly), and the
+        followers' bytes count under ``kv_gather``."""
+        raw = share.contiguous().view(torch.uint8)
+        parts = ([torch.empty_like(raw) for _ in range(self.size)]
+                 if self.rank == 0 else None)
+        dist.gather(raw, parts, dst=0)
+        self._count_kv("kv_gather", raw.nbytes)
+        return None if parts is None else [p.view(share.dtype) for p in parts]
+
+    def scatter_kv(self, shares: Optional[list], shape: tuple,
+                   dtype: torch.dtype) -> torch.Tensor:
+        """Rank r's entry of rank 0's ``shares`` (each of ``shape`` and
+        ``dtype``, on rank 0's device; the caller checks them before it
+        sends the call), received on this rank's device over the device
+        group: a follower receives only its own share. The followers'
+        bytes count under ``kv_scatter``."""
+        out = torch.empty(shape, dtype=dtype, device=self.device)
+        raw = out.view(torch.uint8)
+        parts = (None if self.rank else
+                 [s.contiguous().view(torch.uint8) for s in shares])
+        dist.scatter(raw, parts, src=0)
+        self._count_kv("kv_scatter", raw.nbytes)
+        return out
+
+    def _count_kv(self, op: str, share_bytes: int) -> None:
+        """The bytes the followers' KV shares put on the wire, each once
+        (``KV_OPS``: never a dispatch's collectives)."""
+        self.wire[op] = (self.wire.get(op, 0.0)
+                         + share_bytes * (self.size - 1))
 
     def min_int(self, n: int) -> int:
         """The least of each rank's ``n`` (over the control group)."""

@@ -39,6 +39,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Mapping, Optional, Tuple
 
+import torch
+
 from production_stack_tpu_torch.engine.quant import scale_axes
 from production_stack_tpu_torch.parallel.mesh import (
     AXIS_DATA,
@@ -205,3 +207,76 @@ class Shard:
         """The rank's extent of an axis of global size ``n``."""
         lo, hi = self.cuts.get(axis, (0, n))
         return hi - lo
+
+
+# -- the KV pool's head axis across the ranks ----------------------------------
+#
+# A pool slab's (2KH, D) rows are the reference's ``combine_kv(k, v, g)``
+# layout: g groups of KH / g heads, each group its K rows then its V rows
+# (production_stack_tpu/ops/paged_attention.py). g is the tensor-parallel
+# size where KV heads shard and 1 where they are replicated (the
+# reference's ``ModelRunner.tp``), so the bytes a transfer or a tier moves
+# depend on g. A rank holds its KV heads [lo, hi) as (2 (hi - lo), D) rows
+# in the g = 1 layout; where KV heads shard, rank r's rows are group r,
+# so the ranks' shares side by side in rank order are the whole.
+
+
+def kv_head_groups(cfg, tp: int) -> int:
+    """The KV head grouping ``g`` of the pool's bytes at tensor-parallel
+    size ``tp``: ``tp`` where KV heads shard, 1 where they are
+    replicated."""
+    if tp > 1 and rules_for_model(cfg, tp).rules[KV_HEADS] == AXIS_TENSOR:
+        return tp
+    return 1
+
+
+def kv_head_rows(cfg, rank: int, tp: int) -> list[int]:
+    """The rows of the whole ``(2KH, D)`` slab (grouped by
+    ``kv_head_groups``) that rank ``rank``'s share holds, in the share's
+    order: its heads' K rows, then their V rows."""
+    KH = cfg.num_kv_heads
+    lo, hi = Shard.of(cfg, rank, tp).cuts.get(KV_HEADS, (0, KH))
+    hp = KH // kv_head_groups(cfg, tp)
+
+    def row(h: int, part: int) -> int:
+        g = h // hp
+        return 2 * g * hp + part * hp + h - g * hp
+
+    return [row(h, part) for part in (0, 1) for h in range(lo, hi)]
+
+
+def _runs(pairs: list) -> list:
+    """(source, first, n) runs of consecutive ``(source, index)`` pairs."""
+    runs: list = []
+    for src, i in pairs:
+        if runs and runs[-1][0] == src and runs[-1][1] + runs[-1][2] == i:
+            runs[-1][2] += 1
+        else:
+            runs.append([src, i, 1])
+    return runs
+
+
+def join_kv_shares(shares: list, cfg, tp: int):
+    """The whole ``(..., 2KH, D)`` from every rank's ``(..., 2KH_r, D)``
+    share in rank order (torch tensors): each row taken from the first
+    rank that holds it, so a replicated head is read once. Where KV heads
+    shard this is the shares side by side."""
+    where: dict = {}
+    for r in range(tp):
+        for i, row in enumerate(kv_head_rows(cfg, r, tp)):
+            where.setdefault(row, (r, i))
+    if len(where) != 2 * cfg.num_kv_heads:
+        raise ValueError(f"the ranks hold {len(where)} of the "
+                         f"{2 * cfg.num_kv_heads} KV rows")
+    parts = [shares[r].narrow(-2, i, n)
+             for r, i, n in _runs([where[row] for row in sorted(where)])]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-2)
+
+
+def split_kv_share(whole, cfg, rank: int, tp: int):
+    """Rank ``rank``'s ``(..., 2KH_r, D)`` share of a whole ``(..., 2KH,
+    D)`` (a view where its rows are contiguous there)."""
+    rows = kv_head_rows(cfg, rank, tp)
+    parts = [whole.narrow(-2, i, n)
+             for _, i, n in _runs([(0, row) for row in rows])]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-2)

@@ -914,6 +914,67 @@ def test_tensor_parallel_ranks_on_one_card_match_cpu(cuda, tp):
             assert {"K1", "K3", attn} <= launched, (impl, r)
 
 
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tensor_parallel_kv_moves_on_one_card(cuda, tp):
+    """The KV plane at tensor-parallel size ``tp``, every rank on this card
+    over gloo, bf16 tiny-llama: whole blocks out (whole, in layer groups
+    and as slabs) are every rank's heads joined (the shares side by side
+    at tp 2; at tp 4 each of the two replicated heads once), and land in
+    other blocks bit for bit, through the wire's raw 2-byte words."""
+    from production_stack_tpu_torch.engine import kv_transfer as tkt
+    from production_stack_tpu_torch.engine.config import (
+        CacheConfig,
+        EngineConfig,
+    )
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+    from production_stack_tpu_torch.parallel.mesh import MeshConfig
+
+    cfg = EngineConfig.for_model("tiny-llama", dtype="bfloat16",
+                                 cache=CacheConfig(num_blocks=64),
+                                 mesh=MeshConfig(tensor=tp))
+    eng = LLMEngine(cfg, device=cuda, rank_devices=["cuda:0"] * tp,
+                    backend="gloo")
+    try:
+        prompt = list(range(3, 70))
+        eng.generate([prompt], SamplingParams(temperature=0.0, max_tokens=2,
+                                              ignore_eos=True))
+        src, _ = eng.scheduler.allocator.match_prefix(prompt)
+        # every rank's own heads (bf16 widened to float32, exactly)
+        shares = [torch.from_numpy(x).to(torch.bfloat16) for x in
+                  eng.runner.gather("export_blocks", src)]
+        KH = cfg.model.num_kv_heads
+        if tp == 2:
+            want = torch.cat(shares, dim=3)
+        else:  # rank r holds head r // 2: [K_h, V_h]
+            k = [shares[2 * h][:, :, :, :1] for h in range(KH)]
+            v = [shares[2 * h][:, :, :, 1:] for h in range(KH)]
+            want = torch.cat(k + v, dim=3)
+        data = eng.export_kv(src)
+        assert data.is_pinned()
+        assert torch.equal(data.view(torch.int16), want.view(torch.int16))
+        groups = torch.cat([eng.runner.export_blocks_range(src, lo, 1)
+                            for lo in range(cfg.model.num_layers)])
+        assert torch.equal(groups.view(torch.int16), data.view(torch.int16))
+        slabs = eng.runner.export_slabs(src)
+        assert all(torch.equal(sl.view(torch.int16),
+                               data[:, i].view(torch.int16))
+                   for i, sl in enumerate(slabs))
+        dst = eng.scheduler.allocator.take_free_blocks(len(src))
+        wire = tkt.tensor_from_bytes(bytearray(tkt.tensor_bytes(data)),
+                                     "bfloat16", data.shape)
+        eng.runner.import_blocks(dst, wire)
+        assert torch.equal(eng.export_kv(dst).view(torch.int16),
+                           data.view(torch.int16))
+        eng.runner.import_slabs(dst[::-1], slabs)
+        assert torch.equal(eng.export_kv(dst[::-1]).view(torch.int16),
+                           data.view(torch.int16))
+        reports = eng.runner.follower_reports()
+        assert len({(r["calls"], r["digest"]) for r in reports}) == 1
+    finally:
+        eng.close()
+
+
 # the model's features at tp 2 on this card: the CPU's top-2 gap under
 # which a greedy flip is a near-tie (int8: an activation on a rounding
 # boundary rounds either way on the card and on the CPU)

@@ -18,11 +18,12 @@
   tp 2 equal tp 1. Every follower's token digest equals rank 0's.
 - The server with ``--device cpu --tensor-parallel-size 2``: completions,
   a stream, chat, embeddings, sleep and wake; an adapter loads, serves a
-  completion and unloads (200), the KV routes answer 501; no rank
-  survives the stop, nor a killed leader.
-- Refusals: what the ranks do not carry exits at start (Whisper, the KV
-  roles and tiers), and so do data, pipeline and sequence parallel sizes
-  above 1; ``--quantization int8`` and MoE presets start.
+  completion and unloads (200); ``/kv/export`` answers a real block's
+  bytes and a push into the server's own ``/kv/recv`` lands them (200);
+  no rank survives the stop, nor a killed leader.
+- Refusals: what the ranks do not carry exits at start (Whisper), and so
+  do data, pipeline and sequence parallel sizes above 1;
+  ``--quantization int8``, MoE presets, the KV roles and tiers start.
 - The accountant counts the collective bytes the device group sent, by
   op (float32 partials: twice the reference's bf16 formula), and they
   equal rank 0's count after an engine run.
@@ -61,6 +62,7 @@ from production_stack_tpu.engine.engine import LLMEngine as JaxEngine
 from production_stack_tpu.models import llama as jllama
 from production_stack_tpu.parallel import mesh as jmesh
 from production_stack_tpu.parallel import shardings as jshard
+from production_stack_tpu_torch.engine import kv_transfer as tkt
 from production_stack_tpu_torch.engine import multihost
 from production_stack_tpu_torch.engine import perf_accounting as tperf
 from production_stack_tpu_torch.engine import server as tserver
@@ -399,11 +401,12 @@ def test_a_follower_that_diverges_is_reported(caplog):
     (["--model", "tiny-mixtral"], None),
     (["--model", "tiny-mixtral", "--quantization", "int8"], None),
     (["--model", "tiny-whisper"], "Whisper"),
-    (["--role", "prefill"], "--role prefill"),
-    (["--role", "decode"], "--role decode"),
-    (["--kv-host-cache-bytes", "100000"], "host KV tier"),
-    (["--host-offload-blocks", "8"], "host KV tier"),
-    (["--remote-kv-url", "http://127.0.0.1:9"], "remote KV tier"),
+    # carried since the KV plane runs sharded: they start
+    (["--role", "prefill"], None),
+    (["--role", "decode"], None),
+    (["--kv-host-cache-bytes", "100000"], None),
+    (["--host-offload-blocks", "8"], None),
+    (["--remote-kv-url", "http://127.0.0.1:9"], None),
 ])
 def test_what_tp_does_not_carry_exits_at_start(extra, named):
     args = tserver.build_parser().parse_args(
@@ -452,9 +455,9 @@ def test_a_rank_without_its_card_exits_naming_the_count():
 
 def test_engine_refuses_before_starting_ranks():
     conf = EngineConfig.for_model(
-        "tiny-llama", cache=CacheConfig(num_blocks=32, host_offload_blocks=8),
+        "tiny-whisper", cache=CacheConfig(num_blocks=32),
         mesh=MeshConfig(tensor=2))
-    with pytest.raises(ValueError, match="host KV tier"):
+    with pytest.raises(ValueError, match="Whisper"):
         LLMEngine(conf, device="cpu")
     import multiprocessing
 
@@ -516,12 +519,39 @@ def test_server_serves_under_tp2_and_leaves_no_rank(tmp_path):
             assert _http(base, "/v1/completions",
                          {**body, "model": "a"})[0] == 200
             assert _http(base, "/v1/unload_lora_adapter", lora)[0] == 200
-            assert tserver.TP_REFUSED_ROUTES == ("/kv/export", "/kv/recv")
-            for path in tserver.TP_REFUSED_ROUTES:
-                status, raw = _http(base, path, lora)
-                assert status == 501, path
-                assert "tensor parallelism" in json.loads(raw)["error"][
-                    "message"]
+            # the KV routes: a real block out of /kv/export, and pushed
+            # into this server's own /kv/recv
+            prompt = list(range(1, 41))  # two full blocks of 16
+            status, raw = _http(base, "/v1/completions", {
+                **body, "prompt": prompt, "max_tokens": 1,
+                "kv_transfer_params": {"do_remote_decode": True}})
+            assert status == 200
+            ids = json.loads(raw)["kv_transfer_params"]["remote_block_ids"]
+            shape = server._kv_shape(2)
+            status, raw = _http(base, "/kv/export", {"blocks": ids[:2]})
+            assert status == 200
+            assert len(raw) == tkt.nbytes_of(shape, "float32")
+            want = server.async_engine.run_on_engine(
+                lambda e: e.export_kv(ids[:2]))
+            assert raw == bytes(tkt.tensor_bytes(want))
+            server.async_engine.run_on_engine(
+                lambda e: e.scheduler.allocator.pin_blocks(ids[:2]))
+            try:
+                got = tkt.push_kv(
+                    base, server.async_engine.run_on_engine, ids[:2], shape,
+                    "float32", {"transfer_id": "own", "prompt_token_ids":
+                                prompt[:32], "first_token": 50}, group=1,
+                    head_groups=2)
+            finally:
+                server.async_engine.run_on_engine(
+                    lambda e: e.scheduler.allocator.free_blocks(ids[:2]))
+            assert got == {"ok": True, "transfer_id": "own", "layers": 2}
+            with server._kv_lock:
+                landed = server._kv_transfers.pop("own")["blocks"]
+            assert torch.equal(server.async_engine.run_on_engine(
+                lambda e: e.export_kv(landed)), want)
+            server.async_engine.run_on_engine(
+                lambda e: e.scheduler.allocator.free_blocks(landed))
         finally:
             server.shutdown()
         assert wait_gone(pids, 10) == []
