@@ -166,8 +166,8 @@ fatal):
    encoder output's relative error printed. (c) whisper-large-v3-class in
    bf16 served over HTTP with ``--max-num-seqs 4``: 8 concurrent requests
    (5, 12 and 30 s clips at 16 and 44.1 kHz, every response format,
-   transcribe and translate, ``max_tokens`` 64) all 200, verbose_json's
-   segment tokens at most 64 and start <= end, srt and vtt cues ordered;
+   transcribe and translate, ``max_tokens`` 32) all 200, verbose_json's
+   segment tokens at most 32 and start <= end, srt and vtt cues ordered;
    one SSE stream read to ``[DONE]``; one left after its headers: the
    aborted counter goes up by 1, all 4 admission slots are free, and a
    burst of 4 completes; a bad language answers 400 before any device
@@ -242,20 +242,21 @@ fatal):
    ``warm_decode_graphs``: every key without an adapter at every rung of
    the plan ladder captured (count, seconds, the graph pool's bytes from
    ``torch.cuda.memory_stats`` around the captures beside the runner's
-   reserve for it); allocated share under 0.92. (a) 64 requests x 48
+   reserve for it); allocated share under 0.92. (a) 32 requests x 48
    tokens, greedy and seeded-sampled, contexts of 100-700 tokens (three
    rungs): graphed = eager in tokens and logprobs bit for bit; chain on =
    chain off in tokens, with max_tokens staggered so the decode rows
    change membership, and some dispatches chained. (b) the decode step's
-   untraced wall, eager / graphed / graphed + chain in turns, three
+   untraced wall, eager / graphed / graphed + chain in turns, two
    rounds of 16 steps, at 64 and 4 rows and contexts ~130-180 and
    ~2100-2260 (median and spread printed); one eager and one graphed
    window of 16 steps at 64 rows traced (device busy, idle share, kernels
-   a step). (d) sleep levels 1 and 2, each then wake: the graphs are
-   dropped and captured again, 8 greedy requests' tokens equal before and
-   after. Then, the engine released, K3 at the ladder's plan against the
-   exact per-step plan on the same inputs (64 live rows at ~150 and ~2K,
-   4 live of 64 at 8192), each checked against the plain version first.
+   a step). (d) sleep level 2, then wake: the graphs are dropped and
+   captured again, 8 greedy requests' tokens equal before and after
+   (phase 10 (e) sleeps at both levels with graphs on). Then, the engine
+   released, K3 at the ladder's plan against the exact per-step plan on
+   the same inputs (64 live rows at ~150 and ~2K, 4 live of 64 at 8192),
+   each checked against the plain version first.
    K1, K2 and K3 launch (K1 and K3 counted through the replays), K4 not.
 
 15. Tensor parallelism (``tp2``): llama-3-8b bf16 at full width and
@@ -263,7 +264,7 @@ fatal):
    at tensor-parallel size 2 with both ranks on this card over gloo
    (NCCL refuses two ranks on one card). The tp 1 engine of each path
    runs first and is released before the ranks start. (a) 16 greedy
-   prompts (64-1024 tokens, 32 out, logprobs 2) on the ragged path, then
+   prompts (64-1024 tokens, 16 out, logprobs 2) on the ragged path, then
    the bucketed path: tokens equal tp 1's up to a near-tie, logprobs
    within max(``BF16_LOGPROB_BAND``, twice tp 1's own repeat deviation);
    the follower's token digest and call count equal rank 0's exactly, and
@@ -275,20 +276,20 @@ fatal):
    server in a fresh process (``chip_smoke.py --tp-server PORT``,
    ``server.main`` with both ranks on cuda:0 over gloo), run after phase
    16 (a) as phase 17's prefill server: 8 concurrent requests answer 200
-   with their 32 tokens (phase 17's reference wave); phase 16 (c)'s and
+   with their 16 tokens (phase 17's reference wave); phase 16 (c)'s and
    phase 17 (c)'s routes; after SIGTERM, no rank's process is alive
    within 3 s. Beside its start, ``--tensor-parallel-size 2`` on the
    command line (rank r on cuda:r) exits non-zero naming the card
    count. (d) Printed, not judged: an
    eager 64-row decode step and a 2048-token ragged step at tp 2 beside
-   tp 1, and the phase's seconds: two ranks share one card over gloo, so
-   none of these is a tensor-parallel speed. K1-K4 launch (K2 on the
-   ragged path, K4 on the bucketed one).
+   tp 1 (one of each; three until PR 18), and the phase's seconds: two
+   ranks share one card over gloo, so none of these is a tensor-parallel
+   speed. K1-K4 launch (K2 on the ragged path, K4 on the bucketed one).
 16. The model's features at tensor-parallel size 2 (``tp2-features``),
    both ranks on this card over gloo. (a) mixtral-8x7b in int8, phase 8's
    configuration at full width and depth on the ragged path (a rank
    holds every expert's half of F: 23.5 GB of weights), 2048 KV blocks a
-   rank, prefix cache off: 16 greedy prompts (64-256 tokens) x 32 tokens
+   rank, prefix cache off: 16 greedy prompts (64-256 tokens) x 16 tokens
    against tp 1's answers, taken on phase 8's engine before its release
    with its slots handed out as a fresh engine's (a ragged step packs
    spans in slot order, and the tokens past an expert's capacity follow
@@ -319,16 +320,17 @@ fatal):
    phase 15 (c)'s server: ``/v1/load_lora_adapter``, a completion naming
    the adapter and ``/v1/unload_lora_adapter`` answer 200. (d) Printed, not
    judged: (a)'s 64-row decode step (contexts ~32-48) and 2048-token
-   ragged step, twice each, their share in collectives and the bytes
-   each collective kind sent. Phase 16's waves prefill in one or two
-   steps: at tp 2 over gloo a step's collectives take seconds.
+   ragged step, once each (twice until PR 18), their share in
+   collectives and the bytes each collective kind sent. Phase 16's waves
+   prefill in one or two steps: at tp 2 over gloo a step's collectives
+   take seconds.
 17. The KV plane at tensor-parallel size 2 (``tp2-kv-plane``), after
    phase 16 (a): llama-3-8b bf16, a prefill server (``--role
    prefill``, phase 15 (c)'s server) and a decode server (``--role
    decode``, 536 KV blocks a rank, a 4 GiB host tier) each in a fresh
    process (``--tp-server``, ``server.main``, both ranks of each on this
    card over gloo), both with ``--remote-kv-url`` to a ``kv_server`` in
-   this process. The reference: 8 prompts (512-1024 tokens, 32 out)
+   this process. The reference: 8 prompts (512-1024 tokens, 16 out)
    served twice by the prefill server itself, as phase 9 takes it; the
    band is max(``BF16_LOGPROB_BAND``, twice its own repeat deviation).
    (a) The same 8 pulled, then pushed and spliced, as phase 9 judges
@@ -351,18 +353,41 @@ fatal):
    of both servers, read over ``/debug/perf`` before and after (a) and
    (b): K1-K3, not K4. Both servers leave on SIGTERM, their followers
    within 3 s.
+18. Whisper at tensor-parallel size 2 (``tp2-whisper``):
+   whisper-large-v3-class in bf16 at full width and depth, seed 0, both
+   ranks on this card over gloo, through ``server_from_args`` with
+   ``--max-num-seqs 4`` (a rank holds half of the heads, the MLP and the
+   vocabulary, and half of each request's cross and self K/V). (a) Three
+   clips (5, 12 and 30 s; detection, translation, timestamp mode),
+   greedy, 16 tokens: tokens, logprobs, ``no_speech_prob`` and the
+   language equal, bit for bit, those of the tp 1 runner on the same
+   weights computing as the ranks do (``_WhisperRankSums``: each
+   column-parallel product and attention on the ranks' halves, each
+   row-parallel product as two float32 partials added and rounded once);
+   the band against plain tp 1 printed beside it. (b) The server over
+   HTTP: 6 concurrent requests (four whole, one SSE stream read to
+   ``[DONE]``, one left after its headers), every response 200, the
+   abort counted; then every rank's digest and call count rank 0's, no
+   rank holding a request's state, no kernel launched on either. (c)
+   Printed, not judged: each rank's weight bytes and one live request's
+   bytes beside tp 1's, a 30 s clip's encode wall and a token's wall at
+   tp 2 beside tp 1. (d) The same server in a fresh process
+   (``--tp-server PORT --model whisper-large-v3-class``) answers a
+   request, and its follower is gone within 3 s of SIGTERM. K1-K4 launch
+   0 times.
 
 Phases 4-14 run with decode graphs on, the default; phase 5's bf16 run
 through the plain versions decodes eagerly (a plain version synchronises
 with the host, which a capture cannot hold), and so do phases 15-17
-(a gloo collective cannot be captured).
+(a gloo collective cannot be captured); Whisper's paths have no graphs.
 
 The line before the card line carries the kernels' JSON record, whose
 ``launches`` sum each kernel's launches over every served path (each
 path's own counts are in ``launches_by_path``, ``moe-int8``, ``kv-plane``,
 ``scoring-surface``, ``whisper``, ``overload``, ``observability``,
 ``decode-graphs``, ``tp2``, ``tp2-lora-ragged``, ``tp2-lora-bucketed``,
-``tp2-moe-int8`` and ``tp2-kv-plane`` (rank 0's) among them; a graph
+``tp2-moe-int8``, ``tp2-kv-plane`` and ``tp2-whisper`` (rank 0's) among
+them; a graph
 replay adds
 the launches its capture recorded); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -3763,6 +3788,8 @@ def scoring_phase(torch, np, counters, card: str) -> dict:
 
 # -- phase 11: Whisper ------------------------------------------------------
 
+# (c)'s max_tokens a request (64 until PR 18)
+WHISPER_MAX_TOKENS = 32
 WHISPER_CLIPS = ((5.0, 16000), (12.0, 44100), (30.0, 16000), (5.0, 44100),
                  (12.0, 16000), (30.0, 44100), (5.0, 16000), (12.0, 44100))
 WHISPER_FORMATS = ("json", "text", "verbose_json", "srt", "vtt",
@@ -4081,7 +4108,7 @@ def _whisper_numbers(torch, np, runner, card: str) -> dict:
 def _whisper_http(torch, np, server, port: int) -> dict:
     """(c) the served whisper-large-v3-class over HTTP: a wave of 8
     concurrent requests (every format, transcribe and translate, 5-30 s
-    clips at 16 and 44.1 kHz, max_tokens 64); one SSE stream read to
+    clips at 16 and 44.1 kHz, ``WHISPER_MAX_TOKENS``); one SSE stream read to
     [DONE]; one left after its headers (an abort, its slot back, then a
     burst of 4); the 400 and 404 and the model card."""
     clips = [(_wav(np, s, r, seed=10 + i), s)
@@ -4089,7 +4116,8 @@ def _whisper_http(torch, np, server, port: int) -> dict:
 
     def one(i):
         wav, _ = clips[i]
-        fields = dict(model="whisper-large-v3-class", max_tokens="64",
+        fields = dict(model="whisper-large-v3-class",
+                      max_tokens=str(WHISPER_MAX_TOKENS),
                       response_format=WHISPER_FORMATS[i])
         if i % 3:
             fields["language"] = "en"
@@ -4113,7 +4141,7 @@ def _whisper_http(torch, np, server, port: int) -> dict:
         if fmt == "verbose_json":
             out = json.loads(text)
             n = sum(len(s["tokens"]) for s in out["segments"])
-            if n > 64 or any(s["start"] > s["end"]
+            if n > WHISPER_MAX_TOKENS or any(s["start"] > s["end"]
                              for s in out["segments"]):
                 raise AssertionError(f"[whisper] (c) verbose_json {i}: "
                                      f"{n} tokens, {out['segments'][:3]}")
@@ -4135,7 +4163,7 @@ def _whisper_http(torch, np, server, port: int) -> dict:
     lat = sorted(w[4] for w in wave)
     # one SSE stream to the end
     body, ctype = _form(clips[0][0], language="en", stream="true",
-                        max_tokens="64")
+                        max_tokens=str(WHISPER_MAX_TOKENS))
     status, _, sse = _post_form(port, "/v1/audio/transcriptions", body,
                                 ctype)
     events = [ln for ln in sse.decode().split("\n")
@@ -5183,8 +5211,9 @@ def _obs_ledger(torch, base: str, server, path: str) -> dict:
 
 
 # 0.5 s captures in a row after the two 2 s ones (the drill watches for
-# an abort in a capture; phase 17 needed the seconds of sixteen more)
-DRILL_CAPTURES = 4
+# an abort in a capture; phases 17 and 18 needed the seconds of eighteen
+# more)
+DRILL_CAPTURES = 2
 # the drill's request rate: 4 a second x 32 tokens, under what llama-3-8b
 # serves on the ragged path (~180 tokens/s at 16 in flight), so a queue
 # builds only while a capture holds the server
@@ -5428,7 +5457,7 @@ def observability_phase(torch, np, counters, card: str) -> dict:
 
 DG_MODES = ("eager", "graphed", "graphed+chain")
 DG_WINDOW = 16  # decode steps a timed or traced window
-DG_ROUNDS = 3
+DG_ROUNDS = 2
 
 
 def _dg_mode(eng, graphs, mode: str) -> None:
@@ -5493,7 +5522,7 @@ def _dg_capture(torch, eng, card: str) -> dict:
 
 
 def _dg_identity(np, eng, graphs, card: str) -> dict:
-    """(a) 64 requests x 48 tokens, greedy and seeded-sampled, contexts of
+    """(a) 32 requests x 48 tokens, greedy and seeded-sampled, contexts of
     100-700 tokens (rungs 256, 512 and 1024): graphed against eager, tokens
     and logprobs bit for bit; then, graphed, chain on against chain off,
     tokens equal, with max_tokens staggered 16-48 so the decode rows
@@ -5502,7 +5531,7 @@ def _dg_identity(np, eng, graphs, card: str) -> dict:
 
     rng = np.random.default_rng(14)
     prompts = [rng.integers(0, 256, int(n)).tolist()
-               for n in rng.integers(100, 701, 64)]
+               for n in rng.integers(100, 701, 32)]
 
     def sp(i, **kw):
         samp = ({"temperature": 0.0} if i % 2 == 0 else
@@ -5542,7 +5571,7 @@ def _dg_identity(np, eng, graphs, card: str) -> dict:
         raise AssertionError(f"[decode-graphs] (a) chain on differs from "
                              f"off ({chained[0]} chained dispatches)")
     n_tok = sum(len(t) for t, _ in runs["eager"].values())
-    out = {"requests": 64, "tokens_compared": n_tok,
+    out = {"requests": len(prompts), "tokens_compared": n_tok,
            "logprobs_compared": n_tok, "chained_dispatches": chained[0],
            "chain_tokens_compared": sum(len(t) for t in toks["graphed"]),
            "graphs": len(graphs)}
@@ -5572,7 +5601,7 @@ def _dg_clear(eng) -> None:
 
 def _dg_timing(torch, np, eng, graphs, card: str) -> dict:
     """(b) The decode step's untraced wall, eager / graphed / graphed +
-    chain in turns, three rounds of 16 steps each (after one untimed
+    chain in turns, ``DG_ROUNDS`` rounds of 16 steps each (after one untimed
     step that lands the previous mode's chain), at 64 and 4 rows and
     contexts of ~130-180 tokens (fresh requests each round) and ~2.1K
     (the same requests through the rounds: contexts 2100-2260, one plan
@@ -5692,10 +5721,11 @@ def _dg_k3_ladder(torch, np, geo: dict, card: str) -> dict:
 
 
 def _dg_sleep(torch, np, eng, graphs, card: str) -> dict:
-    """(d) Sleep levels 1 and 2, each then wake: the graphs are dropped
-    while asleep and captured again at wake, and 8 greedy requests give
-    the same tokens before and after (level 2 makes the seed-0 weights
-    again)."""
+    """(d) Sleep level 2, then wake: the graphs are dropped while asleep
+    and captured again at wake, and 8 greedy requests give the same
+    tokens before and after (the wake makes the seed-0 weights again).
+    Level 1 drops the graphs with the pool too; phase 10 (e) sleeps and
+    wakes at both levels with graphs on."""
     from production_stack_tpu_torch.engine.sampling import SamplingParams
 
     rng = np.random.default_rng(18)
@@ -5711,7 +5741,7 @@ def _dg_sleep(torch, np, eng, graphs, card: str) -> dict:
     before = wave("before")
     held = set(graphs.entries)
     out = {"graphs": len(held)}
-    for level in (1, 2):
+    for level in (2,):
         eng.sleep_mode(level)
         if len(graphs) or set(eng.runner._held_keys) != held:
             raise AssertionError(f"[decode-graphs] (d) level {level}: "
@@ -5790,6 +5820,10 @@ def decode_graphs_phase(torch, np, counters, card: str) -> dict:
 
 TP_NOTE = "two ranks share one card over gloo: not a TP speed"
 TP_BLOCKS = 2048
+# phase 15 (a)'s tokens a request (32 until PR 18): the same requests
+# with their answers cut short, so every step compared is one of the
+# longer run's
+TP_TOKENS = 16
 # phase 16 (c): the tp 2 server's ranks are gone this long after SIGTERM
 TP_GONE_S = 3.0
 # phase 16 (a): mixtral-8x7b's KV blocks a rank (1 MiB each at KH 4 a
@@ -5851,7 +5885,7 @@ def _tp_collective_clock(torch, ranks) -> list:
 
 
 def _tp_steps(torch, np, eng, card: str, label: str, length: int = 128,
-              reps: int = 3) -> dict:
+              reps: int = 1) -> dict:
     """(d) An eager decode step at 64 rows (contexts of ``length`` + a few
     tokens) and a 2048-token ragged step, host wall to a synchronise,
     ``reps`` each; at tp 2 also the share of it rank 0 spends in
@@ -5963,8 +5997,8 @@ def tp_server_child(argv: list) -> int:
     """``--tp-server PORT [FLAG ...]``: llama-3-8b at tensor-parallel size
     2, both ranks on cuda:0 over gloo, through the server's own entry
     point (``server.main``: SIGTERM drains, then the process exits); the
-    further flags pass through (``--role``, the tiers; a repeated flag's
-    last value wins)."""
+    further flags pass through (``--role``, the tiers, ``--model
+    whisper-large-v3-class``; a repeated flag's last value wins)."""
     sys.path.insert(0, str(ROOT))
     from production_stack_tpu_torch.engine import server
 
@@ -6282,6 +6316,11 @@ def _tp_repeat_dev(eng, prompts, sp, ref: tuple, slots=None) -> float:
     return rep
 
 
+# phase 16 (a)'s tokens a request (32 until PR 18: its judged checks are
+# bit for bit, so fewer tokens cut only its depth)
+TPF_TOKENS = 16
+
+
 def _tpf_prompts(np, n: int) -> list:
     """Phase 16's ``n`` prompts of 64-256 tokens: at tp 2 over gloo a
     prefill step pays seconds in collectives (phase 15 (d)), so its waves
@@ -6436,8 +6475,8 @@ def tp_phase(torch, np, counters, card: str) -> dict:
 
     t_phase = time.perf_counter()
     prompts = _tp_prompts(np)
-    sp = SamplingParams(temperature=0.0, max_tokens=32, ignore_eos=True,
-                        logprobs=2)
+    sp = SamplingParams(temperature=0.0, max_tokens=TP_TOKENS,
+                        ignore_eos=True, logprobs=2)
     with tempfile.TemporaryDirectory() as tmp:
         lora = {"adapter": write_adapter(np, ModelConfig.from_pretrained(
                     "llama-3-8b"), tmp, rank=16, seed=0),
@@ -6721,7 +6760,7 @@ def moe_tp_reference(torch, np, eng) -> dict:
     """Phase 16 (a)'s tp 1 answers, from phase 8's mixtral-8x7b int8
     engine before it is released, with the prefix cache off and the slots
     handed out as the fresh tp 2 engine hands them (``_fresh_slots``): 16
-    greedy prompts (``_tpf_prompts``) x 32 tokens, their
+    greedy prompts (``_tpf_prompts``) x ``TPF_TOKENS``, their
     first ragged step probed (``_FirstStepProbe``); the same requests at
     once again with only the float sums' order changed
     (``_perturbed_repeat``), whose deviation sets the band and whose
@@ -6730,8 +6769,8 @@ def moe_tp_reference(torch, np, eng) -> dict:
     from production_stack_tpu_torch.engine.sampling import SamplingParams
 
     prompts = _tpf_prompts(np, 16)
-    sp = SamplingParams(temperature=0.0, max_tokens=32, ignore_eos=True,
-                        logprobs=2)
+    sp = SamplingParams(temperature=0.0, max_tokens=TPF_TOKENS,
+                        ignore_eos=True, logprobs=2)
     alloc = eng.scheduler.allocator
     alloc.enable_prefix_caching = False
     try:
@@ -6751,7 +6790,8 @@ def moe_tp_reference(torch, np, eng) -> dict:
         raise AssertionError("[tp2-features] (a) tp 1's identical repeat of "
                              "the 16 requests is not bit for bit")
     gap = _flip_gaps(run, flips)
-    log(f"[tp2-features] (a) tp 1 reference on phase 8's engine: 16 x 32 "
+    log(f"[tp2-features] (a) tp 1 reference on phase 8's engine: 16 x "
+        f"{TPF_TOKENS} "
         f"tokens in {wave:.2f} s; an identical repeat bit for bit; its own "
         f"deviation at the same batch with the float sums reordered "
         f"{rep:.4f}, {len(flips)} flip(s), top-2 gaps up to {gap:.4f}")
@@ -6824,7 +6864,7 @@ def tp_features_phase(torch, np, counters, card: str, ref: dict) -> dict:
         reports = eng.runner.follower_reports()
         decode = _empty_context_decode(np, eng)
         steps = _tp_steps(torch, np, eng, card, "tp2-moe-int8", length=32,
-                          reps=2)
+                          reps=1)
         collective = eng.perf.stats_fields()["collective_bytes"]
     finally:
         eng.close()
@@ -6891,7 +6931,7 @@ def tp_features_phase(torch, np, counters, card: str, ref: dict) -> dict:
 
 TPKV_N = 8  # (a)'s requests, and (b)'s wave B
 TPKV_LENS = (512, 1024)  # (a)'s prompt lengths; the first is the longest
-TPKV_OUT = 32
+TPKV_OUT = 16  # 32 until PR 18: the same requests cut short
 TPKV_TIER_N = 4  # (b)'s waves A and C, each back from a tier
 TPKV_WAVE = 1024  # (b)'s prompt length
 TPKV_WAVE_OUT = 16
@@ -6900,7 +6940,7 @@ TPKV_BS = 16
 # hold at most 66 blocks each with their decode blocks; (b)'s wave B (8 x
 # 65 blocks) leaves at most 16 of wave A's in the pool, so wave A's
 # return is the host tier's
-TPKV_D_BLOCKS = TPKV_N * (TPKV_LENS[1] + TPKV_OUT + TPKV_BS) // TPKV_BS
+TPKV_D_BLOCKS = TPKV_N * (TPKV_LENS[1] + 32 + TPKV_BS) // TPKV_BS
 TPKV_LONE = 2048  # (d)'s lone push: 128 full blocks
 
 
@@ -7231,6 +7271,386 @@ def _tp_kv_moves(torch, eng, card: str) -> dict:
     return out
 
 
+# -- phase 18: Whisper under tensor parallelism ----------------------------
+
+TPW_MODEL = "whisper-large-v3-class"
+# (a)'s clips: (seconds, rate, kind), each in its own mode
+TPW_CLIPS = ((5.0, 16000, "tone"), (12.0, 44100, "noise"),
+             (30.0, 16000, "tone"))
+TPW_MODES = (dict(), dict(language="en", task="translate"),
+             dict(language="en", timestamps=True))
+TPW_TOKENS = 16  # (a)'s max_tokens a clip
+TPW_HTTP_TOKENS = 8  # (b)'s
+TPW_CHUNK = 8  # (c)'s timed chunk
+
+
+class _WhisperRankSums:
+    """tp 1 computing a tp 2 rank pair's products on one device, in their
+    shapes (models/whisper.py, tensor parallelism): each column-parallel
+    product (Q, K and V over heads, ``fc1`` over the MLP axis, the tied
+    logits over the vocabulary) and each attention made on each half as a
+    rank holds it (a contiguous copy of that half of the weights), the
+    halves side by side; each row-parallel product (``wo``, ``cwo``,
+    ``fc2``) as two float32 partials over the halves of its contracted
+    axis, added and rounded to the model dtype once, its bias after. The
+    embedding's sum over the ranks adds only zeros, so it is left whole."""
+
+    def __init__(self, torch):
+        from production_stack_tpu_torch.engine import quant
+        from production_stack_tpu_torch.models import whisper as W
+
+        self.torch, self.quant, self.W = torch, quant, W
+        self.names = ("_heads", "_attention", "_up", "_row_parallel",
+                      "_logits")
+
+    @staticmethod
+    def _halves(n: int) -> tuple:
+        return ((0, n // 2), (n // 2, n))
+
+    @staticmethod
+    def _cut(x, dim: int, a: int, b: int):
+        return x.narrow(dim, a, b - a).contiguous()
+
+    def __enter__(self):
+        torch, W, cut, halves = self.torch, self.W, self._cut, self._halves
+        self._saved = {n: getattr(W, n) for n in self.names}
+        heads, attention, up, row, logits = (self._saved[n]
+                                             for n in self.names)
+
+        def heads_(x, w, b=None):
+            return torch.cat([heads(x, cut(w, 1, a, c), None if b is None
+                                    else cut(b, 0, a, c)).contiguous()
+                              for a, c in halves(w.shape[1])], dim=1)
+
+        def attention_(q, k, v, mask=None):
+            return torch.cat([attention(q[:, a:c], k[:, a:c], v[:, a:c],
+                                        mask)
+                              for a, c in halves(q.shape[1])], dim=1)
+
+        def up_(x, w, b):
+            return torch.cat([up(x, cut(w, 1, a, c), cut(b, 0, a, c))
+                              for a, c in halves(w.shape[1])], dim=-1)
+
+        def row_(group, axis, x, w):
+            if group is not None:
+                return row(group, axis, x, w)
+            parts = [self.quant.matmul_f32(
+                cut(x, x.dim() - 1, a, c).reshape(-1, c - a),
+                cut(w, 0, a, c)) for a, c in halves(x.shape[-1])]
+            return (parts[0] + parts[1]).to(x.dtype).reshape(
+                *x.shape[:-1], w.shape[-1])
+
+        def logits_(group, h, embed, dt):
+            if group is not None:
+                return logits(group, h, embed, dt)
+            return torch.cat([logits(None, h, cut(embed, 0, a, c), dt)
+                              for a, c in halves(embed.shape[0])], dim=-1)
+
+        for n, fn in zip(self.names, (heads_, attention_, up_, row_,
+                                      logits_)):
+            setattr(W, n, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._saved.items():
+            setattr(self.W, n, fn)
+
+
+def _tpw_clips(np, runner) -> list:
+    """(a)'s clips as features, with their modes."""
+    from production_stack_tpu_torch.engine import audio
+
+    return [(audio.wav_to_features(_wav(np, sec, rate, kind, seed=30 + i),
+                                   runner.cfg.num_mel_bins,
+                                   runner.chunk_frames)[0], TPW_MODES[i])
+            for i, (sec, rate, kind) in enumerate(TPW_CLIPS)]
+
+
+def _tpw_runs(runner, clips) -> list:
+    """Each clip greedy, to ``TPW_TOKENS``: (tokens, info)."""
+    out = []
+    for feats, kw in clips:
+        info: dict = {}
+        toks = runner.transcribe(feats, info=info, max_tokens=TPW_TOKENS,
+                                 **kw)
+        out.append((toks, info))
+    return out
+
+
+def _tpw_band(ref: list, got: list) -> dict:
+    """Where ``got`` parts from ``ref``: flips, the largest logprob
+    deviation before each clip's first flip, no_speech_prob's."""
+    flips, worst, nsp = 0, 0.0, 0.0
+    for (rt, ri), (gt, gi) in zip(ref, got):
+        n = next((i for i, (a, b) in enumerate(zip(rt, gt)) if a != b),
+                 min(len(rt), len(gt)))
+        flips += n < max(len(rt), len(gt))
+        worst = max([worst] + [abs(a - b) for a, b in zip(
+            ri["logprobs"][:n], gi["logprobs"][:n])])
+        nsp = max(nsp, abs(ri["no_speech_prob"] - gi["no_speech_prob"]))
+    return {"clips_parted": flips, "max_logprob_dev": worst,
+            "max_no_speech_dev": nsp}
+
+
+def _tpw_numbers(torch, runner, clips) -> dict:
+    """(c) on ``runner`` (tp 1's, or the tp 2 server's), twice: a 30 s
+    clip's encode + cross K/V wall to a synchronise, a ``TPW_CHUNK``-token
+    chunk's wall a token, and the bytes each rank holds (weights; one live
+    request's cross K/V and self-attention cache)."""
+    import itertools
+
+    dev, feats = runner.dev, clips[2][0]
+    forced = runner._forced_tokens("en", "transcribe", None)
+    P = runner._bucket(len(forced))
+    enc, tok = [], []
+    for h in itertools.islice(runner._handles, 2):
+        with runner.lock:
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dev.encode_request(h, feats)
+                torch.cuda.synchronize()
+                enc.append((time.perf_counter() - t0) * 1e3)
+                dev.prefill_request(h, forced + [0] * (P - len(forced)),
+                                    len(forced), 0)
+                held = runner.held_by_rank()
+                t0 = time.perf_counter()
+                toks, _, _ = dev.chunk_request(
+                    h, runner.cfg.max_model_len, 0.0, False, TPW_CHUNK)
+                torch.cuda.synchronize()
+                tok.append((time.perf_counter() - t0) * 1e3 / len(toks))
+            finally:
+                dev.free(h)
+    return {"encode_wall_ms": statistics.median(enc),
+            "token_wall_ms": statistics.median(tok),
+            "weight_bytes_by_rank": [r["params"] for r in held],
+            "request_bytes_by_rank": [sum(r["requests"].values())
+                                      for r in held]}
+
+
+def _tpw_http(np, server, port: int) -> dict:
+    """(b) 6 concurrent requests to the tp 2 server (``--max-num-seqs
+    4``): four whole, one SSE stream read to ``[DONE]``, one SSE stream
+    left after its headers; every response 200, the abort counted."""
+    clips = [_wav(np, sec, rate, kind, seed=40 + i)
+             for i, (sec, rate, kind) in enumerate(
+                 TPW_CLIPS + TPW_CLIPS)]
+    fmts = ("json", "verbose_json", "srt", "text")
+    base = f"http://127.0.0.1:{port}"
+    key = ("pstpu_transcription_aborted_requests_total",
+           (("endpoint", "audio.transcribe"),))
+    aborted0 = parse_exposition(_http(base, "/metrics")[2].decode()).get(
+        key, 0.0)
+
+    def whole(i):
+        path = ("/v1/audio/translations" if i % 2
+                else "/v1/audio/transcriptions")
+        fields = dict(model=TPW_MODEL, max_tokens=str(TPW_HTTP_TOKENS),
+                      response_format=fmts[i])
+        if i != 1:
+            fields["language"] = "en"
+        t0 = time.perf_counter()
+        status, _, body = _post_form(port, path, *_form(clips[i], **fields))
+        return status, body, time.perf_counter() - t0
+
+    def streamed(_):
+        t0 = time.perf_counter()
+        status, _, body = _post_form(port, "/v1/audio/transcriptions",
+                                     *_form(clips[4], language="en",
+                                            stream="true", max_tokens=str(
+                                                TPW_HTTP_TOKENS)))
+        events = [ln for ln in body.decode().split("\n")
+                  if ln.startswith("data: ")]
+        if not events or events[-1] != "data: [DONE]":
+            raise AssertionError(f"[tp2-whisper] (b) SSE: {events[-3:]}")
+        return status, b"", time.perf_counter() - t0
+
+    def left(_):
+        body, ctype = _form(clips[5], language="en", stream="true")
+        sock = socket.create_connection(("127.0.0.1", port), timeout=120)
+        sock.sendall((f"POST /v1/audio/transcriptions HTTP/1.1\r\nHost: "
+                      f"x\r\nContent-Type: {ctype}\r\nContent-Length: "
+                      f"{len(body)}\r\n\r\n").encode() + body)
+        head = b""
+        while b"\r\n\r\n" not in head:
+            head += sock.recv(4096)
+        sock.close()
+        return int(head.split()[1]), b"", 0.0
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(6) as pool:
+        futs = [pool.submit(whole, i) for i in range(4)]
+        futs += [pool.submit(streamed, 4), pool.submit(left, 5)]
+        answers = [f.result() for f in futs]
+    wave_s = time.perf_counter() - t0
+    if any(a[0] != 200 for a in answers):
+        raise AssertionError(f"[tp2-whisper] (b) statuses "
+                             f"{[(a[0], a[1][:200]) for a in answers]}")
+    t_end = time.monotonic() + 120
+    aborted = aborted0
+    while aborted == aborted0 and time.monotonic() < t_end:
+        time.sleep(0.1)
+        aborted = parse_exposition(_http(base, "/metrics")[2].decode()).get(
+            key, 0.0)
+    if aborted != aborted0 + 1:
+        raise AssertionError(f"[tp2-whisper] (b) aborted {aborted0} -> "
+                             f"{aborted}")
+    return {"requests": 6, "wave_s": wave_s, "aborted": aborted - aborted0,
+            "latency_s": [a[2] for a in answers[:5]]}
+
+
+class _TpWhisperServer(_TpServer):
+    """A ``--tp-server`` child serving whisper-large-v3-class: up once
+    ``/health`` answers, its follower found among its children."""
+
+    def __init__(self):
+        super().__init__(["--model", TPW_MODEL, "--max-num-seqs", "4"])
+
+    def up(self, tag: str, timeout: float = 300) -> dict:
+        while True:
+            try:
+                _http(self.base, "/health")
+                break
+            except (urllib.error.URLError, ConnectionError):
+                if (self.proc.poll() is not None
+                        or time.perf_counter() - self.t0 > timeout):
+                    raise AssertionError(
+                        f"[{tag}] the server did not come up (exit "
+                        f"{self.proc.poll()}):\n{self.log_tail()}")
+                time.sleep(0.5)
+        self.up_s = time.perf_counter() - self.t0
+        self.pids = [self.proc.pid] + _spawned_children(self.proc.pid)
+        if len(self.pids) != 2:
+            raise AssertionError(f"[{tag}] follower pids {self.pids[1:]}")
+        return {"pids": self.pids}
+
+
+def _spawned_children(pid: int) -> list:
+    """The processes ``pid`` started with multiprocessing's spawn (its
+    tensor-parallel followers)."""
+    import os
+
+    out = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                spawned = b"spawn_main" in f.read()
+        except (OSError, IndexError, ValueError):
+            continue
+        if ppid == pid and spawned:
+            out.append(int(d))
+    return out
+
+
+def tp_whisper_phase(torch, np, counters, card: str) -> dict:
+    """Phase 18 (``tp2-whisper``): whisper-large-v3-class in bf16 at
+    tensor-parallel size 2, both ranks on this card over gloo, through
+    ``server_from_args`` with ``--max-num-seqs 4``. (a) three clips,
+    greedy, equal bit for bit (tokens, logprobs, no_speech_prob, the
+    language) to tp 1 summing as tp 2 sums (``_WhisperRankSums``), the
+    band against plain tp 1 printed; (b) 6 concurrent requests over HTTP,
+    one streamed, one left: every response 200, every rank's digest and
+    call count rank 0's, no rank holding a handle or launching a kernel;
+    (c) printed: the bytes a rank holds, an encode's and a token's wall at
+    tp 2 beside tp 1; (d) a server in a fresh process (``--tp-server``)
+    answers one request, and its follower is gone within ``TP_GONE_S`` of
+    SIGTERM. Returns rank 0's launches: K1-K4 all 0."""
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.server import (
+        build_parser,
+        server_from_args,
+    )
+    from production_stack_tpu_torch.engine.whisper_runner import (
+        WhisperRunner,
+    )
+
+    t_phase = time.perf_counter()
+    child = _TpWhisperServer()  # comes up while (a) runs
+    try:
+        tp1 = WhisperRunner(EngineConfig.for_model(TPW_MODEL, seed=0),
+                            device="cuda")
+        clips = _tpw_clips(np, tp1)
+        plain = _tpw_runs(tp1, clips)
+        with _WhisperRankSums(torch):
+            sums = _tpw_runs(tp1, clips)
+        figures = {"tp1": _tpw_numbers(torch, tp1, clips)}
+        del tp1
+        _released(torch, "tp2-whisper tp 1")
+        _zero(counters)
+        t0 = time.perf_counter()
+        server = server_from_args(build_parser().parse_args(
+            ["--model", TPW_MODEL, "--max-num-seqs", "4", "--seed", "0",
+             "--tensor-parallel-size", "2"]),
+            rank_devices=["cuda:0", "cuda:0"], backend="gloo")
+        up_s = time.perf_counter() - t0
+        runner = server.runner
+        try:
+            t0 = time.perf_counter()
+            got = _tpw_runs(runner, clips)
+            a_s = time.perf_counter() - t0
+            first = runner.follower_reports()
+            figures["tp2"] = _tpw_numbers(torch, runner, clips)
+            http = _tpw_http(np, server, server.start("127.0.0.1", 0))
+            reports = runner.follower_reports()
+            held = runner.held_by_rank()
+        finally:
+            server.shutdown()
+        launches = _counts(counters)
+        del server, runner
+        _released(torch, "tp2-whisper tp 2")
+        child.up("tp2-whisper")
+        status, _, _ = _post_form(int(child.base.rsplit(":", 1)[1]),
+                                  "/v1/audio/transcriptions",
+                                  *_form(_wav(np, 5.0, 16000, seed=50),
+                                         language="en", max_tokens="8"))
+        if status != 200:
+            raise AssertionError(f"[tp2-whisper] (d) status {status}:\n"
+                                 f"{child.log_tail()}")
+        stop = child.stop("tp2-whisper")
+    finally:
+        child.kill()
+    if got != sums:
+        for i, ((st, si), (gt, gi)) in enumerate(zip(sums, got)):
+            band = _tpw_band([(st, si)], [(gt, gi)])
+            log(f"[tp2-whisper] (a) clip {i}: tp 1 with tp 2's sums "
+                f"{st[:12]} {si.get('language')} {si['no_speech_prob']!r}; "
+                f"tp 2 {gt[:12]} {gi.get('language')} "
+                f"{gi['no_speech_prob']!r}; {band}")
+        raise AssertionError("[tp2-whisper] (a) tp 2 is not tp 1 with tp 2's "
+                             "sums bit for bit")
+    for tag, reps in (("(a)", first), ("(b)", reports)):
+        if (len({(r["calls"], r["digest"]) for r in reps}) != 1
+                or any(r["diverged_at"] is not None or r["live"]
+                       for r in reps)):
+            raise AssertionError(f"[tp2-whisper] {tag} ranks: {reps}")
+        if any(n for r in reps[1:] for n in r["launches"].values()):
+            raise AssertionError(f"[tp2-whisper] {tag} a follower launched "
+                                 f"a kernel: {reps}")
+    if any(h["requests"] for h in held):
+        raise AssertionError(f"[tp2-whisper] (b) handles left: {held}")
+    _expect(launches, set(), "tp2-whisper")
+    out = {"tokens_compared": sum(len(t) for t, _ in got),
+           "clips": len(got), "bit_for_bit_with_tp2_sums": True,
+           "against_plain_tp1": _tpw_band(plain, got),
+           "languages": [i["language"] for _, i in got],
+           "tp2_up_s": up_s, "a_s": a_s, "calls": reports[0]["calls"]}
+    log(f"[tp2-whisper] (a) {TPW_MODEL} bf16 at tp 2 ({card}): "
+        f"{json.dumps(out)}")
+    ranks = [(r["rank"], r["calls"], r["live"]) for r in reports]
+    log(f"[tp2-whisper] (b) over HTTP, --max-num-seqs 4 ({card}; "
+        f"{TP_NOTE}): {json.dumps(http)}; ranks {ranks}")
+    log(f"[tp2-whisper] (c) ({card}; printed, not judged; {TP_NOTE}): "
+        f"{json.dumps(figures)}")
+    log(f"[tp2-whisper] (d) a fresh server up in {child.up_s:.1f} s; "
+        f"{json.dumps(stop)}; phase 18 ({card}) in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _no_hbm_alarm_left(pids=()) -> int:
     """Every server of this run but phase 13's keeps its bundles in the
     default archive (a directory a process under the system tmpdir): this
@@ -7293,7 +7713,13 @@ def main() -> int:
     build_s = _build.build_all()
     log(f"[build] kernels built in {build_s:.1f} s")
 
+    laps = [("start", t_start)]
+
+    def lap(name: str) -> None:
+        laps.append((name, time.perf_counter()))
+
     results = kernel_phase(torch, np, card)
+    lap("1-3 build, kernels")
     counters = [k1.LAUNCHES, k2.LAUNCHES, k3.LAUNCHES, k4.LAUNCHES]
     by_path = {
         "ragged": slice_phase(torch, np, counters, card, "ragged",
@@ -7301,33 +7727,52 @@ def main() -> int:
         "bucketed": slice_phase(torch, np, counters, card, "bucketed",
                                 {"K1", "K3", "K4"}),
     }
+    lap("4 slices")
     for impl in list(by_path):
         parity_phase(torch, np, impl)
         bf16_phase(torch, np, impl)
     features_parity_phase(torch, np)
     spec_bf16_phase(torch, np)
     moe_int8_parity_phase(torch, np)
+    lap("5 parity")
     by_path.update(features_phase(torch, np, counters, card))
+    lap("6 features")
     by_path["surface-ragged"] = surface_phase(torch, np, counters, card)
+    lap("7 surface")
     moe_ref: dict = {}
     by_path["moe-int8"] = moe_int8_phase(torch, np, counters, card, moe_ref)
+    lap("8 moe-int8")
     kv = kv_plane_phase(torch, np, counters, card)
     by_path["kv-plane"] = kv["launches"]
+    lap("9 kv-plane")
     by_path["scoring-surface"] = scoring_phase(torch, np, counters, card)
+    lap("10 scoring")
     by_path["whisper"] = whisper_phase(torch, np, counters, card)
+    lap("11 whisper")
     by_path["overload"] = overload_phase(torch, np, counters, card)
+    lap("12 overload")
     by_path["observability"] = observability_phase(torch, np, counters,
                                                    card)
+    lap("13 observability")
     by_path["decode-graphs"] = decode_graphs_phase(torch, np, counters, card)
+    lap("14 decode-graphs")
     tp = tp_phase(torch, np, counters, card)
     by_path["tp2"] = tp["launches"]
     for impl, n in tp["lora_launches"].items():
         by_path[f"tp2-lora-{impl}"] = n
+    lap("15 tp2")
     by_path["tp2-moe-int8"] = tp_features_phase(torch, np, counters, card,
                                                 moe_ref)["launches"]
+    lap("16 tp2-features")
     kv_tp = tp_kv_phase(np, card, kv["figures"], tp["kv_moves"])
     by_path["tp2-kv-plane"] = kv_tp["launches"]
+    lap("17 tp2-kv-plane")
+    by_path["tp2-whisper"] = tp_whisper_phase(torch, np, counters, card)
+    lap("18 tp2-whisper")
     _no_hbm_alarm_left(kv_tp["pids"])
+    log(f"[phases] seconds ({card}): " + json.dumps(
+        {name: round(t - laps[k - 1][1], 1)
+         for k, (name, t) in enumerate(laps) if k}))
 
     kernels = []
     for r in results:

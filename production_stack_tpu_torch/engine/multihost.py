@@ -61,6 +61,15 @@ decode dispatches pass the previous dispatch's device-resident tokens
 each follower uses its own copy from its replay of that dispatch, as in
 the reference.
 
+Whisper's ranks (engine/whisper_runner.py) mirror ``WHISPER_METHODS``:
+the encode of a request's clip, its SOT logits, its decoder prefill, a
+chunk of its decode and its ``free``. A request's device state stays on
+each rank in that runner's table, under a handle the leader numbers, and
+only host values cross the control group: the clip's features (a
+``(n_mels, 3000)`` float32 array, 1.5 MB at 128 mels) with its encode,
+token lists with the rest. A chunk's tokens fold into the digest, and
+each rank's report names the handles it still holds.
+
 Followers are started with the ``spawn`` method, as daemons of the leader:
 they exit on the leader's ``_shutdown`` (``close``), are ended with the
 leader's interpreter, and, if the leader is killed, leave within a second
@@ -97,6 +106,9 @@ MIRRORED_METHODS = (
     "restore_params", "pooled_embed", "sequence_logprobs", "prompt_logprobs",
     "warm_decode_graphs", "unregister_lora",
 )
+# Whisper's runner (engine/whisper_runner.py): a request's calls by handle
+WHISPER_METHODS = ("encode_request", "sot_request", "prefill_request",
+                   "chunk_request", "free")
 # the KV plane's calls: the runner's device-side gather or scatter each
 # rank runs on its own heads (engine/model_runner.py)
 KV_GATHERS = {"export_blocks_range": "gather_blocks",
@@ -117,7 +129,10 @@ class RankLost(RuntimeError):
 def sampled_tokens(method: str, result) -> Optional[np.ndarray]:
     """The tokens a runner call sampled, flattened (None for calls that
     sample none): a ragged step's samples and verify columns, a prefill's
-    first tokens, a decode dispatch's (K, S) samples."""
+    first tokens, a decode dispatch's (K, S) samples, a Whisper chunk's
+    tokens."""
+    if method == "chunk_request":
+        return np.asarray(result[0], np.int64)
     if method in ("ragged_step", "prefill"):
         # (sampled[, verify], tok_lp, top_ids, top_lps)
         toks = result[:len(result) - 3]
@@ -157,6 +172,13 @@ def _host(x):
     return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
 
 
+def live_handles(runner) -> Optional[list]:
+    """The request handles whose device state a Whisper runner holds (None
+    for the text engine's runner, which holds none)."""
+    fn = getattr(runner, "live_handles", None)
+    return None if fn is None else fn()
+
+
 def kernel_launches() -> dict:
     """This process's launches of each kernel so far (``_build.COUNTERS``:
     a wrapper counts where it launches its kernel)."""
@@ -182,7 +204,7 @@ class MirroredRunner:
         self._seq = 0
         self._lock = threading.RLock()
         self._closed = False
-        for name in MIRRORED_METHODS:
+        for name in MIRRORED_METHODS + WHISPER_METHODS:
             if hasattr(inner, name):
                 setattr(self, name, self._make_mirror(name))
 
@@ -329,9 +351,11 @@ class MirroredRunner:
                       *self._kv_rows()))
 
     def report(self) -> dict:
-        """This rank's agreement state and kernel launch counts."""
+        """This rank's agreement state, live Whisper handles and kernel
+        launch counts."""
         return {"rank": 0, "pid": os.getpid(), "calls": self._digest.calls,
                 "digest": self._digest.hex(), "diverged_at": None,
+                "live": live_handles(self._inner),
                 "launches": kernel_launches()}
 
     def follower_reports(self) -> list[dict]:
@@ -411,6 +435,7 @@ class FollowerReplayer:
         return {"rank": self.runner.ranks.rank, "pid": os.getpid(),
                 "calls": self.digest.calls, "digest": self.digest.hex(),
                 "diverged_at": self.diverged_at,
+                "live": live_handles(self.runner),
                 "launches": kernel_launches()}
 
 
@@ -464,6 +489,22 @@ def follower_loop(runner, ranks) -> None:
             raise
 
 
+def float32_math() -> dict:
+    """This process's float32 math settings, which every rank must share
+    so that the ranks compute their replicated parts (the norms, Whisper's
+    conv front end) alike: TF32 in cuBLAS and in cuDNN, and the float32
+    matmul precision."""
+    return {"precision": torch.get_float32_matmul_precision(),
+            "matmul_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn_tf32": torch.backends.cudnn.allow_tf32}
+
+
+def set_float32_math(math: dict) -> None:
+    torch.set_float32_matmul_precision(math["precision"])
+    torch.backends.cuda.matmul.allow_tf32 = math["matmul_tf32"]
+    torch.backends.cudnn.allow_tf32 = math["cudnn_tf32"]
+
+
 def _watch_parent(parent_pid: int) -> None:
     """End this process when its parent is gone (a killed leader)."""
 
@@ -475,15 +516,29 @@ def _watch_parent(parent_pid: int) -> None:
     threading.Thread(target=watch, daemon=True, name="parent-watch").start()
 
 
-def follower_main(rank: int, size: int, store_port: int, devices: list,
-                  backend: str, config, params, num_blocks, parent_pid: int,
-                  threads: int) -> None:
-    """A follower process: join the group, build this rank's runner, and
-    replay the leader's calls."""
+def build_runner(config, params, num_blocks, ranks):
+    """This rank's runner: Whisper's for a Whisper model, the paged text
+    engine's otherwise."""
+    if config.model.architecture == "whisper":
+        from production_stack_tpu_torch.engine.whisper_runner import (
+            WhisperRunner,
+        )
+
+        return WhisperRunner(config, params=params, ranks=ranks)
     from production_stack_tpu_torch.engine.model_runner import ModelRunner
 
+    return ModelRunner(config, params, num_blocks, ranks=ranks)
+
+
+def follower_main(rank: int, size: int, store_port: int, devices: list,
+                  backend: str, config, params, num_blocks, parent_pid: int,
+                  threads: int, math: dict) -> None:
+    """A follower process: join the group, build this rank's runner, and
+    replay the leader's calls, with the leader's thread count and float32
+    math (``float32_math``)."""
     _watch_parent(parent_pid)
     torch.set_num_threads(threads)
+    set_float32_math(math)
     if not logging.getLogger().handlers:
         logging.basicConfig(
             level=logging.INFO,
@@ -491,8 +546,8 @@ def follower_main(rank: int, size: int, store_port: int, devices: list,
                    "%(message)s")
     ranks = pdist.init_rank(rank, size, store_port, devices, backend)
     try:
-        runner = ModelRunner(config, params, num_blocks, ranks=ranks)
-        follower_loop(runner, ranks)
+        follower_loop(build_runner(config, params, num_blocks, ranks),
+                      ranks)
     finally:
         ranks.close()
     # the leader's _shutdown: nothing is left to flush but the log, and
@@ -504,34 +559,40 @@ def follower_main(rank: int, size: int, store_port: int, devices: list,
 
 def refusal(config) -> Optional[str]:
     """What tensor parallelism does not carry yet in ``config``, named as
-    the flag that asks for it; None when it carries all of it."""
-    if config.model.architecture == "whisper":
-        return "Whisper models"
+    the flag that asks for it; None when it carries all of it (it carries
+    every model and feature the port serves)."""
     return None
 
 
 def start_ranks(config, params, num_blocks, device, size: int,
-                devices=None, backend: Optional[str] = None):
+                devices=None, backend: Optional[str] = None,
+                whisper: bool = False):
     """Start ``size`` tensor-parallel ranks for an engine on ``device``:
     this process is rank 0, the others are spawned followers. ``devices``
     (one a rank; default ``cuda:r`` on a card, the CPU otherwise) and
     ``backend`` (default ``nccl`` on a card, ``gloo`` on the CPU) are the
     caller's to choose; a rank whose card does not exist raises before any
     process starts. ``params`` is None (seeded or loaded on each rank) or
-    the whole parameter dict, which every rank cuts. Returns rank 0's
+    the whole parameter dict, which every rank cuts. ``whisper`` says the
+    caller is a ``WhisperRunner``; a Whisper model for the text engine, or
+    the reverse, raises before any process starts. Returns rank 0's
     ``MirroredRunner``."""
-    from production_stack_tpu_torch.engine.model_runner import ModelRunner
-
     why = refusal(config)
     if why is not None:
         raise ValueError(f"{why}: not ported under tensor parallelism yet "
                          f"(tensor-parallel size {size})")
+    if (config.model.architecture == "whisper") != whisper:
+        raise ValueError(
+            f"{config.model.name} is not a Whisper model" if whisper else
+            f"{config.model.name} is an encoder-decoder Whisper model: it "
+            "runs on engine/whisper_runner.WhisperRunner, not the paged "
+            "text engine")
     devices = list(devices or pdist.rank_devices(device, size))
     if len(devices) != size:
         raise ValueError(f"{len(devices)} rank devices for {size} ranks")
     backend = backend or pdist.default_backend(devices[0])
     pdist.check_devices(devices)
-    if torch.device(devices[0]).type == "cuda":
+    if torch.device(devices[0]).type == "cuda" and not whisper:
         # built once here; the followers load the same libraries
         from production_stack_tpu_torch.ops import _build
 
@@ -541,7 +602,8 @@ def start_ranks(config, params, num_blocks, device, size: int,
     procs = [ctx.Process(
         target=follower_main, name=f"tp-rank-{r}", daemon=True,
         args=(r, size, store.port, devices, backend, config, params,
-              num_blocks, os.getpid(), torch.get_num_threads()))
+              num_blocks, os.getpid(), torch.get_num_threads(),
+              float32_math()))
         for r in range(1, size)]
     for p in procs:
         p.start()
@@ -550,7 +612,7 @@ def start_ranks(config, params, num_blocks, device, size: int,
         pdist.await_ranks(store, procs)
         ranks = pdist.init_rank(0, size, store.port, devices, backend,
                                 store=store)
-        inner = ModelRunner(config, params, num_blocks, ranks=ranks)
+        inner = build_runner(config, params, num_blocks, ranks)
     except BaseException:
         for p in procs:
             p.terminate()

@@ -125,7 +125,9 @@ MoE presets, multi-LoRA (``/v1/load_lora_adapter``: each rank holds
 its share of every adapter) and the KV plane (``--role prefill|decode``,
 ``/kv/export``, ``/kv/recv``, the host and remote tiers: whole blocks,
 every rank's heads joined on rank 0, grouped as the reference's pool is
-at that size and named in ``X-KV-Head-Groups``). Whisper exits at start.
+at that size and named in ``X-KV-Head-Groups``), and Whisper's audio
+routes (engine/whisper_server.py: heads, MLP and vocabulary cut, each
+request's cross and self K/V held by every rank for its heads).
 ``--data-parallel-size``, ``--pipeline-parallel-size`` and
 ``--sequence-parallel-size`` parse to the reference's defaults; above 1
 each exits at start, not ported yet.
@@ -3555,7 +3557,8 @@ def server_from_args(args, rank_devices: Optional[list] = None,
         )
 
         return WhisperServer(config, device=args.device,
-                             served_model_name=args.served_model_name)
+                             served_model_name=args.served_model_name,
+                             rank_devices=rank_devices, backend=backend)
     fault_spec = args.fault_injection
     if fault_spec is None:
         fault_spec = os.environ.get("FAULT_INJECTION")

@@ -22,11 +22,26 @@ models/whisper.py for ``/v1/audio/transcriptions`` and ``/translations``.
 Greedy decoding takes the argmax of the suppressed logits. Sampling with
 a temperature draws from a device ``torch.Generator`` seeded by the
 request (a stream other than JAX's threefry).
+
+A request's device state is kept by handle: ``encode_request`` puts its
+cross K/V in the runner's table of live requests, ``prefill_request``
+adds its ``_Decode`` (self-attention cache, logits, generator, counters),
+``sot_request`` and ``chunk_request`` read them, and ``free`` drops them.
+These five calls take only host arguments and return only host values,
+so under tensor parallelism (``config.mesh``'s tensor size above 1) each
+is mirrored to the follower ranks (engine/multihost.py), which hold their
+own heads' share of the same state in their own tables. The runner then
+starts the ranks itself, holds no parameters of its own, and runs its
+device work on rank 0's runner (``dev``); every call is sent inside
+``lock``, so the followers replay in the order rank 0 runs, and a
+request's ``free`` runs under it on every way out of ``transcribe_stream``
+(its end, ``close()``, an exception).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import threading
 import zlib
 from typing import Iterator, Optional
@@ -37,9 +52,15 @@ import torch
 from production_stack_tpu_torch.engine import audio as audio_fe
 from production_stack_tpu_torch.engine.config import EngineConfig, resolve_device
 from production_stack_tpu_torch.engine.tokenizer import get_tokenizer
-from production_stack_tpu_torch.engine.weights import init_or_load
+from production_stack_tpu_torch.engine.weights import (
+    init_or_load,
+    shard_params,
+    to_device,
+)
 from production_stack_tpu_torch.models import whisper as W
 from production_stack_tpu_torch.models.whisper import LANGUAGES
+from production_stack_tpu_torch.parallel import shardings as ln
+from production_stack_tpu_torch.parallel.mesh import tensor_size
 
 # tokens a chunk: the device lock is taken per chunk, so admitted
 # requests interleave at this granularity, and a stream sends text as
@@ -82,6 +103,15 @@ class _Decode:
     ts_run: int = 0       # consecutive timestamps ending here
 
 
+@dataclasses.dataclass
+class _Live:
+    """A live request's device state on this rank: its cross K/V, and its
+    decode state once prefilled."""
+    ck: torch.Tensor
+    cv: torch.Tensor
+    st: Optional[_Decode] = None
+
+
 class WhisperRunner:
     """Single-model transcription runner.
 
@@ -92,10 +122,18 @@ class WhisperRunner:
     whisper-large-v3 in bf16), and within the admitted set the device lock
     is taken per decode chunk, so concurrent requests interleave instead
     of waiting for whole clips. ``params`` (a ``whisper.param_shapes``
-    tree) replaces the seeded or checkpoint weights."""
+    tree) replaces the seeded or checkpoint weights; under tensor
+    parallelism every rank cuts its share of it.
+
+    At ``config.mesh``'s tensor size above 1 the runner starts the ranks
+    (``rank_devices`` and ``backend`` place them, as for ``LLMEngine``)
+    and ``close`` stops them. A runner given ``ranks`` is one rank's
+    share (``engine/multihost.py`` builds them)."""
 
     def __init__(self, config: EngineConfig, device="cuda",
-                 params: Optional[dict] = None):
+                 params: Optional[dict] = None,
+                 rank_devices: Optional[list] = None,
+                 backend: Optional[str] = None, ranks=None):
         cfg = config.model
         if cfg.architecture != "whisper":
             raise ValueError(f"not a whisper model: {cfg.architecture}")
@@ -104,11 +142,26 @@ class WhisperRunner:
                 f"quantization {cfg.quant!r} is not served for Whisper: "
                 "its weights are made and served in the model dtype")
         self.cfg = cfg
-        self.device = resolve_device(device)
-        self.params = params if params is not None else init_or_load(
-            cfg, config.seed, self.device)
+        # the mirrored rank 0 runner where this one started the ranks
+        self._mirror = None
+        tp = tensor_size(config.mesh, device) if ranks is None else ranks.size
+        if ranks is None and tp > 1:
+            from production_stack_tpu_torch.engine.multihost import (
+                start_ranks,
+            )
+
+            self._mirror = start_ranks(config, params, None, device, tp,
+                                       rank_devices, backend, whisper=True)
+            self.device = self._mirror.device
+            self.params = None  # the ranks hold the shards
+        else:
+            self._init_shard(config, device, params, ranks)
         self.tokenizer = get_tokenizer(cfg.tokenizer)
-        self.lock = threading.Lock()
+        # reentrant: a stream dropped without close() is finalized where
+        # its last reference goes, which may be inside this lock, and its
+        # finally frees under it
+        self.lock = threading.RLock()
+        self._handles = itertools.count(1)
         # bound on LIVE decode states (per-request KV buffers on the
         # card): without it a burst of uploads would each allocate cross-
         # KV + self-KV before queueing on the chunk lock
@@ -117,6 +170,30 @@ class WhisperRunner:
         self.chunk_frames = cfg.n_audio_ctx * 2
         # langs actually present in this vocab
         self.languages = LANGUAGES[: cfg.n_langs]
+
+    def _init_shard(self, config: EngineConfig, device, params, ranks):
+        """The device side: this rank's parameters (all of them on one
+        device), its heads (``local``), the suppression masks and the
+        table of live requests."""
+        cfg = self.cfg
+        self.ranks = ranks
+        self.local = cfg
+        rank, tp = 0, 1
+        if ranks is not None:
+            device = ranks.device
+            rank, tp = ranks.rank, ranks.size
+            ranks.shard = ln.Shard.of(cfg, rank, tp)
+            self.local = dataclasses.replace(
+                cfg, num_heads=ranks.shard.local(ln.HEADS, cfg.num_heads),
+                num_kv_heads=ranks.shard.local(ln.KV_HEADS,
+                                               cfg.num_kv_heads))
+        self.device = resolve_device(device)
+        if params is not None and ranks is not None:
+            # every rank gets the whole tree (on the CPU) and keeps its cut
+            params = to_device(shard_params(params, cfg, rank, tp),
+                               self.device)
+        self.params = params if params is not None else init_or_load(
+            cfg, config.seed, self.device, rank, tp)
         # vocab layout: eot < sot < langs < tasks < ... < notimestamps <
         # timestamps. Default mode suppresses everything above eot;
         # timestamp mode re-admits the timestamp tokens
@@ -124,6 +201,35 @@ class WhisperRunner:
         self._special = self._ids > cfg.eot_id
         self._non_ts_special = self._special & (
             self._ids <= cfg.notimestamps_id)
+        self._live: dict[int, _Live] = {}
+
+    @property
+    def dev(self):
+        """What runs the handle calls: rank 0's mirrored runner where this
+        runner started the ranks, else this runner."""
+        return self._mirror if self._mirror is not None else self
+
+    def close(self) -> None:
+        """Stop the ranks this runner started (nothing at tp 1)."""
+        if self._mirror is not None:
+            with self.lock:
+                self._mirror.close()
+
+    def held_by_rank(self) -> list[dict]:
+        """Every rank's ``held_bytes``, rank 0's first (this runner's own
+        at tp 1)."""
+        if self._mirror is None:
+            return [self.held_bytes()]
+        with self.lock:
+            return self._mirror.gather("held_bytes")
+
+    def follower_reports(self) -> list[dict]:
+        """Every rank's agreement report (``MirroredRunner``): digest,
+        calls, live handles and kernel launches, rank 0's first."""
+        if self._mirror is None:
+            raise RuntimeError("no tensor-parallel ranks: tp 1")
+        with self.lock:
+            return self._mirror.follower_reports()
 
     # -- device programs ----------------------------------------------------
 
@@ -132,7 +238,7 @@ class WhisperRunner:
         """Encoder and every layer's cross K/V of one clip's features."""
         mel = torch.as_tensor(np.asarray(features, np.float32),
                               device=self.device)[None]
-        enc = W.encode(self.cfg, self.params, mel)
+        enc = W.encode(self.cfg, self.params, mel, self.ranks)
         return W.cross_kv(self.cfg, self.params, enc)
 
     @torch.inference_mode()
@@ -141,10 +247,10 @@ class WhisperRunner:
         self-attention cache; returns (cache, logits (V,) at the LAST REAL
         position, which seed generation)."""
         cfg = self.cfg
-        kv = W.init_self_kv(cfg, 1, cfg.max_model_len, self.device)
+        kv = W.init_self_kv(self.local, 1, cfg.max_model_len, self.device)
         logits, kv = W.decode_tokens(
             cfg, self.params, torch.tensor([tokens], device=self.device),
-            [0], kv, ck, cv, [valid])
+            [0], kv, ck, cv, [valid], self.ranks)
         return kv, logits[0, valid - 1]
 
     def _suppress(self, logits: torch.Tensor, n_gen: int, timestamps: bool,
@@ -172,16 +278,18 @@ class WhisperRunner:
 
     @torch.inference_mode()
     def _chunk(self, st: _Decode, ck, cv, limit: int, temperature: float,
-               timestamps: bool) -> tuple[list[int], list[float], bool]:
-        """Generate up to DECODE_CHUNK tokens from ``st.logits``; returns
-        (tokens, their logprobs, whether eot ended it). A step whose
-        logits no later step reads (after eot or at ``limit``) skips the
-        decoder."""
+               timestamps: bool, n: Optional[int] = None,
+               ) -> tuple[list[int], list[float], bool]:
+        """Generate up to ``n`` (default ``DECODE_CHUNK``) tokens from
+        ``st.logits``; returns (tokens, their logprobs, whether eot ended
+        it). A step whose logits no later step reads (after eot or at
+        ``limit``) skips the decoder."""
+        n = DECODE_CHUNK if n is None else n
         cfg = self.cfg
         toks: list[int] = []
         lps: list[torch.Tensor] = []
         done = False
-        while not done and len(toks) < DECODE_CHUNK and st.cur < limit:
+        while not done and len(toks) < n and st.cur < limit:
             tok_t, logp = self._sample(st, temperature, timestamps)
             tok = int(tok_t)
             toks.append(tok)
@@ -190,7 +298,7 @@ class WhisperRunner:
             if not done and st.cur + 1 < limit:
                 logits, st.kv = W.decode_tokens(
                     cfg, self.params, tok_t.view(1, 1), [st.cur], st.kv,
-                    ck, cv, [1])
+                    ck, cv, [1], self.ranks)
                 st.logits = logits[0, 0]
             st.cur += 1
             # n_gen counts TEXT tokens: a leading <|0.00|> must not
@@ -204,6 +312,58 @@ class WhisperRunner:
                 st.ts_run = 0
         out_lp = torch.stack(lps).tolist() if lps else []
         return toks, out_lp, done
+
+    # -- a request's device state, by handle (module docstring) -------------
+
+    def encode_request(self, handle: int, features: np.ndarray) -> None:
+        """Encode one clip's features into ``handle``'s cross K/V."""
+        ck, cv = self._encode(features)
+        self._live[handle] = _Live(ck, cv)
+
+    def sot_request(self, handle: int) -> np.ndarray:
+        """``_sot_logits`` of ``handle``'s clip."""
+        req = self._live[handle]
+        return self._sot_logits(req.ck, req.cv)
+
+    def prefill_request(self, handle: int, tokens: list[int], valid: int,
+                        seed: int) -> None:
+        """Prefill ``handle``'s forced tokens (``valid`` of them real) and
+        seed its generator."""
+        req = self._live[handle]
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        kv, last = self._dec_prefill(req.ck, req.cv, tokens, valid)
+        req.st = _Decode(kv=kv, logits=last, cur=valid, gen=gen)
+
+    def chunk_request(self, handle: int, limit: int, temperature: float,
+                      timestamps: bool, n: int,
+                      ) -> tuple[list[int], list[float], bool]:
+        """``_chunk`` of ``handle``'s decode state, up to ``n`` tokens (the
+        leader's chunk size, sent with the call)."""
+        req = self._live[handle]
+        return self._chunk(req.st, req.ck, req.cv, limit, temperature,
+                           timestamps, n)
+
+    def free(self, handle: int) -> None:
+        """Drop ``handle``'s device state (none held is no fault: a
+        request may end before its encode)."""
+        self._live.pop(handle, None)
+
+    def live_handles(self) -> list[int]:
+        """The handles whose device state this rank holds."""
+        return sorted(self._live)
+
+    def held_bytes(self) -> dict:
+        """Device bytes this rank holds: its parameters, and each live
+        request's cross K/V and self-attention cache."""
+        def leaves(tree):
+            for v in tree.values():
+                yield from leaves(v) if isinstance(v, dict) else (v,)
+
+        return {"params": sum(t.nbytes for t in leaves(self.params)),
+                "requests": {h: r.ck.nbytes + r.cv.nbytes
+                             + (r.st.kv.nbytes if r.st is not None else 0)
+                             for h, r in self._live.items()}}
 
     # -- host-side API ------------------------------------------------------
 
@@ -327,9 +487,13 @@ class WhisperRunner:
         return self.languages[int(np.argmax(lang_logits))]
 
     def detect_language(self, features: np.ndarray) -> str:
+        handle = next(self._handles)
         with self.lock:
-            ck, cv = self._encode(features)
-            return self._language_of(self._sot_logits(ck, cv))
+            try:
+                self.dev.encode_request(handle, features)
+                return self._language_of(self.dev.sot_request(handle))
+            finally:
+                self.dev.free(handle)
 
     def validate_request(self, language: Optional[str], task: str,
                          prompt: Optional[str]) -> None:
@@ -359,20 +523,21 @@ class WhisperRunner:
         or detected ``language`` and ``no_speech_prob`` before the first
         yield, and ``logprobs`` aligned with every yielded token."""
         cfg = self.cfg
+        dev = self.dev
         # admission: bound the number of requests holding live device
         # buffers; the finally frees them and releases the slot when the
         # generator finishes or is closed
         self.admit.acquire()
-        ck = cv = st = None
+        handle = next(self._handles)
         try:
             with self.lock:
                 # ONE encoder pass shared by detection and transcription,
                 # and ONE SOT prefill shared by language detection and
                 # the no-speech probability
-                ck, cv = self._encode(features)
+                dev.encode_request(handle, features)
                 sot_logits = None
                 if (language is None and cfg.n_langs) or info is not None:
-                    sot_logits = self._sot_logits(ck, cv)
+                    sot_logits = dev.sot_request(handle)
                 if language is None and cfg.n_langs:
                     language = self._language_of(sot_logits)
             if info is not None:
@@ -390,22 +555,19 @@ class WhisperRunner:
             limit = cfg.max_model_len
             if max_tokens is not None:
                 limit = min(limit, n_forced + max(int(max_tokens), 1))
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(seed)
             with self.lock:
-                kv, last = self._dec_prefill(
-                    ck, cv, forced + [0] * (P - n_forced), n_forced)
-            st = _Decode(kv=kv, logits=last, cur=n_forced, gen=gen)
-            del kv, last
+                dev.prefill_request(handle, forced + [0] * (P - n_forced),
+                                    n_forced, seed)
             done = False
             while not done:
                 # lock per CHUNK, not per request: every request's decode
                 # state is its own tensors, so admitted transcriptions
                 # interleave at chunk granularity
+                n = DECODE_CHUNK
                 with self.lock:
-                    out, out_lp, eot = self._chunk(st, ck, cv, limit,
-                                                   temperature, timestamps)
-                done = eot or len(out) < DECODE_CHUNK
+                    out, out_lp, eot = dev.chunk_request(
+                        handle, limit, temperature, timestamps, n)
+                done = eot or len(out) < n
                 kept = [(t, lp) for t, lp in zip(out, out_lp)
                         if t != cfg.eot_id]
                 if info is not None:  # aligned with every yielded token
@@ -413,8 +575,11 @@ class WhisperRunner:
                         lp for _, lp in kept)
                 yield [t for t, _ in kept]
         finally:
-            ck = cv = st = None  # the request's cross and self K/V
-            self.admit.release()
+            try:
+                with self.lock:  # the request's cross and self K/V
+                    dev.free(handle)
+            finally:
+                self.admit.release()
 
     def transcribe(self, features: np.ndarray, **kw) -> list[int]:
         out: list[int] = []

@@ -147,10 +147,18 @@ class WhisperServer:
 
     def __init__(self, config: EngineConfig,
                  runner: Optional[WhisperRunner] = None, device="cuda",
-                 served_model_name: Optional[str] = None):
+                 served_model_name: Optional[str] = None,
+                 rank_devices: Optional[list] = None,
+                 backend: Optional[str] = None):
+        """``rank_devices`` and ``backend`` place the tensor-parallel ranks
+        of a runner this server makes (``WhisperRunner``); ``shutdown``
+        stops them. A ``runner`` given is the caller's to close."""
         self.config = config
         self.model_name = served_model_name or config.model.name
-        self.runner = runner or WhisperRunner(config, device=device)
+        self._owns_runner = runner is None
+        self.runner = runner or WhisperRunner(
+            config, device=device, rank_devices=rank_devices,
+            backend=backend)
         self.start_time = time.time()
         self._httpd: Optional[_HTTPServer] = None
         self._serve_thread = None
@@ -187,13 +195,19 @@ class WhisperServer:
             self._httpd.shutdown()
 
     def shutdown(self) -> None:
-        if self._httpd is not None:
-            if self._serve_thread is not None:
-                self._httpd.shutdown()
-                self._serve_thread.join(10)
-                self._serve_thread = None
-            self._httpd.server_close()
-            self._httpd = None
+        """Stop serving, and the tensor-parallel ranks of a runner this
+        server made."""
+        try:
+            if self._httpd is not None:
+                if self._serve_thread is not None:
+                    self._httpd.shutdown()
+                    self._serve_thread.join(10)
+                    self._serve_thread = None
+                self._httpd.server_close()
+                self._httpd = None
+        finally:
+            if self._owns_runner:
+                self.runner.close()
 
     # -- router-contract surface ---------------------------------------------
     def models(self) -> dict:

@@ -26,6 +26,27 @@ Masked scores are -1e30 in float32, as the reference's. Attention keys of
 the self-attention cache are read only up to the longest row's
 ``offset + valid_len``: the keys past it are masked in the reference, so
 their weights are exactly 0 there.
+
+**Tensor parallelism.** The leaves carry the reference's logical axes
+(``param_specs``), which parallel/shardings.py cuts. With a ``group``
+(parallel/distributed.RankGroup) the parameters are this rank's shard:
+the Q, K and V projections of self- and cross-attention are cut over
+heads and ``fc1`` over the MLP axis (column-parallel), so attention runs
+at the rank's own heads and the cross and self K/V a rank holds are its
+heads'. ``wo``, ``cwo`` and ``fc2`` contract a cut axis (row-parallel):
+each rank's product is a float32 partial, summed over the ranks and
+rounded to the model dtype once (``_row_parallel``), and their biases
+``bo``, ``cbo`` and ``fc2_b``, whole on every rank, are added once,
+after the sum. The decoder's embedding is vocab-parallel (each rank looks
+up the rows it holds, zeros elsewhere, all-reduce) and the tied logits
+are computed on the rank's rows and all-gathered in rank order. The conv
+front end, positions and norms are replicated. An axis the rules
+replicate (one whose size the degree does not divide, as
+whisper-large-v3-class's 51866-token vocabulary at 4) is whole on every
+rank and its products are not summed. Every rank then holds the same
+hidden states and the same full logits. A rank's column-parallel heads
+are made contiguous, so its attention reads them as a one-device run cut
+into the same halves would.
 """
 
 from __future__ import annotations
@@ -37,8 +58,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from production_stack_tpu_torch.engine import quant
 from production_stack_tpu_torch.engine.config import ModelConfig
+from production_stack_tpu_torch.models import llama
 from production_stack_tpu_torch.ops.norms import layer_norm
+from production_stack_tpu_torch.parallel import shardings as ln
 
 # Whisper's ordered language list (position defines the language token:
 # id = lang_base_id + index). First 99 are the multilingual v1/v2 set;
@@ -105,6 +129,63 @@ def param_shapes(cfg: ModelConfig) -> dict:
             "pos": (cfg.max_model_len, E),  # learned positions
             "layers": _block_shapes(cfg, cfg.num_layers, cross=True),
             "final_norm_w": (E,), "final_norm_b": (E,),
+        },
+    }
+
+
+def _block_specs() -> dict:
+    """Logical axes of one attention + MLP block (stacked on LAYERS)."""
+    return {
+        "attn_norm_w": (ln.LAYERS, ln.EMBED),
+        "attn_norm_b": (ln.LAYERS, ln.EMBED),
+        "wq": (ln.LAYERS, ln.EMBED, ln.HEADS, ln.HEAD_DIM),
+        "bq": (ln.LAYERS, ln.HEADS, ln.HEAD_DIM),
+        "wk": (ln.LAYERS, ln.EMBED, ln.HEADS, ln.HEAD_DIM),  # no k bias
+        "wv": (ln.LAYERS, ln.EMBED, ln.HEADS, ln.HEAD_DIM),
+        "bv": (ln.LAYERS, ln.HEADS, ln.HEAD_DIM),
+        "wo": (ln.LAYERS, ln.HEADS, ln.HEAD_DIM, ln.EMBED),
+        "bo": (ln.LAYERS, ln.EMBED),
+        "mlp_norm_w": (ln.LAYERS, ln.EMBED),
+        "mlp_norm_b": (ln.LAYERS, ln.EMBED),
+        "fc1": (ln.LAYERS, ln.EMBED, ln.MLP),
+        "fc1_b": (ln.LAYERS, ln.MLP),
+        "fc2": (ln.LAYERS, ln.MLP, ln.EMBED),
+        "fc2_b": (ln.LAYERS, ln.EMBED),
+    }
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """Logical axes of each leaf of ``param_shapes``: the reference's
+    ``param_specs``, with the conv weights' axes in this package's ``(out,
+    in, k)`` order."""
+    dec_layer = _block_specs()
+    dec_layer.update({
+        "cross_norm_w": (ln.LAYERS, ln.EMBED),
+        "cross_norm_b": (ln.LAYERS, ln.EMBED),
+        "cwq": (ln.LAYERS, ln.EMBED, ln.HEADS, ln.HEAD_DIM),
+        "cbq": (ln.LAYERS, ln.HEADS, ln.HEAD_DIM),
+        "cwk": (ln.LAYERS, ln.EMBED, ln.HEADS, ln.HEAD_DIM),
+        "cwv": (ln.LAYERS, ln.EMBED, ln.HEADS, ln.HEAD_DIM),
+        "cbv": (ln.LAYERS, ln.HEADS, ln.HEAD_DIM),
+        "cwo": (ln.LAYERS, ln.HEADS, ln.HEAD_DIM, ln.EMBED),
+        "cbo": (ln.LAYERS, ln.EMBED),
+    })
+    return {
+        "enc": {
+            "conv1_w": (ln.EMBED, None, None),  # (E, n_mels, k)
+            "conv1_b": (ln.EMBED,),
+            "conv2_w": (ln.EMBED, ln.EMBED, None),  # (E, E, k) stride 2
+            "conv2_b": (ln.EMBED,),
+            "layers": _block_specs(),
+            "final_norm_w": (ln.EMBED,),
+            "final_norm_b": (ln.EMBED,),
+        },
+        "dec": {
+            "embed": (ln.VOCAB, ln.EMBED),  # the LM head is tied to this
+            "pos": (None, ln.EMBED),  # (max_target_positions, E) learned
+            "layers": dec_layer,
+            "final_norm_w": (ln.EMBED,),
+            "final_norm_b": (ln.EMBED,),
         },
     }
 
@@ -187,21 +268,65 @@ def _heads(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:
     return y.unflatten(-1, (H, D)).transpose(1, 2)
 
 
-def _merge(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(B, H, T, D) x (H, D, E) -> (B, T, E)."""
+def _sharded(group, axis: str) -> bool:
+    return group is not None and axis in group.shard.sharded
+
+
+def _col_heads(group, x: torch.Tensor, w: torch.Tensor,
+               b=None) -> torch.Tensor:
+    """``_heads`` at this rank's heads; contiguous under a ``group``
+    (module docstring)."""
+    y = _heads(x, w, b)
+    return y.contiguous() if _sharded(group, ln.HEADS) else y
+
+
+def _row_parallel(group, axis: str, x: torch.Tensor,
+                  w: torch.Tensor) -> torch.Tensor:
+    """``x (..., K) @ w (K, N)`` in ``x``'s dtype. Where ``axis`` (K's)
+    is sharded, ``x`` and ``w`` hold this rank's cut of K: the float32
+    partials are summed over the ranks and rounded once
+    (engine/quant.py ``row_parallel_matmul``)."""
+    if not _sharded(group, axis):
+        return x @ w
+    return quant.row_parallel_matmul(x, w, 1, None, group)
+
+
+def _merge(group, a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B, H, T, D) x (H, D, E) -> (B, T, E), summed over the ranks where
+    heads are cut."""
     H, D, E = w.shape
-    return a.transpose(1, 2).flatten(2) @ w.reshape(H * D, E)
+    return _row_parallel(group, ln.HEADS, a.transpose(1, 2).flatten(2),
+                         w.reshape(H * D, E))
 
 
-def _mlp(lp: dict, i: int, h: torch.Tensor) -> torch.Tensor:
+def _up(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The MLP's first product and exact (erf) GELU, as the reference (a
+    function of its own, as ``_heads`` and ``_attention`` are, so that a
+    one-device check can run it in the ranks' halves: chip_smoke.py
+    ``_WhisperRankSums``)."""
+    return F.gelu(x @ w + b)
+
+
+def _mlp(lp: dict, i: int, h: torch.Tensor, group=None) -> torch.Tensor:
     n2 = layer_norm(h, lp["mlp_norm_w"][i], lp["mlp_norm_b"][i])
-    # exact (erf) GELU, as the reference
-    m = F.gelu(n2 @ lp["fc1"][i] + lp["fc1_b"][i])
-    return h + m @ lp["fc2"][i] + lp["fc2_b"][i]
+    m = _up(n2, lp["fc1"][i], lp["fc1_b"][i])
+    return h + _row_parallel(group, ln.MLP, m, lp["fc2"][i]) + lp["fc2_b"][i]
 
 
-def encode(cfg: ModelConfig, params: dict, mel: torch.Tensor) -> torch.Tensor:
-    """(B, n_mels, 2 * n_audio_ctx frames) -> (B, n_audio_ctx, E)."""
+def _logits(group, h: torch.Tensor, embed: torch.Tensor,
+            dt) -> torch.Tensor:
+    """Tied float32 logits; the ranks' vocabulary rows gathered in rank
+    order where the vocabulary is cut."""
+    logits = (h @ embed.to(dt).T).float()
+    if _sharded(group, ln.VOCAB):
+        logits = group.all_gather_last(logits)
+    return logits
+
+
+def encode(cfg: ModelConfig, params: dict, mel: torch.Tensor,
+           group=None) -> torch.Tensor:
+    """(B, n_mels, 2 * n_audio_ctx frames) -> (B, n_audio_ctx, E); under a
+    ``group``, at this rank's heads and MLP share (module docstring)."""
     p = params["enc"]
     dt = cfg.torch_dtype
     x = mel.to(dt)  # channels-first: conv1d's layout
@@ -214,21 +339,23 @@ def encode(cfg: ModelConfig, params: dict, mel: torch.Tensor) -> torch.Tensor:
     lp = p["layers"]
     for i in range(cfg.encoder_layers):
         n = layer_norm(h, lp["attn_norm_w"][i], lp["attn_norm_b"][i])
-        a = _attention(_heads(n, lp["wq"][i], lp["bq"][i]),
-                       _heads(n, lp["wk"][i]),
-                       _heads(n, lp["wv"][i], lp["bv"][i]))
-        h = h + _merge(a, lp["wo"][i]) + lp["bo"][i]
-        h = _mlp(lp, i, h)
+        a = _attention(_col_heads(group, n, lp["wq"][i], lp["bq"][i]),
+                       _col_heads(group, n, lp["wk"][i]),
+                       _col_heads(group, n, lp["wv"][i], lp["bv"][i]))
+        h = h + _merge(group, a, lp["wo"][i]) + lp["bo"][i]
+        h = _mlp(lp, i, h, group)
     return layer_norm(h, p["final_norm_w"], p["final_norm_b"])
 
 
 def cross_kv(cfg: ModelConfig, params: dict,
              enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-layer cross-attention K/V of the encoder output, (Ld, B, H,
-    S_enc, D) each: computed once per request, read every decode step."""
+    S_enc, D) each, H the heads the parameters hold (a rank's own under
+    tensor parallelism): computed once per request, read every decode
+    step."""
     lp = params["dec"]["layers"]
     B, S, _ = enc_out.shape
-    shape = (cfg.num_layers, B, cfg.num_heads, S, cfg.head_dim)
+    shape = (cfg.num_layers, B, lp["cwk"].shape[2], S, cfg.head_dim)
     ck = torch.empty(shape, dtype=enc_out.dtype, device=enc_out.device)
     cv = torch.empty_like(ck)
     for i in range(cfg.num_layers):
@@ -239,7 +366,8 @@ def cross_kv(cfg: ModelConfig, params: dict,
 
 def init_self_kv(cfg: ModelConfig, batch: int, max_len: int,
                  device: torch.device | str = "cpu") -> torch.Tensor:
-    """(Ld, 2, B, H, T_max, D) dense decoder self-attention cache."""
+    """(Ld, 2, B, H, T_max, D) dense decoder self-attention cache (H:
+    ``cfg``'s heads, a rank's own under tensor parallelism)."""
     return torch.zeros(
         (cfg.num_layers, 2, batch, cfg.num_heads, max_len, cfg.head_dim),
         dtype=cfg.torch_dtype, device=device)
@@ -254,6 +382,7 @@ def decode_tokens(
     ck: torch.Tensor,
     cv: torch.Tensor,
     valid_len: Sequence[int],     # (B,): valid prefix of ``tokens``
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the decoder over T new tokens, appending to the cache.
 
@@ -263,7 +392,9 @@ def decode_tokens(
     overwrite those slots (the next call's ``offset`` is ``offset +
     valid_len``). Writes past T_max are dropped, as the reference's
     masked update drops them. ``offset`` and ``valid_len`` are the host's
-    integers. Returns (logits (B, T, V) float32, self_kv)."""
+    integers. Under a ``group`` the cache and ``ck``/``cv`` hold this
+    rank's heads (module docstring). Returns (logits (B, T, V) float32,
+    self_kv)."""
     p = params["dec"]
     dt = cfg.torch_dtype
     dev = tokens.device
@@ -277,7 +408,8 @@ def decode_tokens(
     pos_idx = torch.tensor(
         [[min(o + t, cfg.max_model_len - 1) for t in range(T)]
          for o in offset], device=dev)
-    x = p["embed"][tokens].to(dt) + p["pos"][pos_idx].to(dt)
+    # vocab-parallel where the vocabulary is cut, as the Llama stack's
+    x = llama.embed_tokens(cfg, p, tokens, group) + p["pos"][pos_idx].to(dt)
 
     # query i may attend keys at absolute positions <= offset + i, and
     # only keys that hold REAL tokens (key_pos < offset + valid_len); one
@@ -294,9 +426,9 @@ def decode_tokens(
     h = x
     for i in range(cfg.num_layers):
         n = layer_norm(h, lp["attn_norm_w"][i], lp["attn_norm_b"][i])
-        q = _heads(n, lp["wq"][i], lp["bq"][i])
-        k = _heads(n, lp["wk"][i])
-        v = _heads(n, lp["wv"][i], lp["bv"][i])
+        q = _col_heads(group, n, lp["wq"][i], lp["bq"][i])
+        k = _col_heads(group, n, lp["wk"][i])
+        v = _col_heads(group, n, lp["wv"][i], lp["bv"][i])
         # append this call's K/V at [offset, offset + T) per batch row
         for b, o in enumerate(offset):
             m = min(T, T_max - o)
@@ -305,12 +437,12 @@ def decode_tokens(
                 self_kv[i, 1, b, :, o:o + m] = v[b, :, :m]
         a = _attention(q, self_kv[i, 0, :, :, :kmax],
                        self_kv[i, 1, :, :, :kmax], mask)
-        h = h + _merge(a, lp["wo"][i]) + lp["bo"][i]
+        h = h + _merge(group, a, lp["wo"][i]) + lp["bo"][i]
         # cross-attention over the (static) encoder sequence
         nc = layer_norm(h, lp["cross_norm_w"][i], lp["cross_norm_b"][i])
-        ca = _attention(_heads(nc, lp["cwq"][i], lp["cbq"][i]), ck[i], cv[i])
-        h = h + _merge(ca, lp["cwo"][i]) + lp["cbo"][i]
-        h = _mlp(lp, i, h)
+        ca = _attention(_col_heads(group, nc, lp["cwq"][i], lp["cbq"][i]),
+                        ck[i], cv[i])
+        h = h + _merge(group, ca, lp["cwo"][i]) + lp["cbo"][i]
+        h = _mlp(lp, i, h, group)
     h = layer_norm(h, p["final_norm_w"], p["final_norm_b"])
-    logits = (h @ p["embed"].to(dt).T).float()
-    return logits, self_kv
+    return _logits(group, h, p["embed"], dt), self_kv

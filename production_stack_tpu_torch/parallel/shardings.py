@@ -2,7 +2,8 @@
 parameter.
 
 A copy of production_stack_tpu/parallel/shardings.py's rules: parameters
-carry *logical* axis names (``models/llama.param_specs``), and
+carry *logical* axis names (``models/llama.param_specs``,
+``models/whisper.param_specs``), and
 ``rules_for_model`` maps each to a mesh axis, or to None (replicated)
 where its size does not divide the axis. The reference hands the rules to
 GSPMD, which places the shards and inserts the collectives. Here each rank

@@ -743,6 +743,58 @@ def test_whisper_server_refuses_cuda_without_a_card(cuda, monkeypatch):
             ["--model", "tiny-whisper"]))
 
 
+def test_whisper_tensor_parallel_on_one_card_matches_cpu(cuda):
+    """Float32 tiny-whisper at tensor-parallel size 2, both ranks on this
+    card over gloo, against the CPU runner at tp 1 on the same weights:
+    greedy tokens equal up to a near-tie (the CPU's top-2 gap under
+    TIE_GAP), the language equal, ``no_speech_prob`` and logprobs within
+    1e-4; every rank's digest rank 0's and no handle left. cuDNN's TF32
+    convolutions are off for the comparison."""
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.whisper_runner import (
+        WhisperRunner,
+    )
+    from production_stack_tpu_torch.parallel.mesh import MeshConfig
+    from _torch_whisper import TIE_GAP, WAVS, features, top2_gap
+
+    cpu = WhisperRunner(EngineConfig.for_model("tiny-whisper"), device="cpu")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    card = WhisperRunner(
+        EngineConfig.for_model("tiny-whisper", mesh=MeshConfig(tensor=2)),
+        device=cuda, params=cpu.params, rank_devices=["cuda:0"] * 2,
+        backend="gloo")
+    try:
+        for wav in WAVS:
+            feats = features(cpu, wav)
+            for kw in (dict(), dict(language="en", task="translate"),
+                       dict(language="en", timestamps=True)):
+                want_info, got_info = {}, {}
+                want = cpu.transcribe(feats, info=want_info, **kw)
+                got = card.transcribe(feats, info=got_info, **kw)
+                n = len(want)
+                for i, (a, b) in enumerate(zip(want, got)):
+                    if a != b:
+                        assert top2_gap(cpu, feats, kw, want[:i]) < TIE_GAP
+                        n = i
+                        break
+                else:
+                    assert got == want
+                assert got_info["language"] == want_info["language"]
+                assert abs(got_info["no_speech_prob"]
+                           - want_info["no_speech_prob"]) <= 1e-4
+                np.testing.assert_allclose(got_info["logprobs"][:n],
+                                           want_info["logprobs"][:n],
+                                           atol=1e-4)
+        reports = card.follower_reports()
+        assert card.dev.device.type == "cuda"
+    finally:
+        card.close()
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert len({(r["calls"], r["digest"]) for r in reports}) == 1
+    assert all(r["live"] == [] for r in reports)
+
+
 # -- the decode step as CUDA graphs -------------------------------------------
 
 def _graph_config(impl="ragged", graphs=True, chain=False):
