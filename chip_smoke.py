@@ -75,8 +75,9 @@ fatal):
    base, adapter and guided rows. Then the bucketed path with the adapter
    and grammars (K1, K3 and K4 launch).
 7. The surface the router and the fleet read: llama-3-8b (bf16, ragged)
-   through the server's command-line defaults but a 15 s accountant
-   window (``--perf-window 15``), so the launch warmup runs:
+   at full width and ``CUT_LAYERS`` (8) of its 32 layers, through the
+   server's command-line defaults but a 6 s accountant window
+   (``--perf-window 6``), so the launch warmup runs:
    ``/ready`` answers 503 ``warming``, then 200, and
    ``vllm:engine_warming`` goes 1 -> 0 (warmup seconds and compile events
    printed). A mixed wave of 16 requests (64-1024 tokens, greedy and
@@ -85,7 +86,7 @@ fatal):
    (parsed here) equal the wave's usage sums, and prefix-cache hits are
    > 0. ``/kv/lookup`` matches the repeated prompt's full blocks and none
    of a fresh one. A prefill window (16 x 1024 tokens, one out) and a
-   64-row x 64-token decode window, each alone in the accountant's 15 s
+   64-row x 64-token decode window, each alone in the accountant's 6 s
    window: ``/debug/perf``'s MFU and HBM-bandwidth utilization in (0,
    1.05], beside the client's token rate and ``/metrics``' latency under
    load. ``/debug/profile`` during a wave returns a trace naming K2's and
@@ -102,7 +103,7 @@ fatal):
    tokens, K1, K2 and K3 launched and K4 not. Prints the weight bytes
    (int8, scales, the rest), the KV blocks, output tok/s and median TTFT;
    ``/debug/perf`` after a prefill window (8 x 1024 tokens) alone in a
-   10 s accountant window, MFU in (0, 1.05]; a torch.profiler window of
+   5 s accountant window, MFU in (0, 1.05]; a torch.profiler window of
    one 2048-token ragged step and one of 16 decode steps at 64 rows
    (device busy and idle share, device time by class: attention kernels,
    int8 GEMM, activation quantization, W8A16 dequantization, MoE dispatch
@@ -207,11 +208,12 @@ fatal):
    wall with tenant metering off and on, in turns. K1, K2 and K3 launch,
    K4 not.
 13. The observability plane (``observability``): llama-3-8b bf16 at full
-   width and depth, seed 0, the ragged path, through ``server_from_args``
-   with ``--flight-recorder-size 64 --perf-ledger-interval 1
-   --diagnostics-cooldown 0 --diagnostics-profile-seconds 0.5
-   --costmodel-drift-band 3`` (ledger and bundles in a temporary
-   directory). (a) 16 requests, each with its own x-request-id, streamed
+   width and ``CUT_LAYERS`` layers (the drill's server too), seed 0, the ragged
+   path, through ``server_from_args`` with ``--flight-recorder-size 64
+   --perf-ledger-interval 1 --diagnostics-cooldown 0
+   --diagnostics-profile-seconds 0.5 --costmodel-drift-band 3`` (ledger and
+   bundles in a temporary directory). (a) 16 requests, each with its own
+   x-request-id, streamed
    and not, n = 2 on one: ``/debug/requests`` holds 16 records newest
    first, each with received <= admitted <= first_token <= last_token <=
    finished, tokens equal to its usage (the prompt once a choice) and
@@ -260,7 +262,10 @@ fatal):
    K1, K2 and K3 launch (K1 and K3 counted through the replays), K4 not.
 
 15. Tensor parallelism (``tp2``): llama-3-8b bf16 at full width and
-   depth, seed 0, prefix cache off, decode eager, 2048 KV blocks a rank,
+   ``CUT_LAYERS`` (8) of its 32 layers, as in phases 16-18 (over gloo a
+   step's collectives cost milliseconds a layer; each judged comparison
+   holds two runs of one depth), seed 0, prefix cache off, decode eager,
+   2048 KV blocks a rank,
    at tensor-parallel size 2 with both ranks on this card over gloo
    (NCCL refuses two ranks on one card). The tp 1 engine of each path
    runs first and is released before the ranks start. (a) 16 greedy
@@ -287,10 +292,11 @@ fatal):
    speed. K1-K4 launch (K2 on the ragged path, K4 on the bucketed one).
 16. The model's features at tensor-parallel size 2 (``tp2-features``),
    both ranks on this card over gloo. (a) mixtral-8x7b in int8, phase 8's
-   configuration at full width and depth on the ragged path (a rank
-   holds every expert's half of F: 23.5 GB of weights), 2048 KV blocks a
+   configuration at full width and ``CUT_LAYERS`` layers on the ragged
+   path (a rank holds every expert's half of F), 2048 KV blocks a
    rank, prefix cache off: 16 greedy prompts (64-256 tokens) x 16 tokens
-   against tp 1's answers, taken on phase 8's engine before its release
+   against tp 1's answers, taken first on a tp 1 engine of the same
+   depth, released before the ranks start,
    with its slots handed out as a fresh engine's (a ragged step packs
    spans in slot order, and the tokens past an expert's capacity follow
    it). There an identical repeat must be bit for bit, and the same 16
@@ -321,17 +327,21 @@ fatal):
    the adapter and ``/v1/unload_lora_adapter`` answer 200. (d) Printed, not
    judged: (a)'s 64-row decode step (contexts ~32-48) and 2048-token
    ragged step, once each (twice until PR 18), their share in
-   collectives and the bytes each collective kind sent. Phase 16's waves
+   collectives and the bytes each collective kind sent; these walls, as
+   the phase's, run beside phase 17's two servers starting in their own
+   processes. Phase 16's waves
    prefill in one or two steps: at tp 2 over gloo a step's collectives
    take seconds.
 17. The KV plane at tensor-parallel size 2 (``tp2-kv-plane``), after
-   phase 16 (a): llama-3-8b bf16, a prefill server (``--role
+   phase 16 (a): llama-3-8b bf16 at ``CUT_LAYERS`` layers, a prefill
+   server (``--role
    prefill``, phase 15 (c)'s server) and a decode server (``--role
    decode``, 536 KV blocks a rank, a 4 GiB host tier) each in a fresh
-   process (``--tp-server``, ``server.main``, both ranks of each on this
-   card over gloo), both with ``--remote-kv-url`` to a ``kv_server`` in
-   this process. The reference: 8 prompts (512-1024 tokens, 16 out)
-   served twice by the prefill server itself, as phase 9 takes it; the
+   process (``--tp-server``, ``server.main``, both ranks of each on this card
+   over gloo), started before phase 16 (``_TpKvStart``), both with
+   ``--remote-kv-url`` to a ``kv_server`` in this process. The reference: 8
+   prompts (512-1024 tokens, 16 out) served twice by the prefill server itself,
+   as phase 9 takes it; the
    band is max(``BF16_LOGPROB_BAND``, twice its own repeat deviation).
    (a) The same 8 pulled, then pushed and spliced, as phase 9 judges
    them: imports 8 with ``cached_tokens`` the full blocks, splices 8,
@@ -344,7 +354,8 @@ fatal):
    which offloads it, then by the decode server): each wave back hits
    at least 90% of its usable blocks, tokens equal as in (a). (c) On
    the prefill server: ``/kv/export`` answers a real prompt's two blocks
-   (200, grouped in 2), which, streamed out and pushed into its own
+   (200, grouped in 2), which, streamed out in frames of half the layers
+   and pushed into its own
    ``/kv/recv`` (200), a continuation splices. (d) Printed, not judged,
    beside phase 9's tp 1 figures: the lone push's GB/s, the wall of a
    128-block export and import at tp 2 and the device time of rank 0's
@@ -354,8 +365,9 @@ fatal):
    (b): K1-K3, not K4. Both servers leave on SIGTERM, their followers
    within 3 s.
 18. Whisper at tensor-parallel size 2 (``tp2-whisper``):
-   whisper-large-v3-class in bf16 at full width and depth, seed 0, both
-   ranks on this card over gloo, through ``server_from_args`` with
+   whisper-large-v3-class in bf16 at full width and ``CUT_LAYERS`` of its
+   32 encoder and 32 decoder layers each, seed 0, both ranks on this
+   card over gloo, through ``server_from_args`` with
    ``--max-num-seqs 4`` (a rank holds half of the heads, the MLP and the
    vocabulary, and half of each request's cross and self K/V). (a) Three
    clips (5, 12 and 30 s; detection, translation, timestamp mode),
@@ -376,18 +388,39 @@ fatal):
    request, and its follower is gone within 3 s of SIGTERM. K1-K4 launch
    0 times.
 
+19. Pipeline parallelism (``pp2``): llama-3-8b bf16 at full width and
+   depth, seed 0, at pipeline-parallel size 2 with both stages on this
+   card (each stage a runner with 16 layers and its own KV pool, the
+   host relaying the residual stream; the bucketed path, decode eager).
+   (a) Phase 15's 16 prompts, greedy, ``TP_TOKENS`` tokens, against
+   the tp 1 bucketed engine at full depth on them (run first and
+   released; phase 15's runs are at ``CUT_LAYERS``): tokens equal, bit
+   for bit predicted; a flip is accepted only where the reference's top-2
+   gap is under ``TIE_GAP``, and printed. (b) K1, K3 and K4 launch on (a)
+   and K2 does not. Then the bucketed HTTP server from the flags
+   (``--pipeline-parallel-size 1``, then ``2`` through
+   ``server_from_args`` with both stages on cuda:0), each sizing its
+   pools from the card's free memory in the same state: (c) printed, each
+   stage's weight bytes and the block count of the stages' pools (both
+   alike) beside pp 1's; (d) printed, not judged, the host wall of a
+   64-row decode step on each server's engine thread, eager over the two
+   stages, graphed at pp 1 (not a PP speed: the stages share one card);
+   (e) at each, one completion (200, every token), and at pp 2 one with
+   logprobs, answered 400.
+
 Phases 4-14 run with decode graphs on, the default; phase 5's bf16 run
 through the plain versions decodes eagerly (a plain version synchronises
 with the host, which a capture cannot hold), and so do phases 15-17
-(a gloo collective cannot be captured); Whisper's paths have no graphs.
+(a gloo collective cannot be captured) and phase 19 (a staged runner
+decodes eagerly); Whisper's paths have no graphs.
 
 The line before the card line carries the kernels' JSON record, whose
 ``launches`` sum each kernel's launches over every served path (each
 path's own counts are in ``launches_by_path``, ``moe-int8``, ``kv-plane``,
 ``scoring-surface``, ``whisper``, ``overload``, ``observability``,
 ``decode-graphs``, ``tp2``, ``tp2-lora-ragged``, ``tp2-lora-bucketed``,
-``tp2-moe-int8``, ``tp2-kv-plane`` and ``tp2-whisper`` (rank 0's) among
-them; a graph
+``tp2-moe-int8``, ``tp2-kv-plane``, ``tp2-whisper`` (rank 0's) and
+``pp2`` among them; a graph
 replay adds
 the launches its capture recorded); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -435,6 +468,42 @@ TIE_GAP = 1e-4
 # resolved to ~2^-6, so logprobs may differ by a few hundredths, and a
 # greedy flip is accepted only where the top-2 gap is within that band
 BF16_LOGPROB_BAND = 0.05
+
+# phases 7, 13 and 15-18 serve their models at full width and this many
+# of their layers (whisper-large-v3-class: of its encoder's and of its
+# decoder's each). What they check holds at any depth, and each judged
+# comparison holds two runs of one depth; at full depth the script took
+# 900-1,300 s of its 1,200 s limit, the gloo phases 15-18 varying most
+# with the host. Phases 4-6, 8-12, 14 and 19 keep the full depth.
+CUT_LAYERS = 8
+
+
+def _cut_depth(cfg):
+    """``cfg`` at ``CUT_LAYERS`` of its layers (a Whisper model's encoder
+    and decoder each)."""
+    cut = {"num_layers": CUT_LAYERS}
+    if cfg.model.architecture == "whisper":
+        cut["encoder_layers"] = CUT_LAYERS
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                              **cut))
+
+
+class _CutServers:
+    """Inside it, a server made from the flags (``server.main``,
+    ``server_from_args``) serves its model at ``CUT_LAYERS`` of its layers
+    (``_cut_depth`` over ``server.config_from_args``); every flag keeps
+    its meaning."""
+
+    def __enter__(self):
+        from production_stack_tpu_torch.engine import server
+
+        self.server, self.base = server, server.config_from_args
+        server.config_from_args = lambda args: _cut_depth(self.base(args))
+        return self
+
+    def __exit__(self, *exc):
+        self.server.config_from_args = self.base
+
 
 SRC = {
     "K1": ("production_stack_tpu_torch/csrc/kv_write.cu",
@@ -2563,18 +2632,17 @@ def _compile_events(runner) -> list:
 
 # phase 7's accountant window (``--perf-window``; the CLI's default is
 # 60 s): each utilization window is read alone in it after a pause this
-# long
-SURFACE_PERF_WINDOW = 15.0
+# long (a window's requests finish in 0.7-3.5 s)
+SURFACE_PERF_WINDOW = 6.0
 
 
 def surface_phase(torch, np, counters, card: str) -> dict:
-    """Phase 7: llama-3-8b (bf16, ragged) through the server's command-line
-    defaults, warmup on: /ready warming -> ready, the mixed wave and its
-    /metrics, /kv/lookup, a prefill window and a steady 64-row decode
-    window, each read through /debug/perf, /metrics under load,
-    /debug/profile during a wave, /debug/canary, the drain. Then canary
-    records card = CPU on float32 tiny-llama. Returns the phase's
-    launches."""
+    """Phase 7: llama-3-8b (bf16, ragged, ``CUT_LAYERS`` layers) through the
+    server's command-line defaults, warmup on: /ready warming -> ready, the
+    mixed wave and its /metrics, /kv/lookup, a prefill window and a steady
+    64-row decode window, each read through /debug/perf, /metrics under load,
+    /debug/profile during a wave, /debug/canary, the drain. Then canary records
+    card = CPU on float32 tiny-llama. Returns the phase's launches."""
     from production_stack_tpu_torch.engine.server import (
         build_parser,
         server_from_args,
@@ -2584,7 +2652,8 @@ def surface_phase(torch, np, counters, card: str) -> dict:
     args = build_parser().parse_args(["--model", model, "--seed", "0",
                                       "--perf-window",
                                       str(SURFACE_PERF_WINDOW)])
-    server = server_from_args(args)
+    with _CutServers():
+        server = server_from_args(args)
     eng = server.engine
     events = _compile_events(eng.runner)
     for c in counters:
@@ -2697,7 +2766,7 @@ def surface_phase(torch, np, counters, card: str) -> dict:
 INT8_TIE_GAP = 0.05
 # the accountant's window in phase 8: the prefill window is read alone in
 # it after a pause this long
-MOE_PERF_WINDOW = 10.0
+MOE_PERF_WINDOW = 5.0
 
 
 def write_hf_checkpoint(np, cfg, root: str, seed: int = 0) -> str:
@@ -2958,8 +3027,7 @@ def int8_cosine_check(torch, np) -> dict:
     return cos
 
 
-def moe_int8_phase(torch, np, counters, card: str,
-                   tp_ref: dict | None = None) -> dict:
+def moe_int8_phase(torch, np, counters, card: str) -> dict:
     """Phase 8: mixtral-8x7b at full width and depth in int8 (bf16
     activations, ``--quantization int8``, random weights from seed 0 made
     on the card) through the HTTP server on the ragged path, without the
@@ -2968,9 +3036,8 @@ def moe_int8_phase(torch, np, counters, card: str,
     output tok/s and median TTFT printed; /debug/perf read after a prefill
     window alone in the accountant's window (MFU in (0, 1.05]); a profile
     of one 2048-token ragged step and 16 decode steps at 64 rows. Then
-    llama-3-8b int8 against bf16 (``int8_cosine_check``). A ``tp_ref``
-    dict is filled, before the engine is released, with phase 16 (a)'s tp
-    1 answers (``moe_tp_reference``). Returns the wave's launches."""
+    llama-3-8b int8 against bf16 (``int8_cosine_check``). Returns the
+    wave's launches."""
     from production_stack_tpu_torch.engine import quant
     from production_stack_tpu_torch.engine.server import (
         EngineServer,
@@ -3045,8 +3112,6 @@ def moe_int8_phase(torch, np, counters, card: str,
     finally:
         server.shutdown()
     _moe_profile(torch, np, eng, card)
-    if tp_ref is not None:
-        tp_ref.update(moe_tp_reference(torch, np, eng))
     del server, eng, params, leaves
     _released(torch, "moe-int8")
     int8_cosine_check(torch, np)
@@ -5224,12 +5289,12 @@ DRILL_SERVER = ["--model", OBS_MODEL, "--seed", "0", "--skip-warmup",
 
 def capture_drill_child(argv: list) -> int:
     """``chip_smoke.py --capture-drill DIR [server flags]``: the capture
-    drill's server, in a fresh process that never started a profiler, as
-    a production server's: DRILL_SERVER's flags (diagnostics at their
-    defaults but the cooldown), bundles under DIR, then ``argv``'s. Prints
-    one JSON line (port, seconds up, the profiler's warm-up) and serves
-    until its standard input closes; a line ``profile-seconds S`` there
-    sets the bundles' trace length."""
+    drill's server (``CUT_LAYERS`` layers), in a fresh process that never
+    started a profiler, as a production server's: DRILL_SERVER's flags
+    (diagnostics at their defaults but the cooldown), bundles under DIR, then
+    ``argv``'s. Prints one JSON line (port, seconds up, the profiler's warm-up)
+    and serves until its standard input closes; a line ``profile-seconds S``
+    there sets the bundles' trace length."""
     import logging
 
     sys.path.insert(0, str(ROOT))
@@ -5242,8 +5307,9 @@ def capture_drill_child(argv: list) -> int:
     logging.getLogger("production_stack_tpu_torch.engine.server").setLevel(
         logging.INFO)
     t0 = time.perf_counter()
-    server = server_from_args(build_parser().parse_args(
-        DRILL_SERVER + ["--diagnostics-dir", argv[0]] + argv[1:]))
+    with _CutServers():
+        server = server_from_args(build_parser().parse_args(
+            DRILL_SERVER + ["--diagnostics-dir", argv[0]] + argv[1:]))
     port = server.start("127.0.0.1", 0)
     print(json.dumps({"port": port, "server_up_s": time.perf_counter() - t0,
                       "profiler_warmup_s": server.profiler_warmup_seconds}),
@@ -5403,13 +5469,13 @@ def _obs_capture_drill(np, card: str, extra=()) -> dict:
         f"{out['kineto_thread_error']}")
     return out
 def observability_phase(torch, np, counters, card: str) -> dict:
-    """Phase 13 (``observability``): llama-3-8b, bf16, seed 0, the ragged
-    path, through ``server_from_args`` with the flight recorder at 64,
-    the perf ledger every second, diagnostics with no cooldown and 0.5 s
-    traces, and the drift band at 3: (a) flight records, (b)
-    /debug/memory, (c) no false HBM alarm, (d) a forced capture, (e)
-    triggered bundles, (f) the ledger. K1-K3 launch, K4 not. Returns the
-    phase's launches."""
+    """Phase 13 (``observability``): llama-3-8b at ``CUT_LAYERS`` layers, bf16,
+    seed 0, the ragged path, through ``server_from_args`` with the flight
+    recorder at 64, the perf ledger every second, diagnostics with no cooldown
+    and 0.5 s traces, and the drift band at 3: (a) flight records, (b)
+    /debug/memory, (c) no false HBM alarm, (d) a forced capture, (e) triggered
+    bundles, (f) the ledger. K1-K3 launch, K4 not. Returns the phase's
+    launches."""
     import tempfile
 
     from production_stack_tpu_torch.engine.server import (
@@ -5423,13 +5489,14 @@ def observability_phase(torch, np, counters, card: str) -> dict:
     for c in counters:
         c.n = 0
     t0 = time.perf_counter()
-    server = server_from_args(build_parser().parse_args(
-        ["--model", OBS_MODEL, "--seed", "0", "--skip-warmup",
-         "--flight-recorder-size", "64",
-         "--perf-ledger-path", ledger, "--perf-ledger-interval", "1",
-         "--diagnostics-dir", f"{tmp}/diag", "--diagnostics-cooldown", "0",
-         "--diagnostics-profile-seconds", "0.5",
-         "--costmodel-drift-band", "3"]))
+    with _CutServers():
+        server = server_from_args(build_parser().parse_args(
+            ["--model", OBS_MODEL, "--seed", "0", "--skip-warmup",
+             "--flight-recorder-size", "64",
+             "--perf-ledger-path", ledger, "--perf-ledger-interval", "1",
+             "--diagnostics-dir", f"{tmp}/diag", "--diagnostics-cooldown",
+             "0", "--diagnostics-profile-seconds", "0.5",
+             "--costmodel-drift-band", "3"]))
     base = f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
     log(f"[observability] server up in {time.perf_counter() - t0:.1f} s: "
         f"{server.engine.runner.num_blocks} KV blocks")
@@ -5826,18 +5893,19 @@ TP_BLOCKS = 2048
 TP_TOKENS = 16
 # phase 16 (c): the tp 2 server's ranks are gone this long after SIGTERM
 TP_GONE_S = 3.0
-# phase 16 (a): mixtral-8x7b's KV blocks a rank (1 MiB each at KH 4 a
-# rank); the 16 prompts need at most 16 x 67
+# phase 16 (a): mixtral-8x7b's KV blocks a rank (256 KiB each at KH 4 a
+# rank and CUT_LAYERS layers); the 16 prompts need at most 16 x 67
 MOE_TP_BLOCKS = 2048
 # phase 16 (a)'s least band: the CPU tests' int8 band (test_torch_quant.py),
 # an activation on a rounding boundary rounding either way
 INT8_LP_BAND = 0.05
 
 
-def _tp_engine(impl: str, tp: int):
-    """llama-3-8b bf16, seed 0, ``impl``, prefix cache off (a repeated run
-    must prefill as the first did), decode eager, ``TP_BLOCKS`` blocks a
-    rank; at tp 2 both ranks on cuda:0 over gloo."""
+def _tp_engine(impl: str, tp: int, layers: int | None = CUT_LAYERS):
+    """llama-3-8b bf16 at ``layers`` of its layers (None: all), seed 0,
+    ``impl``, prefix cache off (a repeated run must prefill as the first
+    did), decode eager, ``TP_BLOCKS`` blocks a rank; at tp 2 both ranks on
+    cuda:0 over gloo."""
     from production_stack_tpu_torch.engine.config import (
         CacheConfig,
         EngineConfig,
@@ -5850,7 +5918,8 @@ def _tp_engine(impl: str, tp: int):
         "llama-3-8b", seed=0, attention_impl=impl,
         cache=CacheConfig(enable_prefix_caching=False, num_blocks=TP_BLOCKS),
         scheduler=SchedulerConfig(decode_graphs=False),
-        mesh=MeshConfig(tensor=tp))
+        mesh=MeshConfig(tensor=tp),
+        **({"num_layers": layers} if layers else {}))
     return LLMEngine(cfg, device="cuda",
                      rank_devices=["cuda:0"] * tp if tp > 1 else None,
                      backend="gloo" if tp > 1 else None)
@@ -5995,18 +6064,20 @@ def _tp_kernels(torch, np, card: str) -> dict:
 
 def tp_server_child(argv: list) -> int:
     """``--tp-server PORT [FLAG ...]``: llama-3-8b at tensor-parallel size
-    2, both ranks on cuda:0 over gloo, through the server's own entry
-    point (``server.main``: SIGTERM drains, then the process exits); the
-    further flags pass through (``--role``, the tiers, ``--model
+    2 and ``CUT_LAYERS`` of its layers (``_CutServers``), both ranks on
+    cuda:0 over gloo, through the server's own entry point
+    (``server.main``: SIGTERM drains, then the process exits); the further
+    flags pass through (``--role``, the tiers, ``--model
     whisper-large-v3-class``; a repeated flag's last value wins)."""
     sys.path.insert(0, str(ROOT))
     from production_stack_tpu_torch.engine import server
 
-    server.main(["--model", "llama-3-8b", "--host", "127.0.0.1", "--port",
-                 argv[0], "--tensor-parallel-size", "2", "--num-blocks",
-                 "1024", "--max-num-seqs", "16", "--skip-warmup",
-                 *argv[1:]],
-                rank_devices=["cuda:0", "cuda:0"], backend="gloo")
+    with _CutServers():
+        server.main(["--model", "llama-3-8b", "--host", "127.0.0.1",
+                     "--port", argv[0], "--tensor-parallel-size", "2",
+                     "--num-blocks", "1024", "--max-num-seqs", "16",
+                     "--skip-warmup", *argv[1:]],
+                    rank_devices=["cuda:0", "cuda:0"], backend="gloo")
     return 0
 
 
@@ -6178,7 +6249,7 @@ def _tpkv_routes(base: str) -> dict:
             200, want, 2, "2"):
         raise AssertionError(f"[tp2-kv-plane] (c) /kv/export: {code}, "
                              f"{len(raw)} B of {want}, {headers}")
-    got, payloads = _kv_frames(base, ids, 16)
+    got, payloads = _kv_frames(base, ids, CUT_LAYERS // 2)
     if b"".join(payloads) != raw:
         raise AssertionError("[tp2-kv-plane] (c) the streamed export is "
                              "not the whole one")
@@ -6186,7 +6257,7 @@ def _tpkv_routes(base: str) -> dict:
     meta = {"transfer_id": tid, "prompt_token_ids": prompt[:32],
             "first_token": 50}
     headers = {"X-KV-Transfer-Id": tid, "X-KV-Start-Layer": "0",
-               "X-KV-Group-Layers": "16",
+               "X-KV-Group-Layers": str(CUT_LAYERS // 2),
                **{k: got[k] for k in ("X-KV-Shape", "X-KV-Dtype",
                                       kvt.HEAD_GROUPS_HEADER)}}
     recv, text = kvt._post_chunked(
@@ -6239,8 +6310,8 @@ def _tp_server_checks(np, base: str, card: str) -> dict:
     from production_stack_tpu_torch.engine.config import ModelConfig
 
     with tempfile.TemporaryDirectory() as tmp:
-        adapter = write_adapter(np, ModelConfig.from_pretrained(KV_MODEL),
-                                tmp, rank=16, seed=0)
+        adapter = write_adapter(np, ModelConfig.from_pretrained(
+            KV_MODEL, num_layers=CUT_LAYERS), tmp, rank=16, seed=0)
         routes = _tpf_server_routes(base, adapter)
     log(f"[tp2-features] (c) the tp 2 server's routes ({card}): "
         f"{json.dumps(routes)}")
@@ -6459,11 +6530,11 @@ def _tp_identity(torch, np, impl: str, card: str, prompts, sp,
 
 
 def tp_phase(torch, np, counters, card: str) -> dict:
-    """Phase 15: llama-3-8b at tensor-parallel size 2, both ranks on this
-    card over gloo. The tp 1 references first (released), then (a)
-    identity and (d) step times at tp 2 on the ragged and the bucketed
-    path, (b) K1-K4 at the shard's shapes; (c), the server in a fresh
-    process, rides on phase 17's prefill server (``tp_kv_phase``). Phase
+    """Phase 15: llama-3-8b at ``CUT_LAYERS`` layers and tensor-parallel size
+    2, both ranks on this card over gloo. The tp 1 references first (released),
+    then (a) identity and (d) step times at tp 2 on the ragged and the bucketed
+    path, (b) K1-K4 at the shard's shapes; (c), the server in a fresh process,
+    rides on phase 17's prefill server (``tp_kv_phase``). Phase
     16 (b) rides on these engines: a rank-16 adapter's wave after (a)'s
     on each. Returns rank 0's launches at tp 2, those of each adapter
     wave, the kernels' shard records and phase 17 (d)'s 128-block
@@ -6479,7 +6550,8 @@ def tp_phase(torch, np, counters, card: str) -> dict:
                         ignore_eos=True, logprobs=2)
     with tempfile.TemporaryDirectory() as tmp:
         lora = {"adapter": write_adapter(np, ModelConfig.from_pretrained(
-                    "llama-3-8b"), tmp, rank=16, seed=0),
+                    "llama-3-8b", num_layers=CUT_LAYERS), tmp, rank=16,
+                    seed=0),
                 "prompts": _tpf_prompts(np, 8),
                 "sp": SamplingParams(temperature=0.0, max_tokens=16,
                                      ignore_eos=True, logprobs=2)}
@@ -6757,9 +6829,9 @@ def _flip_gaps(ref: tuple, flips: list) -> float:
 
 
 def moe_tp_reference(torch, np, eng) -> dict:
-    """Phase 16 (a)'s tp 1 answers, from phase 8's mixtral-8x7b int8
-    engine before it is released, with the prefix cache off and the slots
-    handed out as the fresh tp 2 engine hands them (``_fresh_slots``): 16
+    """Phase 16 (a)'s tp 1 answers, on ``eng`` (``_moe_tp_engine`` at tp
+    1), with the prefix cache off and the slots handed out as the fresh tp
+    2 engine hands them (``_fresh_slots``): 16
     greedy prompts (``_tpf_prompts``) x ``TPF_TOKENS``, their
     first ragged step probed (``_FirstStepProbe``); the same requests at
     once again with only the float sums' order changed
@@ -6790,7 +6862,7 @@ def moe_tp_reference(torch, np, eng) -> dict:
         raise AssertionError("[tp2-features] (a) tp 1's identical repeat of "
                              "the 16 requests is not bit for bit")
     gap = _flip_gaps(run, flips)
-    log(f"[tp2-features] (a) tp 1 reference on phase 8's engine: 16 x "
+    log(f"[tp2-features] (a) tp 1 reference at {CUT_LAYERS} layers: 16 x "
         f"{TPF_TOKENS} "
         f"tokens in {wave:.2f} s; an identical repeat bit for bit; its own "
         f"deviation at the same batch with the float sums reordered "
@@ -6802,10 +6874,11 @@ def moe_tp_reference(torch, np, eng) -> dict:
             "sums": sums, "sums_probe": sums_probe, "decode": decode}
 
 
-def _moe_tp_engine(blocks: int):
+def _moe_tp_engine(blocks: int, tp: int):
     """mixtral-8x7b int8 as phase 8 serves it (the CLI's scheduler, seed
-    0), at tensor-parallel size 2 with both ranks on cuda:0 over gloo,
-    ``blocks`` KV blocks a rank, prefix cache off, decode eager."""
+    0) at ``CUT_LAYERS`` of its layers, at tensor-parallel size ``tp``
+    (at 2 both ranks on cuda:0 over gloo), ``blocks`` KV blocks a rank,
+    prefix cache off, decode eager."""
     from production_stack_tpu_torch.engine.engine import LLMEngine
     from production_stack_tpu_torch.engine.server import (
         build_parser,
@@ -6814,34 +6887,42 @@ def _moe_tp_engine(blocks: int):
 
     cfg = config_from_args(build_parser().parse_args(
         ["--model", "mixtral-8x7b", "--quantization", "int8", "--seed", "0",
-         "--tensor-parallel-size", "2", "--num-blocks", str(blocks)]))
+         "--tensor-parallel-size", str(tp), "--num-blocks", str(blocks)]))
     cfg = dataclasses.replace(
-        cfg, cache=dataclasses.replace(cfg.cache,
-                                       enable_prefix_caching=False),
+        _cut_depth(cfg), cache=dataclasses.replace(
+            cfg.cache, enable_prefix_caching=False),
         scheduler=dataclasses.replace(cfg.scheduler, decode_graphs=False))
-    return LLMEngine(cfg, device="cuda", rank_devices=["cuda:0"] * 2,
+    if tp == 1:
+        return LLMEngine(cfg, device="cuda")
+    return LLMEngine(cfg, device="cuda", rank_devices=["cuda:0"] * tp,
                      backend="gloo")
 
 
-def tp_features_phase(torch, np, counters, card: str, ref: dict) -> dict:
-    """Phase 16 (a) and (d): mixtral-8x7b int8 at tensor-parallel size 2,
-    both ranks on this card over gloo, against phase 8's tp 1 answers
-    (``moe_tp_reference``): the first ragged step that of tp 1 summing
-    as tp 2 sums, bit for bit but the head's rounding; a decode step from
-    an empty context tp 1's bit for bit; the whole wave, every token and
+def tp_features_phase(torch, np, counters, card: str) -> dict:
+    """Phase 16 (a) and (d): mixtral-8x7b int8 at ``CUT_LAYERS`` layers and
+    tensor-parallel size 2, both ranks on this card over gloo, against tp
+    1's answers at the same depth (``moe_tp_reference``, its engine released
+    before the ranks start): the first ragged step that of tp 1 summing as tp 2
+    sums, bit for bit but the head's rounding; a decode step from an empty
+    context tp 1's bit for bit; the whole wave, every token and
     every logprob, that of tp 1 summing as tp 2 sums (the band against
     plain tp 1 printed beside it); the follower's digest and launches
     rank 0's; K1-K3 launch, K4 not.
     Prints a rank's weight bytes, its KV blocks and the engine-up
     seconds, then (d) the
     step times, their share in collectives and each collective kind's
-    bytes. Returns the wave's launches."""
+    bytes: host walls, taken while phase 17's servers start beside this
+    phase (``_TpKvStart``). Returns the wave's launches."""
     from production_stack_tpu_torch.engine import quant
 
     t_phase = time.perf_counter()
+    eng = _moe_tp_engine(MOE_TP_BLOCKS, 1)
+    ref = moe_tp_reference(torch, np, eng)
+    del eng
+    _released(torch, "tp1 moe-int8")
     _zero(counters)
     t0 = time.perf_counter()
-    eng = _moe_tp_engine(MOE_TP_BLOCKS)
+    eng = _moe_tp_engine(MOE_TP_BLOCKS, 2)
     up = time.perf_counter() - t0
     params = eng.runner.params
     leaves = [params["embed"], params["lm_head"], *params["layers"].values()]
@@ -7170,12 +7251,57 @@ def _tpkv_tiers(np, P, D, band: float, store, card: str) -> dict:
     return out
 
 
-def tp_kv_phase(np, card: str, tp1: dict, moves: dict) -> dict:
-    """Phase 17 (``tp2-kv-plane``): llama-3-8b bf16 at tensor-parallel
-    size 2, a prefill and a decode server each in a fresh process
-    (``--tp-server``, ``server.main``, both ranks of each on this card
-    over gloo) with ``--role`` passed through, and the remote tier's
-    store in this process. Phase 15 (c) runs on the prefill server
+class _TpKvStart:
+    """Phase 17's processes, started before phase 16 so that their
+    start-up (~25 s, most of it on the host) runs beside phase 16's
+    waves: the remote tier's store in this process, the command line's
+    refusal (``_tp_cli_refusal``), and the prefill and the decode server
+    (``_TpServer``, ``--role`` passed through, both with
+    ``--remote-kv-url`` to the store). ``close`` stops the store and
+    kills whatever is left of the processes."""
+
+    def __init__(self):
+        from production_stack_tpu_torch.kv_server import KVServer
+
+        self.cli, self.servers = None, []
+        self.store = KVServer()
+        url = f"http://127.0.0.1:{self.store.start('127.0.0.1', 0)}"
+        try:
+            self.cli = _tp_cli_refusal()
+            self.P = self._start(["--role", "prefill", "--remote-kv-url",
+                                  url])
+            self.D = self._start(["--role", "decode", "--num-blocks",
+                                  str(TPKV_D_BLOCKS), "--kv-host-cache-bytes",
+                                  str(KV_HOST_BYTES), "--remote-kv-url", url])
+        except BaseException:
+            self.close()
+            raise
+
+    def _start(self, extra: list) -> _TpServer:
+        srv = _TpServer(extra)
+        self.servers.append(srv)
+        return srv
+
+    def close(self) -> None:
+        if self.cli is not None and self.cli.poll() is None:
+            self.cli.kill()
+            self.cli.wait(30)
+        for srv in self.servers:
+            srv.kill()
+        self.servers = []
+        if self.store is not None:
+            self.store.shutdown()
+            self.store = None
+
+
+def tp_kv_phase(np, card: str, tp1: dict, moves: dict,
+                started: _TpKvStart) -> dict:
+    """Phase 17 (``tp2-kv-plane``): llama-3-8b bf16 at ``CUT_LAYERS``
+    layers and tensor-parallel size 2, a prefill and a decode server each
+    in a fresh process (``--tp-server``, ``server.main``, both ranks of
+    each on this card over gloo), started beside phase 16
+    (``started``), and the remote tier's store in this process. Phase
+    15 (c) runs on the prefill server
     (``_tp_server_checks``; the CLI's refusal beside the servers' start),
     whose unified answers are the reference (``_tpkv_reference``); then
     (a) pull, then push and splice (``_tpkv_pd``), (b) the host and the
@@ -7185,20 +7311,10 @@ def tp_kv_phase(np, card: str, tp1: dict, moves: dict) -> dict:
     followers within ``TP_GONE_S``. Returns rank 0's launches, summed
     over both servers, each read before and after (a) and (b), and the
     servers' pids."""
-    from production_stack_tpu_torch.kv_server import KVServer
-
     t_phase = time.perf_counter()
-    store = KVServer()
-    url = f"http://127.0.0.1:{store.start('127.0.0.1', 0)}"
-    cli = _tp_cli_refusal()
-    servers = []
+    P, D, cli, store = started.P, started.D, started.cli, started.store
+    servers = list(started.servers)
     try:
-        P = _TpServer(["--role", "prefill", "--remote-kv-url", url])
-        servers.append(P)
-        D = _TpServer(["--role", "decode", "--num-blocks",
-                       str(TPKV_D_BLOCKS), "--kv-host-cache-bytes",
-                       str(KV_HOST_BYTES), "--remote-kv-url", url])
-        servers.append(D)
         P.up("tp2-kv-plane")
         D.up("tp2-kv-plane")
         refused = _tp_cli_refused(cli)
@@ -7211,12 +7327,7 @@ def tp_kv_phase(np, card: str, tp1: dict, moves: dict) -> dict:
         stops = {"prefill": P.stop("tp2-kv-plane"),
                  "decode": D.stop("tp2-kv-plane")}
     finally:
-        if cli.poll() is None:
-            cli.kill()
-            cli.wait(30)
-        for srv in servers:
-            srv.kill()
-        store.shutdown()
+        started.close()
     log(f"[tp] (c) the prefill server ({card}; {TP_NOTE}): " + json.dumps({
         "up_s": P.up_s, "reference_wave_s": ref["wave_s"],
         "requests": TPKV_N, "routes": routes, **stops["prefill"],
@@ -7548,6 +7659,7 @@ def _spawned_children(pid: int) -> list:
 
 def tp_whisper_phase(torch, np, counters, card: str) -> dict:
     """Phase 18 (``tp2-whisper``): whisper-large-v3-class in bf16 at
+    ``CUT_LAYERS`` of its encoder and decoder layers (``_CutServers``) and
     tensor-parallel size 2, both ranks on this card over gloo, through
     ``server_from_args`` with ``--max-num-seqs 4``. (a) three clips,
     greedy, equal bit for bit (tokens, logprobs, no_speech_prob, the
@@ -7571,8 +7683,8 @@ def tp_whisper_phase(torch, np, counters, card: str) -> dict:
     t_phase = time.perf_counter()
     child = _TpWhisperServer()  # comes up while (a) runs
     try:
-        tp1 = WhisperRunner(EngineConfig.for_model(TPW_MODEL, seed=0),
-                            device="cuda")
+        tp1 = WhisperRunner(_cut_depth(EngineConfig.for_model(
+            TPW_MODEL, seed=0)), device="cuda")
         clips = _tpw_clips(np, tp1)
         plain = _tpw_runs(tp1, clips)
         with _WhisperRankSums(torch):
@@ -7582,10 +7694,11 @@ def tp_whisper_phase(torch, np, counters, card: str) -> dict:
         _released(torch, "tp2-whisper tp 1")
         _zero(counters)
         t0 = time.perf_counter()
-        server = server_from_args(build_parser().parse_args(
-            ["--model", TPW_MODEL, "--max-num-seqs", "4", "--seed", "0",
-             "--tensor-parallel-size", "2"]),
-            rank_devices=["cuda:0", "cuda:0"], backend="gloo")
+        with _CutServers():
+            server = server_from_args(build_parser().parse_args(
+                ["--model", TPW_MODEL, "--max-num-seqs", "4", "--seed", "0",
+                 "--tensor-parallel-size", "2"]),
+                rank_devices=["cuda:0", "cuda:0"], backend="gloo")
         up_s = time.perf_counter() - t0
         runner = server.runner
         try:
@@ -7647,6 +7760,150 @@ def tp_whisper_phase(torch, np, counters, card: str) -> dict:
         f"{json.dumps(figures)}")
     log(f"[tp2-whisper] (d) a fresh server up in {child.up_s:.1f} s; "
         f"{json.dumps(stop)}; phase 18 ({card}) in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# -- phase 19: pipeline parallelism, two stages sharing one card ---------------
+
+PP_NOTE = "two stages share one card: not a PP speed"
+
+
+def _pp_engine():
+    """llama-3-8b bf16 at full depth, seed 0, two pipeline stages on
+    cuda:0, as (a)'s tp 1 bucketed reference (``_tp_engine``): prefix
+    cache off, decode eager, ``TP_BLOCKS`` blocks a stage."""
+    from production_stack_tpu_torch.engine.config import (
+        CacheConfig,
+        EngineConfig,
+        SchedulerConfig,
+    )
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.parallel.mesh import MeshConfig
+
+    cfg = EngineConfig.for_model(
+        "llama-3-8b", seed=0, attention_impl="bucketed",
+        cache=CacheConfig(enable_prefix_caching=False, num_blocks=TP_BLOCKS),
+        scheduler=SchedulerConfig(decode_graphs=False),
+        mesh=MeshConfig(stage=2, tensor=1))
+    return LLMEngine(cfg, device="cuda", stage_devices=["cuda:0"] * 2)
+
+
+def _pp_decode_ms(torch, np, eng) -> list:
+    """(d) The host wall of three decode steps at 64 rows (contexts of
+    128 + a few tokens), each to a synchronise."""
+    _dg_admit(np, eng, np.random.default_rng(16), "pp-d", 64, 128, 64)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    _dg_clear(eng)
+    return walls
+
+
+def _pp_server(torch, np, pp: int) -> dict:
+    """(c)-(e) The bucketed server from the flags at
+    ``--pipeline-parallel-size pp``, every stage on cuda:0, its pools
+    sized from the card's free memory (pp 1 decodes through graphs, pp 2
+    eagerly): its pools, a completion, (d)'s decode step on the engine
+    thread, and at pp 2 a logprobs request, which must answer 400."""
+    from production_stack_tpu_torch.engine.server import (
+        build_parser,
+        server_from_args,
+    )
+
+    t0 = time.perf_counter()
+    server = server_from_args(build_parser().parse_args(
+        ["--model", "llama-3-8b", "--seed", "0", "--skip-warmup",
+         "--attention-impl", "bucketed", "--pipeline-parallel-size",
+         str(pp)]), stage_devices=["cuda:0"] * pp if pp > 1 else None)
+    try:
+        base = f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
+        up = time.perf_counter() - t0
+        runner = server.engine.runner
+        pools = [int(r.kv.shape[1])
+                 for r in getattr(runner, "stages", [runner])]
+        body = {"model": "llama-3-8b", "prompt": list(range(100, 164)),
+                "max_tokens": 16, "temperature": 0.0, "ignore_eos": True}
+        status, out, wall = _post(base, "/v1/completions", body)
+        if status != 200 or out["usage"]["completion_tokens"] != 16:
+            raise AssertionError(f"[pp2] (e) pp {pp}'s completion: "
+                                 f"{status} {out}")
+        decode_ms = server.async_engine.run_on_engine(
+            lambda eng: _pp_decode_ms(torch, np, eng))
+        lp_status = None
+        if pp > 1:
+            lp_body = ""
+            try:
+                _post(base, "/v1/completions", {**body, "logprobs": 2})
+                lp_status = 200
+            except urllib.error.HTTPError as e:
+                lp_status, lp_body = e.code, e.read().decode()
+            if lp_status != 400 or "pipeline parallelism" not in lp_body:
+                raise AssertionError(f"[pp2] (e) a logprobs request "
+                                     f"answered {lp_status} {lp_body!r}, "
+                                     "not 400")
+    finally:
+        server.shutdown()
+    del server, runner
+    _released(torch, f"pp {pp} server")
+    return {"up_s": up, "pools": pools, "completion_s": wall,
+            "decode_64_ms": decode_ms, "logprobs_status": lp_status}
+
+
+def pp_phase(torch, np, counters, card: str) -> dict:
+    """Phase 19: llama-3-8b at pipeline-parallel size 2, both stages on
+    this card. (a) identity against the tp 1 bucketed engine at full depth on
+    phase 15's prompts (run first and released) and (b) its launches; then the
+    server from the flags at pp 1 and at pp 2 in turn, in the same state of the
+    card: (c) the stages' weight bytes and the pools each sized, (d) a decode
+    step's wall, (e) the
+    requests. Returns (a)'s launches."""
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    t_phase = time.perf_counter()
+    prompts = _tp_prompts(np)
+    sp = SamplingParams(temperature=0.0, max_tokens=TP_TOKENS,
+                        ignore_eos=True)
+    eng = _tp_engine("bucketed", 1, layers=None)
+    ref = _greedy_tokens(eng, prompts, dataclasses.replace(sp, logprobs=2))
+    del eng
+    _released(torch, "pp2 tp 1 reference")
+    _zero(counters)
+    t0 = time.perf_counter()
+    eng = _pp_engine()
+    up = time.perf_counter() - t0
+    got = _greedy_tokens(eng, prompts, sp)
+    launches = _counts(counters)
+    stages = eng.runner.stages
+    layers = [r.cfg.num_layers for r in stages]
+    weight_bytes = [sum(int(t.numel()) * t.element_size()
+                        for t in _leaves(r.params)) for r in stages]
+    del eng, stages
+    _released(torch, "pp2")
+    compared, _ = _compare_greedy("(a) pp2 against tp 1 bucketed", ref, got,
+                                  TIE_GAP)
+    _expect(launches, {"K1", "K3", "K4"}, "pp2")
+    log(f"[pp2] (a)+(b) llama-3-8b at pp 2, both stages on one card "
+        f"({card}): up in {up:.1f} s, stages of {layers} layers; "
+        f"{compared} greedy tokens equal tp 1's bucketed run (a flip at a "
+        f"near-tie is printed above); launches {json.dumps(launches)}")
+    srv = {pp: _pp_server(torch, np, pp) for pp in (1, 2)}
+    mem = {"stage_weight_bytes": weight_bytes,
+           "weight_bytes": sum(weight_bytes),
+           "pp2_blocks_a_stage": srv[2]["pools"],
+           "pp1_blocks": srv[1]["pools"][0]}
+    if len(set(srv[2]["pools"])) != 1:
+        raise AssertionError(f"[pp2] (c) the stages' pools differ: {mem}")
+    log(f"[pp2] (c) memory ({card}): {json.dumps(mem)}")
+    log(f"[pp2] (d) decode step at 64 rows ({card}; {PP_NOTE}): pp 2 eager "
+        f"{json.dumps(srv[2]['decode_64_ms'])} ms, pp 1 graphed "
+        f"{json.dumps(srv[1]['decode_64_ms'])} ms")
+    log(f"[pp2] (e) the server at --pipeline-parallel-size 2 and 1 "
+        f"({card}): {json.dumps(srv)}; phase 19 in "
         f"{time.perf_counter() - t_phase:.1f} s")
     return launches
 
@@ -7739,8 +7996,7 @@ def main() -> int:
     lap("6 features")
     by_path["surface-ragged"] = surface_phase(torch, np, counters, card)
     lap("7 surface")
-    moe_ref: dict = {}
-    by_path["moe-int8"] = moe_int8_phase(torch, np, counters, card, moe_ref)
+    by_path["moe-int8"] = moe_int8_phase(torch, np, counters, card)
     lap("8 moe-int8")
     kv = kv_plane_phase(torch, np, counters, card)
     by_path["kv-plane"] = kv["launches"]
@@ -7761,14 +8017,21 @@ def main() -> int:
     for impl, n in tp["lora_launches"].items():
         by_path[f"tp2-lora-{impl}"] = n
     lap("15 tp2")
-    by_path["tp2-moe-int8"] = tp_features_phase(torch, np, counters, card,
-                                                moe_ref)["launches"]
-    lap("16 tp2-features")
-    kv_tp = tp_kv_phase(np, card, kv["figures"], tp["kv_moves"])
+    kv_start = _TpKvStart()  # phase 17's servers start beside phase 16
+    try:
+        by_path["tp2-moe-int8"] = tp_features_phase(torch, np, counters,
+                                                    card)["launches"]
+        lap("16 tp2-features")
+        kv_tp = tp_kv_phase(np, card, kv["figures"], tp["kv_moves"],
+                            kv_start)
+    finally:
+        kv_start.close()
     by_path["tp2-kv-plane"] = kv_tp["launches"]
     lap("17 tp2-kv-plane")
     by_path["tp2-whisper"] = tp_whisper_phase(torch, np, counters, card)
     lap("18 tp2-whisper")
+    by_path["pp2"] = pp_phase(torch, np, counters, card)
+    lap("19 pp2")
     _no_hbm_alarm_left(kv_tp["pids"])
     log(f"[phases] seconds ({card}): " + json.dumps(
         {name: round(t - laps[k - 1][1], 1)

@@ -60,6 +60,13 @@ its runner mirrors every device call to them. What the ranks do not
 carry yet raises at start (``multihost.refusal``); ``close`` stops them.
 The KV plane's calls and the tiers are rank 0's: its runner hands them
 whole blocks, every rank's heads joined, and scatters what they import.
+
+Pipeline parallelism (``config.mesh.stage`` above 1): the runner is a
+``StagedModelRunner`` (engine/pp_runner.py) over one device a stage
+(``stage_devices``), on the bucketed path. As in the reference, a request
+with logprobs and a guided regex or JSON grammar are refused at
+``add_request``, and warmup skips them; pipeline and tensor parallelism
+together are not ported yet.
 """
 
 from __future__ import annotations
@@ -95,6 +102,8 @@ from production_stack_tpu_torch.engine.multihost import (
     MirroredRunner,
     start_ranks,
 )
+from production_stack_tpu_torch.engine.pp_runner import StagedModelRunner
+from production_stack_tpu_torch.parallel.mesh import stage_devices as pstages
 from production_stack_tpu_torch.parallel.mesh import tensor_size
 from production_stack_tpu_torch.engine.perf_accounting import PerfAccountant
 from production_stack_tpu_torch.engine.sampling import (
@@ -153,18 +162,31 @@ class LLMEngine:
         device="cuda",
         rank_devices: Optional[list] = None,
         backend: Optional[str] = None,
+        stage_devices: Optional[list] = None,
     ):
         """``rank_devices`` and ``backend`` place the tensor-parallel
         ranks (one device a rank; parallel/distributed.py's defaults:
         ``cuda:r`` and ``nccl`` on cards, the CPU and ``gloo`` otherwise);
-        they are unused at tensor-parallel size 1."""
+        they are unused at tensor-parallel size 1. ``stage_devices``
+        places the pipeline stages (parallel/mesh.stage_devices' default:
+        ``cuda:s`` on cards, the CPU otherwise); unused at one stage."""
         self.config = config
         self.tokenizer = get_tokenizer(config.model.tokenizer)
         tp = tensor_size(config.mesh, device)
-        self.runner = (
-            ModelRunner(config, params, num_blocks, device) if tp == 1
-            else start_ranks(config, params, num_blocks, device, tp,
-                             rank_devices, backend))
+        S = config.mesh.stage
+        if S > 1 and tp > 1:
+            raise ValueError(
+                f"pipeline parallelism ({S} stages) with tensor parallelism "
+                f"({tp} ranks) is not ported yet")
+        if S > 1:
+            self.runner = StagedModelRunner(
+                config, params, num_blocks,
+                pstages(device, S, stage_devices))
+        elif tp == 1:
+            self.runner = ModelRunner(config, params, num_blocks, device)
+        else:
+            self.runner = start_ranks(config, params, num_blocks, device, tp,
+                                      rank_devices, backend)
         self.device = self.runner.device
         self.scheduler = Scheduler(
             config.scheduler, config.cache, self.runner.num_blocks,
@@ -329,9 +351,12 @@ class LLMEngine:
         sampling = (sampling or SamplingParams()).clamped(
             self.config.model.max_model_len, len(prompt_token_ids)
         )
-        if (sampling.logprobs is not None
-                and not 0 <= sampling.logprobs <= MAX_LOGPROBS):
-            raise ValueError(f"logprobs must be in [0, {MAX_LOGPROBS}]")
+        if sampling.logprobs is not None:
+            if not self.runner.supports_logprobs:
+                raise ValueError(
+                    "logprobs are not supported with pipeline parallelism")
+            if not 0 <= sampling.logprobs <= MAX_LOGPROBS:
+                raise ValueError(f"logprobs must be in [0, {MAX_LOGPROBS}]")
         if not 0 <= adapter_slot < self.config.max_loras:
             raise ValueError(f"adapter_slot must be in [0, "
                              f"{self.config.max_loras})")
@@ -347,6 +372,9 @@ class LLMEngine:
                        token_ctrl=make_token_controls(
                            sampling, self.config.model.vocab_size))
         if sampling.guided_regex is not None or sampling.guided_json is not None:
+            if not hasattr(self.runner, "register_grammar"):
+                raise ValueError("guided decoding is not supported with "
+                                 "pipeline parallelism")
             ent = self._acquire_grammar(sampling)
             seq.grammar_slot = ent["slot"]
             seq.fsm = ent["fsm"]
@@ -1699,7 +1727,10 @@ class LLMEngine:
         K = max(sched.multi_step, 1)
         # the longest prompt that still leaves room for one decode step
         cap = max(self.config.model.max_model_len - K - 2, 1)
-        regex = "[ -~]*"
+        # what the staged runner lacks (as the reference's warmup skips
+        # it): logprobs, and the grammar bank
+        lp_on = self.runner.supports_logprobs
+        regex = "[ -~]*" if hasattr(self.runner, "register_grammar") else None
 
         def run(prompts, temperature, **kw):
             sp = SamplingParams(temperature=temperature, max_tokens=K + 1,
@@ -1750,11 +1781,12 @@ class LLMEngine:
                     for temp in (0.0, 0.7):  # fresh prompts: no prefix hit
                         run(prompts(p * min(lo + 1, b), p), temp)
             for temp in (0.0, 0.7):  # guided first tokens
-                run(prompts(8), temp, guided_regex=regex)
+                if regex is not None:
+                    run(prompts(8), temp, guided_regex=regex)
         # every decode variant (decode_multi's static flags)
         for temp in (0.0, 0.7):
-            for lp in (None, 5):
-                for g in (None, regex):
+            for lp in ((None, 5) if lp_on else (None,)):
+                for g in ((None, regex) if regex else (None,)):
                     run(prompts(8), temp, logprobs=lp, guided_regex=g)
         # every decode graph key at every plan rung (on the card a capture
         # each, from a batch without live rows)

@@ -224,6 +224,8 @@ class ModelRunner:
     # decode dispatches chain through device-resident tokens
     # (``decode_multi``'s ``tokens_dev`` and ``fetch=False``)
     supports_chaining = True
+    # every step returns the raw logits' logprobs beside its samples
+    supports_logprobs = True
 
     def __init__(
         self,
@@ -232,7 +234,11 @@ class ModelRunner:
         num_blocks: Optional[int] = None,
         device="cuda",
         ranks=None,
+        pool: bool = True,
     ):
+        """``pool=False`` leaves the KV pool to a later ``set_pool``: a
+        pipeline's stages (engine/pp_runner.py) size theirs together, once
+        every stage's weights are on its device."""
         self.config = config
         self.cfg = config.model
         # the tensor-parallel group (None on one device) and this rank's
@@ -292,9 +298,10 @@ class ModelRunner:
         # table width padded to a multiple of 8, as the reference pads it
         # for its kernels' DMA windows (tables are 0-padded past live blocks)
         self.max_blocks_per_seq = (mbs + 7) // 8 * 8
-        self.num_blocks = self._resolve_num_blocks(num_blocks)
-        self.kv = kvmod.init_kv_cache(self.local, config.cache,
-                                      self.num_blocks, self.device)
+        self.num_blocks: Optional[int] = None
+        self.kv: Optional[torch.Tensor] = None
+        if pool:
+            self.set_pool(self._resolve_num_blocks(num_blocks))
         # per-slot output-token counts for presence/frequency penalties
         # ((S, V) int32, allocated on the first penalised batch)
         self.token_counts: Optional[torch.Tensor] = None
@@ -529,6 +536,12 @@ class ModelRunner:
         step = max(self._step_bytes(tokens, rows), self.score_bytes())
         return int(step + self.decode_graph_bytes() + grammar + lora)
 
+    def set_pool(self, num_blocks: int) -> None:
+        """Allocate the KV pool at ``num_blocks`` blocks."""
+        self.num_blocks = num_blocks
+        self.kv = kvmod.init_kv_cache(self.local, self.config.cache,
+                                      num_blocks, self.device)
+
     def _resolve_num_blocks(self, explicit: Optional[int]) -> int:
         """The pool's block count: the caller's, the config's, or sized
         from free memory; under tensor parallelism the least over the
@@ -552,12 +565,18 @@ class ModelRunner:
             raise ValueError(
                 "tensor-parallel ranks that share a card must be given "
                 "num_blocks")
-        per_block = kvmod.kv_cache_bytes_per_block(self.local,
-                                                   self.config.cache)
+        return max(self.pool_bytes() // self.block_bytes(), 16)
+
+    def block_bytes(self) -> int:
+        """One KV block's bytes in this runner's pool."""
+        return kvmod.kv_cache_bytes_per_block(self.local, self.config.cache)
+
+    def pool_bytes(self) -> int:
+        """The card's memory this runner's pool may take: its free memory
+        at ``hbm_utilization``, less the steps' transients and 1 GiB."""
         free, _total = torch.cuda.mem_get_info(self.device)
-        usable = (free * self.config.cache.hbm_utilization
-                  - self._transient_bytes() - (1 << 30))
-        return max(int(usable) // per_block, 16)
+        return int(free * self.config.cache.hbm_utilization
+                   - self._transient_bytes() - (1 << 30))
 
     # -- attention ---------------------------------------------------------
     def _attend_ragged(self, q, k, v, kv, layer, meta):

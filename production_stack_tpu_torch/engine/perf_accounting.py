@@ -312,7 +312,8 @@ class PerfAccountant:
         over the whole model's shapes (a rank holds a shard), the cards
         are those the ranks run on, and the collective degree is the
         runner's ``tensor_parallel`` (1 where the heads are replicated, as
-        the reference keys it)."""
+        the reference keys it). A staged runner's are summed over its
+        stages' shares (``param_shares``), the whole model's."""
         params = getattr(runner, "params", None)
         if getattr(runner, "ranks", None) is not None:
             params = _meta_params(config.model)
@@ -320,6 +321,10 @@ class PerfAccountant:
         if params:
             param_count, active, param_bytes = param_counts(params,
                                                             config.model)
+        elif hasattr(runner, "param_shares"):
+            param_count, active, param_bytes = (sum(c) for c in zip(*(
+                param_counts(p, config.model)
+                for p in runner.param_shares())))
         if not param_count:
             param_count = active = estimate_param_count(config.model)
             param_bytes = param_count * _dtype_bytes(config.model.dtype)

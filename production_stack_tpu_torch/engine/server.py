@@ -128,7 +128,13 @@ every rank's heads joined on rank 0, grouped as the reference's pool is
 at that size and named in ``X-KV-Head-Groups``), and Whisper's audio
 routes (engine/whisper_server.py: heads, MLP and vocabulary cut, each
 request's cross and self K/V held by every rank for its heads).
-``--data-parallel-size``, ``--pipeline-parallel-size`` and
+Pipeline parallelism (``--pipeline-parallel-size S``): one process, the
+layers cut into S stages, stage s on ``cuda:s`` (or the CPU), each with
+its own KV pool, the host relaying activations between them
+(engine/pp_runner.py), on the bucketed path. As in the reference,
+logprobs answer 400 and guided regex and JSON are refused; the rest of
+the surface serves. With tensor parallelism above 1 it exits at start, as
+Whisper does, not ported yet. ``--data-parallel-size`` and
 ``--sequence-parallel-size`` parse to the reference's defaults; above 1
 each exits at start, not ported yet.
 
@@ -222,7 +228,11 @@ from production_stack_tpu_torch.engine.sampling import (
 from production_stack_tpu_torch.engine.scheduler import SchedulerQueueFull
 from production_stack_tpu_torch.flight_recorder import FlightRecorder
 from production_stack_tpu_torch.parallel import distributed as pdist
-from production_stack_tpu_torch.parallel.mesh import MeshConfig, tensor_size
+from production_stack_tpu_torch.parallel.mesh import (
+    MeshConfig,
+    stage_devices as pstage_devices,
+    tensor_size,
+)
 from production_stack_tpu_torch.tenancy import UsageLedger, resolve_tenant
 from production_stack_tpu_torch.testing import faults
 from production_stack_tpu_torch.yaml_args import parse_with_yaml_config
@@ -510,11 +520,12 @@ class EngineServer:
                  flight_recorder_size: int = 256,
                  diagnostics: Optional[DiagnosticsConfig] = None,
                  rank_devices: Optional[list] = None,
-                 backend: Optional[str] = None):
+                 backend: Optional[str] = None,
+                 stage_devices: Optional[list] = None):
         self.config = config
         self.engine = engine if engine is not None else LLMEngine(
             config, device=device, rank_devices=rank_devices,
-            backend=backend)
+            backend=backend, stage_devices=stage_devices)
         self.async_engine = AsyncEngine(self.engine)
         self.lora = LoraManager(self.engine)
         self.model_name = served_model_name or config.model.name
@@ -1457,6 +1468,9 @@ class EngineServer:
                              "guidance")
         if g_re is not None and not isinstance(g_re, str):
             raise BadRequest("guided_regex must be a string")
+        if not hasattr(self.engine.runner, "register_grammar"):
+            raise BadRequest("guided decoding is not supported with "
+                             "pipeline parallelism")
         try:
             pat = g_re if g_re is not None else schema_to_regex(g_js)
             compile_regex(pat, max_states=self.config.max_grammar_states)
@@ -1515,6 +1529,10 @@ class EngineServer:
             make_token_controls(sampling, self.config.model.vocab_size)
         except (TypeError, ValueError) as e:
             raise BadRequest(f"invalid sampling parameter: {e}") from None
+        if (sampling.logprobs is not None
+                and not self.engine.runner.supports_logprobs):
+            raise BadRequest("logprobs are not supported with pipeline "
+                             "parallelism")
         sampling = self.guided_sampling(body, sampling)
         if sampling.n < 1 or sampling.n * len(prompts) > MAX_CHOICES:
             raise BadRequest(
@@ -3178,7 +3196,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data-parallel-size", type=int, default=1,
                    help="not ported yet: above 1 exits at start")
     p.add_argument("--pipeline-parallel-size", type=int, default=1,
-                   help="not ported yet: above 1 exits at start")
+                   help="pipeline stages, one process: stage s runs its "
+                        "share of the layers and its own KV pool on "
+                        "cuda:s, or on the CPU")
     p.add_argument("--sequence-parallel-size", type=int, default=1,
                    help="not ported yet: above 1 exits at start")
     p.add_argument("--dtype", default=None)
@@ -3403,24 +3423,33 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _mesh_from_args(args) -> MeshConfig:
-    """The parallel sizes of the command line: tensor parallelism
-    resolved on the engine's device (parallel/mesh.tensor_size); every
-    other size above 1 exits, not ported yet."""
+    """The parallel sizes of the command line: pipeline stages as given,
+    tensor parallelism resolved on the engine's device
+    (parallel/mesh.tensor_size); both above 1 at once, and every other
+    size above 1, exit, not ported yet."""
     for flag, n, what in (
             ("--data-parallel-size", args.data_parallel_size,
              "data parallelism"),
-            ("--pipeline-parallel-size", args.pipeline_parallel_size,
-             "pipeline parallelism"),
             ("--sequence-parallel-size", args.sequence_parallel_size,
              "sequence parallelism (ring prefill)")):
         if n > 1:
             raise SystemExit(f"{flag} {n}: {what} is not ported to the "
-                             "PyTorch engine yet (tensor parallelism is)")
+                             "PyTorch engine yet (tensor and pipeline "
+                             "parallelism are)")
+    pp = args.pipeline_parallel_size
     try:
-        return MeshConfig(tensor=tensor_size(
-            MeshConfig(tensor=args.tensor_parallel_size), args.device))
+        tp = tensor_size(MeshConfig(stage=pp,
+                                    tensor=args.tensor_parallel_size),
+                         args.device)
     except ValueError as e:
-        raise SystemExit(f"--tensor-parallel-size: {e}")
+        raise SystemExit(f"--tensor-parallel-size / "
+                         f"--pipeline-parallel-size: {e}")
+    if pp > 1 and tp > 1:
+        raise SystemExit(
+            f"--pipeline-parallel-size {pp} with --tensor-parallel-size "
+            f"{tp}: pipeline and tensor parallelism together are not "
+            "ported to the PyTorch engine yet (each alone is)")
+    return MeshConfig(stage=pp, tensor=tp)
 
 
 def config_from_args(args) -> EngineConfig:
@@ -3535,14 +3564,18 @@ def diagnostics_config_from_args(args) -> DiagnosticsConfig:
 
 
 def server_from_args(args, rank_devices: Optional[list] = None,
-                     backend: Optional[str] = None):
+                     backend: Optional[str] = None,
+                     stage_devices: Optional[list] = None):
     """The server ``main`` runs for parsed command-line ``args``, not yet
     bound: the warmup starts at ``bind`` unless ``--skip-warmup``. A
     Whisper model gets its own runner and server
     (engine/whisper_server.py); the paged text engine never starts. Under
     tensor parallelism ``rank_devices`` and ``backend`` place the ranks
     (default: rank r on ``cuda:r`` over NCCL, or the CPU over gloo); a
-    rank whose card does not exist exits before any rank starts."""
+    rank whose card does not exist exits before any rank starts. Under
+    pipeline parallelism ``stage_devices`` places the stages (default:
+    stage s on ``cuda:s``, or the CPU); a stage whose card does not exist
+    exits before any weight is made."""
     config = config_from_args(args)
     tp = config.mesh.tensor
     if tp > 1:
@@ -3551,6 +3584,16 @@ def server_from_args(args, rank_devices: Optional[list] = None,
                                 or pdist.rank_devices(args.device, tp))
         except RuntimeError as e:
             raise SystemExit(f"--tensor-parallel-size {tp}: {e}")
+    pp = config.mesh.stage
+    if pp > 1:
+        if config.model.architecture == "whisper":
+            raise SystemExit(
+                f"--pipeline-parallel-size {pp}: Whisper under pipeline "
+                "parallelism is not ported to the PyTorch engine yet")
+        try:
+            stage_devices = pstage_devices(args.device, pp, stage_devices)
+        except (RuntimeError, ValueError) as e:
+            raise SystemExit(f"--pipeline-parallel-size {pp}: {e}")
     if config.model.architecture == "whisper":
         from production_stack_tpu_torch.engine.whisper_server import (
             WhisperServer,
@@ -3575,17 +3618,19 @@ def server_from_args(args, rank_devices: Optional[list] = None,
                         otel_secure=args.otel_secure,
                         flight_recorder_size=args.flight_recorder_size,
                         diagnostics=diagnostics_config_from_args(args),
-                        rank_devices=rank_devices, backend=backend)
+                        rank_devices=rank_devices, backend=backend,
+                        stage_devices=stage_devices)
 
 
 def main(argv=None, rank_devices: Optional[list] = None,
-         backend: Optional[str] = None) -> None:
-    """The command line's server (``rank_devices`` and ``backend``: see
-    ``server_from_args``)."""
+         backend: Optional[str] = None,
+         stage_devices: Optional[list] = None) -> None:
+    """The command line's server (``rank_devices``, ``backend`` and
+    ``stage_devices``: see ``server_from_args``)."""
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s %(message)s")
     args = parse_with_yaml_config(build_parser(), argv)
-    server = server_from_args(args, rank_devices, backend)
+    server = server_from_args(args, rank_devices, backend, stage_devices)
     port = server.bind(args.host, args.port)
     if server.config.model.architecture == "whisper":
         _log.info("serving %s (whisper) on %s:%d (device %s)",

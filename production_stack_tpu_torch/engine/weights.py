@@ -31,6 +31,14 @@ scale whole along it). So a rank's seeded shard, quantized or not, is
 bit for bit the slice of the tp = 1 parameters, and its peak is one
 slice above its shard (one layer, or the embedding).
 
+Under pipeline parallelism each entry point takes ``stage=(s, S)`` and
+returns stage s's share (``stage_layers``, ``stage_keeps``): the layers
+``[s L/S, (s+1) L/S)``, the embedding at stage 0, the final norm and the
+LM head (a tied model's embedding) at the last stage. Seeded init still
+draws every slice of the whole model in order, so a stage's share is bit
+for bit the slice of the whole; the loader reads only the stage's
+tensors; ``stage_params`` cuts a whole dict. ``L % S != 0`` raises.
+
 Whisper's parameters are a nested ``enc`` / ``dec`` tree
 (``models/whisper.param_shapes``), made by ``whisper.init_params``; its
 conv weights are ``(out, in, k)``, so the reference's ``(k, in, out)``
@@ -131,12 +139,64 @@ def _local_shape(shape: tuple, axes: tuple, shard) -> tuple:
     return tuple(shard.local(a, n) for a, n in zip(axes, shape))
 
 
+def stage_layers(cfg: ModelConfig, stage: tuple = (0, 1)) -> range:
+    """The layers stage ``s`` of ``S`` holds: ``[s L/S, (s+1) L/S)``."""
+    s, S = stage
+    L = cfg.num_layers
+    if L % S:
+        raise ValueError(f"{cfg.name}: {L} layers not divisible by {S} "
+                         "pipeline stages")
+    if not 0 <= s < S:
+        raise ValueError(f"stage {s} of {S}")
+    n = L // S
+    return range(s * n, (s + 1) * n)
+
+
+def stage_keeps(cfg: ModelConfig, name: str, stage: tuple = (0, 1)) -> bool:
+    """Whether stage ``s`` of ``S`` holds the top-level leaf ``name``: the
+    embedding at the first stage, the final norm and the LM head (a tied
+    model's embedding) at the last."""
+    s, S = stage
+    if name == "embed":
+        return s == 0 or (s == S - 1 and cfg.tie_word_embeddings)
+    if name in ("final_norm", "lm_head"):
+        return s == S - 1
+    return True
+
+
+def _layer_cut(x, layers: range):
+    """Layers ``layers`` of a stacked leaf, quantized or not (views)."""
+    if isinstance(x, dict):
+        return {k: v[layers.start:layers.stop] for k, v in x.items()}
+    return x[layers.start:layers.stop]
+
+
+def stage_params(params: dict, cfg: ModelConfig,
+                 stage: tuple = (0, 1)) -> dict:
+    """Stage ``(s, S)``'s share of a whole parameter dict (quantized or
+    not), as views of it."""
+    layers = stage_layers(cfg, stage)
+    out = {name: v for name, v in params.items()
+           if name != "layers" and stage_keeps(cfg, name, stage)}
+    out["layers"] = {name: _layer_cut(v, layers)
+                     for name, v in params["layers"].items()}
+    return out
+
+
+def _check_stage(cfg: ModelConfig, stage: tuple) -> None:
+    if stage != (0, 1) and cfg.architecture == "whisper":
+        raise ValueError(f"{cfg.name}: Whisper is not served under "
+                         "pipeline parallelism")
+
+
 def init_random(cfg: ModelConfig, seed: int = 0,
                 device: torch.device | str = "cpu", rank: int = 0,
-                tp: int = 1) -> dict:
+                tp: int = 1, stage: tuple = (0, 1)) -> dict:
     """Random parameters, made on ``device`` from ``seed``, quantized
     slice by slice when ``cfg.quant`` is set; rank's shard of them at
-    ``tp`` > 1 (each slice made whole, as at tp 1, and cut)."""
+    ``tp`` > 1 (each slice made whole, as at tp 1, and cut); ``stage``'s
+    share of them (every slice drawn, the stage's kept)."""
+    _check_stage(cfg, stage)
     if cfg.architecture == "whisper":
         # the whole tree from one stream, then rank's cut of it
         return shard_params(get_model(cfg).init_params(cfg, seed, device),
@@ -151,22 +211,36 @@ def init_random(cfg: ModelConfig, seed: int = 0,
     # Gemma stores zero-centred norm weights (the forward adds norm_offset)
     norm_one = 1.0 - cfg.norm_offset
     axes = _quant_axes(cfg)
+    kept = stage_layers(cfg, stage)
 
-    def make(name: str, shape: tuple, layer: bool, spec=None):
+    def make(name: str, shape: tuple, layer: bool, spec=None, keep=True):
+        """The leaf, or None where the stage does not keep it (its slices
+        are drawn all the same, so the next leaf's stream is the whole
+        model's)."""
+        whole = shape
+        if layer:
+            shape = (len(kept), *shape[1:])
         local = _local_shape(shape, spec, shard)
         if name in _NORMS:
-            return torch.full(local, norm_one, dtype=dt, device=device)
-        leaf = _Leaf(local, dt, device, axes.get(name))
+            return (torch.full(local, norm_one, dtype=dt, device=device)
+                    if keep else None)
+        leaf = _Leaf(local, dt, device, axes.get(name)) if keep else None
         std = fan[_FAN_IN[name]] ** -0.5
-        for idx in _slices(name, shape, layer):
-            t = torch.empty(shape[len(idx):], dtype=dt, device=device)
+        for idx in _slices(name, whole, layer):
+            t = torch.empty(whole[len(idx):], dtype=dt, device=device)
             t.normal_(0.0, std, generator=gen)
+            if leaf is None or (layer and idx[0] not in kept):
+                continue
+            if layer:
+                idx = (idx[0] - kept.start, *idx[1:])
             leaf.put(idx, t, _cutter(shard, spec, len(idx)))
-        return leaf.value
+        return None if leaf is None else leaf.value
 
     lspecs = specs and specs["layers"]
-    params = {name: make(name, shape, False, specs and specs[name])
+    params = {name: make(name, shape, False, specs and specs[name],
+                         stage_keeps(cfg, name, stage))
               for name, shape in shapes.items() if name != "layers"}
+    params = {name: v for name, v in params.items() if v is not None}
     params["layers"] = {name: make(name, shape, True, lspecs and lspecs[name])
                         for name, shape in shapes["layers"].items()}
     return params
@@ -180,14 +254,18 @@ def to_device(params: dict, device) -> dict:
 
 def params_from_jax(np_tree: dict, cfg: ModelConfig,
                     device: torch.device | str = "cpu", rank: int = 0,
-                    tp: int = 1) -> dict:
+                    tp: int = 1, stage: tuple = (0, 1)) -> dict:
     """The JAX package's parameter tree, as numpy arrays, to this
     package's parameter dict (same names and shapes), so both compute the
-    same function; rank's shard of it at ``tp`` > 1. Quantized leaves
-    ``{"q": int8, "s": float32}`` (the JAX engine's int8 tree) keep their
-    dtypes and are cut as ``Shard.cut_leaf`` cuts them; Whisper's conv
-    weights are transposed to ``(out, in, k)``."""
+    same function; rank's shard of it at ``tp`` > 1, ``stage``'s share of
+    it under pipeline parallelism. Quantized leaves ``{"q": int8, "s":
+    float32}`` (the JAX engine's int8 tree) keep their dtypes and are cut
+    as ``Shard.cut_leaf`` cuts them; Whisper's conv weights are transposed
+    to ``(out, in, k)``."""
+    _check_stage(cfg, stage)
     shard, specs = _shard(cfg, rank, tp)
+    if stage != (0, 1):
+        np_tree = stage_params(np_tree, cfg, stage)
 
     def conv(name: str, x, shape: tuple, spec=None):
         if isinstance(x, dict):
@@ -220,16 +298,30 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig,
                 else conv(name, tree[name], shape, spec and spec[name])
                 for name, shape in shapes.items()}
 
-    return walk(np_tree, get_model(cfg).param_shapes(cfg), specs)
+    return walk(np_tree, _shapes(cfg, stage), specs)
+
+
+def _shapes(cfg: ModelConfig, stage: tuple) -> dict:
+    """``param_shapes`` of ``stage``'s share: the leaves it keeps, at its
+    layer count."""
+    shapes = get_model(cfg).param_shapes(cfg)
+    if stage == (0, 1):
+        return shapes
+    n = len(stage_layers(cfg, stage))
+    out = {k: v for k, v in shapes.items()
+           if k != "layers" and stage_keeps(cfg, k, stage)}
+    out["layers"] = {k: (n, *v[1:]) for k, v in shapes["layers"].items()}
+    return out
 
 
 def init_or_load(cfg: ModelConfig, seed: int = 0,
                  device: torch.device | str = "cpu", rank: int = 0,
-                 tp: int = 1) -> dict:
+                 tp: int = 1, stage: tuple = (0, 1)) -> dict:
     """``cfg.weights_path``'s safetensors checkpoint, or random
-    parameters from ``seed`` without one; rank's shard at ``tp`` > 1."""
+    parameters from ``seed`` without one; rank's shard at ``tp`` > 1,
+    ``stage``'s share under pipeline parallelism."""
     if not cfg.weights_path:
-        return init_random(cfg, seed, device, rank, tp)
+        return init_random(cfg, seed, device, rank, tp, stage)
     path = cfg.weights_path
     if path.startswith("gs://") or os.path.isfile(
             os.path.join(path, "_CHECKPOINT_METADATA")):
@@ -237,7 +329,7 @@ def init_or_load(cfg: ModelConfig, seed: int = 0,
                          "(ROADMAP.md); convert to safetensors")
     if not glob.glob(os.path.join(path, "*.safetensors")):
         raise ValueError(f"{path}: no *.safetensors files to load")
-    return load_safetensors(cfg, device, rank, tp)
+    return load_safetensors(cfg, device, rank, tp, stage)
 
 
 # --- HF checkpoint mapping (a copy of the reference's) ----------------------
@@ -331,13 +423,15 @@ def _convert(name_rule: str, w: np.ndarray, cfg: ModelConfig) -> np.ndarray:
 
 def load_safetensors(cfg: ModelConfig,
                      device: torch.device | str = "cpu", rank: int = 0,
-                     tp: int = 1) -> dict:
+                     tp: int = 1, stage: tuple = (0, 1)) -> dict:
     """``cfg.weights_path``'s ``*.safetensors`` files to this package's
     parameter dict on ``device``: each tensor is read, converted, moved to
     the device and (with ``cfg.quant``) quantized on its own, into stacks
     allocated up front; at ``tp`` > 1 each converted tensor is cut to
-    rank's shard before it moves. A tensor the model needs and the
+    rank's shard before it moves; under pipeline parallelism only
+    ``stage``'s tensors are read. A tensor the model needs and the
     checkpoint lacks raises ``KeyError`` naming it."""
+    _check_stage(cfg, stage)
     files = [SafetensorsFile(f) for f in sorted(
         glob.glob(os.path.join(cfg.weights_path, "*.safetensors")))]
     index = {name: f for f in files for name in f.keys()}
@@ -368,23 +462,29 @@ def load_safetensors(cfg: ModelConfig,
         leaf.put((), dev(arr), _cutter(shard, spec))
         return leaf.value
 
-    params = {"embed": whole("embed", get("model.embed_tokens.weight")),
-              "final_norm": dev(get("model.norm.weight"))}
-    if not cfg.tie_word_embeddings:
+    params = {}
+    if stage_keeps(cfg, "embed", stage):
+        params["embed"] = whole("embed", get("model.embed_tokens.weight"))
+    if stage_keeps(cfg, "final_norm", stage):
+        params["final_norm"] = dev(get("model.norm.weight"))
+    if not cfg.tie_word_embeddings and stage_keeps(cfg, "lm_head", stage):
         head = ("lm_head.weight" if "lm_head.weight" in index
                 else "model.embed_tokens.weight")
         params["lm_head"] = whole("lm_head", get(head).T)
     lspecs = specs and specs["layers"]
-    layers = {name: _Leaf(_local_shape(shape, lspecs and lspecs[name],
-                                       shard), dt, device, axes.get(name))
+    kept = stage_layers(cfg, stage)
+    layers = {name: _Leaf(_local_shape((len(kept), *shape[1:]),
+                                       lspecs and lspecs[name], shard),
+                          dt, device, axes.get(name))
               for name, shape in shapes["layers"].items()}
-    for i in range(cfg.num_layers):
+    for i in kept:
         for hf_name, targets in _hf_key_map(cfg, i).items():
             src = get(hf_name)
             for ours, rule in (targets if isinstance(targets, list)
                                else [targets]):
                 base, _, expert = ours.partition(".")
-                idx = (i, int(expert)) if expert else (i,)
+                j = i - kept.start
+                idx = (j, int(expert)) if expert else (j,)
                 layers[base].put(idx, dev(_convert(rule, src, cfg)),
                                  _cutter(shard, lspecs and lspecs[base],
                                          len(idx)))

@@ -141,6 +141,10 @@ class WhisperRunner:
             raise ValueError(
                 f"quantization {cfg.quant!r} is not served for Whisper: "
                 "its weights are made and served in the model dtype")
+        if config.mesh.stage > 1:
+            raise ValueError(
+                f"{cfg.name}: Whisper under pipeline parallelism is not "
+                f"ported yet (stage {config.mesh.stage})")
         self.cfg = cfg
         # the mirrored rank 0 runner where this one started the ranks
         self._mirror = None

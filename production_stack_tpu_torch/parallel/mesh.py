@@ -2,11 +2,13 @@
 (production_stack_tpu/parallel/mesh.py).
 
 The reference builds one named JAX mesh ("data", "stage", "seq",
-"tensor", "expert") over the chips of a slice. Here a mesh is a set of
-processes, one a rank, each driving one card (or the CPU), and only the
-``tensor`` axis can be above 1 so far: data parallelism, pipeline stages,
-ring prefill over ``seq`` and expert parallelism are later slices. -1 on
-an axis means "every device the others leave", as in the reference.
+"tensor", "expert") over the chips of a slice. Here the ``tensor`` axis is
+a set of processes, one a rank, each driving one card (or the CPU), and
+the ``stage`` axis is one process's list of devices, one a pipeline stage
+(``stage_devices``; engine/pp_runner.py), which may repeat a card. Each
+of the two can be above 1, not yet both at once; data parallelism, ring
+prefill over ``seq`` and expert parallelism are later slices. -1 on an
+axis means "every device the others leave", as in the reference.
 """
 
 from __future__ import annotations
@@ -65,14 +67,18 @@ class MeshConfig:
 def tensor_size(mesh: MeshConfig, device) -> int:
     """The tensor-parallel degree an engine on ``device`` runs at. A fixed
     size is taken as given. -1 resolves as ``MeshConfig.resolved`` does
-    over the devices a rank can have: every visible card on ``cuda``
-    (at least 1, so that a machine without one fails where the device is
-    asked for), one process on the CPU. Only the tensor axis is ported:
-    another axis above 1 raises."""
-    for axis in (AXIS_DATA, AXIS_STAGE, AXIS_SEQ, AXIS_EXPERT):
+    over the devices a rank can have: the visible cards on ``cuda`` over
+    the pipeline stages (at least 1, so that a machine without one fails
+    where the device is asked for, and stages may share a card), one
+    process on the CPU. The tensor and stage axes are ported: another
+    axis above 1 raises."""
+    for axis in (AXIS_DATA, AXIS_SEQ, AXIS_EXPERT):
         if getattr(mesh, axis) != 1:
             raise ValueError(f"mesh axis {axis!r} = {getattr(mesh, axis)}: "
-                             "only tensor parallelism is ported")
+                             "only tensor and pipeline parallelism are "
+                             "ported")
+    if mesh.stage < 1:
+        raise ValueError(f"pipeline-parallel size {mesh.stage} < 1")
     if mesh.tensor != -1:
         if mesh.tensor < 1:
             raise ValueError(f"tensor-parallel size {mesh.tensor} < 1")
@@ -81,5 +87,35 @@ def tensor_size(mesh: MeshConfig, device) -> int:
     if str(device).startswith("cuda"):
         import torch
 
-        n = max(torch.cuda.device_count(), 1)
+        n = max(torch.cuda.device_count() // mesh.stage, 1)
     return MeshConfig(tensor=-1).resolved(n).tensor
+
+
+def stage_devices(device, n_stages: int, devices=None) -> list[str]:
+    """Each pipeline stage's device: ``devices`` where the caller names
+    them, else ``cuda:s`` for stage s on a card and the CPU for every
+    stage otherwise. Raises unless there is one a stage and every one
+    exists on this machine; a stage never moves to another card or to
+    the CPU."""
+    import torch
+
+    if devices is None:
+        devices = ([f"cuda:{s}" for s in range(n_stages)]
+                   if torch.device(device).type == "cuda"
+                   else ["cpu"] * n_stages)
+    devices = [str(d) for d in devices]
+    if len(devices) != n_stages:
+        raise ValueError(f"{n_stages} pipeline stages need {n_stages} "
+                         f"devices, got {devices}")
+    n = torch.cuda.device_count()
+    for s, d in enumerate(devices):
+        dev = torch.device(d)
+        if dev.type == "cpu":
+            continue
+        if dev.type != "cuda":
+            raise ValueError(f"stage {s}: unsupported device {d!r}")
+        if (0 if dev.index is None else dev.index) >= n:
+            raise RuntimeError(
+                f"pipeline parallelism over {n_stages} stages puts stage "
+                f"{s} on {d}, but this machine has {n} CUDA card(s)")
+    return devices

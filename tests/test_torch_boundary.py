@@ -336,3 +336,39 @@ def test_tensor_parallel_static_imports(module):
         path = path.with_suffix("") / "__init__.py"
     bad = [m for m in _imports(path) if forbidden(m)]
     assert bad == [], f"{path.name} imports {bad}"
+
+
+PIPELINE = ("production_stack_tpu_torch.parallel.pipeline",
+            "production_stack_tpu_torch.engine.pp_runner")
+
+
+def test_pipeline_prefix_trap():
+    """The reference's modules of the same names are forbidden, the
+    port's are not."""
+    for name in PIPELINE:
+        assert not forbidden(name)
+        assert forbidden(name.replace("production_stack_tpu_torch",
+                                      "production_stack_tpu"))
+
+
+def test_pipeline_modules_load_no_jax():
+    """The microbatch schedule and the staged runner load neither JAX nor
+    the JAX package's pipeline or staged-runner modules."""
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {PIPELINE!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(PIPELINE) <= set(mods)
+    assert [m for m in mods if forbidden(m)] == []
+
+
+@pytest.mark.parametrize("module", PIPELINE)
+def test_pipeline_static_imports(module):
+    path = ROOT / (module.replace(".", "/") + ".py")
+    bad = [m for m in _imports(path) if forbidden(m)]
+    assert bad == [], f"{path.name} imports {bad}"

@@ -423,6 +423,53 @@ def test_bucketed_engine_kernel_path_matches_plain_path(cuda):
     assert gpu == cpu
 
 
+def test_pipeline_stages_sharing_the_card_match_pp1(cuda):
+    """tiny-llama at pipeline-parallel size 2, both stages on cuda:0: the
+    bucketed path's K1, K4 and K3 launch and K2 does not, the greedy
+    tokens equal pp 1's on the card, and both stages' pools, sized from
+    the card's free memory once every stage's weights are placed, hold
+    the same block count."""
+    import gc
+
+    from production_stack_tpu_torch.engine.config import (
+        CacheConfig,
+        EngineConfig,
+        SchedulerConfig,
+    )
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+    from production_stack_tpu_torch.parallel.mesh import MeshConfig
+
+    def engine(stage):
+        cfg = EngineConfig.for_model(
+            "tiny-llama", seed=0,
+            cache=CacheConfig(block_size=16, hbm_utilization=0.1),
+            scheduler=SchedulerConfig(max_num_seqs=4,
+                                      max_num_batched_tokens=32,
+                                      prefill_buckets=(8, 16, 32)),
+            attention_impl="bucketed", mesh=MeshConfig(stage=stage, tensor=1))
+        return LLMEngine(cfg, device=cuda,
+                         stage_devices=["cuda:0"] * 2 if stage > 1 else None)
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 259, n).tolist() for n in (3, 40, 9)]
+    sp = SamplingParams(temperature=0.0, max_tokens=10, ignore_eos=True)
+    eng = engine(1)
+    want = eng.generate(prompts, sp)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    counters = (k1.LAUNCHES, k2.LAUNCHES, k3.LAUNCHES, k4.LAUNCHES)
+    before = [c.n for c in counters]
+    eng = engine(2)
+    got = eng.generate(prompts, sp)
+    d1, d2, d3, d4 = (c.n - b for c, b in zip(counters, before))
+    assert d1 > 0 and d3 > 0 and d4 > 0 and d2 == 0
+    assert got == want
+    pools = [r.kv.shape[1] for r in eng.runner.stages]
+    assert pools == [eng.runner.num_blocks] * 2 and pools[0] >= 16
+
+
 # slot: (q_len, ctx). Verify spans of 1 + 4 tokens over contexts 130-537
 # (the causal edge inside the last five positions), one-token spans at
 # contexts 779-938, and an empty slot between them

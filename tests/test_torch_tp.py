@@ -21,8 +21,8 @@
   completion and unloads (200); ``/kv/export`` answers a real block's
   bytes and a push into the server's own ``/kv/recv`` lands them (200);
   no rank survives the stop, nor a killed leader.
-- Refusals: data, pipeline and sequence parallel sizes above 1 exit at
-  start; ``--quantization int8``, MoE presets, the KV roles and tiers and
+- Refusals: data and sequence parallel sizes above 1 exit at start (a
+  pipeline size resolves to its stages: ``test_torch_pp.py``); ``--quantization int8``, MoE presets, the KV roles and tiers and
   Whisper start; the text engine refuses a Whisper model before any rank
   starts (Whisper's ranks are ``test_torch_tp_whisper.py``'s).
 - The accountant counts the collective bytes the device group sent, by
@@ -430,6 +430,11 @@ def test_what_tp_does_not_carry_exits_at_start(extra, named):
 def test_unported_parallel_sizes_exit(flag):
     args = tserver.build_parser().parse_args(
         ["--device", "cpu", flag, "2"])
+    if flag == "--pipeline-parallel-size":
+        # ported: two stages of one rank (test_torch_pp.py serves them)
+        assert (tserver.config_from_args(args).mesh
+                == MeshConfig(stage=2, tensor=1))
+        return
     with pytest.raises(SystemExit, match=f"{flag} 2: .*not ported"):
         tserver.config_from_args(args)
 
