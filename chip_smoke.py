@@ -408,19 +408,49 @@ fatal):
    (e) at each, one completion (200, every token), and at pp 2 one with
    logprobs, answered 400.
 
+20. Sequence parallelism (``seq2``): llama-3-8b bf16 at full width and
+   ``CUT_LAYERS`` layers (84 s at full depth, over the phase's 60 s),
+   seed 0, ``max_model_len`` 8192, at sequence-parallel size 2
+   with both ranks on this card over gloo (each holding the whole model
+   and a pool of ``SEQ_BLOCKS`` blocks), ring threshold 4096, the ragged
+   path, decode graphs on. (a) 4 greedy prompts of 4500-8000 tokens, 16
+   tokens each with logprobs, through the ring, against the same prompts
+   through the chunked path on the same engine (the prefix cache
+   cleared by a level-1 sleep, the ring switched off): tokens equal up to
+   a near-tie (a flip only where the chunked run's top-2 gap is under the
+   band), logprobs within the band, max(``BF16_LOGPROB_BAND``, twice the
+   chunked run's own deviation 2 at a time from a cleared cache). (b) The scheduler took the
+   ring for each prompt, alone, padded to 8192; K1 and K3 launch on the
+   ring wave and K2 and K4 do not, on every rank; the ranks' digests
+   agree; rank 0's ``ring_rotate`` and ``ring_gather`` bytes are the
+   prediction, 4 prompts x the layers x one 4096-token K/V shard (16.8
+   MB) each.
+   (c) Printed, not judged: one fresh 8000-token prompt's prefill through
+   the ring and then through the chunked path, each its wall and rank
+   0's device busy time (not a sequence-parallel speed: the ranks share
+   one card and their exchange goes through host memory). (d) The first
+   prompt again takes the chunked path with ``(n - 1) // 16 * 16``
+   tokens cached and no ring call, and its tokens are (a)'s. (e) The
+   server in a fresh process (``--tp-server PORT --tensor-parallel-size
+   1 --sequence-parallel-size 2``, ``CUT_LAYERS`` layers) answers a
+   6000-token completion with 16 tokens through the ring (its
+   ``prefill_ring:8192`` signature in ``/debug/perf``), and its follower
+   is gone within 3 s of SIGTERM.
+
 Phases 4-14 run with decode graphs on, the default; phase 5's bf16 run
 through the plain versions decodes eagerly (a plain version synchronises
 with the host, which a capture cannot hold), and so do phases 15-17
 (a gloo collective cannot be captured) and phase 19 (a staged runner
-decodes eagerly); Whisper's paths have no graphs.
+decodes eagerly); Whisper's paths have no graphs. Phase 20's seq ranks
+keep theirs: their decode runs no collective.
 
 The line before the card line carries the kernels' JSON record, whose
 ``launches`` sum each kernel's launches over every served path (each
 path's own counts are in ``launches_by_path``, ``moe-int8``, ``kv-plane``,
 ``scoring-surface``, ``whisper``, ``overload``, ``observability``,
 ``decode-graphs``, ``tp2``, ``tp2-lora-ragged``, ``tp2-lora-bucketed``,
-``tp2-moe-int8``, ``tp2-kv-plane``, ``tp2-whisper`` (rank 0's) and
-``pp2`` among them; a graph
+``tp2-moe-int8``, ``tp2-kv-plane``, ``tp2-whisper`` (rank 0's), ``pp2``
+and ``seq2`` (rank 0's) among them; a graph
 replay adds
 the launches its capture recorded); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -469,12 +499,13 @@ TIE_GAP = 1e-4
 # greedy flip is accepted only where the top-2 gap is within that band
 BF16_LOGPROB_BAND = 0.05
 
-# phases 7, 13 and 15-18 serve their models at full width and this many
-# of their layers (whisper-large-v3-class: of its encoder's and of its
-# decoder's each). What they check holds at any depth, and each judged
+# phases 7, 13, 15-18 and 20 serve their models at full width and this
+# many of their layers (whisper-large-v3-class: of its encoder's and of
+# its decoder's each). What they check holds at any depth, and each judged
 # comparison holds two runs of one depth; at full depth the script took
 # 900-1,300 s of its 1,200 s limit, the gloo phases 15-18 varying most
-# with the host. Phases 4-6, 8-12, 14 and 19 keep the full depth.
+# with the host, and phase 20 84 s. Phases 4-6, 8-12, 14 and 19 keep the
+# full depth.
 CUT_LAYERS = 8
 
 
@@ -6068,7 +6099,8 @@ def tp_server_child(argv: list) -> int:
     cuda:0 over gloo, through the server's own entry point
     (``server.main``: SIGTERM drains, then the process exits); the further
     flags pass through (``--role``, the tiers, ``--model
-    whisper-large-v3-class``; a repeated flag's last value wins)."""
+    whisper-large-v3-class``, ``--tensor-parallel-size 1
+    --sequence-parallel-size 2``; a repeated flag's last value wins)."""
     sys.path.insert(0, str(ROOT))
     from production_stack_tpu_torch.engine import server
 
@@ -6109,8 +6141,10 @@ class _TpServer:
         self.logf.seek(0)
         return self.logf.read().decode(errors="replace")[-3000:]
 
-    def up(self, tag: str, timeout: float = 300) -> dict:
-        """Wait for the server; returns its ``/debug/perf`` ranks."""
+    def up(self, tag: str, timeout: float = 300,
+           graphs: bool = False) -> dict:
+        """Wait for the server; returns its ``/debug/perf`` ranks, two of
+        them, decoding through graphs as ``graphs`` says."""
         while True:
             try:
                 status, _, raw = _http(self.base, "/debug/perf")
@@ -6125,7 +6159,7 @@ class _TpServer:
         self.up_s = time.perf_counter() - self.t0
         ranks = json.loads(raw)["ranks"]
         self.pids = [self.proc.pid] + ranks["pids"][1:]
-        if ranks["size"] != 2 or ranks["decode_graphs"]:
+        if ranks["size"] != 2 or ranks["decode_graphs"] != graphs:
             raise AssertionError(f"[{tag}] ranks {ranks}")
         return ranks
 
@@ -7908,6 +7942,209 @@ def pp_phase(torch, np, counters, card: str) -> dict:
     return launches
 
 
+SEQ_NOTE = ("two seq ranks share one card over gloo, their exchange "
+            "staged through host memory: not a sequence-parallel speed")
+SEQ_MODEL = "llama-3-8b"
+SEQ_MAX_LEN = 8192
+SEQ_BLOCKS = 4096  # each rank's pool: 2 GiB at llama-3-8b's 8 layers
+SEQ_THRESHOLD = 4096
+SEQ_TOKENS = 16
+SEQ_LENS = (8000, 4500, 6000, 7000)  # (a)'s prompts
+SEQ_PAD = 8192  # each of them padded to the next power of two
+SEQ_LONG = 8000  # (c)'s fresh prompt
+SEQ_SERVER_LEN = 6000  # (e)'s prompt
+SEQ_IDS = 32000  # prompts' token ids lie below this
+
+
+def _seq_engine():
+    """llama-3-8b bf16 at ``CUT_LAYERS`` layers, seed 0, max_model_len
+    8192, at sequence-parallel size 2 with both ranks on cuda:0 over
+    gloo: the ragged path, the prefix cache and decode graphs on,
+    ``SEQ_BLOCKS`` blocks a rank, ring threshold ``SEQ_THRESHOLD``."""
+    from production_stack_tpu_torch.engine.config import (
+        CacheConfig,
+        EngineConfig,
+        SchedulerConfig,
+    )
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.parallel.mesh import MeshConfig
+
+    cfg = EngineConfig.for_model(
+        SEQ_MODEL, seed=0, max_model_len=SEQ_MAX_LEN,
+        num_layers=CUT_LAYERS, cache=CacheConfig(num_blocks=SEQ_BLOCKS),
+        scheduler=SchedulerConfig(ring_prefill_threshold=SEQ_THRESHOLD),
+        mesh=MeshConfig(seq=2, tensor=1))
+    return LLMEngine(cfg, device="cuda", rank_devices=["cuda:0"] * 2,
+                     backend="gloo")
+
+
+def _seq_ring_calls(eng) -> list:
+    """The padded length of each ``prefill_ring`` call rank 0 makes from
+    now on."""
+    lengths = []
+    inner = eng.runner.prefill_ring
+
+    def counted(tokens, *args, **kwargs):
+        lengths.append(int(tokens.shape[1]))
+        return inner(tokens, *args, **kwargs)
+
+    eng.runner.prefill_ring = counted
+    return lengths
+
+
+def _seq_prefill(torch, eng, prompt) -> dict:
+    """(c) One fresh prompt to its first token, traced on rank 0: its
+    wall and rank 0's device busy time."""
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    def run():
+        eng.add_request(f"seq-c-{time.monotonic_ns()}",
+                        prompt_token_ids=prompt, sampling=SamplingParams(
+                            temperature=0.0, max_tokens=1,
+                            ignore_eos=True))
+        while eng.has_unfinished():
+            eng.step()
+
+    wall, busy, _, kernels, calls = _profiled(torch, run)
+    return {"wall_ms": wall, "rank0_device_busy_ms": busy,
+            "rank0_kernels": kernels, "launches": calls}
+
+
+def _seq_reuse(eng, prompt, sp) -> tuple:
+    """(d) ``prompt`` again: (its tokens, the cached count it reported)."""
+    eng.add_request("seq-d", prompt_token_ids=prompt, sampling=sp)
+    toks, cached = [], 0
+    while eng.has_unfinished():
+        for o in eng.step():
+            toks.extend(o.new_token_ids)
+            cached = max(cached, o.num_cached_tokens)
+    return toks, cached
+
+
+def _seq_server(np) -> dict:
+    """(e) The seq 2 server in a fresh process at ``CUT_LAYERS`` layers:
+    a long completion through the ring, then SIGTERM."""
+    srv = _TpServer(["--tensor-parallel-size", "1",
+                     "--sequence-parallel-size", "2", "--max-model-len",
+                     str(SEQ_MAX_LEN), "--ring-prefill-threshold",
+                     str(SEQ_THRESHOLD)])
+    try:
+        ranks = srv.up("seq2", graphs=True)
+        if ranks["axis"] != "seq":
+            raise AssertionError(f"[seq2] (e) ranks {ranks}")
+        prompt = np.random.default_rng(21).integers(0, SEQ_IDS,
+                                                    SEQ_SERVER_LEN)
+        status, out, wall = _post(srv.base, "/v1/completions", {
+            "model": SEQ_MODEL, "prompt": prompt.tolist(),
+            "max_tokens": SEQ_TOKENS, "temperature": 0.0,
+            "ignore_eos": True})
+        if status != 200 or out["usage"]["completion_tokens"] != SEQ_TOKENS:
+            raise AssertionError(f"[seq2] (e) the long completion: "
+                                 f"{status} {out}")
+        counts = json.loads(_http(srv.base, "/debug/perf")[2])[
+            "compile"]["counts"]
+        if not counts.get(f"prefill_ring:{SEQ_PAD}"):
+            raise AssertionError(f"[seq2] (e) the completion took no ring "
+                                 f"prefill: {counts}")
+        stop = srv.stop("seq2")
+    except BaseException:
+        log(srv.log_tail())
+        srv.kill()
+        raise
+    return {"up_s": srv.up_s, "completion_s": wall, **stop}
+
+
+def seq_phase(torch, np, counters, card: str) -> dict:
+    """Phase 20: llama-3-8b at sequence-parallel size 2 and
+    ``CUT_LAYERS`` layers, both ranks on this card (module docstring).
+    Returns the ring wave's launches."""
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(20)
+    prompts = [rng.integers(0, SEQ_IDS, n).tolist() for n in SEQ_LENS]
+    sp = SamplingParams(temperature=0.0, max_tokens=SEQ_TOKENS,
+                        ignore_eos=True, logprobs=2)
+    t0 = time.perf_counter()
+    eng = _seq_engine()
+    up = time.perf_counter() - t0
+    try:
+        calls = _seq_ring_calls(eng)
+        before = eng.runner.follower_reports()
+        wire0 = dict(eng.runner.ranks.wire)
+        _zero(counters)
+        t0 = time.perf_counter()
+        ring = _greedy_tokens(eng, prompts, sp)
+        ring_s = time.perf_counter() - t0
+        launches = _counts(counters)
+        wire = {op: n - wire0.get(op, 0.0)
+                for op, n in eng.runner.ranks.wire.items()}
+        _tp_agree("seq2 (b)", eng.runner.follower_reports(), launches,
+                  before)
+        _expect(launches, {"K1", "K3"}, "seq2")
+        if calls != [SEQ_PAD] * len(prompts):
+            raise AssertionError(f"[seq2] (b) ring calls {calls}, want one "
+                                 f"of {SEQ_PAD} tokens a prompt")
+        # each layer: one rotation of a rank's half of K and V, and the
+        # gather of the other half
+        cfg, bs = eng.config.model, eng.config.cache.block_size
+        shard = (SEQ_PAD // 2 * 2 * cfg.num_kv_heads * cfg.head_dim
+                 * cfg.torch_dtype.itemsize)
+        want = len(prompts) * cfg.num_layers * shard
+        if (wire.get("ring_rotate"), wire.get("ring_gather")) != (want,
+                                                                   want):
+            raise AssertionError(f"[seq2] (b) wire {wire}, want {want} "
+                                 "bytes rotated and gathered")
+        reuse, cached = _seq_reuse(eng, prompts[0], sp)
+        if (reuse != ring[0][0] or len(calls) != len(prompts)
+                or cached != (len(prompts[0]) - 1) // bs * bs):
+            raise AssertionError(f"[seq2] (d) the prompt again: cached "
+                                 f"{cached}, ring calls {calls}, tokens "
+                                 f"{reuse} against {ring[0][0]}")
+        long_prompt = rng.integers(0, SEQ_IDS, SEQ_LONG).tolist()
+        walls = {"ring": _seq_prefill(torch, eng, long_prompt)}
+        # the chunked path on the same engine: the prefix cache goes with
+        # a level-1 sleep, and the ring is switched off; its own
+        # deviation, 2 at a time, from a cleared cache again
+        eng.scheduler.ring_enabled = False
+        eng.sleep_mode(1)
+        eng.wake_mode()
+        t0 = time.perf_counter()
+        chunked = _greedy_tokens(eng, prompts, sp)
+        chunked_s = time.perf_counter() - t0
+        eng.sleep_mode(1)
+        eng.wake_mode()
+        rep = _tp_repeat_dev(eng, prompts, sp, chunked)
+        walls["chunked"] = _seq_prefill(torch, eng, long_prompt)
+        if len(calls) != len(prompts) + 1:
+            raise AssertionError(f"[seq2] ring calls {calls}")
+    finally:
+        eng.close()
+    del eng
+    _released(torch, "seq2")
+    band = max(BF16_LOGPROB_BAND, 2 * rep)
+    # a flip is a near-tie where the chunked run's top-2 gap is under
+    # the band
+    compared, worst = _tp_same("seq2 (a) ring against chunked", chunked,
+                               ring, band, tie_gap=band)
+    log(f"[seq2] (a)+(b) {SEQ_MODEL} at seq 2, both ranks on one card "
+        f"({card}): up in {up:.1f} s; the ring wave in {ring_s:.1f} s, the "
+        f"chunked one in {chunked_s:.1f} s; {compared} greedy tokens equal "
+        f"the chunked path's, logprobs within {worst:.4f} (band "
+        f"{band:.4f}, the chunked run's own deviation {rep:.4f}); ring "
+        f"calls {calls}; launches {json.dumps(launches)}; rank 0's wire "
+        f"{json.dumps(wire)} (predicted {want} rotated and gathered)")
+    log(f"[seq2] (c) one {SEQ_LONG}-token prefill to its first token "
+        f"({card}; {SEQ_NOTE}): {json.dumps(walls)}")
+    log(f"[seq2] (d) the first prompt again: {cached} tokens cached, its "
+        f"{len(reuse)} tokens equal the ring's")
+    srv = _seq_server(np)
+    log(f"[seq2] (e) the server at --sequence-parallel-size 2 ({card}): "
+        f"{json.dumps(srv)}; phase 20 in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _no_hbm_alarm_left(pids=()) -> int:
     """Every server of this run but phase 13's keeps its bundles in the
     default archive (a directory a process under the system tmpdir): this
@@ -8032,6 +8269,8 @@ def main() -> int:
     lap("18 tp2-whisper")
     by_path["pp2"] = pp_phase(torch, np, counters, card)
     lap("19 pp2")
+    by_path["seq2"] = seq_phase(torch, np, counters, card)
+    lap("20 seq2")
     _no_hbm_alarm_left(kv_tp["pids"])
     log(f"[phases] seconds ({card}): " + json.dumps(
         {name: round(t - laps[k - 1][1], 1)

@@ -51,7 +51,7 @@ the perf accountant (``_tenant_map``) and to each sequence
 (``_attribute_seq_seconds``, the usage ledger's chip-seconds), and
 ``tenant_stats()`` exports the folded table. The brownout's stage 2 sets
 ``prefetch_paused``: an admitted sequence then starts no tier prefetch and
-prefills cold. Ring prefill is not ported.
+prefills cold.
 
 Tensor parallelism (``config.mesh``, resolved by parallel/mesh.tensor_size):
 at a degree above 1 the engine is rank 0 of a group it starts
@@ -60,6 +60,16 @@ its runner mirrors every device call to them. What the ranks do not
 carry yet raises at start (``multihost.refusal``); ``close`` stops them.
 The KV plane's calls and the tiers are rank 0's: its runner hands them
 whole blocks, every rank's heads joined, and scatters what they import.
+
+Sequence parallelism (``config.mesh.seq`` above 1, at tensor and pipeline
+size 1): the engine is rank 0 of a group of seq ranks it starts in the
+same way, each holding the whole model and a whole pool. With
+``ring_prefill_threshold`` above 0 (``ring_enabled``) the scheduler sends
+each long fresh prompt whole and alone to ``_run_prefill_ring``, the
+reference's: the prompt padded to a power of two and a multiple of the
+ranks, prefilled by ring attention over them (``prefill_ring``), its
+first token sampled and fetched in the same call; every other step,
+decode included, runs as at tp 1 on every rank.
 
 Pipeline parallelism (``config.mesh.stage`` above 1): the runner is a
 ``StagedModelRunner`` (engine/pp_runner.py) over one device a stage
@@ -103,8 +113,10 @@ from production_stack_tpu_torch.engine.multihost import (
     start_ranks,
 )
 from production_stack_tpu_torch.engine.pp_runner import StagedModelRunner
+from production_stack_tpu_torch.parallel.mesh import AXIS_SEQ
 from production_stack_tpu_torch.parallel.mesh import stage_devices as pstages
 from production_stack_tpu_torch.parallel.mesh import tensor_size
+from production_stack_tpu_torch.parallel.ring_attention import ring_length
 from production_stack_tpu_torch.engine.perf_accounting import PerfAccountant
 from production_stack_tpu_torch.engine.sampling import (
     MAX_LOGPROBS,
@@ -167,18 +179,27 @@ class LLMEngine:
         """``rank_devices`` and ``backend`` place the tensor-parallel
         ranks (one device a rank; parallel/distributed.py's defaults:
         ``cuda:r`` and ``nccl`` on cards, the CPU and ``gloo`` otherwise);
-        they are unused at tensor-parallel size 1. ``stage_devices``
+        they are unused at tensor-parallel size 1. They place the seq
+        ranks alike at a sequence-parallel size above 1. ``stage_devices``
         places the pipeline stages (parallel/mesh.stage_devices' default:
         ``cuda:s`` on cards, the CPU otherwise); unused at one stage."""
         self.config = config
         self.tokenizer = get_tokenizer(config.model.tokenizer)
         tp = tensor_size(config.mesh, device)
         S = config.mesh.stage
+        sp = config.mesh.seq
         if S > 1 and tp > 1:
             raise ValueError(
                 f"pipeline parallelism ({S} stages) with tensor parallelism "
                 f"({tp} ranks) is not ported yet")
-        if S > 1:
+        if sp > 1 and (tp > 1 or S > 1):
+            raise ValueError(
+                f"sequence parallelism ({sp} ranks) with tensor ({tp}) or "
+                f"pipeline ({S}) parallelism is not ported yet")
+        if sp > 1:
+            self.runner = start_ranks(config, params, num_blocks, device, sp,
+                                      rank_devices, backend, axis=AXIS_SEQ)
+        elif S > 1:
             self.runner = StagedModelRunner(
                 config, params, num_blocks,
                 pstages(device, S, stage_devices))
@@ -193,6 +214,11 @@ class LLMEngine:
             max_model_len=config.model.max_model_len,
         )
         sched = config.scheduler
+        # the reference's ring_enabled: long fresh prompts prefill whole
+        # over the seq ranks
+        self.scheduler.ring_enabled = (
+            sp > 1 and sched.ring_prefill_threshold > 0
+            and getattr(self.runner, "seq_parallel", False))
         self.attention_impl = self.runner.attention_impl
         B = sched.max_num_seqs
         M = self.runner.max_blocks_per_seq
@@ -488,6 +514,13 @@ class LLMEngine:
                 t0 = time.monotonic()
                 self._prefetcher.wait_any(0.002)
                 self.prefetch_stall_seconds += time.monotonic() - t0
+            return outputs
+        if out.prefills and out.prefills[0].ring:
+            # every pending dispatch lands before the ring takes the ranks
+            outputs = self._resolve_pending_ragged()
+            outputs.extend(self._resolve_pending_prefill())
+            outputs.extend(self._resolve_pending_decode())
+            outputs.extend(self._run_prefill_ring(out.prefills[0]))
             return outputs
         if out.prefills:
             if self.attention_impl == "ragged":
@@ -968,6 +1001,56 @@ class LLMEngine:
         outputs = self._resolve_pending_prefill()
         self._pending_prefill = (resolve_list, result)
         return outputs
+
+    def _run_prefill_ring(self, sp) -> list[RequestOutput]:
+        """The reference's ``_run_prefill_ring``: one long fresh prompt
+        prefilled whole over the seq ranks (``ring_length``: padded to a
+        power of two, then to a multiple of the ranks), its first token
+        sampled in the same call and fetched at once; it decodes on the
+        paged path after. Recorded as a prefill of its tokens."""
+        bs = self.config.cache.block_size
+        seq = sp.seq
+        n = sp.chunk_len
+        S = ring_length(n, self.config.mesh.seq)
+        tokens = np.zeros((1, S), np.int32)
+        tokens[0, :n] = seq.token_ids[:n]
+        positions = np.arange(S, dtype=np.int32)[None]
+        slot_mapping = np.full(S, -1, np.int32)
+        slot_mapping[:n] = slot_mapping_for(seq.block_ids, 0, n, bs)
+        s = seq.sampling
+        t_dispatch = time.monotonic()
+        result = self.runner.prefill_ring(
+            tokens, positions, slot_mapping, np.asarray([n - 1], np.int32),
+            np.asarray([s.temperature], np.float32),
+            np.asarray([s.top_p], np.float32),
+            np.asarray([s.top_k], np.int32),
+            np.asarray([s.seed or 0], np.uint32),
+            greedy_only=s.temperature <= 0.0,
+            adapter_ids=(np.asarray([seq.adapter_slot], np.int32)
+                         if seq.adapter_slot else None),
+            ctrl=((seq.token_ctrl[0][None, :], seq.token_ctrl[1][None, :],
+                   np.asarray([seq.token_ctrl[2]], np.int32))
+                  if seq.token_ctrl is not None else None))
+        sampled, *lp = (x.cpu().numpy() for x in result)
+        if self.perf is not None:
+            dispatch_s = time.monotonic() - t_dispatch
+            entries = [(seq, "prefill", n, n)]
+            self.perf.record_prefill(n, n, 1, seconds=dispatch_s,
+                                     tenants=self._tenant_map(entries))
+            self._attribute_seq_seconds(dispatch_s, entries)
+        seq.num_computed_tokens = n
+        seq.status = SequenceStatus.RUNNING
+        if s.presence_penalty or s.frequency_penalty:
+            self._count_reset_slots.append(seq)
+        if seq.output_token_ids:
+            return []  # preemption-recompute: the newest token is pending
+        token = int(sampled[0])
+        seq.first_token_time = time.monotonic()
+        seq.output_token_ids.append(token)
+        self.total_output_tokens += 1
+        return self._postprocess(
+            [seq], [[token]],
+            [[_lp_row(lp, 0)] if s.logprobs is not None else None])
 
     def _resolve_pending_prefill(self) -> list[RequestOutput]:
         """Fetch and post-process the previous prefill dispatch, if any."""
@@ -1595,15 +1678,18 @@ class LLMEngine:
 
     @property
     def tensor_parallel_ranks(self) -> int:
-        """Ranks the engine's runner spans (1 without tensor
+        """Ranks the engine's runner spans (1 without tensor or sequence
         parallelism)."""
         return self.runner.ranks.size if self.runner.ranks else 1
 
     def rank_info(self) -> dict:
-        """The ranks: their count, process ids (this process first) and
-        devices; whether decode steps run as CUDA graphs; this process's
-        kernel launches so far (rank 0's)."""
-        info = {"size": self.tensor_parallel_ranks, "pids": [os.getpid()],
+        """The ranks: their count and mesh axis, process ids (this process
+        first) and devices; whether decode steps run as CUDA graphs; this
+        process's kernel launches so far (rank 0's)."""
+        ranks = getattr(self.runner, "ranks", None)
+        info = {"size": self.tensor_parallel_ranks,
+                "axis": ranks.axis if ranks is not None else None,
+                "pids": [os.getpid()],
                 "devices": [str(self.device)],
                 "decode_graphs": self.runner.graphs is not None,
                 "launches": kernel_launches()}
@@ -1720,7 +1806,9 @@ class LLMEngine:
         sampled, logprobs, grammar) and a guided prefill, then every decode
         graph key without an adapter at every rung of K3's plan ladder
         (``ModelRunner.warm_decode_graphs``); with speculation on, one
-        motif run that verifies drafts."""
+        motif run that verifies drafts; with ring prefill on, the
+        reference's ring size classes, greedy and sampled: each power of
+        two from the threshold up to ``max_model_len``."""
         rng = np.random.default_rng(0)
         sched = self.config.scheduler
         vocab = self.config.model.vocab_size
@@ -1801,6 +1889,14 @@ class LLMEngine:
                              prompt_token_ids=motif * 4, sampling=sp)
             while self.has_unfinished():
                 self.step()
+        if self.scheduler.ring_enabled:
+            limit = self.config.model.max_model_len
+            n = sched.ring_prefill_threshold
+            while n < limit:
+                size = min(n, limit - K - 1)
+                for temp in (0.0, 0.7):
+                    run([rng.integers(1, vocab, size).tolist()], temp)
+                n = 1 << n.bit_length()  # the next power of two above
 
     # -- convenience for tests / offline use ---------------------------------
     def generate(

@@ -37,8 +37,8 @@ Every step takes per-token LoRA adapters (the multi-LoRA bank,
 ``register_grammar``, applied by ``grammar_mask``); the ragged step also
 verifies speculative drafts (``verify_idx``). These three are plain
 PyTorch on tensors (gathers, ``torch.where``, matmuls), as in the
-reference, where they run outside any Pallas kernel. Ring prefill is not
-ported (one card); the ragged and bucketed prefill steps run eagerly.
+reference, where they run outside any Pallas kernel. The ragged and
+bucketed prefill steps run eagerly.
 
 The dense scoring path (``pooled_embed``, ``sequence_logprobs``,
 ``prompt_logprobs``) runs whole sequences through the model with no pool,
@@ -74,6 +74,16 @@ gathers or scatters each rank's own heads on its device (``gather_*``,
 ``scatter_*``); rank 0's ``MirroredRunner`` moves the shares and joins
 them into the whole blocks a transfer or a tier carries, grouped as the
 reference's pool is at this tp (``kv_head_groups``).
+
+**Sequence parallelism.** With ``ranks`` on the ``seq`` axis every rank
+holds the whole model and a whole pool, and its group runs nothing in the
+model (its ``Shard`` cuts no axis). ``prefill_ring`` is the reference's
+``prefill_ring``: one long prompt, rank r running the model over its
+``S / n`` tokens, the attention a ring over the ranks
+(parallel/ring_attention.py), and each layer's K/V of all S tokens
+gathered and written into every rank's pool by K1; every rank then
+samples the same token from the same logits. Decode has no collective
+under seq ranks, so each rank keeps its decode graphs on a card.
 
 ``install_compile_observer`` wraps the ragged and prefill steps and the
 decode step's program lookup (``decode_program``, which captures a new
@@ -139,7 +149,12 @@ from production_stack_tpu_torch.ops.ragged_paged_attention import (
     ragged_work_map,
 )
 from production_stack_tpu_torch.parallel import shardings as ln
-from production_stack_tpu_torch.parallel.shardings import Shard
+from production_stack_tpu_torch.parallel.mesh import AXIS_SEQ
+from production_stack_tpu_torch.parallel.ring_attention import (
+    ATTN_SCORE_BYTES as RING_SCORE_BYTES,
+    ring_attention,
+    ring_length,
+)
 
 _log = logging.getLogger(__name__)
 
@@ -241,13 +256,13 @@ class ModelRunner:
         every stage's weights are on its device."""
         self.config = config
         self.cfg = config.model
-        # the tensor-parallel group (None on one device) and this rank's
-        # geometry: its query and KV heads
+        # the tensor- or sequence-parallel group (None on one device) and
+        # this rank's geometry: its query and KV heads
         self.ranks = ranks
         self.local = self.cfg
         if ranks is not None:
             device = ranks.device
-            ranks.shard = Shard.of(self.cfg, ranks.rank, ranks.size)
+            ranks.shard = ranks.shard_of(self.cfg)
             self.local = dataclasses.replace(
                 self.cfg,
                 num_heads=ranks.shard.local(ln.HEADS, self.cfg.num_heads),
@@ -332,10 +347,13 @@ class ModelRunner:
         # a step's contexts reach at most max_model_len + multi_step - 1
         self.decode_rungs = plan_ladder(self.cfg.max_model_len
                                         + self.decode_steps - 1)
+        # seq ranks decode with no collective, so they keep their graphs
         self.graphs: Optional[DecodeGraphs] = (
             DecodeGraphs() if self.device.type == "cuda"
-            and sched.decode_graphs and ranks is None else None)
-        if ranks is not None and self.device.type == "cuda":
+            and sched.decode_graphs
+            and (ranks is None or self.seq_parallel) else None)
+        if (ranks is not None and not self.seq_parallel
+                and self.device.type == "cuda"):
             _log.info("tensor parallel rank %d of %d: decode graphs off "
                       "(collectives are not captured)", ranks.rank,
                       ranks.size)
@@ -343,11 +361,20 @@ class ModelRunner:
         # keys whose graphs sleep dropped, captured again at wake
         self._held_keys: list = []
 
-    # -- tensor parallelism ---------------------------------------------------
+    # -- tensor and sequence parallelism -------------------------------------
     def rank_of(self) -> tuple[int, int]:
-        """(rank, tensor-parallel size); (0, 1) on one device."""
-        return ((0, 1) if self.ranks is None
-                else (self.ranks.rank, self.ranks.size))
+        """(rank, tensor-parallel size) of this runner's cut of the
+        weights; (0, 1) on one device and on seq ranks, which hold them
+        whole."""
+        if self.ranks is None or self.ranks.tensor_size == 1:
+            return (0, 1)
+        return (self.ranks.rank, self.ranks.size)
+
+    @property
+    def seq_parallel(self) -> bool:
+        """Whether this runner is a rank of a sequence-parallel group (the
+        reference runner's ``seq_parallel``)."""
+        return self.ranks is not None and self.ranks.axis == AXIS_SEQ
 
     @property
     def tensor_parallel(self) -> int:
@@ -369,7 +396,7 @@ class ModelRunner:
         its transfers and tier slabs carry (``shardings.kv_head_groups``:
         the reference's pool layout at this tensor-parallel size)."""
         return (1 if self.ranks is None
-                else ln.kv_head_groups(self.cfg, self.ranks.size))
+                else ln.kv_head_groups(self.cfg, self.ranks.tensor_size))
 
     def _logits(self, hidden, tokens=None):
         return self.model.logits_from_hidden(self.cfg, self.params, hidden,
@@ -384,10 +411,11 @@ class ModelRunner:
                                          STREAM_ROUND)})
 
     def install_compile_observer(self, observer) -> None:
-        """Wrap ``ragged_step``, ``prefill`` and ``decode_program`` in
-        ``CompileTracker``s reporting to ``observer(kind, bucket,
-        seconds)``. A signature is a program's shape on the card and its
-        static flags: greedy, LoRA, grammar, and verify (ragged); a decode
+        """Wrap ``ragged_step``, ``prefill``, ``prefill_ring`` (on seq
+        ranks) and ``decode_program`` in ``CompileTracker``s reporting to
+        ``observer(kind, bucket, seconds)``. A signature is a program's
+        shape on the card and its static flags: greedy, LoRA, grammar,
+        verify (ragged) and token controls (ring); a decode
         step's is its graph key (``DecodeKey``), so on the card a new
         signature is a capture and its seconds are the capture's (with the
         eager warm-up run before it)."""
@@ -416,6 +444,12 @@ class ModelRunner:
                              lambda key, plan: key,
                              lambda key, plan: f"{S}@{key.rung}"),
         }
+        if self.seq_parallel:
+            programs["prefill_ring"] = (
+                "prefill_ring",
+                lambda *a, **kw: (a[0].shape[1], *flags(kw),
+                                  kw.get("ctrl") is not None),
+                lambda *a, **kw: str(a[0].shape[1]))
         for kind, (attr, key, bucket) in programs.items():
             fn = getattr(self, attr)
             if isinstance(fn, CompileTracker):
@@ -532,9 +566,32 @@ class ModelRunner:
             c.vocab_size * 2 + 1)
         lora = bank_bytes(c, cfg.max_loras, cfg.max_lora_rank,
                           c.torch_dtype.itemsize)
-        # the dense scoring path runs between steps, never inside one
-        step = max(self._step_bytes(tokens, rows), self.score_bytes())
+        # the dense scoring path and a ring prefill run between steps,
+        # never inside one
+        step = max(self._step_bytes(tokens, rows), self.score_bytes(),
+                   self.ring_bytes())
         return int(step + self.decode_graph_bytes() + grammar + lora)
+
+    def ring_bytes(self) -> int:
+        """Device memory a ring prefill needs beside the pool at its
+        longest prompt (``max_model_len``, padded as the engine pads it:
+        ``ring_length``), 0 off seq ranks: a step's of this rank's slice
+        of ``Sl`` tokens and one sampled row (``_step_bytes``), one query
+        tile's float32 scores twice over (for their temporaries), the
+        slice's float32
+        queries, output and running state, the K/V shard in flight (sent,
+        received and its float32 copies) and a layer's K/V of all ``S``
+        tokens gathered."""
+        if not self.seq_parallel:
+            return 0
+        c = self.cfg
+        S = ring_length(c.max_model_len, self.ranks.size)
+        Sl = S // self.ranks.size
+        b = c.torch_dtype.itemsize
+        kv_row = 2 * c.num_kv_heads * c.head_dim
+        return int(self._step_bytes(Sl, 1) + 2 * RING_SCORE_BYTES
+                   + 3 * Sl * c.num_heads * c.head_dim * 4
+                   + Sl * kv_row * (3 * b + 4) + S * kv_row * b)
 
     def set_pool(self, num_blocks: int) -> None:
         """Allocate the KV pool at ``num_blocks`` blocks."""
@@ -563,8 +620,8 @@ class ModelRunner:
                 and len(set(self.ranks.devices)) < self.ranks.size):
             # each would size its pool from the same free memory
             raise ValueError(
-                "tensor-parallel ranks that share a card must be given "
-                "num_blocks")
+                "tensor- or sequence-parallel ranks that share a card must "
+                "be given num_blocks")
         return max(self.pool_bytes() // self.block_bytes(), 16)
 
     def block_bytes(self) -> int:
@@ -613,6 +670,18 @@ class ModelRunner:
             q.contiguous(), kv, meta["block_tables"], meta["context_lens"],
             layer, soft_cap=self.cfg.attn_logit_softcap, plan=meta["plan"],
         )
+        return out, kv
+
+    def _attend_ring(self, q, k, v, kv, layer, meta):
+        """q (1, Sl, H, D), k/v (1, Sl, KH, D), this seq rank's slice of
+        the prompt: the ring over the ranks, then the layer's K+V of every
+        rank's slice gathered (``RankGroup.ring_gather``) and all S rows
+        written into this rank's pool (slot -1 on padding)."""
+        mine = combine_kv(k[0], v[0]).to(kv.dtype).contiguous()
+        out = ring_attention(q, k, v, self.ranks,
+                             soft_cap=self.cfg.attn_logit_softcap)
+        kv_write(kv, self.ranks.ring_gather(mine), meta["slot_mapping"],
+                 layer)
         return out, kv
 
     def _forward(self, attend_impl, tokens, positions, meta, lora=None,
@@ -1159,6 +1228,48 @@ class ModelRunner:
                    else self._grammar(g_ids, np.zeros(P, np.int32)))
         sampled, _ = self._process_logits(logits, samp, greedy_only, None,
                                           self._ctrl(ctrl), grammar)
+        return (sampled, *compute_logprobs(logits, sampled))
+
+    @torch.inference_mode()
+    def prefill_ring(self, tokens, positions, slot_mapping, last_idx, temps,
+                     top_ps, top_ks, seeds, greedy_only: bool = True,
+                     adapter_ids=None, ctrl=None):
+        """One whole prompt prefilled over the seq ranks, its first token
+        sampled in the same call: the reference's ``prefill_ring``.
+
+        tokens/positions (1, S) with S a multiple of the ranks (the prompt
+        zero-padded, positions 0..S-1); slot_mapping (S,) flat KV slots
+        (-1 on padding); last_idx (1,) the prompt's last token; adapter_ids
+        (1,) its adapter. Rank r runs the model over tokens [r * Sl, (r +
+        1) * Sl), Sl = S / n (``_attend_ring``); the last token's hidden
+        row goes from the rank that holds it to every rank
+        (``RankGroup.ring_last``), and each samples the same token under
+        the token controls. Returns device tensors (sampled (1,), tok_lp
+        (1,), top_ids (1, N), top_lps (1, N)), the logprobs of the raw
+        logits."""
+        if not self.seq_parallel:
+            raise RuntimeError("prefill_ring runs on sequence-parallel ranks")
+        n, r = self.ranks.size, self.ranks.rank
+        S = tokens.shape[1]
+        if S % n:
+            raise ValueError(f"ring prefill of {S} tokens over {n} ranks")
+        Sl = S // n
+        mine = slice(r * Sl, (r + 1) * Sl)
+        hidden = self._forward(
+            self._attend_ring, self._dev(tokens[:, mine]),
+            self._dev(positions[:, mine]),
+            {"slot_mapping": self._dev(slot_mapping)},
+            self._lora(None if adapter_ids is None
+                       else np.asarray(adapter_ids)[:, None]))
+        last = int(last_idx[0])
+        src = last // Sl
+        row = (hidden[0, last - src * Sl] if r == src
+               else hidden.new_empty(hidden.shape[-1]))
+        logits = self._logits(self.ranks.ring_last(row, src)[None])
+        samp = self._sampling_inputs(temps, top_ps, top_ks, seeds,
+                                     np.zeros(1, np.int32))
+        sampled, _ = self._process_logits(logits, samp, greedy_only, None,
+                                          self._ctrl(ctrl))
         return (sampled, *compute_logprobs(logits, sampled))
 
     # -- the decode step ----------------------------------------------------

@@ -1,5 +1,6 @@
-"""Tensor-parallel ranks: the leader mirrors every device-touching runner
-call to its followers, which replay it on their shard.
+"""Tensor- and sequence-parallel ranks: the leader mirrors every
+device-touching runner call to its followers, which replay it on their
+shard (under sequence parallelism, on their whole copy).
 
 The reference's design (production_stack_tpu/engine/multihost.py
 ``MirroredRunner``, ``FollowerReplayer``, ``follower_loop``), moved onto a
@@ -17,11 +18,10 @@ for cross-host use; here the control group is gloo over the loopback
 address among processes this one started (``start_ranks``), and the
 cross-host control port and its secret belong to the multi-host slice.
 
-The list starts from the reference's ``MIRRORED_METHODS`` and adds
-``ragged_step`` (which the reference's list lacks) and the port's warmup
-(``warm_decode_graphs``). It leaves out ``prefill_ring`` (not ported)
-and the calls ``MirroredRunner`` defines itself, which move data between
-the ranks besides the call:
+The list is the reference's ``MIRRORED_METHODS`` with ``ragged_step``
+(which the reference's list lacks) and the port's warmup
+(``warm_decode_graphs``) added. It leaves out the calls ``MirroredRunner``
+defines itself, which move data between the ranks besides the call:
 
 - ``register_lora``: the leader cuts every rank's share of the adapter
   (``lora.adapter_share``) and sends each follower only its own over the
@@ -46,6 +46,15 @@ the ranks besides the call:
   in ``RankGroup.wire`` under ops of their own (``KV_OPS``), which the
   perf accountant never bills to a dispatch. A follower never holds host
   slabs, so none stays pinned.
+
+**Sequence parallelism** (``start_ranks(..., axis=AXIS_SEQ)``): every
+rank holds the whole model, seeded or loaded on each rank, and a whole
+pool, and replays every call on its own copy; ``prefill_ring`` is the one
+call whose work the ranks divide, over the ring's exchange
+(parallel/ring_attention.py). An adapter is sent whole to each rank, a
+KV export is rank 0's own blocks (no call is sent), and an import sends
+every follower the whole blocks. What the seq ranks do not carry yet
+raises at start (``refusal``).
 
 Agreement is checked, not assumed: each rank folds the tokens every call
 sampled into a running digest, the leader sends its digest with each
@@ -92,8 +101,8 @@ import torch
 from production_stack_tpu_torch.engine.kv_cache import adapter_root
 from production_stack_tpu_torch.engine.lora import adapter_share
 from production_stack_tpu_torch.parallel import distributed as pdist
+from production_stack_tpu_torch.parallel.mesh import AXIS_SEQ, AXIS_TENSOR
 from production_stack_tpu_torch.parallel.shardings import (
-    Shard,
     join_kv_shares,
     split_kv_share,
 )
@@ -104,7 +113,7 @@ MIRRORED_METHODS = (
     "prefill", "ragged_step", "decode_multi", "set_count_row",
     "register_grammar", "drop_kv", "restore_kv", "drop_params",
     "restore_params", "pooled_embed", "sequence_logprobs", "prompt_logprobs",
-    "warm_decode_graphs", "unregister_lora",
+    "warm_decode_graphs", "unregister_lora", "prefill_ring",
 )
 # Whisper's runner (engine/whisper_runner.py): a request's calls by handle
 WHISPER_METHODS = ("encode_request", "sot_request", "prefill_request",
@@ -133,7 +142,7 @@ def sampled_tokens(method: str, result) -> Optional[np.ndarray]:
     tokens."""
     if method == "chunk_request":
         return np.asarray(result[0], np.int64)
-    if method in ("ragged_step", "prefill"):
+    if method in ("ragged_step", "prefill", "prefill_ring"):
         # (sampled[, verify], tok_lp, top_ids, top_lps)
         toks = result[:len(result) - 3]
         return np.concatenate([t.cpu().numpy().ravel() for t in toks])
@@ -250,7 +259,7 @@ class MirroredRunner:
         only its share of the adapter (module docstring)."""
         cfg, size = self._inner.cfg, self.ranks.size
         root = adapter_root(bank_np)
-        shares = [adapter_share(bank_np, Shard.of(cfg, r, size), cfg)
+        shares = [adapter_share(bank_np, self.ranks.shard_of(cfg, r), cfg)
                   for r in range(size)]
         with self._lock:
             self._send("register_lora", (slot,), {"root": root})
@@ -275,8 +284,11 @@ class MirroredRunner:
             raise ValueError(f"KV block ids outside the pool's {n}")
 
     def _export(self, method: str, args: tuple) -> torch.Tensor:
-        """The whole of a KV gather on rank 0's device."""
+        """The whole of a KV gather on rank 0's device: its own blocks on
+        seq ranks, which each hold them whole."""
         self._check_blocks(args[0])
+        if self.ranks.axis == AXIS_SEQ:
+            return getattr(self._inner, KV_GATHERS[method])(*args)
         with self._lock:
             self._send(method, args, {})
             mine = getattr(self._inner, KV_GATHERS[method])(*args)
@@ -293,7 +305,8 @@ class MirroredRunner:
             raise ValueError(f"KV of shape {tuple(whole.shape)} where this "
                              f"engine takes {tuple(want)}")
         cfg, size = self._inner.cfg, self.ranks.size
-        shares = [split_kv_share(whole, cfg, r, size) for r in range(size)]
+        shares = ([whole] * size if self.ranks.axis == AXIS_SEQ else
+                  [split_kv_share(whole, cfg, r, size) for r in range(size)])
         shape = tuple(shares[0].shape)
         with self._lock:
             self._send(method, args, {"shape": shape})
@@ -532,7 +545,7 @@ def build_runner(config, params, num_blocks, ranks):
 
 def follower_main(rank: int, size: int, store_port: int, devices: list,
                   backend: str, config, params, num_blocks, parent_pid: int,
-                  threads: int, math: dict) -> None:
+                  threads: int, math: dict, axis: str = AXIS_TENSOR) -> None:
     """A follower process: join the group, build this rank's runner, and
     replay the leader's calls, with the leader's thread count and float32
     math (``float32_math``)."""
@@ -544,7 +557,8 @@ def follower_main(rank: int, size: int, store_port: int, devices: list,
             level=logging.INFO,
             format=f"%(asctime)s %(levelname)s rank{rank} %(name)s "
                    "%(message)s")
-    ranks = pdist.init_rank(rank, size, store_port, devices, backend)
+    ranks = pdist.init_rank(rank, size, store_port, devices, backend,
+                            axis=axis)
     try:
         follower_loop(build_runner(config, params, num_blocks, ranks),
                       ranks)
@@ -557,30 +571,52 @@ def follower_main(rank: int, size: int, store_port: int, devices: list,
     os._exit(0)
 
 
-def refusal(config) -> Optional[str]:
-    """What tensor parallelism does not carry yet in ``config``, named as
-    the flag that asks for it; None when it carries all of it (it carries
-    every model and feature the port serves)."""
+def refusal(config, axis: str = AXIS_TENSOR) -> Optional[str]:
+    """What the ranks of ``axis`` do not carry yet in ``config``, named as
+    the flag that asks for it; None when they carry all of it. Tensor
+    parallelism carries every model and feature the port serves. Sequence
+    parallelism carries the dense models at full precision, unified:
+    Whisper, MoE models, int8 weights, a disaggregated role and the host
+    and remote KV tiers are later slices."""
+    if axis == AXIS_TENSOR:
+        return None
+    m, cache = config.model, config.cache
+    if m.architecture == "whisper":
+        return f"--model {m.name} (Whisper)"
+    if getattr(m, "num_experts", 0):
+        return f"--model {m.name} (a MoE model)"
+    if m.quant:
+        return f"--quantization {m.quant}"
+    if config.role != "unified":
+        return f"--role {config.role}"
+    if cache.host_offload_blocks or cache.kv_host_cache_bytes:
+        return "--kv-host-cache-bytes (the host KV tier)"
+    if cache.remote_kv_url:
+        return "--remote-kv-url (the remote KV tier)"
     return None
 
 
 def start_ranks(config, params, num_blocks, device, size: int,
                 devices=None, backend: Optional[str] = None,
-                whisper: bool = False):
-    """Start ``size`` tensor-parallel ranks for an engine on ``device``:
+                whisper: bool = False, axis: str = AXIS_TENSOR):
+    """Start ``size`` ranks of ``axis`` (tensor or seq) for an engine on
+    ``device``:
     this process is rank 0, the others are spawned followers. ``devices``
     (one a rank; default ``cuda:r`` on a card, the CPU otherwise) and
     ``backend`` (default ``nccl`` on a card, ``gloo`` on the CPU) are the
     caller's to choose; a rank whose card does not exist raises before any
     process starts. ``params`` is None (seeded or loaded on each rank) or
-    the whole parameter dict, which every rank cuts. ``whisper`` says the
+    the whole parameter dict, which every rank cuts (on the seq axis,
+    keeps whole). What the axis does not carry (``refusal``) raises before
+    any process starts. ``whisper`` says the
     caller is a ``WhisperRunner``; a Whisper model for the text engine, or
     the reverse, raises before any process starts. Returns rank 0's
     ``MirroredRunner``."""
-    why = refusal(config)
+    what = pdist.PARALLELISM[axis]
+    why = refusal(config, axis)
     if why is not None:
-        raise ValueError(f"{why}: not ported under tensor parallelism yet "
-                         f"(tensor-parallel size {size})")
+        raise ValueError(f"{why}: not ported under {what} yet ({axis} "
+                         f"size {size})")
     if (config.model.architecture == "whisper") != whisper:
         raise ValueError(
             f"{config.model.name} is not a Whisper model" if whisper else
@@ -591,7 +627,7 @@ def start_ranks(config, params, num_blocks, device, size: int,
     if len(devices) != size:
         raise ValueError(f"{len(devices)} rank devices for {size} ranks")
     backend = backend or pdist.default_backend(devices[0])
-    pdist.check_devices(devices)
+    pdist.check_devices(devices, what)
     if torch.device(devices[0]).type == "cuda" and not whisper:
         # built once here; the followers load the same libraries
         from production_stack_tpu_torch.ops import _build
@@ -600,10 +636,10 @@ def start_ranks(config, params, num_blocks, device, size: int,
     store = pdist.open_store(size)
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(
-        target=follower_main, name=f"tp-rank-{r}", daemon=True,
+        target=follower_main, name=f"{axis}-rank-{r}", daemon=True,
         args=(r, size, store.port, devices, backend, config, params,
               num_blocks, os.getpid(), torch.get_num_threads(),
-              float32_math()))
+              float32_math(), axis))
         for r in range(1, size)]
     for p in procs:
         p.start()
@@ -611,7 +647,7 @@ def start_ranks(config, params, num_blocks, device, size: int,
     try:
         pdist.await_ranks(store, procs)
         ranks = pdist.init_rank(0, size, store.port, devices, backend,
-                                store=store)
+                                store=store, axis=axis)
         inner = build_runner(config, params, num_blocks, ranks)
     except BaseException:
         for p in procs:

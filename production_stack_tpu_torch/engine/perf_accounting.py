@@ -16,7 +16,9 @@ A copy of production_stack_tpu/engine/perf_accounting.py for one card:
   (parallel/distributed.py ``RankGroup.wire``: float32 all-reduces,
   int32 all-reduces and float32 max all-reduces of the int8 route, the
   logits' all-gather), each dispatch taking what was sent since the last
-  one; the KV plane's share traffic (``KV_OPS``) is no dispatch's. The
+  one; the KV plane's share traffic (``KV_OPS``) and the ring prefill's
+  exchange (``RING_OPS``) are no dispatch's, and a ring prefill is
+  recorded as a prefill of its prompt's tokens, as the reference's. The
   reference's formulas count a bf16 all-reduce of the hidden
   state twice a layer, half of what the port's float32 partials put on
   the wire, and none of its embedding's all-reduce. Zero at tp = 1.
@@ -60,7 +62,7 @@ from production_stack_tpu_torch.engine.config import (
     H100_PEAK_NVLINK_GBPS,
     H100_PEAK_TFLOPS,
 )
-from production_stack_tpu_torch.parallel.distributed import KV_OPS
+from production_stack_tpu_torch.parallel.distributed import KV_OPS, RING_OPS
 from production_stack_tpu_torch.tenancy import OTHER, fold_records, split_shares
 
 _EVENT_TAIL = 64  # compile events kept verbatim for /debug/perf
@@ -349,11 +351,13 @@ class PerfAccountant:
 
     def _take_wire(self) -> Dict[str, float]:
         """The collective bytes sent since the last call, by op. The KV
-        plane's share traffic (``KV_OPS``) is no dispatch's and is left
-        out, so a step's collective bytes stay its own."""
+        plane's share traffic (``KV_OPS``) and the ring prefill's exchange
+        (``RING_OPS``) are no dispatch's and are left out, so a step's
+        collective bytes stay its own."""
         if self.wire is None:
             return {}
-        now = {op: n for op, n in self.wire.items() if op not in KV_OPS}
+        now = {op: n for op, n in self.wire.items()
+               if op not in KV_OPS + RING_OPS}
         sent = {op: n - self._wire_seen.get(op, 0.0)
                 for op, n in now.items()}
         self._wire_seen = now

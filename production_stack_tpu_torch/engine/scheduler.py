@@ -31,7 +31,13 @@ pass advancing 1/weight an admission) and the unified prefill budget is
 split deficit-round-robin by tenant weight (``_fair_prefill``). With one
 tenant, or with fairness off, the schedule is the FCFS one exactly.
 ``retry_after_hint`` derives a 429's Retry-After from the queue's depth
-over its recent drain rate. Ring prefill is not ported (one card).
+over its recent drain rate.
+
+Ring prefill (``ring_enabled``, set by the engine at a sequence-parallel
+size above 1 with ``ring_prefill_threshold`` above 0): before either
+policy, the oldest fresh prompt (nothing cached or computed, no grammar)
+of at least the threshold's tokens is scheduled whole and alone as a
+``ring`` prefill, outside the token budget, as in the reference.
 
 The scheduler is host-side control plane: it decides and never touches
 device tensors.
@@ -58,6 +64,7 @@ class ScheduledPrefill:
     seq: Sequence
     chunk_start: int  # == seq.num_computed_tokens
     chunk_len: int
+    ring: bool = False  # the whole prompt through ring attention (seq ranks)
 
 
 @dataclasses.dataclass
@@ -85,6 +92,9 @@ class Scheduler:
         self.free_slots = list(range(sched.max_num_seqs - 1, -1, -1))
         # the engine sets this on the ragged path; False = bucketed policy
         self.unified = False
+        # the engine sets this at a sequence-parallel size above 1: long
+        # fresh prompts prefill whole via ring attention (``_ring_pick``)
+        self.ring_enabled = False
         # set by the engine when speculative decoding is on: the draft width
         # to reserve for a decode row (0 = ineligible or cold; see
         # spec.SpecController). The row is charged 1 + grant stream tokens
@@ -319,6 +329,10 @@ class Scheduler:
     def schedule(self) -> SchedulerOutput:
         out = SchedulerOutput()
         self._try_admit()
+        ring = self._ring_pick()
+        if ring is not None:
+            out.prefills.append(ring)
+            return out
         if self.unified:
             return self._schedule_unified(out)
         # prefill priority: batch up to prefill_batch chunks per dispatch;
@@ -349,6 +363,24 @@ class Scheduler:
             return out
         out.decodes = self._grow_decodes(out)
         return out
+
+    def _ring_pick(self) -> Optional[ScheduledPrefill]:
+        """The reference's ring pick: the oldest prefilling sequence with
+        nothing computed (the ring sees only in-flight tokens, so no
+        cached prefix), no grammar (the ring samples unmasked) and at
+        least ``ring_prefill_threshold`` prompt tokens, whole; the token
+        budget does not apply, since the seq ranks divide the work."""
+        n = self.config.ring_prefill_threshold
+        if not self.ring_enabled or n <= 0:
+            return None
+        for seq in sorted(self.seqs.values(), key=lambda s: s.arrival_time):
+            if (seq.status is SequenceStatus.PREFILLING
+                    and not seq.prefill_done
+                    and seq.num_computed_tokens == 0
+                    and seq.grammar_slot < 0
+                    and seq.prefill_target >= n):
+                return ScheduledPrefill(seq, 0, seq.prefill_target, ring=True)
+        return None
 
     def _schedule_unified(self, out: SchedulerOutput) -> SchedulerOutput:
         """Decode rows claim one stream token each (plus their draft

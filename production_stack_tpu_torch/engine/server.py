@@ -134,9 +134,18 @@ its own KV pool, the host relaying activations between them
 (engine/pp_runner.py), on the bucketed path. As in the reference,
 logprobs answer 400 and guided regex and JSON are refused; the rest of
 the surface serves. With tensor parallelism above 1 it exits at start, as
-Whisper does, not ported yet. ``--data-parallel-size`` and
-``--sequence-parallel-size`` parse to the reference's defaults; above 1
-each exits at start, not ported yet.
+Whisper does, not ported yet. Sequence parallelism
+(``--sequence-parallel-size N`` at tensor and pipeline size 1): the
+server is rank 0 of N seq ranks started as tensor ranks are, each
+holding the whole model and a whole KV pool; a prompt of at least
+``--ring-prefill-threshold`` tokens (default 4096) prefills whole by ring
+attention over them (parallel/ring_attention.py), and everything else
+runs as at size 1 on every rank. With tensor or pipeline parallelism
+above 1 it exits at start, and so do Whisper, MoE models,
+``--quantization int8``, ``--role prefill|decode`` and the host and
+remote KV tiers at a sequence-parallel size above 1: later slices.
+``--data-parallel-size`` parses to the reference's default; above 1 it
+exits at start, not ported yet.
 
 Response bodies have the JAX server's shape, so the same router can front
 either engine.
@@ -229,6 +238,7 @@ from production_stack_tpu_torch.engine.scheduler import SchedulerQueueFull
 from production_stack_tpu_torch.flight_recorder import FlightRecorder
 from production_stack_tpu_torch.parallel import distributed as pdist
 from production_stack_tpu_torch.parallel.mesh import (
+    AXIS_SEQ,
     MeshConfig,
     stage_devices as pstage_devices,
     tensor_size,
@@ -3200,7 +3210,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "share of the layers and its own KV pool on "
                         "cuda:s, or on the CPU")
     p.add_argument("--sequence-parallel-size", type=int, default=1,
-                   help="not ported yet: above 1 exits at start")
+                   help="seq ranks, one process each: long prompts prefill "
+                        "via ring attention sharded over them; rank r runs "
+                        "on cuda:r over NCCL, or on the CPU over gloo")
+    p.add_argument("--ring-prefill-threshold", type=int, default=4096,
+                   help="prompt length at which prefill switches to the "
+                        "ring-attention sequence-parallel path (needs "
+                        "--sequence-parallel-size > 1)")
     p.add_argument("--dtype", default=None)
     p.add_argument("--quantization", default=None, choices=["int8"],
                    help="int8: per-channel int8 weights, quantized when "
@@ -3423,33 +3439,36 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _mesh_from_args(args) -> MeshConfig:
-    """The parallel sizes of the command line: pipeline stages as given,
-    tensor parallelism resolved on the engine's device
-    (parallel/mesh.tensor_size); both above 1 at once, and every other
-    size above 1, exit, not ported yet."""
-    for flag, n, what in (
-            ("--data-parallel-size", args.data_parallel_size,
-             "data parallelism"),
-            ("--sequence-parallel-size", args.sequence_parallel_size,
-             "sequence parallelism (ring prefill)")):
-        if n > 1:
-            raise SystemExit(f"{flag} {n}: {what} is not ported to the "
-                             "PyTorch engine yet (tensor and pipeline "
-                             "parallelism are)")
-    pp = args.pipeline_parallel_size
+    """The parallel sizes of the command line: pipeline stages and seq
+    ranks as given, tensor parallelism resolved on the engine's device
+    (parallel/mesh.tensor_size); two of them above 1 at once, and data
+    parallelism above 1, exit, not ported yet."""
+    if args.data_parallel_size > 1:
+        raise SystemExit(f"--data-parallel-size {args.data_parallel_size}: "
+                         "data parallelism is not ported to the PyTorch "
+                         "engine yet (tensor, pipeline and sequence "
+                         "parallelism are)")
+    pp, sp = args.pipeline_parallel_size, args.sequence_parallel_size
     try:
-        tp = tensor_size(MeshConfig(stage=pp,
+        tp = tensor_size(MeshConfig(stage=pp, seq=sp,
                                     tensor=args.tensor_parallel_size),
                          args.device)
     except ValueError as e:
-        raise SystemExit(f"--tensor-parallel-size / "
-                         f"--pipeline-parallel-size: {e}")
+        raise SystemExit(f"--tensor-parallel-size / --pipeline-parallel-"
+                         f"size / --sequence-parallel-size: {e}")
     if pp > 1 and tp > 1:
         raise SystemExit(
             f"--pipeline-parallel-size {pp} with --tensor-parallel-size "
             f"{tp}: pipeline and tensor parallelism together are not "
             "ported to the PyTorch engine yet (each alone is)")
-    return MeshConfig(stage=pp, tensor=tp)
+    for flag, n, what in (("--tensor-parallel-size", tp, "tensor"),
+                          ("--pipeline-parallel-size", pp, "pipeline")):
+        if sp > 1 and n > 1:
+            raise SystemExit(
+                f"--sequence-parallel-size {sp} with {flag} {n}: sequence "
+                f"and {what} parallelism together are a later slice of the "
+                "PyTorch engine (each alone is ported)")
+    return MeshConfig(stage=pp, seq=sp, tensor=tp)
 
 
 def config_from_args(args) -> EngineConfig:
@@ -3472,6 +3491,8 @@ def config_from_args(args) -> EngineConfig:
         cache.num_blocks = args.num_blocks
     sched = SchedulerConfig(chain_decode=args.chain_decode,
                             decode_graphs=args.decode_graphs)
+    if mesh.seq > 1:
+        sched.ring_prefill_threshold = args.ring_prefill_threshold
     if args.max_num_seqs is not None:
         sched.max_num_seqs = args.max_num_seqs
     if args.max_num_batched_tokens is not None:
@@ -3532,6 +3553,12 @@ def config_from_args(args) -> EngineConfig:
         if why is not None:
             raise SystemExit(f"{why} is not ported under tensor parallelism "
                              f"yet (--tensor-parallel-size {mesh.tensor})")
+    if mesh.seq > 1:
+        why = tp_refusal(config, AXIS_SEQ)
+        if why is not None:
+            raise SystemExit(f"{why} under sequence parallelism is a later "
+                             f"slice of the PyTorch engine "
+                             f"(--sequence-parallel-size {mesh.seq})")
     return config
 
 
@@ -3570,20 +3597,26 @@ def server_from_args(args, rank_devices: Optional[list] = None,
     bound: the warmup starts at ``bind`` unless ``--skip-warmup``. A
     Whisper model gets its own runner and server
     (engine/whisper_server.py); the paged text engine never starts. Under
-    tensor parallelism ``rank_devices`` and ``backend`` place the ranks
+    tensor or sequence parallelism ``rank_devices`` and ``backend`` place
+    the ranks
     (default: rank r on ``cuda:r`` over NCCL, or the CPU over gloo); a
     rank whose card does not exist exits before any rank starts. Under
     pipeline parallelism ``stage_devices`` places the stages (default:
     stage s on ``cuda:s``, or the CPU); a stage whose card does not exist
     exits before any weight is made."""
     config = config_from_args(args)
-    tp = config.mesh.tensor
-    if tp > 1:
-        try:
-            pdist.check_devices(rank_devices
-                                or pdist.rank_devices(args.device, tp))
-        except RuntimeError as e:
-            raise SystemExit(f"--tensor-parallel-size {tp}: {e}")
+    for flag, n, what in (
+            ("--tensor-parallel-size", config.mesh.tensor,
+             "tensor parallelism"),
+            ("--sequence-parallel-size", config.mesh.seq,
+             "sequence parallelism")):
+        if n > 1:
+            try:
+                pdist.check_devices(rank_devices
+                                    or pdist.rank_devices(args.device, n),
+                                    what)
+            except RuntimeError as e:
+                raise SystemExit(f"{flag} {n}: {e}")
     pp = config.mesh.stage
     if pp > 1:
         if config.model.architecture == "whisper":

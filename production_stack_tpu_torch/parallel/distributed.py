@@ -1,5 +1,5 @@
-"""Rank start-up for tensor parallelism: one process a rank under
-torch.distributed, with two process groups.
+"""Rank start-up for tensor and sequence parallelism: one process a rank
+under torch.distributed, with two process groups.
 
 - The **device group** carries the model's collectives (the float32
   all-reduces of the row-parallel products and of the vocab-parallel
@@ -8,7 +8,10 @@ torch.distributed, with two process groups.
   all-gather of the vocab-sharded logits) on each rank's device: ``nccl``
   where each rank has a card of its own, ``gloo`` on the CPU. gloo also
   takes CUDA tensors, staging them through host memory, which lets two
-  ranks share one card for a check (NCCL refuses that).
+  ranks share one card for a check (NCCL refuses that). A group of
+  ``seq`` ranks (``axis``) cuts no weights and runs none of those: its
+  device group carries only the ring prefill's exchange (``ring_*``;
+  parallel/ring_attention.py).
 - The **control group** is ``gloo`` on the CPU and carries the leader's
   step inputs to the followers (engine/multihost.py) and the few integers
   the ranks must agree on, such as the KV pool's block count.
@@ -36,6 +39,7 @@ from typing import Any, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from production_stack_tpu_torch.parallel.mesh import AXIS_SEQ, AXIS_TENSOR
 from production_stack_tpu_torch.parallel.shardings import Shard
 
 HOST = "127.0.0.1"
@@ -49,6 +53,14 @@ STORE_TIMEOUT = datetime.timedelta(seconds=120)
 # ``RankGroup.wire``'s ops that move KV shares between the ranks (the KV
 # plane's exports and imports), not a step's collectives
 KV_OPS = ("kv_gather", "kv_scatter")
+# its ops of the ring prefill (sequence parallelism): a K/V shard passed
+# to the next rank, a layer's K/V gathered for every rank's pool, the last
+# prompt token's hidden row sent to every rank. The perf accountant bills
+# them to no dispatch
+RING_OPS = ("ring_rotate", "ring_gather", "ring_last")
+# a group's axis as its messages name it
+PARALLELISM = {AXIS_TENSOR: "tensor parallelism",
+               AXIS_SEQ: "sequence parallelism"}
 
 
 def rank_devices(device, size: int) -> list[str]:
@@ -64,8 +76,10 @@ def default_backend(device) -> str:
     return "nccl" if torch.device(device).type == "cuda" else "gloo"
 
 
-def check_devices(devices: Sequence[str]) -> None:
-    """Raise unless every rank's device exists on this machine."""
+def check_devices(devices: Sequence[str],
+                  what: str = "tensor parallelism") -> None:
+    """Raise unless every rank's device exists on this machine (``what``
+    names the parallelism in the message)."""
     n = torch.cuda.device_count()
     for r, d in enumerate(devices):
         dev = torch.device(d)
@@ -76,7 +90,7 @@ def check_devices(devices: Sequence[str]) -> None:
         index = 0 if dev.index is None else dev.index
         if index >= n:
             raise RuntimeError(
-                f"tensor parallelism over {len(devices)} ranks puts rank "
+                f"{what} over {len(devices)} ranks puts rank "
                 f"{r} on {d}, but this machine has {n} CUDA card(s)")
 
 
@@ -111,9 +125,10 @@ def _gloo_options():
 
 @dataclasses.dataclass
 class RankGroup:
-    """One rank's place in a tensor-parallel group: its rank, its device,
-    every rank's device, its shard of the model (``shard``, set by the
-    model runner) and the two process groups (module docstring)."""
+    """One rank's place in a tensor- or sequence-parallel group (``axis``):
+    its rank, its device, every rank's device, its shard of the model
+    (``shard``, set by the model runner) and the two process groups
+    (module docstring)."""
 
     rank: int
     size: int
@@ -121,6 +136,7 @@ class RankGroup:
     devices: tuple
     backend: str
     control: Any
+    axis: str = AXIS_TENSOR
     shard: Optional[Shard] = None
     # per-card bytes the device group's collectives put on the wire, by
     # op (``_count``); the perf accountant reads them on rank 0
@@ -130,6 +146,21 @@ class RankGroup:
     def cards(self) -> int:
         """Distinct cards the ranks run on (ranks may share one)."""
         return len({d for d in self.devices if d != "cpu"}) or 1
+
+    def shard_of(self, cfg, rank: Optional[int] = None) -> Shard:
+        """Rank ``rank``'s (default this rank's) cut of ``cfg``'s model:
+        ``Shard.of`` on the tensor axis; nothing cut on the seq axis,
+        whose ranks each hold the whole model."""
+        r = self.rank if rank is None else rank
+        if self.axis == AXIS_SEQ:
+            return Shard(r, self.size, {}, frozenset())
+        return Shard.of(cfg, r, self.size)
+
+    @property
+    def tensor_size(self) -> int:
+        """The tensor-parallel degree the group cuts the model over (1 on
+        the seq axis)."""
+        return self.size if self.axis == AXIS_TENSOR else 1
 
     def _count(self, op: str, payload: int) -> None:
         """Add a collective's per-card wire bytes to ``wire[op]``: a ring
@@ -217,6 +248,57 @@ class RankGroup:
         self.wire[op] = (self.wire.get(op, 0.0)
                          + share_bytes * (self.size - 1))
 
+    # -- the ring prefill's exchange (sequence parallelism) ---------------
+    def _staged(self) -> bool:
+        """Whether the ring's CUDA tensors go through host memory: gloo's
+        send and receive read and write host memory only, and its other
+        collectives stage CUDA tensors there themselves."""
+        return self.backend == "gloo" and self.device.type == "cuda"
+
+    def ring_rotate(self, x: torch.Tensor):
+        """Start sending ``x`` to rank ``(r + 1) % n`` and receiving the
+        same shape from rank ``(r - 1) % n`` over the device group; returns
+        a function that waits for both and gives the received tensor on
+        this rank's device. Its bytes count once under ``ring_rotate``."""
+        n, r = self.size, self.rank
+        send = (x.cpu() if self._staged() else x).contiguous()
+        recv = torch.empty_like(send)
+        works = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, send, (r + 1) % n),
+            dist.P2POp(dist.irecv, recv, (r - 1) % n)])
+        self.wire["ring_rotate"] = (self.wire.get("ring_rotate", 0.0)
+                                    + send.nbytes)
+
+        def wait() -> torch.Tensor:
+            for w in works:
+                w.wait()
+            return recv.to(self.device) if self._staged() else recv
+
+        return wait
+
+    def ring_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``x`` joined along dim 0 in rank order (a layer's
+        K/V of the prompt's slices, whole on every rank), counted under
+        ``ring_gather`` as an all-gather: (n - 1) / n of the result from
+        each card."""
+        y = (x.cpu() if self._staged() else x).contiguous()
+        parts = [torch.empty_like(y) for _ in range(self.size)]
+        dist.all_gather(parts, y)
+        self.wire["ring_gather"] = (self.wire.get("ring_gather", 0.0)
+                                    + y.nbytes * (self.size - 1))
+        return torch.cat(parts).to(self.device)
+
+    def ring_last(self, x: torch.Tensor, src: int) -> torch.Tensor:
+        """Rank ``src``'s ``x`` on every rank (the last prompt token's
+        hidden row; ``x`` of the same shape and dtype elsewhere, its values
+        unused), counted under ``ring_last``: (n - 1) / n of ``x`` from
+        each card."""
+        y = (x.cpu() if self._staged() else x).contiguous()
+        dist.broadcast(y, src=src)
+        self.wire["ring_last"] = (self.wire.get("ring_last", 0.0)
+                                  + y.nbytes * (self.size - 1) / self.size)
+        return y.to(self.device) if self._staged() else y
+
     def min_int(self, n: int) -> int:
         """The least of each rank's ``n`` (over the control group)."""
         t = torch.tensor([int(n)], dtype=torch.int64)
@@ -249,17 +331,17 @@ class RankGroup:
 
 
 def init_rank(rank: int, size: int, store_port: int, devices: Sequence[str],
-              backend: str, store: Optional[dist.TCPStore] = None
-              ) -> RankGroup:
-    """Join the group as ``rank``: rank 0 passes the ``store`` it opened,
-    the others connect to ``store_port``. One group a process: the device
-    group is torch.distributed's default group."""
+              backend: str, store: Optional[dist.TCPStore] = None,
+              axis: str = AXIS_TENSOR) -> RankGroup:
+    """Join the group of ``axis`` as ``rank``: rank 0 passes the ``store``
+    it opened, the others connect to ``store_port``. One group a process:
+    the device group is torch.distributed's default group."""
     if dist.is_initialized():
         raise RuntimeError("this process already belongs to a "
                            "torch.distributed group")
     device = torch.device(devices[rank])
     if device.type == "cuda":
-        check_devices(devices)
+        check_devices(devices, PARALLELISM[axis])
         torch.cuda.set_device(device)
     if store is None:
         store = dist.TCPStore(HOST, store_port, size, False,
@@ -271,4 +353,5 @@ def init_rank(rank: int, size: int, store_port: int, devices: Sequence[str],
                             pg_options=opts)
     control = dist.new_group(backend="gloo", timeout=CONTROL_TIMEOUT,
                              pg_options=_gloo_options())
-    return RankGroup(rank, size, device, tuple(devices), backend, control)
+    return RankGroup(rank, size, device, tuple(devices), backend, control,
+                     axis)

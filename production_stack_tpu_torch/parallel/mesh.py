@@ -3,12 +3,15 @@
 
 The reference builds one named JAX mesh ("data", "stage", "seq",
 "tensor", "expert") over the chips of a slice. Here the ``tensor`` axis is
-a set of processes, one a rank, each driving one card (or the CPU), and
-the ``stage`` axis is one process's list of devices, one a pipeline stage
-(``stage_devices``; engine/pp_runner.py), which may repeat a card. Each
-of the two can be above 1, not yet both at once; data parallelism, ring
-prefill over ``seq`` and expert parallelism are later slices. -1 on an
-axis means "every device the others leave", as in the reference.
+a set of processes, one a rank, each driving one card (or the CPU); the
+``seq`` axis is such a set too, each rank holding the whole model and a
+whole copy of the KV pool, joined only by the ring prefill's exchange
+(parallel/ring_attention.py); and the ``stage`` axis is one process's
+list of devices, one a pipeline stage (``stage_devices``;
+engine/pp_runner.py), which may repeat a card. Each of the three can be
+above 1, not yet two at once; data and expert parallelism are later
+slices. -1 on an axis means "every device the others leave", as in the
+reference.
 """
 
 from __future__ import annotations
@@ -70,15 +73,17 @@ def tensor_size(mesh: MeshConfig, device) -> int:
     over the devices a rank can have: the visible cards on ``cuda`` over
     the pipeline stages (at least 1, so that a machine without one fails
     where the device is asked for, and stages may share a card), one
-    process on the CPU. The tensor and stage axes are ported: another
-    axis above 1 raises."""
-    for axis in (AXIS_DATA, AXIS_SEQ, AXIS_EXPERT):
+    process on the CPU. The tensor, stage and seq axes are ported:
+    another axis above 1 raises."""
+    for axis in (AXIS_DATA, AXIS_EXPERT):
         if getattr(mesh, axis) != 1:
             raise ValueError(f"mesh axis {axis!r} = {getattr(mesh, axis)}: "
-                             "only tensor and pipeline parallelism are "
-                             "ported")
+                             "only tensor, pipeline and sequence "
+                             "parallelism are ported")
     if mesh.stage < 1:
         raise ValueError(f"pipeline-parallel size {mesh.stage} < 1")
+    if mesh.seq < 1:
+        raise ValueError(f"sequence-parallel size {mesh.seq} < 1")
     if mesh.tensor != -1:
         if mesh.tensor < 1:
             raise ValueError(f"tensor-parallel size {mesh.tensor} < 1")
@@ -87,7 +92,7 @@ def tensor_size(mesh: MeshConfig, device) -> int:
     if str(device).startswith("cuda"):
         import torch
 
-        n = max(torch.cuda.device_count() // mesh.stage, 1)
+        n = max(torch.cuda.device_count() // (mesh.stage * mesh.seq), 1)
     return MeshConfig(tensor=-1).resolved(n).tensor
 
 

@@ -22,7 +22,9 @@ resilience, overload and tenant planes (``tenancy.py``,
 ``engine/overload.py``, ``testing/faults.py``, whose reference modules load
 without JAX and, for the faults, with ``aiohttp``) load none of JAX, the
 JAX package or ``aiohttp``: ``production_stack_tpu_torch.testing`` is the
-port's own, ``production_stack_tpu.testing`` is forbidden.
+port's own, ``production_stack_tpu.testing`` is forbidden. Ring attention
+(``parallel/ring_attention.py``) loads neither JAX nor the JAX package's
+ring attention module it ports.
 """
 
 import ast
@@ -369,6 +371,41 @@ def test_pipeline_modules_load_no_jax():
 
 @pytest.mark.parametrize("module", PIPELINE)
 def test_pipeline_static_imports(module):
+    path = ROOT / (module.replace(".", "/") + ".py")
+    bad = [m for m in _imports(path) if forbidden(m)]
+    assert bad == [], f"{path.name} imports {bad}"
+
+
+RING = ("production_stack_tpu_torch.parallel.ring_attention",)
+
+
+def test_ring_prefix_trap():
+    """The reference's module of the same name is forbidden, the port's
+    is not."""
+    for name in RING:
+        assert not forbidden(name)
+        assert forbidden(name.replace("production_stack_tpu_torch",
+                                      "production_stack_tpu"))
+
+
+def test_ring_modules_load_no_jax():
+    """Ring attention loads neither JAX nor the JAX package's ring
+    attention module it ports."""
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {RING!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(RING) <= set(mods)
+    assert [m for m in mods if forbidden(m)] == []
+
+
+@pytest.mark.parametrize("module", RING)
+def test_ring_static_imports(module):
     path = ROOT / (module.replace(".", "/") + ".py")
     bad = [m for m in _imports(path) if forbidden(m)]
     assert bad == [], f"{path.name} imports {bad}"

@@ -1154,3 +1154,72 @@ def test_tensor_parallel_features_on_one_card_match_cpu(cuda, case,
     for r in reports:
         launched = {k for k, n in r["launches"].items() if n}
         assert {"K1", "K2", "K3"} <= launched, (case, r)
+
+
+# -- sequence parallelism: seq ranks sharing this card over gloo --------------
+
+def test_sequence_parallel_ring_on_one_card_matches_cpu(cuda):
+    """float32 tiny-llama at sequence-parallel size 2, both ranks on this
+    card over gloo, ring threshold 16: the long prompts prefill through
+    the ring (one call each, padded to 64) and the greedy tokens equal
+    the CPU's chunked prefill at seq 1; each ring call wrote its pool
+    through K1, once a layer; every rank's digest is rank 0's and every
+    rank launched K1 and K3; and every rank's pool holds, for the first
+    prompt's cached blocks, the CPU engine's K/V within 1e-5, the ranks'
+    bit for bit alike."""
+    from production_stack_tpu_torch.engine.config import (
+        CacheConfig,
+        EngineConfig,
+        SchedulerConfig,
+    )
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+    from production_stack_tpu_torch.engine.weights import init_random
+    from production_stack_tpu_torch.parallel.mesh import MeshConfig
+
+    params = init_random(EngineConfig.for_model("tiny-llama").model, seed=0)
+    rng = np.random.default_rng(20)
+    prompts = [rng.integers(0, 259, n).tolist() for n in (45, 5, 37)]
+    sp = SamplingParams(temperature=0.0, max_tokens=12, ignore_eos=True)
+
+    def cfg(seq):
+        return EngineConfig.for_model(
+            "tiny-llama", cache=CacheConfig(block_size=16, num_blocks=128),
+            scheduler=SchedulerConfig(max_num_seqs=4,
+                                      max_num_batched_tokens=32,
+                                      ring_prefill_threshold=16),
+            mesh=MeshConfig(seq=seq, tensor=1))
+
+    cpu = LLMEngine(cfg(1), params=params, device="cpu")
+    want = cpu.generate(prompts, sp)
+    blocks, _ = cpu.scheduler.allocator.match_prefix(prompts[0])
+    cpu_pool = cpu.runner.export_blocks(blocks)
+    eng = LLMEngine(cfg(2), params=params, device=cuda,
+                    rank_devices=["cuda:0"] * 2, backend="gloo")
+    try:
+        k1_per_call = []
+        inner = eng.runner.prefill_ring
+
+        def ring(tokens, *args, **kwargs):
+            n0 = k1.LAUNCHES.n
+            out = inner(tokens, *args, **kwargs)
+            k1_per_call.append((int(tokens.shape[1]), k1.LAUNCHES.n - n0))
+            return out
+
+        eng.runner.prefill_ring = ring
+        got = eng.generate(prompts, sp)
+        reports = eng.runner.follower_reports()
+        mine, _ = eng.scheduler.allocator.match_prefix(prompts[0])
+        pools = eng.runner.gather("export_blocks", mine)
+    finally:
+        eng.close()
+    assert got == want
+    layers = cfg(2).model.num_layers
+    assert k1_per_call == [(64, layers), (64, layers)]
+    assert len({(r["calls"], r["digest"]) for r in reports}) == 1
+    for r in reports:
+        assert {"K1", "K3"} <= {k for k, n in r["launches"].items() if n}
+    assert list(mine) and len(mine) == len(blocks)
+    assert np.array_equal(pools[0], pools[1])
+    np.testing.assert_allclose(pools[0], cpu_pool.numpy(), rtol=1e-5,
+                               atol=1e-5)

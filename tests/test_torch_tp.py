@@ -435,6 +435,11 @@ def test_unported_parallel_sizes_exit(flag):
         assert (tserver.config_from_args(args).mesh
                 == MeshConfig(stage=2, tensor=1))
         return
+    if flag == "--sequence-parallel-size":
+        # ported: two seq ranks (test_torch_ring_serving.py serves them)
+        assert (tserver.config_from_args(args).mesh
+                == MeshConfig(seq=2, tensor=1))
+        return
     with pytest.raises(SystemExit, match=f"{flag} 2: .*not ported"):
         tserver.config_from_args(args)
 
