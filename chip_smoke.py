@@ -134,7 +134,8 @@ fatal):
    histograms. K1, K2 and K3 launch, K4 not.
 
 10. The scoring surface (``scoring-surface``): llama-3-8b bf16 at full
-   width and depth, random weights from seed 0, default scheduler, pool
+   width and ``CUT_LAYERS`` (8) of its 32 layers (since PR 21: the
+   script's time), random weights from seed 0, default scheduler, pool
    at 0.9, through the HTTP server. (a) 4 greedy completions (256-1024
    byte tokens, 32 out, logprobs 1), one at a time, then each prompt and
    completion echoed with ``max_tokens: 0``: every echo entry at a
@@ -238,7 +239,8 @@ fatal):
    and K3 launch, K4 not. Then no bundle in the default archive, where
    every other phase's servers keep theirs, is an ``hbm_pressure`` one.
 14. The decode step as CUDA graphs (``decode-graphs``): llama-3-8b bf16
-   at full width and depth, seed 0, default scheduler, prefix cache off
+   at full width and ``CUT_LAYERS`` of its layers (since PR 21: the
+   script's time), seed 0, default scheduler, prefix cache off
    (a repeated run must prefill as the first did), one ``LLMEngine`` in
    this process whose graphs and chain are toggled between windows. (c)
    ``warm_decode_graphs``: every key without an adapter at every rung of
@@ -432,25 +434,41 @@ fatal):
    prompt again takes the chunked path with ``(n - 1) // 16 * 16``
    tokens cached and no ring call, and its tokens are (a)'s. (e) The
    server in a fresh process (``--tp-server PORT --tensor-parallel-size
-   1 --sequence-parallel-size 2``, ``CUT_LAYERS`` layers) answers a
+   1 --sequence-parallel-size 2``, ``CUT_LAYERS`` layers; started as the
+   phase starts, so that its start-up runs beside (a)-(d)) answers a
    6000-token completion with 16 tokens through the ring (its
    ``prefill_ring:8192`` signature in ``/debug/perf``), and its follower
    is gone within 3 s of SIGTERM.
+21. Sequence x tensor parallelism (``seq2tp2``): phase 20 on the seq x
+   tensor grid, seq 2 x tp 2: four processes on this card over gloo, each
+   tensor rank's two seq ranks holding its shard (H 16, KH 4) and a pool
+   of ``SEQ_BLOCKS`` blocks of its KV heads, decode eager (the tensor
+   group's collectives run in decode). (a)-(d) as phase 20 on the same
+   prompts, the band from the chunked run's own deviation on this engine;
+   (b) rank 0's ``ring_rotate`` and ``ring_gather`` bytes are each half
+   phase 20's (4 prompts x the layers x a 4096-token shard of 4 KV heads,
+   8.4 MB), every follower's digest and launches rank 0's, and the tensor
+   group's bytes are printed by op. (e) The server in a fresh process
+   (``--tp-server PORT --tensor-parallel-size 2 --sequence-parallel-size
+   2``), started before phase 20 so that its start-up runs beside it,
+   answers the 6000-token completion through the ring, and its three
+   followers are gone within 3 s of SIGTERM.
 
 Phases 4-14 run with decode graphs on, the default; phase 5's bf16 run
 through the plain versions decodes eagerly (a plain version synchronises
 with the host, which a capture cannot hold), and so do phases 15-17
 (a gloo collective cannot be captured) and phase 19 (a staged runner
 decodes eagerly); Whisper's paths have no graphs. Phase 20's seq ranks
-keep theirs: their decode runs no collective.
+keep theirs: their decode runs no collective. Phase 21's decode runs its
+tensor group's, so it decodes eagerly.
 
 The line before the card line carries the kernels' JSON record, whose
 ``launches`` sum each kernel's launches over every served path (each
 path's own counts are in ``launches_by_path``, ``moe-int8``, ``kv-plane``,
 ``scoring-surface``, ``whisper``, ``overload``, ``observability``,
 ``decode-graphs``, ``tp2``, ``tp2-lora-ragged``, ``tp2-lora-bucketed``,
-``tp2-moe-int8``, ``tp2-kv-plane``, ``tp2-whisper`` (rank 0's), ``pp2``
-and ``seq2`` (rank 0's) among them; a graph
+``tp2-moe-int8``, ``tp2-kv-plane``, ``tp2-whisper`` (rank 0's), ``pp2``,
+``seq2`` and ``seq2tp2`` (rank 0's) among them; a graph
 replay adds
 the launches its capture recorded); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -499,13 +517,14 @@ TIE_GAP = 1e-4
 # greedy flip is accepted only where the top-2 gap is within that band
 BF16_LOGPROB_BAND = 0.05
 
-# phases 7, 13, 15-18 and 20 serve their models at full width and this
-# many of their layers (whisper-large-v3-class: of its encoder's and of
-# its decoder's each). What they check holds at any depth, and each judged
-# comparison holds two runs of one depth; at full depth the script took
-# 900-1,300 s of its 1,200 s limit, the gloo phases 15-18 varying most
-# with the host, and phase 20 84 s. Phases 4-6, 8-12, 14 and 19 keep the
-# full depth.
+# phases 7, 10, 13, 14, 15-18, 20 and 21 serve their models at full width
+# and this many of their layers (whisper-large-v3-class: of its encoder's
+# and of its decoder's each). What they check holds at any depth, and
+# each judged comparison holds two runs of one depth; at full depth the
+# script took 900-1,300 s of its 1,200 s limit, the gloo phases 15-18
+# varying most with the host, and phase 20 84 s; with phase 21 and 10 and
+# 14 at full depth, 853 s. Phases 4-6, 8, 9, 11, 12 and 19 keep the full
+# depth.
 CUT_LAYERS = 8
 
 
@@ -3839,7 +3858,8 @@ def _leaves(tree):
 
 def scoring_phase(torch, np, counters, card: str) -> dict:
     """Phase 10 (``scoring-surface``): llama-3-8b bf16 at full width and
-    depth, random weights from seed 0, default scheduler, pool at 0.9.
+    ``CUT_LAYERS`` of its layers, random weights from seed 0, default
+    scheduler, pool at 0.9.
     (a) echo against generation, (b) a 64-choice guided_choice, (c)
     embeddings, pooling, score and rerank, (d) chat, Messages and
     Responses, (e) sleep at levels 1 and 2. Returns the phase's launches
@@ -3850,8 +3870,8 @@ def scoring_phase(torch, np, counters, card: str) -> dict:
         config_from_args,
     )
 
-    cfg = config_from_args(build_parser().parse_args(
-        ["--model", "llama-3-8b", "--seed", "0"]))
+    cfg = _cut_depth(config_from_args(build_parser().parse_args(
+        ["--model", "llama-3-8b", "--seed", "0"])))
     t0 = time.perf_counter()
     server = EngineServer(cfg, device="cuda")
     base = f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
@@ -5868,8 +5888,8 @@ def _dg_sleep(torch, np, eng, graphs, card: str) -> dict:
 
 
 def decode_graphs_phase(torch, np, counters, card: str) -> dict:
-    """Phase 14: llama-3-8b bf16, seed 0, default scheduler, prefix cache
-    off, one engine in this process with its graphs toggled between windows: (c) capture,
+    """Phase 14: llama-3-8b bf16 at ``CUT_LAYERS`` layers, seed 0, default
+    scheduler, prefix cache off, one engine in this process with its graphs toggled between windows: (c) capture,
     (a) identity, (b) timing and traces, (d) sleep; then, the engine
     released, K3 at the ladder's plan. Returns the phase's launches (K1,
     K2 and K3; K1 and K3 through the replays)."""
@@ -5883,7 +5903,7 @@ def decode_graphs_phase(torch, np, counters, card: str) -> dict:
     # no prefix cache: a run repeated for comparison must prefill as the
     # first one did, not from its cached blocks
     eng = LLMEngine(EngineConfig.for_model(
-        "llama-3-8b", seed=0,
+        "llama-3-8b", seed=0, num_layers=CUT_LAYERS,
         cache=CacheConfig(enable_prefix_caching=False)), device="cuda")
     graphs = eng.runner.graphs
     if graphs is None:
@@ -6100,16 +6120,24 @@ def tp_server_child(argv: list) -> int:
     (``server.main``: SIGTERM drains, then the process exits); the further
     flags pass through (``--role``, the tiers, ``--model
     whisper-large-v3-class``, ``--tensor-parallel-size 1
-    --sequence-parallel-size 2``; a repeated flag's last value wins)."""
+    --sequence-parallel-size 2``, ``--sequence-parallel-size 2`` on the
+    seq x tensor grid; a repeated flag's last value wins), every process
+    on cuda:0."""
     sys.path.insert(0, str(ROOT))
     from production_stack_tpu_torch.engine import server
 
+    def last(flag: str, default: int) -> int:
+        got = [argv[i + 1] for i, a in enumerate(argv[:-1]) if a == flag]
+        return int(got[-1]) if got else default
+
+    n = (last("--tensor-parallel-size", 2)
+         * last("--sequence-parallel-size", 1))
     with _CutServers():
         server.main(["--model", "llama-3-8b", "--host", "127.0.0.1",
                      "--port", argv[0], "--tensor-parallel-size", "2",
                      "--num-blocks", "1024", "--max-num-seqs", "16",
                      "--skip-warmup", *argv[1:]],
-                    rank_devices=["cuda:0", "cuda:0"], backend="gloo")
+                    rank_devices=["cuda:0"] * n, backend="gloo")
     return 0
 
 
@@ -6142,9 +6170,9 @@ class _TpServer:
         return self.logf.read().decode(errors="replace")[-3000:]
 
     def up(self, tag: str, timeout: float = 300,
-           graphs: bool = False) -> dict:
-        """Wait for the server; returns its ``/debug/perf`` ranks, two of
-        them, decoding through graphs as ``graphs`` says."""
+           graphs: bool = False, size: int = 2) -> dict:
+        """Wait for the server; returns its ``/debug/perf`` ranks, ``size``
+        of them, decoding through graphs as ``graphs`` says."""
         while True:
             try:
                 status, _, raw = _http(self.base, "/debug/perf")
@@ -6159,7 +6187,7 @@ class _TpServer:
         self.up_s = time.perf_counter() - self.t0
         ranks = json.loads(raw)["ranks"]
         self.pids = [self.proc.pid] + ranks["pids"][1:]
-        if ranks["size"] != 2 or ranks["decode_graphs"] != graphs:
+        if ranks["size"] != size or ranks["decode_graphs"] != graphs:
             raise AssertionError(f"[{tag}] ranks {ranks}")
         return ranks
 
@@ -7942,7 +7970,7 @@ def pp_phase(torch, np, counters, card: str) -> dict:
     return launches
 
 
-SEQ_NOTE = ("two seq ranks share one card over gloo, their exchange "
+SEQ_NOTE = ("the seq ranks share one card over gloo, their exchange "
             "staged through host memory: not a sequence-parallel speed")
 SEQ_MODEL = "llama-3-8b"
 SEQ_MAX_LEN = 8192
@@ -7956,11 +7984,12 @@ SEQ_SERVER_LEN = 6000  # (e)'s prompt
 SEQ_IDS = 32000  # prompts' token ids lie below this
 
 
-def _seq_engine():
+def _seq_engine(tp: int = 1):
     """llama-3-8b bf16 at ``CUT_LAYERS`` layers, seed 0, max_model_len
-    8192, at sequence-parallel size 2 with both ranks on cuda:0 over
-    gloo: the ragged path, the prefix cache and decode graphs on,
-    ``SEQ_BLOCKS`` blocks a rank, ring threshold ``SEQ_THRESHOLD``."""
+    8192, at sequence-parallel size 2 and tensor-parallel size ``tp``
+    with every process on cuda:0 over gloo: the ragged path, the prefix
+    cache on, decode graphs on (kept at tensor size 1 only),
+    ``SEQ_BLOCKS`` blocks a process, ring threshold ``SEQ_THRESHOLD``."""
     from production_stack_tpu_torch.engine.config import (
         CacheConfig,
         EngineConfig,
@@ -7973,8 +8002,8 @@ def _seq_engine():
         SEQ_MODEL, seed=0, max_model_len=SEQ_MAX_LEN,
         num_layers=CUT_LAYERS, cache=CacheConfig(num_blocks=SEQ_BLOCKS),
         scheduler=SchedulerConfig(ring_prefill_threshold=SEQ_THRESHOLD),
-        mesh=MeshConfig(seq=2, tensor=1))
-    return LLMEngine(cfg, device="cuda", rank_devices=["cuda:0"] * 2,
+        mesh=MeshConfig(seq=2, tensor=tp))
+    return LLMEngine(cfg, device="cuda", rank_devices=["cuda:0"] * 2 * tp,
                      backend="gloo")
 
 
@@ -8021,17 +8050,24 @@ def _seq_reuse(eng, prompt, sp) -> tuple:
     return toks, cached
 
 
-def _seq_server(np) -> dict:
-    """(e) The seq 2 server in a fresh process at ``CUT_LAYERS`` layers:
-    a long completion through the ring, then SIGTERM."""
-    srv = _TpServer(["--tensor-parallel-size", "1",
-                     "--sequence-parallel-size", "2", "--max-model-len",
-                     str(SEQ_MAX_LEN), "--ring-prefill-threshold",
-                     str(SEQ_THRESHOLD)])
+def _seq_server_start(tp: int = 1) -> "_TpServer":
+    """(e)'s server in a fresh process at ``CUT_LAYERS`` layers, seq 2 and
+    tensor size ``tp`` (started ahead of its phase: its start-up runs on
+    the host beside earlier work)."""
+    return _TpServer(["--tensor-parallel-size", str(tp),
+                      "--sequence-parallel-size", "2", "--max-model-len",
+                      str(SEQ_MAX_LEN), "--ring-prefill-threshold",
+                      str(SEQ_THRESHOLD)])
+
+
+def _seq_server(np, srv: "_TpServer", tp: int, tag: str) -> dict:
+    """(e) A long completion through the ring on ``srv``, then SIGTERM:
+    its followers gone within ``TP_GONE_S``."""
     try:
-        ranks = srv.up("seq2", graphs=True)
-        if ranks["axis"] != "seq":
-            raise AssertionError(f"[seq2] (e) ranks {ranks}")
+        ranks = srv.up(tag, graphs=tp == 1, size=2 * tp)
+        if ranks["shape"] != ({"seq": 2} if tp == 1 else
+                              {"seq": 2, "tensor": tp}):
+            raise AssertionError(f"[{tag}] (e) ranks {ranks}")
         prompt = np.random.default_rng(21).integers(0, SEQ_IDS,
                                                     SEQ_SERVER_LEN)
         status, out, wall = _post(srv.base, "/v1/completions", {
@@ -8039,14 +8075,14 @@ def _seq_server(np) -> dict:
             "max_tokens": SEQ_TOKENS, "temperature": 0.0,
             "ignore_eos": True})
         if status != 200 or out["usage"]["completion_tokens"] != SEQ_TOKENS:
-            raise AssertionError(f"[seq2] (e) the long completion: "
+            raise AssertionError(f"[{tag}] (e) the long completion: "
                                  f"{status} {out}")
         counts = json.loads(_http(srv.base, "/debug/perf")[2])[
             "compile"]["counts"]
         if not counts.get(f"prefill_ring:{SEQ_PAD}"):
-            raise AssertionError(f"[seq2] (e) the completion took no ring "
+            raise AssertionError(f"[{tag}] (e) the completion took no ring "
                                  f"prefill: {counts}")
-        stop = srv.stop("seq2")
+        stop = srv.stop(tag)
     except BaseException:
         log(srv.log_tail())
         srv.kill()
@@ -8054,11 +8090,14 @@ def _seq_server(np) -> dict:
     return {"up_s": srv.up_s, "completion_s": wall, **stop}
 
 
-def seq_phase(torch, np, counters, card: str) -> dict:
-    """Phase 20: llama-3-8b at sequence-parallel size 2 and
-    ``CUT_LAYERS`` layers, both ranks on this card (module docstring).
-    Returns the ring wave's launches."""
+def _ring_phase(torch, np, counters, card: str, tp: int, tag: str,
+                srv: "_TpServer") -> dict:
+    """Phases 20 (``tp`` 1) and 21 (``tp`` 2): llama-3-8b at seq 2 and
+    tensor size ``tp``, ``CUT_LAYERS`` layers, every process on this card
+    (module docstring); ``srv`` is (e)'s server, already started. Returns
+    the ring wave's launches."""
     from production_stack_tpu_torch.engine.sampling import SamplingParams
+    from production_stack_tpu_torch.parallel.distributed import RING_OPS
 
     t_phase = time.perf_counter()
     rng = np.random.default_rng(20)
@@ -8066,9 +8105,12 @@ def seq_phase(torch, np, counters, card: str) -> dict:
     sp = SamplingParams(temperature=0.0, max_tokens=SEQ_TOKENS,
                         ignore_eos=True, logprobs=2)
     t0 = time.perf_counter()
-    eng = _seq_engine()
+    eng = _seq_engine(tp)
     up = time.perf_counter() - t0
     try:
+        info = eng.rank_info()
+        if info["decode_graphs"] != (tp == 1) or info["size"] != 2 * tp:
+            raise AssertionError(f"[{tag}] ranks {info}")
         calls = _seq_ring_calls(eng)
         before = eng.runner.follower_reports()
         wire0 = dict(eng.runner.ranks.wire)
@@ -8079,26 +8121,31 @@ def seq_phase(torch, np, counters, card: str) -> dict:
         launches = _counts(counters)
         wire = {op: n - wire0.get(op, 0.0)
                 for op, n in eng.runner.ranks.wire.items()}
-        _tp_agree("seq2 (b)", eng.runner.follower_reports(), launches,
+        _tp_agree(f"{tag} (b)", eng.runner.follower_reports(), launches,
                   before)
-        _expect(launches, {"K1", "K3"}, "seq2")
+        _expect(launches, {"K1", "K3"}, tag)
         if calls != [SEQ_PAD] * len(prompts):
-            raise AssertionError(f"[seq2] (b) ring calls {calls}, want one "
+            raise AssertionError(f"[{tag}] (b) ring calls {calls}, want one "
                                  f"of {SEQ_PAD} tokens a prompt")
-        # each layer: one rotation of a rank's half of K and V, and the
-        # gather of the other half
+        # each layer: one rotation of a seq rank's half of K and V at its
+        # KV heads, and the gather of the other half
         cfg, bs = eng.config.model, eng.config.cache.block_size
-        shard = (SEQ_PAD // 2 * 2 * cfg.num_kv_heads * cfg.head_dim
+        shard = (SEQ_PAD // 2 * 2 * (cfg.num_kv_heads // tp) * cfg.head_dim
                  * cfg.torch_dtype.itemsize)
         want = len(prompts) * cfg.num_layers * shard
         if (wire.get("ring_rotate"), wire.get("ring_gather")) != (want,
                                                                    want):
-            raise AssertionError(f"[seq2] (b) wire {wire}, want {want} "
+            raise AssertionError(f"[{tag}] (b) wire {wire}, want {want} "
                                  "bytes rotated and gathered")
+        tensor_wire = {op: n for op, n in wire.items()
+                       if op not in RING_OPS and n}
+        if (tp > 1) != bool(tensor_wire):
+            raise AssertionError(f"[{tag}] (b) the tensor group's wire "
+                                 f"{tensor_wire} at tensor size {tp}")
         reuse, cached = _seq_reuse(eng, prompts[0], sp)
         if (reuse != ring[0][0] or len(calls) != len(prompts)
                 or cached != (len(prompts[0]) - 1) // bs * bs):
-            raise AssertionError(f"[seq2] (d) the prompt again: cached "
+            raise AssertionError(f"[{tag}] (d) the prompt again: cached "
                                  f"{cached}, ring calls {calls}, tokens "
                                  f"{reuse} against {ring[0][0]}")
         long_prompt = rng.integers(0, SEQ_IDS, SEQ_LONG).tolist()
@@ -8117,32 +8164,48 @@ def seq_phase(torch, np, counters, card: str) -> dict:
         rep = _tp_repeat_dev(eng, prompts, sp, chunked)
         walls["chunked"] = _seq_prefill(torch, eng, long_prompt)
         if len(calls) != len(prompts) + 1:
-            raise AssertionError(f"[seq2] ring calls {calls}")
+            raise AssertionError(f"[{tag}] ring calls {calls}")
     finally:
         eng.close()
     del eng
-    _released(torch, "seq2")
+    _released(torch, tag)
     band = max(BF16_LOGPROB_BAND, 2 * rep)
     # a flip is a near-tie where the chunked run's top-2 gap is under
     # the band
-    compared, worst = _tp_same("seq2 (a) ring against chunked", chunked,
+    compared, worst = _tp_same(f"{tag} (a) ring against chunked", chunked,
                                ring, band, tie_gap=band)
-    log(f"[seq2] (a)+(b) {SEQ_MODEL} at seq 2, both ranks on one card "
-        f"({card}): up in {up:.1f} s; the ring wave in {ring_s:.1f} s, the "
-        f"chunked one in {chunked_s:.1f} s; {compared} greedy tokens equal "
-        f"the chunked path's, logprobs within {worst:.4f} (band "
+    where = ("both ranks" if tp == 1 else f"all {2 * tp} processes")
+    log(f"[{tag}] (a)+(b) {SEQ_MODEL} at seq 2 x tp {tp}, {where} on one "
+        f"card ({card}): up in {up:.1f} s; the ring wave in {ring_s:.1f} "
+        f"s, the chunked one in {chunked_s:.1f} s; {compared} greedy tokens "
+        f"equal the chunked path's, logprobs within {worst:.4f} (band "
         f"{band:.4f}, the chunked run's own deviation {rep:.4f}); ring "
         f"calls {calls}; launches {json.dumps(launches)}; rank 0's wire "
-        f"{json.dumps(wire)} (predicted {want} rotated and gathered)")
-    log(f"[seq2] (c) one {SEQ_LONG}-token prefill to its first token "
+        f"{json.dumps(wire)} (predicted {want} rotated and gathered; the "
+        f"tensor group's by op {json.dumps(tensor_wire)})")
+    log(f"[{tag}] (c) one {SEQ_LONG}-token prefill to its first token "
         f"({card}; {SEQ_NOTE}): {json.dumps(walls)}")
-    log(f"[seq2] (d) the first prompt again: {cached} tokens cached, its "
+    log(f"[{tag}] (d) the first prompt again: {cached} tokens cached, its "
         f"{len(reuse)} tokens equal the ring's")
-    srv = _seq_server(np)
-    log(f"[seq2] (e) the server at --sequence-parallel-size 2 ({card}): "
-        f"{json.dumps(srv)}; phase 20 in "
-        f"{time.perf_counter() - t_phase:.1f} s")
+    out = _seq_server(np, srv, tp, tag)
+    log(f"[{tag}] (e) the server at --sequence-parallel-size 2 "
+        f"--tensor-parallel-size {tp} ({card}): {json.dumps(out)}; the "
+        f"phase in {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+def seq_phase(torch, np, counters, card: str) -> dict:
+    """Phase 20: llama-3-8b at sequence-parallel size 2, tensor size 1
+    (module docstring). Returns the ring wave's launches."""
+    return _ring_phase(torch, np, counters, card, 1, "seq2",
+                       _seq_server_start(1))
+
+
+def grid_phase(torch, np, counters, card: str, srv: "_TpServer") -> dict:
+    """Phase 21: llama-3-8b on the seq x tensor grid, seq 2 x tp 2, four
+    processes on this card (module docstring); ``srv`` is its server,
+    started beside phase 20. Returns the ring wave's launches."""
+    return _ring_phase(torch, np, counters, card, 2, "seq2tp2", srv)
 
 
 def _no_hbm_alarm_left(pids=()) -> int:
@@ -8269,8 +8332,14 @@ def main() -> int:
     lap("18 tp2-whisper")
     by_path["pp2"] = pp_phase(torch, np, counters, card)
     lap("19 pp2")
-    by_path["seq2"] = seq_phase(torch, np, counters, card)
-    lap("20 seq2")
+    grid_srv = _seq_server_start(2)  # phase 21's, up beside phase 20
+    try:
+        by_path["seq2"] = seq_phase(torch, np, counters, card)
+        lap("20 seq2")
+        by_path["seq2tp2"] = grid_phase(torch, np, counters, card, grid_srv)
+    finally:
+        grid_srv.kill()
+    lap("21 seq2tp2")
     _no_hbm_alarm_left(kv_tp["pids"])
     log(f"[phases] seconds ({card}): " + json.dumps(
         {name: round(t - laps[k - 1][1], 1)

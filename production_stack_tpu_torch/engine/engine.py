@@ -61,9 +61,12 @@ carry yet raises at start (``multihost.refusal``); ``close`` stops them.
 The KV plane's calls and the tiers are rank 0's: its runner hands them
 whole blocks, every rank's heads joined, and scatters what they import.
 
-Sequence parallelism (``config.mesh.seq`` above 1, at tensor and pipeline
-size 1): the engine is rank 0 of a group of seq ranks it starts in the
-same way, each holding the whole model and a whole pool. With
+Sequence parallelism (``config.mesh.seq`` above 1, at pipeline size 1):
+the engine is rank 0 of a group of seq ranks it starts in the same way,
+each holding the whole model and a whole pool; at a tensor size T above 1
+as well, of the seq x tensor grid (parallel/distributed.py
+``AXIS_GRID``): seq times T processes, each seq rank T tensor ranks
+holding one shard each and a pool of its KV heads. With
 ``ring_prefill_threshold`` above 0 (``ring_enabled``) the scheduler sends
 each long fresh prompt whole and alone to ``_run_prefill_ring``, the
 reference's: the prompt padded to a power of two and a multiple of the
@@ -113,6 +116,7 @@ from production_stack_tpu_torch.engine.multihost import (
     start_ranks,
 )
 from production_stack_tpu_torch.engine.pp_runner import StagedModelRunner
+from production_stack_tpu_torch.parallel.distributed import AXIS_GRID
 from production_stack_tpu_torch.parallel.mesh import AXIS_SEQ
 from production_stack_tpu_torch.parallel.mesh import stage_devices as pstages
 from production_stack_tpu_torch.parallel.mesh import tensor_size
@@ -180,7 +184,9 @@ class LLMEngine:
         ranks (one device a rank; parallel/distributed.py's defaults:
         ``cuda:r`` and ``nccl`` on cards, the CPU and ``gloo`` otherwise);
         they are unused at tensor-parallel size 1. They place the seq
-        ranks alike at a sequence-parallel size above 1. ``stage_devices``
+        ranks alike at a sequence-parallel size above 1, and on the seq x
+        tensor grid every process, by global rank (seq rank times the
+        tensor size plus tensor rank). ``stage_devices``
         places the pipeline stages (parallel/mesh.stage_devices' default:
         ``cuda:s`` on cards, the CPU otherwise); unused at one stage."""
         self.config = config
@@ -192,11 +198,15 @@ class LLMEngine:
             raise ValueError(
                 f"pipeline parallelism ({S} stages) with tensor parallelism "
                 f"({tp} ranks) is not ported yet")
-        if sp > 1 and (tp > 1 or S > 1):
+        if sp > 1 and S > 1:
             raise ValueError(
-                f"sequence parallelism ({sp} ranks) with tensor ({tp}) or "
-                f"pipeline ({S}) parallelism is not ported yet")
-        if sp > 1:
+                f"sequence parallelism ({sp} ranks) with pipeline ({S}) "
+                "parallelism is not ported yet")
+        if sp > 1 and tp > 1:
+            self.runner = start_ranks(config, params, num_blocks, device,
+                                      sp * tp, rank_devices, backend,
+                                      axis=AXIS_GRID, tensor=tp)
+        elif sp > 1:
             self.runner = start_ranks(config, params, num_blocks, device, sp,
                                       rank_devices, backend, axis=AXIS_SEQ)
         elif S > 1:
@@ -1678,17 +1688,23 @@ class LLMEngine:
 
     @property
     def tensor_parallel_ranks(self) -> int:
-        """Ranks the engine's runner spans (1 without tensor or sequence
-        parallelism)."""
+        """Processes the engine's runner spans (1 without tensor or
+        sequence parallelism; seq times tensor size on the grid)."""
         return self.runner.ranks.size if self.runner.ranks else 1
 
     def rank_info(self) -> dict:
-        """The ranks: their count and mesh axis, process ids (this process
-        first) and devices; whether decode steps run as CUDA graphs; this
+        """The ranks: their count and mesh axis (``seq,tensor`` on the
+        grid), each axis's size (``shape``), process ids (this process
+        first, then by global rank: seq rank times tensor size plus tensor
+        rank) and devices; whether decode steps run as CUDA graphs; this
         process's kernel launches so far (rank 0's)."""
         ranks = getattr(self.runner, "ranks", None)
         info = {"size": self.tensor_parallel_ranks,
                 "axis": ranks.axis if ranks is not None else None,
+                "shape": ({} if ranks is None else
+                          {a: g.size for a, g in (("seq", ranks.seq),
+                                                  ("tensor", ranks.tensor))
+                           if g is not None}),
                 "pids": [os.getpid()],
                 "devices": [str(self.device)],
                 "decode_graphs": self.runner.graphs is not None,

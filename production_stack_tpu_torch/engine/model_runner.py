@@ -85,6 +85,16 @@ gathered and written into every rank's pool by K1; every rank then
 samples the same token from the same logits. Decode has no collective
 under seq ranks, so each rank keeps its decode graphs on a card.
 
+**The seq x tensor grid.** With ``ranks`` on the grid
+(parallel/distributed.py ``AXIS_GRID``) the runner has two groups: the
+model's collectives run over ``ranks.tensor`` (``group``), as at tensor
+parallelism alone, and the ring over ``ranks.seq``, on this rank's
+local query and KV heads (``self.local``: where KV heads are
+replicated, as tiny-llama's two at tp 4, the one its query heads read,
+which is all its queries need), so the ring rotates, gathers and writes
+only this rank's KV heads. Decode runs the tensor group's collectives:
+its graphs stay off, as at tensor parallelism alone.
+
 ``install_compile_observer`` wraps the ragged and prefill steps and the
 decode step's program lookup (``decode_program``, which captures a new
 key's graph) in the perf accountant's ``CompileTracker``, keyed on what the
@@ -149,7 +159,6 @@ from production_stack_tpu_torch.ops.ragged_paged_attention import (
     ragged_work_map,
 )
 from production_stack_tpu_torch.parallel import shardings as ln
-from production_stack_tpu_torch.parallel.mesh import AXIS_SEQ
 from production_stack_tpu_torch.parallel.ring_attention import (
     ATTN_SCORE_BYTES as RING_SCORE_BYTES,
     ring_attention,
@@ -263,6 +272,8 @@ class ModelRunner:
         if ranks is not None:
             device = ranks.device
             ranks.shard = ranks.shard_of(self.cfg)
+            if ranks.tensor is not None:
+                ranks.tensor.shard = ranks.shard
             self.local = dataclasses.replace(
                 self.cfg,
                 num_heads=ranks.shard.local(ln.HEADS, self.cfg.num_heads),
@@ -347,12 +358,13 @@ class ModelRunner:
         # a step's contexts reach at most max_model_len + multi_step - 1
         self.decode_rungs = plan_ladder(self.cfg.max_model_len
                                         + self.decode_steps - 1)
-        # seq ranks decode with no collective, so they keep their graphs
+        # seq ranks at tensor size 1 decode with no collective, so they
+        # keep their graphs
         self.graphs: Optional[DecodeGraphs] = (
             DecodeGraphs() if self.device.type == "cuda"
             and sched.decode_graphs
-            and (ranks is None or self.seq_parallel) else None)
-        if (ranks is not None and not self.seq_parallel
+            and (ranks is None or ranks.tensor_size == 1) else None)
+        if (ranks is not None and ranks.tensor_size > 1
                 and self.device.type == "cuda"):
             _log.info("tensor parallel rank %d of %d: decode graphs off "
                       "(collectives are not captured)", ranks.rank,
@@ -363,18 +375,25 @@ class ModelRunner:
 
     # -- tensor and sequence parallelism -------------------------------------
     def rank_of(self) -> tuple[int, int]:
-        """(rank, tensor-parallel size) of this runner's cut of the
-        weights; (0, 1) on one device and on seq ranks, which hold them
-        whole."""
+        """(tensor rank, tensor-parallel size) of this runner's cut of the
+        weights; (0, 1) on one device and on seq ranks at tensor size 1,
+        which hold them whole. The seq ranks of one tensor rank hold the
+        same cut."""
         if self.ranks is None or self.ranks.tensor_size == 1:
             return (0, 1)
-        return (self.ranks.rank, self.ranks.size)
+        return (self.ranks.tensor.rank, self.ranks.tensor_size)
+
+    @property
+    def group(self):
+        """The group the model's collectives run over: the tensor group
+        (None on one device and on seq ranks at tensor size 1)."""
+        return None if self.ranks is None else self.ranks.tensor
 
     @property
     def seq_parallel(self) -> bool:
-        """Whether this runner is a rank of a sequence-parallel group (the
+        """Whether this runner is a seq rank, alone or on the grid (the
         reference runner's ``seq_parallel``)."""
-        return self.ranks is not None and self.ranks.axis == AXIS_SEQ
+        return self.ranks is not None and self.ranks.seq is not None
 
     @property
     def tensor_parallel(self) -> int:
@@ -383,7 +402,7 @@ class ModelRunner:
         size, 1 where the heads are replicated or there is no group."""
         if self.ranks is None or ln.HEADS not in self.ranks.shard.sharded:
             return 1
-        return self.ranks.size
+        return self.ranks.tensor_size
 
     @property
     def cards(self) -> int:
@@ -400,7 +419,7 @@ class ModelRunner:
 
     def _logits(self, hidden, tokens=None):
         return self.model.logits_from_hidden(self.cfg, self.params, hidden,
-                                             tokens, self.ranks)
+                                             tokens, self.group)
 
     # -- compile tracking ----------------------------------------------------
     def ragged_lengths(self) -> list[int]:
@@ -581,12 +600,12 @@ class ModelRunner:
         slice's float32
         queries, output and running state, the K/V shard in flight (sent,
         received and its float32 copies) and a layer's K/V of all ``S``
-        tokens gathered."""
+        tokens gathered; on the grid at this rank's local heads."""
         if not self.seq_parallel:
             return 0
-        c = self.cfg
-        S = ring_length(c.max_model_len, self.ranks.size)
-        Sl = S // self.ranks.size
+        c, n = self.local, self.ranks.seq.size
+        S = ring_length(c.max_model_len, n)
+        Sl = S // n
         b = c.torch_dtype.itemsize
         kv_row = 2 * c.num_kv_heads * c.head_dim
         return int(self._step_bytes(Sl, 1) + 2 * RING_SCORE_BYTES
@@ -674,14 +693,15 @@ class ModelRunner:
 
     def _attend_ring(self, q, k, v, kv, layer, meta):
         """q (1, Sl, H, D), k/v (1, Sl, KH, D), this seq rank's slice of
-        the prompt: the ring over the ranks, then the layer's K+V of every
-        rank's slice gathered (``RankGroup.ring_gather``) and all S rows
-        written into this rank's pool (slot -1 on padding)."""
+        the prompt at its local heads: the ring over the seq ranks, then the
+        layer's K+V of every seq rank's slice gathered
+        (``RankGroup.ring_gather``) and all S rows written into this rank's
+        pool (slot -1 on padding)."""
+        seq = self.ranks.seq
         mine = combine_kv(k[0], v[0]).to(kv.dtype).contiguous()
-        out = ring_attention(q, k, v, self.ranks,
+        out = ring_attention(q, k, v, seq,
                              soft_cap=self.cfg.attn_logit_softcap)
-        kv_write(kv, self.ranks.ring_gather(mine), meta["slot_mapping"],
-                 layer)
+        kv_write(kv, seq.ring_gather(mine), meta["slot_mapping"], layer)
         return out, kv
 
     def _forward(self, attend_impl, tokens, positions, meta, lora=None,
@@ -694,7 +714,7 @@ class ModelRunner:
 
         hidden, self.kv = self.model.forward_tokens(
             self.cfg, self.params, tokens, positions, attend, self.kv, lora,
-            ref_tokens, group=self.ranks)
+            ref_tokens, group=self.group)
         return hidden
 
     # -- constrained-decoding grammar bank ---------------------------------
@@ -813,7 +833,7 @@ class ModelRunner:
             cfg, self.params, tokens, positions, attend, None,
             ref_tokens=ref_tokens,
             mlp_rows=self.config.scheduler.max_num_batched_tokens,
-            group=self.ranks)
+            group=self.group)
         return hidden
 
     @torch.inference_mode()
@@ -1241,15 +1261,18 @@ class ModelRunner:
         zero-padded, positions 0..S-1); slot_mapping (S,) flat KV slots
         (-1 on padding); last_idx (1,) the prompt's last token; adapter_ids
         (1,) its adapter. Rank r runs the model over tokens [r * Sl, (r +
-        1) * Sl), Sl = S / n (``_attend_ring``); the last token's hidden
-        row goes from the rank that holds it to every rank
-        (``RankGroup.ring_last``), and each samples the same token under
-        the token controls. Returns device tensors (sampled (1,), tok_lp
+        1) * Sl), Sl = S / n over the n seq ranks (``_attend_ring``; on the
+        grid each tensor group runs its slice with the model's
+        collectives); the last token's hidden row goes from the seq rank
+        that holds it to every seq rank (``RankGroup.ring_last``), the
+        vocab shards' logits are gathered over the tensor group, and each
+        rank samples the same token under the token controls. Returns device tensors (sampled (1,), tok_lp
         (1,), top_ids (1, N), top_lps (1, N)), the logprobs of the raw
         logits."""
         if not self.seq_parallel:
             raise RuntimeError("prefill_ring runs on sequence-parallel ranks")
-        n, r = self.ranks.size, self.ranks.rank
+        seq = self.ranks.seq
+        n, r = seq.size, seq.rank
         S = tokens.shape[1]
         if S % n:
             raise ValueError(f"ring prefill of {S} tokens over {n} ranks")
@@ -1265,7 +1288,7 @@ class ModelRunner:
         src = last // Sl
         row = (hidden[0, last - src * Sl] if r == src
                else hidden.new_empty(hidden.shape[-1]))
-        logits = self._logits(self.ranks.ring_last(row, src)[None])
+        logits = self._logits(seq.ring_last(row, src)[None])
         samp = self._sampling_inputs(temps, top_ps, top_ks, seeds,
                                      np.zeros(1, np.int32))
         sampled, _ = self._process_logits(logits, samp, greedy_only, None,

@@ -56,14 +56,26 @@ KV export is rank 0's own blocks (no call is sent), and an import sends
 every follower the whole blocks. What the seq ranks do not carry yet
 raises at start (``refusal``).
 
+**The seq x tensor grid** (``start_ranks(..., axis=AXIS_GRID,
+tensor=T)``, parallel/distributed.py): N seq ranks of T tensor ranks
+each, N * T processes, process ``g`` holding tensor rank ``g % T``'s
+shard, so the seq ranks of one tensor rank hold the same shard. Every
+call goes to all N * T - 1 followers. An adapter share goes to each
+process by its tensor rank. An export joins the tensor shares of seq rank
+0's tensor group (``RankGroup.tensor``; the other followers take the call
+and move nothing); an import sends each process its tensor share over the
+device group of them all, every seq rank the same shares.
+
 Agreement is checked, not assumed: each rank folds the tokens every call
 sampled into a running digest, the leader sends its digest with each
 call, and a follower whose digest differs logs the fault at once and
 keeps the call it first diverged at; ``MirroredRunner.follower_reports``
-gathers every rank's digest, call count, divergence and kernel launch
-counts, and ``MirroredRunner.gather`` every rank's answer to a read-only
-runner call (its KV blocks, say). Both run between runner calls, on the
-thread that makes them. The calls that move data besides the call fold
+gathers every rank's digest, call count, divergence and the kernel
+launches it made inside the ranks' calls (``Launched``: rank 0's process
+may have launched kernels, or had its counters reset, outside them), and
+``MirroredRunner.gather`` every rank's answer to a read-only runner call
+(its KV blocks, say). Both run between runner calls, on the thread that
+makes them. The calls that move data besides the call fold
 nothing into the digest and count as no call, on any rank. Chained
 decode dispatches pass the previous dispatch's device-resident tokens
 (``tokens_dev``); those cannot be sent, so a sentinel goes instead and
@@ -87,6 +99,7 @@ through a parent-pid watch.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import logging
 import multiprocessing
@@ -101,7 +114,7 @@ import torch
 from production_stack_tpu_torch.engine.kv_cache import adapter_root
 from production_stack_tpu_torch.engine.lora import adapter_share
 from production_stack_tpu_torch.parallel import distributed as pdist
-from production_stack_tpu_torch.parallel.mesh import AXIS_SEQ, AXIS_TENSOR
+from production_stack_tpu_torch.parallel.mesh import AXIS_TENSOR
 from production_stack_tpu_torch.parallel.shardings import (
     join_kv_shares,
     split_kv_share,
@@ -196,6 +209,29 @@ def kernel_launches() -> dict:
     return {c.name.split()[0]: c.n for c in _build.COUNTERS}
 
 
+class Launched:
+    """The kernel launches a rank made inside the ranks' calls: what each
+    call added to the process's counters (``kernel_launches``), summed.
+    Launches outside the calls (an earlier engine in the same process)
+    and a reset of the counters between calls stay out of a report, so
+    rank 0's launches compare with a follower's, which starts at 0."""
+
+    def __init__(self):
+        self.n: dict = {}
+
+    @contextlib.contextmanager
+    def counting(self):
+        before = kernel_launches()
+        try:
+            yield
+        finally:
+            for k, n in kernel_launches().items():
+                self.n[k] = self.n.get(k, 0) + n - before.get(k, 0)
+
+    def counts(self) -> dict:
+        return {k: self.n.get(k, 0) for k in kernel_launches()}
+
+
 class MirroredRunner:
     """Rank 0's runner: send the call, then run it locally.
 
@@ -210,6 +246,7 @@ class MirroredRunner:
         self.procs = procs
         self._digest = _Digest()
         self._pending = None  # (method, result) not yet folded
+        self._launched = Launched()
         self._seq = 0
         self._lock = threading.RLock()
         self._closed = False
@@ -222,7 +259,8 @@ class MirroredRunner:
             self._send(name, args, kwargs)
             # looked up at call time: the compile tracker wraps the local
             # runner's step methods after this runner is made
-            result = getattr(self._inner, name)(*args, **kwargs)
+            with self._launched.counting():
+                result = getattr(self._inner, name)(*args, **kwargs)
             self._pending = (name, result)
             return result
 
@@ -264,7 +302,8 @@ class MirroredRunner:
         with self._lock:
             self._send("register_lora", (slot,), {"root": root})
             self.ranks.scatter(shares)
-            self._inner.put_lora(slot, shares[0], root)
+            with self._launched.counting():
+                self._inner.put_lora(slot, shares[0], root)
 
     # -- the KV plane (module docstring) -----------------------------------
     def _moved(self, fn):
@@ -285,15 +324,18 @@ class MirroredRunner:
 
     def _export(self, method: str, args: tuple) -> torch.Tensor:
         """The whole of a KV gather on rank 0's device: its own blocks on
-        seq ranks, which each hold them whole."""
+        seq ranks, which each hold them whole; its tensor group's shares
+        joined otherwise (on the grid, seq rank 0's)."""
         self._check_blocks(args[0])
-        if self.ranks.axis == AXIS_SEQ:
+        tp = self.ranks.tensor
+        if tp is None:
             return getattr(self._inner, KV_GATHERS[method])(*args)
         with self._lock:
             self._send(method, args, {})
-            mine = getattr(self._inner, KV_GATHERS[method])(*args)
-            shares = self._moved(lambda: self.ranks.gather_kv(mine))
-        return join_kv_shares(shares, self._inner.cfg, self.ranks.size)
+            with self._launched.counting():
+                mine = getattr(self._inner, KV_GATHERS[method])(*args)
+            shares = self._moved(lambda: tp.gather_kv(mine))
+        return join_kv_shares(shares, self._inner.cfg, tp.size)
 
     def _import(self, method: str, args: tuple, whole: torch.Tensor,
                 want: tuple) -> None:
@@ -304,15 +346,18 @@ class MirroredRunner:
         if tuple(whole.shape) != tuple(want):
             raise ValueError(f"KV of shape {tuple(whole.shape)} where this "
                              f"engine takes {tuple(want)}")
-        cfg, size = self._inner.cfg, self.ranks.size
-        shares = ([whole] * size if self.ranks.axis == AXIS_SEQ else
-                  [split_kv_share(whole, cfg, r, size) for r in range(size)])
+        cfg, tp = self._inner.cfg, self.ranks.tensor_size
+        # process g takes tensor rank g % tp's share (tensor innermost)
+        cut = ([whole] if tp == 1 else
+               [split_kv_share(whole, cfg, t, tp) for t in range(tp)])
+        shares = [cut[g % tp] for g in range(self.ranks.size)]
         shape = tuple(shares[0].shape)
         with self._lock:
             self._send(method, args, {"shape": shape})
             mine = self._moved(lambda: self.ranks.scatter_kv(
                 shares, shape, whole.dtype))
-            getattr(self._inner, KV_SCATTERS[method])(*args, mine)
+            with self._launched.counting():
+                getattr(self._inner, KV_SCATTERS[method])(*args, mine)
 
     def _kv_rows(self) -> tuple:
         """A whole block's (bs, 2KH, D)."""
@@ -365,11 +410,11 @@ class MirroredRunner:
 
     def report(self) -> dict:
         """This rank's agreement state, live Whisper handles and kernel
-        launch counts."""
+        launches inside the ranks' calls (``Launched``)."""
         return {"rank": 0, "pid": os.getpid(), "calls": self._digest.calls,
                 "digest": self._digest.hex(), "diverged_at": None,
                 "live": live_handles(self._inner),
-                "launches": kernel_launches()}
+                "launches": self._launched.counts()}
 
     def follower_reports(self) -> list[dict]:
         """Every rank's report (``report``), rank 0's first. A follower's
@@ -385,8 +430,9 @@ class MirroredRunner:
         heads of those blocks)."""
         with self._lock:
             self._send("_gather", (method, *args), {})
-            return self.ranks.gather(_host(getattr(self._inner, method)(
-                *args)))
+            with self._launched.counting():
+                mine = _host(getattr(self._inner, method)(*args))
+            return self.ranks.gather(mine)
 
     def close(self) -> None:
         """Stop the followers (``_shutdown``, then a join; one that does
@@ -421,6 +467,7 @@ class FollowerReplayer:
         self.runner = runner
         self.digest = _Digest()
         self.diverged_at: Optional[int] = None
+        self.launched = Launched()
         self._next_tok = None
 
     def check(self, seq: int, leader_digest: str) -> None:
@@ -449,7 +496,7 @@ class FollowerReplayer:
                 "calls": self.digest.calls, "digest": self.digest.hex(),
                 "diverged_at": self.diverged_at,
                 "live": live_handles(self.runner),
-                "launches": kernel_launches()}
+                "launches": self.launched.counts()}
 
 
 def check_share(runner, method: str, args: tuple, shape: tuple) -> None:
@@ -479,21 +526,31 @@ def follower_loop(runner, ranks) -> None:
         if method == "_report":
             ranks.gather(replayer.report())
             continue
-        if method == "_gather":
-            ranks.gather(_host(getattr(runner, args[0])(*args[1:])))
-            continue
-        if method == "register_lora":
-            runner.put_lora(args[0], ranks.scatter(), kwargs["root"])
-            continue
-        if method in KV_GATHERS:
-            ranks.gather_kv(getattr(runner, KV_GATHERS[method])(*args))
-            continue
-        if method in KV_SCATTERS:
-            shape = tuple(kwargs["shape"])
-            check_share(runner, method, args, shape)
-            getattr(runner, KV_SCATTERS[method])(
-                *args, ranks.scatter_kv(None, shape, runner.kv.dtype))
-            continue
+        with replayer.launched.counting():
+            _follow(runner, ranks, replayer, method, args, kwargs)
+
+
+def _follow(runner, ranks, replayer, method: str, args: tuple,
+            kwargs: dict) -> None:
+    """One of the leader's calls on a follower: a read-only gather, an
+    adapter share, a KV share sent or received, or a replay."""
+    if method == "_gather":
+        ranks.gather(_host(getattr(runner, args[0])(*args[1:])))
+    elif method == "register_lora":
+        runner.put_lora(args[0], ranks.scatter(), kwargs["root"])
+    elif method in KV_GATHERS:
+        # an export joins seq rank 0's tensor group: on the grid the
+        # other seq ranks move nothing
+        seq = ranks.seq
+        if seq is None or seq.rank == 0:
+            ranks.tensor.gather_kv(getattr(runner, KV_GATHERS[method])(
+                *args))
+    elif method in KV_SCATTERS:
+        shape = tuple(kwargs["shape"])
+        check_share(runner, method, args, shape)
+        getattr(runner, KV_SCATTERS[method])(
+            *args, ranks.scatter_kv(None, shape, runner.kv.dtype))
+    else:
         try:
             replayer.replay(method, args, kwargs)
         except Exception:
@@ -545,7 +602,8 @@ def build_runner(config, params, num_blocks, ranks):
 
 def follower_main(rank: int, size: int, store_port: int, devices: list,
                   backend: str, config, params, num_blocks, parent_pid: int,
-                  threads: int, math: dict, axis: str = AXIS_TENSOR) -> None:
+                  threads: int, math: dict, axis: str = AXIS_TENSOR,
+                  tensor: int = 1) -> None:
     """A follower process: join the group, build this rank's runner, and
     replay the leader's calls, with the leader's thread count and float32
     math (``float32_math``)."""
@@ -558,7 +616,7 @@ def follower_main(rank: int, size: int, store_port: int, devices: list,
             format=f"%(asctime)s %(levelname)s rank{rank} %(name)s "
                    "%(message)s")
     ranks = pdist.init_rank(rank, size, store_port, devices, backend,
-                            axis=axis)
+                            axis=axis, tensor=tensor)
     try:
         follower_loop(build_runner(config, params, num_blocks, ranks),
                       ranks)
@@ -575,9 +633,10 @@ def refusal(config, axis: str = AXIS_TENSOR) -> Optional[str]:
     """What the ranks of ``axis`` do not carry yet in ``config``, named as
     the flag that asks for it; None when they carry all of it. Tensor
     parallelism carries every model and feature the port serves. Sequence
-    parallelism carries the dense models at full precision, unified:
-    Whisper, MoE models, int8 weights, a disaggregated role and the host
-    and remote KV tiers are later slices."""
+    parallelism, alone or on the seq x tensor grid, carries the dense
+    models at full precision, unified: Whisper, MoE models, int8 weights,
+    a disaggregated role and the host and remote KV tiers are later
+    slices."""
     if axis == AXIS_TENSOR:
         return None
     m, cache = config.model, config.cache
@@ -598,21 +657,25 @@ def refusal(config, axis: str = AXIS_TENSOR) -> Optional[str]:
 
 def start_ranks(config, params, num_blocks, device, size: int,
                 devices=None, backend: Optional[str] = None,
-                whisper: bool = False, axis: str = AXIS_TENSOR):
-    """Start ``size`` ranks of ``axis`` (tensor or seq) for an engine on
-    ``device``:
+                whisper: bool = False, axis: str = AXIS_TENSOR,
+                tensor: int = 1):
+    """Start ``size`` ranks of ``axis`` (tensor, seq, or the seq x tensor
+    grid of ``size`` processes at tensor size ``tensor``: ``AXIS_GRID``)
+    for an engine on ``device``:
     this process is rank 0, the others are spawned followers. ``devices``
     (one a rank; default ``cuda:r`` on a card, the CPU otherwise) and
     ``backend`` (default ``nccl`` on a card, ``gloo`` on the CPU) are the
     caller's to choose; a rank whose card does not exist raises before any
     process starts. ``params`` is None (seeded or loaded on each rank) or
-    the whole parameter dict, which every rank cuts (on the seq axis,
-    keeps whole). What the axis does not carry (``refusal``) raises before
-    any process starts. ``whisper`` says the
+    the whole parameter dict, which every rank cuts by its tensor rank (on
+    the seq axis, keeps whole). What the axis does not carry
+    (``refusal``) raises before any process starts. ``whisper`` says the
     caller is a ``WhisperRunner``; a Whisper model for the text engine, or
     the reverse, raises before any process starts. Returns rank 0's
     ``MirroredRunner``."""
     what = pdist.PARALLELISM[axis]
+    if axis == pdist.AXIS_GRID:
+        pdist.check_grid(size, tensor)
     why = refusal(config, axis)
     if why is not None:
         raise ValueError(f"{why}: not ported under {what} yet ({axis} "
@@ -639,7 +702,7 @@ def start_ranks(config, params, num_blocks, device, size: int,
         target=follower_main, name=f"{axis}-rank-{r}", daemon=True,
         args=(r, size, store.port, devices, backend, config, params,
               num_blocks, os.getpid(), torch.get_num_threads(),
-              float32_math(), axis))
+              float32_math(), axis, tensor))
         for r in range(1, size)]
     for p in procs:
         p.start()
@@ -647,7 +710,7 @@ def start_ranks(config, params, num_blocks, device, size: int,
     try:
         pdist.await_ranks(store, procs)
         ranks = pdist.init_rank(0, size, store.port, devices, backend,
-                                store=store, axis=axis)
+                                store=store, axis=axis, tensor=tensor)
         inner = build_runner(config, params, num_blocks, ranks)
     except BaseException:
         for p in procs:

@@ -18,7 +18,10 @@ A copy of production_stack_tpu/engine/perf_accounting.py for one card:
   logits' all-gather), each dispatch taking what was sent since the last
   one; the KV plane's share traffic (``KV_OPS``) and the ring prefill's
   exchange (``RING_OPS``) are no dispatch's, and a ring prefill is
-  recorded as a prefill of its prompt's tokens, as the reference's. The
+  recorded as a prefill of its prompt's tokens, as the reference's; on
+  the seq x tensor grid rank 0's tensor group counts into the same
+  ``wire``, so a ring prefill is billed its tensor group's collectives
+  as any prefill at that tensor size, and its ring ops stay unbilled. The
   reference's formulas count a bf16 all-reduce of the hidden
   state twice a layer, half of what the port's float32 partials put on
   the wire, and none of its embedding's all-reduce. Zero at tp = 1.

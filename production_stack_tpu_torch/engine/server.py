@@ -135,13 +135,16 @@ its own KV pool, the host relaying activations between them
 logprobs answer 400 and guided regex and JSON are refused; the rest of
 the surface serves. With tensor parallelism above 1 it exits at start, as
 Whisper does, not ported yet. Sequence parallelism
-(``--sequence-parallel-size N`` at tensor and pipeline size 1): the
-server is rank 0 of N seq ranks started as tensor ranks are, each
-holding the whole model and a whole KV pool; a prompt of at least
+(``--sequence-parallel-size N`` at pipeline size 1): the server is rank
+0 of N seq ranks started as tensor ranks are, each holding the whole
+model and a whole KV pool; a prompt of at least
 ``--ring-prefill-threshold`` tokens (default 4096) prefills whole by ring
 attention over them (parallel/ring_attention.py), and everything else
-runs as at size 1 on every rank. With tensor or pipeline parallelism
-above 1 it exits at start, and so do Whisper, MoE models,
+runs as at size 1 on every rank. With ``--tensor-parallel-size T`` above
+1 as well, of N x T processes, each seq rank T tensor ranks (the seq x
+tensor grid, parallel/distributed.py): the ring runs over the seq ranks
+of each tensor rank on its shard's heads. With pipeline parallelism above
+1 it exits at start, and so do Whisper, MoE models,
 ``--quantization int8``, ``--role prefill|decode`` and the host and
 remote KV tiers at a sequence-parallel size above 1: later slices.
 ``--data-parallel-size`` parses to the reference's default; above 1 it
@@ -239,6 +242,7 @@ from production_stack_tpu_torch.flight_recorder import FlightRecorder
 from production_stack_tpu_torch.parallel import distributed as pdist
 from production_stack_tpu_torch.parallel.mesh import (
     AXIS_SEQ,
+    AXIS_TENSOR,
     MeshConfig,
     stage_devices as pstage_devices,
     tensor_size,
@@ -3210,9 +3214,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "share of the layers and its own KV pool on "
                         "cuda:s, or on the CPU")
     p.add_argument("--sequence-parallel-size", type=int, default=1,
-                   help="seq ranks, one process each: long prompts prefill "
-                        "via ring attention sharded over them; rank r runs "
-                        "on cuda:r over NCCL, or on the CPU over gloo")
+                   help="seq ranks, one process each (times the tensor-"
+                        "parallel size): long prompts prefill via ring "
+                        "attention sharded over them; process g (seq rank "
+                        "times the tensor size plus tensor rank) runs on "
+                        "cuda:g over NCCL, or on the CPU over gloo")
     p.add_argument("--ring-prefill-threshold", type=int, default=4096,
                    help="prompt length at which prefill switches to the "
                         "ring-attention sequence-parallel path (needs "
@@ -3441,8 +3447,9 @@ def build_parser() -> argparse.ArgumentParser:
 def _mesh_from_args(args) -> MeshConfig:
     """The parallel sizes of the command line: pipeline stages and seq
     ranks as given, tensor parallelism resolved on the engine's device
-    (parallel/mesh.tensor_size); two of them above 1 at once, and data
-    parallelism above 1, exit, not ported yet."""
+    (parallel/mesh.tensor_size, over the cards left to each seq rank).
+    Seq ranks with tensor ranks make the grid; pipeline stages with
+    either, and data parallelism above 1, exit, not ported yet."""
     if args.data_parallel_size > 1:
         raise SystemExit(f"--data-parallel-size {args.data_parallel_size}: "
                          "data parallelism is not ported to the PyTorch "
@@ -3456,18 +3463,16 @@ def _mesh_from_args(args) -> MeshConfig:
     except ValueError as e:
         raise SystemExit(f"--tensor-parallel-size / --pipeline-parallel-"
                          f"size / --sequence-parallel-size: {e}")
+    if sp > 1 and pp > 1:
+        raise SystemExit(
+            f"--sequence-parallel-size {sp} with --pipeline-parallel-size "
+            f"{pp}: sequence and pipeline parallelism together are a later "
+            "slice of the PyTorch engine (each alone is ported)")
     if pp > 1 and tp > 1:
         raise SystemExit(
             f"--pipeline-parallel-size {pp} with --tensor-parallel-size "
             f"{tp}: pipeline and tensor parallelism together are not "
             "ported to the PyTorch engine yet (each alone is)")
-    for flag, n, what in (("--tensor-parallel-size", tp, "tensor"),
-                          ("--pipeline-parallel-size", pp, "pipeline")):
-        if sp > 1 and n > 1:
-            raise SystemExit(
-                f"--sequence-parallel-size {sp} with {flag} {n}: sequence "
-                f"and {what} parallelism together are a later slice of the "
-                "PyTorch engine (each alone is ported)")
     return MeshConfig(stage=pp, seq=sp, tensor=tp)
 
 
@@ -3598,25 +3603,27 @@ def server_from_args(args, rank_devices: Optional[list] = None,
     Whisper model gets its own runner and server
     (engine/whisper_server.py); the paged text engine never starts. Under
     tensor or sequence parallelism ``rank_devices`` and ``backend`` place
-    the ranks
+    the ranks, on the grid every process by global rank
     (default: rank r on ``cuda:r`` over NCCL, or the CPU over gloo); a
     rank whose card does not exist exits before any rank starts. Under
     pipeline parallelism ``stage_devices`` places the stages (default:
     stage s on ``cuda:s``, or the CPU); a stage whose card does not exist
     exits before any weight is made."""
     config = config_from_args(args)
-    for flag, n, what in (
-            ("--tensor-parallel-size", config.mesh.tensor,
-             "tensor parallelism"),
-            ("--sequence-parallel-size", config.mesh.seq,
-             "sequence parallelism")):
-        if n > 1:
-            try:
-                pdist.check_devices(rank_devices
-                                    or pdist.rank_devices(args.device, n),
-                                    what)
-            except RuntimeError as e:
-                raise SystemExit(f"{flag} {n}: {e}")
+    sizes = {AXIS_SEQ: config.mesh.seq, AXIS_TENSOR: config.mesh.tensor}
+    axes = [a for a, n in sizes.items() if n > 1]
+    if axes:
+        # every process of the ranks: seq times tensor size on the grid
+        n = sizes[AXIS_SEQ] * sizes[AXIS_TENSOR]
+        what = pdist.PARALLELISM[axes[0] if len(axes) == 1
+                                 else pdist.AXIS_GRID]
+        try:
+            pdist.check_devices(rank_devices
+                                or pdist.rank_devices(args.device, n), what)
+        except RuntimeError as e:
+            flags = " ".join(f"--{'sequence' if a == AXIS_SEQ else 'tensor'}"
+                             f"-parallel-size {sizes[a]}" for a in axes)
+            raise SystemExit(f"{flags}: {e}")
     pp = config.mesh.stage
     if pp > 1:
         if config.model.architecture == "whisper":

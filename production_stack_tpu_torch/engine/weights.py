@@ -29,7 +29,9 @@ cut, so a row-parallel weight's scale is the max over its whole
 contraction, which no rank's part holds (``Shard.cut_leaf`` keeps the
 scale whole along it). So a rank's seeded shard, quantized or not, is
 bit for bit the slice of the tp = 1 parameters, and its peak is one
-slice above its shard (one layer, or the embedding).
+slice above its shard (one layer, or the embedding). On the seq x tensor
+grid ``rank`` is the process's tensor rank: the seq ranks of one tensor
+rank make, load or cut the same shard.
 
 Under pipeline parallelism each entry point takes ``stage=(s, S)`` and
 returns stage s's share (``stage_layers``, ``stage_keeps``): the layers

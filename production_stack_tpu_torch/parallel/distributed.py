@@ -16,6 +16,20 @@ under torch.distributed, with two process groups.
   step inputs to the followers (engine/multihost.py) and the few integers
   the ranks must agree on, such as the KV pool's block count.
 
+**The grid** (``AXIS_GRID``: sequence and tensor parallelism at once):
+``N * T`` processes, process ``g = s * T + t`` seq rank ``s`` and tensor
+rank ``t``, tensor innermost as in the reference's device order
+(``("data", "stage", "seq", "tensor", "expert")``), so under NCCL a
+tensor group's ranks sit on neighbouring cards. The process's
+``RankGroup`` spans all of them: its device group is torch.distributed's
+default group, its control group the same processes, and its shard the
+tensor rank's (``shard_of``). It holds two views of its own place,
+``RankGroup``s with a device group each: ``tensor`` (the T processes of
+its seq rank: the model's collectives and the KV shares of an export)
+and ``seq`` (the N processes of its tensor rank: the ring). Every process
+creates the subgroups in the same order. The views add their bytes to the
+process's ``wire``. On one axis a group is its own view of that axis.
+
 The rendezvous is a ``TCPStore`` that rank 0 opens on ``127.0.0.1`` at a
 free port and hands to the ranks it starts; gloo binds the loopback
 address too. The backend and every rank's device are the launcher's
@@ -58,9 +72,12 @@ KV_OPS = ("kv_gather", "kv_scatter")
 # prompt token's hidden row sent to every rank. The perf accountant bills
 # them to no dispatch
 RING_OPS = ("ring_rotate", "ring_gather", "ring_last")
+# the seq x tensor grid's processes (module docstring)
+AXIS_GRID = "seq,tensor"
 # a group's axis as its messages name it
 PARALLELISM = {AXIS_TENSOR: "tensor parallelism",
-               AXIS_SEQ: "sequence parallelism"}
+               AXIS_SEQ: "sequence parallelism",
+               AXIS_GRID: "sequence and tensor parallelism"}
 
 
 def rank_devices(device, size: int) -> list[str]:
@@ -94,6 +111,14 @@ def check_devices(devices: Sequence[str],
                 f"{r} on {d}, but this machine has {n} CUDA card(s)")
 
 
+def check_grid(size: int, tensor: int) -> None:
+    """Raise unless ``size`` processes make a seq x tensor grid at tensor
+    size ``tensor``: both axes above 1."""
+    if tensor < 2 or size % tensor or size == tensor:
+        raise ValueError(f"{size} processes make no seq x tensor grid at "
+                         f"tensor size {tensor}")
+
+
 def open_store(size: int) -> dist.TCPStore:
     """Rank 0's rendezvous store on a free loopback port."""
     return dist.TCPStore(HOST, 0, size, True, timeout=STORE_TIMEOUT,
@@ -125,10 +150,13 @@ def _gloo_options():
 
 @dataclasses.dataclass
 class RankGroup:
-    """One rank's place in a tensor- or sequence-parallel group (``axis``):
-    its rank, its device, every rank's device, its shard of the model
-    (``shard``, set by the model runner) and the two process groups
-    (module docstring)."""
+    """One rank's place in a tensor- or sequence-parallel group, or in the
+    seq x tensor grid (``axis``): its rank, its device, every rank's
+    device, its shard of the model (``shard``, set by the model runner)
+    and the two process groups (module docstring). ``pg`` is the device
+    group (None: torch.distributed's default group) and ``members`` the
+    global rank of each of its ranks (empty: the rank itself); a grid's
+    ``views`` are its ``tensor`` and ``seq`` subgroups."""
 
     rank: int
     size: int
@@ -141,26 +169,55 @@ class RankGroup:
     # per-card bytes the device group's collectives put on the wire, by
     # op (``_count``); the perf accountant reads them on rank 0
     wire: dict = dataclasses.field(default_factory=dict)
+    pg: Any = None
+    members: tuple = ()
+    views: dict = dataclasses.field(default_factory=dict)
 
     @property
     def cards(self) -> int:
         """Distinct cards the ranks run on (ranks may share one)."""
         return len({d for d in self.devices if d != "cpu"}) or 1
 
-    def shard_of(self, cfg, rank: Optional[int] = None) -> Shard:
-        """Rank ``rank``'s (default this rank's) cut of ``cfg``'s model:
-        ``Shard.of`` on the tensor axis; nothing cut on the seq axis,
-        whose ranks each hold the whole model."""
-        r = self.rank if rank is None else rank
-        if self.axis == AXIS_SEQ:
-            return Shard(r, self.size, {}, frozenset())
-        return Shard.of(cfg, r, self.size)
+    def view(self, axis: str) -> Optional["RankGroup"]:
+        """This process's group on ``axis``: the group itself on its own
+        axis, a grid's subgroup, None where the group has no such
+        axis."""
+        return self if self.axis == axis else self.views.get(axis)
+
+    @property
+    def tensor(self) -> Optional["RankGroup"]:
+        """The group the model's collectives run over (None on the seq
+        axis, whose ranks each hold the whole model)."""
+        return self.view(AXIS_TENSOR)
+
+    @property
+    def seq(self) -> Optional["RankGroup"]:
+        """The group the ring prefill runs over (None on the tensor
+        axis)."""
+        return self.view(AXIS_SEQ)
 
     @property
     def tensor_size(self) -> int:
         """The tensor-parallel degree the group cuts the model over (1 on
         the seq axis)."""
-        return self.size if self.axis == AXIS_TENSOR else 1
+        tp = self.tensor
+        return 1 if tp is None else tp.size
+
+    def shard_of(self, cfg, rank: Optional[int] = None) -> Shard:
+        """Rank ``rank``'s (default this rank's) cut of ``cfg``'s model:
+        ``Shard.of`` at its tensor rank (``rank % tensor_size``: tensor
+        innermost on the grid); nothing cut at tensor size 1, where each
+        rank holds the whole model."""
+        r = self.rank if rank is None else rank
+        tp = self.tensor_size
+        if tp == 1:
+            return Shard(r, self.size, {}, frozenset())
+        return Shard.of(cfg, r % tp, tp)
+
+    def _global(self, r: int) -> int:
+        """The global rank of this group's rank ``r`` (torch.distributed
+        names a peer and a root by it)."""
+        return self.members[r] if self.members else r
 
     def _count(self, op: str, payload: int) -> None:
         """Add a collective's per-card wire bytes to ``wire[op]``: a ring
@@ -179,7 +236,7 @@ class RankGroup:
         backend's ring order. A float32 ``x`` is summed in place."""
         y = x if x.dtype == torch.float32 else x.float()
         y = y.contiguous()
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=self.pg)
         self._count("all_reduce", y.nbytes)
         return y if x.dtype == torch.float32 else y.to(x.dtype)
 
@@ -191,7 +248,7 @@ class RankGroup:
         if x.dtype != torch.int32:
             raise TypeError(f"all_reduce_int32 of a {x.dtype} tensor")
         x = x.contiguous()
-        dist.all_reduce(x)
+        dist.all_reduce(x, group=self.pg)
         self._count("all_reduce_int32", x.nbytes)
         return x
 
@@ -202,7 +259,7 @@ class RankGroup:
         if x.dtype != torch.float32:
             raise TypeError(f"all_reduce_max of a {x.dtype} tensor")
         x = x.contiguous()
-        dist.all_reduce(x, op=dist.ReduceOp.MAX)
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.pg)
         self._count("all_reduce_max", x.nbytes)
         return x
 
@@ -211,7 +268,7 @@ class RankGroup:
         order: the vocab-sharded logits joined."""
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(self.size)]
-        dist.all_gather(parts, x)
+        dist.all_gather(parts, x, group=self.pg)
         self._count("all_gather", x.nbytes * self.size)
         return torch.cat(parts, dim=-1)
 
@@ -223,7 +280,7 @@ class RankGroup:
         raw = share.contiguous().view(torch.uint8)
         parts = ([torch.empty_like(raw) for _ in range(self.size)]
                  if self.rank == 0 else None)
-        dist.gather(raw, parts, dst=0)
+        dist.gather(raw, parts, dst=self._global(0), group=self.pg)
         self._count_kv("kv_gather", raw.nbytes)
         return None if parts is None else [p.view(share.dtype) for p in parts]
 
@@ -238,7 +295,7 @@ class RankGroup:
         raw = out.view(torch.uint8)
         parts = (None if self.rank else
                  [s.contiguous().view(torch.uint8) for s in shares])
-        dist.scatter(raw, parts, src=0)
+        dist.scatter(raw, parts, src=self._global(0), group=self.pg)
         self._count_kv("kv_scatter", raw.nbytes)
         return out
 
@@ -264,8 +321,10 @@ class RankGroup:
         send = (x.cpu() if self._staged() else x).contiguous()
         recv = torch.empty_like(send)
         works = dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, send, (r + 1) % n),
-            dist.P2POp(dist.irecv, recv, (r - 1) % n)])
+            dist.P2POp(dist.isend, send, self._global((r + 1) % n),
+                       self.pg),
+            dist.P2POp(dist.irecv, recv, self._global((r - 1) % n),
+                       self.pg)])
         self.wire["ring_rotate"] = (self.wire.get("ring_rotate", 0.0)
                                     + send.nbytes)
 
@@ -283,7 +342,7 @@ class RankGroup:
         each card."""
         y = (x.cpu() if self._staged() else x).contiguous()
         parts = [torch.empty_like(y) for _ in range(self.size)]
-        dist.all_gather(parts, y)
+        dist.all_gather(parts, y, group=self.pg)
         self.wire["ring_gather"] = (self.wire.get("ring_gather", 0.0)
                                     + y.nbytes * (self.size - 1))
         return torch.cat(parts).to(self.device)
@@ -294,7 +353,7 @@ class RankGroup:
         unused), counted under ``ring_last``: (n - 1) / n of ``x`` from
         each card."""
         y = (x.cpu() if self._staged() else x).contiguous()
-        dist.broadcast(y, src=src)
+        dist.broadcast(y, src=self._global(src), group=self.pg)
         self.wire["ring_last"] = (self.wire.get("ring_last", 0.0)
                                   + y.nbytes * (self.size - 1) / self.size)
         return y.to(self.device) if self._staged() else y
@@ -332,13 +391,17 @@ class RankGroup:
 
 def init_rank(rank: int, size: int, store_port: int, devices: Sequence[str],
               backend: str, store: Optional[dist.TCPStore] = None,
-              axis: str = AXIS_TENSOR) -> RankGroup:
+              axis: str = AXIS_TENSOR, tensor: int = 1) -> RankGroup:
     """Join the group of ``axis`` as ``rank``: rank 0 passes the ``store``
     it opened, the others connect to ``store_port``. One group a process:
-    the device group is torch.distributed's default group."""
+    the device group is torch.distributed's default group. On the grid
+    (``AXIS_GRID``) ``size`` is every process and ``tensor`` the tensor
+    size; the group's ``tensor`` and ``seq`` views are made here."""
     if dist.is_initialized():
         raise RuntimeError("this process already belongs to a "
                            "torch.distributed group")
+    if axis == AXIS_GRID:
+        check_grid(size, tensor)
     device = torch.device(devices[rank])
     if device.type == "cuda":
         check_devices(devices, PARALLELISM[axis])
@@ -353,5 +416,36 @@ def init_rank(rank: int, size: int, store_port: int, devices: Sequence[str],
                             pg_options=opts)
     control = dist.new_group(backend="gloo", timeout=CONTROL_TIMEOUT,
                              pg_options=_gloo_options())
-    return RankGroup(rank, size, device, tuple(devices), backend, control,
-                     axis)
+    group = RankGroup(rank, size, device, tuple(devices), backend, control,
+                      axis)
+    if axis == AXIS_GRID:
+        group.views = _grid_views(group, tensor)
+    return group
+
+
+def _grid_views(world: RankGroup, T: int) -> dict:
+    """The ``tensor`` and ``seq`` views of ``world``'s process (module
+    docstring): every tensor group's device group, then every seq
+    group's, made in the same order on every process."""
+    n = world.size
+    opts = _gloo_options() if world.backend == "gloo" else None
+
+    def groups(members: list) -> list:
+        return [dist.new_group(m, backend=world.backend,
+                               timeout=DEVICE_TIMEOUT, pg_options=opts)
+                for m in members]
+
+    tensor_members = [tuple(range(s * T, (s + 1) * T)) for s in range(n // T)]
+    seq_members = [tuple(range(t, n, T)) for t in range(T)]
+    tensor_pgs, seq_pgs = groups(tensor_members), groups(seq_members)
+    s, t = divmod(world.rank, T)
+
+    def view(axis, r, members, pg):
+        return RankGroup(r, len(members), world.device,
+                         tuple(world.devices[g] for g in members),
+                         world.backend, None, axis, wire=world.wire, pg=pg,
+                         members=members)
+
+    return {AXIS_TENSOR: view(AXIS_TENSOR, t, tensor_members[s],
+                              tensor_pgs[s]),
+            AXIS_SEQ: view(AXIS_SEQ, s, seq_members[t], seq_pgs[t])}

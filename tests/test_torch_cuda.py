@@ -1223,3 +1223,77 @@ def test_sequence_parallel_ring_on_one_card_matches_cpu(cuda):
     assert np.array_equal(pools[0], pools[1])
     np.testing.assert_allclose(pools[0], cpu_pool.numpy(), rtol=1e-5,
                                atol=1e-5)
+
+
+def test_sequence_tensor_grid_on_one_card_matches_cpu(cuda):
+    """float32 tiny-llama at seq 2 x tp 2, all four processes on this card
+    over gloo, ring threshold 16: the long prompts prefill through the
+    ring over each tensor rank's seq ranks (one call each, padded to 64)
+    and the greedy tokens equal the CPU's chunked prefill at seq 1 and tp
+    1; decode graphs are off (the tensor group's collectives run in
+    decode); every process's digest and launches are rank 0's, K1 and K3
+    launched; and the two seq ranks of a tensor rank hold its KV heads of
+    the first prompt's cached blocks bit for bit alike, the CPU engine's
+    within 1e-5."""
+    from production_stack_tpu_torch.engine.config import (
+        CacheConfig,
+        EngineConfig,
+        SchedulerConfig,
+    )
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+    from production_stack_tpu_torch.engine.weights import init_random
+    from production_stack_tpu_torch.parallel.mesh import MeshConfig
+
+    params = init_random(EngineConfig.for_model("tiny-llama").model, seed=0)
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, 259, n).tolist() for n in (45, 5, 37)]
+    sp = SamplingParams(temperature=0.0, max_tokens=12, ignore_eos=True)
+
+    def cfg(seq, tp):
+        return EngineConfig.for_model(
+            "tiny-llama", cache=CacheConfig(block_size=16, num_blocks=128),
+            scheduler=SchedulerConfig(max_num_seqs=4,
+                                      max_num_batched_tokens=32,
+                                      ring_prefill_threshold=16),
+            mesh=MeshConfig(seq=seq, tensor=tp))
+
+    cpu = LLMEngine(cfg(1, 1), params=params, device="cpu")
+    want = cpu.generate(prompts, sp)
+    blocks, _ = cpu.scheduler.allocator.match_prefix(prompts[0])
+    cpu_pool = cpu.runner.export_blocks(blocks)
+    eng = LLMEngine(cfg(2, 2), params=params, device=cuda,
+                    rank_devices=["cuda:0"] * 4, backend="gloo")
+    try:
+        calls = []
+        inner = eng.runner.prefill_ring
+
+        def ring(tokens, *args, **kwargs):
+            calls.append(int(tokens.shape[1]))
+            return inner(tokens, *args, **kwargs)
+
+        eng.runner.prefill_ring = ring
+        got = eng.generate(prompts, sp)
+        reports = eng.runner.follower_reports()
+        info = eng.rank_info()
+        mine, _ = eng.scheduler.allocator.match_prefix(prompts[0])
+        pools = eng.runner.gather("export_blocks", mine)
+    finally:
+        eng.close()
+    assert got == want
+    assert calls == [64, 64]
+    assert (info["shape"], info["decode_graphs"]) == (
+        {"seq": 2, "tensor": 2}, False)
+    assert len({(r["calls"], r["digest"]) for r in reports}) == 1
+    assert len({tuple(sorted(r["launches"].items()))
+                for r in reports}) == 1
+    assert {"K1", "K3"} <= {k for k, n in reports[0]["launches"].items()
+                            if n}
+    assert list(mine) and len(mine) == len(blocks)
+    # tensor rank t holds KV head t: rows t and KH + t of the tp 1 pool
+    KH = cfg(1, 1).model.num_kv_heads
+    for g, pool in enumerate(pools):
+        assert np.array_equal(pool, pools[g % 2])
+        np.testing.assert_allclose(
+            pool, cpu_pool.numpy()[..., [g % 2, KH + g % 2], :],
+            rtol=1e-5, atol=1e-5)

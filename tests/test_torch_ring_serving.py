@@ -20,7 +20,8 @@ The counterparts of ``tests/test_ring_serving.py`` and of
 - Gemma-2's soft cap through the ring at seq 2 against the JAX engine.
 - The server at ``--sequence-parallel-size 2``: its flags, a long
   completion, its ranks gone after its stop and after SIGTERM; and each
-  combination a later slice carries exits at start with a message.
+  combination a later slice carries exits at start with a message, at
+  tensor size 1 and 2 (seq x tensor itself: ``test_torch_ring_tp``).
 
 Every test that starts ranks runs under ``rank_limit`` (``_torch_tp``).
 """
@@ -30,12 +31,10 @@ import json
 import os
 import pathlib
 import signal
-import socket
 import subprocess
 import sys
 import time
 import urllib.error
-import urllib.request
 
 import jax
 import numpy as np
@@ -43,6 +42,7 @@ import pytest
 import torch
 
 from _torch_parity import assert_same, drain, engine_configs
+from _torch_ring import free_port, http, serve_one, spy_lengths
 from _torch_tp import rank_limit, wait_gone
 from test_torch_lora import make_adapter_dir
 from production_stack_tpu.engine import config as jcfg
@@ -100,20 +100,6 @@ def _params(jeng, tconf):
         jeng.runner.params)), tconf.model)
 
 
-def _spy_lengths(runner) -> list:
-    """Record the padded length of each ``prefill_ring`` call on
-    ``runner`` (a JAX runner or the port's rank 0)."""
-    lengths = []
-    inner = runner.prefill_ring
-
-    def spy(tokens, *args, **kwargs):
-        lengths.append(int(tokens.shape[1]))
-        return inner(tokens, *args, **kwargs)
-
-    runner.prefill_ring = spy
-    return lengths
-
-
 _RUNS: dict = {}
 
 
@@ -126,7 +112,7 @@ def _run(seq: int, impl: str) -> dict:
     jconf, tconf = _configs(impl)
     jeng = _jax_engine(jconf)
     params = _params(jeng, tconf)
-    out = {"jax_lengths": _spy_lengths(jeng.runner)}
+    out = {"jax_lengths": spy_lengths(jeng.runner)}
     out["jax"] = drain(jeng, REQS)
     out["seq1"] = drain(LLMEngine(tconf, params=params, device="cpu"), REQS)
     with rank_limit(120):
@@ -135,7 +121,7 @@ def _run(seq: int, impl: str) -> dict:
             device="cpu")
         try:
             assert eng.scheduler.ring_enabled
-            out["lengths"] = _spy_lengths(eng.runner)
+            out["lengths"] = spy_lengths(eng.runner)
             out["got"] = drain(eng, REQS)
             out["reports"] = eng.runner.follower_reports()
             out["ranks"] = eng.rank_info()
@@ -196,19 +182,6 @@ PROMPTS = {name: rng.integers(1, 500, n).tolist()
                            ("adapter", 43), ("wire", 33))}
 
 
-def _one(eng, prompt, sp, adapter=0, rid="r0") -> tuple:
-    """Serve one request to its end: (tokens, the largest cached count
-    its outputs reported)."""
-    eng.add_request(rid, prompt_token_ids=prompt, sampling=sp,
-                    adapter_slot=adapter)
-    toks, cached = [], 0
-    while eng.has_unfinished():
-        for o in eng.step():
-            toks.extend(o.new_token_ids)
-            cached = max(cached, o.num_cached_tokens)
-    return toks, cached
-
-
 def _seq4_scenarios(eng, adapter_dir: str) -> dict:
     out = {}
     sched = eng.scheduler
@@ -230,7 +203,7 @@ def _seq4_scenarios(eng, adapter_dir: str) -> dict:
     sched.config.ring_prefill_threshold = THRESHOLD
     # prefix reuse: the same prompt again takes the chunked path from
     # the ring-built blocks
-    out["reuse"] = [_one(eng, PROMPTS["reuse"], GREEDY4, rid=rid)
+    out["reuse"] = [serve_one(eng, PROMPTS["reuse"], GREEDY4, rid=rid)
                     for rid in ("first", "again")]
     # the KV plane: an export is rank 0's own blocks, whole; an import
     # lands whole in every rank's pool
@@ -242,11 +215,11 @@ def _seq4_scenarios(eng, adapter_dir: str) -> dict:
         [np.array_equal(p, data.numpy()) for p in eng.runner.gather(
             "export_blocks", ids)] for ids in (list(blocks), free)])
     sched.allocator.free_blocks(free)
-    out["sampled"] = _one(eng, PROMPTS["sampled"], SAMPLED)[0]
+    out["sampled"] = serve_one(eng, PROMPTS["sampled"], SAMPLED)[0]
     # the wire bytes and the accounting of one ring prefill
     wire0 = dict(eng.runner.ranks.wire)
     n_prefill = eng.perf.snapshot()["totals"]["prefill_tokens"]
-    out["wire_tokens"] = _one(eng, PROMPTS["wire"],
+    out["wire_tokens"] = serve_one(eng, PROMPTS["wire"],
                               dataclasses.replace(GREEDY4, max_tokens=1))
     out["wire"] = {op: n - wire0.get(op, 0.0)
                    for op, n in eng.runner.ranks.wire.items()
@@ -257,11 +230,11 @@ def _seq4_scenarios(eng, adapter_dir: str) -> dict:
     # an adapter through the ring
     manager = tlora.LoraManager(eng)
     manager.load("a", adapter_dir)
-    out["adapter"] = _one(eng, PROMPTS["adapter"], GREEDY4,
+    out["adapter"] = serve_one(eng, PROMPTS["adapter"], GREEDY4,
                           manager.slot_of("a"))[0]
-    out["base"] = _one(eng, PROMPTS["adapter"] + [7], GREEDY4)[0]
+    out["base"] = serve_one(eng, PROMPTS["adapter"] + [7], GREEDY4)[0]
     # warmup walks the ring size classes
-    lengths = _spy_lengths(eng.runner)
+    lengths = spy_lengths(eng.runner)
     eng.warmup()
     out["warm_lengths"] = sorted(set(lengths))
     out["compiles"] = sorted(
@@ -288,9 +261,9 @@ def _seq4(tmp_path_factory) -> dict:
     _SEQ4["jax_adapter"] = drain(jeng, [("r0", PROMPTS["adapter"], GREEDY4,
                                          1)])[0]["r0"]
     one = LLMEngine(tconf, params=params, device="cpu")
-    _SEQ4["seq1_sampled"] = _one(one, PROMPTS["sampled"], SAMPLED)[0]
+    _SEQ4["seq1_sampled"] = serve_one(one, PROMPTS["sampled"], SAMPLED)[0]
     tlora.LoraManager(one).load("a", adapter_dir)
-    _SEQ4["seq1_adapter"] = _one(one, PROMPTS["adapter"], GREEDY4, 1)[0]
+    _SEQ4["seq1_adapter"] = serve_one(one, PROMPTS["adapter"], GREEDY4, 1)[0]
     with rank_limit(150):
         eng = LLMEngine(dataclasses.replace(
             tconf, mesh=MeshConfig(seq=4, tensor=1)), params=params,
@@ -390,7 +363,7 @@ def test_gemma2_ring_prefill_token_identical():
             tconf, mesh=MeshConfig(seq=2, tensor=1)),
             params=_params(jeng, tconf), device="cpu")
         try:
-            lengths = _spy_lengths(eng.runner)
+            lengths = spy_lengths(eng.runner)
             got = drain(eng, [("r", prompt, sp)])
         finally:
             eng.close()
@@ -418,7 +391,8 @@ def test_sequence_parallel_flags_resolve():
 
 
 @pytest.mark.parametrize("extra,named", [
-    (["--tensor-parallel-size", "2"], "sequence and tensor parallelism"),
+    (["--tensor-parallel-size", "2", "--quantization", "int8"],
+     "--quantization int8"),
     (["--pipeline-parallel-size", "2"], "sequence and pipeline parallelism"),
     (["--model", "tiny-whisper"], "Whisper"),
     (["--model", "tiny-mixtral"], "MoE"),
@@ -428,6 +402,8 @@ def test_sequence_parallel_flags_resolve():
     (["--kv-host-cache-bytes", "100000"], "host KV tier"),
     (["--host-offload-blocks", "8"], "host KV tier"),
     (["--remote-kv-url", "http://127.0.0.1:9"], "remote KV tier"),
+    (["--tensor-parallel-size", "2", "--pipeline-parallel-size", "2"],
+     "sequence and pipeline parallelism"),
 ])
 def test_what_seq_does_not_carry_exits_at_start(extra, named):
     args = _args("--sequence-parallel-size", "2", *extra)
@@ -447,23 +423,12 @@ def test_engine_refuses_before_starting_ranks():
         LLMEngine(conf, device="cpu")
     conf = EngineConfig.for_model(
         "tiny-llama", cache=CacheConfig(num_blocks=32),
-        mesh=MeshConfig(seq=2, tensor=2))
-    with pytest.raises(ValueError, match="sequence parallelism"):
+        mesh=MeshConfig(seq=2, stage=2))
+    with pytest.raises(ValueError, match="sequence parallelism .* pipeline"):
         LLMEngine(conf, device="cpu")
     import multiprocessing
 
     assert multiprocessing.active_children() == []
-
-
-def _http(base, path, body=None):
-    req = urllib.request.Request(
-        base + path, data=None if body is None else json.dumps(body).encode(),
-        headers={"Content-Type": "application/json"})
-    try:
-        with urllib.request.urlopen(req, timeout=60) as r:
-            return r.status, r.read()
-    except urllib.error.HTTPError as e:
-        return e.code, e.read()
 
 
 def test_server_serves_under_seq2_and_leaves_no_rank():
@@ -477,7 +442,7 @@ def test_server_serves_under_seq2_and_leaves_no_rank():
     one = tserver.server_from_args(_args(*extra))
     try:
         base = f"http://127.0.0.1:{one.start('127.0.0.1', 0)}"
-        status, raw = _http(base, "/v1/completions", body)
+        status, raw = http(base, "/v1/completions", body)
         assert status == 200
         want = json.loads(raw)["choices"][0]["logprobs"]["tokens"]
     finally:
@@ -487,10 +452,10 @@ def test_server_serves_under_seq2_and_leaves_no_rank():
             *extra, "--sequence-parallel-size", "2"))
         try:
             base = f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
-            ranks = json.loads(_http(base, "/debug/perf")[1])["ranks"]
+            ranks = json.loads(http(base, "/debug/perf")[1])["ranks"]
             assert (ranks["size"], ranks["axis"]) == (2, "seq")
             pids = ranks["pids"][1:]
-            status, raw = _http(base, "/v1/completions", body)
+            status, raw = http(base, "/v1/completions", body)
             assert status == 200
             out = json.loads(raw)
             assert out["usage"]["completion_tokens"] == 6
@@ -498,7 +463,7 @@ def test_server_serves_under_seq2_and_leaves_no_rank():
             wire = server.async_engine.run_on_engine(
                 lambda e: dict(e.runner.ranks.wire))
             assert wire["ring_rotate"] > 0 and wire["ring_gather"] > 0
-            status, raw = _http(base, "/v1/completions",
+            status, raw = http(base, "/v1/completions",
                                 {**body, "stream": True})
             assert status == 200 and raw.rstrip().endswith(b"data: [DONE]")
         finally:
@@ -506,16 +471,10 @@ def test_server_serves_under_seq2_and_leaves_no_rank():
         assert wait_gone(pids, 10) == []
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def test_sigterm_leaves_no_rank():
     """The CLI at seq 2: SIGTERM drains, the server exits 0 and its
     follower is gone."""
-    port = _free_port()
+    port = free_port()
     proc = subprocess.Popen(
         [sys.executable, "-m", "production_stack_tpu_torch.engine.server",
          "--model", "tiny-llama", "--device", "cpu", "--skip-warmup",
@@ -529,7 +488,7 @@ def test_sigterm_leaves_no_rank():
         t_end = time.monotonic() + 90
         while time.monotonic() < t_end:
             try:
-                pids = json.loads(_http(base, "/debug/perf")[1])["ranks"][
+                pids = json.loads(http(base, "/debug/perf")[1])["ranks"][
                     "pids"][1:]
                 break
             except (urllib.error.URLError, ConnectionError):

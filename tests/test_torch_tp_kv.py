@@ -450,3 +450,68 @@ def test_a_follower_lost_in_a_transfer_is_named(when):
                 eng.export_kv(blocks)
         finally:
             eng.close()
+
+
+class _CountingRunner:
+    """A runner whose one call launches K1 twice and K3 once."""
+
+    ranks = type("Ranks", (), {"rank": 1})()
+
+    def set_count_row(self, row):
+        from production_stack_tpu_torch.ops import kv_write as k1
+        from production_stack_tpu_torch.ops import paged_decode_attention as k3
+
+        k1.LAUNCHES.n += 2
+        k3.LAUNCHES.n += 1
+
+
+class _ScriptedRanks:
+    """A group whose broadcasts give ``script`` in turn; gathers keep what
+    they were given."""
+
+    rank = 0
+
+    def __init__(self, script=()):
+        self.script, self.gathered = list(script), []
+
+    def broadcast(self, obj=None):
+        return self.script.pop(0) if self.script else obj
+
+    def gather(self, obj):
+        self.gathered.append(obj)
+        return [obj]
+
+
+def test_reports_count_only_the_launches_inside_the_ranks_calls():
+    """What made ``test_followers_agree_after_kv_traffic`` fail now and
+    then under xdist: a worker that had run ``test_torch_decode_graphs``
+    first held K1 and K3 counts from before its ranks started, and rank
+    0's report gave the process's totals where a fresh follower's begin
+    at 0. A report counts the launches made inside the ranks' calls, on
+    rank 0 and on a follower alike: counts from before the ranks, from
+    between calls and a reset of the counters between calls stay out."""
+    from production_stack_tpu_torch.ops import _build
+    from production_stack_tpu_torch.ops import kv_write as k1
+    from production_stack_tpu_torch.ops import paged_decode_attention as k3
+
+    saved = _build.launch_counts()
+    try:
+        k1.LAUNCHES.n += 5  # an earlier engine in this process
+        leader = multihost.MirroredRunner(_CountingRunner(), _ScriptedRanks(),
+                                          [])
+        leader.set_count_row(0)
+        k3.LAUNCHES.n += 7  # between calls, outside the ranks
+        _build.restore_counts({c: 0 for c in saved})  # a reset
+        leader.set_count_row(1)
+        mine = leader.report()["launches"]
+        digest = multihost._Digest().hex()  # set_count_row samples nothing
+        ranks = _ScriptedRanks([(1, "set_count_row", (0,), {}, digest),
+                                (2, "set_count_row", (1,), {}, digest),
+                                (3, "_report", (), {}, digest),
+                                (4, "_shutdown", (), {}, digest)])
+        multihost.follower_loop(_CountingRunner(), ranks)
+        theirs = ranks.gathered[0]["launches"]
+    finally:
+        _build.restore_counts(saved)
+    assert mine == theirs
+    assert (mine["K1"], mine["K3"], mine["K2"], mine["K4"]) == (4, 2, 0, 0)
