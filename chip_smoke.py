@@ -453,6 +453,25 @@ fatal):
    2``), started before phase 20 so that its start-up runs beside it,
    answers the 6000-token completion through the ring, and its three
    followers are gone within 3 s of SIGTERM.
+22. Multi-host serving (``mh2-one-card``): llama-3-8b bf16 at tp 2 and
+   ``CUT_LAYERS`` as two processes started on their own (``--mh-server
+   PORT``: the ``PSTPU_*`` environment, then ``server.main`` with
+   ``rank_devices=["cuda:0"]`` over gloo), the calls on the authenticated
+   step-plan channel; started before phase 20, beside the spawned
+   ``--tp-server`` of the same flags and depth. (a) A leader without
+   ``PSTPU_CONTROL_SECRET`` exits non-zero with the card untouched; a
+   follower with a wrong secret is refused and exits non-zero while the
+   leader waits; the right one then joins. (b) 4 greedy prompts of
+   64-1024 tokens x 16, one at a time: tokens and logprobs equal the
+   spawned server's bit for bit; then a concurrent wave of 8, each 200,
+   tokens equal up to a near-tie and logprobs within max(0.05, twice the
+   spawned server's own repeat deviation). (c) Both ranks' digests, calls
+   and launches equal (``/debug/ranks``); the follower's ``/health`` is
+   ``{"status": "follower", "process_id": 1}``. (d) SIGTERM to the
+   leader: it drains and exits 0, the follower exits 0 within 5 s; a
+   fresh pair: SIGKILL to the leader, the follower exits 0 within 5 s on
+   the closed channel. Printed: start-up seconds, each call's median
+   frame bytes and host microseconds to send, a decode step's wall.
 
 Phases 4-14 run with decode graphs on, the default; phase 5's bf16 run
 through the plain versions decodes eagerly (a plain version synchronises
@@ -468,7 +487,7 @@ path's own counts are in ``launches_by_path``, ``moe-int8``, ``kv-plane``,
 ``scoring-surface``, ``whisper``, ``overload``, ``observability``,
 ``decode-graphs``, ``tp2``, ``tp2-lora-ragged``, ``tp2-lora-bucketed``,
 ``tp2-moe-int8``, ``tp2-kv-plane``, ``tp2-whisper`` (rank 0's), ``pp2``,
-``seq2`` and ``seq2tp2`` (rank 0's) among them; a graph
+``seq2``, ``seq2tp2`` and ``mh2`` (rank 0's) among them; a graph
 replay adds
 the launches its capture recorded); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -548,7 +567,8 @@ class _CutServers:
         from production_stack_tpu_torch.engine import server
 
         self.server, self.base = server, server.config_from_args
-        server.config_from_args = lambda args: _cut_depth(self.base(args))
+        server.config_from_args = lambda args, *a: _cut_depth(
+            self.base(args, *a))
         return self
 
     def __exit__(self, *exc):
@@ -8208,6 +8228,333 @@ def grid_phase(torch, np, counters, card: str, srv: "_TpServer") -> dict:
     return _ring_phase(torch, np, counters, card, 2, "seq2tp2", srv)
 
 
+MH_NOTE = ("two processes started on their own share one card over "
+           "gloo: not a TP speed")
+MH_SECRET = "chip-smoke-mh2-secret"
+MH_TOKENS = 16
+MH_LENS = (1024, 64, 300, 700)  # (b)'s prompts, sent one at a time
+MH_WAVE = 8  # (b)'s concurrent wave, 64-1024 tokens each
+MH_GONE_S = 5.0  # a follower leaves this soon after its leader's end
+
+
+def _free_ports(n: int) -> list:
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def mh_server_child(argv: list) -> int:
+    """``--mh-server PORT [FLAG ...]``: one process of a multi-host group,
+    started on its own with the ``PSTPU_*`` environment its parent set:
+    ``--tp-server``'s llama-3-8b at tensor-parallel size 2 and
+    ``CUT_LAYERS`` of its layers on cuda:0 over gloo, through the server's
+    own entry point (process 0 serves and leads, process 1 follows; the
+    further flags pass through). A process that exits at start prints
+    whether it had touched the card."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    from production_stack_tpu_torch.engine import server
+
+    try:
+        with _CutServers():
+            server.main(["--model", "llama-3-8b", "--host", "127.0.0.1",
+                         "--port", argv[0], "--tensor-parallel-size", "2",
+                         "--num-blocks", "1024", "--max-num-seqs", "16",
+                         "--skip-warmup", *argv[1:]],
+                        rank_devices=["cuda:0"], backend="gloo")
+    except SystemExit:
+        print(f"[mh2] exited at start; the card touched: "
+              f"{torch.cuda.is_initialized()}", flush=True)
+        raise
+    return 0
+
+
+class _MhProc:
+    """One ``--mh-server`` child: process ``pid`` of a two-process group
+    at ``coord`` with its channel on ``control``, serving on ``port``,
+    with the shared ``secret`` (none when None); its log in a temporary
+    file."""
+
+    def __init__(self, pid: int, coord: int, control: int, port: int,
+                 secret):
+        import os
+        import tempfile
+
+        env = dict(os.environ)
+        env.pop("PSTPU_CONTROL_SECRET", None)
+        env.update({"PSTPU_COORDINATOR": f"127.0.0.1:{coord}",
+                    "PSTPU_NUM_PROCESSES": "2",
+                    "PSTPU_PROCESS_ID": str(pid),
+                    "PSTPU_CONTROL_PORT": str(control)})
+        if secret is not None:
+            env["PSTPU_CONTROL_SECRET"] = secret
+        self.base = f"http://127.0.0.1:{port}"
+        self.logf = tempfile.TemporaryFile()
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--mh-server",
+             str(port)], cwd=ROOT, env=env, stdout=self.logf,
+            stderr=subprocess.STDOUT)
+
+    def log_tail(self) -> str:
+        self.logf.seek(0)
+        return self.logf.read().decode(errors="replace")[-3000:]
+
+    def up(self, tag: str, timeout: float = 300) -> float:
+        """Wait for its ``/health``; seconds from its start."""
+        while True:
+            try:
+                if _http(self.base, "/health")[0] == 200:
+                    return time.perf_counter() - self.t0
+            except (urllib.error.URLError, ConnectionError):
+                pass
+            if (self.proc.poll() is not None
+                    or time.perf_counter() - self.t0 > timeout):
+                raise AssertionError(f"[mh2] {tag} did not come up (exit "
+                                     f"{self.proc.poll()}):\n"
+                                     f"{self.log_tail()}")
+            time.sleep(0.25)
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(30)
+        self.logf.close()
+
+
+class _MhPair:
+    """A leader and its follower (``_MhProc``). With ``drill``, a
+    follower with a wrong secret goes first: once it has exited, the
+    leader must still be waiting, and only then does the right follower
+    start (on a thread of its own, so the start-up runs beside other
+    work)."""
+
+    def __init__(self, drill: bool = False):
+        coord, control, lport, fport = _free_ports(4)
+        self.args = (coord, control, fport)
+        self.leader = _MhProc(0, coord, control, lport, MH_SECRET)
+        self.follower = None
+        self.drill = None
+        if drill:
+            self.wrong = _MhProc(1, coord, control, fport, MH_SECRET + "-no")
+            self.thread = threading.Thread(target=self._admit, daemon=True)
+            self.thread.start()
+        else:
+            self.follower = _MhProc(1, coord, control, fport, MH_SECRET)
+
+    def _admit(self) -> None:
+        try:
+            rc = self.wrong.proc.wait(300)
+            waiting = self.leader.proc.poll() is None
+            self.drill = {"wrong_secret_exit": rc,
+                          "wrong_secret_s": time.perf_counter()
+                          - self.wrong.t0,
+                          "leader_waiting": waiting,
+                          "leader_serving": False}
+            try:
+                self.drill["leader_serving"] = _http(
+                    self.leader.base, "/health")[0] == 200
+            except (urllib.error.URLError, ConnectionError):
+                pass
+        finally:
+            coord, control, fport = self.args
+            self.follower = _MhProc(1, coord, control, fport, MH_SECRET)
+
+    def up(self, tag: str) -> dict:
+        if hasattr(self, "thread"):
+            self.thread.join(300)
+        return {"leader_up_s": self.leader.up(f"{tag} leader"),
+                "follower_health": json.loads(_http(
+                    self.follower.base, "/health")[2])}
+
+    def kill(self) -> None:
+        for p in (self.leader, self.follower, getattr(self, "wrong", None)):
+            if p is not None:
+                p.kill()
+
+
+class _MhStart:
+    """Phase 22's processes, started beside phases 20 and 21: the leader
+    without a secret, the pair (behind the wrong-secret follower) and the
+    spawned ``--tp-server`` reference of the same flags and depth."""
+
+    def __init__(self):
+        self.ref = _TpServer()
+        self.bare = _MhProc(0, *_free_ports(3), None)
+        self.pair = _MhPair(drill=True)
+
+    def close(self) -> None:
+        self.ref.kill()
+        self.bare.kill()
+        self.pair.kill()
+
+
+def _mh_reports(base: str) -> dict:
+    return json.loads(_http(base, "/debug/ranks")[2])
+
+
+def _mh_same_launches(tag: str, reports: list, before: list) -> dict:
+    """Rank 0's launches since ``before``; every follower's digest and
+    call count are rank 0's and its launches over the same calls too."""
+    if (len({(r["calls"], r["digest"]) for r in reports}) != 1
+            or any(r["diverged_at"] is not None for r in reports)):
+        raise AssertionError(f"[mh2] {tag}: the ranks sampled other "
+                             f"tokens: {reports}")
+    deltas = [{k: n - b["launches"].get(k, 0)
+               for k, n in r["launches"].items()}
+              for r, b in zip(reports, before)]
+    if any(d != deltas[0] for d in deltas[1:]):
+        raise AssertionError(f"[mh2] {tag}: launches by rank {deltas}")
+    return deltas[0]
+
+
+def _mh_secret(start: "_MhStart") -> dict:
+    """(a) A leader without the secret exits non-zero, naming it, with the
+    card untouched; a follower with a wrong secret is refused and exits
+    non-zero while the leader keeps waiting; the right one then joins."""
+    rc = start.bare.proc.wait(300)
+    tail = start.bare.log_tail()
+    if (rc == 0 or "PSTPU_CONTROL_SECRET" not in tail
+            or "the card touched: False" not in tail):
+        raise AssertionError(f"[mh2] (a) the leader without a secret: exit "
+                             f"{rc}:\n{tail}")
+    pair = start.pair
+    pair.thread.join(300)
+    drill = pair.drill
+    if (drill is None or drill["wrong_secret_exit"] in (0, None)
+            or not drill["leader_waiting"] or drill["leader_serving"]):
+        raise AssertionError(f"[mh2] (a) the wrong secret: {drill}:\n"
+                             f"{pair.wrong.log_tail()}")
+    return {"no_secret_exit": rc, **drill}
+
+
+def _mh_prompts(np) -> tuple:
+    rng = np.random.default_rng(22)
+    one = [rng.integers(0, 32000, n).tolist() for n in MH_LENS]
+    lens = [1024] + [int(x) for x in rng.integers(64, 1025, MH_WAVE - 1)]
+    return one, [rng.integers(0, 32000, n).tolist() for n in lens]
+
+
+def _mh_identity(np, pair_base: str, ref_base: str) -> dict:
+    """(b) The sequential prompts bit for bit on the pair and on the
+    spawned server; then the concurrent wave, each answered 200, tokens
+    equal up to a near-tie and logprobs within the band of the spawned
+    server's own repeat (phase 15's kind of band)."""
+    one, wave = _mh_prompts(np)
+    for i, prompt in enumerate(one):
+        got = _kv_run(_kv_post(pair_base, _kv_body(prompt, MH_TOKENS)))
+        want = _kv_run(_kv_post(ref_base, _kv_body(prompt, MH_TOKENS)))
+        if got != want:
+            raise AssertionError(f"[mh2] (b) prompt {i} ({len(prompt)} "
+                                 f"tokens): the pair {got} != the spawned "
+                                 f"server {want}")
+    ref = _tpkv_wave(ref_base, wave, MH_TOKENS)
+    again = _tpkv_wave(ref_base, wave, MH_TOKENS)
+    noise = max(_kv_dev(u, r)[1] for u, r in zip(ref, again))
+    band = max(BF16_LOGPROB_BAND, 2 * noise)
+    got = _tpkv_wave(pair_base, wave, MH_TOKENS)
+    compared, worst = 0, 0.0
+    for i, (r, g) in enumerate(zip(ref, got)):
+        n, w = _kv_same(f"mh2 (b) wave request {i}", r, g, band)
+        compared, worst = compared + n, max(worst, w)
+    return {"sequential": len(one), "sequential_bit_for_bit": True,
+            "wave": len(wave), "wave_tokens_compared": compared,
+            "wave_max_logprob_dev": worst, "band": band,
+            "spawned_repeat_dev": noise}
+
+
+def _mh_stop(pair: "_MhPair", sig: str) -> dict:
+    """(d) ``sig`` to the leader: after SIGTERM it drains and exits 0;
+    either way the follower exits 0 within ``MH_GONE_S`` of the signal."""
+    import signal
+
+    t0 = time.perf_counter()
+    pair.leader.proc.send_signal(getattr(signal, sig))
+    try:
+        f_rc = pair.follower.proc.wait(MH_GONE_S)
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"[mh2] (d) {sig}: the follower still runs "
+                             f"{MH_GONE_S} s after the signal:\n"
+                             f"{pair.follower.log_tail()}")
+    gone = time.perf_counter() - t0
+    l_rc = pair.leader.proc.wait(60)
+    out = {"follower_exit": f_rc, "follower_gone_s": gone,
+           "leader_exit": l_rc, "leader_exit_s": time.perf_counter() - t0}
+    if f_rc != 0 or (sig == "SIGTERM" and l_rc != 0):
+        raise AssertionError(f"[mh2] (d) {sig}: {out}:\n"
+                             f"{pair.leader.log_tail()}\n"
+                             f"{pair.follower.log_tail()}")
+    return out
+
+
+def mh_phase(np, card: str, start: "_MhStart") -> dict:
+    """Phase 22: llama-3-8b at tp 2 and ``CUT_LAYERS`` as two processes
+    started on their own on this card (module docstring); ``start`` holds
+    its processes, started beside phases 20 and 21. Returns rank 0's
+    launches on (b)."""
+    t_phase = time.perf_counter()
+    pair = start.pair
+    try:
+        secret = _mh_secret(start)
+        up = pair.up("mh2")
+        if up["follower_health"] != {"status": "follower",
+                                     "process_id": 1}:
+            raise AssertionError(f"[mh2] (c) the follower's /health: {up}")
+        status, _, _ = _http(pair.follower.base, "/v1/models")
+        if status != 404:
+            raise AssertionError(f"[mh2] (c) the follower answered "
+                                 f"/v1/models with {status}")
+        start.ref.up("mh2 reference")
+        base = pair.leader.base
+        before = _mh_reports(base)["reports"]
+        t0 = time.perf_counter()
+        ident = _mh_identity(np, base, start.ref.base)
+        ident["pair_s"] = time.perf_counter() - t0
+        after = _mh_reports(base)
+        launches = _mh_same_launches("(c)", after["reports"], before)
+        _expect(launches, {"K1", "K2", "K3"}, "mh2")
+        channel = after["channel"]
+        steps = [(r["timeline"]["last_token"] - r["timeline"]["first_token"])
+                 / (MH_TOKENS - 1) for r in _obs_records(base, limit=12)[
+                     MH_WAVE:]]
+        host = {m: channel[m] for m in ("ragged_step", "decode_multi")
+                if m in channel}
+        stop = {"sigterm": _mh_stop(pair, "SIGTERM"),
+                "reference": start.ref.stop("mh2 reference")}
+        fresh = _MhPair()
+        try:
+            fresh_up = fresh.up("mh2 fresh pair")
+            stop["sigkill"] = _mh_stop(fresh, "SIGKILL")
+        finally:
+            fresh.kill()
+    except BaseException:
+        for p in (pair.leader, pair.follower):
+            if p is not None:
+                log(p.log_tail())
+        raise
+    log(f"[mh2] (a) the secret ({card}): {json.dumps(secret)}")
+    log(f"[mh2] (b) llama-3-8b at tp 2 as two processes started on their "
+        f"own against the spawned tp 2 server, one card ({card}; {MH_NOTE})"
+        f": {json.dumps(ident)}")
+    log(f"[mh2] (c) digests, calls and launches equal on both ranks: "
+        f"{json.dumps(launches)} ({after['reports'][0]['calls']} calls); "
+        f"the follower's /health {json.dumps(up['follower_health'])}")
+    log(f"[mh2] (d) stops ({card}): {json.dumps(stop)}")
+    log(f"[mh2] start-up ({card}): the pair {up['leader_up_s']:.1f} s "
+        f"beside phases 20-21, a fresh pair alone "
+        f"{fresh_up['leader_up_s']:.1f} s; the channel by method (median "
+        f"payload bytes and host microseconds to send one: pickle, HMAC, "
+        f"socket) {json.dumps(host)}; a decode step's wall on the pair, "
+        f"host clock, median of the sequential requests "
+        f"{1e3 * statistics.median(steps):.2f} ms; the phase in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _no_hbm_alarm_left(pids=()) -> int:
     """Every server of this run but phase 13's keeps its bundles in the
     default archive (a directory a process under the system tmpdir): this
@@ -8332,14 +8679,21 @@ def main() -> int:
     lap("18 tp2-whisper")
     by_path["pp2"] = pp_phase(torch, np, counters, card)
     lap("19 pp2")
-    grid_srv = _seq_server_start(2)  # phase 21's, up beside phase 20
+    mh_start = _MhStart()  # phase 22's processes, up beside phases 20-21
     try:
-        by_path["seq2"] = seq_phase(torch, np, counters, card)
-        lap("20 seq2")
-        by_path["seq2tp2"] = grid_phase(torch, np, counters, card, grid_srv)
+        grid_srv = _seq_server_start(2)  # phase 21's, up beside phase 20
+        try:
+            by_path["seq2"] = seq_phase(torch, np, counters, card)
+            lap("20 seq2")
+            by_path["seq2tp2"] = grid_phase(torch, np, counters, card,
+                                            grid_srv)
+        finally:
+            grid_srv.kill()
+        lap("21 seq2tp2")
+        by_path["mh2"] = mh_phase(np, card, mh_start)
     finally:
-        grid_srv.kill()
-    lap("21 seq2tp2")
+        mh_start.close()
+    lap("22 mh2-one-card")
     _no_hbm_alarm_left(kv_tp["pids"])
     log(f"[phases] seconds ({card}): " + json.dumps(
         {name: round(t - laps[k - 1][1], 1)
@@ -8377,6 +8731,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     CHILDREN = {"--capture-drill": capture_drill_child,
-                "--tp-server": tp_server_child}
+                "--tp-server": tp_server_child,
+                "--mh-server": mh_server_child}
     sys.exit(CHILDREN[sys.argv[1]](sys.argv[2:])
              if sys.argv[1:2] and sys.argv[1] in CHILDREN else main())

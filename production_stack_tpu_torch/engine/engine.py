@@ -58,6 +58,9 @@ at a degree above 1 the engine is rank 0 of a group it starts
 (engine/multihost.start_ranks, one spawned process a follower rank) and
 its runner mirrors every device call to them. What the ranks do not
 carry yet raises at start (``multihost.refusal``); ``close`` stops them.
+Given a multi-host ``distributed`` topology, the engine is process 0 of
+processes started on their own instead (``multihost.lead_ranks``), its
+calls sent over the authenticated channel.
 The KV plane's calls and the tiers are rank 0's: its runner hands them
 whole blocks, every rank's heads joined, and scatters what they import.
 
@@ -113,10 +116,11 @@ from production_stack_tpu_torch.engine.model_runner import ModelRunner
 from production_stack_tpu_torch.engine.multihost import (
     kernel_launches,
     MirroredRunner,
+    lead_ranks,
     start_ranks,
 )
 from production_stack_tpu_torch.engine.pp_runner import StagedModelRunner
-from production_stack_tpu_torch.parallel.distributed import AXIS_GRID
+from production_stack_tpu_torch.parallel.distributed import AXIS_GRID, axis_of
 from production_stack_tpu_torch.parallel.mesh import AXIS_SEQ
 from production_stack_tpu_torch.parallel.mesh import stage_devices as pstages
 from production_stack_tpu_torch.parallel.mesh import tensor_size
@@ -179,6 +183,7 @@ class LLMEngine:
         rank_devices: Optional[list] = None,
         backend: Optional[str] = None,
         stage_devices: Optional[list] = None,
+        distributed=None,
     ):
         """``rank_devices`` and ``backend`` place the tensor-parallel
         ranks (one device a rank; parallel/distributed.py's defaults:
@@ -188,7 +193,14 @@ class LLMEngine:
         tensor grid every process, by global rank (seq rank times the
         tensor size plus tensor rank). ``stage_devices``
         places the pipeline stages (parallel/mesh.stage_devices' default:
-        ``cuda:s`` on cards, the CPU otherwise); unused at one stage."""
+        ``cuda:s`` on cards, the CPU otherwise); unused at one stage.
+        ``distributed`` (parallel/distributed.DistributedConfig), when it
+        spans several processes, makes this engine process 0 of a
+        multi-host group: its ranks are processes started on their own
+        (``multihost.lead_ranks``), one a rank, and ``rank_devices`` names
+        this process's device; ``params``, where given, must then be every
+        follower's too (a follower with other weights is refused, and
+        this raises)."""
         self.config = config
         self.tokenizer = get_tokenizer(config.model.tokenizer)
         tp = tensor_size(config.mesh, device)
@@ -202,7 +214,11 @@ class LLMEngine:
             raise ValueError(
                 f"sequence parallelism ({sp} ranks) with pipeline ({S}) "
                 "parallelism is not ported yet")
-        if sp > 1 and tp > 1:
+        if distributed is not None and distributed.enabled:
+            self.runner = lead_ranks(config, params, num_blocks, device,
+                                     distributed, rank_devices, backend,
+                                     axis=axis_of(sp, tp), tensor=tp)
+        elif sp > 1 and tp > 1:
             self.runner = start_ranks(config, params, num_blocks, device,
                                       sp * tp, rank_devices, backend,
                                       axis=AXIS_GRID, tensor=tp)
@@ -1710,7 +1726,7 @@ class LLMEngine:
                 "decode_graphs": self.runner.graphs is not None,
                 "launches": kernel_launches()}
         if isinstance(self.runner, MirroredRunner):
-            info["pids"] += [p.pid for p in self.runner.procs]
+            info["pids"] += self.runner.follower_pids
             info["devices"] = list(self.runner.ranks.devices)
         return info
 

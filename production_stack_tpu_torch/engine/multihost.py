@@ -13,10 +13,43 @@ replays the calls in the order they were sent. The model's collectives
 inside each call then pair up across the ranks, and every rank samples
 from the same gathered logits with the same seeds, so they agree.
 
-The reference sends frames over a TCP channel of its own, authenticated
-for cross-host use; here the control group is gloo over the loopback
-address among processes this one started (``start_ranks``), and the
-cross-host control port and its secret belong to the multi-host slice.
+Two transports carry the calls. **Spawned ranks** (``start_ranks``)
+talk over the control group, gloo over the loopback address among
+processes this one started. **Multi-host ranks** (``lead_ranks``,
+``follow_leader``: processes started on their own, one a rank, joined
+through a coordinator, parallel/distributed.py ``join_world``) talk over
+the reference's authenticated step-plan channel (``LeaderBroadcaster``,
+``connect_leader``), since anyone who reaches a cross-host port could
+otherwise have their bytes unpickled. Its contract is the reference's:
+
+- The follower opens with HELLO and a fresh nonce under the shared secret
+  (``PSTPU_CONTROL_SECRET``; nothing starts without one,
+  ``control_secret``); the leader answers with its own nonce, and both
+  derive a per-session key from the two (``_session_key``); the follower
+  proves it derived the key with a CONFIRM frame under it, so a recorded
+  HELLO replayed at a fresh leader is refused.
+- Every later frame is HMAC-SHA256'd under the session key, carries a
+  sequence number each side checks to rise (a replayed or reordered frame
+  ends the channel), and is deserialized by a restricted unpickler that
+  admits numpy arrays and scalars, builtin containers and ``TokenFsm``,
+  never a torch rebuild function: a tensor argument goes as numpy and the
+  follower rebuilds it (``_wire``/``_unwire``).
+- A frame's length header, which arrives before its MAC is checked, is
+  capped (``_MAX_FRAME``, ``PSTPU_CONTROL_MAX_FRAME``; ``_MAX_HELLO``
+  during the handshake).
+
+The port adds to the reference's handshake what a follower started on its
+own needs: after CONFIRM the follower names its process id (its first
+frame to the leader), and the leader sends it the leader's float32 math
+and thread count (``follower_settings``), which a spawned follower gets
+as arguments. The followers' answers (``follower_reports``, ``gather``)
+are frames to the leader under the same key with sequence numbers of their
+own; an adapter's shares ride each follower's own copy of the
+``register_lora`` call frame. KV shares keep to the device group as plain
+tensors. A multi-host group has no control group at all, so no pickling
+collective can run in it (parallel/distributed.py). A follower leaves when
+the channel closes; the leader raises ``RankLost`` at its next call once a
+follower's socket has closed.
 
 The list is the reference's ``MIRRORED_METHODS`` with ``ragged_step``
 (which the reference's list lacks) and the port's warmup
@@ -91,19 +124,28 @@ only host values cross the control group: the clip's features (a
 token lists with the rest. A chunk's tokens fold into the digest, and
 each rank's report names the handles it still holds.
 
-Followers are started with the ``spawn`` method, as daemons of the leader:
-they exit on the leader's ``_shutdown`` (``close``), are ended with the
-leader's interpreter, and, if the leader is killed, leave within a second
-through a parent-pid watch.
+Spawned followers are started with the ``spawn`` method, as daemons of
+the leader: they exit on the leader's ``_shutdown`` (``close``), are ended
+with the leader's interpreter, and, if the leader is killed, leave within
+a second through a parent-pid watch.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import dataclasses
 import hashlib
+import hmac
+import io
 import logging
 import multiprocessing
 import os
+import pickle
+import select
+import socket
+import statistics
+import struct
 import threading
 import time
 from typing import Optional
@@ -146,6 +188,541 @@ JOIN_SECONDS = 10.0
 class RankLost(RuntimeError):
     """A follower rank's process has exited: the ranks can serve no more
     (never a best-effort miss)."""
+
+
+# -- the authenticated step-plan channel (multi-host; module docstring) ----
+# The reference's constants, messages and frame layout: a length header,
+# the payload's HMAC-SHA256, the payload.
+_LEN = struct.Struct("!Q")
+_MAC_BYTES = 32  # HMAC-SHA256
+_HELLO = b"pstpu-multihost-v2"
+_NONCE_BYTES = 16
+# the length header arrives before authentication, so an unauthenticated
+# peer must not make us buffer unbounded data; step plans are KBs, an
+# adapter's share tens of MB
+_MAX_FRAME = int(os.environ.get("PSTPU_CONTROL_MAX_FRAME",
+                                str(256 * 1024 * 1024)))
+_MAX_HELLO = 1024  # pre-auth handshake frames are tiny
+# the third handshake frame, MAC'd under the derived session key: proves
+# the follower derived it (knows the secret and saw this session's nonces)
+_CONFIRM = b"pstpu-mh-confirm"
+# a follower retries the leader's port this long before it fails
+CONNECT_SECONDS = 300.0
+# marks a tensor argument sent as numpy (``_wire``)
+_TENSOR = "__pstpu_tensor__"
+# calls of each method the leader's send statistics keep
+SENT_KEPT = 1024
+# values of each weight tensor ``weights_fingerprint`` reads at most
+FINGERPRINT_SAMPLES = 4096
+
+
+def control_secret() -> bytes:
+    """The shared control-plane secret (``PSTPU_CONTROL_SECRET``).
+
+    Raises when unset: an unauthenticated step-plan channel would hand
+    arbitrary deserialization to any peer that can reach the port."""
+    s = os.environ.get("PSTPU_CONTROL_SECRET", "")
+    if not s:
+        raise ValueError(
+            "multi-host serving needs PSTPU_CONTROL_SECRET (shared "
+            "control-plane secret; the chart injects it from a Kubernetes "
+            "Secret, helm/templates/secrets.yaml)")
+    return s.encode()
+
+
+class _RestrictedUnpickler(pickle.Unpickler):
+    """Admit only the types the channel's frames carry."""
+
+    _ALLOWED = {
+        ("builtins", "tuple"), ("builtins", "list"), ("builtins", "dict"),
+        ("builtins", "set"), ("builtins", "frozenset"),
+        ("builtins", "bytes"), ("builtins", "bytearray"),
+        ("builtins", "str"), ("builtins", "int"), ("builtins", "float"),
+        ("builtins", "bool"), ("builtins", "complex"),
+        ("builtins", "slice"), ("builtins", "NoneType"),
+        ("numpy", "ndarray"), ("numpy", "dtype"),
+        ("numpy.core.multiarray", "_reconstruct"),
+        ("numpy._core.multiarray", "_reconstruct"),
+        ("numpy.core.multiarray", "scalar"),
+        ("numpy._core.multiarray", "scalar"),
+        ("numpy.core.numeric", "_frombuffer"),
+        ("numpy._core.numeric", "_frombuffer"),
+        ("production_stack_tpu_torch.engine.grammar", "TokenFsm"),
+    }
+
+    def find_class(self, module, name):
+        # an explicit allowlist only: a module-wide numpy or torch wildcard
+        # would admit callables (np.load(allow_pickle=True), torch's
+        # rebuild functions) and reopen the door this class closes
+        if (module, name) in self._ALLOWED:
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"step-plan payload requested forbidden type {module}.{name}")
+
+
+def _session_key(secret: bytes, follower_nonce: bytes,
+                 leader_nonce: bytes) -> bytes:
+    """The per-session frame-MAC key. Both sides contribute a nonce, so
+    frames recorded in one session authenticate in no other, in either
+    direction."""
+    return hmac.new(secret, b"pstpu-mh-skey|" + follower_nonce +
+                    leader_nonce, hashlib.sha256).digest()
+
+
+def _dumps(obj) -> bytes:
+    return pickle.dumps(obj, protocol=5)
+
+
+def _loads(data: bytes):
+    return _RestrictedUnpickler(io.BytesIO(data)).load()
+
+
+def _send_frame(sock: socket.socket, payload: bytes, secret: bytes) -> None:
+    mac = hmac.new(secret, payload, hashlib.sha256).digest()
+    sock.sendall(_LEN.pack(len(payload)) + mac + payload)
+
+
+def _recv_exact(sock: socket.socket, n: int) -> Optional[bytes]:
+    buf = io.BytesIO()
+    got = 0
+    while got < n:
+        chunk = sock.recv(min(1 << 20, n - got))
+        if not chunk:
+            return None
+        buf.write(chunk)
+        got += len(chunk)
+    return buf.getvalue()
+
+
+def _recv_frame(sock: socket.socket, secret: bytes,
+                max_len: int = _MAX_FRAME) -> Optional[bytes]:
+    """The next frame's payload, None when the peer closed the channel;
+    raises on a length over ``max_len`` (before reading further) and on a
+    MAC that fails."""
+    hdr = _recv_exact(sock, _LEN.size)
+    if hdr is None:
+        return None
+    (n,) = _LEN.unpack(hdr)
+    if n > max_len:
+        raise ConnectionError(
+            f"control-plane frame of {n} bytes exceeds the {max_len}-byte "
+            "cap (unauthenticated length header: refusing to buffer)")
+    mac = _recv_exact(sock, _MAC_BYTES)
+    if mac is None:
+        return None
+    payload = _recv_exact(sock, n)
+    if payload is None:
+        return None
+    want = hmac.new(secret, payload, hashlib.sha256).digest()
+    if not hmac.compare_digest(mac, want):
+        raise ConnectionError("control-plane frame failed HMAC check")
+    return payload
+
+
+def _wire(args: tuple, kwargs: dict) -> tuple:
+    """A call's tensor arguments (at the top level or inside a tuple or
+    list argument) as numpy, marked with their dtype and whether they were
+    on a device (``_host``); the restricted unpickler admits no torch
+    type."""
+
+    def one(x):
+        if isinstance(x, torch.Tensor):
+            return (_TENSOR, str(x.dtype).replace("torch.", ""),
+                    x.device.type != "cpu", _host(x))
+        if isinstance(x, (tuple, list)):
+            return type(x)(one(v) for v in x)
+        return x
+
+    return (tuple(one(a) for a in args),
+            {k: one(v) for k, v in kwargs.items()})
+
+
+def _unwire(args: tuple, kwargs: dict, device) -> tuple:
+    """``_wire`` undone on a follower: each marked array a tensor of its
+    dtype, on ``device`` where the leader's was on a device."""
+
+    def one(x):
+        if (isinstance(x, tuple) and len(x) == 4
+                and isinstance(x[0], str) and x[0] == _TENSOR):
+            t = torch.from_numpy(np.asarray(x[3])).to(getattr(torch, x[1]))
+            return t.to(device) if x[2] else t
+        if isinstance(x, (tuple, list)):
+            return type(x)(one(v) for v in x)
+        return x
+
+    return (tuple(one(a) for a in args),
+            {k: one(v) for k, v in kwargs.items()})
+
+
+def follower_settings() -> dict:
+    """What a follower started on its own takes from the leader right
+    after the handshake: the float32 math (``float32_math``) and the
+    thread count, without which the ranks compute their replicated parts
+    differently."""
+    return {"math": float32_math(), "threads": torch.get_num_threads()}
+
+
+def weights_fingerprint(params) -> Optional[str]:
+    """A digest of a parameter dict (nested dicts of tensors): each
+    leaf's name, dtype, shape and a strided sample of at most
+    ``FINGERPRINT_SAMPLES`` of its values, bit for bit. None where no
+    dict is given: each process then seeds or loads the weights its
+    config names. The leader holds each follower's to its own
+    (``LeaderBroadcaster.wait_for_followers``), so processes handed
+    different weights refuse to start."""
+    if params is None:
+        return None
+    h = hashlib.sha256()
+
+    def walk(tree, prefix):
+        for k in sorted(tree):
+            v, name = tree[k], f"{prefix}{k}"
+            if isinstance(v, dict):
+                walk(v, name + "/")
+            elif not torch.is_tensor(v):
+                h.update(f"{name}|{v!r}|".encode())
+            else:
+                h.update(f"{name}|{v.dtype}|{tuple(v.shape)}|".encode())
+                flat = v.detach().reshape(-1)
+                flat = flat[::max(1, flat.numel() // FINGERPRINT_SAMPLES)]
+                h.update(flat.contiguous().cpu().view(torch.uint8)
+                         .numpy().tobytes())
+
+    walk(params, "")
+    return h.hexdigest()
+
+
+def apply_settings(settings: dict) -> None:
+    torch.set_num_threads(int(settings["threads"]))
+    set_float32_math(settings["math"])
+
+
+@dataclasses.dataclass
+class _Peer:
+    """A follower's end of the channel on the leader: its socket, its
+    session key, its process id and pid, its weights' fingerprint
+    (``weights_fingerprint``), the last sequence number of its answers."""
+
+    sock: socket.socket
+    key: bytes
+    process_id: int
+    pid: int
+    weights: Optional[str] = None
+    last_up: int = 0
+
+
+class LeaderBroadcaster:
+    """The leader's channel (the reference's): accepts one authenticated
+    connection a follower, then sends the step plans, each with a sequence
+    number, and reads the followers' answers. ``settings`` go to each
+    follower right after its handshake (default ``follower_settings()``);
+    ``weights`` is the leader's ``weights_fingerprint``, which each
+    follower's must equal."""
+
+    def __init__(self, port: int, num_followers: int,
+                 secret: Optional[bytes] = None,
+                 bind_host: Optional[str] = None,
+                 accept_timeout: float = 300.0,
+                 settings: Optional[dict] = None,
+                 weights: Optional[str] = None):
+        self.secret = secret if secret is not None else control_secret()
+        self.num_followers = num_followers
+        self.weights = weights
+        self.settings = (settings if settings is not None
+                         else follower_settings())
+        bind = (bind_host if bind_host is not None
+                else os.environ.get("PSTPU_CONTROL_BIND", "0.0.0.0"))
+        self.server = socket.create_server((bind, port), backlog=16)
+        self.server.settimeout(accept_timeout)
+        # process id -> _Peer; written by wait_for_followers, read by the
+        # engine thread's calls, both under the lock
+        self.peers: dict[int, _Peer] = {}
+        self.lock = threading.RLock()
+        self.seq = 0  # guarded-by: lock
+        # each method's last SENT_KEPT calls: payload bytes (one
+        # follower's copy) and host seconds to send the call to all
+        self.frame_bytes: dict[str, collections.deque] = {}
+        self.send_seconds: dict[str, collections.deque] = {}
+
+    @property
+    def pids(self) -> list:
+        """The followers' pids, by process id."""
+        return [self.peers[i].pid for i in sorted(self.peers)]
+
+    def _handshake(self, conn: socket.socket, addr) -> Optional[_Peer]:
+        """The reference's HELLO / nonce / CONFIRM, then the follower's
+        process id; None (after a warning) for a peer refused."""
+        try:
+            conn.settimeout(30.0)
+            hello = _recv_frame(conn, self.secret, max_len=_MAX_HELLO)
+            if (hello is None
+                    or len(hello) != len(_HELLO) + _NONCE_BYTES
+                    or not hmac.compare_digest(hello[:len(_HELLO)],
+                                               _HELLO)):
+                logger.warning("rejecting connection from %s: bad hello",
+                               addr)
+                return None
+            f_nonce = hello[len(_HELLO):]
+            l_nonce = os.urandom(_NONCE_BYTES)
+            key = _session_key(self.secret, f_nonce, l_nonce)
+            _send_frame(conn, l_nonce, self.secret)
+            # the confirm verifies under the session key only if the peer
+            # derived it: a replayed HELLO cannot
+            if _recv_frame(conn, key, max_len=_MAX_HELLO) != _CONFIRM:
+                logger.warning("rejecting connection from %s: bad session "
+                               "confirm (replayed HELLO?)", addr)
+                return None
+            joined = _recv_frame(conn, key, max_len=_MAX_HELLO)
+            up, who = _loads(joined) if joined is not None else (0, {})
+            pid = who.get("process_id") if isinstance(who, dict) else None
+            if (up != 1 or not isinstance(pid, int)
+                    or not 1 <= pid <= self.num_followers
+                    or pid in self.peers):
+                logger.warning("rejecting connection from %s: process id "
+                               "%r (want one of 1..%d not yet joined)",
+                               addr, pid, self.num_followers)
+                return None
+        except (OSError, pickle.UnpicklingError, ValueError,
+                TypeError) as e:
+            logger.warning("rejecting connection from %s: %s", addr, e)
+            return None
+        conn.settimeout(None)
+        return _Peer(conn, key, pid, int(who.get("pid", 0)),
+                     weights=who.get("weights"), last_up=1)
+
+    def wait_for_followers(self) -> None:
+        """Accept followers until ``num_followers`` have joined, refusing
+        any that fail the handshake; each joined follower gets the
+        settings at once. A follower that authenticates with weights
+        other than the leader's (``weights_fingerprint``) raises
+        ValueError: the group would serve different models."""
+        while len(self.peers) < self.num_followers:
+            conn, addr = self.server.accept()
+            conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            peer = self._handshake(conn, addr)
+            if peer is None:
+                conn.close()
+                continue
+            if peer.weights != self.weights:
+                conn.close()
+                raise ValueError(
+                    f"process {peer.process_id} was given other weights "
+                    f"than the leader (fingerprint {peer.weights} against "
+                    f"{self.weights}): every process of a multi-host group "
+                    "must load the same weights, the same params dict on "
+                    "each or none (each then seeds or loads what its "
+                    "config names)")
+            with self.lock:
+                self.seq += 1
+                _send_frame(conn, _dumps((self.seq, "_settings", (),
+                                          self.settings, "")), peer.key)
+                self.peers[peer.process_id] = peer
+            logger.info("follower %d (pid %d) connected from %s (%d/%d)",
+                        peer.process_id, peer.pid, addr, len(self.peers),
+                        self.num_followers)
+
+    def _send(self, peer: _Peer, payload: bytes) -> None:
+        try:
+            _send_frame(peer.sock, payload, peer.key)
+        except OSError as e:
+            raise RankLost(f"follower {peer.process_id} (pid {peer.pid}): "
+                           f"the channel closed ({e})") from e
+
+    def _sent(self, method: str, nbytes: int, t0: float) -> None:
+        for book, x in ((self.frame_bytes, nbytes),
+                        (self.send_seconds, time.perf_counter() - t0)):
+            book.setdefault(method, collections.deque(
+                maxlen=SENT_KEPT)).append(x)
+
+    def broadcast(self, method: str, args: tuple, kwargs: dict,
+                  digest: str = "") -> None:
+        """The reference's step-plan broadcast: one frame, every
+        follower."""
+        with self.lock:
+            t0 = time.perf_counter()
+            self.seq += 1
+            payload = _dumps((self.seq, method, args, kwargs, digest))
+            for i in sorted(self.peers):
+                self._send(self.peers[i], payload)
+            self._sent(method, len(payload), t0)
+
+    def send_call(self, call: tuple, shares: Optional[list] = None) -> None:
+        """A ``MirroredRunner`` call ``(n, method, args, kwargs, digest)``
+        under this channel's next sequence number; with ``shares``, each
+        follower's copy carries its own (``kwargs["share"]``) and no other
+        rank's."""
+        _, method, args, kwargs, digest = call
+        args, kwargs = _wire(args, kwargs)
+        if shares is None:
+            self.broadcast(method, args, kwargs, digest)
+            return
+        with self.lock:
+            t0 = time.perf_counter()
+            self.seq += 1
+            for i in sorted(self.peers):
+                payload = _dumps((self.seq, method, args,
+                                  dict(kwargs, share=shares[i]), digest))
+                self._send(self.peers[i], payload)
+            self._sent(method, len(payload), t0)
+
+    def stats(self) -> dict:
+        """Each method's calls sent (of the last ``SENT_KEPT``), median
+        payload bytes and median host microseconds to send one."""
+        with self.lock:
+            return {m: {"frames": len(b),
+                        "median_bytes": statistics.median(b),
+                        "median_send_us": 1e6 * statistics.median(
+                            self.send_seconds[m])}
+                    for m, b in self.frame_bytes.items()}
+
+    def gather(self, obj) -> list:
+        """``obj`` then every follower's next answer, by process id."""
+        out = [obj]
+        with self.lock:
+            for i in sorted(self.peers):
+                peer = self.peers[i]
+                try:
+                    payload = _recv_frame(peer.sock, peer.key)
+                except OSError as e:
+                    if type(e) is ConnectionError:
+                        raise  # the channel's own faults: MAC, cap
+                    raise RankLost(f"follower {i} (pid {peer.pid}): "
+                                   f"{e}") from e
+                if payload is None:
+                    raise RankLost(f"follower {i} (pid {peer.pid}) closed "
+                                   "the channel")
+                up, body = _loads(payload)
+                if up <= peer.last_up:
+                    raise ConnectionError(
+                        f"follower {i}'s answer replayed or reordered "
+                        f"(seq {up} after {peer.last_up})")
+                peer.last_up = up
+                out.append(body)
+        return out
+
+    def check_alive(self) -> None:
+        """Raise ``RankLost`` if a follower's socket has closed: a
+        follower sends nothing unasked, so a readable socket between calls
+        is a closed one (or a protocol fault)."""
+        with self.lock:
+            socks = {p.sock: p for p in self.peers.values()}
+        if not socks:
+            return
+        ready, _, _ = select.select(list(socks), [], [], 0)
+        for sock in ready:
+            peer = socks[sock]
+            try:
+                got = sock.recv(1, socket.MSG_PEEK | socket.MSG_DONTWAIT)
+            except BlockingIOError:
+                continue
+            except OSError as e:
+                got = b""
+                logger.info("follower %d: %s", peer.process_id, e)
+            if not got:
+                raise RankLost(f"follower {peer.process_id} (pid "
+                               f"{peer.pid}) closed the channel")
+            raise ConnectionError(f"follower {peer.process_id} sent a "
+                                  "frame unasked")
+
+    def close(self) -> None:
+        """``_shutdown`` to every follower still there, then the sockets
+        closed."""
+        try:
+            self.broadcast("_shutdown", (), {})
+        except Exception:
+            logger.debug("shutdown broadcast to followers failed",
+                         exc_info=True)
+        with self.lock:
+            for peer in self.peers.values():
+                try:
+                    peer.sock.close()
+                except OSError:
+                    logger.debug("follower socket close failed",
+                                 exc_info=True)
+        self.server.close()
+
+
+class FollowerChannel:
+    """A follower's end of the channel: the leader's frames in order (a
+    sequence number that does not rise ends it), and answers to the
+    leader under the session key with sequence numbers of their own."""
+
+    def __init__(self, sock: socket.socket, key: bytes):
+        self.sock = sock
+        self.key = key
+        self.last_seq = 0
+        self.up_seq = 0
+
+    def recv(self) -> Optional[tuple]:
+        """The leader's next frame ``(seq, method, args, kwargs,
+        digest)``; None when the leader closed the channel."""
+        payload = _recv_frame(self.sock, self.key)
+        if payload is None:
+            return None
+        frame = _loads(payload)
+        if frame[0] <= self.last_seq:
+            raise ConnectionError(
+                f"control-plane frame replayed or reordered "
+                f"(seq {frame[0]} after {self.last_seq})")
+        self.last_seq = frame[0]
+        return frame
+
+    def reply(self, obj) -> None:
+        self.up_seq += 1
+        _send_frame(self.sock, _dumps((self.up_seq, obj)), self.key)
+
+    def close(self) -> None:
+        self.sock.close()
+
+
+def connect_leader(leader_host: str, control_port: int, process_id: int,
+                   secret: Optional[bytes] = None,
+                   connect_timeout: float = CONNECT_SECONDS,
+                   weights: Optional[str] = None) -> tuple:
+    """Reach the leader's channel (retrying its port for
+    ``connect_timeout`` seconds, as the reference's ``follower_loop``
+    does), run the handshake, name this process and its weights
+    (``weights_fingerprint``), and take the leader's settings. Returns
+    (the ``FollowerChannel``, the settings). A refused handshake raises:
+    a follower never falls back to serving alone."""
+    secret = secret if secret is not None else control_secret()
+    deadline = time.monotonic() + connect_timeout
+    while True:
+        try:
+            sock = socket.create_connection((leader_host, control_port),
+                                            timeout=5.0)
+            break
+        except OSError:
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"could not reach the leader at "
+                                   f"{leader_host}:{control_port}")
+            time.sleep(0.5)
+    sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+    try:
+        f_nonce = os.urandom(_NONCE_BYTES)
+        sock.settimeout(30.0)
+        _send_frame(sock, _HELLO + f_nonce, secret)
+        l_nonce = _recv_frame(sock, secret, max_len=_MAX_HELLO)
+        if l_nonce is None or len(l_nonce) != _NONCE_BYTES:
+            raise ConnectionError("the leader's handshake returned no "
+                                  "session nonce (wrong secret?)")
+        key = _session_key(secret, f_nonce, l_nonce)
+        _send_frame(sock, _CONFIRM, key)
+        channel = FollowerChannel(sock, key)
+        channel.reply({"process_id": process_id, "pid": os.getpid(),
+                       "weights": weights})
+        frame = channel.recv()
+        if frame is None or frame[1] != "_settings":
+            raise ConnectionError("the leader refused this follower (no "
+                                  "settings after the handshake: its "
+                                  "process id or weights?)")
+    except BaseException:
+        sock.close()
+        raise
+    sock.settimeout(None)
+    logger.info("process %d connected to the leader at %s:%d", process_id,
+                leader_host, control_port)
+    return channel, frame[3]
 
 
 def sampled_tokens(method: str, result) -> Optional[np.ndarray]:
@@ -236,14 +813,18 @@ class MirroredRunner:
     """Rank 0's runner: send the call, then run it locally.
 
     The send precedes the local call so the followers start as soon as the
-    leader does; the control group keeps the leader's program order. Other
-    attributes pass through to the local runner. ``close`` stops the
-    followers and leaves the group."""
+    leader does; the transport keeps the leader's program order: the
+    control group for spawned ranks (``procs``, their processes), the
+    authenticated ``channel`` for multi-host ranks. Other attributes pass
+    through to the local runner. ``close`` stops the followers and leaves
+    the group."""
 
-    def __init__(self, inner, ranks, procs: list):
+    def __init__(self, inner, ranks, procs: list,
+                 channel: Optional[LeaderBroadcaster] = None):
         self._inner = inner
         self.ranks = ranks
         self.procs = procs
+        self.channel = channel
         self._digest = _Digest()
         self._pending = None  # (method, result) not yet folded
         self._launched = Launched()
@@ -272,14 +853,27 @@ class MirroredRunner:
             self._digest.fold(*self._pending)
             self._pending = None
 
+    @property
+    def follower_pids(self) -> list:
+        """The followers' pids, by global rank."""
+        if self.channel is not None:
+            return self.channel.pids
+        return [p.pid for p in self.procs]
+
     def _check_alive(self) -> None:
+        if self.channel is not None:
+            self.channel.check_alive()
+            return
         for r, p in enumerate(self.procs, start=1):
             if not p.is_alive():
                 raise RankLost(
                     f"tensor-parallel rank {r} (pid {p.pid}) exited with "
                     f"code {p.exitcode}")
 
-    def _send(self, method: str, args: tuple, kwargs: dict) -> None:
+    def _send(self, method: str, args: tuple, kwargs: dict,
+              shares: Optional[list] = None) -> None:
+        """Send a call; ``shares`` (one a rank) give each follower its own
+        entry besides it."""
         if self._closed:
             raise RuntimeError("the tensor-parallel ranks are closed")
         with self._lock:
@@ -289,8 +883,19 @@ class MirroredRunner:
                     kwargs.get("tokens_dev"), torch.Tensor):
                 kwargs = dict(kwargs, tokens_dev=_CHAINED_NEXT_TOK)
             self._seq += 1
-            self.ranks.broadcast((self._seq, method, args, kwargs,
-                                  self._digest.hex()))
+            call = (self._seq, method, args, kwargs, self._digest.hex())
+            if self.channel is not None:
+                self.channel.send_call(call, shares)
+                return
+            self.ranks.broadcast(call)
+            if shares is not None:
+                self.ranks.scatter(shares)
+
+    def _gather(self, obj) -> list:
+        """``obj`` and every follower's answer, in rank order."""
+        if self.channel is not None:
+            return self.channel.gather(obj)
+        return self.ranks.gather(obj)
 
     def register_lora(self, slot: int, bank_np: dict) -> None:
         """``ModelRunner.register_lora`` on every rank, each follower sent
@@ -300,8 +905,7 @@ class MirroredRunner:
         shares = [adapter_share(bank_np, self.ranks.shard_of(cfg, r), cfg)
                   for r in range(size)]
         with self._lock:
-            self._send("register_lora", (slot,), {"root": root})
-            self.ranks.scatter(shares)
+            self._send("register_lora", (slot,), {"root": root}, shares)
             with self._launched.counting():
                 self._inner.put_lora(slot, shares[0], root)
 
@@ -422,7 +1026,7 @@ class MirroredRunner:
         tokens in every call so far."""
         with self._lock:
             self._send("_report", (), {})
-            return self.ranks.gather(self.report())
+            return self._gather(self.report())
 
     def gather(self, method: str, *args) -> list:
         """Every rank's result of the read-only runner call ``method``,
@@ -432,13 +1036,21 @@ class MirroredRunner:
             self._send("_gather", (method, *args), {})
             with self._launched.counting():
                 mine = _host(getattr(self._inner, method)(*args))
-            return self.ranks.gather(mine)
+            return self._gather(mine)
 
     def close(self) -> None:
-        """Stop the followers (``_shutdown``, then a join; one that does
-        not leave in ``JOIN_SECONDS`` is terminated) and leave the
-        group."""
+        """Stop the followers (``_shutdown``; spawned ones are then
+        joined, and one that does not leave in ``JOIN_SECONDS`` is
+        terminated; multi-host ones leave on the closed channel) and
+        leave the group."""
         if self._closed:
+            return
+        if self.channel is not None:
+            self._closed = True
+            try:
+                self.channel.close()
+            finally:
+                self.ranks.close()
             return
         try:
             if all(p.is_alive() for p in self.procs):
@@ -514,30 +1126,47 @@ def check_share(runner, method: str, args: tuple, shape: tuple) -> None:
                            f"{tuple(runner.kv.shape)}")
 
 
-def follower_loop(runner, ranks) -> None:
-    """Replay the leader's runner calls until it sends ``_shutdown``."""
+def follower_loop(runner, ranks,
+                  channel: Optional[FollowerChannel] = None) -> None:
+    """Replay the leader's runner calls until it sends ``_shutdown``, over
+    the control group, or over the multi-host ``channel``, which also
+    ends the loop, cleanly, when the leader closes it."""
     replayer = FollowerReplayer(runner)
+    recv = ranks.broadcast if channel is None else channel.recv
+    reply = ranks.gather if channel is None else channel.reply
+    n = 0
     while True:
-        seq, method, args, kwargs, digest = ranks.broadcast()
+        frame = recv()
+        if frame is None:
+            logger.info("rank %d: the leader closed the control channel",
+                        ranks.rank)
+            return
+        _, method, args, kwargs, digest = frame
         if method == "_shutdown":
             logger.info("rank %d: shutdown from the leader", ranks.rank)
             return
-        replayer.check(seq, digest)
+        n += 1
+        replayer.check(n, digest)
         if method == "_report":
-            ranks.gather(replayer.report())
+            reply(replayer.report())
             continue
+        if channel is not None:
+            args, kwargs = _unwire(args, kwargs, runner.device)
         with replayer.launched.counting():
-            _follow(runner, ranks, replayer, method, args, kwargs)
+            _follow(runner, ranks, replayer, method, args, kwargs, reply)
 
 
 def _follow(runner, ranks, replayer, method: str, args: tuple,
-            kwargs: dict) -> None:
+            kwargs: dict, reply) -> None:
     """One of the leader's calls on a follower: a read-only gather, an
-    adapter share, a KV share sent or received, or a replay."""
+    adapter share (the channel's call frame carries it; the control group
+    scatters it after the call), a KV share sent or received, or a
+    replay."""
     if method == "_gather":
-        ranks.gather(_host(getattr(runner, args[0])(*args[1:])))
+        reply(_host(getattr(runner, args[0])(*args[1:])))
     elif method == "register_lora":
-        runner.put_lora(args[0], ranks.scatter(), kwargs["root"])
+        share = kwargs["share"] if "share" in kwargs else ranks.scatter()
+        runner.put_lora(args[0], share, kwargs["root"])
     elif method in KV_GATHERS:
         # an export joins seq rank 0's tensor group: on the grid the
         # other seq ranks move nothing
@@ -720,3 +1349,124 @@ def start_ranks(config, params, num_blocks, device, size: int,
             ranks.close()
         raise
     return MirroredRunner(inner, ranks, procs)
+
+
+# -- multi-host ranks: processes started on their own (module docstring) ---
+def process_device(device, dcfg, devices=None) -> str:
+    """This process's device in the multi-host group ``dcfg``: the one
+    ``devices`` names where the caller names it, else ``cuda:i`` on a
+    card, processes taking the machine's cards in turn by id, else the
+    CPU."""
+    if devices:
+        if len(devices) != 1:
+            raise ValueError(f"{len(devices)} devices for one process of "
+                             "a multi-host group: name its own")
+        return str(devices[0])
+    if torch.device(device).type == "cuda":
+        return f"cuda:{dcfg.process_id % max(torch.cuda.device_count(), 1)}"
+    return "cpu"
+
+
+def check_group(config, dcfg, axis: str, tensor: int) -> None:
+    """Raise unless ``config`` can run on the multi-host group ``dcfg``,
+    in the reference's order: no pipeline stages (the staged runner's
+    stages do not span processes), a coordinator of ``host:port``, no
+    Whisper model (its serving is single-controller), a mesh of one
+    process a rank, and nothing the axis does not carry (``refusal``).
+    The server turns this ValueError into its exit at start."""
+    mesh = config.mesh
+    if mesh.stage > 1:
+        raise ValueError(
+            "multi-host serving does not compose with the staged pipeline "
+            f"runner (pipeline size {mesh.stage}): shard across processes "
+            "with --tensor-parallel-size or --sequence-parallel-size "
+            "instead")
+    dcfg.check()
+    if config.model.architecture == "whisper":
+        raise ValueError("multi-host serving does not run Whisper (its "
+                         "serving is single-controller): scale it with "
+                         "--tensor-parallel-size within one process tree "
+                         "or add replicas")
+    want = mesh.seq * tensor
+    if dcfg.num_processes != want:
+        raise ValueError(
+            f"--num-processes {dcfg.num_processes} does not match the "
+            f"mesh's {want} processes (tensor size {tensor} x sequence "
+            f"size {mesh.seq}, one process a rank)")
+    why = refusal(config, axis)
+    if why is not None:
+        raise ValueError(f"{why}: not ported under "
+                         f"{pdist.PARALLELISM[axis]} yet")
+
+
+def lead_ranks(config, params, num_blocks, device, dcfg, devices=None,
+               backend: Optional[str] = None, axis: str = AXIS_TENSOR,
+               tensor: int = 1, secret: Optional[bytes] = None,
+               bind_host: Optional[str] = None):
+    """Process 0 of the multi-host group ``dcfg``: wait on the channel for
+    its ``num_processes - 1`` followers (each authenticated, then sent
+    this process's settings), join the group (``join_world``), build the
+    runner, and return it as a ``MirroredRunner`` over the channel. The
+    channel binds the loopback where the coordinator is local, otherwise
+    ``bind_host`` (default ``PSTPU_CONTROL_BIND``, or every interface, as
+    the reference). ``params``, where given, must be the followers' too:
+    a follower whose ``weights_fingerprint`` differs raises here."""
+    check_group(config, dcfg, axis, tensor)
+    dev = process_device(device, dcfg, devices)
+    backend = backend or pdist.default_backend(dev)
+    secret = secret if secret is not None else control_secret()
+    if bind_host is None and pdist.is_local(dcfg.coordinator_host):
+        bind_host = pdist.HOST
+    channel = LeaderBroadcaster(dcfg.control_port, dcfg.num_processes - 1,
+                                secret, bind_host=bind_host,
+                                weights=weights_fingerprint(params))
+    ranks = None
+    try:
+        logger.info("waiting for %d follower(s) on control port %d",
+                    dcfg.num_processes - 1, dcfg.control_port)
+        channel.wait_for_followers()
+        if torch.device(dev).type == "cuda":
+            from production_stack_tpu_torch.ops import _build
+
+            _build.build_all()
+        ranks = pdist.join_world(dcfg, dev, backend, axis, tensor)
+        inner = build_runner(config, params, num_blocks, ranks)
+    except BaseException:
+        channel.close()
+        if ranks is not None:
+            ranks.close()
+        raise
+    return MirroredRunner(inner, ranks, [], channel=channel)
+
+
+def follow_leader(config, dcfg, device, devices=None,
+                  backend: Optional[str] = None, axis: str = AXIS_TENSOR,
+                  tensor: int = 1, params=None, num_blocks=None,
+                  secret: Optional[bytes] = None) -> None:
+    """A follower of the multi-host group ``dcfg``: reach the leader's
+    channel (``connect_leader``; a refused handshake raises), take its
+    settings, join the group, build this rank's runner as the leader
+    builds its own, and replay the leader's calls until it sends
+    ``_shutdown`` or closes the channel. ``params`` must be the leader's
+    (``weights_fingerprint``): the leader refuses a follower with other
+    weights."""
+    check_group(config, dcfg, axis, tensor)
+    dev = process_device(device, dcfg, devices)
+    backend = backend or pdist.default_backend(dev)
+    channel, settings = connect_leader(
+        dcfg.coordinator_host, dcfg.control_port, dcfg.process_id, secret,
+        weights=weights_fingerprint(params))
+    ranks = None
+    try:
+        apply_settings(settings)
+        if torch.device(dev).type == "cuda":
+            from production_stack_tpu_torch.ops import _build
+
+            _build.build_all()
+        ranks = pdist.join_world(dcfg, dev, backend, axis, tensor)
+        follower_loop(build_runner(config, params, num_blocks, ranks),
+                      ranks, channel)
+    finally:
+        channel.close()
+        if ranks is not None:
+            ranks.close()

@@ -150,6 +150,22 @@ remote KV tiers at a sequence-parallel size above 1: later slices.
 ``--data-parallel-size`` parses to the reference's default; above 1 it
 exits at start, not ported yet.
 
+Multi-host serving (the reference's flags and their environment defaults:
+``--distributed-coordinator`` / ``PSTPU_COORDINATOR``, ``--num-processes``
+/ ``PSTPU_NUM_PROCESSES``, ``--process-id`` / ``PSTPU_PROCESS_ID``,
+``--control-port`` / ``PSTPU_CONTROL_PORT``): every rank is a process
+started on its own with the same flags, one a rank, so ``--num-processes``
+must equal the tensor size times the sequence size (``-1`` tensor size:
+the processes over the seq ranks). Process 0 serves HTTP and leads: it
+waits on the control port for the others, then mirrors every runner call,
+warmup included, over the authenticated step-plan channel
+(engine/multihost.py). Every other process serves ``/health`` as
+``{"status": "follower", "process_id": i}`` (404 elsewhere), builds its
+runner shard in the leader's order, replays the calls until the channel
+closes, and exits 0. Nothing starts without ``PSTPU_CONTROL_SECRET``,
+checked before anything touches the card; the host and remote KV tiers,
+pipeline stages and Whisper exit at start, as in the reference.
+
 Response bodies have the JAX server's shape, so the same router can front
 either engine.
 
@@ -220,7 +236,13 @@ from production_stack_tpu_torch.engine.kv_transfer import (
 from production_stack_tpu_torch.engine.lifecycle import StepWatchdog
 from production_stack_tpu_torch.engine.lora import LoraManager
 from production_stack_tpu_torch.engine.metrics import CONTENT_TYPE, ServerMetrics
-from production_stack_tpu_torch.engine.multihost import RankLost
+from production_stack_tpu_torch.engine.multihost import (
+    RankLost,
+    check_group,
+    control_secret,
+    follow_leader,
+    process_device,
+)
 from production_stack_tpu_torch.engine.multihost import refusal as tp_refusal
 from production_stack_tpu_torch.engine.overload import (
     SHED_MAX_TOKENS,
@@ -240,6 +262,7 @@ from production_stack_tpu_torch.engine.sampling import (
 from production_stack_tpu_torch.engine.scheduler import SchedulerQueueFull
 from production_stack_tpu_torch.flight_recorder import FlightRecorder
 from production_stack_tpu_torch.parallel import distributed as pdist
+from production_stack_tpu_torch.parallel.distributed import DistributedConfig
 from production_stack_tpu_torch.parallel.mesh import (
     AXIS_SEQ,
     AXIS_TENSOR,
@@ -535,11 +558,13 @@ class EngineServer:
                  diagnostics: Optional[DiagnosticsConfig] = None,
                  rank_devices: Optional[list] = None,
                  backend: Optional[str] = None,
-                 stage_devices: Optional[list] = None):
+                 stage_devices: Optional[list] = None,
+                 distributed: Optional[DistributedConfig] = None):
         self.config = config
         self.engine = engine if engine is not None else LLMEngine(
             config, device=device, rank_devices=rank_devices,
-            backend=backend, stage_devices=stage_devices)
+            backend=backend, stage_devices=stage_devices,
+            distributed=distributed)
         self.async_engine = AsyncEngine(self.engine)
         self.lora = LoraManager(self.engine)
         self.model_name = served_model_name or config.model.name
@@ -1198,6 +1223,25 @@ class EngineServer:
              "interval": self.config.perf_ledger_interval}
             if self.perf_ledger is not None else {"enabled": False})
         return 200, snap
+
+    def debug_ranks(self) -> tuple[int, dict]:
+        """The ranks (``rank_info``) and, where the runner mirrors its
+        calls to follower ranks, every rank's report (``follower_reports``:
+        token digest, call count, kernel launches inside the ranks' calls)
+        and, over the multi-host channel, each method's frames, median
+        payload bytes and median host microseconds to send one (pickle,
+        HMAC, socket). Made on the engine thread between steps."""
+
+        def collect(eng) -> dict:
+            runner = eng.runner
+            reports = getattr(runner, "follower_reports", None)
+            channel = getattr(runner, "channel", None)
+            return {"ranks": eng.rank_info(),
+                    "reports": reports() if reports is not None else None,
+                    "channel": channel.stats() if channel is not None
+                    else None}
+
+        return 200, self.async_engine.run_on_engine(collect)
 
     def debug_canary(self, query: dict) -> tuple[int, dict]:
         """Golden records of the pinned probes (canary_golden.py): each
@@ -2791,6 +2835,9 @@ class EngineServer:
                 elif url.path == "/debug/perf":
                     status, payload = server.debug_perf()
                     self._send_json(payload, status)
+                elif url.path == "/debug/ranks":
+                    status, payload = server.debug_ranks()
+                    self._send_json(payload, status)
                 elif url.path == "/debug/canary":
                     status, payload = server.debug_canary(
                         urllib.parse.parse_qs(url.query))
@@ -3434,6 +3481,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kv-transfer-ttl", type=float, default=120.0,
                    help="seconds a received, unattached transfer may hold "
                         "KV blocks before the sweep frees them")
+    # multi-host serving: defaults come from the environment
+    # (PSTPU_COORDINATOR, PSTPU_NUM_PROCESSES, PSTPU_PROCESS_ID,
+    # PSTPU_CONTROL_PORT), so the chart's StatefulSet wires them without
+    # templating argv (parallel/distributed.py DistributedConfig)
+    p.add_argument("--distributed-coordinator", default=None,
+                   help="host:port of process 0's rendezvous store "
+                        "(multi-host serving; env PSTPU_COORDINATOR)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="processes in the multi-host group, one a rank: "
+                        "the tensor size times the sequence size (env "
+                        "PSTPU_NUM_PROCESSES)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's id; 0 serves HTTP and leads, "
+                        ">0 replays step plans (env PSTPU_PROCESS_ID)")
+    p.add_argument("--control-port", type=int, default=None,
+                   help="the leader's step-plan channel port "
+                        "(engine/multihost.py; env PSTPU_CONTROL_PORT)")
     p.add_argument("--config", default=None,
                    help="YAML file of flag values (keys = flag names); "
                         "explicit flags win (yaml_args.py; needs PyYAML "
@@ -3444,21 +3508,25 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _mesh_from_args(args) -> MeshConfig:
+def _mesh_from_args(args, processes: Optional[int] = None) -> MeshConfig:
     """The parallel sizes of the command line: pipeline stages and seq
     ranks as given, tensor parallelism resolved on the engine's device
-    (parallel/mesh.tensor_size, over the cards left to each seq rank).
-    Seq ranks with tensor ranks make the grid; pipeline stages with
-    either, and data parallelism above 1, exit, not ported yet."""
+    (parallel/mesh.tensor_size, over the cards left to each seq rank), or,
+    in a multi-host group of ``processes``, over the processes left to
+    each seq rank (``multihost.check_group`` then holds the count to the
+    mesh's). Seq ranks with tensor ranks make the grid; pipeline stages
+    with either, and data parallelism above 1, exit, not ported yet."""
     if args.data_parallel_size > 1:
         raise SystemExit(f"--data-parallel-size {args.data_parallel_size}: "
                          "data parallelism is not ported to the PyTorch "
                          "engine yet (tensor, pipeline and sequence "
                          "parallelism are)")
     pp, sp = args.pipeline_parallel_size, args.sequence_parallel_size
+    tensor = args.tensor_parallel_size
+    if processes is not None and tensor == -1:
+        tensor = max(processes // max(sp, 1), 1)
     try:
-        tp = tensor_size(MeshConfig(stage=pp, seq=sp,
-                                    tensor=args.tensor_parallel_size),
+        tp = tensor_size(MeshConfig(stage=pp, seq=sp, tensor=tensor),
                          args.device)
     except ValueError as e:
         raise SystemExit(f"--tensor-parallel-size / --pipeline-parallel-"
@@ -3476,8 +3544,10 @@ def _mesh_from_args(args) -> MeshConfig:
     return MeshConfig(stage=pp, seq=sp, tensor=tp)
 
 
-def config_from_args(args) -> EngineConfig:
-    mesh = _mesh_from_args(args)
+def config_from_args(args, processes: Optional[int] = None) -> EngineConfig:
+    """The engine's config from parsed flags (``processes``: the
+    multi-host group's process count, ``_mesh_from_args``)."""
+    mesh = _mesh_from_args(args, processes)
     overrides = {}
     if args.max_model_len is not None:
         overrides["max_model_len"] = args.max_model_len
@@ -3595,9 +3665,88 @@ def diagnostics_config_from_args(args) -> DiagnosticsConfig:
     )
 
 
+def distributed_from_args(args) -> DistributedConfig:
+    """The multi-host topology of the flags, the environment filling what
+    they leave out (the reference's ``DistributedConfig.from_env``)."""
+    return DistributedConfig.from_env(
+        coordinator=args.distributed_coordinator,
+        num_processes=args.num_processes, process_id=args.process_id,
+        control_port=args.control_port)
+
+
+def check_multihost(args) -> None:
+    """The server's own start-up refusals of a multi-host process, first
+    of all and in the reference's order: no secret (before anything
+    touches the card), then the host or remote KV tier. The rest of the
+    policy is ``multihost.check_group``'s (``_multihost_config``)."""
+    try:
+        control_secret()  # fail fast: no secret, no multi-host
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if args.host_offload_blocks or args.kv_host_cache_bytes or \
+            args.remote_kv_url:
+        raise SystemExit(
+            "multi-host serving does not yet compose with the host-offload "
+            "/ remote-KV tiers (their device transfers run outside the "
+            "mirrored runner)")
+
+
+def _multihost_config(args, dcfg: DistributedConfig) -> EngineConfig:
+    """The engine's config in a multi-host group, its tensor size
+    resolved over the processes (``config_from_args``); what the group
+    cannot run exits (``multihost.check_group``: pipeline stages, no
+    coordinator, Whisper, a process count other than the mesh's)."""
+    config = config_from_args(args, dcfg.num_processes)
+    mesh = config.mesh
+    try:
+        check_group(config, dcfg, pdist.axis_of(mesh.seq, mesh.tensor),
+                    mesh.tensor)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    return config
+
+
+def _follower_main(args, dcfg: DistributedConfig,
+                   rank_devices: Optional[list] = None,
+                   backend: Optional[str] = None) -> None:
+    """A multi-host follower (the reference's ``_follower_main``): serve
+    a minimal ``/health`` for the orchestrator's probes, build the same
+    runner shard in the same order as the leader, and replay the leader's
+    calls until the channel closes."""
+    config = _multihost_config(args, dcfg)
+    body = json.dumps({"status": "follower",
+                       "process_id": dcfg.process_id}).encode()
+
+    class Health(BaseHTTPRequestHandler):
+        def do_GET(self):  # noqa: N802 (http.server API)
+            self.send_response(200 if self.path == "/health" else 404)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *a):
+            pass
+
+    httpd = ThreadingHTTPServer((args.host, args.port), Health)
+    threading.Thread(target=httpd.serve_forever, daemon=True,
+                     name="follower-health").start()
+    mesh = config.mesh
+    try:
+        follow_leader(config, dcfg, args.device, rank_devices, backend,
+                      axis=pdist.axis_of(mesh.seq, mesh.tensor),
+                      tensor=mesh.tensor)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    _log.info("process %d: the leader's channel closed; exiting",
+              dcfg.process_id)
+
+
 def server_from_args(args, rank_devices: Optional[list] = None,
                      backend: Optional[str] = None,
-                     stage_devices: Optional[list] = None):
+                     stage_devices: Optional[list] = None,
+                     distributed: Optional[DistributedConfig] = None):
     """The server ``main`` runs for parsed command-line ``args``, not yet
     bound: the warmup starts at ``bind`` unless ``--skip-warmup``. A
     Whisper model gets its own runner and server
@@ -3608,11 +3757,25 @@ def server_from_args(args, rank_devices: Optional[list] = None,
     rank whose card does not exist exits before any rank starts. Under
     pipeline parallelism ``stage_devices`` places the stages (default:
     stage s on ``cuda:s``, or the CPU); a stage whose card does not exist
-    exits before any weight is made."""
-    config = config_from_args(args)
+    exits before any weight is made. A multi-host ``distributed`` topology
+    makes the server its process 0 (``rank_devices``: this process's
+    device, ``multihost.process_device``), and what the group cannot run
+    exits (``_multihost_config``)."""
+    multi = distributed is not None and distributed.enabled
+    config = (_multihost_config(args, distributed) if multi
+              else config_from_args(args))
     sizes = {AXIS_SEQ: config.mesh.seq, AXIS_TENSOR: config.mesh.tensor}
     axes = [a for a, n in sizes.items() if n > 1]
-    if axes:
+    if multi:
+        try:
+            pdist.check_devices(
+                [process_device(args.device, distributed, rank_devices)],
+                pdist.PARALLELISM[pdist.axis_of(config.mesh.seq,
+                                                config.mesh.tensor)])
+        except (RuntimeError, ValueError) as e:
+            raise SystemExit(f"--num-processes {distributed.num_processes}:"
+                             f" {e}")
+    elif axes:
         # every process of the ranks: seq times tensor size on the grid
         n = sizes[AXIS_SEQ] * sizes[AXIS_TENSOR]
         what = pdist.PARALLELISM[axes[0] if len(axes) == 1
@@ -3659,18 +3822,30 @@ def server_from_args(args, rank_devices: Optional[list] = None,
                         flight_recorder_size=args.flight_recorder_size,
                         diagnostics=diagnostics_config_from_args(args),
                         rank_devices=rank_devices, backend=backend,
-                        stage_devices=stage_devices)
+                        stage_devices=stage_devices,
+                        distributed=distributed if multi else None)
 
 
 def main(argv=None, rank_devices: Optional[list] = None,
          backend: Optional[str] = None,
          stage_devices: Optional[list] = None) -> None:
     """The command line's server (``rank_devices``, ``backend`` and
-    ``stage_devices``: see ``server_from_args``)."""
+    ``stage_devices``: see ``server_from_args``). In a multi-host group
+    the start-up refusals come first (``check_multihost``, then
+    ``_multihost_config``); a follower
+    then replays the leader's calls (``_follower_main``) and returns when
+    the channel closes."""
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s %(message)s")
     args = parse_with_yaml_config(build_parser(), argv)
-    server = server_from_args(args, rank_devices, backend, stage_devices)
+    dcfg = distributed_from_args(args)
+    if dcfg.enabled:
+        check_multihost(args)
+        if not dcfg.is_leader:
+            _follower_main(args, dcfg, rank_devices, backend)
+            return
+    server = server_from_args(args, rank_devices, backend, stage_devices,
+                              dcfg)
     port = server.bind(args.host, args.port)
     if server.config.model.architecture == "whisper":
         _log.info("serving %s (whisper) on %s:%d (device %s)",

@@ -33,10 +33,21 @@ process's ``wire``. On one axis a group is its own view of that axis.
 The rendezvous is a ``TCPStore`` that rank 0 opens on ``127.0.0.1`` at a
 free port and hands to the ranks it starts; gloo binds the loopback
 address too. The backend and every rank's device are the launcher's
-arguments, and nothing here reads an environment variable: a rank whose
-card does not exist raises (``check_devices``); it never moves to another
-card or to the CPU. Reaching ranks on other hosts is the multi-host
-slice's work.
+arguments: a rank whose card does not exist raises (``check_devices``);
+it never moves to another card or to the CPU.
+
+**Multi-host** (``DistributedConfig``, ``join_world``): processes started
+on their own, one a rank, each told the coordinator (``host:port`` of
+process 0), the process count and its own id, by flags or by the
+``PSTPU_*`` environment the chart sets. Process 0 opens the ``TCPStore``
+at the coordinator's port, the others connect to it, and a process's
+global rank is its id; each names its device in the store, so every
+process knows every rank's. gloo binds the address of the interface that
+routes to the coordinator (``local_address``; the loopback where the
+coordinator is local). Such a group has no control group: its step
+inputs and the followers' answers ride the authenticated channel of
+engine/multihost.py, never a pickling collective, and only plain tensors
+cross its device group (``min_int`` among them).
 
 The reference reaches other chips through ``jax.distributed`` and XLA's
 collectives (production_stack_tpu/parallel/distributed.py); its step
@@ -47,6 +58,9 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import ipaddress
+import os
+import socket
 import time
 from typing import Any, Optional, Sequence
 
@@ -80,6 +94,93 @@ PARALLELISM = {AXIS_TENSOR: "tensor parallelism",
                AXIS_GRID: "sequence and tensor parallelism"}
 
 
+@dataclasses.dataclass
+class DistributedConfig:
+    """The multi-host topology (the reference's, parallel/distributed.py
+    there). Every field defaults from the environment, so the chart wires
+    them without touching argv: ``PSTPU_COORDINATOR``,
+    ``PSTPU_NUM_PROCESSES``, ``PSTPU_PROCESS_ID``, ``PSTPU_CONTROL_PORT``."""
+
+    coordinator: Optional[str] = None  # host:port of process 0's store
+    num_processes: int = 1
+    process_id: int = 0
+    # the leader's step-plan channel (engine/multihost.py); the
+    # coordinator's port is the store's, this one is the channel's
+    control_port: int = 18100
+
+    @classmethod
+    def from_env(cls, coordinator=None, num_processes=None, process_id=None,
+                 control_port=None) -> "DistributedConfig":
+        def pick(arg, env, cast, default):
+            if arg is not None:
+                return arg
+            v = os.environ.get(env)
+            return cast(v) if v else default
+
+        return cls(
+            coordinator=pick(coordinator, "PSTPU_COORDINATOR", str, None),
+            num_processes=pick(num_processes, "PSTPU_NUM_PROCESSES", int, 1),
+            process_id=pick(process_id, "PSTPU_PROCESS_ID", int, 0),
+            control_port=pick(control_port, "PSTPU_CONTROL_PORT", int, 18100),
+        )
+
+    @property
+    def enabled(self) -> bool:
+        return self.num_processes > 1
+
+    @property
+    def is_leader(self) -> bool:
+        return self.process_id == 0
+
+    @property
+    def coordinator_host(self) -> str:
+        return (self.coordinator or HOST).rsplit(":", 1)[0]
+
+    @property
+    def coordinator_port(self) -> int:
+        return int(self.coordinator.rsplit(":", 1)[1])
+
+    def check(self) -> None:
+        """Raise unless the topology can be joined: a coordinator with a
+        port when there are several processes (the reference's
+        ``initialize_distributed``), and an id among them."""
+        if not self.enabled:
+            return
+        if self.coordinator is None:
+            raise ValueError(
+                "multi-host serving needs --distributed-coordinator "
+                "(host:port of process 0) when num_processes > 1")
+        host, _, port = self.coordinator.rpartition(":")
+        if not host or not port.isdigit():
+            raise ValueError(f"--distributed-coordinator "
+                             f"{self.coordinator!r} is not host:port")
+        if not 0 <= self.process_id < self.num_processes:
+            raise ValueError(f"--process-id {self.process_id} outside the "
+                             f"{self.num_processes} processes")
+
+
+def is_local(host: str) -> bool:
+    """Whether ``host`` names this machine's loopback."""
+    try:
+        ip = socket.getaddrinfo(host, None, socket.AF_INET)[0][4][0]
+    except socket.gaierror:
+        return False
+    return ipaddress.ip_address(ip).is_loopback
+
+
+def local_address(coordinator_host: str) -> str:
+    """The address this process's gloo device binds: the loopback where
+    the coordinator is local, otherwise the address of the interface the
+    kernel routes to the coordinator through (a UDP ``connect`` picks the
+    route and sends nothing)."""
+    if is_local(coordinator_host):
+        return HOST
+    ip = socket.getaddrinfo(coordinator_host, None, socket.AF_INET)[0][4][0]
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.connect((ip, 9))
+        return s.getsockname()[0]
+
+
 def rank_devices(device, size: int) -> list[str]:
     """Each rank's device when the caller names none: ``cuda:r`` for rank
     r on a card, the CPU for every rank otherwise."""
@@ -109,6 +210,14 @@ def check_devices(devices: Sequence[str],
             raise RuntimeError(
                 f"{what} over {len(devices)} ranks puts rank "
                 f"{r} on {d}, but this machine has {n} CUDA card(s)")
+
+
+def axis_of(seq: int, tensor: int) -> str:
+    """The axis of a group of ``seq`` seq ranks of ``tensor`` tensor ranks
+    each: the grid where both are above 1."""
+    if seq > 1 and tensor > 1:
+        return AXIS_GRID
+    return AXIS_SEQ if seq > 1 else AXIS_TENSOR
 
 
 def check_grid(size: int, tensor: int) -> None:
@@ -142,9 +251,9 @@ def await_ranks(store: dist.TCPStore, procs: list) -> None:
             time.sleep(0.05)
 
 
-def _gloo_options():
+def _gloo_options(host: str = HOST):
     opts = dist.ProcessGroupGloo._Options()
-    opts._devices = [dist.ProcessGroupGloo.create_device(hostname=HOST)]
+    opts._devices = [dist.ProcessGroupGloo.create_device(hostname=host)]
     return opts
 
 
@@ -172,6 +281,7 @@ class RankGroup:
     pg: Any = None
     members: tuple = ()
     views: dict = dataclasses.field(default_factory=dict)
+    host: str = HOST
 
     @property
     def cards(self) -> int:
@@ -359,15 +469,26 @@ class RankGroup:
         return y.to(self.device) if self._staged() else y
 
     def min_int(self, n: int) -> int:
-        """The least of each rank's ``n`` (over the control group)."""
-        t = torch.tensor([int(n)], dtype=torch.int64)
+        """The least of each rank's ``n``: over the control group, or, in
+        a multi-host group, which has none, as a plain tensor over the
+        device group (on the rank's device under NCCL)."""
+        on = ("cpu" if self.control is not None or self.backend == "gloo"
+              else self.device)
+        t = torch.tensor([int(n)], dtype=torch.int64, device=on)
         dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self.control)
         return int(t.item())
+
+    def _control(self):
+        if self.control is None:
+            raise RuntimeError(
+                "a multi-host group has no control group: its messages "
+                "ride the authenticated channel (engine/multihost.py)")
+        return self.control
 
     def broadcast(self, obj=None):
         """Rank 0's ``obj`` on every rank (over the control group)."""
         box = [obj]
-        dist.broadcast_object_list(box, src=0, group=self.control)
+        dist.broadcast_object_list(box, src=0, group=self._control())
         return box[0]
 
     def scatter(self, objs: Optional[list] = None):
@@ -375,13 +496,13 @@ class RankGroup:
         each rank receives only its own."""
         out = [None]
         dist.scatter_object_list(out, objs if self.rank == 0 else None,
-                                 src=0, group=self.control)
+                                 src=0, group=self._control())
         return out[0]
 
     def gather(self, obj) -> Optional[list]:
         """Every rank's ``obj`` in rank order on rank 0; None elsewhere."""
         out = [None] * self.size if self.rank == 0 else None
-        dist.gather_object(obj, out, dst=0, group=self.control)
+        dist.gather_object(obj, out, dst=0, group=self._control())
         return out
 
     def close(self) -> None:
@@ -428,7 +549,7 @@ def _grid_views(world: RankGroup, T: int) -> dict:
     docstring): every tensor group's device group, then every seq
     group's, made in the same order on every process."""
     n = world.size
-    opts = _gloo_options() if world.backend == "gloo" else None
+    opts = _gloo_options(world.host) if world.backend == "gloo" else None
 
     def groups(members: list) -> list:
         return [dist.new_group(m, backend=world.backend,
@@ -444,8 +565,44 @@ def _grid_views(world: RankGroup, T: int) -> dict:
         return RankGroup(r, len(members), world.device,
                          tuple(world.devices[g] for g in members),
                          world.backend, None, axis, wire=world.wire, pg=pg,
-                         members=members)
+                         members=members, host=world.host)
 
     return {AXIS_TENSOR: view(AXIS_TENSOR, t, tensor_members[s],
                               tensor_pgs[s]),
             AXIS_SEQ: view(AXIS_SEQ, s, seq_members[t], seq_pgs[t])}
+
+
+def join_world(cfg: DistributedConfig, device, backend: str,
+               axis: str = AXIS_TENSOR, tensor: int = 1) -> RankGroup:
+    """Join the multi-host group ``cfg`` names as rank ``process_id`` of
+    ``num_processes``, spawning nothing: process 0 opens the store at the
+    coordinator's port, the others connect to it (module docstring).
+    ``device`` is this process's; every rank's is read from the store. On
+    the grid (``AXIS_GRID``) ``tensor`` is the tensor size and the
+    group's ``tensor`` and ``seq`` views are made here."""
+    if dist.is_initialized():
+        raise RuntimeError("this process already belongs to a "
+                           "torch.distributed group")
+    cfg.check()
+    size, rank = cfg.num_processes, cfg.process_id
+    if axis == AXIS_GRID:
+        check_grid(size, tensor)
+    device = torch.device(device)
+    if device.type == "cuda":
+        check_devices([str(device)], PARALLELISM[axis])
+        torch.cuda.set_device(device)
+    host = local_address(cfg.coordinator_host)
+    store = dist.TCPStore(cfg.coordinator_host, cfg.coordinator_port, size,
+                          rank == 0, timeout=STORE_TIMEOUT,
+                          wait_for_workers=False)
+    store.set(f"device{rank}", str(device))
+    devices = tuple(store.get(f"device{r}").decode() for r in range(size))
+    opts = _gloo_options(host) if backend == "gloo" else None
+    dist.init_process_group(backend, store=store, rank=rank,
+                            world_size=size, timeout=DEVICE_TIMEOUT,
+                            pg_options=opts)
+    group = RankGroup(rank, size, device, devices, backend, None, axis,
+                      host=host)
+    if axis == AXIS_GRID:
+        group.views = _grid_views(group, tensor)
+    return group

@@ -409,3 +409,44 @@ def test_ring_static_imports(module):
     path = ROOT / (module.replace(".", "/") + ".py")
     bad = [m for m in _imports(path) if forbidden(m)]
     assert bad == [], f"{path.name} imports {bad}"
+
+
+MULTIHOST = ("production_stack_tpu_torch.engine.multihost",
+             "production_stack_tpu_torch.parallel.distributed",
+             "production_stack_tpu_torch.engine.engine",
+             "production_stack_tpu_torch.engine.server",
+             "production_stack_tpu_torch.testing.multihost_harness")
+
+
+def test_multihost_prefix_trap():
+    """The reference's modules of the same names (its channel, its
+    topology, its harness) are forbidden, the port's are not."""
+    for name in MULTIHOST:
+        assert not forbidden(name)
+        assert forbidden(name.replace("production_stack_tpu_torch",
+                                      "production_stack_tpu"))
+
+
+def test_multihost_modules_load_no_jax():
+    """The multi-host control plane (the channel, the topology and the
+    rendezvous, the engine and server that lead or follow, the harness)
+    loads neither JAX nor the JAX package, whose channel module loads
+    without JAX and is still not imported."""
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {MULTIHOST!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(MULTIHOST) <= set(mods)
+    assert [m for m in mods if forbidden(m)] == []
+
+
+@pytest.mark.parametrize("module", MULTIHOST)
+def test_multihost_static_imports(module):
+    path = ROOT / (module.replace(".", "/") + ".py")
+    bad = [m for m in _imports(path) if forbidden(m)]
+    assert bad == [], f"{path.name} imports {bad}"

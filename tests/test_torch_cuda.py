@@ -1297,3 +1297,37 @@ def test_sequence_tensor_grid_on_one_card_matches_cpu(cuda):
         np.testing.assert_allclose(
             pool, cpu_pool.numpy()[..., [g % 2, KH + g % 2], :],
             rtol=1e-5, atol=1e-5)
+
+
+def test_multihost_pair_on_one_card_matches_cpu(cuda, tmp_path):
+    """The multi-host harness (float32 tiny-llama at tp 2) as two
+    processes started on their own, both on this card over gloo, the
+    calls on the authenticated channel: the greedy, guided and adapter
+    tokens equal the same pair's on the CPU, logprobs within 1e-4, both
+    ranks' digests and launches agree, and K1, K2 and K3 launched."""
+    from _torch_multihost import line, run_pair
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.weights import init_random
+    from production_stack_tpu_torch.testing import multihost_harness as h
+
+    # one weight set for both runs: a seeded init differs by device
+    params = str(tmp_path / "params.npz")
+    h.save_params(init_random(EngineConfig.for_model("tiny-llama").model,
+                              seed=0), params)
+    runs = {}
+    for dev in ("cpu", "cuda:0"):
+        (l_rc, l_out), (f_rc, f_out) = run_pair(
+            ["--params", params], timeout=300, device=dev)
+        assert l_rc == 0 and f_rc == 0, (l_out[-3000:], f_out[-3000:])
+        assert "FOLLOWER DONE" in f_out
+        runs[dev] = line(l_out, "TOKENS")
+    cpu, card = runs["cpu"], runs["cuda:0"]
+    assert card["tokens"] == cpu["tokens"]
+    for rid, entries in cpu["logprobs"].items():
+        for (a, _), (b, _) in zip(entries, card["logprobs"][rid]):
+            assert abs(a - b) <= 1e-4, rid
+    reports = card["reports"]
+    assert len({(r["calls"], r["digest"]) for r in reports}) == 1
+    assert reports[0]["launches"] == reports[1]["launches"]
+    assert {"K1", "K2", "K3"} <= {k for k, n in reports[0]["launches"].items()
+                                  if n}
