@@ -166,7 +166,9 @@ fatal):
    depth (32 + 32 layers, E 1280, 128 mels, vocab 51866), seed-0 weights
    in float32 and cast to bf16: SOT-position logit cosine > 0.99, the
    encoder output's relative error printed. (c) whisper-large-v3-class in
-   bf16 served over HTTP with ``--max-num-seqs 4``: 8 concurrent requests
+   bf16 at full width and ``CUT_LAYERS`` of its encoder's and decoder's
+   layers each (since PR 23: the script's time; (a) and (b) keep their
+   depth) served over HTTP with ``--max-num-seqs 4``: 8 concurrent requests
    (5, 12 and 30 s clips at 16 and 44.1 kHz, every response format,
    transcribe and translate, ``max_tokens`` 32) all 200, verbose_json's
    segment tokens at most 32 and start <= end, srt and vtt cues ordered;
@@ -260,7 +262,9 @@ fatal):
    (phase 10 (e) sleeps at both levels with graphs on). Then, the engine
    released, K3 at the ladder's plan against the exact per-step plan on
    the same inputs (64 live rows at ~150 and ~2K, 4 live of 64 at 8192),
-   each checked against the plain version first.
+   each checked against the plain version first, with the plain version
+   and SDPA and varlen_attn on the live rows' gathered contexts timed
+   beside them.
    K1, K2 and K3 launch (K1 and K3 counted through the replays), K4 not.
 
 15. Tensor parallelism (``tp2``): llama-3-8b bf16 at full width and
@@ -472,12 +476,31 @@ fatal):
    fresh pair: SIGKILL to the leader, the follower exits 0 within 5 s on
    the closed channel. Printed: start-up seconds, each call's median
    frame bytes and host microseconds to send, a decode step's wall.
+23. Pipeline x tensor parallelism (``pp2tp2-one-card``): llama-3-8b bf16
+   at full width and depth, seed 0, at pp 2 x tp 2: four processes on
+   this card over gloo (the stage x tensor grid, process g stage g // 2
+   and tensor rank g % 2, each 16 layers at H 16 and KH 4 and a pool of
+   ``TP_BLOCKS`` blocks), the bucketed path, prefix cache off, decode
+   eager, the residual stream relayed stage to stage through host memory.
+   (a) Phase 15's 16 prompts, greedy, ``TP_TOKENS`` tokens, against the tp
+   2 bucketed engine at full depth (run first and released): tokens equal
+   bit for bit (stage after stage runs tp 2's operations). (b) K1, K3 and
+   K4 launch on each of the four processes (``follower_reports``, each
+   naming its stage and tensor rank) and K2 on none; every digest rank
+   0's. (c) Printed, not judged: each process's weight bytes, the block
+   count, three eager 64-row decode steps' host wall and the stage
+   relay's bytes each step on rank 0. (d) The server from
+   ``--pipeline-parallel-size 2 --tensor-parallel-size 2`` in a fresh
+   process (``--tp-server``, ``CUT_LAYERS`` layers, started as phase 23
+   starts) answers a completion, a stream, an embedding and
+   ``/kv/export`` (two blocks, tp 2's head groups, every stage's layers),
+   and its three followers are gone within 3 s of SIGTERM.
 
 Phases 4-14 run with decode graphs on, the default; phase 5's bf16 run
 through the plain versions decodes eagerly (a plain version synchronises
 with the host, which a capture cannot hold), and so do phases 15-17
-(a gloo collective cannot be captured) and phase 19 (a staged runner
-decodes eagerly); Whisper's paths have no graphs. Phase 20's seq ranks
+(a gloo collective cannot be captured) and phases 19 and 23 (a staged
+runner decodes eagerly); Whisper's paths have no graphs. Phase 20's seq ranks
 keep theirs: their decode runs no collective. Phase 21's decode runs its
 tensor group's, so it decodes eagerly.
 
@@ -487,7 +510,8 @@ path's own counts are in ``launches_by_path``, ``moe-int8``, ``kv-plane``,
 ``scoring-surface``, ``whisper``, ``overload``, ``observability``,
 ``decode-graphs``, ``tp2``, ``tp2-lora-ragged``, ``tp2-lora-bucketed``,
 ``tp2-moe-int8``, ``tp2-kv-plane``, ``tp2-whisper`` (rank 0's), ``pp2``,
-``seq2``, ``seq2tp2`` and ``mh2`` (rank 0's) among them; a graph
+``seq2``, ``seq2tp2``, ``mh2`` and ``pp2tp2`` (rank 0's) among them; a
+graph
 replay adds
 the launches its capture recorded); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -536,14 +560,15 @@ TIE_GAP = 1e-4
 # greedy flip is accepted only where the top-2 gap is within that band
 BF16_LOGPROB_BAND = 0.05
 
-# phases 7, 10, 13, 14, 15-18, 20 and 21 serve their models at full width
-# and this many of their layers (whisper-large-v3-class: of its encoder's
-# and of its decoder's each). What they check holds at any depth, and
-# each judged comparison holds two runs of one depth; at full depth the
-# script took 900-1,300 s of its 1,200 s limit, the gloo phases 15-18
-# varying most with the host, and phase 20 84 s; with phase 21 and 10 and
-# 14 at full depth, 853 s. Phases 4-6, 8, 9, 11, 12 and 19 keep the full
-# depth.
+# phases 7, 10, 11 (c)-(d), 13, 14, 15-18, 20-22 and 23 (d) serve their
+# models at full width and this many of their layers
+# (whisper-large-v3-class: of its encoder's and of its decoder's each).
+# What they check holds at any depth, and each judged comparison holds two
+# runs of one depth; at full depth the script took 900-1,300 s of its
+# 1,200 s limit, the gloo phases 15-18 varying most with the host, and
+# phase 20 84 s; with phase 21 and 10 and 14 at full depth, 853 s; with
+# phase 23 and 11 at full depth, 985 s. Phases 4-6, 8, 9, 12, 19 and 23
+# (a)-(c) keep the full depth.
 CUT_LAYERS = 8
 
 
@@ -4373,7 +4398,8 @@ def _whisper_http(torch, np, server, port: int) -> dict:
 def whisper_phase(torch, np, counters, card: str) -> dict:
     """Phase 11 (``whisper``): (a) float32 tiny-whisper card = CPU; (b)
     whisper-large-v3-class bf16 against float32; (c) whisper-large-v3-class
-    in bf16 served over HTTP with ``--max-num-seqs 4``; (d) its numbers.
+    in bf16 at ``CUT_LAYERS`` served over HTTP with ``--max-num-seqs 4``;
+    (d) its numbers.
     Returns the launches of the served path: K1-K4 all 0 (Whisper reaches
     none of them)."""
     from production_stack_tpu_torch.engine.server import (
@@ -4385,11 +4411,12 @@ def whisper_phase(torch, np, counters, card: str) -> dict:
     _whisper_card_vs_cpu(torch, np)
     _whisper_bf16_vs_f32(torch, np)
     t0 = time.perf_counter()
-    server = server_from_args(build_parser().parse_args(
-        ["--model", "whisper-large-v3-class", "--max-num-seqs", "4",
-         "--seed", "0"]))
+    with _CutServers():
+        server = server_from_args(build_parser().parse_args(
+            ["--model", "whisper-large-v3-class", "--max-num-seqs", "4",
+             "--seed", "0"]))
     port = server.start("127.0.0.1", 0)
-    log(f"[whisper] whisper-large-v3-class up in "
+    log(f"[whisper] whisper-large-v3-class at {CUT_LAYERS} layers up in "
         f"{time.perf_counter() - t0:.1f} s: "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     try:
@@ -5817,7 +5844,9 @@ def _dg_k3_ladder(torch, np, geo: dict, card: str) -> dict:
     ``split_plan`` (live rows, longest context + multi_step), on the same
     inputs at the engine's batch of 64: all rows live at contexts 130-170
     and 2000-2100, and 4 live rows at 8192 beside 60 empty ones. Both
-    plans are checked against the plain version first."""
+    plans are checked against the plain version first; the plain
+    version, and SDPA and varlen_attn on the live rows' gathered contexts
+    (``yardsticks``), are timed beside them."""
     from production_stack_tpu_torch.ops import paged_decode_attention as k3
 
     H, KH, D, bs, M, S, K, rungs = (geo[k] for k in (
@@ -5851,6 +5880,16 @@ def _dg_k3_ladder(torch, np, geo: dict, card: str) -> dict:
         nbytes, flops = decode_work(lens, H, KH, D, 2, bs)
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, BF16_FLOPS)
         rec["ladder_over_exact"] = rec["ladder"]["ms"] / rec["exact"]["ms"]
+        rec["plain_ms"] = time_ms(
+            torch, lambda: k3.paged_decode_attention_plain(*args), 5,
+            warmup=1, graph=False)
+        # the library calls on the live rows' contexts, gathered beforehand
+        live = [b for b, n in enumerate(lens) if n > 0]
+        rec.update(yardsticks(
+            torch, f"K3 {label}, the ladder's batch", pool, 1,
+            [(q[b:b + 1], torch.full((1,), lens[b] - 1, device="cuda"),
+              lens[b], dev["tables"][b]) for b in live], H, KH,
+            [want[b:b + 1] for b in live]))
         out[label] = rec
         del pool
     log(f"[decode-graphs] (b) K3 at the ladder's plan and the exact plan "
@@ -6141,8 +6180,9 @@ def tp_server_child(argv: list) -> int:
     flags pass through (``--role``, the tiers, ``--model
     whisper-large-v3-class``, ``--tensor-parallel-size 1
     --sequence-parallel-size 2``, ``--sequence-parallel-size 2`` on the
-    seq x tensor grid; a repeated flag's last value wins), every process
-    on cuda:0."""
+    seq x tensor grid, ``--pipeline-parallel-size 2`` on the stage x
+    tensor grid; a repeated flag's last value wins), every process on
+    cuda:0."""
     sys.path.insert(0, str(ROOT))
     from production_stack_tpu_torch.engine import server
 
@@ -6151,7 +6191,8 @@ def tp_server_child(argv: list) -> int:
         return int(got[-1]) if got else default
 
     n = (last("--tensor-parallel-size", 2)
-         * last("--sequence-parallel-size", 1))
+         * last("--sequence-parallel-size", 1)
+         * last("--pipeline-parallel-size", 1))
     with _CutServers():
         server.main(["--model", "llama-3-8b", "--host", "127.0.0.1",
                      "--port", argv[0], "--tensor-parallel-size", "2",
@@ -8555,6 +8596,196 @@ def mh_phase(np, card: str, start: "_MhStart") -> dict:
     return launches
 
 
+PPTP_NOTE = ("four processes share one card over gloo, the stage relay "
+             "staged through host memory: not a pipeline or tensor-parallel "
+             "speed")
+PPTP_MODEL = "llama-3-8b"  # (d)'s server's model
+
+
+def _pptp_engine():
+    """llama-3-8b bf16 at full depth, seed 0, pp 2 x tp 2: four processes
+    on cuda:0 over gloo, process g stage g // 2 and tensor rank g % 2
+    (16 layers at H 16 and KH 4 each), as (a)'s tp 2 bucketed reference
+    (``_tp_engine``): prefix cache off, decode eager, ``TP_BLOCKS`` blocks
+    a process."""
+    from production_stack_tpu_torch.engine.config import (
+        CacheConfig,
+        EngineConfig,
+        SchedulerConfig,
+    )
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.parallel.mesh import MeshConfig
+
+    cfg = EngineConfig.for_model(
+        "llama-3-8b", seed=0, attention_impl="bucketed",
+        cache=CacheConfig(enable_prefix_caching=False, num_blocks=TP_BLOCKS),
+        scheduler=SchedulerConfig(decode_graphs=False),
+        mesh=MeshConfig(stage=2, tensor=2))
+    return LLMEngine(cfg, device="cuda", rank_devices=["cuda:0"] * 4,
+                     backend="gloo")
+
+
+def _pptp_figures(torch, np, eng) -> dict:
+    """(c) Each process's weight bytes, the pool's block count, and an
+    eager decode step at 64 rows (contexts of 128 + a few tokens): three
+    steps' host wall, each to a synchronise, and the stage relay's bytes
+    each step on rank 0 (``STAGE_OPS``: the residual stream stage 0 sends
+    on, the last stage's tokens it receives)."""
+    from production_stack_tpu_torch.parallel.distributed import STAGE_OPS
+
+    runner = eng.runner
+    weights = runner.gather("param_bytes")
+    _dg_admit(np, eng, np.random.default_rng(23), "pptp-c", 64, 128, 64)
+    wire = runner.ranks.wire
+    walls, relay = [], []
+    for _ in range(3):
+        before = {op: wire.get(op, 0.0) for op in STAGE_OPS}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        relay.append({op: wire.get(op, 0.0) - n for op, n in before.items()})
+    _dg_clear(eng)
+    return {"weight_bytes": weights, "blocks": runner.num_blocks,
+            "decode_64_ms": walls, "relay_bytes_a_step": relay}
+
+
+def _pptp_server(np, srv: "_TpServer") -> dict:
+    """(d) The server from ``--pipeline-parallel-size 2
+    --tensor-parallel-size 2`` at ``CUT_LAYERS`` layers (started ahead of
+    its phase): a completion, a stream, an embedding and ``/kv/export``
+    (two blocks, tp 2's head groups, every stage's layers); then SIGTERM,
+    its three followers gone within ``TP_GONE_S``."""
+    from production_stack_tpu_torch.engine import kv_transfer as kvt
+    from production_stack_tpu_torch.engine.config import ModelConfig
+
+    tag = "pp2tp2"
+    cfg = ModelConfig.from_pretrained(PPTP_MODEL)
+    try:
+        ranks = srv.up(tag, size=4)
+        if ranks["shape"] != {"stage": 2, "tensor": 2}:
+            raise AssertionError(f"[{tag}] (d) ranks {ranks}")
+        prompt = np.random.default_rng(23).integers(
+            0, min(cfg.vocab_size, 32000), 64).tolist()
+        body = {"model": PPTP_MODEL, "prompt": prompt,
+                "max_tokens": TP_TOKENS, "temperature": 0.0,
+                "ignore_eos": True}
+        status, out, wall = _post(srv.base, "/v1/completions", body)
+        s_status, s_out, _ = _request(srv.base + "/v1/completions", {
+            **body, "stream": True,
+            "stream_options": {"include_usage": True}}, True)
+        e_status, emb, _ = _post(srv.base, "/v1/embeddings", {
+            "model": PPTP_MODEL, "input": [prompt]})
+        _, pre, _ = _post(srv.base, "/v1/completions", {
+            **body, "prompt": prompt[:40], "max_tokens": 1,
+            "kv_transfer_params": {"do_remote_decode": True}})
+        ids = pre["kv_transfer_params"]["remote_block_ids"][:2]
+        k_status, headers, raw = _http(srv.base, "/kv/export",
+                                       {"blocks": ids})
+        shape = [int(x) for x in headers.get("X-KV-Shape", "0").split(",")]
+        got = {"completion": status,
+               "completion_tokens": out["usage"]["completion_tokens"],
+               "stream": s_status, "stream_tokens": s_out,
+               "embedding": e_status,
+               "embedding_width": len(emb["data"][0]["embedding"]),
+               "kv_export": k_status, "kv_shape": shape,
+               "kv_bytes": len(raw),
+               "head_groups": headers.get(kvt.HEAD_GROUPS_HEADER)}
+        want = {"completion": 200, "completion_tokens": TP_TOKENS,
+                "stream": 200, "stream_tokens": TP_TOKENS, "embedding": 200,
+                "embedding_width": cfg.hidden_size, "kv_export": 200,
+                "kv_shape": [min(CUT_LAYERS, cfg.num_layers), 2, 16,
+                             2 * cfg.num_kv_heads, cfg.head_dim],
+                "kv_bytes": kvt.nbytes_of(shape, headers.get(
+                    "X-KV-Dtype", "bfloat16")),
+                "head_groups": "2"}
+        if got != want:
+            raise AssertionError(f"[{tag}] (d) the routes: {got} against "
+                                 f"{want}")
+        stop = srv.stop(tag)
+    except BaseException:
+        log(srv.log_tail())
+        srv.kill()
+        raise
+    return {"up_s": srv.up_s, "completion_s": wall, **got, **stop}
+
+
+def pptp_phase(torch, np, counters, card: str, srv: "_TpServer") -> dict:
+    """Phase 23: llama-3-8b at pp 2 x tp 2, four processes on this card
+    over gloo. (a) identity against the tp 2 bucketed engine at full depth
+    on phase 15's prompts (run first and released), bit for bit; (b) K1,
+    K3 and K4 launched on each of the four processes and K2 on none; (c)
+    each process's weight bytes, the block count, an eager decode step's
+    wall and the relay's bytes a step; (d) the server from the flags
+    (``srv``, started ahead of the phase) and its SIGTERM. Returns rank
+    0's launches on (a)."""
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    t_phase = time.perf_counter()
+    tag = "pp2tp2"
+    prompts = _tp_prompts(np)
+    sp = SamplingParams(temperature=0.0, max_tokens=TP_TOKENS,
+                        ignore_eos=True)
+    t0 = time.perf_counter()
+    eng = _tp_engine("bucketed", 2, layers=None)
+    ref_up = time.perf_counter() - t0
+    try:
+        ref = _greedy_tokens(eng, prompts, sp)
+    finally:
+        eng.close()
+    del eng
+    _released(torch, f"{tag} tp 2 reference")
+    ref_s = time.perf_counter() - t0
+    _zero(counters)
+    t0 = time.perf_counter()
+    eng = _pptp_engine()
+    up = time.perf_counter() - t0
+    try:
+        got = _greedy_tokens(eng, prompts, sp)
+        launches = _counts(counters)
+        reports = eng.runner.follower_reports()
+        run_s = time.perf_counter() - t0 - up
+        figures = _pptp_figures(torch, np, eng)
+    finally:
+        eng.close()
+    del eng
+    _released(torch, tag)
+    for i in ref[0]:
+        if got[0][i] != ref[0][i]:
+            raise AssertionError(f"[{tag}] (a) request {i}: pp 2 x tp 2 "
+                                 f"{got[0][i]} != tp 2 {ref[0][i]}")
+    compared = sum(len(t) for t in ref[0].values())
+    _expect(launches, {"K1", "K3", "K4"}, tag)
+    places = [r["place"] for r in reports]
+    if places != [{"stage": s, "tensor": t} for s in (0, 1)
+                  for t in (0, 1)]:
+        raise AssertionError(f"[{tag}] (b) the processes: {places}")
+    if (len({(r["calls"], r["digest"]) for r in reports}) != 1
+            or any(r["diverged_at"] is not None for r in reports)):
+        raise AssertionError(f"[{tag}] (b) the processes sampled other "
+                             f"tokens: {reports}")
+    for r in reports:
+        _expect(r["launches"], {"K1", "K3", "K4"},
+                f"{tag} process {r['rank']} {r['place']}")
+    server = _pptp_server(np, srv)
+    log(f"[{tag}] (a) llama-3-8b at pp 2 x tp 2, four processes on one card "
+        f"({card}; {PPTP_NOTE}): {compared} greedy tokens of 16 requests "
+        f"equal the tp 2 bucketed run's bit for bit; tp 2 up in "
+        f"{ref_up:.1f} s and run with its release in {ref_s:.1f} s, pp 2 x "
+        f"tp 2 up in {up:.1f} s and run in {run_s:.1f} s")
+    log(f"[{tag}] (b) launches by process (stage, tensor rank): "
+        + json.dumps([[r["place"]["stage"], r["place"]["tensor"],
+                       r["launches"]] for r in reports])
+        + f"; rank 0's counters {json.dumps(launches)}")
+    log(f"[{tag}] (c) figures ({card}; {PPTP_NOTE}): {json.dumps(figures)}")
+    log(f"[{tag}] (d) the server at --pipeline-parallel-size 2 "
+        f"--tensor-parallel-size 2, {CUT_LAYERS} layers ({card}): "
+        f"{json.dumps(server)}; phase 23 in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _no_hbm_alarm_left(pids=()) -> int:
     """Every server of this run but phase 13's keeps its bundles in the
     default archive (a directory a process under the system tmpdir): this
@@ -8694,6 +8925,13 @@ def main() -> int:
     finally:
         mh_start.close()
     lap("22 mh2-one-card")
+    # phase 23's server starts beside its engines
+    pptp_srv = _TpServer(["--pipeline-parallel-size", "2"])
+    try:
+        by_path["pp2tp2"] = pptp_phase(torch, np, counters, card, pptp_srv)
+    finally:
+        pptp_srv.kill()
+    lap("23 pp2tp2-one-card")
     _no_hbm_alarm_left(kv_tp["pids"])
     log(f"[phases] seconds ({card}): " + json.dumps(
         {name: round(t - laps[k - 1][1], 1)

@@ -79,10 +79,14 @@ decode included, runs as at tp 1 on every rank.
 
 Pipeline parallelism (``config.mesh.stage`` above 1): the runner is a
 ``StagedModelRunner`` (engine/pp_runner.py) over one device a stage
-(``stage_devices``), on the bucketed path. As in the reference, a request
-with logprobs and a guided regex or JSON grammar are refused at
-``add_request``, and warmup skips them; pipeline and tensor parallelism
-together are not ported yet.
+(``stage_devices``), on the bucketed path. At a tensor size T above 1 as
+well, the engine is rank 0 of the stage x tensor grid
+(parallel/distributed.py ``AXIS_PP_GRID``): stages times T processes,
+each a ``StageRankRunner`` holding its stage's layers at its tensor
+shard, the residual stream relayed stage to stage. As in the reference, a
+request with logprobs and a guided regex or JSON grammar are refused at
+``add_request``, and warmup skips them; sequence and pipeline
+parallelism together are not ported yet.
 """
 
 from __future__ import annotations
@@ -120,7 +124,11 @@ from production_stack_tpu_torch.engine.multihost import (
     start_ranks,
 )
 from production_stack_tpu_torch.engine.pp_runner import StagedModelRunner
-from production_stack_tpu_torch.parallel.distributed import AXIS_GRID, axis_of
+from production_stack_tpu_torch.parallel.distributed import (
+    AXIS_GRID,
+    AXIS_PP_GRID,
+    axis_of,
+)
 from production_stack_tpu_torch.parallel.mesh import AXIS_SEQ
 from production_stack_tpu_torch.parallel.mesh import stage_devices as pstages
 from production_stack_tpu_torch.parallel.mesh import tensor_size
@@ -191,9 +199,11 @@ class LLMEngine:
         they are unused at tensor-parallel size 1. They place the seq
         ranks alike at a sequence-parallel size above 1, and on the seq x
         tensor grid every process, by global rank (seq rank times the
-        tensor size plus tensor rank). ``stage_devices``
-        places the pipeline stages (parallel/mesh.stage_devices' default:
-        ``cuda:s`` on cards, the CPU otherwise); unused at one stage.
+        tensor size plus tensor rank), and on the stage x tensor grid
+        every process alike (stage times the tensor size plus tensor
+        rank). ``stage_devices`` places the pipeline stages at tensor size
+        1 (parallel/mesh.stage_devices' default: ``cuda:s`` on cards, the
+        CPU otherwise); unused at one stage and on the grid.
         ``distributed`` (parallel/distributed.DistributedConfig), when it
         spans several processes, makes this engine process 0 of a
         multi-host group: its ranks are processes started on their own
@@ -206,10 +216,6 @@ class LLMEngine:
         tp = tensor_size(config.mesh, device)
         S = config.mesh.stage
         sp = config.mesh.seq
-        if S > 1 and tp > 1:
-            raise ValueError(
-                f"pipeline parallelism ({S} stages) with tensor parallelism "
-                f"({tp} ranks) is not ported yet")
         if sp > 1 and S > 1:
             raise ValueError(
                 f"sequence parallelism ({sp} ranks) with pipeline ({S}) "
@@ -225,6 +231,10 @@ class LLMEngine:
         elif sp > 1:
             self.runner = start_ranks(config, params, num_blocks, device, sp,
                                       rank_devices, backend, axis=AXIS_SEQ)
+        elif S > 1 and tp > 1:
+            self.runner = start_ranks(config, params, num_blocks, device,
+                                      S * tp, rank_devices, backend,
+                                      axis=AXIS_PP_GRID, tensor=tp)
         elif S > 1:
             self.runner = StagedModelRunner(
                 config, params, num_blocks,
@@ -1709,16 +1719,18 @@ class LLMEngine:
         return self.runner.ranks.size if self.runner.ranks else 1
 
     def rank_info(self) -> dict:
-        """The ranks: their count and mesh axis (``seq,tensor`` on the
-        grid), each axis's size (``shape``), process ids (this process
-        first, then by global rank: seq rank times tensor size plus tensor
-        rank) and devices; whether decode steps run as CUDA graphs; this
-        process's kernel launches so far (rank 0's)."""
+        """The ranks: their count and mesh axis (``seq,tensor`` or
+        ``stage,tensor`` on a grid), each axis's size (``shape``), process
+        ids (this process first, then by global rank: seq rank or stage
+        times tensor size plus tensor rank) and devices; whether decode
+        steps run as CUDA graphs; this process's kernel launches so far
+        (rank 0's)."""
         ranks = getattr(self.runner, "ranks", None)
         info = {"size": self.tensor_parallel_ranks,
                 "axis": ranks.axis if ranks is not None else None,
                 "shape": ({} if ranks is None else
-                          {a: g.size for a, g in (("seq", ranks.seq),
+                          {a: g.size for a, g in (("stage", ranks.stage),
+                                                  ("seq", ranks.seq),
                                                   ("tensor", ranks.tensor))
                            if g is not None}),
                 "pids": [os.getpid()],

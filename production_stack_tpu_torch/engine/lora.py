@@ -136,6 +136,13 @@ def adapter_share(bank: dict, shard, cfg: ModelConfig) -> dict:
     return out
 
 
+def layer_share(share: dict, layers: range) -> dict:
+    """A pipeline stage's cut of an adapter share (``load_adapter_raw``'s
+    or ``adapter_share``'s stacked pairs): its layers ``layers``."""
+    return {target: (A[layers.start:layers.stop], B[layers.start:layers.stop])
+            for target, (A, B) in share.items()}
+
+
 def bank_bytes(cfg: ModelConfig, max_loras: int, max_rank: int,
                itemsize: int) -> int:
     """Device memory of a full bank: every target, every slot."""

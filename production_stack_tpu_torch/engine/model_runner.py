@@ -259,10 +259,13 @@ class ModelRunner:
         device="cuda",
         ranks=None,
         pool: bool = True,
+        sharded: bool = False,
     ):
         """``pool=False`` leaves the KV pool to a later ``set_pool``: a
         pipeline's stages (engine/pp_runner.py) size theirs together, once
-        every stage's weights are on its device."""
+        every stage's weights are on its device. ``sharded``: a given
+        ``params`` is this rank's share already (a stage's tensor shard on
+        the pipeline x tensor grid), not the whole model to cut."""
         self.config = config
         self.cfg = config.model
         # the tensor- or sequence-parallel group (None on one device) and
@@ -311,7 +314,7 @@ class ModelRunner:
         # every way params are made goes through maybe_quantize, as in the
         # reference: a caller's bf16 dict is quantized here under cfg.quant
         rank, tp = self.rank_of()
-        if params is not None and ranks is not None:
+        if params is not None and ranks is not None and not sharded:
             # every rank gets the whole dict (on the CPU) and keeps its
             # cut, quantized whole first: a row-parallel weight's scale is
             # the max over its whole contraction
@@ -815,6 +818,13 @@ class ModelRunner:
         blk = max(1, ATTN_SCORE_BYTES // (g * self.local.num_heads * S * 4))
         return g, blk
 
+    def score_forwards(self, rows: np.ndarray, S: int) -> list:
+        """(rows, query block) of each dense forward a scoring call runs
+        over ``rows`` of its (N, S) tokens, in order (``_score_groups``);
+        a pipeline stage that only relays runs the same ones."""
+        g, blk = self._score_groups(len(rows), S)
+        return [(rows[r0:r0 + g], blk) for r0 in range(0, len(rows), g)]
+
     def _dense_hidden(self, tokens: torch.Tensor, q_block: int,
                       ref_tokens: int) -> torch.Tensor:
         """Final hidden states (g, S, E) of a dense causal forward over
@@ -843,12 +853,10 @@ class ModelRunner:
         dense causal forward a row group at a time. tokens, mask (N, S);
         returns (N, E) float32."""
         N, S = tokens.shape
-        g, blk = self._score_groups(N, S)
         out = []
-        for r0 in range(0, N, g):
-            hidden = self._dense_hidden(self._dev(tokens[r0:r0 + g]), blk,
-                                        N * S)
-            m = self._dev(mask[r0:r0 + g], torch.float32)[:, :, None]
+        for rows, blk in self.score_forwards(np.arange(N), S):
+            hidden = self._dense_hidden(self._dev(tokens[rows]), blk, N * S)
+            m = self._dev(mask[rows], torch.float32)[:, :, None]
             pooled = (hidden.float() * m).sum(dim=1)
             out.append(pooled / m.sum(dim=1).clamp(min=1.0))
         return torch.cat(out).cpu().numpy()
@@ -870,9 +878,7 @@ class ModelRunner:
         ref = N * S
         out = np.zeros(N, np.float32)
         live = np.flatnonzero(cont_mask[:, 1:].any(axis=1))
-        g, blk = self._score_groups(len(live), S)
-        for r0 in range(0, len(live), g):
-            rows = live[r0:r0 + g]
+        for rows, blk in self.score_forwards(live, S):
             hidden = self._dense_hidden(self._dev(tokens[rows]), blk, ref)
             r, j = np.nonzero(cont_mask[rows, 1:])  # logits at j predict j+1
             tgt = self._dev(tokens[rows][r, j + 1], torch.int64)

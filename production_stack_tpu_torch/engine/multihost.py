@@ -99,6 +99,18 @@ process by its tensor rank. An export joins the tensor shares of seq rank
 and move nothing); an import sends each process its tensor share over the
 device group of them all, every seq rank the same shares.
 
+**The stage x tensor grid** (``start_ranks(..., axis=AXIS_PP_GRID,
+tensor=T)``): S stages of T tensor ranks, process ``g`` stage ``g // T``
+and tensor rank ``g % T``, each running its stage of every call
+(engine/pp_runner.py ``StageRankRunner``). Every call goes to all S * T -
+1 followers. An adapter share goes to each process by its tensor rank,
+cut to its stage's layers. A process holds its stage's layers of its
+tensor rank's KV heads, so the parts of an export or import differ in
+shape by stage: they move point to point over the device group of them
+all (``RankGroup.send_kv``/``recv_kv``, counted under ``KV_OPS``), rank 0
+joining each stage's tensor shares and the stages along the layer axis,
+or cutting the whole the same way.
+
 Agreement is checked, not assumed: each rank folds the tokens every call
 sampled into a running digest, the leader sends its digest with each
 call, and a follower whose digest differs logs the fault at once and
@@ -154,7 +166,8 @@ import numpy as np
 import torch
 
 from production_stack_tpu_torch.engine.kv_cache import adapter_root
-from production_stack_tpu_torch.engine.lora import adapter_share
+from production_stack_tpu_torch.engine.lora import adapter_share, layer_share
+from production_stack_tpu_torch.engine.weights import stage_layers
 from production_stack_tpu_torch.parallel import distributed as pdist
 from production_stack_tpu_torch.parallel.mesh import AXIS_TENSOR
 from production_stack_tpu_torch.parallel.shardings import (
@@ -733,8 +746,9 @@ def sampled_tokens(method: str, result) -> Optional[np.ndarray]:
     if method == "chunk_request":
         return np.asarray(result[0], np.int64)
     if method in ("ragged_step", "prefill", "prefill_ring"):
-        # (sampled[, verify], tok_lp, top_ids, top_lps)
-        toks = result[:len(result) - 3]
+        # (sampled[, verify], tok_lp, top_ids, top_lps); a staged
+        # runner's prefill returns (sampled,)
+        toks = result[:len(result) - 3] if len(result) > 3 else result
         return np.concatenate([t.cpu().numpy().ravel() for t in toks])
     if method == "decode_multi":
         if isinstance(result, tuple) and hasattr(result[0], "result"):
@@ -784,6 +798,15 @@ def kernel_launches() -> dict:
     from production_stack_tpu_torch.ops import _build
 
     return {c.name.split()[0]: c.n for c in _build.COUNTERS}
+
+
+def place(ranks) -> dict:
+    """A process's rank on each axis of its group: ``{"tensor": r}`` at
+    tensor parallelism, its seq rank or stage and its tensor rank on a
+    grid (none where ``ranks`` names no axis)."""
+    views = ((axis, getattr(ranks, axis, None))
+             for axis in ("stage", "seq", "tensor"))
+    return {axis: view.rank for axis, view in views if view is not None}
 
 
 class Launched:
@@ -904,6 +927,12 @@ class MirroredRunner:
         root = adapter_root(bank_np)
         shares = [adapter_share(bank_np, self.ranks.shard_of(cfg, r), cfg)
                   for r in range(size)]
+        stage = self.ranks.stage
+        if stage is not None:
+            # each process holds its stage's layers of its tensor share
+            T = self.ranks.tensor_size
+            shares = [layer_share(sh, stage_layers(cfg, (g // T, stage.size)))
+                      for g, sh in enumerate(shares)]
         with self._lock:
             self._send("register_lora", (slot,), {"root": root}, shares)
             with self._launched.counting():
@@ -934,12 +963,78 @@ class MirroredRunner:
         tp = self.ranks.tensor
         if tp is None:
             return getattr(self._inner, KV_GATHERS[method])(*args)
+        if self.ranks.stage is not None:
+            return self._export_stages(method, args)
         with self._lock:
             self._send(method, args, {})
             with self._launched.counting():
                 mine = getattr(self._inner, KV_GATHERS[method])(*args)
             shares = self._moved(lambda: tp.gather_kv(mine))
         return join_kv_shares(shares, self._inner.cfg, tp.size)
+
+    def _export_stages(self, method: str, args: tuple) -> torch.Tensor:
+        """The whole of a KV gather on the stage x tensor grid: each
+        process's part (its stage's layers of the range, its tensor rank's
+        heads) sent to rank 0, each stage's tensor shares joined, the
+        stages joined along the layer axis (slabs are block-major, (n, L,
+        ...), layer groups layer-major, (n_layers, n, ...))."""
+        inner, world = self._inner, self.ranks
+        T, S = world.tensor_size, world.stage.size
+        ax, layer_lo, n_layers = ((1, 0, inner.cfg.num_layers)
+                                  if method == "export_slabs"
+                                  else (0, args[1], args[2]))
+        rows, dtype = tuple(inner.kv.shape[2:]), inner.kv.dtype
+        n = len(args[0])
+        with self._lock:
+            self._send(method, args, {})
+            with self._launched.counting():
+                mine = getattr(inner, KV_GATHERS[method])(*args)
+
+            def join() -> torch.Tensor:
+                stages = []
+                for s in range(S):
+                    cut = inner.stage_cut(layer_lo, n_layers, s)
+                    if cut is None:
+                        continue
+                    shape = ((n, cut[1], *rows) if ax else
+                             (cut[1], n, *rows))
+                    shares = [mine if g == 0 else
+                              world.recv_kv(g, shape, dtype, "kv_gather")
+                              for g in range(s * T, (s + 1) * T)]
+                    stages.append(join_kv_shares(shares, inner.cfg, T))
+                return torch.cat(stages, dim=ax)
+
+            return self._moved(join)
+
+    def _import_stages(self, method: str, args: tuple,
+                       cut: list) -> None:
+        """Each process's part of ``cut`` (the tensor ranks' shares of the
+        whole) on the stage x tensor grid: its stage's layers, sent from
+        rank 0 point to point; rank 0 writes its own."""
+        inner, world = self._inner, self.ranks
+        T = world.tensor_size
+        ax = 1 if method == "import_slabs" else 0
+        layer_lo, n_layers = (args[1] if ax == 0 else 0), cut[0].shape[ax]
+        with self._lock:
+            self._send(method, args, {"shape": tuple(cut[0].shape)})
+
+            def send() -> Optional[torch.Tensor]:
+                mine = None
+                for g in range(world.size):
+                    c = inner.stage_cut(layer_lo, n_layers, g // T)
+                    if c is None:
+                        continue
+                    part = cut[g % T].narrow(ax, c[2], c[1])
+                    if g == 0:
+                        mine = part
+                    else:
+                        world.send_kv(part, g, "kv_scatter")
+                return mine
+
+            mine = self._moved(send)
+            if mine is not None:
+                with self._launched.counting():
+                    getattr(inner, KV_SCATTERS[method])(*args, mine)
 
     def _import(self, method: str, args: tuple, whole: torch.Tensor,
                 want: tuple) -> None:
@@ -954,6 +1049,9 @@ class MirroredRunner:
         # process g takes tensor rank g % tp's share (tensor innermost)
         cut = ([whole] if tp == 1 else
                [split_kv_share(whole, cfg, t, tp) for t in range(tp)])
+        if self.ranks.stage is not None:
+            self._import_stages(method, args, cut)
+            return
         shares = [cut[g % tp] for g in range(self.ranks.size)]
         shape = tuple(shares[0].shape)
         with self._lock:
@@ -1013,9 +1111,11 @@ class MirroredRunner:
                       *self._kv_rows()))
 
     def report(self) -> dict:
-        """This rank's agreement state, live Whisper handles and kernel
-        launches inside the ranks' calls (``Launched``)."""
-        return {"rank": 0, "pid": os.getpid(), "calls": self._digest.calls,
+        """This rank's place on each axis (``place``), agreement state,
+        live Whisper handles and kernel launches inside the ranks' calls
+        (``Launched``)."""
+        return {"rank": 0, "place": place(self.ranks), "pid": os.getpid(),
+                "calls": self._digest.calls,
                 "digest": self._digest.hex(), "diverged_at": None,
                 "live": live_handles(self._inner),
                 "launches": self._launched.counts()}
@@ -1104,7 +1204,8 @@ class FollowerReplayer:
         self.digest.fold(method, result)
 
     def report(self) -> dict:
-        return {"rank": self.runner.ranks.rank, "pid": os.getpid(),
+        return {"rank": self.runner.ranks.rank,
+                "place": place(self.runner.ranks), "pid": os.getpid(),
                 "calls": self.digest.calls, "digest": self.digest.hex(),
                 "diverged_at": self.diverged_at,
                 "live": live_handles(self.runner),
@@ -1167,8 +1268,14 @@ def _follow(runner, ranks, replayer, method: str, args: tuple,
     elif method == "register_lora":
         share = kwargs["share"] if "share" in kwargs else ranks.scatter()
         runner.put_lora(args[0], share, kwargs["root"])
+    elif method in KV_GATHERS and ranks.stage is not None:
+        # on the stage x tensor grid every process sends its part, if its
+        # stage holds any of the layers
+        part = getattr(runner, KV_GATHERS[method])(*args)
+        if part is not None:
+            ranks.send_kv(part, 0, "kv_gather")
     elif method in KV_GATHERS:
-        # an export joins seq rank 0's tensor group: on the grid the
+        # an export joins seq rank 0's tensor group: on the seq grid the
         # other seq ranks move nothing
         seq = ranks.seq
         if seq is None or seq.rank == 0:
@@ -1176,6 +1283,9 @@ def _follow(runner, ranks, replayer, method: str, args: tuple,
                 *args))
     elif method in KV_SCATTERS:
         shape = tuple(kwargs["shape"])
+        if ranks.stage is not None:
+            _follow_stage_import(runner, ranks, method, args, shape)
+            return
         check_share(runner, method, args, shape)
         getattr(runner, KV_SCATTERS[method])(
             *args, ranks.scatter_kv(None, shape, runner.kv.dtype))
@@ -1186,6 +1296,22 @@ def _follow(runner, ranks, replayer, method: str, args: tuple,
             logger.exception("rank %d: replay of %s failed; the ranks can "
                              "no longer agree, exiting", ranks.rank, method)
             raise
+
+
+def _follow_stage_import(runner, ranks, method: str, args: tuple,
+                         shape: tuple) -> None:
+    """A KV import on the stage x tensor grid: ``shape`` is a tensor
+    share of the whole; this process receives its stage's layers of it
+    from rank 0, if its stage holds any, and writes them."""
+    slabs = method == "import_slabs"
+    ax = 1 if slabs else 0
+    cut = runner.stage_cut(0 if slabs else args[1], shape[ax])
+    if cut is None:
+        return
+    part = shape[:ax] + (cut[1],) + shape[ax + 1:]
+    check_share(runner, method, args if slabs else (args[0], cut[0]), part)
+    getattr(runner, KV_SCATTERS[method])(
+        *args, ranks.recv_kv(0, part, runner.kv.dtype, "kv_scatter"))
 
 
 def float32_math() -> dict:
@@ -1216,8 +1342,15 @@ def _watch_parent(parent_pid: int) -> None:
 
 
 def build_runner(config, params, num_blocks, ranks):
-    """This rank's runner: Whisper's for a Whisper model, the paged text
-    engine's otherwise."""
+    """This rank's runner: Whisper's for a Whisper model, a stage's on the
+    stage x tensor grid (engine/pp_runner.py ``StageRankRunner``), the
+    paged text engine's otherwise."""
+    if ranks.stage is not None:
+        from production_stack_tpu_torch.engine.pp_runner import (
+            StageRankRunner,
+        )
+
+        return StageRankRunner(config, params, num_blocks, ranks)
     if config.model.architecture == "whisper":
         from production_stack_tpu_torch.engine.whisper_runner import (
             WhisperRunner,
@@ -1261,16 +1394,20 @@ def follower_main(rank: int, size: int, store_port: int, devices: list,
 def refusal(config, axis: str = AXIS_TENSOR) -> Optional[str]:
     """What the ranks of ``axis`` do not carry yet in ``config``, named as
     the flag that asks for it; None when they carry all of it. Tensor
-    parallelism carries every model and feature the port serves. Sequence
-    parallelism, alone or on the seq x tensor grid, carries the dense
-    models at full precision, unified: Whisper, MoE models, int8 weights,
-    a disaggregated role and the host and remote KV tiers are later
-    slices."""
+    parallelism carries every model and feature the port serves; the
+    stage x tensor grid every text model and feature the staged runner
+    serves (Whisper has no staged runner, as at pipeline parallelism
+    alone). Sequence parallelism, alone or on the seq x tensor grid,
+    carries the dense models at full precision, unified: Whisper, MoE
+    models, int8 weights, a disaggregated role and the host and remote KV
+    tiers are later slices."""
     if axis == AXIS_TENSOR:
         return None
     m, cache = config.model, config.cache
     if m.architecture == "whisper":
         return f"--model {m.name} (Whisper)"
+    if axis == pdist.AXIS_PP_GRID:
+        return None
     if getattr(m, "num_experts", 0):
         return f"--model {m.name} (a MoE model)"
     if m.quant:
@@ -1288,9 +1425,10 @@ def start_ranks(config, params, num_blocks, device, size: int,
                 devices=None, backend: Optional[str] = None,
                 whisper: bool = False, axis: str = AXIS_TENSOR,
                 tensor: int = 1):
-    """Start ``size`` ranks of ``axis`` (tensor, seq, or the seq x tensor
-    grid of ``size`` processes at tensor size ``tensor``: ``AXIS_GRID``)
-    for an engine on ``device``:
+    """Start ``size`` ranks of ``axis`` (tensor, seq, or a grid of
+    ``size`` processes at tensor size ``tensor``: ``AXIS_GRID``, seq x
+    tensor, or ``AXIS_PP_GRID``, stage x tensor) for an engine on
+    ``device``:
     this process is rank 0, the others are spawned followers. ``devices``
     (one a rank; default ``cuda:r`` on a card, the CPU otherwise) and
     ``backend`` (default ``nccl`` on a card, ``gloo`` on the CPU) are the
@@ -1303,8 +1441,8 @@ def start_ranks(config, params, num_blocks, device, size: int,
     the reverse, raises before any process starts. Returns rank 0's
     ``MirroredRunner``."""
     what = pdist.PARALLELISM[axis]
-    if axis == pdist.AXIS_GRID:
-        pdist.check_grid(size, tensor)
+    if axis in pdist.GRID_OUTER:
+        pdist.check_grid(size, tensor, axis)
     why = refusal(config, axis)
     if why is not None:
         raise ValueError(f"{why}: not ported under {what} yet ({axis} "

@@ -21,7 +21,9 @@ A copy of production_stack_tpu/engine/perf_accounting.py for one card:
   recorded as a prefill of its prompt's tokens, as the reference's; on
   the seq x tensor grid rank 0's tensor group counts into the same
   ``wire``, so a ring prefill is billed its tensor group's collectives
-  as any prefill at that tensor size, and its ring ops stay unbilled. The
+  as any prefill at that tensor size, and its ring ops stay unbilled; on
+  the stage x tensor grid rank 0 counts its stage's tensor collectives
+  (stage 0's), and the stage relay (``STAGE_OPS``) stays unbilled. The
   reference's formulas count a bf16 all-reduce of the hidden
   state twice a layer, half of what the port's float32 partials put on
   the wire, and none of its embedding's all-reduce. Zero at tp = 1.
@@ -65,7 +67,11 @@ from production_stack_tpu_torch.engine.config import (
     H100_PEAK_NVLINK_GBPS,
     H100_PEAK_TFLOPS,
 )
-from production_stack_tpu_torch.parallel.distributed import KV_OPS, RING_OPS
+from production_stack_tpu_torch.parallel.distributed import (
+    KV_OPS,
+    RING_OPS,
+    STAGE_OPS,
+)
 from production_stack_tpu_torch.tenancy import OTHER, fold_records, split_shares
 
 _EVENT_TAIL = 64  # compile events kept verbatim for /debug/perf
@@ -354,13 +360,14 @@ class PerfAccountant:
 
     def _take_wire(self) -> Dict[str, float]:
         """The collective bytes sent since the last call, by op. The KV
-        plane's share traffic (``KV_OPS``) and the ring prefill's exchange
-        (``RING_OPS``) are no dispatch's and are left out, so a step's
-        collective bytes stay its own."""
+        plane's share traffic (``KV_OPS``), the ring prefill's exchange
+        (``RING_OPS``) and the stage relay (``STAGE_OPS``) are no
+        dispatch's and are left out, so a step's collective bytes stay its
+        own."""
         if self.wire is None:
             return {}
         now = {op: n for op, n in self.wire.items()
-               if op not in KV_OPS + RING_OPS}
+               if op not in KV_OPS + RING_OPS + STAGE_OPS}
         sent = {op: n - self._wire_seen.get(op, 0.0)
                 for op, n in now.items()}
         self._wire_seen = now

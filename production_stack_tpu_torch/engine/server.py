@@ -133,8 +133,13 @@ layers cut into S stages, stage s on ``cuda:s`` (or the CPU), each with
 its own KV pool, the host relaying activations between them
 (engine/pp_runner.py), on the bucketed path. As in the reference,
 logprobs answer 400 and guided regex and JSON are refused; the rest of
-the surface serves. With tensor parallelism above 1 it exits at start, as
-Whisper does, not ported yet. Sequence parallelism
+the surface serves. With ``--tensor-parallel-size T`` above 1 as well the
+server is rank 0 of S x T processes (the stage x tensor grid,
+parallel/distributed.py), process g stage g // T and tensor rank g % T on
+``cuda:g``: each holds its stage's layers cut to its tensor shard, each
+stage's T processes are a tensor group, and the residual stream is
+relayed stage to stage. Whisper exits at start, not ported yet. Sequence
+parallelism
 (``--sequence-parallel-size N`` at pipeline size 1): the server is rank
 0 of N seq ranks started as tensor ranks are, each holding the whole
 model and a whole KV pool; a prompt of at least
@@ -184,6 +189,7 @@ import http.client
 import io
 import json
 import logging
+import math
 import os
 import signal
 import socket
@@ -265,6 +271,7 @@ from production_stack_tpu_torch.parallel import distributed as pdist
 from production_stack_tpu_torch.parallel.distributed import DistributedConfig
 from production_stack_tpu_torch.parallel.mesh import (
     AXIS_SEQ,
+    AXIS_STAGE,
     AXIS_TENSOR,
     MeshConfig,
     stage_devices as pstage_devices,
@@ -3259,7 +3266,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pipeline-parallel-size", type=int, default=1,
                    help="pipeline stages, one process: stage s runs its "
                         "share of the layers and its own KV pool on "
-                        "cuda:s, or on the CPU")
+                        "cuda:s, or on the CPU; with a tensor-parallel "
+                        "size T above 1, one process a stage and tensor "
+                        "rank, process g (stage times T plus tensor rank) "
+                        "on cuda:g")
     p.add_argument("--sequence-parallel-size", type=int, default=1,
                    help="seq ranks, one process each (times the tensor-"
                         "parallel size): long prompts prefill via ring "
@@ -3511,11 +3521,12 @@ def build_parser() -> argparse.ArgumentParser:
 def _mesh_from_args(args, processes: Optional[int] = None) -> MeshConfig:
     """The parallel sizes of the command line: pipeline stages and seq
     ranks as given, tensor parallelism resolved on the engine's device
-    (parallel/mesh.tensor_size, over the cards left to each seq rank), or,
-    in a multi-host group of ``processes``, over the processes left to
-    each seq rank (``multihost.check_group`` then holds the count to the
-    mesh's). Seq ranks with tensor ranks make the grid; pipeline stages
-    with either, and data parallelism above 1, exit, not ported yet."""
+    (parallel/mesh.tensor_size, over the cards left to each seq rank or
+    stage), or, in a multi-host group of ``processes``, over the processes
+    left to each seq rank (``multihost.check_group`` then holds the count
+    to the mesh's). Seq ranks or pipeline stages with tensor ranks make a
+    grid; seq ranks with pipeline stages, and data parallelism above 1,
+    exit, not ported yet."""
     if args.data_parallel_size > 1:
         raise SystemExit(f"--data-parallel-size {args.data_parallel_size}: "
                          "data parallelism is not ported to the PyTorch "
@@ -3536,11 +3547,6 @@ def _mesh_from_args(args, processes: Optional[int] = None) -> MeshConfig:
             f"--sequence-parallel-size {sp} with --pipeline-parallel-size "
             f"{pp}: sequence and pipeline parallelism together are a later "
             "slice of the PyTorch engine (each alone is ported)")
-    if pp > 1 and tp > 1:
-        raise SystemExit(
-            f"--pipeline-parallel-size {pp} with --tensor-parallel-size "
-            f"{tp}: pipeline and tensor parallelism together are not "
-            "ported to the PyTorch engine yet (each alone is)")
     return MeshConfig(stage=pp, seq=sp, tensor=tp)
 
 
@@ -3743,6 +3749,11 @@ def _follower_main(args, dcfg: DistributedConfig,
               dcfg.process_id)
 
 
+# each parallel axis's command-line flag, ``--<name>-parallel-size``
+_FLAG_NAMES = {AXIS_STAGE: "pipeline", AXIS_SEQ: "sequence",
+               AXIS_TENSOR: "tensor"}
+
+
 def server_from_args(args, rank_devices: Optional[list] = None,
                      backend: Optional[str] = None,
                      stage_devices: Optional[list] = None,
@@ -3757,14 +3768,21 @@ def server_from_args(args, rank_devices: Optional[list] = None,
     rank whose card does not exist exits before any rank starts. Under
     pipeline parallelism ``stage_devices`` places the stages (default:
     stage s on ``cuda:s``, or the CPU); a stage whose card does not exist
-    exits before any weight is made. A multi-host ``distributed`` topology
-    makes the server its process 0 (``rank_devices``: this process's
-    device, ``multihost.process_device``), and what the group cannot run
-    exits (``_multihost_config``)."""
+    exits before any weight is made. With tensor parallelism as well
+    ``rank_devices`` places every process of the stage x tensor grid by
+    global rank, as on the seq x tensor grid. A multi-host
+    ``distributed`` topology makes the server its process 0
+    (``rank_devices``: this process's device,
+    ``multihost.process_device``), and what the group cannot run exits
+    (``_multihost_config``)."""
     multi = distributed is not None and distributed.enabled
     config = (_multihost_config(args, distributed) if multi
               else config_from_args(args))
-    sizes = {AXIS_SEQ: config.mesh.seq, AXIS_TENSOR: config.mesh.tensor}
+    mesh = config.mesh
+    # stages are processes only on the stage x tensor grid
+    staged = mesh.tensor > 1 and mesh.stage > 1
+    sizes = {AXIS_STAGE: mesh.stage if staged else 1, AXIS_SEQ: mesh.seq,
+             AXIS_TENSOR: mesh.tensor}
     axes = [a for a, n in sizes.items() if n > 1]
     if multi:
         try:
@@ -3776,27 +3794,29 @@ def server_from_args(args, rank_devices: Optional[list] = None,
             raise SystemExit(f"--num-processes {distributed.num_processes}:"
                              f" {e}")
     elif axes:
-        # every process of the ranks: seq times tensor size on the grid
-        n = sizes[AXIS_SEQ] * sizes[AXIS_TENSOR]
-        what = pdist.PARALLELISM[axes[0] if len(axes) == 1
-                                 else pdist.AXIS_GRID]
+        # every process of the ranks: the product of the sizes on a grid
+        n = math.prod(sizes.values())
+        what = pdist.PARALLELISM[pdist.axis_of(*(sizes[a] for a in (
+            AXIS_SEQ, AXIS_TENSOR, AXIS_STAGE)))]
         try:
             pdist.check_devices(rank_devices
                                 or pdist.rank_devices(args.device, n), what)
         except RuntimeError as e:
-            flags = " ".join(f"--{'sequence' if a == AXIS_SEQ else 'tensor'}"
-                             f"-parallel-size {sizes[a]}" for a in axes)
+            flags = " ".join(f"--{_FLAG_NAMES[a]}-parallel-size {sizes[a]}"
+                             for a in axes)
             raise SystemExit(f"{flags}: {e}")
-    pp = config.mesh.stage
+    pp = mesh.stage
     if pp > 1:
         if config.model.architecture == "whisper":
             raise SystemExit(
                 f"--pipeline-parallel-size {pp}: Whisper under pipeline "
                 "parallelism is not ported to the PyTorch engine yet")
-        try:
-            stage_devices = pstage_devices(args.device, pp, stage_devices)
-        except (RuntimeError, ValueError) as e:
-            raise SystemExit(f"--pipeline-parallel-size {pp}: {e}")
+        if not staged:
+            try:
+                stage_devices = pstage_devices(args.device, pp,
+                                               stage_devices)
+            except (RuntimeError, ValueError) as e:
+                raise SystemExit(f"--pipeline-parallel-size {pp}: {e}")
     if config.model.architecture == "whisper":
         from production_stack_tpu_torch.engine.whisper_server import (
             WhisperServer,

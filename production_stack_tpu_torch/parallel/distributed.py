@@ -1,5 +1,6 @@
-"""Rank start-up for tensor and sequence parallelism: one process a rank
-under torch.distributed, with two process groups.
+"""Rank start-up for tensor and sequence parallelism and for the grids
+that join an outer axis to tensor parallelism: one process a rank under
+torch.distributed, with two process groups.
 
 - The **device group** carries the model's collectives (the float32
   all-reduces of the row-parallel products and of the vocab-parallel
@@ -11,24 +12,29 @@ under torch.distributed, with two process groups.
   ranks share one card for a check (NCCL refuses that). A group of
   ``seq`` ranks (``axis``) cuts no weights and runs none of those: its
   device group carries only the ring prefill's exchange (``ring_*``;
-  parallel/ring_attention.py).
+  parallel/ring_attention.py). A ``stage`` view (the pipeline x tensor
+  grid) carries only the stage relay.
 - The **control group** is ``gloo`` on the CPU and carries the leader's
   step inputs to the followers (engine/multihost.py) and the few integers
   the ranks must agree on, such as the KV pool's block count.
 
-**The grid** (``AXIS_GRID``: sequence and tensor parallelism at once):
-``N * T`` processes, process ``g = s * T + t`` seq rank ``s`` and tensor
-rank ``t``, tensor innermost as in the reference's device order
+**The grids** (``GRID_OUTER``): an outer axis and tensor parallelism at
+once. ``AXIS_GRID`` is sequence and tensor parallelism, ``AXIS_PP_GRID``
+pipeline and tensor parallelism. ``N * T`` processes, process ``g = s *
+T + t`` rank ``s`` of the outer axis (seq rank or stage) and tensor rank
+``t``, tensor innermost as in the reference's device order
 (``("data", "stage", "seq", "tensor", "expert")``), so under NCCL a
 tensor group's ranks sit on neighbouring cards. The process's
 ``RankGroup`` spans all of them: its device group is torch.distributed's
 default group, its control group the same processes, and its shard the
 tensor rank's (``shard_of``). It holds two views of its own place,
 ``RankGroup``s with a device group each: ``tensor`` (the T processes of
-its seq rank: the model's collectives and the KV shares of an export)
-and ``seq`` (the N processes of its tensor rank: the ring). Every process
-creates the subgroups in the same order. The views add their bytes to the
-process's ``wire``. On one axis a group is its own view of that axis.
+its seq rank or stage: the model's collectives and the KV shares of an
+export) and the outer axis's, over the N processes of its tensor rank:
+``seq`` (the ring) or ``stage`` (the stage relay: ``relay_send``,
+``relay_recv``, ``from_last``). Every process creates the subgroups in
+the same order. The views add their bytes to the process's ``wire``. On
+one axis a group is its own view of that axis.
 
 The rendezvous is a ``TCPStore`` that rank 0 opens on ``127.0.0.1`` at a
 free port and hands to the ranks it starts; gloo binds the loopback
@@ -67,7 +73,11 @@ from typing import Any, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from production_stack_tpu_torch.parallel.mesh import AXIS_SEQ, AXIS_TENSOR
+from production_stack_tpu_torch.parallel.mesh import (
+    AXIS_SEQ,
+    AXIS_STAGE,
+    AXIS_TENSOR,
+)
 from production_stack_tpu_torch.parallel.shardings import Shard
 
 HOST = "127.0.0.1"
@@ -86,12 +96,20 @@ KV_OPS = ("kv_gather", "kv_scatter")
 # prompt token's hidden row sent to every rank. The perf accountant bills
 # them to no dispatch
 RING_OPS = ("ring_rotate", "ring_gather", "ring_last")
-# the seq x tensor grid's processes (module docstring)
+# its ops of the stage relay (pipeline x tensor grid): the residual stream
+# sent to the next stage, the last stage's results (sampled tokens, scores)
+# sent to the others. The perf accountant bills them to no dispatch
+STAGE_OPS = ("stage_relay", "stage_last")
+# the grids' processes (module docstring): seq x tensor, stage x tensor
 AXIS_GRID = "seq,tensor"
+AXIS_PP_GRID = "stage,tensor"
+# each grid's outer axis
+GRID_OUTER = {AXIS_GRID: AXIS_SEQ, AXIS_PP_GRID: AXIS_STAGE}
 # a group's axis as its messages name it
 PARALLELISM = {AXIS_TENSOR: "tensor parallelism",
                AXIS_SEQ: "sequence parallelism",
-               AXIS_GRID: "sequence and tensor parallelism"}
+               AXIS_GRID: "sequence and tensor parallelism",
+               AXIS_PP_GRID: "pipeline and tensor parallelism"}
 
 
 @dataclasses.dataclass
@@ -212,20 +230,23 @@ def check_devices(devices: Sequence[str],
                 f"{r} on {d}, but this machine has {n} CUDA card(s)")
 
 
-def axis_of(seq: int, tensor: int) -> str:
-    """The axis of a group of ``seq`` seq ranks of ``tensor`` tensor ranks
-    each: the grid where both are above 1."""
+def axis_of(seq: int, tensor: int, stage: int = 1) -> str:
+    """The axis of a group of ``seq`` seq ranks (or ``stage`` stages) of
+    ``tensor`` tensor ranks each: a grid where both are above 1."""
+    if stage > 1 and tensor > 1:
+        return AXIS_PP_GRID
     if seq > 1 and tensor > 1:
         return AXIS_GRID
     return AXIS_SEQ if seq > 1 else AXIS_TENSOR
 
 
-def check_grid(size: int, tensor: int) -> None:
-    """Raise unless ``size`` processes make a seq x tensor grid at tensor
+def check_grid(size: int, tensor: int, axis: str = AXIS_GRID) -> None:
+    """Raise unless ``size`` processes make the grid ``axis`` at tensor
     size ``tensor``: both axes above 1."""
     if tensor < 2 or size % tensor or size == tensor:
-        raise ValueError(f"{size} processes make no seq x tensor grid at "
-                         f"tensor size {tensor}")
+        raise ValueError(f"{size} processes make no "
+                         f"{axis.replace(',', ' x ')} grid at tensor size "
+                         f"{tensor}")
 
 
 def open_store(size: int) -> dist.TCPStore:
@@ -259,13 +280,13 @@ def _gloo_options(host: str = HOST):
 
 @dataclasses.dataclass
 class RankGroup:
-    """One rank's place in a tensor- or sequence-parallel group, or in the
-    seq x tensor grid (``axis``): its rank, its device, every rank's
-    device, its shard of the model (``shard``, set by the model runner)
-    and the two process groups (module docstring). ``pg`` is the device
-    group (None: torch.distributed's default group) and ``members`` the
-    global rank of each of its ranks (empty: the rank itself); a grid's
-    ``views`` are its ``tensor`` and ``seq`` subgroups."""
+    """One rank's place in a tensor- or sequence-parallel group, or in a
+    grid (``axis``): its rank, its device, every rank's device, its shard
+    of the model (``shard``, set by the model runner) and the two process
+    groups (module docstring). ``pg`` is the device group (None:
+    torch.distributed's default group) and ``members`` the global rank of
+    each of its ranks (empty: the rank itself); a grid's ``views`` are its
+    ``tensor`` subgroup and its outer axis's (``seq`` or ``stage``)."""
 
     rank: int
     size: int
@@ -305,6 +326,12 @@ class RankGroup:
         """The group the ring prefill runs over (None on the tensor
         axis)."""
         return self.view(AXIS_SEQ)
+
+    @property
+    def stage(self) -> Optional["RankGroup"]:
+        """The group the stage relay runs over: the stages of this
+        process's tensor rank (None off the pipeline x tensor grid)."""
+        return self.view(AXIS_STAGE)
 
     @property
     def tensor_size(self) -> int:
@@ -468,6 +495,58 @@ class RankGroup:
                                   + y.nbytes * (self.size - 1) / self.size)
         return y.to(self.device) if self._staged() else y
 
+    # -- the stage relay (the pipeline x tensor grid) ----------------------
+    def relay_send(self, x: torch.Tensor) -> None:
+        """Send ``x`` (the residual stream) to the next stage, rank r + 1
+        of this stage view; its bytes count under ``stage_relay`` on the
+        sender."""
+        y = (x.cpu() if self._staged() else x).contiguous()
+        dist.send(y, self._global(self.rank + 1), group=self.pg)
+        self.wire["stage_relay"] = (self.wire.get("stage_relay", 0.0)
+                                    + y.nbytes)
+
+    def relay_recv(self, shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+        """The previous stage's ``relay_send``, of ``shape`` and ``dtype``,
+        on this rank's device."""
+        y = torch.empty(shape, dtype=dtype,
+                        device="cpu" if self._staged() else self.device)
+        dist.recv(y, self._global(self.rank - 1), group=self.pg)
+        return y.to(self.device)
+
+    def from_last(self, x: torch.Tensor) -> torch.Tensor:
+        """The last stage's ``x`` on every stage (its sampled tokens or
+        scores; ``x`` of the same shape and dtype elsewhere, its values
+        unused), counted under ``stage_last``: (n - 1) / n of ``x`` from
+        each card."""
+        y = (x.cpu() if self._staged() else x).contiguous()
+        dist.broadcast(y, src=self._global(self.size - 1), group=self.pg)
+        self.wire["stage_last"] = (self.wire.get("stage_last", 0.0)
+                                   + y.nbytes * (self.size - 1) / self.size)
+        return y.to(self.device)
+
+    # -- KV parts point to point (the pipeline x tensor grid) ---------------
+    def send_kv(self, part: torch.Tensor, dst: int, op: str) -> None:
+        """``part``'s raw bytes to rank ``dst`` over the device group,
+        counted under ``op`` (one of ``KV_OPS``): a KV export's or
+        import's part where the ranks' parts differ in shape."""
+        raw = part.contiguous().view(torch.uint8)
+        dist.send(raw.cpu() if self._staged() else raw, self._global(dst),
+                  group=self.pg)
+        self.wire[op] = self.wire.get(op, 0.0) + raw.nbytes
+
+    def recv_kv(self, src: int, shape: tuple, dtype: torch.dtype,
+                op: str) -> torch.Tensor:
+        """Rank ``src``'s ``send_kv`` of ``shape`` and ``dtype``, on this
+        rank's device, counted under ``op``."""
+        out = torch.empty(shape, dtype=dtype, device=self.device)
+        raw = out.view(torch.uint8)
+        buf = torch.empty_like(raw, device="cpu") if self._staged() else raw
+        dist.recv(buf, self._global(src), group=self.pg)
+        if buf is not raw:
+            raw.copy_(buf)
+        self.wire[op] = self.wire.get(op, 0.0) + raw.nbytes
+        return out
+
     def min_int(self, n: int) -> int:
         """The least of each rank's ``n``: over the control group, or, in
         a multi-host group, which has none, as a plain tensor over the
@@ -515,14 +594,14 @@ def init_rank(rank: int, size: int, store_port: int, devices: Sequence[str],
               axis: str = AXIS_TENSOR, tensor: int = 1) -> RankGroup:
     """Join the group of ``axis`` as ``rank``: rank 0 passes the ``store``
     it opened, the others connect to ``store_port``. One group a process:
-    the device group is torch.distributed's default group. On the grid
-    (``AXIS_GRID``) ``size`` is every process and ``tensor`` the tensor
-    size; the group's ``tensor`` and ``seq`` views are made here."""
+    the device group is torch.distributed's default group. On a grid
+    (``GRID_OUTER``) ``size`` is every process and ``tensor`` the tensor
+    size; the group's ``tensor`` and outer views are made here."""
     if dist.is_initialized():
         raise RuntimeError("this process already belongs to a "
                            "torch.distributed group")
-    if axis == AXIS_GRID:
-        check_grid(size, tensor)
+    if axis in GRID_OUTER:
+        check_grid(size, tensor, axis)
     device = torch.device(devices[rank])
     if device.type == "cuda":
         check_devices(devices, PARALLELISM[axis])
@@ -539,16 +618,17 @@ def init_rank(rank: int, size: int, store_port: int, devices: Sequence[str],
                              pg_options=_gloo_options())
     group = RankGroup(rank, size, device, tuple(devices), backend, control,
                       axis)
-    if axis == AXIS_GRID:
+    if axis in GRID_OUTER:
         group.views = _grid_views(group, tensor)
     return group
 
 
 def _grid_views(world: RankGroup, T: int) -> dict:
-    """The ``tensor`` and ``seq`` views of ``world``'s process (module
-    docstring): every tensor group's device group, then every seq
-    group's, made in the same order on every process."""
-    n = world.size
+    """The ``tensor`` view and the outer axis's (``GRID_OUTER``) of
+    ``world``'s process (module docstring): every tensor group's device
+    group, then every outer group's, made in the same order on every
+    process."""
+    n, outer = world.size, GRID_OUTER[world.axis]
     opts = _gloo_options(world.host) if world.backend == "gloo" else None
 
     def groups(members: list) -> list:
@@ -557,8 +637,8 @@ def _grid_views(world: RankGroup, T: int) -> dict:
                 for m in members]
 
     tensor_members = [tuple(range(s * T, (s + 1) * T)) for s in range(n // T)]
-    seq_members = [tuple(range(t, n, T)) for t in range(T)]
-    tensor_pgs, seq_pgs = groups(tensor_members), groups(seq_members)
+    outer_members = [tuple(range(t, n, T)) for t in range(T)]
+    tensor_pgs, outer_pgs = groups(tensor_members), groups(outer_members)
     s, t = divmod(world.rank, T)
 
     def view(axis, r, members, pg):
@@ -569,7 +649,7 @@ def _grid_views(world: RankGroup, T: int) -> dict:
 
     return {AXIS_TENSOR: view(AXIS_TENSOR, t, tensor_members[s],
                               tensor_pgs[s]),
-            AXIS_SEQ: view(AXIS_SEQ, s, seq_members[t], seq_pgs[t])}
+            outer: view(outer, s, outer_members[t], outer_pgs[t])}
 
 
 def join_world(cfg: DistributedConfig, device, backend: str,
@@ -578,15 +658,15 @@ def join_world(cfg: DistributedConfig, device, backend: str,
     ``num_processes``, spawning nothing: process 0 opens the store at the
     coordinator's port, the others connect to it (module docstring).
     ``device`` is this process's; every rank's is read from the store. On
-    the grid (``AXIS_GRID``) ``tensor`` is the tensor size and the
-    group's ``tensor`` and ``seq`` views are made here."""
+    a grid (``GRID_OUTER``) ``tensor`` is the tensor size and the group's
+    ``tensor`` and outer views are made here."""
     if dist.is_initialized():
         raise RuntimeError("this process already belongs to a "
                            "torch.distributed group")
     cfg.check()
     size, rank = cfg.num_processes, cfg.process_id
-    if axis == AXIS_GRID:
-        check_grid(size, tensor)
+    if axis in GRID_OUTER:
+        check_grid(size, tensor, axis)
     device = torch.device(device)
     if device.type == "cuda":
         check_devices([str(device)], PARALLELISM[axis])
@@ -603,6 +683,6 @@ def join_world(cfg: DistributedConfig, device, backend: str,
                             pg_options=opts)
     group = RankGroup(rank, size, device, devices, backend, None, axis,
                       host=host)
-    if axis == AXIS_GRID:
+    if axis in GRID_OUTER:
         group.views = _grid_views(group, tensor)
     return group

@@ -9,9 +9,10 @@ whole copy of the KV pool, joined only by the ring prefill's exchange
 (parallel/ring_attention.py); and the ``stage`` axis is one process's
 list of devices, one a pipeline stage (``stage_devices``;
 engine/pp_runner.py), which may repeat a card. Each of the three can be
-above 1, not yet two at once; data and expert parallelism are later
-slices. -1 on an axis means "every device the others leave", as in the
-reference.
+above 1; two at once where tensor is one of them (the seq x tensor and
+the stage x tensor grids of processes, parallel/distributed.py), not seq
+and stage together; data and expert parallelism are later slices. -1 on
+an axis means "every device the others leave", as in the reference.
 """
 
 from __future__ import annotations
@@ -71,9 +72,9 @@ def tensor_size(mesh: MeshConfig, device) -> int:
     """The tensor-parallel degree an engine on ``device`` runs at. A fixed
     size is taken as given. -1 resolves as ``MeshConfig.resolved`` does
     over the devices a rank can have: the visible cards on ``cuda`` over
-    the pipeline stages (at least 1, so that a machine without one fails
-    where the device is asked for, and stages may share a card), one
-    process on the CPU. The tensor, stage and seq axes are ported:
+    the pipeline stages and seq ranks (the cards left to each; at least
+    1, so that a machine without one fails where the device is asked for,
+    and stages may share a card), one process on the CPU. The tensor, stage and seq axes are ported:
     another axis above 1 raises."""
     for axis in (AXIS_DATA, AXIS_EXPERT):
         if getattr(mesh, axis) != 1:

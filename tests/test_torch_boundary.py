@@ -24,7 +24,9 @@ without JAX and, for the faults, with ``aiohttp``) load none of JAX, the
 JAX package or ``aiohttp``: ``production_stack_tpu_torch.testing`` is the
 port's own, ``production_stack_tpu.testing`` is forbidden. Ring attention
 (``parallel/ring_attention.py``) loads neither JAX nor the JAX package's
-ring attention module it ports.
+ring attention module it ports. The stage x tensor grid's modules (the
+relay, the stage runner, the mirrored calls, the entry points) load
+neither JAX nor the JAX package.
 """
 
 import ast
@@ -447,6 +449,50 @@ def test_multihost_modules_load_no_jax():
 
 @pytest.mark.parametrize("module", MULTIHOST)
 def test_multihost_static_imports(module):
+    path = ROOT / (module.replace(".", "/") + ".py")
+    bad = [m for m in _imports(path) if forbidden(m)]
+    assert bad == [], f"{path.name} imports {bad}"
+
+
+PP_TP = ("production_stack_tpu_torch.parallel.distributed",
+         "production_stack_tpu_torch.parallel.mesh",
+         "production_stack_tpu_torch.engine.pp_runner",
+         "production_stack_tpu_torch.engine.multihost",
+         "production_stack_tpu_torch.engine.model_runner",
+         "production_stack_tpu_torch.engine.lora",
+         "production_stack_tpu_torch.engine.perf_accounting",
+         "production_stack_tpu_torch.engine.engine",
+         "production_stack_tpu_torch.engine.server")
+
+
+def test_pp_tp_prefix_trap():
+    """The reference's modules of the same names (its staged runner, its
+    mesh, its channel) are forbidden, the port's are not."""
+    for name in PP_TP:
+        assert not forbidden(name)
+        assert forbidden(name.replace("production_stack_tpu_torch",
+                                      "production_stack_tpu"))
+
+
+def test_pp_tp_modules_load_no_jax():
+    """The stage x tensor grid (the relay and the grid's views, the stage
+    runner, the mirrored calls and KV parts, the entry points) loads
+    neither JAX nor the JAX package."""
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {PP_TP!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(PP_TP) <= set(mods)
+    assert [m for m in mods if forbidden(m)] == []
+
+
+@pytest.mark.parametrize("module", PP_TP)
+def test_pp_tp_static_imports(module):
     path = ROOT / (module.replace(".", "/") + ".py")
     bad = [m for m in _imports(path) if forbidden(m)]
     assert bad == [], f"{path.name} imports {bad}"

@@ -1331,3 +1331,57 @@ def test_multihost_pair_on_one_card_matches_cpu(cuda, tmp_path):
     assert reports[0]["launches"] == reports[1]["launches"]
     assert {"K1", "K2", "K3"} <= {k for k, n in reports[0]["launches"].items()
                                   if n}
+
+
+def test_pipeline_tensor_grid_on_one_card_matches_tp2(cuda):
+    """bf16 tiny-llama at pp 2 x tp 2, all four processes on this card
+    over gloo, against tp 2 bucketed on the same card and weights: greedy
+    tokens equal token for token (stage after stage runs tp 2's
+    operations); every process's digest is rank 0's and each launched K1,
+    K3 and K4 and no K2; the KV export equals tp 2's bit for bit."""
+    from production_stack_tpu_torch.engine.config import (
+        CacheConfig,
+        EngineConfig,
+        SchedulerConfig,
+    )
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+    from production_stack_tpu_torch.engine.weights import init_random
+    from production_stack_tpu_torch.parallel.mesh import MeshConfig
+
+    def cfg(stage):
+        return EngineConfig.for_model(
+            "tiny-llama", dtype="bfloat16",
+            cache=CacheConfig(block_size=16, num_blocks=128,
+                              enable_prefix_caching=False),
+            scheduler=SchedulerConfig(max_num_seqs=4,
+                                      max_num_batched_tokens=32,
+                                      prefill_buckets=(8, 16, 32)),
+            attention_impl="bucketed", mesh=MeshConfig(stage=stage, tensor=2))
+
+    params = init_random(cfg(1).model, seed=0)
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(0, 259, n).tolist() for n in (3, 40, 9, 21)]
+    sp = SamplingParams(temperature=0.0, max_tokens=12, ignore_eos=True)
+    runs = {}
+    for stage in (1, 2):
+        eng = LLMEngine(cfg(stage), params=params, device=cuda,
+                        rank_devices=["cuda:0"] * 2 * stage, backend="gloo")
+        try:
+            # the same allocations on both: blocks 0 and 1 end up holding
+            # the same tokens' K/V
+            runs[stage] = {"tokens": eng.generate(prompts, sp),
+                           "kv": eng.export_kv([0, 1]),
+                           "reports": eng.runner.follower_reports()}
+        finally:
+            eng.close()
+    assert runs[2]["tokens"] == runs[1]["tokens"]
+    assert torch.equal(runs[2]["kv"].view(torch.int16),
+                       runs[1]["kv"].view(torch.int16))
+    reports = runs[2]["reports"]
+    assert [r["place"] for r in reports] == [
+        {"stage": s, "tensor": t} for s in (0, 1) for t in (0, 1)]
+    assert len({(r["calls"], r["digest"]) for r in reports}) == 1
+    for r in reports:
+        n = r["launches"]
+        assert n["K1"] > 0 and n["K3"] > 0 and n["K4"] > 0 and n["K2"] == 0

@@ -1,7 +1,7 @@
 """Pipeline parallelism in the port against the JAX engine's, on the CPU.
 
 The port's counterpart of ``tests/test_pp_engine.py`` (every case but
-pp 2 x tp 2, which the port refuses for now) at its configs: tiny-llama
+pp 2 x tp 2, which tests/test_torch_pp_tp.py holds) at its configs: tiny-llama
 in float32 with ``params_from_jax`` weights, ``block_size=4``,
 ``prefill_buckets=(16, 32)``, ``max_num_seqs=4``, prompts from a numpy
 seed.
@@ -23,8 +23,9 @@ seed.
 - Weights: a stage's seeded (and int8) share, its ``params_from_jax``
   share and its checkpoint share are bit for bit the slices of the whole.
 - Refusals, as the reference's: logprobs (a ValueError, a 400), guided
-  regex and JSON; pp x tp, Whisper at pp 2 and a stage device that does
-  not exist exit at start, naming what was refused.
+  regex and JSON; Whisper at pp 2 (and at pp 2 x tp 2), seq x pp,
+  multi-host with stages and a stage device that does not exist exit at
+  start, naming what was refused. pp x tp serves: tests/test_torch_pp_tp.py.
 - The server at ``--pipeline-parallel-size 2 --device cpu``: completions,
   a stream, chat, embeddings, sleep and wake, an adapter, the KV routes.
 """
@@ -338,22 +339,46 @@ def _args(*extra):
 
 
 def test_pp_times_tp_and_whisper_exit_at_start():
-    with pytest.raises(SystemExit, match="--pipeline-parallel-size 2 with "
-                       "--tensor-parallel-size 2"):
-        tserver.config_from_args(_args("--pipeline-parallel-size", "2",
-                                       "--tensor-parallel-size", "2"))
-    with pytest.raises(ValueError, match="tensor parallelism"):
-        LLMEngine(tcfg.EngineConfig.for_model(
-            "tiny-llama", mesh=MeshConfig(stage=2, tensor=2)), device="cpu")
-    args = tserver.build_parser().parse_args(
-        ["--model", "tiny-whisper", "--device", "cpu",
-         "--pipeline-parallel-size", "2"])
-    with pytest.raises(SystemExit, match="Whisper under pipeline"):
-        tserver.server_from_args(args)
+    """What still exits at start once pp x tp serves
+    (tests/test_torch_pp_tp.py): Whisper at pp 2 and at pp 2 x tp 2, seq
+    x pp with or without tensor ranks, and multi-host serving with
+    stages; each names what it refuses, and no process starts."""
+    import multiprocessing
+
+    from production_stack_tpu_torch.parallel.distributed import (
+        DistributedConfig,
+    )
+
+    assert tserver.config_from_args(_args(
+        "--pipeline-parallel-size", "2", "--tensor-parallel-size",
+        "2")).mesh == MeshConfig(stage=2, tensor=2)
+    for tp in ("1", "2"):
+        args = tserver.build_parser().parse_args(
+            ["--model", "tiny-whisper", "--device", "cpu",
+             "--pipeline-parallel-size", "2", "--tensor-parallel-size", tp])
+        with pytest.raises(SystemExit, match="Whisper under pipeline"):
+            tserver.server_from_args(args)
+        with pytest.raises(SystemExit, match="--sequence-parallel-size 2 "
+                           "with --pipeline-parallel-size 2"):
+            tserver.config_from_args(_args(
+                "--pipeline-parallel-size", "2", "--sequence-parallel-size",
+                "2", "--tensor-parallel-size", tp))
+        with pytest.raises(ValueError, match="sequence parallelism"):
+            LLMEngine(tcfg.EngineConfig.for_model(
+                "tiny-llama", mesh=MeshConfig(stage=2, seq=2,
+                                              tensor=int(tp))),
+                device="cpu")
     with pytest.raises(ValueError, match="Whisper under pipeline"):
         WhisperRunner(tcfg.EngineConfig.for_model(
             "tiny-whisper", mesh=MeshConfig(stage=2, tensor=1)),
             device="cpu")
+    from production_stack_tpu_torch.engine.multihost import check_group
+
+    with pytest.raises(ValueError, match="staged pipeline runner"):
+        check_group(tcfg.EngineConfig.for_model(
+            "tiny-llama", mesh=MeshConfig(stage=2, tensor=2)),
+            DistributedConfig("127.0.0.1:1", 4, 0), "tensor", 2)
+    assert multiprocessing.active_children() == []
 
 
 def test_a_stage_without_its_card_exits():
