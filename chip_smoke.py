@@ -62,9 +62,10 @@ fatal):
    = 512 (ragged steps W8A16, decode steps W8A8; both routes must run on
    the card; greedy flips accepted within ``INT8_TIE_GAP``); a tiny-llama
    HF checkpoint written here in numpy and served with ``--model <dir>``.
-6. Request features: llama-3-8b at full width and depth through the HTTP
+6. Request features: llama-3-8b at full width and ``CUT_LAYERS`` (8) of
+   its 32 layers (the script's time) through the HTTP
    server on the ragged path with ``--speculative-ngram 4``: a random
-   rank-16 adapter on all seven targets of 32 layers, written here in
+   rank-16 adapter on all seven targets of its layers, written here in
    numpy, loaded with ``POST /v1/load_lora_adapter``; one wave of 18
    requests mixing base, the adapter, ``guided_regex``, ``guided_json`` and
    motif-loop prompts (every response 200, unguided ones with their token
@@ -110,9 +111,10 @@ fatal):
    and combine, bf16 GEMM), each also timed untraced. Then llama-3-8b at
    full width, bf16 against the same weights in int8 on one 256-token
    prompt: last-token logit cosine > 0.99 through W8A8 and W8A16.
-9. The KV plane (``kv-plane``): llama-3-8b, bf16, full width and depth,
+9. The KV plane (``kv-plane``): llama-3-8b, bf16, full width and
+   ``CUT_LAYERS`` (8) of its 32 layers (the script's time),
    through the HTTP server; this script plays the router's two hops.
-   A ``--role prefill`` and a ``--role decode`` server (4096 blocks, 8 GiB
+   A ``--role prefill`` and a ``--role decode`` server (4096 blocks, 2 GiB
    each) in this process; 16 greedy requests (512-2048 tokens, 64 out,
    64 printable byte tokens allowed, so text is tokens) served unified on
    the prefill server, twice (the repeat's largest logprob deviation sets
@@ -477,14 +479,15 @@ fatal):
    the closed channel. Printed: start-up seconds, each call's median
    frame bytes and host microseconds to send, a decode step's wall.
 23. Pipeline x tensor parallelism (``pp2tp2-one-card``): llama-3-8b bf16
-   at full width and depth, seed 0, at pp 2 x tp 2: four processes on
-   this card over gloo (the stage x tensor grid, process g stage g // 2
-   and tensor rank g % 2, each 16 layers at H 16 and KH 4 and a pool of
-   ``TP_BLOCKS`` blocks), the bucketed path, prefix cache off, decode
-   eager, the residual stream relayed stage to stage through host memory.
-   (a) Phase 15's 16 prompts, greedy, ``TP_TOKENS`` tokens, against the tp
-   2 bucketed engine at full depth (run first and released): tokens equal
-   bit for bit (stage after stage runs tp 2's operations). (b) K1, K3 and
+   at full width and ``CUT_LAYERS`` (8) of its layers (the script's
+   time), seed 0, at pp 2 x tp 2: four processes on this card over gloo
+   (the stage x tensor grid, process g stage g // 2 and tensor rank g %
+   2, each 4 layers at H 16 and KH 4 and a pool of ``TP_BLOCKS``
+   blocks), the bucketed path, prefix cache off, decode eager, the
+   residual stream relayed stage to stage through host memory. (a) Phase
+   15's 16 prompts, greedy, ``TP_TOKENS`` tokens, against the tp 2
+   bucketed engine at the same depth (run first and released): tokens
+   equal bit for bit (stage after stage runs tp 2's operations). (b) K1, K3 and
    K4 launch on each of the four processes (``follower_reports``, each
    naming its stage and tensor rank) and K2 on none; every digest rank
    0's. (c) Printed, not judged: each process's weight bytes, the block
@@ -495,6 +498,50 @@ fatal):
    starts) answers a completion, a stream, an embedding and
    ``/kv/export`` (two blocks, tp 2's head groups, every stage's layers),
    and its three followers are gone within 3 s of SIGTERM.
+24. What sequence parallelism did not carry before
+   (``seq2-features-one-card``), every process on this card over gloo.
+   (c) llama-3-8b bf16 at ``CUT_LAYERS``: a ``--role prefill`` server at
+   seq 2 (P), a ``--role decode`` server at seq 1 (D) and a fresh seq 2
+   server with a 4 GiB host tier (P2), P and P2 on a remote store in
+   this process (``--tp-server``, each in a fresh process, started as
+   phase 22 starts so that their start-up runs beside phases 22-23). P's
+   own unified answers to 8 prompts of 4500-6000 tokens x 16, through the
+   ring (its ``prefill_ring:8192`` signature), twice (the repeat's
+   deviation sets the band, as phase 9's); the 8 pulled by D (imports 8,
+   ``cached_tokens`` the full blocks), then pushed and spliced (splices
+   8): tokens equal P's up to a near-tie, logprobs within the band; a
+   fresh 4608-token prompt pushed alone through the ring: its blocks
+   landed on D equal P's bit for bit. Then
+   P2: wave A (4 of the 8) from the remote tier P wrote at each finish,
+   against P's answers; wave B (3 x 8000 tokens through the ring) evicts
+   A from P2's pool; A again from the host tier, against P2's first
+   serve: each tier's hits and committed blocks at least 90% of A's
+   usable blocks. K1, K2 and K3 launch on the three servers' rank 0, K4
+   not; every follower gone within 3 s of SIGTERM. (a) mixtral-8x7b
+   ``--quantization int8`` at ``CUT_LAYERS`` (about 12 GB of int8
+   weights a process; the whole model does not fit twice on the card)
+   at seq 2: phase 20's 4 prompts of 4500-8000 tokens x 16 through the
+   ring (one call a prompt, padded to 8192), then through the chunked
+   path on the same engine (prefix cache off) and again 2 at a time:
+   tokens equal up to a near-tie, logprobs within max(0.05, twice the
+   chunked run's own deviation); the ranks' digests and launches equal;
+   K1 and K3 on the ring wave, K2 and K4 not; rank 0's ``ring_rotate``
+   and ``ring_gather`` bytes phase 20's formula at Mixtral's KH 8, its
+   ``ring_moe_counts`` bytes 4 prompts x 8 layers x 1 x 8 experts x 4 B;
+   each prompt's first token against one process's forward of its whole
+   padded prompt on rank 0's weights (the reference's ring call: dense
+   attention, S's int8 route and MoE capacity, the slots ranked over all
+   S tokens at once): the same token unless that forward's top-2 gap is
+   under ``SEQF_FIRST_BAND`` (0.15), logprobs within it. Printed: the
+   int8 route each ring call's products took, the slots past capacity of
+   each prompt (real and pad tokens' apart, and the real ones that rank
+   0's counts decide), and the one-process first token with each half
+   ranking its slots alone (what a missing offset gives), and judged:
+   some real slot is dropped only through rank 0's counts, and the judge
+   refuses some prompt's first token without the offset. (b) The same
+   at seq 2 x tp 2, four processes, 2 of (a)'s prompts (4500 and 8000
+   tokens), the repeat one at a time, the first tokens against (a)'s
+   one-process forward; the tensor group's bytes printed by op.
 
 Phases 4-14 run with decode graphs on, the default; phase 5's bf16 run
 through the plain versions decodes eagerly (a plain version synchronises
@@ -510,7 +557,8 @@ path's own counts are in ``launches_by_path``, ``moe-int8``, ``kv-plane``,
 ``scoring-surface``, ``whisper``, ``overload``, ``observability``,
 ``decode-graphs``, ``tp2``, ``tp2-lora-ragged``, ``tp2-lora-bucketed``,
 ``tp2-moe-int8``, ``tp2-kv-plane``, ``tp2-whisper`` (rank 0's), ``pp2``,
-``seq2``, ``seq2tp2``, ``mh2`` and ``pp2tp2`` (rank 0's) among them; a
+``seq2``, ``seq2tp2``, ``mh2``, ``pp2tp2``, ``seq2-moe-int8``,
+``seq2tp2-moe-int8`` and ``seq2-kv-plane`` (rank 0's) among them; a
 graph
 replay adds
 the launches its capture recorded); the last line is ``{"ok": true,
@@ -560,15 +608,15 @@ TIE_GAP = 1e-4
 # greedy flip is accepted only where the top-2 gap is within that band
 BF16_LOGPROB_BAND = 0.05
 
-# phases 7, 10, 11 (c)-(d), 13, 14, 15-18, 20-22 and 23 (d) serve their
-# models at full width and this many of their layers
-# (whisper-large-v3-class: of its encoder's and of its decoder's each).
-# What they check holds at any depth, and each judged comparison holds two
-# runs of one depth; at full depth the script took 900-1,300 s of its
-# 1,200 s limit, the gloo phases 15-18 varying most with the host, and
-# phase 20 84 s; with phase 21 and 10 and 14 at full depth, 853 s; with
-# phase 23 and 11 at full depth, 985 s. Phases 4-6, 8, 9, 12, 19 and 23
-# (a)-(c) keep the full depth.
+# phases 6, 7, 9, 10, 11 (c)-(d), 13, 14, 15-18 and 20-24 serve their
+# models at full width and this many of their layers (whisper-large-v3-class: of
+# its encoder's and of its decoder's each). What they check holds at any
+# depth, and each judged comparison holds two runs of one depth; at full
+# depth the script took 900-1,300 s of its 1,200 s limit, the gloo phases
+# 15-18 varying most with the host, and phase 20 84 s; with phase 21 and
+# 10 and 14 at full depth, 853 s; with phase 23 and 11 at full depth, 985
+# s; phases 6, 9 and 23 were cut for phase 24 (975.7 s with 9 and 23
+# cut). Phases 4, 5, 8, 12 and 19 keep the full depth.
 CUT_LAYERS = 8
 
 
@@ -2146,7 +2194,7 @@ def _serve_features(torch, np, counters, card, impl, adapter, spec_k):
     argv = ["--model", "llama-3-8b", "--seed", "0", "--attention-impl", impl]
     if spec_k:
         argv += ["--speculative-ngram", str(spec_k)]
-    cfg = config_from_args(build_parser().parse_args(argv))
+    cfg = _cut_depth(config_from_args(build_parser().parse_args(argv)))
     server = EngineServer(cfg, device="cuda")
     base = f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
     status, out, _ = _post(base, "/v1/load_lora_adapter",
@@ -2307,8 +2355,8 @@ def _feature_profiles(torch, np, eng, card, slot: int) -> None:
 
 
 def features_phase(torch, np, counters, card: str) -> dict:
-    """Phase 6: llama-3-8b at full width and depth through the HTTP server
-    with a random rank-16 adapter loaded over HTTP, guided regex and JSON
+    """Phase 6: llama-3-8b at full width and ``CUT_LAYERS`` layers through
+    the HTTP server with a random rank-16 adapter loaded over HTTP, guided regex and JSON
     requests, and (ragged path) n-gram speculation, k = 4. Then, on the
     same engine: the adapter's greedy tokens on a fixed prompt differ from
     base's; spec on beside spec off on the same motif requests; decode
@@ -2322,10 +2370,11 @@ def features_phase(torch, np, counters, card: str) -> dict:
     launches = {}
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
-        adapter = write_adapter(np, ModelConfig.from_pretrained("llama-3-8b"),
-                                root)
-        log(f"[features] rank-16 adapter on 7 targets x 32 layers written in "
-            f"{time.perf_counter() - t0:.1f} s")
+        cfg = dataclasses.replace(ModelConfig.from_pretrained("llama-3-8b"),
+                                  num_layers=CUT_LAYERS)
+        adapter = write_adapter(np, cfg, root)
+        log(f"[features] rank-16 adapter on 7 targets x {cfg.num_layers} "
+            f"layers written in {time.perf_counter() - t0:.1f} s")
         server, launches["features-ragged"], summary = _serve_features(
             torch, np, counters, card, "ragged", adapter, spec_k=4)
         eng = server.engine
@@ -3227,7 +3276,7 @@ def moe_int8_phase(torch, np, counters, card: str) -> dict:
 KV_ALLOWED = list(range(48, 112))
 KV_MODEL = "llama-3-8b"
 KV_PROMPTS = (512, 2048)  # P->D prompt lengths; the first is the longest
-KV_PD_BLOCKS = 4096  # each P/D pool: 8 GiB at llama-3-8b
+KV_PD_BLOCKS = 4096  # each P/D pool: 2 GiB at llama-3-8b's CUT_LAYERS
 KV_WAVE = 1024  # tier-wave prompt length
 KV_HOST_BYTES = 4 << 30
 
@@ -3286,8 +3335,8 @@ def _kv_server(cfg_args: list):
         config_from_args,
     )
 
-    cfg = config_from_args(build_parser().parse_args(
-        ["--model", KV_MODEL, "--seed", "0", *cfg_args]))
+    cfg = _cut_depth(config_from_args(build_parser().parse_args(
+        ["--model", KV_MODEL, "--seed", "0", *cfg_args])))
     server = EngineServer(cfg, device="cuda")  # no launch warmup
     return server, f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
 
@@ -3309,8 +3358,8 @@ def _kv_wave(base: str, prompts: list, max_tokens: int,
 
 def _kv_pd(torch, np, card: str) -> float:
     """Phase 9, parts 1 and 2: a prefill and a decode server of
-    llama-3-8b (pools of 4096 blocks, 8 GiB each) in this process; this
-    script plays the router's two hops."""
+    llama-3-8b at ``CUT_LAYERS`` (pools of 4096 blocks, 2 GiB each) in
+    this process; this script plays the router's two hops."""
     from production_stack_tpu_torch.engine.kv_transfer import nbytes_of
 
     P, p_url = _kv_server(["--role", "prefill", "--num-blocks",
@@ -3390,8 +3439,8 @@ def _kv_pd(torch, np, card: str) -> float:
             f"to unified up to near-ties, logprobs within "
             f"{max(w for _, w in same):.4f}")
 
-        # one push alone: a fresh 2048-token prompt, 128 blocks, 256 MiB at
-        # llama-3-8b;
+        # one push alone: a fresh 2048-token prompt, 128 blocks, 64 MiB at
+        # llama-3-8b's CUT_LAYERS;
         # the blocks it landed on the decode engine, read before the decode
         # hop attaches them, are bit-identical to the producer's
         before = dict(P.metrics.transfer_totals["push"])
@@ -3541,8 +3590,8 @@ def _kv_tiers(torch, np, card: str, band: float) -> dict:
 
 
 def kv_plane_phase(torch, np, counters, card: str) -> dict:
-    """Phase 9 (``kv-plane``): llama-3-8b bf16 at full width and depth,
-    random weights from seed 0. P->D: a prefill and a decode server, 16
+    """Phase 9 (``kv-plane``): llama-3-8b bf16 at full width and
+    ``CUT_LAYERS`` layers, random weights from seed 0. P->D: a prefill and a decode server, 16
     requests (512-2048 tokens, 64 out) pulled, then pushed and spliced;
     then the host and the remote tier. Returns the phase's launches (K1,
     K2 and K3 must launch, K4 not) and its figures that phase 17 prints
@@ -6496,14 +6545,15 @@ def _tp_same(tag: str, ref: tuple, got: tuple, band: float,
     return compared, worst
 
 
-def _tp_repeat_dev(eng, prompts, sp, ref: tuple, slots=None) -> float:
-    """The engine's own deviation from ``ref``: the same requests 2 at a
-    time, so every prefill step runs in other shapes on both paths (an
-    identical repeat is bit for bit, and 4 at a time is the bucketed
-    path's own batch)."""
-    starts = range(0, len(prompts), 2)
-    again = [_greedy_tokens(eng, prompts[k:k + 2], sp,
-                            slots and slots[k:k + 2]) for k in starts]
+def _tp_repeat_dev(eng, prompts, sp, ref: tuple, slots=None,
+                   per: int = 2) -> float:
+    """The engine's own deviation from ``ref``: the same requests ``per``
+    (2) at a time, so every prefill step runs in other shapes on both
+    paths (an identical repeat is bit for bit, and 4 at a time is the
+    bucketed path's own batch)."""
+    starts = range(0, len(prompts), per)
+    again = [_greedy_tokens(eng, prompts[k:k + per], sp,
+                            slots and slots[k:k + per]) for k in starts]
     _, rep, _ = _tp_dev(ref, tuple(
         {k + i: run[c][i] for k, run in zip(starts, again) for i in run[c]}
         for c in (0, 1)))
@@ -6726,8 +6776,8 @@ class _FirstStepProbe:
         moe, step = self.llama._moe_mlp, self.eng.runner.ragged_step
         logits = self.local._logits
 
-        def probe_moe(cfg, lp, x, tokens=None, group=None):
-            out = moe(cfg, lp, x, tokens, group)
+        def probe_moe(cfg, lp, x, tokens=None, group=None, seq=None):
+            out = moe(cfg, lp, x, tokens, group, seq)
             if self.in_step:
                 row = self._moe_row(cfg, lp, x, tokens, out)
                 self.over_capacity += row["over_capacity"]
@@ -6909,10 +6959,12 @@ class _RankSums:
             y = y.reshape(*lead, *w["q"].shape[n_contract:]).to(x.dtype)
             return y if delta is None else y + delta
 
-        def expert_matmul(xb, w, out_dtype, *, sx=None, group=None):
+        def expert_matmul(xb, w, out_dtype, *, sx=None, group=None,
+                          rows=None):
             if (group is not None or sx is not None
                     or not quant.is_quantized(w) or xb.shape[-1] != self.mlp):
-                return experts(xb, w, out_dtype, sx=sx, group=group)
+                return experts(xb, w, out_dtype, sx=sx, group=group,
+                               rows=rows)
             return self.torch.stack([
                 self._partial(xb[e], w["q"][e], w["s"][e], (0,))
                 for e in range(xb.shape[0])]).to(out_dtype)
@@ -7198,11 +7250,15 @@ def _tpkv_reference(np, base: str, card: str) -> dict:
             "wave_s": wave_s}
 
 
-def _tpkv_pd(np, P, D, ref: dict, card: str) -> dict:
+def _tpkv_pd(np, P, D, ref: dict, card: str, tag: str = "tp2-kv-plane",
+             lone: int = TPKV_LONE, what: str = f"at tp 2 ({{}}; {TP_NOTE})"
+             ) -> dict:
     """(a) Pull, then push and splice, P -> D, judged as phase 9 judges
     them against the unified server's answers; then (d)'s lone push of a
-    fresh ``TPKV_LONE``-token prompt, whose landed blocks (read before the
-    decode hop attaches them) equal the producer's, bit for bit."""
+    fresh ``lone``-token prompt, whose landed blocks (read before the
+    decode hop attaches them) equal the producer's, bit for bit. ``tag``
+    and ``what`` (``card`` formatted into it) name the phase in its
+    messages (phase 17's by default, phase 24 (c)'s)."""
     prompts, runs, band = ref["prompts"], ref["runs"], ref["band"]
     bs = TPKV_BS
 
@@ -7218,7 +7274,7 @@ def _tpkv_pd(np, P, D, ref: dict, card: str) -> dict:
             "import", {}).get("count", 0)
 
     t0, imports0 = time.perf_counter(), imports()
-    with concurrent.futures.ThreadPoolExecutor(TPKV_N) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(prompts)) as pool:
         pulled = list(pool.map(pull, prompts))
     pull_s = time.perf_counter() - t0
     n_imports = imports() - imports0
@@ -7227,21 +7283,22 @@ def _tpkv_pd(np, P, D, ref: dict, card: str) -> dict:
         want = (len(prompt) - 1) // bs * bs
         got = out["usage"]["prompt_tokens_details"]["cached_tokens"]
         if got != want:
-            raise AssertionError(f"[tp2-kv-plane] pull {i}: cached_tokens "
+            raise AssertionError(f"[{tag}] pull {i}: cached_tokens "
                                  f"{got}, the import lands {want}")
-        same.append(_kv_same(f"tp2 pull {i}", runs[i], _kv_run(out), band))
-    if n_imports != TPKV_N:
-        raise AssertionError(f"[tp2-kv-plane] pull: {n_imports} imports, "
-                             f"want {TPKV_N}")
+        same.append(_kv_same(f"{tag} pull {i}", runs[i], _kv_run(out),
+                             band))
+    if n_imports != len(prompts):
+        raise AssertionError(f"[{tag}] pull: {n_imports} imports, "
+                             f"want {len(prompts)}")
 
     def push(i):
-        tid = f"tp2-xfer-{i}-{time.monotonic_ns()}"
+        tid = f"{tag}-xfer-{i}-{time.monotonic_ns()}"
         pre = _kv_post(P.base, _kv_body(prompts[i], 1, kv_transfer_params={
             "do_remote_decode": True, "push_url": D.base,
             "transfer_id": tid}))
         kv = pre["kv_transfer_params"]
         if not kv.get("pushed"):
-            raise AssertionError(f"[tp2-kv-plane] push {i} failed")
+            raise AssertionError(f"[{tag}] push {i} failed")
         first = _kv_run(pre)
         dec = _kv_post(D.base, _kv_body(
             prompts[i] + [ord(first[0])], TPKV_OUT - 1, kv_transfer_params={
@@ -7252,21 +7309,21 @@ def _tpkv_pd(np, P, D, ref: dict, card: str) -> dict:
         return first[0] + rest[0], first[1] + rest[1]
 
     t0, spliced0 = time.perf_counter(), _spliced(D.base)
-    with concurrent.futures.ThreadPoolExecutor(TPKV_N) as pool:
-        pushed = list(pool.map(push, range(TPKV_N)))
+    with concurrent.futures.ThreadPoolExecutor(len(prompts)) as pool:
+        pushed = list(pool.map(push, range(len(prompts))))
     push_s = time.perf_counter() - t0
     spliced = _spliced(D.base) - spliced0
-    if spliced != TPKV_N:
-        raise AssertionError(f"[tp2-kv-plane] push: {spliced} splices, "
-                             f"want {TPKV_N} (a re-prefill is a failure)")
-    same += [_kv_same(f"tp2 push {i}", runs[i], run, band)
+    if spliced != len(prompts):
+        raise AssertionError(f"[{tag}] push: {spliced} splices, want "
+                             f"{len(prompts)} (a re-prefill is a failure)")
+    same += [_kv_same(f"{tag} push {i}", runs[i], run, band)
              for i, run in enumerate(pushed)]
 
     # (d) the lone push
     rng = np.random.default_rng(20)
-    prompt = rng.integers(0, 256, TPKV_LONE).tolist()
-    n_blocks = TPKV_LONE // bs
-    tid = f"tp2-lone-{time.monotonic_ns()}"
+    prompt = rng.integers(0, 256, lone).tolist()
+    n_blocks = lone // bs
+    tid = f"{tag}-lone-{time.monotonic_ns()}"
     totals = _perf(P.base)["kv_transfer"]["transfers"]
     before = totals.get("push", {"bytes": 0, "seconds": 0.0})
     pre = _kv_post(P.base, _kv_body(prompt, 1, kv_transfer_params={
@@ -7280,22 +7337,22 @@ def _tpkv_pd(np, P, D, ref: dict, card: str) -> dict:
     theirs = _http(D.base, "/kv/export", {"blocks": dst[:n_blocks]})
     if (not pre["kv_transfer_params"].get("pushed") or len(dst) != len(src)
             or mine[0] != 200 or theirs[0] != 200 or mine[2] != theirs[2]):
-        raise AssertionError("[tp2-kv-plane] lone push: the decode "
-                             "server's blocks differ from the producer's")
+        raise AssertionError(f"[{tag}] lone push: the decode server's "
+                             "blocks differ from the producer's")
     spliced0 = _spliced(D.base)
     _kv_post(D.base, _kv_body(prompt + [ord(_kv_run(pre)[0][0])], 1,
                               kv_transfer_params={"transfer_id": tid}))
     if _spliced(D.base) != spliced0 + 1:
-        raise AssertionError("[tp2-kv-plane] lone push was not spliced")
-    out = {"pulls": TPKV_N, "imports": n_imports, "pushes": TPKV_N,
+        raise AssertionError(f"[{tag}] lone push was not spliced")
+    out = {"pulls": len(prompts), "imports": n_imports,
+           "pushes": len(prompts),
            "spliced": spliced, "tokens_compared": sum(n for n, _ in same),
            "max_logprob_dev": max(w for _, w in same), "band": band,
            "pull_wave_s": pull_s, "push_wave_s": push_s,
            "lone_push": {"blocks": len(src), "bit_identical_blocks":
                          n_blocks, "bytes": nbytes, "seconds": secs,
                          "gb_s": nbytes / secs / 1e9}}
-    log(f"[tp2-kv-plane] (a) P -> D at tp 2 ({card}; {TP_NOTE}): "
-        f"{json.dumps(out)}")
+    log(f"[{tag}] (a) P -> D {what.format(card)}: {json.dumps(out)}")
     return out
 
 
@@ -8603,11 +8660,11 @@ PPTP_MODEL = "llama-3-8b"  # (d)'s server's model
 
 
 def _pptp_engine():
-    """llama-3-8b bf16 at full depth, seed 0, pp 2 x tp 2: four processes
-    on cuda:0 over gloo, process g stage g // 2 and tensor rank g % 2
-    (16 layers at H 16 and KH 4 each), as (a)'s tp 2 bucketed reference
-    (``_tp_engine``): prefix cache off, decode eager, ``TP_BLOCKS`` blocks
-    a process."""
+    """llama-3-8b bf16 at ``CUT_LAYERS`` layers, seed 0, pp 2 x tp 2: four
+    processes on cuda:0 over gloo, process g stage g // 2 and tensor rank
+    g % 2 (4 layers at H 16 and KH 4 each), as (a)'s tp 2 bucketed
+    reference (``_tp_engine``): prefix cache off, decode eager,
+    ``TP_BLOCKS`` blocks a process."""
     from production_stack_tpu_torch.engine.config import (
         CacheConfig,
         EngineConfig,
@@ -8618,6 +8675,7 @@ def _pptp_engine():
 
     cfg = EngineConfig.for_model(
         "llama-3-8b", seed=0, attention_impl="bucketed",
+        num_layers=CUT_LAYERS,
         cache=CacheConfig(enable_prefix_caching=False, num_blocks=TP_BLOCKS),
         scheduler=SchedulerConfig(decode_graphs=False),
         mesh=MeshConfig(stage=2, tensor=2))
@@ -8712,9 +8770,10 @@ def _pptp_server(np, srv: "_TpServer") -> dict:
 
 
 def pptp_phase(torch, np, counters, card: str, srv: "_TpServer") -> dict:
-    """Phase 23: llama-3-8b at pp 2 x tp 2, four processes on this card
-    over gloo. (a) identity against the tp 2 bucketed engine at full depth
-    on phase 15's prompts (run first and released), bit for bit; (b) K1,
+    """Phase 23: llama-3-8b at pp 2 x tp 2 and ``CUT_LAYERS`` layers, four
+    processes on this card over gloo. (a) identity against the tp 2
+    bucketed engine at the same depth on phase 15's prompts (run first
+    and released), bit for bit; (b) K1,
     K3 and K4 launched on each of the four processes and K2 on none; (c)
     each process's weight bytes, the block count, an eager decode step's
     wall and the relay's bytes a step; (d) the server from the flags
@@ -8728,7 +8787,7 @@ def pptp_phase(torch, np, counters, card: str, srv: "_TpServer") -> dict:
     sp = SamplingParams(temperature=0.0, max_tokens=TP_TOKENS,
                         ignore_eos=True)
     t0 = time.perf_counter()
-    eng = _tp_engine("bucketed", 2, layers=None)
+    eng = _tp_engine("bucketed", 2)
     ref_up = time.perf_counter() - t0
     try:
         ref = _greedy_tokens(eng, prompts, sp)
@@ -8784,6 +8843,585 @@ def pptp_phase(torch, np, counters, card: str, srv: "_TpServer") -> dict:
         f"{json.dumps(server)}; phase 23 in "
         f"{time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+# -- phase 24: what sequence parallelism did not carry before ---------------
+
+SEQF_MODEL = "mixtral-8x7b"
+# (a)'s and (b)'s pools a process: 512 KiB a block at Mixtral's KH 8 and
+# CUT_LAYERS layers (256 KiB at tp 2's KH 4)
+SEQF_BLOCKS = 4096
+SEQF_GRID = (1, 0)  # (b)'s prompts: (a)'s of 4500 and 8000 tokens
+# (a)'s and (b)'s first tokens against one process's forward of the whole
+# padded prompt: the same token unless the one process's top-2 gap is
+# under this, and the same token's logprobs within it. Read on an NVIDIA
+# H100 80GB HBM3 at 700 W before it was judged: logprobs within 0.0172
+# at seq 2 and 0.0913 at seq 2 x tp 2, top-2 gaps 0.2399-1.2491 (PERF.md
+# section 6)
+SEQF_FIRST_BAND = 0.15
+# (c): the prefill server's 8 requests (reference, pulled, pushed), their
+# lengths, and the servers' pools. P holds the 8 prompts at once (a pull
+# reads blocks the prefix cache holds, unpinned); D the 8 transfers; P2
+# is smaller, so that wave B evicts wave A from it
+SEQKV_N = 8
+SEQKV_LENS = (4500, 6000)
+SEQKV_TIER_N = 4  # wave A: the first 4 of the 8 prompts
+SEQKV_LONE = 4608  # (c)'s lone push: through the ring, 288 full blocks
+# wave B on P2: 1,503 blocks, which leave at most 33 of wave A's 1,354
+# in P2's 1,536 (A's 4 prompts and B's 3 each fit it at once)
+SEQKV_B = (8000,) * 3
+SEQKV_P_BLOCKS = SEQKV_N * (SEQKV_LENS[1] + 2 * TPKV_BS) // TPKV_BS + 64
+SEQKV_D_BLOCKS = SEQKV_P_BLOCKS
+SEQKV_P2_BLOCKS = 1536
+SEQKV_SEQ = ["--tensor-parallel-size", "1", "--max-model-len",
+             str(SEQ_MAX_LEN), "--ring-prefill-threshold",
+             str(SEQ_THRESHOLD)]
+
+
+def _seqf_engine(tp: int):
+    """mixtral-8x7b int8 (the CLI's scheduler, seed 0) at ``CUT_LAYERS``
+    layers, seq 2 and tensor size ``tp``, every process on cuda:0 over
+    gloo, ``SEQF_BLOCKS`` blocks a process, prefix cache off (the chunked
+    run after the ring run prefills again), ``max_model_len`` 8192, ring
+    threshold ``SEQ_THRESHOLD``."""
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.server import (
+        build_parser,
+        config_from_args,
+    )
+
+    cfg = config_from_args(build_parser().parse_args(
+        ["--model", SEQF_MODEL, "--quantization", "int8", "--seed", "0",
+         "--sequence-parallel-size", "2", "--tensor-parallel-size", str(tp),
+         "--max-model-len", str(SEQ_MAX_LEN), "--ring-prefill-threshold",
+         str(SEQ_THRESHOLD), "--num-blocks", str(SEQF_BLOCKS)]))
+    cfg = dataclasses.replace(_cut_depth(cfg), cache=dataclasses.replace(
+        cfg.cache, enable_prefix_caching=False))
+    return LLMEngine(cfg, device="cuda", rank_devices=["cuda:0"] * 2 * tp,
+                     backend="gloo")
+
+
+class _RingCalls:
+    """Rank 0's ring calls from now on: each call's padded length, the
+    int8 route each of its products asked for (token count -> W8A16 or
+    W8A8, ``quant.a16``), and each MoE layer's routed slots an expert
+    summed over the seq ranks (``RankGroup.moe_counts``), from which the
+    slots past the capacity follow. ``close`` puts the spied calls
+    back."""
+
+    def __init__(self, eng):
+        from production_stack_tpu_torch.engine import quant
+
+        self.quant, self.calls = quant, []
+        runner, seq = eng.runner, eng.runner.ranks.seq
+        self.runner, self.seq = runner, seq
+        ring, counts, a16 = runner.prefill_ring, seq.moe_counts, quant.a16
+        self.a16 = a16
+
+        self.inside = False
+
+        def spied_ring(tokens, *args, **kwargs):
+            self.calls.append({"S": int(tokens.shape[1]), "routes": {},
+                               "totals": []})
+            self.inside = True
+            try:
+                return ring(tokens, *args, **kwargs)
+            finally:
+                self.inside = False
+
+        def spied_counts(c):
+            out = counts(c)
+            if self.inside:
+                self.calls[-1]["totals"].append(out.sum(0).tolist())
+            return out
+
+        def spied_a16(tokens):
+            got = a16(tokens)
+            if self.inside:
+                self.calls[-1]["routes"][int(tokens)] = (
+                    "W8A16" if got else "W8A8")
+            return got
+
+        self.ring = ring
+        runner.prefill_ring = spied_ring
+        seq.moe_counts = spied_counts
+        quant.a16 = spied_a16
+
+    def close(self) -> None:
+        """Put the spied calls back and let go of the engine's runner
+        (its memory is released after the engine's close)."""
+        self.quant.a16 = self.a16
+        self.runner.prefill_ring = self.ring  # the mirrored call
+        self.seq.__dict__.pop("moe_counts", None)
+        self.runner = self.seq = self.ring = None
+
+    def dropped(self, cfg) -> list:
+        """Each call's slots past its capacity over its layers (the pad
+        tokens' slots, last in the prompt, included)."""
+        k, X = cfg.num_experts_per_tok, cfg.num_experts
+        out = []
+        for c in self.calls:
+            cap = max(int(2.0 * c["S"] * k / X), k)
+            out.append(sum(max(0, t - cap) for layer in c["totals"]
+                           for t in layer))
+        return out
+
+
+def _seqf_slots(torch, picks: list, n_real: int, S: int, cfg) -> dict:
+    """One prompt's slots past the capacity in the whole prompt's routing
+    (``picks``: each MoE layer's (S, k) experts), over its layers: the
+    real tokens' (``real``), the pad tokens' (``pad``), and the real
+    slots on seq rank 1 that only rank 0's routed counts push past the
+    capacity (``decided``: kept with no offset, dropped with it)."""
+    k, X = cfg.num_experts_per_tok, cfg.num_experts
+    cap = max(int(2.0 * S * k / X), k)
+    out = {"real": 0, "pad": 0, "decided": 0}
+    for idx in picks:
+        choice = idx.reshape(-1).long()
+        hot = torch.nn.functional.one_hot(choice, X)
+        pos = ((hot.cumsum(0) - hot) * hot).sum(-1)
+        tok = torch.arange(S, device=choice.device).repeat_interleave(k)
+        real, drop = tok < n_real, pos >= cap
+        first = hot[:S // 2 * k].sum(0)  # rank 0's slots an expert
+        local = pos - torch.where(tok >= S // 2, first[choice], 0)
+        out["real"] += int((drop & real).sum())
+        out["pad"] += int((drop & ~real).sum())
+        out["decided"] += int((drop & real & (local < cap)).sum())
+    return out
+
+
+def _seqf_dense(torch, eng, prompts) -> list:
+    """The reference's ring call on one process: rank 0's weights (seq 2
+    at tensor size 1 holds them whole) over each prompt's whole padded
+    (1, S), dense causal attention, every product's int8 route and the
+    MoE capacity from S and each MoE layer's slots ranked over all S
+    tokens at once. A dict a prompt: ``first``, its first token (token,
+    its logprob, the top-2 gap); ``unranked``, the same forward with each
+    seq rank's half ranking its slots alone (no offset from the earlier
+    rank's counts: what a wrong offset would give); ``slots``, its slots
+    past the capacity (``_seqf_slots``)."""
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.ops.attention import dense_causal_attention
+    from production_stack_tpu_torch.parallel.ring_attention import (
+        ring_length,
+    )
+
+    runner = eng.runner._inner
+    cfg, dev = runner.cfg, runner.device
+    top_k, moe = llama.top_k_lower_first, llama._moe_mlp
+    picks = []
+
+    def attend(q, k, v, kv, layer):
+        return dense_causal_attention(q, k, v, q_block=512), kv
+
+    def spied_top_k(logits, k):
+        got = top_k(logits, k)
+        picks.append(got[1])
+        return got
+
+    def unranked(cfg, lp, x, tokens=None, group=None, seq=None):
+        half = x.shape[-2] // 2
+        return torch.cat([moe(cfg, lp, x[..., :half, :], tokens, group),
+                          moe(cfg, lp, x[..., half:, :], tokens, group)],
+                         dim=-2)
+
+    def first(tokens, n, positions, S):
+        hidden, _ = runner.model.forward_tokens(
+            cfg, runner.params, tokens, positions, attend, None,
+            ref_tokens=S)
+        lp = torch.log_softmax(runner._logits(hidden[:, n - 1])[0], -1)
+        top = torch.topk(lp, 2)
+        return (int(top.indices[0]), float(top.values[0]),
+                float(top.values[0] - top.values[1]))
+
+    out = []
+    with torch.inference_mode():
+        for p in prompts:
+            S = ring_length(len(p), 2)
+            tokens = torch.zeros((1, S), dtype=torch.int32, device=dev)
+            tokens[0, :len(p)] = torch.tensor(p, dtype=torch.int32,
+                                              device=dev)
+            positions = torch.arange(S, device=dev)[None]
+            picks.clear()
+            llama.top_k_lower_first = spied_top_k
+            try:
+                got = {"first": first(tokens, len(p), positions, S)}
+            finally:
+                llama.top_k_lower_first = top_k
+            got["slots"] = _seqf_slots(torch, picks, len(p), S, cfg)
+            picks.clear()
+            llama._moe_mlp = unranked
+            try:
+                got["unranked"] = first(tokens, len(p), positions, S)
+            finally:
+                llama._moe_mlp = moe
+            out.append(got)
+    return out
+
+
+def _seqf_off(tok: int, lp: float, ref: tuple) -> bool:
+    """Whether a first token ``tok`` of logprob ``lp`` falls outside
+    ``SEQF_FIRST_BAND`` of the one-process reference's ``ref`` (token,
+    logprob, top-2 gap): another token where the reference's top-2 gap is
+    not under the band, or the same one with logprobs not within it."""
+    return (abs(lp - ref[1]) if tok == ref[0] else ref[2]) >= SEQF_FIRST_BAND
+
+
+def _seqf_first(tag: str, ring: tuple, dense: list, order) -> list:
+    """Each ring prompt's first token against the one-process reference's
+    (``_seqf_dense``; ``order`` maps a ring prompt to its entry), judged
+    by ``_seqf_off`` (a flip under the band is a near-tie, logged).
+    Returns (same token, |logprob difference|, the reference's top-2
+    gap) a prompt."""
+    toks, lps = ring
+    out = []
+    for i, j in enumerate(order):
+        tok, lp, gap = ref = dense[j]["first"]
+        if _seqf_off(toks[i][0], lps[i][0][0], ref):
+            raise AssertionError(
+                f"[{tag}] prompt {i}'s first token {toks[i][0]} (logprob "
+                f"{lps[i][0][0]:.4f}) against one process's {tok} "
+                f"({lp:.4f}, top-2 gap {gap:.4f}): band {SEQF_FIRST_BAND}")
+        if toks[i][0] != tok:
+            log(f"[{tag}] prompt {i}'s first token: a near-tie with one "
+                f"process's (top-2 gap {gap:.4f})")
+        out.append((toks[i][0] == tok, abs(lps[i][0][0] - lp), gap))
+    return out
+
+
+def _seqf_teeth(tag: str, dense: list) -> list:
+    """The phase's prompts must exercise the offset and the judge must
+    tell its absence: some real slot is dropped only through the earlier
+    rank's counts, and some prompt's first token without the offset
+    (``unranked``) falls outside the band (``_seqf_off``). Returns the
+    prompts whose first token the judge would refuse without it."""
+    caught = [j for j, d in enumerate(dense)
+              if _seqf_off(*d["unranked"][:2], d["first"])]
+    if not any(d["slots"]["decided"] for d in dense) or not caught:
+        raise AssertionError(
+            f"[{tag}] the prompts do not show the offset: slots "
+            f"{[d['slots'] for d in dense]}, without it "
+            f"{[d['unranked'] for d in dense]} against "
+            f"{[d['first'] for d in dense]}")
+    return caught
+
+
+def _seqf_ring(torch, np, counters, card: str, tp: int, order,
+               dense=None) -> dict:
+    """(a) at ``tp`` 1, (b) at ``tp`` 2: the prompts of ``SEQ_LENS``
+    ``order`` picks x ``SEQ_TOKENS`` greedy tokens through the ring, then
+    through the chunked path on the same engine, and again a prompt or
+    two at a time (the chunked run's own deviation). Judged: each
+    prompt's first token against the one-process reference's
+    (``_seqf_dense``: at tp 1 made here, on rank 0's weights; at tp 2
+    ``dense``, (a)'s) within ``SEQF_FIRST_BAND`` (``_seqf_first``); the
+    ring's tokens equal the chunked path's up to a near-tie, logprobs
+    within max(0.05, twice that deviation) (the two paths drop different
+    slots, so this band is wide); the ranks' digests and launches equal;
+    K1 and K3 on the ring wave; the ring and the count exchange's bytes
+    exactly; at tp 1, that the judge would refuse the reference without
+    the offset (``_seqf_teeth``). Printed besides: the reference's first
+    token without the offset (``unranked``) and its slots past the
+    capacity, real and pad apart. Returns the figures printed, the ring wave's launches and the
+    reference among them."""
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+    from production_stack_tpu_torch.parallel.distributed import RING_OPS
+
+    tag = "seq2-moe-int8" if tp == 1 else "seq2tp2-moe-int8"
+    rng = np.random.default_rng(24)
+    every = [rng.integers(0, SEQ_IDS, n).tolist() for n in SEQ_LENS]
+    prompts = [every[j] for j in order]
+    sp = SamplingParams(temperature=0.0, max_tokens=SEQ_TOKENS,
+                        ignore_eos=True, logprobs=2)
+    t0 = time.perf_counter()
+    eng = _seqf_engine(tp)
+    up = time.perf_counter() - t0
+    try:
+        cfg = eng.config.model
+        info = eng.rank_info()
+        if info["size"] != 2 * tp or info["decode_graphs"] != (tp == 1):
+            raise AssertionError(f"[{tag}] ranks {info}")
+        spies = _RingCalls(eng)
+        before = eng.runner.follower_reports()
+        wire0 = dict(eng.runner.ranks.wire)
+        _zero(counters)
+        t0 = time.perf_counter()
+        try:
+            ring = _greedy_tokens(eng, prompts, sp)
+        finally:
+            spies.close()
+        ring_s = time.perf_counter() - t0
+        launches = _counts(counters)
+        wire = {op: n - wire0.get(op, 0.0)
+                for op, n in eng.runner.ranks.wire.items()}
+        _tp_agree(f"{tag} (a)", eng.runner.follower_reports(), launches,
+                  before)
+        _expect(launches, {"K1", "K3"}, tag)
+        if dense is None:
+            t0 = time.perf_counter()
+            dense = _seqf_dense(torch, eng, every)
+            dense_s = time.perf_counter() - t0
+        else:
+            dense_s = None
+        eng.scheduler.ring_enabled = False
+        t0 = time.perf_counter()
+        chunked = _greedy_tokens(eng, prompts, sp)
+        chunked_s = time.perf_counter() - t0
+        rep = _tp_repeat_dev(eng, prompts, sp, chunked,
+                             per=2 if len(prompts) > 2 else 1)
+    finally:
+        eng.close()
+    del eng
+    _released(torch, tag)
+    calls = [c["S"] for c in spies.calls]
+    if calls != [SEQ_PAD] * len(prompts):
+        raise AssertionError(f"[{tag}] ring calls {calls}, want one of "
+                             f"{SEQ_PAD} tokens a prompt")
+    # a layer: one rotation of a seq rank's half of K and V at its KV
+    # heads, the gather of the other half; one all-gather of (X,) int32
+    # counts from the other rank
+    shard = (SEQ_PAD // 2 * 2 * (cfg.num_kv_heads // tp) * cfg.head_dim
+             * cfg.torch_dtype.itemsize)
+    want = len(prompts) * cfg.num_layers * shard
+    want_counts = len(prompts) * cfg.num_layers * (2 - 1) * \
+        cfg.num_experts * 4
+    got = (wire.get("ring_rotate"), wire.get("ring_gather"),
+           wire.get("ring_moe_counts"))
+    if got != (want, want, want_counts):
+        raise AssertionError(f"[{tag}] wire {wire}, want {want} bytes "
+                             f"rotated and gathered, {want_counts} of "
+                             "counts")
+    tensor_wire = {op: n for op, n in wire.items()
+                   if op not in RING_OPS and n}
+    if (tp > 1) != bool(tensor_wire):
+        raise AssertionError(f"[{tag}] the tensor group's wire "
+                             f"{tensor_wire} at tensor size {tp}")
+    first = _seqf_first(tag, ring, dense, order)
+    caught = _seqf_teeth(tag, dense) if dense_s is not None else None
+    band = max(BF16_LOGPROB_BAND, 2 * rep)
+    compared, worst = _tp_same(f"{tag} ring against chunked", chunked,
+                               ring, band, tie_gap=band)
+    figures = {"up_s": up, "ring_wave_s": ring_s,
+               "chunked_wave_s": chunked_s, "tokens_compared": compared,
+               "max_logprob_dev": worst, "band": band, "repeat_dev": rep,
+               "ring_calls": calls,
+               "first_token_against_one_process": first,
+               "first_band": SEQF_FIRST_BAND, "one_process_s": dense_s,
+               "unranked_against_one_process": [
+                   (dense[j]["unranked"][0] == dense[j]["first"][0],
+                    abs(dense[j]["unranked"][1] - dense[j]["first"][1]))
+                   for j in order],
+               "refused_without_offset": caught,
+               "routes": [c["routes"] for c in spies.calls],
+               "slots_past_capacity": spies.dropped(cfg),
+               "one_process_slots_past_capacity": [dense[j]["slots"]
+                                                   for j in order],
+               "wire": wire, "predicted": {"ring_rotate": want,
+                                           "ring_gather": want,
+                                           "ring_moe_counts": want_counts},
+               "launches": launches}
+    log(f"[{tag}] {SEQF_MODEL} int8 at seq 2 x tp {tp}, {CUT_LAYERS} "
+        f"layers, {2 * tp} processes on one card ({card}; {SEQ_NOTE}): "
+        f"{json.dumps(figures)}")
+    figures["dense"] = dense
+    return figures
+
+
+def _seqkv_start() -> dict:
+    """(c)'s processes, started as phase 22 starts, beside phases 22-23
+    (their start-up runs on the host): the remote tier's store in this
+    process; a ``--role prefill`` server at seq 2 (P) and a fresh seq 2
+    server (P2) with the host tier, both on the store; a ``--role
+    decode`` server at seq 1 (D). Every process on cuda:0, llama-3-8b at
+    ``CUT_LAYERS`` (``--tp-server``)."""
+    from production_stack_tpu_torch.kv_server import KVServer
+
+    out = {"servers": []}
+    out["store"] = store = KVServer()
+    url = f"http://127.0.0.1:{store.start('127.0.0.1', 0)}"
+    try:
+        for name, extra in (
+                ("P", [*SEQKV_SEQ, "--sequence-parallel-size", "2",
+                       "--role", "prefill", "--num-blocks",
+                       str(SEQKV_P_BLOCKS), "--remote-kv-url", url]),
+                ("D", [*SEQKV_SEQ, "--role", "decode", "--num-blocks",
+                       str(SEQKV_D_BLOCKS)]),
+                ("P2", [*SEQKV_SEQ, "--sequence-parallel-size", "2",
+                        "--num-blocks", str(SEQKV_P2_BLOCKS),
+                        "--kv-host-cache-bytes", str(KV_HOST_BYTES),
+                        "--remote-kv-url", url])):
+            out[name] = _TpServer(extra)
+            out["servers"].append(out[name])
+    except BaseException:
+        _seqkv_close(out)
+        raise
+    return out
+
+
+def _seqkv_close(started: dict) -> None:
+    for srv in started.get("servers", []):
+        srv.kill()
+    started["servers"] = []
+    if started.get("store") is not None:
+        started["store"].shutdown()
+        started["store"] = None
+
+
+def _seqkv_prompts(np) -> list:
+    rng = np.random.default_rng(24)
+    lo, hi = SEQKV_LENS
+    lens = [hi] + [int(x) for x in rng.integers(lo, hi + 1, SEQKV_N - 1)]
+    return [rng.integers(0, 256, n).tolist() for n in lens]
+
+
+def _seqkv_tiers(np, P2, store, ref: dict, tag: str) -> dict:
+    """(c)'s tiers on P2 (seq 2, the host tier, the store P offloaded to
+    at each finish): wave A (the first ``SEQKV_TIER_N`` of ``ref``'s
+    prompts) from the remote tier, fresh, against P's answers; wave B
+    through the ring, which evicts A from P2's pool; A again from the host
+    tier, against P2's first serve. Each tier's hits and committed blocks
+    at least 90% of A's usable blocks."""
+    from production_stack_tpu_torch.engine.kv_cache import HASH_SEED
+    from production_stack_tpu_torch.engine.kv_offload import chain_hashes
+
+    bs, band = TPKV_BS, ref["band"]
+    wave_a = ref["prompts"][:SEQKV_TIER_N]
+    runs_a = ref["runs"][:SEQKV_TIER_N]
+    usable = sum((len(p) - 1) // bs for p in wave_a)
+    keys = {str(h) for p in wave_a
+            for h in chain_hashes(p, bs, HASH_SEED)[:(len(p) - 1) // bs]}
+    t_end = time.monotonic() + 120
+    while True:
+        with store._lock:
+            left = len(keys - store.blocks.keys())
+        if not left:
+            break
+        if time.monotonic() > t_end:
+            raise AssertionError(f"[{tag}] remote tier: {left} of wave A's "
+                                 "blocks never put")
+        time.sleep(0.05)
+
+    def tier(name: str) -> tuple:
+        t = _perf(P2.base)["kv_tier"]
+        return t["tiers"][name]["hits"], t["prefetch"]["blocks"]
+
+    hits0, blocks0 = tier("remote")
+    warm = _tpkv_wave(P2.base, wave_a, TPKV_OUT)
+    hits1, blocks1 = tier("remote")
+    remote = {"hits": hits1 - hits0, "committed": blocks1 - blocks0}
+    if min(remote.values()) < 0.9 * usable:
+        raise AssertionError(f"[{tag}] remote tier: {remote} of {usable} "
+                             "usable blocks")
+    same = [_kv_same(f"{tag} remote tier {i}", runs_a[i], warm[i], band)
+            for i in range(SEQKV_TIER_N)]
+    rng = np.random.default_rng(25)
+    wave_b = [rng.integers(0, 256, n).tolist() for n in SEQKV_B]
+    _tpkv_wave(P2.base, wave_b, TPKV_OUT)
+    rings = _perf(P2.base)["compile"]["counts"].get(
+        f"prefill_ring:{SEQ_PAD}", 0)
+    hits0, blocks0 = tier("host")
+    back = _tpkv_wave(P2.base, wave_a, TPKV_OUT)
+    hits1, blocks1 = tier("host")
+    host = {"hits": hits1 - hits0, "committed": blocks1 - blocks0}
+    if min(host.values()) < 0.9 * usable:
+        raise AssertionError(f"[{tag}] host tier: {host} of {usable} "
+                             "usable blocks")
+    same += [_kv_same(f"{tag} host tier {i}", warm[i], back[i], band)
+             for i in range(SEQKV_TIER_N)]
+    if not rings:
+        raise AssertionError(f"[{tag}] wave B took no ring prefill")
+    return {"usable_blocks": usable, "remote": remote, "host": host,
+            "tier_tokens_compared": sum(n for n, _ in same),
+            "tier_max_logprob_dev": max(w for _, w in same),
+            "tier_bytes": _perf(P2.base)["kv_tier"]["bytes"]}
+
+
+def _seqkv_phase(np, card: str, started: dict) -> dict:
+    """(c) llama-3-8b bf16 at ``CUT_LAYERS``: P at seq 2 (``--role
+    prefill``) and D at seq 1 (``--role decode``). P's own unified
+    answers to 8 prompts of 4500-6000 tokens x 16, through the ring, twice
+    (the repeat's deviation sets the band); the 8 pulled from P by D, then
+    pushed from P to D and spliced, and a fresh ``SEQKV_LONE``-token
+    prompt pushed alone, judged as phase 9 judges them against P's
+    answers (``_tpkv_pd``): imports 8, splices 8, tokens equal up to a
+    near-tie, logprobs within the band, the lone push's landed blocks
+    the producer's bit for bit; beside it, P2's tiers
+    (``_seqkv_tiers``). Returns rank 0's launches summed over the three
+    servers, each read before and after."""
+    tag = "seq2-kv-plane"
+    t_phase = time.perf_counter()
+    P, D, P2, store = (started["P"], started["D"], started["P2"],
+                       started["store"])
+    servers = [P, D, P2]
+    P.up(tag, graphs=True, size=2)
+    D.up(tag, graphs=True, size=1)
+    P2.up(tag, graphs=True, size=2)
+    before = [srv.launches() for srv in servers]
+    prompts = _seqkv_prompts(np)
+    rings0 = _perf(P.base)["compile"]["counts"]
+    t0 = time.perf_counter()
+    runs = _tpkv_wave(P.base, prompts, TPKV_OUT)
+    ref_s = time.perf_counter() - t0
+    counts = _perf(P.base)["compile"]["counts"]
+    if not counts.get(f"prefill_ring:{SEQ_PAD}") or rings0.get(
+            f"prefill_ring:{SEQ_PAD}"):
+        raise AssertionError(f"[{tag}] the reference wave took no ring "
+                             f"prefill: {counts}")
+    again = _tpkv_wave(P.base, prompts, TPKV_OUT)
+    noise = max(_kv_dev(u, r)[1] for u, r in zip(runs, again))
+    band = max(BF16_LOGPROB_BAND, 2 * noise)
+    ref = {"prompts": prompts, "runs": runs, "band": band}
+    # P -> D and P2's tiers at once: they share no server
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        pd = pool.submit(_tpkv_pd, np, P, D, ref, card, tag, SEQKV_LONE,
+                         f"from seq 2 to seq 1 ({{}}; {SEQ_NOTE})")
+        tiers = pool.submit(_seqkv_tiers, np, P2, store, ref, tag)
+        pd, tiers = pd.result(), tiers.result()
+    after = [srv.launches() for srv in servers]
+    with concurrent.futures.ThreadPoolExecutor(len(servers)) as pool:
+        stops = dict(zip(("P", "D", "P2"), pool.map(
+            lambda srv: srv.stop(tag), servers)))
+    launches = {k: sum(a[k] - b[k] for a, b in zip(after, before))
+                for k in after[0]}
+    _expect(launches, {"K1", "K2", "K3"}, tag)
+    out = {"reference_wave_s": ref_s, "noise": noise, "band": band,
+           "imports": pd["imports"], "spliced": pd["spliced"],
+           "lone_push_blocks": pd["lone_push"]["blocks"], **tiers,
+           "up_s": {"P": P.up_s, "D": D.up_s, "P2": P2.up_s},
+           "stops": stops, "launches": launches,
+           "pids": [srv.proc.pid for srv in servers],
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"[{tag}] (c) llama-3-8b bf16 at {CUT_LAYERS} layers, a seq 2 "
+        f"prefill server, a seq 1 decode server and a fresh seq 2 server "
+        f"with the tiers ({card}; {SEQ_NOTE}): {json.dumps(out)}")
+    return out
+
+
+def seq_features_phase(torch, np, counters, card: str,
+                       started: dict) -> dict:
+    """Phase 24 (``seq2-features-one-card``): (c) the KV plane at seq 2
+    on the servers ``started`` beside phases 22-23 (``_seqkv_start``),
+    stopped after; then (a) mixtral-8x7b int8 at seq 2 and (b) at seq 2 x
+    tp 2 (``_seqf_ring``). Returns each part's launches (rank 0's)."""
+    t_phase = time.perf_counter()
+    try:
+        kv = _seqkv_phase(np, card, started)
+    except BaseException:
+        for srv in started.get("servers", []):
+            log(srv.log_tail())
+        raise
+    finally:
+        _seqkv_close(started)
+    a = _seqf_ring(torch, np, counters, card, 1, range(len(SEQ_LENS)))
+    b = _seqf_ring(torch, np, counters, card, 2, SEQF_GRID, a["dense"])
+    log(f"[seq2-features] phase 24 ({card}) in "
+        f"{time.perf_counter() - t_phase:.1f} s: (c) "
+        f"{kv['phase_s']:.1f} s, (a) up {a['up_s']:.1f} s, (b) up "
+        f"{b['up_s']:.1f} s")
+    return {"launches": {"seq2-moe-int8": a["launches"],
+                         "seq2tp2-moe-int8": b["launches"],
+                         "seq2-kv-plane": kv["launches"]},
+            "pids": kv["pids"]}
 
 
 def _no_hbm_alarm_left(pids=()) -> int:
@@ -8910,29 +9548,40 @@ def main() -> int:
     lap("18 tp2-whisper")
     by_path["pp2"] = pp_phase(torch, np, counters, card)
     lap("19 pp2")
-    mh_start = _MhStart()  # phase 22's processes, up beside phases 20-21
+    seqkv = {}
     try:
-        grid_srv = _seq_server_start(2)  # phase 21's, up beside phase 20
+        mh_start = _MhStart()  # phase 22's processes, up beside phases 20-21
         try:
-            by_path["seq2"] = seq_phase(torch, np, counters, card)
-            lap("20 seq2")
-            by_path["seq2tp2"] = grid_phase(torch, np, counters, card,
-                                            grid_srv)
+            grid_srv = _seq_server_start(2)  # phase 21's, up beside phase 20
+            try:
+                by_path["seq2"] = seq_phase(torch, np, counters, card)
+                lap("20 seq2")
+                by_path["seq2tp2"] = grid_phase(torch, np, counters, card,
+                                                grid_srv)
+            finally:
+                grid_srv.kill()
+            lap("21 seq2tp2")
+            # phase 24's servers, up beside phases 22-23 (phase 21's engine
+            # and server released: all of them at once would not fit)
+            seqkv = _seqkv_start()
+            by_path["mh2"] = mh_phase(np, card, mh_start)
         finally:
-            grid_srv.kill()
-        lap("21 seq2tp2")
-        by_path["mh2"] = mh_phase(np, card, mh_start)
+            mh_start.close()
+        lap("22 mh2-one-card")
+        # phase 23's server starts beside its engines
+        pptp_srv = _TpServer(["--pipeline-parallel-size", "2"])
+        try:
+            by_path["pp2tp2"] = pptp_phase(torch, np, counters, card,
+                                           pptp_srv)
+        finally:
+            pptp_srv.kill()
+        lap("23 pp2tp2-one-card")
+        seqf = seq_features_phase(torch, np, counters, card, seqkv)
+        by_path.update(seqf["launches"])
+        lap("24 seq2-features-one-card")
     finally:
-        mh_start.close()
-    lap("22 mh2-one-card")
-    # phase 23's server starts beside its engines
-    pptp_srv = _TpServer(["--pipeline-parallel-size", "2"])
-    try:
-        by_path["pp2tp2"] = pptp_phase(torch, np, counters, card, pptp_srv)
-    finally:
-        pptp_srv.kill()
-    lap("23 pp2tp2-one-card")
-    _no_hbm_alarm_left(kv_tp["pids"])
+        _seqkv_close(seqkv)
+    _no_hbm_alarm_left(kv_tp["pids"] + seqf["pids"])
     log(f"[phases] seconds ({card}): " + json.dumps(
         {name: round(t - laps[k - 1][1], 1)
          for k, (name, t) in enumerate(laps) if k}))

@@ -75,7 +75,10 @@ each long fresh prompt whole and alone to ``_run_prefill_ring``, the
 reference's: the prompt padded to a power of two and a multiple of the
 ranks, prefilled by ring attention over them (``prefill_ring``), its
 first token sampled and fetched in the same call; every other step,
-decode included, runs as at tp 1 on every rank.
+decode included, runs as at tp 1 on every rank. MoE and int8 models, a
+disaggregated role and the host and remote tiers serve as at size 1: the
+ring pick is the reference's, so a prompt with a cached prefix or one a
+tier prefetched has computed tokens and takes the chunked path.
 
 Pipeline parallelism (``config.mesh.stage`` above 1): the runner is a
 ``StagedModelRunner`` (engine/pp_runner.py) over one device a stage

@@ -515,13 +515,15 @@ class ModelRunner:
                 DEQUANT_TILE_ELEMS * b)
         return int(rows + 2 * ATTN_SCORE_BYTES + mlp + logits + extra)
 
-    def _step_bytes(self, tokens: int, rows: int) -> int:
+    def _step_bytes(self, tokens: int, rows: int,
+                    ref_tokens: Optional[int] = None) -> int:
         """Device memory one step of ``tokens`` tokens and ``rows`` sampled
         rows needs beside the pool: hidden states and MLP intermediates,
         the float32 logits with their sampling temporaries, an int8 model's
         float32 activations, int32 accumulators and one dequantized weight
         tile, a MoE model's capacity buffers (up to 2 T k / X rows an
-        expert, at most T, in and out, with their gate and up products)."""
+        expert, T the reference call's ``ref_tokens``, at most ``tokens``,
+        in and out, with their gate and up products)."""
         c = self.cfg
         hidden = tokens * c.hidden_size * 4
         mlp = tokens * c.intermediate_size * 2
@@ -535,7 +537,8 @@ class ModelRunner:
                       + DEQUANT_TILE_ELEMS * c.torch_dtype.itemsize)
         if c.architecture == "mixtral" and c.num_experts > 0:
             k, X = c.num_experts_per_tok, c.num_experts
-            slots = X * min(max(int(2.0 * tokens * k / X), k), tokens)
+            T = tokens if ref_tokens is None else ref_tokens
+            slots = X * min(max(int(2.0 * T * k / X), k), tokens)
             # dispatched rows in and out (E), gate, up and their product
             # (F), in the model dtype, and the gathered (T, k, E) float32
             extra += (slots * (2 * c.hidden_size + 3 * c.intermediate_size)
@@ -611,7 +614,7 @@ class ModelRunner:
         Sl = S // n
         b = c.torch_dtype.itemsize
         kv_row = 2 * c.num_kv_heads * c.head_dim
-        return int(self._step_bytes(Sl, 1) + 2 * RING_SCORE_BYTES
+        return int(self._step_bytes(Sl, 1, S) + 2 * RING_SCORE_BYTES
                    + 3 * Sl * c.num_heads * c.head_dim * 4
                    + Sl * kv_row * (3 * b + 4) + S * kv_row * b)
 
@@ -708,16 +711,17 @@ class ModelRunner:
         return out, kv
 
     def _forward(self, attend_impl, tokens, positions, meta, lora=None,
-                 ref_tokens=None):
+                 ref_tokens=None, seq=None):
         """The decoder stack over ``tokens``; ``ref_tokens`` is the token
         count of the reference's same step (models/llama.py), None where
-        it runs the same rows as this one."""
+        it runs the same rows as this one; ``seq`` the seq group of a ring
+        prefill, whose ranks hold the prompt's slices."""
         def attend(q, k, v, kv, layer):
             return attend_impl(q, k, v, kv, layer, meta)
 
         hidden, self.kv = self.model.forward_tokens(
             self.cfg, self.params, tokens, positions, attend, self.kv, lora,
-            ref_tokens, group=self.group)
+            ref_tokens, group=self.group, seq=seq)
         return hidden
 
     # -- constrained-decoding grammar bank ---------------------------------
@@ -1269,7 +1273,11 @@ class ModelRunner:
         (1,) its adapter. Rank r runs the model over tokens [r * Sl, (r +
         1) * Sl), Sl = S / n over the n seq ranks (``_attend_ring``; on the
         grid each tensor group runs its slice with the model's
-        collectives); the last token's hidden row goes from the seq rank
+        collectives). Every product takes its int8 route, and a MoE block
+        its capacity, from the whole call's S tokens, as the reference's
+        call over the whole (1, S) prompt does, and a MoE block ranks its
+        slots over the whole prompt (models/llama.py ``_moe_mlp``); the
+        last token's hidden row goes from the seq rank
         that holds it to every seq rank (``RankGroup.ring_last``), the
         vocab shards' logits are gathered over the tensor group, and each
         rank samples the same token under the token controls. Returns device tensors (sampled (1,), tok_lp
@@ -1289,7 +1297,8 @@ class ModelRunner:
             self._dev(positions[:, mine]),
             {"slot_mapping": self._dev(slot_mapping)},
             self._lora(None if adapter_ids is None
-                       else np.asarray(adapter_ids)[:, None]))
+                       else np.asarray(adapter_ids)[:, None]),
+            ref_tokens=S, seq=seq)
         last = int(last_idx[0])
         src = last // Sl
         row = (hidden[0, last - src * Sl] if r == src

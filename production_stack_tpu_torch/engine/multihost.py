@@ -86,8 +86,8 @@ pool, and replays every call on its own copy; ``prefill_ring`` is the one
 call whose work the ranks divide, over the ring's exchange
 (parallel/ring_attention.py). An adapter is sent whole to each rank, a
 KV export is rank 0's own blocks (no call is sent), and an import sends
-every follower the whole blocks. What the seq ranks do not carry yet
-raises at start (``refusal``).
+every follower the whole blocks. A Whisper model raises at start
+(``refusal``).
 
 **The seq x tensor grid** (``start_ranks(..., axis=AXIS_GRID,
 tensor=T)``, parallel/distributed.py): N seq ranks of T tensor ranks
@@ -1396,28 +1396,15 @@ def refusal(config, axis: str = AXIS_TENSOR) -> Optional[str]:
     the flag that asks for it; None when they carry all of it. Tensor
     parallelism carries every model and feature the port serves; the
     stage x tensor grid every text model and feature the staged runner
-    serves (Whisper has no staged runner, as at pipeline parallelism
-    alone). Sequence parallelism, alone or on the seq x tensor grid,
-    carries the dense models at full precision, unified: Whisper, MoE
-    models, int8 weights, a disaggregated role and the host and remote KV
-    tiers are later slices."""
+    serves; sequence parallelism, alone or on the seq x tensor grid, every
+    text model and feature (MoE models, int8 weights, a disaggregated role
+    and the host and remote KV tiers included). Neither carries a Whisper
+    model: its runner has no ring and no staged form yet."""
     if axis == AXIS_TENSOR:
         return None
-    m, cache = config.model, config.cache
+    m = config.model
     if m.architecture == "whisper":
         return f"--model {m.name} (Whisper)"
-    if axis == pdist.AXIS_PP_GRID:
-        return None
-    if getattr(m, "num_experts", 0):
-        return f"--model {m.name} (a MoE model)"
-    if m.quant:
-        return f"--quantization {m.quant}"
-    if config.role != "unified":
-        return f"--role {config.role}"
-    if cache.host_offload_blocks or cache.kv_host_cache_bytes:
-        return "--kv-host-cache-bytes (the host KV tier)"
-    if cache.remote_kv_url:
-        return "--remote-kv-url (the remote KV tier)"
     return None
 
 

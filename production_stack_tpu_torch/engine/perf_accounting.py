@@ -134,9 +134,12 @@ def param_counts(params: dict, model_cfg) -> Tuple[int, int, int]:
 
 
 def _meta_params(model_cfg) -> dict:
-    """The whole model's parameter dict as shapes only (meta tensors)."""
+    """The whole model's parameter dict as shapes only (meta tensors),
+    quantized as the model's own are (``quant.maybe_quantize``: an int8
+    leaf's int8 values and float32 scales)."""
     import torch
 
+    from production_stack_tpu_torch.engine.quant import maybe_quantize
     from production_stack_tpu_torch.models.registry import get_model
 
     def walk(shapes: dict) -> dict:
@@ -144,7 +147,8 @@ def _meta_params(model_cfg) -> dict:
             v, dtype=model_cfg.torch_dtype, device="meta")
             for k, v in shapes.items()}
 
-    return walk(get_model(model_cfg).param_shapes(model_cfg))
+    return maybe_quantize(model_cfg, walk(
+        get_model(model_cfg).param_shapes(model_cfg)))
 
 
 class CompileTracker:

@@ -345,9 +345,25 @@ def row_parallel_matmul(x: torch.Tensor, w: Any, n_contract: int,
     return group.all_reduce(part).to(x.dtype)
 
 
+def _expert_sum(group, part: torch.Tensor,
+                rows: torch.Tensor) -> torch.Tensor:
+    """``part (X, C, N)`` (float32 or int32) summed over ``group``'s
+    ranks, sending only ``rows`` (indices into the X C rows): the others
+    are zero on every rank (unoccupied capacity rows, whose dispatched
+    input is zero), so the sum is the whole one's."""
+    reduce = (group.all_reduce_int32 if part.dtype == torch.int32
+              else group.all_reduce)
+    flat = part.flatten(0, 1)
+    out = torch.zeros_like(flat)
+    if rows.numel():  # every rank keeps the same slots, or none
+        out[rows] = reduce(flat[rows])
+    return out.view(part.shape)
+
+
 def expert_matmul(xb: torch.Tensor, w: Any, out_dtype, *,
                   sx: Optional[torch.Tensor] = None,
-                  group=None) -> torch.Tensor:
+                  group=None, rows: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """The batched MoE forms "xce,xef->xcf" and "xcf,xfe->xce": ``xb (X,
     C, K)`` against the expert stack ``w (X, K, N)``, one expert at a
     time. A plain stack is a batched product. A quantized stack runs
@@ -357,25 +373,28 @@ def expert_matmul(xb: torch.Tensor, w: Any, out_dtype, *,
     a copied row has its token's absmax). With a ``group``, K is cut over
     its ranks and the products are summed over them before the rounding
     to ``out_dtype``: in int32 on the W8A8 route (``sx`` must then be the
-    max over the ranks already), in float32 otherwise."""
+    max over the ranks already), in float32 otherwise. A ``group`` comes
+    with ``rows``, the rows of ``xb`` that are not zero: only they are
+    sent (``_expert_sum``)."""
     X, C = xb.shape[:2]
     if not is_quantized(w):
         if group is None:
             return torch.bmm(xb, w).to(out_dtype)
-        return group.all_reduce(matmul_f32(xb, w)).to(out_dtype)
+        return _expert_sum(group, matmul_f32(xb, w), rows).to(out_dtype)
     q, s = w["q"], w["s"]  # (X, K, N), (X, 1, N)
     if sx is None:
         part = torch.float32 if group is not None else out_dtype
         out = torch.empty(X, C, q.shape[-1], dtype=part, device=xb.device)
         for e in range(X):
             _w8a16(xb[e], q[e], s[e], part, out=out[e])
-        return out if group is None else group.all_reduce(out).to(out_dtype)
+        return (out if group is None
+                else _expert_sum(group, out, rows).to(out_dtype))
     # every expert's int32 product, then one rescale over the stack
     acc = torch.empty(X, C, q.shape[-1], dtype=torch.int32, device=xb.device)
     for e in range(X):
         int8_mm(xb[e], q[e], out=acc[e])
     if group is not None:
-        acc = group.all_reduce_int32(acc)
+        acc = _expert_sum(group, acc, rows)
     return rescale(acc, sx, s, out_dtype)
 
 

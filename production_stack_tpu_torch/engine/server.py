@@ -148,10 +148,14 @@ attention over them (parallel/ring_attention.py), and everything else
 runs as at size 1 on every rank. With ``--tensor-parallel-size T`` above
 1 as well, of N x T processes, each seq rank T tensor ranks (the seq x
 tensor grid, parallel/distributed.py): the ring runs over the seq ranks
-of each tensor rank on its shard's heads. With pipeline parallelism above
-1 it exits at start, and so do Whisper, MoE models,
-``--quantization int8``, ``--role prefill|decode`` and the host and
-remote KV tiers at a sequence-parallel size above 1: later slices.
+of each tensor rank on its shard's heads. MoE models, ``--quantization
+int8``, ``--role prefill|decode`` and the host and remote KV tiers serve
+at any sequence-parallel size, alone and on the grid: a ring prefill
+takes the int8 route and the MoE capacity of its whole padded prompt and
+ranks MoE slots across the seq ranks, and the KV plane moves rank 0's
+whole blocks (on the grid, seq rank 0's tensor shares joined). With
+pipeline parallelism above 1 it exits at start, and so does Whisper at a
+sequence-parallel size above 1: later slices.
 ``--data-parallel-size`` parses to the reference's default; above 1 it
 exits at start, not ported yet.
 
@@ -3629,11 +3633,6 @@ def config_from_args(args, processes: Optional[int] = None) -> EngineConfig:
         perf_ledger_max_bytes=args.perf_ledger_max_bytes or (16 << 20),
         perf_ledger_interval=args.perf_ledger_interval or 60.0,
         mesh=mesh, **overrides)
-    if mesh.tensor > 1:
-        why = tp_refusal(config)
-        if why is not None:
-            raise SystemExit(f"{why} is not ported under tensor parallelism "
-                             f"yet (--tensor-parallel-size {mesh.tensor})")
     if mesh.seq > 1:
         why = tp_refusal(config, AXIS_SEQ)
         if why is not None:

@@ -185,12 +185,14 @@ def _lora_delta(x: torch.Tensor, onehot: torch.Tensor, A: torch.Tensor,
 
 def _mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor, lb=None,
          onehot=None, tokens: Optional[int] = None,
-         group=None) -> torch.Tensor:
+         group=None, seq=None) -> torch.Tensor:
     """The MLP block; its down-projection summed over the ranks of a
-    ``group`` that shards the intermediate axis (``_row_parallel``)."""
+    ``group`` that shards the intermediate axis (``_row_parallel``).
+    ``seq``: the seq group a ring prefill's tokens are split over (a MoE
+    block ranks its slots across it, ``_moe_mlp``)."""
     if is_moe(cfg):
         # LoRA MLP targets are ignored on a MoE model, as in the reference
-        return _moe_mlp(cfg, lp, x, tokens, group)
+        return _moe_mlp(cfg, lp, x, tokens, group, seq)
     x8 = quant.shared_rows(x, lp["w_gate"], tokens=tokens)
     gate = quant.quant_matmul(x, lp["w_gate"], tokens=tokens, x8=x8)
     up = quant.quant_matmul(x, lp["w_up"], tokens=tokens, x8=x8)
@@ -234,7 +236,8 @@ def top_k_lower_first(logits: torch.Tensor, k: int):
 
 
 def _moe_mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor,
-             tokens: Optional[int] = None, group=None) -> torch.Tensor:
+             tokens: Optional[int] = None, group=None,
+             seq=None) -> torch.Tensor:
     """Mixtral's sparse MoE block: the reference's capacity-based top-k
     dispatch (models/llama.py ``_moe_mlp``) without its (T, X, C) one-hot
     products.
@@ -255,15 +258,29 @@ def _moe_mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     every expert's F cut: routing, top-k and dispatch run on replicated
     inputs with deterministic ops, so every rank keeps and drops the same
     slots; gate and up are the rank's columns, and the down-projection's
-    ``(X, C_buf, E)`` partials are summed over the ranks right after the
-    product, before the combine (in int32 on the W8A8 route, its scale the
-    max over the ranks; in float32 and rounded once otherwise). Summing
-    after the combine would move a quarter of the bytes at k 2 of X 8
-    (``(T, E)`` against ``2 T k`` rows), but would round the expert rows
-    once less than one device does and could not keep the int32 sum
-    exact; summed before, the rows are rounded where one device rounds
-    them, and the reference's GSPMD likewise reduces the product that
-    contracts the cut F, ahead of its combine."""
+    partials of the kept slots' rows (at most ``T k`` of the ``(X,
+    C_buf, E)`` buffer; the rest are zero on every rank) are summed over
+    the ranks right after the product, before the combine (in int32 on
+    the W8A8 route, its scale the max over the ranks; in float32 and
+    rounded once otherwise). Summing after the combine would move half
+    the bytes at k 2 (``(T, E)`` against ``T k`` rows), but would round
+    the expert rows once less than one device does and could not keep
+    the int32 sum exact; summed before, the rows are rounded where one
+    device rounds them, and the reference's GSPMD likewise reduces the
+    product that contracts the cut F, ahead of its combine.
+
+    In a ring prefill (``seq``, the seq group: rank r holds tokens [r Sl,
+    (r + 1) Sl) of the whole padded prompt, ``tokens`` = S) the reference
+    routes the whole (1, S) prompt at once, so a slot's position counts
+    the slots that ranks 0..r-1 routed to its expert. Each rank sends its
+    ``(X,)`` routed counts to every seq rank (``RankGroup.moe_counts``)
+    and offsets its local positions by the earlier ranks' sum; the
+    capacity is S's. The buffer stays ``min(C, T_here)`` rows an expert:
+    a kept slot's local position is below both. Routing is replicated
+    within a tensor group, so on the seq x tensor grid each tensor rank of
+    a seq rank sends and gets the same counts. The prompt's pad tokens
+    follow its real ones, in the last ranks' slices, and never displace a
+    real slot."""
     shape = x.shape
     E = shape[-1]
     dt = x.dtype
@@ -286,8 +303,13 @@ def _moe_mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor,
             X, device=x.device)[:, None]).to(torch.int32)
         pos = (torch.cumsum(onehot, 1) - onehot).gather(
             0, choice[None, :])[0]
+        whole_pos = pos  # the slot's position in the whole prompt
+        if seq is not None and seq.size > 1:
+            # the slots ranks 0..r-1 routed to each expert come first
+            counts = seq.moe_counts(onehot.sum(1, dtype=torch.int32))
+            whole_pos = pos + counts[:seq.rank].sum(0)[choice]
         sink = X * c_buf
-        dest = torch.where(pos < capacity, choice * c_buf + pos,
+        dest = torch.where(whole_pos < capacity, choice * c_buf + pos,
                            torch.full_like(pos, sink))
         src = torch.arange(T, device=x.device).repeat_interleave(k)
 
@@ -299,12 +321,15 @@ def _moe_mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor,
 
     def experts(h: torch.Tensor, w, group=None) -> torch.Tensor:
         """h (X, C_buf, in) in the model dtype through one stack; with a
-        ``group``, ``in`` is cut over its ranks and the rows are summed."""
+        ``group``, ``in`` is cut over its ranks and the kept slots' rows
+        are summed (the others are zero)."""
+        rows = None if group is None else dest[dest < sink]
         if not w8a8:
-            return quant.expert_matmul(h, w, dt, group=group)
+            return quant.expert_matmul(h, w, dt, group=group, rows=rows)
         hq, hs = quant.quantize_rows(h.flatten(0, 1), group)
         return quant.expert_matmul(hq.view(h.shape), w, dt,
-                                   sx=hs.view(h.shape[:2]), group=group)
+                                   sx=hs.view(h.shape[:2]), group=group,
+                                   rows=rows)
 
     if w8a8:
         xq, sx = quant.quantize_rows(xt)
@@ -361,6 +386,7 @@ def forward_hidden(
     ref_tokens: Optional[int] = None,
     mlp_rows: Optional[int] = None,
     group=None,
+    seq=None,
 ) -> Tuple[torch.Tensor, Any]:
     """Run the decoder stack from embedded activations.
 
@@ -374,6 +400,8 @@ def forward_hidden(
     over chunks of that many rows without LoRA (the dense scoring
     forward's memory bound; None: all rows at once). ``group``: this
     rank's tensor-parallel group (module docstring), None on one device.
+    ``seq``: in a ring prefill, the seq group ``x``'s tokens are this
+    rank's slice over (``_moe_mlp``), None elsewhere.
     Returns (hidden (..., T, E), kv_pool)."""
     layers = params["layers"]
     onehot = None if lora is None else lora["onehot"]
@@ -422,7 +450,8 @@ def forward_hidden(
         h = h + o
         mlp_in = rms_norm(h, lp["mlp_norm"], eps, off)
         if mlp_rows is None or lb is not None:
-            mlp_out = _mlp(cfg, lp, mlp_in, lb, onehot, ref_tokens, group)
+            mlp_out = _mlp(cfg, lp, mlp_in, lb, onehot, ref_tokens, group,
+                           seq)
         else:
             mlp_out = _mlp_chunked(cfg, lp, mlp_in, ref_tokens, mlp_rows,
                                    group)
@@ -443,11 +472,12 @@ def forward_tokens(
     ref_tokens: Optional[int] = None,
     mlp_rows: Optional[int] = None,
     group=None,
+    seq=None,
 ) -> Tuple[torch.Tensor, Any]:
     """Embed tokens, then run the decoder stack (see forward_hidden)."""
     x = embed_tokens(cfg, params, tokens, group)
     return forward_hidden(cfg, params, x, positions, attend, kv_pool, lora,
-                          ref_tokens, mlp_rows, group)
+                          ref_tokens, mlp_rows, group, seq)
 
 
 def logits_from_hidden(cfg: ModelConfig, params: dict,

@@ -93,9 +93,10 @@ STORE_TIMEOUT = datetime.timedelta(seconds=120)
 KV_OPS = ("kv_gather", "kv_scatter")
 # its ops of the ring prefill (sequence parallelism): a K/V shard passed
 # to the next rank, a layer's K/V gathered for every rank's pool, the last
-# prompt token's hidden row sent to every rank. The perf accountant bills
-# them to no dispatch
-RING_OPS = ("ring_rotate", "ring_gather", "ring_last")
+# prompt token's hidden row sent to every rank, and a MoE layer's routed
+# slots an expert sent to every rank (``moe_counts``). The perf
+# accountant bills them to no dispatch
+RING_OPS = ("ring_rotate", "ring_gather", "ring_last", "ring_moe_counts")
 # its ops of the stage relay (pipeline x tensor grid): the residual stream
 # sent to the next stage, the last stage's results (sampled tokens, scores)
 # sent to the others. The perf accountant bills them to no dispatch
@@ -494,6 +495,21 @@ class RankGroup:
         self.wire["ring_last"] = (self.wire.get("ring_last", 0.0)
                                   + y.nbytes * (self.size - 1) / self.size)
         return y.to(self.device) if self._staged() else y
+
+    def moe_counts(self, counts: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``counts`` (a MoE layer's ``(X,)`` int32 slots
+        routed to each expert on this rank's slice of the prompt), stacked
+        ``(n, X)`` in rank order on this rank's device: a slot's position
+        in the whole prompt counts the earlier ranks' (models/llama.py
+        ``_moe_mlp``). Counted under ``ring_moe_counts`` as an all-gather:
+        (n - 1) / n of the result from each card, L (n - 1) X 4 bytes a
+        prompt over L MoE layers."""
+        y = (counts.cpu() if self._staged() else counts).contiguous()
+        parts = [torch.empty_like(y) for _ in range(self.size)]
+        dist.all_gather(parts, y, group=self.pg)
+        self.wire["ring_moe_counts"] = (self.wire.get("ring_moe_counts", 0.0)
+                                        + y.nbytes * (self.size - 1))
+        return torch.stack(parts).to(self.device)
 
     # -- the stage relay (the pipeline x tensor grid) ----------------------
     def relay_send(self, x: torch.Tensor) -> None:

@@ -14,7 +14,8 @@ finish reasons, every rank's report and the payload bytes each call sent.
 Every other process builds its runner shard in the same order, replays
 the calls until the channel closes, and prints ``FOLLOWER DONE``.
 
-tiny-llama in float32 at tensor-parallel size 2 (``--axis tensor``, the
+tiny-llama in float32 (``--model``: another preset, such as
+tiny-mixtral) at tensor-parallel size 2 (``--axis tensor``, the
 default), at sequence-parallel size 2 (``--axis seq``, with a prompt
 above the ring threshold), or on the seq 2 x tp 2 grid (``--axis grid``,
 four processes, the same prompts). Run each process by hand, on the
@@ -56,10 +57,10 @@ ADAPTER_RANK = 4
 GUIDED_REGEX = "[ab]+"
 
 
-def engine_config(axis: str = "tensor"):
-    """tiny-llama, float32, blocks of 4: at tensor size 2, at seq size 2,
-    or on the seq 2 x tp 2 grid, the seq axes with ring prefill from
-    ``RING_THRESHOLD`` tokens."""
+def engine_config(axis: str = "tensor", model: str = "tiny-llama"):
+    """``model`` (tiny-llama by default), float32, blocks of 4: at tensor
+    size 2, at seq size 2, or on the seq 2 x tp 2 grid, the seq axes with
+    ring prefill from ``RING_THRESHOLD`` tokens."""
     from production_stack_tpu_torch.engine.config import (
         CacheConfig,
         EngineConfig,
@@ -74,7 +75,7 @@ def engine_config(axis: str = "tensor"):
     mesh = MeshConfig(seq=1 if axis == "tensor" else 2,
                       tensor=1 if axis == "seq" else 2)
     return EngineConfig.for_model(
-        "tiny-llama", cache=CacheConfig(block_size=4, num_blocks=128),
+        model, cache=CacheConfig(block_size=4, num_blocks=128),
         scheduler=sched, mesh=mesh)
 
 
@@ -211,6 +212,7 @@ def main(argv=None) -> None:
     p.add_argument("--device", default="cuda",
                    help="this process's device: cuda (the default; raises "
                         "without a card), cuda:i, or cpu")
+    p.add_argument("--model", default="tiny-llama")
     p.add_argument("--params", default=None)
     p.add_argument("--threads", type=int, default=2,
                    help="the leader's thread count; followers take the "
@@ -225,7 +227,7 @@ def main(argv=None) -> None:
     )
 
     dcfg = DistributedConfig.from_env()
-    cfg = engine_config(args.axis)
+    cfg = engine_config(args.axis, args.model)
     params = (load_params(args.params, cfg.model.torch_dtype)
               if args.params else None)
     if dcfg.is_leader:

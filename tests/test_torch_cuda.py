@@ -1299,6 +1299,67 @@ def test_sequence_tensor_grid_on_one_card_matches_cpu(cuda):
             rtol=1e-5, atol=1e-5)
 
 
+def test_sequence_parallel_moe_ring_on_one_card_matches_cpu(cuda):
+    """float32 tiny-mixtral at sequence-parallel size 2, both ranks on
+    this card over gloo, ring threshold 16: the long prompts prefill
+    through the ring (one call each, padded to 64), each MoE layer's slot
+    counts exchanged between the ranks (``ring_moe_counts``: L (n - 1) X
+    4 bytes a call), and the greedy tokens equal the CPU's chunked
+    prefill at seq 1; every rank's digest and launches are rank 0's, K1
+    and K3 launched."""
+    from production_stack_tpu_torch.engine.config import (
+        CacheConfig,
+        EngineConfig,
+        SchedulerConfig,
+    )
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+    from production_stack_tpu_torch.engine.weights import init_random
+    from production_stack_tpu_torch.parallel.mesh import MeshConfig
+
+    model = EngineConfig.for_model("tiny-mixtral").model
+    params = init_random(model, seed=0)
+    rng = np.random.default_rng(24)
+    prompts = [rng.integers(0, 259, n).tolist() for n in (45, 5, 37)]
+    sp = SamplingParams(temperature=0.0, max_tokens=12, ignore_eos=True)
+
+    def cfg(seq):
+        return EngineConfig.for_model(
+            "tiny-mixtral", cache=CacheConfig(block_size=16, num_blocks=128),
+            scheduler=SchedulerConfig(max_num_seqs=4,
+                                      max_num_batched_tokens=32,
+                                      ring_prefill_threshold=16),
+            mesh=MeshConfig(seq=seq, tensor=1))
+
+    want = LLMEngine(cfg(1), params=params, device="cpu").generate(
+        prompts, sp)
+    eng = LLMEngine(cfg(2), params=params, device=cuda,
+                    rank_devices=["cuda:0"] * 2, backend="gloo")
+    try:
+        calls = []
+        inner = eng.runner.prefill_ring
+
+        def ring(tokens, *args, **kwargs):
+            calls.append(int(tokens.shape[1]))
+            return inner(tokens, *args, **kwargs)
+
+        eng.runner.prefill_ring = ring
+        got = eng.generate(prompts, sp)
+        reports = eng.runner.follower_reports()
+        wire = dict(eng.runner.ranks.wire)
+    finally:
+        eng.close()
+    assert got == want
+    assert calls == [64, 64]
+    assert wire["ring_moe_counts"] == (len(calls) * model.num_layers
+                                       * model.num_experts * 4)
+    assert len({(r["calls"], r["digest"]) for r in reports}) == 1
+    assert len({tuple(sorted(r["launches"].items()))
+                for r in reports}) == 1
+    assert {"K1", "K3"} <= {k for k, n in reports[0]["launches"].items()
+                            if n}
+
+
 def test_multihost_pair_on_one_card_matches_cpu(cuda, tmp_path):
     """The multi-host harness (float32 tiny-llama at tp 2) as two
     processes started on their own, both on this card over gloo, the

@@ -5,7 +5,8 @@ process tests).
 
 - The harness (``testing/multihost_harness.py``, tiny-llama in float32)
   as a leader and a follower at tp 2 and at seq 2 (a prompt above the
-  ring threshold), and as four processes on the seq 2 x tp 2 grid:
+  ring threshold; and tiny-mixtral at seq 2, its MoE slots ranked
+  across the seq ranks), and as four processes on the seq 2 x tp 2 grid:
   greedy tokens identical, up to a near-tie (top-2 gap under 1e-4), to
   the JAX engine at ``tensor=2`` / ``seq=2`` / ``seq=2, tensor=2`` in
   this process on the same weights, logprobs within 1e-4, and to the
@@ -47,10 +48,12 @@ from _torch_multihost import (
 )
 from _torch_parity import assert_same, engine_configs
 from _torch_tp import rank_limit, wait_gone
+from production_stack_tpu.engine import config as jcfg
 from production_stack_tpu.engine import lora as jlora
 from production_stack_tpu.engine.engine import LLMEngine as JaxEngine
 from production_stack_tpu.engine.sampling import SamplingParams as JaxSP
 from production_stack_tpu.parallel import mesh as jmesh
+from production_stack_tpu_torch.engine import config as tcfg
 from production_stack_tpu_torch.engine import multihost as mh
 from production_stack_tpu_torch.engine import server as tserver
 from production_stack_tpu_torch.engine.engine import LLMEngine
@@ -60,22 +63,27 @@ from production_stack_tpu_torch.testing import multihost_harness as h
 
 torch.set_num_threads(2)
 
-AXES = ["tensor", "seq", "grid"]
-# each axis's JAX mesh and processes
+AXES = ["tensor", "seq", "grid", "seq-moe"]
+# each case's harness axis, model, JAX mesh and processes
+AXIS = {"tensor": "tensor", "seq": "seq", "grid": "grid", "seq-moe": "seq"}
+MODEL = {"seq-moe": "tiny-mixtral"}
 JAX_MESH = {"tensor": dict(tensor=2), "seq": dict(seq=2, tensor=1),
-            "grid": dict(seq=2, tensor=2)}
-PROCESSES = {"tensor": 2, "seq": 2, "grid": 4}
+            "grid": dict(seq=2, tensor=2), "seq-moe": dict(seq=2, tensor=1)}
+PROCESSES = {"tensor": 2, "seq": 2, "grid": 4, "seq-moe": 2}
 
 
 def _jax_engine(axis: str):
-    """The JAX engine of the harness's config on ``axis``'s mesh, one of
-    this process's CPU devices a process."""
+    """The JAX engine of the harness's config for case ``axis`` on its
+    mesh, one of this process's CPU devices a process."""
     sched = dict(max_num_seqs=4, max_num_batched_tokens=32,
                  prefill_buckets=(16, 32, 64))
     if axis != "tensor":
         sched["ring_prefill_threshold"] = h.RING_THRESHOLD
     jconf, tconf = engine_configs("ragged", block_size=4, num_blocks=128,
                                   **sched)
+    if axis in MODEL:
+        jconf.model = jcfg.ModelConfig.from_pretrained(MODEL[axis])
+        tconf.model = tcfg.ModelConfig.from_pretrained(MODEL[axis])
     jconf.mesh = jmesh.MeshConfig(data=1, **JAX_MESH[axis])
     return JaxEngine(jconf, mesh=jmesh.build_mesh(
         jconf.mesh, devices=jax.devices()[:PROCESSES[axis]]),
@@ -109,11 +117,13 @@ def _run(axis: str, tmp_path_factory) -> dict:
 
     ring = axis != "tensor"
     out = {"jax": h.generate_greedy(jeng, jax_adapter, JaxSP, ring=ring)}
+    model = MODEL.get(axis, "tiny-llama")
     (l_rc, l_out), (f_rc, f_out) = run_pair(
-        ["--axis", axis, "--params", path], n=PROCESSES[axis])
+        ["--axis", AXIS[axis], "--model", model, "--params", path],
+        n=PROCESSES[axis])
     out["pair"] = {"leader_rc": l_rc, "follower_rc": f_rc, "leader": l_out,
                    "follower": f_out}
-    cfg = h.engine_config(axis)
+    cfg = h.engine_config(AXIS[axis], model)
     with rank_limit(90):
         eng = LLMEngine(cfg, params=h.load_params(path, torch.float32),
                         device="cpu")

@@ -19,9 +19,12 @@ The counterparts of ``tests/test_ring_serving.py`` and of
   (``_seq4``), since a process belongs to one rank group at a time.
 - Gemma-2's soft cap through the ring at seq 2 against the JAX engine.
 - The server at ``--sequence-parallel-size 2``: its flags, a long
-  completion, its ranks gone after its stop and after SIGTERM; and each
-  combination a later slice carries exits at start with a message, at
-  tensor size 1 and 2 (seq x tensor itself: ``test_torch_ring_tp``).
+  completion, its ranks gone after its stop and after SIGTERM; MoE and
+  int8 models (int8 on the seq x tensor grid too), each role and each KV
+  tier start and serve a long completion through the ring; Whisper and
+  pipeline stages at seq 2 exit at start with a message (seq x tensor
+  itself: ``test_torch_ring_tp``; the features through the ring against
+  the JAX engine: ``test_torch_ring_features``, ``test_torch_ring_kv``).
 
 Every test that starts ranks runs under ``rank_limit`` (``_torch_tp``).
 """
@@ -391,17 +394,8 @@ def test_sequence_parallel_flags_resolve():
 
 
 @pytest.mark.parametrize("extra,named", [
-    (["--tensor-parallel-size", "2", "--quantization", "int8"],
-     "--quantization int8"),
     (["--pipeline-parallel-size", "2"], "sequence and pipeline parallelism"),
     (["--model", "tiny-whisper"], "Whisper"),
-    (["--model", "tiny-mixtral"], "MoE"),
-    (["--quantization", "int8"], "--quantization int8"),
-    (["--role", "prefill"], "--role prefill"),
-    (["--role", "decode"], "--role decode"),
-    (["--kv-host-cache-bytes", "100000"], "host KV tier"),
-    (["--host-offload-blocks", "8"], "host KV tier"),
-    (["--remote-kv-url", "http://127.0.0.1:9"], "remote KV tier"),
     (["--tensor-parallel-size", "2", "--pipeline-parallel-size", "2"],
      "sequence and pipeline parallelism"),
 ])
@@ -415,11 +409,48 @@ def test_what_seq_does_not_carry_exits_at_start(extra, named):
     assert multiprocessing.active_children() == []
 
 
+@pytest.mark.parametrize("extra", [
+    ["--tensor-parallel-size", "2", "--quantization", "int8"],
+    ["--model", "tiny-mixtral"],
+    ["--quantization", "int8"],
+    ["--role", "prefill"],
+    ["--role", "decode"],
+    ["--kv-host-cache-bytes", "100000"],
+    ["--host-offload-blocks", "8"],
+    ["--remote-kv-url", "http://127.0.0.1:9"],
+], ids=["tp2-int8", "moe", "int8", "prefill", "decode", "host-bytes",
+        "host-blocks", "remote"])
+def test_seq2_starts_and_serves_one_request(extra):
+    """What a later slice was to carry at seq 2 (MoE and int8 models, a
+    role, the tiers; int8 on the grid too) starts and serves a long
+    completion through the ring; its ranks leave at the server's stop."""
+    with rank_limit(120):
+        server = tserver.server_from_args(_args(
+            "--sequence-parallel-size", "2", "--skip-warmup", "--num-blocks",
+            "64", "--max-num-seqs", "4", "--ring-prefill-threshold", "16",
+            *extra))
+        try:
+            base = f"http://127.0.0.1:{server.start('127.0.0.1', 0)}"
+            perf = json.loads(http(base, "/debug/perf")[1])
+            pids = perf["ranks"]["pids"][1:]
+            status, raw = http(base, "/v1/completions", {
+                "model": server.config.model.name, "prompt": LONG_PROMPT,
+                "max_tokens": 2, "temperature": 0.0, "ignore_eos": True})
+            assert status == 200
+            assert json.loads(raw)["usage"]["completion_tokens"] == 2
+            counts = json.loads(http(base, "/debug/perf")[1])["compile"][
+                "counts"]
+            assert counts.get("prefill_ring:64") == 1
+        finally:
+            server.shutdown()
+        assert wait_gone(pids, 10) == []
+
+
 def test_engine_refuses_before_starting_ranks():
     conf = EngineConfig.for_model(
-        "tiny-mixtral", cache=CacheConfig(num_blocks=32),
+        "tiny-whisper", cache=CacheConfig(num_blocks=32),
         mesh=MeshConfig(seq=2, tensor=1))
-    with pytest.raises(ValueError, match="MoE"):
+    with pytest.raises(ValueError, match="Whisper"):
         LLMEngine(conf, device="cpu")
     conf = EngineConfig.for_model(
         "tiny-llama", cache=CacheConfig(num_blocks=32),
