@@ -542,6 +542,28 @@ fatal):
    at seq 2 x tp 2, four processes, 2 of (a)'s prompts (4500 and 8000
    tokens), the repeat one at a time, the first tokens against (a)'s
    one-process forward; the tensor group's bytes printed by op.
+25. Expert parallelism (``ep2-one-card``), every process on this card
+   over gloo: mixtral-8x7b ``--quantization int8`` at ``CUT_LAYERS``, as
+   phase 16 serves it (seed 0, prefix cache off, eager decode),
+   ``EngineConfig.mesh`` with ``expert=2`` (the reference's CLI has no
+   expert flag). (a) Expert 2, two processes, each holding 4 of the 8
+   experts of every layer and the rest of the model whole: phase 16's 16
+   prompts x 16 tokens on the ragged path against phase 16's one-process
+   wave on the same weights, every token and every logprob bit for bit
+   (each rank's float32 combine partial holds at most a token's two
+   weighted rows and zeros, so their sum is one device's); each
+   process's weight bytes against ``param_shapes`` with the experts
+   halved, exactly; rank 0's ``moe_combine`` bytes against ``L rows E 4``
+   over every call it made (``_EpRows``), exactly; K1, K2 and K3 launched
+   by both processes, equal, K4 not; then one 2048-token ragged step and
+   one 64-row eager decode step, host walls with their combine's share
+   and bytes, not speeds. (b) Expert 2 x tp 2, four processes (expert
+   rank g // 2, tensor rank g % 2): the same wave against phase 16's tp 2
+   wave (the same tensor sums), bit for bit; a bucketed prefill dispatch
+   of 208 tokens (``_ep_moves``: K1 and K4 on all four processes) and its
+   KV exported equal tp 2's bit for bit, imported into other blocks and
+   exported again unchanged; each process's weight bytes, exactly; every
+   digest, call count and launch count rank 0's.
 
 Phases 4-14 run with decode graphs on, the default; phase 5's bf16 run
 through the plain versions decodes eagerly (a plain version synchronises
@@ -558,7 +580,9 @@ path's own counts are in ``launches_by_path``, ``moe-int8``, ``kv-plane``,
 ``decode-graphs``, ``tp2``, ``tp2-lora-ragged``, ``tp2-lora-bucketed``,
 ``tp2-moe-int8``, ``tp2-kv-plane``, ``tp2-whisper`` (rank 0's), ``pp2``,
 ``seq2``, ``seq2tp2``, ``mh2``, ``pp2tp2``, ``seq2-moe-int8``,
-``seq2tp2-moe-int8`` and ``seq2-kv-plane`` (rank 0's) among them; a
+``seq2tp2-moe-int8``, ``seq2-kv-plane``, ``ep2-moe-int8``,
+``ep2tp2-moe-int8`` and ``ep2tp2-moe-int8-bucketed`` (rank 0's) among
+them; a
 graph
 replay adds
 the launches its capture recorded); the last line is ``{"ok": true,
@@ -6092,7 +6116,7 @@ def _tp_prompts(np) -> list:
 
 # RankGroup's device-group collectives
 TP_COLLECTIVES = ("all_reduce", "all_reduce_int32", "all_reduce_max",
-                  "all_gather_last")
+                  "all_gather_last", "moe_combine")
 
 
 def _tp_collective_clock(torch, ranks) -> list:
@@ -6776,8 +6800,9 @@ class _FirstStepProbe:
         moe, step = self.llama._moe_mlp, self.eng.runner.ragged_step
         logits = self.local._logits
 
-        def probe_moe(cfg, lp, x, tokens=None, group=None, seq=None):
-            out = moe(cfg, lp, x, tokens, group, seq)
+        def probe_moe(cfg, lp, x, tokens=None, group=None, seq=None,
+                      expert=None):
+            out = moe(cfg, lp, x, tokens, group, seq, expert)
             if self.in_step:
                 row = self._moe_row(cfg, lp, x, tokens, out)
                 self.over_capacity += row["over_capacity"]
@@ -7049,11 +7074,12 @@ def moe_tp_reference(torch, np, eng) -> dict:
             "sums": sums, "sums_probe": sums_probe, "decode": decode}
 
 
-def _moe_tp_engine(blocks: int, tp: int):
+def _moe_tp_engine(blocks: int, tp: int, ep: int = 1):
     """mixtral-8x7b int8 as phase 8 serves it (the CLI's scheduler, seed
-    0) at ``CUT_LAYERS`` of its layers, at tensor-parallel size ``tp``
-    (at 2 both ranks on cuda:0 over gloo), ``blocks`` KV blocks a rank,
-    prefix cache off, decode eager."""
+    0) at ``CUT_LAYERS`` of its layers, at tensor-parallel size ``tp`` and
+    expert-parallel size ``ep`` (through ``EngineConfig.mesh``: the CLI
+    has no expert flag; every rank on cuda:0 over gloo), ``blocks`` KV
+    blocks a rank, prefix cache off, decode eager."""
     from production_stack_tpu_torch.engine.engine import LLMEngine
     from production_stack_tpu_torch.engine.server import (
         build_parser,
@@ -7066,10 +7092,11 @@ def _moe_tp_engine(blocks: int, tp: int):
     cfg = dataclasses.replace(
         _cut_depth(cfg), cache=dataclasses.replace(
             cfg.cache, enable_prefix_caching=False),
-        scheduler=dataclasses.replace(cfg.scheduler, decode_graphs=False))
-    if tp == 1:
+        scheduler=dataclasses.replace(cfg.scheduler, decode_graphs=False),
+        mesh=dataclasses.replace(cfg.mesh, expert=ep))
+    if tp * ep == 1:
         return LLMEngine(cfg, device="cuda")
-    return LLMEngine(cfg, device="cuda", rank_devices=["cuda:0"] * tp,
+    return LLMEngine(cfg, device="cuda", rank_devices=["cuda:0"] * (tp * ep),
                      backend="gloo")
 
 
@@ -7119,6 +7146,7 @@ def tp_features_phase(torch, np, counters, card: str) -> dict:
         launches = _counts(counters)
         reports = eng.runner.follower_reports()
         decode = _empty_context_decode(np, eng)
+        moves = _ep_moves(np, eng, counters)
         steps = _tp_steps(torch, np, eng, card, "tp2-moe-int8", length=32,
                           reps=1)
         collective = eng.perf.stats_fields()["collective_bytes"]
@@ -7180,7 +7208,10 @@ def tp_features_phase(torch, np, counters, card: str) -> dict:
         f"bit, the follower = rank 0 exactly: {json.dumps(out)}")
     log(f"[tp2-features] phase 16 (a) ({card}) in "
         f"{time.perf_counter() - t_phase:.1f} s")
-    return {"launches": launches, "steps": steps}
+    return {"launches": launches, "steps": steps,
+            # what phase 25 judges against
+            "ep": {"prompts": ref["prompts"], "sp": ref["sp"],
+                   "tp1_run": ref["run"], "tp2_run": got, "tp2_moves": moves}}
 
 
 # -- phase 17: the KV plane under tensor parallelism ---------------------------
@@ -9019,11 +9050,13 @@ def _seqf_dense(torch, eng, prompts) -> list:
         picks.append(got[1])
         return got
 
-    def unranked(cfg, lp, x, tokens=None, group=None, seq=None):
+    def unranked(cfg, lp, x, tokens=None, group=None, seq=None,
+                 expert=None):
         half = x.shape[-2] // 2
-        return torch.cat([moe(cfg, lp, x[..., :half, :], tokens, group),
-                          moe(cfg, lp, x[..., half:, :], tokens, group)],
-                         dim=-2)
+        return torch.cat([moe(cfg, lp, x[..., :half, :], tokens, group,
+                              expert=expert),
+                          moe(cfg, lp, x[..., half:, :], tokens, group,
+                              expert=expert)], dim=-2)
 
     def first(tokens, n, positions, S):
         hidden, _ = runner.model.forward_tokens(
@@ -9424,6 +9457,237 @@ def seq_features_phase(torch, np, counters, card: str,
             "pids": kv["pids"]}
 
 
+# -- phase 25: expert parallelism ------------------------------------------
+
+EP_NOTE = ("the expert ranks share one card over gloo, their combine "
+           "through host memory: not an EP speed")
+EP_PREFILL = 208  # _ep_moves' prompt: 13 full blocks of 16 tokens
+EP_BUCKET = 256
+
+
+def _ep_moves(np, eng, counters) -> dict:
+    """One bucketed prefill dispatch (the bucketed path's step, K1 and K4)
+    of an ``EP_PREFILL``-token prompt into blocks 1-13, greedy with
+    logprobs, through the mirrored runner; those blocks exported, imported
+    into blocks 20-32 and exported again. Called with no request live (the
+    prefix cache off, so no block is held). Returns the sampled token and
+    logprobs, both exports on the host and the launches of the dispatch,
+    rank 0's and each follower's."""
+    runner = eng.runner
+    bs = eng.config.cache.block_size
+    n = EP_PREFILL // bs
+    M = eng._block_tables.shape[1]
+    ids = list(range(1, n + 1))
+    tables = np.zeros((1, M), np.int32)
+    tables[0, :n] = ids
+    pos = np.full((1, EP_BUCKET), -1, np.int32)
+    pos[0, :EP_PREFILL] = np.arange(EP_PREFILL)
+    slots = np.full(EP_BUCKET, -1, np.int32)
+    slots[:EP_PREFILL] = (np.repeat(ids, bs) * bs
+                          + np.tile(np.arange(bs), n))
+    tokens = np.zeros((1, EP_BUCKET), np.int32)
+    tokens[0, :EP_PREFILL] = np.random.default_rng(25).integers(
+        0, eng.config.model.vocab_size, EP_PREFILL)
+    before = runner.follower_reports()
+    _zero(counters)
+    out = runner.prefill(
+        tokens, pos, tables, np.full(1, EP_PREFILL, np.int32), slots,
+        np.full(1, EP_PREFILL - 1, np.int32), np.zeros(1, np.float32),
+        np.ones(1, np.float32), np.full(1, -1, np.int32),
+        np.zeros(1, np.uint32), greedy_only=True)
+    launches = _counts(counters)
+    after = runner.follower_reports()
+    blocks = runner.export_blocks(ids).clone()
+    again = list(range(20, 20 + n))
+    runner.import_blocks(again, blocks)
+    back = runner.export_blocks(again).clone()
+    return {"prefill": [x.cpu().numpy() for x in out], "blocks": blocks,
+            "imported": back, "launches": launches,
+            "followers": [{k: v - b["launches"].get(k, 0)
+                           for k, v in a["launches"].items()}
+                          for a, b in zip(after[1:], before[1:])]}
+
+
+class _EpRows:
+    """Rank 0's MoE rows by call: each ragged step's live stream (rounded
+    as ``stream_length`` rounds it), each bucketed prefill's P x S, each
+    fused decode iteration's ``max_num_seqs`` rows, times the layers: the
+    rows ``RankGroup.moe_combine`` sums over the expert ranks. Installed
+    on the mirrored runner for as long as the engine lives."""
+
+    def __init__(self, eng):
+        from production_stack_tpu_torch.engine.model_runner import (
+            stream_length,
+        )
+
+        runner, L = eng.runner, eng.config.model.num_layers
+        self.rows = []
+
+        def wrap(name, count):
+            inner = getattr(runner, name)
+
+            def spy(*args, **kw):
+                self.rows.append(L * count(*args))
+                return inner(*args, **kw)
+
+            setattr(runner, name, spy)
+
+        wrap("ragged_step", lambda tokens, *a: stream_length(
+            len(tokens), int(a[3][-1])))
+        wrap("prefill", lambda tokens, *a: int(tokens.size))
+        wrap("decode_multi", lambda tokens, *a: len(tokens)
+             * runner.decode_steps)
+
+    def bytes(self, E: int, n: int) -> float:
+        """``moe_combine``'s count: a float32 (rows, E) all-reduce over n
+        ranks, 2 (n - 1) / n of it from each card."""
+        return float(sum(r * E * 4 * 2.0 * (n - 1) / n for r in self.rows))
+
+
+def _ep_weights(cfg, tp: int, ep: int) -> list:
+    """Each process's weight bytes at (tp, ep), from the shapes alone:
+    ``param_shapes`` cut by its ``Shard`` (the router whole), int8 values
+    and float32 scales of the quantized leaves, the rest in bf16."""
+    from production_stack_tpu_torch.engine import quant
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.parallel import shardings
+
+    shapes = llama.param_shapes(cfg)
+    specs = shardings.held_specs(llama.param_specs(cfg))
+    axes = {**quant.contract_axes(cfg), **quant.TOP_CONTRACT}
+    out = []
+    for g in range(tp * ep):
+        shard = shardings.Shard.of(cfg, g % tp, tp, (g // tp, ep))
+        total = 0
+        leaves = [(k, v, specs[k]) for k, v in shapes.items()
+                  if k != "layers"] + [
+            (k, v, specs["layers"][k]) for k, v in shapes["layers"].items()]
+        for name, shape, spec in leaves:
+            local = [shard.local(a, d) for a, d in zip(spec, shape)]
+            if name in axes:
+                total += math.prod(local) + 4 * math.prod(
+                    d for i, d in enumerate(local) if i not in axes[name])
+            else:
+                total += cfg.torch_dtype.itemsize * math.prod(local)
+        out.append(total)
+    return out
+
+
+def _ep_run(torch, np, counters, card: str, tp: int, want: tuple,
+            tag: str) -> dict:
+    """One engine at expert 2 x ``tp`` (``_moe_tp_engine``): its weight
+    bytes a process, phase 16's wave (``want``'s prompts) with its
+    launches, every rank's report, the combine's bytes against
+    ``_EpRows``; at tp 1 (d)'s step walls, at tp 2 ``_ep_moves``."""
+    prompts, sp = want
+    t0 = time.perf_counter()
+    eng = _moe_tp_engine(MOE_TP_BLOCKS, tp, ep=2)
+    up = time.perf_counter() - t0
+    try:
+        rows = _EpRows(eng)
+        held = eng.runner.gather("param_bytes")
+        _fresh_slots(eng)
+        _zero(counters)
+        t1 = time.perf_counter()
+        got = _greedy_tokens(eng, prompts, sp)
+        wave = time.perf_counter() - t1
+        launches = _counts(counters)
+        reports = eng.runner.follower_reports()
+        moves = _ep_moves(np, eng, counters) if tp > 1 else None
+        steps = (_tp_steps(torch, np, eng, card, tag, length=32, reps=1)
+                 if tp == 1 else None)
+        final = eng.runner.follower_reports()
+        E = eng.config.model.hidden_size
+        combine = {"want": rows.bytes(E, 2), "calls": len(rows.rows),
+                   "ranks": [r["wire"].get("moe_combine", 0.0)
+                             for r in final]}
+        blocks = eng.runner.num_blocks
+    finally:
+        eng.close()
+    del eng
+    _released(torch, tag)
+    return {"up_s": up, "wave_s": wave, "run": got, "held": held,
+            "launches": launches, "reports": reports, "moves": moves,
+            "steps": steps, "combine": combine, "blocks": blocks}
+
+
+def ep_phase(torch, np, counters, card: str, tpf: dict) -> dict:
+    """Phase 25 (a) and (b) (module docstring), against phase 16's waves
+    (``tpf``: its prompts, its one-process wave, its tp 2 wave and tp 2's
+    ``_ep_moves``). Returns each engine's wave launches, and (b)'s
+    bucketed dispatch's."""
+    from production_stack_tpu_torch.engine.config import ModelConfig
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(ModelConfig.from_pretrained(
+        "mixtral-8x7b", quant="int8"), num_layers=CUT_LAYERS)
+    want = (tpf["prompts"], tpf["sp"])
+    out = {}
+    for tp, ref, tag in ((1, tpf["tp1_run"], "ep2-moe-int8"),
+                         (2, tpf["tp2_run"], "ep2tp2-moe-int8")):
+        run = _ep_run(torch, np, counters, card, tp, want, tag)
+        part = "(a)" if tp == 1 else "(b)"
+        weights = _ep_weights(cfg, tp, 2)
+        same, dev, flips = _tp_dev(ref, run["run"])
+        launches = run["launches"]
+        rec = {"processes": 2 * tp, "up_s": run["up_s"],
+               "wave_s": run["wave_s"], "kv_blocks": run["blocks"],
+               "weight_bytes": run["held"], "weight_bytes_want": weights,
+               "tokens": sum(map(len, run["run"][0].values())),
+               "tokens_before_first_flip": same, "max_logprob_dev": dev,
+               "flips": len(flips), "launches": launches,
+               "places": [r["place"] for r in run["reports"]],
+               "calls": run["reports"][0]["calls"],
+               "moe_combine_bytes": run["combine"]}
+        if run["steps"] is not None:
+            rec["steps"] = run["steps"]
+        log(f"[ep2] {part} {tag} at {CUT_LAYERS} layers ({card}; "
+            f"{EP_NOTE}): {json.dumps(rec)}")
+        if run["run"] != ref:
+            raise AssertionError(
+                f"[ep2] {part} {tag}'s wave is not "
+                f"{'one process' if tp == 1 else 'tp 2'}'s bit for bit: "
+                f"{same} tokens before the first flip, logprobs up to {dev} "
+                f"apart, flips at {flips[:4]}")
+        if run["held"] != weights:
+            raise AssertionError(f"[ep2] {part} weight bytes a process "
+                                 f"{run['held']}, want {weights}")
+        comb = run["combine"]
+        if comb["want"] <= 0 or any(b != comb["want"]
+                                    for b in comb["ranks"]):
+            raise AssertionError(f"[ep2] {part} moe_combine bytes "
+                                 f"{comb['ranks']}, want {comb['want']}")
+        _expect(launches, {"K1", "K2", "K3"}, tag)
+        _tp_agree(f"{part} {tag}", run["reports"], launches)
+        if run["moves"] is not None:
+            mv, ref_mv = run["moves"], tpf["tp2_moves"]
+            same_prefill = all(np.array_equal(a, b) for a, b in
+                               zip(mv["prefill"], ref_mv["prefill"]))
+            kv = {"prefill_equal": same_prefill,
+                  "export_equal": bool(torch.equal(mv["blocks"],
+                                                   ref_mv["blocks"])),
+                  "import_equal": bool(torch.equal(mv["imported"],
+                                                   mv["blocks"])),
+                  "export_bytes": mv["blocks"].numel()
+                  * mv["blocks"].element_size(),
+                  "launches": mv["launches"],
+                  "followers": mv["followers"]}
+            log(f"[ep2] (b) a bucketed prefill of {EP_PREFILL} tokens and "
+                f"its KV against tp 2's ({card}): {json.dumps(kv)}")
+            if not (same_prefill and kv["export_equal"]
+                    and kv["import_equal"]):
+                raise AssertionError(f"[ep2] (b) the bucketed dispatch or "
+                                     f"its KV moves differ from tp 2's: {kv}")
+            _expect(mv["launches"], {"K1", "K4"}, f"{tag} bucketed")
+            if any(f != mv["launches"] for f in mv["followers"]):
+                raise AssertionError(f"[ep2] (b) bucketed launches by rank "
+                                     f"{mv['launches']} {mv['followers']}")
+            out[f"{tag}-bucketed"] = mv["launches"]
+        out[tag] = launches
+    log(f"[ep2] phase 25 ({card}) in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def _no_hbm_alarm_left(pids=()) -> int:
     """Every server of this run but phase 13's keeps its bundles in the
     default archive (a directory a process under the system tmpdir): this
@@ -9535,8 +9799,8 @@ def main() -> int:
     lap("15 tp2")
     kv_start = _TpKvStart()  # phase 17's servers start beside phase 16
     try:
-        by_path["tp2-moe-int8"] = tp_features_phase(torch, np, counters,
-                                                    card)["launches"]
+        tpf = tp_features_phase(torch, np, counters, card)
+        by_path["tp2-moe-int8"] = tpf["launches"]
         lap("16 tp2-features")
         kv_tp = tp_kv_phase(np, card, kv["figures"], tp["kv_moves"],
                             kv_start)
@@ -9581,6 +9845,8 @@ def main() -> int:
         lap("24 seq2-features-one-card")
     finally:
         _seqkv_close(seqkv)
+    by_path.update(ep_phase(torch, np, counters, card, tpf["ep"]))
+    lap("25 ep2-one-card")
     _no_hbm_alarm_left(kv_tp["pids"] + seqf["pids"])
     log(f"[phases] seconds ({card}): " + json.dumps(
         {name: round(t - laps[k - 1][1], 1)

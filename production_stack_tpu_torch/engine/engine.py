@@ -90,6 +90,18 @@ shard, the residual stream relayed stage to stage. As in the reference, a
 request with logprobs and a guided regex or JSON grammar are refused at
 ``add_request``, and warmup skips them; sequence and pipeline
 parallelism together are not ported yet.
+
+Expert parallelism (``config.mesh.expert`` above 1, the reference's
+``MeshConfig(expert=N)``; its CLI has no flag, so only a caller's
+``EngineConfig.mesh`` reaches it): the engine is rank 0 of a group of
+expert ranks it starts (``AXIS_EXPERT``), each holding its share of every
+MoE layer's experts, the rest of the model whole and a whole pool; at a
+tensor size T above 1 as well, of the expert x tensor grid
+(``AXIS_EP_GRID``): N times T processes, each expert rank T tensor ranks.
+Every feature tensor parallelism carries serves, on both attention paths.
+Expert ranks with seq or pipeline ranks, with a multi-host
+``distributed`` topology, or for a Whisper model raise before any
+process starts.
 """
 
 from __future__ import annotations
@@ -133,6 +145,7 @@ from production_stack_tpu_torch.parallel.distributed import (
     axis_of,
 )
 from production_stack_tpu_torch.parallel.mesh import AXIS_SEQ
+from production_stack_tpu_torch.parallel.mesh import expert_size
 from production_stack_tpu_torch.parallel.mesh import stage_devices as pstages
 from production_stack_tpu_torch.parallel.mesh import tensor_size
 from production_stack_tpu_torch.parallel.ring_attention import ring_length
@@ -204,8 +217,10 @@ class LLMEngine:
         tensor grid every process, by global rank (seq rank times the
         tensor size plus tensor rank), and on the stage x tensor grid
         every process alike (stage times the tensor size plus tensor
-        rank). ``stage_devices`` places the pipeline stages at tensor size
-        1 (parallel/mesh.stage_devices' default: ``cuda:s`` on cards, the
+        rank), and the expert ranks and the expert x tensor grid alike
+        (expert rank times the tensor size plus tensor rank).
+        ``stage_devices`` places the pipeline stages at tensor size 1
+        (parallel/mesh.stage_devices' default: ``cuda:s`` on cards, the
         CPU otherwise); unused at one stage and on the grid.
         ``distributed`` (parallel/distributed.DistributedConfig), when it
         spans several processes, makes this engine process 0 of a
@@ -219,11 +234,17 @@ class LLMEngine:
         tp = tensor_size(config.mesh, device)
         S = config.mesh.stage
         sp = config.mesh.seq
+        ep = expert_size(config.mesh)
         if sp > 1 and S > 1:
             raise ValueError(
                 f"sequence parallelism ({sp} ranks) with pipeline ({S}) "
                 "parallelism is not ported yet")
-        if distributed is not None and distributed.enabled:
+        if ep > 1:
+            self._check_expert(config, ep, distributed)
+            self.runner = start_ranks(
+                config, params, num_blocks, device, ep * tp, rank_devices,
+                backend, axis=axis_of(sp, tp, expert=ep), tensor=tp)
+        elif distributed is not None and distributed.enabled:
             self.runner = lead_ranks(config, params, num_blocks, device,
                                      distributed, rank_devices, backend,
                                      axis=axis_of(sp, tp), tensor=tp)
@@ -386,6 +407,23 @@ class LLMEngine:
         if config.perf.enabled:
             self.perf = PerfAccountant.from_runner(config, self.runner)
             self.runner.install_compile_observer(self.perf.on_compile)
+
+    @staticmethod
+    def _check_expert(config: EngineConfig, ep: int, distributed) -> None:
+        """Raise, before any process starts, for what expert ranks do not
+        run beside them: seq or pipeline ranks, and a multi-host topology
+        (the reference's CLI has no expert flag, so no multi-host server
+        reaches the axis). A Whisper model is ``start_ranks``' refusal."""
+        mesh = config.mesh
+        if mesh.seq > 1 or mesh.stage > 1:
+            raise ValueError(
+                f"expert parallelism ({ep} ranks) with sequence "
+                f"({mesh.seq}) or pipeline ({mesh.stage}) parallelism is "
+                "not ported yet")
+        if distributed is not None and distributed.enabled:
+            raise ValueError(
+                f"expert parallelism ({ep} ranks) is not served multi-host: "
+                "the reference's CLI has no flag for the expert axis")
 
     # -- request intake ------------------------------------------------------
     def add_request(
@@ -1717,15 +1755,17 @@ class LLMEngine:
 
     @property
     def tensor_parallel_ranks(self) -> int:
-        """Processes the engine's runner spans (1 without tensor or
-        sequence parallelism; seq times tensor size on the grid)."""
+        """Processes the engine's runner spans (1 without tensor,
+        sequence or expert parallelism; the outer axis's size times the
+        tensor size on a grid)."""
         return self.runner.ranks.size if self.runner.ranks else 1
 
     def rank_info(self) -> dict:
-        """The ranks: their count and mesh axis (``seq,tensor`` or
-        ``stage,tensor`` on a grid), each axis's size (``shape``), process
-        ids (this process first, then by global rank: seq rank or stage
-        times tensor size plus tensor rank) and devices; whether decode
+        """The ranks: their count and mesh axis (``seq,tensor``,
+        ``stage,tensor`` or ``expert,tensor`` on a grid), each axis's size
+        (``shape``), process ids (this process first, then by global rank:
+        seq rank, stage or expert rank times tensor size plus tensor rank)
+        and devices; whether decode
         steps run as CUDA graphs; this process's kernel launches so far
         (rank 0's)."""
         ranks = getattr(self.runner, "ranks", None)
@@ -1734,6 +1774,7 @@ class LLMEngine:
                 "shape": ({} if ranks is None else
                           {a: g.size for a, g in (("stage", ranks.stage),
                                                   ("seq", ranks.seq),
+                                                  ("expert", ranks.expert),
                                                   ("tensor", ranks.tensor))
                            if g is not None}),
                 "pids": [os.getpid()],

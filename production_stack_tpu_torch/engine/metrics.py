@@ -205,7 +205,8 @@ def engine_families(s: dict, model_name: str) -> list[Family]:
                   "(all_reduce: float32 row-parallel partials and the "
                   "embedding; all_reduce_int32: int8 products' partials; "
                   "all_reduce_max: int8 activation scales; all_gather: "
-                  "vocab-sharded logits)", ["model_name", "op"])
+                  "vocab-sharded logits; moe_combine: MoE combine partials "
+                  "over the expert ranks)", ["model_name", "op"])
     for op, n in sorted((perf.get("collective_bytes") or {}).items()):
         coll.add([model_name, op], n)
     out.append(coll)

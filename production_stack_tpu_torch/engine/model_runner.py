@@ -95,6 +95,20 @@ which is all its queries need), so the ring rotates, gathers and writes
 only this rank's KV heads. Decode runs the tensor group's collectives:
 its graphs stay off, as at tensor parallelism alone.
 
+**Expert parallelism.** With ``ranks`` on the ``expert`` axis (alone, or
+the expert x tensor grid's ``AXIS_EP_GRID``) the runner holds its expert
+rank's share of every expert stack (``expert_of``; the router and
+everything outside the MoE block whole, or its tensor rank's cut on the
+grid) and passes the expert group to the model, which sums each MoE
+block's combine over it (models/llama.py ``_moe_mlp``). Activations, the
+KV pool and sampling are every rank's own, as at tensor size 1 (or as
+the tensor group's on the grid). Where the expert ranks sum a combine,
+decode runs that collective, so its graphs stay off; where the rules
+replicate the experts (a dense model, or ``X % N != 0``), the ranks run
+no collective at tensor size 1 and keep their graphs. The pool is sized
+from what the rank holds: its free memory after its share of the
+weights, less its steps' transients at its own expert count.
+
 ``install_compile_observer`` wraps the ragged and prefill steps and the
 decode step's program lookup (``decode_program``, which captures a new
 key's graph) in the perf accountant's ``CompileTracker``, keyed on what the
@@ -275,8 +289,9 @@ class ModelRunner:
         if ranks is not None:
             device = ranks.device
             ranks.shard = ranks.shard_of(self.cfg)
-            if ranks.tensor is not None:
-                ranks.tensor.shard = ranks.shard
+            for view in (ranks.tensor, ranks.expert):
+                if view is not None:
+                    view.shard = ranks.shard
             self.local = dataclasses.replace(
                 self.cfg,
                 num_heads=ranks.shard.local(ln.HEADS, self.cfg.num_heads),
@@ -319,10 +334,12 @@ class ModelRunner:
             # cut, quantized whole first: a row-parallel weight's scale is
             # the max over its whole contraction
             params = to_device(shard_params(maybe_quantize(
-                self.cfg, params), self.cfg, rank, tp), self.device)
+                self.cfg, params), self.cfg, rank, tp, self.expert_of()),
+                self.device)
         self.params = maybe_quantize(
             self.cfg, params if params is not None
-            else init_or_load(self.cfg, config.seed, self.device, rank, tp))
+            else init_or_load(self.cfg, config.seed, self.device, rank, tp,
+                              expert=self.expert_of()))
         mbs = -(-self.cfg.max_model_len // config.cache.block_size)
         # table width padded to a multiple of 8, as the reference pads it
         # for its kernels' DMA windows (tables are 0-padded past live blocks)
@@ -361,17 +378,17 @@ class ModelRunner:
         # a step's contexts reach at most max_model_len + multi_step - 1
         self.decode_rungs = plan_ladder(self.cfg.max_model_len
                                         + self.decode_steps - 1)
-        # seq ranks at tensor size 1 decode with no collective, so they
-        # keep their graphs
+        # seq ranks, and expert ranks that hold every expert, decode with
+        # no collective at tensor size 1, so they keep their graphs
+        collective = ranks is not None and (ranks.tensor_size > 1
+                                            or ranks.shard.experts)
         self.graphs: Optional[DecodeGraphs] = (
             DecodeGraphs() if self.device.type == "cuda"
-            and sched.decode_graphs
-            and (ranks is None or ranks.tensor_size == 1) else None)
-        if (ranks is not None and ranks.tensor_size > 1
-                and self.device.type == "cuda"):
-            _log.info("tensor parallel rank %d of %d: decode graphs off "
-                      "(collectives are not captured)", ranks.rank,
-                      ranks.size)
+            and sched.decode_graphs and not collective else None)
+        if collective and self.device.type == "cuda":
+            _log.info("tensor or expert parallel rank %d of %d: decode "
+                      "graphs off (collectives are not captured)",
+                      ranks.rank, ranks.size)
         self._graphed_kv: Optional[torch.Tensor] = None
         # keys whose graphs sleep dropped, captured again at wake
         self._held_keys: list = []
@@ -386,11 +403,35 @@ class ModelRunner:
             return (0, 1)
         return (self.ranks.tensor.rank, self.ranks.tensor_size)
 
+    def expert_of(self) -> tuple[int, int]:
+        """(expert rank, expert-parallel size) of this runner's share of
+        the experts; (0, 1) off the expert axis and its grid. The tensor
+        ranks of one expert rank hold the same experts."""
+        if self.ranks is None or self.ranks.expert is None:
+            return (0, 1)
+        return (self.ranks.expert.rank, self.ranks.expert_size)
+
     @property
     def group(self):
         """The group the model's collectives run over: the tensor group
-        (None on one device and on seq ranks at tensor size 1)."""
+        (None on one device and on seq and expert ranks at tensor size
+        1)."""
         return None if self.ranks is None else self.ranks.tensor
+
+    @property
+    def expert_group(self):
+        """The group a MoE block's combine is summed over: the expert
+        ranks of this tensor rank (None off the expert axis; the model
+        sums nothing where the rules replicate the experts)."""
+        return None if self.ranks is None else self.ranks.expert
+
+    @property
+    def local_experts(self) -> int:
+        """The experts this runner holds (0 on a dense model)."""
+        X = self.cfg.num_experts if self.model.is_moe(self.cfg) else 0
+        if self.ranks is None:
+            return X
+        return self.ranks.shard.local(ln.EXPERTS, X)
 
     @property
     def seq_parallel(self) -> bool:
@@ -503,8 +544,8 @@ class ModelRunner:
         E, F = c.hidden_size, c.intermediate_size
         rows = S * (8 * E * b + 4 * E * 4 + 2 * self.local.num_kv_heads
                     * c.head_dim * 4)
-        if c.architecture == "mixtral" and c.num_experts > 0:
-            k, X = c.num_experts_per_tok, c.num_experts
+        if self.local_experts:
+            k, X = c.num_experts_per_tok, self.local_experts
             mlp = (X * T * (2 * E + 3 * F) * b + T * k * E * 4)
         else:
             mlp = 4 * T * F * b
@@ -523,7 +564,8 @@ class ModelRunner:
         float32 activations, int32 accumulators and one dequantized weight
         tile, a MoE model's capacity buffers (up to 2 T k / X rows an
         expert, T the reference call's ``ref_tokens``, at most ``tokens``,
-        in and out, with their gate and up products)."""
+        in and out, with their gate and up products, over the experts
+        this rank holds)."""
         c = self.cfg
         hidden = tokens * c.hidden_size * 4
         mlp = tokens * c.intermediate_size * 2
@@ -535,10 +577,11 @@ class ModelRunner:
             # dequantized W8A16 tile
             extra += (tokens * wide * (4 + 1 + 4)
                       + DEQUANT_TILE_ELEMS * c.torch_dtype.itemsize)
-        if c.architecture == "mixtral" and c.num_experts > 0:
+        if self.local_experts:
             k, X = c.num_experts_per_tok, c.num_experts
             T = tokens if ref_tokens is None else ref_tokens
-            slots = X * min(max(int(2.0 * T * k / X), k), tokens)
+            slots = self.local_experts * min(max(int(2.0 * T * k / X), k),
+                                             tokens)
             # dispatched rows in and out (E), gate, up and their product
             # (F), in the model dtype, and the gathered (T, k, E) float32
             extra += (slots * (2 * c.hidden_size + 3 * c.intermediate_size)
@@ -645,8 +688,8 @@ class ModelRunner:
                 and len(set(self.ranks.devices)) < self.ranks.size):
             # each would size its pool from the same free memory
             raise ValueError(
-                "tensor- or sequence-parallel ranks that share a card must "
-                "be given num_blocks")
+                "tensor-, sequence- or expert-parallel ranks that share a "
+                "card must be given num_blocks")
         return max(self.pool_bytes() // self.block_bytes(), 16)
 
     def block_bytes(self) -> int:
@@ -721,7 +764,7 @@ class ModelRunner:
 
         hidden, self.kv = self.model.forward_tokens(
             self.cfg, self.params, tokens, positions, attend, self.kv, lora,
-            ref_tokens, group=self.group, seq=seq)
+            ref_tokens, group=self.group, seq=seq, expert=self.expert_group)
         return hidden
 
     # -- constrained-decoding grammar bank ---------------------------------
@@ -847,7 +890,7 @@ class ModelRunner:
             cfg, self.params, tokens, positions, attend, None,
             ref_tokens=ref_tokens,
             mlp_rows=self.config.scheduler.max_num_batched_tokens,
-            group=self.group)
+            group=self.group, expert=self.expert_group)
         return hidden
 
     @torch.inference_mode()
@@ -958,8 +1001,21 @@ class ModelRunner:
         if self.params is None:
             self.params = maybe_quantize(
                 self.cfg, init_or_load(self.cfg, self.config.seed,
-                                       self.device, *self.rank_of()))
+                                       self.device, *self.rank_of(),
+                                       expert=self.expert_of()))
         self._recapture()
+
+    def param_bytes(self) -> int:
+        """The bytes of the parameters this runner holds (its shard under
+        tensor or expert parallelism; int8 values and float32 scales each
+        at their own size; ``MirroredRunner.gather`` reads every
+        process's)."""
+        def size(tree) -> int:
+            return sum(size(v) if isinstance(v, dict)
+                       else v.numel() * v.element_size()
+                       for v in tree.values())
+
+        return size(self.params or {})
 
     @property
     def params_alive(self) -> bool:

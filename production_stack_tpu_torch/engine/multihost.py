@@ -1,4 +1,4 @@
-"""Tensor- and sequence-parallel ranks: the leader mirrors every
+"""Tensor-, sequence- and expert-parallel ranks: the leader mirrors every
 device-touching runner call to its followers, which replay it on their
 shard (under sequence parallelism, on their whole copy).
 
@@ -98,6 +98,20 @@ process by its tensor rank. An export joins the tensor shares of seq rank
 0's tensor group (``RankGroup.tensor``; the other followers take the call
 and move nothing); an import sends each process its tensor share over the
 device group of them all, every seq rank the same shares.
+
+**Expert parallelism** (``start_ranks(..., axis=AXIS_EXPERT)``): every
+rank holds its share of the experts and the rest of the model whole, and
+a whole pool, and replays every call; the MoE blocks sum their combine
+over the ranks inside each call. As on the seq axis, an adapter is sent
+whole to each rank, a KV export is rank 0's own blocks (no call is sent)
+and an import sends every follower the whole blocks. **The expert x
+tensor grid** (``axis=AXIS_EP_GRID, tensor=T``): N expert ranks of T
+tensor ranks, process ``g`` expert rank ``g // T`` and tensor rank ``g %
+T``, moves KV as the seq x tensor grid does: an export joins the tensor
+shares of expert rank 0's tensor group, an import sends each process its
+tensor share. Multi-host groups do not reach the expert axis (the
+reference's CLI has no flag for it), and a Whisper model raises at start
+(``refusal``).
 
 **The stage x tensor grid** (``start_ranks(..., axis=AXIS_PP_GRID,
 tensor=T)``): S stages of T tensor ranks, process ``g`` stage ``g // T``
@@ -802,10 +816,10 @@ def kernel_launches() -> dict:
 
 def place(ranks) -> dict:
     """A process's rank on each axis of its group: ``{"tensor": r}`` at
-    tensor parallelism, its seq rank or stage and its tensor rank on a
-    grid (none where ``ranks`` names no axis)."""
+    tensor parallelism, its seq rank, stage or expert rank and its tensor
+    rank on a grid (none where ``ranks`` names no axis)."""
     views = ((axis, getattr(ranks, axis, None))
-             for axis in ("stage", "seq", "tensor"))
+             for axis in ("stage", "seq", "expert", "tensor"))
     return {axis: view.rank for axis, view in views if view is not None}
 
 
@@ -957,8 +971,9 @@ class MirroredRunner:
 
     def _export(self, method: str, args: tuple) -> torch.Tensor:
         """The whole of a KV gather on rank 0's device: its own blocks on
-        seq ranks, which each hold them whole; its tensor group's shares
-        joined otherwise (on the grid, seq rank 0's)."""
+        seq and expert ranks at tensor size 1, which each hold them whole;
+        its tensor group's shares joined otherwise (on a grid, seq or
+        expert rank 0's)."""
         self._check_blocks(args[0])
         tp = self.ranks.tensor
         if tp is None:
@@ -1112,13 +1127,15 @@ class MirroredRunner:
 
     def report(self) -> dict:
         """This rank's place on each axis (``place``), agreement state,
-        live Whisper handles and kernel launches inside the ranks' calls
-        (``Launched``)."""
+        live Whisper handles, kernel launches inside the ranks' calls
+        (``Launched``) and its device group's bytes by op
+        (``RankGroup.wire``)."""
         return {"rank": 0, "place": place(self.ranks), "pid": os.getpid(),
                 "calls": self._digest.calls,
                 "digest": self._digest.hex(), "diverged_at": None,
                 "live": live_handles(self._inner),
-                "launches": self._launched.counts()}
+                "launches": self._launched.counts(),
+                "wire": dict(getattr(self.ranks, "wire", {}))}
 
     def follower_reports(self) -> list[dict]:
         """Every rank's report (``report``), rank 0's first. A follower's
@@ -1209,7 +1226,8 @@ class FollowerReplayer:
                 "calls": self.digest.calls, "digest": self.digest.hex(),
                 "diverged_at": self.diverged_at,
                 "live": live_handles(self.runner),
-                "launches": self.launched.counts()}
+                "launches": self.launched.counts(),
+                "wire": dict(getattr(self.runner.ranks, "wire", {}))}
 
 
 def check_share(runner, method: str, args: tuple, shape: tuple) -> None:
@@ -1275,10 +1293,10 @@ def _follow(runner, ranks, replayer, method: str, args: tuple,
         if part is not None:
             ranks.send_kv(part, 0, "kv_gather")
     elif method in KV_GATHERS:
-        # an export joins seq rank 0's tensor group: on the seq grid the
-        # other seq ranks move nothing
-        seq = ranks.seq
-        if seq is None or seq.rank == 0:
+        # an export joins seq (or expert) rank 0's tensor group: on its
+        # grid the other seq (or expert) ranks move nothing
+        outer = ranks.seq or ranks.expert
+        if outer is None or outer.rank == 0:
             ranks.tensor.gather_kv(getattr(runner, KV_GATHERS[method])(
                 *args))
     elif method in KV_SCATTERS:
@@ -1396,10 +1414,13 @@ def refusal(config, axis: str = AXIS_TENSOR) -> Optional[str]:
     the flag that asks for it; None when they carry all of it. Tensor
     parallelism carries every model and feature the port serves; the
     stage x tensor grid every text model and feature the staged runner
-    serves; sequence parallelism, alone or on the seq x tensor grid, every
-    text model and feature (MoE models, int8 weights, a disaggregated role
-    and the host and remote KV tiers included). Neither carries a Whisper
-    model: its runner has no ring and no staged form yet."""
+    serves; sequence parallelism, alone or on the seq x tensor grid, and
+    expert parallelism, alone or on the expert x tensor grid, every text
+    model and feature (MoE models, int8 weights, multi-LoRA, the prefix
+    cache, a disaggregated role and the host and remote KV tiers
+    included; a dense model at expert size N holds everything whole). None
+    of them carries a Whisper model: its runner has no ring, no staged
+    form and no experts to split."""
     if axis == AXIS_TENSOR:
         return None
     m = config.model
@@ -1412,17 +1433,18 @@ def start_ranks(config, params, num_blocks, device, size: int,
                 devices=None, backend: Optional[str] = None,
                 whisper: bool = False, axis: str = AXIS_TENSOR,
                 tensor: int = 1):
-    """Start ``size`` ranks of ``axis`` (tensor, seq, or a grid of
-    ``size`` processes at tensor size ``tensor``: ``AXIS_GRID``, seq x
-    tensor, or ``AXIS_PP_GRID``, stage x tensor) for an engine on
+    """Start ``size`` ranks of ``axis`` (tensor, seq, expert, or a grid
+    of ``size`` processes at tensor size ``tensor``: ``AXIS_GRID``, seq x
+    tensor, ``AXIS_PP_GRID``, stage x tensor, or ``AXIS_EP_GRID``, expert
+    x tensor) for an engine on
     ``device``:
     this process is rank 0, the others are spawned followers. ``devices``
     (one a rank; default ``cuda:r`` on a card, the CPU otherwise) and
     ``backend`` (default ``nccl`` on a card, ``gloo`` on the CPU) are the
     caller's to choose; a rank whose card does not exist raises before any
     process starts. ``params`` is None (seeded or loaded on each rank) or
-    the whole parameter dict, which every rank cuts by its tensor rank (on
-    the seq axis, keeps whole). What the axis does not carry
+    the whole parameter dict, which every rank cuts by its tensor rank and
+    its expert rank (on the seq axis, keeps whole). What the axis does not carry
     (``refusal``) raises before any process starts. ``whisper`` says the
     caller is a ``WhisperRunner``; a Whisper model for the text engine, or
     the reverse, raises before any process starts. Returns rank 0's
@@ -1512,6 +1534,12 @@ def check_group(config, dcfg, axis: str, tensor: int) -> None:
                          "serving is single-controller): scale it with "
                          "--tensor-parallel-size within one process tree "
                          "or add replicas")
+    if mesh.expert > 1:
+        raise ValueError(
+            f"multi-host serving does not reach the expert axis (expert "
+            f"size {mesh.expert}): the reference's CLI has no flag for "
+            "it; start expert ranks through EngineConfig.mesh in one "
+            "process tree")
     want = mesh.seq * tensor
     if dcfg.num_processes != want:
         raise ValueError(

@@ -23,11 +23,16 @@ A copy of production_stack_tpu/engine/perf_accounting.py for one card:
   ``wire``, so a ring prefill is billed its tensor group's collectives
   as any prefill at that tensor size, and its ring ops stay unbilled; on
   the stage x tensor grid rank 0 counts its stage's tensor collectives
-  (stage 0's), and the stage relay (``STAGE_OPS``) stays unbilled. The
+  (stage 0's), and the stage relay (``STAGE_OPS``) stays unbilled; under
+  expert parallelism a MoE layer's combine over the expert ranks counts
+  under ``moe_combine`` (2 (N - 1) / N of its ``T E`` float32 partial a
+  card, billed to its dispatch like the tensor all-reduces). The
   reference's formulas count a bf16 all-reduce of the hidden
   state twice a layer, half of what the port's float32 partials put on
   the wire, and none of its embedding's all-reduce. Zero at tp = 1.
-  FLOPs and weight bytes count the whole model, not a rank's shard. The
+  FLOPs and weight bytes count the whole model, not a rank's shard; the
+  bytes rank 0's runner holds, its shard with its experts cut, stand
+  beside them (``held_param_bytes``). The
   peaks default to the H100 SXM data sheet (``config.H100_PEAK_*``).
 * ``CompileTracker`` — wraps each of the runner's three step programs. A
   never-seen signature is the work a new CUDA graph capture would do, so
@@ -242,6 +247,9 @@ class PerfAccountant:
             param_count if active_param_count is None
             else active_param_count), 1)
         self.param_bytes = max(int(param_bytes), 1)
+        # the weight bytes rank 0's runner holds (its tensor shard and its
+        # share of the experts; the whole model on one device)
+        self.held_param_bytes = self.param_bytes
         self.hbm_poll_interval = hbm_poll_interval
         # the card whose memory counters feed the HBM gauges; None or a
         # CPU device leaves them at 0
@@ -360,6 +368,9 @@ class PerfAccountant:
         ranks = getattr(runner, "ranks", None)
         if ranks is not None:
             acct.wire = ranks.wire
+            held = getattr(runner, "params", None)
+            if held:
+                acct.held_param_bytes = param_counts(held, config.model)[2]
         return acct
 
     def _take_wire(self) -> Dict[str, float]:
@@ -882,7 +893,8 @@ class PerfAccountant:
                           "ici_bytes_per_s": self.peak_ici},
                 "model": {"param_count": self.param_count,
                           "active_param_count": self.active_param_count,
-                          "param_bytes": self.param_bytes},
+                          "param_bytes": self.param_bytes,
+                          "held_param_bytes": self.held_param_bytes},
                 "model_flops_utilization": rates["mfu"],
                 "hbm_bandwidth_utilization": rates["hbm_bw_util"],
                 "ici_bandwidth_utilization": rates["ici_bw_util"],

@@ -662,12 +662,7 @@ class StageRankRunner(_Staged):
     def param_bytes(self) -> int:
         """This process's parameter bytes: its stage's layers at its
         tensor shard (``MirroredRunner.gather`` reads every process's)."""
-        def size(tree) -> int:
-            return sum(size(v) if isinstance(v, dict)
-                       else v.numel() * v.element_size()
-                       for v in tree.values())
-
-        return size(self.runner.params)
+        return self.runner.param_bytes()
 
     @property
     def params(self):

@@ -145,7 +145,9 @@ def quantize_rows(x: torch.Tensor, group=None
     """Per-token int8 of ``x (M, K)``: (xq (M, K) int8, sx (M,) float32),
     the reference's activation arithmetic (absmax / 127, floored at
     ``_EPS``). With a ``group`` whose ranks each hold a slice of K, the
-    absmax is the max over the ranks (module docstring)."""
+    absmax is the max over the ranks (module docstring): the tensor
+    group, never the expert ranks, which each hold whole rows of their
+    own experts' slots."""
     with profile_range("quant.activations"):
         xf = x.float()
         amax = torch.linalg.vector_norm(xf, ord=float("inf"), dim=-1)
@@ -347,10 +349,12 @@ def row_parallel_matmul(x: torch.Tensor, w: Any, n_contract: int,
 
 def _expert_sum(group, part: torch.Tensor,
                 rows: torch.Tensor) -> torch.Tensor:
-    """``part (X, C, N)`` (float32 or int32) summed over ``group``'s
-    ranks, sending only ``rows`` (indices into the X C rows): the others
-    are zero on every rank (unoccupied capacity rows, whose dispatched
-    input is zero), so the sum is the whole one's."""
+    """``part (X, C, N)`` (float32 or int32; X this rank's experts, all
+    of them or an expert rank's share) summed over ``group``'s ranks,
+    sending only ``rows`` (indices into the X C rows): the others are
+    zero on every rank (unoccupied capacity rows, whose dispatched input
+    is zero), so the sum is the whole one's. ``group`` is the tensor
+    group, whose ranks hold the same experts."""
     reduce = (group.all_reduce_int32 if part.dtype == torch.int32
               else group.all_reduce)
     flat = part.flatten(0, 1)
@@ -366,7 +370,8 @@ def expert_matmul(xb: torch.Tensor, w: Any, out_dtype, *,
                   ) -> torch.Tensor:
     """The batched MoE forms "xce,xef->xcf" and "xcf,xfe->xce": ``xb (X,
     C, K)`` against the expert stack ``w (X, K, N)``, one expert at a
-    time. A plain stack is a batched product. A quantized stack runs
+    time, X being the experts this rank holds (an expert rank's share
+    under expert parallelism). A plain stack is a batched product. A quantized stack runs
     W8A16 when ``xb`` is in the model dtype (one expert's tiles
     dequantized at a time), and W8A8 when ``xb`` is int8 with its per-row
     scales ``sx (X, C)`` (the rows were quantized once, before dispatch:

@@ -33,6 +33,14 @@ slice above its shard (one layer, or the embedding). On the seq x tensor
 grid ``rank`` is the process's tensor rank: the seq ranks of one tensor
 rank make, load or cut the same shard.
 
+Under expert parallelism each entry point also takes ``expert=(e, N)``:
+expert rank e keeps experts ``[e X/N, (e+1) X/N)`` of every expert stack
+(``Shard.of``; the router stays whole, ``shardings.held_specs``). Seeded
+init still draws every expert's slice in order and keeps its own, so a
+rank's stacks are bit for bit the slice of expert 1's, quantized or not
+(each expert is quantized on its own); the loader reads only its
+experts' tensors.
+
 Under pipeline parallelism each entry point takes ``stage=(s, S)`` and
 returns stage s's share (``stage_layers``, ``stage_keeps``): the layers
 ``[s L/S, (s+1) L/S)``, the embedding at stage 0, the final norm and the
@@ -56,6 +64,7 @@ from __future__ import annotations
 import glob
 import itertools
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -64,7 +73,7 @@ from production_stack_tpu_torch.engine import quant
 from production_stack_tpu_torch.engine.config import ModelConfig
 from production_stack_tpu_torch.engine.lora import SafetensorsFile
 from production_stack_tpu_torch.models.registry import get_model
-from production_stack_tpu_torch.parallel.shardings import Shard
+from production_stack_tpu_torch.parallel.shardings import Shard, held_specs
 
 # fan-in of each weight: the number of inputs one output sums over
 _FAN_IN = {
@@ -120,11 +129,29 @@ def _slices(name: str, shape: tuple, layer: bool) -> list:
     return list(itertools.product(*(range(d) for d in lead)))
 
 
-def _shard(cfg: ModelConfig, rank: int, tp: int):
-    """Rank's Shard and the model's logical axes (None, None at tp 1)."""
-    if tp == 1:
+def _shard(cfg: ModelConfig, rank: int, tp: int, expert: tuple = (0, 1)):
+    """Rank's Shard and the logical axes it holds the model's leaves by
+    (``held_specs``); None, None at tp 1 and expert 1."""
+    if tp == 1 and expert[1] == 1:
         return None, None
-    return Shard.of(cfg, rank, tp), get_model(cfg).param_specs(cfg)
+    return (Shard.of(cfg, rank, tp, expert),
+            held_specs(get_model(cfg).param_specs(cfg)))
+
+
+def _held_index(shard, spec, idx: tuple) -> Optional[tuple]:
+    """Slice ``idx`` (leading indices of a leaf of logical axes ``spec``)
+    in the rank's leaf: each index on a cut axis moved to the rank's
+    range, None where the rank does not hold the slice (another expert
+    rank's expert)."""
+    if shard is None:
+        return idx
+    out = []
+    for i, a in zip(idx, spec):
+        lo, hi = shard.cuts.get(a, (0, i + 1))
+        if not lo <= i < hi:
+            return None
+        out.append(i - lo)
+    return tuple(out)
 
 
 def _cutter(shard, spec, skip: int = 0):
@@ -193,17 +220,19 @@ def _check_stage(cfg: ModelConfig, stage: tuple) -> None:
 
 def init_random(cfg: ModelConfig, seed: int = 0,
                 device: torch.device | str = "cpu", rank: int = 0,
-                tp: int = 1, stage: tuple = (0, 1)) -> dict:
+                tp: int = 1, stage: tuple = (0, 1),
+                expert: tuple = (0, 1)) -> dict:
     """Random parameters, made on ``device`` from ``seed``, quantized
     slice by slice when ``cfg.quant`` is set; rank's shard of them at
-    ``tp`` > 1 (each slice made whole, as at tp 1, and cut); ``stage``'s
-    share of them (every slice drawn, the stage's kept)."""
+    ``tp`` > 1 (each slice made whole, as at tp 1, and cut) and expert
+    rank ``expert``'s experts (every expert drawn, its own kept);
+    ``stage``'s share of them (every slice drawn, the stage's kept)."""
     _check_stage(cfg, stage)
     if cfg.architecture == "whisper":
         # the whole tree from one stream, then rank's cut of it
         return shard_params(get_model(cfg).init_params(cfg, seed, device),
-                            cfg, rank, tp)
-    shard, specs = _shard(cfg, rank, tp)
+                            cfg, rank, tp, expert)
+    shard, specs = _shard(cfg, rank, tp, expert)
     shapes = get_model(cfg).param_shapes(cfg)
     dt = cfg.torch_dtype
     gen = torch.Generator(device=device)
@@ -235,7 +264,9 @@ def init_random(cfg: ModelConfig, seed: int = 0,
                 continue
             if layer:
                 idx = (idx[0] - kept.start, *idx[1:])
-            leaf.put(idx, t, _cutter(shard, spec, len(idx)))
+            held = _held_index(shard, spec, idx)
+            if held is not None:
+                leaf.put(held, t, _cutter(shard, spec, len(idx)))
         return None if leaf is None else leaf.value
 
     lspecs = specs and specs["layers"]
@@ -256,16 +287,18 @@ def to_device(params: dict, device) -> dict:
 
 def params_from_jax(np_tree: dict, cfg: ModelConfig,
                     device: torch.device | str = "cpu", rank: int = 0,
-                    tp: int = 1, stage: tuple = (0, 1)) -> dict:
+                    tp: int = 1, stage: tuple = (0, 1),
+                    expert: tuple = (0, 1)) -> dict:
     """The JAX package's parameter tree, as numpy arrays, to this
     package's parameter dict (same names and shapes), so both compute the
-    same function; rank's shard of it at ``tp`` > 1, ``stage``'s share of
-    it under pipeline parallelism. Quantized leaves ``{"q": int8, "s":
+    same function; rank's shard of it at ``tp`` > 1 and expert rank
+    ``expert``'s experts, ``stage``'s share of it under pipeline
+    parallelism. Quantized leaves ``{"q": int8, "s":
     float32}`` (the JAX engine's int8 tree) keep their dtypes and are cut
     as ``Shard.cut_leaf`` cuts them; Whisper's conv weights are transposed
     to ``(out, in, k)``."""
     _check_stage(cfg, stage)
-    shard, specs = _shard(cfg, rank, tp)
+    shard, specs = _shard(cfg, rank, tp, expert)
     if stage != (0, 1):
         np_tree = stage_params(np_tree, cfg, stage)
 
@@ -318,12 +351,14 @@ def _shapes(cfg: ModelConfig, stage: tuple) -> dict:
 
 def init_or_load(cfg: ModelConfig, seed: int = 0,
                  device: torch.device | str = "cpu", rank: int = 0,
-                 tp: int = 1, stage: tuple = (0, 1)) -> dict:
+                 tp: int = 1, stage: tuple = (0, 1),
+                 expert: tuple = (0, 1)) -> dict:
     """``cfg.weights_path``'s safetensors checkpoint, or random
-    parameters from ``seed`` without one; rank's shard at ``tp`` > 1,
-    ``stage``'s share under pipeline parallelism."""
+    parameters from ``seed`` without one; rank's shard at ``tp`` > 1 and
+    expert rank ``expert``'s experts, ``stage``'s share under pipeline
+    parallelism."""
     if not cfg.weights_path:
-        return init_random(cfg, seed, device, rank, tp, stage)
+        return init_random(cfg, seed, device, rank, tp, stage, expert)
     path = cfg.weights_path
     if path.startswith("gs://") or os.path.isfile(
             os.path.join(path, "_CHECKPOINT_METADATA")):
@@ -331,7 +366,7 @@ def init_or_load(cfg: ModelConfig, seed: int = 0,
                          "(ROADMAP.md); convert to safetensors")
     if not glob.glob(os.path.join(path, "*.safetensors")):
         raise ValueError(f"{path}: no *.safetensors files to load")
-    return load_safetensors(cfg, device, rank, tp, stage)
+    return load_safetensors(cfg, device, rank, tp, stage, expert)
 
 
 # --- HF checkpoint mapping (a copy of the reference's) ----------------------
@@ -425,13 +460,15 @@ def _convert(name_rule: str, w: np.ndarray, cfg: ModelConfig) -> np.ndarray:
 
 def load_safetensors(cfg: ModelConfig,
                      device: torch.device | str = "cpu", rank: int = 0,
-                     tp: int = 1, stage: tuple = (0, 1)) -> dict:
+                     tp: int = 1, stage: tuple = (0, 1),
+                     expert: tuple = (0, 1)) -> dict:
     """``cfg.weights_path``'s ``*.safetensors`` files to this package's
     parameter dict on ``device``: each tensor is read, converted, moved to
     the device and (with ``cfg.quant``) quantized on its own, into stacks
     allocated up front; at ``tp`` > 1 each converted tensor is cut to
     rank's shard before it moves; under pipeline parallelism only
-    ``stage``'s tensors are read. A tensor the model needs and the
+    ``stage``'s tensors are read, and under expert parallelism only
+    expert rank ``expert``'s experts' tensors. A tensor the model needs and the
     checkpoint lacks raises ``KeyError`` naming it."""
     _check_stage(cfg, stage)
     files = [SafetensorsFile(f) for f in sorted(
@@ -446,7 +483,7 @@ def load_safetensors(cfg: ModelConfig,
 
     shapes = get_model(cfg).param_shapes(cfg)
     dt = cfg.torch_dtype
-    shard, specs = _shard(cfg, rank, tp)
+    shard, specs = _shard(cfg, rank, tp, expert)
 
     def dev(arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(
@@ -454,7 +491,7 @@ def load_safetensors(cfg: ModelConfig,
 
     if cfg.architecture == "whisper":
         return shard_params(_load_whisper(cfg, shapes, get, dev, device),
-                            cfg, rank, tp)
+                            cfg, rank, tp, expert)
     axes = _quant_axes(cfg)
 
     def whole(name: str, arr: np.ndarray):
@@ -481,15 +518,20 @@ def load_safetensors(cfg: ModelConfig,
               for name, shape in shapes["layers"].items()}
     for i in kept:
         for hf_name, targets in _hf_key_map(cfg, i).items():
-            src = get(hf_name)
+            src = None
             for ours, rule in (targets if isinstance(targets, list)
                                else [targets]):
-                base, _, expert = ours.partition(".")
+                base, _, x = ours.partition(".")
                 j = i - kept.start
-                idx = (j, int(expert)) if expert else (j,)
-                layers[base].put(idx, dev(_convert(rule, src, cfg)),
-                                 _cutter(shard, lspecs and lspecs[base],
-                                         len(idx)))
+                idx = (j, int(x)) if x else (j,)
+                spec = lspecs and lspecs[base]
+                held = _held_index(shard, spec, idx)
+                if held is None:  # another expert rank's expert
+                    continue
+                if src is None:
+                    src = get(hf_name)
+                layers[base].put(held, dev(_convert(rule, src, cfg)),
+                                 _cutter(shard, spec, len(idx)))
     params["layers"] = {name: leaf.value for name, leaf in layers.items()}
     return params
 
@@ -577,14 +619,16 @@ def _load_whisper(cfg: ModelConfig, shapes: dict, get, dev, device) -> dict:
     }
 
 
-def shard_params(params: dict, cfg: ModelConfig, rank: int, tp: int) -> dict:
-    """Rank's shard of a whole parameter dict, as copies (the whole dict
-    can go once every rank has cut its own): contiguous, or an int8 q laid
-    out as ``quant.empty_q`` lays it out; the dict itself at tp 1. A
+def shard_params(params: dict, cfg: ModelConfig, rank: int, tp: int,
+                 expert: tuple = (0, 1)) -> dict:
+    """Rank's shard of a whole parameter dict (tensor rank ``rank`` of
+    ``tp``, expert rank ``expert``), as copies (the whole dict can go once
+    every rank has cut its own): contiguous, or an int8 q laid out as
+    ``quant.empty_q`` lays it out; the dict itself at tp 1 and expert 1. A
     quantized dict is cut as it is (``Shard.cut_leaf``), so quantize the
     whole dict first: a rank's part of a row-parallel weight lacks the
     rest of its scale's max."""
-    shard, specs = _shard(cfg, rank, tp)
+    shard, specs = _shard(cfg, rank, tp, expert)
     if shard is None:
         return params
 

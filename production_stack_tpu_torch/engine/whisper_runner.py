@@ -145,6 +145,11 @@ class WhisperRunner:
             raise ValueError(
                 f"{cfg.name}: Whisper under pipeline parallelism is not "
                 f"ported yet (stage {config.mesh.stage})")
+        if config.mesh.expert > 1:
+            raise ValueError(
+                f"{cfg.name}: Whisper under expert parallelism is not "
+                f"ported (expert {config.mesh.expert}): it has no experts "
+                "to split")
         self.cfg = cfg
         # the mirrored rank 0 runner where this one started the ranks
         self._mirror = None

@@ -55,6 +55,14 @@ hold, zeros elsewhere, all-reduce); the logits' vocab shards are
 all-gathered in rank order. An axis the rules replicate needs no
 collective. Every rank then holds the same hidden states and the same
 full logits.
+
+**Expert parallelism.** With an ``expert`` group whose shard cuts the
+experts (``Shard.experts``), this rank holds the stacks of experts
+``[lo, hi)`` of X and runs only their slots; activations stay whole on
+every rank, as under the reference's GSPMD, so no all-to-all moves them,
+and the MoE block's float32 combine partials are summed over the expert
+ranks (``_moe_mlp``). Everything outside the MoE block is the tensor
+axis's, or whole.
 """
 
 from __future__ import annotations
@@ -185,14 +193,15 @@ def _lora_delta(x: torch.Tensor, onehot: torch.Tensor, A: torch.Tensor,
 
 def _mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor, lb=None,
          onehot=None, tokens: Optional[int] = None,
-         group=None, seq=None) -> torch.Tensor:
+         group=None, seq=None, expert=None) -> torch.Tensor:
     """The MLP block; its down-projection summed over the ranks of a
     ``group`` that shards the intermediate axis (``_row_parallel``).
     ``seq``: the seq group a ring prefill's tokens are split over (a MoE
-    block ranks its slots across it, ``_moe_mlp``)."""
+    block ranks its slots across it, ``_moe_mlp``); ``expert``: the
+    expert group a MoE block's combine is summed over."""
     if is_moe(cfg):
         # LoRA MLP targets are ignored on a MoE model, as in the reference
-        return _moe_mlp(cfg, lp, x, tokens, group, seq)
+        return _moe_mlp(cfg, lp, x, tokens, group, seq, expert)
     x8 = quant.shared_rows(x, lp["w_gate"], tokens=tokens)
     gate = quant.quant_matmul(x, lp["w_gate"], tokens=tokens, x8=x8)
     up = quant.quant_matmul(x, lp["w_up"], tokens=tokens, x8=x8)
@@ -212,7 +221,7 @@ def _mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor, lb=None,
 
 def _mlp_chunked(cfg: ModelConfig, lp: dict, x: torch.Tensor,
                  tokens: Optional[int], rows: int,
-                 group=None) -> torch.Tensor:
+                 group=None, expert=None) -> torch.Tensor:
     """The MLP of ``x (..., T, E)`` a chunk of ``rows`` rows at a time.
     A dense MLP is row by row, so this is ``_mlp``'s value. A MoE block
     takes its capacity from ``tokens``, the reference's whole call, and
@@ -220,11 +229,11 @@ def _mlp_chunked(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     reference's call drops one too."""
     flat = x.reshape(-1, x.shape[-1])
     if flat.shape[0] <= rows:
-        return _mlp(cfg, lp, x, tokens=tokens, group=group)
+        return _mlp(cfg, lp, x, tokens=tokens, group=group, expert=expert)
     out = torch.empty_like(flat)
     for r0 in range(0, flat.shape[0], rows):
         out[r0:r0 + rows] = _mlp(cfg, lp, flat[r0:r0 + rows], tokens=tokens,
-                                 group=group)
+                                 group=group, expert=expert)
     return out.view(x.shape)
 
 
@@ -237,7 +246,7 @@ def top_k_lower_first(logits: torch.Tensor, k: int):
 
 def _moe_mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor,
              tokens: Optional[int] = None, group=None,
-             seq=None) -> torch.Tensor:
+             seq=None, expert=None) -> torch.Tensor:
     """Mixtral's sparse MoE block: the reference's capacity-based top-k
     dispatch (models/llama.py ``_moe_mlp``) without its (T, X, C) one-hot
     products.
@@ -280,7 +289,25 @@ def _moe_mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     within a tensor group, so on the seq x tensor grid each tensor rank of
     a seq rank sends and gets the same counts. The prompt's pad tokens
     follow its real ones, in the last ranks' slices, and never displace a
-    real slot."""
+    real slot.
+
+    Under an ``expert`` group whose shard cuts the experts, this rank
+    holds experts ``[lo, hi)`` (``Xl`` of them) and every rank routes
+    every token with the whole router, so all keep and drop the same
+    slots: positions and the capacity are over the global X, as the
+    reference's (its ``C`` keeps the global X). Only this rank's experts'
+    slots are dispatched, into an ``(Xl, C_buf, E)`` buffer; the others
+    go to the sink row. Each rank forms its float32 combine partial
+    ``(T, E)``, its slots' rows times their weights with the other
+    ranks' slots zero, and the partials are summed over the expert group
+    (``RankGroup.moe_combine``) and rounded once to the model dtype. At
+    k = 2 one device adds a token's two weighted rows in float32; a
+    rank's partial holds at most those terms and zeros, and adding zero
+    is exact, so the sum is one device's bit for bit wherever the
+    per-expert products are (the int8 routes run one expert at a time).
+    On the expert x tensor grid the down-projection's F partials are
+    summed over the tensor group first (``quant.expert_matmul``, this
+    rank's kept rows), then the combine partial over the expert group."""
     shape = x.shape
     E = shape[-1]
     dt = x.dtype
@@ -290,6 +317,8 @@ def _moe_mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     X, k = cfg.num_experts, cfg.num_experts_per_tok
     w8a8 = quant.is_quantized(lp["w_gate"]) and not quant.a16(T_ref)
     down_group = group if _sharded(group, ln.MLP) else None
+    combine = expert if expert is not None and expert.shard.experts else None
+    lo, hi = (0, X) if combine is None else combine.shard.cuts[ln.EXPERTS]
     with quant.profile_range("moe.dispatch"):
         logits = (xt @ lp["router"]).float()
         top_vals, top_idx = top_k_lower_first(logits, k)  # (T, k)
@@ -308,8 +337,11 @@ def _moe_mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor,
             # the slots ranks 0..r-1 routed to each expert come first
             counts = seq.moe_counts(onehot.sum(1, dtype=torch.int32))
             whole_pos = pos + counts[:seq.rank].sum(0)[choice]
-        sink = X * c_buf
-        dest = torch.where(whole_pos < capacity, choice * c_buf + pos,
+        sink = (hi - lo) * c_buf
+        kept = whole_pos < capacity
+        if combine is not None:  # only this rank's experts' slots
+            kept &= (choice >= lo) & (choice < hi)
+        dest = torch.where(kept, (choice - lo) * c_buf + pos,
                            torch.full_like(pos, sink))
         src = torch.arange(T, device=x.device).repeat_interleave(k)
 
@@ -317,10 +349,10 @@ def _moe_mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor,
         with quant.profile_range("moe.dispatch"):
             buf = rows.new_zeros((sink + 1,) + rows.shape[1:])
             buf[dest] = rows[src]
-            return buf[:sink].unflatten(0, (X, c_buf))
+            return buf[:sink].unflatten(0, (hi - lo, c_buf))
 
     def experts(h: torch.Tensor, w, group=None) -> torch.Tensor:
-        """h (X, C_buf, in) in the model dtype through one stack; with a
+        """h (Xl, C_buf, in) in the model dtype through one stack; with a
         ``group``, ``in`` is cut over its ranks and the kept slots' rows
         are summed (the others are zero)."""
         rows = None if group is None else dest[dest < sink]
@@ -341,12 +373,14 @@ def _moe_mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor,
         gate = quant.expert_matmul(xb, lp["w_gate"], dt)
         up = quant.expert_matmul(xb, lp["w_up"], dt)
     down = experts(F.silu(gate) * up, lp["w_down"],
-                   down_group)  # (X, C_buf, E)
+                   down_group)  # (Xl, C_buf, E)
     with quant.profile_range("moe.combine"):
         rows = torch.cat([down.flatten(0, 1), down.new_zeros(1, E)])[dest]
         comb = weights.to(dt).float()[..., None]  # rounded to the model dtype
-        out = (rows.view(T, k, E).float() * comb).sum(1).to(dt)
-    return out.reshape(shape)
+        out = (rows.view(T, k, E).float() * comb).sum(1)
+        if combine is not None:
+            out = combine.moe_combine(out)
+    return out.to(dt).reshape(shape)
 
 
 def embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
@@ -387,6 +421,7 @@ def forward_hidden(
     mlp_rows: Optional[int] = None,
     group=None,
     seq=None,
+    expert=None,
 ) -> Tuple[torch.Tensor, Any]:
     """Run the decoder stack from embedded activations.
 
@@ -401,7 +436,8 @@ def forward_hidden(
     forward's memory bound; None: all rows at once). ``group``: this
     rank's tensor-parallel group (module docstring), None on one device.
     ``seq``: in a ring prefill, the seq group ``x``'s tokens are this
-    rank's slice over (``_moe_mlp``), None elsewhere.
+    rank's slice over (``_moe_mlp``), None elsewhere. ``expert``: this
+    rank's expert group (module docstring), None without one.
     Returns (hidden (..., T, E), kv_pool)."""
     layers = params["layers"]
     onehot = None if lora is None else lora["onehot"]
@@ -451,10 +487,10 @@ def forward_hidden(
         mlp_in = rms_norm(h, lp["mlp_norm"], eps, off)
         if mlp_rows is None or lb is not None:
             mlp_out = _mlp(cfg, lp, mlp_in, lb, onehot, ref_tokens, group,
-                           seq)
+                           seq, expert)
         else:
             mlp_out = _mlp_chunked(cfg, lp, mlp_in, ref_tokens, mlp_rows,
-                                   group)
+                                   group, expert)
         if cfg.post_norms:
             mlp_out = rms_norm(mlp_out, lp["post_mlp_norm"], eps, off)
         h = h + mlp_out
@@ -473,11 +509,12 @@ def forward_tokens(
     mlp_rows: Optional[int] = None,
     group=None,
     seq=None,
+    expert=None,
 ) -> Tuple[torch.Tensor, Any]:
     """Embed tokens, then run the decoder stack (see forward_hidden)."""
     x = embed_tokens(cfg, params, tokens, group)
     return forward_hidden(cfg, params, x, positions, attend, kv_pool, lora,
-                          ref_tokens, mlp_rows, group, seq)
+                          ref_tokens, mlp_rows, group, seq, expert)
 
 
 def logits_from_hidden(cfg: ModelConfig, params: dict,

@@ -1,6 +1,6 @@
-"""Rank start-up for tensor and sequence parallelism and for the grids
-that join an outer axis to tensor parallelism: one process a rank under
-torch.distributed, with two process groups.
+"""Rank start-up for tensor, sequence and expert parallelism and for the
+grids that join an outer axis to tensor parallelism: one process a rank
+under torch.distributed, with two process groups.
 
 - The **device group** carries the model's collectives (the float32
   all-reduces of the row-parallel products and of the vocab-parallel
@@ -13,26 +13,34 @@ torch.distributed, with two process groups.
   ``seq`` ranks (``axis``) cuts no weights and runs none of those: its
   device group carries only the ring prefill's exchange (``ring_*``;
   parallel/ring_attention.py). A ``stage`` view (the pipeline x tensor
-  grid) carries only the stage relay.
+  grid) carries only the stage relay. A group of ``expert`` ranks (alone
+  or as the expert view of the expert x tensor grid) carries only the
+  MoE block's combine (``moe_combine``), where the rules cut the experts
+  over it.
 - The **control group** is ``gloo`` on the CPU and carries the leader's
   step inputs to the followers (engine/multihost.py) and the few integers
   the ranks must agree on, such as the KV pool's block count.
 
 **The grids** (``GRID_OUTER``): an outer axis and tensor parallelism at
 once. ``AXIS_GRID`` is sequence and tensor parallelism, ``AXIS_PP_GRID``
-pipeline and tensor parallelism. ``N * T`` processes, process ``g = s *
-T + t`` rank ``s`` of the outer axis (seq rank or stage) and tensor rank
-``t``, tensor innermost as in the reference's device order
-(``("data", "stage", "seq", "tensor", "expert")``), so under NCCL a
-tensor group's ranks sit on neighbouring cards. The process's
+pipeline and tensor parallelism, ``AXIS_EP_GRID`` expert and tensor
+parallelism. ``N * T`` processes, process ``g = s * T + t`` rank ``s`` of
+the outer axis (seq rank, stage or expert rank) and tensor rank ``t``,
+tensor innermost as in the reference's device order (``("data", "stage",
+"seq", "tensor", "expert")``) for seq and stage, so under NCCL a tensor
+group's ranks sit on neighbouring cards. The reference puts ``expert``
+innermost; the port keeps tensor innermost on every grid, so that the
+tensor group, whose collectives run in every layer, has the neighbouring
+cards, and the expert group's one combine a MoE layer crosses farther. The process's
 ``RankGroup`` spans all of them: its device group is torch.distributed's
 default group, its control group the same processes, and its shard the
 tensor rank's (``shard_of``). It holds two views of its own place,
 ``RankGroup``s with a device group each: ``tensor`` (the T processes of
-its seq rank or stage: the model's collectives and the KV shares of an
-export) and the outer axis's, over the N processes of its tensor rank:
-``seq`` (the ring) or ``stage`` (the stage relay: ``relay_send``,
-``relay_recv``, ``from_last``). Every process creates the subgroups in
+its seq rank, stage or expert rank: the model's collectives and the KV
+shares of an export) and the outer axis's, over the N processes of its
+tensor rank: ``seq`` (the ring), ``stage`` (the stage relay:
+``relay_send``, ``relay_recv``, ``from_last``) or ``expert`` (the MoE
+combine). Every process creates the subgroups in
 the same order. The views add their bytes to the process's ``wire``. On
 one axis a group is its own view of that axis.
 
@@ -74,6 +82,7 @@ import torch
 import torch.distributed as dist
 
 from production_stack_tpu_torch.parallel.mesh import (
+    AXIS_EXPERT,
     AXIS_SEQ,
     AXIS_STAGE,
     AXIS_TENSOR,
@@ -101,16 +110,21 @@ RING_OPS = ("ring_rotate", "ring_gather", "ring_last", "ring_moe_counts")
 # sent to the next stage, the last stage's results (sampled tokens, scores)
 # sent to the others. The perf accountant bills them to no dispatch
 STAGE_OPS = ("stage_relay", "stage_last")
-# the grids' processes (module docstring): seq x tensor, stage x tensor
+# the grids' processes (module docstring): seq x tensor, stage x tensor,
+# expert x tensor
 AXIS_GRID = "seq,tensor"
 AXIS_PP_GRID = "stage,tensor"
+AXIS_EP_GRID = "expert,tensor"
 # each grid's outer axis
-GRID_OUTER = {AXIS_GRID: AXIS_SEQ, AXIS_PP_GRID: AXIS_STAGE}
+GRID_OUTER = {AXIS_GRID: AXIS_SEQ, AXIS_PP_GRID: AXIS_STAGE,
+              AXIS_EP_GRID: AXIS_EXPERT}
 # a group's axis as its messages name it
 PARALLELISM = {AXIS_TENSOR: "tensor parallelism",
                AXIS_SEQ: "sequence parallelism",
+               AXIS_EXPERT: "expert parallelism",
                AXIS_GRID: "sequence and tensor parallelism",
-               AXIS_PP_GRID: "pipeline and tensor parallelism"}
+               AXIS_PP_GRID: "pipeline and tensor parallelism",
+               AXIS_EP_GRID: "expert and tensor parallelism"}
 
 
 @dataclasses.dataclass
@@ -231,11 +245,14 @@ def check_devices(devices: Sequence[str],
                 f"{r} on {d}, but this machine has {n} CUDA card(s)")
 
 
-def axis_of(seq: int, tensor: int, stage: int = 1) -> str:
-    """The axis of a group of ``seq`` seq ranks (or ``stage`` stages) of
-    ``tensor`` tensor ranks each: a grid where both are above 1."""
+def axis_of(seq: int, tensor: int, stage: int = 1, expert: int = 1) -> str:
+    """The axis of a group of ``seq`` seq ranks (or ``stage`` stages, or
+    ``expert`` expert ranks) of ``tensor`` tensor ranks each: a grid
+    where both are above 1."""
     if stage > 1 and tensor > 1:
         return AXIS_PP_GRID
+    if expert > 1:
+        return AXIS_EP_GRID if tensor > 1 else AXIS_EXPERT
     if seq > 1 and tensor > 1:
         return AXIS_GRID
     return AXIS_SEQ if seq > 1 else AXIS_TENSOR
@@ -287,7 +304,8 @@ class RankGroup:
     groups (module docstring). ``pg`` is the device group (None:
     torch.distributed's default group) and ``members`` the global rank of
     each of its ranks (empty: the rank itself); a grid's ``views`` are its
-    ``tensor`` subgroup and its outer axis's (``seq`` or ``stage``)."""
+    ``tensor`` subgroup and its outer axis's (``seq``, ``stage`` or
+    ``expert``)."""
 
     rank: int
     size: int
@@ -335,22 +353,38 @@ class RankGroup:
         return self.view(AXIS_STAGE)
 
     @property
+    def expert(self) -> Optional["RankGroup"]:
+        """The group the MoE combine runs over: the expert ranks of this
+        process's tensor rank (None off the expert axis and its grid)."""
+        return self.view(AXIS_EXPERT)
+
+    @property
     def tensor_size(self) -> int:
         """The tensor-parallel degree the group cuts the model over (1 on
-        the seq axis)."""
+        the seq and expert axes)."""
         tp = self.tensor
         return 1 if tp is None else tp.size
+
+    @property
+    def expert_size(self) -> int:
+        """The expert-parallel degree (1 off the expert axis and its
+        grid)."""
+        ep = self.expert
+        return 1 if ep is None else ep.size
 
     def shard_of(self, cfg, rank: Optional[int] = None) -> Shard:
         """Rank ``rank``'s (default this rank's) cut of ``cfg``'s model:
         ``Shard.of`` at its tensor rank (``rank % tensor_size``: tensor
-        innermost on the grid); nothing cut at tensor size 1, where each
-        rank holds the whole model."""
+        innermost on the grid) and its expert rank (``rank //
+        tensor_size`` on the expert axis and its grid); nothing cut at
+        tensor and expert size 1, where each rank holds the whole
+        model."""
         r = self.rank if rank is None else rank
-        tp = self.tensor_size
-        if tp == 1:
+        tp, ep = self.tensor_size, self.expert_size
+        if tp == 1 and ep == 1:
             return Shard(r, self.size, {}, frozenset())
-        return Shard.of(cfg, r % tp, tp)
+        return Shard.of(cfg, r % tp, tp,
+                        (r // tp, ep) if ep > 1 else (0, 1))
 
     def _global(self, r: int) -> int:
         """The global rank of this group's rank ``r`` (torch.distributed
@@ -377,6 +411,20 @@ class RankGroup:
         dist.all_reduce(y, group=self.pg)
         self._count("all_reduce", y.nbytes)
         return y if x.dtype == torch.float32 else y.to(x.dtype)
+
+    def moe_combine(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the expert ranks of a MoE layer's float32 combine
+        partials ``x (T, E)`` (each rank's kept slots' weighted rows, zero
+        elsewhere; models/llama.py ``_moe_mlp``), in place where ``x`` is
+        contiguous, counted under ``moe_combine`` as an all-reduce: 2 (n -
+        1) / n of ``T E 4`` bytes from each card, ``T E 4`` at two
+        ranks."""
+        if x.dtype != torch.float32:
+            raise TypeError(f"moe_combine of a {x.dtype} tensor")
+        x = x.contiguous()
+        dist.all_reduce(x, group=self.pg)
+        self._count("moe_combine", x.nbytes)
+        return x
 
     def all_reduce_int32(self, x: torch.Tensor) -> torch.Tensor:
         """The exact sum of the int32 ``x`` over the ranks (the int8
@@ -640,10 +688,10 @@ def init_rank(rank: int, size: int, store_port: int, devices: Sequence[str],
 
 
 def _grid_views(world: RankGroup, T: int) -> dict:
-    """The ``tensor`` view and the outer axis's (``GRID_OUTER``) of
-    ``world``'s process (module docstring): every tensor group's device
-    group, then every outer group's, made in the same order on every
-    process."""
+    """The ``tensor`` view and the outer axis's (``GRID_OUTER``: seq,
+    stage or expert) of ``world``'s process (module docstring): every
+    tensor group's device group, then every outer group's, made in the
+    same order on every process."""
     n, outer = world.size, GRID_OUTER[world.axis]
     opts = _gloo_options(world.host) if world.backend == "gloo" else None
 

@@ -72,19 +72,20 @@ def tensor_size(mesh: MeshConfig, device) -> int:
     """The tensor-parallel degree an engine on ``device`` runs at. A fixed
     size is taken as given. -1 resolves as ``MeshConfig.resolved`` does
     over the devices a rank can have: the visible cards on ``cuda`` over
-    the pipeline stages and seq ranks (the cards left to each; at least
-    1, so that a machine without one fails where the device is asked for,
-    and stages may share a card), one process on the CPU. The tensor, stage and seq axes are ported:
-    another axis above 1 raises."""
-    for axis in (AXIS_DATA, AXIS_EXPERT):
-        if getattr(mesh, axis) != 1:
-            raise ValueError(f"mesh axis {axis!r} = {getattr(mesh, axis)}: "
-                             "only tensor, pipeline and sequence "
-                             "parallelism are ported")
+    the pipeline stages, seq ranks and expert ranks (the cards left to
+    each; at least 1, so that a machine without one fails where the
+    device is asked for, and stages may share a card), one process on the
+    CPU. The tensor, stage, seq and expert axes are ported: a data axis
+    above 1 raises."""
+    if mesh.data != 1:
+        raise ValueError(f"mesh axis {AXIS_DATA!r} = {mesh.data}: data "
+                         "parallelism is not ported (the tensor, "
+                         "pipeline, sequence and expert axes are)")
     if mesh.stage < 1:
         raise ValueError(f"pipeline-parallel size {mesh.stage} < 1")
     if mesh.seq < 1:
         raise ValueError(f"sequence-parallel size {mesh.seq} < 1")
+    expert_size(mesh)
     if mesh.tensor != -1:
         if mesh.tensor < 1:
             raise ValueError(f"tensor-parallel size {mesh.tensor} < 1")
@@ -93,8 +94,19 @@ def tensor_size(mesh: MeshConfig, device) -> int:
     if str(device).startswith("cuda"):
         import torch
 
-        n = max(torch.cuda.device_count() // (mesh.stage * mesh.seq), 1)
+        n = max(torch.cuda.device_count()
+                // (mesh.stage * mesh.seq * mesh.expert), 1)
     return MeshConfig(tensor=-1).resolved(n).tensor
+
+
+def expert_size(mesh: MeshConfig) -> int:
+    """The expert-parallel degree: the mesh's ``expert`` axis, taken as
+    given (the reference's CLI has no flag for it, so only a caller's
+    ``EngineConfig.mesh`` sets it, and it is never -1 here)."""
+    if mesh.expert < 1:
+        raise ValueError(f"expert-parallel size {mesh.expert}: give the "
+                         "expert axis a size of 1 or more")
+    return mesh.expert
 
 
 def stage_devices(device, n_stages: int, devices=None) -> list[str]:

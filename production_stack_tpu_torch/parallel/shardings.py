@@ -30,9 +30,15 @@ own in the reference:
   sharded (``wo``, ``w_down``), B along its output where the target's
   output is (``wq``, ``wk``, ``wv``, ``w_gate``, ``w_up``).
 
-The MoE expert stacks ``(X, E, F)`` and ``(X, F, E)`` are cut along F,
-experts whole: the reference's ``expert`` axis is 1 under its CLI, which
-has no flag for it.
+The MoE expert stacks ``(X, E, F)`` and ``(X, F, E)`` are cut along F
+over ``tensor`` and along X over ``expert`` (expert rank e of N holds
+experts ``[e X/N, (e+1) X/N)``; ``Shard.of``'s ``expert``), an int8
+stack's ``(X, 1, N)`` scales along X with its q. One leaf carries the
+``experts`` axis and stays whole on every expert rank, a deliberate
+divergence from the reference: the router ``(E, X)``
+(``WHOLE_ON_EXPERT_RANKS``, ``held_specs``). The reference splits its X
+columns and GSPMD gathers the logits; here every rank routes every token
+itself, and each logit is the same dot product either way.
 """
 
 from __future__ import annotations
@@ -66,6 +72,10 @@ EXPERTS = "experts"
 KV_BLOCKS = "kv_blocks"
 BLOCK = "block"
 
+
+# leaves that carry the experts axis but are held whole on every expert
+# rank (module docstring)
+WHOLE_ON_EXPERT_RANKS = ("router",)
 
 # LoRA target -> logical axes of its input and of its output (the
 # adapted weight's contracted and output axes)
@@ -108,12 +118,14 @@ class ShardingRules:
                      for a in logical_axes)
 
 
-def rules_for_model(cfg, tp: int) -> ShardingRules:
-    """Model-aware rules at tensor-parallel degree ``tp`` (every other
-    mesh axis 1): a logical axis whose global size does not divide its
-    mesh axis falls back to replication (e.g. GQA KV heads with
-    num_kv_heads < tp, as Llama-3-8B's at tp 16)."""
-    shape = MeshConfig(tensor=tp).shape
+def rules_for_model(cfg, tp: int, ep: int = 1) -> ShardingRules:
+    """Model-aware rules at tensor-parallel degree ``tp`` and
+    expert-parallel degree ``ep`` (every other mesh axis 1): a logical
+    axis whose global size does not divide its mesh axis falls back to
+    replication (e.g. GQA KV heads with num_kv_heads < tp, as
+    Llama-3-8B's at tp 16; the experts where ``num_experts % ep != 0``,
+    and always on a dense model, whose ``experts`` size is 1)."""
+    shape = MeshConfig(tensor=tp, expert=ep).shape
     base = dict(ShardingRules().rules)
     sizes = {
         VOCAB: cfg.vocab_size,
@@ -132,12 +144,14 @@ def rules_for_model(cfg, tp: int) -> ShardingRules:
 
 @dataclasses.dataclass(frozen=True)
 class Shard:
-    """Rank ``rank`` of ``size``: the ``[lo, hi)`` range it holds of each
-    logical axis it does not hold whole (``cuts``), and which axes are
-    sharded over ``tensor`` (``sharded``), so that the model knows where
-    a product's partial sums need an all-reduce (heads: the attention
-    out-projection; mlp: the down-projection) and where the vocabulary is
-    split (embedding, logits)."""
+    """Tensor rank ``rank`` of ``size`` (and expert rank ``expert[0]`` of
+    ``expert[1]``): the ``[lo, hi)`` range it holds of each logical axis
+    it does not hold whole (``cuts``), and which axes are sharded
+    (``sharded``), so that the model knows where a product's partial
+    sums need an all-reduce (heads: the attention out-projection; mlp:
+    the down-projection), where the vocabulary is split (embedding,
+    logits) and where the MoE combine is summed over the expert ranks
+    (experts)."""
 
     rank: int
     size: int
@@ -145,13 +159,20 @@ class Shard:
     sharded: frozenset
 
     @staticmethod
-    def of(cfg, rank: int, size: int) -> "Shard":
+    def of(cfg, rank: int, size: int, expert: tuple = (0, 1)) -> "Shard":
+        e, ep = expert
         if not 0 <= rank < size:
             raise ValueError(f"rank {rank} outside a group of {size}")
-        rules = rules_for_model(cfg, size).rules
+        if not 0 <= e < ep:
+            raise ValueError(f"expert rank {e} outside a group of {ep}")
+        rules = rules_for_model(cfg, size, ep).rules
         sizes = {VOCAB: cfg.vocab_size, HEADS: cfg.num_heads,
                  KV_HEADS: cfg.num_kv_heads, MLP: cfg.intermediate_size}
         cuts, sharded = {}, set()
+        if ep > 1 and rules[EXPERTS] == AXIS_EXPERT:
+            step = cfg.num_experts // ep
+            cuts[EXPERTS] = (e * step, (e + 1) * step)
+            sharded.add(EXPERTS)
         if size > 1:
             for axis, n in sizes.items():
                 if rules[axis] == AXIS_TENSOR:
@@ -204,10 +225,25 @@ class Shard:
         return (a.reshape(L, -1, R),
                 self.cut(B, (LAYERS, None, *outs)))
 
+    @property
+    def experts(self) -> bool:
+        """Whether this rank holds a share of the experts (the MoE
+        combine is then summed over the expert ranks)."""
+        return EXPERTS in self.sharded
+
     def local(self, axis: str, n: int) -> int:
         """The rank's extent of an axis of global size ``n``."""
         lo, hi = self.cuts.get(axis, (0, n))
         return hi - lo
+
+
+def held_specs(specs: dict) -> dict:
+    """``param_specs`` as the ranks hold the leaves: the
+    ``WHOLE_ON_EXPERT_RANKS`` leaves' experts axis replicated."""
+    return {name: held_specs(v) if isinstance(v, dict)
+            else (tuple(None if a == EXPERTS else a for a in v)
+                  if name in WHOLE_ON_EXPERT_RANKS else v)
+            for name, v in specs.items()}
 
 
 # -- the KV pool's head axis across the ranks ----------------------------------

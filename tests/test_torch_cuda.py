@@ -1446,3 +1446,81 @@ def test_pipeline_tensor_grid_on_one_card_matches_tp2(cuda):
     for r in reports:
         n = r["launches"]
         assert n["K1"] > 0 and n["K3"] > 0 and n["K4"] > 0 and n["K2"] == 0
+
+
+@pytest.mark.parametrize("tp", [1, 2], ids=["ep2", "ep2tp2"])
+def test_expert_ranks_on_one_card_match_expert1(cuda, tp):
+    """bf16 tiny-mixtral at expert 2 (x tp 2), every process on this card
+    over gloo, against expert 1 at the same tensor size on the same card
+    and weights, ragged path: greedy tokens and logprobs equal bit for
+    bit (each rank's float32 combine partial holds at most a token's two
+    weighted rows and zeros); every process's digest is rank 0's, each
+    launched K1, K2 and K3; rank 0's ``moe_combine`` bytes are positive
+    and equal every follower's; the KV export equals expert 1's bit for
+    bit."""
+    from production_stack_tpu_torch.engine.config import (
+        CacheConfig,
+        EngineConfig,
+        SchedulerConfig,
+    )
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+    from production_stack_tpu_torch.engine.weights import (
+        init_random,
+        to_device,
+    )
+    from production_stack_tpu_torch.parallel.mesh import MeshConfig
+
+    def cfg(ep):
+        return EngineConfig.for_model(
+            "tiny-mixtral", dtype="bfloat16",
+            cache=CacheConfig(block_size=16, num_blocks=128,
+                              enable_prefix_caching=False),
+            scheduler=SchedulerConfig(max_num_seqs=4,
+                                      max_num_batched_tokens=32),
+            mesh=MeshConfig(tensor=tp, expert=ep))
+
+    params = init_random(cfg(1).model, seed=0)
+    rng = np.random.default_rng(25)
+    prompts = [rng.integers(0, 259, n).tolist() for n in (3, 40, 9, 21)]
+    sp = SamplingParams(temperature=0.0, max_tokens=12, ignore_eos=True,
+                        logprobs=2)
+    runs = {}
+    for ep in (1, 2):
+        n = tp * ep
+        # one process takes its weights on its device; ranks cut theirs
+        # from the whole dict on the CPU
+        eng = (LLMEngine(cfg(ep), params=to_device(params, cuda),
+                         device=cuda) if n == 1
+               else LLMEngine(cfg(ep), params=params, device=cuda,
+                              rank_devices=["cuda:0"] * n, backend="gloo"))
+        try:
+            toks = {i: [] for i in range(len(prompts))}
+            lps = {i: [] for i in range(len(prompts))}
+            for i, p in enumerate(prompts):
+                eng.add_request(str(i), prompt_token_ids=p, sampling=sp)
+            while eng.has_unfinished():
+                for o in eng.step():
+                    toks[int(o.request_id)] += o.new_token_ids
+                    lps[int(o.request_id)] += o.new_logprobs or []
+            runs[ep] = {"tokens": toks, "logprobs": lps,
+                        "kv": eng.export_kv([0, 1]),
+                        "reports": (eng.runner.follower_reports() if n > 1
+                                    else None)}
+        finally:
+            if n > 1:
+                eng.close()
+    assert runs[2]["tokens"] == runs[1]["tokens"]
+    assert runs[2]["logprobs"] == runs[1]["logprobs"]
+    assert torch.equal(runs[2]["kv"].view(torch.int16),
+                       runs[1]["kv"].view(torch.int16))
+    reports = runs[2]["reports"]
+    assert [r["place"] for r in reports] == (
+        [{"expert": e, "tensor": t} for e in (0, 1) for t in (0, 1)]
+        if tp > 1 else [{"expert": 0}, {"expert": 1}])
+    assert len({(r["calls"], r["digest"]) for r in reports}) == 1
+    combine = {r["wire"].get("moe_combine", 0.0) for r in reports}
+    assert len(combine) == 1 and combine.pop() > 0
+    for r in reports:
+        n = r["launches"]
+        assert n["K1"] > 0 and n["K2"] > 0 and n["K3"] > 0
