@@ -554,7 +554,7 @@ fatal):
    weighted rows and zeros, so their sum is one device's); each
    process's weight bytes against ``param_shapes`` with the experts
    halved, exactly; rank 0's ``moe_combine`` bytes against ``L rows E 4``
-   over every call it made (``_EpRows``), exactly; K1, K2 and K3 launched
+   over every call it made (``_GridRows``), exactly; K1, K2 and K3 launched
    by both processes, equal, K4 not; then one 2048-token ragged step and
    one 64-row eager decode step, host walls with their combine's share
    and bytes, not speeds. (b) Expert 2 x tp 2, four processes (expert
@@ -563,13 +563,38 @@ fatal):
    of 208 tokens (``_ep_moves``: K1 and K4 on all four processes) and its
    KV exported equal tp 2's bit for bit, imported into other blocks and
    exported again unchanged; each process's weight bytes, exactly; every
-   digest, call count and launch count rank 0's.
+   digest, call count and launch count rank 0's. (c) mixtral-8x7b in
+   bf16 (no quantization) at ``CUT_LAYERS``: phase 16's wave on one
+   process, released, then at expert 2, where each rank's batched expert
+   product runs over 4 experts instead of 8; every token and logprob
+   equal.
+26. Every mesh on one process grid (``grid-one-card``), every process on
+   this card over gloo, at ``CUT_LAYERS`` layers through
+   ``EngineConfig.mesh``: (a) mixtral-8x7b int8 at seq 2 x expert 2,
+   four processes, on phase 24 (a)'s prompts through the ring, against
+   phase 24 (a)'s seq 2 wave bit for bit (expert 2 is expert 1 bit for
+   bit); (b) mixtral-8x7b int8 at stage 2 x expert 2, bucketed, on phase
+   16's prompts, against one process's bucketed wave at the same depth
+   (run first and released) bit for bit; (c) llama-3-8b bf16 at seq 2 x
+   stage 2, bucketed, on phase 15's prompts, against pp 2 in one process
+   at the same depth (run first and released) bit for bit: the seq ranks
+   run no ring beside stages, as the reference's staged runner has no
+   ``seq_parallel``, and each is a whole pipeline. Each part prints every
+   process's weight bytes, rank 0's launches and each process's (K1, K2
+   and K3 on (a); K1, K3 and K4 on (b) and (c)), the ring, count, relay
+   and combine bytes on rank 0 against their formulas (``_GridRows``,
+   exactly), and the walls of a 64-row decode step and of a 2048-token
+   prompt's first step, not speeds.
+
+Before the build the script prints whether ``tensorstore`` and a zstd
+decoder import on this machine (``[orbax]``), in a process of their own.
 
 Phases 4-14 run with decode graphs on, the default; phase 5's bf16 run
 through the plain versions decodes eagerly (a plain version synchronises
 with the host, which a capture cannot hold), and so do phases 15-17
 (a gloo collective cannot be captured) and phases 19 and 23 (a staged
-runner decodes eagerly); Whisper's paths have no graphs. Phase 20's seq ranks
+runner decodes eagerly), and phases 25-26 (a combine or a stage relay
+runs in their decode); Whisper's paths have no graphs. Phase 20's seq ranks
 keep theirs: their decode runs no collective. Phase 21's decode runs its
 tensor group's, so it decodes eagerly.
 
@@ -581,8 +606,8 @@ path's own counts are in ``launches_by_path``, ``moe-int8``, ``kv-plane``,
 ``tp2-moe-int8``, ``tp2-kv-plane``, ``tp2-whisper`` (rank 0's), ``pp2``,
 ``seq2``, ``seq2tp2``, ``mh2``, ``pp2tp2``, ``seq2-moe-int8``,
 ``seq2tp2-moe-int8``, ``seq2-kv-plane``, ``ep2-moe-int8``,
-``ep2tp2-moe-int8`` and ``ep2tp2-moe-int8-bucketed`` (rank 0's) among
-them; a
+``ep2tp2-moe-int8``, ``ep2tp2-moe-int8-bucketed``, ``ep2seq2``,
+``ep2pp2`` and ``seq2pp2`` (rank 0's) among them; a
 graph
 replay adds
 the launches its capture recorded); the last line is ``{"ok": true,
@@ -632,7 +657,7 @@ TIE_GAP = 1e-4
 # greedy flip is accepted only where the top-2 gap is within that band
 BF16_LOGPROB_BAND = 0.05
 
-# phases 6, 7, 9, 10, 11 (c)-(d), 13, 14, 15-18 and 20-24 serve their
+# phases 6, 7, 9, 10, 11 (c)-(d), 13, 14, 15-18 and 20-26 serve their
 # models at full width and this many of their layers (whisper-large-v3-class: of
 # its encoder's and of its decoder's each). What they check holds at any
 # depth, and each judged comparison holds two runs of one depth; at full
@@ -9257,6 +9282,8 @@ def _seqf_ring(torch, np, counters, card: str, tp: int, order,
         f"layers, {2 * tp} processes on one card ({card}; {SEQ_NOTE}): "
         f"{json.dumps(figures)}")
     figures["dense"] = dense
+    # what phase 26 (a) judges against
+    figures["wave"] = {"prompts": prompts, "sp": sp, "run": ring}
     return figures
 
 
@@ -9454,7 +9481,7 @@ def seq_features_phase(torch, np, counters, card: str,
     return {"launches": {"seq2-moe-int8": a["launches"],
                          "seq2tp2-moe-int8": b["launches"],
                          "seq2-kv-plane": kv["launches"]},
-            "pids": kv["pids"]}
+            "pids": kv["pids"], "ring_wave": a["wave"]}
 
 
 # -- phase 25: expert parallelism ------------------------------------------
@@ -9508,42 +9535,6 @@ def _ep_moves(np, eng, counters) -> dict:
                           for a, b in zip(after[1:], before[1:])]}
 
 
-class _EpRows:
-    """Rank 0's MoE rows by call: each ragged step's live stream (rounded
-    as ``stream_length`` rounds it), each bucketed prefill's P x S, each
-    fused decode iteration's ``max_num_seqs`` rows, times the layers: the
-    rows ``RankGroup.moe_combine`` sums over the expert ranks. Installed
-    on the mirrored runner for as long as the engine lives."""
-
-    def __init__(self, eng):
-        from production_stack_tpu_torch.engine.model_runner import (
-            stream_length,
-        )
-
-        runner, L = eng.runner, eng.config.model.num_layers
-        self.rows = []
-
-        def wrap(name, count):
-            inner = getattr(runner, name)
-
-            def spy(*args, **kw):
-                self.rows.append(L * count(*args))
-                return inner(*args, **kw)
-
-            setattr(runner, name, spy)
-
-        wrap("ragged_step", lambda tokens, *a: stream_length(
-            len(tokens), int(a[3][-1])))
-        wrap("prefill", lambda tokens, *a: int(tokens.size))
-        wrap("decode_multi", lambda tokens, *a: len(tokens)
-             * runner.decode_steps)
-
-    def bytes(self, E: int, n: int) -> float:
-        """``moe_combine``'s count: a float32 (rows, E) all-reduce over n
-        ranks, 2 (n - 1) / n of it from each card."""
-        return float(sum(r * E * 4 * 2.0 * (n - 1) / n for r in self.rows))
-
-
 def _ep_weights(cfg, tp: int, ep: int) -> list:
     """Each process's weight bytes at (tp, ep), from the shapes alone:
     ``param_shapes`` cut by its ``Shard`` (the router whole), int8 values
@@ -9578,13 +9569,13 @@ def _ep_run(torch, np, counters, card: str, tp: int, want: tuple,
     """One engine at expert 2 x ``tp`` (``_moe_tp_engine``): its weight
     bytes a process, phase 16's wave (``want``'s prompts) with its
     launches, every rank's report, the combine's bytes against
-    ``_EpRows``; at tp 1 (d)'s step walls, at tp 2 ``_ep_moves``."""
+    ``_GridRows``; at tp 1 (d)'s step walls, at tp 2 ``_ep_moves``."""
     prompts, sp = want
     t0 = time.perf_counter()
     eng = _moe_tp_engine(MOE_TP_BLOCKS, tp, ep=2)
     up = time.perf_counter() - t0
     try:
-        rows = _EpRows(eng)
+        rows = _GridRows(eng)
         held = eng.runner.gather("param_bytes")
         _fresh_slots(eng)
         _zero(counters)
@@ -9597,8 +9588,8 @@ def _ep_run(torch, np, counters, card: str, tp: int, want: tuple,
         steps = (_tp_steps(torch, np, eng, card, tag, length=32, reps=1)
                  if tp == 1 else None)
         final = eng.runner.follower_reports()
-        E = eng.config.model.hidden_size
-        combine = {"want": rows.bytes(E, 2), "calls": len(rows.rows),
+        combine = {"want": rows.want(eng.config.model, eng.runner.ranks.grid)[
+            "moe_combine"], "calls": len(rows.moe),
                    "ranks": [r["wire"].get("moe_combine", 0.0)
                              for r in final]}
         blocks = eng.runner.num_blocks
@@ -9684,7 +9675,340 @@ def ep_phase(torch, np, counters, card: str, tpf: dict) -> dict:
                                      f"{mv['launches']} {mv['followers']}")
             out[f"{tag}-bucketed"] = mv["launches"]
         out[tag] = launches
+    _ep_bf16(torch, np, card, want)
     log(f"[ep2] phase 25 ({card}) in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _ep_bf16(torch, np, card: str, want: tuple) -> dict:
+    """(c) bf16 mixtral-8x7b at ``CUT_LAYERS`` layers on phase 16's wave
+    (``want``: its prompts and greedy sampling with logprobs): one
+    process, released, then expert 2 (each rank's batched expert product
+    over X / 2 experts, ``torch.bmm``, where one process runs it over X).
+    Judged: every token and logprob equal. Returns each run's figures."""
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.server import (
+        build_parser,
+        config_from_args,
+    )
+    from production_stack_tpu_torch.parallel.mesh import MeshConfig
+
+    prompts, sp = want
+    cfg = config_from_args(build_parser().parse_args(
+        ["--model", "mixtral-8x7b", "--seed", "0", "--tensor-parallel-size",
+         "1", "--num-blocks", str(MOE_TP_BLOCKS)]))
+    cfg = dataclasses.replace(
+        _cut_depth(cfg), cache=dataclasses.replace(
+            cfg.cache, enable_prefix_caching=False),
+        scheduler=dataclasses.replace(cfg.scheduler, decode_graphs=False))
+    runs = {}
+    for ep in (1, 2):
+        t0 = time.perf_counter()
+        eng = (LLMEngine(cfg, device="cuda") if ep == 1 else LLMEngine(
+            dataclasses.replace(cfg, mesh=MeshConfig(tensor=1, expert=2)),
+            device="cuda", rank_devices=["cuda:0"] * 2, backend="gloo"))
+        up = time.perf_counter() - t0
+        try:
+            held = (eng.runner.gather("param_bytes") if ep > 1
+                    else [eng.runner.param_bytes()])
+            _fresh_slots(eng)
+            t0 = time.perf_counter()
+            run = _greedy_tokens(eng, prompts, sp)
+            runs[ep] = {"run": run, "up_s": up, "held": held,
+                        "wave_s": time.perf_counter() - t0}
+        finally:
+            eng.close()
+        del eng
+        _released(torch, f"ep{ep} moe-bf16")
+    same, dev, flips = _tp_dev(runs[1]["run"], runs[2]["run"])
+    rec = {"tokens": sum(map(len, runs[1]["run"][0].values())),
+           "tokens_before_first_flip": same, "max_logprob_dev": dev,
+           "flips": len(flips), "bit_for_bit": runs[2]["run"] == runs[1]["run"],
+           **{f"ep{ep}_{k}": r[k] for ep, r in runs.items()
+              for k in ("up_s", "wave_s", "held")}}
+    log(f"[ep2] (c) mixtral-8x7b bf16 at {CUT_LAYERS} layers, expert 2 "
+        f"against one process ({card}; {EP_NOTE}): {json.dumps(rec)}")
+    if not rec["bit_for_bit"]:
+        raise AssertionError(
+            f"[ep2] (c) bf16 expert 2 is not one process bit for bit: "
+            f"{same} tokens before the first flip, logprobs up to {dev} "
+            f"apart, flips at {flips[:4]}")
+    return rec
+
+
+# -- phase 26: every mesh on one process grid --------------------------------
+
+GRID_NOTE = ("four processes share one card over gloo, their views' "
+             "collectives staged through host memory: not a speed of any "
+             "axis")
+
+
+def _grid_engine(flags: list, mesh: dict, impl: str | None = None):
+    """The engine of the server's ``flags`` (seed 0, tensor size 1) at
+    ``CUT_LAYERS`` layers and ``mesh``'s sizes (through
+    ``EngineConfig.mesh``: the CLI has no expert flag), prefix cache off,
+    decode eager: one process, or pipeline stages in one process, or the
+    grid's processes, every one on cuda:0 over gloo."""
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.server import (
+        build_parser,
+        config_from_args,
+    )
+    from production_stack_tpu_torch.parallel.distributed import Grid
+    from production_stack_tpu_torch.parallel.mesh import MeshConfig
+
+    cfg = config_from_args(build_parser().parse_args(
+        ["--seed", "0", "--tensor-parallel-size", "1", *flags]))
+    cfg = dataclasses.replace(
+        _cut_depth(cfg), cache=dataclasses.replace(
+            cfg.cache, enable_prefix_caching=False),
+        scheduler=dataclasses.replace(cfg.scheduler, decode_graphs=False),
+        mesh=MeshConfig(tensor=1, **mesh),
+        **({"attention_impl": impl} if impl else {}))
+    grid = Grid.of(cfg.mesh, 1)
+    if grid.size == 1:
+        return LLMEngine(cfg, device="cuda")
+    if grid.axes == ("stage",):
+        return LLMEngine(cfg, device="cuda",
+                         stage_devices=["cuda:0"] * grid.stage)
+    return LLMEngine(cfg, device="cuda", rank_devices=["cuda:0"] * grid.size,
+                     backend="gloo")
+
+
+class _GridRows:
+    """Rank 0's calls from now on, by what its views send: the rows each
+    of its MoE layers runs (a ragged step's live stream as
+    ``stream_length`` rounds it, a bucketed chunk batch's P x S, a fused
+    decode iteration's rows, a ring prefill's S / n slice), the rows stage
+    0 relays and the tokens it receives (a chunk batch's P x S and P, a
+    decode step's rows), and each ring prefill's padded length."""
+
+    def __init__(self, eng):
+        from production_stack_tpu_torch.engine.model_runner import (
+            stream_length,
+        )
+
+        runner, n = eng.runner, eng.runner.ranks.grid.seq
+        steps = eng.config.scheduler.multi_step or 1
+        self.moe, self.relay, self.last, self.ring = [], [], [], []
+
+        def wrap(name, moe, relay=None, last=None):
+            if not hasattr(runner, name):
+                return
+            inner = getattr(runner, name)
+
+            def spy(*args, **kw):
+                self.moe.append(moe(*args))
+                if relay is not None:
+                    self.relay.append(relay(*args))
+                    self.last.append(last(*args))
+                return inner(*args, **kw)
+
+            setattr(runner, name, spy)
+
+        wrap("ragged_step", lambda tokens, *a: stream_length(
+            len(tokens), int(a[3][-1])))
+        wrap("prefill", lambda tokens, *a: int(tokens.size),
+             lambda tokens, *a: int(tokens.size),
+             lambda tokens, *a: int(tokens.shape[0]))
+        wrap("decode_multi", lambda tokens, *a: len(tokens) * steps,
+             lambda tokens, *a: len(tokens) * steps,
+             lambda tokens, *a: len(tokens) * steps)
+
+        def ring_rows(tokens, *a):
+            self.ring.append(int(tokens.shape[1]))
+            return int(tokens.shape[1]) // n
+
+        wrap("prefill_ring", ring_rows)
+
+    def want(self, cfg, grid) -> dict:
+        """Each view's bytes on rank 0 by formula: the combine a float32
+        (rows, E) all-reduce a MoE layer of rank 0's stage over the expert
+        view, 2 (N - 1) / N of it; a ring prefill of S tokens at n seq
+        ranks L (n - 1) S / n rows of K and V rotated and as many
+        gathered, its last hidden row (n - 1) / n, L (n - 1) X int32
+        counts; the relay stage 0's hidden rows and (S - 1) / S of the
+        last stage's int32 tokens."""
+        E, b = cfg.hidden_size, cfg.torch_dtype.itemsize
+        out = {}
+        if grid.expert > 1 and cfg.num_experts:
+            N, layers = grid.expert, cfg.num_layers // grid.stage
+            out["moe_combine"] = float(sum(
+                r * layers * E * 4 * 2.0 * (N - 1) / N for r in self.moe))
+        if self.ring:
+            n, L = grid.seq, cfg.num_layers
+            kv = 2 * cfg.num_kv_heads * cfg.head_dim * b
+            out["ring_rotate"] = out["ring_gather"] = float(sum(
+                L * (n - 1) * (S // n) * kv for S in self.ring))
+            out["ring_last"] = len(self.ring) * E * b * (n - 1) / n
+            if cfg.num_experts:
+                out["ring_moe_counts"] = float(
+                    len(self.ring) * L * (n - 1) * cfg.num_experts * 4)
+        if grid.stage > 1:
+            S = grid.stage
+            out["stage_relay"] = float(sum(self.relay) * E * b)
+            out["stage_last"] = sum(self.last) * 4 * (S - 1) / S
+        return out
+
+
+def _grid_steps(torch, np, eng, label: str) -> dict:
+    """A decode step at 64 rows (contexts of 32 + a few tokens) and the
+    first step of a 2048-token prompt, host wall to a synchronise, with
+    the bytes each op put on rank 0's wire in each."""
+    rng = np.random.default_rng(26)
+    wire = eng.runner.ranks.wire
+
+    def timed() -> tuple:
+        sent = dict(wire)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, {
+            op: n - sent.get(op, 0.0) for op, n in wire.items()
+            if n != sent.get(op, 0.0)}
+
+    _dg_admit(np, eng, rng, f"{label}-d", 64, 32, 64)
+    decode, decode_wire = timed()
+    _dg_clear(eng)
+    _add_requests(eng, rng, f"{label}-p", 1, 2048, 1)
+    prefill, prefill_wire = timed()
+    _dg_clear(eng)
+    return {"decode_64_ms": decode, "prefill_2048_ms": prefill,
+            "wire_bytes_a_step": {"decode_64": decode_wire,
+                                  "prefill_2048": prefill_wire}}
+
+
+def _grid_part(torch, np, counters, card: str, tag: str, flags: list,
+               mesh: dict, impl: str | None, want: tuple, expect: set,
+               ref_tag: str) -> dict:
+    """One part of phase 26: the grid engine's wave (``want``: prompts,
+    sampling, and the reference run it must equal bit for bit), rank 0's
+    launches on it and every process's (each must launch ``expect``),
+    every process's weight bytes and report, the views' bytes on the wave
+    against ``_GridRows.want`` (exact), then ``_grid_steps``."""
+    from production_stack_tpu_torch.parallel.distributed import Grid
+
+    prompts, sp, ref = want
+    t0 = time.perf_counter()
+    eng = _grid_engine(flags, mesh, impl)
+    up = time.perf_counter() - t0
+    try:
+        grid = eng.runner.ranks.grid
+        if grid != Grid(**mesh):
+            raise AssertionError(f"[{tag}] the engine's grid {grid}")
+        cfg = eng.config.model
+        ring_on = eng.scheduler.ring_enabled
+        held = eng.runner.gather("param_bytes")
+        rows = _GridRows(eng)
+        before = eng.runner.follower_reports()
+        wire0 = dict(eng.runner.ranks.wire)
+        _fresh_slots(eng)
+        _zero(counters)
+        t0 = time.perf_counter()
+        got = _greedy_tokens(eng, prompts, sp)
+        wave = time.perf_counter() - t0
+        launches = _counts(counters)
+        reports = eng.runner.follower_reports()
+        wire = {op: n - wire0.get(op, 0.0)
+                for op, n in eng.runner.ranks.wire.items()
+                if n != wire0.get(op, 0.0)}
+        predicted = rows.want(cfg, grid)  # the wave's calls, not the steps'
+        steps = _grid_steps(torch, np, eng, tag)
+    finally:
+        eng.close()
+    del eng
+    _released(torch, tag)
+    places = [r["place"] for r in reports]
+    rec = {"processes": grid.size, "grid": grid.shape, "up_s": up,
+           "wave_s": wave, "weight_bytes": held,
+           "tokens": sum(map(len, got[0].values())),
+           "ring_enabled": ring_on, "ring_calls": rows.ring,
+           "launches": launches,
+           "launches_by_process": [
+               {k: n - before[i]["launches"].get(k, 0)
+                for k, n in r["launches"].items()}
+               for i, r in enumerate(reports)],
+           "places": places, "calls": reports[0]["calls"],
+           "wire": wire, "predicted": predicted, **steps}
+    log(f"[grid] {tag} at {CUT_LAYERS} layers ({card}; {GRID_NOTE}): "
+        f"{json.dumps(rec)}")
+    same, dev, flips = _tp_dev(ref, got) if ref[1] and any(
+        ref[1].values()) else (None, None, [])
+    if got != ref:
+        raise AssertionError(
+            f"[grid] {tag}'s wave is not {ref_tag}'s bit for bit: {same} "
+            f"tokens before the first flip, logprobs up to {dev} apart, "
+            f"flips at {flips[:4]}; tokens {got[0]} against {ref[0]}")
+    if places != [{a: grid.coords(g)[a] for a in grid.axes}
+                  for g in range(grid.size)]:
+        raise AssertionError(f"[grid] {tag}: the processes' places {places}")
+    if {op: wire.get(op) for op in predicted} != predicted or any(
+            op not in predicted for op in wire
+            if op.startswith(("ring_", "stage_", "moe_"))):
+        raise AssertionError(f"[grid] {tag}: the views' bytes {wire}, want "
+                             f"{predicted}")
+    if grid.seq > 1 and grid.stage > 1 and (ring_on or rows.ring):
+        raise AssertionError(f"[grid] {tag}: a ring ran beside stages")
+    if grid.seq > 1 and grid.stage == 1 and not rows.ring:
+        raise AssertionError(f"[grid] {tag}: no prompt took the ring")
+    _expect(launches, expect, tag)
+    _tp_agree(tag, reports, launches, before)
+    return rec
+
+
+def grid_one_card_phase(torch, np, counters, card: str, ring_wave: dict,
+                        tpf: dict) -> dict:
+    """Phase 26 (``grid-one-card``): (a) mixtral-8x7b int8 at seq 2 x
+    expert 2 on phase 24 (a)'s prompts through the ring, against that
+    wave (seq 2 at expert 1); (b) mixtral-8x7b int8 at stage 2 x expert 2,
+    bucketed, on phase 16's prompts, against one process's bucketed wave
+    at the same depth (run first and released); (c) llama-3-8b bf16 at seq
+    2 x stage 2, bucketed, on phase 15's prompts, against pp 2's wave in
+    one process at the same depth (run first and released). Returns each
+    part's wave launches (rank 0's)."""
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    t_phase = time.perf_counter()
+    moe = ["--model", "mixtral-8x7b", "--quantization", "int8"]
+    out = {}
+    a = _grid_part(
+        torch, np, counters, card, "ep2seq2",
+        [*moe, "--sequence-parallel-size", "2", "--max-model-len",
+         str(SEQ_MAX_LEN), "--ring-prefill-threshold", str(SEQ_THRESHOLD),
+         "--num-blocks", str(SEQF_BLOCKS)], dict(seq=2, expert=2), None,
+        (ring_wave["prompts"], ring_wave["sp"], ring_wave["run"]),
+        {"K1", "K3"}, "phase 24 (a)'s seq 2")
+    out["ep2seq2"] = a["launches"]
+    prompts = tpf["ep"]["prompts"]
+    sp = SamplingParams(temperature=0.0, max_tokens=TPF_TOKENS,
+                        ignore_eos=True)
+    flags = [*moe, "--num-blocks", str(MOE_TP_BLOCKS)]
+    for tag, part_flags, mesh, ref_mesh, part_prompts, part_sp, what in (
+            ("ep2pp2", flags, dict(stage=2, expert=2), {}, prompts, sp,
+             "one process's bucketed"),
+            ("seq2pp2", ["--model", "llama-3-8b", "--num-blocks",
+                         str(TP_BLOCKS), "--sequence-parallel-size", "2"],
+             dict(stage=2, seq=2), dict(stage=2), _tp_prompts(np),
+             SamplingParams(temperature=0.0, max_tokens=TP_TOKENS,
+                            ignore_eos=True), "pp 2's in one process")):
+        t0 = time.perf_counter()
+        eng = _grid_engine(part_flags, ref_mesh, "bucketed")
+        try:
+            _fresh_slots(eng)
+            ref = _greedy_tokens(eng, part_prompts, part_sp)
+        finally:
+            eng.close()
+        del eng
+        _released(torch, f"{tag} reference")
+        ref_s = time.perf_counter() - t0
+        rec = _grid_part(torch, np, counters, card, tag, part_flags, mesh,
+                         "bucketed", (part_prompts, part_sp, ref),
+                         {"K1", "K3", "K4"}, what)
+        log(f"[grid] {tag}: {rec['tokens']} greedy tokens equal {what} wave "
+            f"bit for bit (its engine up and run in {ref_s:.1f} s)")
+        out[tag] = rec["launches"]
+    log(f"[grid] phase 26 ({card}) in {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -9719,6 +10043,33 @@ def _expect(launches: dict, expected: set, tag: str) -> None:
                 f"path must launch {sorted(expected)} and no other")
 
 
+_READERS = """
+import importlib, json, sys
+out = {}
+for name in ("tensorstore", "zstandard", "compression.zstd"):
+    try:
+        mod = importlib.import_module(name)
+        out[name] = getattr(mod, "__version__", "imported")
+    except Exception as e:
+        out[name] = f"absent: {type(e).__name__}: {e}"
+out["jax_imported"] = "jax" in sys.modules
+print(json.dumps(out))
+"""
+
+
+def _orbax_readers() -> dict:
+    """Whether ``tensorstore`` and a zstd decoder (``zstandard``, or the
+    standard library's ``compression.zstd``) import on this machine, with
+    their versions, in a process of their own: the reference's
+    ``save_orbax`` writes OCDBT with zstd-compressed nodes."""
+    got = subprocess.run([sys.executable, "-c", _READERS],
+                         capture_output=True, text=True, timeout=120)
+    if got.returncode:
+        raise AssertionError(f"[orbax] the import check exited "
+                             f"{got.returncode}: {got.stderr[-2000:]}")
+    return json.loads(got.stdout.strip().splitlines()[-1])
+
+
 def main() -> int:
     if not (ROOT / "production_stack_tpu_torch" / "__init__.py").exists():
         print("chip_smoke.py: the production_stack_tpu_torch package is not "
@@ -9747,6 +10098,7 @@ def main() -> int:
     log(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} card(s): {card}")
 
+    log(f"[orbax] readers on this machine: {json.dumps(_orbax_readers())}")
     build_s = _build.build_all()
     log(f"[build] kernels built in {build_s:.1f} s")
 
@@ -9847,6 +10199,9 @@ def main() -> int:
         _seqkv_close(seqkv)
     by_path.update(ep_phase(torch, np, counters, card, tpf["ep"]))
     lap("25 ep2-one-card")
+    by_path.update(grid_one_card_phase(torch, np, counters, card,
+                                       seqf["ring_wave"], tpf))
+    lap("26 grid-one-card")
     _no_hbm_alarm_left(kv_tp["pids"] + seqf["pids"])
     log(f"[phases] seconds ({card}): " + json.dumps(
         {name: round(t - laps[k - 1][1], 1)

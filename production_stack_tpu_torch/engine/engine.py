@@ -53,55 +53,49 @@ the perf accountant (``_tenant_map``) and to each sequence
 ``prefetch_paused``: an admitted sequence then starts no tier prefetch and
 prefills cold.
 
-Tensor parallelism (``config.mesh``, resolved by parallel/mesh.tensor_size):
-at a degree above 1 the engine is rank 0 of a group it starts
-(engine/multihost.start_ranks, one spawned process a follower rank) and
-its runner mirrors every device call to them. What the ranks do not
-carry yet raises at start (``multihost.refusal``); ``close`` stops them.
-Given a multi-host ``distributed`` topology, the engine is process 0 of
-processes started on their own instead (``multihost.lead_ranks``), its
-calls sent over the authenticated channel.
-The KV plane's calls and the tiers are rank 0's: its runner hands them
-whole blocks, every rank's heads joined, and scatters what they import.
+The ranks (``config.mesh``, its tensor size resolved by
+parallel/mesh.tensor_size): every mesh of the stage, seq, expert and
+tensor axes is one process grid (parallel/distributed.py ``Grid``). On
+one process the runner is a ``ModelRunner``, and with pipeline stages
+alone a ``StagedModelRunner`` (engine/pp_runner.py) over one device a
+stage (``stage_devices``), on the bucketed path. Every other mesh makes
+the engine rank 0 of the grid's processes, started by one
+``multihost.start_ranks`` call (one spawned process a follower), or, given
+a multi-host ``distributed`` topology, joined by one
+``multihost.lead_ranks`` call (processes started on their own, their
+calls sent over the authenticated channel). Rank 0's runner mirrors every
+device call to them, and ``close`` stops them. A process holds its tensor
+rank's shard and a pool of its KV heads, its expert rank's share of every
+MoE layer's experts, and its stage's layers (a ``StageRankRunner``, the
+residual stream relayed stage to stage); seq ranks hold what the other
+axes give them whole. What the grid does not carry raises at start
+(``multihost.refusal``: a Whisper model beyond tensor ranks;
+``multihost.check_group``: stages or expert ranks multi-host). The KV
+plane's calls and the tiers are rank 0's: its runner hands them whole
+blocks, every rank's heads and every stage's layers joined, and scatters
+what they import.
 
-Sequence parallelism (``config.mesh.seq`` above 1, at pipeline size 1):
-the engine is rank 0 of a group of seq ranks it starts in the same way,
-each holding the whole model and a whole pool; at a tensor size T above 1
-as well, of the seq x tensor grid (parallel/distributed.py
-``AXIS_GRID``): seq times T processes, each seq rank T tensor ranks
-holding one shard each and a pool of its KV heads. With
-``ring_prefill_threshold`` above 0 (``ring_enabled``) the scheduler sends
-each long fresh prompt whole and alone to ``_run_prefill_ring``, the
-reference's: the prompt padded to a power of two and a multiple of the
-ranks, prefilled by ring attention over them (``prefill_ring``), its
-first token sampled and fetched in the same call; every other step,
-decode included, runs as at tp 1 on every rank. MoE and int8 models, a
-disaggregated role and the host and remote tiers serve as at size 1: the
-ring pick is the reference's, so a prompt with a cached prefix or one a
-tier prefetched has computed tokens and takes the chunked path.
+With seq ranks and no stages and ``ring_prefill_threshold`` above 0
+(``ring_enabled``) the scheduler sends each long fresh prompt whole and
+alone to ``_run_prefill_ring``, the reference's: the prompt padded to a
+power of two and a multiple of the ranks, prefilled by ring attention over
+them (``prefill_ring``), its first token sampled and fetched in the same
+call; every other step, decode included, runs as at seq 1 on every rank.
+MoE and int8 models, a disaggregated role and the host and remote tiers
+serve as at size 1: the ring pick is the reference's, so a prompt with a
+cached prefix or one a tier prefetched has computed tokens and takes the
+chunked path; at expert size N the MoE blocks of a ring prefill rank
+their slots over the seq ranks and sum their combine over the expert
+ranks. With stages the ring is off, as the reference's staged runner has
+no ``seq_parallel``: each seq rank is a whole pipeline that computes
+every call, and ``ring_prefill_threshold`` has no effect. As in the
+reference, under stages a request with logprobs and a guided regex or
+JSON grammar are refused at ``add_request``, and warmup skips them.
 
-Pipeline parallelism (``config.mesh.stage`` above 1): the runner is a
-``StagedModelRunner`` (engine/pp_runner.py) over one device a stage
-(``stage_devices``), on the bucketed path. At a tensor size T above 1 as
-well, the engine is rank 0 of the stage x tensor grid
-(parallel/distributed.py ``AXIS_PP_GRID``): stages times T processes,
-each a ``StageRankRunner`` holding its stage's layers at its tensor
-shard, the residual stream relayed stage to stage. As in the reference, a
-request with logprobs and a guided regex or JSON grammar are refused at
-``add_request``, and warmup skips them; sequence and pipeline
-parallelism together are not ported yet.
-
-Expert parallelism (``config.mesh.expert`` above 1, the reference's
-``MeshConfig(expert=N)``; its CLI has no flag, so only a caller's
-``EngineConfig.mesh`` reaches it): the engine is rank 0 of a group of
-expert ranks it starts (``AXIS_EXPERT``), each holding its share of every
-MoE layer's experts, the rest of the model whole and a whole pool; at a
-tensor size T above 1 as well, of the expert x tensor grid
-(``AXIS_EP_GRID``): N times T processes, each expert rank T tensor ranks.
-Every feature tensor parallelism carries serves, on both attention paths.
-Expert ranks with seq or pipeline ranks, with a multi-host
-``distributed`` topology, or for a Whisper model raise before any
-process starts.
+The expert axis (the reference's ``MeshConfig(expert=N)``; its CLI has no
+flag, so only a caller's ``EngineConfig.mesh`` reaches it) serves every
+feature tensor parallelism serves, on both attention paths (with stages,
+on the bucketed path).
 """
 
 from __future__ import annotations
@@ -139,13 +133,8 @@ from production_stack_tpu_torch.engine.multihost import (
     start_ranks,
 )
 from production_stack_tpu_torch.engine.pp_runner import StagedModelRunner
-from production_stack_tpu_torch.parallel.distributed import (
-    AXIS_GRID,
-    AXIS_PP_GRID,
-    axis_of,
-)
-from production_stack_tpu_torch.parallel.mesh import AXIS_SEQ
-from production_stack_tpu_torch.parallel.mesh import expert_size
+from production_stack_tpu_torch.parallel.distributed import Grid
+from production_stack_tpu_torch.parallel.mesh import AXIS_STAGE
 from production_stack_tpu_torch.parallel.mesh import stage_devices as pstages
 from production_stack_tpu_torch.parallel.mesh import tensor_size
 from production_stack_tpu_torch.parallel.ring_attention import ring_length
@@ -209,65 +198,37 @@ class LLMEngine:
         stage_devices: Optional[list] = None,
         distributed=None,
     ):
-        """``rank_devices`` and ``backend`` place the tensor-parallel
-        ranks (one device a rank; parallel/distributed.py's defaults:
-        ``cuda:r`` and ``nccl`` on cards, the CPU and ``gloo`` otherwise);
-        they are unused at tensor-parallel size 1. They place the seq
-        ranks alike at a sequence-parallel size above 1, and on the seq x
-        tensor grid every process, by global rank (seq rank times the
-        tensor size plus tensor rank), and on the stage x tensor grid
-        every process alike (stage times the tensor size plus tensor
-        rank), and the expert ranks and the expert x tensor grid alike
-        (expert rank times the tensor size plus tensor rank).
-        ``stage_devices`` places the pipeline stages at tensor size 1
+        """``rank_devices`` and ``backend`` place the processes of the
+        mesh's grid (parallel/distributed.py ``Grid``), one device a
+        process by global rank (parallel/distributed.py's defaults:
+        ``cuda:r`` and ``nccl`` on cards, the CPU and ``gloo``
+        otherwise); unused on one process and with stages alone.
+        ``stage_devices`` places the pipeline stages of one process
         (parallel/mesh.stage_devices' default: ``cuda:s`` on cards, the
-        CPU otherwise); unused at one stage and on the grid.
-        ``distributed`` (parallel/distributed.DistributedConfig), when it
-        spans several processes, makes this engine process 0 of a
-        multi-host group: its ranks are processes started on their own
+        CPU otherwise); unused otherwise. ``distributed``
+        (parallel/distributed.DistributedConfig), when it spans several
+        processes, makes this engine process 0 of a multi-host group: its
+        ranks are processes started on their own
         (``multihost.lead_ranks``), one a rank, and ``rank_devices`` names
-        this process's device; ``params``, where given, must then be every
-        follower's too (a follower with other weights is refused, and
-        this raises)."""
+        this process's device; ``params``, where given, must then be
+        every follower's too (a follower with other weights is refused,
+        and this raises)."""
         self.config = config
         self.tokenizer = get_tokenizer(config.model.tokenizer)
-        tp = tensor_size(config.mesh, device)
-        S = config.mesh.stage
-        sp = config.mesh.seq
-        ep = expert_size(config.mesh)
-        if sp > 1 and S > 1:
-            raise ValueError(
-                f"sequence parallelism ({sp} ranks) with pipeline ({S}) "
-                "parallelism is not ported yet")
-        if ep > 1:
-            self._check_expert(config, ep, distributed)
-            self.runner = start_ranks(
-                config, params, num_blocks, device, ep * tp, rank_devices,
-                backend, axis=axis_of(sp, tp, expert=ep), tensor=tp)
-        elif distributed is not None and distributed.enabled:
+        grid = Grid.of(config.mesh, tensor_size(config.mesh, device))
+        if distributed is not None and distributed.enabled:
             self.runner = lead_ranks(config, params, num_blocks, device,
                                      distributed, rank_devices, backend,
-                                     axis=axis_of(sp, tp), tensor=tp)
-        elif sp > 1 and tp > 1:
-            self.runner = start_ranks(config, params, num_blocks, device,
-                                      sp * tp, rank_devices, backend,
-                                      axis=AXIS_GRID, tensor=tp)
-        elif sp > 1:
-            self.runner = start_ranks(config, params, num_blocks, device, sp,
-                                      rank_devices, backend, axis=AXIS_SEQ)
-        elif S > 1 and tp > 1:
-            self.runner = start_ranks(config, params, num_blocks, device,
-                                      S * tp, rank_devices, backend,
-                                      axis=AXIS_PP_GRID, tensor=tp)
-        elif S > 1:
+                                     grid)
+        elif grid.size == 1:
+            self.runner = ModelRunner(config, params, num_blocks, device)
+        elif grid.axes == (AXIS_STAGE,):
             self.runner = StagedModelRunner(
                 config, params, num_blocks,
-                pstages(device, S, stage_devices))
-        elif tp == 1:
-            self.runner = ModelRunner(config, params, num_blocks, device)
+                pstages(device, grid.stage, stage_devices))
         else:
-            self.runner = start_ranks(config, params, num_blocks, device, tp,
-                                      rank_devices, backend)
+            self.runner = start_ranks(config, params, num_blocks, device,
+                                      grid, rank_devices, backend)
         self.device = self.runner.device
         self.scheduler = Scheduler(
             config.scheduler, config.cache, self.runner.num_blocks,
@@ -277,7 +238,7 @@ class LLMEngine:
         # the reference's ring_enabled: long fresh prompts prefill whole
         # over the seq ranks
         self.scheduler.ring_enabled = (
-            sp > 1 and sched.ring_prefill_threshold > 0
+            grid.seq > 1 and sched.ring_prefill_threshold > 0
             and getattr(self.runner, "seq_parallel", False))
         self.attention_impl = self.runner.attention_impl
         B = sched.max_num_seqs
@@ -407,23 +368,6 @@ class LLMEngine:
         if config.perf.enabled:
             self.perf = PerfAccountant.from_runner(config, self.runner)
             self.runner.install_compile_observer(self.perf.on_compile)
-
-    @staticmethod
-    def _check_expert(config: EngineConfig, ep: int, distributed) -> None:
-        """Raise, before any process starts, for what expert ranks do not
-        run beside them: seq or pipeline ranks, and a multi-host topology
-        (the reference's CLI has no expert flag, so no multi-host server
-        reaches the axis). A Whisper model is ``start_ranks``' refusal."""
-        mesh = config.mesh
-        if mesh.seq > 1 or mesh.stage > 1:
-            raise ValueError(
-                f"expert parallelism ({ep} ranks) with sequence "
-                f"({mesh.seq}) or pipeline ({mesh.stage}) parallelism is "
-                "not ported yet")
-        if distributed is not None and distributed.enabled:
-            raise ValueError(
-                f"expert parallelism ({ep} ranks) is not served multi-host: "
-                "the reference's CLI has no flag for the expert axis")
 
     # -- request intake ------------------------------------------------------
     def add_request(
@@ -1755,28 +1699,21 @@ class LLMEngine:
 
     @property
     def tensor_parallel_ranks(self) -> int:
-        """Processes the engine's runner spans (1 without tensor,
-        sequence or expert parallelism; the outer axis's size times the
-        tensor size on a grid)."""
+        """Processes the engine's runner spans (1 on one process and with
+        stages alone; the grid's size otherwise)."""
         return self.runner.ranks.size if self.runner.ranks else 1
 
     def rank_info(self) -> dict:
-        """The ranks: their count and mesh axis (``seq,tensor``,
-        ``stage,tensor`` or ``expert,tensor`` on a grid), each axis's size
-        (``shape``), process ids (this process first, then by global rank:
-        seq rank, stage or expert rank times tensor size plus tensor rank)
-        and devices; whether decode
-        steps run as CUDA graphs; this process's kernel launches so far
-        (rank 0's)."""
+        """The ranks: their count and the grid's ``label`` (the axes
+        above 1, ``seq,tensor`` say), each such axis's size (``shape``),
+        process ids (this process first, then by global rank) and
+        devices; whether decode steps run as CUDA graphs; this process's
+        kernel launches so far (rank 0's)."""
         ranks = getattr(self.runner, "ranks", None)
         info = {"size": self.tensor_parallel_ranks,
                 "axis": ranks.axis if ranks is not None else None,
                 "shape": ({} if ranks is None else
-                          {a: g.size for a, g in (("stage", ranks.stage),
-                                                  ("seq", ranks.seq),
-                                                  ("expert", ranks.expert),
-                                                  ("tensor", ranks.tensor))
-                           if g is not None}),
+                          {a: ranks.grid.shape[a] for a in ranks.grid.axes}),
                 "pids": [os.getpid()],
                 "devices": [str(self.device)],
                 "decode_graphs": self.runner.graphs is not None,

@@ -85,29 +85,31 @@ gathered and written into every rank's pool by K1; every rank then
 samples the same token from the same logits. Decode has no collective
 under seq ranks, so each rank keeps its decode graphs on a card.
 
-**The seq x tensor grid.** With ``ranks`` on the grid
-(parallel/distributed.py ``AXIS_GRID``) the runner has two groups: the
-model's collectives run over ``ranks.tensor`` (``group``), as at tensor
-parallelism alone, and the ring over ``ranks.seq``, on this rank's
-local query and KV heads (``self.local``: where KV heads are
-replicated, as tiny-llama's two at tp 4, the one its query heads read,
-which is all its queries need), so the ring rotates, gathers and writes
-only this rank's KV heads. Decode runs the tensor group's collectives:
-its graphs stay off, as at tensor parallelism alone.
+**The grid.** With ``ranks`` on a grid of several axes
+(parallel/distributed.py ``Grid``) the runner uses each of its views:
+the model's collectives run over ``ranks.tensor`` (``group``), as at
+tensor parallelism alone; the ring over ``ranks.seq``, on this rank's
+local query and KV heads (``self.local``: where KV heads are replicated,
+as tiny-llama's two at tp 4, the one its query heads read, which is all
+its queries need), so the ring rotates, gathers and writes only this
+rank's KV heads; the MoE combine over ``ranks.expert``. Where the tensor
+group runs collectives, decode's graphs stay off, as at tensor
+parallelism alone. Beside stages (engine/pp_runner.py) the runner holds
+one stage's layers and runs no ring.
 
-**Expert parallelism.** With ``ranks`` on the ``expert`` axis (alone, or
-the expert x tensor grid's ``AXIS_EP_GRID``) the runner holds its expert
-rank's share of every expert stack (``expert_of``; the router and
-everything outside the MoE block whole, or its tensor rank's cut on the
-grid) and passes the expert group to the model, which sums each MoE
-block's combine over it (models/llama.py ``_moe_mlp``). Activations, the
-KV pool and sampling are every rank's own, as at tensor size 1 (or as
-the tensor group's on the grid). Where the expert ranks sum a combine,
-decode runs that collective, so its graphs stay off; where the rules
-replicate the experts (a dense model, or ``X % N != 0``), the ranks run
-no collective at tensor size 1 and keep their graphs. The pool is sized
-from what the rank holds: its free memory after its share of the
-weights, less its steps' transients at its own expert count.
+**Expert parallelism.** With an ``expert`` view the runner holds its
+expert rank's share of every expert stack (``expert_of``; the router and
+everything outside the MoE block whole, or its tensor rank's cut) and
+passes the expert group to the model, which sums each MoE block's
+combine over it (models/llama.py ``_moe_mlp``; in a ring prefill after
+ranking the slots over the seq ranks). Activations, the KV pool and
+sampling are every rank's own, as at tensor size 1 (or as the tensor
+group's). Where the expert ranks sum a combine, decode runs that
+collective, so its graphs stay off; where the rules replicate the experts
+(a dense model, or ``X % N != 0``), the ranks run no collective at tensor
+size 1 and keep their graphs. The pool is sized from what the rank
+holds: its free memory after its share of the weights, less its steps'
+transients at its own expert count.
 
 ``install_compile_observer`` wraps the ragged and prefill steps and the
 decode step's program lookup (``decode_program``, which captures a new
@@ -279,7 +281,7 @@ class ModelRunner:
         pipeline's stages (engine/pp_runner.py) size theirs together, once
         every stage's weights are on its device. ``sharded``: a given
         ``params`` is this rank's share already (a stage's tensor shard on
-        the pipeline x tensor grid), not the whole model to cut."""
+        a grid with stages), not the whole model to cut."""
         self.config = config
         self.cfg = config.model
         # the tensor- or sequence-parallel group (None on one device) and
@@ -435,9 +437,11 @@ class ModelRunner:
 
     @property
     def seq_parallel(self) -> bool:
-        """Whether this runner is a seq rank, alone or on the grid (the
-        reference runner's ``seq_parallel``)."""
-        return self.ranks is not None and self.ranks.seq is not None
+        """Whether this runner runs the ring: a seq rank without stages
+        (the reference runner's ``seq_parallel``, which its staged runner
+        lacks)."""
+        return (self.ranks is not None and self.ranks.seq is not None
+                and self.ranks.stage is None)
 
     @property
     def tensor_parallel(self) -> int:

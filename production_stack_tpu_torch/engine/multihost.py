@@ -80,50 +80,41 @@ defines itself, which move data between the ranks besides the call:
   perf accountant never bills to a dispatch. A follower never holds host
   slabs, so none stays pinned.
 
-**Sequence parallelism** (``start_ranks(..., axis=AXIS_SEQ)``): every
-rank holds the whole model, seeded or loaded on each rank, and a whole
-pool, and replays every call on its own copy; ``prefill_ring`` is the one
-call whose work the ranks divide, over the ring's exchange
-(parallel/ring_attention.py). An adapter is sent whole to each rank, a
-KV export is rank 0's own blocks (no call is sent), and an import sends
-every follower the whole blocks. A Whisper model raises at start
-(``refusal``).
+**The grid** (``start_ranks(..., grid)``, parallel/distributed.py
+``Grid``): every mesh of the stage, seq, expert and tensor axes is one
+call, its processes by global rank ``((stage * SEQ + seq) * EXP +
+expert) * T + tensor``. Every call goes to every follower, and each
+process runs it on what it holds:
 
-**The seq x tensor grid** (``start_ranks(..., axis=AXIS_GRID,
-tensor=T)``, parallel/distributed.py): N seq ranks of T tensor ranks
-each, N * T processes, process ``g`` holding tensor rank ``g % T``'s
-shard, so the seq ranks of one tensor rank hold the same shard. Every
-call goes to all N * T - 1 followers. An adapter share goes to each
-process by its tensor rank. An export joins the tensor shares of seq rank
-0's tensor group (``RankGroup.tensor``; the other followers take the call
-and move nothing); an import sends each process its tensor share over the
-device group of them all, every seq rank the same shares.
+- a **tensor** rank its shard of the weights and a pool of its KV heads;
+- a **seq** rank the whole model (of its tensor rank and stage) and a
+  whole pool of its own; ``prefill_ring`` is the one call whose work the
+  seq ranks divide, over the ring's exchange
+  (parallel/ring_attention.py). Beside stages the seq ranks run no ring,
+  as the reference's staged runner has no ``seq_parallel``: each seq
+  rank is a whole pipeline of its own and computes every call, which
+  replicates it as GSPMD replicates an axis nothing is cut over;
+- an **expert** rank its share of every MoE layer's experts and the rest
+  of the model whole (of its tensor rank and stage); the MoE blocks sum
+  their combine over the expert view inside each call;
+- a **stage** its stage's layers (engine/pp_runner.py
+  ``StageRankRunner``), the residual stream relayed over the stage view.
 
-**Expert parallelism** (``start_ranks(..., axis=AXIS_EXPERT)``): every
-rank holds its share of the experts and the rest of the model whole, and
-a whole pool, and replays every call; the MoE blocks sum their combine
-over the ranks inside each call. As on the seq axis, an adapter is sent
-whole to each rank, a KV export is rank 0's own blocks (no call is sent)
-and an import sends every follower the whole blocks. **The expert x
-tensor grid** (``axis=AXIS_EP_GRID, tensor=T``): N expert ranks of T
-tensor ranks, process ``g`` expert rank ``g // T`` and tensor rank ``g %
-T``, moves KV as the seq x tensor grid does: an export joins the tensor
-shares of expert rank 0's tensor group, an import sends each process its
-tensor share. Multi-host groups do not reach the expert axis (the
-reference's CLI has no flag for it), and a Whisper model raises at start
-(``refusal``).
-
-**The stage x tensor grid** (``start_ranks(..., axis=AXIS_PP_GRID,
-tensor=T)``): S stages of T tensor ranks, process ``g`` stage ``g // T``
-and tensor rank ``g % T``, each running its stage of every call
-(engine/pp_runner.py ``StageRankRunner``). Every call goes to all S * T -
-1 followers. An adapter share goes to each process by its tensor rank,
-cut to its stage's layers. A process holds its stage's layers of its
-tensor rank's KV heads, so the parts of an export or import differ in
-shape by stage: they move point to point over the device group of them
-all (``RankGroup.send_kv``/``recv_kv``, counted under ``KV_OPS``), rank 0
-joining each stage's tensor shares and the stages along the layer axis,
-or cutting the whole the same way.
+An adapter share goes to each process by its tensor rank (and expert
+rank, which cuts nothing of an adapter), cut to its stage's layers.
+Without stages an export joins the tensor shares of the tensor group of
+rank 0 (its own blocks at tensor size 1, where no call is sent; the
+other seq and expert ranks take the call and move nothing), and an import
+sends each process its tensor share over the device group of them all,
+every seq and expert rank the same shares. With stages a process holds
+its stage's layers of its tensor rank's KV heads, so the parts of an
+export or import differ in shape by stage: they move point to point over
+the device group of them all (``RankGroup.send_kv``/``recv_kv``, counted
+under ``KV_OPS``), rank 0 joining each stage's tensor shares (those of
+seq and expert rank 0) and the stages along the layer axis, or cutting
+the whole the same way for every process. A Whisper model beyond tensor
+ranks raises at start (``refusal``), and multi-host groups reach neither
+stages nor expert ranks (``check_group``).
 
 Agreement is checked, not assumed: each rank folds the tokens every call
 sampled into a running digest, the leader sends its digest with each
@@ -183,7 +174,12 @@ from production_stack_tpu_torch.engine.kv_cache import adapter_root
 from production_stack_tpu_torch.engine.lora import adapter_share, layer_share
 from production_stack_tpu_torch.engine.weights import stage_layers
 from production_stack_tpu_torch.parallel import distributed as pdist
-from production_stack_tpu_torch.parallel.mesh import AXIS_TENSOR
+from production_stack_tpu_torch.parallel.mesh import (
+    AXIS_EXPERT,
+    AXIS_SEQ,
+    AXIS_STAGE,
+    AXIS_TENSOR,
+)
 from production_stack_tpu_torch.parallel.shardings import (
     join_kv_shares,
     split_kv_share,
@@ -815,9 +811,9 @@ def kernel_launches() -> dict:
 
 
 def place(ranks) -> dict:
-    """A process's rank on each axis of its group: ``{"tensor": r}`` at
-    tensor parallelism, its seq rank, stage or expert rank and its tensor
-    rank on a grid (none where ``ranks`` names no axis)."""
+    """A process's index on each axis above 1 of its grid (``{"tensor":
+    r}`` at tensor parallelism alone; none where ``ranks`` names no
+    axis)."""
     views = ((axis, getattr(ranks, axis, None))
              for axis in ("stage", "seq", "expert", "tensor"))
     return {axis: view.rank for axis, view in views if view is not None}
@@ -941,12 +937,12 @@ class MirroredRunner:
         root = adapter_root(bank_np)
         shares = [adapter_share(bank_np, self.ranks.shard_of(cfg, r), cfg)
                   for r in range(size)]
-        stage = self.ranks.stage
-        if stage is not None:
+        grid = self.ranks.grid
+        if grid.stage > 1:
             # each process holds its stage's layers of its tensor share
-            T = self.ranks.tensor_size
-            shares = [layer_share(sh, stage_layers(cfg, (g // T, stage.size)))
-                      for g, sh in enumerate(shares)]
+            shares = [layer_share(sh, stage_layers(
+                cfg, (grid.coords(g)[AXIS_STAGE], grid.stage)))
+                for g, sh in enumerate(shares)]
         with self._lock:
             self._send("register_lora", (slot,), {"root": root}, shares)
             with self._launched.counting():
@@ -970,16 +966,15 @@ class MirroredRunner:
             raise ValueError(f"KV block ids outside the pool's {n}")
 
     def _export(self, method: str, args: tuple) -> torch.Tensor:
-        """The whole of a KV gather on rank 0's device: its own blocks on
-        seq and expert ranks at tensor size 1, which each hold them whole;
-        its tensor group's shares joined otherwise (on a grid, seq or
-        expert rank 0's)."""
+        """The whole of a KV gather on rank 0's device: its own blocks at
+        tensor size 1 without stages, where every process holds them
+        whole; its tensor group's shares joined otherwise."""
         self._check_blocks(args[0])
+        if self.ranks.stage is not None:
+            return self._export_stages(method, args)
         tp = self.ranks.tensor
         if tp is None:
             return getattr(self._inner, KV_GATHERS[method])(*args)
-        if self.ranks.stage is not None:
-            return self._export_stages(method, args)
         with self._lock:
             self._send(method, args, {})
             with self._launched.counting():
@@ -988,7 +983,7 @@ class MirroredRunner:
         return join_kv_shares(shares, self._inner.cfg, tp.size)
 
     def _export_stages(self, method: str, args: tuple) -> torch.Tensor:
-        """The whole of a KV gather on the stage x tensor grid: each
+        """The whole of a KV gather on a grid with stages: each
         process's part (its stage's layers of the range, its tensor rank's
         heads) sent to rank 0, each stage's tensor shares joined, the
         stages joined along the layer axis (slabs are block-major, (n, L,
@@ -1013,9 +1008,11 @@ class MirroredRunner:
                         continue
                     shape = ((n, cut[1], *rows) if ax else
                              (cut[1], n, *rows))
+                    # seq and expert rank 0's tensor ranks of the stage
                     shares = [mine if g == 0 else
                               world.recv_kv(g, shape, dtype, "kv_gather")
-                              for g in range(s * T, (s + 1) * T)]
+                              for g in (world.grid.process(stage=s, tensor=t)
+                                        for t in range(T))]
                     stages.append(join_kv_shares(shares, inner.cfg, T))
                 return torch.cat(stages, dim=ax)
 
@@ -1024,10 +1021,9 @@ class MirroredRunner:
     def _import_stages(self, method: str, args: tuple,
                        cut: list) -> None:
         """Each process's part of ``cut`` (the tensor ranks' shares of the
-        whole) on the stage x tensor grid: its stage's layers, sent from
+        whole) on a grid with stages: its stage's layers, sent from
         rank 0 point to point; rank 0 writes its own."""
         inner, world = self._inner, self.ranks
-        T = world.tensor_size
         ax = 1 if method == "import_slabs" else 0
         layer_lo, n_layers = (args[1] if ax == 0 else 0), cut[0].shape[ax]
         with self._lock:
@@ -1036,10 +1032,11 @@ class MirroredRunner:
             def send() -> Optional[torch.Tensor]:
                 mine = None
                 for g in range(world.size):
-                    c = inner.stage_cut(layer_lo, n_layers, g // T)
+                    at = world.grid.coords(g)
+                    c = inner.stage_cut(layer_lo, n_layers, at[AXIS_STAGE])
                     if c is None:
                         continue
-                    part = cut[g % T].narrow(ax, c[2], c[1])
+                    part = cut[at[AXIS_TENSOR]].narrow(ax, c[2], c[1])
                     if g == 0:
                         mine = part
                     else:
@@ -1286,19 +1283,16 @@ def _follow(runner, ranks, replayer, method: str, args: tuple,
     elif method == "register_lora":
         share = kwargs["share"] if "share" in kwargs else ranks.scatter()
         runner.put_lora(args[0], share, kwargs["root"])
-    elif method in KV_GATHERS and ranks.stage is not None:
-        # on the stage x tensor grid every process sends its part, if its
-        # stage holds any of the layers
-        part = getattr(runner, KV_GATHERS[method])(*args)
-        if part is not None:
-            ranks.send_kv(part, 0, "kv_gather")
     elif method in KV_GATHERS:
-        # an export joins seq (or expert) rank 0's tensor group: on its
-        # grid the other seq (or expert) ranks move nothing
-        outer = ranks.seq or ranks.expert
-        if outer is None or outer.rank == 0:
-            ranks.tensor.gather_kv(getattr(runner, KV_GATHERS[method])(
-                *args))
+        # an export joins the tensor ranks (of each stage) of seq and
+        # expert rank 0: the other seq and expert ranks move nothing
+        if ranks.coord(AXIS_SEQ) or ranks.coord(AXIS_EXPERT):
+            return
+        part = getattr(runner, KV_GATHERS[method])(*args)
+        if ranks.stage is None:
+            ranks.tensor.gather_kv(part)
+        elif part is not None:  # its stage holds some of the layers
+            ranks.send_kv(part, 0, "kv_gather")
     elif method in KV_SCATTERS:
         shape = tuple(kwargs["shape"])
         if ranks.stage is not None:
@@ -1318,7 +1312,7 @@ def _follow(runner, ranks, replayer, method: str, args: tuple,
 
 def _follow_stage_import(runner, ranks, method: str, args: tuple,
                          shape: tuple) -> None:
-    """A KV import on the stage x tensor grid: ``shape`` is a tensor
+    """A KV import on a grid with stages: ``shape`` is a tensor
     share of the whole; this process receives its stage's layers of it
     from rank 0, if its stage holds any, and writes them."""
     slabs = method == "import_slabs"
@@ -1360,9 +1354,9 @@ def _watch_parent(parent_pid: int) -> None:
 
 
 def build_runner(config, params, num_blocks, ranks):
-    """This rank's runner: Whisper's for a Whisper model, a stage's on the
-    stage x tensor grid (engine/pp_runner.py ``StageRankRunner``), the
-    paged text engine's otherwise."""
+    """This rank's runner: a stage's on a grid with stages
+    (engine/pp_runner.py ``StageRankRunner``), Whisper's for a Whisper
+    model, the paged text engine's otherwise."""
     if ranks.stage is not None:
         from production_stack_tpu_torch.engine.pp_runner import (
             StageRankRunner,
@@ -1380,13 +1374,12 @@ def build_runner(config, params, num_blocks, ranks):
     return ModelRunner(config, params, num_blocks, ranks=ranks)
 
 
-def follower_main(rank: int, size: int, store_port: int, devices: list,
-                  backend: str, config, params, num_blocks, parent_pid: int,
-                  threads: int, math: dict, axis: str = AXIS_TENSOR,
-                  tensor: int = 1) -> None:
-    """A follower process: join the group, build this rank's runner, and
-    replay the leader's calls, with the leader's thread count and float32
-    math (``float32_math``)."""
+def follower_main(rank: int, store_port: int, devices: list, backend: str,
+                  config, params, num_blocks, parent_pid: int, threads: int,
+                  math: dict, grid) -> None:
+    """A follower process: join the ``grid``'s group, build this rank's
+    runner, and replay the leader's calls, with the leader's thread count
+    and float32 math (``float32_math``)."""
     _watch_parent(parent_pid)
     torch.set_num_threads(threads)
     set_float32_math(math)
@@ -1395,8 +1388,8 @@ def follower_main(rank: int, size: int, store_port: int, devices: list,
             level=logging.INFO,
             format=f"%(asctime)s %(levelname)s rank{rank} %(name)s "
                    "%(message)s")
-    ranks = pdist.init_rank(rank, size, store_port, devices, backend,
-                            axis=axis, tensor=tensor)
+    ranks = pdist.init_rank(rank, grid.size, store_port, devices, backend,
+                            grid=grid)
     try:
         follower_loop(build_runner(config, params, num_blocks, ranks),
                       ranks)
@@ -1409,19 +1402,19 @@ def follower_main(rank: int, size: int, store_port: int, devices: list,
     os._exit(0)
 
 
-def refusal(config, axis: str = AXIS_TENSOR) -> Optional[str]:
-    """What the ranks of ``axis`` do not carry yet in ``config``, named as
-    the flag that asks for it; None when they carry all of it. Tensor
-    parallelism carries every model and feature the port serves; the
-    stage x tensor grid every text model and feature the staged runner
-    serves; sequence parallelism, alone or on the seq x tensor grid, and
-    expert parallelism, alone or on the expert x tensor grid, every text
-    model and feature (MoE models, int8 weights, multi-LoRA, the prefix
-    cache, a disaggregated role and the host and remote KV tiers
-    included; a dense model at expert size N holds everything whole). None
-    of them carries a Whisper model: its runner has no ring, no staged
-    form and no experts to split."""
-    if axis == AXIS_TENSOR:
+def refusal(config, grid=AXIS_TENSOR) -> Optional[str]:
+    """What the processes of ``grid`` (a ``Grid``, or the name of its one
+    axis) do not carry yet in ``config``, named as the flag that asks for
+    it; None when they carry all of it. Tensor ranks carry every model and
+    feature the port serves, and every grid with another axis above 1
+    every text model and feature its runner serves (MoE models, int8
+    weights, multi-LoRA, the prefix cache, a disaggregated role and the
+    host and remote KV tiers included; a dense model at expert size N
+    holds everything whole; with stages, what the staged runner serves).
+    None of them carries a Whisper model beyond tensor ranks: its runner
+    has no ring, no staged form and no experts to split."""
+    axes = grid.axes if isinstance(grid, pdist.Grid) else (grid,)
+    if set(axes) <= {AXIS_TENSOR}:
         return None
     m = config.model
     if m.architecture == "whisper":
@@ -1429,33 +1422,27 @@ def refusal(config, axis: str = AXIS_TENSOR) -> Optional[str]:
     return None
 
 
-def start_ranks(config, params, num_blocks, device, size: int,
+def start_ranks(config, params, num_blocks, device, grid,
                 devices=None, backend: Optional[str] = None,
-                whisper: bool = False, axis: str = AXIS_TENSOR,
-                tensor: int = 1):
-    """Start ``size`` ranks of ``axis`` (tensor, seq, expert, or a grid
-    of ``size`` processes at tensor size ``tensor``: ``AXIS_GRID``, seq x
-    tensor, ``AXIS_PP_GRID``, stage x tensor, or ``AXIS_EP_GRID``, expert
-    x tensor) for an engine on
-    ``device``:
-    this process is rank 0, the others are spawned followers. ``devices``
-    (one a rank; default ``cuda:r`` on a card, the CPU otherwise) and
-    ``backend`` (default ``nccl`` on a card, ``gloo`` on the CPU) are the
-    caller's to choose; a rank whose card does not exist raises before any
-    process starts. ``params`` is None (seeded or loaded on each rank) or
-    the whole parameter dict, which every rank cuts by its tensor rank and
-    its expert rank (on the seq axis, keeps whole). What the axis does not carry
-    (``refusal``) raises before any process starts. ``whisper`` says the
-    caller is a ``WhisperRunner``; a Whisper model for the text engine, or
-    the reverse, raises before any process starts. Returns rank 0's
+                whisper: bool = False):
+    """Start the processes of ``grid`` (parallel/distributed.py ``Grid``)
+    for an engine on ``device``: this process is rank 0, the others are
+    spawned followers. ``devices`` (one a process, by global rank; default
+    ``cuda:r`` on a card, the CPU otherwise) and ``backend`` (default
+    ``nccl`` on a card, ``gloo`` on the CPU) are the caller's to choose; a
+    rank whose card does not exist raises before any process starts.
+    ``params`` is None (seeded or loaded on each rank) or the whole
+    parameter dict, which every process cuts by its stage, tensor rank and
+    expert rank. What the grid does not carry (``refusal``) raises before
+    any process starts. ``whisper`` says the caller is a
+    ``WhisperRunner``; a Whisper model for the text engine, or the
+    reverse, raises before any process starts. Returns rank 0's
     ``MirroredRunner``."""
-    what = pdist.PARALLELISM[axis]
-    if axis in pdist.GRID_OUTER:
-        pdist.check_grid(size, tensor, axis)
-    why = refusal(config, axis)
+    size, what = grid.size, grid.parallelism
+    why = refusal(config, grid)
     if why is not None:
-        raise ValueError(f"{why}: not ported under {what} yet ({axis} "
-                         f"size {size})")
+        raise ValueError(f"{why}: not ported under {what} yet "
+                         f"({grid.shape})")
     if (config.model.architecture == "whisper") != whisper:
         raise ValueError(
             f"{config.model.name} is not a Whisper model" if whisper else
@@ -1475,10 +1462,9 @@ def start_ranks(config, params, num_blocks, device, size: int,
     store = pdist.open_store(size)
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(
-        target=follower_main, name=f"{axis}-rank-{r}", daemon=True,
-        args=(r, size, store.port, devices, backend, config, params,
-              num_blocks, os.getpid(), torch.get_num_threads(),
-              float32_math(), axis, tensor))
+        target=follower_main, name=f"{grid.label}-rank-{r}", daemon=True,
+        args=(r, store.port, devices, backend, config, params, num_blocks,
+              os.getpid(), torch.get_num_threads(), float32_math(), grid))
         for r in range(1, size)]
     for p in procs:
         p.start()
@@ -1486,7 +1472,7 @@ def start_ranks(config, params, num_blocks, device, size: int,
     try:
         pdist.await_ranks(store, procs)
         ranks = pdist.init_rank(0, size, store.port, devices, backend,
-                                store=store, axis=axis, tensor=tensor)
+                                store=store, grid=grid)
         inner = build_runner(config, params, num_blocks, ranks)
     except BaseException:
         for p in procs:
@@ -1514,18 +1500,27 @@ def process_device(device, dcfg, devices=None) -> str:
     return "cpu"
 
 
-def check_group(config, dcfg, axis: str, tensor: int) -> None:
-    """Raise unless ``config`` can run on the multi-host group ``dcfg``,
-    in the reference's order: no pipeline stages (the staged runner's
-    stages do not span processes), a coordinator of ``host:port``, no
-    Whisper model (its serving is single-controller), a mesh of one
-    process a rank, and nothing the axis does not carry (``refusal``).
-    The server turns this ValueError into its exit at start."""
-    mesh = config.mesh
-    if mesh.stage > 1:
+def _grid_of(config, grid, tensor: int):
+    """``grid``, or, given the name of an axis or None, the grid of
+    ``config.mesh`` at tensor size ``tensor``."""
+    return (grid if isinstance(grid, pdist.Grid)
+            else pdist.Grid.of(config.mesh, tensor))
+
+
+def check_group(config, dcfg, grid, tensor: int = 1) -> None:
+    """Raise unless ``config`` can run on the multi-host group ``dcfg``
+    as the processes of ``grid`` (``_grid_of``), in the reference's
+    order: no pipeline stages (the staged runner's stages do not span
+    processes), a coordinator of ``host:port``, no Whisper model (its
+    serving is single-controller), no expert ranks (the reference's CLI
+    has no flag for them), the grid's process count, and nothing the
+    grid does not carry (``refusal``). The server turns this ValueError
+    into its exit at start."""
+    grid = _grid_of(config, grid, tensor)
+    if grid.stage > 1:
         raise ValueError(
             "multi-host serving does not compose with the staged pipeline "
-            f"runner (pipeline size {mesh.stage}): shard across processes "
+            f"runner (pipeline size {grid.stage}): shard across processes "
             "with --tensor-parallel-size or --sequence-parallel-size "
             "instead")
     dcfg.check()
@@ -1534,37 +1529,37 @@ def check_group(config, dcfg, axis: str, tensor: int) -> None:
                          "serving is single-controller): scale it with "
                          "--tensor-parallel-size within one process tree "
                          "or add replicas")
-    if mesh.expert > 1:
+    if grid.expert > 1:
         raise ValueError(
             f"multi-host serving does not reach the expert axis (expert "
-            f"size {mesh.expert}): the reference's CLI has no flag for "
+            f"size {grid.expert}): the reference's CLI has no flag for "
             "it; start expert ranks through EngineConfig.mesh in one "
             "process tree")
-    want = mesh.seq * tensor
-    if dcfg.num_processes != want:
+    if dcfg.num_processes != grid.size:
         raise ValueError(
             f"--num-processes {dcfg.num_processes} does not match the "
-            f"mesh's {want} processes (tensor size {tensor} x sequence "
-            f"size {mesh.seq}, one process a rank)")
-    why = refusal(config, axis)
+            f"mesh's {grid.size} processes (tensor size {grid.tensor} x "
+            f"sequence size {grid.seq}, one process a rank)")
+    why = refusal(config, grid)
     if why is not None:
-        raise ValueError(f"{why}: not ported under "
-                         f"{pdist.PARALLELISM[axis]} yet")
+        raise ValueError(f"{why}: not ported under {grid.parallelism} yet")
 
 
 def lead_ranks(config, params, num_blocks, device, dcfg, devices=None,
-               backend: Optional[str] = None, axis: str = AXIS_TENSOR,
-               tensor: int = 1, secret: Optional[bytes] = None,
+               backend: Optional[str] = None, grid=None, tensor: int = 1,
+               secret: Optional[bytes] = None,
                bind_host: Optional[str] = None):
-    """Process 0 of the multi-host group ``dcfg``: wait on the channel for
-    its ``num_processes - 1`` followers (each authenticated, then sent
-    this process's settings), join the group (``join_world``), build the
-    runner, and return it as a ``MirroredRunner`` over the channel. The
-    channel binds the loopback where the coordinator is local, otherwise
-    ``bind_host`` (default ``PSTPU_CONTROL_BIND``, or every interface, as
-    the reference). ``params``, where given, must be the followers' too:
-    a follower whose ``weights_fingerprint`` differs raises here."""
-    check_group(config, dcfg, axis, tensor)
+    """Process 0 of the multi-host group ``dcfg``, the processes of
+    ``grid`` (``_grid_of``): wait on the channel for its ``num_processes
+    - 1`` followers (each authenticated, then sent this process's
+    settings), join the group (``join_world``), build the runner, and
+    return it as a ``MirroredRunner`` over the channel. The channel binds
+    the loopback where the coordinator is local, otherwise ``bind_host``
+    (default ``PSTPU_CONTROL_BIND``, or every interface, as the
+    reference). ``params``, where given, must be the followers' too: a
+    follower whose ``weights_fingerprint`` differs raises here."""
+    grid = _grid_of(config, grid, tensor)
+    check_group(config, dcfg, grid)
     dev = process_device(device, dcfg, devices)
     backend = backend or pdist.default_backend(dev)
     secret = secret if secret is not None else control_secret()
@@ -1582,7 +1577,7 @@ def lead_ranks(config, params, num_blocks, device, dcfg, devices=None,
             from production_stack_tpu_torch.ops import _build
 
             _build.build_all()
-        ranks = pdist.join_world(dcfg, dev, backend, axis, tensor)
+        ranks = pdist.join_world(dcfg, dev, backend, grid)
         inner = build_runner(config, params, num_blocks, ranks)
     except BaseException:
         channel.close()
@@ -1593,17 +1588,19 @@ def lead_ranks(config, params, num_blocks, device, dcfg, devices=None,
 
 
 def follow_leader(config, dcfg, device, devices=None,
-                  backend: Optional[str] = None, axis: str = AXIS_TENSOR,
-                  tensor: int = 1, params=None, num_blocks=None,
+                  backend: Optional[str] = None, grid=None, tensor: int = 1,
+                  params=None, num_blocks=None,
                   secret: Optional[bytes] = None) -> None:
-    """A follower of the multi-host group ``dcfg``: reach the leader's
-    channel (``connect_leader``; a refused handshake raises), take its
-    settings, join the group, build this rank's runner as the leader
-    builds its own, and replay the leader's calls until it sends
-    ``_shutdown`` or closes the channel. ``params`` must be the leader's
+    """A follower of the multi-host group ``dcfg``, the processes of
+    ``grid`` (``_grid_of``): reach the leader's channel
+    (``connect_leader``; a refused handshake raises), take its settings,
+    join the group, build this rank's runner as the leader builds its
+    own, and replay the leader's calls until it sends ``_shutdown`` or
+    closes the channel. ``params`` must be the leader's
     (``weights_fingerprint``): the leader refuses a follower with other
     weights."""
-    check_group(config, dcfg, axis, tensor)
+    grid = _grid_of(config, grid, tensor)
+    check_group(config, dcfg, grid)
     dev = process_device(device, dcfg, devices)
     backend = backend or pdist.default_backend(dev)
     channel, settings = connect_leader(
@@ -1616,7 +1613,7 @@ def follow_leader(config, dcfg, device, devices=None,
             from production_stack_tpu_torch.ops import _build
 
             _build.build_all()
-        ranks = pdist.join_world(dcfg, dev, backend, axis, tensor)
+        ranks = pdist.join_world(dcfg, dev, backend, grid)
         follower_loop(build_runner(config, params, num_blocks, ranks),
                       ranks, channel)
     finally:

@@ -19,12 +19,12 @@ A copy of production_stack_tpu/engine/perf_accounting.py for one card:
   one; the KV plane's share traffic (``KV_OPS``) and the ring prefill's
   exchange (``RING_OPS``) are no dispatch's, and a ring prefill is
   recorded as a prefill of its prompt's tokens, as the reference's; on
-  the seq x tensor grid rank 0's tensor group counts into the same
-  ``wire``, so a ring prefill is billed its tensor group's collectives
-  as any prefill at that tensor size, and its ring ops stay unbilled; on
-  the stage x tensor grid rank 0 counts its stage's tensor collectives
-  (stage 0's), and the stage relay (``STAGE_OPS``) stays unbilled; under
-  expert parallelism a MoE layer's combine over the expert ranks counts
+  a process grid rank 0's views count into the same ``wire``, so a ring
+  prefill is billed its tensor group's collectives as any prefill at
+  that tensor size, and its ring ops stay unbilled; with stages rank 0
+  counts its stage's collectives (stage 0's), and the stage relay
+  (``STAGE_OPS``) stays unbilled; a MoE layer's combine over the expert
+  ranks counts
   under ``moe_combine`` (2 (N - 1) / N of its ``T E`` float32 partial a
   card, billed to its dispatch like the tensor all-reduces). The
   reference's formulas count a bf16 all-reduce of the hidden

@@ -37,27 +37,31 @@ As in the reference, there are no logprobs (``supports_logprobs``), no
 grammar bank (guided regex and JSON are refused by the engine) and no
 chained decode (``supports_chaining``).
 
-**Pipeline x tensor parallelism** (``StageRankRunner``): the reference
-keeps the tensor axis inside each stage's submesh
+**Stages on the process grid** (``StageRankRunner``): the reference
+gives each stage a submesh that keeps every other axis
 (production_stack_tpu/engine/pp_runner.py), GSPMD sharding a stage's
-layers over it. Here S * T processes make the stage x tensor grid
-(parallel/distributed.py ``AXIS_PP_GRID``), process ``g = s * T + t``
-stage ``s`` and tensor rank ``t``: its stage's layers cut to tensor rank
-``t``'s shard (``init_or_load(..., t, T, stage=(s, S))``, or a whole
-dict cut by stage, then by tensor rank), one ``ModelRunner`` whose model
-collectives run over the process's ``tensor`` view, and a pool of its
-stage's layers and its KV heads. Rank 0's ``MirroredRunner``
+layers over its tensor axis and its experts over its expert axis. Here
+every process of the grid (parallel/distributed.py ``Grid``) holds its
+stage's layers, cut to its tensor rank's shard and its expert rank's
+experts (``init_or_load(..., t, T, stage=(s, S), expert=(e, EP))``, or a
+whole dict cut by stage, then by tensor and expert rank), one
+``ModelRunner`` whose model collectives run over the process's ``tensor``
+view and whose MoE combine runs over its ``expert`` view, and a pool of
+its stage's layers and its KV heads. Rank 0's ``MirroredRunner``
 (engine/multihost.py) sends every call to every process. Each runs its
 stage of it: stage 0 embeds the tokens, a later stage receives the
 residual stream from the stage before over its ``stage`` view
 (``RankGroup.relay_recv``; through host memory under gloo on a card),
 each stage but the last sends its own on (``relay_send``), and the last
-stage's tensor ranks sample the same tokens from the gathered logits and
-send them to every other stage of their tensor rank (``from_last``), so
-every process returns, and folds into its digest, the same tokens.
-Positions, context lengths and slots advance on every process; penalty
-counts stay on the last stage. The pool's block count is the least over
-all S * T processes.
+stage's processes sample the same tokens from the gathered logits and
+send them to every other stage of their view (``from_last``), so every
+process returns, and folds into its digest, the same tokens. Positions,
+context lengths and slots advance on every process; penalty counts stay
+on the last stage. Seq ranks beside stages run no ring (the reference's
+staged runner has no ``seq_parallel``): each is a whole pipeline of its
+own, relaying over its own stage view, and computes every call, as GSPMD
+replicates an axis nothing is cut over. The pool's block count is the
+least over every process.
 """
 
 from __future__ import annotations
@@ -80,6 +84,7 @@ from production_stack_tpu_torch.engine.weights import (
     to_device,
 )
 from production_stack_tpu_torch.ops.attention import dense_causal_attention
+from production_stack_tpu_torch.parallel.mesh import AXIS_EXPERT, AXIS_TENSOR
 
 
 def _paged(attend_impl, meta: dict):
@@ -486,12 +491,13 @@ class StagedModelRunner(_Staged):
 
 
 class StageRankRunner(_Staged):
-    """One process of the pipeline x tensor grid (module docstring): its
-    stage of every call, over one ``ModelRunner`` of its stage's layers
-    at its tensor shard. ``ranks`` is the process's grid group
-    (parallel/distributed.py ``AXIS_PP_GRID``): the model's collectives
-    run over ``ranks.tensor``, the relay over ``ranks.stage``, and the
-    pool's block count is resolved over every process."""
+    """One process of a grid with stages (module docstring): its stage of
+    every call, over one ``ModelRunner`` of its stage's layers at its
+    tensor shard and expert share. ``ranks`` is the process's grid group
+    (parallel/distributed.py ``Grid``): the model's collectives run over
+    ``ranks.tensor``, the MoE combine over ``ranks.expert``, the relay
+    over ``ranks.stage``, and the pool's block count is resolved over
+    every process."""
 
     def __init__(self, config: EngineConfig, params: Optional[dict] = None,
                  num_blocks: Optional[int] = None, ranks=None):
@@ -509,8 +515,8 @@ class StageRankRunner(_Staged):
         if params is None:
             weights, sharded = self._made(ranks.device), True
         else:
-            # cut by stage here, by tensor rank in the runner (quantized
-            # whole first there, as at tensor parallelism alone)
+            # cut by stage here, by tensor and expert rank in the runner
+            # (quantized whole first there, as at tensor parallelism alone)
             weights, sharded = stage_params(
                 params, cfg, (self.stage_index, self.n_stages)), False
         self.runner = ModelRunner(_stage_config(config, self.stage_cfg),
@@ -528,10 +534,14 @@ class StageRankRunner(_Staged):
 
     def _made(self, device) -> dict:
         """This process's share, seeded or loaded as the whole model's:
-        its stage's layers at its tensor rank's cut."""
+        its stage's layers at its tensor rank's cut and its expert rank's
+        experts."""
+        ranks = self.ranks
         return init_or_load(self.cfg, self.config.seed, device,
-                            self.ranks.tensor.rank, self.ranks.tensor_size,
-                            stage=(self.stage_index, self.n_stages))
+                            ranks.coord(AXIS_TENSOR), ranks.tensor_size,
+                            stage=(self.stage_index, self.n_stages),
+                            expert=(ranks.coord(AXIS_EXPERT),
+                                    ranks.expert_size))
 
     @property
     def first(self) -> bool:
@@ -556,7 +566,7 @@ class StageRankRunner(_Staged):
                                  self.cfg.torch_dtype)
         hidden, kv = r.model.forward_hidden(
             r.cfg, r.params, x, positions, attend, kv, lora, ref_tokens,
-            mlp_rows, r.group)
+            mlp_rows, r.group, expert=r.expert_group)
         if not self.last:
             relay.relay_send(hidden)
         return hidden, kv

@@ -138,9 +138,8 @@ server is rank 0 of S x T processes (the stage x tensor grid,
 parallel/distributed.py), process g stage g // T and tensor rank g % T on
 ``cuda:g``: each holds its stage's layers cut to its tensor shard, each
 stage's T processes are a tensor group, and the residual stream is
-relayed stage to stage. Whisper exits at start, not ported yet. Sequence
-parallelism
-(``--sequence-parallel-size N`` at pipeline size 1): the server is rank
+relayed stage to stage. Sequence parallelism
+(``--sequence-parallel-size N``): the server is rank
 0 of N seq ranks started as tensor ranks are, each holding the whole
 model and a whole KV pool; a prompt of at least
 ``--ring-prefill-threshold`` tokens (default 4096) prefills whole by ring
@@ -154,10 +153,14 @@ at any sequence-parallel size, alone and on the grid: a ring prefill
 takes the int8 route and the MoE capacity of its whole padded prompt and
 ranks MoE slots across the seq ranks, and the KV plane moves rank 0's
 whole blocks (on the grid, seq rank 0's tensor shares joined). With
-pipeline parallelism above 1 it exits at start, and so does Whisper at a
-sequence-parallel size above 1: later slices.
-``--data-parallel-size`` parses to the reference's default; above 1 it
-exits at start, not ported yet.
+``--pipeline-parallel-size S`` above 1 as well the server is rank 0 of S
+x N (x T) processes in which each seq rank is a whole pipeline: the ring
+is off, as the reference's staged runner has no ``seq_parallel``, and
+``--ring-prefill-threshold`` has no effect. Every mesh of these flags is
+one process grid (parallel/distributed.py ``Grid``). Whisper beyond
+tensor ranks exits at start, a later slice. ``--data-parallel-size``
+parses to the reference's default; above 1 it exits at start, not
+ported.
 
 Multi-host serving (the reference's flags and their environment defaults:
 ``--distributed-coordinator`` / ``PSTPU_COORDINATOR``, ``--num-processes``
@@ -193,7 +196,6 @@ import http.client
 import io
 import json
 import logging
-import math
 import os
 import signal
 import socket
@@ -3528,13 +3530,13 @@ def _mesh_from_args(args, processes: Optional[int] = None) -> MeshConfig:
     (parallel/mesh.tensor_size, over the cards left to each seq rank or
     stage), or, in a multi-host group of ``processes``, over the processes
     left to each seq rank (``multihost.check_group`` then holds the count
-    to the mesh's). Seq ranks or pipeline stages with tensor ranks make a
-    grid; seq ranks with pipeline stages, and data parallelism above 1,
-    exit, not ported yet."""
+    to the mesh's). Any two or three of them above 1 make one process grid
+    (parallel/distributed.py ``Grid``); data parallelism above 1 exits,
+    not ported."""
     if args.data_parallel_size > 1:
         raise SystemExit(f"--data-parallel-size {args.data_parallel_size}: "
                          "data parallelism is not ported to the PyTorch "
-                         "engine yet (tensor, pipeline and sequence "
+                         "engine (tensor, pipeline and sequence "
                          "parallelism are)")
     pp, sp = args.pipeline_parallel_size, args.sequence_parallel_size
     tensor = args.tensor_parallel_size
@@ -3546,12 +3548,18 @@ def _mesh_from_args(args, processes: Optional[int] = None) -> MeshConfig:
     except ValueError as e:
         raise SystemExit(f"--tensor-parallel-size / --pipeline-parallel-"
                          f"size / --sequence-parallel-size: {e}")
-    if sp > 1 and pp > 1:
-        raise SystemExit(
-            f"--sequence-parallel-size {sp} with --pipeline-parallel-size "
-            f"{pp}: sequence and pipeline parallelism together are a later "
-            "slice of the PyTorch engine (each alone is ported)")
     return MeshConfig(stage=pp, seq=sp, tensor=tp)
+
+
+# each parallel axis's command-line flag, ``--<name>-parallel-size``
+_FLAG_NAMES = {AXIS_STAGE: "pipeline", AXIS_SEQ: "sequence",
+               AXIS_TENSOR: "tensor"}
+
+
+def _flags(grid: pdist.Grid) -> str:
+    """The flags that ask for ``grid``'s axes above 1."""
+    return " ".join(f"--{_FLAG_NAMES[a]}-parallel-size {grid.shape[a]}"
+                    for a in grid.axes if a in _FLAG_NAMES)
 
 
 def config_from_args(args, processes: Optional[int] = None) -> EngineConfig:
@@ -3633,12 +3641,11 @@ def config_from_args(args, processes: Optional[int] = None) -> EngineConfig:
         perf_ledger_max_bytes=args.perf_ledger_max_bytes or (16 << 20),
         perf_ledger_interval=args.perf_ledger_interval or 60.0,
         mesh=mesh, **overrides)
-    if mesh.seq > 1:
-        why = tp_refusal(config, AXIS_SEQ)
-        if why is not None:
-            raise SystemExit(f"{why} under sequence parallelism is a later "
-                             f"slice of the PyTorch engine "
-                             f"(--sequence-parallel-size {mesh.seq})")
+    grid = pdist.Grid.of(mesh, mesh.tensor)
+    if tp_refusal(config, grid) is not None:
+        raise SystemExit(f"Whisper under {grid.parallelism} is a later slice "
+                         f"of the PyTorch engine ({_flags(grid)}, --model "
+                         f"{config.model.name})")
     return config
 
 
@@ -3702,10 +3709,9 @@ def _multihost_config(args, dcfg: DistributedConfig) -> EngineConfig:
     cannot run exits (``multihost.check_group``: pipeline stages, no
     coordinator, Whisper, a process count other than the mesh's)."""
     config = config_from_args(args, dcfg.num_processes)
-    mesh = config.mesh
     try:
-        check_group(config, dcfg, pdist.axis_of(mesh.seq, mesh.tensor),
-                    mesh.tensor)
+        check_group(config, dcfg, pdist.Grid.of(config.mesh,
+                                                config.mesh.tensor))
     except ValueError as e:
         raise SystemExit(str(e))
     return config
@@ -3736,21 +3742,14 @@ def _follower_main(args, dcfg: DistributedConfig,
     httpd = ThreadingHTTPServer((args.host, args.port), Health)
     threading.Thread(target=httpd.serve_forever, daemon=True,
                      name="follower-health").start()
-    mesh = config.mesh
     try:
         follow_leader(config, dcfg, args.device, rank_devices, backend,
-                      axis=pdist.axis_of(mesh.seq, mesh.tensor),
-                      tensor=mesh.tensor)
+                      pdist.Grid.of(config.mesh, config.mesh.tensor))
     finally:
         httpd.shutdown()
         httpd.server_close()
     _log.info("process %d: the leader's channel closed; exiting",
               dcfg.process_id)
-
-
-# each parallel axis's command-line flag, ``--<name>-parallel-size``
-_FLAG_NAMES = {AXIS_STAGE: "pipeline", AXIS_SEQ: "sequence",
-               AXIS_TENSOR: "tensor"}
 
 
 def server_from_args(args, rank_devices: Optional[list] = None,
@@ -3760,16 +3759,14 @@ def server_from_args(args, rank_devices: Optional[list] = None,
     """The server ``main`` runs for parsed command-line ``args``, not yet
     bound: the warmup starts at ``bind`` unless ``--skip-warmup``. A
     Whisper model gets its own runner and server
-    (engine/whisper_server.py); the paged text engine never starts. Under
-    tensor or sequence parallelism ``rank_devices`` and ``backend`` place
-    the ranks, on the grid every process by global rank
-    (default: rank r on ``cuda:r`` over NCCL, or the CPU over gloo); a
-    rank whose card does not exist exits before any rank starts. Under
-    pipeline parallelism ``stage_devices`` places the stages (default:
-    stage s on ``cuda:s``, or the CPU); a stage whose card does not exist
-    exits before any weight is made. With tensor parallelism as well
-    ``rank_devices`` places every process of the stage x tensor grid by
-    global rank, as on the seq x tensor grid. A multi-host
+    (engine/whisper_server.py); the paged text engine never starts.
+    ``rank_devices`` and ``backend`` place the processes of the mesh's
+    grid (parallel/distributed.py ``Grid``) by global rank (default: rank
+    r on ``cuda:r`` over NCCL, or the CPU over gloo); a rank whose card
+    does not exist exits before any rank starts. With pipeline stages
+    alone ``stage_devices`` places the stages of the one process
+    (default: stage s on ``cuda:s``, or the CPU); a stage whose card does
+    not exist exits before any weight is made. A multi-host
     ``distributed`` topology makes the server its process 0
     (``rank_devices``: this process's device,
     ``multihost.process_device``), and what the group cannot run exits
@@ -3778,44 +3775,31 @@ def server_from_args(args, rank_devices: Optional[list] = None,
     config = (_multihost_config(args, distributed) if multi
               else config_from_args(args))
     mesh = config.mesh
-    # stages are processes only on the stage x tensor grid
-    staged = mesh.tensor > 1 and mesh.stage > 1
-    sizes = {AXIS_STAGE: mesh.stage if staged else 1, AXIS_SEQ: mesh.seq,
-             AXIS_TENSOR: mesh.tensor}
-    axes = [a for a, n in sizes.items() if n > 1]
+    grid = pdist.Grid.of(mesh, mesh.tensor)
+    # the stages are processes where another axis is above 1, and one
+    # process's devices otherwise
+    staged = grid.axes == (AXIS_STAGE,)
     if multi:
         try:
             pdist.check_devices(
                 [process_device(args.device, distributed, rank_devices)],
-                pdist.PARALLELISM[pdist.axis_of(config.mesh.seq,
-                                                config.mesh.tensor)])
+                grid.parallelism)
         except (RuntimeError, ValueError) as e:
             raise SystemExit(f"--num-processes {distributed.num_processes}:"
                              f" {e}")
-    elif axes:
-        # every process of the ranks: the product of the sizes on a grid
-        n = math.prod(sizes.values())
-        what = pdist.PARALLELISM[pdist.axis_of(*(sizes[a] for a in (
-            AXIS_SEQ, AXIS_TENSOR, AXIS_STAGE)))]
+    elif grid.size > 1 and not staged:
         try:
-            pdist.check_devices(rank_devices
-                                or pdist.rank_devices(args.device, n), what)
+            pdist.check_devices(
+                rank_devices or pdist.rank_devices(args.device, grid.size),
+                grid.parallelism)
         except RuntimeError as e:
-            flags = " ".join(f"--{_FLAG_NAMES[a]}-parallel-size {sizes[a]}"
-                             for a in axes)
-            raise SystemExit(f"{flags}: {e}")
-    pp = mesh.stage
-    if pp > 1:
-        if config.model.architecture == "whisper":
-            raise SystemExit(
-                f"--pipeline-parallel-size {pp}: Whisper under pipeline "
-                "parallelism is not ported to the PyTorch engine yet")
-        if not staged:
-            try:
-                stage_devices = pstage_devices(args.device, pp,
-                                               stage_devices)
-            except (RuntimeError, ValueError) as e:
-                raise SystemExit(f"--pipeline-parallel-size {pp}: {e}")
+            raise SystemExit(f"{_flags(grid)}: {e}")
+    if staged:
+        try:
+            stage_devices = pstage_devices(args.device, grid.stage,
+                                           stage_devices)
+        except (RuntimeError, ValueError) as e:
+            raise SystemExit(f"--pipeline-parallel-size {grid.stage}: {e}")
     if config.model.architecture == "whisper":
         from production_stack_tpu_torch.engine.whisper_server import (
             WhisperServer,

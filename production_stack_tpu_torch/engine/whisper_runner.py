@@ -158,9 +158,11 @@ class WhisperRunner:
             from production_stack_tpu_torch.engine.multihost import (
                 start_ranks,
             )
+            from production_stack_tpu_torch.parallel.distributed import Grid
 
-            self._mirror = start_ranks(config, params, None, device, tp,
-                                       rank_devices, backend, whisper=True)
+            self._mirror = start_ranks(config, params, None, device,
+                                       Grid(tensor=tp), rank_devices,
+                                       backend, whisper=True)
             self.device = self._mirror.device
             self.params = None  # the ranks hold the shards
         else:

@@ -307,7 +307,10 @@ def _moe_mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     per-expert products are (the int8 routes run one expert at a time).
     On the expert x tensor grid the down-projection's F partials are
     summed over the tensor group first (``quant.expert_matmul``, this
-    rank's kept rows), then the combine partial over the expert group."""
+    rank's kept rows), then the combine partial over the expert group.
+    With both a ``seq`` and an ``expert`` group (a ring prefill on the seq
+    x expert grid) both exchanges run: positions count the earlier seq
+    ranks' slots, then the partial is summed over the expert group."""
     shape = x.shape
     E = shape[-1]
     dt = x.dtype

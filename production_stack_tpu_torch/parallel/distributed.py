@@ -1,6 +1,6 @@
-"""Rank start-up for tensor, sequence and expert parallelism and for the
-grids that join an outer axis to tensor parallelism: one process a rank
-under torch.distributed, with two process groups.
+"""Rank start-up for every mesh of processes: tensor, sequence, expert
+and pipeline parallelism alone or together, on one process grid, one
+process a rank under torch.distributed, with two process groups.
 
 - The **device group** carries the model's collectives (the float32
   all-reduces of the row-parallel products and of the vocab-parallel
@@ -9,40 +9,36 @@ under torch.distributed, with two process groups.
   all-gather of the vocab-sharded logits) on each rank's device: ``nccl``
   where each rank has a card of its own, ``gloo`` on the CPU. gloo also
   takes CUDA tensors, staging them through host memory, which lets two
-  ranks share one card for a check (NCCL refuses that). A group of
-  ``seq`` ranks (``axis``) cuts no weights and runs none of those: its
-  device group carries only the ring prefill's exchange (``ring_*``;
-  parallel/ring_attention.py). A ``stage`` view (the pipeline x tensor
-  grid) carries only the stage relay. A group of ``expert`` ranks (alone
-  or as the expert view of the expert x tensor grid) carries only the
-  MoE block's combine (``moe_combine``), where the rules cut the experts
-  over it.
+  ranks share one card for a check (NCCL refuses that). A ``seq`` view
+  cuts no weights: it carries only the ring prefill's exchange
+  (``ring_*``; parallel/ring_attention.py). A ``stage`` view carries only
+  the stage relay. An ``expert`` view carries only the MoE block's
+  combine (``moe_combine``), where the rules cut the experts over it.
 - The **control group** is ``gloo`` on the CPU and carries the leader's
   step inputs to the followers (engine/multihost.py) and the few integers
   the ranks must agree on, such as the KV pool's block count.
 
-**The grids** (``GRID_OUTER``): an outer axis and tensor parallelism at
-once. ``AXIS_GRID`` is sequence and tensor parallelism, ``AXIS_PP_GRID``
-pipeline and tensor parallelism, ``AXIS_EP_GRID`` expert and tensor
-parallelism. ``N * T`` processes, process ``g = s * T + t`` rank ``s`` of
-the outer axis (seq rank, stage or expert rank) and tensor rank ``t``,
-tensor innermost as in the reference's device order (``("data", "stage",
-"seq", "tensor", "expert")``) for seq and stage, so under NCCL a tensor
-group's ranks sit on neighbouring cards. The reference puts ``expert``
-innermost; the port keeps tensor innermost on every grid, so that the
+**The grid** (``Grid``): named sizes ``stage``, ``seq``, ``expert`` and
+``tensor``, ``stage * seq * expert * tensor`` processes, process ``g =
+((stage_i * SEQ + seq_i) * EXP + expert_i) * T + tensor_i``. Outside the
+tensor axis this is the reference's device order (``("data", "stage",
+"seq", "tensor", "expert")``, production_stack_tpu/parallel/mesh.py);
+the reference puts ``expert`` innermost, the port ``tensor``, so that the
 tensor group, whose collectives run in every layer, has the neighbouring
-cards, and the expert group's one combine a MoE layer crosses farther. The process's
-``RankGroup`` spans all of them: its device group is torch.distributed's
-default group, its control group the same processes, and its shard the
-tensor rank's (``shard_of``). It holds two views of its own place,
-``RankGroup``s with a device group each: ``tensor`` (the T processes of
-its seq rank, stage or expert rank: the model's collectives and the KV
-shares of an export) and the outer axis's, over the N processes of its
-tensor rank: ``seq`` (the ring), ``stage`` (the stage relay:
-``relay_send``, ``relay_recv``, ``from_last``) or ``expert`` (the MoE
-combine). Every process creates the subgroups in
-the same order. The views add their bytes to the process's ``wire``. On
-one axis a group is its own view of that axis.
+cards under NCCL and the expert group's one combine a MoE layer crosses
+farther. A process's ``RankGroup`` spans all of them: its device group is
+torch.distributed's default group, its control group the same processes,
+its shard the tensor and expert rank's (``shard_of``). It holds a view of
+each axis above 1 (``views``): the processes that differ from it only on
+that axis, a ``RankGroup`` with a device group of its own (where the axis
+is the only one above 1, the group itself). An axis of size 1 has no view
+and runs no collective, as in the reference, where axes of size 1 cost
+nothing (production_stack_tpu/parallel/mesh.py:17-18). The views are
+``tensor`` (the model's collectives and the KV shares of an export),
+``seq`` (the ring), ``stage`` (the stage relay: ``relay_send``,
+``relay_recv``, ``from_last``) and ``expert`` (the MoE combine). Every
+process creates the subgroups in the same order, and the views add their
+bytes to the process's ``wire``.
 
 The rendezvous is a ``TCPStore`` that rank 0 opens on ``127.0.0.1`` at a
 free port and hands to the ranks it starts; gloo binds the loopback
@@ -73,6 +69,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import ipaddress
+import math
 import os
 import socket
 import time
@@ -106,25 +103,101 @@ KV_OPS = ("kv_gather", "kv_scatter")
 # slots an expert sent to every rank (``moe_counts``). The perf
 # accountant bills them to no dispatch
 RING_OPS = ("ring_rotate", "ring_gather", "ring_last", "ring_moe_counts")
-# its ops of the stage relay (pipeline x tensor grid): the residual stream
+# its ops of the stage relay (a grid with stages): the residual stream
 # sent to the next stage, the last stage's results (sampled tokens, scores)
 # sent to the others. The perf accountant bills them to no dispatch
 STAGE_OPS = ("stage_relay", "stage_last")
-# the grids' processes (module docstring): seq x tensor, stage x tensor,
-# expert x tensor
-AXIS_GRID = "seq,tensor"
-AXIS_PP_GRID = "stage,tensor"
-AXIS_EP_GRID = "expert,tensor"
-# each grid's outer axis
-GRID_OUTER = {AXIS_GRID: AXIS_SEQ, AXIS_PP_GRID: AXIS_STAGE,
-              AXIS_EP_GRID: AXIS_EXPERT}
-# a group's axis as its messages name it
-PARALLELISM = {AXIS_TENSOR: "tensor parallelism",
-               AXIS_SEQ: "sequence parallelism",
-               AXIS_EXPERT: "expert parallelism",
-               AXIS_GRID: "sequence and tensor parallelism",
-               AXIS_PP_GRID: "pipeline and tensor parallelism",
-               AXIS_EP_GRID: "expert and tensor parallelism"}
+# the grid's axes, outermost first (module docstring)
+GRID_AXES = (AXIS_STAGE, AXIS_SEQ, AXIS_EXPERT, AXIS_TENSOR)
+# each axis as a message names its parallelism, in the order it lists them
+_PARALLELISM = {AXIS_SEQ: "sequence", AXIS_STAGE: "pipeline",
+                AXIS_EXPERT: "expert", AXIS_TENSOR: "tensor"}
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """The processes of a mesh (module docstring): a size on each of
+    ``GRID_AXES``, tensor innermost."""
+
+    stage: int = 1
+    seq: int = 1
+    expert: int = 1
+    tensor: int = 1
+
+    def __post_init__(self):
+        for a in GRID_AXES:
+            if getattr(self, a) < 1:
+                raise ValueError(f"grid axis {a} of size {getattr(self, a)}")
+
+    @classmethod
+    def of(cls, mesh, tensor: int) -> "Grid":
+        """``mesh``'s processes (parallel/mesh.MeshConfig) at the resolved
+        tensor size ``tensor``."""
+        return cls(mesh.stage, mesh.seq, mesh.expert, tensor)
+
+    @classmethod
+    def named(cls, axis: str, size: int) -> "Grid":
+        """``size`` processes on the one axis ``axis``."""
+        if axis not in GRID_AXES:
+            raise ValueError(f"no grid axis {axis!r}")
+        return cls(**{axis: size})
+
+    @property
+    def shape(self) -> dict:
+        return {a: getattr(self, a) for a in GRID_AXES}
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    @property
+    def axes(self) -> tuple:
+        """The axes above 1, outermost first."""
+        return tuple(a for a, n in self.shape.items() if n > 1)
+
+    @property
+    def label(self) -> str:
+        """The axes above 1 joined by commas (``seq,tensor``); ``tensor``
+        for one process."""
+        return ",".join(self.axes) or AXIS_TENSOR
+
+    @property
+    def parallelism(self) -> str:
+        """The grid in words, as messages name it ("sequence and tensor
+        parallelism")."""
+        names = [n for a, n in _PARALLELISM.items() if a in self.axes] or [
+            _PARALLELISM[AXIS_TENSOR]]
+        head = ", ".join(names[:-1])
+        return f"{head + ' and ' if head else ''}{names[-1]} parallelism"
+
+    def coords(self, g: int) -> dict:
+        """Process ``g``'s index on each axis."""
+        if not 0 <= g < self.size:
+            raise ValueError(f"process {g} outside the grid's {self.size}")
+        out = {}
+        for a in reversed(GRID_AXES):
+            g, out[a] = divmod(g, getattr(self, a))
+        return {a: out[a] for a in GRID_AXES}
+
+    def process(self, **coords) -> int:
+        """The process at ``coords`` (an axis left out is at 0)."""
+        g = 0
+        for a in GRID_AXES:
+            g = g * getattr(self, a) + coords.get(a, 0)
+        return g
+
+    def members(self, g: int, axis: str) -> tuple:
+        """The processes that differ from ``g`` only on ``axis``, by their
+        index there: ``g``'s view of ``axis``."""
+        c = self.coords(g)
+        return tuple(self.process(**{**c, axis: i})
+                     for i in range(getattr(self, axis)))
+
+    def groups(self, axis: str) -> list:
+        """Every view of ``axis``, once each, ordered by its first
+        process."""
+        return list(dict.fromkeys(self.members(g, axis)
+                                  for g in range(self.size)))
 
 
 @dataclasses.dataclass
@@ -245,28 +318,6 @@ def check_devices(devices: Sequence[str],
                 f"{r} on {d}, but this machine has {n} CUDA card(s)")
 
 
-def axis_of(seq: int, tensor: int, stage: int = 1, expert: int = 1) -> str:
-    """The axis of a group of ``seq`` seq ranks (or ``stage`` stages, or
-    ``expert`` expert ranks) of ``tensor`` tensor ranks each: a grid
-    where both are above 1."""
-    if stage > 1 and tensor > 1:
-        return AXIS_PP_GRID
-    if expert > 1:
-        return AXIS_EP_GRID if tensor > 1 else AXIS_EXPERT
-    if seq > 1 and tensor > 1:
-        return AXIS_GRID
-    return AXIS_SEQ if seq > 1 else AXIS_TENSOR
-
-
-def check_grid(size: int, tensor: int, axis: str = AXIS_GRID) -> None:
-    """Raise unless ``size`` processes make the grid ``axis`` at tensor
-    size ``tensor``: both axes above 1."""
-    if tensor < 2 or size % tensor or size == tensor:
-        raise ValueError(f"{size} processes make no "
-                         f"{axis.replace(',', ' x ')} grid at tensor size "
-                         f"{tensor}")
-
-
 def open_store(size: int) -> dist.TCPStore:
     """Rank 0's rendezvous store on a free loopback port."""
     return dist.TCPStore(HOST, 0, size, True, timeout=STORE_TIMEOUT,
@@ -298,14 +349,14 @@ def _gloo_options(host: str = HOST):
 
 @dataclasses.dataclass
 class RankGroup:
-    """One rank's place in a tensor- or sequence-parallel group, or in a
-    grid (``axis``): its rank, its device, every rank's device, its shard
-    of the model (``shard``, set by the model runner) and the two process
-    groups (module docstring). ``pg`` is the device group (None:
+    """One process's place on the grid (``grid``; a group of one axis, as a
+    view is, holds that axis's grid): its rank, its device, every rank's
+    device, its shard of the model (``shard``, set by the model runner)
+    and the two process groups (module docstring). ``axis`` is the grid's
+    ``label``, or a view's one axis. ``pg`` is the device group (None:
     torch.distributed's default group) and ``members`` the global rank of
-    each of its ranks (empty: the rank itself); a grid's ``views`` are its
-    ``tensor`` subgroup and its outer axis's (``seq``, ``stage`` or
-    ``expert``)."""
+    each of its ranks (empty: the rank itself); ``views`` are its views of
+    the axes above 1 (module docstring)."""
 
     rank: int
     size: int
@@ -322,6 +373,11 @@ class RankGroup:
     members: tuple = ()
     views: dict = dataclasses.field(default_factory=dict)
     host: str = HOST
+    grid: Optional[Grid] = None
+
+    def __post_init__(self):
+        if self.grid is None:
+            self.grid = Grid.named(self.axis, self.size)
 
     @property
     def cards(self) -> int:
@@ -329,62 +385,60 @@ class RankGroup:
         return len({d for d in self.devices if d != "cpu"}) or 1
 
     def view(self, axis: str) -> Optional["RankGroup"]:
-        """This process's group on ``axis``: the group itself on its own
-        axis, a grid's subgroup, None where the group has no such
-        axis."""
+        """This process's view of ``axis``: the group itself where the
+        axis is its only one, a subgroup on a grid of several, None where
+        the axis is of size 1."""
         return self if self.axis == axis else self.views.get(axis)
+
+    def coord(self, axis: str) -> int:
+        """This process's index on ``axis`` (0 on an axis of size 1)."""
+        return self.grid.coords(self.rank)[axis]
 
     @property
     def tensor(self) -> Optional["RankGroup"]:
-        """The group the model's collectives run over (None on the seq
-        axis, whose ranks each hold the whole model)."""
+        """The group the model's collectives run over (None at tensor
+        size 1, where each process holds the model uncut by it)."""
         return self.view(AXIS_TENSOR)
 
     @property
     def seq(self) -> Optional["RankGroup"]:
-        """The group the ring prefill runs over (None on the tensor
-        axis)."""
+        """The group the ring prefill runs over (None at seq size 1)."""
         return self.view(AXIS_SEQ)
 
     @property
     def stage(self) -> Optional["RankGroup"]:
-        """The group the stage relay runs over: the stages of this
-        process's tensor rank (None off the pipeline x tensor grid)."""
+        """The group the stage relay runs over: this process's pipeline
+        of stages (None at one stage)."""
         return self.view(AXIS_STAGE)
 
     @property
     def expert(self) -> Optional["RankGroup"]:
-        """The group the MoE combine runs over: the expert ranks of this
-        process's tensor rank (None off the expert axis and its grid)."""
+        """The group the MoE combine runs over (None at expert size
+        1)."""
         return self.view(AXIS_EXPERT)
 
     @property
     def tensor_size(self) -> int:
-        """The tensor-parallel degree the group cuts the model over (1 on
-        the seq and expert axes)."""
-        tp = self.tensor
-        return 1 if tp is None else tp.size
+        """The tensor-parallel degree the group cuts the model over."""
+        return self.grid.tensor
 
     @property
     def expert_size(self) -> int:
-        """The expert-parallel degree (1 off the expert axis and its
-        grid)."""
-        ep = self.expert
-        return 1 if ep is None else ep.size
+        """The expert-parallel degree."""
+        return self.grid.expert
 
     def shard_of(self, cfg, rank: Optional[int] = None) -> Shard:
-        """Rank ``rank``'s (default this rank's) cut of ``cfg``'s model:
-        ``Shard.of`` at its tensor rank (``rank % tensor_size``: tensor
-        innermost on the grid) and its expert rank (``rank //
-        tensor_size`` on the expert axis and its grid); nothing cut at
-        tensor and expert size 1, where each rank holds the whole
-        model."""
+        """Process ``rank``'s (default this process's) cut of ``cfg``'s
+        model: ``Shard.of`` at its tensor and expert ranks; nothing cut at
+        tensor and expert size 1, where each process holds the whole
+        model (of its stage)."""
         r = self.rank if rank is None else rank
         tp, ep = self.tensor_size, self.expert_size
         if tp == 1 and ep == 1:
             return Shard(r, self.size, {}, frozenset())
-        return Shard.of(cfg, r % tp, tp,
-                        (r // tp, ep) if ep > 1 else (0, 1))
+        c = self.grid.coords(r)
+        return Shard.of(cfg, c[AXIS_TENSOR], tp,
+                        (c[AXIS_EXPERT], ep) if ep > 1 else (0, 1))
 
     def _global(self, r: int) -> int:
         """The global rank of this group's rank ``r`` (torch.distributed
@@ -559,7 +613,7 @@ class RankGroup:
                                         + y.nbytes * (self.size - 1))
         return torch.stack(parts).to(self.device)
 
-    # -- the stage relay (the pipeline x tensor grid) ----------------------
+    # -- the stage relay (a grid with stages) -------------------------------
     def relay_send(self, x: torch.Tensor) -> None:
         """Send ``x`` (the residual stream) to the next stage, rank r + 1
         of this stage view; its bytes count under ``stage_relay`` on the
@@ -588,7 +642,7 @@ class RankGroup:
                                    + y.nbytes * (self.size - 1) / self.size)
         return y.to(self.device)
 
-    # -- KV parts point to point (the pipeline x tensor grid) ---------------
+    # -- KV parts point to point (a grid with stages) ------------------------
     def send_kv(self, part: torch.Tensor, dst: int, op: str) -> None:
         """``part``'s raw bytes to rank ``dst`` over the device group,
         counted under ``op`` (one of ``KV_OPS``): a KV export's or
@@ -653,22 +707,33 @@ class RankGroup:
             dist.destroy_process_group()
 
 
+def _grid(grid: Optional[Grid], axis: str, size: int) -> Grid:
+    """``grid``, or ``size`` processes on ``axis``; raises unless the grid
+    has ``size`` processes."""
+    grid = grid if grid is not None else Grid.named(axis, size)
+    if grid.size != size:
+        raise ValueError(f"{size} processes make no "
+                         f"{grid.label.replace(',', ' x ')} grid of "
+                         f"{grid.shape}")
+    return grid
+
+
 def init_rank(rank: int, size: int, store_port: int, devices: Sequence[str],
               backend: str, store: Optional[dist.TCPStore] = None,
-              axis: str = AXIS_TENSOR, tensor: int = 1) -> RankGroup:
-    """Join the group of ``axis`` as ``rank``: rank 0 passes the ``store``
-    it opened, the others connect to ``store_port``. One group a process:
-    the device group is torch.distributed's default group. On a grid
-    (``GRID_OUTER``) ``size`` is every process and ``tensor`` the tensor
-    size; the group's ``tensor`` and outer views are made here."""
+              axis: str = AXIS_TENSOR, grid: Optional[Grid] = None
+              ) -> RankGroup:
+    """Join the ``size`` processes of ``grid`` (default: all of them on
+    ``axis``) as ``rank``: rank 0 passes the ``store`` it opened, the
+    others connect to ``store_port``. One group a process: the device
+    group is torch.distributed's default group; the views of a grid of
+    several axes are made here."""
     if dist.is_initialized():
         raise RuntimeError("this process already belongs to a "
                            "torch.distributed group")
-    if axis in GRID_OUTER:
-        check_grid(size, tensor, axis)
+    grid = _grid(grid, axis, size)
     device = torch.device(devices[rank])
     if device.type == "cuda":
-        check_devices(devices, PARALLELISM[axis])
+        check_devices(devices, grid.parallelism)
         torch.cuda.set_device(device)
     if store is None:
         store = dist.TCPStore(HOST, store_port, size, False,
@@ -681,59 +746,52 @@ def init_rank(rank: int, size: int, store_port: int, devices: Sequence[str],
     control = dist.new_group(backend="gloo", timeout=CONTROL_TIMEOUT,
                              pg_options=_gloo_options())
     group = RankGroup(rank, size, device, tuple(devices), backend, control,
-                      axis)
-    if axis in GRID_OUTER:
-        group.views = _grid_views(group, tensor)
+                      grid.label, grid=grid)
+    group.views = _grid_views(group)
     return group
 
 
-def _grid_views(world: RankGroup, T: int) -> dict:
-    """The ``tensor`` view and the outer axis's (``GRID_OUTER``: seq,
-    stage or expert) of ``world``'s process (module docstring): every
-    tensor group's device group, then every outer group's, made in the
-    same order on every process."""
-    n, outer = world.size, GRID_OUTER[world.axis]
+def _grid_views(world: RankGroup) -> dict:
+    """The views of ``world``'s process (module docstring), one an axis
+    above 1: none where the grid has one such axis (the group is its own
+    view); otherwise every view of each axis gets its device group, axis
+    by axis in ``GRID_AXES`` order, made in the same order on every
+    process."""
+    grid = world.grid
+    if len(grid.axes) < 2:
+        return {}
     opts = _gloo_options(world.host) if world.backend == "gloo" else None
-
-    def groups(members: list) -> list:
-        return [dist.new_group(m, backend=world.backend,
-                               timeout=DEVICE_TIMEOUT, pg_options=opts)
-                for m in members]
-
-    tensor_members = [tuple(range(s * T, (s + 1) * T)) for s in range(n // T)]
-    outer_members = [tuple(range(t, n, T)) for t in range(T)]
-    tensor_pgs, outer_pgs = groups(tensor_members), groups(outer_members)
-    s, t = divmod(world.rank, T)
-
-    def view(axis, r, members, pg):
-        return RankGroup(r, len(members), world.device,
-                         tuple(world.devices[g] for g in members),
-                         world.backend, None, axis, wire=world.wire, pg=pg,
-                         members=members, host=world.host)
-
-    return {AXIS_TENSOR: view(AXIS_TENSOR, t, tensor_members[s],
-                              tensor_pgs[s]),
-            outer: view(outer, s, outer_members[t], outer_pgs[t])}
+    views = {}
+    for axis in grid.axes:
+        for members in grid.groups(axis):
+            pg = dist.new_group(members, backend=world.backend,
+                                timeout=DEVICE_TIMEOUT, pg_options=opts)
+            if world.rank in members:
+                views[axis] = RankGroup(
+                    members.index(world.rank), len(members), world.device,
+                    tuple(world.devices[g] for g in members), world.backend,
+                    None, axis, wire=world.wire, pg=pg, members=members,
+                    host=world.host)
+    return views
 
 
 def join_world(cfg: DistributedConfig, device, backend: str,
-               axis: str = AXIS_TENSOR, tensor: int = 1) -> RankGroup:
+               grid: Grid) -> RankGroup:
     """Join the multi-host group ``cfg`` names as rank ``process_id`` of
-    ``num_processes``, spawning nothing: process 0 opens the store at the
-    coordinator's port, the others connect to it (module docstring).
-    ``device`` is this process's; every rank's is read from the store. On
-    a grid (``GRID_OUTER``) ``tensor`` is the tensor size and the group's
-    ``tensor`` and outer views are made here."""
+    ``num_processes``, the processes of ``grid``, spawning nothing:
+    process 0 opens the store at the coordinator's port, the others
+    connect to it (module docstring). ``device`` is this process's; every
+    rank's is read from the store. The views of a grid of several axes
+    are made here."""
     if dist.is_initialized():
         raise RuntimeError("this process already belongs to a "
                            "torch.distributed group")
     cfg.check()
     size, rank = cfg.num_processes, cfg.process_id
-    if axis in GRID_OUTER:
-        check_grid(size, tensor, axis)
+    grid = _grid(grid, AXIS_TENSOR, size)
     device = torch.device(device)
     if device.type == "cuda":
-        check_devices([str(device)], PARALLELISM[axis])
+        check_devices([str(device)], grid.parallelism)
         torch.cuda.set_device(device)
     host = local_address(cfg.coordinator_host)
     store = dist.TCPStore(cfg.coordinator_host, cfg.coordinator_port, size,
@@ -745,8 +803,7 @@ def join_world(cfg: DistributedConfig, device, backend: str,
     dist.init_process_group(backend, store=store, rank=rank,
                             world_size=size, timeout=DEVICE_TIMEOUT,
                             pg_options=opts)
-    group = RankGroup(rank, size, device, devices, backend, None, axis,
-                      host=host)
-    if axis in GRID_OUTER:
-        group.views = _grid_views(group, tensor)
+    group = RankGroup(rank, size, device, devices, backend, None,
+                      grid.label, host=host, grid=grid)
+    group.views = _grid_views(group)
     return group

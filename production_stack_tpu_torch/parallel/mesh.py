@@ -2,17 +2,17 @@
 (production_stack_tpu/parallel/mesh.py).
 
 The reference builds one named JAX mesh ("data", "stage", "seq",
-"tensor", "expert") over the chips of a slice. Here the ``tensor`` axis is
-a set of processes, one a rank, each driving one card (or the CPU); the
-``seq`` axis is such a set too, each rank holding the whole model and a
-whole copy of the KV pool, joined only by the ring prefill's exchange
-(parallel/ring_attention.py); and the ``stage`` axis is one process's
-list of devices, one a pipeline stage (``stage_devices``;
-engine/pp_runner.py), which may repeat a card. Each of the three can be
-above 1; two at once where tensor is one of them (the seq x tensor and
-the stage x tensor grids of processes, parallel/distributed.py), not seq
-and stage together; data and expert parallelism are later slices. -1 on
-an axis means "every device the others leave", as in the reference.
+"tensor", "expert") over the chips of a slice. Here the ``tensor``,
+``seq``, ``expert`` and ``stage`` axes are sets of processes, one a rank,
+each driving one card (or the CPU), and every mesh of them is one process
+grid (parallel/distributed.py ``Grid``): a tensor rank holds its shard, a
+seq rank the whole model and a whole KV pool, joined to the others only by
+the ring prefill's exchange (parallel/ring_attention.py), an expert rank
+its share of the experts, a stage its layers (engine/pp_runner.py). With
+pipeline stages alone the stages are one process's list of devices
+instead (``stage_devices``), which may repeat a card. Data parallelism is
+not ported: the router's replicas are the port's. -1 on an axis means
+"every device the others leave", as in the reference.
 """
 
 from __future__ import annotations

@@ -223,7 +223,7 @@ def main(argv=None) -> None:
     from production_stack_tpu_torch.engine.multihost import follow_leader
     from production_stack_tpu_torch.parallel.distributed import (
         DistributedConfig,
-        axis_of,
+        Grid,
     )
 
     dcfg = DistributedConfig.from_env()
@@ -247,10 +247,8 @@ def main(argv=None) -> None:
             engine.close()
         print("TOKENS " + json.dumps(out), flush=True)
     else:
-        mesh = cfg.mesh
         follow_leader(cfg, dcfg, args.device, [args.device], "gloo",
-                      axis=axis_of(mesh.seq, mesh.tensor),
-                      tensor=mesh.tensor, params=params)
+                      Grid.of(cfg.mesh, cfg.mesh.tensor), params=params)
         print("FOLLOWER DONE", flush=True)
     sys.exit(0)
 

@@ -1524,3 +1524,98 @@ def test_expert_ranks_on_one_card_match_expert1(cuda, tp):
     for r in reports:
         n = r["launches"]
         assert n["K1"] > 0 and n["K2"] > 0 and n["K3"] > 0
+
+
+# the process grid's combinations (tests/test_torch_grid_engine.py on the
+# CPU): (preset, path, the grid's mesh, its one-axis counterpart's)
+GRID_CASES = {
+    "seq2ep2": ("tiny-mixtral", "ragged", dict(seq=2, expert=2),
+                dict(seq=2)),
+    "pp2ep2": ("tiny-mixtral", "bucketed", dict(stage=2, expert=2),
+               dict(stage=2)),
+    "seq2pp2": ("tiny-llama", "bucketed", dict(stage=2, seq=2),
+                dict(stage=2)),
+}
+
+
+@pytest.mark.parametrize("name", list(GRID_CASES))
+def test_grid_on_one_card_matches_its_one_axis_counterpart(cuda, name):
+    """bf16 at seq 2 x expert 2 (the ring, ragged), stage 2 x expert 2 and
+    seq 2 x stage 2 (bucketed), every process on this card over gloo,
+    against the same card at the other axis alone (seq 2 at expert 1, and
+    pp 2 in one process) on the same weights: greedy tokens (and, on the
+    ragged path, logprobs) equal bit for bit; every process's digest is
+    rank 0's and each launched its path's kernels; no ring runs beside
+    stages."""
+    from production_stack_tpu_torch.engine.config import (
+        CacheConfig,
+        EngineConfig,
+        SchedulerConfig,
+    )
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+    from production_stack_tpu_torch.engine.weights import init_random
+    from production_stack_tpu_torch.parallel.distributed import Grid
+    from production_stack_tpu_torch.parallel.mesh import MeshConfig
+
+    preset, impl, grid_mesh, one_mesh = GRID_CASES[name]
+
+    def cfg(mesh):
+        return EngineConfig.for_model(
+            preset, dtype="bfloat16", attention_impl=impl,
+            cache=CacheConfig(block_size=16, num_blocks=128,
+                              enable_prefix_caching=False),
+            scheduler=SchedulerConfig(max_num_seqs=4,
+                                      max_num_batched_tokens=32,
+                                      ring_prefill_threshold=16),
+            mesh=MeshConfig(**{"tensor": 1, **mesh}))
+
+    params = init_random(cfg({}).model, seed=0)
+    rng = np.random.default_rng(26)
+    prompts = [rng.integers(0, 259, n).tolist() for n in (3, 40, 9, 21)]
+    sp = SamplingParams(temperature=0.0, max_tokens=12, ignore_eos=True,
+                        logprobs=2 if impl == "ragged" else None)
+    runs = {}
+    for key, mesh in (("one", one_mesh), ("grid", grid_mesh)):
+        grid = Grid.of(cfg(mesh).mesh, 1)
+        staged = grid.axes == ("stage",)
+        eng = (LLMEngine(cfg(mesh), params=params, device=cuda,
+                         stage_devices=["cuda:0"] * grid.stage) if staged
+               else LLMEngine(cfg(mesh), params=params, device=cuda,
+                              rank_devices=["cuda:0"] * grid.size,
+                              backend="gloo"))
+        try:
+            toks = {i: [] for i in range(len(prompts))}
+            lps = {i: [] for i in range(len(prompts))}
+            for i, p in enumerate(prompts):
+                eng.add_request(str(i), prompt_token_ids=p, sampling=sp)
+            while eng.has_unfinished():
+                for o in eng.step():
+                    toks[int(o.request_id)] += o.new_token_ids
+                    lps[int(o.request_id)] += o.new_logprobs or []
+            runs[key] = {"tokens": toks, "logprobs": lps,
+                         "ring": eng.scheduler.ring_enabled,
+                         "reports": (None if staged else
+                                     eng.runner.follower_reports())}
+        finally:
+            eng.close()
+    assert runs["grid"]["tokens"] == runs["one"]["tokens"]
+    assert runs["grid"]["logprobs"] == runs["one"]["logprobs"]
+    assert all(len(t) == 12 for t in runs["grid"]["tokens"].values())
+    grid = Grid(**grid_mesh)
+    reports = runs["grid"]["reports"]
+    assert [r["place"] for r in reports] == [
+        {a: grid.coords(g)[a] for a in grid.axes} for g in range(grid.size)]
+    assert len({(r["calls"], r["digest"]) for r in reports}) == 1
+    assert runs["grid"]["ring"] == (grid.stage == 1)
+    for r in reports:
+        n = r["launches"]
+        if impl == "ragged":
+            assert n["K1"] > 0 and n["K2"] > 0 and n["K3"] > 0
+        else:
+            assert n["K1"] > 0 and n["K3"] > 0 and n["K4"] > 0
+            assert n["K2"] == 0
+        if grid.expert > 1:
+            assert r["wire"]["moe_combine"] > 0
+        if grid.seq > 1 and grid.stage == 1:
+            assert r["wire"]["ring_rotate"] > 0

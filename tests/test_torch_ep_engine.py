@@ -20,8 +20,8 @@ against the port at expert 1 at the same tensor size, on the CPU.
   ranks), whose tokens are expert 1's bit for bit.
 - KV exports and imports at expert 2 x tp 2 equal tp 2's bit for bit
   (blocks and slabs), and at expert 2 equal one device's.
-- Refusals: expert ranks with seq or pipeline ranks, multi-host or a
-  Whisper model raise before any process starts.
+- Refusals: expert ranks multi-host, or for a Whisper model (alone and
+  beside seq or pipeline ranks), raise before any process starts.
 
 Every test that starts ranks runs under ``rank_limit`` (``_torch_tp``),
 one engine at a time (one torch.distributed group a process).
@@ -367,8 +367,11 @@ def test_exports_and_imports_are_expert1s(tp):
     (MeshConfig(tensor=2, seq=2, expert=2), "sequence"),
 ])
 def test_expert_with_seq_or_stage_raises_before_any_rank(mesh, what):
-    tconf = dataclasses.replace(_tconf(), mesh=mesh)
-    with pytest.raises(ValueError, match=what):
+    """Expert ranks with seq or pipeline ranks serve a text model
+    (tests/test_torch_grid_engine.py); a Whisper model there raises,
+    naming the grid's parallelism, before any process starts."""
+    tconf = dataclasses.replace(_tconf("tiny-whisper"), mesh=mesh)
+    with pytest.raises(ValueError, match=f"Whisper.*{what}"):
         LLMEngine(tconf, device="cpu")
     assert not multiprocessing.active_children()
 

@@ -340,8 +340,8 @@ def _args(*extra):
 
 def test_pp_times_tp_and_whisper_exit_at_start():
     """What still exits at start once pp x tp serves
-    (tests/test_torch_pp_tp.py): Whisper at pp 2 and at pp 2 x tp 2, seq
-    x pp with or without tensor ranks, and multi-host serving with
+    (tests/test_torch_pp_tp.py): Whisper at pp 2 and at pp 2 x tp 2, and
+    at seq x pp with or without tensor ranks, and multi-host serving with
     stages; each names what it refuses, and no process starts."""
     import multiprocessing
 
@@ -358,15 +358,21 @@ def test_pp_times_tp_and_whisper_exit_at_start():
              "--pipeline-parallel-size", "2", "--tensor-parallel-size", tp])
         with pytest.raises(SystemExit, match="Whisper under pipeline"):
             tserver.server_from_args(args)
-        with pytest.raises(SystemExit, match="--sequence-parallel-size 2 "
-                           "with --pipeline-parallel-size 2"):
-            tserver.config_from_args(_args(
-                "--pipeline-parallel-size", "2", "--sequence-parallel-size",
-                "2", "--tensor-parallel-size", tp))
-        with pytest.raises(ValueError, match="sequence parallelism"):
+        # seq x pp serves a text model (tests/test_torch_grid_engine.py);
+        # a Whisper model there exits, naming the grid
+        seq_pp = ("--pipeline-parallel-size", "2", "--sequence-parallel-size",
+                  "2", "--tensor-parallel-size", tp)
+        assert tserver.config_from_args(_args(*seq_pp)).mesh == MeshConfig(
+            stage=2, seq=2, tensor=int(tp))
+        with pytest.raises(SystemExit, match="Whisper under sequence(,| "
+                           "and) pipeline"):
+            tserver.config_from_args(_args(*seq_pp, "--model",
+                                           "tiny-whisper"))
+        with pytest.raises(ValueError, match="Whisper.*sequence(,| and) "
+                           "pipeline"):
             LLMEngine(tcfg.EngineConfig.for_model(
-                "tiny-llama", mesh=MeshConfig(stage=2, seq=2,
-                                              tensor=int(tp))),
+                "tiny-whisper", mesh=MeshConfig(stage=2, seq=2,
+                                                tensor=int(tp))),
                 device="cpu")
     with pytest.raises(ValueError, match="Whisper under pipeline"):
         WhisperRunner(tcfg.EngineConfig.for_model(

@@ -521,8 +521,8 @@ def test_whisper_is_refused_before_any_process_starts():
                                       mesh=MeshConfig(stage=2, tensor=2))
     with pytest.raises(ValueError, match="Whisper.*pipeline and tensor "
                        "parallelism"):
-        multihost.start_ranks(cfg, None, None, "cpu", 4,
-                              axis=pdist.AXIS_PP_GRID, tensor=2)
+        multihost.start_ranks(cfg, None, None, "cpu",
+                              pdist.Grid(stage=2, tensor=2))
     assert multiprocessing.active_children() == []
 
 
@@ -559,9 +559,10 @@ def test_flags_resolve_and_tensor_size_over_each_stage(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
     assert [tmesh.tensor_size(MeshConfig(stage=n, tensor=-1), "cuda")
             for n in (1, 2, 4)] == [8, 4, 2]
-    assert pdist.axis_of(1, 2, 2) == pdist.AXIS_PP_GRID
+    assert pdist.Grid.of(conf.mesh, 2).label == "stage,tensor"
     with pytest.raises(ValueError, match="no stage x tensor grid"):
-        pdist.check_grid(2, 2, pdist.AXIS_PP_GRID)
+        pdist.init_rank(0, 2, 0, ["cpu"] * 2, "gloo",
+                        grid=pdist.Grid(stage=2, tensor=2))
 
 
 def test_grid_refuses_a_card_it_lacks():

@@ -394,10 +394,12 @@ def test_sequence_parallel_flags_resolve():
 
 
 @pytest.mark.parametrize("extra,named", [
-    (["--pipeline-parallel-size", "2"], "sequence and pipeline parallelism"),
-    (["--model", "tiny-whisper"], "Whisper"),
-    (["--tensor-parallel-size", "2", "--pipeline-parallel-size", "2"],
+    (["--model", "tiny-whisper", "--pipeline-parallel-size", "2"],
      "sequence and pipeline parallelism"),
+    (["--model", "tiny-whisper"], "Whisper"),
+    (["--model", "tiny-whisper", "--tensor-parallel-size", "2",
+      "--pipeline-parallel-size", "2"],
+     "sequence, pipeline and tensor parallelism"),
 ])
 def test_what_seq_does_not_carry_exits_at_start(extra, named):
     args = _args("--sequence-parallel-size", "2", *extra)
@@ -453,9 +455,10 @@ def test_engine_refuses_before_starting_ranks():
     with pytest.raises(ValueError, match="Whisper"):
         LLMEngine(conf, device="cpu")
     conf = EngineConfig.for_model(
-        "tiny-llama", cache=CacheConfig(num_blocks=32),
+        "tiny-whisper", cache=CacheConfig(num_blocks=32),
         mesh=MeshConfig(seq=2, stage=2))
-    with pytest.raises(ValueError, match="sequence parallelism .* pipeline"):
+    with pytest.raises(ValueError, match="Whisper.*sequence and pipeline "
+                       "parallelism"):
         LLMEngine(conf, device="cpu")
     import multiprocessing
 
